@@ -1,6 +1,6 @@
 """The volumetric renderer: sample -> transform -> encode -> MLP -> composite.
 
-Port of the forward of ``anerf_tpu/models/raycaster.py`` (reference
+Port of ``anerf_tpu/models/raycaster.py`` (reference
 core/raycasters.py: render_rays :361-474, encode_inputs :476-555,
 run_network :557-577).  Parameters and randomness are explicit: a
 ``torch.Generator`` replaces the JAX key, and ``fixed`` pins every
@@ -8,8 +8,11 @@ random draw for parity tests.
 
 Two MLP backends (``RayCastConfig.mlp_backend``):
   * 'fused': the hand-written fused encode+MLP kernels
-    (ops/fused_encmlp.py) when ``supported_config`` holds; their
-    wrappers take the plain twins for CPU tensors.  Outside
+    (ops/fused_encmlp.py) when ``supported_config`` holds, K1/K2 forward
+    and K3/K4 backward; their wrappers take the plain twins for CPU
+    tensors.  Gradients reach the nets' parameters, the framecodes and,
+    through the component-major transform and the view PE rows, the
+    per-ray ``skts``.  Outside
     ``supported_config`` the JAX package runs its split-operand MLP
     kernel, which is not ported: CPU tensors take the plain MLP, CUDA
     tensors raise.

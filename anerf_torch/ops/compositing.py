@@ -39,11 +39,31 @@ def _deltas(z: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
     return dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis for inputs known to be
+    positive.  torch's own backward reads back whether the input holds a
+    zero (an ``item()``, which waits for the device); with no zeros its
+    gradient is the reversed cumulative sum of g * y, divided by x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(g * y, [-1]), -1),
+                          [-1]) / x
+
+
 def _weights(sigma: torch.Tensor, dists: torch.Tensor, act_fn: Callable):
     alpha = 1. - torch.exp(-act_fn(sigma) * dists)
-    trans = torch.cumprod(
+    # 1 - alpha + 1e-10 > 0: alpha = 1 - exp(-(>= 0)) lies in [0, 1]
+    trans = _CumprodPositive.apply(
         torch.cat([torch.ones_like(alpha[..., :1]),
-                   1. - alpha + 1e-10], -1), -1)[..., :-1]
+                   1. - alpha + 1e-10], -1))[..., :-1]
     return alpha, alpha * trans
 
 

@@ -1,49 +1,54 @@
-"""Fused encode+MLP forward: skeleton-relative points in, raw radiance out.
+"""Fused encode+MLP: skeleton-relative points in, raw radiance out, and
+its backward.
 
-Port of the forward half of ``anerf_tpu/ops/pallas_encmlp.py``.  For
-the flagship encoding family (kp 'reldist' + bone 'reldir' + view
-'relray', cutoff windows on all three) the encoded features are a pure
-elementwise function of the component-major points ``pts_t`` plus a
-small per-ray view PE, so the kernels compute distances, windows,
-positional encodings AND the whole radiance MLP per point tile: device
-memory sees ``pts_t`` (72 channels) in and raw (4 channels) out.
+Port of ``anerf_tpu/ops/pallas_encmlp.py``.  For the flagship encoding
+family (kp 'reldist' + bone 'reldir' + view 'relray', cutoff windows on
+all three) the encoded features are a pure elementwise function of the
+component-major points ``pts_t`` plus a small per-ray view PE, so the
+kernels compute distances, windows, positional encodings AND the whole
+radiance MLP per point tile: device memory sees ``pts_t`` (72 channels)
+in and raw (4 channels) out.
 
-Two hand-written CUDA kernels (``csrc/encmlp_fwd.cu``) replace the two
-Pallas forwards of the render path:
+Four hand-written CUDA kernels replace the four Pallas kernels of the
+train step:
 
-  * K1 ``encmlp_fwd``      <- pallas_encmlp.py ``_fused_call`` /
-    ``_fwd_kernel`` (one net; the fine pass on the importance samples);
-  * K2 ``encmlp_dual_fwd`` <- pallas_encmlp.py ``_fused_dual_call`` /
-    ``_fwd_kernel_dual`` (encode once, coarse AND fine nets; the coarse
-    samples).
+  * K1 ``encmlp_fwd``      <- ``_fused_call`` / ``_fwd_kernel`` (one
+    net; the fine pass on the importance samples);
+  * K2 ``encmlp_dual_fwd`` <- ``_fused_dual_call`` / ``_fwd_kernel_dual``
+    (encode once, coarse AND fine nets; the coarse samples);
+  * K3 ``encmlp_bwd``      <- ``_fused_bwd`` / ``_bwd_kernel``;
+  * K4 ``encmlp_dual_bwd`` <- ``_fused_dual_bwd`` / ``_bwd_kernel_dual``.
 
-Bound on an H100: each point costs 2 x 863,872 MACs per net against
-~300 bytes of device traffic, so both kernels are bound by tensor-core
-operations (the eval K2 chunk: 9.06e11 FLOP, 0.92 ms at 989 TFLOP/s
-bf16, against 95 MB = 0.03 ms of HBM).  The design keeps every
-encoding in shared memory (they never touch device memory), runs each
-product on the tensor cores with ``mma.sync`` bf16 operands and f32
-accumulators, and streams each layer's weights from L2, where one
-net's 1.7 MB weight set stays resident because every block reads it.
-Its first-order cost is that re-read: each 64-point tile reads every
-weight once, ~14 GB of L2 traffic per eval K2 launch (PERF.md).
+K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
+(their source notes give the designs and bounds).  All four are bound
+by tensor-core operations: each point costs 2 x 863,872 MACs per net
+forward, three times that backward, against a few hundred bytes of
+device traffic.
 
-Beside each kernel is its plain PyTorch twin (``encmlp_fwd_plain`` /
-``encmlp_dual_fwd_plain``), which materializes the encodings and runs
-the same bf16 chain as exact bf16 products summed in f32.  The
-wrappers take the twin for tensors on the CPU only; for CUDA tensors
-they launch the kernel or raise.  Each wrapper counts its launches in a
-module integer (``K1_LAUNCHES``, ``K2_LAUNCHES``).
+``encmlp_fwd``/``encmlp_dual_fwd`` run K1/K2 inside a
+``torch.autograd.Function`` whose backward is K3/K4 (the counterpart of
+JAX's ``custom_vjp``), so the gradients reach the points, the view PE
+rows, the framecodes and every weight on every device.  Each weight
+gradient comes back in its operand's dtype (bf16 weights, f32 biases),
+as JAX's ``gr.astype(d)``; ``cutoff`` and ``tau`` get none.
+
+Beside each kernel is its plain PyTorch twin (``encmlp_fwd_plain``,
+``encmlp_dual_fwd_plain``, ``encmlp_bwd_plain``,
+``encmlp_dual_bwd_plain``): the same bf16 chain with the encodings
+materialized and exact bf16 products summed in f32.  The wrappers take
+the twin for tensors on the CPU only; for CUDA tensors they launch the
+kernel or raise.  Each wrapper counts its launches in a module integer
+(``K1_LAUNCHES`` .. ``K4_LAUNCHES``, read by ``launch_counts()``).
 
 The PE bands use the double-angle recurrence from one sin and one
 cos-as-shifted-sin per joint, as the TPU kernels do (pallas_encmlp.py
-``SIN_RECURRENCE``), in the twin and in the CUDA kernels alike.
+``SIN_RECURRENCE``), in the twins and the kernels alike; the backward
+recomputes them instead of reading the TPU's stash.
 
-Not ported yet (ROADMAP.md): the training stash and the backward
-kernels, the per-ray view factorization mode (``viewfac``; its cost
-gate is computed here but the port always runs the dense form, which
-is the same function up to bf16 rounding) and the in-kernel rigid
-transform (``fuse_tform``).
+Not ported yet (ROADMAP.md): the per-ray view factorization mode
+(``viewfac``; its cost gate is computed here but the port always runs
+the dense form, which is the same function up to bf16 rounding) and the
+in-kernel rigid transform (``fuse_tform``).
 """
 from __future__ import annotations
 
@@ -61,7 +66,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .fused_mlp import MLPStatic, _forward_tile, _mlp_macs, _weight_shapes
+from .fused_mlp import (MLPStatic, _forward_tile, _mlp_bwd_tile, _mlp_macs,
+                        _weight_shapes)
 from .fused_mlp import flatten_params as _flatten_plain
 
 
@@ -110,7 +116,14 @@ def _encode_plain(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
                   cutoff: torch.Tensor, tau: torch.Tensor):
     """Materialized encode of component-major points ``p`` (n, 3J):
     returns (v (n, (1+2F)J), r (n, 3J), xv (n, nb*3J)) in f32, the
-    values the CUDA kernels build in shared memory.
+    values the CUDA kernels build in shared memory."""
+    return _encode_fwd_res(est, p, enc_ray, cutoff, tau)[0]
+
+
+def _encode_fwd_res(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
+                    cutoff: torch.Tensor, tau: torch.Tensor):
+    """``_encode_plain`` plus the pullback's residuals: returns
+    ((v, r, xv), (dists, w, bands, invd)).
 
     Mirrors ``pallas_encmlp._encode_fwd_res`` for the flagship flags
     (include_input, cutoff_inputs, no shift/cut_to/schedule).
@@ -142,7 +155,118 @@ def _encode_plain(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
     # per-ray view PE rows times the per-sample window (col % J = joint)
     ray = torch.arange(p.shape[0], device=p.device) // est.S
     xv = enc_ray[ray] * w3.repeat(1, est.view_nb)
-    return v, r, xv
+    return (v, r, xv), (dists, w, bands, invd)
+
+
+def _sum_blocks(a: torch.Tensor, width: int, k: int) -> torch.Tensor:
+    """Fold (n, k*width) to (n, width) by summing the k column blocks in
+    order (the pullback of a column-block repeat)."""
+    acc = a[:, :width]
+    for i in range(1, k):
+        acc = acc + a[:, i * width:(i + 1) * width]
+    return acc
+
+
+def _encode_pullback_plain(est: EncStatic, p, enc_ray, res, tau, gv, gr,
+                           gxv):
+    """Plain VJP of ``_encode_fwd_res`` (f32 cotangents in), the
+    transcendental-free pullback of ``pallas_encmlp._encode_pullback``:
+    each band's derivative is its paired band scaled by +-f, sigmoid'
+    reuses the window, sqrt' the stored distances.  Returns
+    (dp (n, 3J), denc (R, nb*3J)): ``denc`` sums over the samples of
+    each ray."""
+    J = est.J
+    dists, w, bands, invd = res
+    F = len(est.kp_freqs)
+
+    g_vraw = gv * w.repeat(1, 2 * F + 1)
+    vraw = torch.cat([dists, bands], -1)
+    g_w = _sum_blocks(gv * vraw, J, 2 * F + 1)
+    g_dists = g_vraw[:, :J]
+    g_bands = g_vraw[:, J:]
+
+    pair_parts = []
+    for m in range(F):
+        pair_parts += [bands[:, (2 * m + 1) * J:(2 * m + 2) * J],
+                       bands[:, (2 * m) * J:(2 * m + 1) * J]]
+    paired = torch.cat(pair_parts, -1)
+    k2 = torch.arange(2 * F * J, device=p.device) // J
+    sfreq = torch.exp2((k2 // 2).float()) * (1. - 2. * (k2 % 2).float())
+    g_dists = g_dists + _sum_blocks(g_bands * sfreq * paired, J, 2 * F)
+
+    invd3 = invd.repeat(1, 3)
+    if est.bone_windowed:
+        w3 = w.repeat(1, 3)
+        dp = gr * invd3 * w3
+        g_w = g_w + _sum_blocks(gr * p * invd3, J, 3)
+        g_invd = _sum_blocks(gr * p * w3, J, 3)
+    else:
+        dp = gr * invd3
+        g_invd = _sum_blocks(gr * p, J, 3)
+    g_dists = g_dists - g_invd * (invd * invd) * (dists > est.eps).float()
+
+    nbJ3 = est.view_nb * 3 * J
+    ray = torch.arange(p.shape[0], device=p.device) // est.S
+    g_enc_flat = gxv * w.repeat(1, 3 * est.view_nb)
+    R = enc_ray.shape[0]
+    denc = g_enc_flat.reshape(R, est.S, nbJ3).sum(1)
+    g_w = g_w + _sum_blocks(_sum_blocks(gxv * enc_ray[ray], 3 * J,
+                                        est.view_nb), J, 3)
+
+    sig = 1. - w
+    g_dists = g_dists - g_w * (tau * sig * w)
+    dp = dp + p * (g_dists * invd).repeat(1, 3)
+    return dp, denc
+
+
+def _bwd_nets_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes_list,
+                    cutoff, tau, flats, gs):
+    """Shared body of the backward twins: one encode, each net's MLP
+    backward, the nets' input cotangents summed in f32, rounded through
+    bf16, and pulled back once (``_bwd_kernel_dual`` :784-822)."""
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau)
+    xs = [b16(v), b16(r)]
+    ray = torch.arange(p.shape[0], device=p.device) // est.S
+    R = enc_ray.shape[0]
+    gx_tot = [torch.zeros_like(x) for x in xs]
+    gxv_tot = torch.zeros_like(xv)
+    dcodes, grads = [], []
+    for codes, flat, g in zip(codes_list, flats, gs):
+        xvs = [b16(xv)] + ([b16(codes[ray])] if est.has_codes else [])
+        g_x, g_xvs, gr = _mlp_bwd_tile(st, xs, xvs, flat, g.t())
+        gx_tot = [a + b for a, b in zip(gx_tot, g_x)]
+        gxv_tot = gxv_tot + g_xvs[0]
+        dcodes.append(g_xvs[1].reshape(R, est.S, -1).sum(1)
+                      if est.has_codes else None)
+        grads.append(gr)
+    dp, denc = _encode_pullback_plain(est, p, enc_ray, res, tau,
+                                      b16(gx_tot[0]), b16(gx_tot[1]),
+                                      b16(gxv_tot))
+    return dp, denc, dcodes, grads
+
+
+def encmlp_bwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
+                     cutoff, tau, flat, g):
+    """Plain twin of K3: the backward of K1 for the raw cotangent ``g``
+    (4, n).  Returns (dp (n, 3J), denc (R, nb*3J), dcodes (R, C) or
+    None, grads): f32 gradients of every ``flatten_params_cm`` operand.
+    Mirrors ``pallas_encmlp._bwd_kernel``."""
+    dp, denc, dcodes, grads = _bwd_nets_plain(
+        st, est, p, enc_ray, [codes], cutoff, tau, [flat], [g])
+    return dp, denc, dcodes[0], grads[0]
+
+
+def encmlp_dual_bwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
+                          codes_c, codes_f, cutoff, tau, flat_c, flat_f,
+                          g_c, g_f):
+    """Plain twin of K4: the backward of K2.  Returns (dp, denc,
+    dcodes_c, dcodes_f, grads_c, grads_f).  Mirrors
+    ``pallas_encmlp._bwd_kernel_dual``."""
+    dp, denc, dcodes, grads = _bwd_nets_plain(
+        st, est, p, enc_ray, [codes_c, codes_f], cutoff, tau,
+        [flat_c, flat_f], [g_c, g_f])
+    return dp, denc, dcodes[0], dcodes[1], grads[0], grads[1]
 
 
 def encmlp_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
@@ -172,19 +296,24 @@ def encmlp_dual_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels: build, weight packing, wrappers, launch counts
+# CUDA kernels: build, weight packing, wrappers, autograd, launch counts
 # ---------------------------------------------------------------------------
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K3_LAUNCHES = 0
+K4_LAUNCHES = 0
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', 'csrc',
-                    'encmlp_fwd.cu')
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
+                     'csrc')
+_HEADER = os.path.join(_CSRC, 'encmlp_common.cuh')
+_SOURCES = {'fwd': os.path.join(_CSRC, 'encmlp_fwd.cu'),
+            'bwd': os.path.join(_CSRC, 'encmlp_bwd.cu')}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
                           '_build')
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
-# the one shape the kernels are compiled for (csrc/encmlp_fwd.cu):
+# the one shape the kernels are compiled for (csrc/encmlp_common.cuh):
 # J=24 joints, kp PE 2^0..2^6, view PE 4 bands, 8x256 trunk with the
 # skip after layer 4, views branch 128, framecodes of 16 (or none)
 _KERNEL_SHAPE = dict(J=24, F=7, view_nb=9, depth=8, width=256, half=128,
@@ -193,12 +322,13 @@ _XV_PAD = 672       # views input [xv 648 | codes 16 | 0 x 8], 42 x 16
 
 
 def reset_launch_counts() -> None:
-    global K1_LAUNCHES, K2_LAUNCHES
-    K1_LAUNCHES = K2_LAUNCHES = 0
+    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
+    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES}
+    return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES,
+            'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES}
 
 
 def _nvcc() -> str:
@@ -211,46 +341,80 @@ def _nvcc() -> str:
                        'machine with the CUDA toolkit')
 
 
+def _bind(lib: ctypes.CDLL, which: str) -> None:
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if which == 'fwd':
+        for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
+            fn = getattr(lib, name)
+            # p, enc_ray, codes, cutoff, tau, wpack, bpack, out, n, S, R,
+            # stream
+            fn.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+            fn.restype = ci
+        lib.encmlp_weight_elems.argtypes = []
+        lib.encmlp_weight_elems.restype = cll
+        lib.encmlp_bias_elems.argtypes = []
+        lib.encmlp_bias_elems.restype = ci
+        return
+    for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
+        fn = getattr(lib, name)
+        # p, enc_ray, codes, cutoff, tau, wpack, wpack_b, bpack, g,
+        # workspace, dp, denc, dcodes, dw, db, n, S, R, stream
+        fn.argtypes = [vp] * 15 + [ci] * 3 + [vp]
+        fn.restype = ci
+    lib.encmlp_bwd_workspace_bytes.argtypes = [ci, ci]
+    lib.encmlp_bwd_workspace_bytes.restype = cll
+    lib.encmlp_grad_weight_elems.argtypes = []
+    lib.encmlp_grad_weight_elems.restype = cll
+
+
 def build_kernels(verbose: bool = False) -> float:
-    """Compile ``csrc/encmlp_fwd.cu`` for sm_90a into ``_build/`` (keyed
-    by the source's hash) and load it.  Returns the seconds spent
-    (0 when the library was already loaded)."""
-    global _LIB
-    if _LIB is not None:
+    """Compile ``csrc/encmlp_fwd.cu`` (K1, K2) and ``csrc/encmlp_bwd.cu``
+    (K3, K4) for sm_90a into ``_build/``, one nvcc per source, both
+    started together, each library keyed by the hash of its source and
+    the shared header; then load both.  Returns the seconds spent (0
+    when the libraries were already loaded).  A failed build raises."""
+    if len(_LIBS) == len(_SOURCES):
         return 0.
     t0 = time.perf_counter()
-    with open(_SRC, 'rb') as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f'libencmlp_{digest}.so')
-    if not os.path.exists(so):
+    with open(_HEADER, 'rb') as f:
+        header = f.read()
+    jobs = {}
+    for which, src in _SOURCES.items():
+        with open(src, 'rb') as f:
+            digest = hashlib.sha1(f.read() + header).hexdigest()[:12]
+        so = os.path.join(_BUILD_DIR, f'libencmlp_{which}_{digest}.so')
+        if os.path.exists(so):
+            jobs[which] = (so, None, None)
+            continue
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
                '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-               '-o', tmp, _SRC]
+               '-o', tmp, src]
         if verbose:
             cmd[1:1] = ['-Xptxas', '-v']
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[which] = (so, tmp, proc)
+    errors = []
+    for which, (so, tmp, proc) in jobs.items():
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                               f'{res.stdout}\n{res.stderr}')
+            errors.append(f'nvcc {which} failed ({proc.returncode}):\n{out}')
+            continue
         if verbose:
-            print(res.stdout + res.stderr)
+            print(out)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-        fn = getattr(lib, name)
-        # p, enc_ray, codes, cutoff, tau, wpack, bpack, out, n, S, R, stream
-        fn.argtypes = [vp] * 8 + [ci] * 3 + [vp]
-        fn.restype = ci
-    lib.encmlp_weight_elems.argtypes = []
-    lib.encmlp_weight_elems.restype = ctypes.c_longlong
-    lib.encmlp_bias_elems.argtypes = []
-    lib.encmlp_bias_elems.restype = ci
-    _LIB = lib
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+    for which, (so, _, _) in jobs.items():
+        lib = ctypes.CDLL(so)
+        _bind(lib, which)
+        _LIBS[which] = lib
     return time.perf_counter() - t0
 
 
@@ -341,18 +505,26 @@ def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est):
     return n, R
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_packs(lib, nnet, wbuf, bbuf) -> None:
+    if (wbuf.numel() != nnet * lib.encmlp_weight_elems()
+            or bbuf.numel() != nnet * lib.encmlp_bias_elems()):
+        raise ValueError('packed weights do not match the kernel layout')
+
+
 def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
             bbuf, out, n: int, S: int, R: int) -> None:
     build_kernels()
-    if (wbuf.numel() != nnet * _LIB.encmlp_weight_elems()
-            or bbuf.numel() != nnet * _LIB.encmlp_bias_elems()):
-        raise ValueError('packed weights do not match the kernel layout')
-    fn = getattr(_LIB, name)
+    lib = _LIBS['fwd']
+    _check_packs(lib, nnet, wbuf, bbuf)
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
-                 cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
-                 bbuf.data_ptr(), out.data_ptr(), n, S, R, stream)
+        err = getattr(lib, name)(
+            p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
+            cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
+            bbuf.data_ptr(), out.data_ptr(), n, S, R, _stream(p.device))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
@@ -365,19 +537,19 @@ def _codes_operand(codes_list, est, R, device):
                        dtype=torch.float32, device=device)
 
 
-def encmlp_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
-               enc_ray: torch.Tensor, codes: Optional[torch.Tensor],
-               cutoff: torch.Tensor, tau: torch.Tensor,
-               flat: Sequence[torch.Tensor]) -> torch.Tensor:
-    """K1: fused encode + one net.  p (n, 3J) component-major f32,
-    enc_ray (R, nb*3J), codes (R, C) or None, cutoff (J,), tau (1,),
-    flat the ``flatten_params_cm`` operands.  Returns raw (4, n)."""
+def _device_of(p: torch.Tensor) -> str:
+    """'cpu' (the twins) or 'cuda' (the kernels); anything else raises."""
+    if p.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {p.device}')
+    return p.device.type
+
+
+def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat) -> torch.Tensor:
+    """K1 or its twin, no autograd."""
     global K1_LAUNCHES
     n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
-    if p.device.type == 'cpu':
+    if _device_of(p) == 'cpu':
         return encmlp_fwd_plain(st, est, p, enc_ray, codes, cutoff, tau, flat)
-    if p.device.type != 'cuda':
-        raise ValueError(f'unsupported device {p.device}')
     _check_kernel_shape(st, est)
     wbuf, bbuf = _pack_kernel_weights(flat, st)
     out = torch.empty((4, n), dtype=torch.float32, device=p.device)
@@ -388,21 +560,14 @@ def encmlp_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
     return out
 
 
-def encmlp_dual_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
-                    enc_ray: torch.Tensor, codes_c: Optional[torch.Tensor],
-                    codes_f: Optional[torch.Tensor], cutoff: torch.Tensor,
-                    tau: torch.Tensor, flat_c: Sequence[torch.Tensor],
-                    flat_f: Sequence[torch.Tensor]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: fused encode once + the coarse and the fine net.  Returns
-    (raw_coarse, raw_fine), each (4, n)."""
+def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
+              flat_f) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 or its twin, no autograd."""
     global K2_LAUNCHES
     n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
-    if p.device.type == 'cpu':
+    if _device_of(p) == 'cpu':
         return encmlp_dual_fwd_plain(st, est, p, enc_ray, codes_c, codes_f,
                                      cutoff, tau, flat_c, flat_f)
-    if p.device.type != 'cuda':
-        raise ValueError(f'unsupported device {p.device}')
     _check_kernel_shape(st, est)
     wc, bc = _pack_kernel_weights(flat_c, st)
     wf, bf = _pack_kernel_weights(flat_f, st)
@@ -414,23 +579,264 @@ def encmlp_dual_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
     return out[0], out[1]
 
 
-def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int
-                ) -> Dict[str, float]:
+# -- backward: the kernels' gradient layout --------------------------------
+
+def _grad_layout(st: MLPStatic) -> List[Tuple[str, int, Tuple[int, int]]]:
+    """Where the gradient of each ``flatten_params`` operand lies in the
+    backward kernels' two f32 outputs: ('w', offset, shape) in the
+    weight buffer or ('b', offset, shape) in the bias buffer.
+
+    The weight buffer holds every weight as (in, out) row-major in
+    flatten order, which puts the input parts of one product side by
+    side (L0 [v|r] (432, 256), L5 h then [v|r], ..., views feature part
+    then [xv|codes|0] (672, 128)): the layout ``_pack_bwd_weights``
+    writes and ``csrc/encmlp_bwd.cu`` reads.  The bias buffer has the
+    forward's bias layout (b0..b7, feature, views, alpha, rgb).
+    """
+    W, H = st.width, st.half
+    ob_f = st.depth * W
+    ob_v, ob_a = ob_f + W, ob_f + W + H
+    ob_r = ob_a + 1
+    out: List[Tuple[str, int, Tuple[int, int]]] = []
+    woff = 0
+    vx_last = len(_weight_shapes(st)) - 4      # the last views x-part
+    for idx, (shape, dtype) in enumerate(_weight_shapes(st)):
+        if dtype == torch.bfloat16:
+            out.append(('w', woff, shape))
+            woff += shape[0] * shape[1]
+            if idx == vx_last:
+                woff += (_XV_PAD - sum(st.vparts)) * H
+        else:
+            out.append(('b', 0, shape))
+    biases = [i for i, (k, _, _) in enumerate(out) if k == 'b']
+    offs = [i * W for i in range(st.depth)] + [ob_a, ob_f, ob_v, ob_r]
+    for i, off in zip(biases, offs):
+        out[i] = ('b', off, out[i][2])
+    return out
+
+
+def _pack_bwd_weights(flat: Sequence[torch.Tensor], st: MLPStatic
+                      ) -> torch.Tensor:
+    """The backward kernels' bf16 weight buffer: every weight at its
+    ``_grad_layout`` offset, untransposed (in, out), zeros in the gaps
+    (the rows past the views input parts).  The backward products
+    contract over a layer's outputs, so their B fragments read these
+    rows whole."""
+    parts, pos = [], 0
+    for w, (kind, off, shape) in zip(flat, _grad_layout(st)):
+        if kind != 'w':
+            continue
+        if off > pos:
+            parts.append(torch.zeros(off - pos, dtype=torch.bfloat16,
+                                     device=w.device))
+        parts.append(w.to(torch.bfloat16).reshape(-1))
+        pos = off + shape[0] * shape[1]
+    return torch.cat(parts).contiguous()
+
+
+def _unpack_grads(st: MLPStatic, dw: torch.Tensor, db: torch.Tensor
+                  ) -> List[torch.Tensor]:
+    """The f32 gradient of every ``flatten_params`` operand, as views
+    into one net's kernel outputs."""
+    out = []
+    for kind, off, shape in _grad_layout(st):
+        buf = dw if kind == 'w' else db
+        out.append(buf[off:off + shape[0] * shape[1]].view(shape))
+    return out
+
+
+def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
+                cutoff, tau, flats, gs):
+    """Launch K3 (nnet=1) or K4 (nnet=2).  Returns (dp, denc, dcodes
+    (nnet, R, 16), grads per net)."""
+    build_kernels()
+    _check_kernel_shape(st, est)
+    n, R = p.shape[0], enc_ray.shape[0]
+    dev = p.device
+    fwd_lib, lib = _LIBS['fwd'], _LIBS['bwd']
+    packs = [_pack_kernel_weights(f, st) for f in flats]
+    wbuf = torch.cat([w for w, _ in packs])
+    bbuf = torch.cat([b for _, b in packs])
+    _check_packs(fwd_lib, nnet, wbuf, bbuf)
+    wbuf_b = torch.cat([_pack_bwd_weights(f, st) for f in flats])
+    n_dw = lib.encmlp_grad_weight_elems()
+    if wbuf_b.numel() != nnet * n_dw:
+        raise ValueError('backward weight pack does not match the kernel')
+    g = torch.stack([x.float() for x in gs]).contiguous()
+    if tuple(g.shape) != (nnet, 4, n):
+        raise ValueError(f'raw cotangents must be ({nnet}, 4, {n})')
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = torch.empty(int(lib.encmlp_bwd_workspace_bytes(n, nnet)),
+                     dtype=torch.uint8, device=dev)
+    dp = torch.empty((n, 3 * est.J), **f32)
+    denc = torch.empty(tuple(enc_ray.shape), **f32)
+    dcodes = torch.empty((nnet, R, _KERNEL_SHAPE['codes']), **f32)
+    dw = torch.empty((nnet, n_dw), **f32)
+    db = torch.empty((nnet, fwd_lib.encmlp_bias_elems()), **f32)
+    codes = _codes_operand(codes_list, est, R, dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
+            cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
+            wbuf_b.data_ptr(), bbuf.data_ptr(), g.data_ptr(), ws.data_ptr(),
+            dp.data_ptr(), denc.data_ptr(), dcodes.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, est.S, R, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f'{name} launch failed: cudaError {err}')
+    grads = [_unpack_grads(st, dw[i], db[i]) for i in range(nnet)]
+    return dp, denc, dcodes, grads
+
+
+def encmlp_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes, cutoff,
+               tau, flat, g):
+    """K3: the backward of K1 for the raw cotangent ``g`` (4, n).
+    Returns (dp (n, 3J), denc (R, nb*3J), dcodes (R, C) or None, f32
+    gradients of the ``flatten_params_cm`` operands).  CPU tensors take
+    the twin; CUDA tensors launch the kernel or raise."""
+    global K3_LAUNCHES
+    _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
+    if _device_of(p) == 'cpu':
+        return encmlp_bwd_plain(st, est, p, enc_ray, codes, cutoff, tau,
+                                flat, g)
+    dp, denc, dcodes, grads = _launch_bwd('encmlp_bwd', 1, st, est, p,
+                                          enc_ray, [codes], cutoff, tau,
+                                          [flat], [g])
+    K3_LAUNCHES += 1
+    return dp, denc, dcodes[0] if est.has_codes else None, grads[0]
+
+
+def encmlp_dual_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes_c,
+                    codes_f, cutoff, tau, flat_c, flat_f, g_c, g_f):
+    """K4: the backward of K2.  Returns (dp, denc, dcodes_c, dcodes_f,
+    grads_c, grads_f)."""
+    global K4_LAUNCHES
+    _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
+    if _device_of(p) == 'cpu':
+        return encmlp_dual_bwd_plain(st, est, p, enc_ray, codes_c, codes_f,
+                                     cutoff, tau, flat_c, flat_f, g_c, g_f)
+    dp, denc, dcodes, grads = _launch_bwd(
+        'encmlp_dual_bwd', 2, st, est, p, enc_ray, [codes_c, codes_f],
+        cutoff, tau, [flat_c, flat_f], [g_c, g_f])
+    K4_LAUNCHES += 1
+    dc = (dcodes[0], dcodes[1]) if est.has_codes else (None, None)
+    return dp, denc, dc[0], dc[1], grads[0], grads[1]
+
+
+# -- autograd ---------------------------------------------------------------
+
+def _cast_grads(grads, flat):
+    """Each gradient in its operand's dtype: bf16 for weights, f32 for
+    biases (``gr.astype(d)``, pallas_encmlp.py:681,937-940)."""
+    return [gr.to(w.dtype) for gr, w in zip(grads, flat)]
+
+
+class _EncMLP(torch.autograd.Function):
+    """K1 forward, K3 backward (``pallas_encmlp._fused`` custom_vjp).
+    ``cutoff`` and ``tau`` get no gradient, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, st, est, p, enc_ray, codes, cutoff, tau, *flat):
+        ctx.st, ctx.est, ctx.has_codes = st, est, codes is not None
+        ctx.save_for_backward(p, enc_ray, cutoff, tau,
+                              *([codes] if codes is not None else []), *flat)
+        return _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        p, enc_ray, cutoff, tau = saved[:4]
+        codes = saved[4] if ctx.has_codes else None
+        flat = saved[5 if ctx.has_codes else 4:]
+        dp, denc, dcodes, grads = encmlp_bwd(ctx.st, ctx.est, p, enc_ray,
+                                             codes, cutoff, tau, flat, g)
+        return (None, None, dp, denc, dcodes, None, None,
+                *_cast_grads(grads, flat))
+
+
+class _EncMLPDual(torch.autograd.Function):
+    """K2 forward, K4 backward (``pallas_encmlp._fused_dual``)."""
+
+    @staticmethod
+    def forward(ctx, st, est, nflat, p, enc_ray, codes_c, codes_f, cutoff,
+                tau, *flats):
+        ctx.st, ctx.est, ctx.nflat = st, est, nflat
+        ctx.has_codes = codes_c is not None
+        codes = [codes_c, codes_f] if ctx.has_codes else []
+        ctx.save_for_backward(p, enc_ray, cutoff, tau, *codes, *flats)
+        return _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau,
+                         flats[:nflat], flats[nflat:])
+
+    @staticmethod
+    def backward(ctx, g_c, g_f):
+        saved = ctx.saved_tensors
+        p, enc_ray, cutoff, tau = saved[:4]
+        k = 6 if ctx.has_codes else 4
+        codes_c, codes_f = saved[4:6] if ctx.has_codes else (None, None)
+        flat_c, flat_f = saved[k:k + ctx.nflat], saved[k + ctx.nflat:]
+        dp, denc, dc_c, dc_f, gr_c, gr_f = encmlp_dual_bwd(
+            ctx.st, ctx.est, p, enc_ray, codes_c, codes_f, cutoff, tau,
+            flat_c, flat_f, g_c, g_f)
+        return (None, None, None, dp, denc, dc_c, dc_f, None, None,
+                *_cast_grads(gr_c, flat_c), *_cast_grads(gr_f, flat_f))
+
+
+def encmlp_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
+               enc_ray: torch.Tensor, codes: Optional[torch.Tensor],
+               cutoff: torch.Tensor, tau: torch.Tensor,
+               flat: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K1: fused encode + one net.  p (n, 3J) component-major f32,
+    enc_ray (R, nb*3J), codes (R, C) or None, cutoff (J,), tau (1,),
+    flat the ``flatten_params_cm`` operands.  Returns raw (4, n), with
+    K3 as its backward on every device."""
+    return _EncMLP.apply(st, est, p, enc_ray, codes, cutoff, tau, *flat)
+
+
+def encmlp_dual_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
+                    enc_ray: torch.Tensor, codes_c: Optional[torch.Tensor],
+                    codes_f: Optional[torch.Tensor], cutoff: torch.Tensor,
+                    tau: torch.Tensor, flat_c: Sequence[torch.Tensor],
+                    flat_f: Sequence[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: fused encode once + the coarse and the fine net.  Returns
+    (raw_coarse, raw_fine), each (4, n), with K4 as their backward."""
+    return _EncMLPDual.apply(st, est, len(flat_c), p, enc_ray, codes_c,
+                             codes_f, cutoff, tau, *flat_c, *flat_f)
+
+
+def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
+                backward: bool = False) -> Dict[str, float]:
     """Work of one launch, counted from the shapes: bf16 tensor-core
     FLOPs of the MLPs, f32 FLOPs of the encode, and the bytes that must
-    move (each input read once, each output written once)."""
+    move (each input read once, each output written once).
+
+    ``backward``: K3/K4, which recompute the forward and form the input
+    cotangents and the weight gradients (3x the forward's MLP FLOPs, as
+    pallas_encmlp.py:666,917 counts them) and pull back through the
+    encode; their bytes add the incoming g, dp, denc, dcodes and the f32
+    weight gradients."""
     J, F, nb = est.J, len(est.kp_freqs), est.view_nb
     R = n // est.S
     # per point and joint: distance 6, window 6, first sin/cos 3, each
     # further octave 5, v scaling 2F+1, bone dir 5, view rows 3*nb
     enc = n * J * (6 + 6 + 3 + 5 * (F - 1) + (2 * F + 1) + 5 + 3 * nb)
+    wshapes = _weight_shapes(st)
     wbytes = sum(int(np.prod(s)) * (2 if d == torch.bfloat16 else 4)
-                 for s, d in _weight_shapes(st))
+                 for s, d in wshapes)
     codes = st.vparts[1] if est.has_codes else 0
     nbytes = (n * 3 * J * 4 + R * nb * 3 * J * 4 + nnet * R * codes * 4
               + nnet * wbytes + nnet * 4 * n * 4 + (J + 1) * 4)
-    return {'bf16_flops': 2. * _mlp_macs(st) * n * nnet,
-            'f32_flops': float(enc), 'bytes': float(nbytes)}
+    flops = 2. * _mlp_macs(st) * n * nnet
+    if backward:
+        flops *= 3
+        # pullback per point and joint: 2F+1 window products and sums,
+        # 2F paired-band terms (3 each), bone dir 7, view rows 4*nb
+        # (window and g_w), window and sqrt' 8
+        enc += n * J * (3 * (2 * F + 1) + 3 * 2 * F + 7 + 4 * 3 * nb + 8)
+        gvals = sum(int(np.prod(s)) for s, _ in wshapes)
+        nbytes += (n * 3 * J * 4 + R * nb * 3 * J * 4
+                   + nnet * R * codes * 4 + nnet * gvals * 4)
+    return {'bf16_flops': flops, 'f32_flops': float(enc),
+            'bytes': float(nbytes)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 """Shared pieces of the radiance-MLP kernels: statics, operand order and
-the plain forward of one point tile.
+the plain forward and backward of one point tile.
 
 Port of the MLP half of ``anerf_tpu/ops/pallas_mlp.py``.  The numeric
 chain every fused kernel follows (``pallas_mlp.py:23-24``): bf16
 operands, f32 accumulation, f32 bias and ReLU, a bf16 re-cast between
 trunk layers; ``feat`` is rounded to bf16 after its bias with no ReLU;
-alpha and rgb stay f32.
+alpha and rgb stay f32.  The backward (``pallas_encmlp._mlp_bwd_tile``)
+takes its ReLU masks from the bf16 activations, rounds each cotangent to
+bf16 before it feeds a product, and forms the bias gradients from the
+f32 cotangents and the weight gradients from the bf16 ones.
 
 The split-operand MLP kernel itself (``pallas_mlp._fused_mlp``, taken
 for configs outside ``fused_encmlp.supported_config``) is not ported
@@ -166,3 +169,95 @@ def _forward_tile(st: MLPStatic, xs, xvs, flat):
     wr, br = nxt(), nxt()
     rgb = _dot(hv, wr) + br
     return acts, feat, hv, rgb, alpha
+
+
+def _dot_nt(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """g @ w^T with bf16 operands summed in f32: (T, n), (m, n) -> (T, m)
+    (``pallas_mlp._dot_nt``)."""
+    return _dot(g, w.t())
+
+
+def _dot_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T @ b contracting the point axis, bf16 operands summed in f32:
+    (T, m), (T, n) -> (m, n) (``pallas_mlp._dot_tn``)."""
+    return _dot(a.t(), b)
+
+
+def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
+    """Plain backward of ``_forward_tile`` for one net.
+
+    Mirrors ``pallas_encmlp._mlp_bwd_tile``: recomputes the forward,
+    derives ReLU masks from the bf16 activations, rounds each
+    cotangent to bf16 before it feeds a product, forms the bias
+    gradients from the f32 cotangents and the weight gradients from the
+    bf16 ones.  ``g`` is the raw cotangent (T, 4) [rgb, alpha].
+    Returns (g_x_parts, g_xv_parts, grads): f32 input cotangents per
+    part and the f32 gradient of every ``flatten_params`` operand, in
+    flatten order.
+    """
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    T = xs[0].shape[0]
+    acts, feat, hv, _, _ = _forward_tile(st, xs, xvs, flat)
+    g = g.float()
+    g_rgb, g_alpha = g[:, :3], g[:, 3:4]
+
+    it = iter(flat)
+    trunk = []
+    for i in range(st.depth):
+        if i == 0:
+            trunk.append((None, [next(it) for _ in st.dparts]))
+        elif st.has_x_part(i):
+            wh = next(it)
+            trunk.append((wh, [next(it) for _ in st.dparts]))
+        else:
+            trunk.append((next(it), None))
+        next(it)
+    wa, _, wf, _, wvf = next(it), next(it), next(it), next(it), next(it)
+    wvs = [next(it) for _ in st.vparts]
+    next(it)
+    wr = next(it)
+
+    g_rgb_b = b16(g_rgb)
+    g_hv = _dot_nt(g_rgb_b, wr) * (hv > 0)
+    g_hv_b = b16(g_hv)
+    g_feat = _dot_nt(g_hv_b, wvf)
+    g_xvs = [_dot_nt(g_hv_b, wvk) for wvk in wvs]
+    g_feat_b = b16(g_feat)
+    g_alpha_b = b16(g_alpha)
+    g_a = _dot_nt(g_feat_b, wf) + _dot_nt(g_alpha_b, wa)
+
+    g_x = [torch.zeros((T, d), dtype=torch.float32, device=g.device)
+           for d in st.dparts]
+    g_pre_by_layer = {}
+    for i in reversed(range(st.depth)):
+        g_pre = g_a * (acts[i] > 0)
+        g_pre_b = b16(g_pre)
+        g_pre_by_layer[i] = (g_pre, g_pre_b)
+        wh, wxs = trunk[i]
+        if i == 0:
+            for k, w0k in enumerate(wxs):
+                g_x[k] = g_x[k] + _dot_nt(g_pre_b, w0k)
+            break
+        g_a = _dot_nt(g_pre_b, wh)
+        if wxs is not None:
+            for k, wxk in enumerate(wxs):
+                g_x[k] = g_x[k] + _dot_nt(g_pre_b, wxk)
+
+    col_sum = lambda a: a.sum(0, keepdim=True)
+    grads = []
+    for i in range(st.depth):
+        g_pre, g_pre_b = g_pre_by_layer[i]
+        if i == 0:
+            grads += [_dot_tn(xk, g_pre_b) for xk in xs]
+        else:
+            grads.append(_dot_tn(acts[i - 1], g_pre_b))
+            if st.has_x_part(i):
+                grads += [_dot_tn(xk, g_pre_b) for xk in xs]
+        grads.append(col_sum(g_pre))
+    a_last = acts[-1]
+    grads += [_dot_tn(a_last, g_alpha_b), col_sum(g_alpha),
+              _dot_tn(a_last, g_feat_b), col_sum(g_feat),
+              _dot_tn(feat, g_hv_b)]
+    grads += [_dot_tn(xvk, g_hv_b) for xvk in xvs]
+    grads += [col_sum(g_hv), _dot_tn(hv, g_rgb_b), col_sum(g_rgb)]
+    return g_x, g_xvs, grads

@@ -22,18 +22,8 @@ from ..models.raycaster import RayCastConfig, render_rays
 from ..ops.cylinder import (cylinder_to_box_2d, get_kp_bounding_cylinder,
                             nerf_c2w_to_extrinsic)
 from ..ops.rays import get_rays_np
+from ..utils.device import resolve_device  # noqa: F401 (re-export)
 from ..utils.image import bilinear_resize
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; asking for nothing on a machine without
-    one raises instead of running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'no CUDA device: pass device="cpu" to render on the CPU')
-        return torch.device('cuda')
-    return torch.device(device)
 
 
 def kp_to_valid_rays(c2ws, H, W, focals, kps=None, cylinder_params=None,

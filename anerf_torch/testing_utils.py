@@ -5,6 +5,7 @@ synthetic_pose, synthetic_batch): the SURREAL recipe (reference
 configs/surreal/surreal.txt: 8x256 MLP, 64+16 samples, cutoff PE with
 multires 7/4, framecodes) on synthetic poses and rays, so runs need no
 dataset.  Arrays come back as numpy; ``to_device`` moves a batch.
+``build_flagship`` assembles the whole training setup on them.
 """
 from __future__ import annotations
 
@@ -85,3 +86,33 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
             else torch.float32
         out[k] = torch.as_tensor(v, device=device).to(dt)
     return out
+
+
+def build_flagship(n_rays: int = 2048, n_frames: int = 9,
+                   opt_pose: bool = True, device=None, **cfg_overrides):
+    """The SURREAL-recipe training setup on synthetic data, the
+    counterpart of ``anerf_tpu.testing_utils.build_flagship``: pose
+    refinement every 20 steps with kp loss 0.1 when ``opt_pose``.
+    ``device=None`` means the GPU and raises without one.  Returns
+    (setup, state, batch, train_step); the parameters come from a CPU
+    ``torch.Generator`` seeded with ``cfg.seed``."""
+    from .models.factory import build_raycast_config
+    from .skeleton import SMPLSkeleton
+    from .training import pose_opt as P
+    from .training.trainer import (TrainSetup, init_train_state,
+                                   make_train_step)
+    cfg = surreal_config(opt_pose=opt_pose, N_rand=n_rays,
+                         opt_pose_step=20 if opt_pose else 1,
+                         opt_pose_coef=0.1 if opt_pose else 0.0,
+                         **cfg_overrides)
+    rest, bones, pelvis, kps, skts, cyls = synthetic_pose(
+        n_frames, ext_scale=cfg.ext_scale)
+    rc = build_raycast_config(cfg, n_framecodes=n_frames)
+    setup = TrainSetup(cfg=cfg, rc=rc, skel=SMPLSkeleton, rest_pose=rest,
+                       anchors=P.make_anchors(kps, bones), near=0.0, far=1.0,
+                       device=device)
+    state = init_train_state(setup, torch.Generator().manual_seed(cfg.seed),
+                             init_kp3d=kps, init_bones=bones)
+    batch = to_device(synthetic_batch(n_rays, n_frames, kps, skts, bones,
+                                      cyls), setup.device)
+    return setup, state, batch, make_train_step(setup)

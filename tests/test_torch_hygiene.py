@@ -68,3 +68,100 @@ def test_split_mlp_config_raises_off_cpu():
         _run_network(rc, params['coarse'], meta(rc.nerf.input_ch),
                      meta(rc.nerf.input_ch_bones),
                      meta(rc.nerf.input_ch_views), None)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_trainer_without_device_needs_cuda(monkeypatch):
+    """The train step, like the renderer, runs on the GPU unless the
+    caller asks for the CPU; with no device and no GPU it raises."""
+    from anerf_torch import testing_utils as T
+    from anerf_torch.models.factory import build_raycast_config
+    from anerf_torch.skeleton import SMPLSkeleton
+    from anerf_torch.training.trainer import TrainSetup
+    from anerf_torch.utils.device import resolve_device
+    _no_cuda(monkeypatch)
+    cfg = T.surreal_config(N_rand=4)
+    rc = build_raycast_config(cfg, n_framecodes=2)
+    rest = T.synthetic_pose(2)[0]
+    with pytest.raises(RuntimeError, match='CUDA'):
+        TrainSetup(cfg=cfg, rc=rc, skel=SMPLSkeleton, rest_pose=rest)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        T.build_flagship(4, 2)
+    setup = TrainSetup(cfg=cfg, rc=rc, skel=SMPLSkeleton, rest_pose=rest,
+                       device='cpu')
+    assert setup.device == resolve_device('cpu')
+    assert setup.rest_pose.device.type == 'cpu'
+
+
+@pytest.mark.parametrize('flag', ['opt_pose_flipflop', 'opt_pose_joint',
+                                  'testopt'])
+def test_flipflop_modes_raise(flag):
+    from anerf_torch import testing_utils as T
+    from anerf_torch.models.factory import build_raycast_config
+    from anerf_torch.skeleton import SMPLSkeleton
+    from anerf_torch.training.trainer import TrainSetup, make_train_step
+    cfg = T.surreal_config(N_rand=4, opt_pose=True, **{flag: True})
+    setup = TrainSetup(cfg=cfg, rc=build_raycast_config(cfg, n_framecodes=2),
+                       skel=SMPLSkeleton, rest_pose=T.synthetic_pose(2)[0],
+                       device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        make_train_step(setup)
+
+
+def _kernel_operands(S, R=2, device='cpu'):
+    from anerf_torch import testing_utils as T
+    from anerf_torch.models.factory import (build_raycast_config,
+                                            init_raycaster_params)
+    from anerf_torch.ops import fused_encmlp as FE
+    cfg = T.surreal_config(N_rand=R)
+    rc = build_raycast_config(cfg, n_framecodes=2)
+    params = init_raycaster_params(torch.Generator().manual_seed(0), rc, cfg)
+    g = torch.Generator().manual_seed(1)
+    pts = torch.randn((R, S, 72), generator=g) * 0.3
+    cam = torch.zeros((R,), dtype=torch.long)
+    st, est, p, enc, cut, tau = FE._build_call(
+        rc, pts, torch.randn((R, 72), generator=g), params['cutoff_dist'],
+        20., cam, None)
+    codes = [FE._codes(params[k], cam) for k in ('coarse', 'fine')]
+    flats = [FE.flatten_params_cm(params[k], st, 24, est.view_nb)
+             for k in ('coarse', 'fine')]
+    to = lambda t: t.detach().to(device).requires_grad_(t.is_floating_point())
+    return (st, est, to(p), to(enc), [to(c) for c in codes], cut.to(device),
+            tau.to(device), [[to(w) for w in f] for f in flats])
+
+
+def test_fused_outputs_carry_the_backward_kernels():
+    """On CPU tensors that require grad, K1's and K2's outputs hang off
+    the autograd Functions whose backward is K3 / K4 (their twins here):
+    the gradient reaches the weights on every device."""
+    from anerf_torch.ops import fused_encmlp as FE
+    st, est, p, enc, codes, cut, tau, flats = _kernel_operands(16)
+    one = FE.encmlp_fwd(st, est, p, enc, codes[1], cut, tau, flats[1])
+    assert type(one.grad_fn).__name__ == '_EncMLPBackward'
+    two = FE.encmlp_dual_fwd(st, est, p, enc, codes[0], codes[1], cut, tau,
+                             *flats)
+    assert all(type(o.grad_fn).__name__ == '_EncMLPDualBackward'
+               for o in two)
+    FE.reset_launch_counts()
+    grads = torch.autograd.grad(two[0].sum() + two[1].sum() + one.sum(),
+                                [p, codes[0]] + flats[0] + flats[1])
+    assert all(g is not None and torch.isfinite(g.float()).all()
+               for g in grads)
+    assert all(v == 0 for v in FE.launch_counts().values())
+
+
+def test_fused_wrappers_refuse_other_devices():
+    """Off the CPU a wrapper launches its kernel or raises: a tensor on
+    another device never reaches the plain twin."""
+    from anerf_torch.ops import fused_encmlp as FE
+    st, est, p, enc, codes, cut, tau, flats = _kernel_operands(16,
+                                                               device='meta')
+    with pytest.raises(ValueError, match='device'):
+        FE.encmlp_fwd(st, est, p, enc, codes[1], cut, tau, flats[1])
+    with pytest.raises(ValueError, match='device'):
+        FE.encmlp_dual_bwd(st, est, p, enc, codes[0], codes[1], cut, tau,
+                           *flats, torch.zeros_like(p[:4].T),
+                           torch.zeros_like(p[:4].T))
