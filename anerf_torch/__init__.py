@@ -1,8 +1,8 @@
 """anerf_torch: the PyTorch/CUDA port of anerf_tpu for NVIDIA Hopper.
 
-Plain tensor code is PyTorch; each Pallas kernel of ``anerf_tpu`` on the
-ported path is a CUDA C++ kernel under ``csrc/`` with a plain-PyTorch
-twin beside its wrapper.  Nothing here imports JAX or ``anerf_tpu``:
+Plain tensor code is PyTorch; each Pallas kernel of ``anerf_tpu`` is a
+CUDA C++ kernel under ``csrc/`` with a plain-PyTorch twin beside its
+wrapper.  Nothing here imports JAX or ``anerf_tpu``:
 the numpy modules the port needs are kept as copies.
 """
 

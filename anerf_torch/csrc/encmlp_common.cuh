@@ -1,8 +1,9 @@
-// Device code shared by the fused encode + radiance-MLP kernels
-// (encmlp_fwd.cu: K1, K2; encmlp_bwd.cu: K3, K4): the compiled shape,
-// the packed weight layout, the tensor-core product and the in-block
-// encode.  Each .cu file includes it once; everything here has internal
-// linkage.
+// Device code shared by the radiance-MLP kernels (encmlp_fwd.cu: K1,
+// K2; encmlp_bwd.cu: K3, K4; mlp_fwd.cu: K5; mlp_bwd.cu: K6): the
+// compiled shape, the packed weight layout, the tensor-core product, the
+// in-block encode (K1-K4), the loader of split input parts (K5, K6) and
+// the MLP forward of one tile.  Each .cu file includes it once;
+// everything here has internal linkage.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,6 +238,180 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ p,
     const int t = idx / (DXV - DE - NCODE);
     XV[t * LDXV + DE + NCODE + (idx - t * (DXV - DE - NCODE))] =
         __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+}
+
+// ---- split input parts (K5, K6) -----------------------------------------
+// The trunk input [x_0 | x_1 | ...] (DX wide) and the views input
+// [xv_0 | xv_1 | ... | 0] (DXV wide) arrive as separate row-major bf16
+// part arrays of any width and alignment; a block copies its rows of
+// each part into shared memory at the part's column offset.
+constexpr int MAXP = 4;
+
+struct Parts {
+  const void* p[MAXP];   // (n, w[k]) row-major bf16, device memory
+  int w[MAXP];
+  int off[MAXP];         // column offset in the concatenated input
+  int count;
+  int total;             // sum of the widths
+};
+
+// Parts from the C interface's host arrays; false when there are more
+// than MAXP parts, a width is not positive or they overflow `cap`.
+inline bool make_parts(Parts& ps, const void* const* ptrs, const int* widths,
+                       int count, int cap) {
+  if (count < 1 || count > MAXP) return false;
+  ps = Parts{};
+  ps.count = count;
+  for (int k = 0; k < count; ++k) {
+    if (widths[k] < 1) return false;
+    ps.p[k] = ptrs[k];
+    ps.w[k] = widths[k];
+    ps.off[k] = ps.total;
+    ps.total += widths[k];
+  }
+  return ps.total <= cap;
+}
+
+__device__ __forceinline__ bf16 bf16_of(const uint4& v, int q) {
+  const uint32_t word = q < 2 ? v.x : q < 4 ? v.y : q < 6 ? v.z : v.w;
+  return __ushort_as_bfloat16((unsigned short)(word >> (16 * (q & 1))));
+}
+
+// dst[t, 0:width] = the parts' rows t0 + t, zeros past the parts and past
+// n.  A part's rows t0 .. t0+T-1 are one contiguous run of T * w values
+// (a multiple of 8) that starts 128 bytes into the part for every 64
+// rows, so a thread reads 8 values at a time with one 16-byte load, LU
+// loads in flight, whatever w is; it scatters them into the rows one by
+// one, since a row of an odd-width part is not even 4-byte aligned.  A
+// part whose base is not 16-byte aligned, and the ragged end of the last
+// tile, are read value by value.  Leaves the block unsynchronised.
+__device__ __forceinline__ void load_parts(const Parts& ps, bf16* dst, int ld,
+                                           int width, int t0, int n) {
+  constexpr int LU = 4;
+  const int rows = min(T, n - t0);
+  for (int k = 0; k < ps.count; ++k) {
+    const int w = ps.w[k], valid = rows * w;
+    const bf16* __restrict__ src =
+        reinterpret_cast<const bf16*>(ps.p[k]) + (size_t)t0 * w;
+    const bool vec = (reinterpret_cast<size_t>(ps.p[k]) & 15) == 0;
+    bf16* d = dst + ps.off[k];
+    for (int i0 = threadIdx.x * 8; i0 < T * w; i0 += LU * NTHREAD * 8) {
+      uint4 v[LU];
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        const int i = i0 + u * NTHREAD * 8;
+        if (vec && i + 8 <= valid) {
+          v[u] = __ldg(reinterpret_cast<const uint4*>(src + i));
+        } else {
+          uint32_t h[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            h[q] = i + q < valid ? __bfloat16_as_ushort(src[i + q]) : 0u;
+          v[u] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                            h[4] | h[5] << 16, h[6] | h[7] << 16);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        const int i = i0 + u * NTHREAD * 8;
+        if (i < T * w) {
+          int t = i / w, c = i - t * w;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            d[t * ld + c] = bf16_of(v[u], q);
+            if (++c == w) {
+              c = 0;
+              ++t;
+            }
+          }
+        }
+      }
+    }
+  }
+  const int pad = width - ps.total;
+  for (int idx = threadIdx.x; idx < T * pad; idx += NTHREAD) {
+    const int t = idx / pad;
+    dst[t * ld + ps.total + idx - t * pad] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// ---- the MLP forward of one 64-point tile ---------------------------------
+// X = the trunk input (T, LDX) and XV = the views input (T, LDXV), both
+// complete in shared memory; H0, H1 = activation buffers (T, LDH).  Wn/Bn
+// = one net's packed weights and biases.  Writes channel ch of point
+// t0 + t < n to out[ch * cs + (t0 + t) * ps]: (cs, ps) = (n, 1) for K1's
+// channel-major rows, (1, 4) for K5's row-major [rgb, alpha].  Ends with
+// the block synchronised.
+__device__ __forceinline__ void mlp_fwd_tile(const bf16* X, const bf16* XV,
+                                             bf16* H0, bf16* H1,
+                                             const bf16* __restrict__ Wn,
+                                             const float* __restrict__ Bn,
+                                             float* __restrict__ out, size_t cs,
+                                             size_t ps, int t0, int n) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  // ---- density trunk -----------------------------------------------------
+  float acc[4][4][4];
+  const int nw = warp * 32;  // this warp's 32 of the 256 columns
+  zero_acc<4>(acc);
+  gemm_acc<4>(acc, X, LDX, DX, Wn, nw);
+  store_act<4, true>(acc, Bn, H0, LDH, nw);
+  __syncthreads();
+  bf16* hin = H0;
+  bf16* hout = H1;
+#pragma unroll 1
+  for (int i = 1; i < DEPTH; ++i) {
+    zero_acc<4>(acc);
+    gemm_acc<4>(acc, hin, LDH, W, Wn + off_h(i), nw);
+    if (i == SKIP + 1) gemm_acc<4>(acc, X, LDX, DX, Wn + OFF_SKIPX, nw);
+    store_act<4, true>(acc, Bn + i * W, hout, LDH, nw);
+    __syncthreads();
+    bf16* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+
+  // ---- alpha head (f32 dot, 4 lanes per point) and feature layer -------
+  {
+    const int t = tid >> 2, part = tid & 3;
+    const bf16* hr = hin + t * LDH + part * (W / 4);
+    const bf16* wa = Wn + OFF_A + part * (W / 4);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < W / 4; ++k)
+      sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0 && t0 + t < n)
+      out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
+  }
+  zero_acc<4>(acc);
+  gemm_acc<4>(acc, hin, LDH, W, Wn + OFF_F, nw);
+  store_act<4, false>(acc, Bn + OB_F, hout, LDH, nw);  // feat, no ReLU
+  __syncthreads();
+
+  // ---- views branch: [feat | views input] -> 128, ReLU ------------------
+  {
+    float accv[4][2][4];
+    const int nv = warp * 16;
+    zero_acc<2>(accv);
+    gemm_acc<2>(accv, hout, LDH, W, Wn + OFF_VF, nv);
+    gemm_acc<2>(accv, XV, LDXV, DXV, Wn + OFF_VX, nv);
+    store_act<2, true>(accv, Bn + OB_V, hin, LDH, nv);
+  }
+  __syncthreads();
+
+  // ---- rgb head (f32 dot) -----------------------------------------------
+  if (tid < T * 3) {
+    const int t = tid / 3, ch = tid - t * 3;
+    const bf16* hr = hin + t * LDH;
+    const bf16* wr = Wn + OFF_R + ch * HV;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < HV; ++k)
+      sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
+    if (t0 + t < n) out[ch * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_R + ch);
   }
   __syncthreads();
 }

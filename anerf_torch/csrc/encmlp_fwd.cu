@@ -27,8 +27,8 @@
 // (~14 GB of L2 reads per 4096-ray coarse chunk); wgmma, TMA and
 // cluster multicast of the weights are later work.
 //
-// The shape, the weight layout, the product and the encode live in
-// encmlp_common.cuh, shared with the backward kernels (encmlp_bwd.cu).
+// The shape, the weight layout, the product, the encode and the MLP body
+// (mlp_fwd_tile) live in encmlp_common.cuh, shared with K3-K6.
 //
 // C interface (loaded with ctypes): every pointer is device memory,
 // the stream is PyTorch's current stream; returns cudaGetLastError().
@@ -52,81 +52,17 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   bf16* H1 = H0 + T * LDH;
   float* WIN = reinterpret_cast<float*>(H1 + T * LDH);  // windows (T, J)
 
-  const int tid = threadIdx.x, warp = tid >> 5;
   const int t0 = blockIdx.x * T;
   const float tau = __ldg(tau_ptr);
 
   encode_tile(p, enc, cutoff, tau, X, XV, WIN, t0, n, S);
 
   for (int net = 0; net < NNET; ++net) {
-    const bf16* Wn = wpack + (size_t)net * WSZ;
-    const float* Bn = bpack + (size_t)net * BSZ;
-    float* on = out + (size_t)net * 4 * n;
     write_codes(XV, codes + (size_t)net * R * NCODE, t0, n, S);
     __syncthreads();
-
-    // ---- density trunk ---------------------------------------------------
-    float acc[4][4][4];
-    const int nw = warp * 32;  // this warp's 32 of the 256 columns
-    zero_acc<4>(acc);
-    gemm_acc<4>(acc, X, LDX, DX, Wn, nw);
-    store_act<4, true>(acc, Bn, H0, LDH, nw);
-    __syncthreads();
-    bf16* hin = H0;
-    bf16* hout = H1;
-#pragma unroll 1
-    for (int i = 1; i < DEPTH; ++i) {
-      zero_acc<4>(acc);
-      gemm_acc<4>(acc, hin, LDH, W, Wn + off_h(i), nw);
-      if (i == SKIP + 1) gemm_acc<4>(acc, X, LDX, DX, Wn + OFF_SKIPX, nw);
-      store_act<4, true>(acc, Bn + i * W, hout, LDH, nw);
-      __syncthreads();
-      bf16* tmp = hin;
-      hin = hout;
-      hout = tmp;
-    }
-
-    // ---- alpha head (f32 dot, 4 lanes per point) and feature layer -----
-    {
-      const int t = tid >> 2, part = tid & 3;
-      const bf16* hr = hin + t * LDH + part * (W / 4);
-      const bf16* wa = Wn + OFF_A + part * (W / 4);
-      float sum = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < W / 4; ++k)
-        sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0 && t0 + t < n) on[3 * (size_t)n + t0 + t] = sum + __ldg(Bn + OB_A);
-    }
-    zero_acc<4>(acc);
-    gemm_acc<4>(acc, hin, LDH, W, Wn + OFF_F, nw);
-    store_act<4, false>(acc, Bn + OB_F, hout, LDH, nw);  // feat, no ReLU
-    __syncthreads();
-
-    // ---- views branch: [feat | xv | codes] -> 128, ReLU ----------------
-    {
-      float accv[4][2][4];
-      const int nv = warp * 16;
-      zero_acc<2>(accv);
-      gemm_acc<2>(accv, hout, LDH, W, Wn + OFF_VF, nv);
-      gemm_acc<2>(accv, XV, LDXV, DXV, Wn + OFF_VX, nv);
-      store_act<2, true>(accv, Bn + OB_V, hin, LDH, nv);
-    }
-    __syncthreads();
-
-    // ---- rgb head (f32 dot) ---------------------------------------------
-    if (tid < T * 3) {
-      const int t = tid / 3, ch = tid - t * 3;
-      const bf16* hr = hin + t * LDH;
-      const bf16* wr = Wn + OFF_R + ch * HV;
-      float sum = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < HV; ++k)
-        sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
-      if (t0 + t < n) on[(size_t)ch * n + t0 + t] = sum + __ldg(Bn + OB_R + ch);
-    }
-    __syncthreads();
+    mlp_fwd_tile(X, XV, H0, H1, wpack + (size_t)net * WSZ,
+                 bpack + (size_t)net * BSZ, out + (size_t)net * 4 * n, n, 1,
+                 t0, n);
   }
 }
 

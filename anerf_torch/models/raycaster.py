@@ -8,15 +8,18 @@ random draw for parity tests.
 
 Two MLP backends (``RayCastConfig.mlp_backend``):
   * 'fused': the hand-written fused encode+MLP kernels
-    (ops/fused_encmlp.py) when ``supported_config`` holds, K1/K2 forward
-    and K3/K4 backward; their wrappers take the plain twins for CPU
-    tensors.  Gradients reach the nets' parameters, the framecodes and,
-    through the component-major transform and the view PE rows, the
-    per-ray ``skts``.  Outside
-    ``supported_config`` the JAX package runs its split-operand MLP
-    kernel, which is not ported: CPU tensors take the plain MLP, CUDA
-    tensors raise.
+    (ops/fused_encmlp.py) when the model has one subject and
+    ``supported_config`` holds, K1/K2 forward and K3/K4 backward.
+    Otherwise (multi-subject models, trainable cutoffs, other encoders)
+    the encodings are computed with plain ops and handed as separate
+    parts to the split-operand MLP kernels (ops/fused_mlp.py), K5
+    forward and K6 backward.  The wrappers take the plain twins for CPU
+    tensors.  Gradients reach the nets' parameters, the framecodes and
+    the per-ray ``skts``.
   * 'plain': the unfused encode + MLP (the JAX package's 'xla').
+
+A multi-subject model (``n_subjects > 1``) takes each ray's subject
+index as one extra view channel (reference raycasters.py:545-548).
 
 The coarse/fine merge is a scatter/gather by the sorted-union ranks
 (ops/compositing.raw2outputs_merged*): only the scalar densities and
@@ -128,12 +131,24 @@ def encode_inputs(rc: RayCastConfig,
     return v, r, d
 
 
-def _run_network(rc: RayCastConfig, net_params, v, r, d, cam_idxs):
+def _run_network(rc: RayCastConfig, net_params, v, r, d, cam_idxs,
+                 subject_idxs=None):
     """The MLP on the encodings, keeping (R, S) structure (reference
-    raycasters.py:557-577 + nerf.py:133-148)."""
-    if rc.n_subjects > 1:
-        raise NotImplementedError(
-            'multi-subject rendering is not ported yet (ROADMAP.md)')
+    raycasters.py:557-577 + nerf.py:133-148).  On the fused backend the
+    encodings go to K5 as separate parts, never concatenated: the
+    views input [d | subject | codes] as three parts (the view rows of
+    ``views_linear`` split 648/1/16, the same function as anerf_tpu's
+    [d+subject, codes] without the copy of d)."""
+    subj = None
+    if rc.n_subjects > 1 and d is not None:
+        # the per-ray subject index rides as one extra view channel
+        # (zeros when none is given, as the renderers do)
+        if subject_idxs is None:
+            subj = torch.zeros(d.shape[:2] + (1,), dtype=d.dtype,
+                               device=d.device)
+        else:
+            subj = subject_idxs.to(d.dtype)[:, None, None].expand(
+                d.shape[:2] + (1,))
     codes = None
     if rc.nerf.use_framecode and cam_idxs is not None:
         # per-ray lookup broadcast over the samples
@@ -141,13 +156,13 @@ def _run_network(rc: RayCastConfig, net_params, v, r, d, cam_idxs):
         codes = codes_ray[:, None].expand(v.shape[:2]
                                           + codes_ray.shape[-1:])
 
-    if (rc.mlp_backend == 'fused' and rc.use_viewdirs and d is not None
-            and v.device.type != 'cpu'):
-        # anerf_tpu runs its split-operand MLP kernel here
-        # (pallas_mlp._fused_mlp); CPU tensors take the plain MLP below
-        raise NotImplementedError(
-            'this config needs the split-operand MLP kernel '
-            '(pallas_mlp._fused_mlp), not ported yet: ROADMAP.md §B K5/K6')
+    if rc.mlp_backend == 'fused' and rc.use_viewdirs and d is not None:
+        from ..ops.fused_mlp import nerf_mlp_fused
+        xv_parts = [p for p in (d, subj, codes) if p is not None]
+        return nerf_mlp_fused(net_params, rc.nerf,
+                              [v] if r is None else [v, r], xv_parts)
+    if subj is not None:
+        d = torch.cat([d, subj], -1)
     x_pts = v if r is None else torch.cat([v, r], -1)
     return nerf_forward(net_params, rc.nerf, x_pts, d, codes=codes)
 
@@ -166,6 +181,7 @@ def render_rays(rc: RayCastConfig,
                 pose: Dict[str, torch.Tensor],
                 state: Optional[Dict[str, Any]] = None,
                 cam_idxs: Optional[torch.Tensor] = None,
+                subject_idxs: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 fixed: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Dict[str, torch.Tensor]:
@@ -176,7 +192,8 @@ def render_rays(rc: RayCastConfig,
 
     params: {'coarse', 'fine', 'cutoff_dist' (J,)}; rays_o/rays_d
     (N_rays, 3); near/far scalars or (N_rays, 1); pose: kps, skts, bones
-    and cyls (N_rays, 5); state: {'tau', 'alpha'}; generator: draws the
+    and cyls (N_rays, 5); state: {'tau', 'alpha'}; subject_idxs: (N_rays,)
+    subject of each ray for a multi-subject model; generator: draws the
     jitter and noise (omit for deterministic rendering); fixed: pins
     'coarse_u', 'fine_u', 'coarse_noise', 'fine_noise'.
     Returns rgb_map/disp_map/acc_map/alpha/weights (+ rgb0/disp0/acc0/
@@ -239,7 +256,8 @@ def render_rays(rc: RayCastConfig,
             enc_cache[key] = encode_inputs(rc, params, q_pts, rays_o,
                                            rays_d, pose, state)
         vv, rr, dd = enc_cache[key]
-        return _run_network(rc, net_params, vv, rr, dd, cam_idxs), False
+        return _run_network(rc, net_params, vv, rr, dd, cam_idxs,
+                            subject_idxs), False
 
     def composite(raw, rows, z, noise):
         kw = dict(noise=noise, density_scale=rc.density_scale,

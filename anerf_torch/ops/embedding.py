@@ -13,6 +13,7 @@ or the frequency rows only; the output is the row-major flatten of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -58,6 +59,19 @@ class EmbedConfig:
         return np.repeat(np.log2(self.freq_bands()), 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _band_tensor(cfg: EmbedConfig, which: str, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``cfg.freq_bands()`` or ``cfg.freq_k()`` on ``device``, built once:
+    a host-to-device copy waits for the stream to drain, so a copy per
+    call would idle the GPU between chunks.  Built outside inference
+    mode, so that a renderer's first call leaves a tensor that autograd
+    may save later."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(getattr(cfg, which)(), dtype=dtype,
+                               device=device)
+
+
 def tau_schedule(cfg: EmbedConfig, global_step, cutoff_step: float,
                  cutoff_rate: float) -> torch.Tensor:
     """tau annealing ``init_tau * rate^(step / (step_k*1000))`` clamped
@@ -82,7 +96,7 @@ def _schedule_w(cfg: EmbedConfig, alpha, like: torch.Tensor
                 ) -> torch.Tensor:
     """Per-band coarse-to-fine weight (2F, 1)
     (reference cutoff_embedder.py:192-197)."""
-    k = torch.as_tensor(cfg.freq_k(), dtype=like.dtype, device=like.device)
+    k = _band_tensor(cfg, 'freq_k', like.dtype, like.device)
     diff = torch.clamp(alpha - k, 0., 1.)
     return (0.5 * (1. - torch.cos(np.pi * diff)))[:, None]
 
@@ -111,8 +125,7 @@ def embed(inputs: torch.Tensor,
 
     assert dists is not None and cutoff_dist is not None and tau is not None
     C = cfg.input_dims
-    freq = torch.as_tensor(cfg.freq_bands(), dtype=inputs.dtype,
-                           device=inputs.device)
+    freq = _band_tensor(cfg, 'freq_bands', inputs.dtype, inputs.device)
 
     if cfg.dist_inputs:
         # per-joint vectors flattened to J*D: repeat each joint's

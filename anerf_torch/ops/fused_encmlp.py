@@ -52,22 +52,18 @@ in-kernel rigid transform (``fuse_tform``).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import cuda_build, fused_mlp
+from .cuda_build import build_kernels  # noqa: F401  (re-exported)
 from .fused_mlp import (MLPStatic, _forward_tile, _mlp_bwd_tile, _mlp_macs,
-                        _weight_shapes)
+                        _pack_bwd_weights, _pack_kernel_weights,
+                        _unpack_grads, _weight_shapes)
 from .fused_mlp import flatten_params as _flatten_plain
 
 
@@ -97,11 +93,14 @@ def _perm_tensors(J: int, nb: int, device: torch.device
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(component-major perm (3J,), the same per view PE row block
     (nb*3J,)) on ``device``, built once: a host-to-device copy waits
-    for the stream to drain, so per-chunk copies would idle the GPU."""
+    for the stream to drain, so per-chunk copies would idle the GPU.
+    Built outside inference mode, so that a renderer's first call leaves
+    tensors that autograd may save later."""
     blocks = np.concatenate([b * 3 * J + _comp_major_perm(J)
                              for b in range(nb)])
-    return (torch.as_tensor(_comp_major_perm(J), device=device),
-            torch.as_tensor(blocks, device=device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(_comp_major_perm(J), device=device),
+                torch.as_tensor(blocks, device=device))
 
 
 def _doubling_freqs(freqs) -> bool:
@@ -304,118 +303,27 @@ K2_LAUNCHES = 0
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
-                     'csrc')
-_HEADER = os.path.join(_CSRC, 'encmlp_common.cuh')
-_SOURCES = {'fwd': os.path.join(_CSRC, 'encmlp_fwd.cu'),
-            'bwd': os.path.join(_CSRC, 'encmlp_bwd.cu')}
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..',
-                          '_build')
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
 # the one shape the kernels are compiled for (csrc/encmlp_common.cuh):
 # J=24 joints, kp PE 2^0..2^6, view PE 4 bands, 8x256 trunk with the
 # skip after layer 4, views branch 128, framecodes of 16 (or none)
 _KERNEL_SHAPE = dict(J=24, F=7, view_nb=9, depth=8, width=256, half=128,
                      skips=(4,), codes=16)
-_XV_PAD = 672       # views input [xv 648 | codes 16 | 0 x 8], 42 x 16
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts of all six kernels (K5/K6 live in
+    ``fused_mlp``)."""
     global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
     K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
+    fused_mlp.reset_launch_counts()
 
 
 def launch_counts() -> Dict[str, int]:
+    """Launches of every kernel since the last reset: K1-K4 here, K5/K6
+    (``mlp_fwd``, ``mlp_bwd``) from ``fused_mlp.launch_counts``."""
     return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES,
-            'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which('nvcc'),
-                 os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
-                              'bin', 'nvcc')):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError('nvcc not found: the fused kernels build on a '
-                       'machine with the CUDA toolkit')
-
-
-def _bind(lib: ctypes.CDLL, which: str) -> None:
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if which == 'fwd':
-        for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-            fn = getattr(lib, name)
-            # p, enc_ray, codes, cutoff, tau, wpack, bpack, out, n, S, R,
-            # stream
-            fn.argtypes = [vp] * 8 + [ci] * 3 + [vp]
-            fn.restype = ci
-        lib.encmlp_weight_elems.argtypes = []
-        lib.encmlp_weight_elems.restype = cll
-        lib.encmlp_bias_elems.argtypes = []
-        lib.encmlp_bias_elems.restype = ci
-        return
-    for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
-        fn = getattr(lib, name)
-        # p, enc_ray, codes, cutoff, tau, wpack, wpack_b, bpack, g,
-        # workspace, dp, denc, dcodes, dw, db, n, S, R, stream
-        fn.argtypes = [vp] * 15 + [ci] * 3 + [vp]
-        fn.restype = ci
-    lib.encmlp_bwd_workspace_bytes.argtypes = [ci, ci]
-    lib.encmlp_bwd_workspace_bytes.restype = cll
-    lib.encmlp_grad_weight_elems.argtypes = []
-    lib.encmlp_grad_weight_elems.restype = cll
-
-
-def build_kernels(verbose: bool = False) -> float:
-    """Compile ``csrc/encmlp_fwd.cu`` (K1, K2) and ``csrc/encmlp_bwd.cu``
-    (K3, K4) for sm_90a into ``_build/``, one nvcc per source, both
-    started together, each library keyed by the hash of its source and
-    the shared header; then load both.  Returns the seconds spent (0
-    when the libraries were already loaded).  A failed build raises."""
-    if len(_LIBS) == len(_SOURCES):
-        return 0.
-    t0 = time.perf_counter()
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(_HEADER, 'rb') as f:
-        header = f.read()
-    jobs = {}
-    for which, src in _SOURCES.items():
-        with open(src, 'rb') as f:
-            digest = hashlib.sha1(f.read() + header).hexdigest()[:12]
-        so = os.path.join(_BUILD_DIR, f'libencmlp_{which}_{digest}.so')
-        if os.path.exists(so):
-            jobs[which] = (so, None, None)
-            continue
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-               '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-               '-o', tmp, src]
-        if verbose:
-            cmd[1:1] = ['-Xptxas', '-v']
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[which] = (so, tmp, proc)
-    errors = []
-    for which, (so, tmp, proc) in jobs.items():
-        if proc is None:
-            continue
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f'nvcc {which} failed ({proc.returncode}):\n{out}')
-            continue
-        if verbose:
-            print(out)
-        os.replace(tmp, so)
-    if errors:
-        raise RuntimeError('\n'.join(errors))
-    for which, (so, _, _) in jobs.items():
-        lib = ctypes.CDLL(so)
-        _bind(lib, which)
-        _LIBS[which] = lib
-    return time.perf_counter() - t0
+            'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES,
+            **fused_mlp.launch_counts()}
 
 
 def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
@@ -430,51 +338,6 @@ def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
         raise NotImplementedError(
             f'the fused CUDA kernels are built for {k}, got {got}; other '
             'shapes are not ported yet (ROADMAP.md)')
-
-
-def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``flatten_params_cm`` operands -> the kernels' two buffers.
-
-    bf16 buffer, each weight TRANSPOSED to (out, in) with the input
-    parts of one product concatenated along ``in`` (zero rows padding
-    the views input to a multiple of 16):
-      L0 [v|r] (256, 432); L1-L4 (256, 256); L5 h (256, 256) then
-      [v|r] (256, 432); L6, L7 (256, 256); feature (256, 256); views
-      feature-part (128, 256) then [xv|codes|0] (128, 672);
-      alpha (256,); rgb (3, 128).
-    f32 buffer: b0..b7 (8 x 256), feature bias (256), views bias (128),
-    alpha bias (1), rgb biases (3).
-    """
-    it = iter(flat)
-    nx = len(st.dparts)
-    w_parts: List[torch.Tensor] = []
-    biases: List[torch.Tensor] = []
-    t = lambda w: w.t().reshape(-1)
-    for i in range(st.depth):
-        if i == 0:
-            w_parts.append(t(torch.cat([next(it) for _ in range(nx)], 0)))
-        elif st.has_x_part(i):
-            w_parts.append(t(next(it)))
-            w_parts.append(t(torch.cat([next(it) for _ in range(nx)], 0)))
-        else:
-            w_parts.append(t(next(it)))
-        biases.append(next(it).reshape(-1))
-    wa, ba, wf, bf, wvf = (next(it) for _ in range(5))
-    wvx = [next(it) for _ in st.vparts]
-    bv, wr, br = next(it), next(it), next(it)
-    w_parts.append(t(wf))
-    w_parts.append(t(wvf))
-    zeros = torch.zeros((_XV_PAD - sum(st.vparts), st.half),
-                        dtype=wvf.dtype, device=wvf.device)
-    w_parts.append(t(torch.cat(wvx + [zeros], 0)))
-    w_parts.append(wa.reshape(-1))
-    w_parts.append(t(wr))
-    biases += [bf.reshape(-1), bv.reshape(-1), ba.reshape(-1),
-               br.reshape(-1)]
-    wbuf = torch.cat([w.to(torch.bfloat16) for w in w_parts]).contiguous()
-    bbuf = torch.cat([b.float() for b in biases]).contiguous()
-    return wbuf, bbuf
 
 
 def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est):
@@ -505,10 +368,6 @@ def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est):
     return n, R
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _check_packs(lib, nnet, wbuf, bbuf) -> None:
     if (wbuf.numel() != nnet * lib.encmlp_weight_elems()
             or bbuf.numel() != nnet * lib.encmlp_bias_elems()):
@@ -517,14 +376,13 @@ def _check_packs(lib, nnet, wbuf, bbuf) -> None:
 
 def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
             bbuf, out, n: int, S: int, R: int) -> None:
-    build_kernels()
-    lib = _LIBS['fwd']
+    lib = cuda_build.library('fwd')
     _check_packs(lib, nnet, wbuf, bbuf)
     with torch.cuda.device(p.device):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
-            bbuf.data_ptr(), out.data_ptr(), n, S, R, _stream(p.device))
+            bbuf.data_ptr(), out.data_ptr(), n, S, R, cuda_build.stream(p.device))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
@@ -537,18 +395,11 @@ def _codes_operand(codes_list, est, R, device):
                        dtype=torch.float32, device=device)
 
 
-def _device_of(p: torch.Tensor) -> str:
-    """'cpu' (the twins) or 'cuda' (the kernels); anything else raises."""
-    if p.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'unsupported device {p.device}')
-    return p.device.type
-
-
 def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat) -> torch.Tensor:
     """K1 or its twin, no autograd."""
     global K1_LAUNCHES
     n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
-    if _device_of(p) == 'cpu':
+    if cuda_build.device_of(p) == 'cpu':
         return encmlp_fwd_plain(st, est, p, enc_ray, codes, cutoff, tau, flat)
     _check_kernel_shape(st, est)
     wbuf, bbuf = _pack_kernel_weights(flat, st)
@@ -565,7 +416,7 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     """K2 or its twin, no autograd."""
     global K2_LAUNCHES
     n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
-    if _device_of(p) == 'cpu':
+    if cuda_build.device_of(p) == 'cpu':
         return encmlp_dual_fwd_plain(st, est, p, enc_ray, codes_c, codes_f,
                                      cutoff, tau, flat_c, flat_f)
     _check_kernel_shape(st, est)
@@ -579,81 +430,16 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     return out[0], out[1]
 
 
-# -- backward: the kernels' gradient layout --------------------------------
-
-def _grad_layout(st: MLPStatic) -> List[Tuple[str, int, Tuple[int, int]]]:
-    """Where the gradient of each ``flatten_params`` operand lies in the
-    backward kernels' two f32 outputs: ('w', offset, shape) in the
-    weight buffer or ('b', offset, shape) in the bias buffer.
-
-    The weight buffer holds every weight as (in, out) row-major in
-    flatten order, which puts the input parts of one product side by
-    side (L0 [v|r] (432, 256), L5 h then [v|r], ..., views feature part
-    then [xv|codes|0] (672, 128)): the layout ``_pack_bwd_weights``
-    writes and ``csrc/encmlp_bwd.cu`` reads.  The bias buffer has the
-    forward's bias layout (b0..b7, feature, views, alpha, rgb).
-    """
-    W, H = st.width, st.half
-    ob_f = st.depth * W
-    ob_v, ob_a = ob_f + W, ob_f + W + H
-    ob_r = ob_a + 1
-    out: List[Tuple[str, int, Tuple[int, int]]] = []
-    woff = 0
-    vx_last = len(_weight_shapes(st)) - 4      # the last views x-part
-    for idx, (shape, dtype) in enumerate(_weight_shapes(st)):
-        if dtype == torch.bfloat16:
-            out.append(('w', woff, shape))
-            woff += shape[0] * shape[1]
-            if idx == vx_last:
-                woff += (_XV_PAD - sum(st.vparts)) * H
-        else:
-            out.append(('b', 0, shape))
-    biases = [i for i, (k, _, _) in enumerate(out) if k == 'b']
-    offs = [i * W for i in range(st.depth)] + [ob_a, ob_f, ob_v, ob_r]
-    for i, off in zip(biases, offs):
-        out[i] = ('b', off, out[i][2])
-    return out
-
-
-def _pack_bwd_weights(flat: Sequence[torch.Tensor], st: MLPStatic
-                      ) -> torch.Tensor:
-    """The backward kernels' bf16 weight buffer: every weight at its
-    ``_grad_layout`` offset, untransposed (in, out), zeros in the gaps
-    (the rows past the views input parts).  The backward products
-    contract over a layer's outputs, so their B fragments read these
-    rows whole."""
-    parts, pos = [], 0
-    for w, (kind, off, shape) in zip(flat, _grad_layout(st)):
-        if kind != 'w':
-            continue
-        if off > pos:
-            parts.append(torch.zeros(off - pos, dtype=torch.bfloat16,
-                                     device=w.device))
-        parts.append(w.to(torch.bfloat16).reshape(-1))
-        pos = off + shape[0] * shape[1]
-    return torch.cat(parts).contiguous()
-
-
-def _unpack_grads(st: MLPStatic, dw: torch.Tensor, db: torch.Tensor
-                  ) -> List[torch.Tensor]:
-    """The f32 gradient of every ``flatten_params`` operand, as views
-    into one net's kernel outputs."""
-    out = []
-    for kind, off, shape in _grad_layout(st):
-        buf = dw if kind == 'w' else db
-        out.append(buf[off:off + shape[0] * shape[1]].view(shape))
-    return out
-
+# -- backward ---------------------------------------------------------------
 
 def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
                 cutoff, tau, flats, gs):
     """Launch K3 (nnet=1) or K4 (nnet=2).  Returns (dp, denc, dcodes
     (nnet, R, 16), grads per net)."""
-    build_kernels()
     _check_kernel_shape(st, est)
     n, R = p.shape[0], enc_ray.shape[0]
     dev = p.device
-    fwd_lib, lib = _LIBS['fwd'], _LIBS['bwd']
+    fwd_lib, lib = cuda_build.library('fwd'), cuda_build.library('bwd')
     packs = [_pack_kernel_weights(f, st) for f in flats]
     wbuf = torch.cat([w for w, _ in packs])
     bbuf = torch.cat([b for _, b in packs])
@@ -680,7 +466,7 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
             wbuf_b.data_ptr(), bbuf.data_ptr(), g.data_ptr(), ws.data_ptr(),
             dp.data_ptr(), denc.data_ptr(), dcodes.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n, est.S, R, _stream(dev))
+            dw.data_ptr(), db.data_ptr(), n, est.S, R, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
     grads = [_unpack_grads(st, dw[i], db[i]) for i in range(nnet)]
@@ -695,7 +481,7 @@ def encmlp_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes, cutoff,
     the twin; CUDA tensors launch the kernel or raise."""
     global K3_LAUNCHES
     _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
-    if _device_of(p) == 'cpu':
+    if cuda_build.device_of(p) == 'cpu':
         return encmlp_bwd_plain(st, est, p, enc_ray, codes, cutoff, tau,
                                 flat, g)
     dp, denc, dcodes, grads = _launch_bwd('encmlp_bwd', 1, st, est, p,
@@ -711,7 +497,7 @@ def encmlp_dual_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes_c,
     grads_c, grads_f)."""
     global K4_LAUNCHES
     _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
-    if _device_of(p) == 'cpu':
+    if cuda_build.device_of(p) == 'cpu':
         return encmlp_dual_bwd_plain(st, est, p, enc_ray, codes_c, codes_f,
                                      cutoff, tau, flat_c, flat_f, g_c, g_f)
     dp, denc, dcodes, grads = _launch_bwd(

@@ -5,7 +5,9 @@ synthetic_pose, synthetic_batch): the SURREAL recipe (reference
 configs/surreal/surreal.txt: 8x256 MLP, 64+16 samples, cutoff PE with
 multires 7/4, framecodes) on synthetic poses and rays, so runs need no
 dataset.  Arrays come back as numpy; ``to_device`` moves a batch.
-``build_flagship`` assembles the whole training setup on them.
+``build_flagship`` assembles the whole training setup on them, with one
+subject or several (``ConcatH5Dataset``'s layout: a rest pose per
+subject, each frame's subject in ``rest_pose_idxs``).
 """
 from __future__ import annotations
 
@@ -36,20 +38,37 @@ def surreal_config(**overrides) -> Config:
     return Config(**base)
 
 
+# rest-pose scales of the synthetic subjects: SMPL's rest pose x 2.2
+# (the single subject), then a smaller second one
+REST_SCALES = (2.2, 2.0)
+
+
+def subject_of_frame(n_frames: int, n_subjects: int) -> np.ndarray:
+    """Each frame's subject: the frames split in order into
+    ``n_subjects`` runs of (nearly) equal length."""
+    return (np.arange(n_frames) * n_subjects // n_frames).astype(np.int32)
+
+
 def synthetic_pose(n_frames: int = 9, seed: int = 0,
-                   ext_scale: float = 0.001):
+                   ext_scale: float = 0.001, n_subjects: int = 1):
     """(rest, bones, pelvis, kps, skts, cyls) for ``n_frames`` random
-    SMPL poses drawn from ``seed``."""
+    SMPL poses drawn from ``seed``.  With ``n_subjects > 1`` rest is
+    (n_subjects, J, 3), one per ``REST_SCALES`` entry, and each frame's
+    FK takes its subject's rest pose (``subject_of_frame``)."""
     rng = np.random.RandomState(seed)
-    rest = (SMPL_REST_POSE * ext_scale * 2.2).astype(np.float32)
+    rests = np.stack([SMPL_REST_POSE * ext_scale * s
+                      for s in REST_SCALES[:n_subjects]]).astype(np.float32)
+    subj = subject_of_frame(n_frames, n_subjects)
     bones = rng.normal(scale=0.15, size=(n_frames, 24, 3)).astype(np.float32)
     pelvis = rng.normal(scale=0.05, size=(n_frames, 3)).astype(np.float32)
-    l2ws = np.stack([get_smpl_l2ws_np(b, rest) for b in bones])
+    l2ws = np.stack([get_smpl_l2ws_np(b, rests[i])
+                     for b, i in zip(bones, subj)])
     l2ws[..., :3, 3] += pelvis[:, None]
     kps = l2ws[..., :3, 3].astype(np.float32)
     skts = np.linalg.inv(l2ws).astype(np.float32)
     cyls = get_kp_bounding_cylinder(kps, ext_scale=ext_scale,
                                     head='-y').astype(np.float32)
+    rest = rests[0] if n_subjects == 1 else rests
     return rest, bones, pelvis, kps, skts, cyls
 
 
@@ -89,10 +108,14 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 
 def build_flagship(n_rays: int = 2048, n_frames: int = 9,
-                   opt_pose: bool = True, device=None, **cfg_overrides):
+                   n_subjects: int = 1, opt_pose: bool = True, device=None,
+                   **cfg_overrides):
     """The SURREAL-recipe training setup on synthetic data, the
     counterpart of ``anerf_tpu.testing_utils.build_flagship``: pose
     refinement every 20 steps with kp loss 0.1 when ``opt_pose``.
+    ``n_subjects > 1`` splits the frames between that many subjects of
+    different rest poses (``synthetic_pose``); the model then has the
+    subject channel, and the batch its ``subject_idxs``.
     ``device=None`` means the GPU and raises without one.  Returns
     (setup, state, batch, train_step); the parameters come from a CPU
     ``torch.Generator`` seeded with ``cfg.seed``."""
@@ -106,13 +129,16 @@ def build_flagship(n_rays: int = 2048, n_frames: int = 9,
                          opt_pose_coef=0.1 if opt_pose else 0.0,
                          **cfg_overrides)
     rest, bones, pelvis, kps, skts, cyls = synthetic_pose(
-        n_frames, ext_scale=cfg.ext_scale)
-    rc = build_raycast_config(cfg, n_framecodes=n_frames)
+        n_frames, ext_scale=cfg.ext_scale, n_subjects=n_subjects)
+    rc = build_raycast_config(cfg, n_framecodes=n_frames,
+                              n_subjects=n_subjects)
+    subj = subject_of_frame(n_frames, n_subjects) if n_subjects > 1 else None
     setup = TrainSetup(cfg=cfg, rc=rc, skel=SMPLSkeleton, rest_pose=rest,
-                       anchors=P.make_anchors(kps, bones), near=0.0, far=1.0,
-                       device=device)
+                       anchors=P.make_anchors(kps, bones),
+                       rest_pose_idxs=subj, near=0.0, far=1.0, device=device)
     state = init_train_state(setup, torch.Generator().manual_seed(cfg.seed),
                              init_kp3d=kps, init_bones=bones)
-    batch = to_device(synthetic_batch(n_rays, n_frames, kps, skts, bones,
-                                      cyls), setup.device)
-    return setup, state, batch, make_train_step(setup)
+    batch = synthetic_batch(n_rays, n_frames, kps, skts, bones, cyls)
+    if subj is not None:
+        batch['subject_idxs'] = subj[batch['kp_idx']]
+    return setup, state, to_device(batch, setup.device), make_train_step(setup)

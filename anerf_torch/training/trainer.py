@@ -23,9 +23,13 @@ Adam is optax's ``scale_by_adam(0.9, 0.999, 1e-8)`` ->
 ``scale_by_schedule`` -> ``scale(-1)`` written as tensor code, its
 schedule fed the optimizer's own count.
 
+Multiple subjects (``ConcatH5Dataset``'s layout): a rest pose per
+subject, ``rest_pose_idxs`` naming each frame's subject for FK, and the
+batch's ``subject_idxs`` feeding the model's subject channel.
+
 Not ported yet (ROADMAP.md A.5/A.6): the FlipFlop scheduler and joint
-mode (``opt_pose_flipflop``, ``opt_pose_joint``, ``testopt``), multiple
-subjects, and ``make_multi_train_step``.
+mode (``opt_pose_flipflop``, ``opt_pose_joint``, ``testopt``) and
+``make_multi_train_step``.
 """
 from __future__ import annotations
 
@@ -116,36 +120,45 @@ def _check_supported(cfg: Config) -> None:
 class TrainSetup:
     """Everything static the train step needs.  ``device=None`` means
     the GPU and raises when there is none; pass 'cpu' to train there
-    (the fused kernels' plain twins stand in).  The rest pose and the
-    anchors move to the device on construction."""
+    (the fused kernels' plain twins stand in).  The rest pose, the
+    subject of each frame and the anchors move to the device on
+    construction."""
     cfg: Config
     rc: RayCastConfig
     skel: Skeleton
-    rest_pose: Any                      # (J, 3) or (S, J, 3)
+    rest_pose: Any                      # (J, 3) or (S, J, 3) per subject
     anchors: Optional[Dict[str, Any]] = None
     kp_map: Optional[Any] = None
+    # multi-subject: per-frame subject index into rest_pose's leading
+    # axis (ConcatH5Dataset meta rest_pose_idxs)
+    rest_pose_idxs: Optional[Any] = None
     near: float = 0.0
     far: float = 1.0
     device: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.rc.n_subjects > 1:
-            raise NotImplementedError(
-                'multi-subject training is not ported yet: ROADMAP.md A.5')
         to = lambda a: torch.as_tensor(np.asarray(a, np.float32)
                                        if not torch.is_tensor(a) else a,
                                        device=self.device)
         self.rest_pose = to(self.rest_pose)
         if self.anchors is not None:
             self.anchors = {k: to(v) for k, v in self.anchors.items()}
+        idx = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
+            np.asarray(a))).to(self.device).long()
         if self.kp_map is not None:
-            self.kp_map = torch.as_tensor(np.asarray(self.kp_map),
-                                          device=self.device).long()
+            self.kp_map = idx(self.kp_map)
+        if self.rest_pose_idxs is not None:
+            self.rest_pose_idxs = idx(self.rest_pose_idxs)
 
-    def frame_rest_pose(self) -> torch.Tensor:
-        return self.rest_pose[0] if self.rest_pose.dim() == 3 \
-            else self.rest_pose
+    def frame_rest_pose(self, kp_idx: torch.Tensor) -> torch.Tensor:
+        """Rest pose rows of the indexed frames: (N, J, 3) when
+        multi-subject, else the shared (J, 3)."""
+        if self.rest_pose.dim() == 3 and self.rest_pose_idxs is not None:
+            return self.rest_pose[self.rest_pose_idxs[kp_idx]]
+        if self.rest_pose.dim() == 3:
+            return self.rest_pose[0]
+        return self.rest_pose
 
 
 def init_train_state(setup: TrainSetup, generator: torch.Generator,
@@ -189,7 +202,7 @@ def get_batch_pose(setup: TrainSetup, pose_params, batch
     n_frames = pose_params['pelvis'].shape[0]
     all_idxs = torch.arange(n_frames, device=kp_idx.device)
     kps_b, bones_b, skts_b, _, rots_b = P.pose_fk(
-        pose_params, all_idxs, setup.frame_rest_pose(), setup.skel,
+        pose_params, all_idxs, setup.frame_rest_pose(all_idxs), setup.skel,
         setup.kp_map)
     pose = {'kps': kps_b[kp_idx], 'skts': skts_b[kp_idx],
             'bones': bones_b[kp_idx], 'cyls': batch['cyls']}
@@ -307,7 +320,7 @@ def loss_and_grads(setup: TrainSetup, state, batch, generator=None):
             rc, state['params'], batch['rays_o'], batch['rays_d'],
             setup.near, setup.far, pose, est,
             cam_idxs=batch.get('cam_idxs') if cfg.opt_framecode else None,
-            generator=generator)
+            subject_idxs=batch.get('subject_idxs'), generator=generator)
         total, stats = compute_losses(setup, out, batch, pose, extras,
                                       state['pose_params'],
                                       float(_use_pose(cfg, step)))

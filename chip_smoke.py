@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the fused encode+MLP kernels from ``anerf_torch/csrc`` with nvcc
-(sm_90a), then:
+Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
+(sm_90a, one process per source, all started together), then:
 
 1. kernel phase: K1 (one net, R=4096 rays x S=16) and K2 (two nets,
    R=4096 x S=64) at the SURREAL recipe's full width on realistic
@@ -28,10 +28,28 @@ Builds the fused encode+MLP kernels from ``anerf_torch/csrc`` with nvcc
    finite and fall, the pose bank must hold still through step 18 and
    move at step 19, and one step's NeRF gradients on the fused backend
    must agree with the plain backend's; train rays/s over steps 5-24,
-   seconds per step, peak device memory and a profile of one step.
+   seconds per step, peak device memory and a profile of one step;
+5. split-MLP kernel phase: K5 and K6 (``fused_mlp``) on the encodings
+   the plain encoders make of a two-subject scene, held against their
+   twins (forward rows as in 1, every output of K6 as in 2): at a ragged
+   4104 points with and without framecodes, then K5 at the eval coarse
+   chunk (n=262,144) and the train shapes (n=131,072 and 32,768) and K6
+   at the train shapes, with kernel time, twin time, bound and TFLOP/s;
+6. multi-subject path phase: one bullet-time frame of the two-subject
+   model at 512x512 (chunk 4096); K5 must launch 3 times a chunk and
+   K1-K4 never, and one chunk must match the plain path;
+7. multi-subject train phase: 12 steps of
+   ``build_flagship(2048, n_subjects=2)`` (two subjects with different
+   rest poses); K5 and K6 must launch 3 times a step and K1-K4 never,
+   the losses must be finite, one step's NeRF gradients must agree with
+   the plain backend's, and the same rays as subject 0 and subject 1
+   must give other colors and the same densities; train rays/s, ms/step,
+   peak memory and a profile of one step.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
-line, and as its last line ``{"ok": true, "device": {...}}``.  Any
+line (K1-K6; each kernel's launches are those of its main path's run:
+the flagship train step for K1-K4, the multi-subject one for K5/K6),
+and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
 it fails the same way.
@@ -66,6 +84,7 @@ BWD_RATIO_TOL = 5e-3
 GRAD_COS_MIN = 0.98
 GRAD_RATIO_TOL = 0.1
 TRAIN_STEPS = 25
+MS_STEPS = 12           # multi-subject train steps
 
 # published dense peaks (NVIDIA data sheets) by card:
 # (bf16 tensor FLOP/s, f32 FLOP/s, HBM bytes/s)
@@ -201,7 +220,7 @@ def kernel_phase(FE, T, rc, cfg, params, peaks, device, R=4096):
 
 
 def _timed_row(name, source, tpu_line, cost, ms, plain_ms, max_abs, peaks,
-               shape):
+               shape, tpu_file='pallas_encmlp.py'):
     """Print a kernel's time against its twin and its bound; return its
     row of the ``kernels`` line (launches filled in later)."""
     t_ops = cost['bf16_flops'] / peaks[0] + cost['f32_flops'] / peaks[1]
@@ -212,7 +231,7 @@ def _timed_row(name, source, tpu_line, cost, ms, plain_ms, max_abs, peaks,
           f'{cost["bytes"] / 1e6:.1f} MB), '
           f'{cost["bf16_flops"] / (ms * 1e-3) / 1e12:.1f} TFLOP/s')
     return dict(name=name, route='cuda', source=f'anerf_torch/csrc/{source}',
-                replaces=f'anerf_tpu/ops/pallas_encmlp.py:{tpu_line}',
+                replaces=f'anerf_tpu/ops/{tpu_file}:{tpu_line}',
                 launches=None, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes',
@@ -285,18 +304,23 @@ def _composited_cotangent(FE, ins, nnet, device):
     in another order than the twin's, flips a ReLU mask now and then,
     which moves whole elements of the cotangents; the phase prints the
     cosines that gives as well.)"""
-    import torch
-    from anerf_torch.ops import compositing
     st, est, p, enc, codes, cutoff, tau, flats = ins
-    S = est.S
-    R = p.shape[0] // S
     if nnet == 2:
         outs = FE.encmlp_dual_fwd_plain(st, est, p, enc, *codes, cutoff, tau,
                                         *flats)
     else:
         outs = [FE.encmlp_fwd_plain(st, est, p, enc, codes[1], cutoff, tau,
                                     flats[1])]
+    return _composite_grad(outs, est.S, device)
+
+
+def _composite_grad(outs, S, device):
+    """d(rgb MSE after compositing) / d raw for raw rows (4, n), n = R x S
+    points in ray order, each a list entry; stacked (nnet, 4, n)."""
+    import torch
+    from anerf_torch.ops import compositing
     raws = [o.detach().requires_grad_(True) for o in outs]
+    R = raws[0].shape[1] // S
     gen = torch.Generator(device=device).manual_seed(0)
     z = torch.linspace(0.5, 1.5, S, device=device).expand(R, S)
     rays_d = torch.randn((R, 3), generator=gen, device=device)
@@ -351,8 +375,136 @@ def bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device, R=2048):
     return rows
 
 
-def path_phase(FE, T, rc, cfg, params, device, gpu_line, H=512,
-               chunk=4096):
+def split_inputs(FM, T, cfg, rc2, params2, R, S, device, codes=True,
+                 cat_subject=False):
+    """K5/K6 operands at R rays x S samples of the two-subject scene
+    (``synthetic_pose(n_subjects=2)``): the plain encoders' encodings
+    (``raycaster.encode_inputs``) as the train step makes them, the
+    subject channel as its own part as the raycaster hands it over
+    (``cat_subject``: appended to the view encoding, anerf_tpu's
+    649-wide part), the fine net's framecodes as their own part
+    (``codes=False``: a net without them).  Returns (st, xs, xvs,
+    flat)."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.models.nerf_mlp import framecode_select
+    from anerf_torch.ops import rays as ray_ops
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(9, n_subjects=2)
+    b = T.to_device(T.synthetic_batch(R, 9, kps, skts, bones, cyls, seed=1),
+                    device)
+    subj = torch.as_tensor(T.subject_of_frame(9, 2), device=device)
+    near, far = ray_ops.get_near_far_in_cylinder(b['rays_o'], b['rays_d'],
+                                                 b['cyls'], 0., 1.)
+    z = ray_ops.sample_from_lineseg(near, far, S)
+    pts = b['rays_o'][:, None] + b['rays_d'][:, None] * z[..., None]
+    pose = {k: b[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+    net = params2['fine']
+    with torch.no_grad():
+        v, r, d = raycaster.encode_inputs(rc2, params2, pts, b['rays_o'],
+                                          b['rays_d'], pose,
+                                          embed_state(cfg, rc2, 10000))
+        ch = subj[b['kp_idx']].to(d.dtype)[:, None, None].expand(R, S, 1)
+        parts = [[v, r], [torch.cat([d, ch], -1)] if cat_subject
+                 else [d, ch]]
+        if codes:
+            c = framecode_select(net['framecodes'], b['cam_idxs'])
+            parts[1].append(c[:, None].expand(R, S, c.shape[-1]))
+        else:
+            net = dict(net, views_linear={
+                'w': net['views_linear']['w'][:-cfg.framecode_size],
+                'b': net['views_linear']['b']})
+    xs, xvs = [[a.reshape(R * S, a.shape[-1]).to(torch.bfloat16).contiguous()
+                for a in ps] for ps in parts]
+    st = FM.MLPStatic(depth=rc2.nerf.depth, width=rc2.nerf.width,
+                      dparts=tuple(x.shape[1] for x in xs),
+                      vparts=tuple(x.shape[1] for x in xvs),
+                      half=rc2.nerf.width // 2, skips=tuple(rc2.nerf.skips))
+    return st, xs, xvs, FM.flatten_params(net, st)
+
+
+def _split_calls(FM, st, xs, xvs, flat, g=None):
+    """(kernel, twin) closures of K5 (raw rows as (4, n), for
+    ``_check_close``) or, given the cotangent g (n, 4), of K6 (named
+    outputs for ``_check_bwd``: each part's cotangent, every gradient)."""
+    if g is None:
+        return (lambda: [FM.mlp_fwd(st, xs, xvs, flat).T],
+                lambda: [FM.mlp_fwd_plain(st, xs, xvs, flat).T])
+
+    def named(out):
+        dxs, dxvs, grads = out
+        return ([(f'dx{i}', x) for i, x in enumerate(dxs)]
+                + [(f'dxv{i}', x) for i, x in enumerate(dxvs)]
+                + [(f'g{i}', x) for i, x in enumerate(grads)])
+    return (lambda: named(FM.mlp_bwd(st, xs, xvs, flat, g)),
+            lambda: named(FM.mlp_bwd_plain(st, xs, xvs, flat, g)))
+
+
+def _split_cotangent(FM, st, xs, xvs, flat, S, device):
+    """K6's incoming cotangent (n, 4): that of an rgb loss after
+    compositing K5's twin output along its rays."""
+    raw = FM.mlp_fwd_plain(st, xs, xvs, flat).T
+    return _composite_grad([raw], S, device)[0].T.contiguous()
+
+
+def split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device):
+    """K5 and K6 against their twins on the two-subject scene's
+    encodings: checked at a ragged 4104 points (S=24, R=171) with the
+    raycaster's parts and with a 649-wide odd one without framecodes,
+    then checked and timed at the eval coarse chunk (K5, R=4096 x S=64)
+    and the train shapes (R=2048 x S=64 and x S=16, both kernels).
+    Returns the kernels' rows at n=131,072."""
+    import torch
+    for codes, cat in ((True, False), (False, True)):
+        st, xs, xvs, flat = split_inputs(FM, T, cfg, rc2, params2, 171, 24,
+                                         device, codes, cat)
+        print(f'mlp_fwd, mlp_bwd n=4104 S=24 parts {st.dparts} / '
+              f'{st.vparts}:')
+        run, plain = _split_calls(FM, st, xs, xvs, flat)
+        _check_close('mlp_fwd', plain(), run())
+        g = _split_cotangent(FM, st, xs, xvs, flat, 24, device)
+        run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+        _check_bwd('mlp_bwd', plain(), run())
+    timed = {}
+    for R, S in ((4096, 64), (2048, 64), (2048, 16)):
+        st, xs, xvs, flat = split_inputs(FM, T, cfg, rc2, params2, R, S,
+                                         device)
+        n = R * S
+        run, plain = _split_calls(FM, st, xs, xvs, flat)
+        got = run()
+        torch.cuda.synchronize()
+        print(f'mlp_fwd R={R} S={S}:')
+        max_abs = _check_close('mlp_fwd', plain(), got)
+        timed['mlp_fwd', n] = _timed_row(
+            'mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
+            _time_ms(run, 10), _time_ms(plain, 2), max_abs, peaks, f'n={n}',
+            tpu_file='pallas_mlp.py')
+        if R != 2048:
+            continue
+        g = _split_cotangent(FM, st, xs, xvs, flat, S, device)
+        run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+        got = run()
+        torch.cuda.synchronize()
+        print(f'mlp_bwd R={R} S={S}:')
+        max_abs = _check_bwd('mlp_bwd', plain(), got)
+        del got
+        timed['mlp_bwd', n] = _timed_row(
+            'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
+            _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
+            f'n={n}', tpu_file='pallas_mlp.py')
+    ws = FM.cuda_build.library('mlp_bwd').mlp_bwd_workspace_bytes(131072)
+    print(f'mlp_bwd workspace at n=131,072: {ws / 2**30:.3f} GiB')
+    # the rows of the train step's coarse samples
+    return [timed['mlp_fwd', 131072], timed['mlp_bwd', 131072]]
+
+
+def path_phase(FE, T, rc, cfg, params, device, gpu_line, per_chunk,
+               n_bullet=3, what='path', H=512, chunk=4096):
+    """``ImageRenderer.render_path`` over ``n_bullet`` bullet-time frames:
+    each kernel must launch ``per_chunk[name]`` times a chunk (the rest
+    none), the maps must be finite and not empty, and one chunk must
+    match the plain path.  Returns the launch counts of the timed
+    render."""
     import numpy as np
     import torch
     from anerf_torch.models import raycaster
@@ -366,7 +518,7 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, H=512,
     c2w = np.eye(4, dtype=np.float32)
     c2w[2, 3] = 1.2        # the subject's cylinder fills ~1/5 of the frame
     rd = load_bullettime(kps, bones, np.stack([c2w] * len(kps)), focal,
-                         rest, selected_idxs=[0], n_bullet=3)
+                         rest, selected_idxs=[0], n_bullet=n_bullet)
     rd['hwf'] = (np.full(3, H), np.full(3, W), rd['focals'])
     state = embed_state(cfg, rc, 10000)
     renderer = ImageRenderer(rc, params, state, chunk=chunk, near=0.,
@@ -389,11 +541,11 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, H=512,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = FE.launch_counts()
-    print(f'path: {len(rd["c2ws"])} frames {H}x{W}, {n_chunks} chunks, '
+    print(f'{what}: {len(rd["c2ws"])} frames {H}x{W}, {n_chunks} chunks, '
           f'launches {counts}')
-    if not (counts['encmlp_fwd'] == counts['encmlp_dual_fwd'] == n_chunks
-            and n_chunks > 0):
-        raise AssertionError(f'launch counts {counts} != chunks {n_chunks}')
+    expect = {k: per_chunk.get(k, 0) * n_chunks for k in counts}
+    if counts != expect or n_chunks == 0:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
     for k in ('rgbs', 'accs', 'disps'):
         if not np.isfinite(out[k]).all():
             raise AssertionError(f'non-finite {k}')
@@ -403,7 +555,7 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, H=512,
         raise AssertionError('empty frames: the checks below would be vacuous')
     n_rays = sum(int((br[0] - tl[0]) * (br[1] - tl[1]))
                  for tl, br in out['bboxes'])
-    print(f'path: {n_rays} rays in {dt:.3f} s: {n_rays / dt:.1f} rays/s, '
+    print(f'{what}: {n_rays} rays in {dt:.3f} s: {n_rays / dt:.1f} rays/s, '
           f'{dt / len(rd["c2ws"]):.3f} s/frame, acc mean '
           f'{out["accs"].mean():.4f} ({gpu_line})')
     profile_frame(renderer, rd)
@@ -486,9 +638,7 @@ def profile_frame(renderer, rd):
 def train_phase(FE, T, device, gpu_line):
     """25 flagship train steps through the kernels; returns the launch
     counts of the run."""
-    import dataclasses as dc
     import torch
-    from anerf_torch.training import trainer as TT
     setup, state, batch, step = T.build_flagship(
         2048, device=device, compute_dtype='bfloat16')
     if setup.rc.mlp_backend != 'fused' or setup.cfg.opt_pose_step != 20:
@@ -518,8 +668,11 @@ def train_phase(FE, T, device, gpu_line):
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu()
     print(f'train: {TRAIN_STEPS} steps, launches {counts}')
-    if any(v != TRAIN_STEPS for v in counts.values()):
-        raise AssertionError(f'launch counts {counts} != {TRAIN_STEPS} each')
+    expect = {k: 0 for k in counts}
+    expect.update({k: TRAIN_STEPS for k in ('encmlp_fwd', 'encmlp_dual_fwd',
+                                            'encmlp_bwd', 'encmlp_dual_bwd')})
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
     first, last = losses[:5].mean().item(), losses[-5:].mean().item()
@@ -536,12 +689,20 @@ def train_phase(FE, T, device, gpu_line):
           f'{dt / n_timed * 1e3:.2f} ms/step over steps 5-{TRAIN_STEPS - 1}, '
           f'peak device memory of a step {peak / 2**30:.2f} GiB '
           f'({gpu_line})')
-    profile_step(step, state, batch, gen)
+    profile_step(step, state, batch, gen, K1_K4_GROUPS)
+    check_backend_grads(setup, state, batch, device, 'train')
+    return counts
 
-    # one step's NeRF gradients, fused against plain, on the card
+
+def check_backend_grads(setup, state, batch, device, what):
+    """One step's NeRF gradients, fused against plain backend, on the
+    card."""
+    import torch
+    from anerf_torch.training import trainer as TT
     grads = {}
     for backend in ('fused', 'plain'):
-        s2 = dc.replace(setup, rc=dc.replace(setup.rc, mlp_backend=backend))
+        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
+            setup.rc, mlp_backend=backend))
         _, g_nerf, _ = TT.loss_and_grads(
             s2, state, batch, torch.Generator(device=device).manual_seed(3))
         grads[backend] = g_nerf
@@ -558,9 +719,85 @@ def train_phase(FE, T, device, gpu_line):
             raise AssertionError(f'fused gradient of {k} disagrees with plain:'
                                  f' cos {cos:.5f} ratio {ratio:.4f}')
     worst.sort()
-    print(f'train: fused vs plain NeRF gradients, {len(worst)} leaves, '
+    print(f'{what}: fused vs plain NeRF gradients, {len(worst)} leaves, '
           'worst: ' + ', '.join(f'{k} cos {c:.5f} ratio {r:.4f}'
                                 for c, k, r in worst[:3]))
+
+
+def ms_train_phase(FE, T, device, gpu_line):
+    """MS_STEPS multi-subject train steps (``build_flagship(2048,
+    n_subjects=2)``) through K5/K6; returns the launch counts of the
+    run.  Then the fused-vs-plain gradients of one step, and the
+    subject channel reaching the output."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+
+    def build():
+        return T.build_flagship(2048, n_subjects=2, device=device,
+                                compute_dtype='bfloat16')
+    setup, state, batch, step = build()
+    if setup.rc.mlp_backend != 'fused' or setup.rc.n_subjects != 2:
+        raise AssertionError('the multi-subject setup changed')
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, _ = step(state, batch, gen)          # warm-up
+    torch.cuda.synchronize()
+    setup, state, batch, step = build()
+    gen = torch.Generator(device=device).manual_seed(0)
+    losses = []
+    FE.reset_launch_counts()
+    for i in range(MS_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == MS_STEPS - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        state, stats = step(state, batch, gen)
+        losses.append(stats['total_loss'])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = FE.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu()
+    print(f'multi-subject train: {MS_STEPS} steps, launches {counts}')
+    expect = {k: 0 for k in counts}
+    expect.update(mlp_fwd=3 * MS_STEPS, mlp_bwd=3 * MS_STEPS)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    n_timed = MS_STEPS - 2
+    print(f'multi-subject train: total_loss {losses[0]:.5f} -> '
+          f'{losses[-1]:.5f}; {2048 * n_timed / dt:.1f} train rays/s, '
+          f'{dt / n_timed * 1e3:.2f} ms/step over steps 2-{MS_STEPS - 1}, '
+          f'peak device memory of a step {peak / 2**30:.2f} GiB '
+          f'({gpu_line})')
+    profile_step(step, state, batch, gen, K5_K6_GROUPS)
+    check_backend_grads(setup, state, batch, device, 'multi-subject train')
+
+    # the same rays as subject 0 and as subject 1: other colors, the
+    # same densities (the channel enters the views branch only)
+    rc_e = setup.rc.eval_variant()
+    pose = {k: batch[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+    n = batch['rays_o'].shape[0]
+    outs = []
+    with torch.inference_mode():
+        for subj in (0, 1):
+            outs.append(raycaster.render_rays(
+                rc_e, state['params'], batch['rays_o'], batch['rays_d'],
+                setup.near, setup.far, pose,
+                embed_state(setup.cfg, setup.rc, MS_STEPS),
+                cam_idxs=batch['cam_idxs'],
+                subject_idxs=torch.full((n,), subj, dtype=torch.long,
+                                        device=device)))
+    d_rgb = (outs[0]['rgb_map'] - outs[1]['rgb_map']).abs().max().item()
+    d_alpha = (outs[0]['alpha'] - outs[1]['alpha']).abs().max().item()
+    print(f'multi-subject: subject 0 vs 1 on the same rays: rgb max|d| '
+          f'{d_rgb:.3e}, alpha max|d| {d_alpha:.3e}')
+    if not (d_rgb > 1e-4 and d_alpha <= 1e-6):
+        raise AssertionError('the subject channel does not reach the output '
+                             'as it should')
     return counts
 
 
@@ -574,17 +811,26 @@ def _leaf_names(tree, prefix=''):
     return [] if tree is None else [prefix[:-1]]
 
 
-def profile_step(step, state, batch, gen):
-    """Device time by kernel over one train step, and each of K1-K4's
-    share of it (K3/K4: their passes, the dW and bias passes summed)."""
+# a step's device kernels by the fused kernel they belong to (name
+# substrings); K3/K4: their passes, with the dW and bias passes summed
+K1_K4_GROUPS = {'K1 encmlp_fwd_kernel<1>': ('encmlp_fwd_kernel<1>',),
+                'K2 encmlp_fwd_kernel<2>': ('encmlp_fwd_kernel<2>',),
+                'K3 passes <1>': ('kernel<1>',),
+                'K4 passes <2>': ('kernel<2>',),
+                'K3+K4 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
+K5_K6_GROUPS = {'K5 mlp_fwd_kernel': ('mlp_fwd_kernel',),
+                'K6 mlp_bwd_tile_kernel': ('mlp_bwd_tile_kernel',),
+                'K6 dx_kernel': ('dx_kernel',),
+                'K6 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
+
+
+def profile_step(step, state, batch, gen, groups):
+    """Device time by kernel over one train step, and each group's share
+    of it."""
     res = _profile('one train step', lambda: step(state, batch, gen), 15)
     if res is None:
         return
     events, dev = res
-    groups = {'K1 encmlp_fwd_kernel<1>': ('encmlp_fwd_kernel<1>',),
-              'K2 encmlp_fwd_kernel<2>': ('encmlp_fwd_kernel<2>',),
-              'K3 passes <1>': ('kernel<1>',), 'K4 passes <2>': ('kernel<2>',),
-              'K3+K4 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
     for g, keys in groups.items():
         ms = sum(dev(e) for e in events if any(k in e.key for k in keys)
                  and not ('encmlp_fwd' in e.key and 'encmlp_fwd' not in g))
@@ -602,6 +848,7 @@ def main() -> int:
     from anerf_torch.models.factory import (build_raycast_config,
                                             init_raycaster_params)
     from anerf_torch.ops import fused_encmlp as FE
+    from anerf_torch.ops import fused_mlp as FM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -626,13 +873,29 @@ def main() -> int:
         torch.Generator().manual_seed(1), rc, cfg), device)
     peaks = _peaks(torch.cuda.get_device_name(0))
 
+    # the two-subject model (the subject channel on the views branch):
+    # seed 4, whose fine net's random density is positive inside the
+    # cylinder (seed 1's is not: the extra views row shifts its draws)
+    rc2 = build_raycast_config(cfg, n_framecodes=9, n_subjects=2)
+    params2 = params_to(init_raycaster_params(
+        torch.Generator().manual_seed(4), rc2, cfg), device)
+
     rows = kernel_phase(FE, T, rc, cfg, params, peaks, device)
     rows += bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device)
-    paths = {'render': path_phase(FE, T, rc, cfg, params, device, gpu_line),
-             'train': train_phase(FE, T, device, gpu_line)}
+    rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
+    paths = {'render': path_phase(FE, T, rc, cfg, params, device, gpu_line,
+                                  {'encmlp_fwd': 1, 'encmlp_dual_fwd': 1}),
+             'train': train_phase(FE, T, device, gpu_line),
+             'ms_render': path_phase(FE, T, rc2, cfg, params2, device,
+                                     gpu_line, {'mlp_fwd': 3}, n_bullet=1,
+                                     what='multi-subject path'),
+             'ms_train': ms_train_phase(FE, T, device, gpu_line)}
+    # each kernel's main path: the flagship train step for K1-K4, the
+    # multi-subject train step for K5/K6
+    main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train'}
     for row in rows:
-        # the train step is the main path; the render path launches K1/K2
-        row['launches'] = paths['train'][row['name']]
+        row['launches'] = paths[main_path.get(row['name'], 'train')][
+            row['name']]
         row['launches_by_path'] = {k: v[row['name']] for k, v in
                                    paths.items()}
     print(json.dumps({'kernels': rows}))

@@ -40,6 +40,7 @@ from anerf_torch import testing_utils as T
 from anerf_torch.interop import params_from_numpy
 from anerf_torch.models.factory import build_raycast_config as t_build
 from anerf_torch.ops import fused_encmlp as FE
+from anerf_torch.ops import fused_mlp as FM
 
 J = 24
 COS_TOL = 1e-4
@@ -205,7 +206,7 @@ def test_grad_layout_covers_flatten_order(scene):
     st, flat = tops[0], tops[7][1]
     wb = FE._pack_bwd_weights(flat, st)
     _, bbuf = FE._pack_kernel_weights(flat, st)
-    layout = FE._grad_layout(st)
+    layout = FM._grad_layout(st)
     assert len(layout) == len(flat)
     got = FE._unpack_grads(st, wb.float(), bbuf)
     for w, g in zip(flat, got):

@@ -236,7 +236,8 @@ def test_wrappers_take_twins_on_cpu(scene):
     two = FE.encmlp_dual_fwd(st, est, p, enc, codes[0], codes[1], cutoff, tau,
                              *flats)
     assert FE.launch_counts() == {'encmlp_fwd': 0, 'encmlp_dual_fwd': 0,
-                                  'encmlp_bwd': 0, 'encmlp_dual_bwd': 0}
+                                  'encmlp_bwd': 0, 'encmlp_dual_bwd': 0,
+                                  'mlp_fwd': 0, 'mlp_bwd': 0}
     twin = FE.encmlp_fwd_plain(st, est, p, enc, codes[1], cutoff, tau,
                                flats[1])
     assert torch.equal(one, twin) and torch.equal(two[1], twin)

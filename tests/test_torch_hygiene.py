@@ -6,6 +6,7 @@ The import check walks the sources' syntax trees: this environment
 preloads jax at interpreter start, so ``sys.modules`` cannot show it.
 """
 import ast
+import dataclasses
 import os
 
 import pytest
@@ -50,24 +51,54 @@ def test_renderer_without_device_needs_cuda(monkeypatch):
     assert resolve_device('cpu') == torch.device('cpu')
 
 
-def test_split_mlp_config_raises_off_cpu():
-    """Outside ``supported_config`` a non-CPU tensor must not reach the
-    split-MLP kernel's plain twin: that kernel is not ported."""
-    import dataclasses
+def test_split_mlp_wrappers_refuse_other_devices():
+    """Off the CPU the split-MLP wrappers (K5, K6) launch their kernel
+    or raise: a tensor on another device never reaches the plain twin."""
     from anerf_torch import testing_utils as T
     from anerf_torch.models.factory import (build_raycast_config,
                                             init_raycaster_params)
-    from anerf_torch.models.raycaster import _run_network
-    cfg = T.surreal_config(netwidth=64, netdepth=2, multires=2,
-                           multires_views=1)
-    rc = dataclasses.replace(build_raycast_config(cfg, n_framecodes=2),
-                             mlp_backend='fused')
+    from anerf_torch.ops import fused_mlp as FM
+    cfg = T.surreal_config()
+    rc = build_raycast_config(cfg, n_framecodes=2, n_subjects=2)
     params = init_raycaster_params(torch.Generator().manual_seed(0), rc, cfg)
-    meta = lambda c: torch.zeros((2, 3, c), device='meta')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _run_network(rc, params['coarse'], meta(rc.nerf.input_ch),
-                     meta(rc.nerf.input_ch_bones),
-                     meta(rc.nerf.input_ch_views), None)
+    st = FM.MLPStatic(depth=8, width=256, dparts=(360, 72),
+                      vparts=(649, 16), half=128, skips=(4,))
+    meta = lambda c: torch.zeros((5, c), dtype=torch.bfloat16, device='meta')
+    xs, xvs = [meta(360), meta(72)], [meta(649), meta(16)]
+    flat = [w.to('meta') for w in FM.flatten_params(params['coarse'], st)]
+    with pytest.raises(ValueError, match='device'):
+        FM.mlp_fwd(st, xs, xvs, flat)
+    with pytest.raises(ValueError, match='device'):
+        FM.mlp_bwd(st, xs, xvs, flat,
+                   torch.zeros((5, 4), device='meta'))
+
+
+def test_multisubject_train_setup_builds_on_cpu():
+    """A two-subject TrainSetup on the CPU: the rest poses and each
+    frame's subject move to the device, and FK takes each frame's own
+    rest pose."""
+    from anerf_torch import testing_utils as T
+    from anerf_torch.models.factory import build_raycast_config
+    from anerf_torch.skeleton import SMPLSkeleton
+    from anerf_torch.training.trainer import TrainSetup
+    cfg = T.surreal_config(N_rand=4)
+    rest = T.synthetic_pose(5, n_subjects=2)[0]
+    subj = T.subject_of_frame(5, 2)
+    setup = TrainSetup(cfg=cfg, rc=build_raycast_config(cfg, n_framecodes=5,
+                                                        n_subjects=2),
+                       skel=SMPLSkeleton, rest_pose=rest,
+                       rest_pose_idxs=subj, device='cpu')
+    assert setup.rest_pose.shape == (2, 24, 3)
+    assert setup.rest_pose_idxs.dtype == torch.long
+    assert setup.rest_pose_idxs.device.type == 'cpu'
+    rows = setup.frame_rest_pose(torch.arange(5))
+    assert torch.equal(rows, torch.as_tensor(rest)[subj])
+    assert not torch.equal(rows[0], rows[-1])
+    # a copy with another backend (as the fused-vs-plain checks make it)
+    # takes the tensors it already holds
+    other = dataclasses.replace(setup, rc=dataclasses.replace(
+        setup.rc, mlp_backend='plain'))
+    assert torch.equal(other.rest_pose_idxs, setup.rest_pose_idxs)
 
 
 def _no_cuda(monkeypatch):
@@ -165,3 +196,25 @@ def test_fused_wrappers_refuse_other_devices():
         FE.encmlp_dual_bwd(st, est, p, enc, codes[0], codes[1], cut, tau,
                            *flats, torch.zeros_like(p[:4].T),
                            torch.zeros_like(p[:4].T))
+
+
+def test_cached_device_tensors_survive_inference_mode():
+    """The per-device constants the encoders cache (PE bands, the
+    component-major permutation) are built outside inference mode: a
+    renderer's first call, under ``torch.inference_mode``, must leave
+    tensors that a train step's autograd may save."""
+    from anerf_torch.ops import embedding as E
+    from anerf_torch.ops import fused_encmlp as FE
+    E._band_tensor.cache_clear()
+    FE._perm_tensors.cache_clear()
+    cfg = E.EmbedConfig(input_dims=24, num_freqs=7, cutoff=True,
+                        cutoff_inputs=True)
+    emb = lambda d: E.embed(d, cfg, dists=d, cutoff_dist=torch.ones(24),
+                            tau=torch.tensor(20.))[0]
+    with torch.inference_mode():
+        emb(torch.rand(3, 24))
+        FE.view_pe_rows(torch.randn(2, 72), [1., 2.], 24)
+    d = torch.rand(3, 24, requires_grad=True)
+    x = torch.randn(2, 72, requires_grad=True)
+    (emb(d).sum() + FE.view_pe_rows(x, [1., 2.], 24).sum()).backward()
+    assert torch.isfinite(d.grad).all() and torch.isfinite(x.grad).all()
