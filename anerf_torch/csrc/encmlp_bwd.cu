@@ -13,14 +13,16 @@
 // * The TPU sums the weight gradients across its in-order grid in VMEM.
 //   Hopper blocks run in no order, so the work is split in passes, all
 //   on one stream, none with atomics (deterministic run to run):
-//   1. bwd_tile_kernel, one block per 64-point tile: the encode (the
-//      forward's own device code, so the values and ReLU masks are the
-//      forward's bit for bit), the forward recompute, and the MLP
-//      backward for the input cotangents.  It writes each layer's bf16
-//      input and activation, each bf16 pre-activation cotangent, the f32
-//      input cotangents of [v | r] and [xv | codes], and per-tile bias
-//      partial sums of the f32 cotangents to a workspace (about 23 KB a
-//      point for two nets: 3 GB at n = 131,072).
+//   1. bwd_tile_kernel, one block per 64-point tile (8 warps and a
+//      producer warp for the weight ring): the encode (the
+//      forward's own device code, so the values are the forward's bit
+//      for bit), then per net the forward recompute and the MLP backward
+//      for the input cotangents (mlp_bwd_tile, mlp_bwd_common.cuh).  It
+//      writes each layer's bf16 input and activation, each bf16
+//      pre-activation cotangent, the f32 input cotangents of [v | r] and
+//      [xv | codes], and per-tile bias partial sums of the f32
+//      cotangents to a workspace (about 23 KB a point for two nets: 3 GB
+//      at n = 131,072).
 //   2. pullback_kernel, one thread per (point, joint): sums the nets'
 //      input cotangents in f32, rounds them through bf16, and pulls them
 //      back through the encode without transcendentals beyond the
@@ -34,13 +36,17 @@
 //      tensor cores (mma.sync m16n8k16, f32 accumulators).  Each block
 //      owns one 128 x 128 tile of one weight gradient and walks all
 //      points in order, 32 at a time, through shared memory.
-// * The per-tile state does not fit where the forward's did (217 KB for
-//   64 points; the f32 input cotangents would add 276 KB).  Pass 1 keeps
-//   the forward's shared-memory plan (X, XV, two activation buffers,
-//   windows: 217,088 bytes, plus 1 KB for g) and streams what the
-//   backward reads back from device memory: the activations for the
-//   ReLU masks in reverse layer order, and the f32 input cotangents,
-//   which it writes straight from the accumulators.
+// * The TPU keeps every weight in VMEM across its grid.  A Hopper block
+//   cannot (3.46 MB a net), so pass 1 streams both weight packs through a
+//   5-stage ring of 32-deep k-slices in shared memory, each filled by one
+//   TMA copy that a producer warp issues ahead across layers and nets
+//   (mlp_bwd_common.cuh; the launcher encodes a tensor map per weight
+//   block).  To make room for the ring, the views input goes from the
+//   encode straight to the workspace, once per net with its codes, and
+//   the views layer's forward reads it back through the ring; the ReLU
+//   masks of the recompute stay in shared memory as bits.  Pass 1 holds
+//   the ring (80 KB), X, two activation buffers, the masks, g and the
+//   windows: 231,584 bytes with the ring's alignment and barriers.
 // * The stash: the TPU stashes the f32 PE bands because its wide sin was
 //   the forward's largest VPU block.  Here the bands come from one sinf
 //   pair and the double-angle recurrence, so passes 1 and 2 recompute
@@ -48,13 +54,15 @@
 //
 // Bound: recompute, input cotangents and weight gradients are 3x the
 // forward's tensor-core work (~5.2 MFLOP a point and net), against a few
-// KB of device traffic a point: operations bound both kernels.  This
-// first version re-reads the weights from L2 for every tile, writes the
-// workspace once and reads it in the dW pass; wgmma and fusing the dW
-// products into fewer passes are later work.
+// KB of device traffic a point: operations bound both kernels at the
+// card's peak.  Pass 1 re-reads both weight packs from L2 once per
+// 64-point tile and net: ~14 GB of L2 reads per K4 call at n = 131,072,
+// its floor at this tile size (a few ms at the L2's rate).  Weight reuse
+// across tiles, wgmma on the ring and a dW pass split across the point
+// axis are later work.
 //
-// The workspace, the per-tile MLP backward, the bias pass and the dW
-// pass live in mlp_bwd_common.cuh, shared with K6 (mlp_bwd.cu).
+// The workspace, the ring, the per-tile MLP backward, the bias pass and
+// the dW pass live in mlp_bwd_common.cuh, shared with K6 (mlp_bwd.cu).
 //
 // C interface (loaded with ctypes): every pointer is device memory, the
 // stream is PyTorch's current stream; returns the first cudaError of
@@ -63,40 +71,51 @@
 
 namespace {
 
+constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J;  // + windows
+static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
+
 template <int NNET>
-__global__ void __launch_bounds__(NTHREAD, 1)
+__global__ void __launch_bounds__(NTHREAD + 32, 1)
 bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                 const float* __restrict__ codes,
                 const float* __restrict__ cutoff,
                 const float* __restrict__ tau_ptr,
-                const bf16* __restrict__ wpack, const bf16* __restrict__ wback,
+                const bf16* __restrict__ wback,
                 const float* __restrict__ bpack, const float* __restrict__ gin,
-                Work wk, int n, int S, int R) {
+                Work wk, const __grid_constant__ Maps maps, int n, int S,
+                int R) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);   // [v | r]       (T, LDX)
-  bf16* XV = X + T * LDX;                     // [xv | codes]  (T, LDXV)
-  bf16* H0 = XV + T * LDXV;                   // (T, LDH)
-  bf16* H1 = H0 + T * LDH;
-  float* WIN = reinterpret_cast<float*>(H1 + T * LDH);  // (T, J)
-  float* GSM = WIN + T * J;                             // raw g (T, 4)
+  const TileSmem sm = tile_smem(smem);
+  float* WIN = sm.end;                        // windows (T, J)
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * T;
-  const float tau = __ldg(tau_ptr);
+  Ring rg = ring_open(sm.ring, sm.bars, &maps, NNET, t0);
+  if (tid >= NTHREAD) {  // the producer warp; the first weight slices
+    ring_produce(rg);    // arrive while the tile encodes
+    return;
+  }
 
-  encode_tile(p, enc, cutoff, tau, X, XV, WIN, t0, n, S);
-  copy_rows(wk.x + (size_t)t0 * DX, DX, X, LDX, DX);
+  const float tau = __ldg(tau_ptr);
+  encode_points(p, cutoff, tau, sm.X, WIN, t0, n);
+  sync_tile();
+  for (int net = 0; net < NNET; ++net) {
+    bf16* xv = wk.xv[net] + (size_t)t0 * DXV;
+    encode_views(enc, WIN, xv, DXV, t0, n, S);
+    write_codes(xv, DXV, codes + (size_t)net * R * NCODE, t0, n, S);
+  }
+  fence_async_global();  // the ring reads the views input back by TMA
+  copy_rows(wk.x + (size_t)t0 * DX, DX, sm.X, LDX, DX);
 
   for (int net = 0; net < NNET; ++net) {
-    write_codes(XV, codes + (size_t)net * R * NCODE, t0, n, S);
+    // g of this net; the pass reads it after its first stage's barrier,
+    // and the last net's pass stopped reading it many barriers ago
     for (int idx = tid; idx < T * 4; idx += NTHREAD) {
       const int t = idx >> 2, c = idx & 3, gpt = t0 + t;
-      GSM[idx] = gpt < n ? __ldg(gin + ((size_t)net * 4 + c) * n + gpt) : 0.f;
+      sm.gsm[idx] = gpt < n ? __ldg(gin + ((size_t)net * 4 + c) * n + gpt) : 0.f;
     }
-    __syncthreads();
-    mlp_bwd_tile(X, XV, H0, H1, GSM, wpack + (size_t)net * WSZ,
-                 wback + (size_t)net * WGSZ, bpack + (size_t)net * BSZ, wk,
-                 net, t0);
+    mlp_bwd_tile(rg, sm, wback + (size_t)net * WGSZ, bpack + (size_t)net * BSZ,
+                 wk, net, t0);
   }
 }
 
@@ -211,14 +230,17 @@ int launch_bwd(const float* p, const float* enc, const float* codes,
   cudaStream_t st = (cudaStream_t)stream;
   const int np = (int)round_up((size_t)n, T), ntile = np / T;
   const Work wk = carve(workspace, n, NNET, J);
-  const size_t smem = SMEM_BYTES + sizeof(float) * T * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_tile_kernel<NNET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const bf16* wf = reinterpret_cast<const bf16*>(wpack);
+  const bf16* wb = reinterpret_cast<const bf16*>(wback);
+  Maps maps;
+  cudaError_t err = make_maps(maps, wf, wb, wk, NNET, np);
   if (err != cudaSuccess) return (int)err;
-  bwd_tile_kernel<NNET><<<ntile, NTHREAD, smem, st>>>(
-      p, enc, codes, cutoff, tau, reinterpret_cast<const bf16*>(wpack),
-      reinterpret_cast<const bf16*>(wback), bpack, g, wk, n, S, R);
+  err = cudaFuncSetAttribute(bwd_tile_kernel<NNET>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BWD);
+  if (err != cudaSuccess) return (int)err;
+  bwd_tile_kernel<NNET><<<ntile, NTHREAD + 32, SMEM_BWD, st>>>(
+      p, enc, codes, cutoff, tau, wb, bpack, g, wk, maps, n, S, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   pullback_kernel<NNET><<<(n * J + 255) / 256, 256, 0, st>>>(

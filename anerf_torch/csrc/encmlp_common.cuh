@@ -158,33 +158,42 @@ __device__ __forceinline__ void store_act(const float (&acc)[4][NT][4],
   }
 }
 
-// XV[:, DE:DE+NCODE] = this net's per-ray codes
-__device__ __forceinline__ void write_codes(bf16* XV, const float* __restrict__ codes,
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 r;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    w[q] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return r;
+}
+
+// XV[:, DE:DE+NCODE] = this net's per-ray codes (XV: T rows, stride ld,
+// 16-byte aligned rows in shared or device memory)
+__device__ __forceinline__ void write_codes(bf16* XV, int ld,
+                                            const float* __restrict__ codes,
                                             int t0, int n, int S) {
-  for (int idx = threadIdx.x; idx < T * (NCODE / 2); idx += NTHREAD) {
-    const int t = idx / (NCODE / 2), c = (idx - t * (NCODE / 2)) * 2;
+  for (int idx = threadIdx.x; idx < T * (NCODE / 8); idx += NTHREAD) {
+    const int t = idx / (NCODE / 8), c = (idx - t * (NCODE / 8)) * 8;
     const int gp = t0 + t;
-    float v0 = 0.f, v1 = 0.f;
+    float v[8] = {};
     if (gp < n) {
-      const float* cr = codes + (size_t)(gp / S) * NCODE;
-      v0 = __ldg(cr + c);
-      v1 = __ldg(cr + c + 1);
+      const float* cr = codes + (size_t)(gp / S) * NCODE + c;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(cr + q);
     }
-    *reinterpret_cast<__nv_bfloat162*>(XV + t * LDXV + DE + c) =
-        __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<uint4*>(XV + t * ld + DE + c) = pack8(v);
   }
 }
 
 // The encode of points t0 .. t0+T-1 into shared memory: X = [v | r]
-// (bf16), XV[:, 0:DE] = view rows x per-sample window and its zero tail
-// past the codes (bf16), WIN = the windows (f32).  Points past n encode
-// as p = 0.  Ends with the block synchronised.
-__device__ __forceinline__ void encode_tile(const float* __restrict__ p,
-                                            const float* __restrict__ enc,
-                                            const float* __restrict__ cutoff,
-                                            float tau, bf16* X, bf16* XV,
-                                            float* WIN, int t0, int n,
-                                            int S) {
+// (bf16) and WIN = the windows (f32).  Points past n encode as p = 0.
+// Leaves the block unsynchronised.
+__device__ __forceinline__ void encode_points(const float* __restrict__ p,
+                                              const float* __restrict__ cutoff,
+                                              float tau, bf16* X, float* WIN,
+                                              int t0, int n) {
   const int tid = threadIdx.x;
   // ---- encode: distances, windows, kp PE (double-angle recurrence),
   // bone directions -------------------------------------------------------
@@ -218,27 +227,46 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ p,
     xr[DV + 2 * J + j] = __float2bfloat16_rn(z * invd);
     WIN[t * J + j] = w;
   }
-  __syncthreads();
+}
 
-  // ---- view rows x per-sample window (xv[t, c] = enc[ray, c] w[t, c % J]),
-  // then the zero tail of the views input --------------------------------
-  for (int idx = tid; idx < T * (DE / 2); idx += NTHREAD) {
-    const int t = idx / (DE / 2), c = (idx - t * (DE / 2)) * 2;
+// The views input of the tile but its codes, from the windows WIN:
+// XV[:, 0:DE] = view rows x per-sample window (xv[t, c] = enc[ray, c]
+// w[t, c % J]) and the zero tail past the codes (bf16; XV: T rows,
+// stride ld, 16-byte aligned rows in shared or device memory), 8 values
+// a store.  Leaves the block unsynchronised.
+__device__ __forceinline__ void encode_views(const float* __restrict__ enc,
+                                             const float* WIN, bf16* XV,
+                                             int ld, int t0, int n, int S) {
+  static_assert(DE % 8 == 0 && J % 8 == 0 && DXV - DE - NCODE == 8,
+                "8-value pieces of the views input");
+  constexpr int PER_ROW = DE / 8 + 1;  // the view rows, then the zero tail
+  for (int idx = threadIdx.x; idx < T * PER_ROW; idx += NTHREAD) {
+    const int t = idx / PER_ROW, c = (idx - t * PER_ROW) * 8;
     const int gp = t0 + t;
-    float v0 = 0.f, v1 = 0.f;
-    if (gp < n) {
-      const float* er = enc + (size_t)(gp / S) * DE;
-      v0 = __ldg(er + c) * WIN[t * J + c % J];
-      v1 = __ldg(er + c + 1) * WIN[t * J + (c + 1) % J];
+    float v[8] = {};
+    if (c < DE && gp < n) {
+      const float* er = enc + (size_t)(gp / S) * DE + c;
+      const float* wr = WIN + t * J + c % J;  // c % J + 7 < J
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(er + q) * wr[q];
     }
-    *reinterpret_cast<__nv_bfloat162*>(XV + t * LDXV + c) =
-        __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<uint4*>(XV + t * ld + (c < DE ? c : DE + NCODE)) =
+        pack8(v);
   }
-  for (int idx = tid; idx < T * (DXV - DE - NCODE); idx += NTHREAD) {
-    const int t = idx / (DXV - DE - NCODE);
-    XV[t * LDXV + DE + NCODE + (idx - t * (DXV - DE - NCODE))] =
-        __float2bfloat16_rn(0.f);
-  }
+}
+
+// The encode of the tile into shared memory (K1, K2): X and WIN as
+// encode_points, XV (T, LDXV) as encode_views.  Ends with the block
+// synchronised.
+__device__ __forceinline__ void encode_tile(const float* __restrict__ p,
+                                            const float* __restrict__ enc,
+                                            const float* __restrict__ cutoff,
+                                            float tau, bf16* X, bf16* XV,
+                                            float* WIN, int t0, int n,
+                                            int S) {
+  encode_points(p, cutoff, tau, X, WIN, t0, n);
+  __syncthreads();
+  encode_views(enc, WIN, XV, LDXV, t0, n, S);
   __syncthreads();
 }
 

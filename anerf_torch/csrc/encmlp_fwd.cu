@@ -58,7 +58,7 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   encode_tile(p, enc, cutoff, tau, X, XV, WIN, t0, n, S);
 
   for (int net = 0; net < NNET; ++net) {
-    write_codes(XV, codes + (size_t)net * R * NCODE, t0, n, S);
+    write_codes(XV, LDXV, codes + (size_t)net * R * NCODE, t0, n, S);
     __syncthreads();
     mlp_fwd_tile(X, XV, H0, H1, wpack + (size_t)net * WSZ,
                  bpack + (size_t)net * BSZ, out + (size_t)net * 4 * n, n, 1,

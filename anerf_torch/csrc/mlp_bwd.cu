@@ -11,14 +11,18 @@
 // order, so K6 is K3's design (encmlp_bwd.cu) without the encode and its
 // pullback, in passes on one stream with no atomics (the gradients are
 // the same from run to run):
-//   1. mlp_bwd_tile_kernel, one block per 64-point tile: the part loader
-//      of K5, the forward recompute and the MLP backward (mlp_bwd_tile,
-//      shared with K3/K4 in mlp_bwd_common.cuh: ReLU masks from the bf16
-//      activations, each cotangent rounded to bf16 before it feeds a
-//      product, bias partials of the f32 cotangents).  It writes the
-//      layers' bf16 inputs, activations and cotangents and the f32 input
-//      cotangents to a workspace (about 16 KB a point: 2.1 GB at
-//      n = 131,072);
+//   1. mlp_bwd_tile_kernel, one block per 64-point tile (8 warps and a
+//      producer warp for the weight ring): the part loader
+//      of K5 (the trunk parts into shared memory, the views parts
+//      straight into the workspace), then the forward recompute and the
+//      MLP backward (mlp_bwd_tile, shared with K3/K4 in
+//      mlp_bwd_common.cuh: weights through a TMA-fed ring of k-slices
+//      in shared memory, the views input read back through the same
+//      ring, ReLU masks as bits in shared memory, each cotangent rounded
+//      to bf16 before it feeds a product, bias partials of the f32
+//      cotangents).  It writes the layers' bf16 inputs, activations and
+//      cotangents and the f32 input cotangents to a workspace (about
+//      16 KB a point: 2.1 GB at n = 131,072);
 //   2. dx_kernel, twice, one block per point: the f32 input cotangents
 //      rounded to bf16 into each part's row, padding columns dropped
 //      (element by element, as odd-width rows are unaligned);
@@ -29,9 +33,10 @@
 //
 // Bound: recompute, input cotangents and weight gradients are 3x the
 // forward's tensor-core work (5.2 MFLOP a point) against ~4.4 KB of part
-// and cotangent traffic a point: operations bound it.  The workspace
-// round trip and the L2 weight re-reads of this first version are later
-// work, as for K3/K4.
+// and cotangent traffic a point: operations bound it.  Pass 1 re-reads
+// the weight packs from L2 once per 64-point tile (~7 GB at n = 131,072,
+// its floor at this tile size); the workspace round trip and a dW pass
+// that fills the card are later work, as for K3/K4.
 //
 // C interface (loaded with ctypes): every tensor pointer is device
 // memory; the part pointer and width arrays are host arrays; the stream
@@ -41,29 +46,30 @@
 
 namespace {
 
-constexpr size_t SMEM_BWD =
-    sizeof(bf16) * (size_t)T * (LDX + LDXV + 2 * LDH) + sizeof(float) * T * 4;
+static_assert(SMEM_TILE <= 232448, "a block takes at most 227 KB");
 
-__global__ void __launch_bounds__(NTHREAD, 1)
+__global__ void __launch_bounds__(NTHREAD + 32, 1)
 mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
-                    const bf16* __restrict__ wpack,
                     const bf16* __restrict__ wback,
                     const float* __restrict__ bpack,
-                    const float* __restrict__ gin, Work wk, int n) {
+                    const float* __restrict__ gin, Work wk,
+                    const __grid_constant__ Maps maps, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);   // [x parts]        (T, LDX)
-  bf16* XV = X + T * LDX;                     // [xv parts | 0]   (T, LDXV)
-  bf16* H0 = XV + T * LDXV;                   // (T, LDH)
-  bf16* H1 = H0 + T * LDH;
-  float* GSM = reinterpret_cast<float*>(H1 + T * LDH);  // raw g (T, 4)
+  const TileSmem sm = tile_smem(smem);
   const int t0 = blockIdx.x * T;
-  load_parts(xs, X, LDX, DX, t0, n);
-  load_parts(xvs, XV, LDXV, DXV, t0, n);
+  Ring rg = ring_open(sm.ring, sm.bars, &maps, 1, t0);
+  if (threadIdx.x >= NTHREAD) {  // the producer warp; the first weight
+    ring_produce(rg);            // slices arrive while the parts load
+    return;
+  }
+  load_parts(xs, sm.X, LDX, DX, t0, n);
+  load_parts(xvs, wk.xv[0] + (size_t)t0 * DXV, DXV, DXV, t0, n);
+  fence_async_global();  // the ring reads the views input back by TMA
   for (int idx = threadIdx.x; idx < T * 4; idx += NTHREAD)
-    GSM[idx] = t0 + (idx >> 2) < n ? __ldg(gin + (size_t)t0 * 4 + idx) : 0.f;
-  __syncthreads();
-  copy_rows(wk.x + (size_t)t0 * DX, DX, X, LDX, DX);
-  mlp_bwd_tile(X, XV, H0, H1, GSM, wpack, wback, bpack, wk, 0, t0);
+    sm.gsm[idx] = t0 + (idx >> 2) < n ? __ldg(gin + (size_t)t0 * 4 + idx) : 0.f;
+  sync_tile();
+  copy_rows(wk.x + (size_t)t0 * DX, DX, sm.X, LDX, DX);
+  mlp_bwd_tile(rg, sm, wback, bpack, wk, 0, t0);
 }
 
 // out part k [t, c] = bf16(g[t, off_k + c]): the f32 input cotangent
@@ -103,13 +109,17 @@ int mlp_bwd(const void* const* xs, const int* xw, int nx,
   cudaStream_t st = (cudaStream_t)stream;
   const int np = (int)round_up((size_t)n, T);
   const Work wk = carve(workspace, n, 1, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BWD);
+  const bf16* wf = reinterpret_cast<const bf16*>(wpack);
+  const bf16* wb = reinterpret_cast<const bf16*>(wback);
+  Maps maps;
+  cudaError_t err = make_maps(maps, wf, wb, wk, 1, np);
   if (err != cudaSuccess) return (int)err;
-  mlp_bwd_tile_kernel<<<np / T, NTHREAD, SMEM_BWD, st>>>(
-      px, pv, reinterpret_cast<const bf16*>(wpack),
-      reinterpret_cast<const bf16*>(wback), bpack, g, wk, n);
+  err = cudaFuncSetAttribute(
+      mlp_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_TILE);
+  if (err != cudaSuccess) return (int)err;
+  mlp_bwd_tile_kernel<<<np / T, NTHREAD + 32, SMEM_TILE, st>>>(
+      px, pv, wb, bpack, g, wk, maps, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dx_kernel<<<n, DX_THREADS, 0, st>>>(wk.gx[0], DX, dx);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -1,9 +1,41 @@
 // Device code shared by the backward kernels of the radiance MLP
-// (encmlp_bwd.cu: K3, K4; mlp_bwd.cu: K6): the workspace, the MLP
-// backward of one 64-point tile, and the deterministic bias and weight
-// gradient passes.  See encmlp_bwd.cu for the design.  Each .cu file
-// includes it once; everything here has internal linkage.
+// (encmlp_bwd.cu: K3, K4; mlp_bwd.cu: K6): the workspace, the weight
+// ring, the MLP backward of one 64-point tile, and the deterministic
+// bias and weight gradient passes.  Each .cu file includes it once;
+// everything here has internal linkage.
+//
+// The per-tile pass (mlp_bwd_tile) recomputes one net's forward on a
+// 64-point tile and runs its backward down to the input cotangents.
+// Every product of it, forward and backward, reads its weights from a
+// ring of NSTAGE stages in shared memory: a stage is one 32-deep k-slice
+// of up to 256 weight rows (64-byte rows, K-major, 64-byte swizzled, so
+// that ldmatrix reads them without bank conflicts and wgmma could read
+// them as they lie).  A producer warp, beside the 8 consumer warps,
+// fills each stage with one TMA copy (cp.async.bulk.tensor from a tensor
+// map per weight block) that completes on the stage's full barrier, and
+// refills a slot once every consumer warp has arrived on its empty
+// barrier; the consumers spend no issue slots on copies and meet at no
+// block barrier per stage.  The stages follow one fixed schedule (SEGS)
+// across the products and the nets of the tile, so the next product's
+// first slices are in flight while the current one's epilogue runs, and
+// each slice crosses L2 once per block.  The views layer's forward takes
+// its A operand, the tile's views input, from the workspace through the
+// same ring, so no views input stays in shared memory.  The recompute
+// keeps each trunk layer's ReLU mask as bits in shared memory (8 layers
+// x 64 x 256 bits) for the backward; the bf16 activations and cotangents
+// go to the workspace for the dW pass as 16-byte rows from shared memory.
+// Products stay mma.sync m16n8k16 with bf16 operands and f32
+// accumulators; each warp owns a slice of output columns for all 64
+// rows, so column sums never cross warps.
+//
+// Bound of the per-tile pass: it re-reads both weight packs (3.46 MB a
+// net) once per 64-point tile, ~14 GB of L2 reads per K4 call at
+// n = 131,072: that L2 traffic, not the tensor cores, is its floor at
+// this tile size.  Going below it needs weight reuse across tiles (larger
+// tiles or a cluster sharing each slice by multicast).
 #pragma once
+#include <cuda.h>  // CUtensorMap and its enums (encoded through the runtime)
+
 #include "encmlp_common.cuh"
 
 namespace {
@@ -107,6 +139,393 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
   }
 }
 
+// ---- the weight ring ------------------------------------------------------
+constexpr int KS = 32;               // k-depth of a stage: 64-byte rows
+constexpr int STAGE = W * KS;        // bf16 a stage: up to 256 rows
+constexpr int NSTAGE = 5;
+
+// One block of weight rows that the ring streams: `rows` rows of depth K
+// at `off` in the forward (pack 0, (out, in) rows) or backward (pack 1,
+// (in, out) rows) pack of the net; with stream_a, the tile's views input
+// (T rows of depth K) rides in each stage after the weight rows as the
+// product's A operand.
+struct Seg {
+  int pack, off, rows, K, stream_a;
+};
+
+// The schedule of one net, in the order mlp_bwd_tile consumes it; a net
+// with n output columns over 256 (the input cotangents) is cut into
+// 256-row chunks, one product each.
+static_assert(DEPTH == 8 && SKIP == 4, "SEGS is written for 8 layers, skip 4");
+#define SEG_LIST                                                          \
+  {                                                                       \
+    /* forward recompute */                                               \
+    {0, 0, W, DX, 0},                      /* layer 0        A = X     */ \
+    {0, (int)off_h(1), W, W, 0},           /* layers 1-4     A = h     */ \
+    {0, (int)off_h(2), W, W, 0},                                          \
+    {0, (int)off_h(3), W, W, 0},                                          \
+    {0, (int)off_h(4), W, W, 0},                                          \
+    {0, (int)off_h(5), W, W, 0},           /* layer 5: h part          */ \
+    {0, (int)OFF_SKIPX, W, DX, 0},         /*   and x part   A = X     */ \
+    {0, (int)off_h(6), W, W, 0},                                          \
+    {0, (int)off_h(7), W, W, 0},                                          \
+    {0, (int)OFF_F, W, W, 0},              /* feat                     */ \
+    {0, (int)OFF_VF, HV, W, 0},            /* views: feat part         */ \
+    {0, (int)OFF_VX, HV, DXV, 1},          /*   views-input part       */ \
+    /* backward */                                                        \
+    {1, (int)G_VF, W, HV, 0},              /* g_feat         A = g_hv  */ \
+    {1, (int)G_VX, 256, HV, 0},            /* g_xv, 3 chunks A = g_hv  */ \
+    {1, (int)(G_VX + 256 * HV), 256, HV, 0},                              \
+    {1, (int)(G_VX + 512 * HV), DXV - 512, HV, 0},                        \
+    {1, (int)G_F, W, W, 0},                /* g of layer 7   A = g_feat */\
+    {1, (int)off_h(7), W, W, 0},           /* g of layer 6             */ \
+    {1, (int)off_h(6), W, W, 0},           /* g of layer 5             */ \
+    {1, (int)OFF_SKIPX, 256, W, 0},        /* g_x skip part, 2 chunks  */ \
+    {1, (int)(OFF_SKIPX + 256 * W), DX - 256, W, 0},                      \
+    {1, (int)off_h(5), W, W, 0},           /* g of layer 4             */ \
+    {1, (int)off_h(4), W, W, 0},                                          \
+    {1, (int)off_h(3), W, W, 0},                                          \
+    {1, (int)off_h(2), W, W, 0},                                          \
+    {1, (int)off_h(1), W, W, 0},           /* g of layer 0             */ \
+    {1, 0, 256, W, 0},                     /* g_x layer-0 part, 2 chunks */\
+    {1, 256 * W, DX - 256, W, 0},                                         \
+  }
+__constant__ Seg SEGS[] = SEG_LIST;
+const Seg SEGS_HOST[] = SEG_LIST;
+#undef SEG_LIST
+constexpr int NSEG = sizeof(SEGS_HOST) / sizeof(Seg);
+
+// Every stage's source as a TMA descriptor (a kernel parameter): each
+// segment of each net as a (rows, K) bf16 matrix read in boxes of
+// KS x rows, and each net's views input (n_pad, DXV) in boxes of KS x T;
+// 64-byte swizzle, columns past K read as zeros.
+struct Maps {
+  CUtensorMap seg[2][NSEG];
+  CUtensorMap xv[2];
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+bool encode_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int K,
+               int rows, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
+  const cuuint32_t box[2] = {KS, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The descriptors of `nnet` nets (forward packs wf, backward packs wb,
+// views inputs in wk, np padded points).  cuTensorMapEncodeTiled is
+// looked up through the runtime, so nothing links against libcuda.
+cudaError_t make_maps(Maps& mp, const bf16* wf, const bf16* wb,
+                      const Work& wk, int nnet, int np) {
+  static EncodeTiled enc = nullptr;
+  if (!enc) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return cudaErrorNotSupported;
+    enc = reinterpret_cast<EncodeTiled>(fn);
+  }
+  mp = Maps{};
+  for (int net = 0; net < nnet; ++net) {
+    for (int i = 0; i < NSEG; ++i) {
+      const Seg& s = SEGS_HOST[i];
+      const bf16* base = (s.pack ? wb + (size_t)net * WGSZ
+                                 : wf + (size_t)net * WSZ) + s.off;
+      if (!encode_2d(enc, &mp.seg[net][i], base, s.K, s.rows, s.rows))
+        return cudaErrorInvalidValue;
+    }
+    if (!encode_2d(enc, &mp.xv[net], wk.xv[net], DXV, np, T))
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+// the bf16 offset of 16-byte chunk ch (0-3) of row `row` in a stage: the
+// TMA's 64-byte swizzle (chunk bits XOR address bits 7-8), so ldmatrix
+// reads 8 rows of one chunk column without bank conflicts
+__device__ __forceinline__ int swz(int row, int ch) {
+  return row * KS + ((ch ^ ((row >> 1) & 3)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// device-memory writes of this thread made visible to later TMA reads
+// (the async proxy) once the block has synchronised
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Wait until the barrier's phase `parity` has completed.  A lost copy
+// would hang the card, so a wait of seconds traps instead.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == (1u << 26)) __trap();
+  }
+}
+
+// the consumer warps' barrier (named barrier 1): the producer warp
+// never joins it
+__device__ __forceinline__ void sync_tile() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NTHREAD) : "memory");
+}
+
+// The ring's state.  The producer warp (threads NTHREAD and up) fills
+// the stages in schedule order; the NWARP consumer warps take them in the
+// same order.  full[i]: stage i's bytes have landed (the producer's one
+// arrival plus the TMA's transaction count); empty[i]: every consumer
+// warp has read it.
+struct Ring {
+  bf16* buf;                  // NSTAGE stages in shared memory
+  uint64_t* full;
+  uint64_t* empty;
+  const Maps* maps;
+  int nnet, t0;
+  int c_seg, c_slot;          // the consumers' next segment and stage
+  uint32_t c_phase;           // the phase the consumed slot completes
+};
+
+__device__ __forceinline__ void tma_2d(bf16* dst, const CUtensorMap* map,
+                                       int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// The producer: one thread walks the whole schedule, net after net;
+// before it refills a slot it waits until the consumers have read it,
+// then arms the slot's full barrier with the stage's bytes and starts
+// one TMA copy (two with the views input).
+__device__ __forceinline__ void ring_produce(const Ring& r) {
+  if ((threadIdx.x & 31) != 0) return;
+  int slot = 0;
+  uint32_t phase = 0;
+  bool refill = false;        // every slot has been filled once
+  for (int net = 0; net < r.nnet; ++net)
+    for (int i = 0; i < NSEG; ++i) {
+      const Seg s = SEGS[i];
+      const int bytes = (s.rows + (s.stream_a ? T : 0)) * KS * (int)sizeof(bf16);
+      for (int k0 = 0; k0 < s.K; k0 += KS) {
+        if (refill) mbar_wait(r.empty + slot, phase);
+        const uint32_t bar = smem_addr(r.full + slot);
+        bf16* dst = r.buf + slot * STAGE;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                bar),
+            "r"(bytes)
+            : "memory");
+        tma_2d(dst, &r.maps->seg[net][i], k0, 0, bar);
+        if (s.stream_a) tma_2d(dst + s.rows * KS, &r.maps->xv[net], k0, r.t0, bar);
+        if (++slot == NSTAGE) {
+          slot = 0;
+          if (refill) phase ^= 1u;
+          refill = true;
+        }
+      }
+    }
+}
+
+// A ring over `buf` (NSTAGE stages, 1024-byte aligned) and its barriers
+// for `nnet` nets of tile t0.  Called by all NTHREAD + 32 threads;
+// synchronises the block.
+__device__ __forceinline__ Ring ring_open(bf16* buf, uint64_t* bars,
+                                          const Maps* maps, int nnet,
+                                          int t0) {
+  Ring r;
+  r.buf = buf;
+  r.full = bars;
+  r.empty = bars + NSTAGE;
+  r.maps = maps;
+  r.nnet = nnet;
+  r.t0 = t0;
+  r.c_seg = r.c_slot = 0;
+  r.c_phase = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NSTAGE; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(r.full + i))
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(r.empty + i)),
+                   "n"(NWARP)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// acc += A[0:64, 0:K] @ Wseg[n0 : n0 + 8 NT, 0:K]^T over the next segment
+// of the schedule, for this warp's columns (none past the segment's
+// rows).  A: shared, row-major, stride lda, or nullptr for the views
+// input that rides in the stages.  Each stage: wait for its bytes,
+// ldmatrix + mma, then the warp's arrival on the stage's empty barrier.
+// No block barrier: the warps drift apart by up to NSTAGE stages.
+template <int NT>
+__device__ __forceinline__ void ring_mma(Ring& r, float (&acc)[4][NT][4],
+                                         const bf16* A, int lda, int n0) {
+  const Seg s = SEGS[r.c_seg];
+  r.c_seg = r.c_seg + 1 == NSEG ? 0 : r.c_seg + 1;
+  const int lane = threadIdx.x & 31;
+  // ldmatrix row addresses: B matrices (n 0-7 | 8-15) x (k 0-7 | 8-15),
+  // A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+  const int b_row = n0 + (lane & 7) + ((lane >> 4) << 3), b_ch = (lane >> 3) & 1;
+  const int a_row = lane & 15, a_ch = lane >> 4;
+  const bool on = n0 < s.rows;
+  for (int k0 = 0; k0 < s.K; k0 += KS) {
+    mbar_wait(r.full + r.c_slot, r.c_phase);
+    const bf16* sb = r.buf + r.c_slot * STAGE;
+    const int nk = min(KS, s.K - k0) >> 4;  // k16 steps in this stage
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      if (!on || kk >= nk) break;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t t4[4];
+        ldsm_x4(t4, sb + swz(b_row + jp * 16, 2 * kk + b_ch));
+        b[2 * jp][0] = t4[0];
+        b[2 * jp][1] = t4[1];
+        b[2 * jp + 1][0] = t4[2];
+        b[2 * jp + 1][1] = t4[3];
+      }
+      uint32_t a[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (A)
+          ldsm_x4(a[m], A + (m * 16 + a_row) * lda + k0 + kk * 16 + a_ch * 8);
+        else
+          ldsm_x4(a[m], sb + swz(s.rows + m * 16 + a_row, 2 * kk + a_ch));
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a[m], b[j][0], b[j][1]);
+    }
+    __syncwarp();
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       smem_addr(r.empty + r.c_slot))
+                   : "memory");
+    if (++r.c_slot == NSTAGE) {
+      r.c_slot = 0;
+      r.c_phase ^= 1u;
+    }
+  }
+}
+
+// ---- shared memory of the per-tile pass -----------------------------------
+// the ring (1024-byte aligned for the swizzle), its barriers, X (T, LDX),
+// two activation / cotangent buffers (T, LDH), the ReLU mask bits, the
+// raw cotangent g (T, 4), a reduction scratch; K3/K4 add the windows
+// (T, J) after it
+constexpr int MASK_BYTES = DEPTH * NWARP * T * 4;  // [layer][warp][row][q]
+constexpr int NRED = NTHREAD + NWARP;
+constexpr size_t SMEM_TILE =
+    1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
+    sizeof(bf16) * (size_t)T * (LDX + 2 * LDH) + MASK_BYTES +
+    sizeof(float) * (T * 4 + NRED);
+
+struct TileSmem {
+  bf16* ring;
+  uint64_t* bars;   // the ring's full and empty barriers
+  bf16* X;
+  bf16* H0;
+  bf16* H1;
+  uint8_t* mask;
+  float* gsm;
+  float* red;
+  float* end;   // what a kernel adds after the pass's own
+};
+
+__device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
+  TileSmem s;
+  const uint32_t pad = (1024u - (smem_addr(base) & 1023u)) & 1023u;
+  s.ring = reinterpret_cast<bf16*>(base + pad);
+  s.bars = reinterpret_cast<uint64_t*>(s.ring + NSTAGE * STAGE);
+  s.X = reinterpret_cast<bf16*>(s.bars + 16);
+  s.H0 = s.X + T * LDX;
+  s.H1 = s.H0 + T * LDH;
+  s.mask = reinterpret_cast<uint8_t*>(s.H1 + T * LDH);
+  s.gsm = reinterpret_cast<float*>(s.mask + MASK_BYTES);
+  s.red = s.gsm + T * 4;
+  s.end = s.red + NRED;
+  return s;
+}
+
+// ---- epilogues ------------------------------------------------------------
+// The fragment layout of mma.m16n8k16's accumulators: acc[m][j] holds
+// rows m*16 + g (| +8) and columns n0 + j*8 + 2q (| +1), g = lane / 4,
+// q = lane % 4.  A warp's ReLU mask bits of one row and layer are one
+// 32-bit word: byte q of it is thread q's, bit 2j + e its column
+// n0 + j*8 + 2q + e.
+
+// out[row, col] = bf16(relu(acc + bias[col])) for this warp's 32
+// columns, and the bits (value > 0) into this layer's mask
+__device__ __forceinline__ void store_relu_mask(const float (&acc)[4][4][4],
+                                                const float* __restrict__ bias,
+                                                bf16* out, uint8_t* mask,
+                                                int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  uint8_t* mk = mask + (threadIdx.x >> 5) * T * 4 + q;
+  uint32_t bits[4][2] = {};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + j * 8 + 2 * q;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(fmaxf(acc[m][j][2 * h] + b0, 0.f),
+                                  fmaxf(acc[m][j][2 * h + 1] + b1, 0.f));
+        *reinterpret_cast<__nv_bfloat162*>(out + (m * 16 + g + 8 * h) * LDH +
+                                           col) = v;
+        bits[m][h] |= (__bfloat162float(v.x) > 0.f ? 1u : 0u) << (2 * j);
+        bits[m][h] |= (__bfloat162float(v.y) > 0.f ? 1u : 0u) << (2 * j + 1);
+      }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mk[(m * 16 + g + 8 * h) * 4] = (uint8_t)bits[m][h];
+}
+
 // column sums over the tile's 64 rows of a warp's accumulators (its
 // 8 NT columns from n0), written to out[n0 ...]; deterministic: the
 // rows of a thread first, then the 8 row groups by a fixed butterfly
@@ -136,10 +555,10 @@ __device__ __forceinline__ void colsum_store(const float (&acc)[4][NT][4],
 }
 
 // the bf16 rounding of a warp's accumulators into shared memory (stride
-// LDH; the next product's A) and device memory (stride ldg; the dW G)
+// LDH): the next product's A, and after a barrier the dW pass's G
+// (copy_rows to the workspace)
 template <int NT>
 __device__ __forceinline__ void emit_bf16(const float (&acc)[4][NT][4], bf16* sm,
-                                          bf16* __restrict__ gdst, int ldg,
                                           int n0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -153,180 +572,192 @@ __device__ __forceinline__ void emit_bf16(const float (&acc)[4][NT][4], bf16* sm
         const __nv_bfloat162 v = __floats2bfloat162_rn(acc[m][j][2 * h],
                                                        acc[m][j][2 * h + 1]);
         *reinterpret_cast<__nv_bfloat162*>(sm + row * LDH + col) = v;
-        *reinterpret_cast<__nv_bfloat162*>(gdst + (size_t)row * ldg + col) = v;
       }
     }
 }
 
-// acc <- acc * (act > 0) with act the bf16 activation in device memory
-// (this tile's rows, stride DEPTH * W); then the bias partial of the f32 cotangent,
-// and its bf16 rounding into shared memory (the next product's A) and
-// device memory (the dW pass's G)
-template <int NT>
-__device__ __forceinline__ void mask_emit(float (&acc)[4][NT][4],
-                                          const bf16* __restrict__ act,
-                                          float* __restrict__ bpart,
-                                          bf16* sm, bf16* __restrict__ gdst,
+// acc <- acc * mask with the layer's ReLU mask bits (store_relu_mask);
+// then the bias partial of the f32 cotangent, and its bf16 rounding into
+// shared memory (emit_bf16)
+__device__ __forceinline__ void mask_emit(float (&acc)[4][4][4],
+                                          const uint8_t* mask,
+                                          float* __restrict__ bpart, bf16* sm,
                                           int n0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const uint8_t* mk = mask + (threadIdx.x >> 5) * T * 4 + q;
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + j * 8 + 2 * q;
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t bits = mk[(m * 16 + g + 8 * h) * 4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m * 16 + g + 8 * h;
-        const __nv_bfloat162 a =
-            *reinterpret_cast<const __nv_bfloat162*>(act + (size_t)row * DEPTH * W +
-                                                     col);
-        if (!(__bfloat162float(a.x) > 0.f)) acc[m][j][2 * h] = 0.f;
-        if (!(__bfloat162float(a.y) > 0.f)) acc[m][j][2 * h + 1] = 0.f;
+      for (int j = 0; j < 4; ++j) {
+        if (!(bits >> (2 * j) & 1u)) acc[m][j][2 * h] = 0.f;
+        if (!(bits >> (2 * j + 1) & 1u)) acc[m][j][2 * h + 1] = 0.f;
       }
     }
-  colsum_store<NT>(acc, bpart, n0);
-  emit_bf16<NT>(acc, sm, gdst, DEPTH * W, n0);
+  colsum_store<4>(acc, bpart, n0);
+  emit_bf16<4>(acc, sm, n0);
 }
 
-// out[t0 + row, c] (=|+=) (A @ Wt^T)[row, c] for all N columns, in
-// 16-column chunks dealt round-robin to the warps; f32 to device memory
+// out[row, c] (=|+=) acc for this warp's columns c < lim (f32, device
+// memory, row stride ldo)
 template <bool ADD>
-__device__ __forceinline__ void gemm_to_global(const bf16* A, int lda, int K,
-                                               const bf16* __restrict__ Wt,
-                                               int N, float* __restrict__ out,
-                                               int ldo) {
+__device__ __forceinline__ void store_f32(const float (&acc)[4][4][4],
+                                          float* __restrict__ out, int ldo,
+                                          int n0, int lim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  for (int n0 = warp * 16; n0 < N; n0 += NWARP * 16) {
-    float acc[4][2][4];
-    zero_acc<2>(acc);
-    gemm_acc<2>(acc, A, lda, K, Wt, n0);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + j * 8 + 2 * q;
+    if (col >= lim) continue;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2* o = reinterpret_cast<float2*>(
-              out + (size_t)(m * 16 + g + 8 * h) * ldo + n0 + j * 8 + 2 * q);
-          float2 v = make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
-          if (ADD) {
-            const float2 old = *o;
-            v.x = old.x + v.x;
-            v.y = old.y + v.y;
-          }
-          *o = v;
+      for (int h = 0; h < 2; ++h) {
+        float2* o =
+            reinterpret_cast<float2*>(out + (size_t)(m * 16 + g + 8 * h) * ldo + col);
+        float2 v = make_float2(acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+        if (ADD) {
+          const float2 old = *o;
+          v.x = old.x + v.x;
+          v.y = old.y + v.y;
         }
+        *o = v;
+      }
   }
 }
 
-// The MLP backward of one tile for net `net` (Wn/Bn its forward packs,
-// Wb its backward pack): X and XV complete in shared memory, GSM the
-// tile's raw cotangent (T, 4) [rgb, alpha].  Writes the views input,
+// g_x chunk by chunk: out[:, 0:N] (=|+=) A @ W^T over the schedule's
+// next ceil(N / 256) segments
+template <bool ADD>
+__device__ __forceinline__ void ring_to_global(Ring& rg, const bf16* A,
+                                               float* __restrict__ out,
+                                               int N, int nw) {
+  for (int c0 = 0; c0 < N; c0 += W) {
+    float acc[4][4][4];
+    zero_acc<4>(acc);
+    ring_mma<4>(rg, acc, A, LDH, nw);
+    store_f32<ADD>(acc, out + c0, N, nw, N - c0);
+  }
+}
+
+// The MLP backward of one tile for net `net` through the ring `rg` (whose
+// schedule is at the net's first segment): X complete in shared memory
+// and the tile's views input in wk.xv[net]; sm.gsm the tile's raw
+// cotangent (T, 4) [rgb, alpha].  Bn: the net's packed biases; Wb: its
+// backward pack (the head weights are read from it directly).  Writes
 // every bf16 activation and cotangent, the f32 input cotangents gx/gxv
-// and the tile's bias partials to the workspace `wk`.  Ends with the
-// block synchronised.
-__device__ __forceinline__ void mlp_bwd_tile(const bf16* X, const bf16* XV,
-                                             bf16* H0, bf16* H1,
-                                             const float* GSM,
-                                             const bf16* __restrict__ Wn,
+// and the tile's bias partials to the workspace `wk`.  Run by the
+// consumer warps; ends with them synchronised.
+__device__ __forceinline__ void mlp_bwd_tile(Ring& rg, const TileSmem& sm,
                                              const bf16* __restrict__ Wb,
                                              const float* __restrict__ Bn,
                                              const Work& wk, int net, int t0) {
   const int tid = threadIdx.x, warp = tid >> 5;
+  const float* GSM = sm.gsm;
   float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
-  bf16* act = wk.act[net];
-  bf16* gp = wk.gp[net];
-  copy_rows(wk.xv[net] + (size_t)t0 * DXV, DXV, XV, LDXV, DXV);
+  bf16* act = wk.act[net] + (size_t)t0 * DEPTH * W;
+  bf16* gp = wk.gp[net] + (size_t)t0 * DEPTH * W;
+  const int nw = warp * 32;  // this warp's 32 of 256 columns
 
-  // ---- forward recompute, every activation to device memory --------
+  // ---- forward recompute: activations to device memory, masks kept ---
   float acc[4][4][4];
-  const int nw = warp * 32;
   zero_acc<4>(acc);
-  gemm_acc<4>(acc, X, LDX, DX, Wn, nw);
-  store_act<4, true>(acc, Bn, H0, LDH, nw);
-  __syncthreads();
-  copy_rows(act + (size_t)t0 * DEPTH * W, DEPTH * W, H0, LDH, W);
-  bf16* hin = H0;
-  bf16* hout = H1;
+  ring_mma<4>(rg, acc, sm.X, LDX, nw);
+  store_relu_mask(acc, Bn, sm.H0, sm.mask, nw);
+  sync_tile();
+  copy_rows(act, DEPTH * W, sm.H0, LDH, W);
+  bf16* hin = sm.H0;
+  bf16* hout = sm.H1;
 #pragma unroll 1
   for (int i = 1; i < DEPTH; ++i) {
     zero_acc<4>(acc);
-    gemm_acc<4>(acc, hin, LDH, W, Wn + off_h(i), nw);
-    if (i == SKIP + 1) gemm_acc<4>(acc, X, LDX, DX, Wn + OFF_SKIPX, nw);
-    store_act<4, true>(acc, Bn + i * W, hout, LDH, nw);
-    __syncthreads();
-    copy_rows(act + (size_t)t0 * DEPTH * W + i * W, DEPTH * W, hout, LDH, W);
+    ring_mma<4>(rg, acc, hin, LDH, nw);
+    if (i == SKIP + 1) ring_mma<4>(rg, acc, sm.X, LDX, nw);
+    store_relu_mask(acc, Bn + i * W, hout, sm.mask + i * MASK_BYTES / DEPTH,
+                    nw);
+    sync_tile();
+    copy_rows(act + i * W, DEPTH * W, hout, LDH, W);
     bf16* tmp = hin;
     hin = hout;
     hout = tmp;
   }
   zero_acc<4>(acc);
-  gemm_acc<4>(acc, hin, LDH, W, Wn + OFF_F, nw);
+  ring_mma<4>(rg, acc, hin, LDH, nw);
   store_act<4, false>(acc, Bn + OB_F, hout, LDH, nw);  // feat
-  __syncthreads();
+  sync_tile();
   copy_rows(wk.feat[net] + (size_t)t0 * W, W, hout, LDH, W);
   {
     float accv[4][2][4];
     const int nv = warp * 16;
     zero_acc<2>(accv);
-    gemm_acc<2>(accv, hout, LDH, W, Wn + OFF_VF, nv);
-    gemm_acc<2>(accv, XV, LDXV, DXV, Wn + OFF_VX, nv);
+    ring_mma<2>(rg, accv, hout, LDH, nv);
+    ring_mma<2>(rg, accv, nullptr, 0, nv);  // the views input, streamed
     store_act<2, true>(accv, Bn + OB_V, hin, LDH, nv);  // hv
   }
-  __syncthreads();
+  sync_tile();
   copy_rows(wk.hv[net] + (size_t)t0 * HV, HV, hin, LDH, HV);
-  __syncthreads();
+  sync_tile();
   bf16* HVB = hin;    // hv, then the bf16 views cotangent in place
   bf16* FB = hout;    // feat, then the bf16 feat cotangent
 
-  // ---- heads: g_hv = (bf16(g_rgb) . wr) * (hv > 0), column by column -
-  if (tid < HV) {
-    const int h = tid;
+  // ---- heads on all threads: g_hv = (bf16(g_rgb) . wr) * (hv > 0), half
+  // the rows each for column h; the rgb and alpha column sums by warp
+  // butterflies; each sum in a fixed order ---------------------------------
+  {
+    const int h = tid & (HV - 1), r0 = (tid / HV) * (T / 2);
     const float w0 = __bfloat162float(Wb[G_R + h * 3]);
     const float w1 = __bfloat162float(Wb[G_R + h * 3 + 1]);
     const float w2 = __bfloat162float(Wb[G_R + h * 3 + 2]);
     float colsum = 0.f;
-    for (int t = 0; t < T; ++t) {
+    for (int t = r0; t < r0 + T / 2; ++t) {
       const float* gr = GSM + t * 4;
       float v = bf16r(gr[0]) * w0 + bf16r(gr[1]) * w1 + bf16r(gr[2]) * w2;
       if (!(__bfloat162float(HVB[t * LDH + h]) > 0.f)) v = 0.f;
       colsum += v;
-      const bf16 vb = __float2bfloat16_rn(v);
-      HVB[t * LDH + h] = vb;
-      wk.ghv[net][(size_t)(t0 + t) * HV + h] = vb;
+      HVB[t * LDH + h] = __float2bfloat16_rn(v);
     }
-    bpart[OB_V + h] = colsum;
-  } else if (tid < HV + 4) {
-    // rgb and alpha bias partials; the bf16 head cotangents
-    const int c = tid - HV;
-    float colsum = 0.f;
-    for (int t = 0; t < T; ++t) {
-      colsum += GSM[t * 4 + c];
-      wk.gs[net][(size_t)(t0 + t) * NGS + c] =
-          __float2bfloat16_rn(GSM[t * 4 + c]);
+    sm.red[tid] = colsum;
+    float x = GSM[(tid & (T - 1)) * 4 + tid / T];  // column tid / 64
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if ((tid & 31) == 0) sm.red[NTHREAD + warp] = x;
+    if (tid < T) {  // the bf16 head cotangents [rgb | alpha | 0 x 4]
+      const float* gr = GSM + tid * 4;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(gr[0], gr[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(gr[2], gr[3]);
+      *reinterpret_cast<uint4*>(wk.gs[net] + (size_t)(t0 + tid) * NGS) =
+          make_uint4(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi), 0u, 0u);
     }
-    bpart[c < 3 ? OB_R + c : OB_A] = colsum;
-  } else if (tid < HV + 8) {
-    const int c = tid - HV;
-    for (int t = 0; t < T; ++t)
-      wk.gs[net][(size_t)(t0 + t) * NGS + c] = __float2bfloat16_rn(0.f);
   }
-  __syncthreads();
+  sync_tile();
+  static_assert(NTHREAD == 2 * HV && NTHREAD == 4 * T, "head section layout");
+  if (tid < HV) {
+    bpart[OB_V + tid] = sm.red[tid] + sm.red[HV + tid];
+  } else if (tid < HV + 4) {
+    const int c = tid - HV;  // rgb 0-2, alpha 3: warps 2c and 2c + 1
+    bpart[c < 3 ? OB_R + c : OB_A] =
+        sm.red[NTHREAD + 2 * c] + sm.red[NTHREAD + 2 * c + 1];
+  }
+  copy_rows(wk.ghv[net] + (size_t)t0 * HV, HV, HVB, LDH, HV);
 
   // ---- g_feat = g_hv_b @ wvf^T (bias partial, bf16 to FB); the views
   // input cotangent g_xv = g_hv_b @ wvx^T to device memory ------------
   zero_acc<4>(acc);
-  gemm_acc<4>(acc, HVB, LDH, HV, Wb + G_VF, nw);
+  ring_mma<4>(rg, acc, HVB, LDH, nw);
   colsum_store<4>(acc, bpart + OB_F, nw);
-  emit_bf16<4>(acc, FB, wk.gf[net] + (size_t)t0 * W, W, nw);
-  gemm_to_global<false>(HVB, LDH, HV, Wb + G_VX, DXV,
-                        wk.gxv[net] + (size_t)t0 * DXV, DXV);
-  __syncthreads();
+  emit_bf16<4>(acc, FB, nw);
+  sync_tile();
+  copy_rows(wk.gf[net] + (size_t)t0 * W, W, FB, LDH, W);
+  ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw);
 
   // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer 7's cotangent --
   zero_acc<4>(acc);
-  gemm_acc<4>(acc, FB, LDH, W, Wb + G_F, nw);
+  ring_mma<4>(rg, acc, FB, LDH, nw);
+  sync_tile();  // every warp is past the g_xv products' reads of HVB
   {
     const int lane = tid & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -346,30 +777,28 @@ __device__ __forceinline__ void mlp_bwd_tile(const bf16* X, const bf16* XV,
   }
   bf16* gin_b = HVB;   // the current layer's bf16 cotangent
   bf16* gout_b = FB;
-  mask_emit<4>(acc, act + (size_t)t0 * DEPTH * W + (DEPTH - 1) * W,
-               bpart + (DEPTH - 1) * W, gin_b,
-               gp + (size_t)t0 * DEPTH * W + (DEPTH - 1) * W, nw);
-  __syncthreads();
+  mask_emit(acc, sm.mask + (DEPTH - 1) * MASK_BYTES / DEPTH,
+            bpart + (DEPTH - 1) * W, gin_b, nw);
+  sync_tile();
+  copy_rows(gp + (DEPTH - 1) * W, DEPTH * W, gin_b, LDH, W);
 
   // ---- the trunk in reverse ----------------------------------------
+  float* gx = wk.gx[net] + (size_t)t0 * DX;
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
-    if (i == SKIP + 1)
-      gemm_to_global<false>(gin_b, LDH, W, Wb + OFF_SKIPX, DX,
-                            wk.gx[net] + (size_t)t0 * DX, DX);
+    if (i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DX, nw);
     zero_acc<4>(acc);
-    gemm_acc<4>(acc, gin_b, LDH, W, Wb + off_h(i), nw);
-    mask_emit<4>(acc, act + (size_t)t0 * DEPTH * W + (i - 1) * W,
-                 bpart + (i - 1) * W, gout_b,
-                 gp + (size_t)t0 * DEPTH * W + (i - 1) * W, nw);
-    __syncthreads();
+    ring_mma<4>(rg, acc, gin_b, LDH, nw);
+    mask_emit(acc, sm.mask + (i - 1) * MASK_BYTES / DEPTH,
+              bpart + (i - 1) * W, gout_b, nw);
+    sync_tile();
+    copy_rows(gp + (i - 1) * W, DEPTH * W, gout_b, LDH, W);
     bf16* tmp = gin_b;
     gin_b = gout_b;
     gout_b = tmp;
   }
-  gemm_to_global<true>(gin_b, LDH, W, Wb, DX, wk.gx[net] + (size_t)t0 * DX,
-                       DX);
-  __syncthreads();
+  ring_to_global<true>(rg, gin_b, gx, DX, nw);
+  sync_tile();  // the next net may take every buffer
 }
 
 // bias gradients: the per-tile partials summed in tile order

@@ -16,7 +16,9 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    of an rgb loss after compositing), plus a ragged point count (S=24,
    R=171: a part-full last tile, every third ray across two tiles) with
    and without framecodes; kernel time, twin time, bound and achieved
-   TFLOP/s;
+   TFLOP/s; each pass's device time (per-tile, pullback, denc, bias, dW)
+   from one profiled call; and two calls on the same inputs must give
+   bit-identical outputs;
 3. path phase: ``ImageRenderer.render_path`` renders bullet-time frames
    at 512x512 with 4096-ray chunks through the port's render path; the
    launch counts of K1 and K2 must each equal the number of chunks, the
@@ -34,7 +36,8 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    twins (forward rows as in 1, every output of K6 as in 2): at a ragged
    4104 points with and without framecodes, then K5 at the eval coarse
    chunk (n=262,144) and the train shapes (n=131,072 and 32,768) and K6
-   at the train shapes, with kernel time, twin time, bound and TFLOP/s;
+   at the train shapes, with kernel time, twin time, bound and TFLOP/s,
+   and for K6 its passes and the two-call determinism check as in 2;
 6. multi-subject path phase: one bullet-time frame of the two-subject
    model at 512x512 (chunk 4096); K5 must launch 3 times a chunk and
    K1-K4 never, and one chunk must match the plain path;
@@ -48,7 +51,8 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of its main path's run:
-the flagship train step for K1-K4, the multi-subject one for K5/K6),
+the flagship train step for K1-K4, the multi-subject one for K5/K6;
+the backward kernels' rows add ``passes_ms``),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -249,6 +253,63 @@ def _cmp(ref, got):
             d.max().item() / (a.abs().max().item() + 1e-30), d.max().item())
 
 
+def _check_deterministic(name, first, second):
+    """Two calls of a backward kernel on the same inputs must give
+    bit-identical outputs (no atomics: every sum runs in a fixed
+    order)."""
+    import torch
+    for (k, a), (_, b) in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f'{name} {k} differs between two calls on '
+                                 'the same inputs')
+    print(f'  {name}: {len(first)} outputs bit-identical over two calls')
+
+
+# the passes of each backward kernel by kernel name (substrings of the
+# profiler's demangled names)
+BWD_PASSES = {
+    'encmlp_dual_bwd': (('per-tile', ('bwd_tile_kernel<2>',)),
+                        ('pullback', ('pullback_kernel<2>',)),
+                        ('denc', ('denc_kernel<2>',)),
+                        ('bias', ('bias_kernel',)), ('dW', ('dw_kernel',))),
+    'encmlp_bwd': (('per-tile', ('bwd_tile_kernel<1>',)),
+                   ('pullback', ('pullback_kernel<1>',)),
+                   ('denc', ('denc_kernel<1>',)),
+                   ('bias', ('bias_kernel',)), ('dW', ('dw_kernel',))),
+    'mlp_bwd': (('per-tile', ('mlp_bwd_tile_kernel',)),
+                ('dx', ('dx_kernel',)), ('bias', ('bias_kernel',)),
+                ('dW', ('dw_kernel',))),
+}
+
+
+def pass_times(name, run, shape):
+    """Device ms of each pass of backward kernel ``name`` over one
+    profiled call of ``run`` (after a warm-up), grouped by kernel name;
+    'other' is the rest of the call (weight packing, output
+    allocation)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = _device_ms
+    events = [e for e in prof.key_averages()
+              if dev(e) > 0 and str(e.device_type).endswith('CUDA')]
+    if not events:
+        print(f'{name} passes: device time not measured (no CUDA events)')
+        return None
+    out = {}
+    for label, keys in BWD_PASSES[name]:
+        out[label] = sum(dev(e) for e in events
+                         if any(k in e.key for k in keys))
+    out['other'] = sum(dev(e) for e in events) - sum(out.values())
+    print(f'{name} passes at {shape} (one profiled call, device ms): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in out.items()))
+    return out
+
+
 def _bwd_calls(FE, st, est, p, enc, codes, cutoff, tau, flats, g, nnet):
     """(kernel, twin) closures of K3 (nnet=1) or K4, each returning the
     named outputs [(name, tensor)]: dp, denc, dcodes, every gradient."""
@@ -357,6 +418,7 @@ def bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device, R=2048):
         torch.cuda.synchronize()
         print(f'{name} R={R} S={S}:')
         max_abs = _check_bwd(name, plain(), got)
+        _check_deterministic(name, got, run())
         del got
         # why the bar takes the composited cotangent: a random one on
         # every point, printed only
@@ -372,6 +434,7 @@ def bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device, R=2048):
             FE.kernel_cost(st, est, p.shape[0], nnet, backward=True),
             _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
             f'R={R} S={S}'))
+        rows[-1]['passes_ms'] = pass_times(name, run, f'R={R} S={S}')
     return rows
 
 
@@ -487,11 +550,14 @@ def split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device):
         torch.cuda.synchronize()
         print(f'mlp_bwd R={R} S={S}:')
         max_abs = _check_bwd('mlp_bwd', plain(), got)
+        _check_deterministic('mlp_bwd', got, run())
         del got
         timed['mlp_bwd', n] = _timed_row(
             'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
             _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
             f'n={n}', tpu_file='pallas_mlp.py')
+        timed['mlp_bwd', n]['passes_ms'] = pass_times('mlp_bwd', run,
+                                                      f'n={n}')
     ws = FM.cuda_build.library('mlp_bwd').mlp_bwd_workspace_bytes(131072)
     print(f'mlp_bwd workspace at n=131,072: {ws / 2**30:.3f} GiB')
     # the rows of the train step's coarse samples
@@ -592,6 +658,13 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, per_chunk,
     return counts
 
 
+def _device_ms(event):
+    """Device ms of a profiler event (the attribute's name differs across
+    torch versions)."""
+    return getattr(event, 'self_device_time_total',
+                   getattr(event, 'self_cuda_time_total', 0)) / 1e3
+
+
 def _profile(what, run, top):
     """Run ``run`` once under torch.profiler; print its wall time, the
     device's busy share, the ``top`` kernels by device time and the host
@@ -605,8 +678,7 @@ def _profile(what, run, top):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev = lambda e: getattr(e, 'self_device_time_total',
-                            getattr(e, 'self_cuda_time_total', 0)) / 1e3
+    dev = _device_ms
     # device kernels only: a kernel launched inside an autograd Function
     # also counts as device time of the Function's own event
     events = [e for e in prof.key_averages()
@@ -811,12 +883,16 @@ def _leaf_names(tree, prefix=''):
     return [] if tree is None else [prefix[:-1]]
 
 
-# a step's device kernels by the fused kernel they belong to (name
-# substrings); K3/K4: their passes, with the dW and bias passes summed
+# a step's device kernels by the fused kernel and pass they belong to
+# (name substrings); K3's and K4's dW and bias passes share their names
 K1_K4_GROUPS = {'K1 encmlp_fwd_kernel<1>': ('encmlp_fwd_kernel<1>',),
                 'K2 encmlp_fwd_kernel<2>': ('encmlp_fwd_kernel<2>',),
-                'K3 passes <1>': ('kernel<1>',),
-                'K4 passes <2>': ('kernel<2>',),
+                'K3 per-tile bwd_tile_kernel<1>': ('bwd_tile_kernel<1>',),
+                'K3 pullback, denc <1>': ('pullback_kernel<1>',
+                                          'denc_kernel<1>'),
+                'K4 per-tile bwd_tile_kernel<2>': ('bwd_tile_kernel<2>',),
+                'K4 pullback, denc <2>': ('pullback_kernel<2>',
+                                          'denc_kernel<2>'),
                 'K3+K4 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
 K5_K6_GROUPS = {'K5 mlp_fwd_kernel': ('mlp_fwd_kernel',),
                 'K6 mlp_bwd_tile_kernel': ('mlp_bwd_tile_kernel',),
@@ -832,8 +908,7 @@ def profile_step(step, state, batch, gen, groups):
         return
     events, dev = res
     for g, keys in groups.items():
-        ms = sum(dev(e) for e in events if any(k in e.key for k in keys)
-                 and not ('encmlp_fwd' in e.key and 'encmlp_fwd' not in g))
+        ms = sum(dev(e) for e in events if any(k in e.key for k in keys))
         print(f'  {g}: {ms:.3f} ms')
 
 
