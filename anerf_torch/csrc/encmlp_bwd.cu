@@ -90,7 +90,8 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * T;
-  Ring rg = ring_open(sm.ring, sm.bars, &maps, NNET, t0);
+  BwdRing rg = ring_open<BwdSched>(sm.ring, sm.bars, &maps.seg[0][0],
+                                     maps.xv, NNET, t0);
   if (tid >= NTHREAD) {  // the producer warp; the first weight slices
     ring_produce(rg);    // arrive while the tile encodes
     return;

@@ -1,9 +1,10 @@
 // Device code shared by the radiance-MLP kernels (encmlp_fwd.cu: K1,
 // K2; encmlp_bwd.cu: K3, K4; mlp_fwd.cu: K5; mlp_bwd.cu: K6): the
-// compiled shape, the packed weight layout, the tensor-core product, the
-// in-block encode (K1-K4), the loader of split input parts (K5, K6) and
-// the MLP forward of one tile.  Each .cu file includes it once;
-// everything here has internal linkage.
+// compiled shape, the packed weight layout, the mma.sync product and its
+// epilogue (the backward's), the in-block encode (K1-K4) and the loader
+// of split input parts (K5, K6).  The weight ring is in ring.cuh, the
+// forward's MLP body in mlp_fwd_common.cuh.  Each .cu file includes it
+// once; everything here has internal linkage.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,9 +37,6 @@ constexpr int LDX = DX + 8;
 constexpr int LDXV = DXV + 8;
 constexpr int LDH = W + 8;
 
-constexpr size_t SMEM_BYTES =
-    sizeof(bf16) * (size_t)T * (LDX + LDXV + 2 * LDH) + sizeof(float) * T * J;
-
 // packed weights (bf16, each matrix transposed to (out, in)); the layout
 // anerf_torch/ops/fused_encmlp.py::_pack_kernel_weights writes
 constexpr size_t SZ_X = (size_t)W * DX;
@@ -60,14 +58,6 @@ constexpr int OB_A = OB_V + HV;
 constexpr int OB_R = OB_A + 1;
 constexpr int BSZ = OB_R + 3;
 
-__device__ __forceinline__ uint32_t lds_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg_u32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -85,48 +75,6 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][NT][4]) {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-}
-
-// acc += A[0:64, 0:K] @ Wt[n0 : n0 + 8 NT, 0:K]^T for this warp's
-// columns.  A: shared, row-major, stride lda; Wt: global, (N, K)
-// row-major.  Fragment layouts of mma.m16n8k16 (PTX ISA): A regs hold
-// (row g | g+8, cols 2q..2q+1 | +8); B regs (k = 2q..2q+1 | +8, col g).
-template <int NT>
-__device__ __forceinline__ void gemm_acc(float (&acc)[4][NT][4], const bf16* A,
-                                         int lda, int K,
-                                         const bf16* __restrict__ Wt, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const bf16* wrow[NT];
-  uint32_t b[NT][2], bn[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    wrow[j] = Wt + (size_t)(n0 + j * 8 + g) * K + 2 * q;
-    b[j][0] = ldg_u32(wrow[j]);
-    b[j][1] = ldg_u32(wrow[j] + 8);
-    bn[j][0] = bn[j][1] = 0u;
-  }
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    if (k0 + 16 < K) {  // prefetch the next k-slice of the weights
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        bn[j][0] = ldg_u32(wrow[j] + k0 + 16);
-        bn[j][1] = ldg_u32(wrow[j] + k0 + 24);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const bf16* ap = A + (m * 16 + g) * lda + k0 + 2 * q;
-      uint32_t a[4] = {lds_u32(ap), lds_u32(ap + 8 * lda), lds_u32(ap + 8),
-                       lds_u32(ap + 8 * lda + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, b[j][0], b[j][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      b[j][0] = bn[j][0];
-      b[j][1] = bn[j][1];
-    }
-  }
 }
 
 // out[row, col] = bf16(act(acc + bias[col])) for this warp's columns
@@ -255,21 +203,6 @@ __device__ __forceinline__ void encode_views(const float* __restrict__ enc,
   }
 }
 
-// The encode of the tile into shared memory (K1, K2): X and WIN as
-// encode_points, XV (T, LDXV) as encode_views.  Ends with the block
-// synchronised.
-__device__ __forceinline__ void encode_tile(const float* __restrict__ p,
-                                            const float* __restrict__ enc,
-                                            const float* __restrict__ cutoff,
-                                            float tau, bf16* X, bf16* XV,
-                                            float* WIN, int t0, int n,
-                                            int S) {
-  encode_points(p, cutoff, tau, X, WIN, t0, n);
-  __syncthreads();
-  encode_views(enc, WIN, XV, LDXV, t0, n, S);
-  __syncthreads();
-}
-
 // ---- split input parts (K5, K6) -----------------------------------------
 // The trunk input [x_0 | x_1 | ...] (DX wide) and the views input
 // [xv_0 | xv_1 | ... | 0] (DXV wide) arrive as separate row-major bf16
@@ -363,85 +296,6 @@ __device__ __forceinline__ void load_parts(const Parts& ps, bf16* dst, int ld,
     const int t = idx / pad;
     dst[t * ld + ps.total + idx - t * pad] = __float2bfloat16_rn(0.f);
   }
-}
-
-// ---- the MLP forward of one 64-point tile ---------------------------------
-// X = the trunk input (T, LDX) and XV = the views input (T, LDXV), both
-// complete in shared memory; H0, H1 = activation buffers (T, LDH).  Wn/Bn
-// = one net's packed weights and biases.  Writes channel ch of point
-// t0 + t < n to out[ch * cs + (t0 + t) * ps]: (cs, ps) = (n, 1) for K1's
-// channel-major rows, (1, 4) for K5's row-major [rgb, alpha].  Ends with
-// the block synchronised.
-__device__ __forceinline__ void mlp_fwd_tile(const bf16* X, const bf16* XV,
-                                             bf16* H0, bf16* H1,
-                                             const bf16* __restrict__ Wn,
-                                             const float* __restrict__ Bn,
-                                             float* __restrict__ out, size_t cs,
-                                             size_t ps, int t0, int n) {
-  const int tid = threadIdx.x, warp = tid >> 5;
-  // ---- density trunk -----------------------------------------------------
-  float acc[4][4][4];
-  const int nw = warp * 32;  // this warp's 32 of the 256 columns
-  zero_acc<4>(acc);
-  gemm_acc<4>(acc, X, LDX, DX, Wn, nw);
-  store_act<4, true>(acc, Bn, H0, LDH, nw);
-  __syncthreads();
-  bf16* hin = H0;
-  bf16* hout = H1;
-#pragma unroll 1
-  for (int i = 1; i < DEPTH; ++i) {
-    zero_acc<4>(acc);
-    gemm_acc<4>(acc, hin, LDH, W, Wn + off_h(i), nw);
-    if (i == SKIP + 1) gemm_acc<4>(acc, X, LDX, DX, Wn + OFF_SKIPX, nw);
-    store_act<4, true>(acc, Bn + i * W, hout, LDH, nw);
-    __syncthreads();
-    bf16* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
-
-  // ---- alpha head (f32 dot, 4 lanes per point) and feature layer -------
-  {
-    const int t = tid >> 2, part = tid & 3;
-    const bf16* hr = hin + t * LDH + part * (W / 4);
-    const bf16* wa = Wn + OFF_A + part * (W / 4);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < W / 4; ++k)
-      sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0 && t0 + t < n)
-      out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
-  }
-  zero_acc<4>(acc);
-  gemm_acc<4>(acc, hin, LDH, W, Wn + OFF_F, nw);
-  store_act<4, false>(acc, Bn + OB_F, hout, LDH, nw);  // feat, no ReLU
-  __syncthreads();
-
-  // ---- views branch: [feat | views input] -> 128, ReLU ------------------
-  {
-    float accv[4][2][4];
-    const int nv = warp * 16;
-    zero_acc<2>(accv);
-    gemm_acc<2>(accv, hout, LDH, W, Wn + OFF_VF, nv);
-    gemm_acc<2>(accv, XV, LDXV, DXV, Wn + OFF_VX, nv);
-    store_act<2, true>(accv, Bn + OB_V, hin, LDH, nv);
-  }
-  __syncthreads();
-
-  // ---- rgb head (f32 dot) -----------------------------------------------
-  if (tid < T * 3) {
-    const int t = tid / 3, ch = tid - t * 3;
-    const bf16* hr = hin + t * LDH;
-    const bf16* wr = Wn + OFF_R + ch * HV;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < HV; ++k)
-      sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
-    if (t0 + t < n) out[ch * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_R + ch);
-  }
-  __syncthreads();
 }
 
 }  // namespace

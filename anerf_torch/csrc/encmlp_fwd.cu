@@ -9,60 +9,75 @@
 // (16), an 8 x 256 trunk with the input re-entering after layer 4, a
 // 128-wide views branch.
 //
-// Per block: 64 points (one S=64 ray, or four S=16 rays).  The encode
-// runs in f32 on the CUDA cores and lands in shared memory as bf16; it
-// never touches device memory.  Every product then runs on the tensor
-// cores (mma.sync m16n8k16, bf16 operands, f32 accumulators) with the
-// activations in shared memory and each layer's weights streamed from
-// L2 (one net's 1.7 MB bf16 set is read by every block, so it stays
-// L2-resident; a 227 KB block cannot hold it).  Each warp owns a slice
-// of output columns for all 64 rows, so no reduction crosses warps or
-// blocks.  Numeric chain as in the TPU kernels: f32 bias and ReLU, a
-// bf16 re-cast between layers, feat rounded to bf16 after its bias,
-// alpha and rgb in f32.  The ragged edge of the last block is masked.
+// Per block: 64 points (one S=64 ray, or four S=16 rays), two consumer
+// warpgroups and a producer warp.  The encode runs in f32 on the CUDA
+// cores and lands in shared memory as bf16; it never touches device
+// memory.  Meanwhile the producer warp has the net's first weight slices
+// in flight: every weight reaches the block through a 4-stage ring of
+// 32-deep k-slices in shared memory, one TMA copy a stage, walking a
+// fixed schedule across the layers and the nets (ring.cuh).  Every
+// product runs on wgmma (m64n128k16 for the 256-wide layers, m64n64k16
+// for the views layer; A, the activations, from registers, B from the
+// ring stage; f32 accumulators), each warpgroup owning half of a layer's
+// output columns for all 64 rows, so no reduction crosses warps or
+// blocks.  To make room for the ring, the views input leaves shared
+// memory before the trunk: its product runs first, into accumulators
+// that stay in registers until the feat part adds into them, and the
+// activation buffers take its place (mlp_fwd_common.cuh).  K2 encodes
+// the views input again for its second net from the windows it keeps.
+// Numeric chain as in the TPU kernels: f32 bias and ReLU, a bf16 re-cast
+// between layers, feat rounded to bf16 after its bias, alpha and rgb in
+// f32.  The ragged edge of the last block is masked.
 //
 // Bound: ~1.73 MFLOP per point and net against ~300 bytes of device
-// traffic, so tensor-core operations bound both kernels.  This first
-// version re-reads every weight from L2 once per 64-point tile
-// (~14 GB of L2 reads per 4096-ray coarse chunk); wgmma, TMA and
-// cluster multicast of the weights are later work.
+// traffic, so tensor-core operations bound both kernels at the card's
+// peak (0.925 ms for K2 at n = 262,144).  At 64-point tiles, though, each
+// block reads its net's whole 1.73 MB weight pack from L2: ~14 GB of L2
+// reads per K2 call at n = 262,144, a few ms at the L2's rate, which is
+// this design's floor.  Going below it needs weight reuse across tiles
+// (a cluster sharing each slice by TMA multicast, or 128-point tiles).
 //
-// The shape, the weight layout, the product, the encode and the MLP body
-// (mlp_fwd_tile) live in encmlp_common.cuh, shared with K3-K6.
+// The shape, the weight layout and the encode live in encmlp_common.cuh,
+// the ring in ring.cuh, the MLP body (mlp_fwd_tile) in
+// mlp_fwd_common.cuh, shared with K5.
 //
 // C interface (loaded with ctypes): every pointer is device memory,
 // the stream is PyTorch's current stream; returns cudaGetLastError().
-#include "encmlp_common.cuh"
+#include "mlp_fwd_common.cuh"
 
 namespace {
 
+constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J;  // + windows
+static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
+
 template <int NNET>
-__global__ void __launch_bounds__(NTHREAD, 1)
+__global__ void __launch_bounds__(NTHREAD + 32, 1)
 encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                   const float* __restrict__ codes,
                   const float* __restrict__ cutoff,
                   const float* __restrict__ tau_ptr,
                   const bf16* __restrict__ wpack,
                   const float* __restrict__ bpack, float* __restrict__ out,
-                  int n, int S, int R) {
+                  const __grid_constant__ FwdMaps maps, int n, int S, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);   // [v | r]       (T, LDX)
-  bf16* XV = X + T * LDX;                     // [xv | codes]  (T, LDXV)
-  bf16* H0 = XV + T * LDXV;                   // activations   (T, LDH)
-  bf16* H1 = H0 + T * LDH;
-  float* WIN = reinterpret_cast<float*>(H1 + T * LDH);  // windows (T, J)
-
+  const FwdSmem sm = fwd_smem(smem);
+  float* WIN = sm.end;                        // windows (T, J)
   const int t0 = blockIdx.x * T;
-  const float tau = __ldg(tau_ptr);
-
-  encode_tile(p, enc, cutoff, tau, X, XV, WIN, t0, n, S);
-
+  FwdRing rg = ring_open<FwdSched>(sm.ring, sm.bars, &maps.seg[0][0],
+                                   nullptr, NNET, t0);
+  if (threadIdx.x >= NTHREAD) {  // the producer warp; the first weight
+    ring_produce(rg);            // slices arrive while the tile encodes
+    return;
+  }
+  encode_points(p, cutoff, __ldg(tau_ptr), sm.X, WIN, t0, n);
+  sync_tile();
   for (int net = 0; net < NNET; ++net) {
-    write_codes(XV, LDXV, codes + (size_t)net * R * NCODE, t0, n, S);
-    __syncthreads();
-    mlp_fwd_tile(X, XV, H0, H1, wpack + (size_t)net * WSZ,
-                 bpack + (size_t)net * BSZ, out + (size_t)net * 4 * n, n, 1,
-                 t0, n);
+    // the views input of this net (the last net's trunk wrote over it)
+    encode_views(enc, WIN, sm.XV, LDXV, t0, n, S);
+    write_codes(sm.XV, LDXV, codes + (size_t)net * R * NCODE, t0, n, S);
+    sync_tile();
+    mlp_fwd_tile(rg, sm, wpack + (size_t)net * WSZ, bpack + (size_t)net * BSZ,
+                 out + (size_t)net * 4 * n, n, 1, t0, n);
   }
 }
 
@@ -71,14 +86,18 @@ int launch(const float* p, const float* enc, const float* codes,
            const float* cutoff, const float* tau, const void* wpack,
            const float* bpack, float* out, int n, int S, int R, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      encmlp_fwd_kernel<NNET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+  const bf16* wf = reinterpret_cast<const bf16*>(wpack);
+  FwdMaps maps;
+  cudaError_t err = make_fwd_maps(maps, wf, NNET);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(encmlp_fwd_kernel<NNET>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_ENC);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n + T - 1) / T;
-  encmlp_fwd_kernel<NNET><<<grid, NTHREAD, SMEM_BYTES, (cudaStream_t)stream>>>(
-      p, enc, codes, cutoff, tau, reinterpret_cast<const bf16*>(wpack), bpack,
-      out, n, S, R);
+  encmlp_fwd_kernel<NNET><<<grid, NTHREAD + 32, SMEM_ENC,
+                            (cudaStream_t)stream>>>(
+      p, enc, codes, cutoff, tau, wf, bpack, out, maps, n, S, R);
   return (int)cudaGetLastError();
 }
 

@@ -57,7 +57,8 @@ mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem sm = tile_smem(smem);
   const int t0 = blockIdx.x * T;
-  Ring rg = ring_open(sm.ring, sm.bars, &maps, 1, t0);
+  BwdRing rg = ring_open<BwdSched>(sm.ring, sm.bars, &maps.seg[0][0],
+                                     maps.xv, 1, t0);
   if (threadIdx.x >= NTHREAD) {  // the producer warp; the first weight
     ring_produce(rg);            // slices arrive while the parts load
     return;

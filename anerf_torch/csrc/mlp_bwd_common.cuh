@@ -6,27 +6,19 @@
 //
 // The per-tile pass (mlp_bwd_tile) recomputes one net's forward on a
 // 64-point tile and runs its backward down to the input cotangents.
-// Every product of it, forward and backward, reads its weights from a
-// ring of NSTAGE stages in shared memory: a stage is one 32-deep k-slice
-// of up to 256 weight rows (64-byte rows, K-major, 64-byte swizzled, so
-// that ldmatrix reads them without bank conflicts and wgmma could read
-// them as they lie).  A producer warp, beside the 8 consumer warps,
-// fills each stage with one TMA copy (cp.async.bulk.tensor from a tensor
-// map per weight block) that completes on the stage's full barrier, and
-// refills a slot once every consumer warp has arrived on its empty
-// barrier; the consumers spend no issue slots on copies and meet at no
-// block barrier per stage.  The stages follow one fixed schedule (SEGS)
-// across the products and the nets of the tile, so the next product's
-// first slices are in flight while the current one's epilogue runs, and
-// each slice crosses L2 once per block.  The views layer's forward takes
-// its A operand, the tile's views input, from the workspace through the
-// same ring, so no views input stays in shared memory.  The recompute
-// keeps each trunk layer's ReLU mask as bits in shared memory (8 layers
-// x 64 x 256 bits) for the backward; the bf16 activations and cotangents
-// go to the workspace for the dW pass as 16-byte rows from shared memory.
-// Products stay mma.sync m16n8k16 with bf16 operands and f32
-// accumulators; each warp owns a slice of output columns for all 64
-// rows, so column sums never cross warps.
+// Every product of it, forward and backward, reads its weights from the
+// weight ring of ring.cuh (NSTAGE stages of 32-deep k-slices, filled by
+// TMA from a producer warp beside the 8 consumer warps), walking one
+// fixed schedule (SEGS) across the products and the nets of the tile.
+// The views layer's forward takes its A operand, the tile's views input,
+// from the workspace through the same ring, so no views input stays in
+// shared memory.  The recompute keeps each trunk layer's ReLU mask as
+// bits in shared memory (8 layers x 64 x 256 bits) for the backward; the
+// bf16 activations and cotangents go to the workspace for the dW pass as
+// 16-byte rows from shared memory.  Products stay mma.sync m16n8k16 with
+// bf16 operands and f32 accumulators (the forward's wgmma product,
+// mlp_fwd_common.cuh, is not used here yet); each warp owns a slice of
+// output columns for all 64 rows, so column sums never cross warps.
 //
 // Bound of the per-tile pass: it re-reads both weight packs (3.46 MB a
 // net) once per 64-point tile, ~14 GB of L2 reads per K4 call at
@@ -34,9 +26,7 @@
 // this tile size.  Going below it needs weight reuse across tiles (larger
 // tiles or a cluster sharing each slice by multicast).
 #pragma once
-#include <cuda.h>  // CUtensorMap and its enums (encoded through the runtime)
-
-#include "encmlp_common.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -139,19 +129,8 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
   }
 }
 
-// ---- the weight ring ------------------------------------------------------
-constexpr int KS = 32;               // k-depth of a stage: 64-byte rows
-constexpr int STAGE = W * KS;        // bf16 a stage: up to 256 rows
+// ---- the backward's schedule on the weight ring (ring.cuh) -------------
 constexpr int NSTAGE = 5;
-
-// One block of weight rows that the ring streams: `rows` rows of depth K
-// at `off` in the forward (pack 0, (out, in) rows) or backward (pack 1,
-// (in, out) rows) pack of the net; with stream_a, the tile's views input
-// (T rows of depth K) rides in each stage after the weight rows as the
-// product's A operand.
-struct Seg {
-  int pack, off, rows, K, stream_a;
-};
 
 // The schedule of one net, in the order mlp_bwd_tile consumes it; a net
 // with n output columns over 256 (the input cotangents) is cut into
@@ -195,6 +174,12 @@ const Seg SEGS_HOST[] = SEG_LIST;
 #undef SEG_LIST
 constexpr int NSEG = sizeof(SEGS_HOST) / sizeof(Seg);
 
+struct BwdSched {
+  static constexpr int N = NSEG;
+  static constexpr int NSTAGE = ::NSTAGE;
+  __device__ __forceinline__ static Seg at(int i) { return SEGS[i]; }
+};
+
 // Every stage's source as a TMA descriptor (a kernel parameter): each
 // segment of each net as a (rows, K) bf16 matrix read in boxes of
 // KS x rows, and each net's views input (n_pad, DXV) in boxes of KS x T;
@@ -204,41 +189,13 @@ struct Maps {
   CUtensorMap xv[2];
 };
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-bool encode_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int K,
-               int rows, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
-  const cuuint32_t box[2] = {KS, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The descriptors of `nnet` nets (forward packs wf, backward packs wb,
-// views inputs in wk, np padded points).  cuTensorMapEncodeTiled is
-// looked up through the runtime, so nothing links against libcuda.
+// views inputs in wk, np padded points).
 cudaError_t make_maps(Maps& mp, const bf16* wf, const bf16* wb,
                       const Work& wk, int nnet, int np) {
-  static EncodeTiled enc = nullptr;
-  if (!enc) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || !fn)
-      return cudaErrorNotSupported;
-    enc = reinterpret_cast<EncodeTiled>(fn);
-  }
+  EncodeTiled enc;
+  const cudaError_t err = tensor_map_encoder(&enc);
+  if (err != cudaSuccess) return err;
   mp = Maps{};
   for (int net = 0; net < nnet; ++net) {
     for (int i = 0; i < NSEG; ++i) {
@@ -254,140 +211,13 @@ cudaError_t make_maps(Maps& mp, const bf16* wf, const bf16* wb,
   return cudaSuccess;
 }
 
-// the bf16 offset of 16-byte chunk ch (0-3) of row `row` in a stage: the
-// TMA's 64-byte swizzle (chunk bits XOR address bits 7-8), so ldmatrix
-// reads 8 rows of one chunk column without bank conflicts
-__device__ __forceinline__ int swz(int row, int ch) {
-  return row * KS + ((ch ^ ((row >> 1) & 3)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // device-memory writes of this thread made visible to later TMA reads
 // (the async proxy) once the block has synchronised
 __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// Wait until the barrier's phase `parity` has completed.  A lost copy
-// would hang the card, so a wait of seconds traps instead.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == (1u << 26)) __trap();
-  }
-}
-
-// the consumer warps' barrier (named barrier 1): the producer warp
-// never joins it
-__device__ __forceinline__ void sync_tile() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NTHREAD) : "memory");
-}
-
-// The ring's state.  The producer warp (threads NTHREAD and up) fills
-// the stages in schedule order; the NWARP consumer warps take them in the
-// same order.  full[i]: stage i's bytes have landed (the producer's one
-// arrival plus the TMA's transaction count); empty[i]: every consumer
-// warp has read it.
-struct Ring {
-  bf16* buf;                  // NSTAGE stages in shared memory
-  uint64_t* full;
-  uint64_t* empty;
-  const Maps* maps;
-  int nnet, t0;
-  int c_seg, c_slot;          // the consumers' next segment and stage
-  uint32_t c_phase;           // the phase the consumed slot completes
-};
-
-__device__ __forceinline__ void tma_2d(bf16* dst, const CUtensorMap* map,
-                                       int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// The producer: one thread walks the whole schedule, net after net;
-// before it refills a slot it waits until the consumers have read it,
-// then arms the slot's full barrier with the stage's bytes and starts
-// one TMA copy (two with the views input).
-__device__ __forceinline__ void ring_produce(const Ring& r) {
-  if ((threadIdx.x & 31) != 0) return;
-  int slot = 0;
-  uint32_t phase = 0;
-  bool refill = false;        // every slot has been filled once
-  for (int net = 0; net < r.nnet; ++net)
-    for (int i = 0; i < NSEG; ++i) {
-      const Seg s = SEGS[i];
-      const int bytes = (s.rows + (s.stream_a ? T : 0)) * KS * (int)sizeof(bf16);
-      for (int k0 = 0; k0 < s.K; k0 += KS) {
-        if (refill) mbar_wait(r.empty + slot, phase);
-        const uint32_t bar = smem_addr(r.full + slot);
-        bf16* dst = r.buf + slot * STAGE;
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                bar),
-            "r"(bytes)
-            : "memory");
-        tma_2d(dst, &r.maps->seg[net][i], k0, 0, bar);
-        if (s.stream_a) tma_2d(dst + s.rows * KS, &r.maps->xv[net], k0, r.t0, bar);
-        if (++slot == NSTAGE) {
-          slot = 0;
-          if (refill) phase ^= 1u;
-          refill = true;
-        }
-      }
-    }
-}
-
-// A ring over `buf` (NSTAGE stages, 1024-byte aligned) and its barriers
-// for `nnet` nets of tile t0.  Called by all NTHREAD + 32 threads;
-// synchronises the block.
-__device__ __forceinline__ Ring ring_open(bf16* buf, uint64_t* bars,
-                                          const Maps* maps, int nnet,
-                                          int t0) {
-  Ring r;
-  r.buf = buf;
-  r.full = bars;
-  r.empty = bars + NSTAGE;
-  r.maps = maps;
-  r.nnet = nnet;
-  r.t0 = t0;
-  r.c_seg = r.c_slot = 0;
-  r.c_phase = 0;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NSTAGE; ++i) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_addr(r.full + i))
-                   : "memory");
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                       smem_addr(r.empty + i)),
-                   "n"(NWARP)
-                   : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return r;
-}
+typedef Ring<BwdSched> BwdRing;
 
 // acc += A[0:64, 0:K] @ Wseg[n0 : n0 + 8 NT, 0:K]^T over the next segment
 // of the schedule, for this warp's columns (none past the segment's
@@ -396,10 +226,9 @@ __device__ __forceinline__ Ring ring_open(bf16* buf, uint64_t* bars,
 // ldmatrix + mma, then the warp's arrival on the stage's empty barrier.
 // No block barrier: the warps drift apart by up to NSTAGE stages.
 template <int NT>
-__device__ __forceinline__ void ring_mma(Ring& r, float (&acc)[4][NT][4],
+__device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
                                          const bf16* A, int lda, int n0) {
-  const Seg s = SEGS[r.c_seg];
-  r.c_seg = r.c_seg + 1 == NSEG ? 0 : r.c_seg + 1;
+  const Seg s = ring_next_seg(r);
   const int lane = threadIdx.x & 31;
   // ldmatrix row addresses: B matrices (n 0-7 | 8-15) x (k 0-7 | 8-15),
   // A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
@@ -436,15 +265,8 @@ __device__ __forceinline__ void ring_mma(Ring& r, float (&acc)[4][NT][4],
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a[m], b[j][0], b[j][1]);
     }
-    __syncwarp();
-    if (lane == 0)
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                       smem_addr(r.empty + r.c_slot))
-                   : "memory");
-    if (++r.c_slot == NSTAGE) {
-      r.c_slot = 0;
-      r.c_phase ^= 1u;
-    }
+    ring_release(r, r.c_slot);
+    ring_advance(r);
   }
 }
 
@@ -631,7 +453,7 @@ __device__ __forceinline__ void store_f32(const float (&acc)[4][4][4],
 // g_x chunk by chunk: out[:, 0:N] (=|+=) A @ W^T over the schedule's
 // next ceil(N / 256) segments
 template <bool ADD>
-__device__ __forceinline__ void ring_to_global(Ring& rg, const bf16* A,
+__device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
                                                float* __restrict__ out,
                                                int N, int nw) {
   for (int c0 = 0; c0 < N; c0 += W) {
@@ -650,7 +472,7 @@ __device__ __forceinline__ void ring_to_global(Ring& rg, const bf16* A,
 // every bf16 activation and cotangent, the f32 input cotangents gx/gxv
 // and the tile's bias partials to the workspace `wk`.  Run by the
 // consumer warps; ends with them synchronised.
-__device__ __forceinline__ void mlp_bwd_tile(Ring& rg, const TileSmem& sm,
+__device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
                                              const bf16* __restrict__ Wb,
                                              const float* __restrict__ Bn,
                                              const Work& wk, int net, int t0) {

@@ -1,0 +1,364 @@
+// The MLP forward of one 64-point tile, shared by the forward kernels
+// (encmlp_fwd.cu: K1, K2; mlp_fwd.cu: K5): its schedule on the weight
+// ring (ring.cuh), its shared memory, and the warpgroup products.  Each
+// .cu file includes it once; everything here has internal linkage.
+//
+// Threads: two consumer warpgroups (warps 0-7) and the ring's producer
+// warp.  Every product is wgmma.mma_async m64nNk16 (bf16 operands, f32
+// accumulators in registers): warpgroup g takes half of a layer's output
+// columns (N = 128 of the 256-wide layers, 64 of the 128-wide views
+// layer) for all 64 rows.  A comes from registers: warp w of a
+// warpgroup loads rows 16w .. 16w+15 of the tile's activations with
+// ldmatrix from the padded row-major buffers (X, XV, H0, H1), the
+// fragment of mma.m16n8k16's A.  B is the ring stage as the TMA laid it
+// down (K-major 64-byte rows, 64-byte swizzle), read through a shared-
+// memory matrix descriptor; a stage is released, by each warp's arrival
+// on its empty barrier, as soon as wgmma.wait_group shows that the
+// products reading it have completed.  (Keeping one group in flight
+// across stages instead holds two stages per warp, so the producer runs
+// a stage less ahead; on the card that measured slower, PERF.md §6.)
+//
+// Shared memory: the ring (4 stages of 16 KB), X (T, LDX), and one region
+// that holds the views input XV (T, LDXV) and then the two activation
+// buffers H0, H1 (T, LDH) over it.  XV feeds one product, the views
+// layer's views-input part, so that product runs first, right after the
+// encode, into its own f32 accumulators that stay in registers through
+// the trunk; the feat part adds into them at the end.  (The views layer
+// thus sums its two parts in the other order than the plain twin.)  K2
+// encodes the views input again for its second net, from the windows
+// kept in shared memory.
+#pragma once
+#include "ring.cuh"
+
+namespace {
+
+// ---- the forward's schedule on the ring -----------------------------------
+constexpr int FWD_NSTAGE = 4;
+
+static_assert(DEPTH == 8 && SKIP == 4, "FSEGS is written for 8 layers, skip 4");
+#define FWD_SEG_LIST                                                      \
+  {                                                                       \
+    {0, (int)OFF_VX, HV, DXV, 0},          /* views-input part A = XV  */ \
+    {0, 0, W, DX, 0},                      /* layer 0          A = X   */ \
+    {0, (int)off_h(1), W, W, 0},           /* layers 1-4       A = h   */ \
+    {0, (int)off_h(2), W, W, 0},                                          \
+    {0, (int)off_h(3), W, W, 0},                                          \
+    {0, (int)off_h(4), W, W, 0},                                          \
+    {0, (int)off_h(5), W, W, 0},           /* layer 5: h part          */ \
+    {0, (int)OFF_SKIPX, W, DX, 0},         /*   and x part     A = X   */ \
+    {0, (int)off_h(6), W, W, 0},                                          \
+    {0, (int)off_h(7), W, W, 0},                                          \
+    {0, (int)OFF_F, W, W, 0},              /* feat                     */ \
+    {0, (int)OFF_VF, HV, W, 0},            /* views: feat part A = feat */\
+  }
+__constant__ Seg FSEGS[] = FWD_SEG_LIST;
+constexpr Seg FSEGS_HOST[] = FWD_SEG_LIST;
+#undef FWD_SEG_LIST
+constexpr int NFSEG = sizeof(FSEGS_HOST) / sizeof(Seg);
+
+// The schedule covers the forward pack's matrices (everything before
+// the head vectors at OFF_A) exactly once: weight blocks of the forward
+// pack, inside [0, OFF_A), pairwise disjoint, summing to OFF_A.
+constexpr bool covers_forward_pack(const Seg* s, int n) {
+  size_t total = 0;
+  for (int i = 0; i < n; ++i) {
+    const size_t lo = (size_t)s[i].off, hi = lo + (size_t)s[i].rows * s[i].K;
+    if (s[i].pack != 0 || s[i].stream_a || s[i].off < 0 || hi > OFF_A)
+      return false;
+    for (int j = 0; j < n; ++j) {
+      const size_t lj = (size_t)s[j].off, hj = lj + (size_t)s[j].rows * s[j].K;
+      if (j != i && lo < hj && lj < hi) return false;
+    }
+    total += hi - lo;
+  }
+  return total == OFF_A;
+}
+static_assert(covers_forward_pack(FSEGS_HOST, NFSEG),
+              "the forward schedule must cover the forward pack once");
+
+struct FwdSched {
+  static constexpr int N = NFSEG;
+  static constexpr int NSTAGE = FWD_NSTAGE;
+  __device__ __forceinline__ static Seg at(int i) { return FSEGS[i]; }
+};
+typedef Ring<FwdSched> FwdRing;
+
+// every segment of each net as a TMA descriptor (a kernel parameter)
+struct FwdMaps {
+  CUtensorMap seg[2][NFSEG];
+};
+
+// The descriptors of `nnet` nets' forward packs wf (WSZ each).
+cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
+  EncodeTiled enc;
+  const cudaError_t err = tensor_map_encoder(&enc);
+  if (err != cudaSuccess) return err;
+  mp = FwdMaps{};
+  for (int net = 0; net < nnet; ++net)
+    for (int i = 0; i < NFSEG; ++i) {
+      const Seg& s = FSEGS_HOST[i];
+      if (!encode_2d(enc, &mp.seg[net][i], wf + (size_t)net * WSZ + s.off,
+                     s.K, s.rows, s.rows))
+        return cudaErrorInvalidValue;
+    }
+  return cudaSuccess;
+}
+
+// ---- shared memory --------------------------------------------------------
+// the ring (1024-byte aligned for the swizzle), its barriers, X, the
+// XV / H0 H1 region; K1/K2 add the windows (T, J) after it
+constexpr size_t XH_ELEMS = (size_t)T * (LDXV > 2 * LDH ? LDXV : 2 * LDH);
+constexpr size_t SMEM_FWD = 1024 + sizeof(bf16) * (size_t)FWD_NSTAGE * STAGE +
+                            sizeof(uint64_t) * 16 +
+                            sizeof(bf16) * ((size_t)T * LDX + XH_ELEMS);
+static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
+
+struct FwdSmem {
+  bf16* ring;
+  uint64_t* bars;   // the ring's full and empty barriers
+  bf16* X;
+  bf16* XV;         // the views input, then H0 and H1 over it
+  bf16* H0;
+  bf16* H1;
+  float* end;       // what a kernel adds after the forward's own
+};
+
+__device__ __forceinline__ FwdSmem fwd_smem(unsigned char* base) {
+  FwdSmem s;
+  const uint32_t pad = (1024u - (smem_addr(base) & 1023u)) & 1023u;
+  s.ring = reinterpret_cast<bf16*>(base + pad);
+  s.bars = reinterpret_cast<uint64_t*>(s.ring + FWD_NSTAGE * STAGE);
+  s.X = reinterpret_cast<bf16*>(s.bars + 16);
+  s.XV = s.X + T * LDX;
+  s.H0 = s.XV;
+  s.H1 = s.H0 + T * LDH;
+  s.end = reinterpret_cast<float*>(s.XV + XH_ELEMS);
+  return s;
+}
+
+// ---- warpgroup products ---------------------------------------------------
+// A shared-memory matrix descriptor of a K-major B operand with the
+// 64-byte swizzle: start address >> 4 (bits 0-13), leading offset 1
+// (unused by a swizzled K-major operand), stride between 8-row groups
+// 512 bytes >> 4 (bits 32-45), layout 64-byte swizzle (2 in bits 62-63).
+__device__ __forceinline__ uint64_t wg_desc(const bf16* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFFu) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int NJ>
+__device__ __forceinline__ void fence_acc(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+#define WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d += A (64 x 16, registers) @ B (16 x 128, descriptor), per warpgroup
+__device__ __forceinline__ void wgmma_acc(float (&d)[16][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3), WG_D4(4), WG_D4(5),
+        WG_D4(6), WG_D4(7), WG_D4(8), WG_D4(9), WG_D4(10), WG_D4(11),
+        WG_D4(12), WG_D4(13), WG_D4(14), WG_D4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A (64 x 16, registers) @ B (16 x 64, descriptor), per warpgroup
+__device__ __forceinline__ void wgmma_acc(float (&d)[8][4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3), WG_D4(4), WG_D4(5),
+        WG_D4(6), WG_D4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#undef WG_D4
+
+template <int NJ>
+__device__ __forceinline__ void zero_wg(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// d += A[0:64, 0:K] @ Wseg[g 8NJ : (g+1) 8NJ, 0:K]^T over the ring's next
+// segment, for warpgroup g = this thread's: NJ = 16 (N = 128) of a
+// 256-row segment, NJ = 8 (N = 64) of a 128-row one.  A: shared,
+// row-major, stride lda (16-byte aligned rows).  Per stage: this warp's
+// A fragments (two k16 steps, one in the ragged last stage of K = 432),
+// the wait for the stage's bytes, two wgmma, one commit, the wait for
+// them, and this warp's release of the stage.
+template <int NJ>
+__device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
+                                           const bf16* A, int lda) {
+  const Seg s = ring_next_seg(r);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // ldmatrix rows of this warp's A fragment: rows 16 (warp % 4) + 0-15,
+  // k 0-7 (lanes 0-15) and 8-15 (lanes 16-31)
+  const bf16* arow =
+      A + (16 * (warp & 3) + (lane & 15)) * lda + (lane >> 4) * 8;
+  // warpgroup g's rows start g * 8NJ rows (64 bytes each) into a stage
+  const uint32_t b_off = (uint32_t)(warp >> 2) * NJ * 8 * KS * sizeof(bf16);
+  fence_acc(d);
+  for (int k0 = 0; k0 < s.K; k0 += KS) {
+    const bool two = k0 + 16 < s.K;
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, arow + k0);
+    if (two) ldsm_x4(a1, arow + k0 + 16);
+    mbar_wait(r.full + r.c_slot, r.c_phase);
+    const uint64_t desc = wg_desc(r.buf + r.c_slot * STAGE) + (b_off >> 4);
+    wg_fence();
+    wgmma_acc(d, a0, desc);
+    if (two) wgmma_acc(d, a1, desc + (16 * sizeof(bf16) >> 4));
+    wg_commit();
+    wg_wait<0>();
+    ring_release(r, r.c_slot);
+    ring_advance(r);
+  }
+  fence_acc(d);
+}
+
+// out[row, col] = bf16(act(d + bias[col])) for this warpgroup's columns
+// from n0: d[j][e] holds row 16 w + lane / 4 (+8 for e >= 2) of warp w of
+// the warpgroup, column n0 + 8 j + 2 (lane % 4) (+1 for odd e)
+template <int NJ, bool RELU>
+__device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
+                                         const float* __restrict__ bias,
+                                         bf16* out, int n0) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = n0 + j * 8 + 2 * q;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+    float v0 = d[j][0] + b0, v1 = d[j][1] + b1;
+    float v2 = d[j][2] + b0, v3 = d[j][3] + b1;
+    if (RELU) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + row * LDH + col) =
+        __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * LDH + col) =
+        __floats2bfloat162_rn(v2, v3);
+  }
+}
+
+// ---- the MLP forward of one 64-point tile ---------------------------------
+// X (the trunk input) and XV (the views input) complete in shared memory
+// and the consumers synchronised; the ring's schedule at the net's first
+// segment.  Wn/Bn = one net's packed weights and biases (the heads'
+// vectors are read from Wn directly).  Writes channel ch of point
+// t0 + t < n to out[ch * cs + (t0 + t) * ps]: (cs, ps) = (n, 1) for
+// K1/K2's channel-major rows, (1, 4) for K5's row-major [rgb, alpha].
+// Run by the consumer warps; ends with them synchronised, past every
+// read of the region that holds XV.
+__device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
+                                             const bf16* __restrict__ Wn,
+                                             const float* __restrict__ Bn,
+                                             float* __restrict__ out,
+                                             size_t cs, size_t ps, int t0,
+                                             int n) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // ---- the views layer's views-input part, while XV is resident -------
+  float dv[8][4];
+  zero_wg(dv);
+  ring_wgmma(rg, dv, sm.XV, LDXV);
+
+  // ---- density trunk -----------------------------------------------------
+  float d[16][4];
+  zero_wg(d);
+  ring_wgmma(rg, d, sm.X, LDX);
+  sync_tile();  // every warp is past its reads of XV, which H0 overlays
+  store_wg<16, true>(d, Bn, sm.H0, wg * 128);
+  sync_tile();
+  bf16* hin = sm.H0;
+  bf16* hout = sm.H1;
+#pragma unroll 1
+  for (int i = 1; i < DEPTH; ++i) {
+    zero_wg(d);
+    ring_wgmma(rg, d, hin, LDH);
+    if (i == SKIP + 1) ring_wgmma(rg, d, sm.X, LDX);
+    store_wg<16, true>(d, Bn + i * W, hout, wg * 128);
+    sync_tile();
+    bf16* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+
+  // ---- alpha head (f32 dot, 4 lanes per point) and feature layer -------
+  {
+    const int t = tid >> 2, part = tid & 3;
+    const bf16* hr = hin + t * LDH + part * (W / 4);
+    const bf16* wa = Wn + OFF_A + part * (W / 4);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < W / 4; ++k)
+      sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0 && t0 + t < n)
+      out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
+  }
+  zero_wg(d);
+  ring_wgmma(rg, d, hin, LDH);
+  store_wg<16, false>(d, Bn + OB_F, hout, wg * 128);  // feat, no ReLU
+  sync_tile();
+
+  // ---- views layer: + feat part, ReLU -------------------------------------
+  ring_wgmma(rg, dv, hout, LDH);
+  store_wg<8, true>(dv, Bn + OB_V, hin, wg * 64);
+  sync_tile();
+
+  // ---- rgb head (f32 dot) -----------------------------------------------
+  static_assert(NTHREAD >= T * 3, "one thread per point and channel");
+  if (tid < T * 3) {
+    const int t = tid / 3, ch = tid - t * 3;
+    const bf16* hr = hin + t * LDH;
+    const bf16* wr = Wn + OFF_R + ch * HV;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < HV; ++k)
+      sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
+    if (t0 + t < n) out[ch * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_R + ch);
+  }
+  sync_tile();
+}
+
+}  // namespace

@@ -9,8 +9,10 @@ random draw for parity tests.
 Two MLP backends (``RayCastConfig.mlp_backend``):
   * 'fused': the hand-written fused encode+MLP kernels
     (ops/fused_encmlp.py) when the model has one subject and
-    ``supported_config`` holds, K1/K2 forward and K3/K4 backward.
-    Otherwise (multi-subject models, trainable cutoffs, other encoders)
+    ``kernel_shape_ok`` holds, K1/K2 forward and K3/K4 backward.
+    Otherwise (multi-subject models, trainable cutoffs, other encoders,
+    shapes the fused kernels are not compiled for, such as
+    surreal_single's view encoding without PE bands)
     the encodings are computed with plain ops and handed as separate
     parts to the split-operand MLP kernels (ops/fused_mlp.py), K5
     forward and K6 backward.  The wrappers take the plain twins for CPU
@@ -220,7 +222,9 @@ def render_rays(rc: RayCastConfig,
     fused_net = fused_dual = None
     if rc.mlp_backend == 'fused' and rc.n_subjects == 1:
         from ..ops import fused_encmlp as FE
-        if FE.supported_config(rc):
+        # a shape the fused kernels are not compiled for takes the split
+        # route, as anerf_tpu falls back when its kernel returns None
+        if FE.kernel_shape_ok(rc):
             skts = pose['skts']
             rays_t = encoders.transform_batch_rays(rays_d[:, None], skts)
             rays_t_norm = encoders.vec_norm(rays_t)[:, 0]

@@ -3,7 +3,7 @@
 Port of ``anerf_tpu/ops/encoders.py`` (reference core/encoders.py) for
 the encoder types the flagship recipe uses: 'reldist' joint distances,
 'reldir' bone directions and 'relray' view directions.  The other
-encoder types wait for the multi-subject slice (ROADMAP.md).
+encoder types are not ported yet (ROADMAP.md A.6).
 """
 from __future__ import annotations
 

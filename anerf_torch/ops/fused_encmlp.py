@@ -326,7 +326,9 @@ def launch_counts() -> Dict[str, int]:
             **fused_mlp.launch_counts()}
 
 
-def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
+def _shape_mismatch(st: MLPStatic, est: EncStatic) -> Optional[Dict]:
+    """None when the kernels are compiled for this static shape, else
+    the shape that was asked for."""
     k = _KERNEL_SHAPE
     got = dict(J=est.J, F=len(est.kp_freqs), view_nb=est.view_nb,
                depth=st.depth, width=st.width, half=st.half,
@@ -335,9 +337,29 @@ def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
     if (got != k or not _doubling_freqs(est.kp_freqs)
             or est.bone_windowed or st.dparts != (k['J'] * (2 * k['F'] + 1),
                                                   3 * k['J'])):
+        return got
+    return None
+
+
+def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
+    got = _shape_mismatch(st, est)
+    if got is not None:
         raise NotImplementedError(
-            f'the fused CUDA kernels are built for {k}, got {got}; other '
-            'shapes are not ported yet (ROADMAP.md)')
+            f'the fused CUDA kernels are built for {_KERNEL_SHAPE}, got '
+            f'{got}; other shapes are not ported yet (ROADMAP.md)')
+
+
+def kernel_shape_ok(rc) -> bool:
+    """Whether the fused encode kernels take this raycast config:
+    ``supported_config`` holds and its static shape is the one the
+    kernels are compiled for (the check ``_check_kernel_shape`` makes
+    at a launch).  Depends on ``rc`` alone, so the CPU takes the route
+    the card takes; a config with framecodes is judged with them."""
+    if not supported_config(rc):
+        return False
+    st, est = _statics(rc, rc.n_joints, 1, DEFAULT_TILE,
+                       rc.nerf.use_framecode)
+    return _shape_mismatch(st, est) is None
 
 
 def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est):
@@ -696,6 +718,26 @@ def view_pe_rows(rays_t_norm: torch.Tensor, freq_bands: Sequence[float],
 DEFAULT_TILE = 512
 
 
+def _statics(rc, J: int, S: int, tile: int, has_codes: bool
+             ) -> Tuple[MLPStatic, EncStatic]:
+    """The static shapes of a call at S samples a ray and a point tile
+    of ``tile``."""
+    nerf = rc.nerf
+    st = MLPStatic(
+        depth=nerf.depth, width=nerf.width,
+        dparts=((1 + 2 * rc.kp_embed.num_freqs) * J, 3 * J),
+        vparts=(((1 + 2 * rc.view_embed.num_freqs) * 3 * J,)
+                + ((nerf.framecode_ch,) if has_codes else ())),
+        half=nerf.width // 2, skips=tuple(nerf.skips), tile=tile)
+    est = EncStatic(J=J, kp_freqs=tuple(float(f) for f in
+                                        rc.kp_embed.freq_bands()),
+                    view_nb=1 + 2 * rc.view_embed.num_freqs,
+                    S=S, rpt=max(tile // S, 1), has_codes=has_codes,
+                    bone_windowed=rc.bone_embed.cutoff,
+                    viewfac=getattr(rc, 'viewfac', False))
+    return st, est
+
+
 def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
                 tile, enc_ray=None):
     """Statics + kernel operands from component-major ``pts_t``
@@ -713,22 +755,8 @@ def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
     while tile > 128 and (n < tile or tile % S != 0 or
                           R % (tile // S) != 0):
         tile //= 2
-    rpt = max(tile // S, 1)
-
-    nerf = rc.nerf
-    has_codes = nerf.use_framecode and cam_idxs is not None
-    st = MLPStatic(
-        depth=nerf.depth, width=nerf.width,
-        dparts=((1 + 2 * rc.kp_embed.num_freqs) * J, 3 * J),
-        vparts=(((1 + 2 * rc.view_embed.num_freqs) * 3 * J,)
-                + ((nerf.framecode_ch,) if has_codes else ())),
-        half=nerf.width // 2, skips=tuple(nerf.skips), tile=tile)
-    est = EncStatic(J=J, kp_freqs=tuple(float(f) for f in
-                                        rc.kp_embed.freq_bands()),
-                    view_nb=1 + 2 * rc.view_embed.num_freqs,
-                    S=S, rpt=rpt, has_codes=has_codes,
-                    bone_windowed=rc.bone_embed.cutoff,
-                    viewfac=getattr(rc, 'viewfac', False))
+    st, est = _statics(rc, J, S, tile,
+                       rc.nerf.use_framecode and cam_idxs is not None)
     if est.viewfac:
         # the factorized forward costs rptJ*nblkJ + T*rptJ MACs per
         # half-column against T*nblkJ dense: it wins only when

@@ -14,8 +14,9 @@ cotangents and the weight gradients from the bf16 ones.
 
 Two hand-written CUDA kernels replace the two Pallas kernels of
 ``pallas_mlp._fused_mlp`` (taken for configs outside
-``fused_encmlp.supported_config``: multi-subject models, trainable
-cutoffs, other encoders):
+``fused_encmlp.kernel_shape_ok``: multi-subject models, trainable
+cutoffs, other encoders, shapes the fused encode kernels are not
+compiled for such as surreal_single's):
 
   * K5 ``mlp_fwd`` <- ``_fused_mlp_fwd`` / ``_fwd_kernel``
     (``csrc/mlp_fwd.cu``);

@@ -27,7 +27,7 @@ Multiple subjects (``ConcatH5Dataset``'s layout): a rest pose per
 subject, ``rest_pose_idxs`` naming each frame's subject for FK, and the
 batch's ``subject_idxs`` feeding the model's subject channel.
 
-Not ported yet (ROADMAP.md A.5/A.6): the FlipFlop scheduler and joint
+Not ported yet (ROADMAP.md A.2, A.3): the FlipFlop scheduler and joint
 mode (``opt_pose_flipflop``, ``opt_pose_joint``, ``testopt``) and
 ``make_multi_train_step``.
 """
@@ -113,7 +113,7 @@ def _check_supported(cfg: Config) -> None:
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f'{flag} needs the FlipFlop scheduler (training/flipflop.py),'
-                ' not ported yet: ROADMAP.md A.5')
+                ' not ported yet: ROADMAP.md A.2')
 
 
 @dataclasses.dataclass

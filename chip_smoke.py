@@ -8,8 +8,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
 
 1. kernel phase: K1 (one net, R=4096 rays x S=16) and K2 (two nets,
    R=4096 x S=64) at the SURREAL recipe's full width on realistic
-   inputs, each held against its plain PyTorch twin on the card, with
-   median kernel time, the twin's time and the card's bound;
+   inputs, then at the train step's shapes (R=2048), each held against
+   its plain PyTorch twin on the card, two calls on the same inputs
+   bit-identical, with median kernel time, the twin's time, the card's
+   bound and achieved TFLOP/s;
 2. backward kernel phase: K4 (two nets, R=2048 x S=64) and K3 (one
    net, R=2048 x S=16), the train step's shapes, held against their
    plain twins on the same inputs and the same incoming cotangent (that
@@ -37,7 +39,7 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    4104 points with and without framecodes, then K5 at the eval coarse
    chunk (n=262,144) and the train shapes (n=131,072 and 32,768) and K6
    at the train shapes, with kernel time, twin time, bound and TFLOP/s,
-   and for K6 its passes and the two-call determinism check as in 2;
+   the two-call determinism check of both, and K6's passes as in 2;
 6. multi-subject path phase: one bullet-time frame of the two-subject
    model at 512x512 (chunk 4096); K5 must launch 3 times a chunk and
    K1-K4 never, and one chunk must match the plain path;
@@ -47,12 +49,18 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    the losses must be finite, one step's NeRF gradients must agree with
    the plain backend's, and the same rays as subject 0 and subject 1
    must give other colors and the same densities; train rays/s, ms/step,
-   peak memory and a profile of one step.
+   peak memory and a profile of one step;
+8. single-net phase: ``configs/surreal_single.txt`` (one net, 96 + 48
+   samples, no view PE bands: a shape the fused encode kernels are not
+   compiled for, so the fused backend routes it to K5/K6): one chunk
+   rendered (K5 twice, K1-K4 never, maps within the plain path's bar)
+   and 2 train steps (K5 and K6 twice a step, finite losses).
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of its main path's run:
 the flagship train step for K1-K4, the multi-subject one for K5/K6;
-the backward kernels' rows add ``passes_ms``),
+K1's and K2's rows add ``train_shape``, the backward kernels'
+``passes_ms``),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -89,6 +97,7 @@ GRAD_COS_MIN = 0.98
 GRAD_RATIO_TOL = 0.1
 TRAIN_STEPS = 25
 MS_STEPS = 12           # multi-subject train steps
+SINGLE_STEPS = 2        # surreal_single train steps
 
 # published dense peaks (NVIDIA data sheets) by card:
 # (bf16 tensor FLOP/s, f32 FLOP/s, HBM bytes/s)
@@ -208,19 +217,39 @@ def kernel_phase(FE, T, rc, cfg, params, peaks, device, R=4096):
         print(f'{name} n={Rr * S} codes={codes}:')
         _check_close(name, plain(), run())
     rows = []
-    for name, S, nnet in (('encmlp_fwd', 16, 1), ('encmlp_dual_fwd', 64, 2)):
+    # the eval chunk's shapes (the kernels line), then the train step's
+    for name, S, nnet, Rr in (('encmlp_fwd', 16, 1, R),
+                              ('encmlp_dual_fwd', 64, 2, R),
+                              ('encmlp_fwd', 16, 1, R // 2),
+                              ('encmlp_dual_fwd', 64, 2, R // 2)):
         st, est, p, enc, codes, cutoff, tau, flats = kernel_inputs(
-            FE, T, rc, cfg, params, S, R, device)
+            FE, T, rc, cfg, params, S, Rr, device)
         run, plain = _calls(FE, st, est, p, enc, codes, cutoff, tau, flats,
                             nnet)
         got = run()
         torch.cuda.synchronize()
+        print(f'{name} R={Rr} S={S}:')
         max_abs = _check_close(name, plain(), got)
-        rows.append(_timed_row(
+        _check_deterministic(name, _named(got), _named(run()))
+        del got
+        row = _timed_row(
             name, 'encmlp_fwd.cu', 345 if nnet == 1 else 709,
             FE.kernel_cost(st, est, p.shape[0], nnet), _time_ms(run, 10),
-            _time_ms(plain, 2), max_abs, peaks, f'R={R} S={S}'))
+            _time_ms(plain, 2), max_abs, peaks, f'R={Rr} S={S}')
+        if Rr == R:
+            rows.append(row)
+        else:     # the train shape, beside the eval row
+            eval_row = next(r for r in rows if r['name'] == name)
+            eval_row['train_shape'] = {k: row[k] for k in (
+                'ms', 'plain_ms', 'bound_ms', 'max_abs_err')}
+            eval_row['train_shape']['points'] = Rr * S
     return rows
+
+
+def _named(outs):
+    """A forward kernel's outputs as the named list
+    ``_check_deterministic`` takes."""
+    return [(f'out{i}', t) for i, t in enumerate(outs)]
 
 
 def _timed_row(name, source, tpu_line, cost, ms, plain_ms, max_abs, peaks,
@@ -254,9 +283,8 @@ def _cmp(ref, got):
 
 
 def _check_deterministic(name, first, second):
-    """Two calls of a backward kernel on the same inputs must give
-    bit-identical outputs (no atomics: every sum runs in a fixed
-    order)."""
+    """Two calls of a kernel on the same inputs must give bit-identical
+    outputs (no atomics: every sum runs in a fixed order)."""
     import torch
     for (k, a), (_, b) in zip(first, second):
         if not torch.equal(a, b):
@@ -538,6 +566,8 @@ def split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device):
         torch.cuda.synchronize()
         print(f'mlp_fwd R={R} S={S}:')
         max_abs = _check_close('mlp_fwd', plain(), got)
+        _check_deterministic('mlp_fwd', _named(got), _named(run()))
+        del got
         timed['mlp_fwd', n] = _timed_row(
             'mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
             _time_ms(run, 10), _time_ms(plain, 2), max_abs, peaks, f'n={n}',
@@ -873,6 +903,85 @@ def ms_train_phase(FE, T, device, gpu_line):
     return counts
 
 
+def single_net_phase(FE, T, device, gpu_line):
+    """``configs/surreal_single.txt`` on the card: its settings over
+    ``build_flagship``'s recipe (which adds framecodes and pose
+    refinement), ``mlp_backend`` as shipped.  Its view encoding has no PE
+    bands, a shape the fused encode kernels are not compiled for, so the
+    fused backend must take the plain encode and K5/K6: one chunk of the
+    train batch's rays rendered at the eval variant (K5 twice: the one
+    net on the coarse and on the importance samples, K1-K4 never; maps
+    finite and within ``MAP_TOL`` of the plain path), then
+    ``SINGLE_STEPS`` train steps (K5 and K6 twice a step, finite losses).
+    Returns the launch counts of the train steps."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.utils.config import parse_config_txt
+    over = parse_config_txt(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), 'configs',
+        'surreal_single.txt'))
+    # weights from seed 1, whose random density is positive inside the
+    # subject's cylinder (seed 0's renders empty maps)
+    setup, state, batch, step = T.build_flagship(
+        over.pop('N_rand'), device=device, compute_dtype='bfloat16',
+        seed=1, **over)
+    rc = setup.rc
+    if (rc.mlp_backend != 'fused' or not rc.single_net
+            or rc.view_embed.num_freqs != 0 or FE.kernel_shape_ok(rc)):
+        raise AssertionError('the surreal_single recipe changed')
+    pose = {k: batch[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+    res = {}
+    for backend in ('fused', 'plain'):
+        FE.reset_launch_counts()
+        with torch.inference_mode():
+            res[backend] = raycaster.render_rays(
+                dataclasses.replace(rc.eval_variant(), mlp_backend=backend),
+                state['params'], batch['rays_o'], batch['rays_d'],
+                setup.near, setup.far, pose,
+                embed_state(setup.cfg, rc, 10000),
+                cam_idxs=batch['cam_idxs'])
+        torch.cuda.synchronize()
+        if backend == 'fused':
+            counts = FE.launch_counts()
+    print(f'surreal_single render: {batch["rays_o"].shape[0]} rays, '
+          f'launches {counts}')
+    expect = {k: 0 for k in counts}
+    expect['mlp_fwd'] = 2
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
+        ref, got = res['plain'][k], res['fused'][k]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f'surreal_single: non-finite {k}')
+        scale = ref.abs().max().item() + 1e-6
+        err = (ref - got).abs().max().item()
+        print(f'  surreal_single {k}: max|d| {err:.3e} scale {scale:.3e}')
+        if err > MAP_TOL * scale:
+            raise AssertionError(f'surreal_single: fused path disagrees on {k}')
+    if res['fused']['acc_map'].max() < 0.5:
+        raise AssertionError('surreal_single: empty maps, the check above '
+                             'would be vacuous')
+    gen = torch.Generator(device=device).manual_seed(0)
+    FE.reset_launch_counts()
+    losses = []
+    for _ in range(SINGLE_STEPS):
+        state, stats = step(state, batch, gen)
+        losses.append(stats['total_loss'])
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    losses = torch.stack(losses).cpu()
+    print(f'surreal_single train: {SINGLE_STEPS} steps, launches {counts}, '
+          f'total_loss {losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update(mlp_fwd=2 * SINGLE_STEPS, mlp_bwd=2 * SINGLE_STEPS)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    return counts
+
+
 def _leaf_names(tree, prefix=''):
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
@@ -964,7 +1073,8 @@ def main() -> int:
              'ms_render': path_phase(FE, T, rc2, cfg, params2, device,
                                      gpu_line, {'mlp_fwd': 3}, n_bullet=1,
                                      what='multi-subject path'),
-             'ms_train': ms_train_phase(FE, T, device, gpu_line)}
+             'ms_train': ms_train_phase(FE, T, device, gpu_line),
+             'single_train': single_net_phase(FE, T, device, gpu_line)}
     # each kernel's main path: the flagship train step for K1-K4, the
     # multi-subject train step for K5/K6
     main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train'}

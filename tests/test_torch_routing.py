@@ -1,0 +1,163 @@
+"""Which MLP kernels ``render_rays`` routes each shipped config to, on
+the CPU, where the route is the one the card takes.
+
+The fused encode kernels K1-K4 are compiled for one static shape
+(``fused_encmlp._KERNEL_SHAPE``).  ``fused_encmlp.kernel_shape_ok``
+decides from the raycast config alone whether they take it; a
+one-subject config on the fused backend that they do not take runs the
+plain encode and the split-operand kernels K5/K6
+(``fused_mlp.nerf_mlp_fused``), as anerf_tpu falls back when its fused
+kernel returns None (anerf_tpu/models/raycaster.py:344-352).  Every
+shipped config builds with the port's encoders; the route is observed
+by counting calls of the kernels' wrappers.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from anerf_tpu.models import raycaster as jrc
+from anerf_tpu.models.factory import build_raycast_config as j_build
+from anerf_tpu.models.factory import embed_state as j_embed_state
+from anerf_tpu.models.factory import init_raycaster_params as j_init
+from anerf_tpu.utils.config import load_config as j_load_config
+
+from anerf_torch import testing_utils as T
+from anerf_torch.interop import params_from_numpy
+from anerf_torch.models import raycaster as trc
+from anerf_torch.models.factory import build_raycast_config as t_build
+from anerf_torch.models.factory import embed_state as t_embed_state
+from anerf_torch.models.factory import init_raycaster_params as t_init
+from anerf_torch.ops import fused_encmlp as FE
+from anerf_torch.ops import fused_mlp as FM
+from anerf_torch.utils.config import load_config
+
+from test_torch_render import MAPS, _close
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'configs')
+POSE_KEYS = ('kps', 'skts', 'bones', 'cyls')
+N_FRAMES = 4
+
+# the route of each shipped config: 'fused' (K1/K2 and their backwards),
+# 'split' (the plain encode and K5/K6: surreal_single's view encoding has
+# no PE bands, view_nb = 1, and the fused kernels are compiled for 9
+# rows) or 'plain' (synthetic_tiny's 2 x 32 net maps to the plain
+# backend, and the split kernels are compiled for 8 x 256)
+ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
+          'mixamo.txt': 'fused', 'mixamo_finetune.txt': 'fused',
+          'perfcap.txt': 'fused', 'perfcap_finetune.txt': 'fused',
+          'surreal.txt': 'fused', 'surreal_single.txt': 'split',
+          'synthetic_tiny.txt': 'plain'}
+
+
+def test_every_shipped_config_is_listed():
+    assert sorted(f for f in os.listdir(CONFIGS) if f.endswith('.txt')) \
+        == sorted(ROUTES)
+
+
+def _split_static(rc):
+    """The split kernels' static shape for ``rc``'s parts, as
+    ``_run_network`` hands them over."""
+    views = (rc.view_embed.out_dim,) + (
+        (rc.nerf.framecode_ch,) if rc.nerf.use_framecode else ())
+    return FM.MLPStatic(depth=rc.nerf.depth, width=rc.nerf.width,
+                        dparts=(rc.kp_embed.out_dim, rc.bone_embed.out_dim),
+                        vparts=views, half=rc.nerf.width // 2,
+                        skips=tuple(rc.nerf.skips))
+
+
+def _spy(monkeypatch, module, name, calls):
+    inner = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return inner(*args, **kwargs)
+    monkeypatch.setattr(module, name, counted)
+
+
+@pytest.mark.parametrize('name', sorted(ROUTES))
+def test_render_route(name, monkeypatch):
+    """``kernel_shape_ok`` holds for exactly the configs routed to the
+    fused kernels, and ``render_rays`` takes that route: the fused
+    wrappers for those, the split wrapper (three calls, or two with a
+    single net) and never a fused one for the rest on the fused
+    backend."""
+    cfg = load_config(os.path.join(CONFIGS, name))
+    rc = t_build(cfg, n_framecodes=N_FRAMES)
+    route = ROUTES[name]
+    assert FE.kernel_shape_ok(rc) == (route == 'fused')
+    if route == 'plain':
+        assert rc.mlp_backend == 'plain'
+        with pytest.raises(NotImplementedError):
+            FM._check_kernel_shape(_split_static(rc))
+        return
+    assert rc.mlp_backend == 'fused' and rc.n_subjects == 1
+    if route == 'split':
+        assert FE.supported_config(rc)
+        FM._check_kernel_shape(_split_static(rc))   # K5/K6 take it
+    calls = {}
+    for module, fn in ((FE, 'encmlp_fwd'), (FE, 'encmlp_dual_fwd'),
+                       (FM, 'nerf_mlp_fused')):
+        _spy(monkeypatch, module, fn, calls)
+    # few samples: the route does not depend on them
+    rc = dataclasses.replace(rc, N_samples=8, N_importance=4)
+    rest, bones, _, kps, skts, cyls = T.synthetic_pose(
+        N_FRAMES, ext_scale=cfg.ext_scale)
+    b = T.to_device(T.synthetic_batch(4, N_FRAMES, kps, skts, bones, cyls),
+                    'cpu')
+    params = t_init(torch.Generator().manual_seed(0), rc, cfg)
+    with torch.inference_mode():
+        out = trc.render_rays(rc, params, b['rays_o'], b['rays_d'], 0.0,
+                              1.0, {k: b[k] for k in POSE_KEYS},
+                              t_embed_state(cfg, rc, 0),
+                              cam_idxs=b['cam_idxs'])
+    assert all(torch.isfinite(out[k]).all() for k in MAPS if k in out)
+    if route == 'fused':
+        assert calls == {'encmlp_dual_fwd': 1, 'encmlp_fwd': 1}
+    else:
+        assert calls == {'nerf_mlp_fused': 2 if rc.single_net else 3}
+
+
+def test_surreal_single_fused_matches_jax():
+    """surreal_single's recipe (one net, 96 + 48 samples, no view PE
+    bands) through the port's fused backend, which takes the plain
+    encode and the K5 twin, against anerf_tpu's XLA path on the same
+    parameters and pinned samples, at the render tests' bar (1e-3 x the
+    reference map's max)."""
+    path = os.path.join(CONFIGS, 'surreal_single.txt')
+    R = 8
+    j_cfg, t_cfg = j_load_config(path), load_config(path)
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(N_FRAMES)
+    b = T.synthetic_batch(R, N_FRAMES, kps, skts, bones, cyls)
+    j_rc = dataclasses.replace(j_build(j_cfg, n_framecodes=N_FRAMES),
+                               mlp_backend='xla')
+    t_rc = t_build(t_cfg, n_framecodes=N_FRAMES)
+    assert t_rc.mlp_backend == 'fused' and not FE.kernel_shape_ok(t_rc)
+    j_params = j_init(jax.random.PRNGKey(0), j_rc, j_cfg)
+    t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                        j_params))
+    rng = np.random.RandomState(7)
+    S, I = j_rc.N_samples, j_rc.N_importance
+    fixed = {'coarse_u': rng.uniform(size=(R, S)).astype(np.float32),
+             'fine_u': rng.uniform(size=(R, I)).astype(np.float32),
+             'coarse_noise': rng.normal(size=(R, S)).astype(np.float32),
+             'fine_noise': rng.normal(size=(R, S + I)).astype(np.float32)}
+    ref = jrc.render_rays(
+        j_rc, j_params, jnp.asarray(b['rays_o']), jnp.asarray(b['rays_d']),
+        0.0, 1.0, {k: jnp.asarray(b[k]) for k in POSE_KEYS},
+        j_embed_state(j_cfg, j_rc, 500), cam_idxs=jnp.asarray(b['cam_idxs']),
+        fixed={k: jnp.asarray(v) for k, v in fixed.items()})
+    tb = T.to_device(b, 'cpu')
+    with torch.inference_mode():
+        got = trc.render_rays(
+            t_rc, t_params, tb['rays_o'], tb['rays_d'], 0.0, 1.0,
+            {k: tb[k] for k in POSE_KEYS}, t_embed_state(t_cfg, t_rc, 500),
+            cam_idxs=tb['cam_idxs'],
+            fixed={k: torch.as_tensor(v) for k, v in fixed.items()})
+    for k in MAPS:
+        _close(ref[k], got[k])
