@@ -152,3 +152,20 @@ def cylinder_to_box_2d(cylinder_params: np.ndarray, hwf,
     if squeeze:
         tl, br, pts_2d = tl[0], br[0], pts_2d[0]
     return tl, br, pts_2d
+
+
+def world_to_cam_np(pts: np.ndarray, extrinsic: np.ndarray, H: int, W: int,
+                    focal, center=None) -> np.ndarray:
+    """Project world points to pixels (for skeleton overlays / eval)."""
+    if center is None:
+        ox, oy = W * 0.5, H * 0.5
+    else:
+        ox, oy = center
+    pts_h = np.concatenate([pts, np.ones_like(pts[..., :1])], axis=-1)
+    cam = pts_h @ extrinsic.T
+    intr = focal_to_intrinsic_np(focal)
+    proj = cam @ intr.T
+    pix = proj[..., :2] / proj[..., 2:3]
+    pix[..., 0] += ox
+    pix[..., 1] += oy
+    return pix

@@ -194,3 +194,46 @@ def rotate_z(psi: float) -> np.ndarray:
     c, s = np.cos(psi), np.sin(psi)
     return np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
                     dtype=np.float32)
+
+
+def translate(tx: float, ty: float, tz: float) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = (tx, ty, tz)
+    return m
+
+
+def arccos_safe(a: np.ndarray) -> np.ndarray:
+    return np.arccos(np.clip(a, -1. + 1e-8, 1. - 1e-8))
+
+
+def create_local_coord(vec: np.ndarray) -> np.ndarray:
+    """Coordinate frame with z-axis aligned to ``vec``.
+
+    Offline helper (numpy) matching reference skeleton_utils.py:493-523.
+    """
+    axes = np.eye(3, dtype=np.float32)
+    if np.isclose(np.linalg.norm(vec), 0.):
+        return axes
+    vec_xz = vec[[0, 2]] / np.linalg.norm(vec[[0, 2]])
+    theta = arccos_safe(vec_xz[-1]) * np.sign(vec_xz[0])
+    rot_y = rotate_y(theta)
+    rotated_y = rot_y[:3, :3] @ vec
+    vec_yz = rotated_y[1:3] / np.linalg.norm(rotated_y[1:3])
+    psi = arccos_safe(vec_yz[-1]) * np.sign(vec_yz[0])
+    rot_x = rotate_x(psi)
+    rot = np.linalg.inv(rot_x @ rot_y)
+    return axes @ rot[:3, :3].T
+
+
+def get_per_joint_coords(rest_pose: np.ndarray,
+                         skel: Skeleton = SMPLSkeleton) -> np.ndarray:
+    """Per-joint local coordinate systems, parent-centered.
+
+    Offline helper (numpy) matching reference skeleton_utils.py:525-539.
+    """
+    coords = []
+    for i, j in enumerate(skel.joint_trees):
+        vec = rest_pose[j] - rest_pose[i]
+        vec = vec / (np.linalg.norm(vec) + 1e-5)
+        coords.append(create_local_coord(vec))
+    return np.array(coords)

@@ -6,9 +6,9 @@ core/trainer.py:382-441).  The bank is a plain dict {'pelvis': (N, 3),
 'bones': (N, J, 3|6)} (plus 'root_bones' under a multiview ``kp_map``);
 a batch gathers its rows per ray and FK runs differentiably in the step.
 
-Not ported yet (ROADMAP.md A.2 and A.6): ``kp_reg_loss_legacy`` and
-``pose_params_to_pose_data``, which the FlipFlop scheduler and the
-checkpoint export use.
+Not ported yet: ``kp_reg_loss_legacy`` (off the trainer's path;
+ROADMAP.md A.6) and ``pose_params_to_pose_data`` (the render script's;
+A.5).
 """
 from __future__ import annotations
 

@@ -23,13 +23,28 @@ Adam is optax's ``scale_by_adam(0.9, 0.999, 1e-8)`` ->
 ``scale_by_schedule`` -> ``scale(-1)`` written as tensor code, its
 schedule fed the optimizer's own count.
 
+The three pose modes of anerf_tpu (its trainer.py:322-415), each a
+Python branch on host gates (``training/flipflop.py``):
+  * the default: pose fires every ``opt_pose_step`` iterations inside
+    the warmup/stop window;
+  * joint (``opt_pose_joint``, or ``testopt`` without flipflop): the
+    NeRF every step, the pose on ``update_gates(step + 1)``'s pose gate
+    inside the window;
+  * alternating (``opt_pose_flipflop`` without joint): NeRF and pose
+    turns; a step off the NeRF turn skips the NeRF Adam update, so its
+    count does not advance.
+``testopt`` zeroes the NeRF gradients but, outside the alternating
+mode, still runs the NeRF Adam update (its count and schedule advance,
+the parameters stay).  With ``opt_pose_flipflop`` the per-frame kp-loss
+trackers accumulate every step, and with ``opt_pose_reset`` the pose
+bank's snapshot is refreshed from the pre-update bank at each pose-turn
+start.
+
 Multiple subjects (``ConcatH5Dataset``'s layout): a rest pose per
 subject, ``rest_pose_idxs`` naming each frame's subject for FK, and the
 batch's ``subject_idxs`` feeding the model's subject channel.
 
-Not ported yet (ROADMAP.md A.2, A.3): the FlipFlop scheduler and joint
-mode (``opt_pose_flipflop``, ``opt_pose_joint``, ``testopt``) and
-``make_multi_train_step``.
+Not ported yet (ROADMAP.md A.3): ``make_multi_train_step``.
 """
 from __future__ import annotations
 
@@ -45,6 +60,7 @@ from ..models.raycaster import RayCastConfig, render_rays
 from ..skeleton import Skeleton
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from . import flipflop as FF
 from . import losses as L
 from . import pose_opt as P
 
@@ -108,14 +124,6 @@ def _pose_sched(cfg: Config) -> Callable[[int], float]:
                               cfg.opt_pose_decay_unit, cfg.opt_pose_step)
 
 
-def _check_supported(cfg: Config) -> None:
-    for flag in ('opt_pose_flipflop', 'opt_pose_joint', 'testopt'):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f'{flag} needs the FlipFlop scheduler (training/flipflop.py),'
-                ' not ported yet: ROADMAP.md A.2')
-
-
 @dataclasses.dataclass
 class TrainSetup:
     """Everything static the train step needs.  ``device=None`` means
@@ -169,7 +177,6 @@ def init_train_state(setup: TrainSetup, generator: torch.Generator,
     optimizer states, the pose bank and its gradient accumulator, on
     ``setup.device``."""
     cfg = setup.cfg
-    _check_supported(cfg)
     params = params_to(init_raycaster_params(generator, setup.rc, cfg,
                                              setup.skel), setup.device)
     state: Dict[str, Any] = {'params': params,
@@ -186,6 +193,13 @@ def init_train_state(setup: TrainSetup, generator: torch.Generator,
         state['pose_params'] = pose
         state['pose_opt_state'] = adam_init(pose)
         state['pose_accum'] = tree_map(torch.zeros_like, pose)
+        if cfg.opt_pose_flipflop:
+            state['kp_tracker'] = FF.init_tracker_state(
+                np.asarray(init_kp3d).shape[0], setup.device)
+            if cfg.opt_pose_reset:
+                # refreshed at each pose-turn start (reference
+                # set_poseopt_ckpt, pose_opt.py:700-703)
+                state['pose_snapshot'] = FF.clone_tree(pose)
     return state
 
 
@@ -250,6 +264,12 @@ def compute_losses(setup: TrainSetup, out, batch, pose, extras, pose_params,
                                 cfg.opt_rot6d) * use_pose_loss
         stats['kp_loss'] = kp_loss
         total = total + kp_loss
+        if cfg.opt_pose_flipflop:
+            # per-frame signal for the FlipFlop CMA trackers
+            stats['kp_loss_per_ray'] = P.kp_reg_loss(
+                pose['bones'], extras['rots'], setup.anchors, kp_idx,
+                cfg.opt_pose_tol, cfg.opt_pose_coef, cfg.opt_rot6d,
+                per_ray=True).detach()
         if cfg.use_temp_loss:
             n_frames = pose_params['pelvis'].shape[0]
             prev_idx = torch.clamp(kp_idx - 1, min=0)
@@ -337,6 +357,55 @@ def loss_and_grads(setup: TrainSetup, state, batch, generator=None):
     return stats, grads[:len(nerf_leaves)], grads[len(nerf_leaves):]
 
 
+@dataclasses.dataclass(frozen=True)
+class StepGates:
+    """What a step updates, decided on the host from the step alone:
+    the NeRF Adam update (``nerf``), the pose Adam fire (``pose``), the
+    pose gradient's accumulation (``accum``), and the schedule they
+    came from (``ff``: None in the default mode)."""
+    nerf: bool
+    pose: bool
+    accum: bool
+    ff: Optional[FF.FlipFlopConfig] = None
+
+
+def step_gates(cfg: Config, step: int) -> StepGates:
+    """The gates of step ``step`` in the config's mode (anerf_tpu
+    trainer.py:322-360).  Our step s is reference iteration s + 1
+    (run_nerf.py:530-538 loops from 1), so the schedules read s + 1:
+    the first pose fire comes after ``opt_pose_step`` gradients have
+    accumulated (trainer.py:475-477)."""
+    use_pose = _use_pose(cfg, step)
+    if not cfg.opt_pose:
+        return StepGates(nerf=True, pose=False, accum=False)
+    if cfg.opt_pose_flipflop and not cfg.opt_pose_joint:
+        # alternating NeRF-turn / pose-turn scheduler (reference
+        # PoseOptFlipFlop, pose_opt.py:584-727)
+        ff = FF.FlipFlopConfig(
+            opt_pose_interval=cfg.opt_pose_interval,
+            opt_pose_step=cfg.opt_pose_step, opt_pose_joint=False,
+            opt_pose_warmup=cfg.opt_pose_warmup,
+            opt_pose_stop=cfg.opt_pose_stop,
+            opt_pose_reset=cfg.opt_pose_reset, testopt=cfg.testopt)
+        nerf_g, pose_g = FF.update_gates(ff, step + 1)
+        return StepGates(nerf=nerf_g, pose=pose_g and use_pose,
+                         accum=FF.peek_pose_turn(ff, step + 1) and use_pose,
+                         ff=ff)
+    if cfg.opt_pose_joint or cfg.testopt:
+        # joint mode (reference pose_opt.py:682-693): the gate's window
+        # is warmup <= s + 1 <= stop, _use_pose's warmup <= s < stop
+        ff = FF.FlipFlopConfig(
+            opt_pose_step=cfg.opt_pose_step, opt_pose_joint=True,
+            opt_pose_warmup=cfg.opt_pose_warmup,
+            opt_pose_stop=cfg.opt_pose_stop, testopt=cfg.testopt)
+        _, pose_g = FF.update_gates(ff, step + 1)
+        return StepGates(nerf=True, pose=pose_g and use_pose,
+                         accum=use_pose, ff=ff)
+    return StepGates(nerf=True,
+                     pose=use_pose and (step + 1) % cfg.opt_pose_step == 0,
+                     accum=use_pose)
+
+
 def make_train_step(setup: TrainSetup) -> Callable:
     """Build ``train_step(state, batch, generator) -> (state, stats)``.
 
@@ -346,18 +415,23 @@ def make_train_step(setup: TrainSetup) -> Callable:
     device memory; the same dict is returned.  ``batch`` holds tensors
     on ``setup.device``; ``generator`` draws the stratified jitter,
     the importance samples and the noise (None: no draws).  ``stats``
-    are device tensors (the learning rate a host float): reading one
-    waits for the step."""
+    are device tensors (the learning rate and the flipflop gates host
+    floats): reading one waits for the step."""
     cfg = setup.cfg
-    _check_supported(cfg)
     nerf_sched, pose_sched = _nerf_sched(cfg), _pose_sched(cfg)
 
     def train_step(state, batch, generator=None):
         step = state['step']
-        use_pose = _use_pose(cfg, step)
+        gates = step_gates(cfg, step)
         stats, g_nerf, g_pose = loss_and_grads(setup, state, batch,
                                                generator)
         nerf_leaves = tree_leaves(state['params'])
+        if cfg.opt_pose and cfg.testopt:
+            # test-time pose optimization: the NeRF is frozen and only
+            # the pose bank refines (reference PoseOptFlipFlop.testopt,
+            # pose_opt.py:599,620-624); zero gradients keep the moments
+            # at zero, so the network never moves
+            g_nerf = [torch.zeros_like(g) for g in g_nerf]
         if cfg.finetune and cfg.fix_layer > 0:
             # freeze the first fix_layer trunk layers (reference
             # raycasters.py:215-217): zero gradients keep their moments
@@ -371,17 +445,35 @@ def make_train_step(setup: TrainSetup) -> Callable:
 
         stats['total_norm'] = torch.sqrt(sum((g * g).sum() for g in g_nerf))
         stats['lrate'] = nerf_sched(step)
-        adam_update(nerf_leaves, g_nerf, state['opt_state'], nerf_sched)
+        if cfg.opt_pose_flipflop:
+            stats['nerf_gate'] = float(gates.nerf)
+            stats['pose_gate'] = float(gates.pose)
+        # off the NeRF turn the update is skipped, Adam's count included
+        # (anerf_tpu gates parameters and optimizer state alike)
+        if gates.nerf:
+            adam_update(nerf_leaves, g_nerf, state['opt_state'], nerf_sched)
 
         if cfg.opt_pose:
+            kp_per_ray = stats.pop('kp_loss_per_ray', None)
+            if cfg.opt_pose_flipflop and cfg.opt_pose_reset:
+                # refresh the reset snapshot at pose-turn starts from
+                # the PRE-update bank (set_poseopt_ckpt runs before the
+                # iteration's step, pose_opt.py:700-703)
+                state['pose_snapshot'] = FF.maybe_snapshot(
+                    gates.ff, step + 1, state['pose_params'],
+                    state['pose_snapshot'])
             accum = tree_leaves(state['pose_accum'])
-            if use_pose:
+            if gates.accum:
                 torch._foreach_add_(accum, g_pose)
-            # our step s is reference iteration s + 1 (run_nerf.py:530-538)
-            if use_pose and (step + 1) % cfg.opt_pose_step == 0:
+            if gates.pose:
                 adam_update(tree_leaves(state['pose_params']), accum,
                             state['pose_opt_state'], pose_sched)
                 torch._foreach_zero_(accum)
+            if cfg.opt_pose_flipflop and kp_per_ray is not None:
+                FF.accumulate_loss(state['kp_tracker'], kp_per_ray,
+                                   batch['kp_idx'])
+                stats['kp_tracker_mean'] = FF.get_trackers(
+                    state['kp_tracker']).mean()
         state['step'] = step + 1
         return state, stats
 

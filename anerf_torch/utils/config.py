@@ -3,17 +3,19 @@
 Replaces the reference's configargparse stack (run_nerf.py:184-488) with
 a typed dataclass whose field names and defaults match the reference
 flags one-to-one, plus a parser for the reference's ``key = value`` txt
-config files (configs/*/*.txt).
+config files (configs/*/*.txt) and the ``args.txt`` round-trip that the
+render scripts rely on (reference run_nerf.py:505-510,
+evaluation_helpers.py:221-255).
 
-Copy of ``anerf_tpu/utils/config.py`` without its command line and its
-``args.txt`` writer (the run scripts are not ported yet): one ``Config``
-and one txt-file format serve both packages, so a recipe or an
-``args.txt`` written for one is read by the other.
+Copy of ``anerf_tpu/utils/config.py``: one ``Config`` and one txt-file
+format serve both packages, so a recipe or an ``args.txt`` written for
+one is read by the other.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -205,6 +207,17 @@ class Config:
                     'a nerf-pytorch leftover that core/ never reads)',
                     stacklevel=2)
 
+    def to_args_txt(self) -> str:
+        """Serialize in the reference args.txt format (sorted keys,
+        ``key = value`` lines) for render-script round-trips."""
+        lines = []
+        for f in sorted(dataclasses.fields(self), key=lambda f: f.name):
+            v = getattr(self, f.name)
+            if isinstance(v, tuple):
+                v = list(v)
+            lines.append(f'{f.name} = {v}')
+        return '\n'.join(lines) + '\n'
+
 
 _FIELD_TYPES = {f.name: f for f in dataclasses.fields(Config)}
 _LIST_FIELDS = {'dataset_type', 'subject', 'val_seq'}
@@ -295,3 +308,43 @@ def load_config(config_path: Optional[str] = None, **overrides) -> Config:
         kwargs.update(parse_config_txt(config_path))
     kwargs.update(overrides)
     return Config(**kwargs)
+
+
+def config_from_cli(argv: List[str]) -> Config:
+    """Minimal CLI: ``--config path.txt --flag value --boolflag``."""
+    kwargs = {}
+    config_path = None
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if not a.startswith('--'):
+            raise ValueError(f'unexpected argument {a}')
+        name = a[2:]
+        if name == 'config':
+            config_path = argv[i + 1]
+            i += 2
+            continue
+        if name not in _FIELD_TYPES:
+            raise ValueError(f'unknown flag --{name}')
+        default = _FIELD_TYPES[name].default
+        if isinstance(default, bool):
+            # support both "--flag" and "--flag True"
+            if i + 1 < len(argv) and argv[i + 1] in ('True', 'False',
+                                                     'true', 'false'):
+                kwargs[name] = argv[i + 1] in ('True', 'true')
+                i += 2
+            else:
+                kwargs[name] = True
+                i += 1
+        else:
+            kwargs[name] = _parse_value(name, argv[i + 1])
+            i += 2
+    return load_config(config_path, **kwargs)
+
+
+def save_args_txt(cfg: Config, logdir: str) -> str:
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, 'args.txt')
+    with open(path, 'w') as f:
+        f.write(cfg.to_args_txt())
+    return path

@@ -54,13 +54,41 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    samples, no view PE bands: a shape the fused encode kernels are not
    compiled for, so the fused backend routes it to K5/K6): one chunk
    rendered (K5 twice, K1-K4 never, maps within the plain path's bar)
-   and 2 train steps (K5 and K6 twice a step, finite losses).
+   and 2 train steps (K5 and K6 twice a step, finite losses);
+9. cli_train phase: K1-K4 held against their twins and timed at the
+   shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
+   K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
+   through ``anerf_torch.run_train.train`` on a 24-frame 512x512
+   synthetic data store of a realistic body size: each of K1-K4 must
+   launch once a step and K5/K6 never, no step may wait for the stream
+   (``set_sync_debug_mode(1)`` over the steps followed by no logging,
+   checkpoint or validation), the logged losses must be finite, the pose
+   bank must hold still through step 18 and move at step 19, the
+   checkpoints, pose checkpoints, ``args.txt``, ``metrics.jsonl`` and the
+   validation render's ``psnr.txt``/``ssim.txt`` must be written, and a
+   second call must resume at step 40 with the parameters, moments and
+   pose bank bit-identical to the first call's final ones; CLI train
+   rays/s over steps 10-39, the Prefetcher's ms per batch and one
+   profiled CLI step's device busy share and host waits (the
+   DeviceFeeder's event wait among them);
+10. cli_flipflop phase: ``configs/surreal.txt`` with pose refinement in
+   the alternating mode (interval 4, pose every 2nd step, reset
+   snapshots) for 12 steps through ``run_train.train``: at every step
+   the NeRF parameters and Adam count must change exactly when the host
+   gate says the NeRF fires, the pose bank exactly when it says the pose
+   fires, the snapshot must equal the pre-update bank at each pose-turn
+   start, kp_tracker_mean must be finite, and no step may wait for the
+   stream;
+11. cli_multisubject phase: two synthetic subjects of different body
+   sizes, a store each, through ``run_train.train`` at the mixamo recipe
+   for 4 steps: K5 and K6 three times a step, K1-K4 never.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
-line (K1-K6; each kernel's launches are those of its main path's run:
-the flagship train step for K1-K4, the multi-subject one for K5/K6;
-K1's and K2's rows add ``train_shape``, the backward kernels'
-``passes_ms``),
+line (K1-K6; each kernel's launches are those of the run whose shapes
+its row times: the flagship train steps for K1-K4, the multi-subject
+train step for K5/K6; K1's and K2's rows add ``train_shape``, the
+backward kernels' ``passes_ms``, and K1-K4's ``cli_train_shape`` the
+times, bound, error and launches at the CLI mixamo step's shapes),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -98,6 +126,12 @@ GRAD_RATIO_TOL = 0.1
 TRAIN_STEPS = 25
 MS_STEPS = 12           # multi-subject train steps
 SINGLE_STEPS = 2        # surreal_single train steps
+CLI_STEPS = 40          # cli_train: anerf_torch.run_train.train steps
+FF_STEPS = 12           # cli_flipflop steps
+CLI_MS_STEPS = 4        # cli_multisubject steps
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the CLI phases' data stores and logdirs (removed at the end)
+WORK = os.path.join(ROOT, '_smoke_work')
 
 # published dense peaks (NVIDIA data sheets) by card:
 # (bf16 tensor FLOP/s, f32 FLOP/s, HBM bytes/s)
@@ -982,6 +1016,444 @@ def single_net_phase(FE, T, device, gpu_line):
     return counts
 
 
+def _cli_config(config, **over):
+    """A shipped recipe from ``configs/`` with overrides."""
+    from anerf_torch.utils.config import load_config
+    return load_config(os.path.join(ROOT, 'configs', config), **over)
+
+
+class SyncWatch:
+    """``torch.cuda.set_sync_debug_mode(1)`` over the windows between two
+    ``on_step`` calls that hold one train step and nothing else (no
+    logging read, checkpoint or validation render after the earlier
+    call): every 'synchroniz' warning raised inside such a window is a
+    host wait on the stream inside a step.  A wait on an event, such as
+    the DeviceFeeder's on a slot's copy three batches back, raises no
+    warning; the profiled step of ``cli_train`` prints its host time."""
+
+    def __init__(self, periodic):
+        import warnings
+        self.periodic = periodic          # i -> the loop works at step i
+        self.caught = warnings.catch_warnings(record=True)
+        self.log = None
+        self.armed = False
+        self.mark = 0
+        self.windows = 0
+        self.faults = []
+
+    def __enter__(self):
+        import warnings
+        self.log = self.caught.__enter__()
+        warnings.simplefilter('always')
+        return self
+
+    def __exit__(self, *exc):
+        self.pause()
+        self.caught.__exit__(*exc)
+
+    def pause(self):
+        """First thing in ``on_step``: close the window that ends here."""
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        if self.armed:
+            self.windows += 1
+            self.faults += [str(w.message) for w in self.log[self.mark:]
+                            if 'synchroniz' in str(w.message)]
+        self.armed = False
+
+    def resume(self, i, last):
+        """Last thing in ``on_step(i)``; ``last``: no step follows."""
+        import torch
+        self.armed = not last and not self.periodic(i)
+        self.mark = len(self.log)
+        if self.armed:
+            torch.cuda.set_sync_debug_mode(1)
+
+    def check(self, what):
+        print(f'{what}: set_sync_debug_mode(1) over {self.windows} steps: '
+              f'{len(self.faults)} synchronizing calls')
+        if self.faults or not self.windows:
+            raise AssertionError(f'{what}: host syncs inside a train step: '
+                                 f'{self.faults[:5]}')
+
+
+def _periodic(cfg):
+    return lambda i: (i % cfg.i_print == 0 or i % cfg.i_weights == 0
+                      or (cfg.opt_pose and i % cfg.i_pose_weights == 0)
+                      or i % cfg.i_testset == 0)
+
+
+def _device_busy(prof):
+    """(device busy ms, device kernels and copies) of a profile, or None
+    when it holds no device time."""
+    dev = _device_ms
+    events = [e for e in prof.key_averages()
+              if dev(e) > 0 and str(e.device_type).endswith('CUDA')]
+    busy = sum(dev(e) for e in events)
+    if busy == 0:
+        return None
+    return busy, sum(e.count for e in events)
+
+
+def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
+    """``configs/mixamo.txt`` (joint mode) trained through
+    ``anerf_torch.run_train.train`` on a 24-frame 512x512 synthetic store
+    of a realistic body size: K1-K4 held against their twins and timed
+    at the shapes the recipe's step gives them (R=3072; S=16 for K1/K3,
+    S=64 for K2/K4) first; then CLI_STEPS steps,
+    each launching K1-K4 once and K5/K6 never, no host sync inside a
+    step, every logged loss finite, the pose bank still through step 18
+    and moved at step 19 (the joint gate's first fire), the checkpoints,
+    logs and validation metrics written; then a resume to step 41 that
+    restores the final state bit for bit, and a second resume to step 45
+    whose step 44 is profiled.
+    Prints CLI train rays/s over steps 10-39 and the Prefetcher's ms per
+    batch.  Returns the launch counts of the train steps and, by kernel
+    name, K1-K4's times, bounds and errors at the recipe's shapes."""
+    import numpy as np
+    import torch
+    from anerf_torch.data.loaders import load_data
+    from anerf_torch.data.writer import make_synthetic_store
+    from anerf_torch.run_train import train
+    from anerf_torch.training.trainer import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    # K1-K4 at this recipe's shapes: held, then timed and bounded
+    shapes = {}
+    R = 3072
+    for name, S, nnet, bwd, line in (
+            ('encmlp_fwd', 16, 1, False, 345),
+            ('encmlp_dual_fwd', 64, 2, False, 709),
+            ('encmlp_bwd', 16, 1, True, 480),
+            ('encmlp_dual_bwd', 64, 2, True, 744)):
+        ins = kernel_inputs(FE, T, rc, cfg, params, S, R, device)
+        st, est, p = ins[:3]
+        print(f'{name} R={R} S={S} (mixamo recipe):')
+        if bwd:
+            g = _composited_cotangent(FE, ins, nnet, device)
+            run, plain = _bwd_calls(FE, *ins, g, nnet)
+            max_abs = _check_bwd(name, plain(), run())
+            ms, plain_ms = _time_ms(run, 5), _time_ms(plain, 1, windows=3)
+        else:
+            run, plain = _calls(FE, *ins, nnet)
+            max_abs = _check_close(name, plain(), run())
+            ms, plain_ms = _time_ms(run, 10), _time_ms(plain, 2)
+        row = _timed_row(
+            name, 'encmlp_bwd.cu' if bwd else 'encmlp_fwd.cu', line,
+            FE.kernel_cost(st, est, p.shape[0], nnet, backward=bwd), ms,
+            plain_ms, max_abs, peaks, f'R={R} S={S}')
+        shapes[name] = {k: row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                             'bound_by', 'max_abs_err')}
+        shapes[name]['points'] = p.shape[0]
+        del ins, run, plain
+
+    t0 = time.perf_counter()
+    store = make_synthetic_store(os.path.join(WORK, 'mixamo.npstore'),
+                                 n_frames=24, H=512, W=512, body_scale=450.0,
+                                 blob_radius=4)
+    print(f'cli_train: synthetic store 24 x 512x512 written in '
+          f'{time.perf_counter() - t0:.1f} s')
+    over = dict(dataset_type=('synthetic',), datadir=store,
+                basedir=os.path.join(WORK, 'logs'), n_iters=CLI_STEPS,
+                i_print=10, i_weights=20, i_pose_weights=20, i_testset=40,
+                num_workers=4)
+    ccfg = _cli_config('mixamo.txt', **over)
+    if not (ccfg.opt_pose_joint and ccfg.opt_pose_step == 20
+            and ccfg.loss_fn == 'L1' and ccfg.opt_rot6d):
+        raise AssertionError('the mixamo recipe changed')
+
+    # the loader alone, timed on the host: a fresh Prefetcher's first
+    # 40 batches (its workers' throughput; the clock starts before its
+    # threads do), and one thread's get_batch
+    pf, _, _ = load_data(ccfg)
+    t0 = time.perf_counter()
+    n = sum(1 for _, _ in zip(range(40), pf))
+    loader_ms = (time.perf_counter() - t0) / n * 1e3
+    pf.stop()
+    ds, rng = pf.dataset, np.random.default_rng(0)
+    idxs = np.sort(rng.integers(0, len(ds), ccfg.N_sample_images))
+    ds.get_batch(idxs, rng)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ds.get_batch(idxs, rng)
+    batch_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f'cli_train: Prefetcher ({ccfg.num_workers} workers) '
+          f'{loader_ms:.3f} ms per batch over its first {n} batches of '
+          f'{ccfg.N_rand} rays ({ccfg.N_sample_images} images); one '
+          f'thread\'s get_batch {batch_ms:.3f} ms ({gpu_line})')
+
+    rec = {'banks': [], 'losses': [], 'counts': None}
+    watch = SyncWatch(_periodic(ccfg))
+
+    def on_step(i, state, stats):
+        watch.pause()
+        if stats is None:
+            FE.reset_launch_counts()
+        else:
+            rec['losses'].append(stats['total_loss'])
+        rec['banks'].append(state['pose_params']['bones'].clone())
+        if i == 10:
+            torch.cuda.synchronize()
+            rec['t0'] = time.perf_counter()
+        if i == CLI_STEPS:
+            torch.cuda.synchronize()
+            rec['dt'] = time.perf_counter() - rec['t0']
+            rec['counts'] = FE.launch_counts()
+        watch.resume(i, last=i == CLI_STEPS)
+
+    with watch:
+        final = train(ccfg, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    watch.check('cli_train')
+    counts = rec['counts']
+    val = {k: v - counts[k] for k, v in FE.launch_counts().items()}
+    print(f'cli_train: {CLI_STEPS} steps, launches {counts}; the '
+          f'validation render (4 frames at 256x256) {val}')
+    expect = {k: 0 for k in counts}
+    expect.update({k: CLI_STEPS for k in ('encmlp_fwd', 'encmlp_dual_fwd',
+                                          'encmlp_bwd', 'encmlp_dual_bwd')})
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not (val['encmlp_fwd'] == val['encmlp_dual_fwd'] > 0
+            and sum(val.values()) == 2 * val['encmlp_fwd']):
+        raise AssertionError(f'validation render launches {val}')
+    losses = torch.stack(rec['losses']).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    banks = rec['banks']
+    moved = [not torch.equal(banks[i + 1], banks[i])
+             for i in range(CLI_STEPS)]
+    if any(moved[:19]) or not moved[19]:
+        raise AssertionError(f'pose bank moved at steps '
+                             f'{[i for i, m in enumerate(moved) if m]}, '
+                             'expected first at 19')
+    logdir = os.path.join(ccfg.basedir, ccfg.expname)
+    files = sorted(os.listdir(logdir))
+    need = ['args.txt', 'ckpt_00000020.pt', 'ckpt_00000040.pt',
+            'metrics.jsonl', 'pose_ckpt_00000020.pt',
+            'pose_ckpt_00000040.pt', 'psnr.txt', 'ssim.txt']
+    if not set(need) <= set(files):
+        raise AssertionError(f'logdir holds {files}, expected {need}')
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    logged = [r['total_loss'] for r in recs if 'total_loss' in r]
+    if len(logged) != CLI_STEPS // ccfg.i_print or \
+            not np.isfinite(logged).all():
+        raise AssertionError(f'logged losses {logged}')
+    val_m = {}
+    for name in ('psnr', 'ssim'):
+        lines = open(os.path.join(logdir, f'{name}.txt')).read().split()
+        if len(lines) != 1 or not np.isfinite(float(lines[0])):
+            raise AssertionError(f'{name}.txt holds {lines}')
+        val_m[name] = float(lines[0])
+    print(f'cli_train: total_loss {losses[0]:.5f} -> {losses[-1]:.5f}; '
+          f'logged {logged}; validation psnr {val_m["psnr"]:.3f} ssim '
+          f'{val_m["ssim"]:.4f}; files {files}')
+    n_timed = CLI_STEPS - 10
+    print(f'cli_train: {ccfg.N_rand * n_timed / rec["dt"]:.1f} CLI train '
+          f'rays/s, {rec["dt"] / n_timed * 1e3:.2f} ms/step over steps '
+          f'10-{CLI_STEPS - 1} (the loop as run: Prefetcher, DeviceFeeder, '
+          f'step, logs at 20 and 30, checkpoints at 20), loader '
+          f'{loader_ms:.3f} ms per batch ({gpu_line})')
+
+    # resume: one more step from the final checkpoint
+    res = {}
+
+    def on_resume(i, state, stats):
+        if stats is None:
+            res['start'] = i
+            res['state'] = {k: [t.clone() for t in tree_leaves(state[k])]
+                            for k in ('params', 'pose_params')}
+            for m in ('mu', 'nu'):
+                res['state'][m] = [t.clone() for t in tree_leaves(
+                    state['opt_state'][m])]
+            res['count'] = state['opt_state']['count']
+
+    train(_cli_config('mixamo.txt', **dict(over, n_iters=CLI_STEPS + 1)),
+          device=device, on_step=on_resume)
+    want = {'params': tree_leaves(final['params']),
+            'pose_params': tree_leaves(final['pose_params']),
+            'mu': tree_leaves(final['opt_state']['mu']),
+            'nu': tree_leaves(final['opt_state']['nu'])}
+    same = all(len(want[k]) == len(res['state'][k]) and all(
+        torch.equal(a, b) for a, b in zip(want[k], res['state'][k]))
+        for k in want)
+    print(f'cli_train: resumed at step {res["start"]}, NeRF Adam count '
+          f'{res["count"]}, parameters, moments and pose bank equal to the '
+          f'first run\'s final ones: {same}')
+    if res['start'] != CLI_STEPS or res['count'] != CLI_STEPS or not same:
+        raise AssertionError('the resume did not restore the final state')
+
+    # one CLI step profiled inside the loop: a third call resumes at
+    # step 41 and runs 4 steps; the window from on_step(44) to
+    # on_step(45) holds the Prefetcher's hand-over, the DeviceFeeder
+    # (its fourth batch, so it waits on the event of its first) and
+    # step 44, with no logging, checkpoint or validation
+    prof = {}
+    at = CLI_STEPS + 4
+
+    def on_profiled(i, state, stats):
+        if i == at:
+            torch.cuda.synchronize()
+            prof['p'] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof['p'].start()
+            prof['t0'] = time.perf_counter()
+        elif i == at + 1:
+            torch.cuda.synchronize()
+            prof['wall_ms'] = 1e3 * (time.perf_counter() - prof['t0'])
+            prof['p'].stop()
+
+    train(_cli_config('mixamo.txt', **dict(over, n_iters=at + 1)),
+          device=device, on_step=on_profiled)
+    busy = _device_busy(prof['p'])
+    if busy is None:
+        print('cli_train: one CLI step profiled: device time not measured')
+    else:
+        print(f'cli_train: one CLI step (step {at}: hand-over, '
+              f'feeder and step) profiled: {prof["wall_ms"]:.1f} ms wall, '
+              f'device busy {busy[0]:.1f} ms = '
+              f'{busy[0] / prof["wall_ms"]:.1%}, {busy[1]} device kernels '
+              f'and copies ({gpu_line})')
+    # the host's waits in that window: the DeviceFeeder's event wait
+    # (which set_sync_debug_mode does not report) and the two
+    # synchronizes around the profiled window
+    for e in prof['p'].key_averages():
+        if 'Synchronize' in e.key or e.key.startswith('cudaMemcpy'):
+            print(f'  host {e.key}: {e.count}x, '
+                  f'{e.cpu_time_total / 1e3:.3f} ms')
+    return counts, shapes
+
+
+def cli_flipflop_phase(FE, device, gpu_line):
+    """The alternating mode at the flagship's width: ``configs/surreal.txt``
+    with pose refinement, ``opt_pose_flipflop``, ``opt_pose_interval=4``,
+    ``opt_pose_step=2``, ``opt_pose_reset`` and ``opt_pose_warmup=0`` on a
+    synthetic store, FF_STEPS steps through ``run_train.train``.  At every
+    step: the NeRF parameters and the NeRF Adam count change exactly when
+    the host gate says the NeRF fires, the pose bank exactly when it
+    says the pose fires, the snapshot equals the pre-update bank at each
+    pose-turn start and is left alone otherwise, kp_tracker_mean is
+    finite, and no host sync.  Returns the launch counts."""
+    import torch
+    from anerf_torch.data.writer import make_synthetic_store
+    from anerf_torch.run_train import train
+    from anerf_torch.training import flipflop as FF
+    from anerf_torch.training.trainer import step_gates, tree_leaves
+    store = make_synthetic_store(os.path.join(WORK, 'surreal.npstore'),
+                                 n_frames=16, H=256, W=256, body_scale=450.0,
+                                 blob_radius=2, seed=1)
+    fcfg = _cli_config('surreal.txt', dataset_type=('synthetic',),
+                       datadir=store, basedir=os.path.join(WORK, 'logs'),
+                       n_iters=FF_STEPS, num_workers=4, opt_pose=True,
+                       opt_pose_flipflop=True, opt_pose_interval=4,
+                       opt_pose_step=2, opt_pose_reset=True,
+                       opt_pose_warmup=0)
+    prev, log = {}, []
+    watch = SyncWatch(_periodic(fcfg))
+
+    def snap(state):
+        return {'nerf': [t.clone() for t in tree_leaves(state['params'])],
+                'count': state['opt_state']['count'],
+                'bank': {k: v.clone() for k, v in
+                         state['pose_params'].items()},
+                'snap': {k: v.clone() for k, v in
+                         state['pose_snapshot'].items()}}
+
+    def on_step(i, state, stats):
+        watch.pause()
+        if stats is None:
+            FE.reset_launch_counts()
+        else:
+            s = i - 1
+            g = step_gates(fcfg, s)
+            now = snap(state)
+            nerf_moved = any(not torch.equal(a, b) for a, b in
+                             zip(prev['nerf'], now['nerf']))
+            bank_moved = any(not torch.equal(prev['bank'][k], now['bank'][k])
+                             for k in now['bank'])
+            turn_start = FF.snapshot_gate(g.ff, s + 1)
+            want_snap = prev['bank'] if turn_start else prev['snap']
+            snap_ok = all(torch.equal(now['snap'][k], want_snap[k])
+                          for k in want_snap)
+            log.append((s, g.nerf, g.pose, turn_start, nerf_moved,
+                        now['count'] - prev['count'], bank_moved, snap_ok,
+                        stats['kp_tracker_mean']))
+        prev.update(snap(state))
+        watch.resume(i, last=i == FF_STEPS)
+
+    with watch:
+        train(fcfg, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    watch.check('cli_flipflop')
+    counts = FE.launch_counts()
+    bad = []
+    for s, nerf, pose, turn, nm, dc, bm, sok, km in log:
+        km = float(km)
+        print(f'  cli_flipflop step {s}: gates nerf {int(nerf)} pose '
+              f'{int(pose)} turn start {int(turn)}; NeRF moved {int(nm)}, '
+              f'Adam count +{dc}, bank moved {int(bm)}, snapshot ok '
+              f'{int(sok)}, kp_tracker_mean {km:.5f}')
+        if nm != nerf or dc != int(nerf) or bm != pose or not sok or \
+                km != km or abs(km) == float('inf'):
+            bad.append(s)
+    fires = [sum(x[1] for x in log), sum(x[2] for x in log),
+             sum(x[3] for x in log)]
+    print(f'cli_flipflop: {FF_STEPS} steps, NeRF turns {fires[0]}, pose '
+          f'fires {fires[1]}, pose-turn starts {fires[2]}, launches {counts}'
+          f' ({gpu_line})')
+    if bad or len(log) != FF_STEPS or 0 in fires:
+        raise AssertionError(f'cli_flipflop: the gates did not hold at '
+                             f'steps {bad}')
+    return counts
+
+
+def cli_multisubject_phase(FE, device, gpu_line):
+    """Two synthetic subjects of different body sizes, each its own
+    store, through ``run_train.train`` (``ConcatDataset``, a rest pose
+    per subject, the subject channel) at ``configs/mixamo.txt``'s
+    recipe: CLI_MS_STEPS steps, K5 and K6 three times a step and K1-K4
+    never, finite losses.  Returns the launch counts."""
+    import torch
+    from anerf_torch.data.writer import make_synthetic_store
+    from anerf_torch.run_train import train
+    d = os.path.join(WORK, 'two')
+    for name, scale, seed in (('a', 450.0, 2), ('b', 400.0, 3)):
+        make_synthetic_store(os.path.join(d, f'{name}.npstore'), n_frames=8,
+                             H=256, W=256, body_scale=scale, blob_radius=2,
+                             seed=seed)
+    mcfg = _cli_config('mixamo.txt', subject=('a', 'b'),
+                       dataset_type=('synthetic', 'synthetic'), datadir=d,
+                       basedir=os.path.join(WORK, 'logs'), expname='two',
+                       n_iters=CLI_MS_STEPS, num_workers=4)
+    rec = {'losses': []}
+
+    def on_step(i, state, stats):
+        if stats is None:
+            rec['subjects'] = state['params']['coarse']['views_linear'][
+                'w'].shape
+            FE.reset_launch_counts()
+        else:
+            rec['losses'].append(stats['total_loss'])
+        if i == CLI_MS_STEPS:
+            torch.cuda.synchronize()
+            rec['counts'] = FE.launch_counts()
+
+    train(mcfg, device=device, on_step=on_step)
+    counts = rec['counts']
+    losses = torch.stack(rec['losses']).cpu()
+    print(f'cli_multisubject: {CLI_MS_STEPS} steps, views layer '
+          f'{tuple(rec["subjects"])}, launches {counts}, total_loss '
+          f'{losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update(mlp_fwd=3 * CLI_MS_STEPS, mlp_bwd=3 * CLI_MS_STEPS)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    return counts
+
+
 def _leaf_names(tree, prefix=''):
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
@@ -1075,14 +1547,28 @@ def main() -> int:
                                      what='multi-subject path'),
              'ms_train': ms_train_phase(FE, T, device, gpu_line),
              'single_train': single_net_phase(FE, T, device, gpu_line)}
-    # each kernel's main path: the flagship train step for K1-K4, the
-    # multi-subject train step for K5/K6
+    import shutil
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        paths['cli_train'], cli_shapes = cli_train_phase(
+            FE, T, rc, cfg, params, peaks, device, gpu_line)
+        paths['cli_flipflop'] = cli_flipflop_phase(FE, device, gpu_line)
+        paths['cli_multisubject'] = cli_multisubject_phase(FE, device,
+                                                           gpu_line)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    # each row's launches come from the path whose shapes it times: the
+    # flagship train step for K1-K4, the multi-subject one for K5/K6;
+    # K1-K4's cli_train_shape holds the CLI mixamo step's launches with
+    # the times at its shapes
     main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train'}
     for row in rows:
-        row['launches'] = paths[main_path.get(row['name'], 'train')][
-            row['name']]
-        row['launches_by_path'] = {k: v[row['name']] for k, v in
-                                   paths.items()}
+        name = row['name']
+        row['launches'] = paths[main_path.get(name, 'train')][name]
+        if name in cli_shapes:
+            row['cli_train_shape'] = dict(
+                cli_shapes[name], launches=paths['cli_train'][name])
+        row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -127,19 +127,26 @@ def test_trainer_without_device_needs_cuda(monkeypatch):
     assert setup.rest_pose.device.type == 'cpu'
 
 
-@pytest.mark.parametrize('flag', ['opt_pose_flipflop', 'opt_pose_joint',
-                                  'testopt'])
-def test_flipflop_modes_raise(flag):
-    from anerf_torch import testing_utils as T
-    from anerf_torch.models.factory import build_raycast_config
-    from anerf_torch.skeleton import SMPLSkeleton
-    from anerf_torch.training.trainer import TrainSetup, make_train_step
-    cfg = T.surreal_config(N_rand=4, opt_pose=True, **{flag: True})
-    setup = TrainSetup(cfg=cfg, rc=build_raycast_config(cfg, n_framecodes=2),
-                       skel=SMPLSkeleton, rest_pose=T.synthetic_pose(2)[0],
-                       device='cpu')
+def _tiny_config(**over):
+    from anerf_torch.utils.config import load_config
+    return load_config(os.path.join(ROOT, 'configs', 'synthetic_tiny.txt'),
+                       **over)
+
+
+def test_train_entry_without_device_needs_cuda(monkeypatch):
+    """``run_train.train`` runs on the GPU unless asked for the CPU."""
+    from anerf_torch.run_train import train
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train(_tiny_config())
+
+
+def test_train_entry_refuses_steps_per_dispatch():
+    """Bundling steps into one dispatch is not ported: it raises rather
+    than training one step at a time."""
+    from anerf_torch.run_train import train
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        make_train_step(setup)
+        train(_tiny_config(steps_per_dispatch=2), device='cpu')
 
 
 def _kernel_operands(S, R=2, device='cpu'):
