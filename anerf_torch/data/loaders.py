@@ -277,9 +277,13 @@ def map_data_to_n_views(img_paths, kp3d, bones, rest_pose, skts):
     return kp_map, kp_uidxs, kp3d, bones, skts
 
 
-def get_dataset(cfg, data_path: Optional[str] = None):
+def get_dataset(cfg, data_path: Optional[str] = None,
+                h5_override: Optional[str] = None):
     """Build the (possibly concatenated / temporal) dataset
-    (reference load_data.py:87-143)."""
+    (reference load_data.py:87-143).  ``h5_override`` (the name
+    anerf_tpu gives it) is a data store that every subject reads in
+    place of its ``DATASET_CATALOG`` path, as a render catalog entry
+    names one."""
     data_path = data_path or cfg.datadir
     subjects, dataset_types = list(cfg.subject), list(cfg.dataset_type)
     if len(subjects) > len(dataset_types):
@@ -297,7 +301,7 @@ def get_dataset(cfg, data_path: Optional[str] = None):
 
     datasets = []
     for dtype, subj in zip(dataset_types, subjects):
-        path = DATASET_CATALOG[dtype](data_path, subj)
+        path = h5_override or DATASET_CATALOG[dtype](data_path, subj)
         if dtype == 'h36m':
             d = H36MDataset(path, subject=subj, load_refined=cfg.load_refined,
                             **shared)

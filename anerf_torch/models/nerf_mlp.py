@@ -154,3 +154,11 @@ def nerf_forward(params, cfg: NeRFConfig,
     hv = torch.relu(_dense(params['views_linear'], hv, dt))
     rgb = _dense(params['rgb_linear'], hv, dt)
     return torch.cat([rgb, alpha], -1)
+
+
+def density_only(params, cfg: NeRFConfig, x_pts: torch.Tensor
+                 ) -> torch.Tensor:
+    """Raw density head only, for mesh extraction
+    (reference raycasters.py:626-646)."""
+    h = forward_density(params, cfg, x_pts)
+    return _dense(params['alpha_linear'], h, cfg.compute_dtype)

@@ -36,7 +36,8 @@ import torch
 
 from ..ops import compositing, encoders, rays as ray_ops
 from ..ops.embedding import EmbedConfig, embed
-from .nerf_mlp import NeRFConfig, framecode_select, nerf_forward
+from .nerf_mlp import (NeRFConfig, density_only, framecode_select,
+                       nerf_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,15 @@ class RayCastConfig:
                                    ray_noise_std=0., pallas_tile=1024)
 
 
+def joint_dists(v: torch.Tensor) -> torch.Tensor:
+    """The per-joint distances the cutoff windows read, given the kp
+    encoder's output ``v``.  Only 'reldist' is ported
+    (``encoders.get_kp_input_fn`` raises on the rest), and its kp input
+    IS the joint distances; the other kp encoders take
+    |pts - kps| here (ROADMAP.md C.2)."""
+    return v
+
+
 def encode_inputs(rc: RayCastConfig,
                   params: Dict[str, Any],
                   pts: torch.Tensor,
@@ -111,7 +121,7 @@ def encode_inputs(rc: RayCastConfig,
     v = kp_fn(pts, pts_t, kps)
     r = bone_fn(pts_t, bones) if bone_dims > 0 else None
     d = view_fn(rays_t, pts_t) if rc.use_viewdirs else None
-    j_dists = v     # 'reldist': the kp input IS the joint distances
+    j_dists = joint_dists(v)
 
     cutoff_dist = params['cutoff_dist']
     if not rc.opt_cutoff:
@@ -340,3 +350,51 @@ def render_rays(rc: RayCastConfig,
         out.update({'rgb0': ret0['rgb_map'], 'disp0': ret0['disp_map'],
                     'acc0': ret0['acc_map'], 'alpha0': ret0['alpha']})
     return out
+
+
+def render_pts_density(rc: RayCastConfig,
+                       params: Dict[str, Any],
+                       pts: torch.Tensor,
+                       pose: Dict[str, torch.Tensor],
+                       state: Optional[Dict[str, Any]] = None,
+                       ) -> torch.Tensor:
+    """Raw density at arbitrary points (the mesh extraction path;
+    reference ``render_pts_density``/``_get_density_fwd_fn``,
+    raycasters.py:597-648): kp and bone encodings, the density trunk and
+    the alpha head of the fine net when there is one, in the config's
+    compute dtype.  Plain tensor code: anerf_tpu runs no Pallas kernel
+    here either.
+
+    pts: (P, S, 3) query points; pose: one pose broadcast over P, kps
+    (1, J, 3), skts (1, J, 4, 4), bones (1, J, 3|6).  Returns (P, S, 1)
+    raw density (before the activation).
+    """
+    state = state or {'tau': None, 'alpha': None}
+    kps, skts, bones = pose['kps'], pose['skts'], pose.get('bones')
+    kp_fn, _, _ = encoders.get_kp_input_fn(rc.kp_dist_type, rc.n_joints)
+    bone_fn, bone_dims = encoders.get_bone_input_fn(rc.bone_type,
+                                                    rc.n_joints)
+    tau = state.get('tau')
+    tau = (torch.full((), 1e6, device=pts.device) if tau is None
+           else torch.as_tensor(tau, dtype=torch.float32, device=pts.device))
+
+    skts_b = skts.expand((pts.shape[0],) + skts.shape[1:])
+    pts_t = encoders.transform_batch_pts(pts, skts_b)
+    v = kp_fn(pts, pts_t, kps)
+    r = bone_fn(pts_t, bones) if bone_dims > 0 else None
+    j_dists = joint_dists(v)
+
+    cutoff_dist = params['cutoff_dist']
+    if not rc.opt_cutoff:
+        cutoff_dist = cutoff_dist.detach()
+    v, _ = embed(v, rc.kp_embed, dists=j_dists, cutoff_dist=cutoff_dist,
+                 tau=tau, alpha=state.get('alpha'))
+    parts = [v]
+    if r is not None:
+        r, _ = embed(r, rc.bone_embed, dists=j_dists,
+                     cutoff_dist=cutoff_dist, tau=tau,
+                     alpha=state.get('alpha'))
+        parts.append(r)
+    net = params['fine'] if params.get('fine') is not None \
+        else params['coarse']
+    return density_only(net, rc.nerf, torch.cat(parts, -1))

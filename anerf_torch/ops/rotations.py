@@ -2,8 +2,9 @@
 
 Port of ``anerf_tpu/ops/rotations.py`` (which replaces the reference's
 pytorch3d calls, core/utils/skeleton_utils.py:397-436) for what the
-training path needs: axis-angle and 6D rotations to matrices and back to
-6D.  Every function takes arbitrary leading batch dimensions.
+training and rendering paths need: axis-angle and 6D rotations to
+matrices, and matrices back to 6D, quaternions and axis-angle.  Every
+function takes arbitrary leading batch dimensions.
 """
 from __future__ import annotations
 
@@ -43,6 +44,52 @@ def axisang_to_rot(axisang: torch.Tensor) -> torch.Tensor:
         + cos_over[..., None, None] * (k @ k)
 
 
+def rot_to_axisang(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), through the
+    quaternion for stability (pytorch3d's ``matrix_to_axis_angle``,
+    reference skeleton_utils.py:405-406).  At an angle of pi the axis's
+    sign is arbitrary: both signs give the same rotation."""
+    return quat_to_axisang(rot_to_quat(rot))
+
+
+def rot_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (w, x, y, z) with
+    w >= 0.  Of the four closed forms (each a multiple of the quaternion
+    by 2 sqrt(1 + a diagonal term)) each element takes the one whose
+    diagonal term is largest."""
+    m = rot
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    trace = m00 + m11 + m22
+    cases = torch.stack([
+        torch.stack([1.0 + trace, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                     m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                     m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                     1.0 - m00 - m11 + m22], -1),
+    ], -2)                                              # (..., 4, 4)
+    best = torch.stack([trace, m00, m11, m22], -1).argmax(-1)
+    q = torch.take_along_dim(cases, best[..., None, None].expand(
+        best.shape + (1, 4)), dim=-2)[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-12)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_to_axisang(quat: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) (..., 4) -> axis-angle (..., 3); a
+    series for theta / sin(theta / 2) below |xyz| = 1e-6."""
+    w = quat[..., 0].clamp(-1.0, 1.0)
+    xyz = quat[..., 1:]
+    norm = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    half = torch.atan2(norm[..., 0], w)[..., None]
+    scale = torch.where(norm < 1e-6, 2.0 + (2.0 / 3.0) * half * half,
+                        2.0 * half / norm.clamp(min=1e-12))
+    return xyz * scale
+
+
 def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
     """6D rotation (..., 6) -> (..., 3, 3) by Gram-Schmidt (Zhou et al.,
     CVPR'19), in the reference's layout: the 6D vector is
@@ -60,6 +107,11 @@ def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
 def rot_to_rot6d(rot: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> 6D representation (..., 6)."""
     return rot[..., :3, :2].reshape(rot.shape[:-2] + (6,))
+
+
+def rot6d_to_axisang(x: torch.Tensor) -> torch.Tensor:
+    """6D rotation (..., 6) -> axis-angle (..., 3)."""
+    return rot_to_axisang(rot6d_to_rotmat(x))
 
 
 def bones_to_rot(bones: torch.Tensor) -> torch.Tensor:

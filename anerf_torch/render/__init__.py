@@ -1,1 +1,2 @@
-"""Rendering: full-image renderer and pose generators."""
+"""Rendering: full-image renderer, pose generators, the render catalog
+and mesh extraction."""

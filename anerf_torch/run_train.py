@@ -42,10 +42,11 @@ def _check_supported(cfg) -> None:
 
 def _validate(cfg, renderer, render_data, logger, logdir: str,
               i: int) -> None:
-    """Render the validation poses; log RGB and disparity videos and
-    the mean PSNR/SSIM (also appended to psnr.txt / ssim.txt, the
-    reference's format: evaluation_helpers.py:356-383)."""
+    """Render the validation poses; log RGB, disparity and skeleton
+    overlay videos and the mean PSNR/SSIM (also appended to psnr.txt /
+    ssim.txt, the reference's format: evaluation_helpers.py:356-383)."""
     from .eval.metrics import evaluate_images
+    from .utils.logging import draw_skeleton_2d
     out = renderer.render_path(render_data, ext_scale=cfg.ext_scale,
                                render_factor=cfg.render_factor)
     logger.log_video(i, 'Val/RGB', out['rgbs'])
@@ -55,6 +56,11 @@ def _validate(cfg, renderer, render_data, logger, logdir: str,
     dmax = float(np.max(disps))
     logger.log_video(i, 'Val/Disp', (disps / (dmax if dmax > 0 else 1.0))
                      [..., None].repeat(3, axis=-1))
+    focals = render_data['hwf'][2]
+    logger.log_video(i, 'Val/Skeleton', np.stack([
+        draw_skeleton_2d(rgb, render_data['kp3d'][j], render_data['c2ws'][j],
+                         focals if np.isscalar(focals) else focals[j])
+        for j, rgb in enumerate(out['rgbs'])]))
     if render_data.get('imgs') is None:
         return
     m = evaluate_images(out['rgbs'], render_data['imgs'],

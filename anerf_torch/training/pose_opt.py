@@ -7,8 +7,7 @@ core/trainer.py:382-441).  The bank is a plain dict {'pelvis': (N, 3),
 a batch gathers its rows per ray and FK runs differentiably in the step.
 
 Not ported yet: ``kp_reg_loss_legacy`` (off the trainer's path;
-ROADMAP.md A.6) and ``pose_params_to_pose_data`` (the render script's;
-A.5).
+ROADMAP.md A.6).
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.fk import fk
-from ..ops.rotations import axisang_to_rot, rot_to_rot6d
+from ..ops.rotations import axisang_to_rot, rot6d_to_axisang, rot_to_rot6d
 from ..skeleton import Skeleton, SMPLSkeleton
 
 
@@ -117,3 +116,36 @@ def mpjpc_stat(kps: torch.Tensor, anchors: Dict[str, torch.Tensor],
     (reference trainer.py:437-441)."""
     d = torch.linalg.norm(anchors['kps'][kp_idx] - kps.detach(), dim=-1)
     return d.mean() / ext_scale
+
+
+def pose_params_to_pose_data(pose_params: Dict[str, Any],
+                             rest_pose: np.ndarray,
+                             ext_scale: float = 0.001,
+                             skel: Skeleton = SMPLSkeleton,
+                             kp_map: Optional[np.ndarray] = None,
+                             ) -> Tuple[np.ndarray, ...]:
+    """(kp3d, bones, skts, cyls, rest_pose, pelvis) numpy arrays of
+    every frame of a refined pose bank (numpy arrays or tensors), for
+    refined renders; rot6d bones come back as axis-angle (reference
+    ``pose_ckpt_to_pose_data``, pose_opt.py:523-559).  FK runs on the
+    CPU."""
+    from ..ops.cylinder import get_kp_bounding_cylinder
+
+    bank = {k: torch.as_tensor(np.asarray(
+        v.detach().cpu() if torch.is_tensor(v) else v, np.float32))
+        for k, v in pose_params.items()}
+    idxs = torch.arange(bank['pelvis'].shape[0])
+    kmap = None if kp_map is None else torch.as_tensor(np.asarray(kp_map))
+    with torch.no_grad():
+        kps, bones, skts, _, _ = pose_fk(
+            bank, idxs, torch.as_tensor(np.asarray(rest_pose, np.float32)),
+            skel, kmap)
+        bones_aa = bones if bones.shape[-1] == 3 else rot6d_to_axisang(bones)
+    kp3d = kps.numpy().astype(np.float32)
+    cyls = get_kp_bounding_cylinder(kp3d, ext_scale=ext_scale, skel=skel,
+                                    extend_mm=250, head='-y').astype(
+        np.float32)
+    return (kp3d, bones_aa.numpy().astype(np.float32),
+            skts.numpy().astype(np.float32), cyls,
+            np.asarray(rest_pose, np.float32),
+            bank['pelvis'].numpy())

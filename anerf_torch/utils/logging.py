@@ -1,13 +1,15 @@
 """Metric logging: ``metrics.jsonl`` always, tensorboard events when
-tensorboardX is installed.
+tensorboardX is installed; frames and videos on disk; skeleton overlays.
 
 Port of ``anerf_tpu/utils/logging.py`` (which replaces the reference's
 SummaryWriter use, run_nerf.py:529,590-615): scalars every ``i_print``,
 validation videos and PSNR/SSIM at ``i_testset``, and a jsonl mirror
 for headless runs; plus stdlib readers of tensorboard event files.
 tensorboardX is imported inside ``MetricLogger`` only, so the logger
-runs without it (jsonl alone).  Not ported yet (ROADMAP.md A.5): the
-skeleton overlay (cv2) and ``save_video``/``save_images`` (imageio).
+runs without it (jsonl alone).  The card's machine has neither imageio
+nor cv2: ``save_images`` writes PNGs with ``utils.image.write_png``,
+``save_video`` needs imageio only for the mp4 and writes per-frame PNGs
+without it, and ``draw_skeleton_2d`` draws with numpy.
 """
 from __future__ import annotations
 
@@ -189,3 +191,134 @@ def read_tag_scalars(tags, path_or_dirs) -> Dict[str, list]:
             ret[t].append([v for _, v in sv])
             ret[t + '_steps'].append([s for s, _ in sv])
     return ret
+
+
+def _frames8(frames: np.ndarray) -> np.ndarray:
+    return (np.clip(frames, 0, 1) * 255).astype(np.uint8)
+
+
+def save_video(path: str, frames: np.ndarray, fps: int = 14):
+    """mp4/gif export through imageio (reference run_render.py:1030-1045)
+    where imageio imports and can write it; else per-frame
+    ``<base>_%04d.png`` files, the fallback anerf_tpu takes when its
+    mp4 write fails."""
+    from .image import write_png
+    frames8 = _frames8(frames)
+    try:
+        import imageio
+    except ImportError:
+        why = 'imageio is not installed'
+    else:
+        try:
+            imageio.mimwrite(path, frames8, fps=fps)
+            return
+        except Exception as e:      # a missing ffmpeg plugin, a codec
+            why = f'imageio could not write it ({type(e).__name__})'
+    base = os.path.splitext(path)[0]
+    for i, f in enumerate(frames8):
+        write_png(f'{base}_{i:04d}.png', f)
+    print(f'save_video: {path}: {why}; wrote {len(frames8)} frames as '
+          f'{base}_%04d.png')
+
+
+def save_images(outdir: str, frames: np.ndarray, prefix: str = ''):
+    """Each frame as an 8-bit RGB ``{prefix}%04d.png``."""
+    from .image import write_png
+    os.makedirs(outdir, exist_ok=True)
+    for i, f in enumerate(_frames8(frames)):
+        write_png(os.path.join(outdir, f'{prefix}{i:04d}.png'), f)
+
+
+def _clip_line(W: int, H: int, x1: int, y1: int, x2: int, y2: int):
+    """The segment's part inside the image, in integers, or None (the
+    Cohen-Sutherland clip of OpenCV's ``clipLine``: against the top or
+    bottom edge first, then the left or right one, truncating)."""
+    right, bottom = W - 1, H - 1
+    code = lambda x, y: ((x < 0) + (x > right) * 2 + (y < 0) * 4
+                         + (y > bottom) * 8)
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return None if (c1 | c2) else (x1, y1, x2, y2)
+
+
+def _draw_line(out: np.ndarray, x0: int, y0: int, x1: int, y1: int,
+               color) -> None:
+    """A 1-pixel 8-connected line as OpenCV's ``line`` draws it: clipped
+    to the image, drawn left to right, one pixel per step along the
+    major axis; the minor coordinate steps when Bresenham's error
+    (starting at dx - 2 dy) is negative, i.e. after k steps it has moved
+    ceil((2 dy k - dx) / (2 dx)) times."""
+    H, W = out.shape[:2]
+    seg = _clip_line(W, H, x0, y0, x1, y1)
+    if seg is None:
+        return
+    x0, y0, x1, y1 = seg
+    if x1 < x0:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, abs(y1 - y0)
+    sy = -1 if y1 < y0 else 1
+    major, minor = (dy, dx) if dy > dx else (dx, dy)
+    k = np.arange(major + 1)
+    m = np.maximum(-((major - 2 * minor * k) // max(2 * major, 1)), 0)
+    if dy > dx:
+        ys, xs = y0 + sy * k, x0 + m
+    else:
+        xs, ys = x0 + k, y0 + sy * m
+    out[ys, xs] = color
+
+
+def _draw_dot(out: np.ndarray, x: int, y: int, r: int, color) -> None:
+    """A filled disc: every pixel within ``r`` of (x, y)."""
+    H, W = out.shape[:2]
+    oy, ox = np.mgrid[-r:r + 1, -r:r + 1]
+    keep = oy ** 2 + ox ** 2 <= r * r
+    ys, xs = (oy + y)[keep], (ox + x)[keep]
+    ok = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
+    out[ys[ok], xs[ok]] = color
+
+
+def draw_skeleton_2d(img: np.ndarray, kp3d: np.ndarray, c2w: np.ndarray,
+                     focal, center=None, skel=None) -> np.ndarray:
+    """Project 3D joints and draw the kinematic tree on the image: green
+    1-pixel bones, then red radius-2 joint dots (anerf_tpu's cv2
+    drawing, the 2D stand-in for the reference's pyrender overlay,
+    core/misc/renderer.py), in numpy."""
+    from ..ops.cylinder import nerf_c2w_to_extrinsic, world_to_cam_np
+    from ..skeleton import SMPLSkeleton
+
+    skel = skel or SMPLSkeleton
+    H, W = img.shape[:2]
+    ext = nerf_c2w_to_extrinsic(np.asarray(c2w))
+    pix = world_to_cam_np(np.asarray(kp3d), ext, H, W, focal, center)
+    out = _frames8(img).copy()
+    for j, p in enumerate(skel.joint_trees):
+        x0, y0 = pix[j]
+        x1, y1 = pix[p]
+        if np.isfinite([x0, y0, x1, y1]).all():
+            _draw_line(out, int(x0), int(y0), int(x1), int(y1),
+                       (0, 255, 0))
+    for x, y in pix:
+        if np.isfinite([x, y]).all():
+            _draw_dot(out, int(x), int(y), 2, (255, 0, 0))
+    return out.astype(np.float32) / 255.

@@ -81,7 +81,22 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    stream;
 11. cli_multisubject phase: two synthetic subjects of different body
    sizes, a store each, through ``run_train.train`` at the mixamo recipe
-   for 4 steps: K5 and K6 three times a step, K1-K4 never.
+   for 4 steps: K5 and K6 three times a step, K1-K4 never;
+12. cli_render phase (run right after cli_train, on its logdir):
+   ``anerf_torch.run_render.main`` renders every render type from the
+   mixamo checkpoint ``ckpt_00000040.pt`` and its 512x512 store (bullet,
+   val with --eval, selected with the refined pose bank, interpolate
+   with mixed framecodes, retarget, animate, poserot, bubble,
+   correction, then mesh at res 64): each run's files written and
+   frames finite, K1 and K2 launched once per chunk and K3-K6 never;
+   a bullet frame and a mixed-framecode frame re-rendered through K1/K2's
+   plain twins within 1e-3 of the frame's max, from that checkpoint
+   and, for frames with content, from it with its NeRF weights drawn
+   from seed 5; the mesh's density grid within 1e-3 of the same grid
+   computed on the host CPU (off the joints, where the bone direction
+   has none), and a mesh with vertices; seconds per bullet frame and eval rays/s through the
+   entry point, the grid's device ms and points/s, and the host's
+   meshing and turntable seconds.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of the run whose shapes
@@ -1108,8 +1123,9 @@ def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
     restores the final state bit for bit, and a second resume to step 45
     whose step 44 is profiled.
     Prints CLI train rays/s over steps 10-39 and the Prefetcher's ms per
-    batch.  Returns the launch counts of the train steps and, by kernel
-    name, K1-K4's times, bounds and errors at the recipe's shapes."""
+    batch.  Returns the launch counts of the train steps, by kernel
+    name K1-K4's times, bounds and errors at the recipe's shapes, and the
+    logdir."""
     import numpy as np
     import torch
     from anerf_torch.data.loaders import load_data
@@ -1322,7 +1338,7 @@ def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
         if 'Synchronize' in e.key or e.key.startswith('cudaMemcpy'):
             print(f'  host {e.key}: {e.count}x, '
                   f'{e.cpu_time_total / 1e3:.3f} ms')
-    return counts, shapes
+    return counts, shapes, logdir
 
 
 def cli_flipflop_phase(FE, device, gpu_line):
@@ -1454,6 +1470,306 @@ def cli_multisubject_phase(FE, device, gpu_line):
     return counts
 
 
+# the cli_render phase's runs of ``anerf_torch.run_render``: render type,
+# its flags (frames at the store's 512x512)
+RENDER_RUNS = (
+    ('bullet', ['--n_bullet', '4']),
+    ('val', ['--eval']),
+    ('selected', ['--render_refined', '--selected_idxs', '0', '12']),
+    ('interpolate', ['--mix_framecodes', '--selected_idxs', '0', '6',
+                     '--n_step', '3']),
+    ('retarget', ['--selected_idxs', '3', '9']),
+    ('animate', ['--selected_idxs', '0', '6', '--n_step', '2']),
+    ('poserot', ['--selected_idxs', '5', '--n_bullet', '6']),
+    ('bubble', ['--selected_idxs', '7', '--n_step', '3']),
+    ('correction', ['--render_refined', '--selected_idxs', '5',
+                    '--n_step', '2']),
+)
+MESH_RES = 64
+MESH_IDX = 2
+
+
+class _Wrapped:
+    """Replace attributes of an object by wrappers for the duration of a
+    ``with`` block: ``wrappers`` maps a name to ``f(original)``."""
+
+    def __init__(self, obj, **wrappers):
+        self.obj, self.wrappers, self.saved = obj, wrappers, {}
+
+    def __enter__(self):
+        for name, wrap in self.wrappers.items():
+            self.saved[name] = getattr(self.obj, name)
+            setattr(self.obj, name, wrap(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.obj, name, fn)
+
+
+def _kernel_twins(FE):
+    """K1 and K2 replaced by their plain twins, on the card's tensors."""
+    return _Wrapped(FE, _fwd=lambda _: FE.encmlp_fwd_plain,
+                    _dual_fwd=lambda _: FE.encmlp_dual_fwd_plain)
+
+
+def _clocked(times, name):
+    """A wrapper that adds each call's host seconds, the device drained
+    on both sides, to ``times[name]``."""
+    import torch
+
+    def wrap(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.) + time.perf_counter() - t0
+            return out
+        return run
+    return wrap
+
+
+def _frame(rd, i):
+    """Frame ``i`` of a render_data dict as a one-frame render_data."""
+    import numpy as np
+    one = {}
+    for k, v in rd.items():
+        if k == 'hwf':
+            one[k] = tuple(np.atleast_1d(x)[i:i + 1] for x in v)
+        elif k in ('bgs', 'bg_idxs_len', 'cam_idxs_len', 'kp_idxs_len') \
+                or v is None or np.ndim(v) == 0:
+            one[k] = v
+        else:
+            one[k] = v[i:i + 1]
+    return one
+
+
+def _maps_close(what, ref, got):
+    """Rendered maps within MAP_TOL of the frame's max."""
+    import numpy as np
+    for k in ('rgbs', 'accs'):
+        scale = float(np.abs(ref[k]).max()) + 1e-6
+        err = float(np.abs(ref[k] - got[k]).max())
+        print(f'  {what} {k}: max|d| {err:.3e} scale {scale:.3e} rel '
+              f'{err / scale:.3e}')
+        if err > MAP_TOL * scale:
+            raise AssertionError(f'{what}: the kernels\' {k} disagree with '
+                                 'their twins\'')
+
+
+def cli_render_phase(FE, logdir, ckpt, device, gpu_line):
+    """``anerf_torch.run_render.main`` on ``cli_train``'s mixamo
+    checkpoint and its 512x512 store: every render type (RENDER_RUNS,
+    then ``mesh``), each run's files written and its frames finite, K1
+    and K2 launched once per chunk and K3-K6 never; one bullet frame and
+    one mixed-framecode interpolate frame re-rendered through K1/K2's
+    plain twins within MAP_TOL, from the checkpoint and from the same
+    checkpoint with its NeRF weights drawn from seed 5 (whose frames,
+    unlike the trained ones, are not empty); the mesh's density grid
+    against the same grid computed on the host CPU, within MAP_TOL off
+    the joints, and a mesh with vertices.  Prints seconds per bullet frame and eval rays/s through
+    the entry point, the grid's device ms and points/s and the host
+    meshing and turntable seconds.  Returns the launch counts of all
+    runs."""
+    import numpy as np
+    import torch
+    from anerf_torch import run_render as RR
+    from anerf_torch.interop import params_to
+    from anerf_torch.models.factory import init_raycaster_params
+    from anerf_torch.render import mesh as M
+    from anerf_torch.render.renderer import ImageRenderer
+
+    outdir = os.path.join(WORK, 'render')
+    base = ['--nerf_args', os.path.join(logdir, 'args.txt'), '--ckptpath',
+            ckpt,
+            '--outputdir', outdir]
+    total = {}
+    chunks = [0]
+
+    def count_chunks(fn):
+        def run(*args):
+            chunks[0] += 1
+            return fn(*args)
+        return run
+
+    def run(render_type, flags, runname):
+        """One entry-point run: its chunks and launches checked, its
+        files listed; returns (output, host seconds, launch counts)."""
+        chunks[0] = 0
+        torch.cuda.synchronize()
+        FE.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = RR.main(base + ['--render_type', render_type,
+                              '--runname', runname] + flags, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = FE.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        expect = {k: 0 for k in counts}
+        expect.update(encmlp_fwd=chunks[0], encmlp_dual_fwd=chunks[0])
+        if counts != expect or (render_type != 'mesh' and not chunks[0]):
+            raise AssertionError(f'cli_render {runname}: launches {counts} '
+                                 f'for {chunks[0]} chunks')
+        files = sorted(os.listdir(out['outdir']))
+        if render_type != 'mesh':
+            n = len(out['rgbs'])
+            need = [f'{i:04d}.png' for i in range(n)]
+            video = ([f'{render_type}.mp4'] if f'{render_type}.mp4' in files
+                     else [f'{render_type}_{i:04d}.png' for i in range(n)])
+            if render_type == 'val':
+                need += ['score_final.txt', 'scores.npy']
+            if not n or not set(need + video) <= set(files):
+                raise AssertionError(f'cli_render {runname}: {n} frames, '
+                                     f'files {files}')
+            for k in ('rgbs', 'accs', 'disps'):
+                if not np.isfinite(out[k]).all():
+                    raise AssertionError(f'cli_render {runname}: '
+                                         f'non-finite {k}')
+            print(f'cli_render {runname}: {n} frames '
+                  f'{out["rgbs"].shape[1]}x{out["rgbs"].shape[2]}, '
+                  f'{chunks[0]} chunks, launches {counts}, {dt:.3f} s, '
+                  f'acc max {out["accs"].max():.3f}, files {len(files)}')
+        return out, dt, counts
+
+    with _Wrapped(ImageRenderer, _render_chunk=count_chunks):
+        run('bullet', ['--n_bullet', '4'], 'warm-up')
+        times = {}
+        outs = {}
+        with _Wrapped(ImageRenderer,
+                      render_path=_clocked(times, 'render_path')):
+            for render_type, flags in RENDER_RUNS:
+                outs[render_type], dt, _ = run(render_type, flags,
+                                               render_type)
+                times.setdefault('entry', {})[render_type] = dt
+                times.setdefault('path', {})[render_type] = \
+                    times.pop('render_path')
+    b = outs['bullet']
+    n_rays = sum(int((br[0] - tl[0]) * (br[1] - tl[1]))
+                 for tl, br in b['bboxes'])
+    n = len(b['rgbs'])
+    print(f'cli_render: bullet through the entry point: '
+          f'{times["entry"]["bullet"] / n:.3f} s per 512x512 frame '
+          f'(main() as called: config, store, checkpoint, PNGs), '
+          f'render_path {times["path"]["bullet"] / n:.3f} s per frame, '
+          f'{n_rays / times["path"]["bullet"]:.1f} eval rays/s over '
+          f'{n_rays} rays in {n} frames ({gpu_line})')
+    for rt, dt in times['entry'].items():
+        print(f'  cli_render {rt}: main() {dt:.3f} s, render_path '
+              f'{times["path"][rt]:.3f} s')
+    with open(os.path.join(outdir, 'val', 'score_final.txt')) as f:
+        print(f'cli_render val --eval: {f.read().split()}')
+
+    # one bullet frame and one mixed-framecode frame through the twins.
+    # After 40 steps the trained density is negative everywhere (the
+    # synthetic frames are mostly background, which an empty field
+    # matches), so its frames are empty and agree trivially; the same
+    # checkpoint with the NeRF weights drawn afresh from seed 5 (positive
+    # density around the body) renders frames with content, and those
+    # are held to the twins too
+    seeded = os.path.join(WORK, 'ckpt_seed5.pt')
+    ck = torch.load(ckpt, map_location='cpu', weights_only=False)
+    cfg, rc, *_, attrs = RR.load_everything(RR.parse_args(base))
+    ck['params'] = dict(init_raycaster_params(
+        torch.Generator().manual_seed(5), rc, cfg),
+        cutoff_dist=ck['params']['cutoff_dist'])
+    torch.save(ck, seeded)
+    base[base.index(ckpt)] = seeded
+    with _Wrapped(ImageRenderer, _render_chunk=count_chunks):
+        for rt in ('bullet', 'interpolate'):
+            outs[f'{rt} seed 5'] = run(rt, dict(RENDER_RUNS)[rt],
+                                       f'{rt}_seed5')[0]
+    base[base.index(seeded)] = ckpt
+    before = FE.launch_counts()
+    for name, i in (('bullet', 1), ('interpolate', 1), ('bullet seed 5', 1),
+                    ('interpolate seed 5', 1)):
+        rd = outs[name]['render_data']
+        if name.startswith('interpolate') and not (
+                np.ndim(rd['cam_idxs'][i]) == 1
+                and 0 < rd['cam_idxs'][i][2] < 1):
+            raise AssertionError(f'frame {i} mixes no framecodes: '
+                                 f'{rd["cam_idxs"][i]}')
+        with _kernel_twins(FE):
+            ref = outs[name]['renderer'].render_path(_frame(rd, i))
+        got = {k: outs[name][k][i:i + 1] for k in ('rgbs', 'accs')}
+        _maps_close(f'cli_render {name} frame {i}, kernels vs twins', ref,
+                    got)
+        if name.endswith('seed 5') and got['accs'].max() < 0.5:
+            raise AssertionError(f'{name}: empty frame, the check above '
+                                 'would be vacuous')
+    if FE.launch_counts() != before:
+        raise AssertionError('the twins launched a kernel')
+
+    # the mesh: its density grid timed and held against the host's
+    renderer = outs['bullet']['renderer']
+    rest = np.asarray(attrs['rest_pose'], np.float32)
+    pose = RR.mesh_pose(attrs['kp3d'], attrs['bones'], rest, MESH_IDX,
+                        device)
+    grid = lambda: M.extract_density_grid(renderer.rc, renderer.params, pose,
+                                          1.0, MESH_RES,
+                                          state=renderer.state)
+    sigma = grid()
+    grid_ms = _time_ms(grid, 1, windows=3)
+    n_pts = (MESH_RES + 1) ** 3
+    cpu = torch.device('cpu')
+    t0 = time.perf_counter()
+    sigma_cpu = M.extract_density_grid(
+        renderer.rc, params_to(renderer.params, cpu),
+        {k: v.to(cpu) for k, v in pose.items()}, 1.0, MESH_RES,
+        state={k: None if v is None else v.to(cpu)
+               for k, v in renderer.state.items()})
+    cpu_s = time.perf_counter() - t0
+    # the grid's centre is the root joint itself, where the bone
+    # direction encoding normalizes a zero vector: no direction, so the
+    # two devices' roundoff picks two; every other point is compared
+    t = np.linspace(-1., 1., MESH_RES + 1, dtype=np.float32)
+    pts = np.stack(np.meshgrid(t, t, t), -1) + \
+        pose['kps'][0, 0].cpu().numpy()
+    at_joint = np.linalg.norm(pts[..., None, :] - pose['kps'][0].cpu()
+                              .numpy(), axis=-1).min(-1) < 1e-4
+    d = np.abs(sigma - sigma_cpu)
+    scale = float(np.abs(sigma_cpu).max()) + 1e-6
+    err = float(d[~at_joint].max())
+    print(f'cli_render mesh: density grid {MESH_RES + 1}^3 = {n_pts} '
+          f'points: {grid_ms:.3f} ms on the card (CUDA events, one call: '
+          f'points up, densities down), {n_pts / grid_ms * 1e3:.4g} '
+          f'points/s; against the host CPU\'s grid ({cpu_s:.2f} s): max|d| '
+          f'{err:.3e} scale {scale:.3e} rel {err / scale:.3e}, mean rel '
+          f'{float(d.mean()) / scale:.3e} over {int((~at_joint).sum())} '
+          f'points ({int(at_joint.sum())} on a joint: max|d| '
+          f'{float(d[at_joint].max(initial=0.)):.3e}); density range '
+          f'[{sigma.min():.3f}, {sigma.max():.3f}] ({gpu_line})')
+    if err > MAP_TOL * scale or not np.isfinite(sigma).all():
+        raise AssertionError('cli_render mesh: the density grid disagrees '
+                             'with the host\'s')
+    # the surface of the densest half percent: a trained-for-40-steps
+    # field stays below the default threshold of 10
+    thres = float(np.quantile(sigma, 0.995))
+    mtimes = {}
+    with _Wrapped(M, marching_tetrahedra=_clocked(mtimes, 'marching'),
+                  render_turntable=_clocked(mtimes, 'turntable'),
+                  extract_density_grid=_clocked(mtimes, 'grid')):
+        out, dt, _ = run('mesh', ['--mesh_res', str(MESH_RES),
+                                  '--mesh_thres', f'{thres:.6f}',
+                                  '--selected_idxs', str(MESH_IDX)], 'mesh')
+    (m,) = out['meshes']
+    files = sorted(os.listdir(out['outdir']))
+    need = [f'mesh_{MESH_IDX:05d}.ply']
+    turn = ([f'mesh_{MESH_IDX:05d}.mp4'] if need[0][:-3] + 'mp4' in files
+            else [f'mesh_{MESH_IDX:05d}_{i:04d}.png' for i in range(20)])
+    print(f'cli_render mesh: threshold {thres:.4f} (99.5th percentile), '
+          f'{len(m["verts"])} vertices, {len(m["faces"])} faces; main() '
+          f'{dt:.2f} s: grid {mtimes["grid"]:.3f} s, marching tetrahedra '
+          f'{mtimes["marching"]:.2f} s (host), 20-view 256x256 turntable '
+          f'{mtimes.get("turntable", 0.):.2f} s (host); files {len(files)}')
+    if not len(m['verts']) or not set(need + turn) <= set(files):
+        raise AssertionError(f'cli_render mesh: {len(m["verts"])} vertices, '
+                             f'files {files}')
+    print(f'cli_render: launches over all runs {total} ({gpu_line})')
+    return total
+
+
 def _leaf_names(tree, prefix=''):
     if isinstance(tree, dict):
         return [n for k in sorted(tree)
@@ -1550,8 +1866,11 @@ def main() -> int:
     import shutil
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        paths['cli_train'], cli_shapes = cli_train_phase(
+        paths['cli_train'], cli_shapes, logdir = cli_train_phase(
             FE, T, rc, cfg, params, peaks, device, gpu_line)
+        paths['cli_render'] = cli_render_phase(
+            FE, logdir, os.path.join(logdir, 'ckpt_00000040.pt'), device,
+            gpu_line)
         paths['cli_flipflop'] = cli_flipflop_phase(FE, device, gpu_line)
         paths['cli_multisubject'] = cli_multisubject_phase(FE, device,
                                                            gpu_line)

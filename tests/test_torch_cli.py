@@ -4,7 +4,7 @@
 synthetic store writes what the root ``run_train.py`` writes
 (tests/test_e2e.py): ``args.txt``, checkpoints, pose checkpoints,
 ``metrics.jsonl`` with ``total_loss``, the validation videos'
-tensorboard tags and ``psnr.txt``/``ssim.txt``; a second call resumes
+tensorboard tags (RGB, disparity and the skeleton overlay) and ``psnr.txt``/``ssim.txt``; a second call resumes
 from the newest checkpoint.  ``psnr``, ``ssim``, ``evaluate_images``
 and the pose metrics match anerf_tpu's within 1e-6.
 """
@@ -55,6 +55,7 @@ def test_train_cli_writes_and_resumes(tmp_path):
     assert losses and np.isfinite(losses).all()
     assert 'Val/RGB' in read_tb_tags(logdir)
     assert 'Val/Disp' in read_tb_tags(logdir)
+    assert 'Val/Skeleton' in read_tb_tags(logdir)
     for name in ('psnr', 'ssim'):
         lines = open(os.path.join(logdir, f'{name}.txt')).read().split()
         assert len(lines) == 1 and np.isfinite(float(lines[0]))

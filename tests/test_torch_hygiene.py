@@ -1,6 +1,8 @@
 """Boundaries of the port: ``anerf_torch`` and ``chip_smoke.py`` import
-nothing of JAX or anerf_tpu (the machine with the GPU has no JAX), and
-the renderer never falls back to the CPU on its own.
+nothing of JAX or anerf_tpu (the machine with the GPU has no JAX) and
+import imageio, cv2, h5py and msgpack (which that machine lacks too)
+only inside functions, and the renderer never falls back to the CPU on
+its own.
 
 The import check walks the sources' syntax trees: this environment
 preloads jax at interpreter start, so ``sys.modules`` cannot show it.
@@ -39,6 +41,36 @@ def test_port_imports_no_jax(path):
     bad = [m for m in _imported(path)
            if m.split('.')[0] in FORBIDDEN]
     assert not bad, f'{path} imports {bad}'
+
+
+# absent from the card's machine: imported inside the functions that
+# need them, never when a module of the port is imported
+FUNCTION_ONLY = ('imageio', 'cv2', 'h5py', 'msgpack')
+
+
+def _module_level_imports(path):
+    """Modules imported by statements that run at import time: the
+    module's body, through ``if``/``try``/``with`` blocks but not into
+    function or class bodies."""
+    body = list(ast.parse(open(path).read(), filename=path).body)
+    while body:
+        node = body.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.ClassDef)):
+            for field in ('body', 'orelse', 'finalbody', 'handlers'):
+                body += getattr(node, field, [])
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_card_absent_packages_inside_functions(path):
+    bad = [m for m in _module_level_imports(path)
+           if m.split('.')[0] in FUNCTION_ONLY]
+    assert not bad, f'{path} imports {bad} at module level'
 
 
 def test_renderer_without_device_needs_cuda(monkeypatch):
