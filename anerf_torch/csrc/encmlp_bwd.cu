@@ -73,6 +73,8 @@ namespace {
 
 constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J;  // + windows
 static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
+static_assert(DX == DV + C3 && DXP == DX && BWD_X_RESIDENT,
+              "K3/K4 encode the flagship trunk into resident shared memory");
 
 template <int NNET>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)

@@ -19,7 +19,16 @@ constexpr int NF = 7;                  // kp bands 2^0 .. 2^6
 constexpr int NB = 9;                  // view PE rows (1 + 2 x 4)
 constexpr int C3 = 3 * J;              // 72
 constexpr int DV = (2 * NF + 1) * J;   // 360 kp encoding
-constexpr int DX = DV + C3;            // 432 trunk input [v | r]
+// the trunk input [v | r]: 432 wide for K1-K4; a K5/K6 build takes any
+// width from 1 to 2048 (nvcc -DANERF_DX=...; ops/cuda_build.py)
+#ifndef ANERF_DX
+#define ANERF_DX 432
+#endif
+constexpr int DX = ANERF_DX;
+static_assert(DX >= 1 && DX <= 2048, "trunk inputs of 1 to 2048 columns");
+// X's columns and the weight rows that meet them, padded with zeros to
+// the 16-deep k-step of a product
+constexpr int DXP = (DX + 15) / 16 * 16;
 constexpr int DE = NB * C3;            // 648 view encoding
 constexpr int NCODE = 16;
 constexpr int DXV = 672;               // views input [xv | codes | 0 x 8]
@@ -33,13 +42,16 @@ constexpr int NTHREAD = NWARP * 32;
 
 // shared-memory row strides in bf16 elements: rows stay 16-byte
 // aligned and the +8 spreads the fragment loads over all 32 banks
-constexpr int LDX = DX + 8;
+constexpr int LDX = DXP + 8;
 constexpr int LDXV = DXV + 8;
 constexpr int LDH = W + 8;
+// a trunk input too wide to stay in shared memory (K5 past 592 columns,
+// K6 past 480) takes part in its products XCH columns at a time
+constexpr int XCH = 256;
 
 // packed weights (bf16, each matrix transposed to (out, in)); the layout
 // anerf_torch/ops/fused_encmlp.py::_pack_kernel_weights writes
-constexpr size_t SZ_X = (size_t)W * DX;
+constexpr size_t SZ_X = (size_t)W * DXP;
 constexpr size_t SZ_H = (size_t)W * W;
 __host__ __device__ constexpr size_t off_h(int i) {  // trunk layer i >= 1
   return SZ_X + (size_t)(i - 1) * SZ_H + (i > SKIP + 1 ? SZ_X : 0);
@@ -295,6 +307,32 @@ __device__ __forceinline__ void load_parts(const Parts& ps, bf16* dst, int ld,
   for (int idx = threadIdx.x; idx < T * pad; idx += NTHREAD) {
     const int t = idx / pad;
     dst[t * ld + ps.total + idx - t * pad] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// dst[t, 0:c1-c0] = columns c0 .. c1-1 of the concatenated parts' rows
+// t0 + t, zeros past the parts and past n: value by value, adjacent
+// threads on adjacent columns of a row.  Leaves the block unsynchronised.
+__device__ __forceinline__ void load_cols(const Parts& ps, bf16* dst, int ld,
+                                          int c0, int c1, int t0, int n) {
+  const int rows = min(T, n - t0);
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int k = 0; k < ps.count; ++k) {
+    const int lo = max(c0, ps.off[k]), hi = min(c1, ps.off[k] + ps.w[k]);
+    if (lo >= hi) continue;
+    const int w = hi - lo, wk = ps.w[k];
+    const bf16* __restrict__ src = reinterpret_cast<const bf16*>(ps.p[k]) +
+                                   (size_t)t0 * wk + (lo - ps.off[k]);
+    bf16* d = dst + (lo - c0);
+    for (int idx = threadIdx.x; idx < T * w; idx += NTHREAD) {
+      const int t = idx / w, c = idx - t * w;
+      d[t * ld + c] = t < rows ? src[(size_t)t * wk + c] : zero;
+    }
+  }
+  const int lo = max(c0, ps.total), pad = c1 - lo;
+  for (int idx = threadIdx.x; idx < T * pad; idx += NTHREAD) {
+    const int t = idx / pad;
+    dst[t * ld + lo - c0 + idx - t * pad] = zero;
   }
 }
 

@@ -49,6 +49,8 @@ namespace {
 
 constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J;  // + windows
 static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
+static_assert(DX == DV + C3 && DXP == DX && FWD_X_RESIDENT,
+              "K1/K2 encode the flagship trunk into resident shared memory");
 
 template <int NNET>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)

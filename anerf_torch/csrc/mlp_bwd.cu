@@ -22,7 +22,13 @@
 //      to bf16 before it feeds a product, bias partials of the f32
 //      cotangents).  It writes the layers' bf16 inputs, activations and
 //      cotangents and the f32 input cotangents to a workspace (about
-//      16 KB a point: 2.1 GB at n = 131,072);
+//      16 KB a point: 2.1 GB at n = 131,072).  The library is built
+//      for one trunk width DX (nvcc -DANERF_DX=..., 1 to 2048, 432 by
+//      default); a trunk input wider than 480 columns does not fit in
+//      shared memory beside the ring, the activations and the masks, so
+//      it goes to the workspace only, and layer 0 and the skip layer
+//      read it back 256 columns at a time into a buffer that their
+//      products refill between two barriers (ring_mma_x);
 //   2. dx_kernel, twice, one block per point: the f32 input cotangents
 //      rounded to bf16 into each part's row, padding columns dropped
 //      (element by element, as odd-width rows are unaligned);
@@ -63,14 +69,18 @@ mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
     ring_produce(rg);            // slices arrive while the parts load
     return;
   }
-  load_parts(xs, sm.X, LDX, DX, t0, n);
+  bf16* xg = wk.x + (size_t)t0 * DXP;
+  if constexpr (BWD_X_RESIDENT)
+    load_parts(xs, sm.X, LDXB, DXP, t0, n);
+  else  // too wide to stay: the products read it back from the workspace
+    load_parts(xs, xg, DXP, DXP, t0, n);
   load_parts(xvs, wk.xv[0] + (size_t)t0 * DXV, DXV, DXV, t0, n);
   fence_async_global();  // the ring reads the views input back by TMA
   for (int idx = threadIdx.x; idx < T * 4; idx += NTHREAD)
     sm.gsm[idx] = t0 + (idx >> 2) < n ? __ldg(gin + (size_t)t0 * 4 + idx) : 0.f;
   sync_tile();
-  copy_rows(wk.x + (size_t)t0 * DX, DX, sm.X, LDX, DX);
-  mlp_bwd_tile(rg, sm, wback, bpack, wk, 0, t0);
+  if constexpr (BWD_X_RESIDENT) copy_rows(xg, DXP, sm.X, LDXB, DXP);
+  mlp_bwd_tile(rg, sm, wback, bpack, wk, 0, t0, xg);
 }
 
 // out part k [t, c] = bf16(g[t, off_k + c]): the f32 input cotangent
@@ -122,7 +132,7 @@ int mlp_bwd(const void* const* xs, const int* xw, int nx,
   mlp_bwd_tile_kernel<<<np / T, NTHREAD + 32, SMEM_TILE, st>>>(
       px, pv, wb, bpack, g, wk, maps, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dx_kernel<<<n, DX_THREADS, 0, st>>>(wk.gx[0], DX, dx);
+  dx_kernel<<<n, DX_THREADS, 0, st>>>(wk.gx[0], DXP, dx);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dx_kernel<<<n, DX_THREADS, 0, st>>>(wk.gxv[0], DXV, dv);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -134,5 +144,7 @@ long long mlp_bwd_workspace_bytes(int n) {
 }
 
 long long mlp_grad_weight_elems(void) { return (long long)WGSZ; }
+
+int mlp_trunk_width(void) { return DX; }
 
 }  // extern "C"

@@ -47,7 +47,7 @@ constexpr int NGS = 8;  // bf16 head cotangents a point: [rgb 3 | alpha | 0]
 
 // workspace: bf16 arrays, each (n_pad, width) row-major, then f32 ones
 struct Work {
-  bf16* x;            // [v | r]                       (432)
+  bf16* x;            // [v | r | 0]                   (DXP)
   bf16* xv[2];        // [xv | codes | 0] per net      (672)
   bf16* act[2];       // trunk activations, 8 layers   (8 x 256)
   bf16* feat[2];      // (256)
@@ -56,14 +56,14 @@ struct Work {
   bf16* gf[2];        // feat cotangent                (256)
   bf16* ghv[2];       // views cotangent               (128)
   bf16* gs[2];        // head cotangents               (8)
-  float* gx[2];       // [v | r] input cotangent       (432)
+  float* gx[2];       // [v | r | 0] input cotangent   (DXP)
   float* gxv[2];      // views input cotangent         (672)
   float* win;         // windows (K3/K4 only)          (24)
   float* bpart[2];    // per-tile bias partials        (ntile, BSZ)
 };
 
 constexpr int BF_PER_NET = DXV + DEPTH * W + W + HV + DEPTH * W + W + HV + NGS;
-constexpr int F_PER_NET = DX + DXV;
+constexpr int F_PER_NET = DXP + DXV;
 
 __host__ __device__ inline size_t round_up(size_t v, size_t a) {
   return (v + a - 1) / a * a;
@@ -73,7 +73,7 @@ __host__ __device__ inline size_t round_up(size_t v, size_t a) {
 // none for K6)
 size_t workspace_bytes(int n, int nnet, int nwin) {
   const size_t np = round_up((size_t)n, T), ntile = np / T;
-  return round_up(np * 2 * (DX + (size_t)nnet * BF_PER_NET), 256) +
+  return round_up(np * 2 * (DXP + (size_t)nnet * BF_PER_NET), 256) +
          np * 4 * ((size_t)nnet * F_PER_NET + nwin) +
          (size_t)nnet * ntile * BSZ * 4;
 }
@@ -83,7 +83,7 @@ Work carve(void* base, int n, int nnet, int nwin) {
   Work w{};
   bf16* b = reinterpret_cast<bf16*>(base);
   auto take = [&](size_t width) { bf16* r = b; b += np * width; return r; };
-  w.x = take(DX);
+  w.x = take(DXP);
   for (int k = 0; k < nnet; ++k) {
     w.xv[k] = take(DXV);
     w.act[k] = take(DEPTH * W);
@@ -96,10 +96,10 @@ Work carve(void* base, int n, int nnet, int nwin) {
   }
   float* f = reinterpret_cast<float*>(
       reinterpret_cast<char*>(base) +
-      round_up(np * 2 * (DX + (size_t)nnet * BF_PER_NET), 256));
+      round_up(np * 2 * (DXP + (size_t)nnet * BF_PER_NET), 256));
   for (int k = 0; k < nnet; ++k) {
     w.gx[k] = f;
-    f += np * DX;
+    f += np * DXP;
     w.gxv[k] = f;
     f += np * DXV;
   }
@@ -134,50 +134,96 @@ constexpr int NSTAGE = 5;
 
 // The schedule of one net, in the order mlp_bwd_tile consumes it; a net
 // with n output columns over 256 (the input cotangents) is cut into
-// 256-row chunks, one product each.
+// 256-row chunks, one product each: ceil(DXP / 256) for each of the two
+// trunk-input cotangents.
 static_assert(DEPTH == 8 && SKIP == 4, "SEGS is written for 8 layers, skip 4");
-#define SEG_LIST                                                          \
-  {                                                                       \
-    /* forward recompute */                                               \
-    {0, 0, W, DX, 0},                      /* layer 0        A = X     */ \
-    {0, (int)off_h(1), W, W, 0},           /* layers 1-4     A = h     */ \
-    {0, (int)off_h(2), W, W, 0},                                          \
-    {0, (int)off_h(3), W, W, 0},                                          \
-    {0, (int)off_h(4), W, W, 0},                                          \
-    {0, (int)off_h(5), W, W, 0},           /* layer 5: h part          */ \
-    {0, (int)OFF_SKIPX, W, DX, 0},         /*   and x part   A = X     */ \
-    {0, (int)off_h(6), W, W, 0},                                          \
-    {0, (int)off_h(7), W, W, 0},                                          \
-    {0, (int)OFF_F, W, W, 0},              /* feat                     */ \
-    {0, (int)OFF_VF, HV, W, 0},            /* views: feat part         */ \
-    {0, (int)OFF_VX, HV, DXV, 1},          /*   views-input part       */ \
-    /* backward */                                                        \
-    {1, (int)G_VF, W, HV, 0},              /* g_feat         A = g_hv  */ \
-    {1, (int)G_VX, 256, HV, 0},            /* g_xv, 3 chunks A = g_hv  */ \
-    {1, (int)(G_VX + 256 * HV), 256, HV, 0},                              \
-    {1, (int)(G_VX + 512 * HV), DXV - 512, HV, 0},                        \
-    {1, (int)G_F, W, W, 0},                /* g of layer 7   A = g_feat */\
-    {1, (int)off_h(7), W, W, 0},           /* g of layer 6             */ \
-    {1, (int)off_h(6), W, W, 0},           /* g of layer 5             */ \
-    {1, (int)OFF_SKIPX, 256, W, 0},        /* g_x skip part, 2 chunks  */ \
-    {1, (int)(OFF_SKIPX + 256 * W), DX - 256, W, 0},                      \
-    {1, (int)off_h(5), W, W, 0},           /* g of layer 4             */ \
-    {1, (int)off_h(4), W, W, 0},                                          \
-    {1, (int)off_h(3), W, W, 0},                                          \
-    {1, (int)off_h(2), W, W, 0},                                          \
-    {1, (int)off_h(1), W, W, 0},           /* g of layer 0             */ \
-    {1, 0, 256, W, 0},                     /* g_x layer-0 part, 2 chunks */\
-    {1, 256 * W, DX - 256, W, 0},                                         \
+constexpr int NXC = (DXP + 255) / 256;
+constexpr int NSEG = 24 + 2 * NXC;
+
+struct SegTable {
+  Seg s[NSEG];
+};
+
+__host__ __device__ constexpr void put(SegTable& t, int& i, int pack,
+                                      size_t off, int rows, int K, int sa) {
+  t.s[i].pack = pack;
+  t.s[i].off = (int)off;
+  t.s[i].rows = rows;
+  t.s[i].K = K;
+  t.s[i].stream_a = sa;
+  ++i;
+}
+
+// the 256-row chunks of a (DXP, 256) block of the backward pack at off
+__host__ __device__ constexpr void put_x_chunks(SegTable& t, int& i,
+                                               size_t off) {
+  for (int c = 0; c < NXC; ++c)
+    put(t, i, 1, off + (size_t)c * 256 * W,
+        DXP - 256 * c < 256 ? DXP - 256 * c : 256, W, 0);
+}
+
+__host__ __device__ constexpr SegTable bwd_segs() {
+  SegTable t{};
+  int i = 0;
+  // forward recompute
+  put(t, i, 0, 0, W, DXP, 0);               // layer 0          A = X
+  for (int l = 1; l <= SKIP + 1; ++l)       // layers 1-4, layer 5's
+    put(t, i, 0, off_h(l), W, W, 0);        //   h part         A = h
+  put(t, i, 0, OFF_SKIPX, W, DXP, 0);       //   and x part     A = X
+  put(t, i, 0, off_h(6), W, W, 0);
+  put(t, i, 0, off_h(7), W, W, 0);
+  put(t, i, 0, OFF_F, W, W, 0);             // feat
+  put(t, i, 0, OFF_VF, HV, W, 0);           // views: feat part
+  put(t, i, 0, OFF_VX, HV, DXV, 1);         //   views-input part
+  // backward
+  put(t, i, 1, G_VF, W, HV, 0);             // g_feat           A = g_hv
+  put(t, i, 1, G_VX, 256, HV, 0);           // g_xv, 3 chunks   A = g_hv
+  put(t, i, 1, G_VX + 256 * HV, 256, HV, 0);
+  put(t, i, 1, G_VX + 512 * HV, DXV - 512, HV, 0);
+  put(t, i, 1, G_F, W, W, 0);               // g of layer 7     A = g_feat
+  put(t, i, 1, off_h(7), W, W, 0);          // g of layer 6
+  put(t, i, 1, off_h(6), W, W, 0);          // g of layer 5
+  put_x_chunks(t, i, OFF_SKIPX);            // g_x skip part
+  for (int l = SKIP + 1; l >= 1; --l)       // g of layers 4 .. 0
+    put(t, i, 1, off_h(l), W, W, 0);
+  put_x_chunks(t, i, 0);                    // g_x layer-0 part
+  return t;
+}
+__constant__ SegTable SEGS = bwd_segs();
+constexpr SegTable SEGS_HOST = bwd_segs();
+
+// The segments of pack `pack` are blocks of it, pairwise disjoint, inside
+// [0, end) and outside [gap_lo, gap_hi), and sum to `total`.
+constexpr bool covers_pack(const SegTable& t, int pack, size_t end,
+                           size_t gap_lo, size_t gap_hi, size_t total) {
+  size_t sum = 0;
+  for (int i = 0; i < NSEG; ++i) {
+    const Seg& a = t.s[i];
+    if (a.pack != pack) continue;
+    const size_t lo = (size_t)a.off, hi = lo + (size_t)a.rows * a.K;
+    if (a.off < 0 || a.rows < 1 || hi > end || (lo < gap_hi && gap_lo < hi))
+      return false;
+    for (int j = 0; j < NSEG; ++j) {
+      const Seg& b = t.s[j];
+      const size_t lj = (size_t)b.off, hj = lj + (size_t)b.rows * b.K;
+      if (j != i && b.pack == pack && lo < hj && lj < hi) return false;
+    }
+    sum += hi - lo;
   }
-__constant__ Seg SEGS[] = SEG_LIST;
-const Seg SEGS_HOST[] = SEG_LIST;
-#undef SEG_LIST
-constexpr int NSEG = sizeof(SEGS_HOST) / sizeof(Seg);
+  return sum == total;
+}
+// the recompute reads every matrix of the forward pack once; the
+// backward every matrix of the backward pack but the heads' vectors
+// (alpha's and rgb's, read directly)
+static_assert(covers_pack(SEGS_HOST, 0, OFF_A, 0, 0, OFF_A),
+              "the recompute must cover the forward pack once");
+static_assert(covers_pack(SEGS_HOST, 1, G_R, G_A, G_F, G_A + (G_R - G_F)),
+              "the backward must cover the backward pack once");
 
 struct BwdSched {
   static constexpr int N = NSEG;
   static constexpr int NSTAGE = ::NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) { return SEGS[i]; }
+  __device__ __forceinline__ static Seg at(int i) { return SEGS.s[i]; }
 };
 
 // Every stage's source as a TMA descriptor (a kernel parameter): each
@@ -199,7 +245,7 @@ cudaError_t make_maps(Maps& mp, const bf16* wf, const bf16* wb,
   mp = Maps{};
   for (int net = 0; net < nnet; ++net) {
     for (int i = 0; i < NSEG; ++i) {
-      const Seg& s = SEGS_HOST[i];
+      const Seg& s = SEGS_HOST.s[i];
       const bf16* base = (s.pack ? wb + (size_t)net * WGSZ
                                  : wf + (size_t)net * WSZ) + s.off;
       if (!encode_2d(enc, &mp.seg[net][i], base, s.K, s.rows, s.rows))
@@ -219,26 +265,29 @@ __device__ __forceinline__ void fence_async_global() {
 
 typedef Ring<BwdSched> BwdRing;
 
-// acc += A[0:64, 0:K] @ Wseg[n0 : n0 + 8 NT, 0:K]^T over the next segment
-// of the schedule, for this warp's columns (none past the segment's
-// rows).  A: shared, row-major, stride lda, or nullptr for the views
-// input that rides in the stages.  Each stage: wait for its bytes,
-// ldmatrix + mma, then the warp's arrival on the stage's empty barrier.
-// No block barrier: the warps drift apart by up to NSTAGE stages.
+// acc += A[0:64, k_lo:k_hi] @ Wseg[n0 : n0 + 8 NT, k_lo:k_hi]^T over the
+// ring's stages of k-slices k_lo .. k_hi - 1 of segment s, for this
+// warp's columns (none past the segment's rows).  A: shared, row-major,
+// stride lda, its column 0 at k_lo (k_lo a multiple of KS, k_hi of 16),
+// or nullptr for the views input that rides in the stages.  Each stage:
+// wait for its bytes, ldmatrix + mma, then the warp's arrival on the
+// stage's empty barrier.  No block barrier: the warps drift apart by up
+// to NSTAGE stages.
 template <int NT>
-__device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
-                                         const bf16* A, int lda, int n0) {
-  const Seg s = ring_next_seg(r);
+__device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
+                                           const Seg& s, const bf16* A,
+                                           int lda, int n0, int k_lo,
+                                           int k_hi) {
   const int lane = threadIdx.x & 31;
   // ldmatrix row addresses: B matrices (n 0-7 | 8-15) x (k 0-7 | 8-15),
   // A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
   const int b_row = n0 + (lane & 7) + ((lane >> 4) << 3), b_ch = (lane >> 3) & 1;
   const int a_row = lane & 15, a_ch = lane >> 4;
   const bool on = n0 < s.rows;
-  for (int k0 = 0; k0 < s.K; k0 += KS) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += KS) {
     mbar_wait(r.full + r.c_slot, r.c_phase);
     const bf16* sb = r.buf + r.c_slot * STAGE;
-    const int nk = min(KS, s.K - k0) >> 4;  // k16 steps in this stage
+    const int nk = min(KS, k_hi - k0) >> 4;  // k16 steps in this stage
 #pragma unroll
     for (int kk = 0; kk < KS / 16; ++kk) {
       if (!on || kk >= nk) break;
@@ -256,7 +305,8 @@ __device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         if (A)
-          ldsm_x4(a[m], A + (m * 16 + a_row) * lda + k0 + kk * 16 + a_ch * 8);
+          ldsm_x4(a[m], A + (m * 16 + a_row) * lda + (k0 - k_lo) + kk * 16 +
+                            a_ch * 8);
         else
           ldsm_x4(a[m], sb + swz(s.rows + m * 16 + a_row, 2 * kk + a_ch));
       }
@@ -270,17 +320,32 @@ __device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
   }
 }
 
+// acc += A[0:64, 0:K] @ Wseg[n0 : n0 + 8 NT, 0:K]^T over the next segment
+// of the schedule (mma_slices)
+template <int NT>
+__device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
+                                         const bf16* A, int lda, int n0) {
+  const Seg s = ring_next_seg(r);
+  mma_slices<NT>(r, acc, s, A, lda, n0, 0, s.K);
+}
+
 // ---- shared memory of the per-tile pass -----------------------------------
-// the ring (1024-byte aligned for the swizzle), its barriers, X (T, LDX),
-// two activation / cotangent buffers (T, LDH), the ReLU mask bits, the
-// raw cotangent g (T, 4), a reduction scratch; K3/K4 add the windows
-// (T, J) after it
+// the ring (1024-byte aligned for the swizzle), its barriers, X, two
+// activation / cotangent buffers (T, LDH), the ReLU mask bits, the raw
+// cotangent g (T, 4), a reduction scratch; K3/K4 add the windows (T, J)
+// after it.  X is the whole trunk input (T, LDX) where that fits in a
+// block's 227 KB, else a buffer of XCH columns that its products refill
+// from the workspace's copy (ring_mma_x).
 constexpr int MASK_BYTES = DEPTH * NWARP * T * 4;  // [layer][warp][row][q]
 constexpr int NRED = NTHREAD + NWARP;
-constexpr size_t SMEM_TILE =
-    1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
-    sizeof(bf16) * (size_t)T * (LDX + 2 * LDH) + MASK_BYTES +
-    sizeof(float) * (T * 4 + NRED);
+constexpr size_t tile_smem_bytes(int ldx) {
+  return 1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
+         sizeof(bf16) * (size_t)T * (ldx + 2 * LDH) + MASK_BYTES +
+         sizeof(float) * (T * 4 + NRED);
+}
+constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX) <= 232448;
+constexpr int LDXB = BWD_X_RESIDENT ? LDX : XCH + 8;
+constexpr size_t SMEM_TILE = tile_smem_bytes(LDXB);
 
 struct TileSmem {
   bf16* ring;
@@ -300,13 +365,40 @@ __device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
   s.ring = reinterpret_cast<bf16*>(base + pad);
   s.bars = reinterpret_cast<uint64_t*>(s.ring + NSTAGE * STAGE);
   s.X = reinterpret_cast<bf16*>(s.bars + 16);
-  s.H0 = s.X + T * LDX;
+  s.H0 = s.X + T * LDXB;
   s.H1 = s.H0 + T * LDH;
   s.mask = reinterpret_cast<uint8_t*>(s.H1 + T * LDH);
   s.gsm = reinterpret_cast<float*>(s.mask + MASK_BYTES);
   s.red = s.gsm + T * 4;
   s.end = s.red + NRED;
   return s;
+}
+
+// acc += X @ Wseg[n0 : n0 + 8 NT, :]^T over the next segment, whose A
+// operand is the trunk input X: resident in sm.X, or, where it does not
+// fit, copied from the tile's rows xg of the workspace (stride DXP) into
+// sm.X XCH columns at a time between two barriers of the consumer warps.
+template <int NT>
+__device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
+                                           const TileSmem& sm,
+                                           const bf16* __restrict__ xg,
+                                           int n0) {
+  if constexpr (BWD_X_RESIDENT) {
+    ring_mma<NT>(r, acc, sm.X, LDXB, n0);
+  } else {
+    const Seg s = ring_next_seg(r);
+    for (int c0 = 0; c0 < s.K; c0 += XCH) {
+      const int c1 = min(c0 + XCH, s.K), per_row = (c1 - c0) / 8;
+      sync_tile();  // every warp is past its reads of the last columns
+      for (int idx = threadIdx.x; idx < T * per_row; idx += NTHREAD) {
+        const int t = idx / per_row, c = (idx - t * per_row) * 8;
+        *reinterpret_cast<uint4*>(sm.X + t * LDXB + c) =
+            *reinterpret_cast<const uint4*>(xg + (size_t)t * DXP + c0 + c);
+      }
+      sync_tile();
+      mma_slices<NT>(r, acc, s, sm.X, LDXB, n0, c0, c1);
+    }
+  }
 }
 
 // ---- epilogues ------------------------------------------------------------
@@ -466,7 +558,8 @@ __device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
 
 // The MLP backward of one tile for net `net` through the ring `rg` (whose
 // schedule is at the net's first segment): X complete in shared memory
-// and the tile's views input in wk.xv[net]; sm.gsm the tile's raw
+// where it stays resident, and in any case the tile's rows of it at xg
+// (wk.x) and its views input in wk.xv[net]; sm.gsm the tile's raw
 // cotangent (T, 4) [rgb, alpha].  Bn: the net's packed biases; Wb: its
 // backward pack (the head weights are read from it directly).  Writes
 // every bf16 activation and cotangent, the f32 input cotangents gx/gxv
@@ -475,7 +568,8 @@ __device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
 __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
                                              const bf16* __restrict__ Wb,
                                              const float* __restrict__ Bn,
-                                             const Work& wk, int net, int t0) {
+                                             const Work& wk, int net, int t0,
+                                             const bf16* xg = nullptr) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* GSM = sm.gsm;
   float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
@@ -486,7 +580,7 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   // ---- forward recompute: activations to device memory, masks kept ---
   float acc[4][4][4];
   zero_acc<4>(acc);
-  ring_mma<4>(rg, acc, sm.X, LDX, nw);
+  ring_mma_x<4>(rg, acc, sm, xg, nw);
   store_relu_mask(acc, Bn, sm.H0, sm.mask, nw);
   sync_tile();
   copy_rows(act, DEPTH * W, sm.H0, LDH, W);
@@ -496,7 +590,7 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   for (int i = 1; i < DEPTH; ++i) {
     zero_acc<4>(acc);
     ring_mma<4>(rg, acc, hin, LDH, nw);
-    if (i == SKIP + 1) ring_mma<4>(rg, acc, sm.X, LDX, nw);
+    if (i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
     store_relu_mask(acc, Bn + i * W, hout, sm.mask + i * MASK_BYTES / DEPTH,
                     nw);
     sync_tile();
@@ -605,10 +699,10 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   copy_rows(gp + (DEPTH - 1) * W, DEPTH * W, gin_b, LDH, W);
 
   // ---- the trunk in reverse ----------------------------------------
-  float* gx = wk.gx[net] + (size_t)t0 * DX;
+  float* gx = wk.gx[net] + (size_t)t0 * DXP;
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
-    if (i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DX, nw);
+    if (i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DXP, nw);
     zero_acc<4>(acc);
     ring_mma<4>(rg, acc, gin_b, LDH, nw);
     mask_emit(acc, sm.mask + (i - 1) * MASK_BYTES / DEPTH,
@@ -619,7 +713,7 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
     gin_b = gout_b;
     gout_b = tmp;
   }
-  ring_to_global<true>(rg, gin_b, gx, DX, nw);
+  ring_to_global<true>(rg, gin_b, gx, DXP, nw);
   sync_tile();  // the next net may take every buffer
 }
 
@@ -792,11 +886,11 @@ cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
     const bf16* act = wk.act[k];
     const bf16* gp = wk.gp[k];
     const int LA = DEPTH * W;
-    add_job(js, tiles, wk.x, DX, DX, gp, LA, W, o);
+    add_job(js, tiles, wk.x, DXP, DXP, gp, LA, W, o);
     for (int i = 1; i < DEPTH; ++i)
       add_job(js, tiles, act + (i - 1) * W, LA, W, gp + i * W, LA, W,
               o + off_h(i));
-    add_job(js, tiles, wk.x, DX, DX, gp + (SKIP + 1) * W, LA, W,
+    add_job(js, tiles, wk.x, DXP, DXP, gp + (SKIP + 1) * W, LA, W,
             o + OFF_SKIPX);
     add_job(js, tiles, act + (DEPTH - 1) * W, LA, W, wk.gs[k] + 3, NGS, 1,
             o + G_A);

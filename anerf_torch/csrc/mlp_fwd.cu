@@ -5,28 +5,35 @@
 // trainable cutoffs, shapes K1-K4 are not compiled for, such as
 // surreal_single's view encoding without PE bands) run on encodings
 // computed outside the kernel.  The encodings arrive as separate bf16
-// part arrays, never concatenated in device memory: the trunk parts (kp
-// encoding 360, bone encoding 72) must sum to 432, the views parts (view
-// encoding 648 or 72, the subject channel 1 of a multi-subject model,
-// framecodes 16) to at most 672.  Out: raw (n, 4) f32, row-major [r, g,
-// b, alpha], as the TPU kernel writes it.
+// part arrays, never concatenated in device memory: the trunk parts (the
+// kp and bone encodings, 360 + 72 for the flagship's) must sum to DX,
+// the width the library is built for (nvcc -DANERF_DX=..., 1 to 2048,
+// 432 by default; the TPU kernel compiles per shape too), the views
+// parts (view encoding 648, 216 or 72, the subject channel 1 of a
+// multi-subject model, framecodes 16) to at most 672.  Out: raw (n, 4)
+// f32, row-major [r, g, b, alpha], as the TPU kernel writes it.
 //
 // Per block: 64 points, two consumer warpgroups and a producer warp.
 // The block copies its rows of every part into shared memory at the
 // part's column offset (load_parts: a part's 64 rows are one contiguous
 // 16-byte-aligned run, read 16 bytes at a time and scattered value by
 // value, since a 649-wide bf16 row is 1298 bytes and rows are not even
-// 4-byte aligned), zero-fills the views input up to 672 columns and the
-// rows past n, while the producer warp has the first weight slices in
-// flight; then it runs K1's MLP body (mlp_fwd_tile, mlp_fwd_common.cuh):
+// 4-byte aligned), zero-fills the views input up to 672 columns, the
+// trunk input up to the 16-column k-step and the rows past n, while the
+// producer warp has the first weight slices in flight; then it runs K1's MLP body (mlp_fwd_tile, mlp_fwd_common.cuh):
 // every weight through the TMA-fed ring of k-slices in shared memory,
 // every product on wgmma with the activations from registers, the views
 // input's product first so that the activation buffers can take its
-// place.  Numeric chain as in the TPU kernel: f32 bias and ReLU, a bf16
+// place.  A trunk input wider than 592 columns does not fit beside the
+// ring and the activations in a block's 227 KB: layer 0 and the skip
+// layer then read it from the parts 256 columns at a time into a buffer
+// that their products refill between two barriers (ring_wgmma_x); the
+// sums run in the same order.  Numeric chain as in the TPU kernel: f32 bias and ReLU, a bf16
 // re-cast between layers, feat rounded to bf16 after its bias, alpha and
 // rgb in f32.
 //
-// Bound: 864,000 MACs (1.73 MFLOP) a point against ~2.2 KB of part
+// Bound: 864,000 MACs (1.73 MFLOP) a point at the flagship's widths
+// (1,232,640 at a 1152-wide trunk) against ~2.2 KB (3.6 KB) of part
 // reads, so tensor-core operations bound it.  Each 64-point tile reads
 // the 1.73 MB weight pack from L2 (~3.5 GB at n = 131,072), this
 // design's floor at this tile size, as for K1/K2.
@@ -54,17 +61,17 @@ mlp_fwd_kernel(const Parts xs, const Parts xvs,
     ring_produce(rg);            // slices arrive while the parts load
     return;
   }
-  load_parts(xs, sm.X, LDX, DX, t0, n);
+  if constexpr (FWD_X_RESIDENT) load_parts(xs, sm.X, LDXF, DXP, t0, n);
   load_parts(xvs, sm.XV, LDXV, DXV, t0, n);
   sync_tile();
-  mlp_fwd_tile(rg, sm, wpack, bpack, out, 1, 4, t0, n);
+  mlp_fwd_tile(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs);
 }
 
 }  // namespace
 
 extern "C" {
 
-// xs: nx trunk part pointers (n, xw[k]) bf16, summing to 432 columns;
+// xs: nx trunk part pointers (n, xw[k]) bf16, summing to DX columns;
 // xvs: nxv views part pointers (n, xvw[k]) bf16, at most 672 columns;
 // wpack/bpack: one packed weight set; out (n, 4) f32.
 int mlp_fwd(const void* const* xs, const int* xw, int nx,
@@ -89,7 +96,9 @@ int mlp_fwd(const void* const* xs, const int* xw, int nx,
   return (int)cudaGetLastError();
 }
 
-// Sizes of one packed weight set, for the wrapper's checks.
+// The build's trunk width and the sizes of one packed weight set, for
+// the wrapper's checks.
+int mlp_trunk_width(void) { return DX; }
 long long mlp_weight_elems(void) { return (long long)WSZ; }
 int mlp_bias_elems(void) { return BSZ; }
 

@@ -18,7 +18,8 @@
 // across stages instead holds two stages per warp, so the producer runs
 // a stage less ahead; on the card that measured slower, PERF.md §6.)
 //
-// Shared memory: the ring (4 stages of 16 KB), X (T, LDX), and one region
+// Shared memory: the ring (4 stages of 16 KB), X (T, LDX; or, for a trunk
+// input too wide to stay, XCH of its columns at a time), and one region
 // that holds the views input XV (T, LDXV) and then the two activation
 // buffers H0, H1 (T, LDH) over it.  XV feeds one product, the views
 // layer's views-input part, so that product runs first, right after the
@@ -39,13 +40,13 @@ static_assert(DEPTH == 8 && SKIP == 4, "FSEGS is written for 8 layers, skip 4");
 #define FWD_SEG_LIST                                                      \
   {                                                                       \
     {0, (int)OFF_VX, HV, DXV, 0},          /* views-input part A = XV  */ \
-    {0, 0, W, DX, 0},                      /* layer 0          A = X   */ \
+    {0, 0, W, DXP, 0},                     /* layer 0          A = X   */ \
     {0, (int)off_h(1), W, W, 0},           /* layers 1-4       A = h   */ \
     {0, (int)off_h(2), W, W, 0},                                          \
     {0, (int)off_h(3), W, W, 0},                                          \
     {0, (int)off_h(4), W, W, 0},                                          \
     {0, (int)off_h(5), W, W, 0},           /* layer 5: h part          */ \
-    {0, (int)OFF_SKIPX, W, DX, 0},         /*   and x part     A = X   */ \
+    {0, (int)OFF_SKIPX, W, DXP, 0},        /*   and x part     A = X   */ \
     {0, (int)off_h(6), W, W, 0},                                          \
     {0, (int)off_h(7), W, W, 0},                                          \
     {0, (int)OFF_F, W, W, 0},              /* feat                     */ \
@@ -106,11 +107,17 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
 
 // ---- shared memory --------------------------------------------------------
 // the ring (1024-byte aligned for the swizzle), its barriers, X, the
-// XV / H0 H1 region; K1/K2 add the windows (T, J) after it
+// XV / H0 H1 region; K1/K2 add the windows (T, J) after it.  X is the
+// whole trunk input (T, LDX) where that fits in a block's 227 KB, else
+// a buffer of XCH columns that its products refill (ring_wgmma_x).
 constexpr size_t XH_ELEMS = (size_t)T * (LDXV > 2 * LDH ? LDXV : 2 * LDH);
-constexpr size_t SMEM_FWD = 1024 + sizeof(bf16) * (size_t)FWD_NSTAGE * STAGE +
-                            sizeof(uint64_t) * 16 +
-                            sizeof(bf16) * ((size_t)T * LDX + XH_ELEMS);
+constexpr size_t fwd_smem_bytes(int ldx) {
+  return 1024 + sizeof(bf16) * (size_t)FWD_NSTAGE * STAGE +
+         sizeof(uint64_t) * 16 + sizeof(bf16) * ((size_t)T * ldx + XH_ELEMS);
+}
+constexpr bool FWD_X_RESIDENT = fwd_smem_bytes(LDX) <= 232448;
+constexpr int LDXF = FWD_X_RESIDENT ? LDX : XCH + 8;
+constexpr size_t SMEM_FWD = fwd_smem_bytes(LDXF);
 static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
 
 struct FwdSmem {
@@ -129,7 +136,7 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* base) {
   s.ring = reinterpret_cast<bf16*>(base + pad);
   s.bars = reinterpret_cast<uint64_t*>(s.ring + FWD_NSTAGE * STAGE);
   s.X = reinterpret_cast<bf16*>(s.bars + 16);
-  s.XV = s.X + T * LDX;
+  s.XV = s.X + T * LDXF;
   s.H0 = s.XV;
   s.H1 = s.H0 + T * LDH;
   s.end = reinterpret_cast<float*>(s.XV + XH_ELEMS);
@@ -215,17 +222,19 @@ __device__ __forceinline__ void zero_wg(float (&d)[NJ][4]) {
     for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
-// d += A[0:64, 0:K] @ Wseg[g 8NJ : (g+1) 8NJ, 0:K]^T over the ring's next
-// segment, for warpgroup g = this thread's: NJ = 16 (N = 128) of a
-// 256-row segment, NJ = 8 (N = 64) of a 128-row one.  A: shared,
-// row-major, stride lda (16-byte aligned rows).  Per stage: this warp's
-// A fragments (two k16 steps, one in the ragged last stage of K = 432),
-// the wait for the stage's bytes, two wgmma, one commit, the wait for
-// them, and this warp's release of the stage.
+// d += A[0:64, k_lo:k_hi] @ Wseg[g 8NJ : (g+1) 8NJ, k_lo:k_hi]^T over the
+// ring's stages of k-slices k_lo .. k_hi - 1 of the current segment, for
+// warpgroup g = this thread's: NJ = 16 (N = 128) of a 256-row segment,
+// NJ = 8 (N = 64) of a 128-row one.  A: shared, row-major, stride lda
+// (16-byte aligned rows), its column 0 at k_lo; k_lo a multiple of KS,
+// k_hi a multiple of 16.  Per stage: this warp's A fragments (two k16
+// steps, one in a ragged last stage such as K = 432's), the wait for the
+// stage's bytes, two wgmma, one commit, the wait for them, and this
+// warp's release of the stage.
 template <int NJ>
-__device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
-                                           const bf16* A, int lda) {
-  const Seg s = ring_next_seg(r);
+__device__ __forceinline__ void wgmma_slices(FwdRing& r, float (&d)[NJ][4],
+                                             const bf16* A, int lda, int k_lo,
+                                             int k_hi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // ldmatrix rows of this warp's A fragment: rows 16 (warp % 4) + 0-15,
   // k 0-7 (lanes 0-15) and 8-15 (lanes 16-31)
@@ -234,11 +243,11 @@ __device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
   // warpgroup g's rows start g * 8NJ rows (64 bytes each) into a stage
   const uint32_t b_off = (uint32_t)(warp >> 2) * NJ * 8 * KS * sizeof(bf16);
   fence_acc(d);
-  for (int k0 = 0; k0 < s.K; k0 += KS) {
-    const bool two = k0 + 16 < s.K;
+  for (int k0 = k_lo; k0 < k_hi; k0 += KS) {
+    const bool two = k0 + 16 < k_hi;
     uint32_t a0[4], a1[4];
-    ldsm_x4(a0, arow + k0);
-    if (two) ldsm_x4(a1, arow + k0 + 16);
+    ldsm_x4(a0, arow + (k0 - k_lo));
+    if (two) ldsm_x4(a1, arow + (k0 - k_lo) + 16);
     mbar_wait(r.full + r.c_slot, r.c_phase);
     const uint64_t desc = wg_desc(r.buf + r.c_slot * STAGE) + (b_off >> 4);
     wg_fence();
@@ -250,6 +259,36 @@ __device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
     ring_advance(r);
   }
   fence_acc(d);
+}
+
+// d += A[0:64, 0:K] @ Wseg^T over the ring's next segment (wgmma_slices)
+template <int NJ>
+__device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
+                                           const bf16* A, int lda) {
+  const Seg s = ring_next_seg(r);
+  wgmma_slices(r, d, A, lda, 0, s.K);
+}
+
+// d += X @ Wseg^T over the ring's next segment, whose A operand is the
+// trunk input X: resident in sm.X, or, where it does not fit, brought
+// from the parts xs into sm.X XCH columns at a time between two
+// barriers of the consumer warps (the producer runs on ahead).
+template <int NJ>
+__device__ __forceinline__ void ring_wgmma_x(FwdRing& r, float (&d)[NJ][4],
+                                             const FwdSmem& sm,
+                                             const Parts* xs, int t0, int n) {
+  if constexpr (FWD_X_RESIDENT) {
+    ring_wgmma(r, d, sm.X, LDXF);
+  } else {
+    const Seg s = ring_next_seg(r);
+    for (int c0 = 0; c0 < s.K; c0 += XCH) {
+      const int c1 = min(c0 + XCH, s.K);
+      sync_tile();  // every warp is past its reads of the last columns
+      load_cols(*xs, sm.X, LDXF, c0, c1, t0, n);
+      sync_tile();
+      wgmma_slices(r, d, sm.X, LDXF, c0, c1);
+    }
+  }
 }
 
 // out[row, col] = bf16(act(d + bias[col])) for this warpgroup's columns
@@ -281,8 +320,9 @@ __device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
 }
 
 // ---- the MLP forward of one 64-point tile ---------------------------------
-// X (the trunk input) and XV (the views input) complete in shared memory
-// and the consumers synchronised; the ring's schedule at the net's first
+// X (the trunk input, where it stays resident; else xs, its parts) and
+// XV (the views input) complete in shared memory and the consumers
+// synchronised; the ring's schedule at the net's first
 // segment.  Wn/Bn = one net's packed weights and biases (the heads'
 // vectors are read from Wn directly).  Writes channel ch of point
 // t0 + t < n to out[ch * cs + (t0 + t) * ps]: (cs, ps) = (n, 1) for
@@ -294,7 +334,8 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
                                              const float* __restrict__ Bn,
                                              float* __restrict__ out,
                                              size_t cs, size_t ps, int t0,
-                                             int n) {
+                                             int n,
+                                             const Parts* xs = nullptr) {
   const int tid = threadIdx.x, wg = tid >> 7;
   // ---- the views layer's views-input part, while XV is resident -------
   float dv[8][4];
@@ -304,7 +345,7 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
   // ---- density trunk -----------------------------------------------------
   float d[16][4];
   zero_wg(d);
-  ring_wgmma(rg, d, sm.X, LDX);
+  ring_wgmma_x(rg, d, sm, xs, t0, n);
   sync_tile();  // every warp is past its reads of XV, which H0 overlays
   store_wg<16, true>(d, Bn, sm.H0, wg * 128);
   sync_tile();
@@ -314,7 +355,7 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
   for (int i = 1; i < DEPTH; ++i) {
     zero_wg(d);
     ring_wgmma(rg, d, hin, LDH);
-    if (i == SKIP + 1) ring_wgmma(rg, d, sm.X, LDX);
+    if (i == SKIP + 1) ring_wgmma_x(rg, d, sm, xs, t0, n);
     store_wg<16, true>(d, Bn + i * W, hout, wg * 128);
     sync_tile();
     bf16* tmp = hin;

@@ -84,13 +84,14 @@ class RayCastConfig:
                                    ray_noise_std=0., pallas_tile=1024)
 
 
-def joint_dists(v: torch.Tensor) -> torch.Tensor:
-    """The per-joint distances the cutoff windows read, given the kp
-    encoder's output ``v``.  Only 'reldist' is ported
-    (``encoders.get_kp_input_fn`` raises on the rest), and its kp input
-    IS the joint distances; the other kp encoders take
-    |pts - kps| here (ROADMAP.md C.2)."""
-    return v
+def joint_dists(rc: RayCastConfig, v: torch.Tensor, pts: torch.Tensor,
+                kps: torch.Tensor) -> torch.Tensor:
+    """The per-joint distances (N_rays, S, J) the cutoff windows read: the
+    kp encoding ``v`` itself when it is a distance ('reldist'), else
+    |pts - kps| per joint (anerf_tpu/models/raycaster.py:134-137)."""
+    if 'dist' in rc.kp_dist_type.lower():
+        return v
+    return torch.linalg.norm(pts[:, :, None] - kps[:, None], dim=-1)
 
 
 def encode_inputs(rc: RayCastConfig,
@@ -121,7 +122,7 @@ def encode_inputs(rc: RayCastConfig,
     v = kp_fn(pts, pts_t, kps)
     r = bone_fn(pts_t, bones) if bone_dims > 0 else None
     d = view_fn(rays_t, pts_t) if rc.use_viewdirs else None
-    j_dists = joint_dists(v)
+    j_dists = joint_dists(rc, v, pts, kps)
 
     cutoff_dist = params['cutoff_dist']
     if not rc.opt_cutoff:
@@ -382,7 +383,7 @@ def render_pts_density(rc: RayCastConfig,
     pts_t = encoders.transform_batch_pts(pts, skts_b)
     v = kp_fn(pts, pts_t, kps)
     r = bone_fn(pts_t, bones) if bone_dims > 0 else None
-    j_dists = joint_dists(v)
+    j_dists = joint_dists(rc, v, pts, kps)
 
     cutoff_dist = params['cutoff_dist']
     if not rc.opt_cutoff:

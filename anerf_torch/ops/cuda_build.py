@@ -3,18 +3,22 @@
 Every source under ``anerf_torch/csrc`` is compiled by ``nvcc`` for
 sm_90a into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so a build takes seconds).  One library per
-source:
+source, and for the split-operand MLP kernels one per trunk width:
 
   * ``fwd``     ``csrc/encmlp_fwd.cu``  K1, K2 (fused encode + MLP);
   * ``bwd``     ``csrc/encmlp_bwd.cu``  K3, K4 (their backwards);
   * ``mlp_fwd`` ``csrc/mlp_fwd.cu``     K5 (split-operand MLP);
   * ``mlp_bwd`` ``csrc/mlp_bwd.cu``     K6 (its backward).
 
-``build_kernels`` starts one nvcc per source, all together, into
-``anerf_torch/_build/``; each library is keyed by the hash of its source
-and of the shared headers (``csrc/*.cuh``), so an edit rebuilds it.
-Nothing here runs at import: the CPU tests import every module, and
-this machine may have no nvcc.
+K5 and K6 are compiled for one trunk width each (``-DANERF_DX=dx``, the
+sum of the trunk parts: 432 at the flagship's encoders, 117, 1152 or
+1197 at others'), as the TPU's Mosaic compiles its kernel per static
+shape.  ``build_kernels`` starts one nvcc per library it lacks, all
+together, into ``anerf_torch/_build/``; each library is keyed by the
+hash of its source, the shared headers (``csrc/*.cuh``) and its trunk
+width, so an edit rebuilds it.  ``library`` builds a width at its first
+use.  Nothing here runs at import: the CPU tests import every module,
+and this machine may have no nvcc.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -34,8 +38,23 @@ _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 _CSRC = os.path.join(_ROOT, 'csrc')
 _SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
             'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu'}
+# the libraries built per trunk width, and the width of K1-K4's trunk
+_SHAPED = ('mlp_fwd', 'mlp_bwd')
+FLAGSHIP_DX = 432
 _BUILD_DIR = os.path.join(_ROOT, '_build')
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# (library, trunk width or None) -> the loaded library
+_LIBS: Dict[Tuple[str, Optional[int]], ctypes.CDLL] = {}
+
+
+def lib_key(which: str, dx: Optional[int] = None
+            ) -> Tuple[str, Optional[int]]:
+    """``_LIBS``'s key of library ``which`` (at trunk width ``dx`` for
+    K5/K6, the flagship's by default)."""
+    if which not in _SOURCES:
+        raise KeyError(f'no library {which!r}')
+    if which in _SHAPED:
+        return which, FLAGSHIP_DX if dx is None else int(dx)
+    return which, None
 
 
 def _nvcc() -> str:
@@ -74,6 +93,7 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, bpack,
         # out, n, stream
         sig('mlp_fwd', [vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, vp])
+        sig('mlp_trunk_width', [])
         sig('mlp_weight_elems', [], cll)
         sig('mlp_bias_elems', [])
     else:
@@ -82,14 +102,21 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         sig('mlp_bwd', [vp, vp, ci, vp, vp, ci] + [vp] * 9 + [ci, vp])
         sig('mlp_bwd_workspace_bytes', [ci], cll)
         sig('mlp_grad_weight_elems', [], cll)
+        sig('mlp_trunk_width', [])
 
 
-def build_kernels(verbose: bool = False) -> float:
-    """Compile every source for sm_90a into ``_build/``, one nvcc per
-    source, all started together, and load the libraries.  Returns the
-    seconds spent (0 when all were loaded already).  A failed build
-    raises with nvcc's output."""
-    if len(_LIBS) == len(_SOURCES):
+def build_kernels(verbose: bool = False,
+                  trunk_widths: Iterable[int] = ()) -> float:
+    """Compile every library not loaded yet for sm_90a into ``_build/``:
+    K1-K4's and K5/K6's at the flagship's trunk width, and K5/K6's at each
+    of ``trunk_widths``; one nvcc per library, all started together.
+    Load them, and return the seconds spent (0 when all were loaded
+    already).  A failed build raises with nvcc's output."""
+    wanted = [lib_key(w) for w in _SOURCES]
+    wanted += [lib_key(w, dx) for dx in sorted(set(trunk_widths))
+               for w in _SHAPED]
+    todo = [k for k in dict.fromkeys(wanted) if k not in _LIBS]
+    if not todo:
         return 0.
     t0 = time.perf_counter()
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -98,50 +125,59 @@ def build_kernels(verbose: bool = False) -> float:
         with open(h, 'rb') as f:
             headers += f.read()
     jobs = {}
-    for which, name in _SOURCES.items():
+    for key in todo:
+        which, dx = key
+        name = _SOURCES[which]
         src = os.path.join(_CSRC, name)
         with open(src, 'rb') as f:
-            digest = hashlib.sha1(f.read() + headers).hexdigest()[:12]
-        so = os.path.join(_BUILD_DIR, f'lib{name[:-3]}_{digest}.so')
+            digest = hashlib.sha1(f.read() + headers + str(dx).encode()
+                                  ).hexdigest()[:12]
+        tag = name[:-3] if dx is None else f'{name[:-3]}_dx{dx}'
+        so = os.path.join(_BUILD_DIR, f'lib{tag}_{digest}.so')
         if os.path.exists(so):
-            jobs[which] = (so, None, None)
+            jobs[key] = (so, None, None)
             continue
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
                '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
                '-o', tmp, src]
+        if dx is not None:
+            cmd[1:1] = [f'-DANERF_DX={dx}']
         if verbose:
             cmd[1:1] = ['-Xptxas', '-v']
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[which] = (so, tmp, proc)
+        jobs[key] = (so, tmp, proc)
     errors = []
-    for which, (so, tmp, proc) in jobs.items():
+    for key, (so, tmp, proc) in jobs.items():
         if proc is None:
             continue
         out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            errors.append(f'nvcc {which} failed ({proc.returncode}):\n{out}')
+            errors.append(f'nvcc {key} failed ({proc.returncode}):\n{out}')
             continue
         if verbose:
             print(out)
         os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))
-    for which, (so, _, _) in jobs.items():
+    for key, (so, _, _) in jobs.items():
         lib = ctypes.CDLL(so)
-        _bind(lib, which)
-        _LIBS[which] = lib
+        _bind(lib, key[0])
+        _LIBS[key] = lib
     return time.perf_counter() - t0
 
 
-def library(which: str) -> ctypes.CDLL:
-    """The loaded library ``which`` (see the module docstring), built
-    on first use."""
-    build_kernels()
-    return _LIBS[which]
+def library(which: str, dx: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library ``which`` (see the module docstring; K5/K6's at
+    trunk width ``dx``, the flagship's by default), built on first
+    use."""
+    key = lib_key(which, dx)
+    if key not in _LIBS:
+        build_kernels(trunk_widths=() if key[1] is None else (key[1],))
+    return _LIBS[key]
 
 
 def device_of(t: torch.Tensor) -> str:

@@ -32,7 +32,10 @@ class EmbedConfig:
     cutoff_inputs: bool = False        # window the raw-input row too
     cut_to_cutoff: bool = False        # x <- cutoff - x    (cut_to_dist)
     shift_inputs: bool = False         # x <- 2x/cutoff - 1 (cutoff_shift)
-    normalize: bool = False            # not ported (ROADMAP.md)
+    # L2-normalize each 3-channel feature group, zeroing the groups
+    # whose window weight is ~0 (anerf_tpu's reading of the reference's
+    # unreachable branch, cutoff_embedder.py:161-170)
+    normalize: bool = False
     freq_schedule: bool = False        # BARF-style coarse-to-fine
     init_alpha: float = 0.
     cutoff_dim: int = 24               # J: number of joints (window count)
@@ -119,9 +122,6 @@ def embed(inputs: torch.Tensor,
     """
     if not cfg.cutoff:
         return _plain_embed(inputs, cfg), None
-    if cfg.normalize:
-        raise NotImplementedError(
-            'normalize_cutoff is not ported yet (ROADMAP.md)')
 
     assert dists is not None and cutoff_dist is not None and tau is not None
     C = cfg.input_dims
@@ -162,6 +162,16 @@ def embed(inputs: torch.Tensor,
         enc = torch.cat([x_b, enc], dim=-2)
     else:
         enc = enc * w
+    if cfg.normalize:
+        # each 3-channel group to unit length (enc has the window's per
+        # sample shape by now); groups whose window vanished are zeroed
+        # (the three channels of a group share one weight)
+        assert C % 3 == 0, 'normalize_cutoff needs 3-channel groups'
+        g = enc.reshape(enc.shape[:-1] + (C // 3, 3))
+        g = g / torch.linalg.norm(g, dim=-1, keepdim=True).clamp(min=1e-12)
+        w_g = w.reshape(w.shape[:-1] + (C // 3, 3))[..., :1]
+        g = torch.where(w_g.abs() <= 1e-6, torch.zeros_like(g), g)
+        enc = g.reshape(enc.shape)
     return enc.reshape(enc.shape[:-2] + (enc.shape[-2] * C,)), w
 
 

@@ -1,14 +1,18 @@
 """Skeleton-relative input encoders in PyTorch.
 
-Port of ``anerf_tpu/ops/encoders.py`` (reference core/encoders.py) for
-the encoder types the flagship recipe uses: 'reldist' joint distances,
-'reldir' bone directions and 'relray' view directions.  The other
-encoder types are not ported yet (ROADMAP.md A.6).
+Port of ``anerf_tpu/ops/encoders.py`` (reference core/encoders.py):
+keypoint encoders 'reldist' (joint distances), 'relpos' (joint offsets),
+'cat' (the point and every keypoint) and 'querypts' (the point); view
+encoders 'relray' (local ray directions), 'rayangle' (the angle between
+local point and ray) and 'world' (local ray directions per sample);
+bone encoders 'reldir' (local point directions), 'axisang' (the pose's
+bone rotations per sample) and 'Nope'.
 """
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 
@@ -64,6 +68,29 @@ def rel_dist(pts, pts_t, kps):
     return torch.linalg.norm(pts[:, :, None] - kps[:, None], dim=-1)
 
 
+def rel_pos(pts, pts_t, kps):
+    """Per-joint offsets flattened joint-major: (N_rays, N_samples, J*3)
+    (reference RelPosEncoder, encoders.py:124-142)."""
+    if pts_t is not None:
+        return pts_t.reshape(pts_t.shape[:-2] + (-1,))
+    d = pts[:, :, None] - kps[:, None]
+    return d.reshape(d.shape[:-2] + (-1,))
+
+
+def kp_cat(pts, pts_t, kps):
+    """The world point and every keypoint: (..., 3 + J*3)
+    (reference KPCatEncoder, encoders.py:144-169)."""
+    flat_kps = kps[:, None].expand(pts.shape[:2] + kps.shape[-2:])
+    flat_kps = flat_kps.reshape(flat_kps.shape[:-2] + (-1,))
+    return torch.cat([pts, flat_kps], -1)
+
+
+def identity_pts(pts, pts_t, kps):
+    """The raw query points (reference IdentityEncoder,
+    encoders.py:57-68)."""
+    return pts
+
+
 def vec_norm(vecs, refs=None):
     """L2-normalize the last dim and flatten per-joint vectors
     (reference VecNormEncoder, encoders.py:172-193).  The sample axis of
@@ -73,13 +100,36 @@ def vec_norm(vecs, refs=None):
     return n.reshape(n.shape[:2] + (-1,))
 
 
+def ray_ang(rays_t, pts_t):
+    """The angle between local point and local ray direction, minus
+    pi/2: (N_rays, N_samples, J) (reference RayAngEncoder ->
+    calculate_angle, encoders.py:195-212, skeleton_utils.py:594-605)."""
+    dot = (pts_t * rays_t).sum(-1)
+    na = torch.linalg.norm(pts_t, dim=-1)
+    nb = torch.linalg.norm(rays_t, dim=-1)
+    cos = torch.clamp(dot / (na * nb), -1. + 1e-6, 1. - 1e-6)
+    return torch.arccos(cos) - 0.5 * np.pi
+
+
+def identity_expand(x, refs):
+    """A per-ray feature broadcast across the samples of ``refs``
+    (reference IdentityExpandEncoder, encoders.py:71-79)."""
+    flat = x.reshape(x.shape[0], 1, -1)
+    return flat.expand(refs.shape[:2] + flat.shape[-1:])
+
+
 def get_kp_input_fn(kp_dist_type: str, n_joints: int
                     ) -> Tuple[Callable, int, int]:
     """Returns (fn(pts, pts_t, kps), input_dims, cutoff_dims)."""
     if kp_dist_type == 'reldist':
         return rel_dist, n_joints, n_joints
-    raise NotImplementedError(
-        f'kp_dist_type {kp_dist_type!r} is not ported yet (ROADMAP.md)')
+    if kp_dist_type == 'relpos':
+        return rel_pos, n_joints * 3, n_joints
+    if kp_dist_type == 'cat':
+        return kp_cat, n_joints * 3 + 3, n_joints
+    if kp_dist_type == 'querypts':
+        return identity_pts, 3, 3
+    raise NotImplementedError(f'{kp_dist_type} is not implemented.')
 
 
 def get_view_input_fn(view_type: str, n_joints: int) -> Tuple[Callable, int]:
@@ -87,15 +137,21 @@ def get_view_input_fn(view_type: str, n_joints: int) -> Tuple[Callable, int]:
     if view_type == 'relray':
         return (lambda rays_t, pts_t: vec_norm(rays_t, refs=pts_t),
                 n_joints * 3)
-    raise NotImplementedError(
-        f'view_type {view_type!r} is not ported yet (ROADMAP.md)')
+    if view_type == 'rayangle':
+        return ray_ang, n_joints
+    if view_type == 'world':
+        return (lambda rays_t, pts_t: identity_expand(rays_t, pts_t),
+                n_joints * 3)
+    raise NotImplementedError(f'{view_type} is not implemented.')
 
 
 def get_bone_input_fn(bone_type: str, n_joints: int) -> Tuple[Callable, int]:
     """Returns (fn(pts_t, bones), bone_dims)."""
     if bone_type == 'reldir':
         return (lambda pts_t, bones: vec_norm(pts_t)), n_joints * 3
+    if bone_type == 'axisang':
+        return ((lambda pts_t, bones: identity_expand(bones, pts_t)),
+                n_joints * 3)
     if bone_type == 'Nope':
         return (lambda pts_t, bones: None), 0
-    raise NotImplementedError(
-        f'bone_type {bone_type!r} is not ported yet (ROADMAP.md)')
+    raise NotImplementedError(f'{bone_type} bone function is not implemented')

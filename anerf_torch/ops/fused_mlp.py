@@ -26,7 +26,11 @@ compiled for such as surreal_single's):
 They take the encodings as separate bf16 part arrays (kp and bone
 encodings for the trunk; view encoding, the subject channel of a
 multi-subject model and framecodes for the views branch) and never
-concatenate them in device memory.  ``nerf_mlp_fused`` runs K5 inside ``_FusedMLP``, a
+concatenate them in device memory.  Each is compiled for one trunk
+width, the sum of the trunk parts (``cuda_build.library(which, dx)``:
+432 at the flagship's encoders, 117, 1152 or 1197 at 'querypts',
+'relpos' or 'cat'), as the TPU kernel compiles per static shape.
+``nerf_mlp_fused`` runs K5 inside ``_FusedMLP``, a
 ``torch.autograd.Function`` whose backward is K6, so the gradients
 reach every part and every weight on every device.  Beside each kernel
 is its plain twin (``mlp_fwd_plain``, ``mlp_bwd_plain``); the wrappers
@@ -119,26 +123,48 @@ def flatten_params(net_params: Dict[str, Any], st: MLPStatic
     return flat
 
 
+def _dx_pad(st: MLPStatic) -> int:
+    """The trunk input's width in the kernels' layouts: the parts' sum
+    rounded up to the 16-deep k-step (``DXP``, csrc/encmlp_common.cuh)."""
+    return -(-st.dnet // 16) * 16
+
+
+def _weight_blocks(st: MLPStatic) -> List[Tuple[Tuple[int, int],
+                                                torch.dtype, int]]:
+    """(shape, dtype, zero rows after it in the kernels' layouts) of every
+    ``flatten_params`` operand, in order: the last trunk part of layer 0
+    and of the skip layer is followed by the trunk input's padding to
+    ``_dx_pad``, the last views part by the views input's to
+    ``_XV_PAD``."""
+    blocks: List[Tuple[Tuple[int, int], torch.dtype, int]] = []
+    W, H = st.width, st.half
+    b16, f32 = torch.bfloat16, torch.float32
+    xpad = _dx_pad(st) - st.dnet
+
+    x_parts = [((d, W), b16, xpad if k == len(st.dparts) - 1 else 0)
+               for k, d in enumerate(st.dparts)]
+    for i in range(st.depth):
+        if i == 0:
+            blocks += x_parts
+        else:
+            blocks.append(((W, W), b16, 0))
+            if st.has_x_part(i):
+                blocks += x_parts
+        blocks.append(((1, W), f32, 0))
+    blocks += [((W, 1), b16, 0), ((1, 1), f32, 0),
+               ((W, W), b16, 0), ((1, W), f32, 0),
+               ((W, H), b16, 0)]
+    vpad = _XV_PAD - sum(st.vparts)
+    blocks += [((d, H), b16, vpad if k == len(st.vparts) - 1 else 0)
+               for k, d in enumerate(st.vparts)]
+    blocks += [((1, H), f32, 0), ((H, 3), b16, 0), ((1, 3), f32, 0)]
+    return blocks
+
+
 def _weight_shapes(st: MLPStatic) -> List[Tuple[Tuple[int, int],
                                                 torch.dtype]]:
     """(shape, dtype) of every ``flatten_params`` operand, in order."""
-    shapes: List[Tuple[Tuple[int, int], torch.dtype]] = []
-    W, H = st.width, st.half
-    b16, f32 = torch.bfloat16, torch.float32
-    for i in range(st.depth):
-        if i == 0:
-            shapes += [((d, W), b16) for d in st.dparts]
-        else:
-            shapes.append(((W, W), b16))
-            if st.has_x_part(i):
-                shapes += [((d, W), b16) for d in st.dparts]
-        shapes.append(((1, W), f32))
-    shapes += [((W, 1), b16), ((1, 1), f32),
-               ((W, W), b16), ((1, W), f32),
-               ((W, H), b16)]
-    shapes += [((d, H), b16) for d in st.vparts]
-    shapes += [((1, H), f32), ((H, 3), b16), ((1, 3), f32)]
-    return shapes
+    return [(shape, dtype) for shape, dtype, _ in _weight_blocks(st)]
 
 
 def _mlp_macs(st: MLPStatic) -> int:
@@ -303,11 +329,12 @@ def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
 
     bf16 buffer, each weight TRANSPOSED to (out, in) with the input
     parts of one product concatenated along ``in`` (zero rows padding
-    the views input to a multiple of 16):
-      L0 [v|r] (256, 432); L1-L4 (256, 256); L5 h (256, 256) then
-      [v|r] (256, 432); L6, L7 (256, 256); feature (256, 256); views
-      feature-part (128, 256) then [xv|codes|0] (128, 672);
-      alpha (256,); rgb (3, 128).
+    the trunk input to ``_dx_pad`` and the views input to 672, both
+    multiples of 16):
+      L0 [v|r|0] (256, DXP: 432 at the flagship's encoders);
+      L1-L4 (256, 256); L5 h (256, 256) then [v|r|0] (256, DXP);
+      L6, L7 (256, 256); feature (256, 256); views feature-part
+      (128, 256) then [xv|codes|0] (128, 672); alpha (256,); rgb (3, 128).
     f32 buffer: b0..b7 (8 x 256), feature bias (256), views bias (128),
     alpha bias (1), rgb biases (3).
     """
@@ -316,12 +343,20 @@ def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
     w_parts: List[torch.Tensor] = []
     biases: List[torch.Tensor] = []
     t = lambda w: w.t().reshape(-1)
+
+    def x_block():
+        ws = [next(it) for _ in range(nx)]
+        pad = _dx_pad(st) - st.dnet
+        if pad:
+            ws.append(torch.zeros((pad, ws[0].shape[1]), dtype=ws[0].dtype,
+                                  device=ws[0].device))
+        return t(torch.cat(ws, 0))
     for i in range(st.depth):
         if i == 0:
-            w_parts.append(t(torch.cat([next(it) for _ in range(nx)], 0)))
+            w_parts.append(x_block())
         elif st.has_x_part(i):
             w_parts.append(t(next(it)))
-            w_parts.append(t(torch.cat([next(it) for _ in range(nx)], 0)))
+            w_parts.append(x_block())
         else:
             w_parts.append(t(next(it)))
         biases.append(next(it).reshape(-1))
@@ -349,9 +384,10 @@ def _grad_layout(st: MLPStatic) -> List[Tuple[str, int, Tuple[int, int]]]:
 
     The weight buffer holds every weight as (in, out) row-major in
     flatten order, which puts the input parts of one product side by
-    side (L0 [v|r] (432, 256), L5 h then [v|r], ..., views feature part
-    then [xv|codes|0] (672, 128)): the layout ``_pack_bwd_weights``
-    writes and ``csrc/mlp_bwd_common.cuh`` reads.  The bias buffer has the
+    side, followed by the zero rows of the input's padding (L0
+    [v|r|0] (DXP, 256), L5 h then [v|r|0], ..., views feature part then
+    [xv|codes|0] (672, 128)): the layout ``_pack_bwd_weights`` writes
+    and ``csrc/mlp_bwd_common.cuh`` reads.  The bias buffer has the
     forward's bias layout (b0..b7, feature, views, alpha, rgb).
     """
     W, H = st.width, st.half
@@ -360,13 +396,10 @@ def _grad_layout(st: MLPStatic) -> List[Tuple[str, int, Tuple[int, int]]]:
     ob_r = ob_a + 1
     out: List[Tuple[str, int, Tuple[int, int]]] = []
     woff = 0
-    vx_last = len(_weight_shapes(st)) - 4      # the last views x-part
-    for idx, (shape, dtype) in enumerate(_weight_shapes(st)):
+    for shape, dtype, pad in _weight_blocks(st):
         if dtype == torch.bfloat16:
             out.append(('w', woff, shape))
-            woff += shape[0] * shape[1]
-            if idx == vx_last:
-                woff += (_XV_PAD - sum(st.vparts)) * H
+            woff += (shape[0] + pad) * shape[1]
         else:
             out.append(('b', 0, shape))
     biases = [i for i, (k, _, _) in enumerate(out) if k == 'b']
@@ -380,7 +413,7 @@ def _pack_bwd_weights(flat: Sequence[torch.Tensor], st: MLPStatic
                       ) -> torch.Tensor:
     """The backward kernels' bf16 weight buffer: every weight at its
     ``_grad_layout`` offset, untransposed (in, out), zeros in the gaps
-    (the rows past the views input parts).  The backward products
+    (the rows past the trunk and the views input parts).  The backward products
     contract over a layer's outputs, so their B fragments read these
     rows whole."""
     parts, pos = [], 0
@@ -415,9 +448,10 @@ K6_LAUNCHES = 0
 
 # the MLP the kernels are compiled for (csrc/encmlp_common.cuh): 8 x 256
 # with the skip after layer 4, views branch 128, trunk parts summing to
-# 432 and views parts to at most 672, at most 4 parts of each
+# 1-2048 (a library per sum, ops/cuda_build.py) and views parts to at
+# most 672, at most 4 parts of each
 _KERNEL_MLP = dict(depth=8, width=256, half=128, skips=(4,))
-_DX, _MAX_PARTS = 432, 4
+_MAX_DX, _MAX_PARTS = 2048, 4
 
 
 def reset_launch_counts() -> None:
@@ -450,13 +484,14 @@ def mlp_bwd_plain(st: MLPStatic, xs, xvs, flat, g):
 def _check_kernel_shape(st: MLPStatic) -> None:
     got = dict(depth=st.depth, width=st.width, half=st.half,
                skips=tuple(st.skips))
-    if (got != _KERNEL_MLP or st.dnet != _DX or st.xv > _XV_PAD
+    if (got != _KERNEL_MLP or not 1 <= st.dnet <= _MAX_DX
+            or st.xv > _XV_PAD
             or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
         raise NotImplementedError(
             f'the split-MLP CUDA kernels are built for {_KERNEL_MLP} with '
-            f'trunk parts summing to {_DX} and views parts to at most '
-            f'{_XV_PAD}; got {got}, parts {st.dparts} / {st.vparts}: other '
-            'shapes are not ported yet (ROADMAP.md)')
+            f'trunk parts summing to at most {_MAX_DX} and views parts to '
+            f'at most {_XV_PAD}; got {got}, parts {st.dparts} / '
+            f'{st.vparts}: other shapes are not ported yet (ROADMAP.md)')
 
 
 def _check_parts(st: MLPStatic, xs, xvs) -> int:
@@ -484,6 +519,16 @@ def _part_args(ts):
             (ctypes.c_int * len(ts))(*[t.shape[1] for t in ts]))
 
 
+def _library(which: str, st: MLPStatic):
+    """K5's or K6's library for the trunk width of ``st``, built at its
+    first use."""
+    lib = cuda_build.library(which, st.dnet)
+    if lib.mlp_trunk_width() != st.dnet:
+        raise RuntimeError(f'{which} library built for trunk width '
+                           f'{lib.mlp_trunk_width()}, not {st.dnet}')
+    return lib
+
+
 def _packs(lib, flat, st):
     wbuf, bbuf = _pack_kernel_weights(flat, st)
     if (wbuf.numel() != lib.mlp_weight_elems()
@@ -505,7 +550,7 @@ def mlp_fwd(st: MLPStatic, xs: Sequence[torch.Tensor],
         return mlp_fwd_plain(st, xs, xvs, flat)
     _check_kernel_shape(st)
     dev = xs[0].device
-    lib = cuda_build.library('mlp_fwd')
+    lib = _library('mlp_fwd', st)
     wbuf, bbuf = _packs(lib, flat, st)
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
     (xp, xw), (vp, vw) = _part_args(xs), _part_args(xvs)
@@ -537,8 +582,8 @@ def mlp_bwd(st: MLPStatic, xs: Sequence[torch.Tensor],
         return mlp_bwd_plain(st, xs, xvs, flat, g)
     _check_kernel_shape(st)
     dev = xs[0].device
-    lib = cuda_build.library('mlp_bwd')
-    wbuf, bbuf = _packs(cuda_build.library('mlp_fwd'), flat, st)
+    lib = _library('mlp_bwd', st)
+    wbuf, bbuf = _packs(_library('mlp_fwd', st), flat, st)
     wbuf_b = _pack_bwd_weights(flat, st)
     n_dw = lib.mlp_grad_weight_elems()
     if wbuf_b.numel() != n_dw:

@@ -5,9 +5,6 @@ PoseOptLayer :240-445, create_popt :14-83; the in-trainer pose losses,
 core/trainer.py:382-441).  The bank is a plain dict {'pelvis': (N, 3),
 'bones': (N, J, 3|6)} (plus 'root_bones' under a multiview ``kp_map``);
 a batch gathers its rows per ray and FK runs differentiably in the step.
-
-Not ported yet: ``kp_reg_loss_legacy`` (off the trainer's path;
-ROADMAP.md A.6).
 """
 from __future__ import annotations
 
@@ -96,6 +93,87 @@ def kp_reg_loss(bones: torch.Tensor, rots: torch.Tensor,
     if per_ray:
         return hinged.sum(-1).mean(-1) * coef
     return hinged.sum(-1).mean() * coef
+
+
+def kp_reg_loss_legacy(preds: Dict[str, torch.Tensor],
+                       regs: Dict[str, torch.Tensor],
+                       opt_pose_type: str = 'B',
+                       opt_pose_tol: float = 0.,
+                       opt_pose_coef: float = 1.0,
+                       use_rot6d: bool = False,
+                       temp_coef: float = 0.,
+                       use_temp_vel: bool = False,
+                       ext_scale: float = 0.001,
+                       gt_kps: Optional[torch.Tensor] = None,
+                       root_id: int = 0) -> Dict[str, torch.Tensor]:
+    """The reference's richer pose-regularization family
+    (``get_kp_reg_loss``, pose_opt.py:124-201).  ``opt_pose_type``:
+
+      * ``B…``: bone-space loss against the anchor bones (their rot6d
+        when ``use_rot6d``), plus a pelvis-position term;
+      * ``RD…``: rotation-matrix loss against the anchor rotations;
+      * ``…L1`` anywhere: L1 instead of the squared error;
+      * ``…E``: the coefficient not on the global sum: only the non-root
+        bone terms are kept (no pelvis term).
+
+    ``preds``/``regs`` need {'kps', 'bones', 'rots'}; ``regs`` may add
+    {'temp_bones', 'temp_kps', 'temp_rots', 'temp_valid',
+    'temp_valid_next'} (previous and next frames stacked on dim 0) for
+    the temporal terms.  Returns {'kp_loss', 'temp_loss', 'mpjpc'} and,
+    given ``gt_kps``, 'kp_gt_dist'.
+    """
+    kps, bones, rots = preds['kps'], preds['bones'], preds['rots']
+    reg_kps, reg_bones, reg_rots = regs['kps'], regs['bones'], regs['rots']
+    if 'L1' in opt_pose_type:
+        loss_fn = lambda a, b: (a - b).abs()      # noqa: E731
+    else:
+        loss_fn = lambda a, b: (a - b) ** 2       # noqa: E731
+    if use_rot6d:
+        reg_bones = rot_to_rot6d(reg_rots)
+    if opt_pose_type.startswith('RD'):
+        # (N, J, 3, 3): hinged and summed over the last axis only, so the
+        # row axis stays in the mean, as in the reference
+        bone_loss = loss_fn(rots, reg_rots)
+    elif opt_pose_type.startswith('B'):
+        bone_loss = loss_fn(reg_bones, bones)
+    else:
+        raise NotImplementedError(
+            f'opt_pose_type {opt_pose_type}: regularization target '
+            'un-specified')
+    pelv_loss = loss_fn(reg_kps[:, root_id], kps[:, root_id]).sum(-1)
+    # hinge: 0 below tol, loss - tol above (pose_opt.py:156-160)
+    mask = (bone_loss > opt_pose_tol).to(bone_loss.dtype)
+    bone_loss = ((bone_loss - opt_pose_tol) * mask).sum(-1)
+    if 'E' not in opt_pose_type:
+        kp_loss = (bone_loss.mean() + pelv_loss.mean()) * opt_pose_coef
+    else:
+        kp_loss = bone_loss[:, root_id + 1:].mean() * opt_pose_coef
+
+    temp_loss = torch.zeros((), dtype=kp_loss.dtype, device=kp_loss.device)
+    if temp_coef > 0. and 'temp_bones' in regs:
+        temp_valid = regs['temp_valid']
+        temp_bones = (rot_to_rot6d(regs['temp_rots']) if use_rot6d
+                      else regs['temp_bones'])
+        prev_bones, next_bones = torch.chunk(temp_bones, 2, 0)
+        prev_kps, next_kps = torch.chunk(regs['temp_kps'], 2, 0)
+        if not use_temp_vel:
+            t = loss_fn(prev_bones, bones).sum(-1)
+            temp_loss = (t * temp_valid[..., None]).mean() * temp_coef
+        else:
+            valid = torch.div(temp_valid + regs['temp_valid_next'], 2,
+                              rounding_mode='floor')
+            ang_vel = ((bones - prev_bones) - (next_bones - bones)) ** 2
+            joint_vel = ((kps - prev_kps) - (next_kps - kps)) ** 2
+            t = ang_vel.sum(-1) + joint_vel.sum(-1)
+            temp_loss = (t * valid[..., None]).mean() * temp_coef
+        kp_loss = kp_loss + temp_loss
+    # the whole difference detached (reference trainer.py:437-441)
+    mpjpc = ((reg_kps - kps).detach() ** 2).sum(-1).sqrt().mean() / ext_scale
+    out = {'kp_loss': kp_loss, 'temp_loss': temp_loss, 'mpjpc': mpjpc}
+    if gt_kps is not None:
+        out['kp_gt_dist'] = torch.linalg.norm(
+            kps.detach() - gt_kps, dim=-1).mean() / ext_scale
+    return out
 
 
 def temporal_loss(bones: torch.Tensor, kps: torch.Tensor,

@@ -96,14 +96,32 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    computed on the host CPU (off the joints, where the bone direction
    has none), and a mesh with vertices; seconds per bullet frame and eval rays/s through the
    entry point, the grid's device ms and points/s, and the host's
-   meshing and turntable seconds.
+   meshing and turntable seconds;
+13. grammar phases (run after 8; K5/K6 are also built for the trunk
+   widths 117, 1152 and 1197 at the start): K5 and K6 at those widths
+   (the kp + bone encodings of 'querypts' + 'axisang', 'relpos' +
+   'axisang' and 'cat' + 'reldir') held against their twins at a
+   ragged 4104 points with views 216 (+16) and 648 + 1 (+16), two calls
+   bit-identical, and timed at n=131,072 with K6's passes; then the
+   'relpos' + 'axisang' + 'rayangle' recipe at full width
+   (``build_flagship(2048)``, cutoff windows on): 12 train steps with
+   K5/K6 three times a step and K1-K4 never, losses finite and falling,
+   fused gradients against the plain backend's, train rays/s and a
+   profile of one step, and one 512x512 bullet-time frame (K5 three
+   times a chunk, one chunk against the plain path); then 'cat' +
+   'reldir' + 'world' and 'querypts' + 'axisang' + 'relray' without
+   cutoff windows and 'relpos' + 'reldir' + 'relray' with
+   ``normalize_cutoff``: one chunk rendered and 2 train steps each
+   through K5/K6.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of the run whose shapes
 its row times: the flagship train steps for K1-K4, the multi-subject
 train step for K5/K6; K1's and K2's rows add ``train_shape``, the
-backward kernels' ``passes_ms``, and K1-K4's ``cli_train_shape`` the
-times, bound, error and launches at the CLI mixamo step's shapes),
+backward kernels' ``passes_ms``, K1-K4's ``cli_train_shape`` the
+times, bound, error and launches at the CLI mixamo step's shapes, and
+K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
+the launches of the path that runs each),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -517,23 +535,24 @@ def bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device, R=2048):
 
 def split_inputs(FM, T, cfg, rc2, params2, R, S, device, codes=True,
                  cat_subject=False):
-    """K5/K6 operands at R rays x S samples of the two-subject scene
-    (``synthetic_pose(n_subjects=2)``): the plain encoders' encodings
-    (``raycaster.encode_inputs``) as the train step makes them, the
-    subject channel as its own part as the raycaster hands it over
-    (``cat_subject``: appended to the view encoding, anerf_tpu's
-    649-wide part), the fine net's framecodes as their own part
-    (``codes=False``: a net without them).  Returns (st, xs, xvs,
-    flat)."""
+    """K5/K6 operands at R rays x S samples of the synthetic scene of
+    ``rc2``'s subjects (``synthetic_pose(n_subjects=...)``): the plain
+    encoders' encodings (``raycaster.encode_inputs``) as the train step
+    makes them, for a model of several subjects the subject channel as
+    its own part as the raycaster hands it over (``cat_subject``:
+    appended to the view encoding, anerf_tpu's 649-wide part), the fine
+    net's framecodes as their own part (``codes=False``: a net without
+    them).  Returns (st, xs, xvs, flat)."""
     import torch
     from anerf_torch.models import raycaster
     from anerf_torch.models.factory import embed_state
     from anerf_torch.models.nerf_mlp import framecode_select
     from anerf_torch.ops import rays as ray_ops
-    _, bones, _, kps, skts, cyls = T.synthetic_pose(9, n_subjects=2)
+    ns = rc2.n_subjects
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(9, n_subjects=ns)
     b = T.to_device(T.synthetic_batch(R, 9, kps, skts, bones, cyls, seed=1),
                     device)
-    subj = torch.as_tensor(T.subject_of_frame(9, 2), device=device)
+    subj = torch.as_tensor(T.subject_of_frame(9, ns), device=device)
     near, far = ray_ops.get_near_far_in_cylinder(b['rays_o'], b['rays_d'],
                                                  b['cyls'], 0., 1.)
     z = ray_ops.sample_from_lineseg(near, far, S)
@@ -545,8 +564,11 @@ def split_inputs(FM, T, cfg, rc2, params2, R, S, device, codes=True,
                                           b['rays_d'], pose,
                                           embed_state(cfg, rc2, 10000))
         ch = subj[b['kp_idx']].to(d.dtype)[:, None, None].expand(R, S, 1)
-        parts = [[v, r], [torch.cat([d, ch], -1)] if cat_subject
-                 else [d, ch]]
+        if ns == 1:
+            parts = [[v, r], [d]]
+        else:
+            parts = [[v, r], [torch.cat([d, ch], -1)] if cat_subject
+                     else [d, ch]]
         if codes:
             c = framecode_select(net['framecodes'], b['cam_idxs'])
             parts[1].append(c[:, None].expand(R, S, c.shape[-1]))
@@ -875,21 +897,17 @@ def check_backend_grads(setup, state, batch, device, what):
                                 for c, k, r in worst[:3]))
 
 
-def ms_train_phase(FE, T, device, gpu_line):
-    """MS_STEPS multi-subject train steps (``build_flagship(2048,
-    n_subjects=2)``) through K5/K6; returns the launch counts of the
-    run.  Then the fused-vs-plain gradients of one step, and the
-    subject channel reaching the output."""
+def split_train(FE, T, device, gpu_line, what, build, n_steps, falls):
+    """``n_steps`` train steps of the setup ``build()`` makes, which the
+    fused backend routes to the plain encode and K5/K6 (after one
+    warm-up step on a separate state): K5 and K6 must launch 3 times a
+    step and K1-K4 never, the losses must be finite (and, ``falls``, the
+    last three below the first three); train rays/s over steps 2 to the
+    last, ms/step, peak memory and a profile of one step, then the
+    fused-vs-plain gradients of one step.  Returns (setup, state, batch,
+    launch counts)."""
     import torch
-    from anerf_torch.models import raycaster
-    from anerf_torch.models.factory import embed_state
-
-    def build():
-        return T.build_flagship(2048, n_subjects=2, device=device,
-                                compute_dtype='bfloat16')
     setup, state, batch, step = build()
-    if setup.rc.mlp_backend != 'fused' or setup.rc.n_subjects != 2:
-        raise AssertionError('the multi-subject setup changed')
     gen = torch.Generator(device=device).manual_seed(0)
     state, _ = step(state, batch, gen)          # warm-up
     torch.cuda.synchronize()
@@ -897,11 +915,11 @@ def ms_train_phase(FE, T, device, gpu_line):
     gen = torch.Generator(device=device).manual_seed(0)
     losses = []
     FE.reset_launch_counts()
-    for i in range(MS_STEPS):
+    for i in range(n_steps):
         if i == 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        if i == MS_STEPS - 1:
+        if i == n_steps - 1:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         state, stats = step(state, batch, gen)
@@ -911,21 +929,43 @@ def ms_train_phase(FE, T, device, gpu_line):
     counts = FE.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu()
-    print(f'multi-subject train: {MS_STEPS} steps, launches {counts}')
+    print(f'{what}: {n_steps} steps, launches {counts}')
     expect = {k: 0 for k in counts}
-    expect.update(mlp_fwd=3 * MS_STEPS, mlp_bwd=3 * MS_STEPS)
+    expect.update(mlp_fwd=3 * n_steps, mlp_bwd=3 * n_steps)
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
-    n_timed = MS_STEPS - 2
-    print(f'multi-subject train: total_loss {losses[0]:.5f} -> '
+    if falls and not losses[-3:].mean() < losses[:3].mean():
+        raise AssertionError(f'the loss did not fall: {losses.tolist()}')
+    n_timed = n_steps - 2
+    print(f'{what}: total_loss {losses[0]:.5f} -> '
           f'{losses[-1]:.5f}; {2048 * n_timed / dt:.1f} train rays/s, '
-          f'{dt / n_timed * 1e3:.2f} ms/step over steps 2-{MS_STEPS - 1}, '
+          f'{dt / n_timed * 1e3:.2f} ms/step over steps 2-{n_steps - 1}, '
           f'peak device memory of a step {peak / 2**30:.2f} GiB '
           f'({gpu_line})')
     profile_step(step, state, batch, gen, K5_K6_GROUPS)
-    check_backend_grads(setup, state, batch, device, 'multi-subject train')
+    check_backend_grads(setup, state, batch, device, what)
+    return setup, state, batch, counts
+
+
+def ms_train_phase(FE, T, device, gpu_line):
+    """MS_STEPS multi-subject train steps (``build_flagship(2048,
+    n_subjects=2)``) through K5/K6 (``split_train``); returns the launch
+    counts of the run.  Then the subject channel reaching the output."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+
+    def build():
+        out = T.build_flagship(2048, n_subjects=2, device=device,
+                               compute_dtype='bfloat16')
+        if out[0].rc.mlp_backend != 'fused' or out[0].rc.n_subjects != 2:
+            raise AssertionError('the multi-subject setup changed')
+        return out
+    setup, state, batch, counts = split_train(
+        FE, T, device, gpu_line, 'multi-subject train', build, MS_STEPS,
+        falls=False)
 
     # the same rays as subject 0 and as subject 1: other colors, the
     # same densities (the channel enters the views branch only)
@@ -963,9 +1003,6 @@ def single_net_phase(FE, T, device, gpu_line):
     finite and within ``MAP_TOL`` of the plain path), then
     ``SINGLE_STEPS`` train steps (K5 and K6 twice a step, finite losses).
     Returns the launch counts of the train steps."""
-    import torch
-    from anerf_torch.models import raycaster
-    from anerf_torch.models.factory import embed_state
     from anerf_torch.utils.config import parse_config_txt
     over = parse_config_txt(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), 'configs',
@@ -979,6 +1016,23 @@ def single_net_phase(FE, T, device, gpu_line):
     if (rc.mlp_backend != 'fused' or not rc.single_net
             or rc.view_embed.num_freqs != 0 or FE.kernel_shape_ok(rc)):
         raise AssertionError('the surreal_single recipe changed')
+    return split_chunk_and_steps(FE, device, gpu_line, 'surreal_single',
+                                 setup, state, batch, step, 2, SINGLE_STEPS)
+
+
+def split_chunk_and_steps(FE, device, gpu_line, what, setup, state, batch,
+                          step, passes, n_steps):
+    """A recipe the fused backend routes to the plain encode and K5/K6,
+    checked on the card: one chunk of the train batch's rays rendered at
+    the eval variant (K5 ``passes`` times: once per net and sample set,
+    K1-K4 never; maps finite and within ``MAP_TOL`` of the plain path,
+    and not empty), then ``n_steps`` train steps (K5 and K6 ``passes``
+    times a step, finite losses).  Returns the launch counts of the train
+    steps."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    rc = setup.rc
     pose = {k: batch[k] for k in ('kps', 'skts', 'bones', 'cyls')}
     res = {}
     for backend in ('fused', 'plain'):
@@ -993,42 +1047,212 @@ def single_net_phase(FE, T, device, gpu_line):
         torch.cuda.synchronize()
         if backend == 'fused':
             counts = FE.launch_counts()
-    print(f'surreal_single render: {batch["rays_o"].shape[0]} rays, '
+    print(f'{what} render: {batch["rays_o"].shape[0]} rays, '
           f'launches {counts}')
     expect = {k: 0 for k in counts}
-    expect['mlp_fwd'] = 2
+    expect['mlp_fwd'] = passes
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
         ref, got = res['plain'][k], res['fused'][k]
         if not torch.isfinite(got).all():
-            raise AssertionError(f'surreal_single: non-finite {k}')
+            raise AssertionError(f'{what}: non-finite {k}')
         scale = ref.abs().max().item() + 1e-6
         err = (ref - got).abs().max().item()
-        print(f'  surreal_single {k}: max|d| {err:.3e} scale {scale:.3e}')
+        print(f'  {what} {k}: max|d| {err:.3e} scale {scale:.3e}')
         if err > MAP_TOL * scale:
-            raise AssertionError(f'surreal_single: fused path disagrees on {k}')
+            raise AssertionError(f'{what}: fused path disagrees on {k}')
     if res['fused']['acc_map'].max() < 0.5:
-        raise AssertionError('surreal_single: empty maps, the check above '
-                             'would be vacuous')
+        raise AssertionError(f'{what}: empty maps, the check above would '
+                             'be vacuous')
     gen = torch.Generator(device=device).manual_seed(0)
     FE.reset_launch_counts()
     losses = []
-    for _ in range(SINGLE_STEPS):
+    for _ in range(n_steps):
         state, stats = step(state, batch, gen)
         losses.append(stats['total_loss'])
     torch.cuda.synchronize()
     counts = FE.launch_counts()
     losses = torch.stack(losses).cpu()
-    print(f'surreal_single train: {SINGLE_STEPS} steps, launches {counts}, '
+    print(f'{what} train: {n_steps} steps, launches {counts}, '
           f'total_loss {losses.tolist()} ({gpu_line})')
     expect = {k: 0 for k in counts}
-    expect.update(mlp_fwd=2 * SINGLE_STEPS, mlp_bwd=2 * SINGLE_STEPS)
+    expect.update(mlp_fwd=passes * n_steps, mlp_bwd=passes * n_steps)
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
     return counts
+
+
+# the grammar phase: the encoders outside the flagship recipe.  K5/K6 are
+# built for a trunk width each besides the flagship's 432: the SURREAL
+# recipe's kp + bone encodings of 'querypts' + 'axisang' (45 + 72),
+# 'relpos' + 'axisang' (1080 + 72) and 'cat' + 'reldir' (1125 + 72)
+GRAMMAR_WIDTHS = {117: dict(kp_dist_type='querypts', bone_type='axisang',
+                            use_cutoff=False),
+                  1152: dict(kp_dist_type='relpos', bone_type='axisang'),
+                  1197: dict(kp_dist_type='cat', bone_type='reldir',
+                             use_cutoff=False)}
+# the recipe trained and rendered at full width: a 1152-wide trunk, the
+# 'rayangle' view encoding (216) and framecodes (16)
+GRAMMAR_RECIPE = dict(kp_dist_type='relpos', bone_type='axisang',
+                      view_type='rayangle')
+GRAMMAR_STEPS = 12
+# the other combinations, checked, not timed: (overrides, the seed of
+# weights whose fine net's random density is positive inside the
+# subject's cylinder, so that the chunk has content)
+GRAMMAR_COMBOS = {
+    'cat-reldir-world': (dict(kp_dist_type='cat', bone_type='reldir',
+                              view_type='world', use_cutoff=False), 2),
+    'querypts-axisang-relray': (dict(kp_dist_type='querypts',
+                                     bone_type='axisang', view_type='relray',
+                                     use_cutoff=False), 1),
+    'relpos-reldir-relray-normalize': (dict(kp_dist_type='relpos',
+                                            normalize_cutoff=True), 1)}
+GRAMMAR_COMBO_STEPS = 2
+
+
+def _grammar_model(T, device, seed, n_subjects=1, **over):
+    """(cfg, rc, params on ``device``) of the SURREAL recipe with the
+    encoder overrides ``over``, weights from ``seed``."""
+    import torch
+    from anerf_torch.interop import params_to
+    from anerf_torch.models.factory import (build_raycast_config,
+                                            init_raycaster_params)
+    cfg = T.surreal_config(compute_dtype='bfloat16', **over)
+    rc = build_raycast_config(cfg, n_framecodes=9, n_subjects=n_subjects)
+    params = params_to(init_raycaster_params(
+        torch.Generator().manual_seed(seed), rc, cfg), device)
+    return cfg, rc, params
+
+
+def _check_cotangent(g):
+    """K6's incoming cotangent (n, 4) must reach a good share of the
+    points, or the check against the twin compares zeros."""
+    share = (g.abs().sum(-1) > 0).float().mean().item()
+    print(f'  cotangent non-zero on {share:.1%} of the points')
+    if share < 0.25:
+        raise AssertionError('K6 cotangent is zero on most points: the '
+                             'check would be vacuous')
+
+
+def grammar_kernel_phase(FM, T, peaks, device):
+    """K5 and K6 built for the trunk widths of ``GRAMMAR_WIDTHS`` against
+    their twins on the plain encoders' encodings of each: at a ragged
+    4104 points (S=24, R=171) with the views input 'rayangle' (216) of a
+    one-subject model and 'relray' + subject channel (648 + 1) of a
+    two-subject one, each with and without framecodes (16); then at the
+    train step's coarse samples (R=2048 x S=64, n=131,072, views
+    216 + 16), with kernel and twin time, bound and TFLOP/s, and K6's
+    passes.  Every check also holds two calls bit-identical.  The
+    weights come from seed 3, whose fine net's random density is
+    positive on most points at every width, as the multi-subject
+    model's seed 4 is at 432 (K6's cotangent, that of a composited
+    loss, is zero where the density is: a check on weights of no
+    density, such as seed 4's here, compares zeros).  Returns {width:
+    (K5 row, K6 row)} at n=131,072."""
+    import torch
+    rows = {}
+    for dx, over in GRAMMAR_WIDTHS.items():
+        for view, ns in (('rayangle', 1), ('relray', 2)):
+            cfg, rc, params = _grammar_model(T, device, 3, ns, view_type=view,
+                                             **over)
+            for codes in (True, False):
+                st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, 171,
+                                                 24, device, codes)
+                if st.dnet != dx:
+                    raise AssertionError(f'trunk {st.dparts}, expected {dx}')
+                print(f'mlp_fwd, mlp_bwd n=4104 S=24 parts {st.dparts} / '
+                      f'{st.vparts}:')
+                run, plain = _split_calls(FM, st, xs, xvs, flat)
+                _check_close('mlp_fwd', plain(), run())
+                _check_deterministic('mlp_fwd', _named(run()), _named(run()))
+                g = _split_cotangent(FM, st, xs, xvs, flat, 24, device)
+                _check_cotangent(g)
+                run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+                got = run()
+                _check_bwd('mlp_bwd', plain(), got)
+                _check_deterministic('mlp_bwd', got, run())
+        cfg, rc, params = _grammar_model(T, device, 3, view_type='rayangle',
+                                         **over)
+        st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, 2048, 64,
+                                         device)
+        n = 2048 * 64
+        run, plain = _split_calls(FM, st, xs, xvs, flat)
+        got = run()
+        print(f'mlp_fwd trunk {dx} R=2048 S=64:')
+        max_abs = _check_close('mlp_fwd', plain(), got)
+        _check_deterministic('mlp_fwd', _named(got), _named(run()))
+        del got
+        fwd = _timed_row(
+            'mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
+            _time_ms(run, 10), _time_ms(plain, 2), max_abs, peaks,
+            f'trunk {st.dparts} views {st.vparts} n={n}',
+            tpu_file='pallas_mlp.py')
+        g = _split_cotangent(FM, st, xs, xvs, flat, 64, device)
+        _check_cotangent(g)
+        run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+        got = run()
+        print(f'mlp_bwd trunk {dx} R=2048 S=64:')
+        max_abs = _check_bwd('mlp_bwd', plain(), got)
+        _check_deterministic('mlp_bwd', got, run())
+        del got
+        bwd = _timed_row(
+            'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
+            _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
+            f'trunk {st.dparts} views {st.vparts} n={n}',
+            tpu_file='pallas_mlp.py')
+        bwd['passes_ms'] = pass_times('mlp_bwd', run, f'trunk {dx} n={n}')
+        rows[dx] = (fwd, bwd)
+    return rows
+
+
+def grammar_path_phase(FE, T, device, gpu_line):
+    """``GRAMMAR_RECIPE`` at full width on the card (a 1152-wide trunk
+    and views of 216 + 16, which the fused backend routes to the plain
+    encode and K5/K6): ``GRAMMAR_STEPS`` train steps of
+    ``build_flagship(2048)`` (``split_train``: K5/K6 three times a step,
+    K1-K4 never, losses finite and falling, fused gradients against the
+    plain backend's), then one bullet-time frame at 512x512 in 4096-ray
+    chunks (``path_phase``: K5 three times a chunk, one chunk against the
+    plain path).  Returns the launch counts of the train steps and of the
+    frame."""
+    def build():
+        out = T.build_flagship(2048, device=device, compute_dtype='bfloat16',
+                               **GRAMMAR_RECIPE)
+        rc = out[0].rc
+        if (rc.mlp_backend != 'fused' or FE.kernel_shape_ok(rc)
+                or rc.kp_embed.out_dim + rc.bone_embed.out_dim != 1152
+                or rc.view_embed.out_dim != 216):
+            raise AssertionError('the grammar recipe changed')
+        return out
+    counts = split_train(FE, T, device, gpu_line, 'grammar train', build,
+                         GRAMMAR_STEPS, falls=True)[3]
+    # weights from seed 1, whose random density is positive inside the
+    # subject's cylinder
+    cfg, rc, params = _grammar_model(T, device, 1, **GRAMMAR_RECIPE)
+    render = path_phase(FE, T, rc, cfg, params, device, gpu_line,
+                        {'mlp_fwd': 3}, n_bullet=1, what='grammar path')
+    return counts, render
+
+
+def grammar_combos_phase(FE, T, device, gpu_line):
+    """Each recipe of ``GRAMMAR_COMBOS`` (``build_flagship(2048)`` with
+    the weights of its seed) renders one chunk and takes
+    ``GRAMMAR_COMBO_STEPS`` train steps through K5/K6
+    (``split_chunk_and_steps``).  Returns their launch counts by
+    recipe."""
+    out = {}
+    for name, (over, seed) in GRAMMAR_COMBOS.items():
+        setup, state, batch, step = T.build_flagship(
+            2048, device=device, compute_dtype='bfloat16', seed=seed, **over)
+        if setup.rc.mlp_backend != 'fused' or FE.kernel_shape_ok(setup.rc):
+            raise AssertionError(f'{name}: not on the split route')
+        out[name] = split_chunk_and_steps(FE, device, gpu_line, name, setup,
+                                          state, batch, step, 3,
+                                          GRAMMAR_COMBO_STEPS)
+    return out
 
 
 def _cli_config(config, **over):
@@ -1831,7 +2055,8 @@ def main() -> int:
     print(gpu_line)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {torch.cuda.get_device_name(0)}')
-    build_s = FE.build_kernels(verbose=True)
+    build_s = FE.build_kernels(verbose=True,
+                               trunk_widths=tuple(GRAMMAR_WIDTHS))
     print(f'kernel build: {build_s:.1f} s')
 
     device = torch.device('cuda')
@@ -1855,6 +2080,7 @@ def main() -> int:
     rows = kernel_phase(FE, T, rc, cfg, params, peaks, device)
     rows += bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device)
     rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
+    grammar_rows = grammar_kernel_phase(FM, T, peaks, device)
     paths = {'render': path_phase(FE, T, rc, cfg, params, device, gpu_line,
                                   {'encmlp_fwd': 1, 'encmlp_dual_fwd': 1}),
              'train': train_phase(FE, T, device, gpu_line),
@@ -1863,6 +2089,11 @@ def main() -> int:
                                      what='multi-subject path'),
              'ms_train': ms_train_phase(FE, T, device, gpu_line),
              'single_train': single_net_phase(FE, T, device, gpu_line)}
+    paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
+        FE, T, device, gpu_line)
+    for name, counts in grammar_combos_phase(FE, T, device,
+                                             gpu_line).items():
+        paths[f'grammar_{name}'] = counts
     import shutil
     shutil.rmtree(WORK, ignore_errors=True)
     try:
@@ -1881,9 +2112,22 @@ def main() -> int:
     # K1-K4's cli_train_shape holds the CLI mixamo step's launches with
     # the times at its shapes
     main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train'}
+    # K5/K6 at the grammar's trunk widths: the times at the train step's
+    # coarse samples, the launches of the path that runs that width
+    width_path = {117: 'grammar_querypts-axisang-relray',
+                  1152: 'grammar_train', 1197: 'grammar_cat-reldir-world'}
     for row in rows:
         name = row['name']
         row['launches'] = paths[main_path.get(name, 'train')][name]
+        if name in ('mlp_fwd', 'mlp_bwd'):
+            k = name == 'mlp_bwd'
+            row['trunk_widths'] = {
+                str(dx): dict({f: r[k][f] for f in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err',
+                    'passes_ms') if f in r[k]},
+                    launches=paths[width_path[dx]][name],
+                    launches_path=width_path[dx])
+                for dx, r in grammar_rows.items()}
         if name in cli_shapes:
             row['cli_train_shape'] = dict(
                 cli_shapes[name], launches=paths['cli_train'][name])

@@ -149,7 +149,8 @@ def main() -> int:
     res = {name: {} for name in libs}
 
     def use(name):
-        cuda_build._LIBS.update(libs[name])
+        cuda_build._LIBS.update({cuda_build.lib_key(w): lib
+                                 for w, lib in libs[name].items()})
 
     ok = {}
     for name in libs:

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Every kernel K1-K6 of the tree against another build of the same
+kernels, bit for bit, on one GPU.
+
+    python3 scripts/compare_builds.py BASE_CSRC_DIR
+
+BASE_CSRC_DIR holds another version of ``anerf_torch/csrc`` (for
+instance a parent commit's, unpacked with ``git archive`` into an
+ignored directory).  Its four libraries are built with nvcc beside the
+tree's, at the flagship's trunk width; then each kernel runs on
+``chip_smoke.py``'s inputs (K1/K2 at R=4096 with S=16/64, K3/K4 at the
+train step's R=2048 with their composited cotangents, K5/K6 on the
+two-subject model at n=131,072 and a ragged 4104 points) once with the
+base's libraries and once with the tree's, and every output must be
+bit-identical.  Prints the card's name and power limit; exits non-zero
+on the first difference.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
+           'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu'}
+
+
+def build_base(csrc, out_dir):
+    """{library: loaded CDLL} of the sources in ``csrc``, one nvcc per
+    source, all started together."""
+    from anerf_torch.ops import cuda_build
+    procs = {}
+    for which, name in SOURCES.items():
+        so = os.path.join(out_dir, f'base_{which}.so')
+        cmd = [cuda_build._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+               '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o',
+               so, os.path.join(csrc, name)]
+        procs[which] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    libs = {}
+    for which, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f'base {which} failed to build:\n{log}')
+        lib = ctypes.CDLL(so)
+        if which.startswith('mlp') and not hasattr(lib, 'mlp_trunk_width'):
+            # a build from before K5/K6 took other trunk widths
+            lib.mlp_trunk_width = lambda: cuda_build.FLAGSHIP_DX
+        cuda_build._bind(lib, which)
+        libs[which] = lib
+    return libs
+
+
+def main(base_csrc) -> int:
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from anerf_torch import testing_utils as T
+    from anerf_torch.interop import params_to
+    from anerf_torch.models.factory import (build_raycast_config,
+                                            init_raycaster_params)
+    from anerf_torch.ops import cuda_build
+    from anerf_torch.ops import fused_encmlp as FE
+    from anerf_torch.ops import fused_mlp as FM
+    if not torch.cuda.is_available():
+        print('no CUDA device', file=sys.stderr)
+        return 1
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_build.build_kernels()
+    tree = {cuda_build.lib_key(w): cuda_build._LIBS[cuda_build.lib_key(w)]
+            for w in SOURCES}
+    base = {cuda_build.lib_key(w): lib for w, lib in build_base(
+        os.path.join(ROOT, base_csrc), tempfile.mkdtemp(dir=os.path.join(
+            ROOT, 'anerf_torch', '_build'))).items()}
+    dev = torch.device('cuda')
+    cfg = T.surreal_config(compute_dtype='bfloat16')
+    rc = build_raycast_config(cfg, n_framecodes=9)
+    params = params_to(init_raycaster_params(
+        torch.Generator().manual_seed(1), rc, cfg), dev)
+    rc2 = build_raycast_config(cfg, n_framecodes=9, n_subjects=2)
+    params2 = params_to(init_raycaster_params(
+        torch.Generator().manual_seed(4), rc2, cfg), dev)
+    runs = {}
+    for name, S, nnet, R in (('encmlp_fwd', 16, 1, 4096),
+                             ('encmlp_dual_fwd', 64, 2, 4096)):
+        ins = C.kernel_inputs(FE, T, rc, cfg, params, S, R, dev)
+        runs[name] = lambda ins=ins, nnet=nnet: C._named(
+            C._calls(FE, *ins, nnet)[0]())
+    for name, S, nnet in (('encmlp_dual_bwd', 64, 2), ('encmlp_bwd', 16, 1)):
+        ins = C.kernel_inputs(FE, T, rc, cfg, params, S, 2048, dev)
+        g = C._composited_cotangent(FE, ins, nnet, dev)
+        runs[name] = C._bwd_calls(FE, *ins, g, nnet)[0]
+    for R, S in ((171, 24), (2048, 64)):
+        st, xs, xvs, flat = C.split_inputs(FM, T, cfg, rc2, params2, R, S,
+                                           dev)
+        runs[f'mlp_fwd n={R * S}'] = lambda a=(st, xs, xvs, flat): C._named(
+            C._split_calls(FM, *a)[0]())
+        g = C._split_cotangent(FM, st, xs, xvs, flat, S, dev)
+        runs[f'mlp_bwd n={R * S}'] = C._split_calls(FM, st, xs, xvs, flat,
+                                                    g)[0]
+    for name, run in runs.items():
+        cuda_build._LIBS.update(base)
+        ref = run()
+        cuda_build._LIBS.update(tree)
+        got = run()
+        torch.cuda.synchronize()
+        for (k, a), (_, b) in zip(ref, got):
+            if not torch.equal(a, b):
+                print(f'{name} {k}: the two builds differ, max |d| '
+                      f'{(a.float() - b.float()).abs().max().item():.3e}')
+                return 1
+        print(f'{name}: {len(got)} outputs bit-identical to the base build',
+              flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1]))

@@ -22,9 +22,13 @@ EXPORTS = {
     'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd'),
     'encmlp_bwd.cu': ('encmlp_bwd', 'encmlp_dual_bwd',
                       'encmlp_bwd_workspace_bytes'),
-    'mlp_fwd.cu': ('mlp_fwd',),
-    'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes'),
+    'mlp_fwd.cu': ('mlp_fwd', 'mlp_trunk_width'),
+    'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes', 'mlp_trunk_width'),
 }
+# the trunk widths K5/K6 are built for (nvcc -DANERF_DX=...): resident
+# in shared memory (117, 432) and read in column chunks (1152, 1197),
+# odd widths padded to the k-step (117, 1197)
+TRUNK_WIDTHS = (117, 432, 1152, 1197)
 
 CUDA_RUNTIME_H = r'''
 #pragma once
@@ -114,7 +118,7 @@ typedef unsigned long long uint64_t;
 '''
 
 
-def _parse(path, include_dir):
+def _parse(path, include_dir, defines=()):
     cindex = pytest.importorskip('clang.cindex')
     try:
         index = cindex.Index.create()
@@ -123,7 +127,7 @@ def _parse(path, include_dir):
     return cindex, index.parse(path, args=[
         '-x', 'cuda', '--cuda-device-only', '-nocudainc', '-nocudalib',
         '--cuda-gpu-arch=sm_90a', '-std=c++17', '-nostdinc', '-nostdinc++',
-        f'-I{include_dir}'])
+        f'-I{include_dir}', *[f'-D{d}' for d in defines]])
 
 
 @pytest.fixture(scope='module')
@@ -152,3 +156,17 @@ def test_source_parses_without_errors(source, mock_include):
                and c.is_definition()}
     missing = [f for f in EXPORTS[source] if f not in defined]
     assert not missing, f'{source} does not define {missing}'
+
+
+@pytest.mark.parametrize('dx', TRUNK_WIDTHS)
+@pytest.mark.parametrize('source', ['mlp_fwd.cu', 'mlp_bwd.cu'])
+def test_split_mlp_sources_parse_at_every_trunk_width(source, dx,
+                                                       mock_include):
+    """K5/K6 at each trunk width they are built for: the schedule tables,
+    their coverage checks and the shared-memory budget are static
+    asserts, so a width they cannot take fails here."""
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        [f'ANERF_DX={dx}'])
+    errors = [str(d) for d in tu.diagnostics
+              if d.severity >= cindex.Diagnostic.Error]
+    assert not errors, '\n'.join(errors)

@@ -8,8 +8,12 @@ side pads to a 128-point tile, the port runs the ragged count as it
 is), for the multi-subject part widths (360, 72) / (649, 16) (anerf_tpu's
 view encoding with the subject channel, an odd width), the port's
 multi-subject split (360, 72) / (648, 1, 16) and the single-subject
-(360, 72) / (648, 16).  Inputs come from a numpy seed;
-the weights are JAX's, carried across with ``interop``.
+(360, 72) / (648, 16); and for the trunks of the other kp encoders at
+the SURREAL recipe's widths, each a width of its own K5/K6 build:
+'querypts' (45, 72), 'relpos' (1080, 72) and 'cat' (1125, 72), with
+'rayangle''s view encoding (216, 16) or the multi-subject split
+(648, 1, 16).  Inputs come from a numpy seed; the weights are JAX's,
+carried across with ``interop``.
 
 Bars.  Both sides run the same bf16 chain and differ by f32 summation
 order, and the bf16 re-cast flips that order causes now and then
@@ -39,16 +43,22 @@ from test_torch_fused_bwd import assert_grad_close
 
 N = 200
 PARTS = [((360, 72), (649, 16)), ((360, 72), (648, 1, 16)),
-         ((360, 72), (648, 16))]
-IDS = ['multi-subject', 'subject-part', 'single-subject']
+         ((360, 72), (648, 16)), ((45, 72), (216, 16)),
+         ((1080, 72), (648, 1, 16)), ((1125, 72), (216, 16)),
+         ((1125, 72), (648, 1, 16))]
+IDS = ['multi-subject', 'subject-part', 'single-subject', 'querypts-rayangle',
+       'relpos-subject-part', 'cat-rayangle', 'cat-subject-part']
 
 
-def _net(vparts):
+def _net(vparts, dparts=(360, 72)):
     """(JAX params, port params, JAX config, port config) of one
-    full-width net whose views input takes ``vparts``."""
-    kw = dict(input_ch=360, input_ch_bones=72, input_ch_views=648,
+    full-width net whose trunk takes ``dparts`` and views input
+    ``vparts``."""
+    multi = sum(vparts) == 665
+    kw = dict(input_ch=dparts[0], input_ch_bones=dparts[1],
+              input_ch_views=648 if multi else vparts[0],
               use_framecode=True, framecode_ch=vparts[-1],
-              n_subjects=2 if sum(vparts) == 665 else 1)
+              n_subjects=2 if multi else 1)
     j_cfg = JNeRFConfig(**kw)
     params = j_init(jax.random.PRNGKey(0), j_cfg)
     params.pop('framecodes', None)      # the codes arrive as a part
@@ -65,7 +75,7 @@ def _inputs(dparts, vparts, seed=0):
 
 @pytest.mark.parametrize('dparts,vparts', PARTS, ids=IDS)
 def test_forward_twin_matches_pallas(dparts, vparts):
-    j_params, t_params, j_cfg, t_cfg = _net(vparts)
+    j_params, t_params, j_cfg, t_cfg = _net(vparts, dparts)
     xs, xvs = _inputs(dparts, vparts)
     ref = np.asarray(PM.nerf_mlp_pallas(
         j_params, j_cfg, [jnp.asarray(x) for x in xs],
@@ -84,7 +94,7 @@ def test_forward_twin_matches_pallas(dparts, vparts):
 
 @pytest.mark.parametrize('dparts,vparts', PARTS, ids=IDS)
 def test_backward_twin_matches_pallas_vjp(dparts, vparts):
-    j_params, t_params, j_cfg, t_cfg = _net(vparts)
+    j_params, t_params, j_cfg, t_cfg = _net(vparts, dparts)
     xs, xvs = _inputs(dparts, vparts, seed=1)
     g = np.random.RandomState(2).normal(size=(N, 4)).astype(np.float32)
 
@@ -133,10 +143,13 @@ def test_autograd_function_returns_operand_dtypes():
                          ids=IDS + ['one-part-no-codes'])
 def test_split_weight_layouts_round_trip(dparts, vparts):
     """The packed layouts K5/K6 read hold every ``flatten_params``
-    operand of any part split: the backward pack unpacks to the
-    weights, the views rows past the parts are zero, and the forward
-    pack has the kernels' size."""
-    _, t_params, _, _ = _net((649, 16) if sum(vparts) == 665 else (648, 16))
+    operand of any part split and trunk width: the backward pack
+    unpacks to the weights, the rows past the trunk parts (up to the
+    16-column k-step) and past the views parts are zero in both packs,
+    and both packs have the size of the kernels built for the width."""
+    _, t_params, _, _ = _net(
+        (649, 16) if sum(vparts) == 665 else (vparts[0], 16),
+        dparts if len(dparts) == 2 else (360, 72))
     if len(vparts) == 1:
         wv = t_params['views_linear']['w']
         t_params = dict(t_params, views_linear={
@@ -152,15 +165,31 @@ def test_split_weight_layouts_round_trip(dparts, vparts):
     end = off + shape[0] * shape[1]
     pad = (FM._XV_PAD - sum(vparts)) * st.half
     assert wb[end:end + pad].abs().sum() == 0
-    # the kernels' sizes (csrc: WGSZ = WSZ, BSZ) whatever the split
-    assert wb.numel() == wbuf.numel() == 864896
+    # the trunk input's zero rows (backward) and columns (forward) past
+    # the parts, after layer 0's and the skip layer's x blocks
+    dxp = -(-sum(dparts) // 16) * 16
+    layout = FM._grad_layout(st)
+    x_last = [len(dparts) - 1, 2 * len(dparts) + 9]  # flatten indices
+    for i in x_last:
+        _, off, shape = layout[i]
+        end = off + shape[0] * shape[1]
+        assert wb[end:end + (dxp - sum(dparts)) * 256].abs().sum() == 0
+    for off in (0, 256 * dxp + 5 * 256 * 256):
+        block = wbuf[off:off + 256 * dxp].view(256, dxp)
+        assert block[:, sum(dparts):].abs().sum() == 0
+        assert block[:, :sum(dparts)].abs().sum() > 0
+    # the kernels' sizes (csrc: WGSZ = WSZ, BSZ) whatever the split:
+    # 864,896 at a 432-wide trunk
+    assert wb.numel() == wbuf.numel() == (
+        2 * 256 * dxp + 8 * 256 * 256 + 128 * 256 + 128 * 672 + 256 + 384)
     assert bbuf.numel() == 8 * 256 + 256 + 128 + 1 + 3
 
 
 def test_kernel_cost_and_shape_gate():
     """864,000 MACs a point at the multi-subject widths, 3x the FLOPs
-    backward; shapes the kernels are not built for raise naming
-    ROADMAP.md."""
+    backward; any trunk width of 1-2048 columns passes the gate, and
+    shapes the kernels are not built for (another width, depth or views
+    input; a trunk past 2048) raise naming ROADMAP.md."""
     st = FM.MLPStatic(8, 256, (360, 72), (649, 16), 128, (4,))
     fwd, bwd = FM.kernel_cost(st, 1000), FM.kernel_cost(st, 1000, True)
     assert fwd['bf16_flops'] == 2 * 864000 * 1000
@@ -168,8 +197,12 @@ def test_kernel_cost_and_shape_gate():
     assert fwd['bytes'] > 1000 * (432 + 665) * 2 and bwd['bytes'] > \
         2 * fwd['bytes'] - 1000 * 16
     FM._check_kernel_shape(st)
+    for dparts in ((1,), (45, 72), (360,), (1080, 72), (1125, 72), (2048,)):
+        FM._check_kernel_shape(
+            FM.MLPStatic(8, 256, dparts, (649, 16), 128, (4,)))
     for bad in (FM.MLPStatic(8, 128, (360, 72), (649, 16), 64, (4,)),
-                FM.MLPStatic(8, 256, (360,), (649, 16), 128, (4,)),
+                FM.MLPStatic(6, 256, (360, 72), (649, 16), 128, (4,)),
+                FM.MLPStatic(8, 256, (1977, 72), (649, 16), 128, (4,)),
                 FM.MLPStatic(8, 256, (360, 72), (649, 32), 128, (4,))):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             FM._check_kernel_shape(bad)

@@ -9,7 +9,8 @@ plain encode and the split-operand kernels K5/K6
 (``fused_mlp.nerf_mlp_fused``), as anerf_tpu falls back when its fused
 kernel returns None (anerf_tpu/models/raycaster.py:344-352).  Every
 shipped config builds with the port's encoders; the route is observed
-by counting calls of the kernels' wrappers.
+by counting calls of the kernels' wrappers.  So is that of each encoder
+type of the rest of the grammar: K5/K6 at its trunk width.
 """
 import dataclasses
 import os
@@ -34,6 +35,7 @@ from anerf_torch.models.factory import embed_state as t_embed_state
 from anerf_torch.models.factory import init_raycaster_params as t_init
 from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.ops import fused_mlp as FM
+from anerf_torch.training.trainer import tree_leaves
 from anerf_torch.utils.config import load_config
 
 from test_torch_render import MAPS, _close
@@ -121,6 +123,49 @@ def test_render_route(name, monkeypatch):
         assert calls == {'encmlp_dual_fwd': 1, 'encmlp_fwd': 1}
     else:
         assert calls == {'nerf_mlp_fused': 2 if rc.single_net else 3}
+
+
+# one encoder type of the rest of the grammar each, over the flagship
+# recipe (reldist / reldir / relray); kp 'cat' and 'querypts' without
+# cutoff windows, which their encodings do not fit (anerf_tpu raises)
+GRAMMAR = {'relpos': dict(kp_dist_type='relpos'),
+           'cat': dict(kp_dist_type='cat', use_cutoff=False),
+           'querypts': dict(kp_dist_type='querypts', use_cutoff=False),
+           'rayangle': dict(view_type='rayangle'),
+           'world': dict(view_type='world'),
+           'axisang': dict(bone_type='axisang'),
+           'normalize_cutoff': dict(normalize_cutoff=True)}
+
+
+@pytest.mark.parametrize('name', sorted(GRAMMAR))
+def test_grammar_route(name, monkeypatch):
+    """Every encoder type outside the fused encode (and
+    ``normalize_cutoff``) takes the plain encode and the split kernels on
+    the fused backend: K5's wrapper three times a render and K6's three
+    times its backward, K1-K4's never; K5/K6 take the trunk width."""
+    cfg = T.surreal_config(compute_dtype='bfloat16', **GRAMMAR[name])
+    rc = t_build(cfg, n_framecodes=N_FRAMES)
+    assert rc.mlp_backend == 'fused' and not FE.kernel_shape_ok(rc)
+    FM._check_kernel_shape(_split_static(rc))
+    calls = {}
+    for module, fn in ((FE, 'encmlp_fwd'), (FE, 'encmlp_dual_fwd'),
+                       (FE, 'encmlp_bwd'), (FE, 'encmlp_dual_bwd'),
+                       (FM, 'mlp_fwd'), (FM, 'mlp_bwd')):
+        _spy(monkeypatch, module, fn, calls)
+    rc = dataclasses.replace(rc, N_samples=8, N_importance=4)
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(N_FRAMES)
+    b = T.to_device(T.synthetic_batch(4, N_FRAMES, kps, skts, bones, cyls),
+                    'cpu')
+    params = t_init(torch.Generator().manual_seed(0), rc, cfg)
+    for leaf in tree_leaves([params['coarse'], params['fine']]):
+        leaf.requires_grad_(True)
+    out = trc.render_rays(rc, params, b['rays_o'], b['rays_d'], 0.0, 1.0,
+                          {k: b[k] for k in POSE_KEYS},
+                          t_embed_state(cfg, rc, 0), cam_idxs=b['cam_idxs'])
+    assert calls == {'mlp_fwd': 3}
+    (out['rgb_map'].sum() + out['rgb0'].sum()).backward()
+    assert calls == {'mlp_fwd': 3, 'mlp_bwd': 3}
+    assert params['fine']['pts_linears'][0]['w'].grad is not None
 
 
 def test_surreal_single_fused_matches_jax():
