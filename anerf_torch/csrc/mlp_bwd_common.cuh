@@ -273,7 +273,15 @@ typedef Ring<BwdSched> BwdRing;
 // wait for its bytes, ldmatrix + mma, then the warp's arrival on the
 // stage's empty barrier.  No block barrier: the warps drift apart by up
 // to NSTAGE stages.
-template <int NT>
+//
+// RN: each mma sums its k16 products from zero and the f32 add that
+// takes that sum into acc rounds to nearest.  The tensor cores add the
+// products to the accumulator they are given with truncation, so a
+// chain of mma on one accumulator drifts with its depth; the trunk
+// input's products past 480 columns (1152 deep for 'relpos') drifted
+// far enough to flip ReLU masks that the twin's f32 sums (and an f64
+// evaluation of the chain) keep.
+template <int NT, bool RN = false>
 __device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
                                            const Seg& s, const bf16* A,
                                            int lda, int n0, int k_lo,
@@ -313,7 +321,16 @@ __device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a[m], b[j][0], b[j][1]);
+        for (int j = 0; j < NT; ++j) {
+          if constexpr (RN) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, a[m], b[j][0], b[j][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][j][e] += t[e];
+          } else {
+            mma_bf16(acc[m][j], a[m], b[j][0], b[j][1]);
+          }
+        }
     }
     ring_release(r, r.c_slot);
     ring_advance(r);
@@ -377,7 +394,8 @@ __device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
 // acc += X @ Wseg[n0 : n0 + 8 NT, :]^T over the next segment, whose A
 // operand is the trunk input X: resident in sm.X, or, where it does not
 // fit, copied from the tile's rows xg of the workspace (stride DXP) into
-// sm.X XCH columns at a time between two barriers of the consumer warps.
+// sm.X XCH columns at a time between two barriers of the consumer warps,
+// each mma's sum then added with rounding (mma_slices' RN).
 template <int NT>
 __device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
                                            const TileSmem& sm,
@@ -396,7 +414,7 @@ __device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
             *reinterpret_cast<const uint4*>(xg + (size_t)t * DXP + c0 + c);
       }
       sync_tile();
-      mma_slices<NT>(r, acc, s, sm.X, LDXB, n0, c0, c1);
+      mma_slices<NT, true>(r, acc, s, sm.X, LDXB, n0, c0, c1);
     }
   }
 }

@@ -38,7 +38,14 @@ Beside each kernel is its plain PyTorch twin (``encmlp_fwd_plain``,
 materialized and exact bf16 products summed in f32.  The wrappers take
 the twin for tensors on the CPU only; for CUDA tensors they launch the
 kernel or raise.  Each wrapper counts its launches in a module integer
-(``K1_LAUNCHES`` .. ``K4_LAUNCHES``, read by ``launch_counts()``).
+(``K1_LAUNCHES`` .. ``K4_LAUNCHES``, read by ``launch_counts()``).  In
+a captured CUDA graph (``trainer.make_multi_train_step``) a wrapper
+runs, and counts, once at capture; a replay launches the kernel
+without it, so a replay's launches are counted from a profile.
+Everything a launch needs on the host is made before a capture by the
+eager warm-up steps: the libraries (``cuda_build.library``) and the
+cached index tensors (``_perm_tensors``); the weight packs of a launch
+come from the graph's memory pool and its TMA maps pass by value.
 
 The PE bands use the double-angle recurrence from one sin and one
 cos-as-shifted-sin per joint, as the TPU kernels do (pallas_encmlp.py
@@ -320,7 +327,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel since the last reset: K1-K4 here, K5/K6
-    (``mlp_fwd``, ``mlp_bwd``) from ``fused_mlp.launch_counts``."""
+    (``mlp_fwd``, ``mlp_bwd``) from ``fused_mlp.launch_counts``.  A
+    CUDA graph's launches count at its capture, not at its replays."""
     return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES,
             'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES,
             **fused_mlp.launch_counts()}

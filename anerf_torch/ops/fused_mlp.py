@@ -37,7 +37,8 @@ is its plain twin (``mlp_fwd_plain``, ``mlp_bwd_plain``); the wrappers
 take the twins for CPU tensors only, launch the kernels for CUDA
 tensors, and raise for any other device.  ``K5_LAUNCHES`` and
 ``K6_LAUNCHES`` count the launches (``launch_counts()``, merged into
-``fused_encmlp.launch_counts()``).
+``fused_encmlp.launch_counts()``); in a captured CUDA graph at capture
+only, as ``fused_encmlp``'s counters.
 """
 from __future__ import annotations
 

@@ -11,11 +11,15 @@ so that printing never waits for the step just queued), a validation
 render with PSNR/SSIM every ``i_testset``, and a final checkpoint.  A
 restart in the same logdir resumes from its newest checkpoint.
 
+``--steps_per_dispatch k`` bundles k steps into one call of
+``make_multi_train_step`` (on a GPU k replays of one CUDA graph of the
+step), as ``run_train.py`` does: the cadences are checked after each
+bundle, so they should be multiples of k.
+
 ``train(cfg, device=None)`` is the function form: ``device=None`` means
 the GPU and raises without one; pass ``device='cpu'`` to train on the
-CPU (the fused kernels' plain twins stand in).  Not ported yet, so they
-raise: ``steps_per_dispatch > 1`` (ROADMAP.md A.3) and several devices
-or processes (A.7).
+CPU (the fused kernels' plain twins stand in).  Not ported yet, so it
+raises: several devices or processes (ROADMAP.md A.7).
 """
 from __future__ import annotations
 
@@ -30,10 +34,6 @@ import torch
 
 
 def _check_supported(cfg) -> None:
-    if int(cfg.steps_per_dispatch) > 1:
-        raise NotImplementedError(
-            'steps_per_dispatch > 1 bundles steps into one dispatch, not '
-            'ported yet: ROADMAP.md A.3')
     if (cfg.n_devices or 1) > 1 or int(os.environ.get('WORLD_SIZE', '1')) > 1:
         raise NotImplementedError(
             'training over several devices or processes is not ported '
@@ -80,8 +80,9 @@ def train(cfg, device=None,
 
     ``on_step(i, state, stats)``, when given, is called once before the
     first step (``i`` the start step, ``stats`` None) and then right
-    after each step (``i`` the steps done), before that step's
-    logging, checkpoints and validation."""
+    after each step, or each bundle of ``steps_per_dispatch`` steps
+    (``i`` the steps done), before its logging, checkpoints and
+    validation."""
     from .data.loaders import load_data
     from .data.pipeline import DeviceFeeder
     from .models.factory import build_raycast_config, embed_state
@@ -93,7 +94,8 @@ def train(cfg, device=None,
                                       restore_train_state, save_checkpoint,
                                       save_pose_checkpoint)
     from .training.trainer import (TrainSetup, init_train_state,
-                                   make_train_step)
+                                   make_multi_train_step, make_train_step,
+                                   stack_batches)
     from .utils.config import save_args_txt
     from .utils.device import resolve_device
     from .utils.logging import MetricLogger
@@ -171,7 +173,9 @@ def train(cfg, device=None,
     if anchors is not setup.anchors:
         setup = dataclasses.replace(setup, anchors=anchors)
 
-    step_fn = make_train_step(setup)
+    spd = max(1, int(cfg.steps_per_dispatch))
+    step_fn = (make_multi_train_step(setup, spd) if spd > 1
+               else make_train_step(setup))
     feeder = DeviceFeeder(device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     print(f'Training {cfg.expname}: steps {start}..{cfg.n_iters} on {device}')
@@ -190,11 +194,21 @@ def train(cfg, device=None,
 
     if on_step is not None:
         on_step(i, state, None)
+    bundle = []
     for batch in prefetcher:
         if i >= cfg.n_iters:
             break
-        state, stats = step_fn(state, feeder(batch), gen)
-        i += 1
+        if spd > 1:
+            # spd batches stacked into one call (k graph replays on a GPU)
+            bundle.append(batch)
+            if len(bundle) < spd:
+                continue
+            state, stats = step_fn(state, feeder(stack_batches(bundle)), gen)
+            bundle = []
+            i += spd
+        else:
+            state, stats = step_fn(state, feeder(batch), gen)
+            i += 1
         if on_step is not None:
             on_step(i, state, stats)
 

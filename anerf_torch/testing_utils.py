@@ -109,7 +109,7 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 def build_flagship(n_rays: int = 2048, n_frames: int = 9,
                    n_subjects: int = 1, opt_pose: bool = True, device=None,
-                   **cfg_overrides):
+                   steps_per_dispatch: int = 1, **cfg_overrides):
     """The SURREAL-recipe training setup on synthetic data, the
     counterpart of ``anerf_tpu.testing_utils.build_flagship``: pose
     refinement every 20 steps with kp loss 0.1 when ``opt_pose``.
@@ -118,12 +118,16 @@ def build_flagship(n_rays: int = 2048, n_frames: int = 9,
     subject channel, and the batch its ``subject_idxs``.
     ``device=None`` means the GPU and raises without one.  Returns
     (setup, state, batch, train_step); the parameters come from a CPU
-    ``torch.Generator`` seeded with ``cfg.seed``."""
+    ``torch.Generator`` seeded with ``cfg.seed``.  With
+    ``steps_per_dispatch`` k > 1 the step is ``make_multi_train_step(
+    setup, k)`` and the batch k synthetic batches (seeds 0 .. k-1)
+    stacked on a leading axis."""
     from .models.factory import build_raycast_config
     from .skeleton import SMPLSkeleton
     from .training import pose_opt as P
     from .training.trainer import (TrainSetup, init_train_state,
-                                   make_train_step)
+                                   make_multi_train_step, make_train_step,
+                                   stack_batches)
     cfg = surreal_config(opt_pose=opt_pose, N_rand=n_rays,
                          opt_pose_step=20 if opt_pose else 1,
                          opt_pose_coef=0.1 if opt_pose else 0.0,
@@ -138,7 +142,13 @@ def build_flagship(n_rays: int = 2048, n_frames: int = 9,
                        rest_pose_idxs=subj, near=0.0, far=1.0, device=device)
     state = init_train_state(setup, torch.Generator().manual_seed(cfg.seed),
                              init_kp3d=kps, init_bones=bones)
-    batch = synthetic_batch(n_rays, n_frames, kps, skts, bones, cyls)
+    batches = [synthetic_batch(n_rays, n_frames, kps, skts, bones, cyls,
+                               seed=s) for s in range(steps_per_dispatch)]
     if subj is not None:
-        batch['subject_idxs'] = subj[batch['kp_idx']]
-    return setup, state, to_device(batch, setup.device), make_train_step(setup)
+        for b in batches:
+            b['subject_idxs'] = subj[b['kp_idx']]
+    if steps_per_dispatch > 1:
+        return (setup, state, to_device(stack_batches(batches), setup.device),
+                make_multi_train_step(setup, steps_per_dispatch))
+    return setup, state, to_device(batches[0], setup.device), \
+        make_train_step(setup)

@@ -137,19 +137,6 @@ def clone_tree(tree: Any) -> Any:
 
 
 @torch.no_grad()
-def maybe_snapshot(ff: FlipFlopConfig, step: int, pose_params: Any,
-                   snapshot: Optional[Any]) -> Any:
-    """set_poseopt_ckpt: the snapshot of the pose bank, refreshed in
-    place at each pose-turn start (a fresh copy when there is none)."""
-    if snapshot is None:
-        return clone_tree(pose_params)
-    if snapshot_gate(ff, step):
-        for k in snapshot:
-            snapshot[k].copy_(pose_params[k])
-    return snapshot
-
-
-@torch.no_grad()
 def reset_poseopt(pose_params: Any, snapshot: Any) -> Any:
     """Restore the pose bank from the snapshot, in place (reference
     reset_poseopt, pose_opt.py:603-605); copies, so the bank and the

@@ -25,8 +25,10 @@ def init_pose_params(kp3d: np.ndarray, bones: np.ndarray,
                      skel: Skeleton = SMPLSkeleton,
                      device='cpu') -> Dict[str, Any]:
     """The learnable pose bank from the initial estimates (reference
-    ``PoseOptLayer.init_kp_params``, pose_opt.py:276-295)."""
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    ``PoseOptLayer.init_kp_params``, pose_opt.py:276-295).  The bank owns
+    its memory: it is updated in place, and must not write through to
+    the caller's arrays or to anchors made from them."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     pelvis = t(np.asarray(kp3d)[:, skel.root_id])
     bones = t(bones)
     if use_rot6d:
@@ -67,8 +69,8 @@ def pose_fk(pose_params: Dict[str, Any], idxs: torch.Tensor,
 def make_anchors(kp3d: np.ndarray, bones: np.ndarray,
                  device='cpu') -> Dict[str, torch.Tensor]:
     """Regularization anchors = the initial pose estimates (reference
-    create_popt, pose_opt.py:48-72)."""
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    create_popt, pose_opt.py:48-72), copies of the caller's arrays."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     bones = t(bones)
     return {'kps': t(kp3d), 'bones': bones, 'rots': axisang_to_rot(bones)}
 

@@ -15,9 +15,13 @@ Reference semantics, as in anerf_tpu:
   * after ``opt_pose_stop`` / before ``opt_pose_warmup`` the pose bank
     gets no update and the kp losses drop out (trainer.py:240-241,252).
 
-The host knows the step, so the gates are Python branches and the
-schedules host floats; nothing in the step reads a device value back,
-so the host queues the next step while the device runs this one.
+The host knows the step, so it computes the gates, the schedules and
+Adam's bias corrections itself (``step_table``: one float32 row a
+step); the step body reads its row as device scalars and applies each
+gated update with ``torch.where``, which keeps the bits of a branch.
+Nothing in the step reads a device value back, so the host queues the
+next step while the device runs this one, and one body serves the
+eager step and the bundled one.
 
 Adam is optax's ``scale_by_adam(0.9, 0.999, 1e-8)`` ->
 ``scale_by_schedule`` -> ``scale(-1)`` written as tensor code, its
@@ -44,7 +48,9 @@ Multiple subjects (``ConcatH5Dataset``'s layout): a rest pose per
 subject, ``rest_pose_idxs`` naming each frame's subject for FK, and the
 batch's ``subject_idxs`` feeding the model's subject channel.
 
-Not ported yet (ROADMAP.md A.3): ``make_multi_train_step``.
+``make_multi_train_step`` bundles k steps into one call (anerf_tpu's
+``lax.scan`` of k steps): on the CPU k runs of the step body, on a GPU
+k replays of one CUDA graph of the step (``_GraphStep``).
 """
 from __future__ import annotations
 
@@ -84,20 +90,36 @@ def adam_init(params: Any) -> Dict[str, Any]:
             'nu': tree_map(torch.zeros_like, params)}
 
 
-@torch.no_grad()
-def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
-                opt_state: Dict[str, Any], sched: Callable[[int], float]
-                ) -> None:
-    """One step of optax's ``scale_by_adam`` -> ``scale_by_schedule`` ->
-    ``scale(-1)`` -> ``apply_updates`` on leaf lists, in place (params,
-    moments and count): mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
-    p += -lr(count) (mu / bc1) / (sqrt(nu / bc2) + eps)."""
-    mu, nu = tree_leaves(opt_state['mu']), tree_leaves(opt_state['nu'])
-    lr = sched(opt_state['count'])
-    count = opt_state['count'] + 1
+def adam_scalars(sched: Callable[[int], float], count: int
+                 ) -> Tuple[np.float32, np.float32, np.float32]:
+    """(lr, bc1, bc2) of the Adam step that takes the optimizer's count
+    from ``count`` to ``count + 1``, in float32 as optax computes them:
+    lr = sched(count), bc = 1 - b^(count + 1)."""
     f32 = np.float32
-    bc1 = float(f32(1) - f32(ADAM_B1) ** f32(count))
-    bc2 = float(f32(1) - f32(ADAM_B2) ** f32(count))
+    c = f32(count + 1)
+    return (f32(sched(count)), f32(1) - f32(ADAM_B1) ** c,
+            f32(1) - f32(ADAM_B2) ** c)
+
+
+def _where_(gate: torch.Tensor, dst: List[torch.Tensor],
+            src: List[torch.Tensor]) -> None:
+    """dst = src where the 0-d bool ``gate`` holds, in place; the bits of
+    ``if gate: dst.copy_(src)`` without reading the gate on the host."""
+    for d, s in zip(dst, src):
+        torch.where(gate, s, d, out=d)
+
+
+@torch.no_grad()
+def _adam_apply(params: List[torch.Tensor], grads: List[torch.Tensor],
+                opt_state: Dict[str, Any], lr, bc1, bc2,
+                gate: Optional[torch.Tensor] = None) -> None:
+    """optax's Adam step on leaf lists, in place (params and moments; the
+    count is the caller's): mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2
+    nu, p += -lr (mu / bc1) / (sqrt(nu / bc2) + eps).  ``lr``, ``bc1``,
+    ``bc2``: floats or 0-d float32 tensors (the same bits).  With a 0-d
+    bool ``gate`` the parameters and moments change only where it
+    holds."""
+    mu, nu = tree_leaves(opt_state['mu']), tree_leaves(opt_state['nu'])
     new_mu = torch._foreach_mul(grads, 1 - ADAM_B1)
     torch._foreach_add_(new_mu, torch._foreach_mul(mu, ADAM_B1))
     new_nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAM_B2)
@@ -107,10 +129,24 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     upd = torch._foreach_div(new_mu, bc1)
     torch._foreach_div_(upd, den)
     torch._foreach_mul_(upd, lr)
-    torch._foreach_sub_(params, upd)
-    torch._foreach_copy_(mu, new_mu)
-    torch._foreach_copy_(nu, new_nu)
-    opt_state['count'] = count
+    if gate is None:
+        torch._foreach_sub_(params, upd)
+        torch._foreach_copy_(mu, new_mu)
+        torch._foreach_copy_(nu, new_nu)
+    else:
+        _where_(gate, params + mu + nu,
+                torch._foreach_sub(params, upd) + new_mu + new_nu)
+
+
+def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
+                opt_state: Dict[str, Any], sched: Callable[[int], float]
+                ) -> None:
+    """One step of optax's ``scale_by_adam`` -> ``scale_by_schedule`` ->
+    ``scale(-1)`` -> ``apply_updates`` on leaf lists, in place (params,
+    moments and count), the schedule fed the optimizer's own count."""
+    lr, bc1, bc2 = adam_scalars(sched, opt_state['count'])
+    _adam_apply(params, grads, opt_state, float(lr), float(bc1), float(bc2))
+    opt_state['count'] += 1
 
 
 def _nerf_sched(cfg: Config) -> Callable[[int], float]:
@@ -297,18 +333,6 @@ def compute_losses(setup: TrainSetup, out, batch, pose, extras, pose_params,
     return total, stats
 
 
-def _state_on_device(cfg: Config, rc: RayCastConfig, step: int, device
-                     ) -> Dict[str, Any]:
-    """tau (and alpha) of the embedders at this step, as device scalars
-    filled from host floats (no host-to-device copy).  The reference
-    updates them at the end of each iteration, so step s renders with
-    the schedule at max(s - 1, 0) (run_nerf.py:618, trainer.py:264-265)."""
-    est = embed_state(cfg, rc, 0 if cfg.finetune else max(step - 1, 0))
-    fill = lambda v: None if v is None else torch.full(
-        (), float(v), dtype=torch.float32, device=device)
-    return {'tau': fill(est['tau']), 'alpha': fill(est['alpha'])}
-
-
 def _use_pose(cfg: Config, step: int) -> bool:
     """Pose refinement is on at this step: inside the warmup/stop
     window (reference trainer.py:240-241)."""
@@ -318,17 +342,23 @@ def _use_pose(cfg: Config, step: int) -> bool:
             and step >= cfg.opt_pose_warmup)
 
 
-def loss_and_grads(setup: TrainSetup, state, batch, generator=None):
+def loss_and_grads(setup: TrainSetup, state, batch, generator=None,
+                   values: Optional[Dict[str, torch.Tensor]] = None):
     """The forward and backward of one step without the updates:
     returns (stats, NeRF gradients, pose gradients), the gradients as
     leaf lists in ``tree_leaves`` order (zeros where a leaf gets none,
-    such as the frozen cutoff radii)."""
+    such as the frozen cutoff radii).  ``values``: the step's row of
+    ``step_table`` as device scalars (``row_values``); by default that
+    of ``state['step']``."""
     cfg, rc = setup.cfg, setup.rc
     if batch['rays_o'].device != setup.device:
         raise ValueError(f'batch on {batch["rays_o"].device}, the step '
                          f'runs on {setup.device}')
-    step = state['step']
-    est = _state_on_device(cfg, rc, step, setup.device)
+    if values is None:
+        values = row_values(
+            rows_on(step_table(setup, state, 1), setup.device)[0])
+    est = {'tau': values['tau'],
+           'alpha': values['alpha'] if cfg.freq_schedule else None}
     nerf_leaves = tree_leaves(state['params'])
     pose_leaves = tree_leaves(state['pose_params'])
     leaves = nerf_leaves + pose_leaves
@@ -343,7 +373,7 @@ def loss_and_grads(setup: TrainSetup, state, batch, generator=None):
             subject_idxs=batch.get('subject_idxs'), generator=generator)
         total, stats = compute_losses(setup, out, batch, pose, extras,
                                       state['pose_params'],
-                                      float(_use_pose(cfg, step)))
+                                      values['use_pose'])
         stats['alpha'] = out['acc_map'].mean()
         stats['tau'] = est['tau']
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
@@ -406,6 +436,146 @@ def step_gates(cfg: Config, step: int) -> StepGates:
                      accum=use_pose)
 
 
+# The host's values of one step, a float32 row each (``step_table``):
+# the embedders' schedule, the kp losses' switch, the NeRF learning rate
+# of the step (a stat), each gate (1 or 0) and each Adam step's learning
+# rate and bias corrections at the count it would take.
+ROW = ('tau', 'alpha', 'use_pose', 'lrate', 'nerf_gate', 'nerf_lr',
+       'nerf_bc1', 'nerf_bc2', 'accum_gate', 'pose_gate', 'pose_lr',
+       'pose_bc1', 'pose_bc2', 'snapshot_gate')
+_COL = {k: i for i, k in enumerate(ROW)}
+
+
+def step_table(setup: TrainSetup, state, steps: int) -> np.ndarray:
+    """The rows (``steps``, len(ROW)) of steps ``state['step']`` to
+    ``state['step'] + steps - 1``, from the host's schedules and gates
+    alone: each Adam's count advances by its gate, row by row.  The
+    reference updates tau and alpha at the end of each iteration, so
+    step s renders with their schedule at max(s - 1, 0) (run_nerf.py:618,
+    trainer.py:264-265)."""
+    cfg, rc = setup.cfg, setup.rc
+    nerf_sched, pose_sched = _nerf_sched(cfg), _pose_sched(cfg)
+    nerf_count = state['opt_state']['count']
+    pose_count = (state['pose_opt_state'] or {}).get('count', 0)
+    reset = cfg.opt_pose and cfg.opt_pose_flipflop and cfg.opt_pose_reset
+    rows = np.zeros((steps, len(ROW)), np.float32)
+    for j in range(steps):
+        s = state['step'] + j
+        g = step_gates(cfg, s)
+        est = embed_state(cfg, rc, 0 if cfg.finetune else max(s - 1, 0))
+        nerf_lr, nerf_bc1, nerf_bc2 = adam_scalars(nerf_sched, nerf_count)
+        pose_lr, pose_bc1, pose_bc2 = adam_scalars(pose_sched, pose_count)
+        vals = dict(
+            tau=float(est['tau']),
+            alpha=0. if est['alpha'] is None else float(est['alpha']),
+            use_pose=_use_pose(cfg, s), lrate=nerf_sched(s),
+            nerf_gate=g.nerf, nerf_lr=nerf_lr, nerf_bc1=nerf_bc1,
+            nerf_bc2=nerf_bc2, accum_gate=g.accum, pose_gate=g.pose,
+            pose_lr=pose_lr, pose_bc1=pose_bc1, pose_bc2=pose_bc2,
+            snapshot_gate=reset and FF.snapshot_gate(g.ff, s + 1))
+        rows[j] = [vals[k] for k in ROW]
+        nerf_count += g.nerf
+        pose_count += g.pose
+    return rows
+
+
+def rows_on(rows: np.ndarray, device) -> torch.Tensor:
+    """``step_table``'s rows on ``device`` without a host wait for the
+    stream: on a GPU through pinned memory, copied asynchronously (the
+    pinned block is not reused before the copy is done)."""
+    t = torch.from_numpy(rows)
+    if torch.device(device).type != 'cuda':
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def row_values(row: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One row on the device as named 0-d views (a graph's static row
+    keeps feeding them)."""
+    return dict(zip(ROW, row.unbind(0)))
+
+
+def _advance(state, rows: np.ndarray) -> None:
+    """The host's counters after the steps of ``rows``: the step, and
+    each Adam count by its gate's fires."""
+    state['step'] += len(rows)
+    state['opt_state']['count'] += int(rows[:, _COL['nerf_gate']].sum())
+    if state['pose_opt_state'] is not None:
+        state['pose_opt_state']['count'] += int(
+            rows[:, _COL['pose_gate']].sum())
+
+
+def _step_body(setup: TrainSetup, state, batch, row: torch.Tensor,
+               generator) -> Dict[str, torch.Tensor]:
+    """One train step from the device values of ``row`` alone: renders,
+    takes the gradients and updates the parameters, moments, pose
+    accumulator, pose bank, snapshot and trackers in place.  It reads
+    and writes no host counter (``_advance`` does) and rebinds no entry
+    of ``state`` (except a missing reset snapshot, made on the first
+    step), so a CUDA graph of it replays any step.  Returns the stats."""
+    cfg = setup.cfg
+    v = row_values(row)
+    stats, g_nerf, g_pose = loss_and_grads(setup, state, batch, generator,
+                                           v)
+    nerf_leaves = tree_leaves(state['params'])
+    if cfg.opt_pose and cfg.testopt:
+        # test-time pose optimization: the NeRF is frozen and only
+        # the pose bank refines (reference PoseOptFlipFlop.testopt,
+        # pose_opt.py:599,620-624); zero gradients keep the moments
+        # at zero, so the network never moves
+        g_nerf = [torch.zeros_like(g) for g in g_nerf]
+    if cfg.finetune and cfg.fix_layer > 0:
+        # freeze the first fix_layer trunk layers (reference
+        # raycasters.py:215-217): zero gradients keep their moments
+        # at zero, so they never move
+        frozen = {id(t) for net in ('coarse', 'fine')
+                  if state['params'].get(net) is not None
+                  for lin in state['params'][net]['pts_linears']
+                  [:cfg.fix_layer] for t in tree_leaves(lin)}
+        g_nerf = [torch.zeros_like(g) if id(t) in frozen else g
+                  for t, g in zip(nerf_leaves, g_nerf)]
+
+    stats['total_norm'] = torch.sqrt(sum((g * g).sum() for g in g_nerf))
+    stats['lrate'] = v['lrate']
+    if cfg.opt_pose_flipflop:
+        stats['nerf_gate'] = v['nerf_gate']
+        stats['pose_gate'] = v['pose_gate']
+    # off the NeRF turn (the alternating mode) the update is skipped,
+    # Adam's count included (anerf_tpu gates parameters and optimizer
+    # state alike); in the other modes the NeRF steps every iteration
+    alternating = cfg.opt_pose and cfg.opt_pose_flipflop \
+        and not cfg.opt_pose_joint
+    _adam_apply(nerf_leaves, g_nerf, state['opt_state'], v['nerf_lr'],
+                v['nerf_bc1'], v['nerf_bc2'],
+                gate=v['nerf_gate'] > 0 if alternating else None)
+
+    if cfg.opt_pose:
+        kp_per_ray = stats.pop('kp_loss_per_ray', None)
+        pose = tree_leaves(state['pose_params'])
+        if cfg.opt_pose_flipflop and cfg.opt_pose_reset:
+            # refresh the reset snapshot at pose-turn starts from the
+            # PRE-update bank (set_poseopt_ckpt runs before the
+            # iteration's step, pose_opt.py:700-703)
+            if state.get('pose_snapshot') is None:
+                state['pose_snapshot'] = FF.clone_tree(state['pose_params'])
+            else:
+                _where_(v['snapshot_gate'] > 0,
+                        tree_leaves(state['pose_snapshot']), pose)
+        accum = tree_leaves(state['pose_accum'])
+        _where_(v['accum_gate'] > 0, accum, torch._foreach_add(accum, g_pose))
+        fire = v['pose_gate'] > 0
+        _adam_apply(pose, accum, state['pose_opt_state'], v['pose_lr'],
+                    v['pose_bc1'], v['pose_bc2'], gate=fire)
+        for a in accum:
+            a.masked_fill_(fire, 0.)
+        if cfg.opt_pose_flipflop and kp_per_ray is not None:
+            FF.accumulate_loss(state['kp_tracker'], kp_per_ray,
+                               batch['kp_idx'])
+            stats['kp_tracker_mean'] = FF.get_trackers(
+                state['kp_tracker']).mean()
+    return stats
+
+
 def make_train_step(setup: TrainSetup) -> Callable:
     """Build ``train_step(state, batch, generator) -> (state, stats)``.
 
@@ -415,66 +585,145 @@ def make_train_step(setup: TrainSetup) -> Callable:
     device memory; the same dict is returned.  ``batch`` holds tensors
     on ``setup.device``; ``generator`` draws the stratified jitter,
     the importance samples and the noise (None: no draws).  ``stats``
-    are device tensors (the learning rate and the flipflop gates host
-    floats): reading one waits for the step."""
-    cfg = setup.cfg
-    nerf_sched, pose_sched = _nerf_sched(cfg), _pose_sched(cfg)
+    are device tensors: reading one waits for the step."""
 
     def train_step(state, batch, generator=None):
-        step = state['step']
-        gates = step_gates(cfg, step)
-        stats, g_nerf, g_pose = loss_and_grads(setup, state, batch,
-                                               generator)
-        nerf_leaves = tree_leaves(state['params'])
-        if cfg.opt_pose and cfg.testopt:
-            # test-time pose optimization: the NeRF is frozen and only
-            # the pose bank refines (reference PoseOptFlipFlop.testopt,
-            # pose_opt.py:599,620-624); zero gradients keep the moments
-            # at zero, so the network never moves
-            g_nerf = [torch.zeros_like(g) for g in g_nerf]
-        if cfg.finetune and cfg.fix_layer > 0:
-            # freeze the first fix_layer trunk layers (reference
-            # raycasters.py:215-217): zero gradients keep their moments
-            # at zero, so they never move
-            frozen = {id(t) for net in ('coarse', 'fine')
-                      if state['params'].get(net) is not None
-                      for lin in state['params'][net]['pts_linears']
-                      [:cfg.fix_layer] for t in tree_leaves(lin)}
-            g_nerf = [torch.zeros_like(g) if id(t) in frozen else g
-                      for t, g in zip(nerf_leaves, g_nerf)]
-
-        stats['total_norm'] = torch.sqrt(sum((g * g).sum() for g in g_nerf))
-        stats['lrate'] = nerf_sched(step)
-        if cfg.opt_pose_flipflop:
-            stats['nerf_gate'] = float(gates.nerf)
-            stats['pose_gate'] = float(gates.pose)
-        # off the NeRF turn the update is skipped, Adam's count included
-        # (anerf_tpu gates parameters and optimizer state alike)
-        if gates.nerf:
-            adam_update(nerf_leaves, g_nerf, state['opt_state'], nerf_sched)
-
-        if cfg.opt_pose:
-            kp_per_ray = stats.pop('kp_loss_per_ray', None)
-            if cfg.opt_pose_flipflop and cfg.opt_pose_reset:
-                # refresh the reset snapshot at pose-turn starts from
-                # the PRE-update bank (set_poseopt_ckpt runs before the
-                # iteration's step, pose_opt.py:700-703)
-                state['pose_snapshot'] = FF.maybe_snapshot(
-                    gates.ff, step + 1, state['pose_params'],
-                    state['pose_snapshot'])
-            accum = tree_leaves(state['pose_accum'])
-            if gates.accum:
-                torch._foreach_add_(accum, g_pose)
-            if gates.pose:
-                adam_update(tree_leaves(state['pose_params']), accum,
-                            state['pose_opt_state'], pose_sched)
-                torch._foreach_zero_(accum)
-            if cfg.opt_pose_flipflop and kp_per_ray is not None:
-                FF.accumulate_loss(state['kp_tracker'], kp_per_ray,
-                                   batch['kp_idx'])
-                stats['kp_tracker_mean'] = FF.get_trackers(
-                    state['kp_tracker']).mean()
-        state['step'] = step + 1
+        rows = step_table(setup, state, 1)
+        stats = _step_body(setup, state, batch,
+                           rows_on(rows, setup.device)[0], generator)
+        _advance(state, rows)
         return state, stats
 
     return train_step
+
+
+def _state_tensors(state) -> List[torch.Tensor]:
+    return [t for k in sorted(state) if isinstance(state[k], (dict, list))
+            for t in tree_leaves(state[k]) if torch.is_tensor(t)]
+
+
+class _GraphStep:
+    """The train step captured once in a CUDA graph, replayed once a
+    step.
+
+    A call first warms up if the state's tensors, the batch's shapes or
+    the generator differ from those of the last capture: the call's
+    first ``WARMUP`` steps run eagerly on a side stream (building the
+    kernels' libraries and cached tensors and any missing state entry),
+    then one step is captured on static inputs (one batch, one row) and
+    the generator registered with the graph, so that every replay draws
+    on from the generator's current offset.  Each further step copies
+    its batch and row into the static inputs and replays.  A failed
+    capture raises; nothing replays eager steps in its place.  The
+    kernels' launch counters advance at capture only (the wrappers'
+    Python runs then); a replay launches without them."""
+
+    WARMUP = 2
+
+    def __init__(self, setup: TrainSetup):
+        self.setup = setup
+        self.key = None
+        self.graph = None
+
+    def _capture(self, state, batches, rows, generator):
+        self.graph = self.stats = None
+        self.batch = {k: v[0].clone() for k, v in batches.items()}
+        self.row = rows[0].clone()
+        self.generator = generator
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = [t.data_ptr() for t in _state_tensors(state)]
+        with torch.cuda.graph(graph):
+            stats = _step_body(self.setup, state, self.batch, self.row,
+                               generator)
+        if [t.data_ptr() for t in _state_tensors(state)] != before:
+            raise RuntimeError('the train step rebound a state tensor '
+                               'while it was captured')
+        self.graph, self.stats = graph, stats
+
+    def __call__(self, state, batches, rows, generator):
+        dev = self.setup.device
+        key = ([t.data_ptr() for t in _state_tensors(state)],
+               [(k, v.shape, v.dtype) for k, v in sorted(batches.items())],
+               id(generator))
+        start, stats = 0, None
+        if key != self.key:
+            start = min(self.WARMUP, len(rows))
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for j in range(start):
+                    stats = _step_body(self.setup, state,
+                                       {k: v[j] for k, v in batches.items()},
+                                       rows[j], generator)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self._capture(state, batches, rows, generator)
+            self.key = ([t.data_ptr() for t in _state_tensors(state)],
+                        key[1], key[2])
+        for j in range(start, len(rows)):
+            for k, t in self.batch.items():
+                t.copy_(batches[k][j])
+            self.row.copy_(rows[j])
+            self.graph.replay()
+        if start < len(rows):
+            # the graph's outputs are overwritten by its next replay
+            stats = {k: t.clone() for k, t in self.stats.items()}
+        return stats
+
+
+def _stacked_on(batches, device, steps: int) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in batches.items():
+        if not torch.is_tensor(v):
+            v = np.asarray(v)
+            v = torch.as_tensor(v, dtype=torch.long if np.issubdtype(
+                v.dtype, np.integer) else torch.float32)
+        if v.shape[0] != steps:
+            raise ValueError(f'batch {k!r} stacks {v.shape[0]} steps, '
+                             f'the bundle takes {steps}')
+        out[k] = v.to(device)
+    return out
+
+
+def make_multi_train_step(setup: TrainSetup, steps: int) -> Callable:
+    """Bundle ``steps`` train steps into one call (anerf_tpu's
+    ``make_multi_train_step``, a ``lax.scan`` of its train step; the
+    ``run_train --steps_per_dispatch`` path).
+
+    ``multi_step(state, batches, generator) -> (state, stats)`` takes
+    the batches stacked on a leading ``steps`` axis (``stack_batches``;
+    numpy, or tensors on ``setup.device`` to spare the host a wait for
+    the copy) and returns the state after the ``steps`` steps, updated
+    in place as by ``make_train_step``'s step, and the LAST step's
+    stats.  The result is that of ``steps`` calls of the train step: on
+    the CPU it is those calls' body; on a GPU one captured CUDA graph of
+    the step replayed once a step (``_GraphStep``), the host's work per
+    step two small copies and a replay."""
+    if steps < 1:
+        raise ValueError(f'steps_per_dispatch {steps} < 1')
+    graph = _GraphStep(setup) if setup.device.type == 'cuda' else None
+
+    def multi_step(state, batches, generator=None):
+        rows = step_table(setup, state, steps)
+        dev_rows = rows_on(rows, setup.device)
+        batches = _stacked_on(batches, setup.device, steps)
+        if graph is not None:
+            stats = graph(state, batches, dev_rows, generator)
+        else:
+            for j in range(steps):
+                stats = _step_body(setup, state,
+                                   {k: v[j] for k, v in batches.items()},
+                                   dev_rows[j], generator)
+        _advance(state, rows)
+        return state, stats
+
+    return multi_step
+
+
+def stack_batches(batches: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    """Stack per-step batch dicts on a new leading axis for
+    ``make_multi_train_step``, in host numpy (the stacked bundle is what
+    goes to the device)."""
+    return {k: np.stack([np.asarray(b[k]) for b in batches], 0)
+            for k in batches[0]}

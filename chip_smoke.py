@@ -112,12 +112,31 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    'reldir' + 'world' and 'querypts' + 'axisang' + 'relray' without
    cutoff windows and 'relpos' + 'reldir' + 'relray' with
    ``normalize_cutoff``: one chunk rendered and 2 train steps each
-   through K5/K6.
+   through K5/K6;
+14. bundled phases (``train_bundled`` after 4, ``ms_bundled`` after 7):
+   ``make_multi_train_step`` at 10 steps a dispatch, each step after the
+   first call's warm-up and capture a replay of one CUDA graph, on the
+   flagship (K1-K4) and the two-subject model (K5/K6), 30 steps each
+   (``bundled_phase``): parameters and pose bank against 30 eager steps
+   from the same state and batches without draws, the pose bank (read
+   after every replay) first moving at step 19, with draws on each
+   replay's coarse depths fresh and bit-equal to the eager steps', the
+   loss falling, one profiled bundle launching each kernel 10 times its
+   count a step, no host sync inside a bundle; eager and bundled host
+   ms/step and train rays/s (medians of alternating windows), device
+   busy shares and peak memory;
+15. cli_bundled phase (after 11): ``configs/mixamo.txt`` through
+   ``run_train.train`` at ``--steps_per_dispatch 10`` on cli_train's
+   store, 40 steps: the launch counters of the warm-up and capture,
+   the pose bank first moving at step 19, no host sync inside a bundle
+   window, logs, checkpoints and validation metrics; CLI train rays/s
+   beside cli_train's one step a dispatch.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of the run whose shapes
 its row times: the flagship train steps for K1-K4, the multi-subject
-train step for K5/K6; K1's and K2's rows add ``train_shape``, the
+train step for K5/K6; ``launches_by_path`` adds every path's, the
+bundled ones counted at warm-up and capture; K1's and K2's rows add ``train_shape``, the
 backward kernels' ``passes_ms``, K1-K4's ``cli_train_shape`` the
 times, bound, error and launches at the CLI mixamo step's shapes, and
 K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
@@ -162,6 +181,19 @@ SINGLE_STEPS = 2        # surreal_single train steps
 CLI_STEPS = 40          # cli_train: anerf_torch.run_train.train steps
 FF_STEPS = 12           # cli_flipflop steps
 CLI_MS_STEPS = 4        # cli_multisubject steps
+BUNDLE = 10             # bundled phases: steps per dispatch (bench.py's)
+BUNDLED_STEPS = 30      # bundled phases: steps, in bundles of BUNDLE
+TIMING_WINDOWS = 5      # eager and bundled windows of BUNDLE steps, in turns
+# a bundle against as many eager steps from the same state and batches,
+# no draws: the same kernels on the same inputs, but cuBLAS may pick
+# other algorithms inside a graph and atomic sums (the gathers'
+# backward) round in any order, and Adam turns a flipped sign of a
+# near-zero gradient into a whole step, so each parameter leaf's and
+# the pose bank's update over the run is held in direction and size,
+# and the last loss within BUNDLE_LOSS_RTOL
+BUNDLE_COS_MIN = 0.9999
+BUNDLE_RATIO_TOL = 1e-3
+BUNDLE_LOSS_RTOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the CLI phases' data stores and logdirs (removed at the end)
 WORK = os.path.join(ROOT, '_smoke_work')
@@ -1094,6 +1126,11 @@ GRAMMAR_WIDTHS = {117: dict(kp_dist_type='querypts', bone_type='axisang',
                   1152: dict(kp_dist_type='relpos', bone_type='axisang'),
                   1197: dict(kp_dist_type='cat', bone_type='reldir',
                              use_cutoff=False)}
+# K6 also at the train shape on weights whose density reaches few points
+# (a sparse cotangent, no vacuity guard): width -> seed.  Its 1152-deep
+# trunk products once flipped ReLU masks here that the twin kept
+# (scripts/check_k6_f64.py), repaired in mma_slices' RN accumulation
+SPARSE_SEEDS = {1152: 4}
 # the recipe trained and rendered at full width: a 1152-wide trunk, the
 # 'rayangle' view encoding (216) and framecodes (16)
 GRAMMAR_RECIPE = dict(kp_dist_type='relpos', bone_type='axisang',
@@ -1150,8 +1187,11 @@ def grammar_kernel_phase(FM, T, peaks, device):
     positive on most points at every width, as the multi-subject
     model's seed 4 is at 432 (K6's cotangent, that of a composited
     loss, is zero where the density is: a check on weights of no
-    density, such as seed 4's here, compares zeros).  Returns {width:
-    (K5 row, K6 row)} at n=131,072."""
+    density, such as seed 4's here, compares zeros).  At the widths of
+    ``SPARSE_SEEDS`` K6 is held once more at the train shape on those
+    seeds' weights, whose cotangent reaches few points (which must be
+    non-zero somewhere).  Returns {width: (K5 row, K6 row)} at
+    n=131,072."""
     import torch
     rows = {}
     for dx, over in GRAMMAR_WIDTHS.items():
@@ -1205,6 +1245,20 @@ def grammar_kernel_phase(FM, T, peaks, device):
             tpu_file='pallas_mlp.py')
         bwd['passes_ms'] = pass_times('mlp_bwd', run, f'trunk {dx} n={n}')
         rows[dx] = (fwd, bwd)
+        if dx in SPARSE_SEEDS:
+            cfg, rc, params = _grammar_model(T, device, SPARSE_SEEDS[dx],
+                                             view_type='rayangle', **over)
+            st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, 2048,
+                                             64, device)
+            g = _split_cotangent(FM, st, xs, xvs, flat, 64, device)
+            share = (g.abs().sum(-1) > 0).float().mean().item()
+            print(f'mlp_bwd trunk {dx} R=2048 S=64, seed '
+                  f'{SPARSE_SEEDS[dx]}: cotangent on {share:.2%} of the '
+                  'points')
+            if share == 0:
+                raise AssertionError('the sparse cotangent is zero')
+            run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+            _check_bwd('mlp_bwd', plain(), run())
     return rows
 
 
@@ -1348,8 +1402,8 @@ def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
     whose step 44 is profiled.
     Prints CLI train rays/s over steps 10-39 and the Prefetcher's ms per
     batch.  Returns the launch counts of the train steps, by kernel
-    name K1-K4's times, bounds and errors at the recipe's shapes, and the
-    logdir."""
+    name K1-K4's times, bounds and errors at the recipe's shapes, the
+    logdir and the CLI train rays/s."""
     import numpy as np
     import torch
     from anerf_torch.data.loaders import load_data
@@ -1490,7 +1544,8 @@ def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
           f'logged {logged}; validation psnr {val_m["psnr"]:.3f} ssim '
           f'{val_m["ssim"]:.4f}; files {files}')
     n_timed = CLI_STEPS - 10
-    print(f'cli_train: {ccfg.N_rand * n_timed / rec["dt"]:.1f} CLI train '
+    rays_s = ccfg.N_rand * n_timed / rec['dt']
+    print(f'cli_train: {rays_s:.1f} CLI train '
           f'rays/s, {rec["dt"] / n_timed * 1e3:.2f} ms/step over steps '
           f'10-{CLI_STEPS - 1} (the loop as run: Prefetcher, DeviceFeeder, '
           f'step, logs at 20 and 30, checkpoints at 20), loader '
@@ -1562,7 +1617,362 @@ def cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
         if 'Synchronize' in e.key or e.key.startswith('cudaMemcpy'):
             print(f'  host {e.key}: {e.count}x, '
                   f'{e.cpu_time_total / 1e3:.3f} ms')
-    return counts, shapes, logdir
+    return counts, shapes, logdir, rays_s
+
+
+def _clone_state(x):
+    """A train state with every tensor copied."""
+    import torch
+    if isinstance(x, dict):
+        return {k: _clone_state(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone_state(v) for v in x]
+    return x.clone() if torch.is_tensor(x) else x
+
+
+def _after_replay(hook):
+    """``hook()`` after every ``CUDAGraph.replay`` inside a ``with``
+    block: the host's view of each replayed step (a clone it takes is
+    queued after the replay)."""
+    import torch
+
+    def wrap(replay):
+        def run(graph):
+            replay(graph)
+            hook()
+        return run
+    return _Wrapped(torch.cuda.CUDAGraph, replay=wrap)
+
+
+def _kernel_launches(events, name):
+    """Launches of device kernels named ``name`` (not as the tail of a
+    longer name) among a profile's ``key_averages()``."""
+    import re
+    pat = re.compile(r'(?<![A-Za-z0-9_])' + re.escape(name))
+    return sum(e.count for e in events
+               if _device_ms(e) > 0 and str(e.device_type).endswith('CUDA')
+               and pat.search(e.key))
+
+
+# the kernels of a bundled phase: launch counter -> (device kernel name,
+# launches a step)
+BUNDLE_K1_K4 = {'encmlp_fwd': ('encmlp_fwd_kernel<1>', 1),
+                'encmlp_dual_fwd': ('encmlp_fwd_kernel<2>', 1),
+                'encmlp_bwd': ('bwd_tile_kernel<1>', 1),
+                'encmlp_dual_bwd': ('bwd_tile_kernel<2>', 1)}
+BUNDLE_K5_K6 = {'mlp_fwd': ('mlp_fwd_kernel', 3),
+                'mlp_bwd': ('mlp_bwd_tile_kernel', 3)}
+
+
+def bundled_phase(FE, T, device, gpu_line, what, kernels, **build_kw):
+    """``make_multi_train_step`` on the card: ``build_flagship(2048,
+    steps_per_dispatch=BUNDLE, **build_kw)``, BUNDLED_STEPS steps in
+    bundles (the first call warms up and captures the step's CUDA graph,
+    every later step is a replay).  Checks:
+    1. no draws (perturb 0, no noise), ten stacked batches: the
+       parameters and pose bank against BUNDLED_STEPS eager steps from
+       the same state and batches (BUNDLE_COS_MIN, BUNDLE_RATIO_TOL,
+       BUNDLE_LOSS_RTOL), and the pose bank, read after every replay,
+       still through step 18 and moved at step 19;
+    2. draws on, one batch ten times: the coarse depths of every replay
+       differ from the last replay's and equal, bit for bit, those the
+       eager steps draw from a generator seeded alike; the last loss of
+       the third bundle below the first's;
+    3. one bundle profiled: each kernel of ``kernels`` (counter ->
+       (device kernel, launches a step)) launched BUNDLE x its count,
+       the device busy share beside that of one eager step;
+    4. TIMING_WINDOWS windows of BUNDLE eager steps and one bundle each,
+       in turns, no host sync inside a bundle (``set_sync_debug_mode(
+       'error')``): host ms/step and train rays/s (medians), peak memory.
+    ``build_kw`` names weights whose random density is positive inside
+    the cylinder (``seed``): without draws, weights of no density give
+    no gradient.  Returns the launch counters of part 1's bundles (those
+    of the warm-up steps and the capture: a replay passes no
+    wrapper)."""
+    import torch
+    from anerf_torch.ops import rays as ray_ops
+    from anerf_torch.training import trainer as TT
+    from torch.profiler import ProfilerActivity, profile
+    K, N, W = BUNDLE, BUNDLED_STEPS, TT._GraphStep.WARMUP
+
+    def build(**over):
+        return T.build_flagship(2048, device=device, compute_dtype='bfloat16',
+                                steps_per_dispatch=K, **build_kw, **over)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(7)
+
+    def one(batches, j):
+        return {k: v[j] for k, v in batches.items()}
+
+    # 1. no draws: against eager steps; the pose bank's first move
+    setup, state, batches, multi = build(perturb=0., raw_noise_std=0.)
+    eager = TT.make_train_step(setup)
+    ref, g = _clone_state(state), gen()
+    for s in range(N):
+        ref, ref_stats = eager(ref, one(batches, s % K), g)
+    p0 = [t.clone() for t in TT.tree_leaves(state['params'])]
+    bank0 = state['pose_params']['bones'].clone()
+    banks = []
+    FE.reset_launch_counts()
+    g = gen()
+    with _after_replay(lambda: banks.append(
+            state['pose_params']['bones'].clone())):
+        for _ in range(N // K):
+            state, stats = multi(state, batches, g)
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    expect = {k: 0 for k in counts}
+    expect.update({k: (W + 1) * n for k, (_, n) in kernels.items()})
+    print(f'{what}: {N} steps in bundles of {K}: launch counters {counts} '
+          f'({W} warm-up steps and the capture; replays pass no wrapper)')
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if len(banks) != N - W:
+        raise AssertionError(f'{len(banks)} replays, expected {N - W}')
+    after = [bank0] * W + banks
+    moved = [s for s in range(W, N) if not torch.equal(after[s],
+                                                       after[s - 1])]
+    if not moved or moved[0] != 19:
+        raise AssertionError(f'pose bank moved at steps {moved}, expected '
+                             'first at 19')
+    worst, max_d = [], 0.
+    for name, a0, a, b in zip(
+            _leaf_names(state['params']) + ['pose bank'], p0 + [bank0],
+            TT.tree_leaves(ref['params']) + [ref['pose_params']['bones']],
+            TT.tree_leaves(state['params']) + [state['pose_params']['bones']]):
+        cos, ratio, _, d = _cmp(a - a0, b - a0)
+        max_d = max(max_d, (a - b).abs().max().item())
+        worst.append((cos, name, ratio))
+        if cos < BUNDLE_COS_MIN or abs(ratio - 1) > BUNDLE_RATIO_TOL:
+            raise AssertionError(f'{what}: {name} after {N} steps: update '
+                                 f'cos {cos:.6f} ratio {ratio:.5f} against '
+                                 'the eager steps')
+    la, lb = ref_stats['total_loss'].item(), stats['total_loss'].item()
+    worst.sort()
+    print(f'{what}: against {N} eager steps: max |d| {max_d:.3e}, last '
+          f'total_loss {lb:.6f} vs {la:.6f}; worst updates: ' + ', '.join(
+              f'{k} cos {c:.7f} ratio {r:.6f}' for c, k, r in worst[:3])
+          + f'; pose bank moved first at step {moved[0]}')
+    if abs(la - lb) > BUNDLE_LOSS_RTOL * abs(la):
+        raise AssertionError(f'{what}: last loss {lb} against eager {la}')
+    del ref, multi, p0, banks, after
+
+    # 2. draws on: fresh per replay, the eager steps' own
+    setup, state, batches, multi = build()
+    same = {k: v[:1].expand(K, *v.shape[1:]).contiguous()
+            for k, v in batches.items()}
+    eager = TT.make_train_step(setup)
+    ref = _clone_state(state)
+    live = {'eager': []}
+
+    def lineseg(fn):
+        def run(*args, **kwargs):
+            z = fn(*args, **kwargs)
+            if torch.cuda.is_current_stream_capturing():
+                live['graph'] = z           # the graph's buffer
+            else:
+                live['eager'].append(z)
+            return z
+        return run
+    zs, losses = [], []
+    with _Wrapped(ray_ops, sample_from_lineseg=lineseg):
+        g = gen()
+        for _ in range(N):
+            ref, _ = eager(ref, one(same, 0), g)
+        z_eager, live['eager'] = live['eager'], []
+        g = gen()
+        with _after_replay(lambda: zs.append(live['graph'].clone())):
+            for _ in range(N // K):
+                state, stats = multi(state, same, g)
+                losses.append(stats['total_loss'])
+    z_bundle = live['eager'] + zs
+    if len(z_bundle) != N:
+        raise AssertionError(f'{len(z_bundle)} draws, expected {N}')
+    repeated = [s for s in range(1, N)
+                if torch.equal(z_bundle[s], z_bundle[s - 1])]
+    as_eager = sum(torch.equal(a, b) for a, b in zip(z_bundle, z_eager))
+    losses = [x.item() for x in losses]
+    print(f'{what}: draws on: coarse depths of consecutive steps equal at '
+          f'{repeated} (none expected), bit-equal to the eager steps\' '
+          f'at {as_eager} of {N} steps; last losses of the bundles '
+          f'{losses}')
+    if repeated or as_eager != N:
+        raise AssertionError(f'{what}: replays do not draw as the eager '
+                             'steps do')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{what}: the loss did not fall: {losses}')
+    del ref, z_eager, z_bundle, zs, live
+
+    # 3. one bundle and one eager step profiled
+    busy = {}
+    for mode in ('eager', 'bundled'):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if mode == 'eager':
+                state, _ = eager(state, one(same, 0), g)
+            else:
+                state, _ = multi(state, same, g)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        b = sum(_device_ms(e) for e in events
+                if str(e.device_type).endswith('CUDA'))
+        busy[mode] = (b or None, wall)
+        if mode == 'bundled':
+            got = {k: _kernel_launches(events, kern)
+                   for k, (kern, _) in kernels.items()}
+    want = {k: K * n for k, (_, n) in kernels.items()}
+    print(f'{what}: one profiled bundle launched {got} (expected {want})')
+    if got != want:
+        raise AssertionError(f'{what}: profiled launches {got}, expected '
+                             f'{want}')
+
+    # 4. eager and bundled windows in turns
+    ms = {'eager': [], 'bundled': []}
+    peak = {}
+    for w in range(TIMING_WINDOWS):
+        for mode in ('eager', 'bundled'):
+            torch.cuda.synchronize()
+            if w == 0:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if mode == 'eager':
+                for j in range(K):
+                    state, _ = eager(state, one(same, j), g)
+            else:
+                torch.cuda.set_sync_debug_mode('error')
+                try:
+                    state, _ = multi(state, same, g)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms[mode].append(1e3 * (time.perf_counter() - t0) / K)
+            if w == 0:
+                peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2**30
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    share = {k: ('not measured' if b is None else f'{b:.1f} of {wall:.1f} '
+                 f'ms = {b / wall:.1%}') for k, (b, wall) in busy.items()}
+    print(f'{what}: eager {med["eager"]:.2f} ms/step '
+          f'({2048e3 / med["eager"]:.1f} train rays/s), bundled '
+          f'{med["bundled"]:.2f} ms/step ({2048e3 / med["bundled"]:.1f} '
+          f'train rays/s): medians of {TIMING_WINDOWS} windows of {K} '
+          f'steps each, in turns (eager {[round(x, 2) for x in ms["eager"]]}'
+          f', bundled {[round(x, 2) for x in ms["bundled"]]}); no host sync '
+          f'inside a bundle; device busy (profiled): one eager step '
+          f'{share["eager"]}, a bundle {share["bundled"]}; peak device '
+          f'memory eager {peak["eager"]:.2f} GiB, bundled '
+          f'{peak["bundled"]:.2f} GiB, reserved with the graph held '
+          f'{held:.2f} GiB ({gpu_line})')
+    return counts
+
+
+def cli_bundled_phase(FE, device, gpu_line, eager_rays_s):
+    """``configs/mixamo.txt`` through ``run_train.train`` at
+    ``--steps_per_dispatch`` BUNDLE on ``cli_train``'s store: CLI_STEPS
+    steps in four bundles (each ``on_step`` call after a bundle), logs
+    and checkpoints every 20 steps (multiples of BUNDLE, as the cadences
+    must be), a validation render at 40.  Checks: the launch counters
+    of the steps those of the warm-up steps and the capture (K1-K4 each
+    ``_GraphStep.WARMUP`` + 1 times, K5/K6 never); the pose bank, read
+    after every replay, still through step 18 and moved at 19; no host
+    sync inside the windows from ``on_step(10)`` and ``on_step(30)`` (a
+    bundle with the loader's hand-over and the DeviceFeeder, no logging
+    or checkpoint); finite logged losses, the checkpoints, pose
+    checkpoints and validation metrics written.  Prints CLI train rays/s
+    over steps 10-29 beside ``cli_train``'s one-step-a-dispatch figure
+    (``eager_rays_s``, steps 10-39), and the device busy share of the
+    profiled window from ``on_step(30)`` to ``on_step(40)``, and the peak
+    device memory over steps 10-29.  Returns the launch counters."""
+    import numpy as np
+    import torch
+    from anerf_torch.run_train import train
+    from anerf_torch.training import trainer as TT
+    from torch.profiler import ProfilerActivity, profile
+    over = dict(dataset_type=('synthetic',),
+                datadir=os.path.join(WORK, 'mixamo.npstore'),
+                basedir=os.path.join(WORK, 'logs'), expname='mixamo_spd',
+                n_iters=CLI_STEPS, i_print=20, i_weights=20,
+                i_pose_weights=20, i_testset=40, num_workers=4,
+                steps_per_dispatch=BUNDLE)
+    ccfg = _cli_config('mixamo.txt', **over)
+    rec = {'seen': [], 'banks': []}
+    watch = SyncWatch(_periodic(ccfg))
+
+    def on_step(i, state, stats):
+        watch.pause()
+        rec['seen'].append(i)
+        if stats is None:
+            FE.reset_launch_counts()
+            rec['bank0'] = state['pose_params']['bones'].clone()
+            rec['state'] = state
+        else:
+            rec.setdefault('losses', []).append(stats['total_loss'])
+        if i in (10, 30):
+            torch.cuda.synchronize()
+            rec[f't{i}'] = time.perf_counter()
+        if i == 10:
+            torch.cuda.reset_peak_memory_stats()
+        if i == 30:
+            rec['peak'] = torch.cuda.max_memory_allocated() / 2**30
+            rec['prof'] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            rec['prof'].start()
+        if i == CLI_STEPS:
+            torch.cuda.synchronize()
+            rec['wall_ms'] = 1e3 * (time.perf_counter() - rec['t30'])
+            rec['prof'].stop()
+            rec['counts'] = FE.launch_counts()
+        watch.resume(i, last=i == CLI_STEPS)
+
+    def after_replay():
+        rec['banks'].append(rec['state']['pose_params']['bones'].clone())
+    with watch, _after_replay(after_replay):
+        train(ccfg, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    watch.check('cli_bundled')
+    counts, W = rec['counts'], TT._GraphStep.WARMUP
+    print(f'cli_bundled: on_step at {rec["seen"]}, launch counters {counts}'
+          f' ({W} warm-up steps and the capture)')
+    expect = {k: 0 for k in counts}
+    expect.update({k: W + 1 for k in BUNDLE_K1_K4})
+    if counts != expect or rec['seen'] != list(range(0, CLI_STEPS + 1,
+                                                     BUNDLE)):
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    after = [rec['bank0']] * W + rec['banks']
+    moved = [s for s in range(W, CLI_STEPS)
+             if not torch.equal(after[s], after[s - 1])]
+    if len(after) != CLI_STEPS or not moved or moved[0] != 19:
+        raise AssertionError(f'{len(after)} steps, pose bank moved at '
+                             f'{moved}, expected first at 19')
+    logdir = os.path.join(ccfg.basedir, ccfg.expname)
+    files = sorted(os.listdir(logdir))
+    need = ['ckpt_00000020.pt', 'ckpt_00000040.pt', 'metrics.jsonl',
+            'pose_ckpt_00000020.pt', 'pose_ckpt_00000040.pt', 'psnr.txt',
+            'ssim.txt']
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+        logged = [r['total_loss'] for r in map(json.loads, f)
+                  if 'total_loss' in r]
+    if not set(need) <= set(files) or len(logged) != 2 \
+            or not np.isfinite(logged).all():
+        raise AssertionError(f'logdir {files}, logged losses {logged}')
+    rays_s = ccfg.N_rand * 20 / (rec['t30'] - rec['t10'])
+    busy = _device_busy(rec['prof'])
+    share = ('not measured' if busy is None else
+             f'{busy[0]:.1f} of {rec["wall_ms"]:.1f} ms = '
+             f'{busy[0] / rec["wall_ms"]:.1%}')
+    print(f'cli_bundled: {rays_s:.1f} CLI train rays/s over steps 10-29 at '
+          f'{BUNDLE} steps a dispatch ({ccfg.N_rand * 1e3 / rays_s:.2f} '
+          f'ms/step), against {eager_rays_s:.1f} at one step a dispatch '
+          f'(cli_train, steps 10-39); device busy over steps 30-39 '
+          f'(loader hand-over, feeder, one bundle, profiled) {share}; peak '
+          f'device memory over steps 10-29 {rec["peak"]:.2f} GiB; logged '
+          f'{logged}; pose bank first moved at step {moved[0]} ({gpu_line})')
+    return counts
 
 
 def cli_flipflop_phase(FE, device, gpu_line):
@@ -2084,10 +2494,16 @@ def main() -> int:
     paths = {'render': path_phase(FE, T, rc, cfg, params, device, gpu_line,
                                   {'encmlp_fwd': 1, 'encmlp_dual_fwd': 1}),
              'train': train_phase(FE, T, device, gpu_line),
+             'train_bundled': bundled_phase(FE, T, device, gpu_line,
+                                            'train_bundled', BUNDLE_K1_K4,
+                                            seed=1),
              'ms_render': path_phase(FE, T, rc2, cfg, params2, device,
                                      gpu_line, {'mlp_fwd': 3}, n_bullet=1,
                                      what='multi-subject path'),
              'ms_train': ms_train_phase(FE, T, device, gpu_line),
+             'ms_bundled': bundled_phase(FE, T, device, gpu_line,
+                                         'ms_bundled', BUNDLE_K5_K6,
+                                         n_subjects=2, seed=4),
              'single_train': single_net_phase(FE, T, device, gpu_line)}
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
         FE, T, device, gpu_line)
@@ -2097,14 +2513,16 @@ def main() -> int:
     import shutil
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        paths['cli_train'], cli_shapes, logdir = cli_train_phase(
-            FE, T, rc, cfg, params, peaks, device, gpu_line)
+        paths['cli_train'], cli_shapes, logdir, cli_rays_s = \
+            cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line)
         paths['cli_render'] = cli_render_phase(
             FE, logdir, os.path.join(logdir, 'ckpt_00000040.pt'), device,
             gpu_line)
         paths['cli_flipflop'] = cli_flipflop_phase(FE, device, gpu_line)
         paths['cli_multisubject'] = cli_multisubject_phase(FE, device,
                                                            gpu_line)
+        paths['cli_bundled'] = cli_bundled_phase(FE, device, gpu_line,
+                                                 cli_rays_s)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each row's launches come from the path whose shapes it times: the

@@ -77,17 +77,22 @@ def test_trackers_match_jax():
 
 
 def test_snapshot_and_reset_copy():
-    """The snapshot refreshes only at a pose-turn start, and neither it
-    nor a reset aliases the live bank."""
+    """The snapshot refreshes only at a pose-turn start (the trainer
+    copies the bank in place where ``snapshot_gate`` holds), and neither
+    it nor a reset aliases the live bank."""
+    from anerf_torch.training.trainer import _where_
     ff = TF.FlipFlopConfig(opt_pose_interval=3, opt_pose_reset=True)
     bank = {'pelvis': torch.zeros(2, 3), 'bones': torch.zeros(2, 24, 3)}
-    snap = TF.maybe_snapshot(ff, 0, bank, None)
+    snap = TF.clone_tree(bank)
     assert snap['bones'].data_ptr() != bank['bones'].data_ptr()
     bank['bones'] += 1
-    TF.maybe_snapshot(ff, 1, bank, snap)        # mid-turn: unchanged
+    refresh = lambda s: _where_(torch.tensor(TF.snapshot_gate(ff, s)),
+                                list(snap.values()), list(bank.values()))
+    refresh(1)                                  # mid-turn: unchanged
     assert float(snap['bones'].max()) == 0.
-    TF.maybe_snapshot(ff, 6, bank, snap)        # a pose turn starts
+    refresh(6)                                  # a pose turn starts
     assert float(snap['bones'].min()) == 1.
+    assert snap['bones'].data_ptr() != bank['bones'].data_ptr()
     bank['bones'] += 1
     TF.reset_poseopt(bank, snap)
     assert float(bank['bones'].max()) == 1.

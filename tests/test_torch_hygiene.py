@@ -173,14 +173,6 @@ def test_train_entry_without_device_needs_cuda(monkeypatch):
         train(_tiny_config())
 
 
-def test_train_entry_refuses_steps_per_dispatch():
-    """Bundling steps into one dispatch is not ported: it raises rather
-    than training one step at a time."""
-    from anerf_torch.run_train import train
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        train(_tiny_config(steps_per_dispatch=2), device='cpu')
-
-
 def _kernel_operands(S, R=2, device='cpu'):
     from anerf_torch import testing_utils as T
     from anerf_torch.models.factory import (build_raycast_config,

@@ -135,6 +135,22 @@ def test_pose_fk_gathers_the_bank():
         rtol=0, atol=1e-6)
 
 
+def test_pose_bank_owns_its_memory():
+    """The bank is updated in place: on the CPU it must not share memory
+    with the caller's arrays or with anchors made from them (which would
+    then move with the bank, as JAX's immutable arrays never do)."""
+    _, bones, _, kps, _, _ = T.synthetic_pose(4)
+    kps0, bones0 = kps.copy(), bones.copy()
+    bank = TP.init_pose_params(kps, bones)
+    anchors = TP.make_anchors(kps, bones)
+    for t in bank.values():
+        t.add_(1.)
+    np.testing.assert_array_equal(kps, kps0)
+    np.testing.assert_array_equal(bones, bones0)
+    np.testing.assert_array_equal(anchors['bones'].numpy(), bones0)
+    np.testing.assert_array_equal(anchors['kps'].numpy(), kps0)
+
+
 def test_gather_bones_with_kp_map():
     """Multiview banks: per-view root bones, shared non-root bones
     through ``kp_map`` (reference pose_opt.py:290-295,318-332)."""
