@@ -32,10 +32,14 @@
 //      tiles and any (R, S) is taken.
 //   4. bias_kernel: the bias gradients, the per-tile partials summed in
 //      tile order.
-//   5. dw_kernel: every weight gradient A^T G, bf16 operands on the
-//      tensor cores (mma.sync m16n8k16, f32 accumulators).  Each block
-//      owns one 128 x 128 tile of one weight gradient and walks all
-//      points in order, 32 at a time, through shared memory.
+//   5. dw_kernel and dw_sum_kernel: every weight gradient A^T G, bf16
+//      operands on the tensor cores (mma.sync m16n8k16, f32
+//      accumulators).  Each block owns one 128 x 128 tile of one weight
+//      gradient and one slice of the points, walks it in order, 32
+//      points at a time, through shared memory, and writes its f32
+//      partial tile; the second kernel sums the slices' partials of each
+//      element in slice order.  The 118 tiles of two nets alone would
+//      leave the card's 132 SMs idle in turns; the slices fill them.
 // * The TPU keeps every weight in VMEM across its grid.  A Hopper block
 //   cannot (3.46 MB a net), so pass 1 streams both weight packs through a
 //   5-stage ring of 32-deep k-slices in shared memory, each filled by one
@@ -58,16 +62,18 @@
 // card's peak.  Pass 1 re-reads both weight packs from L2 once per
 // 64-point tile and net: ~14 GB of L2 reads per K4 call at n = 131,072,
 // its floor at this tile size (a few ms at the L2's rate).  Weight reuse
-// across tiles, wgmma on the ring and a dW pass split across the point
-// axis are later work.
+// across tiles and wgmma on the ring are later work.
 //
 // The workspace, the ring, the per-tile MLP backward, the bias pass and
 // the dW pass live in mlp_bwd_common.cuh, shared with K6 (mlp_bwd.cu).
 //
 // C interface (loaded with ctypes): every pointer is device memory, the
 // stream is PyTorch's current stream; returns the first cudaError of
-// the five launches.
+// the six launches.
 #include "mlp_bwd_common.cuh"
+
+static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
+              "K3/K4 are built for the flagship's 8 x 256 nets");
 
 namespace {
 
@@ -84,7 +90,7 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                 const float* __restrict__ tau_ptr,
                 const bf16* __restrict__ wback,
                 const float* __restrict__ bpack, const float* __restrict__ gin,
-                Work wk, const __grid_constant__ Maps maps, int n, int S,
+                Work wk, const __grid_constant__ Maps<NNET> maps, int n, int S,
                 int R) {
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem sm = tile_smem(smem);
@@ -228,15 +234,16 @@ int launch_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
-               float* dw, float* db, int n, int S, int R, void* stream) {
+               float* dw, float* db, float* part, int P, int slice, int n,
+               int S, int R, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int np = (int)round_up((size_t)n, T), ntile = np / T;
   const Work wk = carve(workspace, n, NNET, J);
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   const bf16* wb = reinterpret_cast<const bf16*>(wback);
-  Maps maps;
-  cudaError_t err = make_maps(maps, wf, wb, wk, NNET, np);
+  Maps<NNET> maps;
+  cudaError_t err = make_maps(maps, wf, wb, wk, np);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(bwd_tile_kernel<NNET>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -253,7 +260,7 @@ int launch_bwd(const float* p, const float* enc, const float* codes,
   denc_kernel<NNET><<<(R * ncol + 255) / 256, 256, 0, st>>>(wk, denc, dcodes,
                                                              S, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)launch_grads(wk, NNET, dw, db, np, st);
+  return (int)launch_grads(wk, NNET, dw, db, part, P, slice, np, st);
 }
 
 }  // namespace
@@ -265,9 +272,11 @@ int encmlp_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
-               float* dw, float* db, int n, int S, int R, void* stream) {
+               float* dw, float* db, float* part, int P, int slice, int n,
+               int S, int R, void* stream) {
   return launch_bwd<1>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, n, S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, P, slice, n,
+                       S, R, stream);
 }
 
 // Coarse and fine nets on one encode (K4): every per-net operand holds
@@ -276,9 +285,11 @@ int encmlp_dual_bwd(const float* p, const float* enc, const float* codes,
                     const float* cutoff, const float* tau, const void* wpack,
                     const void* wback, const float* bpack, const float* g,
                     void* workspace, float* dp, float* denc, float* dcodes,
-                    float* dw, float* db, int n, int S, int R, void* stream) {
+                    float* dw, float* db, float* part, int P, int slice,
+                    int n, int S, int R, void* stream) {
   return launch_bwd<2>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, n, S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, P, slice, n,
+                       S, R, stream);
 }
 
 long long encmlp_bwd_workspace_bytes(int n, int nnet) {

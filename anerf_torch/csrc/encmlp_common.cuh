@@ -32,10 +32,32 @@ constexpr int DXP = (DX + 15) / 16 * 16;
 constexpr int DE = NB * C3;            // 648 view encoding
 constexpr int NCODE = 16;
 constexpr int DXV = 672;               // views input [xv | codes | 0 x 8]
-constexpr int W = 256;
-constexpr int HV = 128;
-constexpr int DEPTH = 8;
-constexpr int SKIP = 4;                // layer SKIP+1 consumes [h, x]
+// the net: DEPTH trunk layers of W units, the views layer HV = W / 2
+// wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
+// for 8 x 256; a K5/K6 build takes any depth from 1 to 24 and W = 256
+// or 512 (nvcc -DANERF_DEPTH=... -DANERF_WIDTH=... -DANERF_SKIP=...;
+// ops/cuda_build.py), narrower nets padded with zeros to the next
+// (ops/fused_mlp.py)
+#ifndef ANERF_DEPTH
+#define ANERF_DEPTH 8
+#endif
+#ifndef ANERF_WIDTH
+#define ANERF_WIDTH 256
+#endif
+#ifndef ANERF_SKIP
+#define ANERF_SKIP 4
+#endif
+constexpr int W = ANERF_WIDTH;
+constexpr int HV = W / 2;
+constexpr int DEPTH = ANERF_DEPTH;
+constexpr int SKIP = ANERF_SKIP;       // layer SKIP+1 consumes [h, x]
+constexpr bool HAS_SKIP = SKIP >= 0 && SKIP + 1 < DEPTH;
+static_assert(W == 256 || W == 512, "nets 256 or 512 wide");
+static_assert(DEPTH >= 1 && DEPTH <= 24, "1 to 24 trunk layers");
+// a product's output rows a block: a ring stage's 256 weight rows, so
+// a 512-wide layer is two blocks over the same A operand
+constexpr int WB = 256;
+constexpr int NBLK = W / WB;
 constexpr int T = 64;                  // points per block
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
@@ -54,10 +76,13 @@ constexpr int XCH = 256;
 constexpr size_t SZ_X = (size_t)W * DXP;
 constexpr size_t SZ_H = (size_t)W * W;
 __host__ __device__ constexpr size_t off_h(int i) {  // trunk layer i >= 1
-  return SZ_X + (size_t)(i - 1) * SZ_H + (i > SKIP + 1 ? SZ_X : 0);
+  return SZ_X + (size_t)(i - 1) * SZ_H +
+         (HAS_SKIP && i > SKIP + 1 ? SZ_X : 0);
 }
+// layer SKIP+1's [v | r] part (where HAS_SKIP)
 constexpr size_t OFF_SKIPX = SZ_X + (size_t)(SKIP + 1) * SZ_H;
-constexpr size_t OFF_F = 2 * SZ_X + (size_t)(DEPTH - 1) * SZ_H;
+constexpr size_t OFF_F =
+    SZ_X + (size_t)(DEPTH - 1) * SZ_H + (HAS_SKIP ? SZ_X : 0);
 constexpr size_t OFF_VF = OFF_F + SZ_H;
 constexpr size_t OFF_VX = OFF_VF + (size_t)HV * W;
 constexpr size_t OFF_A = OFF_VX + (size_t)HV * DXV;

@@ -45,6 +45,9 @@
 // the stream is PyTorch's current stream; returns cudaGetLastError().
 #include "mlp_fwd_common.cuh"
 
+static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
+              "K1/K2 are built for the flagship's 8 x 256 nets");
+
 namespace {
 
 constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J;  // + windows

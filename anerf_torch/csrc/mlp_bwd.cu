@@ -32,17 +32,25 @@
 //   2. dx_kernel, twice, one block per point: the f32 input cotangents
 //      rounded to bf16 into each part's row, padding columns dropped
 //      (element by element, as odd-width rows are unaligned);
-//   3. bias_kernel and dw_kernel (mlp_bwd_common.cuh): the per-tile bias
-//      partials summed in tile order, and every weight gradient A^T G on
-//      the tensor cores, each block one 128 x 128 output tile walking all
-//      points in order.
+//   3. bias_kernel, dw_kernel and dw_sum_kernel (mlp_bwd_common.cuh): the
+//      per-tile bias partials summed in tile order, and every weight
+//      gradient A^T G on the tensor cores, each block one 128 x 128
+//      output tile over one of P slices of the points (P from the host,
+//      ops/fused_mlp.py dw_plan), the slices' partial tiles then summed
+//      in slice order.
+//
+// The library is built for one net too (nvcc -DANERF_DEPTH, -DANERF_WIDTH
+// 256 or 512, -DANERF_SKIP; 8 x 256 by default): any depth, every layer
+// of 512 outputs as two 256-column blocks over the same A operand.  At
+// W = 512 the ring keeps 3 stages and the ReLU masks go to the
+// workspace, so that the two (64, 520) activation buffers fit.
 //
 // Bound: recompute, input cotangents and weight gradients are 3x the
 // forward's tensor-core work (5.2 MFLOP a point) against ~4.4 KB of part
 // and cotangent traffic a point: operations bound it.  Pass 1 re-reads
 // the weight packs from L2 once per 64-point tile (~7 GB at n = 131,072,
-// its floor at this tile size); the workspace round trip and a dW pass
-// that fills the card are later work, as for K3/K4.
+// its floor at this tile size); the workspace round trip is later work,
+// as for K3/K4.
 //
 // C interface (loaded with ctypes): every tensor pointer is device
 // memory; the part pointer and width arrays are host arrays; the stream
@@ -53,13 +61,15 @@
 namespace {
 
 static_assert(SMEM_TILE <= 232448, "a block takes at most 227 KB");
+static_assert(sizeof(Maps<1>) + 1024 <= 32764,
+              "the descriptors fit a kernel's parameters");
 
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
                     const bf16* __restrict__ wback,
                     const float* __restrict__ bpack,
                     const float* __restrict__ gin, Work wk,
-                    const __grid_constant__ Maps maps, int n) {
+                    const __grid_constant__ Maps<1> maps, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem sm = tile_smem(smem);
   const int t0 = blockIdx.x * T;
@@ -105,12 +115,14 @@ extern "C" {
 
 // xs/xvs as for mlp_fwd; wpack/bpack the forward packs, wback the
 // backward pack (WGSZ); g (n, 4) f32; dxs/dxvs part pointers of the
-// widths xw/xvw (bf16 out); dw (WGSZ) and db (BSZ) f32 out.
+// widths xw/xvw (bf16 out); dw (WGSZ) and db (BSZ) f32 out; part the dW
+// pass's partials (P x WGSZ f32) of P slices of `slice` points.
 int mlp_bwd(const void* const* xs, const int* xw, int nx,
             const void* const* xvs, const int* xvw, int nxv,
             const void* wpack, const void* wback, const float* bpack,
             const float* g, void* workspace, void* const* dxs,
-            void* const* dxvs, float* dw, float* db, int n, void* stream) {
+            void* const* dxvs, float* dw, float* db, float* part, int P,
+            int slice, int n, void* stream) {
   Parts px, pv, dx, dv;
   if (!make_parts(px, xs, xw, nx, DX) || px.total != DX ||
       !make_parts(pv, xvs, xvw, nxv, DXV) ||
@@ -122,8 +134,8 @@ int mlp_bwd(const void* const* xs, const int* xw, int nx,
   const Work wk = carve(workspace, n, 1, 0);
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   const bf16* wb = reinterpret_cast<const bf16*>(wback);
-  Maps maps;
-  cudaError_t err = make_maps(maps, wf, wb, wk, 1, np);
+  Maps<1> maps;
+  cudaError_t err = make_maps(maps, wf, wb, wk, np);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
       mlp_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -136,7 +148,7 @@ int mlp_bwd(const void* const* xs, const int* xw, int nx,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   dx_kernel<<<n, DX_THREADS, 0, st>>>(wk.gxv[0], DXV, dv);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)launch_grads(wk, 1, dw, db, np, st);
+  return (int)launch_grads(wk, 1, dw, db, part, P, slice, np, st);
 }
 
 long long mlp_bwd_workspace_bytes(int n) {
@@ -146,5 +158,7 @@ long long mlp_bwd_workspace_bytes(int n) {
 long long mlp_grad_weight_elems(void) { return (long long)WGSZ; }
 
 int mlp_trunk_width(void) { return DX; }
+int mlp_net_depth(void) { return DEPTH; }
+int mlp_net_width(void) { return W; }
 
 }  // extern "C"

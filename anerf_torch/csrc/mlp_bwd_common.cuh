@@ -13,9 +13,10 @@
 // The views layer's forward takes its A operand, the tile's views input,
 // from the workspace through the same ring, so no views input stays in
 // shared memory.  The recompute keeps each trunk layer's ReLU mask as
-// bits in shared memory (8 layers x 64 x 256 bits) for the backward; the
-// bf16 activations and cotangents go to the workspace for the dW pass as
-// 16-byte rows from shared memory.  Products stay mma.sync m16n8k16 with
+// bits (DEPTH layers x 64 x W bits: in shared memory, or at W = 512 in
+// the workspace) for the backward; the bf16 activations and cotangents
+// go to the workspace for the dW pass as 16-byte rows from shared
+// memory.  Products stay mma.sync m16n8k16 with
 // bf16 operands and f32 accumulators (the forward's wgmma product,
 // mlp_fwd_common.cuh, is not used here yet); each warp owns a slice of
 // output columns for all 64 rows, so column sums never cross warps.
@@ -25,6 +26,14 @@
 // n = 131,072: that L2 traffic, not the tensor cores, is its floor at
 // this tile size.  Going below it needs weight reuse across tiles (larger
 // tiles or a cluster sharing each slice by multicast).
+//
+// The dW pass (dw_kernel, dw_sum_kernel) reads the workspace's
+// activations and cotangents back: ~1.6 GB a flagship net at
+// n = 131,072, its floor at the card's memory rate (~0.47 ms), above
+// its tensor-core work (~0.23 ms).  A block per 128 x 128 output tile
+// alone gives one net 59 blocks for 132 SMs; each tile also takes one of
+// P slices of the points, and a second kernel sums the slices' partial
+// tiles in order.
 #pragma once
 #include "ring.cuh"
 
@@ -33,33 +42,61 @@ namespace {
 // the backward weight pack and the weight-gradient buffer share one
 // layout: every weight (in, out) row-major in flatten order
 // (anerf_torch/ops/fused_mlp.py::_grad_layout)
-constexpr size_t G_A = 2 * SZ_X + (size_t)(DEPTH - 1) * SZ_H;  // (256, 1)
-constexpr size_t G_F = G_A + W;                                // (256, 256)
-constexpr size_t G_VF = G_F + SZ_H;                            // (256, 128)
-constexpr size_t G_VX = G_VF + (size_t)W * HV;                 // (672, 128)
-constexpr size_t G_R = G_VX + (size_t)DXV * HV;                // (128, 3)
+constexpr size_t G_A = OFF_F;                   // (W, 1)
+constexpr size_t G_F = G_A + W;                 // (W, W)
+constexpr size_t G_VF = G_F + SZ_H;             // (W, HV)
+constexpr size_t G_VX = G_VF + (size_t)W * HV;  // (672, HV)
+constexpr size_t G_R = G_VX + (size_t)DXV * HV; // (HV, 3)
 constexpr size_t WGSZ = G_R + 3 * HV;
+static_assert(WGSZ % 4 == 0, "the dW partials are summed 4 at a time");
 // trunk layer i's weights: off_h(i) (h part), 0 (layer 0), OFF_SKIPX
 // (layer SKIP+1's [v | r] part): the forward's offsets, which already
 // follow flatten order for the trunk
 
 constexpr int NGS = 8;  // bf16 head cotangents a point: [rgb 3 | alpha | 0]
 
+// ---- shared memory of the per-tile pass -----------------------------------
+// the ring (1024-byte aligned for the swizzle), its barriers, X, two
+// activation / cotangent buffers (T, LDH), the ReLU mask bits, the raw
+// cotangent g (T, 4), a reduction scratch; K3/K4 add the windows (T, J)
+// after it.  The ring has 5 stages, 3 at W = 512.  The mask bits of
+// every trunk layer ([layer][block][warp][row][q] bytes) stay in shared
+// memory where they fit beside a buffer of XCH trunk columns (K3/K4; K6
+// at W = 256 up to 16 layers), else each tile keeps its own in the
+// workspace.  X is the whole trunk input (T, LDX) where that fits in a
+// block's 227 KB as well, else a buffer of XCH columns that its
+// products refill from the workspace's copy (ring_mma_x).
+constexpr int NSTAGE = W == 512 ? 3 : 5;
+constexpr int MASK_LAYER = NBLK * NWARP * T * 4;
+constexpr int MASK_BYTES = DEPTH * MASK_LAYER;
+constexpr int NRED = NTHREAD + NWARP;
+constexpr size_t tile_smem_bytes(int ldx, bool mask) {
+  return 1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
+         sizeof(bf16) * (size_t)T * (ldx + 2 * LDH) + (mask ? MASK_BYTES : 0) +
+         sizeof(float) * (T * 4 + NRED);
+}
+constexpr bool MASK_RESIDENT = tile_smem_bytes(XCH + 8, true) <= 232448;
+constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX, MASK_RESIDENT) <= 232448;
+constexpr int LDXB = BWD_X_RESIDENT ? LDX : XCH + 8;
+constexpr size_t SMEM_TILE = tile_smem_bytes(LDXB, MASK_RESIDENT);
+constexpr size_t MASK_SMEM = MASK_RESIDENT ? MASK_BYTES : 0;
+
 // workspace: bf16 arrays, each (n_pad, width) row-major, then f32 ones
 struct Work {
   bf16* x;            // [v | r | 0]                   (DXP)
   bf16* xv[2];        // [xv | codes | 0] per net      (672)
-  bf16* act[2];       // trunk activations, 8 layers   (8 x 256)
-  bf16* feat[2];      // (256)
-  bf16* hv[2];        // (128)
-  bf16* gp[2];        // pre-activation cotangents     (8 x 256)
-  bf16* gf[2];        // feat cotangent                (256)
-  bf16* ghv[2];       // views cotangent               (128)
+  bf16* act[2];       // trunk activations             (DEPTH x W)
+  bf16* feat[2];      // (W)
+  bf16* hv[2];        // (HV)
+  bf16* gp[2];        // pre-activation cotangents     (DEPTH x W)
+  bf16* gf[2];        // feat cotangent                (W)
+  bf16* ghv[2];       // views cotangent               (HV)
   bf16* gs[2];        // head cotangents               (8)
   float* gx[2];       // [v | r | 0] input cotangent   (DXP)
   float* gxv[2];      // views input cotangent         (672)
   float* win;         // windows (K3/K4 only)          (24)
   float* bpart[2];    // per-tile bias partials        (ntile, BSZ)
+  uint8_t* mask;      // per-tile ReLU masks, where not in shared memory
 };
 
 constexpr int BF_PER_NET = DXV + DEPTH * W + W + HV + DEPTH * W + W + HV + NGS;
@@ -75,7 +112,8 @@ size_t workspace_bytes(int n, int nnet, int nwin) {
   const size_t np = round_up((size_t)n, T), ntile = np / T;
   return round_up(np * 2 * (DXP + (size_t)nnet * BF_PER_NET), 256) +
          np * 4 * ((size_t)nnet * F_PER_NET + nwin) +
-         (size_t)nnet * ntile * BSZ * 4;
+         (size_t)nnet * ntile * BSZ * 4 +
+         (MASK_RESIDENT ? 0 : ntile * MASK_BYTES);
 }
 
 Work carve(void* base, int n, int nnet, int nwin) {
@@ -109,6 +147,7 @@ Work carve(void* base, int n, int nnet, int nwin) {
     w.bpart[k] = f;
     f += (np / T) * BSZ;
   }
+  w.mask = MASK_RESIDENT ? nullptr : reinterpret_cast<uint8_t*>(f);
   return w;
 }
 
@@ -130,15 +169,19 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
 }
 
 // ---- the backward's schedule on the weight ring (ring.cuh) -------------
-constexpr int NSTAGE = 5;
-
-// The schedule of one net, in the order mlp_bwd_tile consumes it; a net
-// with n output columns over 256 (the input cotangents) is cut into
-// 256-row chunks, one product each: ceil(DXP / 256) for each of the two
-// trunk-input cotangents.
-static_assert(DEPTH == 8 && SKIP == 4, "SEGS is written for 8 layers, skip 4");
+// The schedule of one net, in the order mlp_bwd_tile consumes it.  Every
+// product with W output columns runs as NBLK blocks of 256 (a segment
+// each); one with more output columns than that (the input cotangents)
+// is cut into 256-row chunks, one product each: ceil(DXP / 256) for each
+// of the two trunk-input cotangents, ceil(672 / 256) for the views
+// input's.  The views layer's views-input part streams the tile's views
+// input in each stage after its weight rows, 128 rows a segment.
 constexpr int NXC = (DXP + 255) / 256;
-constexpr int NSEG = 24 + 2 * NXC;
+constexpr int NVC = (DXV + 255) / 256;
+constexpr int VXR = 128;
+constexpr int NVXS = HV / VXR;
+constexpr int NSEG = NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1) + 1 + NVXS +
+                     NBLK * (DEPTH + 1) + NVC + (HAS_SKIP ? 2 : 1) * NXC;
 
 struct SegTable {
   Seg s[NSEG];
@@ -154,39 +197,44 @@ __host__ __device__ constexpr void put(SegTable& t, int& i, int pack,
   ++i;
 }
 
-// the 256-row chunks of a (DXP, 256) block of the backward pack at off
-__host__ __device__ constexpr void put_x_chunks(SegTable& t, int& i,
-                                               size_t off) {
-  for (int c = 0; c < NXC; ++c)
-    put(t, i, 1, off + (size_t)c * 256 * W,
-        DXP - 256 * c < 256 ? DXP - 256 * c : 256, W, 0);
+// the 256-row chunks of a (N, K) block of the backward pack at off
+__host__ __device__ constexpr void put_chunks(SegTable& t, int& i,
+                                             size_t off, int N, int K) {
+  for (int c = 0; c * 256 < N; ++c)
+    put(t, i, 1, off + (size_t)c * 256 * K,
+        N - 256 * c < 256 ? N - 256 * c : 256, K, 0);
 }
 
 __host__ __device__ constexpr SegTable bwd_segs() {
   SegTable t{};
   int i = 0;
   // forward recompute
-  put(t, i, 0, 0, W, DXP, 0);               // layer 0          A = X
-  for (int l = 1; l <= SKIP + 1; ++l)       // layers 1-4, layer 5's
-    put(t, i, 0, off_h(l), W, W, 0);        //   h part         A = h
-  put(t, i, 0, OFF_SKIPX, W, DXP, 0);       //   and x part     A = X
-  put(t, i, 0, off_h(6), W, W, 0);
-  put(t, i, 0, off_h(7), W, W, 0);
-  put(t, i, 0, OFF_F, W, W, 0);             // feat
-  put(t, i, 0, OFF_VF, HV, W, 0);           // views: feat part
-  put(t, i, 0, OFF_VX, HV, DXV, 1);         //   views-input part
+  for (int b = 0; b < NBLK; ++b)              // layer 0          A = X
+    put(t, i, 0, (size_t)b * WB * DXP, WB, DXP, 0);
+  for (int l = 1; l < DEPTH; ++l)             // layers 1 ..      A = h
+    for (int b = 0; b < NBLK; ++b) {
+      put(t, i, 0, off_h(l) + (size_t)b * WB * W, WB, W, 0);
+      if (HAS_SKIP && l == SKIP + 1)          //   skip: x part   A = X
+        put(t, i, 0, OFF_SKIPX + (size_t)b * WB * DXP, WB, DXP, 0);
+    }
+  for (int b = 0; b < NBLK; ++b)              // feat
+    put(t, i, 0, OFF_F + (size_t)b * WB * W, WB, W, 0);
+  put(t, i, 0, OFF_VF, HV, W, 0);             // views: feat part
+  for (int v = 0; v < NVXS; ++v)              //   views-input part
+    put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1);
   // backward
-  put(t, i, 1, G_VF, W, HV, 0);             // g_feat           A = g_hv
-  put(t, i, 1, G_VX, 256, HV, 0);           // g_xv, 3 chunks   A = g_hv
-  put(t, i, 1, G_VX + 256 * HV, 256, HV, 0);
-  put(t, i, 1, G_VX + 512 * HV, DXV - 512, HV, 0);
-  put(t, i, 1, G_F, W, W, 0);               // g of layer 7     A = g_feat
-  put(t, i, 1, off_h(7), W, W, 0);          // g of layer 6
-  put(t, i, 1, off_h(6), W, W, 0);          // g of layer 5
-  put_x_chunks(t, i, OFF_SKIPX);            // g_x skip part
-  for (int l = SKIP + 1; l >= 1; --l)       // g of layers 4 .. 0
-    put(t, i, 1, off_h(l), W, W, 0);
-  put_x_chunks(t, i, 0);                    // g_x layer-0 part
+  for (int b = 0; b < NBLK; ++b)              // g_feat           A = g_hv
+    put(t, i, 1, G_VF + (size_t)b * WB * HV, WB, HV, 0);
+  put_chunks(t, i, G_VX, DXV, HV);            // g_xv             A = g_hv
+  for (int b = 0; b < NBLK; ++b)              // g of layer D-1   A = g_feat
+    put(t, i, 1, G_F + (size_t)b * WB * W, WB, W, 0);
+  for (int l = DEPTH - 1; l >= 1; --l) {
+    if (HAS_SKIP && l == SKIP + 1)            // g_x skip part
+      put_chunks(t, i, OFF_SKIPX, DXP, W);
+    for (int b = 0; b < NBLK; ++b)            // g of layer l-1
+      put(t, i, 1, off_h(l) + (size_t)b * WB * W, WB, W, 0);
+  }
+  put_chunks(t, i, 0, DXP, W);                // g_x layer-0 part
   return t;
 }
 __constant__ SegTable SEGS = bwd_segs();
@@ -227,23 +275,25 @@ struct BwdSched {
 };
 
 // Every stage's source as a TMA descriptor (a kernel parameter): each
-// segment of each net as a (rows, K) bf16 matrix read in boxes of
+// segment of each of NN nets as a (rows, K) bf16 matrix read in boxes of
 // KS x rows, and each net's views input (n_pad, DXV) in boxes of KS x T;
 // 64-byte swizzle, columns past K read as zeros.
+template <int NN>
 struct Maps {
-  CUtensorMap seg[2][NSEG];
-  CUtensorMap xv[2];
+  CUtensorMap seg[NN][NSEG];
+  CUtensorMap xv[NN];
 };
 
-// The descriptors of `nnet` nets (forward packs wf, backward packs wb,
+// The descriptors of NN nets (forward packs wf, backward packs wb,
 // views inputs in wk, np padded points).
-cudaError_t make_maps(Maps& mp, const bf16* wf, const bf16* wb,
-                      const Work& wk, int nnet, int np) {
+template <int NN>
+cudaError_t make_maps(Maps<NN>& mp, const bf16* wf, const bf16* wb,
+                      const Work& wk, int np) {
   EncodeTiled enc;
   const cudaError_t err = tensor_map_encoder(&enc);
   if (err != cudaSuccess) return err;
-  mp = Maps{};
-  for (int net = 0; net < nnet; ++net) {
+  mp = Maps<NN>{};
+  for (int net = 0; net < NN; ++net) {
     for (int i = 0; i < NSEG; ++i) {
       const Seg& s = SEGS_HOST.s[i];
       const bf16* base = (s.pack ? wb + (size_t)net * WGSZ
@@ -267,7 +317,7 @@ typedef Ring<BwdSched> BwdRing;
 
 // acc += A[0:64, k_lo:k_hi] @ Wseg[n0 : n0 + 8 NT, k_lo:k_hi]^T over the
 // ring's stages of k-slices k_lo .. k_hi - 1 of segment s, for this
-// warp's columns (none past the segment's rows).  A: shared, row-major,
+// warp's columns (none where n0 is outside the segment's rows).  A: shared, row-major,
 // stride lda, its column 0 at k_lo (k_lo a multiple of KS, k_hi of 16),
 // or nullptr for the views input that rides in the stages.  Each stage:
 // wait for its bytes, ldmatrix + mma, then the warp's arrival on the
@@ -291,7 +341,7 @@ __device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
   // A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
   const int b_row = n0 + (lane & 7) + ((lane >> 4) << 3), b_ch = (lane >> 3) & 1;
   const int a_row = lane & 15, a_ch = lane >> 4;
-  const bool on = n0 < s.rows;
+  const bool on = n0 >= 0 && n0 < s.rows;
   for (int k0 = k_lo; k0 < k_hi; k0 += KS) {
     mbar_wait(r.full + r.c_slot, r.c_phase);
     const bf16* sb = r.buf + r.c_slot * STAGE;
@@ -346,24 +396,6 @@ __device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
   mma_slices<NT>(r, acc, s, A, lda, n0, 0, s.K);
 }
 
-// ---- shared memory of the per-tile pass -----------------------------------
-// the ring (1024-byte aligned for the swizzle), its barriers, X, two
-// activation / cotangent buffers (T, LDH), the ReLU mask bits, the raw
-// cotangent g (T, 4), a reduction scratch; K3/K4 add the windows (T, J)
-// after it.  X is the whole trunk input (T, LDX) where that fits in a
-// block's 227 KB, else a buffer of XCH columns that its products refill
-// from the workspace's copy (ring_mma_x).
-constexpr int MASK_BYTES = DEPTH * NWARP * T * 4;  // [layer][warp][row][q]
-constexpr int NRED = NTHREAD + NWARP;
-constexpr size_t tile_smem_bytes(int ldx) {
-  return 1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
-         sizeof(bf16) * (size_t)T * (ldx + 2 * LDH) + MASK_BYTES +
-         sizeof(float) * (T * 4 + NRED);
-}
-constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX) <= 232448;
-constexpr int LDXB = BWD_X_RESIDENT ? LDX : XCH + 8;
-constexpr size_t SMEM_TILE = tile_smem_bytes(LDXB);
-
 struct TileSmem {
   bf16* ring;
   uint64_t* bars;   // the ring's full and empty barriers
@@ -385,7 +417,7 @@ __device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
   s.H0 = s.X + T * LDXB;
   s.H1 = s.H0 + T * LDH;
   s.mask = reinterpret_cast<uint8_t*>(s.H1 + T * LDH);
-  s.gsm = reinterpret_cast<float*>(s.mask + MASK_BYTES);
+  s.gsm = reinterpret_cast<float*>(s.mask + MASK_SMEM);
   s.red = s.gsm + T * 4;
   s.end = s.red + NRED;
   return s;
@@ -560,13 +592,13 @@ __device__ __forceinline__ void store_f32(const float (&acc)[4][4][4],
   }
 }
 
-// g_x chunk by chunk: out[:, 0:N] (=|+=) A @ W^T over the schedule's
-// next ceil(N / 256) segments
+// an input cotangent chunk by chunk: out[:, 0:N] (=|+=) A @ W^T over
+// the schedule's next ceil(N / 256) segments
 template <bool ADD>
 __device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
                                                float* __restrict__ out,
                                                int N, int nw) {
-  for (int c0 = 0; c0 < N; c0 += W) {
+  for (int c0 = 0; c0 < N; c0 += WB) {
     float acc[4][4][4];
     zero_acc<4>(acc);
     ring_mma<4>(rg, acc, A, LDH, nw);
@@ -581,8 +613,10 @@ __device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
 // cotangent (T, 4) [rgb, alpha].  Bn: the net's packed biases; Wb: its
 // backward pack (the head weights are read from it directly).  Writes
 // every bf16 activation and cotangent, the f32 input cotangents gx/gxv
-// and the tile's bias partials to the workspace `wk`.  Run by the
-// consumer warps; ends with them synchronised.
+// and the tile's bias partials to the workspace `wk`.  A product with W
+// output columns runs as NBLK blocks of 256, warp w taking columns
+// 32w .. 32w+31 of each.  Run by the consumer warps; ends with them
+// synchronised.
 __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
                                              const bf16* __restrict__ Wb,
                                              const float* __restrict__ Bn,
@@ -593,42 +627,62 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
   bf16* act = wk.act[net] + (size_t)t0 * DEPTH * W;
   bf16* gp = wk.gp[net] + (size_t)t0 * DEPTH * W;
-  const int nw = warp * 32;  // this warp's 32 of 256 columns
+  const int nw = warp * 32;  // this warp's 32 of a block's 256 columns
+  // the mask bits of trunk layer l, output block b
+  uint8_t* const mask0 =
+      MASK_RESIDENT ? sm.mask : wk.mask + (size_t)blockIdx.x * MASK_BYTES;
+  auto mask = [&](int l, int b) {
+    return mask0 + l * MASK_LAYER + b * (MASK_LAYER / NBLK);
+  };
 
   // ---- forward recompute: activations to device memory, masks kept ---
   float acc[4][4][4];
-  zero_acc<4>(acc);
-  ring_mma_x<4>(rg, acc, sm, xg, nw);
-  store_relu_mask(acc, Bn, sm.H0, sm.mask, nw);
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma_x<4>(rg, acc, sm, xg, nw);
+    store_relu_mask(acc, Bn + b * WB, sm.H0 + b * WB, mask(0, b), nw);
+  }
   sync_tile();
   copy_rows(act, DEPTH * W, sm.H0, LDH, W);
   bf16* hin = sm.H0;
   bf16* hout = sm.H1;
 #pragma unroll 1
   for (int i = 1; i < DEPTH; ++i) {
-    zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, hin, LDH, nw);
-    if (i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
-    store_relu_mask(acc, Bn + i * W, hout, sm.mask + i * MASK_BYTES / DEPTH,
-                    nw);
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_acc<4>(acc);
+      ring_mma<4>(rg, acc, hin, LDH, nw);
+      if (HAS_SKIP && i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
+      store_relu_mask(acc, Bn + i * W + b * WB, hout + b * WB, mask(i, b),
+                      nw);
+    }
     sync_tile();
     copy_rows(act + i * W, DEPTH * W, hout, LDH, W);
     bf16* tmp = hin;
     hin = hout;
     hout = tmp;
   }
-  zero_acc<4>(acc);
-  ring_mma<4>(rg, acc, hin, LDH, nw);
-  store_act<4, false>(acc, Bn + OB_F, hout, LDH, nw);  // feat
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma<4>(rg, acc, hin, LDH, nw);
+    store_act<4, false>(acc, Bn + OB_F + b * WB, hout + b * WB, LDH,
+                        nw);  // feat
+  }
   sync_tile();
   copy_rows(wk.feat[net] + (size_t)t0 * W, W, hout, LDH, W);
   {
-    float accv[4][2][4];
-    const int nv = warp * 16;
-    zero_acc<2>(accv);
-    ring_mma<2>(rg, accv, hout, LDH, nv);
-    ring_mma<2>(rg, accv, nullptr, 0, nv);  // the views input, streamed
-    store_act<2, true>(accv, Bn + OB_V, hin, LDH, nv);  // hv
+    // the views layer: warp w takes 8 NTV of its HV columns
+    constexpr int NTV = HV / (8 * NWARP);
+    float accv[4][NTV][4];
+    const int nv = warp * 8 * NTV;
+    zero_acc<NTV>(accv);
+    ring_mma<NTV>(rg, accv, hout, LDH, nv);
+#pragma unroll 1
+    for (int v = 0; v < NVXS; ++v)  // the views input, streamed
+      ring_mma<NTV>(rg, accv, nullptr, 0, nv - v * VXR);
+    store_act<NTV, true>(accv, Bn + OB_V, hin, LDH, nv);  // hv
   }
   sync_tile();
   copy_rows(wk.hv[net] + (size_t)t0 * HV, HV, hin, LDH, HV);
@@ -636,16 +690,18 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   bf16* HVB = hin;    // hv, then the bf16 views cotangent in place
   bf16* FB = hout;    // feat, then the bf16 feat cotangent
 
-  // ---- heads on all threads: g_hv = (bf16(g_rgb) . wr) * (hv > 0), half
-  // the rows each for column h; the rgb and alpha column sums by warp
-  // butterflies; each sum in a fixed order ---------------------------------
+  // ---- heads on all threads: g_hv = (bf16(g_rgb) . wr) * (hv > 0), for
+  // column h = tid % HV of RPT rows each; the rgb and alpha column sums
+  // by warp butterflies; each sum in a fixed order -----------------------
+  static_assert(NTHREAD % HV == 0 && NTHREAD == 4 * T, "head section layout");
+  constexpr int RPT = T * HV / NTHREAD;
   {
-    const int h = tid & (HV - 1), r0 = (tid / HV) * (T / 2);
+    const int h = tid % HV, r0 = (tid / HV) * RPT;
     const float w0 = __bfloat162float(Wb[G_R + h * 3]);
     const float w1 = __bfloat162float(Wb[G_R + h * 3 + 1]);
     const float w2 = __bfloat162float(Wb[G_R + h * 3 + 2]);
     float colsum = 0.f;
-    for (int t = r0; t < r0 + T / 2; ++t) {
+    for (int t = r0; t < r0 + RPT; ++t) {
       const float* gr = GSM + t * 4;
       float v = bf16r(gr[0]) * w0 + bf16r(gr[1]) * w1 + bf16r(gr[2]) * w2;
       if (!(__bfloat162float(HVB[t * LDH + h]) > 0.f)) v = 0.f;
@@ -668,11 +724,14 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
     }
   }
   sync_tile();
-  static_assert(NTHREAD == 2 * HV && NTHREAD == 4 * T, "head section layout");
   if (tid < HV) {
-    bpart[OB_V + tid] = sm.red[tid] + sm.red[HV + tid];
-  } else if (tid < HV + 4) {
-    const int c = tid - HV;  // rgb 0-2, alpha 3: warps 2c and 2c + 1
+    float sum = sm.red[tid];
+#pragma unroll
+    for (int k = 1; k < NTHREAD / HV; ++k) sum += sm.red[k * HV + tid];
+    bpart[OB_V + tid] = sum;
+  }
+  if (tid >= NTHREAD - 4) {
+    const int c = tid - (NTHREAD - 4);  // rgb 0-2, alpha 3: warps 2c, 2c + 1
     bpart[c < 3 ? OB_R + c : OB_A] =
         sm.red[NTHREAD + 2 * c] + sm.red[NTHREAD + 2 * c + 1];
   }
@@ -680,25 +739,32 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
 
   // ---- g_feat = g_hv_b @ wvf^T (bias partial, bf16 to FB); the views
   // input cotangent g_xv = g_hv_b @ wvx^T to device memory ------------
-  zero_acc<4>(acc);
-  ring_mma<4>(rg, acc, HVB, LDH, nw);
-  colsum_store<4>(acc, bpart + OB_F, nw);
-  emit_bf16<4>(acc, FB, nw);
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma<4>(rg, acc, HVB, LDH, nw);
+    colsum_store<4>(acc, bpart + OB_F + b * WB, nw);
+    emit_bf16<4>(acc, FB + b * WB, nw);
+  }
   sync_tile();
   copy_rows(wk.gf[net] + (size_t)t0 * W, W, FB, LDH, W);
   ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw);
 
-  // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer 7's cotangent --
-  zero_acc<4>(acc);
-  ring_mma<4>(rg, acc, FB, LDH, nw);
-  sync_tile();  // every warp is past the g_xv products' reads of HVB
-  {
+  // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
+  bf16* gin_b = HVB;   // the current layer's bf16 cotangent
+  bf16* gout_b = FB;
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma<4>(rg, acc, FB, LDH, nw);
+    if (b == 0) sync_tile();  // every warp is past the g_xv products'
+                              // reads of HVB
     const int lane = tid & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = nw + j * 8 + 2 * q;
+        const int col = b * WB + nw + j * 8 + 2 * q;
         const float wa0 = __bfloat162float(Wb[G_A + col]);
         const float wa1 = __bfloat162float(Wb[G_A + col + 1]);
 #pragma unroll
@@ -708,11 +774,9 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
           acc[m][j][2 * h + 1] += ga * wa1;
         }
       }
+    mask_emit(acc, mask(DEPTH - 1, b), bpart + (DEPTH - 1) * W + b * WB,
+              gin_b + b * WB, nw);
   }
-  bf16* gin_b = HVB;   // the current layer's bf16 cotangent
-  bf16* gout_b = FB;
-  mask_emit(acc, sm.mask + (DEPTH - 1) * MASK_BYTES / DEPTH,
-            bpart + (DEPTH - 1) * W, gin_b, nw);
   sync_tile();
   copy_rows(gp + (DEPTH - 1) * W, DEPTH * W, gin_b, LDH, W);
 
@@ -720,18 +784,22 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   float* gx = wk.gx[net] + (size_t)t0 * DXP;
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
-    if (i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DXP, nw);
-    zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, gin_b, LDH, nw);
-    mask_emit(acc, sm.mask + (i - 1) * MASK_BYTES / DEPTH,
-              bpart + (i - 1) * W, gout_b, nw);
+    if (HAS_SKIP && i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DXP, nw);
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_acc<4>(acc);
+      ring_mma<4>(rg, acc, gin_b, LDH, nw);
+      mask_emit(acc, mask(i - 1, b), bpart + (i - 1) * W + b * WB,
+                gout_b + b * WB, nw);
+    }
     sync_tile();
     copy_rows(gp + (i - 1) * W, DEPTH * W, gout_b, LDH, W);
     bf16* tmp = gin_b;
     gin_b = gout_b;
     gout_b = tmp;
   }
-  ring_to_global<true>(rg, gin_b, gx, DXP, nw);
+  // layer 0's part: added to the skip layer's, where there is one
+  ring_to_global<HAS_SKIP>(rg, gin_b, gx, DXP, nw);
   sync_tile();  // the next net may take every buffer
 }
 
@@ -747,18 +815,24 @@ __global__ void bias_kernel(Work wk, float* __restrict__ db, int ntile,
 }
 
 // ---- weight gradients: out (M, N) = A^T G, A (np, M) and G (np, N) -----
-// One block per 128 x 128 output tile, 8 warps of 64 x 32.  Each step
-// stages 32 points of A and G in shared memory as they lie in device
-// memory (point-major rows, 16-byte copies; the next step's rows wait in
-// registers meanwhile), and ldmatrix.trans turns them into the mma
-// fragments of the point-contracted product.
+// The point axis is cut into P slices of `slice` points (a multiple of
+// T), P chosen by the host (ops/fused_mlp.py dw_plan) so that the output
+// tiles times P fill the card several times over.  dw_kernel: one block
+// per 128 x 128 output tile and slice, 8 warps of 64 x 32, writes the
+// tile's f32 partial sum over its slice to the workspace `part` (P
+// copies of the dW layout).  Each step stages 32 points of A and G in
+// shared memory as they lie in device memory (point-major rows, 16-byte
+// copies; the next step's rows wait in registers meanwhile), and
+// ldmatrix.trans turns them into the mma fragments of the
+// point-contracted product.  dw_sum_kernel then adds the P partials of
+// each element in slice order: no atomics, the same bits every call.
 constexpr int DW_TM = 128, DW_TN = 128, DW_TK = 32, DW_LD = 128 + 8;
-constexpr int MAX_JOBS = 32;
+constexpr int MAX_JOBS = 2 * (DEPTH + 6);  // two nets' jobs
 
 struct DwJob {
   const bf16* a;
   const bf16* g;
-  float* out;
+  size_t off;              // the result's offset in the dW layout
   int lda, m, ldg, ncols;  // A stride and rows of the result; G stride, cols
 };
 
@@ -806,8 +880,11 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "r"(a));
 }
 
+// block (tile blockIdx.x, slice blockIdx.y): part[slice][off + M x N] =
+// the tile's sum over points slice * blockIdx.y .. min(np, + slice) - 1
 __global__ void __launch_bounds__(NTHREAD)
-dw_kernel(const DwJobs jobs, int np) {
+dw_kernel(const DwJobs jobs, float* __restrict__ part, size_t total, int np,
+          int slice) {
   __shared__ __align__(16) bf16 As[DW_TK * DW_LD];   // [point][m]
   __shared__ __align__(16) bf16 Gs[DW_TK * DW_LD];   // [point][n]
   int ji = 0;
@@ -816,6 +893,8 @@ dw_kernel(const DwJobs jobs, int np) {
   const int tiles_n = (jb.ncols + DW_TN - 1) / DW_TN;
   const int tile = blockIdx.x - jobs.first_tile[ji];
   const int m0 = (tile / tiles_n) * DW_TM, n0 = (tile % tiles_n) * DW_TN;
+  const int kb = blockIdx.y * slice, ke = min(np, kb + slice);
+  float* out = part + blockIdx.y * total + jb.off;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
@@ -832,13 +911,13 @@ dw_kernel(const DwJobs jobs, int np) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   uint4 va[2], vg[2];
-  dw_load(va, jb.a, jb.lda, jb.m, m0, 0);
-  dw_load(vg, jb.g, jb.ldg, jb.ncols, n0, 0);
-  for (int k0 = 0; k0 < np; k0 += DW_TK) {
+  dw_load(va, jb.a, jb.lda, jb.m, m0, kb);
+  dw_load(vg, jb.g, jb.ldg, jb.ncols, n0, kb);
+  for (int k0 = kb; k0 < ke; k0 += DW_TK) {
     dw_store(As, va);
     dw_store(Gs, vg);
     __syncthreads();
-    if (k0 + DW_TK < np) {
+    if (k0 + DW_TK < ke) {
       dw_load(va, jb.a, jb.lda, jb.m, m0, k0 + DW_TK);
       dw_load(vg, jb.g, jb.ldg, jb.ncols, n0, k0 + DW_TK);
     }
@@ -870,16 +949,35 @@ dw_kernel(const DwJobs jobs, int np) {
         const int row = m0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
         const int col = n0 + wn + nt * 8 + 2 * q + (e & 1);
         if (row < jb.m && col < jb.ncols)
-          jb.out[(size_t)row * jb.ncols + col] = acc[mi][nt][e];
+          out[(size_t)row * jb.ncols + col] = acc[mi][nt][e];
       }
 }
 
+// dw[i] = part[0][i] + part[1][i] + ... + part[P-1][i], 4 elements a
+// thread
+__global__ void __launch_bounds__(256)
+dw_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
+              size_t total4, int P) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 s = part[i];
+    for (int p = 1; p < P; ++p) {
+      const float4 v = part[(size_t)p * total4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    dw[i] = s;
+  }
+}
+
 void add_job(DwJobs& js, int& tiles, const bf16* a, int lda, int m,
-             const bf16* g, int ldg, int ncols, float* out) {
+             const bf16* g, int ldg, int ncols, size_t off) {
   DwJob& jb = js.job[js.njobs];
   jb.a = a;
   jb.g = g;
-  jb.out = out;
+  jb.off = off;
   jb.lda = lda;
   jb.m = m;
   jb.ldg = ldg;
@@ -891,16 +989,22 @@ void add_job(DwJobs& js, int& tiles, const bf16* a, int lda, int m,
 }
 
 // The bias and weight gradients of `nnet` nets from a filled workspace:
-// db (nnet, BSZ), dw (nnet, WGSZ).  Returns the first launch error.
+// db (nnet, BSZ), dw (nnet, WGSZ), through the dW partials `part`
+// (P x nnet x WGSZ f32) of P slices of `slice` points.  Returns the
+// first launch error; cudaErrorInvalidValue where slice is not a
+// positive multiple of T or P is not the slices' count.
 cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
-                         int np, cudaStream_t st) {
+                         float* part, int P, int slice, int np,
+                         cudaStream_t st) {
+  if (slice <= 0 || slice % T != 0 || P != (np + slice - 1) / slice)
+    return cudaErrorInvalidValue;
   bias_kernel<<<(nnet * BSZ + 255) / 256, 256, 0, st>>>(wk, db, np / T, nnet);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   DwJobs js{};
   int tiles = 0;
   for (int k = 0; k < nnet; ++k) {
-    float* o = dw + (size_t)k * WGSZ;
+    const size_t o = (size_t)k * WGSZ;
     const bf16* act = wk.act[k];
     const bf16* gp = wk.gp[k];
     const int LA = DEPTH * W;
@@ -908,8 +1012,9 @@ cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
     for (int i = 1; i < DEPTH; ++i)
       add_job(js, tiles, act + (i - 1) * W, LA, W, gp + i * W, LA, W,
               o + off_h(i));
-    add_job(js, tiles, wk.x, DXP, DXP, gp + (SKIP + 1) * W, LA, W,
-            o + OFF_SKIPX);
+    if (HAS_SKIP)
+      add_job(js, tiles, wk.x, DXP, DXP, gp + (SKIP + 1) * W, LA, W,
+              o + OFF_SKIPX);
     add_job(js, tiles, act + (DEPTH - 1) * W, LA, W, wk.gs[k] + 3, NGS, 1,
             o + G_A);
     add_job(js, tiles, act + (DEPTH - 1) * W, LA, W, wk.gf[k], W, W, o + G_F);
@@ -917,7 +1022,12 @@ cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
     add_job(js, tiles, wk.xv[k], DXV, DXV, wk.ghv[k], HV, HV, o + G_VX);
     add_job(js, tiles, wk.hv[k], HV, HV, wk.gs[k], NGS, 3, o + G_R);
   }
-  dw_kernel<<<tiles, NTHREAD, 0, st>>>(js, np);
+  const size_t total = (size_t)nnet * WGSZ;
+  dw_kernel<<<dim3(tiles, P), NTHREAD, 0, st>>>(js, part, total, np, slice);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dw_sum_kernel<<<(int)((total / 4 + 255) / 256), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dw),
+      total / 4, P);
   return cudaGetLastError();
 }
 

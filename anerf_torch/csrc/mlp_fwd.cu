@@ -10,8 +10,13 @@
 // the width the library is built for (nvcc -DANERF_DX=..., 1 to 2048,
 // 432 by default; the TPU kernel compiles per shape too), the views
 // parts (view encoding 648, 216 or 72, the subject channel 1 of a
-// multi-subject model, framecodes 16) to at most 672.  Out: raw (n, 4)
-// f32, row-major [r, g, b, alpha], as the TPU kernel writes it.
+// multi-subject model, framecodes 16) to at most 672.  It is built for
+// one net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH 256 or 512,
+// -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads a narrower
+// net's weights with zeros): any depth, a 512-wide layer as two
+// 256-column blocks over the same A operand, the ring cut to 3 stages
+// to fit the two (64, 520) activation buffers.  Out: raw (n, 4) f32,
+// row-major [r, g, b, alpha], as the TPU kernel writes it.
 //
 // Per block: 64 points, two consumer warpgroups and a producer warp.
 // The block copies its rows of every part into shared memory at the
@@ -99,6 +104,8 @@ int mlp_fwd(const void* const* xs, const int* xw, int nx,
 // The build's trunk width and the sizes of one packed weight set, for
 // the wrapper's checks.
 int mlp_trunk_width(void) { return DX; }
+int mlp_net_depth(void) { return DEPTH; }
+int mlp_net_width(void) { return W; }
 long long mlp_weight_elems(void) { return (long long)WSZ; }
 int mlp_bias_elems(void) { return BSZ; }
 

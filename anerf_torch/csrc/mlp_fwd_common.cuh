@@ -5,9 +5,9 @@
 //
 // Threads: two consumer warpgroups (warps 0-7) and the ring's producer
 // warp.  Every product is wgmma.mma_async m64nNk16 (bf16 operands, f32
-// accumulators in registers): warpgroup g takes half of a layer's output
-// columns (N = 128 of the 256-wide layers, 64 of the 128-wide views
-// layer) for all 64 rows.  A comes from registers: warp w of a
+// accumulators in registers): warpgroup g takes half of a block of a
+// layer's output columns (N = 128 of a 256-column block of a trunk
+// layer, HV / 2 of the views layer) for all 64 rows.  A comes from registers: warp w of a
 // warpgroup loads rows 16w .. 16w+15 of the tile's activations with
 // ldmatrix from the padded row-major buffers (X, XV, H0, H1), the
 // fragment of mma.m16n8k16's A.  B is the ring stage as the TMA laid it
@@ -18,8 +18,9 @@
 // across stages instead holds two stages per warp, so the producer runs
 // a stage less ahead; on the card that measured slower, PERF.md §6.)
 //
-// Shared memory: the ring (4 stages of 16 KB), X (T, LDX; or, for a trunk
-// input too wide to stay, XCH of its columns at a time), and one region
+// Shared memory: the ring (4 stages of 16 KB, 3 at W = 512), X (T, LDX;
+// or, for a trunk input too wide to stay, XCH of its columns at a
+// time), and one region
 // that holds the views input XV (T, LDXV) and then the two activation
 // buffers H0, H1 (T, LDH) over it.  XV feeds one product, the views
 // layer's views-input part, so that product runs first, right after the
@@ -34,28 +35,52 @@
 namespace {
 
 // ---- the forward's schedule on the ring -----------------------------------
-constexpr int FWD_NSTAGE = 4;
+// 4 stages; 3 at W = 512, whose two (T, 520) activation buffers leave
+// no room for a fourth beside the trunk input's column buffer (the
+// buffer cannot share the activations' room: the skip layer reads both)
+constexpr int FWD_NSTAGE = W == 512 ? 3 : 4;
 
-static_assert(DEPTH == 8 && SKIP == 4, "FSEGS is written for 8 layers, skip 4");
-#define FWD_SEG_LIST                                                      \
-  {                                                                       \
-    {0, (int)OFF_VX, HV, DXV, 0},          /* views-input part A = XV  */ \
-    {0, 0, W, DXP, 0},                     /* layer 0          A = X   */ \
-    {0, (int)off_h(1), W, W, 0},           /* layers 1-4       A = h   */ \
-    {0, (int)off_h(2), W, W, 0},                                          \
-    {0, (int)off_h(3), W, W, 0},                                          \
-    {0, (int)off_h(4), W, W, 0},                                          \
-    {0, (int)off_h(5), W, W, 0},           /* layer 5: h part          */ \
-    {0, (int)OFF_SKIPX, W, DXP, 0},        /*   and x part     A = X   */ \
-    {0, (int)off_h(6), W, W, 0},                                          \
-    {0, (int)off_h(7), W, W, 0},                                          \
-    {0, (int)OFF_F, W, W, 0},              /* feat                     */ \
-    {0, (int)OFF_VF, HV, W, 0},            /* views: feat part A = feat */\
-  }
-__constant__ Seg FSEGS[] = FWD_SEG_LIST;
-constexpr Seg FSEGS_HOST[] = FWD_SEG_LIST;
-#undef FWD_SEG_LIST
-constexpr int NFSEG = sizeof(FSEGS_HOST) / sizeof(Seg);
+// The segments of one net in the order mlp_fwd_tile consumes them: the
+// views layer's views-input part (A = XV), layer 0 (A = X), layers
+// 1 .. DEPTH-1 (A = h; the skip layer's x part after its h part), the
+// feature layer, the views layer's feat part (A = feat); every layer of
+// W outputs as NBLK blocks of 256 output rows, each block's parts in a
+// row.
+constexpr int NFSEG = 2 + NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1);
+
+struct FSegTable {
+  Seg s[NFSEG];
+};
+
+__host__ __device__ constexpr void fput(FSegTable& t, int& i, size_t off,
+                                       int rows, int K) {
+  t.s[i].pack = 0;
+  t.s[i].off = (int)off;
+  t.s[i].rows = rows;
+  t.s[i].K = K;
+  t.s[i].stream_a = 0;
+  ++i;
+}
+
+__host__ __device__ constexpr FSegTable fwd_segs() {
+  FSegTable t{};
+  int i = 0;
+  fput(t, i, OFF_VX, HV, DXV);                      // views-input part
+  for (int b = 0; b < NBLK; ++b)                    // layer 0
+    fput(t, i, (size_t)b * WB * DXP, WB, DXP);
+  for (int l = 1; l < DEPTH; ++l)                   // layers 1 ..
+    for (int b = 0; b < NBLK; ++b) {
+      fput(t, i, off_h(l) + (size_t)b * WB * W, WB, W);
+      if (HAS_SKIP && l == SKIP + 1)                //   skip: x part
+        fput(t, i, OFF_SKIPX + (size_t)b * WB * DXP, WB, DXP);
+    }
+  for (int b = 0; b < NBLK; ++b)                    // feat
+    fput(t, i, OFF_F + (size_t)b * WB * W, WB, W);
+  fput(t, i, OFF_VF, HV, W);                        // views: feat part
+  return t;
+}
+__constant__ FSegTable FSEGS = fwd_segs();
+constexpr FSegTable FSEGS_HOST = fwd_segs();
 
 // The schedule covers the forward pack's matrices (everything before
 // the head vectors at OFF_A) exactly once: weight blocks of the forward
@@ -74,13 +99,13 @@ constexpr bool covers_forward_pack(const Seg* s, int n) {
   }
   return total == OFF_A;
 }
-static_assert(covers_forward_pack(FSEGS_HOST, NFSEG),
+static_assert(covers_forward_pack(FSEGS_HOST.s, NFSEG),
               "the forward schedule must cover the forward pack once");
 
 struct FwdSched {
   static constexpr int N = NFSEG;
   static constexpr int NSTAGE = FWD_NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) { return FSEGS[i]; }
+  __device__ __forceinline__ static Seg at(int i) { return FSEGS.s[i]; }
 };
 typedef Ring<FwdSched> FwdRing;
 
@@ -97,7 +122,7 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
   mp = FwdMaps{};
   for (int net = 0; net < nnet; ++net)
     for (int i = 0; i < NFSEG; ++i) {
-      const Seg& s = FSEGS_HOST[i];
+      const Seg& s = FSEGS_HOST.s[i];
       if (!encode_2d(enc, &mp.seg[net][i], wf + (size_t)net * WSZ + s.off,
                      s.K, s.rows, s.rows))
         return cudaErrorInvalidValue;
@@ -327,6 +352,8 @@ __device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
 // vectors are read from Wn directly).  Writes channel ch of point
 // t0 + t < n to out[ch * cs + (t0 + t) * ps]: (cs, ps) = (n, 1) for
 // K1/K2's channel-major rows, (1, 4) for K5's row-major [rgb, alpha].
+// A layer of W outputs runs as NBLK blocks of 256 columns, each over
+// the whole A operand (warpgroup g takes 128 columns of a block).
 // Run by the consumer warps; ends with them synchronised, past every
 // read of the region that holds XV.
 __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
@@ -337,26 +364,34 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
                                              int n,
                                              const Parts* xs = nullptr) {
   const int tid = threadIdx.x, wg = tid >> 7;
+  constexpr int NJV = HV / 16;  // the views layer: HV / 2 columns a group
   // ---- the views layer's views-input part, while XV is resident -------
-  float dv[8][4];
+  float dv[NJV][4];
   zero_wg(dv);
   ring_wgmma(rg, dv, sm.XV, LDXV);
 
   // ---- density trunk -----------------------------------------------------
   float d[16][4];
-  zero_wg(d);
-  ring_wgmma_x(rg, d, sm, xs, t0, n);
-  sync_tile();  // every warp is past its reads of XV, which H0 overlays
-  store_wg<16, true>(d, Bn, sm.H0, wg * 128);
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_wg(d);
+    ring_wgmma_x(rg, d, sm, xs, t0, n);
+    if (b == 0) sync_tile();  // every warp is past its reads of XV,
+                              // which H0 overlays
+    store_wg<16, true>(d, Bn, sm.H0, b * WB + wg * 128);
+  }
   sync_tile();
   bf16* hin = sm.H0;
   bf16* hout = sm.H1;
 #pragma unroll 1
   for (int i = 1; i < DEPTH; ++i) {
-    zero_wg(d);
-    ring_wgmma(rg, d, hin, LDH);
-    if (i == SKIP + 1) ring_wgmma_x(rg, d, sm, xs, t0, n);
-    store_wg<16, true>(d, Bn + i * W, hout, wg * 128);
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_wg(d);
+      ring_wgmma(rg, d, hin, LDH);
+      if (HAS_SKIP && i == SKIP + 1) ring_wgmma_x(rg, d, sm, xs, t0, n);
+      store_wg<16, true>(d, Bn + i * W, hout, b * WB + wg * 128);
+    }
     sync_tile();
     bf16* tmp = hin;
     hin = hout;
@@ -377,14 +412,17 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
     if (part == 0 && t0 + t < n)
       out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
   }
-  zero_wg(d);
-  ring_wgmma(rg, d, hin, LDH);
-  store_wg<16, false>(d, Bn + OB_F, hout, wg * 128);  // feat, no ReLU
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_wg(d);
+    ring_wgmma(rg, d, hin, LDH);
+    store_wg<16, false>(d, Bn + OB_F, hout, b * WB + wg * 128);  // feat
+  }
   sync_tile();
 
   // ---- views layer: + feat part, ReLU -------------------------------------
   ring_wgmma(rg, dv, hout, LDH);
-  store_wg<8, true>(dv, Bn + OB_V, hin, wg * 64);
+  store_wg<NJV, true>(dv, Bn + OB_V, hin, wg * (HV / 2));
   sync_tile();
 
   // ---- rgb head (f32 dot) -----------------------------------------------

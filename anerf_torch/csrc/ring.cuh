@@ -24,7 +24,7 @@
 namespace {
 
 constexpr int KS = 32;               // k-depth of a stage: 64-byte rows
-constexpr int STAGE = W * KS;        // bf16 a stage: up to 256 rows
+constexpr int STAGE = WB * KS;       // bf16 a stage: up to 256 rows
 
 // One block of weight rows that the ring streams: `rows` rows of depth K
 // at `off` in the forward (pack 0, (out, in) rows) or backward (pack 1,

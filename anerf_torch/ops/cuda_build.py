@@ -10,15 +10,18 @@ source, and for the split-operand MLP kernels one per trunk width:
   * ``mlp_fwd`` ``csrc/mlp_fwd.cu``     K5 (split-operand MLP);
   * ``mlp_bwd`` ``csrc/mlp_bwd.cu``     K6 (its backward).
 
-K5 and K6 are compiled for one trunk width each (``-DANERF_DX=dx``, the
-sum of the trunk parts: 432 at the flagship's encoders, 117, 1152 or
-1197 at others'), as the TPU's Mosaic compiles its kernel per static
-shape.  ``build_kernels`` starts one nvcc per library it lacks, all
-together, into ``anerf_torch/_build/``; each library is keyed by the
-hash of its source, the shared headers (``csrc/*.cuh``) and its trunk
-width, so an edit rebuilds it.  ``library`` builds a width at its first
-use.  Nothing here runs at import: the CPU tests import every module,
-and this machine may have no nvcc.
+K5 and K6 are compiled for one shape each, as the TPU's Mosaic compiles
+its kernel per static shape: a trunk width (``-DANERF_DX=dx``, the sum
+of the trunk parts: 432 at the flagship's encoders, 117, 1152 or 1197
+at others') and a net (``-DANERF_DEPTH``, ``-DANERF_WIDTH`` 256 or 512,
+``-DANERF_SKIP``: any depth, the width a narrower net is padded to,
+the skip after layer 4; ``fused_mlp.kernel_static``).  ``build_kernels``
+starts one nvcc per library it lacks, all together, into
+``anerf_torch/_build/``; each library is keyed by the hash of its
+source, the shared headers (``csrc/*.cuh``) and its shape, so an edit
+rebuilds it.  ``library`` builds a shape at its first use.  Nothing here
+runs at import: the CPU tests import every module, and this machine may
+have no nvcc.
 """
 from __future__ import annotations
 
@@ -38,23 +41,44 @@ _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 _CSRC = os.path.join(_ROOT, 'csrc')
 _SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
             'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu'}
-# the libraries built per trunk width, and the width of K1-K4's trunk
+# the libraries built per shape, and K1-K4's shape: the trunk width,
+# the nets' depth and width, the skip layer
 _SHAPED = ('mlp_fwd', 'mlp_bwd')
 FLAGSHIP_DX = 432
+FLAGSHIP_NET = (8, 256)
+SKIP = 4
 _BUILD_DIR = os.path.join(_ROOT, '_build')
-# (library, trunk width or None) -> the loaded library
-_LIBS: Dict[Tuple[str, Optional[int]], ctypes.CDLL] = {}
+# lib_key(...) -> the loaded library
+_LIBS: Dict[Tuple, ctypes.CDLL] = {}
 
 
-def lib_key(which: str, dx: Optional[int] = None
-            ) -> Tuple[str, Optional[int]]:
-    """``_LIBS``'s key of library ``which`` (at trunk width ``dx`` for
-    K5/K6, the flagship's by default)."""
+def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
+            width: int = 256) -> Tuple:
+    """``_LIBS``'s key of library ``which``: for K5/K6 at trunk width
+    ``dx`` (the flagship's by default) and a ``depth`` x ``width`` net
+    (the compiled width, 256 or 512), ``(which, dx)`` at the flagship's
+    8 x 256 and ``(which, dx, depth, width)`` at any other net."""
     if which not in _SOURCES:
         raise KeyError(f'no library {which!r}')
-    if which in _SHAPED:
-        return which, FLAGSHIP_DX if dx is None else int(dx)
-    return which, None
+    if which not in _SHAPED:
+        return which, None
+    dx = FLAGSHIP_DX if dx is None else int(dx)
+    if (int(depth), int(width)) == FLAGSHIP_NET:
+        return which, dx
+    return which, dx, int(depth), int(width)
+
+
+def _shape_flags(key: Tuple) -> list:
+    """nvcc's defines of a K5/K6 key: the trunk width and, at a net
+    other than 8 x 256, the net's depth, width and skip layer."""
+    if key[1] is None:
+        return []
+    depth, width = key[2:] if len(key) == 4 else FLAGSHIP_NET
+    flags = [f'-DANERF_DX={key[1]}']
+    if (depth, width) != FLAGSHIP_NET:
+        flags += [f'-DANERF_DEPTH={depth}', f'-DANERF_WIDTH={width}',
+                  f'-DANERF_SKIP={SKIP}']
+    return flags
 
 
 def _nvcc() -> str:
@@ -85,35 +109,43 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
     elif which == 'bwd':
         for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
             # p, enc_ray, codes, cutoff, tau, wpack, wpack_b, bpack, g,
-            # workspace, dp, denc, dcodes, dw, db, n, S, R, stream
-            sig(name, [vp] * 15 + [ci] * 3 + [vp])
+            # workspace, dp, denc, dcodes, dw, db, dW partials, P, slice,
+            # n, S, R, stream
+            sig(name, [vp] * 16 + [ci] * 5 + [vp])
         sig('encmlp_bwd_workspace_bytes', [ci, ci], cll)
         sig('encmlp_grad_weight_elems', [], cll)
     elif which == 'mlp_fwd':
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, bpack,
         # out, n, stream
         sig('mlp_fwd', [vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, vp])
-        sig('mlp_trunk_width', [])
         sig('mlp_weight_elems', [], cll)
         sig('mlp_bias_elems', [])
     else:
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, wpack_b,
-        # bpack, g, workspace, dx ptrs, dxv ptrs, dw, db, n, stream
-        sig('mlp_bwd', [vp, vp, ci, vp, vp, ci] + [vp] * 9 + [ci, vp])
+        # bpack, g, workspace, dx ptrs, dxv ptrs, dw, db, dW partials,
+        # P, slice, n, stream
+        sig('mlp_bwd', [vp, vp, ci, vp, vp, ci] + [vp] * 10
+            + [ci] * 3 + [vp])
         sig('mlp_bwd_workspace_bytes', [ci], cll)
         sig('mlp_grad_weight_elems', [], cll)
-        sig('mlp_trunk_width', [])
+    if which in _SHAPED:
+        for name in ('mlp_trunk_width', 'mlp_net_depth', 'mlp_net_width'):
+            sig(name, [])
 
 
 def build_kernels(verbose: bool = False,
-                  trunk_widths: Iterable[int] = ()) -> float:
+                  trunk_widths: Iterable[int] = (),
+                  shapes: Iterable[Tuple[int, int, int]] = ()) -> float:
     """Compile every library not loaded yet for sm_90a into ``_build/``:
-    K1-K4's and K5/K6's at the flagship's trunk width, and K5/K6's at each
-    of ``trunk_widths``; one nvcc per library, all started together.
-    Load them, and return the seconds spent (0 when all were loaded
-    already).  A failed build raises with nvcc's output."""
+    K1-K4's and K5/K6's at the flagship's shape, K5/K6's at each of
+    ``trunk_widths`` (8 x 256 nets) and at each (trunk width, depth,
+    compiled width) of ``shapes``; one nvcc per library, all started
+    together.  Load them, and return the seconds spent (0 when all were
+    loaded already).  A failed build raises with nvcc's output."""
     wanted = [lib_key(w) for w in _SOURCES]
     wanted += [lib_key(w, dx) for dx in sorted(set(trunk_widths))
+               for w in _SHAPED]
+    wanted += [lib_key(w, *shape) for shape in dict.fromkeys(shapes)
                for w in _SHAPED]
     todo = [k for k in dict.fromkeys(wanted) if k not in _LIBS]
     if not todo:
@@ -126,13 +158,16 @@ def build_kernels(verbose: bool = False,
             headers += f.read()
     jobs = {}
     for key in todo:
-        which, dx = key
+        which, dx = key[:2]
         name = _SOURCES[which]
         src = os.path.join(_CSRC, name)
+        flags = _shape_flags(key)
         with open(src, 'rb') as f:
-            digest = hashlib.sha1(f.read() + headers + str(dx).encode()
+            digest = hashlib.sha1(f.read() + headers + ' '.join(flags).encode()
                                   ).hexdigest()[:12]
         tag = name[:-3] if dx is None else f'{name[:-3]}_dx{dx}'
+        if len(key) == 4:
+            tag += f'_d{key[2]}w{key[3]}'
         so = os.path.join(_BUILD_DIR, f'lib{tag}_{digest}.so')
         if os.path.exists(so):
             jobs[key] = (so, None, None)
@@ -142,8 +177,7 @@ def build_kernels(verbose: bool = False,
         cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
                '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
                '-o', tmp, src]
-        if dx is not None:
-            cmd[1:1] = [f'-DANERF_DX={dx}']
+        cmd[1:1] = flags
         if verbose:
             cmd[1:1] = ['-Xptxas', '-v']
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -170,13 +204,15 @@ def build_kernels(verbose: bool = False,
     return time.perf_counter() - t0
 
 
-def library(which: str, dx: Optional[int] = None) -> ctypes.CDLL:
+def library(which: str, dx: Optional[int] = None, depth: int = 8,
+            width: int = 256) -> ctypes.CDLL:
     """The loaded library ``which`` (see the module docstring; K5/K6's at
-    trunk width ``dx``, the flagship's by default), built on first
-    use."""
-    key = lib_key(which, dx)
+    trunk width ``dx`` and a ``depth`` x ``width`` net, the flagship's by
+    default), built on first use."""
+    key = lib_key(which, dx, depth, width)
     if key not in _LIBS:
-        build_kernels(trunk_widths=() if key[1] is None else (key[1],))
+        build_kernels(shapes=() if key[1] is None
+                      else ((key[1], depth, width),))
     return _LIBS[key]
 
 

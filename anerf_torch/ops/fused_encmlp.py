@@ -489,6 +489,7 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
     dcodes = torch.empty((nnet, R, _KERNEL_SHAPE['codes']), **f32)
     dw = torch.empty((nnet, n_dw), **f32)
     db = torch.empty((nnet, fwd_lib.encmlp_bias_elems()), **f32)
+    part, P, slice_ = fused_mlp.dw_partials(st, n, n_dw, nnet, dev)
     codes = _codes_operand(codes_list, est, R, dev)
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
@@ -496,7 +497,8 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
             wbuf_b.data_ptr(), bbuf.data_ptr(), g.data_ptr(), ws.data_ptr(),
             dp.data_ptr(), denc.data_ptr(), dcodes.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n, est.S, R, cuda_build.stream(dev))
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), P, slice_, n,
+            est.S, R, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
     grads = [_unpack_grads(st, dw[i], db[i]) for i in range(nnet)]

@@ -26,10 +26,16 @@ compiled for such as surreal_single's):
 They take the encodings as separate bf16 part arrays (kp and bone
 encodings for the trunk; view encoding, the subject channel of a
 multi-subject model and framecodes for the views branch) and never
-concatenate them in device memory.  Each is compiled for one trunk
-width, the sum of the trunk parts (``cuda_build.library(which, dx)``:
-432 at the flagship's encoders, 117, 1152 or 1197 at 'querypts',
-'relpos' or 'cat'), as the TPU kernel compiles per static shape.
+concatenate them in device memory.  Each is compiled for one shape, as
+the TPU kernel compiles per static shape (``cuda_build.library(which,
+dx, depth, width)``): the trunk width, the sum of the trunk parts (432
+at the flagship's encoders, 117, 1152 or 1197 at 'querypts', 'relpos'
+or 'cat'), and the net's depth and width (``kernel_static``).  A net up
+to 256 wide runs at 256 and one up to 512 at 512: the packs pad every
+hidden width with zero rows, columns and biases, which is exact (a
+padded unit's pre-activation and ReLU output are 0, and its outgoing
+weights are 0, so no cotangent flows back through it), and the padding's
+gradients are dropped (``_unpack_grads``).
 ``nerf_mlp_fused`` runs K5 inside ``_FusedMLP``, a
 ``torch.autograd.Function`` whose backward is K6, so the gradients
 reach every part and every weight on every device.  Beside each kernel
@@ -323,6 +329,28 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
 _XV_PAD = 672       # views input [parts | 0 ...], 42 x 16 columns
 
 
+def kernel_static(st: MLPStatic) -> MLPStatic:
+    """The net the kernels run ``st`` as: its width padded to 256, or to
+    512 past 256, ``half`` to half of that; depth, parts and skips as
+    they are (csrc/encmlp_common.cuh ``W``, ``HV``)."""
+    width = 256 if st.width <= 256 else 512
+    if (st.width, st.half) == (width, width // 2):
+        return st
+    return dataclasses.replace(st, width=width, half=width // 2)
+
+
+def _pad_operands(flat: Sequence[torch.Tensor], st: MLPStatic
+                  ) -> List[torch.Tensor]:
+    """The ``flatten_params`` operands of ``st`` as those of
+    ``kernel_static(st)``: each at the top-left corner of its padded
+    shape, zeros in the rest."""
+    stk = kernel_static(st)
+    if stk is st:
+        return list(flat)
+    return [torch.nn.functional.pad(w, (0, c - w.shape[1], 0, r - w.shape[0]))
+            for w, ((r, c), _) in zip(flat, _weight_shapes(stk))]
+
+
 def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flatten_params`` (or ``flatten_params_cm``) operands -> the
@@ -337,8 +365,12 @@ def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
       L6, L7 (256, 256); feature (256, 256); views feature-part
       (128, 256) then [xv|codes|0] (128, 672); alpha (256,); rgb (3, 128).
     f32 buffer: b0..b7 (8 x 256), feature bias (256), views bias (128),
-    alpha bias (1), rgb biases (3).
+    alpha bias (1), rgb biases (3).  (The flagship's 8 x 256 net; a net
+    of other depth has its layers and biases in the same order, one of
+    other width is padded to ``kernel_static``'s first.)
     """
+    flat = _pad_operands(flat, st)
+    st = kernel_static(st)
     it = iter(flat)
     nx = len(st.dparts)
     w_parts: List[torch.Tensor] = []
@@ -416,7 +448,9 @@ def _pack_bwd_weights(flat: Sequence[torch.Tensor], st: MLPStatic
     ``_grad_layout`` offset, untransposed (in, out), zeros in the gaps
     (the rows past the trunk and the views input parts).  The backward products
     contract over a layer's outputs, so their B fragments read these
-    rows whole."""
+    rows whole.  A net is padded to ``kernel_static``'s first."""
+    flat = _pad_operands(flat, st)
+    st = kernel_static(st)
     parts, pos = [], 0
     for w, (kind, off, shape) in zip(flat, _grad_layout(st)):
         if kind != 'w':
@@ -432,12 +466,63 @@ def _pack_bwd_weights(flat: Sequence[torch.Tensor], st: MLPStatic
 def _unpack_grads(st: MLPStatic, dw: torch.Tensor, db: torch.Tensor
                   ) -> List[torch.Tensor]:
     """The f32 gradient of every ``flatten_params`` operand, as views
-    into one net's kernel outputs."""
+    into one net's kernel outputs (at ``kernel_static(st)``): of a
+    padded net, the real rows and columns of each, the padding's
+    gradients dropped."""
     out = []
-    for kind, off, shape in _grad_layout(st):
+    for (kind, off, shape), (real, _) in zip(
+            _grad_layout(kernel_static(st)), _weight_shapes(st)):
         buf = dw if kind == 'w' else db
-        out.append(buf[off:off + shape[0] * shape[1]].view(shape))
+        g = buf[off:off + shape[0] * shape[1]].view(shape)
+        out.append(g if real == shape else g[:real[0], :real[1]])
     return out
+
+
+# The dW pass's split over the point axis (csrc/mlp_bwd_common.cuh
+# dw_kernel): 128 x 128 output tiles, each walking one of P slices of the
+# points; P makes the tiles of a launch fill the card's 132 SMs about
+# _DW_WAVES times over, with slices of at least _DW_MIN_SLICE points.
+# (On the card the pass's time fell with P up to about 16 waves and
+# then held, and slices shorter than ~2k points cost more than they
+# gained: scripts/sweep_dw_slices.py.)  P depends on the shape and n
+# alone, so the
+# sums' order, and the bits, are the same on any card.
+_DW_TILE, _SMS, _DW_WAVES, _DW_MIN_SLICE = 128, 132, 16, 2048
+
+
+def dw_tiles(st: MLPStatic, nnet: int = 1) -> int:
+    """The dW pass's output tiles for ``nnet`` nets of ``st`` (at
+    ``kernel_static``), job by job as ``launch_grads`` lists them: 59 a
+    flagship net."""
+    stk = kernel_static(st)
+    W, H, dxp = stk.width, stk.half, _dx_pad(stk)
+    tiles = lambda m, n: -(-m // _DW_TILE) * -(-n // _DW_TILE)
+    skip = any(stk.has_x_part(i) for i in range(stk.depth))
+    per_net = ((2 if skip else 1) * tiles(dxp, W)
+               + (stk.depth - 1) * tiles(W, W) + tiles(W, 1) + tiles(W, W)
+               + tiles(W, H) + tiles(_XV_PAD, H) + tiles(H, 3))
+    return nnet * per_net
+
+
+def dw_plan(st: MLPStatic, n: int, nnet: int = 1) -> Tuple[int, int]:
+    """(P, slice): the dW pass's points (n padded to the 64-point tile)
+    cut into P slices of ``slice`` points, a multiple of 64."""
+    n_pad = -(-n // 64) * 64
+    want = -(-_DW_WAVES * _SMS // dw_tiles(st, nnet))
+    want = max(1, min(want, n_pad // _DW_MIN_SLICE))
+    slice_ = -(-n_pad // want)
+    slice_ = -(-slice_ // 64) * 64
+    return -(-n_pad // slice_), slice_
+
+
+def dw_partials(st: MLPStatic, n: int, n_dw: int, nnet: int,
+                device) -> Tuple[torch.Tensor, int, int]:
+    """The dW pass's f32 partials (P copies of ``nnet`` nets' ``n_dw``
+    gradient values), from PyTorch's allocator (a graph capture's pool
+    when capturing), with P and the slice."""
+    P, slice_ = dw_plan(st, n, nnet)
+    part = torch.empty(P * nnet * n_dw, dtype=torch.float32, device=device)
+    return part, P, slice_
 
 
 # ---------------------------------------------------------------------------
@@ -447,11 +532,12 @@ def _unpack_grads(st: MLPStatic, dw: torch.Tensor, db: torch.Tensor
 K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 
-# the MLP the kernels are compiled for (csrc/encmlp_common.cuh): 8 x 256
-# with the skip after layer 4, views branch 128, trunk parts summing to
-# 1-2048 (a library per sum, ops/cuda_build.py) and views parts to at
-# most 672, at most 4 parts of each
-_KERNEL_MLP = dict(depth=8, width=256, half=128, skips=(4,))
+# the nets the kernels are built for (csrc/encmlp_common.cuh, a library
+# per shape, ops/cuda_build.py): 1-24 layers up to 512 wide (run at 256
+# or 512, ``kernel_static``), the views branch half as wide, the skip
+# after layer 4 as factory.py sets it; trunk parts summing to 1-2048
+# columns and views parts to at most 672, at most 4 parts of each
+_MAX_DEPTH, _MAX_WIDTH, _SKIPS = 24, 512, (cuda_build.SKIP,)
 _MAX_DX, _MAX_PARTS = 2048, 4
 
 
@@ -483,16 +569,24 @@ def mlp_bwd_plain(st: MLPStatic, xs, xvs, flat, g):
 
 
 def _check_kernel_shape(st: MLPStatic) -> None:
-    got = dict(depth=st.depth, width=st.width, half=st.half,
-               skips=tuple(st.skips))
-    if (got != _KERNEL_MLP or not 1 <= st.dnet <= _MAX_DX
-            or st.xv > _XV_PAD
-            or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
-        raise NotImplementedError(
-            f'the split-MLP CUDA kernels are built for {_KERNEL_MLP} with '
-            f'trunk parts summing to at most {_MAX_DX} and views parts to '
-            f'at most {_XV_PAD}; got {got}, parts {st.dparts} / '
-            f'{st.vparts}: other shapes are not ported yet (ROADMAP.md)')
+    if st.width > _MAX_WIDTH:
+        why = (f'a net {st.width} wide: past {_MAX_WIDTH} columns its two '
+               f'(64, width + 8) bf16 activation buffers, the weight ring '
+               f'and the trunk columns do not fit a block\'s 227 KB of '
+               f'shared memory (ROADMAP.md C.9)')
+    elif (not 1 <= st.depth <= _MAX_DEPTH or st.width < 1
+          or st.half != st.width // 2 or tuple(st.skips) != _SKIPS):
+        why = (f'depth {st.depth}, width {st.width}, half {st.half}, skips '
+               f'{tuple(st.skips)}: they take 1-{_MAX_DEPTH} layers, half = '
+               f'width // 2 and skips {_SKIPS} (ROADMAP.md)')
+    elif (not 1 <= st.dnet <= _MAX_DX or st.xv > _XV_PAD
+          or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
+        why = (f'parts {st.dparts} / {st.vparts}: they take trunk parts '
+               f'summing to at most {_MAX_DX} and views parts to at most '
+               f'{_XV_PAD}, {_MAX_PARTS} of each (ROADMAP.md)')
+    else:
+        return
+    raise NotImplementedError(f'the split-MLP CUDA kernels do not take {why}')
 
 
 def _check_parts(st: MLPStatic, xs, xvs) -> int:
@@ -521,12 +615,14 @@ def _part_args(ts):
 
 
 def _library(which: str, st: MLPStatic):
-    """K5's or K6's library for the trunk width of ``st``, built at its
-    first use."""
-    lib = cuda_build.library(which, st.dnet)
-    if lib.mlp_trunk_width() != st.dnet:
-        raise RuntimeError(f'{which} library built for trunk width '
-                           f'{lib.mlp_trunk_width()}, not {st.dnet}')
+    """K5's or K6's library for the trunk width and net of ``st`` (at
+    ``kernel_static``), built at its first use."""
+    want = (st.dnet, st.depth, kernel_static(st).width)
+    lib = cuda_build.library(which, *want)
+    got = (lib.mlp_trunk_width(), lib.mlp_net_depth(), lib.mlp_net_width())
+    if got != want:
+        raise RuntimeError(f'{which} library built for (trunk, depth, width)'
+                           f' {got}, not {want}')
     return lib
 
 
@@ -584,8 +680,10 @@ def mlp_bwd(st: MLPStatic, xs: Sequence[torch.Tensor],
     _check_kernel_shape(st)
     dev = xs[0].device
     lib = _library('mlp_bwd', st)
-    wbuf, bbuf = _packs(_library('mlp_fwd', st), flat, st)
-    wbuf_b = _pack_bwd_weights(flat, st)
+    # both packs from the operands padded once to the build's net
+    flat_k, st_k = _pad_operands(flat, st), kernel_static(st)
+    wbuf, bbuf = _packs(_library('mlp_fwd', st), flat_k, st_k)
+    wbuf_b = _pack_bwd_weights(flat_k, st_k)
     n_dw = lib.mlp_grad_weight_elems()
     if wbuf_b.numel() != n_dw:
         raise ValueError('backward weight pack does not match the kernel')
@@ -595,14 +693,15 @@ def mlp_bwd(st: MLPStatic, xs: Sequence[torch.Tensor],
     dxvs = [torch.empty_like(x) for x in xvs]
     dw = torch.empty(n_dw, dtype=torch.float32, device=dev)
     db = torch.empty(bbuf.numel(), dtype=torch.float32, device=dev)
+    part, P, slice_ = dw_partials(st, n, n_dw, 1, dev)
     (xp, xw), (vp, vw) = _part_args(xs), _part_args(xvs)
     dxp, dvp = _part_args(dxs)[0], _part_args(dxvs)[0]
     with torch.cuda.device(dev):
         err = lib.mlp_bwd(xp, xw, len(xs), vp, vw, len(xvs),
                           wbuf.data_ptr(), wbuf_b.data_ptr(), bbuf.data_ptr(),
                           g.data_ptr(), ws.data_ptr(), dxp, dvp,
-                          dw.data_ptr(), db.data_ptr(), n,
-                          cuda_build.stream(dev))
+                          dw.data_ptr(), db.data_ptr(), part.data_ptr(), P,
+                          slice_, n, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'mlp_bwd launch failed: cudaError {err}')
     K6_LAUNCHES += 1
@@ -680,3 +779,20 @@ def kernel_cost(st: MLPStatic, n: int, backward: bool = False
     else:
         nbytes = parts + n * 16 + wbytes
     return {'bf16_flops': flops, 'f32_flops': 0., 'bytes': float(nbytes)}
+
+
+def dw_cost(st: MLPStatic, n: int, nnet: int = 1) -> Dict[str, float]:
+    """Work of the backward kernels' dW pass on n points of ``nnet``
+    nets (which share the trunk input, as K4's do): bf16 tensor-core
+    FLOPs of every weight gradient A^T G, and the bytes that must move:
+    each bf16 activation and cotangent it reads once (the trunk input,
+    every layer's activation and pre-activation cotangent, feat, the
+    views input and layer and their cotangents, the heads' 4
+    cotangents) and each f32 weight gradient written once."""
+    wvals = sum(int(np.prod(s)) for s, d in _weight_shapes(st)
+                if d == torch.bfloat16)
+    per_net = (2 * st.depth * st.width + 2 * st.width + 2 * st.half
+               + st.xv + 4)
+    nbytes = 2 * n * (st.dnet + nnet * per_net) + 4 * nnet * wvals
+    return {'bf16_flops': 2. * n * wvals * nnet, 'f32_flops': 0.,
+            'bytes': float(nbytes)}

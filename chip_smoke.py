@@ -130,7 +130,25 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    store, 40 steps: the launch counters of the warm-up and capture,
    the pose bank first moving at step 19, no host sync inside a bundle
    window, logs, checkpoints and validation metrics; CLI train rays/s
-   beside cli_train's one step a dispatch.
+   beside cli_train's one step a dispatch;
+16. net_shapes phase (after 13; K5/K6 are also built for the nets of
+   ``NET_SHAPES`` at the start): K5 and K6 at nets other than 8x256
+   (6x256, 8x128, 10x256, 8x512, 4x128 without a skip layer, 8x384; a
+   net up to 256 wide runs padded to 256, one up to 512 to 512) on the
+   two-subject model's parts, held against their twins at a ragged
+   4104 points (K6 on a composited cotangent), two calls bit-identical,
+   checked and timed at n=131,072 with K6's passes and bounds at the
+   real shape; then 2 train steps at each net (K5/K6 three times a
+   step, K1-K4 never);
+17. cli_net_width phase (after 15): ``configs/mixamo.txt`` at
+   ``netwidth = 512`` and ``mlp_backend = 'pallas'`` through
+   ``run_train.train`` on a synthetic store, 4 steps, K5 and K6 three
+   times a step and K1-K4 never, finite losses.
+
+Each phase prints its host seconds as it ends.  Every backward kernel's
+dW pass is its two kernels (the point slices' partial tiles and their
+sum in slice order); its passes line gives the pass's bound beside its
+ms.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
 line (K1-K6; each kernel's launches are those of the run whose shapes
@@ -140,7 +158,8 @@ bundled ones counted at warm-up and capture; K1's and K2's rows add ``train_shap
 backward kernels' ``passes_ms``, K1-K4's ``cli_train_shape`` the
 times, bound, error and launches at the CLI mixamo step's shapes, and
 K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
-the launches of the path that runs each),
+the launches of the path that runs each, and ``net_shapes`` those of
+the net_shapes phase's nets with the launches of their train steps),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -393,27 +412,31 @@ def _check_deterministic(name, first, second):
 
 
 # the passes of each backward kernel by kernel name (substrings of the
-# profiler's demangled names)
+# profiler's demangled names); the dW pass is its two kernels, the
+# partial tiles of the point slices and their sum in slice order
+DW_KERNELS = ('dw_kernel', 'dw_sum_kernel')
 BWD_PASSES = {
     'encmlp_dual_bwd': (('per-tile', ('bwd_tile_kernel<2>',)),
                         ('pullback', ('pullback_kernel<2>',)),
                         ('denc', ('denc_kernel<2>',)),
-                        ('bias', ('bias_kernel',)), ('dW', ('dw_kernel',))),
+                        ('bias', ('bias_kernel',)), ('dW', DW_KERNELS)),
     'encmlp_bwd': (('per-tile', ('bwd_tile_kernel<1>',)),
                    ('pullback', ('pullback_kernel<1>',)),
                    ('denc', ('denc_kernel<1>',)),
-                   ('bias', ('bias_kernel',)), ('dW', ('dw_kernel',))),
+                   ('bias', ('bias_kernel',)), ('dW', DW_KERNELS)),
     'mlp_bwd': (('per-tile', ('mlp_bwd_tile_kernel',)),
                 ('dx', ('dx_kernel',)), ('bias', ('bias_kernel',)),
-                ('dW', ('dw_kernel',))),
+                ('dW', DW_KERNELS)),
 }
 
 
-def pass_times(name, run, shape):
+def pass_times(name, run, shape, dw=None, peaks=None):
     """Device ms of each pass of backward kernel ``name`` over one
     profiled call of ``run`` (after a warm-up), grouped by kernel name;
     'other' is the rest of the call (weight packing, output
-    allocation)."""
+    allocation).  ``dw``: the dW pass's work (``fused_mlp.dw_cost``),
+    whose bound on ``peaks`` is printed and returned beside its ms as
+    'dW_bound_ms'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run()
@@ -432,8 +455,16 @@ def pass_times(name, run, shape):
         out[label] = sum(dev(e) for e in events
                          if any(k in e.key for k in keys))
     out['other'] = sum(dev(e) for e in events) - sum(out.values())
+    line = ', '.join(f'{k} {v:.3f}' for k, v in out.items())
+    if dw is not None:
+        out['dW_bound_ms'] = 1e3 * max(
+            dw['bf16_flops'] / peaks[0] + dw['f32_flops'] / peaks[1],
+            dw['bytes'] / peaks[2])
+        line += (f' (dW bound {out["dW_bound_ms"]:.3f}: '
+                 f'{dw["bf16_flops"]:.3e} bf16 FLOP, '
+                 f'{dw["bytes"] / 1e6:.1f} MB)')
     print(f'{name} passes at {shape} (one profiled call, device ms): '
-          + ', '.join(f'{k} {v:.3f}' for k, v in out.items()))
+          + line)
     return out
 
 
@@ -561,7 +592,9 @@ def bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device, R=2048):
             FE.kernel_cost(st, est, p.shape[0], nnet, backward=True),
             _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
             f'R={R} S={S}'))
-        rows[-1]['passes_ms'] = pass_times(name, run, f'R={R} S={S}')
+        rows[-1]['passes_ms'] = pass_times(
+            name, run, f'R={R} S={S}',
+            FE.fused_mlp.dw_cost(st, p.shape[0], nnet), peaks)
     return rows
 
 
@@ -689,8 +722,8 @@ def split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device):
             'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
             _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
             f'n={n}', tpu_file='pallas_mlp.py')
-        timed['mlp_bwd', n]['passes_ms'] = pass_times('mlp_bwd', run,
-                                                      f'n={n}')
+        timed['mlp_bwd', n]['passes_ms'] = pass_times(
+            'mlp_bwd', run, f'n={n}', FM.dw_cost(st, n), peaks)
     ws = FM.cuda_build.library('mlp_bwd').mlp_bwd_workspace_bytes(131072)
     print(f'mlp_bwd workspace at n=131,072: {ws / 2**30:.3f} GiB')
     # the rows of the train step's coarse samples
@@ -1243,7 +1276,8 @@ def grammar_kernel_phase(FM, T, peaks, device):
             _time_ms(run, 5), _time_ms(plain, 1, windows=3), max_abs, peaks,
             f'trunk {st.dparts} views {st.vparts} n={n}',
             tpu_file='pallas_mlp.py')
-        bwd['passes_ms'] = pass_times('mlp_bwd', run, f'trunk {dx} n={n}')
+        bwd['passes_ms'] = pass_times('mlp_bwd', run, f'trunk {dx} n={n}',
+                                      FM.dw_cost(st, n), peaks)
         rows[dx] = (fwd, bwd)
         if dx in SPARSE_SEEDS:
             cfg, rc, params = _grammar_model(T, device, SPARSE_SEEDS[dx],
@@ -1307,6 +1341,165 @@ def grammar_combos_phase(FE, T, device, gpu_line):
                                           state, batch, step, 3,
                                           GRAMMAR_COMBO_STEPS)
     return out
+
+
+# the net_shapes phase (ROADMAP C.9): K5/K6 built for nets other than
+# 8 x 256, on the two-subject model's parts (trunk 360 + 72, views
+# 649 + 16): the skip layer at other depths (6, 10), none (4), widths
+# padded to 256 (128) and to 512 (384), and 512 wide
+NET_SHAPES = ((6, 256), (8, 128), (10, 256), (8, 512), (4, 128), (8, 384))
+# the weights of each shape come from the first of these seeds whose
+# random density makes K6's composited cotangent reach a quarter of the
+# points (else the check would compare zeros)
+NET_SEEDS = tuple(range(1, 9))
+NET_STEPS = 2           # train steps at each shape
+NET_CLI_WIDTH = 512     # the width run_train trains the mixamo recipe at
+NET_CLI_STEPS = 4
+
+
+def _net_model(FM, T, device, depth, width):
+    """(cfg, rc, params, (st, xs, xvs, flat), g) of the two-subject
+    SURREAL recipe with a ``depth`` x ``width`` net on the fused backend
+    at n = 171 x 24 points, weights from the first of ``NET_SEEDS``
+    whose K6 cotangent reaches 25% of the points."""
+    for seed in NET_SEEDS:
+        cfg, rc, params = _grammar_model(T, device, seed, 2, netdepth=depth,
+                                         netwidth=width, mlp_backend='pallas')
+        ins = split_inputs(FM, T, cfg, rc, params, 171, 24, device, True,
+                           cat_subject=True)
+        g = _split_cotangent(FM, *ins, 24, device)
+        share = (g.abs().sum(-1) > 0).float().mean().item()
+        if share >= 0.25:
+            print(f'{depth}x{width}: weights from seed {seed}, cotangent '
+                  f'on {share:.1%} of the points')
+            return cfg, rc, params, ins, g
+    raise AssertionError(f'{depth}x{width}: no seed of {NET_SEEDS} gives a '
+                         'cotangent on a quarter of the points')
+
+
+def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
+    """K5 and K6 at each net of ``NET_SHAPES`` (``fused_mlp.
+    kernel_static``: built at 256 or 512 wide, a narrower net padded)
+    against their twins on the two-subject scene's encodings: at a
+    ragged 4104 points (S=24, R=171), K6 on a composited cotangent, two
+    calls bit-identical; then at the train step's coarse samples
+    (R=2048 x S=64, n=131,072), checked again and timed, the bound from
+    ``kernel_cost`` at the real (unpadded) shape, with K6's passes; then
+    ``NET_STEPS`` train steps of ``build_flagship(2048, n_subjects=2)``
+    at the net (K5 and K6 three times a step, K1-K4 never, finite
+    losses).  Returns ({'DxW': (K5 row, K6 row)}, {'DxW': launch
+    counts})."""
+    import torch
+    rows, counts = {}, {}
+    for depth, width in NET_SHAPES:
+        key = f'{depth}x{width}'
+        cfg, rc, params, (st, xs, xvs, flat), g = _net_model(
+            FM, T, device, depth, width)
+        print(f'mlp_fwd, mlp_bwd {key} n=4104 S=24 parts {st.dparts} / '
+              f'{st.vparts} (built {FM.kernel_static(st).width} wide):')
+        run, plain = _split_calls(FM, st, xs, xvs, flat)
+        _check_close('mlp_fwd', plain(), run())
+        _check_deterministic('mlp_fwd', _named(run()), _named(run()))
+        run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+        got = run()
+        _check_bwd('mlp_bwd', plain(), got)
+        _check_deterministic('mlp_bwd', got, run())
+        st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, 2048, 64,
+                                         device, cat_subject=True)
+        n = 2048 * 64
+        shape = f'{key} trunk {st.dparts} views {st.vparts} n={n}'
+        run, plain = _split_calls(FM, st, xs, xvs, flat)
+        print(f'mlp_fwd {key} R=2048 S=64:')
+        max_abs = _check_close('mlp_fwd', plain(), run())
+        fwd = _timed_row(
+            'mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
+            _time_ms(run, 5, 3), _time_ms(plain, 1, 3), max_abs, peaks,
+            shape, tpu_file='pallas_mlp.py')
+        g = _split_cotangent(FM, st, xs, xvs, flat, 64, device)
+        run, plain = _split_calls(FM, st, xs, xvs, flat, g)
+        print(f'mlp_bwd {key} R=2048 S=64:')
+        max_abs = _check_bwd('mlp_bwd', plain(), run())
+        bwd = _timed_row(
+            'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
+            _time_ms(run, 3, 3), _time_ms(plain, 1, 1), max_abs, peaks,
+            shape, tpu_file='pallas_mlp.py')
+        bwd['passes_ms'] = pass_times('mlp_bwd', run, shape,
+                                      FM.dw_cost(st, n), peaks)
+        rows[key] = (fwd, bwd)
+        del xs, xvs, g, run, plain
+        setup, state, batch, step = T.build_flagship(
+            2048, n_subjects=2, device=device, compute_dtype='bfloat16',
+            netdepth=depth, netwidth=width, mlp_backend='pallas')
+        if (setup.rc.mlp_backend != 'fused'
+                or (setup.rc.nerf.depth, setup.rc.nerf.width) != (depth,
+                                                                  width)):
+            raise AssertionError(f'{key}: not the fused backend at the net')
+        gen = torch.Generator(device=device).manual_seed(0)
+        FE.reset_launch_counts()
+        losses = []
+        for _ in range(NET_STEPS):
+            state, stats = step(state, batch, gen)
+            losses.append(stats['total_loss'])
+        torch.cuda.synchronize()
+        counts[key] = FE.launch_counts()
+        losses = torch.stack(losses).cpu()
+        print(f'net {key} train: {NET_STEPS} steps, launches '
+              f'{counts[key]}, total_loss {losses.tolist()} ({gpu_line})')
+        expect = {k: 0 for k in counts[key]}
+        expect.update(mlp_fwd=3 * NET_STEPS, mlp_bwd=3 * NET_STEPS)
+        if counts[key] != expect:
+            raise AssertionError(f'{key}: launch counts {counts[key]}, '
+                                 f'expected {expect}')
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f'{key}: non-finite losses {losses}')
+        del setup, state, batch, step
+    return rows, counts
+
+
+def cli_net_width_phase(FE, device, gpu_line):
+    """``configs/mixamo.txt`` at ``netwidth = NET_CLI_WIDTH`` and
+    ``mlp_backend = 'pallas'`` through ``run_train.train`` on a
+    synthetic store: ``NET_CLI_STEPS`` steps, K5 and K6 three times a
+    step (K1-K4 are built for 256 wide nets) and K1-K4 never, finite
+    losses.  Returns the launch counts."""
+    import torch
+    from anerf_torch.data.writer import make_synthetic_store
+    from anerf_torch.run_train import train
+    store = make_synthetic_store(os.path.join(WORK, 'wide.npstore'),
+                                 n_frames=8, H=256, W=256, body_scale=450.0,
+                                 blob_radius=2, seed=2)
+    wcfg = _cli_config('mixamo.txt', netwidth=NET_CLI_WIDTH,
+                       netwidth_fine=NET_CLI_WIDTH, mlp_backend='pallas',
+                       dataset_type=('synthetic',), datadir=store,
+                       basedir=os.path.join(WORK, 'logs'), expname='wide',
+                       n_iters=NET_CLI_STEPS, num_workers=4)
+    rec = {'losses': []}
+
+    def on_step(i, state, stats):
+        if stats is None:
+            rec['views'] = state['params']['fine']['views_linear']['w'].shape
+            FE.reset_launch_counts()
+        else:
+            rec['losses'].append(stats['total_loss'])
+        if i == NET_CLI_STEPS:
+            torch.cuda.synchronize()
+            rec['counts'] = FE.launch_counts()
+
+    train(wcfg, device=device, on_step=on_step)
+    counts = rec['counts']
+    losses = torch.stack(rec['losses']).cpu()
+    print(f'cli_net_width: netwidth {NET_CLI_WIDTH}, {NET_CLI_STEPS} steps, '
+          f'views layer {tuple(rec["views"])}, launches {counts}, '
+          f'total_loss {losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update(mlp_fwd=3 * NET_CLI_STEPS, mlp_bwd=3 * NET_CLI_STEPS)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if rec['views'][1] != NET_CLI_WIDTH // 2:
+        raise AssertionError(f'views layer {rec["views"]}: not the wide net')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    return counts
 
 
 def _cli_config(config, **over):
@@ -2424,11 +2617,13 @@ K1_K4_GROUPS = {'K1 encmlp_fwd_kernel<1>': ('encmlp_fwd_kernel<1>',),
                 'K4 per-tile bwd_tile_kernel<2>': ('bwd_tile_kernel<2>',),
                 'K4 pullback, denc <2>': ('pullback_kernel<2>',
                                           'denc_kernel<2>'),
-                'K3+K4 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
+                'K3+K4 dW dw_kernel, dw_sum_kernel': DW_KERNELS,
+                'K3+K4 bias_kernel': ('bias_kernel',)}
 K5_K6_GROUPS = {'K5 mlp_fwd_kernel': ('mlp_fwd_kernel',),
                 'K6 mlp_bwd_tile_kernel': ('mlp_bwd_tile_kernel',),
                 'K6 dx_kernel': ('dx_kernel',),
-                'K6 dw_kernel, bias_kernel': ('dw_kernel', 'bias_kernel')}
+                'K6 dW dw_kernel, dw_sum_kernel': DW_KERNELS,
+                'K6 bias_kernel': ('bias_kernel',)}
 
 
 def profile_step(step, state, batch, gen, groups):
@@ -2441,6 +2636,20 @@ def profile_step(step, state, batch, gen, groups):
     for g, keys in groups.items():
         ms = sum(dev(e) for e in events if any(k in e.key for k in keys))
         print(f'  {g}: {ms:.3f} ms')
+
+
+class PhaseClock:
+    """Host seconds of each phase, printed as it ends, so that the run
+    can be kept inside its time limit."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        print(f'[phase {name}: {now - self.last:.1f} s, '
+              f'{now - self.t0:.1f} s in all]', flush=True)
+        self.last = now
 
 
 def main() -> int:
@@ -2465,8 +2674,11 @@ def main() -> int:
     print(gpu_line)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {torch.cuda.get_device_name(0)}')
+    net_builds = [(432, d, FM.kernel_static(FM.MLPStatic(
+        d, w, (432,), (665,), w // 2, (4,))).width) for d, w in NET_SHAPES]
     build_s = FE.build_kernels(verbose=True,
-                               trunk_widths=tuple(GRAMMAR_WIDTHS))
+                               trunk_widths=tuple(GRAMMAR_WIDTHS),
+                               shapes=net_builds)
     print(f'kernel build: {build_s:.1f} s')
 
     device = torch.device('cuda')
@@ -2487,42 +2699,68 @@ def main() -> int:
     params2 = params_to(init_raycaster_params(
         torch.Generator().manual_seed(4), rc2, cfg), device)
 
+    clock = PhaseClock()
     rows = kernel_phase(FE, T, rc, cfg, params, peaks, device)
+    clock.mark('kernel')
     rows += bwd_kernel_phase(FE, T, rc, cfg, params, peaks, device)
+    clock.mark('bwd_kernel')
     rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
+    clock.mark('split_mlp')
     grammar_rows = grammar_kernel_phase(FM, T, peaks, device)
+    clock.mark('grammar_kernel')
     paths = {'render': path_phase(FE, T, rc, cfg, params, device, gpu_line,
-                                  {'encmlp_fwd': 1, 'encmlp_dual_fwd': 1}),
-             'train': train_phase(FE, T, device, gpu_line),
-             'train_bundled': bundled_phase(FE, T, device, gpu_line,
-                                            'train_bundled', BUNDLE_K1_K4,
-                                            seed=1),
-             'ms_render': path_phase(FE, T, rc2, cfg, params2, device,
-                                     gpu_line, {'mlp_fwd': 3}, n_bullet=1,
-                                     what='multi-subject path'),
-             'ms_train': ms_train_phase(FE, T, device, gpu_line),
-             'ms_bundled': bundled_phase(FE, T, device, gpu_line,
-                                         'ms_bundled', BUNDLE_K5_K6,
-                                         n_subjects=2, seed=4),
-             'single_train': single_net_phase(FE, T, device, gpu_line)}
+                                  {'encmlp_fwd': 1, 'encmlp_dual_fwd': 1})}
+    clock.mark('render')
+    paths['train'] = train_phase(FE, T, device, gpu_line)
+    clock.mark('train')
+    paths['train_bundled'] = bundled_phase(FE, T, device, gpu_line,
+                                           'train_bundled', BUNDLE_K1_K4,
+                                           seed=1)
+    clock.mark('train_bundled')
+    paths['ms_render'] = path_phase(FE, T, rc2, cfg, params2, device,
+                                    gpu_line, {'mlp_fwd': 3}, n_bullet=1,
+                                    what='multi-subject path')
+    clock.mark('ms_render')
+    paths['ms_train'] = ms_train_phase(FE, T, device, gpu_line)
+    clock.mark('ms_train')
+    paths['ms_bundled'] = bundled_phase(FE, T, device, gpu_line,
+                                        'ms_bundled', BUNDLE_K5_K6,
+                                        n_subjects=2, seed=4)
+    clock.mark('ms_bundled')
+    paths['single_train'] = single_net_phase(FE, T, device, gpu_line)
+    clock.mark('single_train')
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
         FE, T, device, gpu_line)
+    clock.mark('grammar_path')
     for name, counts in grammar_combos_phase(FE, T, device,
                                              gpu_line).items():
         paths[f'grammar_{name}'] = counts
+    clock.mark('grammar_combos')
+    net_rows, net_counts = net_shapes_phase(FE, FM, T, peaks, device,
+                                            gpu_line)
+    for key, counts in net_counts.items():
+        paths[f'net_{key}'] = counts
+    clock.mark('net_shapes')
     import shutil
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         paths['cli_train'], cli_shapes, logdir, cli_rays_s = \
             cli_train_phase(FE, T, rc, cfg, params, peaks, device, gpu_line)
+        clock.mark('cli_train')
         paths['cli_render'] = cli_render_phase(
             FE, logdir, os.path.join(logdir, 'ckpt_00000040.pt'), device,
             gpu_line)
+        clock.mark('cli_render')
         paths['cli_flipflop'] = cli_flipflop_phase(FE, device, gpu_line)
+        clock.mark('cli_flipflop')
         paths['cli_multisubject'] = cli_multisubject_phase(FE, device,
                                                            gpu_line)
+        clock.mark('cli_multisubject')
         paths['cli_bundled'] = cli_bundled_phase(FE, device, gpu_line,
                                                  cli_rays_s)
+        clock.mark('cli_bundled')
+        paths['cli_net_width'] = cli_net_width_phase(FE, device, gpu_line)
+        clock.mark('cli_net_width')
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each row's launches come from the path whose shapes it times: the
@@ -2546,6 +2784,16 @@ def main() -> int:
                     launches=paths[width_path[dx]][name],
                     launches_path=width_path[dx])
                 for dx, r in grammar_rows.items()}
+            # K5/K6 at the nets of the net_shapes phase: the times at the
+            # train step's coarse samples, the launches of that net's
+            # train steps
+            row['net_shapes'] = {
+                key: dict({f: r[k][f] for f in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err',
+                    'passes_ms') if f in r[k]},
+                    launches=paths[f'net_{key}'][name],
+                    launches_path=f'net_{key}')
+                for key, r in net_rows.items()}
         if name in cli_shapes:
             row['cli_train_shape'] = dict(
                 cli_shapes[name], launches=paths['cli_train'][name])

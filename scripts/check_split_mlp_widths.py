@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""K5/K6 (``fused_mlp.mlp_fwd``/``mlp_bwd``) at several trunk widths on
-one GPU: a quick check of new builds before the whole smoke run.
+"""K5/K6 (``fused_mlp.mlp_fwd``/``mlp_bwd``) at several trunk widths and
+nets on one GPU: a quick check of new builds before the whole smoke run.
 
-    python3 scripts/check_split_mlp_widths.py [WIDTH ...]
+    python3 scripts/check_split_mlp_widths.py [WIDTH[:DEPTHxNETWIDTH] ...]
 
 Builds K5/K6 for each trunk width (default 117, 1152, 1197 besides the
-flagship's 432; ``-Xptxas -v`` output to ``chiprun_out/k56_ptxas.log``,
-each kernel's registers and spills printed), holds both kernels against
+flagship's 432) and net (8x256 where not given; e.g. ``432:6x256``,
+``432:8x384``, built at the width it is padded to; ``-Xptxas -v`` output
+to ``k56_ptxas.log`` in the repo's ignored output directory, each
+kernel's registers, shared memory and spills printed), holds both
+kernels against
 their plain twins on random weights and inputs at a ragged 4104 points
 for views 216+16, 648+1+16 and 648+1 (K5 at ``chip_smoke.py``'s bars;
 K6's cosines below 0.9999 printed: a random cotangent on every point
@@ -24,7 +27,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main(widths) -> int:
+def main(shapes) -> int:
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as C
@@ -42,21 +45,25 @@ def main(widths) -> int:
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        cuda_build.build_kernels(verbose=True, trunk_widths=widths)
+        cuda_build.build_kernels(verbose=True, shapes=[
+            (dx, d, FM.kernel_static(FM.MLPStatic(d, w, (dx,), (16,), w // 2,
+                                                  (4,))).width)
+            for dx, d, w in shapes])
     print(f'build {time.perf_counter() - t0:.1f} s', flush=True)
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out', 'k56_ptxas.log'), 'w') as f:
         f.write(log.getvalue())
     lines = log.getvalue().splitlines()
     for i, line in enumerate(lines):
-        if 'Compiling entry' in line and ('mlp_fwd_kernel' in line
-                                          or 'mlp_bwd_tile' in line):
-            print(' '.join(x.strip() for x in lines[i + 1:i + 3])[-160:])
+        if 'Compiling entry' in line and any(k in line for k in (
+                'mlp_fwd_kernel', 'mlp_bwd_tile', 'dw_kernel', 'dw_sum')):
+            print(line.split("'")[1][:40], ' '.join(
+                x.strip() for x in lines[i + 1:i + 3])[-160:])
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(0)
 
-    def make(dparts, vparts, n):
-        st = FM.MLPStatic(8, 256, dparts, vparts, 128, (4,))
+    def make(dparts, vparts, n, depth, width):
+        st = FM.MLPStatic(depth, width, dparts, vparts, width // 2, (4,))
         flat = []
         for shape, dt in FM._weight_shapes(st):
             scale = 1.4 / shape[0] ** 0.5 if dt == torch.bfloat16 else 0.05
@@ -67,11 +74,12 @@ def main(widths) -> int:
         return st, [rnd(d) for d in dparts], [rnd(d) for d in vparts], flat
 
     ok = True
-    trunks = [(dx - 72, 72) for dx in sorted({432, *widths})]
-    for dparts in trunks:
+    nets = [((dx - 72, 72) if dx > 72 else (dx,), d, w)
+            for dx, d, w in shapes]
+    for dparts, depth, width in nets:
         for vparts in ((216, 16), (648, 1, 16), (648, 1)):
-            st, xs, xvs, flat = make(dparts, vparts, 4104)
-            print(f'parts {dparts} / {vparts}:', flush=True)
+            st, xs, xvs, flat = make(dparts, vparts, 4104, depth, width)
+            print(f'{depth}x{width} parts {dparts} / {vparts}:', flush=True)
             try:
                 run, plain = C._split_calls(FM, st, xs, xvs, flat)
                 C._check_close('mlp_fwd', plain(), run())
@@ -89,18 +97,26 @@ def main(widths) -> int:
             except Exception as e:  # noqa: BLE001 - report and go on
                 ok = False
                 print('  FAILED', type(e).__name__, str(e)[:500], flush=True)
-    for dparts in trunks:
-        st, xs, xvs, flat = make(dparts, (216, 16), 131072)
+    for dparts, depth, width in nets:
+        st, xs, xvs, flat = make(dparts, (216, 16), 131072, depth, width)
         run, _ = C._split_calls(FM, st, xs, xvs, flat)
         fwd_ms = C._time_ms(run, 5, 3)
         g = torch.randn((131072, 4), generator=gen).to(dev)
         run, _ = C._split_calls(FM, st, xs, xvs, flat, g)
         bwd_ms = C._time_ms(run, 2, 3)
-        print(f'{dparts}: K5 {fwd_ms:.3f} ms, K6 {bwd_ms:.3f} ms at '
-              f'n=131072', flush=True)
+        print(f'{depth}x{width} {dparts}: K5 {fwd_ms:.3f} ms, K6 '
+              f'{bwd_ms:.3f} ms at n=131072', flush=True)
     print('OK' if ok else 'FAIL')
     return 0 if ok else 1
 
 
+def _shape(arg):
+    """'DX' or 'DX:DEPTHxWIDTH' -> (dx, depth, width)."""
+    dx, _, net = arg.partition(':')
+    depth, width = (int(v) for v in (net or '8x256').split('x'))
+    return int(dx), depth, width
+
+
 if __name__ == '__main__':
-    sys.exit(main(tuple(int(a) for a in sys.argv[1:]) or (117, 1152, 1197)))
+    sys.exit(main([(432, 8, 256)] + [_shape(a) for a in sys.argv[1:]
+                                      or ('117', '1152', '1197')]))

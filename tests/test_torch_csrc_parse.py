@@ -52,6 +52,7 @@ extern const __device__ uint3 threadIdx, blockIdx;
 extern const __device__ dim3 blockDim, gridDim;
 struct __attribute__((aligned(16))) uint4 { unsigned x, y, z, w; };
 struct __attribute__((aligned(8))) float2 { float x, y; };
+struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
 __host__ __device__ uint4 make_uint4(unsigned, unsigned, unsigned, unsigned);
 __host__ __device__ float2 make_float2(float, float);
 __device__ void __syncthreads();
@@ -167,6 +168,31 @@ def test_split_mlp_sources_parse_at_every_trunk_width(source, dx,
     asserts, so a width they cannot take fails here."""
     cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
                         [f'ANERF_DX={dx}'])
+    errors = [str(d) for d in tu.diagnostics
+              if d.severity >= cindex.Diagnostic.Error]
+    assert not errors, '\n'.join(errors)
+
+
+# the nets K5/K6 are built for (nvcc -DANERF_DEPTH, -DANERF_WIDTH,
+# -DANERF_SKIP): no skip layer (2, 4), the skip layer (6, 8, 10, 24), 512
+# wide (its ring, activations and masks budgeted apart), at a resident
+# trunk (432) and the widest chunked one (2048)
+NET_SHAPES = ((432, 2, 256), (432, 4, 256), (432, 6, 256), (432, 10, 256),
+              (432, 24, 256), (117, 6, 512), (432, 8, 512), (1152, 8, 512),
+              (2048, 24, 512))
+
+
+@pytest.mark.parametrize('dx,depth,width', NET_SHAPES)
+@pytest.mark.parametrize('source', ['mlp_fwd.cu', 'mlp_bwd.cu'])
+def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
+                                                    mock_include):
+    """K5/K6 at each net shape: the schedules' generated tables, their
+    coverage checks, the shared-memory budgets and the descriptors'
+    parameter room are static asserts, so a shape they cannot take
+    fails here."""
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        [f'ANERF_DX={dx}', f'ANERF_DEPTH={depth}',
+                         f'ANERF_WIDTH={width}', 'ANERF_SKIP=4'])
     errors = [str(d) for d in tu.diagnostics
               if d.severity >= cindex.Diagnostic.Error]
     assert not errors, '\n'.join(errors)
