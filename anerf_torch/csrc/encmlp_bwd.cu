@@ -51,6 +51,16 @@
 //   masks of the recompute stay in shared memory as bits.  Pass 1 holds
 //   the ring (80 KB), X, two activation buffers, the masks, g and the
 //   windows: 231,584 bytes with the ring's alignment and barriers.
+// * viewfac (the view factorization, K4 on the flagship's coarse pass):
+//   the per-tile pass recomputes the views layer from the codes' k-slice
+//   and xw @ M and writes the codes' cotangent alone; the pullback adds
+//   the window cotangent g_hv . M[ray] (both nets', f32) from g_hv in the
+//   workspace, vf_gram_kernel forms each ray's xw^T g_hv (bf16: Gw),
+//   denc_kernel takes the codes alone, the dW pass the codes' rows
+//   alone, and K-vf2 (viewfac.cu) folds Gw into the views weight's view
+//   rows and denc.  (Formed inside the per-tile pass, the two products
+//   cost it ~0.8 ms at the flagship's train shapes, probed on the card.)  Of the views input the workspace holds
+//   only the codes' k-slice.
 // * The stash: the TPU stashes the f32 PE bands because its wide sin was
 //   the forward's largest VPU block.  Here the bands come from one sinf
 //   pair and the double-angle recurrence, so passes 1 and 2 recompute
@@ -77,12 +87,13 @@ static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
 
 namespace {
 
-constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J;  // + windows
+// + the windows (T, J) and viewfac's ray slots (T)
+constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J + sizeof(int) * T;
 static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && BWD_X_RESIDENT,
               "K3/K4 encode the flagship trunk into resident shared memory");
 
-template <int NNET>
+template <int NNET, bool VF>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                 const float* __restrict__ codes,
@@ -95,11 +106,12 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem sm = tile_smem(smem);
   float* WIN = sm.end;                        // windows (T, J)
+  int* SLOT = reinterpret_cast<int*>(WIN + T * J);
 
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * T;
-  BwdRing rg = ring_open<BwdSched>(sm.ring, sm.bars, &maps.seg[0][0],
-                                     maps.xv, NNET, t0);
+  Ring<BwdSchedT<VF>> rg = ring_open<BwdSchedT<VF>>(
+      sm.ring, sm.bars, &maps.seg[0][0], maps.xv, NNET, t0);
   if (tid >= NTHREAD) {  // the producer warp; the first weight slices
     ring_produce(rg);    // arrive while the tile encodes
     return;
@@ -107,11 +119,17 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
 
   const float tau = __ldg(tau_ptr);
   encode_points(p, cutoff, tau, sm.X, WIN, t0, n);
+  if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
   for (int net = 0; net < NNET; ++net) {
     bf16* xv = wk.xv[net] + (size_t)t0 * DXV;
-    encode_views(enc, WIN, xv, DXV, t0, n, S);
-    write_codes(xv, DXV, codes + (size_t)net * R * NCODE, t0, n, S);
+    const float* cn = codes + (size_t)net * R * NCODE;
+    if constexpr (VF) {  // the codes' k-slice alone
+      write_vf_codes(xv + DXV - KS, DXV, cn, t0, n, S);
+    } else {
+      encode_views(enc, WIN, xv, DXV, t0, n, S);
+      write_codes(xv, DXV, cn, t0, n, S);
+    }
   }
   fence_async_global();  // the ring reads the views input back by TMA
   copy_rows(wk.x + (size_t)t0 * DX, DX, sm.X, LDX, DX);
@@ -123,13 +141,16 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
       const int t = idx >> 2, c = idx & 3, gpt = t0 + t;
       sm.gsm[idx] = gpt < n ? __ldg(gin + ((size_t)net * 4 + c) * n + gpt) : 0.f;
     }
-    mlp_bwd_tile(rg, sm, wback + (size_t)net * WGSZ, bpack + (size_t)net * BSZ,
-                 wk, net, t0);
+    const VfTile vf = vf_tile(WIN, SLOT, wk.vfM[net], t0, n, S);
+    mlp_bwd_tile<VF>(rg, sm, wback + (size_t)net * WGSZ,
+                     bpack + (size_t)net * BSZ, wk, net, t0, nullptr, &vf);
   }
 }
 
-// dp: one thread per (point, joint)
-template <int NNET>
+// dp: one thread per (point, joint).  VF: the views input's part of the
+// window cotangent is g_hv . M[ray, j] of each net (the block fold of
+// pallas_mlp._viewfac_bwd's g_hv M^T), the nets' added in f32.
+template <int NNET, bool VF>
 __global__ void pullback_kernel(const float* __restrict__ p,
                                 const float* __restrict__ enc,
                                 const float* __restrict__ cutoff,
@@ -182,21 +203,43 @@ __global__ void pullback_kernel(const float* __restrict__ p,
   }
   g_dists -= g_invd * (invd * invd) * (d > 1e-12f ? 1.f : 0.f);
   // xv = enc[ray] * w
-  const float* er = enc + (size_t)(gp / S) * DE;
-  float g_wv = 0.f;
+  if constexpr (VF) {
+    float dw = 0.f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float sb = 0.f;
+    for (int net = 0; net < NNET; ++net) {
+      const uint4* gr =
+          reinterpret_cast<const uint4*>(wk.ghv[net] + (size_t)gp * HV);
+      const uint4* mr = reinterpret_cast<const uint4*>(
+          wk.vfM[net] + ((size_t)(gp / S) * J + j) * HV);
+      float sum = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < HV / 8; ++c) {
+        const uint4 gv = gr[c], mv = __ldg(mr + c);
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int col = b * C3 + k * J + j;
-      float v = wk.gxv[0][(size_t)gp * DXV + col];
-      if (NNET == 2) v += wk.gxv[1][(size_t)gp * DXV + col];
-      sb += bf16r(v) * __ldg(er + col);
+        for (int q = 0; q < 8; ++q)
+          sum += __bfloat162float(bf16_of(gv, q)) *
+                 __bfloat162float(bf16_of(mv, q));
+      }
+      dw = net ? dw + sum : sum;
     }
-    g_wv += sb;
+    g_w += dw;
+  } else {
+    const float* er = enc + (size_t)(gp / S) * DE;
+    float g_wv = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float sb = 0.f;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int col = b * C3 + k * J + j;
+        float v = wk.gxv[0][(size_t)gp * DXV + col];
+        if (NNET == 2) v += wk.gxv[1][(size_t)gp * DXV + col];
+        sb += bf16r(v) * __ldg(er + col);
+      }
+      g_wv += sb;
+    }
+    g_w += g_wv;
   }
-  g_w += g_wv;
   g_dists -= g_w * (tau * (1.f - w) * w);
   const float gd = g_dists * invd;
 #pragma unroll
@@ -204,14 +247,52 @@ __global__ void pullback_kernel(const float* __restrict__ p,
     dp[(size_t)gp * C3 + k * J + j] = gr[k] * invd + pc[k] * gd;
 }
 
-// denc (R, DE) and dcodes (NNET, R, NCODE): sums over a ray's samples
-template <int NNET>
+// viewfac's per-ray Gram matrix Gw[net, r, j, :] = bf16(sum over the
+// ray's points t, in order, of bf16(w[t, j]) g_hv[t, :]) (the xw^T g_hv
+// of pallas_mlp._viewfac_bwd), which K-vf2 (viewfac.cu) folds into the
+// views weight's view rows and denc: a block per (ray, net), its points'
+// windows and g_hv staged in shared memory VF_GS at a time, a thread per
+// (joint, 8 columns)
+constexpr int VF_GS = 32;
+
+__global__ void __launch_bounds__(J * HV / 8)
+vf_gram_kernel(Work wk, bf16* __restrict__ gw, int S, int R) {
+  __shared__ float w[VF_GS][J];
+  __shared__ __align__(16) bf16 g[VF_GS][HV];
+  const int r = blockIdx.x, net = blockIdx.y;
+  const int j = threadIdx.x / (HV / 8), c = (threadIdx.x % (HV / 8)) * 8;
+  float acc[8] = {};
+  for (int s0 = 0; s0 < S; s0 += VF_GS) {
+    const int ns = min(VF_GS, S - s0);
+    const size_t p0 = (size_t)r * S + s0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < ns * J; i += blockDim.x)
+      w[i / J][i % J] = bf16r(wk.win[p0 * J + i]);
+    for (int i = threadIdx.x; i < ns * HV / 8; i += blockDim.x)
+      reinterpret_cast<uint4*>(&g[0][0])[i] =
+          reinterpret_cast<const uint4*>(wk.ghv[net] + p0 * HV)[i];
+    __syncthreads();
+    for (int s = 0; s < ns; ++s) {
+      const float ws = w[s][j];
+      const uint4 gv = *reinterpret_cast<const uint4*>(&g[s][c]);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] += ws * __bfloat162float(bf16_of(gv, q));
+    }
+  }
+  bf16* o = gw + (((size_t)net * R + r) * J + j) * HV + c;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) o[q] = __float2bfloat16_rn(acc[q]);
+}
+
+// denc (R, DE) and dcodes (NNET, R, NCODE): sums over a ray's samples;
+// VF: dcodes alone (viewfac.cu's fold writes denc)
+template <int NNET, bool VF>
 __global__ void denc_kernel(Work wk, float* __restrict__ denc,
                             float* __restrict__ dcodes, int S, int R) {
-  constexpr int NCOL = DE + NNET * NCODE;
+  constexpr int C0 = VF ? DE : 0, NCOL = DE + NNET * NCODE - C0;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= R * NCOL) return;
-  const int r = idx / NCOL, c = idx - r * NCOL;
+  const int r = idx / NCOL, c = idx - r * NCOL + C0;
   float sum = 0.f;
   if (c < DE) {
     for (int s = 0; s < S; ++s) {
@@ -229,54 +310,84 @@ __global__ void denc_kernel(Work wk, float* __restrict__ denc,
   }
 }
 
+template <int NNET, bool VF>
+int launch_passes(const float* p, const float* enc, const float* codes,
+                  const float* cutoff, const float* tau, const bf16* wf,
+                  const bf16* wb, const float* bpack, const float* g,
+                  const Work& wk, float* dp, float* denc, float* dcodes,
+                  float* dw, float* db, float* part, bf16* gw, int P,
+                  int slice, int n, int S, int R, cudaStream_t st) {
+  const int np = (int)round_up((size_t)n, T), ntile = np / T;
+  Maps<NNET> maps;
+  cudaError_t err = make_maps<NNET, VF>(maps, wf, wb, wk, np);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_tile_kernel<NNET, VF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BWD);
+  if (err != cudaSuccess) return (int)err;
+  bwd_tile_kernel<NNET, VF><<<ntile, NTHREAD + 32, SMEM_BWD, st>>>(
+      p, enc, codes, cutoff, tau, wb, bpack, g, wk, maps, n, S, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  pullback_kernel<NNET, VF><<<(n * J + 255) / 256, 256, 0, st>>>(
+      p, enc, cutoff, tau, wk, dp, n, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (VF) {  // after the pullback, which writes the windows it reads
+    vf_gram_kernel<<<dim3(R, NNET), J * HV / 8, 0, st>>>(wk, gw, S, R);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const int ncol = (VF ? 0 : DE) + NNET * NCODE;
+  denc_kernel<NNET, VF><<<(R * ncol + 255) / 256, 256, 0, st>>>(
+      wk, denc, dcodes, S, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_grads(wk, NNET, dw, db, part, P, slice, np, st, VF);
+}
+
+// vfM: the nets' M (NNET, R, J, HV) bf16 for viewfac, or null for the
+// dense views input; gw: viewfac's Gram matrices (NNET, R, J, HV) bf16
+// out, which viewfac.cu's fold reads (S >= 32)
 template <int NNET>
 int launch_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
-               float* dw, float* db, float* part, int P, int slice, int n,
-               int S, int R, void* stream) {
+               float* dw, float* db, float* part, const void* vfM,
+               void* gw, int P, int slice, int n, int S, int R,
+               void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int np = (int)round_up((size_t)n, T), ntile = np / T;
-  const Work wk = carve(workspace, n, NNET, J);
+  if (vfM && (S < T / (VFR - 1) || !gw)) return (int)cudaErrorInvalidValue;
+  Work wk = carve(workspace, n, NNET, J);
+  for (int k = 0; k < NNET && vfM; ++k)
+    wk.vfM[k] = reinterpret_cast<const bf16*>(vfM) + (size_t)k * R * J * HV;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   const bf16* wb = reinterpret_cast<const bf16*>(wback);
-  Maps<NNET> maps;
-  cudaError_t err = make_maps(maps, wf, wb, wk, np);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_tile_kernel<NNET>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_BWD);
-  if (err != cudaSuccess) return (int)err;
-  bwd_tile_kernel<NNET><<<ntile, NTHREAD + 32, SMEM_BWD, st>>>(
-      p, enc, codes, cutoff, tau, wb, bpack, g, wk, maps, n, S, R);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  pullback_kernel<NNET><<<(n * J + 255) / 256, 256, 0, st>>>(
-      p, enc, cutoff, tau, wk, dp, n, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int ncol = DE + NNET * NCODE;
-  denc_kernel<NNET><<<(R * ncol + 255) / 256, 256, 0, st>>>(wk, denc, dcodes,
-                                                             S, R);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)launch_grads(wk, NNET, dw, db, part, P, slice, np, st);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vfM)
+    return launch_passes<NNET, true>(p, enc, codes, cutoff, tau, wf, wb,
+                                     bpack, g, wk, dp, denc, dcodes, dw, db,
+                                     part, reinterpret_cast<bf16*>(gw), P,
+                                     slice, n, S, R, st);
+  return launch_passes<NNET, false>(p, enc, codes, cutoff, tau, wf, wb, bpack,
+                                    g, wk, dp, denc, dcodes, dw, db, part,
+                                    nullptr, P, slice, n, S, R, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One net (K3): g (1, 4, n); dcodes (1, R, 16); dw (WGSZ); db (BSZ).
+// One net (K3): g (1, 4, n); dcodes (1, R, 16); dw (WGSZ); db (BSZ);
+// vfM, gw null, or viewfac's (launch_bwd).
 int encmlp_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
-               float* dw, float* db, float* part, int P, int slice, int n,
-               int S, int R, void* stream) {
+               float* dw, float* db, float* part, const void* vfM,
+               void* gw, int P, int slice, int n, int S, int R,
+               void* stream) {
   return launch_bwd<1>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, part, P, slice, n,
-                       S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw, P,
+                       slice, n, S, R, stream);
 }
 
 // Coarse and fine nets on one encode (K4): every per-net operand holds
@@ -285,11 +396,12 @@ int encmlp_dual_bwd(const float* p, const float* enc, const float* codes,
                     const float* cutoff, const float* tau, const void* wpack,
                     const void* wback, const float* bpack, const float* g,
                     void* workspace, float* dp, float* denc, float* dcodes,
-                    float* dw, float* db, float* part, int P, int slice,
-                    int n, int S, int R, void* stream) {
+                    float* dw, float* db, float* part, const void* vfM,
+                    void* gw, int P, int slice, int n, int S, int R,
+                    void* stream) {
   return launch_bwd<2>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, part, P, slice, n,
-                       S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw, P,
+                       slice, n, S, R, stream);
 }
 
 long long encmlp_bwd_workspace_bytes(int n, int nnet) {

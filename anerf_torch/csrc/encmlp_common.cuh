@@ -34,10 +34,14 @@ constexpr int NCODE = 16;
 constexpr int DXV = 672;               // views input [xv | codes | 0 x 8]
 // the net: DEPTH trunk layers of W units, the views layer HV = W / 2
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
-// for 8 x 256; a K5/K6 build takes any depth from 1 to 24 and W = 256
-// or 512 (nvcc -DANERF_DEPTH=... -DANERF_WIDTH=... -DANERF_SKIP=...;
-// ops/cuda_build.py), narrower nets padded with zeros to the next
-// (ops/fused_mlp.py)
+// for 8 x 256; a K5/K6 build takes any depth from 1 to 64 and any W
+// that is a multiple of 256 up to 2048, depth x W up to 65,536 (64 x
+// 1024, 32 x 2048; nvcc -DANERF_DEPTH=...
+// -DANERF_WIDTH=... -DANERF_SKIP=...; ops/cuda_build.py), other nets
+// padded with zeros to the next multiple of 256 (ops/fused_mlp.py).  A
+// net past 512 wide is WIDE: its activations do not fit a block's
+// shared memory, so they live in device memory (L2) and each product
+// reads its A operand back XCH columns at a time.
 #ifndef ANERF_DEPTH
 #define ANERF_DEPTH 8
 #endif
@@ -52,8 +56,15 @@ constexpr int HV = W / 2;
 constexpr int DEPTH = ANERF_DEPTH;
 constexpr int SKIP = ANERF_SKIP;       // layer SKIP+1 consumes [h, x]
 constexpr bool HAS_SKIP = SKIP >= 0 && SKIP + 1 < DEPTH;
-static_assert(W == 256 || W == 512, "nets 256 or 512 wide");
-static_assert(DEPTH >= 1 && DEPTH <= 24, "1 to 24 trunk layers");
+static_assert(W % 256 == 0 && W >= 256 && W <= 2048,
+              "nets a multiple of 256 wide, up to 2048");
+static_assert(DEPTH >= 1 && DEPTH <= 64, "1 to 64 trunk layers");
+// the schedules' tables (and their compile-time checks) grow with the
+// layers' 256-column blocks
+static_assert(DEPTH * W <= 65536, "at most depth x width = 65,536");
+#define ANERF_WIDE (ANERF_WIDTH > 512)
+constexpr bool WIDE = ANERF_WIDE;
+constexpr int SMEM_MAX = 232448;       // a block's shared memory
 // a product's output rows a block: a ring stage's 256 weight rows, so
 // a 512-wide layer is two blocks over the same A operand
 constexpr int WB = 256;
@@ -68,8 +79,10 @@ constexpr int LDX = DXP + 8;
 constexpr int LDXV = DXV + 8;
 constexpr int LDH = W + 8;
 // a trunk input too wide to stay in shared memory (K5 past 592 columns,
-// K6 past 480) takes part in its products XCH columns at a time
+// K6 past 480), and a WIDE net's activations, take part in their
+// products XCH columns at a time, through a buffer of stride LDC
 constexpr int XCH = 256;
+constexpr int LDC = XCH + 8;
 
 // packed weights (bf16, each matrix transposed to (out, in)); the layout
 // anerf_torch/ops/fused_encmlp.py::_pack_kernel_weights writes
@@ -237,6 +250,154 @@ __device__ __forceinline__ void encode_views(const float* __restrict__ enc,
     }
     *reinterpret_cast<uint4*>(XV + t * ld + (c < DE ? c : DE + NCODE)) =
         pack8(v);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// ---- viewfac (K1-K4): the views input factorized per ray -----------------
+// The view rows are constant along a ray, so the views layer's
+// views-input product xv @ Wvx equals xw @ M (pallas_mlp.viewfac_operand,
+// _viewfac_dot): M[r, j, :] = sum_b bf16(enc[r, b J + j]) Wvx[b J + j, :]
+// rounded to bf16, a (J, HV) matrix a ray and net built once before the
+// kernel (viewfac.cu), and xw[t, (k, j)] = bf16(w[t, j]) where point t
+// lies on the tile's k-th ray, else 0.  A 64-point tile touches at most
+// VFR rays at S >= 32 (the cost gate takes viewfac only there), so the
+// product is 64 x VFK x HV, VFK = VFR J padded to the 16-deep k-step,
+// on mma.sync, both operands staged in shared memory (vf_stage): M's
+// rows of the tile's rays, from device memory (L2), and xw, from the
+// tile's windows.
+constexpr int VFR = 3;
+constexpr int VFK = (VFR * J + 15) / 16 * 16;
+constexpr int VF_LDM = HV + 8;    // the staged M's row stride (bf16)
+constexpr int VF_LDW = VFK + 8;   // the staged xw's
+constexpr int VF_STAGE = VFK * VF_LDM + T * VF_LDW;  // bf16 of a staging
+
+struct VfTile {
+  const float* win;   // the tile's windows (T, J), shared memory
+  const int* slot;    // each point's ray less r0, -1 past n (vf_slots)
+  const bf16* M;      // this net's M (R, J, HV), device memory
+  int r0, nr;         // the tile's first ray and its rays' count
+};
+
+// slot[t] = the ray of point t0 + t less the tile's first, -1 past n:
+// written by threads 0 .. T-1, read after the consumers' next barrier
+__device__ __forceinline__ void vf_slots(int* slot, int t0, int n, int S) {
+  const int t = threadIdx.x;
+  if (t < T) slot[t] = t0 + t < n ? (t0 + t) / S - t0 / S : -1;
+}
+
+__device__ __forceinline__ VfTile vf_tile(const float* win, const int* slot,
+                                          const bf16* M, int t0, int n,
+                                          int S) {
+  VfTile v;
+  v.win = win;
+  v.slot = slot;
+  v.M = M;
+  v.r0 = t0 / S;
+  v.nr = (min(t0 + T, n) - 1) / S - v.r0 + 1;
+  return v;
+}
+
+// bf16 bits of xw[t, k] (0 off point t's ray and past VFR J)
+__device__ __forceinline__ uint32_t vf_xw(const VfTile& v, int t, int k) {
+  const int kr = k / J;
+  if (v.slot[t] != kr) return 0u;
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v.win[t * J + k - kr * J]));
+}
+
+// buf (VF_STAGE bf16, 16-byte aligned) = MS (VFK, VF_LDM): row k the row
+// k % J of M of the tile's ray k / J, zeros past its rays; then XW (T,
+// VF_LDW): xw.  Run by the consumer warps; the caller synchronises them
+// before the products read it.
+__device__ __forceinline__ void vf_stage(bf16* buf, const VfTile& v) {
+  static_assert(HV % 8 == 0 && VF_LDM % 8 == 0, "16-byte rows of M");
+  constexpr int C8 = HV / 8, NL = (VFK * C8 + NTHREAD - 1) / NTHREAD;
+  uint4 val[NL];   // every load in flight before the first store
+#pragma unroll
+  for (int u = 0; u < NL; ++u) {
+    const int idx = threadIdx.x + u * NTHREAD, k = idx / C8, kr = k / J;
+    const bool on = idx < VFK * C8 && kr < v.nr;
+    val[u] = *reinterpret_cast<const uint4*>(
+        v.M + (on ? ((size_t)(v.r0 + kr) * J + (k - kr * J)) * HV +
+                        (idx - k * C8) * 8
+                  : (size_t)v.r0 * J * HV));
+    if (!on) val[u] = make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int u = 0; u < NL; ++u) {
+    const int idx = threadIdx.x + u * NTHREAD, k = idx / C8;
+    if (idx < VFK * C8)
+      *reinterpret_cast<uint4*>(buf + k * VF_LDM + (idx - k * C8) * 8) =
+          val[u];
+  }
+  bf16* xw = buf + VFK * VF_LDM;
+  for (int idx = threadIdx.x; idx < T * VFK / 2; idx += NTHREAD) {
+    const int t = idx / (VFK / 2), k = (idx - t * (VFK / 2)) * 2;
+    *reinterpret_cast<uint32_t*>(xw + t * VF_LDW + k) =
+        vf_xw(v, t, k) | vf_xw(v, t, k + 1) << 16;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d[j] += xw[m0 .. m0+15, :] @ M[:, n0 + 8 j .. n0 + 8 j + 7] for j < NJ
+// (NJ even) from a staging: mma.m16n8k16 accumulators (rows m0 + lane /
+// 4 (+8), columns n0 + 8 j + 2 (lane % 4) (+1)), as this warp holds them
+// in both the forward's wgmma layout and the backward's mma.sync one
+template <int NJ>
+__device__ __forceinline__ void vf_xw_m(float (&d)[NJ][4], const bf16* buf,
+                                        int m0, int n0) {
+  static_assert(NJ % 2 == 0, "n-tiles in pairs");
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r8 = lane & 7;
+  const bf16* xw = buf + VFK * VF_LDM;
+#pragma unroll
+  for (int ks = 0; ks < VFK / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, xw + (m0 + (lane & 15)) * VF_LDW + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t b[4];   // M rows 16 ks .. (k), columns n0 + 16 jp .. (n)
+      ldsm_x4_t(b, buf + (ks * 16 + r8 + ((mat & 1) << 3)) * VF_LDM + n0 +
+                       jp * 16 + ((mat >> 1) << 3));
+      mma_bf16(d[2 * jp], a, b[0], b[1]);
+      mma_bf16(d[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// XV[:, 0:32] = the views input's last k-slice [0 x 8 | codes | 0 x 8]
+// (columns DXV - 32 .. DXV - 1; XV: T rows, stride ld), viewfac's only
+// views-input columns beside xw
+__device__ __forceinline__ void write_vf_codes(bf16* XV, int ld,
+                                               const float* __restrict__ codes,
+                                               int t0, int n, int S) {
+  static_assert(DXV - 32 == DE - 8 && DXV - DE - NCODE == 8,
+                "the codes' k-slice");
+  for (int idx = threadIdx.x; idx < T * 4; idx += NTHREAD) {
+    const int t = idx >> 2, c = (idx & 3) * 8, gp = t0 + t;
+    float v[8] = {};
+    if ((c == 8 || c == 16) && gp < n) {
+      const float* cr = codes + (size_t)(gp / S) * NCODE + c - 8;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(cr + q);
+    }
+    *reinterpret_cast<uint4*>(XV + t * ld + c) = pack8(v);
   }
 }
 

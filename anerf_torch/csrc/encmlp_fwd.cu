@@ -25,6 +25,15 @@
 // that stay in registers until the feat part adds into them, and the
 // activation buffers take its place (mlp_fwd_common.cuh).  K2 encodes
 // the views input again for its second net from the windows it keeps.
+//
+// With viewfac (the view factorization, anerf_tpu's default: its cost
+// gate takes it for the coarse pass at S = 64, K2), the views input is
+// never built: the views layer's views-input product is the codes'
+// k-slice through the ring plus xw @ M, the tile's windows against its
+// rays' rows of M (at most 3 rays a tile at S >= 32; M from K-vf1,
+// viewfac.cu), on mma.sync with both operands built in registers
+// (encmlp_common.cuh).  The ring skips the 172 KB of the views weight's
+// view rows a tile and net.
 // Numeric chain as in the TPU kernels: f32 bias and ReLU, a bf16 re-cast
 // between layers, feat rounded to bf16 after its bias, alpha and rgb in
 // f32.  The ragged edge of the last block is masked.
@@ -50,83 +59,112 @@ static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
 
 namespace {
 
-constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J;  // + windows
+// + the windows (T, J) and viewfac's ray slots (T)
+constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J + sizeof(int) * T;
 static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && FWD_X_RESIDENT,
               "K1/K2 encode the flagship trunk into resident shared memory");
 
-template <int NNET>
+template <int NNET, bool VF>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                   const float* __restrict__ codes,
                   const float* __restrict__ cutoff,
                   const float* __restrict__ tau_ptr,
                   const bf16* __restrict__ wpack,
-                  const float* __restrict__ bpack, float* __restrict__ out,
+                  const float* __restrict__ bpack,
+                  const bf16* __restrict__ vfM, float* __restrict__ out,
                   const __grid_constant__ FwdMaps maps, int n, int S, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdSmem sm = fwd_smem(smem);
   float* WIN = sm.end;                        // windows (T, J)
+  int* SLOT = reinterpret_cast<int*>(WIN + T * J);
   const int t0 = blockIdx.x * T;
-  FwdRing rg = ring_open<FwdSched>(sm.ring, sm.bars, &maps.seg[0][0],
-                                   nullptr, NNET, t0);
+  Ring<FwdSchedT<VF>> rg = ring_open<FwdSchedT<VF>>(
+      sm.ring, sm.bars, &maps.seg[0][0], nullptr, NNET, t0);
   if (threadIdx.x >= NTHREAD) {  // the producer warp; the first weight
     ring_produce(rg);            // slices arrive while the tile encodes
     return;
   }
   encode_points(p, cutoff, __ldg(tau_ptr), sm.X, WIN, t0, n);
+  if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
   for (int net = 0; net < NNET; ++net) {
     // the views input of this net (the last net's trunk wrote over it)
-    encode_views(enc, WIN, sm.XV, LDXV, t0, n, S);
-    write_codes(sm.XV, LDXV, codes + (size_t)net * R * NCODE, t0, n, S);
+    const float* cn = codes + (size_t)net * R * NCODE;
+    if constexpr (VF) {
+      write_vf_codes(sm.XV, LDCV, cn, t0, n, S);
+      vf_stage(sm.XV + T * LDCV,
+               vf_tile(WIN, SLOT, vfM + (size_t)net * R * J * HV, t0, n, S));
+    } else {
+      encode_views(enc, WIN, sm.XV, LDXV, t0, n, S);
+      write_codes(sm.XV, LDXV, cn, t0, n, S);
+    }
     sync_tile();
-    mlp_fwd_tile(rg, sm, wpack + (size_t)net * WSZ, bpack + (size_t)net * BSZ,
-                 out + (size_t)net * 4 * n, n, 1, t0, n);
+    mlp_fwd_tile<VF>(rg, sm, wpack + (size_t)net * WSZ,
+                     bpack + (size_t)net * BSZ, out + (size_t)net * 4 * n, n,
+                     1, t0, n);
   }
 }
 
+template <int NNET, bool VF>
+int launch_vf(const float* p, const float* enc, const float* codes,
+              const float* cutoff, const float* tau, const bf16* wf,
+              const float* bpack, const bf16* vfM, float* out,
+              const FwdMaps& maps, int n, int S, int R, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      encmlp_fwd_kernel<NNET, VF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_ENC);
+  if (err != cudaSuccess) return (int)err;
+  encmlp_fwd_kernel<NNET, VF><<<(n + T - 1) / T, NTHREAD + 32, SMEM_ENC,
+                                (cudaStream_t)stream>>>(
+      p, enc, codes, cutoff, tau, wf, bpack, vfM, out, maps, n, S, R);
+  return (int)cudaGetLastError();
+}
+
+// vfM: the nets' M (NNET, R, J, HV) for viewfac, or null for the dense
+// views input; viewfac needs S >= 32 (a tile's rays at most VFR)
 template <int NNET>
 int launch(const float* p, const float* enc, const float* codes,
            const float* cutoff, const float* tau, const void* wpack,
-           const float* bpack, float* out, int n, int S, int R, void* stream) {
+           const float* bpack, const void* vfM, float* out, int n, int S,
+           int R, void* stream) {
   if (n <= 0) return 0;
+  if (vfM && S < T / (VFR - 1)) return (int)cudaErrorInvalidValue;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   FwdMaps maps;
-  cudaError_t err = make_fwd_maps(maps, wf, NNET);
+  const cudaError_t err = make_fwd_maps(maps, wf, NNET);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(encmlp_fwd_kernel<NNET>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_ENC);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + T - 1) / T;
-  encmlp_fwd_kernel<NNET><<<grid, NTHREAD + 32, SMEM_ENC,
-                            (cudaStream_t)stream>>>(
-      p, enc, codes, cutoff, tau, wf, bpack, out, maps, n, S, R);
-  return (int)cudaGetLastError();
+  if (vfM)
+    return launch_vf<NNET, true>(p, enc, codes, cutoff, tau, wf, bpack,
+                                 reinterpret_cast<const bf16*>(vfM), out,
+                                 maps, n, S, R, stream);
+  return launch_vf<NNET, false>(p, enc, codes, cutoff, tau, wf, bpack,
+                                nullptr, out, maps, n, S, R, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One net: out (4, n) rows [r, g, b, sigma].
+// One net: out (4, n) rows [r, g, b, sigma]; vfM null (dense views
+// input) or its M (1, R, J, HV) bf16 (viewfac).
 int encmlp_fwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
-               const float* bpack, float* out, int n, int S, int R,
-               void* stream) {
-  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, out, n, S, R,
-                   stream);
+               const float* bpack, const void* vfM, float* out, int n, int S,
+               int R, void* stream) {
+  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, out, n, S,
+                   R, stream);
 }
 
 // Coarse and fine nets on one encode: codes (2, R, 16), wpack/bpack two
-// packed sets back to back, out (2, 4, n).
+// packed sets back to back, vfM null or (2, R, J, HV), out (2, 4, n).
 int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
                     const float* cutoff, const float* tau, const void* wpack,
-                    const float* bpack, float* out, int n, int S, int R,
-                    void* stream) {
-  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, out, n, S, R,
-                   stream);
+                    const float* bpack, const void* vfM, float* out, int n,
+                    int S, int R, void* stream) {
+  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, out, n, S,
+                   R, stream);
 }
 
 // Sizes of one packed weight set, for the wrapper's checks.

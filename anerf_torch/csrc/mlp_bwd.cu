@@ -40,10 +40,15 @@
 //      in slice order.
 //
 // The library is built for one net too (nvcc -DANERF_DEPTH, -DANERF_WIDTH
-// 256 or 512, -DANERF_SKIP; 8 x 256 by default): any depth, every layer
-// of 512 outputs as two 256-column blocks over the same A operand.  At
-// W = 512 the ring keeps 3 stages and the ReLU masks go to the
-// workspace, so that the two (64, 520) activation buffers fit.
+// a multiple of 256, -DANERF_SKIP; 8 x 256 by default): 1-64 layers,
+// every layer of W outputs as W / 256 blocks of 256 columns over the
+// same A operand.  At W = 512 the ring keeps 3 stages and the ReLU
+// masks go to the workspace, so that the two (64, 520) activation
+// buffers fit; past 512 (WIDE) the activations and cotangents go
+// straight to the workspace and every product reads its A operand back
+// 256 columns at a time (mlp_bwd_tile_wide).  Past 24 layers the
+// per-tile pass's sums are compensated (mlp_bwd_common.cuh ACC_COMP), or
+// those of a 32-layer net drift from the twin's.
 //
 // Bound: recompute, input cotangents and weight gradients are 3x the
 // forward's tensor-core work (5.2 MFLOP a point) against ~4.4 KB of part
@@ -61,8 +66,6 @@
 namespace {
 
 static_assert(SMEM_TILE <= 232448, "a block takes at most 227 KB");
-static_assert(sizeof(Maps<1>) + 1024 <= 32764,
-              "the descriptors fit a kernel's parameters");
 
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
@@ -90,7 +93,11 @@ mlp_bwd_tile_kernel(const Parts xs, const Parts xvs,
     sm.gsm[idx] = t0 + (idx >> 2) < n ? __ldg(gin + (size_t)t0 * 4 + idx) : 0.f;
   sync_tile();
   if constexpr (BWD_X_RESIDENT) copy_rows(xg, DXP, sm.X, LDXB, DXP);
-  mlp_bwd_tile(rg, sm, wback, bpack, wk, 0, t0, xg);
+#if ANERF_WIDE
+  mlp_bwd_tile_wide(rg, sm, wback, bpack, wk, 0, t0, xg);
+#else
+  mlp_bwd_tile<false>(rg, sm, wback, bpack, wk, 0, t0, xg);
+#endif
 }
 
 // out part k [t, c] = bf16(g[t, off_k + c]): the f32 input cotangent

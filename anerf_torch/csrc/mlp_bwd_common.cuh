@@ -57,27 +57,30 @@ constexpr int NGS = 8;  // bf16 head cotangents a point: [rgb 3 | alpha | 0]
 
 // ---- shared memory of the per-tile pass -----------------------------------
 // the ring (1024-byte aligned for the swizzle), its barriers, X, two
-// activation / cotangent buffers (T, LDH), the ReLU mask bits, the raw
-// cotangent g (T, 4), a reduction scratch; K3/K4 add the windows (T, J)
-// after it.  The ring has 5 stages, 3 at W = 512.  The mask bits of
-// every trunk layer ([layer][block][warp][row][q] bytes) stay in shared
-// memory where they fit beside a buffer of XCH trunk columns (K3/K4; K6
-// at W = 256 up to 16 layers), else each tile keeps its own in the
-// workspace.  X is the whole trunk input (T, LDX) where that fits in a
-// block's 227 KB as well, else a buffer of XCH columns that its
-// products refill from the workspace's copy (ring_mma_x).
+// activation / cotangent buffers (T, LDH) (WIDE: one buffer C of XCH
+// columns for the A operands read back from the workspace), the ReLU
+// mask bits, the raw cotangent g (T, 4), a reduction scratch; K3/K4 add
+// the windows (T, J) after it.  The ring has 5 stages, 3 at W = 512.
+// The mask bits of every trunk layer ([layer][block][warp][row][q]
+// bytes) stay in shared memory where they fit beside a buffer of XCH
+// trunk columns (K3/K4; K6 at W = 256 up to 16 layers), else each tile
+// keeps its own in the workspace.  X is the whole trunk input (T, LDX)
+// where that fits in a block's 227 KB as well, else a buffer of XCH
+// columns that its products refill from the workspace's copy
+// (ring_mma_x), and then C too.
 constexpr int NSTAGE = W == 512 ? 3 : 5;
 constexpr int MASK_LAYER = NBLK * NWARP * T * 4;
 constexpr int MASK_BYTES = DEPTH * MASK_LAYER;
 constexpr int NRED = NTHREAD + NWARP;
 constexpr size_t tile_smem_bytes(int ldx, bool mask) {
   return 1024 + sizeof(bf16) * (size_t)NSTAGE * STAGE + sizeof(uint64_t) * 16 +
-         sizeof(bf16) * (size_t)T * (ldx + 2 * LDH) + (mask ? MASK_BYTES : 0) +
-         sizeof(float) * (T * 4 + NRED);
+         sizeof(bf16) * (size_t)T *
+             (ldx + (WIDE ? (ldx == LDC ? 0 : LDC) : 2 * LDH)) +
+         (mask ? MASK_BYTES : 0) + sizeof(float) * (T * 4 + NRED);
 }
-constexpr bool MASK_RESIDENT = tile_smem_bytes(XCH + 8, true) <= 232448;
-constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX, MASK_RESIDENT) <= 232448;
-constexpr int LDXB = BWD_X_RESIDENT ? LDX : XCH + 8;
+constexpr bool MASK_RESIDENT = tile_smem_bytes(LDC, true) <= SMEM_MAX;
+constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX, MASK_RESIDENT) <= SMEM_MAX;
+constexpr int LDXB = BWD_X_RESIDENT ? LDX : LDC;
 constexpr size_t SMEM_TILE = tile_smem_bytes(LDXB, MASK_RESIDENT);
 constexpr size_t MASK_SMEM = MASK_RESIDENT ? MASK_BYTES : 0;
 
@@ -97,6 +100,7 @@ struct Work {
   float* win;         // windows (K3/K4 only)          (24)
   float* bpart[2];    // per-tile bias partials        (ntile, BSZ)
   uint8_t* mask;      // per-tile ReLU masks, where not in shared memory
+  const bf16* vfM[2]; // viewfac (K3/K4): each net's M (R, J, HV)
 };
 
 constexpr int BF_PER_NET = DXV + DEPTH * W + W + HV + DEPTH * W + W + HV + NGS;
@@ -169,31 +173,40 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
 }
 
 // ---- the backward's schedule on the weight ring (ring.cuh) -------------
-// The schedule of one net, in the order mlp_bwd_tile consumes it.  Every
-// product with W output columns runs as NBLK blocks of 256 (a segment
-// each); one with more output columns than that (the input cotangents)
-// is cut into 256-row chunks, one product each: ceil(DXP / 256) for each
-// of the two trunk-input cotangents, ceil(672 / 256) for the views
-// input's.  The views layer's views-input part streams the tile's views
-// input in each stage after its weight rows, 128 rows a segment.
+// The schedule of one net, in the order the per-tile pass consumes it.
+// Every product with W output columns runs as NBLK blocks of 256 (a
+// segment each); one with more output columns than that (the input
+// cotangents) is cut into 256-row chunks, one product each: ceil(DXP /
+// 256) for each of the two trunk-input cotangents, ceil(672 / 256) for
+// the views input's.  The views layer's views-input part streams the
+// tile's views input in each stage after its weight rows, 128 rows a
+// segment; WIDE, the views layer's recompute runs in blocks of 128
+// outputs, each its feat part and its views-input part.  With viewfac
+// (K3, K4) the views-input part streams only the codes' k-slice and the
+// views input's cotangent is the codes' alone (16 rows).
 constexpr int NXC = (DXP + 255) / 256;
 constexpr int NVC = (DXV + 255) / 256;
 constexpr int VXR = 128;
 constexpr int NVXS = HV / VXR;
-constexpr int NSEG = NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1) + 1 + NVXS +
+constexpr int NSEG_VIEWS = WIDE ? 2 * NVXS : 1 + NVXS;
+constexpr int NSEG = NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1) + NSEG_VIEWS +
                      NBLK * (DEPTH + 1) + NVC + (HAS_SKIP ? 2 : 1) * NXC;
 
 struct SegTable {
   Seg s[NSEG];
+  MapSpec m[MAXMAP];
+  int nmap, n;   // maps; segments (viewfac's table has fewer)
 };
 
 __host__ __device__ constexpr void put(SegTable& t, int& i, int pack,
-                                      size_t off, int rows, int K, int sa) {
+                                      size_t off, int rows, int K, int sa,
+                                      int kb = 0) {
   t.s[i].pack = pack;
   t.s[i].off = (int)off;
   t.s[i].rows = rows;
   t.s[i].K = K;
   t.s[i].stream_a = sa;
+  t.s[i].kb = kb;
   ++i;
 }
 
@@ -205,9 +218,10 @@ __host__ __device__ constexpr void put_chunks(SegTable& t, int& i,
         N - 256 * c < 256 ? N - 256 * c : 256, K, 0);
 }
 
-__host__ __device__ constexpr SegTable bwd_segs() {
+__host__ __device__ constexpr SegTable bwd_segs(bool viewfac) {
   SegTable t{};
   int i = 0;
+  const int kb = viewfac ? DXV - KS : 0;    // the codes' k-slice
   // forward recompute
   for (int b = 0; b < NBLK; ++b)              // layer 0          A = X
     put(t, i, 0, (size_t)b * WB * DXP, WB, DXP, 0);
@@ -219,13 +233,23 @@ __host__ __device__ constexpr SegTable bwd_segs() {
     }
   for (int b = 0; b < NBLK; ++b)              // feat
     put(t, i, 0, OFF_F + (size_t)b * WB * W, WB, W, 0);
-  put(t, i, 0, OFF_VF, HV, W, 0);             // views: feat part
-  for (int v = 0; v < NVXS; ++v)              //   views-input part
-    put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1);
+  if (!WIDE) {
+    put(t, i, 0, OFF_VF, HV, W, 0);           // views: feat part
+    for (int v = 0; v < NVXS; ++v)            //   views-input part
+      put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1, kb);
+  } else {
+    for (int v = 0; v < NVXS; ++v) {          // views, by blocks
+      put(t, i, 0, OFF_VF + (size_t)v * VXR * W, VXR, W, 0);
+      put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1, kb);
+    }
+  }
   // backward
   for (int b = 0; b < NBLK; ++b)              // g_feat           A = g_hv
     put(t, i, 1, G_VF + (size_t)b * WB * HV, WB, HV, 0);
-  put_chunks(t, i, G_VX, DXV, HV);            // g_xv             A = g_hv
+  if (viewfac)                                // g_codes          A = g_hv
+    put(t, i, 1, G_VX + (size_t)DE * HV, NCODE, HV, 0);
+  else
+    put_chunks(t, i, G_VX, DXV, HV);          // g_xv             A = g_hv
   for (int b = 0; b < NBLK; ++b)              // g of layer D-1   A = g_feat
     put(t, i, 1, G_F + (size_t)b * WB * W, WB, W, 0);
   for (int l = DEPTH - 1; l >= 1; --l) {
@@ -235,23 +259,30 @@ __host__ __device__ constexpr SegTable bwd_segs() {
       put(t, i, 1, off_h(l) + (size_t)b * WB * W, WB, W, 0);
   }
   put_chunks(t, i, 0, DXP, W);                // g_x layer-0 part
+  t.n = i;
+  t.nmap = assign_maps(t.s, i, t.m);
   return t;
 }
-__constant__ SegTable SEGS = bwd_segs();
-constexpr SegTable SEGS_HOST = bwd_segs();
+__constant__ SegTable SEGS = bwd_segs(false);
+__constant__ SegTable SEGS_VF = bwd_segs(true);
+constexpr SegTable SEGS_HOST = bwd_segs(false);
+constexpr SegTable SEGS_VF_HOST = bwd_segs(true);
+static_assert(SEGS_HOST.nmap > 0 && SEGS_VF_HOST.nmap > 0,
+              "the backward's blocks on MAXMAP maps");
+static_assert(SEGS_HOST.n == NSEG, "the dense schedule's segments");
 
 // The segments of pack `pack` are blocks of it, pairwise disjoint, inside
 // [0, end) and outside [gap_lo, gap_hi), and sum to `total`.
 constexpr bool covers_pack(const SegTable& t, int pack, size_t end,
                            size_t gap_lo, size_t gap_hi, size_t total) {
   size_t sum = 0;
-  for (int i = 0; i < NSEG; ++i) {
+  for (int i = 0; i < t.n; ++i) {
     const Seg& a = t.s[i];
     if (a.pack != pack) continue;
     const size_t lo = (size_t)a.off, hi = lo + (size_t)a.rows * a.K;
     if (a.off < 0 || a.rows < 1 || hi > end || (lo < gap_hi && gap_lo < hi))
       return false;
-    for (int j = 0; j < NSEG; ++j) {
+    for (int j = 0; j < t.n; ++j) {
       const Seg& b = t.s[j];
       const size_t lj = (size_t)b.off, hj = lj + (size_t)b.rows * b.K;
       if (j != i && b.pack == pack && lo < hj && lj < hi) return false;
@@ -262,45 +293,51 @@ constexpr bool covers_pack(const SegTable& t, int pack, size_t end,
 }
 // the recompute reads every matrix of the forward pack once; the
 // backward every matrix of the backward pack but the heads' vectors
-// (alpha's and rgb's, read directly)
+// (alpha's and rgb's, read directly); viewfac's backward skips the
+// views input's rows but the codes'
 static_assert(covers_pack(SEGS_HOST, 0, OFF_A, 0, 0, OFF_A),
               "the recompute must cover the forward pack once");
 static_assert(covers_pack(SEGS_HOST, 1, G_R, G_A, G_F, G_A + (G_R - G_F)),
               "the backward must cover the backward pack once");
+static_assert(covers_pack(SEGS_VF_HOST, 1, G_R, G_A, G_F,
+                          G_A + (G_R - G_F) - (size_t)(DXV - NCODE) * HV),
+              "viewfac's backward must cover the backward pack but xv's rows");
 
-struct BwdSched {
-  static constexpr int N = NSEG;
+// the backward's schedule; VF: viewfac's (K3, K4)
+template <bool VF>
+struct BwdSchedT {
+  static constexpr int N = VF ? SEGS_VF_HOST.n : NSEG;
   static constexpr int NSTAGE = ::NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) { return SEGS.s[i]; }
+  __device__ __forceinline__ static Seg at(int i) {
+    return VF ? SEGS_VF.s[i] : SEGS.s[i];
+  }
 };
+typedef BwdSchedT<false> BwdSched;
 
 // Every stage's source as a TMA descriptor (a kernel parameter): each
-// segment of each of NN nets as a (rows, K) bf16 matrix read in boxes of
-// KS x rows, and each net's views input (n_pad, DXV) in boxes of KS x T;
-// 64-byte swizzle, columns past K read as zeros.
+// net's packs through the schedule's maps (MAXMAP a net), and each net's
+// views input (n_pad, DXV) in boxes of KS x T; 64-byte swizzle, columns
+// past K read as zeros.
 template <int NN>
 struct Maps {
-  CUtensorMap seg[NN][NSEG];
+  CUtensorMap seg[NN][MAXMAP];
   CUtensorMap xv[NN];
 };
 
 // The descriptors of NN nets (forward packs wf, backward packs wb,
-// views inputs in wk, np padded points).
-template <int NN>
+// views inputs in wk, np padded points) for the schedule VF.
+template <int NN, bool VF = false>
 cudaError_t make_maps(Maps<NN>& mp, const bf16* wf, const bf16* wb,
                       const Work& wk, int np) {
   EncodeTiled enc;
   const cudaError_t err = tensor_map_encoder(&enc);
   if (err != cudaSuccess) return err;
   mp = Maps<NN>{};
+  const SegTable& t = VF ? SEGS_VF_HOST : SEGS_HOST;
   for (int net = 0; net < NN; ++net) {
-    for (int i = 0; i < NSEG; ++i) {
-      const Seg& s = SEGS_HOST.s[i];
-      const bf16* base = (s.pack ? wb + (size_t)net * WGSZ
-                                 : wf + (size_t)net * WSZ) + s.off;
-      if (!encode_2d(enc, &mp.seg[net][i], base, s.K, s.rows, s.rows))
-        return cudaErrorInvalidValue;
-    }
+    if (!encode_maps(enc, mp.seg[net], t.m, t.nmap, wf + (size_t)net * WSZ,
+                     WSZ, wb + (size_t)net * WGSZ, WGSZ))
+      return cudaErrorInvalidValue;
     if (!encode_2d(enc, &mp.xv[net], wk.xv[net], DXV, np, T))
       return cudaErrorInvalidValue;
   }
@@ -317,26 +354,35 @@ typedef Ring<BwdSched> BwdRing;
 
 // acc += A[0:64, k_lo:k_hi] @ Wseg[n0 : n0 + 8 NT, k_lo:k_hi]^T over the
 // ring's stages of k-slices k_lo .. k_hi - 1 of segment s, for this
-// warp's columns (none where n0 is outside the segment's rows).  A: shared, row-major,
-// stride lda, its column 0 at k_lo (k_lo a multiple of KS, k_hi of 16),
-// or nullptr for the views input that rides in the stages.  Each stage:
-// wait for its bytes, ldmatrix + mma, then the warp's arrival on the
-// stage's empty barrier.  No block barrier: the warps drift apart by up
-// to NSTAGE stages.
+// warp's columns (none where n0 is outside the segment's rows).  A:
+// shared, row-major, stride lda, its column 0 at k_lo (k_lo a multiple
+// of KS, k_hi of 16), or nullptr for the views input that rides in the
+// stages.  Each stage: wait for its bytes, ldmatrix + mma, then the
+// warp's arrival on the stage's empty barrier.  No block barrier: the
+// warps drift apart by up to NSTAGE stages.
 //
-// RN: each mma sums its k16 products from zero and the f32 add that
-// takes that sum into acc rounds to nearest.  The tensor cores add the
-// products to the accumulator they are given with truncation, so a
-// chain of mma on one accumulator drifts with its depth; the trunk
-// input's products past 480 columns (1152 deep for 'relpos') drifted
-// far enough to flip ReLU masks that the twin's f32 sums (and an f64
-// evaluation of the chain) keep.
-template <int NT, bool RN = false>
-__device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
+// ACC, how the mma's sums reach acc.  ACC_CHAIN: the mma chain adds its
+// products to acc itself.  The tensor cores add the products to the
+// accumulator they are given with truncation, so a chain of mma on one
+// accumulator drifts with its depth; the trunk input's products past
+// 480 columns (1152 deep for 'relpos') drifted far enough to flip ReLU
+// masks that the twin's f32 sums (and an f64 evaluation of the chain)
+// keep.  ACC_RN: each mma sums its k16 products from zero and the f32
+// add that takes that sum into acc rounds to nearest.  ACC_COMP: that
+// add compensated (Kahan), so acc carries the rounding error of the
+// adds along: a net of 32 layers flipped masks under ACC_RN as well
+// (K6 against its twin at cosine 0.99982 at 4104 points; compensated
+// 0.9999974, and 0.9999996 against f64, where the twin reads 0.999998;
+// at 24 layers the chain and the compensated sums read alike).
+constexpr int ACC_CHAIN = 0, ACC_RN = 1, ACC_COMP = 2;
+template <int NT, int ACC = ACC_CHAIN, class SC>
+__device__ __forceinline__ void mma_slices(Ring<SC>& r, float (&acc)[4][NT][4],
                                            const Seg& s, const bf16* A,
                                            int lda, int n0, int k_lo,
                                            int k_hi) {
   const int lane = threadIdx.x & 31;
+  float comp[4][NT][4];  // ACC_COMP: the adds' rounding errors
+  if constexpr (ACC == ACC_COMP) zero_acc<NT>(comp);
   // ldmatrix row addresses: B matrices (n 0-7 | 8-15) x (k 0-7 | 8-15),
   // A matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
   const int b_row = n0 + (lane & 7) + ((lane >> 4) << 3), b_ch = (lane >> 3) & 1;
@@ -372,7 +418,17 @@ __device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
       for (int m = 0; m < 4; ++m)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          if constexpr (RN) {
+          if constexpr (ACC == ACC_COMP) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, a[m], b[j][0], b[j][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float y = t[e] - comp[m][j][e];
+              const float sum = acc[m][j][e] + y;
+              comp[m][j][e] = (sum - acc[m][j][e]) - y;
+              acc[m][j][e] = sum;
+            }
+          } else if constexpr (ACC == ACC_RN) {
             float t[4] = {0.f, 0.f, 0.f, 0.f};
             mma_bf16(t, a[m], b[j][0], b[j][1]);
 #pragma unroll
@@ -387,13 +443,24 @@ __device__ __forceinline__ void mma_slices(BwdRing& r, float (&acc)[4][NT][4],
   }
 }
 
-// acc += A[0:64, 0:K] @ Wseg[n0 : n0 + 8 NT, 0:K]^T over the next segment
-// of the schedule (mma_slices)
-template <int NT>
-__device__ __forceinline__ void ring_mma(BwdRing& r, float (&acc)[4][NT][4],
+// The per-tile pass's accumulation: compensated past 24 layers (a 32-
+// layer net's cotangents drift from the twin's on the chain: ACC_COMP's
+// note), else the chain (K1-K4's bits and every net's to 24 layers are
+// those of the chain; the compensation's registers spill, and cost a
+// 10-layer net 2.3x the per-tile pass).  A WIDE net's products are RN
+// at least (ring_mma_g).
+constexpr int DEEP_NET = 24;
+constexpr int ACC_NET = DEPTH > DEEP_NET ? ACC_COMP : ACC_CHAIN;
+constexpr int ACC_NET_G = ACC_NET > ACC_RN ? ACC_NET : ACC_RN;
+
+// acc += A[0:64, kb:K] @ Wseg[n0 : n0 + 8 NT, kb:K]^T over the next
+// segment of the schedule (mma_slices), A's column 0 at its first
+// k-slice kb
+template <int NT, int ACC = ACC_NET, class SC>
+__device__ __forceinline__ void ring_mma(Ring<SC>& r, float (&acc)[4][NT][4],
                                          const bf16* A, int lda, int n0) {
   const Seg s = ring_next_seg(r);
-  mma_slices<NT>(r, acc, s, A, lda, n0, 0, s.K);
+  mma_slices<NT, ACC>(r, acc, s, A, lda, n0, s.kb, s.K);
 }
 
 struct TileSmem {
@@ -402,6 +469,7 @@ struct TileSmem {
   bf16* X;
   bf16* H0;
   bf16* H1;
+  bf16* C;          // WIDE: the A operands' column buffer
   uint8_t* mask;
   float* gsm;
   float* red;
@@ -416,7 +484,9 @@ __device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
   s.X = reinterpret_cast<bf16*>(s.bars + 16);
   s.H0 = s.X + T * LDXB;
   s.H1 = s.H0 + T * LDH;
-  s.mask = reinterpret_cast<uint8_t*>(s.H1 + T * LDH);
+  s.C = BWD_X_RESIDENT ? s.H0 : s.X;
+  s.mask = reinterpret_cast<uint8_t*>(
+      WIDE ? s.H0 + (BWD_X_RESIDENT ? T * LDC : 0) : s.H1 + T * LDH);
   s.gsm = reinterpret_cast<float*>(s.mask + MASK_SMEM);
   s.red = s.gsm + T * 4;
   s.end = s.red + NRED;
@@ -428,13 +498,13 @@ __device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
 // fit, copied from the tile's rows xg of the workspace (stride DXP) into
 // sm.X XCH columns at a time between two barriers of the consumer warps,
 // each mma's sum then added with rounding (mma_slices' RN).
-template <int NT>
-__device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
+template <int NT, int ACC = ACC_NET, class SC>
+__device__ __forceinline__ void ring_mma_x(Ring<SC>& r, float (&acc)[4][NT][4],
                                            const TileSmem& sm,
                                            const bf16* __restrict__ xg,
                                            int n0) {
   if constexpr (BWD_X_RESIDENT) {
-    ring_mma<NT>(r, acc, sm.X, LDXB, n0);
+    ring_mma<NT, ACC>(r, acc, sm.X, LDXB, n0);
   } else {
     const Seg s = ring_next_seg(r);
     for (int c0 = 0; c0 < s.K; c0 += XCH) {
@@ -446,8 +516,32 @@ __device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
             *reinterpret_cast<const uint4*>(xg + (size_t)t * DXP + c0 + c);
       }
       sync_tile();
-      mma_slices<NT, true>(r, acc, s, sm.X, LDXB, n0, c0, c1);
+      mma_slices<NT, ACC == ACC_CHAIN ? ACC_RN : ACC>(r, acc, s, sm.X, LDXB,
+                                                      n0, c0, c1);
     }
+  }
+}
+
+// acc += A @ Wseg[n0 : n0 + 8 NT, :]^T over the next segment, A (T rows,
+// row stride lda) in device memory, copied into sm.C XCH columns at a
+// time between two barriers of the consumer warps, with mma_slices' RN
+// (WIDE)
+template <int NT, int ACC = ACC_NET_G, class SC>
+__device__ __forceinline__ void ring_mma_g(Ring<SC>& r, float (&acc)[4][NT][4],
+                                           const TileSmem& sm,
+                                           const bf16* __restrict__ A,
+                                           int lda, int n0) {
+  const Seg s = ring_next_seg(r);
+  for (int c0 = 0; c0 < s.K; c0 += XCH) {
+    const int c1 = min(c0 + XCH, s.K), per_row = (c1 - c0) / 8;
+    sync_tile();  // every warp is past its reads of the last columns
+    for (int idx = threadIdx.x; idx < T * per_row; idx += NTHREAD) {
+      const int t = idx / per_row, c = (idx - t * per_row) * 8;
+      *reinterpret_cast<uint4*>(sm.C + t * LDC + c) =
+          *reinterpret_cast<const uint4*>(A + (size_t)t * lda + c0 + c);
+    }
+    sync_tile();
+    mma_slices<NT, ACC>(r, acc, s, sm.C, LDC, n0, c0, c1);
   }
 }
 
@@ -456,14 +550,15 @@ __device__ __forceinline__ void ring_mma_x(BwdRing& r, float (&acc)[4][NT][4],
 // rows m*16 + g (| +8) and columns n0 + j*8 + 2q (| +1), g = lane / 4,
 // q = lane % 4.  A warp's ReLU mask bits of one row and layer are one
 // 32-bit word: byte q of it is thread q's, bit 2j + e its column
-// n0 + j*8 + 2q + e.
+// n0 + j*8 + 2q + e.  Outputs have row stride ldo (shared memory, or
+// device memory for a WIDE net).
 
 // out[row, col] = bf16(relu(acc + bias[col])) for this warp's 32
 // columns, and the bits (value > 0) into this layer's mask
 __device__ __forceinline__ void store_relu_mask(const float (&acc)[4][4][4],
                                                 const float* __restrict__ bias,
                                                 bf16* out, uint8_t* mask,
-                                                int n0) {
+                                                int n0, int ldo = LDH) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   uint8_t* mk = mask + (threadIdx.x >> 5) * T * 4 + q;
   uint32_t bits[4][2] = {};
@@ -478,7 +573,7 @@ __device__ __forceinline__ void store_relu_mask(const float (&acc)[4][4][4],
         const __nv_bfloat162 v =
             __floats2bfloat162_rn(fmaxf(acc[m][j][2 * h] + b0, 0.f),
                                   fmaxf(acc[m][j][2 * h + 1] + b1, 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(out + (m * 16 + g + 8 * h) * LDH +
+        *reinterpret_cast<__nv_bfloat162*>(out + (m * 16 + g + 8 * h) * ldo +
                                            col) = v;
         bits[m][h] |= (__bfloat162float(v.x) > 0.f ? 1u : 0u) << (2 * j);
         bits[m][h] |= (__bfloat162float(v.y) > 0.f ? 1u : 0u) << (2 * j + 1);
@@ -518,12 +613,11 @@ __device__ __forceinline__ void colsum_store(const float (&acc)[4][NT][4],
   }
 }
 
-// the bf16 rounding of a warp's accumulators into shared memory (stride
-// LDH): the next product's A, and after a barrier the dW pass's G
-// (copy_rows to the workspace)
+// the bf16 rounding of a warp's accumulators: the next product's A, and
+// the dW pass's G
 template <int NT>
-__device__ __forceinline__ void emit_bf16(const float (&acc)[4][NT][4], bf16* sm,
-                                          int n0) {
+__device__ __forceinline__ void emit_bf16(const float (&acc)[4][NT][4], bf16* out,
+                                          int n0, int ldo = LDH) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int m = 0; m < 4; ++m)
@@ -535,18 +629,18 @@ __device__ __forceinline__ void emit_bf16(const float (&acc)[4][NT][4], bf16* sm
         const int row = m * 16 + g + 8 * h;
         const __nv_bfloat162 v = __floats2bfloat162_rn(acc[m][j][2 * h],
                                                        acc[m][j][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(sm + row * LDH + col) = v;
+        *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = v;
       }
     }
 }
 
 // acc <- acc * mask with the layer's ReLU mask bits (store_relu_mask);
-// then the bias partial of the f32 cotangent, and its bf16 rounding into
-// shared memory (emit_bf16)
+// then the bias partial of the f32 cotangent, and its bf16 rounding
+// (emit_bf16)
 __device__ __forceinline__ void mask_emit(float (&acc)[4][4][4],
                                           const uint8_t* mask,
-                                          float* __restrict__ bpart, bf16* sm,
-                                          int n0) {
+                                          float* __restrict__ bpart, bf16* out,
+                                          int n0, int ldo = LDH) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const uint8_t* mk = mask + (threadIdx.x >> 5) * T * 4 + q;
 #pragma unroll
@@ -561,7 +655,7 @@ __device__ __forceinline__ void mask_emit(float (&acc)[4][4][4],
       }
     }
   colsum_store<4>(acc, bpart, n0);
-  emit_bf16<4>(acc, sm, n0);
+  emit_bf16<4>(acc, out, n0, ldo);
 }
 
 // out[row, c] (=|+=) acc for this warp's columns c < lim (f32, device
@@ -593,19 +687,27 @@ __device__ __forceinline__ void store_f32(const float (&acc)[4][4][4],
 }
 
 // an input cotangent chunk by chunk: out[:, 0:N] (=|+=) A @ W^T over
-// the schedule's next ceil(N / 256) segments
-template <bool ADD>
-__device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
+// the schedule's next ceil(N / 256) segments (out's row stride ldo);
+// A in shared memory (stride LDH), or, given sm, in device memory (row
+// stride lda, ring_mma_g)
+template <bool ADD, class SC>
+__device__ __forceinline__ void ring_to_global(Ring<SC>& rg, const bf16* A,
                                                float* __restrict__ out,
-                                               int N, int nw) {
+                                               int N, int nw, int ldo,
+                                               const TileSmem* sm = nullptr,
+                                               int lda = 0) {
   for (int c0 = 0; c0 < N; c0 += WB) {
     float acc[4][4][4];
     zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, A, LDH, nw);
-    store_f32<ADD>(acc, out + c0, N, nw, N - c0);
+    if (sm)
+      ring_mma_g<4>(rg, acc, *sm, A, lda, nw);
+    else
+      ring_mma<4>(rg, acc, A, LDH, nw);
+    store_f32<ADD>(acc, out + c0, ldo, nw, N - c0);
   }
 }
 
+#if !ANERF_WIDE
 // The MLP backward of one tile for net `net` through the ring `rg` (whose
 // schedule is at the net's first segment): X complete in shared memory
 // where it stays resident, and in any case the tile's rows of it at xg
@@ -615,13 +717,20 @@ __device__ __forceinline__ void ring_to_global(BwdRing& rg, const bf16* A,
 // every bf16 activation and cotangent, the f32 input cotangents gx/gxv
 // and the tile's bias partials to the workspace `wk`.  A product with W
 // output columns runs as NBLK blocks of 256, warp w taking columns
-// 32w .. 32w+31 of each.  Run by the consumer warps; ends with them
-// synchronised.
-__device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
+// 32w .. 32w+31 of each.  VF (viewfac, K3/K4): the views input in the
+// workspace is the codes' k-slice alone, the views layer's recompute
+// adds xw @ M (vf_xw_m; the tile's rays, windows and M in `vf`), and
+// the views input's cotangent is the codes' alone (encmlp_bwd.cu's
+// passes take the rest from g_hv in the workspace).  Run by the
+// consumer warps; ends with them synchronised.
+template <bool VF>
+__device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
+                                             const TileSmem& sm,
                                              const bf16* __restrict__ Wb,
                                              const float* __restrict__ Bn,
                                              const Work& wk, int net, int t0,
-                                             const bf16* xg = nullptr) {
+                                             const bf16* xg = nullptr,
+                                             const VfTile* vf = nullptr) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* GSM = sm.gsm;
   float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
@@ -672,6 +781,10 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   }
   sync_tile();
   copy_rows(wk.feat[net] + (size_t)t0 * W, W, hout, LDH, W);
+  if constexpr (VF) {  // M and xw in hin, free until hv lands there
+    vf_stage(hin, *vf);
+    sync_tile();
+  }
   {
     // the views layer: warp w takes 8 NTV of its HV columns
     constexpr int NTV = HV / (8 * NWARP);
@@ -682,6 +795,11 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
 #pragma unroll 1
     for (int v = 0; v < NVXS; ++v)  // the views input, streamed
       ring_mma<NTV>(rg, accv, nullptr, 0, nv - v * VXR);
+    if constexpr (VF) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) vf_xw_m<NTV>(accv[m], hin, 16 * m, nv);
+      sync_tile();  // every warp is past its reads of the staging
+    }
     store_act<NTV, true>(accv, Bn + OB_V, hin, LDH, nv);  // hv
   }
   sync_tile();
@@ -748,7 +866,12 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   }
   sync_tile();
   copy_rows(wk.gf[net] + (size_t)t0 * W, W, FB, LDH, W);
-  ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw);
+  if constexpr (VF)  // the codes' cotangent alone
+    ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV + DE, NCODE,
+                          nw, DXV);
+  else
+    ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
+                          DXV);
 
   // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
   bf16* gin_b = HVB;   // the current layer's bf16 cotangent
@@ -784,7 +907,8 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
   float* gx = wk.gx[net] + (size_t)t0 * DXP;
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
-    if (HAS_SKIP && i == SKIP + 1) ring_to_global<false>(rg, gin_b, gx, DXP, nw);
+    if (HAS_SKIP && i == SKIP + 1)
+      ring_to_global<false>(rg, gin_b, gx, DXP, nw, DXP);
 #pragma unroll 1
     for (int b = 0; b < NBLK; ++b) {
       zero_acc<4>(acc);
@@ -799,9 +923,171 @@ __device__ __forceinline__ void mlp_bwd_tile(BwdRing& rg, const TileSmem& sm,
     gout_b = tmp;
   }
   // layer 0's part: added to the skip layer's, where there is one
-  ring_to_global<HAS_SKIP>(rg, gin_b, gx, DXP, nw);
+  ring_to_global<HAS_SKIP>(rg, gin_b, gx, DXP, nw, DXP);
   sync_tile();  // the next net may take every buffer
 }
+
+#endif
+
+#if ANERF_WIDE
+// The MLP backward of one tile, WIDE: mlp_bwd_tile's products in its
+// order, with every activation and cotangent written straight to the
+// workspace (where the dW pass reads them) and every A operand but the
+// trunk input and the streamed views input read back from there XCH
+// columns at a time (ring_mma_g, with mma_slices' RN); the views layer's
+// recompute in blocks of 128 outputs (warp w takes 16 of each); the
+// masks in the workspace where they do not fit.  No viewfac.
+__device__ __forceinline__ void mlp_bwd_tile_wide(
+    BwdRing& rg, const TileSmem& sm, const bf16* __restrict__ Wb,
+    const float* __restrict__ Bn, const Work& wk, int net, int t0,
+    const bf16* xg) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const float* GSM = sm.gsm;
+  float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
+  constexpr int LA = DEPTH * W;
+  bf16* act = wk.act[net] + (size_t)t0 * LA;
+  bf16* gp = wk.gp[net] + (size_t)t0 * LA;
+  bf16* feat = wk.feat[net] + (size_t)t0 * W;
+  bf16* hv = wk.hv[net] + (size_t)t0 * HV;
+  bf16* gf = wk.gf[net] + (size_t)t0 * W;
+  bf16* ghv = wk.ghv[net] + (size_t)t0 * HV;
+  const int nw = warp * 32;  // this warp's 32 of a block's 256 columns
+  uint8_t* const mask0 =
+      MASK_RESIDENT ? sm.mask : wk.mask + (size_t)blockIdx.x * MASK_BYTES;
+  auto mask = [&](int l, int b) {
+    return mask0 + l * MASK_LAYER + b * (MASK_LAYER / NBLK);
+  };
+
+  // ---- forward recompute -------------------------------------------------
+  float acc[4][4][4];
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma_x<4>(rg, acc, sm, xg, nw);
+    store_relu_mask(acc, Bn + b * WB, act + b * WB, mask(0, b), nw, LA);
+  }
+#pragma unroll 1
+  for (int i = 1; i < DEPTH; ++i) {
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_acc<4>(acc);
+      ring_mma_g<4>(rg, acc, sm, act + (i - 1) * W, LA, nw);
+      if (HAS_SKIP && i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
+      store_relu_mask(acc, Bn + i * W + b * WB, act + i * W + b * WB,
+                      mask(i, b), nw, LA);
+    }
+  }
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma_g<4>(rg, acc, sm, act + (DEPTH - 1) * W, LA, nw);
+    store_act<4, false>(acc, Bn + OB_F + b * WB, feat + b * WB, W, nw);
+  }
+#pragma unroll 1
+  for (int v = 0; v < NVXS; ++v) {
+    float accv[4][2][4];
+    const int nv = warp * 16;
+    zero_acc<2>(accv);
+    ring_mma_g<2>(rg, accv, sm, feat, W, nv);
+    ring_mma<2>(rg, accv, nullptr, 0, nv);  // the views input, streamed
+    store_act<2, true>(accv, Bn + OB_V + v * VXR, hv + v * VXR, HV, nv);
+  }
+  sync_tile();
+
+  // ---- heads: g_hv = (bf16(g_rgb) . wr) * (hv > 0), column h by one
+  // thread over the 64 rows in order; the rgb and alpha column sums by
+  // warp butterflies ---------------------------------------------------------
+  static_assert(NTHREAD == 4 * T, "head section layout");
+  for (int h = tid; h < HV; h += NTHREAD) {
+    const float w0 = __bfloat162float(Wb[G_R + h * 3]);
+    const float w1 = __bfloat162float(Wb[G_R + h * 3 + 1]);
+    const float w2 = __bfloat162float(Wb[G_R + h * 3 + 2]);
+    float colsum = 0.f;
+    for (int t = 0; t < T; ++t) {
+      const float* gr = GSM + t * 4;
+      float v = bf16r(gr[0]) * w0 + bf16r(gr[1]) * w1 + bf16r(gr[2]) * w2;
+      if (!(__bfloat162float(hv[t * HV + h]) > 0.f)) v = 0.f;
+      colsum += v;
+      ghv[t * HV + h] = __float2bfloat16_rn(v);
+    }
+    bpart[OB_V + h] = colsum;
+  }
+  {
+    float x = GSM[(tid & (T - 1)) * 4 + tid / T];  // column tid / 64
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if ((tid & 31) == 0) sm.red[NTHREAD + warp] = x;
+    if (tid < T) {  // the bf16 head cotangents [rgb | alpha | 0 x 4]
+      const float* gr = GSM + tid * 4;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(gr[0], gr[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(gr[2], gr[3]);
+      *reinterpret_cast<uint4*>(wk.gs[net] + (size_t)(t0 + tid) * NGS) =
+          make_uint4(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi), 0u, 0u);
+    }
+  }
+  sync_tile();
+  if (tid >= NTHREAD - 4) {
+    const int c = tid - (NTHREAD - 4);  // rgb 0-2, alpha 3: warps 2c, 2c + 1
+    bpart[c < 3 ? OB_R + c : OB_A] =
+        sm.red[NTHREAD + 2 * c] + sm.red[NTHREAD + 2 * c + 1];
+  }
+
+  // ---- g_feat = g_hv_b @ wvf^T; the views input cotangent g_xv --------
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma_g<4>(rg, acc, sm, ghv, HV, nw);
+    colsum_store<4>(acc, bpart + OB_F + b * WB, nw);
+    emit_bf16<4>(acc, gf + b * WB, nw, W);
+  }
+  ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
+                        DXV, &sm, HV);
+
+  // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_acc<4>(acc);
+    ring_mma_g<4>(rg, acc, sm, gf, W, nw);
+    const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = b * WB + nw + j * 8 + 2 * q;
+        const float wa0 = __bfloat162float(Wb[G_A + col]);
+        const float wa1 = __bfloat162float(Wb[G_A + col + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float ga = bf16r(GSM[(m * 16 + g + 8 * h) * 4 + 3]);
+          acc[m][j][2 * h] += ga * wa0;
+          acc[m][j][2 * h + 1] += ga * wa1;
+        }
+      }
+    mask_emit(acc, mask(DEPTH - 1, b), bpart + (DEPTH - 1) * W + b * WB,
+              gp + (DEPTH - 1) * W + b * WB, nw, LA);
+  }
+
+  // ---- the trunk in reverse ----------------------------------------
+  float* gx = wk.gx[net] + (size_t)t0 * DXP;
+#pragma unroll 1
+  for (int i = DEPTH - 1; i >= 1; --i) {
+    if (HAS_SKIP && i == SKIP + 1)
+      ring_to_global<false>(rg, gp + i * W, gx, DXP, nw, DXP, &sm, LA);
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_acc<4>(acc);
+      ring_mma_g<4>(rg, acc, sm, gp + i * W, LA, nw);
+      mask_emit(acc, mask(i - 1, b), bpart + (i - 1) * W + b * WB,
+                gp + (i - 1) * W + b * WB, nw, LA);
+    }
+  }
+  // layer 0's part: added to the skip layer's, where there is one
+  ring_to_global<HAS_SKIP>(rg, gp, gx, DXP, nw, DXP, &sm, LA);
+  sync_tile();  // the next net may take every buffer
+}
+#endif
 
 // bias gradients: the per-tile partials summed in tile order
 __global__ void bias_kernel(Work wk, float* __restrict__ db, int ntile,
@@ -870,14 +1156,6 @@ __device__ __forceinline__ void dw_store(bf16* dst, const uint4 (&v)[2]) {
     const int idx = threadIdx.x + i * NTHREAD;
     *reinterpret_cast<uint4*>(dst + (idx >> 4) * DW_LD + (idx & 15) * 8) = v[i];
   }
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 // block (tile blockIdx.x, slice blockIdx.y): part[slice][off + M x N] =
@@ -989,13 +1267,14 @@ void add_job(DwJobs& js, int& tiles, const bf16* a, int lda, int m,
 }
 
 // The bias and weight gradients of `nnet` nets from a filled workspace:
-// db (nnet, BSZ), dw (nnet, WGSZ), through the dW partials `part`
+// db (nnet, BSZ), dw (nnet, WGSZ; with viewfac, all but the views
+// input's rows past the codes' and before them), through the dW partials `part`
 // (P x nnet x WGSZ f32) of P slices of `slice` points.  Returns the
 // first launch error; cudaErrorInvalidValue where slice is not a
 // positive multiple of T or P is not the slices' count.
 cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
                          float* part, int P, int slice, int np,
-                         cudaStream_t st) {
+                         cudaStream_t st, bool viewfac = false) {
   if (slice <= 0 || slice % T != 0 || P != (np + slice - 1) / slice)
     return cudaErrorInvalidValue;
   bias_kernel<<<(nnet * BSZ + 255) / 256, 256, 0, st>>>(wk, db, np / T, nnet);
@@ -1019,7 +1298,11 @@ cudaError_t launch_grads(const Work& wk, int nnet, float* dw, float* db,
             o + G_A);
     add_job(js, tiles, act + (DEPTH - 1) * W, LA, W, wk.gf[k], W, W, o + G_F);
     add_job(js, tiles, wk.feat[k], W, W, wk.ghv[k], HV, HV, o + G_VF);
-    add_job(js, tiles, wk.xv[k], DXV, DXV, wk.ghv[k], HV, HV, o + G_VX);
+    if (viewfac)  // the codes' rows (viewfac.cu's fold writes xv's)
+      add_job(js, tiles, wk.xv[k] + DE, DXV, NCODE, wk.ghv[k], HV, HV,
+              o + G_VX + (size_t)DE * HV);
+    else
+      add_job(js, tiles, wk.xv[k], DXV, DXV, wk.ghv[k], HV, HV, o + G_VX);
     add_job(js, tiles, wk.hv[k], HV, HV, wk.gs[k], NGS, 3, o + G_R);
   }
   const size_t total = (size_t)nnet * WGSZ;

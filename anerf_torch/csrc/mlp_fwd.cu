@@ -11,12 +11,19 @@
 // 432 by default; the TPU kernel compiles per shape too), the views
 // parts (view encoding 648, 216 or 72, the subject channel 1 of a
 // multi-subject model, framecodes 16) to at most 672.  It is built for
-// one net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH 256 or 512,
-// -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads a narrower
-// net's weights with zeros): any depth, a 512-wide layer as two
-// 256-column blocks over the same A operand, the ring cut to 3 stages
-// to fit the two (64, 520) activation buffers.  Out: raw (n, 4) f32,
-// row-major [r, g, b, alpha], as the TPU kernel writes it.
+// one net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH a multiple of 256,
+// -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads other nets'
+// weights with zeros): 1-64 layers, a layer of W outputs as W / 256
+// blocks of 256 columns over the same A operand, at 512 the ring cut
+// to 3 stages to fit the two (64, 520) activation buffers.  Past 512
+// (WIDE: 768, 1024, ...) the activations do not fit shared memory:
+// they go to a per-block workspace in device memory (L2-hot) and every
+// product reads its A operand back 256 columns at a time
+// (mlp_fwd_tile_wide), the views input staying in shared memory and
+// the views layer running last, 128 outputs at a time.  The weights
+// reach the ring through a few tensor maps over the pack (ring.cuh),
+// whatever the depth.  Out: raw (n, 4) f32, row-major [r, g, b,
+// alpha], as the TPU kernel writes it.
 //
 // Per block: 64 points, two consumer warpgroups and a producer warp.
 // The block copies its rows of every part into shared memory at the
@@ -55,8 +62,9 @@ static_assert(SMEM_FWD <= 232448, "a block takes at most 227 KB");
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 mlp_fwd_kernel(const Parts xs, const Parts xvs,
                const bf16* __restrict__ wpack,
-               const float* __restrict__ bpack, float* __restrict__ out,
-               const __grid_constant__ FwdMaps maps, int n) {
+               const float* __restrict__ bpack, bf16* __restrict__ work,
+               float* __restrict__ out, const __grid_constant__ FwdMaps maps,
+               int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdSmem sm = fwd_smem(smem);
   const int t0 = blockIdx.x * T;
@@ -69,7 +77,12 @@ mlp_fwd_kernel(const Parts xs, const Parts xvs,
   if constexpr (FWD_X_RESIDENT) load_parts(xs, sm.X, LDXF, DXP, t0, n);
   load_parts(xvs, sm.XV, LDXV, DXV, t0, n);
   sync_tile();
-  mlp_fwd_tile(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs);
+#if ANERF_WIDE
+  mlp_fwd_tile_wide(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs,
+                    work + (size_t)blockIdx.x * FWD_WORK_ELEMS);
+#else
+  mlp_fwd_tile<false>(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs);
+#endif
 }
 
 }  // namespace
@@ -78,11 +91,12 @@ extern "C" {
 
 // xs: nx trunk part pointers (n, xw[k]) bf16, summing to DX columns;
 // xvs: nxv views part pointers (n, xvw[k]) bf16, at most 672 columns;
-// wpack/bpack: one packed weight set; out (n, 4) f32.
+// wpack/bpack: one packed weight set; workspace:
+// mlp_fwd_workspace_bytes(n) (none up to 512 wide); out (n, 4) f32.
 int mlp_fwd(const void* const* xs, const int* xw, int nx,
             const void* const* xvs, const int* xvw, int nxv,
-            const void* wpack, const float* bpack, float* out, int n,
-            void* stream) {
+            const void* wpack, const float* bpack, void* workspace,
+            float* out, int n, void* stream) {
   Parts px, pv;
   if (!make_parts(px, xs, xw, nx, DX) || px.total != DX ||
       !make_parts(pv, xvs, xvw, nxv, DXV))
@@ -97,8 +111,14 @@ int mlp_fwd(const void* const* xs, const int* xw, int nx,
       (int)SMEM_FWD);
   if (err != cudaSuccess) return (int)err;
   mlp_fwd_kernel<<<(n + T - 1) / T, NTHREAD + 32, SMEM_FWD,
-                   (cudaStream_t)stream>>>(px, pv, wf, bpack, out, maps, n);
+                   (cudaStream_t)stream>>>(
+      px, pv, wf, bpack, reinterpret_cast<bf16*>(workspace), out, maps, n);
   return (int)cudaGetLastError();
+}
+
+// A WIDE net's device-memory activations: FWD_WORK_ELEMS bf16 a block.
+long long mlp_fwd_workspace_bytes(int n) {
+  return (long long)((n + T - 1) / T) * (long long)FWD_WORK_ELEMS * 2;
 }
 
 // The build's trunk width and the sizes of one packed weight set, for

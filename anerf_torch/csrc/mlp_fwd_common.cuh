@@ -35,21 +35,25 @@
 namespace {
 
 // ---- the forward's schedule on the ring -----------------------------------
-// 4 stages; 3 at W = 512, whose two (T, 520) activation buffers leave
-// no room for a fourth beside the trunk input's column buffer (the
-// buffer cannot share the activations' room: the skip layer reads both)
-constexpr int FWD_NSTAGE = W == 512 ? 3 : 4;
-
-// The segments of one net in the order mlp_fwd_tile consumes them: the
-// views layer's views-input part (A = XV), layer 0 (A = X), layers
-// 1 .. DEPTH-1 (A = h; the skip layer's x part after its h part), the
-// feature layer, the views layer's feat part (A = feat); every layer of
-// W outputs as NBLK blocks of 256 output rows, each block's parts in a
-// row.
-constexpr int NFSEG = 2 + NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1);
+// The segments of one net in the order the tile's forward consumes them.
+// Up to 512 wide (mlp_fwd_tile): the views layer's views-input part (A =
+// XV), layer 0 (A = X), layers 1 .. DEPTH-1 (A = h; the skip layer's x
+// part after its h part), the feature layer, the views layer's feat part
+// (A = feat).  WIDE (mlp_fwd_tile_wide): the trunk and the feature layer
+// the same way, then the views layer in blocks of 128 outputs, each its
+// views-input part and its feat part.  Every layer of W outputs runs as
+// NBLK blocks of 256 output rows, each block's parts in a row.  With
+// viewfac (K1, K2), the views-input part streams only its last k-slice:
+// the codes (mlp_fwd_tile's note).
+constexpr int VB = 128;                           // WIDE: views block rows
+constexpr int NVB = HV / VB;
+constexpr int NFSEG = (WIDE ? 2 * NVB : 2) +
+                      NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1);
 
 struct FSegTable {
   Seg s[NFSEG];
+  MapSpec m[MAXMAP];
+  int nmap;
 };
 
 __host__ __device__ constexpr void fput(FSegTable& t, int& i, size_t off,
@@ -59,13 +63,14 @@ __host__ __device__ constexpr void fput(FSegTable& t, int& i, size_t off,
   t.s[i].rows = rows;
   t.s[i].K = K;
   t.s[i].stream_a = 0;
+  t.s[i].kb = 0;
   ++i;
 }
 
-__host__ __device__ constexpr FSegTable fwd_segs() {
+__host__ __device__ constexpr FSegTable fwd_segs(bool viewfac) {
   FSegTable t{};
   int i = 0;
-  fput(t, i, OFF_VX, HV, DXV);                      // views-input part
+  if (!WIDE) fput(t, i, OFF_VX, HV, DXV);           // views-input part
   for (int b = 0; b < NBLK; ++b)                    // layer 0
     fput(t, i, (size_t)b * WB * DXP, WB, DXP);
   for (int l = 1; l < DEPTH; ++l)                   // layers 1 ..
@@ -76,11 +81,24 @@ __host__ __device__ constexpr FSegTable fwd_segs() {
     }
   for (int b = 0; b < NBLK; ++b)                    // feat
     fput(t, i, OFF_F + (size_t)b * WB * W, WB, W);
-  fput(t, i, OFF_VF, HV, W);                        // views: feat part
+  if (!WIDE) {
+    fput(t, i, OFF_VF, HV, W);                      // views: feat part
+  } else {
+    for (int v = 0; v < NVB; ++v) {                 // views, by blocks
+      fput(t, i, OFF_VX + (size_t)v * VB * DXV, VB, DXV);
+      fput(t, i, OFF_VF + (size_t)v * VB * W, VB, W);
+    }
+  }
+  t.nmap = assign_maps(t.s, NFSEG, t.m);
+  if (viewfac) t.s[0].kb = DXV - KS;                // the codes' slice
   return t;
 }
-__constant__ FSegTable FSEGS = fwd_segs();
-constexpr FSegTable FSEGS_HOST = fwd_segs();
+__constant__ FSegTable FSEGS = fwd_segs(false);
+__constant__ FSegTable FSEGS_VF = fwd_segs(true);
+constexpr FSegTable FSEGS_HOST = fwd_segs(false);
+static_assert(FSEGS_HOST.nmap > 0, "the forward's blocks on MAXMAP maps");
+static_assert(DXV - KS <= DE - 8 && DXV - KS + KS >= DE + NCODE,
+              "viewfac's codes slice holds the codes and no view rows");
 
 // The schedule covers the forward pack's matrices (everything before
 // the head vectors at OFF_A) exactly once: weight blocks of the forward
@@ -102,16 +120,9 @@ constexpr bool covers_forward_pack(const Seg* s, int n) {
 static_assert(covers_forward_pack(FSEGS_HOST.s, NFSEG),
               "the forward schedule must cover the forward pack once");
 
-struct FwdSched {
-  static constexpr int N = NFSEG;
-  static constexpr int NSTAGE = FWD_NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) { return FSEGS.s[i]; }
-};
-typedef Ring<FwdSched> FwdRing;
-
-// every segment of each net as a TMA descriptor (a kernel parameter)
+// each net's pack maps (a kernel parameter, MAXMAP a net)
 struct FwdMaps {
-  CUtensorMap seg[2][NFSEG];
+  CUtensorMap seg[2][MAXMAP];
 };
 
 // The descriptors of `nnet` nets' forward packs wf (WSZ each).
@@ -121,37 +132,59 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
   if (err != cudaSuccess) return err;
   mp = FwdMaps{};
   for (int net = 0; net < nnet; ++net)
-    for (int i = 0; i < NFSEG; ++i) {
-      const Seg& s = FSEGS_HOST.s[i];
-      if (!encode_2d(enc, &mp.seg[net][i], wf + (size_t)net * WSZ + s.off,
-                     s.K, s.rows, s.rows))
-        return cudaErrorInvalidValue;
-    }
+    if (!encode_maps(enc, mp.seg[net], FSEGS_HOST.m, FSEGS_HOST.nmap,
+                     wf + (size_t)net * WSZ, WSZ, nullptr, 0))
+      return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
 // ---- shared memory --------------------------------------------------------
-// the ring (1024-byte aligned for the swizzle), its barriers, X, the
-// XV / H0 H1 region; K1/K2 add the windows (T, J) after it.  X is the
-// whole trunk input (T, LDX) where that fits in a block's 227 KB, else
-// a buffer of XCH columns that its products refill (ring_wgmma_x).
-constexpr size_t XH_ELEMS = (size_t)T * (LDXV > 2 * LDH ? LDXV : 2 * LDH);
-constexpr size_t fwd_smem_bytes(int ldx) {
-  return 1024 + sizeof(bf16) * (size_t)FWD_NSTAGE * STAGE +
-         sizeof(uint64_t) * 16 + sizeof(bf16) * ((size_t)T * ldx + XH_ELEMS);
+// the ring (1024-byte aligned for the swizzle), its barriers, X, then up
+// to 512 wide the XV / H0 H1 region (K1/K2 add the windows (T, J) after
+// it), WIDE the views input XV and a buffer C of XCH columns for the A
+// operands read back from device memory.  X is the whole trunk input (T,
+// LDX) where that fits in a block's 227 KB, else a buffer of XCH columns
+// that its products refill (ring_wgmma_x), and then C too.  The ring
+// has 4 stages, 3 at W = 512, whose two (T, 520) activation buffers
+// leave no room for a fourth beside the trunk input's column buffer
+// (the buffer cannot share the activations' room: the skip layer reads
+// both); WIDE 4, or 3 where a resident X needs the room.
+constexpr size_t XH_ELEMS =
+    WIDE ? (size_t)T * LDXV : (size_t)T * (LDXV > 2 * LDH ? LDXV : 2 * LDH);
+constexpr size_t fwd_smem_bytes(int nstage, bool xres) {
+  return 1024 + sizeof(bf16) * (size_t)nstage * STAGE +
+         sizeof(uint64_t) * 16 +
+         sizeof(bf16) * ((size_t)T * (xres ? LDX : LDC) + XH_ELEMS +
+                         (WIDE && xres ? (size_t)T * LDC : 0));
 }
-constexpr bool FWD_X_RESIDENT = fwd_smem_bytes(LDX) <= 232448;
-constexpr int LDXF = FWD_X_RESIDENT ? LDX : XCH + 8;
-constexpr size_t SMEM_FWD = fwd_smem_bytes(LDXF);
+constexpr int FWD_NSTAGE = !WIDE ? (W == 512 ? 3 : 4)
+                           : fwd_smem_bytes(4, true) <= SMEM_MAX ? 4
+                           : fwd_smem_bytes(3, true) <= SMEM_MAX ? 3 : 4;
+constexpr bool FWD_X_RESIDENT = fwd_smem_bytes(FWD_NSTAGE, true) <= SMEM_MAX;
+constexpr int LDXF = FWD_X_RESIDENT ? LDX : LDC;
+constexpr size_t SMEM_FWD = fwd_smem_bytes(FWD_NSTAGE, FWD_X_RESIDENT);
 static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
+
+// the forward's schedule; VF: viewfac's (K1, K2)
+template <bool VF>
+struct FwdSchedT {
+  static constexpr int N = NFSEG;
+  static constexpr int NSTAGE = FWD_NSTAGE;
+  __device__ __forceinline__ static Seg at(int i) {
+    return VF ? FSEGS_VF.s[i] : FSEGS.s[i];
+  }
+};
+typedef FwdSchedT<false> FwdSched;
+typedef Ring<FwdSched> FwdRing;
 
 struct FwdSmem {
   bf16* ring;
   uint64_t* bars;   // the ring's full and empty barriers
   bf16* X;
-  bf16* XV;         // the views input, then H0 and H1 over it
+  bf16* XV;         // the views input, then (up to 512 wide) H0, H1 over it
   bf16* H0;
   bf16* H1;
+  bf16* C;          // WIDE: the A operands' column buffer
   float* end;       // what a kernel adds after the forward's own
 };
 
@@ -164,9 +197,21 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* base) {
   s.XV = s.X + T * LDXF;
   s.H0 = s.XV;
   s.H1 = s.H0 + T * LDH;
-  s.end = reinterpret_cast<float*>(s.XV + XH_ELEMS);
+  s.C = FWD_X_RESIDENT ? s.XV + XH_ELEMS : s.X;
+  s.end = reinterpret_cast<float*>(s.XV + XH_ELEMS +
+                                   (WIDE && FWD_X_RESIDENT ? T * LDC : 0));
   return s;
 }
+
+// viewfac (K1/K2): the codes' k-slice (T, LDCV) and the staging of M and
+// xw in the XV region
+constexpr int LDCV = KS + 8;
+static_assert(WIDE || T * LDCV + VF_STAGE <= (int)XH_ELEMS,
+              "viewfac's operands in the XV region");
+
+// WIDE: the device-memory activations of one block: two (T, W) buffers
+// and hv (T, HV), bf16
+constexpr size_t FWD_WORK_ELEMS = WIDE ? (size_t)T * (2 * W + HV) : 0;
 
 // ---- warpgroup products ---------------------------------------------------
 // A shared-memory matrix descriptor of a K-major B operand with the
@@ -256,8 +301,8 @@ __device__ __forceinline__ void zero_wg(float (&d)[NJ][4]) {
 // steps, one in a ragged last stage such as K = 432's), the wait for the
 // stage's bytes, two wgmma, one commit, the wait for them, and this
 // warp's release of the stage.
-template <int NJ>
-__device__ __forceinline__ void wgmma_slices(FwdRing& r, float (&d)[NJ][4],
+template <class SC, int NJ>
+__device__ __forceinline__ void wgmma_slices(Ring<SC>& r, float (&d)[NJ][4],
                                              const bf16* A, int lda, int k_lo,
                                              int k_hi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -286,20 +331,21 @@ __device__ __forceinline__ void wgmma_slices(FwdRing& r, float (&d)[NJ][4],
   fence_acc(d);
 }
 
-// d += A[0:64, 0:K] @ Wseg^T over the ring's next segment (wgmma_slices)
-template <int NJ>
-__device__ __forceinline__ void ring_wgmma(FwdRing& r, float (&d)[NJ][4],
+// d += A[0:64, kb:K] @ Wseg^T over the ring's next segment (wgmma_slices),
+// A's column 0 at the segment's first k-slice kb
+template <class SC, int NJ>
+__device__ __forceinline__ void ring_wgmma(Ring<SC>& r, float (&d)[NJ][4],
                                            const bf16* A, int lda) {
   const Seg s = ring_next_seg(r);
-  wgmma_slices(r, d, A, lda, 0, s.K);
+  wgmma_slices(r, d, A, lda, s.kb, s.K);
 }
 
 // d += X @ Wseg^T over the ring's next segment, whose A operand is the
 // trunk input X: resident in sm.X, or, where it does not fit, brought
 // from the parts xs into sm.X XCH columns at a time between two
 // barriers of the consumer warps (the producer runs on ahead).
-template <int NJ>
-__device__ __forceinline__ void ring_wgmma_x(FwdRing& r, float (&d)[NJ][4],
+template <class SC, int NJ>
+__device__ __forceinline__ void ring_wgmma_x(Ring<SC>& r, float (&d)[NJ][4],
                                              const FwdSmem& sm,
                                              const Parts* xs, int t0, int n) {
   if constexpr (FWD_X_RESIDENT) {
@@ -316,13 +362,35 @@ __device__ __forceinline__ void ring_wgmma_x(FwdRing& r, float (&d)[NJ][4],
   }
 }
 
+// d += A @ Wseg^T over the ring's next segment, A (T rows, row stride
+// lda) in device memory, brought into sm.C XCH columns at a time between
+// two barriers of the consumer warps (WIDE)
+template <class SC, int NJ>
+__device__ __forceinline__ void ring_wgmma_g(Ring<SC>& r, float (&d)[NJ][4],
+                                             const FwdSmem& sm,
+                                             const bf16* A, int lda) {
+  const Seg s = ring_next_seg(r);
+  for (int c0 = 0; c0 < s.K; c0 += XCH) {
+    const int c1 = min(c0 + XCH, s.K), per_row = (c1 - c0) / 8;
+    sync_tile();  // every warp is past its reads of the last columns
+    for (int idx = threadIdx.x; idx < T * per_row; idx += NTHREAD) {
+      const int t = idx / per_row, c = (idx - t * per_row) * 8;
+      *reinterpret_cast<uint4*>(sm.C + t * LDC + c) =
+          *reinterpret_cast<const uint4*>(A + (size_t)t * lda + c0 + c);
+    }
+    sync_tile();
+    wgmma_slices(r, d, sm.C, LDC, c0, c1);
+  }
+}
+
 // out[row, col] = bf16(act(d + bias[col])) for this warpgroup's columns
-// from n0: d[j][e] holds row 16 w + lane / 4 (+8 for e >= 2) of warp w of
-// the warpgroup, column n0 + 8 j + 2 (lane % 4) (+1 for odd e)
+// from n0 (row stride ldo, shared or device memory): d[j][e] holds row
+// 16 w + lane / 4 (+8 for e >= 2) of warp w of the warpgroup, column
+// n0 + 8 j + 2 (lane % 4) (+1 for odd e)
 template <int NJ, bool RELU>
 __device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
                                          const float* __restrict__ bias,
-                                         bf16* out, int n0) {
+                                         bf16* out, int n0, int ldo = LDH) {
   const int lane = threadIdx.x & 31, q = lane & 3;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
 #pragma unroll
@@ -337,14 +405,55 @@ __device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
       v2 = fmaxf(v2, 0.f);
       v3 = fmaxf(v3, 0.f);
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + row * LDH + col) =
+    *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) =
         __floats2bfloat162_rn(v0, v1);
-    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * LDH + col) =
+    *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
         __floats2bfloat162_rn(v2, v3);
   }
 }
 
-// ---- the MLP forward of one 64-point tile ---------------------------------
+// the alpha head (f32 dot, 4 lanes per point) of the last activation h
+// (row stride ld) to channel 3
+__device__ __forceinline__ void alpha_head(const bf16* h, int ld,
+                                           const bf16* __restrict__ Wn,
+                                           const float* __restrict__ Bn,
+                                           float* __restrict__ out, size_t cs,
+                                           size_t ps, int t0, int n) {
+  const int t = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const bf16* hr = h + t * ld + part * (W / 4);
+  const bf16* wa = Wn + OFF_A + part * (W / 4);
+  float sum = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < W / 4; ++k)
+    sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (part == 0 && t0 + t < n)
+    out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
+}
+
+// the rgb head (f32 dot) of hv (row stride ld) to channels 0-2
+__device__ __forceinline__ void rgb_head(const bf16* hv, int ld,
+                                         const bf16* __restrict__ Wn,
+                                         const float* __restrict__ Bn,
+                                         float* __restrict__ out, size_t cs,
+                                         size_t ps, int t0, int n) {
+  static_assert(NTHREAD >= T * 3, "one thread per point and channel");
+  const int tid = threadIdx.x;
+  if (tid < T * 3) {
+    const int t = tid / 3, ch = tid - t * 3;
+    const bf16* hr = hv + t * ld;
+    const bf16* wr = Wn + OFF_R + ch * HV;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < HV; ++k)
+      sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
+    if (t0 + t < n) out[ch * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_R + ch);
+  }
+}
+
+#if !ANERF_WIDE
+// ---- the MLP forward of one 64-point tile, up to 512 wide ----------------
 // X (the trunk input, where it stays resident; else xs, its parts) and
 // XV (the views input) complete in shared memory and the consumers
 // synchronised; the ring's schedule at the net's first
@@ -354,9 +463,14 @@ __device__ __forceinline__ void store_wg(const float (&d)[NJ][4],
 // K1/K2's channel-major rows, (1, 4) for K5's row-major [rgb, alpha].
 // A layer of W outputs runs as NBLK blocks of 256 columns, each over
 // the whole A operand (warpgroup g takes 128 columns of a block).
+// VF (viewfac, K1/K2): the XV region holds the codes' k-slice [0 x 8 |
+// codes | 0 x 8] as (T, LDCV) and after it M and xw (vf_stage), and the
+// views-input part is that slice's product plus xw @ M (vf_xw_m).
 // Run by the consumer warps; ends with them synchronised, past every
 // read of the region that holds XV.
-__device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
+template <bool VF>
+__device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
+                                             const FwdSmem& sm,
                                              const bf16* __restrict__ Wn,
                                              const float* __restrict__ Bn,
                                              float* __restrict__ out,
@@ -368,7 +482,9 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
   // ---- the views layer's views-input part, while XV is resident -------
   float dv[NJV][4];
   zero_wg(dv);
-  ring_wgmma(rg, dv, sm.XV, LDXV);
+  ring_wgmma(rg, dv, sm.XV, VF ? LDCV : LDXV);
+  if constexpr (VF)
+    vf_xw_m<NJV>(dv, sm.XV + T * LDCV, 16 * ((tid >> 5) & 3), wg * (HV / 2));
 
   // ---- density trunk -----------------------------------------------------
   float d[16][4];
@@ -398,20 +514,8 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
     hout = tmp;
   }
 
-  // ---- alpha head (f32 dot, 4 lanes per point) and feature layer -------
-  {
-    const int t = tid >> 2, part = tid & 3;
-    const bf16* hr = hin + t * LDH + part * (W / 4);
-    const bf16* wa = Wn + OFF_A + part * (W / 4);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < W / 4; ++k)
-      sum += __bfloat162float(hr[k]) * __bfloat162float(wa[k]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0 && t0 + t < n)
-      out[3 * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_A);
-  }
+  // ---- alpha head and feature layer -------------------------------------
+  alpha_head(hin, LDH, Wn, Bn, out, cs, ps, t0, n);
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_wg(d);
@@ -425,19 +529,69 @@ __device__ __forceinline__ void mlp_fwd_tile(FwdRing& rg, const FwdSmem& sm,
   store_wg<NJV, true>(dv, Bn + OB_V, hin, wg * (HV / 2));
   sync_tile();
 
-  // ---- rgb head (f32 dot) -----------------------------------------------
-  static_assert(NTHREAD >= T * 3, "one thread per point and channel");
-  if (tid < T * 3) {
-    const int t = tid / 3, ch = tid - t * 3;
-    const bf16* hr = hin + t * LDH;
-    const bf16* wr = Wn + OFF_R + ch * HV;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < HV; ++k)
-      sum += __bfloat162float(hr[k]) * __bfloat162float(wr[k]);
-    if (t0 + t < n) out[ch * cs + (size_t)(t0 + t) * ps] = sum + __ldg(Bn + OB_R + ch);
-  }
+  // ---- rgb head ------------------------------------------------------------
+  rgb_head(hin, LDH, Wn, Bn, out, cs, ps, t0, n);
   sync_tile();
 }
+#else
+// ---- the MLP forward of one 64-point tile, WIDE -----------------------------
+// As mlp_fwd_tile (no viewfac), with the activations in device memory:
+// hw, the block's FWD_WORK_ELEMS (two (T, W) buffers, then hv (T, HV)).
+// Each trunk block, feat block and views block reads its A operand back
+// XCH columns at a time (ring_wgmma_g); the views layer runs last, in
+// NVB blocks of 128 outputs (warpgroup g takes 64), each its views-input
+// part from XV (resident in shared memory throughout) then its feat
+// part, the order of mlp_fwd_tile's sums.
+__device__ __forceinline__ void mlp_fwd_tile_wide(
+    FwdRing& rg, const FwdSmem& sm, const bf16* __restrict__ Wn,
+    const float* __restrict__ Bn, float* __restrict__ out, size_t cs,
+    size_t ps, int t0, int n, const Parts* xs, bf16* hw) {
+  const int wg = threadIdx.x >> 7;
+  bf16* hin = hw;
+  bf16* hout = hw + T * W;
+  bf16* hv = hw + 2 * T * W;
+  float d[16][4];
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_wg(d);
+    ring_wgmma_x(rg, d, sm, xs, t0, n);
+    store_wg<16, true>(d, Bn, hin, b * WB + wg * 128, W);
+  }
+  sync_tile();
+#pragma unroll 1
+  for (int i = 1; i < DEPTH; ++i) {
+#pragma unroll 1
+    for (int b = 0; b < NBLK; ++b) {
+      zero_wg(d);
+      ring_wgmma_g(rg, d, sm, hin, W);
+      if (HAS_SKIP && i == SKIP + 1) ring_wgmma_x(rg, d, sm, xs, t0, n);
+      store_wg<16, true>(d, Bn + i * W, hout, b * WB + wg * 128, W);
+    }
+    sync_tile();
+    bf16* tmp = hin;
+    hin = hout;
+    hout = tmp;
+  }
+  alpha_head(hin, W, Wn, Bn, out, cs, ps, t0, n);
+#pragma unroll 1
+  for (int b = 0; b < NBLK; ++b) {
+    zero_wg(d);
+    ring_wgmma_g(rg, d, sm, hin, W);
+    store_wg<16, false>(d, Bn + OB_F, hout, b * WB + wg * 128, W);  // feat
+  }
+  sync_tile();
+  float dv[8][4];
+#pragma unroll 1
+  for (int v = 0; v < NVB; ++v) {
+    zero_wg(dv);
+    ring_wgmma(rg, dv, sm.XV, LDXV);
+    ring_wgmma_g(rg, dv, sm, hout, W);
+    store_wg<8, true>(dv, Bn + OB_V, hv, v * VB + wg * (VB / 2), HV);
+  }
+  sync_tile();
+  rgb_head(hv, HV, Wn, Bn, out, cs, ps, t0, n);
+  sync_tile();
+}
+#endif
 
 }  // namespace

@@ -8,14 +8,20 @@
 // them without bank conflicts and wgmma reads them as they lie (a K-major
 // B operand with 8-row groups 512 bytes apart).  A producer warp, beside
 // the 8 consumer warps, fills each stage with one TMA copy
-// (cp.async.bulk.tensor from a tensor map per weight block) that
-// completes on the stage's full barrier, and refills a slot once every
-// consumer warp has arrived on its empty barrier; the consumers spend no
-// issue slots on copies and meet at no block barrier per stage.  The
-// stages follow one fixed schedule of weight blocks (a Sched: its Seg
-// table, walked net after net), so the next product's first slices are
-// in flight while the current one's epilogue runs, and each slice
-// crosses L2 once per block.
+// (cp.async.bulk.tensor) that completes on the stage's full barrier, and
+// refills a slot once every consumer warp has arrived on its empty
+// barrier; the consumers spend no instruction slots on copies and meet at no
+// block barrier per stage.  The stages follow one fixed schedule of
+// weight blocks (a Sched: its Seg table, walked net after net), so the
+// next product's first slices are in flight while the current one's
+// epilogue runs, and each slice crosses L2 once per block.
+//
+// The copies read a pack through a few tensor maps, not one per block:
+// every block of a pack with the same depth K and row count lies on the
+// row grid of one (rows, K) view of the pack from some base (the trunk's
+// W x W layers, whatever the depth, on one map), so a segment is a map
+// and a row coordinate (assign_maps), and the maps a kernel takes as a
+// parameter stay a handful at any depth.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums (encoded through the runtime)
 
@@ -28,15 +34,55 @@ constexpr int STAGE = WB * KS;       // bf16 a stage: up to 256 rows
 
 // One block of weight rows that the ring streams: `rows` rows of depth K
 // at `off` in the forward (pack 0, (out, in) rows) or backward (pack 1,
-// (in, out) rows) pack of the net; with stream_a, the tile's views input
-// (T rows of depth K) rides in each stage after the weight rows as the
-// product's A operand.
+// (in, out) rows) pack of the net, its k-slices from kb (0, or the last
+// slice of a part whose first columns a mode skips) to K; with stream_a,
+// the tile's views input (T rows of depth K) rides in each stage after
+// the weight rows as the product's A operand.  map and row: the tensor
+// map the copies read it through and its first row there (assign_maps).
 struct Seg {
-  int pack, off, rows, K, stream_a;
+  int pack, off, rows, K, stream_a, kb, map, row;
 };
 
+// A tensor map over pack `pack` from element `base`: a (rows, K) bf16
+// row-major view read in boxes of KS x box rows.
+struct MapSpec {
+  int pack, base, K, box;
+};
+constexpr int MAXMAP = 12;   // a net's maps, whatever its depth
+
+// Each segment's map and row: segments of one pack, depth and row count
+// whose offsets differ by a multiple of K share a map, based at the
+// lowest of them.  Returns the maps' count, or -1 where they exceed
+// MAXMAP or a base is not 16-byte aligned.
+__host__ __device__ constexpr int assign_maps(Seg* s, int n, MapSpec* m) {
+  int nmap = 0;
+  for (int i = 0; i < n; ++i) {
+    int k = 0;
+    for (; k < nmap; ++k)
+      if (m[k].pack == s[i].pack && m[k].K == s[i].K &&
+          m[k].box == s[i].rows && (s[i].off - m[k].base) % s[i].K == 0)
+        break;
+    if (k == nmap) {
+      if (nmap == MAXMAP) return -1;
+      m[k].pack = s[i].pack;
+      m[k].base = s[i].off;
+      m[k].K = s[i].K;
+      m[k].box = s[i].rows;
+      ++nmap;
+    }
+    if (s[i].off < m[k].base) m[k].base = s[i].off;
+    s[i].map = k;
+  }
+  for (int k = 0; k < nmap; ++k)
+    if (m[k].base % 8 != 0) return -1;
+  for (int i = 0; i < n; ++i)
+    s[i].row = (s[i].off - m[s[i].map].base) / s[i].K;
+  return nmap;
+}
+
 // A schedule S provides S::N segments a net (S::at(i) reads its
-// __constant__ table) and the ring's stage count S::NSTAGE.
+// __constant__ table) and the ring's stage count S::NSTAGE; the ring
+// reads MAXMAP maps a net.
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -64,7 +110,8 @@ cudaError_t tensor_map_encoder(EncodeTiled* out) {
 }
 
 // a (rows, K) bf16 row-major matrix read in boxes of KS x box_rows, with
-// the 64-byte swizzle; columns past K read as zeros
+// the 64-byte swizzle; columns past K read as zeros (rows past `rows`
+// too, but every segment lies inside its pack)
 bool encode_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int K,
                int rows, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
@@ -77,22 +124,27 @@ bool encode_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int K,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The `nmap` maps `spec` of one net's packs (forward wf, backward wb; nf
+// and nb elements) into out[0 .. nmap): each a view of its pack from its
+// base to the pack's end.
+inline bool encode_maps(EncodeTiled enc, CUtensorMap* out,
+                        const MapSpec* spec, int nmap, const bf16* wf,
+                        size_t nf, const bf16* wb, size_t nb) {
+  for (int k = 0; k < nmap; ++k) {
+    const MapSpec& m = spec[k];
+    const size_t rows = ((m.pack ? nb : nf) - (size_t)m.base) / m.K;
+    if (!encode_2d(enc, out + k, (m.pack ? wb : wf) + m.base, m.K, (int)rows,
+                   m.box))
+      return false;
+  }
+  return true;
+}
+
 // the bf16 offset of 16-byte chunk ch (0-3) of row `row` in a stage: the
 // TMA's 64-byte swizzle (chunk bits XOR address bits 7-8), so ldmatrix
 // reads 8 rows of one chunk column without bank conflicts
 __device__ __forceinline__ int swz(int row, int ch) {
   return row * KS + ((ch ^ ((row >> 1) & 3)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
 }
 
 // Wait until the barrier's phase `parity` has completed.  A lost copy
@@ -128,7 +180,7 @@ struct Ring {
   bf16* buf;                  // S::NSTAGE stages in shared memory
   uint64_t* full;
   uint64_t* empty;
-  const CUtensorMap* maps;    // nnet x S::N segment descriptors
+  const CUtensorMap* maps;    // nnet x MAXMAP pack descriptors
   const CUtensorMap* xv;      // each net's views input (stream_a), or null
   int nnet, t0;
   int c_seg, c_slot;          // the consumers' next segment and stage
@@ -158,7 +210,7 @@ __device__ __forceinline__ void ring_produce(const Ring<S>& r) {
     for (int i = 0; i < S::N; ++i) {
       const Seg s = S::at(i);
       const int bytes = (s.rows + (s.stream_a ? T : 0)) * KS * (int)sizeof(bf16);
-      for (int k0 = 0; k0 < s.K; k0 += KS) {
+      for (int k0 = s.kb; k0 < s.K; k0 += KS) {
         if (refill) mbar_wait(r.empty + slot, phase);
         const uint32_t bar = smem_addr(r.full + slot);
         bf16* dst = r.buf + slot * STAGE;
@@ -167,7 +219,7 @@ __device__ __forceinline__ void ring_produce(const Ring<S>& r) {
                 bar),
             "r"(bytes)
             : "memory");
-        tma_2d(dst, r.maps + net * S::N + i, k0, 0, bar);
+        tma_2d(dst, r.maps + net * MAXMAP + s.map, k0, s.row, bar);
         if (s.stream_a) tma_2d(dst + s.rows * KS, r.xv + net, k0, r.t0, bar);
         if (++slot == S::NSTAGE) {
           slot = 0;

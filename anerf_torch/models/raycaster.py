@@ -69,8 +69,8 @@ class RayCastConfig:
     mlp_backend: str = 'plain'      # 'fused' | 'plain'
     # the point tile the viewfac cost gate prices (fused_encmlp._build_call)
     pallas_tile: Optional[int] = None
-    # per-ray view factorization (anerf_tpu); the port computes the cost
-    # gate but always runs the dense form (ROADMAP.md)
+    # per-ray view factorization (anerf_tpu): the fused kernels run it
+    # where the cost gate picks it (fused_encmlp._build_call)
     viewfac: bool = False
 
     def density_fn(self):

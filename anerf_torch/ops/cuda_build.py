@@ -3,19 +3,21 @@
 Every source under ``anerf_torch/csrc`` is compiled by ``nvcc`` for
 sm_90a into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so a build takes seconds).  One library per
-source, and for the split-operand MLP kernels one per trunk width:
+source, and for the split-operand MLP kernels one per shape:
 
   * ``fwd``     ``csrc/encmlp_fwd.cu``  K1, K2 (fused encode + MLP);
   * ``bwd``     ``csrc/encmlp_bwd.cu``  K3, K4 (their backwards);
+  * ``viewfac`` ``csrc/viewfac.cu``     K-vf1, K-vf2 (the view
+    factorization's per-ray operand and fold around K1-K4);
   * ``mlp_fwd`` ``csrc/mlp_fwd.cu``     K5 (split-operand MLP);
   * ``mlp_bwd`` ``csrc/mlp_bwd.cu``     K6 (its backward).
 
 K5 and K6 are compiled for one shape each, as the TPU's Mosaic compiles
 its kernel per static shape: a trunk width (``-DANERF_DX=dx``, the sum
 of the trunk parts: 432 at the flagship's encoders, 117, 1152 or 1197
-at others') and a net (``-DANERF_DEPTH``, ``-DANERF_WIDTH`` 256 or 512,
-``-DANERF_SKIP``: any depth, the width a narrower net is padded to,
-the skip after layer 4; ``fused_mlp.kernel_static``).  ``build_kernels``
+at others') and a net (``-DANERF_DEPTH``, ``-DANERF_WIDTH`` a multiple of
+256, ``-DANERF_SKIP``: the depth, the width a net is padded to, the skip
+after layer 4; ``fused_mlp.kernel_static``).  ``build_kernels``
 starts one nvcc per library it lacks, all together, into
 ``anerf_torch/_build/``; each library is keyed by the hash of its
 source, the shared headers (``csrc/*.cuh``) and its shape, so an edit
@@ -40,7 +42,8 @@ import torch
 _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 _CSRC = os.path.join(_ROOT, 'csrc')
 _SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
-            'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu'}
+            'viewfac': 'viewfac.cu', 'mlp_fwd': 'mlp_fwd.cu',
+            'mlp_bwd': 'mlp_bwd.cu'}
 # the libraries built per shape, and K1-K4's shape: the trunk width,
 # the nets' depth and width, the skip layer
 _SHAPED = ('mlp_fwd', 'mlp_bwd')
@@ -56,7 +59,7 @@ def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
             width: int = 256) -> Tuple:
     """``_LIBS``'s key of library ``which``: for K5/K6 at trunk width
     ``dx`` (the flagship's by default) and a ``depth`` x ``width`` net
-    (the compiled width, 256 or 512), ``(which, dx)`` at the flagship's
+    (the compiled width, a multiple of 256), ``(which, dx)`` at the flagship's
     8 x 256 and ``(which, dx, depth, width)`` at any other net."""
     if which not in _SOURCES:
         raise KeyError(f'no library {which!r}')
@@ -101,23 +104,31 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         fn.argtypes, fn.restype = args, res
     if which == 'fwd':
         for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-            # p, enc_ray, codes, cutoff, tau, wpack, bpack, out, n, S, R,
-            # stream
-            sig(name, [vp] * 8 + [ci] * 3 + [vp])
+            # p, enc_ray, codes, cutoff, tau, wpack, bpack, viewfac's M,
+            # out, n, S, R, stream
+            sig(name, [vp] * 9 + [ci] * 3 + [vp])
         sig('encmlp_weight_elems', [], cll)
         sig('encmlp_bias_elems', [])
     elif which == 'bwd':
         for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
             # p, enc_ray, codes, cutoff, tau, wpack, wpack_b, bpack, g,
-            # workspace, dp, denc, dcodes, dw, db, dW partials, P, slice,
-            # n, S, R, stream
-            sig(name, [vp] * 16 + [ci] * 5 + [vp])
+            # workspace, dp, denc, dcodes, dw, db, dW partials, viewfac's
+            # M and Gw, P, slice, n, S, R, stream
+            sig(name, [vp] * 18 + [ci] * 5 + [vp])
         sig('encmlp_bwd_workspace_bytes', [ci, ci], cll)
         sig('encmlp_grad_weight_elems', [], cll)
+    elif which == 'viewfac':
+        # enc_ray, wvx, M, R, nnet, stream
+        sig('viewfac_m', [vp, vp, vp, ci, ci, vp])
+        # Gw, enc_ray, wvx, dw, dw stride, denc, partials, P, slice, R,
+        # nnet, stream
+        sig('viewfac_fold', [vp, vp, vp, vp, cll, vp, vp] + [ci] * 4 + [vp])
+        sig('viewfac_width', [])
     elif which == 'mlp_fwd':
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, bpack,
-        # out, n, stream
-        sig('mlp_fwd', [vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, vp])
+        # workspace, out, n, stream
+        sig('mlp_fwd', [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp])
+        sig('mlp_fwd_workspace_bytes', [ci], cll)
         sig('mlp_weight_elems', [], cll)
         sig('mlp_bias_elems', [])
     else:
@@ -137,7 +148,7 @@ def build_kernels(verbose: bool = False,
                   trunk_widths: Iterable[int] = (),
                   shapes: Iterable[Tuple[int, int, int]] = ()) -> float:
     """Compile every library not loaded yet for sm_90a into ``_build/``:
-    K1-K4's and K5/K6's at the flagship's shape, K5/K6's at each of
+    K1-K4's, K-vf1/K-vf2's and K5/K6's at the flagship's shape, K5/K6's at each of
     ``trunk_widths`` (8 x 256 nets) and at each (trunk width, depth,
     compiled width) of ``shapes``; one nvcc per library, all started
     together.  Load them, and return the seconds spent (0 when all were

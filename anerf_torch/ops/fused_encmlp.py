@@ -20,7 +20,18 @@ train step:
   * K4 ``encmlp_dual_bwd`` <- ``_fused_dual_bwd`` / ``_bwd_kernel_dual``.
 
 K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
-(their source notes give the designs and bounds).  All four are bound
+(their source notes give the designs and bounds).
+
+The per-ray view factorization (``viewfac``, on by default; the cost
+gate of ``pallas_encmlp._build_call`` picks it, on the flagship for the
+coarse pass, K2/K4): the views layer's views-input product becomes a
+per-ray ``xw @ M`` (``fused_mlp.viewfac_operand``).  Two more kernels
+(``csrc/viewfac.cu``) hold its per-ray parts: K-vf1 ``vf_operand``
+builds M for every ray and net before K1/K2 (and again before K3/K4),
+K-vf2 ``vf_fold`` folds the per-ray Gram matrices ``xw^T g_hv`` that a
+pass of K3/K4 forms into the views weight's gradient and ``denc``.  With ``est.viewfac`` a launch runs
+the factorized kernels or raises; the dense form runs only where the
+gate says so.  All four are bound
 by tensor-core operations: each point costs 2 x 863,872 MACs per net
 forward, three times that backward, against a few hundred bytes of
 device traffic.
@@ -52,10 +63,8 @@ cos-as-shifted-sin per joint, as the TPU kernels do (pallas_encmlp.py
 ``SIN_RECURRENCE``), in the twins and the kernels alike; the backward
 recomputes them instead of reading the TPU's stash.
 
-Not ported yet (ROADMAP.md): the per-ray view factorization mode
-(``viewfac``; its cost gate is computed here but the port always runs
-the dense form, which is the same function up to bf16 rounding) and the
-in-kernel rigid transform (``fuse_tform``).
+Not ported yet (ROADMAP.md B.3): the in-kernel rigid transform
+(``fuse_tform``, off by default).
 """
 from __future__ import annotations
 
@@ -68,9 +77,10 @@ import torch
 
 from . import cuda_build, fused_mlp
 from .cuda_build import build_kernels  # noqa: F401  (re-exported)
-from .fused_mlp import (MLPStatic, _forward_tile, _mlp_bwd_tile, _mlp_macs,
-                        _pack_bwd_weights, _pack_kernel_weights,
-                        _unpack_grads, _weight_shapes)
+from .fused_mlp import (MLPStatic, _forward_tile, _grad_layout,
+                        _mlp_bwd_tile, _mlp_macs, _pack_bwd_weights,
+                        _pack_kernel_weights, _unpack_grads, _weight_shapes,
+                        kernel_static, viewfac_m, viewfac_operand)
 from .fused_mlp import flatten_params as _flatten_plain
 
 
@@ -127,9 +137,11 @@ def _encode_plain(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
 
 
 def _encode_fwd_res(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
-                    cutoff: torch.Tensor, tau: torch.Tensor):
+                    cutoff: torch.Tensor, tau: torch.Tensor,
+                    skip_xv: bool = False):
     """``_encode_plain`` plus the pullback's residuals: returns
-    ((v, r, xv), (dists, w, bands, invd)).
+    ((v, r, xv), (dists, w, bands, invd)); ``skip_xv``: xv is None (the
+    caller takes the factorized form instead).
 
     Mirrors ``pallas_encmlp._encode_fwd_res`` for the flagship flags
     (include_input, cutoff_inputs, no shift/cut_to/schedule).
@@ -159,8 +171,10 @@ def _encode_fwd_res(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
     if est.bone_windowed:
         r = r * w3
     # per-ray view PE rows times the per-sample window (col % J = joint)
-    ray = torch.arange(p.shape[0], device=p.device) // est.S
-    xv = enc_ray[ray] * w3.repeat(1, est.view_nb)
+    xv = None
+    if not skip_xv:
+        ray = torch.arange(p.shape[0], device=p.device) // est.S
+        xv = enc_ray[ray] * w3.repeat(1, est.view_nb)
     return (v, r, xv), (dists, w, bands, invd)
 
 
@@ -174,13 +188,16 @@ def _sum_blocks(a: torch.Tensor, width: int, k: int) -> torch.Tensor:
 
 
 def _encode_pullback_plain(est: EncStatic, p, enc_ray, res, tau, gv, gr,
-                           gxv):
+                           gxv, fac=None):
     """Plain VJP of ``_encode_fwd_res`` (f32 cotangents in), the
     transcendental-free pullback of ``pallas_encmlp._encode_pullback``:
     each band's derivative is its paired band scaled by +-f, sigmoid'
     reuses the window, sqrt' the stored distances.  Returns
     (dp (n, 3J), denc (R, nb*3J)): ``denc`` sums over the samples of
-    each ray."""
+    each ray.  ``fac``: (d_window (n, J), d_enc (R, nb*3J)) of the
+    factorized views backward, in place of the xv section (``gxv`` is
+    then ignored): the window cotangent adds into g_w and d_enc is
+    denc."""
     J = est.J
     dists, w, bands, invd = res
     F = len(est.kp_freqs)
@@ -211,13 +228,17 @@ def _encode_pullback_plain(est: EncStatic, p, enc_ray, res, tau, gv, gr,
         g_invd = _sum_blocks(gr * p, J, 3)
     g_dists = g_dists - g_invd * (invd * invd) * (dists > est.eps).float()
 
-    nbJ3 = est.view_nb * 3 * J
-    ray = torch.arange(p.shape[0], device=p.device) // est.S
-    g_enc_flat = gxv * w.repeat(1, 3 * est.view_nb)
-    R = enc_ray.shape[0]
-    denc = g_enc_flat.reshape(R, est.S, nbJ3).sum(1)
-    g_w = g_w + _sum_blocks(_sum_blocks(gxv * enc_ray[ray], 3 * J,
-                                        est.view_nb), J, 3)
+    if fac is not None:
+        g_w = g_w + fac[0]
+        denc = fac[1]
+    else:
+        nbJ3 = est.view_nb * 3 * J
+        ray = torch.arange(p.shape[0], device=p.device) // est.S
+        g_enc_flat = gxv * w.repeat(1, 3 * est.view_nb)
+        R = enc_ray.shape[0]
+        denc = g_enc_flat.reshape(R, est.S, nbJ3).sum(1)
+        g_w = g_w + _sum_blocks(_sum_blocks(gxv * enc_ray[ray], 3 * J,
+                                            est.view_nb), J, 3)
 
     sig = 1. - w
     g_dists = g_dists - g_w * (tau * sig * w)
@@ -225,30 +246,54 @@ def _encode_pullback_plain(est: EncStatic, p, enc_ray, res, tau, gv, gr,
     return dp, denc
 
 
+def _views_operand(est: EncStatic, xv, w, enc_ray):
+    """The views input part of the MLPs: the factorized operand under
+    ``est.viewfac``, else the dense bf16 xv."""
+    if est.viewfac:
+        return viewfac_operand(w, enc_ray, est.S)
+    return xv.to(torch.bfloat16).float()
+
+
 def _bwd_nets_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes_list,
                     cutoff, tau, flats, gs):
     """Shared body of the backward twins: one encode, each net's MLP
     backward, the nets' input cotangents summed in f32, rounded through
-    bf16, and pulled back once (``_bwd_kernel_dual`` :784-822)."""
+    bf16, and pulled back once (``_bwd_kernel_dual`` :784-822).  Under
+    viewfac the nets' window and view-row cotangents add in f32, never
+    rounded through bf16 (:809-816)."""
     b16 = lambda a: a.to(torch.bfloat16).float()
-    (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau)
+    (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
+                                      skip_xv=est.viewfac)
     xs = [b16(v), b16(r)]
+    xv_op = _views_operand(est, xv, res[1], enc_ray)
     ray = torch.arange(p.shape[0], device=p.device) // est.S
     R = enc_ray.shape[0]
     gx_tot = [torch.zeros_like(x) for x in xs]
-    gxv_tot = torch.zeros_like(xv)
+    if est.viewfac:
+        gw_tot = torch.zeros_like(res[1])
+        genc_tot = torch.zeros_like(enc_ray)
+    else:
+        gxv_tot = torch.zeros_like(xv)
     dcodes, grads = [], []
     for codes, flat, g in zip(codes_list, flats, gs):
-        xvs = [b16(xv)] + ([b16(codes[ray])] if est.has_codes else [])
+        xvs = [xv_op] + ([b16(codes[ray])] if est.has_codes else [])
         g_x, g_xvs, gr = _mlp_bwd_tile(st, xs, xvs, flat, g.t())
         gx_tot = [a + b for a, b in zip(gx_tot, g_x)]
-        gxv_tot = gxv_tot + g_xvs[0]
+        if est.viewfac:
+            gw_tot = gw_tot + g_xvs[0][1]
+            genc_tot = genc_tot + g_xvs[0][2]
+        else:
+            gxv_tot = gxv_tot + g_xvs[0]
         dcodes.append(g_xvs[1].reshape(R, est.S, -1).sum(1)
                       if est.has_codes else None)
         grads.append(gr)
+    if est.viewfac:
+        fac, gxv_in = (gw_tot, genc_tot), None
+    else:
+        fac, gxv_in = None, b16(gxv_tot)
     dp, denc = _encode_pullback_plain(est, p, enc_ray, res, tau,
                                       b16(gx_tot[0]), b16(gx_tot[1]),
-                                      b16(gxv_tot))
+                                      gxv_in, fac=fac)
     return dp, denc, dcodes, grads
 
 
@@ -278,8 +323,9 @@ def encmlp_dual_bwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
 def encmlp_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
                      cutoff, tau, flat) -> torch.Tensor:
     """Plain twin of K1: raw (4, n) rows [r, g, b, sigma]."""
-    v, r, xv = _encode_plain(est, p, enc_ray, cutoff, tau)
-    xvs = [xv]
+    (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
+                                      skip_xv=est.viewfac)
+    xvs = [_views_operand(est, xv, res[1], enc_ray)]
     if est.has_codes:
         ray = torch.arange(p.shape[0], device=p.device) // est.S
         xvs.append(codes[ray])
@@ -291,11 +337,13 @@ def encmlp_dual_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
                           codes_c, codes_f, cutoff, tau, flat_c, flat_f
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K2: the encode once, both nets on it."""
-    v, r, xv = _encode_plain(est, p, enc_ray, cutoff, tau)
+    (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
+                                      skip_xv=est.viewfac)
+    xv_op = _views_operand(est, xv, res[1], enc_ray)
     ray = torch.arange(p.shape[0], device=p.device) // est.S
     outs = []
     for codes, flat in ((codes_c, flat_c), (codes_f, flat_f)):
-        xvs = [xv] + ([codes[ray]] if est.has_codes else [])
+        xvs = [xv_op] + ([codes[ray]] if est.has_codes else [])
         _, _, _, rgb, alpha = _forward_tile(st, [v, r], xvs, flat)
         outs.append(torch.cat([rgb, alpha], -1).T.contiguous())
     return outs[0], outs[1]
@@ -309,6 +357,8 @@ K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
+KVF1_LAUNCHES = 0
+KVF2_LAUNCHES = 0
 
 # the one shape the kernels are compiled for (csrc/encmlp_common.cuh):
 # J=24 joints, kp PE 2^0..2^6, view PE 4 bands, 8x256 trunk with the
@@ -318,19 +368,23 @@ _KERNEL_SHAPE = dict(J=24, F=7, view_nb=9, depth=8, width=256, half=128,
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts of all six kernels (K5/K6 live in
+    """Zero the launch counts of all eight kernels (K5/K6 live in
     ``fused_mlp``)."""
     global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
+    global KVF1_LAUNCHES, KVF2_LAUNCHES
     K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
+    KVF1_LAUNCHES = KVF2_LAUNCHES = 0
     fused_mlp.reset_launch_counts()
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of every kernel since the last reset: K1-K4 here, K5/K6
-    (``mlp_fwd``, ``mlp_bwd``) from ``fused_mlp.launch_counts``.  A
-    CUDA graph's launches count at its capture, not at its replays."""
+    """Launches of every kernel since the last reset: K1-K4 and K-vf1/
+    K-vf2 (``vf_operand``, ``vf_fold``) here, K5/K6 (``mlp_fwd``,
+    ``mlp_bwd``) from ``fused_mlp.launch_counts``.  A CUDA graph's
+    launches count at its capture, not at its replays."""
     return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES,
             'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES,
+            'vf_operand': KVF1_LAUNCHES, 'vf_fold': KVF2_LAUNCHES,
             **fused_mlp.launch_counts()}
 
 
@@ -405,16 +459,31 @@ def _check_packs(lib, nnet, wbuf, bbuf) -> None:
 
 
 def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
-            bbuf, out, n: int, S: int, R: int) -> None:
+            bbuf, out, n: int, S: int, R: int, vf_m=None) -> None:
+    """K1 or K2; ``vf_m``: the nets' M (``vf_operand``) under viewfac,
+    else None (the dense views input)."""
     lib = cuda_build.library('fwd')
     _check_packs(lib, nnet, wbuf, bbuf)
     with torch.cuda.device(p.device):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
-            bbuf.data_ptr(), out.data_ptr(), n, S, R, cuda_build.stream(p.device))
+            bbuf.data_ptr(), None if vf_m is None else vf_m.data_ptr(),
+            out.data_ptr(), n, S, R, cuda_build.stream(p.device))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
+
+
+def _wvx(st: MLPStatic, flats) -> torch.Tensor:
+    """The nets' views-input weight rows (nnet, 648, HV) bf16, the
+    ``flatten_params_cm`` operand after the views layer's feat part."""
+    k = len(flats[0]) - 3 - len(st.vparts)
+    return torch.stack([f[k] for f in flats]).to(torch.bfloat16).contiguous()
+
+
+def _vf_m(st, est, enc_ray, flats) -> Optional[torch.Tensor]:
+    """K-vf1's M of the nets under viewfac, else None."""
+    return vf_operand(est, enc_ray, _wvx(st, flats)) if est.viewfac else None
 
 
 def _codes_operand(codes_list, est, R, device):
@@ -436,7 +505,7 @@ def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat) -> torch.Tensor:
     out = torch.empty((4, n), dtype=torch.float32, device=p.device)
     _launch('encmlp_fwd', 1, p, enc_ray,
             _codes_operand([codes], est, R, p.device), cutoff, tau, wbuf,
-            bbuf, out, n, est.S, R)
+            bbuf, out, n, est.S, R, _vf_m(st, est, enc_ray, [flat]))
     K1_LAUNCHES += 1
     return out
 
@@ -455,7 +524,8 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     out = torch.empty((2, 4, n), dtype=torch.float32, device=p.device)
     _launch('encmlp_dual_fwd', 2, p, enc_ray,
             _codes_operand([codes_c, codes_f], est, R, p.device), cutoff,
-            tau, torch.cat([wc, wf]), torch.cat([bc, bf]), out, n, est.S, R)
+            tau, torch.cat([wc, wf]), torch.cat([bc, bf]), out, n, est.S, R,
+            _vf_m(st, est, enc_ray, [flat_c, flat_f]))
     K2_LAUNCHES += 1
     return out[0], out[1]
 
@@ -464,8 +534,10 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
 
 def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
                 cutoff, tau, flats, gs):
-    """Launch K3 (nnet=1) or K4 (nnet=2).  Returns (dp, denc, dcodes
-    (nnet, R, 16), grads per net)."""
+    """Launch K3 (nnet=1) or K4 (nnet=2); under viewfac with K-vf1's M
+    before and K-vf2's fold of its per-ray Gram matrices Gw after (the
+    views weight's view rows and denc).  Returns (dp, denc, dcodes (nnet,
+    R, 16), grads per net)."""
     _check_kernel_shape(st, est)
     n, R = p.shape[0], enc_ray.shape[0]
     dev = p.device
@@ -491,16 +563,30 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
     db = torch.empty((nnet, fwd_lib.encmlp_bias_elems()), **f32)
     part, P, slice_ = fused_mlp.dw_partials(st, n, n_dw, nnet, dev)
     codes = _codes_operand(codes_list, est, R, dev)
+    vf_m = gw = None
+    if est.viewfac:
+        wvx = _wvx(st, flats)
+        vf_m = vf_operand(est, enc_ray, wvx)
+        gw = torch.empty((nnet, R, est.J, st.half), dtype=torch.bfloat16,
+                         device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
             wbuf_b.data_ptr(), bbuf.data_ptr(), g.data_ptr(), ws.data_ptr(),
             dp.data_ptr(), denc.data_ptr(), dcodes.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), part.data_ptr(), P, slice_, n,
-            est.S, R, cuda_build.stream(dev))
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), ptr(vf_m),
+            ptr(gw), P, slice_, n, est.S, R, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
+    if est.viewfac:
+        # the views input's view rows of dW (the views layer's weight
+        # operand after its feat part) and denc
+        _, off, _ = _grad_layout(kernel_static(st))[
+            len(flats[0]) - 3 - len(st.vparts)]
+        dwv, denc = vf_fold(est, gw, enc_ray, wvx)
+        dw[:, off:off + dwv[0].numel()] = dwv.reshape(nnet, -1)
     grads = [_unpack_grads(st, dw[i], db[i]) for i in range(nnet)]
     return dp, denc, dcodes, grads
 
@@ -538,6 +624,133 @@ def encmlp_dual_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes_c,
     K4_LAUNCHES += 1
     dc = (dcodes[0], dcodes[1]) if est.has_codes else (None, None)
     return dp, denc, dc[0], dc[1], grads[0], grads[1]
+
+
+# -- viewfac's per-ray kernels: K-vf1, K-vf2 ---------------------------------
+
+def vf_operand_plain(est: EncStatic, enc_ray, wvx) -> torch.Tensor:
+    """Plain twin of K-vf1: M (nnet, R, J, HV) bf16, ``M[net, r, j] =
+    bf16(sum_b bf16(enc_ray[r, b J + j]) wvx[net, b J + j])`` summed in
+    f32 (``fused_mlp.viewfac_m``)."""
+    E = enc_ray.to(torch.bfloat16).float()
+    return torch.stack([viewfac_m(E, w, est.J) for w in wvx]
+                       ).to(torch.bfloat16)
+
+
+def vf_operand(est: EncStatic, enc_ray: torch.Tensor,
+               wvx: torch.Tensor) -> torch.Tensor:
+    """K-vf1: the per-ray operand M (nnet, R, J, HV) bf16 of viewfac from
+    the view rows enc_ray (R, nb*3J) f32 and each net's views-input
+    weight rows wvx (nnet, nb*3J, HV) bf16.  CPU tensors take the twin;
+    CUDA tensors launch the kernel or raise."""
+    global KVF1_LAUNCHES
+    nnet, R = wvx.shape[0], enc_ray.shape[0]
+    if cuda_build.device_of(enc_ray) == 'cpu':
+        return vf_operand_plain(est, enc_ray, wvx)
+    lib = cuda_build.library('viewfac')
+    HV = lib.viewfac_width()
+    if (tuple(wvx.shape) != (nnet, est.view_nb * 3 * est.J, HV)
+            or wvx.dtype != torch.bfloat16 or est.J != _KERNEL_SHAPE['J']
+            or not wvx.is_contiguous() or not enc_ray.is_contiguous()):
+        raise ValueError(f'viewfac weights must be (nnet, 648, {HV}) bf16')
+    M = torch.empty((nnet, R, est.J, HV), dtype=torch.bfloat16,
+                    device=enc_ray.device)
+    with torch.cuda.device(enc_ray.device):
+        err = lib.viewfac_m(enc_ray.data_ptr(), wvx.data_ptr(), M.data_ptr(),
+                            R, nnet, cuda_build.stream(enc_ray.device))
+    if err != 0:
+        raise RuntimeError(f'viewfac_m launch failed: cudaError {err}')
+    KVF1_LAUNCHES += 1
+    return M
+
+
+def vf_gram_plain(est: EncStatic, w: torch.Tensor,
+                  g_hv: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3/K4's Gram pass, of one net: Gw (R, J, HV) bf16,
+    each ray's sum over its points of bf16(w[t, j]) bf16(g_hv[t])
+    (``pallas_mlp._viewfac_bwd``'s xw^T g_hv), rounded to bf16."""
+    n, J = w.shape
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    R = n // est.S
+    x3 = b16(w).reshape(R, est.S, J)
+    return torch.bmm(x3.transpose(1, 2), b16(g_hv).reshape(R, est.S, -1)
+                     ).to(torch.bfloat16)
+
+
+def vf_fold_plain(est: EncStatic, gw, enc_ray, wvx):
+    """Plain twin of K-vf2: from the nets' Gram matrices gw (nnet, R, J,
+    HV) bf16, returns (dWvx (nnet, nb*3J, HV), denc (R, nb*3J)), f32:
+    ``dWvx[net, b J + j] = sum_r bf16(enc[r, b J + j]) Gw[net, r, j]``,
+    ``denc[r, b J + j] = sum_net wvx[net, b J + j] . Gw[net, r, j]``
+    (``pallas_mlp._viewfac_bwd``)."""
+    J = est.J
+    nnet, R, nbJ, HV = gw.shape[0], enc_ray.shape[0], enc_ray.shape[1], \
+        gw.shape[-1]
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    Gw = gw.float()
+    E3 = b16(enc_ray).reshape(R, nbJ // J, J)
+    W3 = b16(wvx).reshape(nnet, nbJ // J, J, HV)
+    dwv = torch.einsum('rbj,nrjh->nbjh', E3, Gw).reshape(nnet, nbJ, HV)
+    denc = torch.einsum('nrjh,nbjh->rbj', Gw, W3).reshape(R, nbJ)
+    return dwv, denc
+
+
+# K-vf2's dWvx: rays a slice of its partial sums
+_VF_SLICE = 64
+
+
+def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
+            wvx: torch.Tensor):
+    """K-vf2: viewfac's fold of the nets' per-ray Gram matrices gw (nnet,
+    R, J, HV) bf16 (K3/K4's Gram pass) with the view rows enc_ray (R,
+    nb*3J) and the views-input weight rows wvx (nnet, nb*3J, HV) bf16:
+    returns (dWvx (nnet, nb*3J, HV), denc (R, nb*3J)) f32, as
+    ``vf_fold_plain``; dWvx's rays summed in slices of 64, the slices in
+    order.  CPU tensors take the twin; CUDA tensors launch the kernels or
+    raise."""
+    global KVF2_LAUNCHES
+    if cuda_build.device_of(gw) == 'cpu':
+        return vf_fold_plain(est, gw, enc_ray, wvx)
+    lib = cuda_build.library('viewfac')
+    nnet, R, nbJ = wvx.shape[0], enc_ray.shape[0], enc_ray.shape[1]
+    HV = lib.viewfac_width()
+    if (tuple(gw.shape) != (nnet, R, est.J, HV)
+            or tuple(wvx.shape) != (nnet, nbJ, HV)
+            or wvx.dtype != torch.bfloat16 or gw.dtype != torch.bfloat16
+            or not gw.is_contiguous() or not enc_ray.is_contiguous()):
+        raise ValueError('viewfac fold operands do not match the kernel')
+    dev = gw.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = -(-R // _VF_SLICE)
+    dwv = torch.empty((nnet, nbJ, HV), **f32)
+    denc = torch.empty((R, nbJ), **f32)
+    part = torch.empty((P, nnet, nbJ, HV), **f32)
+    with torch.cuda.device(dev):
+        err = lib.viewfac_fold(gw.data_ptr(), enc_ray.data_ptr(),
+                               wvx.data_ptr(), dwv.data_ptr(), nbJ * HV,
+                               denc.data_ptr(), part.data_ptr(), P,
+                               _VF_SLICE, R, nnet, cuda_build.stream(dev))
+    if err != 0:
+        raise RuntimeError(f'viewfac_fold launch failed: cudaError {err}')
+    KVF2_LAUNCHES += 1
+    return dwv, denc
+
+
+def vf_cost(est: EncStatic, R: int, nnet: int, HV: int,
+            fold: bool = False) -> Dict[str, float]:
+    """Work of one K-vf1 (or, ``fold``, K-vf2) launch: f32 FLOPs on the
+    CUDA cores (27 products a value of M; dWvx's and denc's sums over the
+    rays and the columns) and the bytes that must move: enc and the
+    views weights read once, M written (or Gw read, dWvx and denc
+    written) once."""
+    J, nbJ = est.J, est.view_nb * 3 * est.J
+    m_bytes = nnet * R * J * HV * 2
+    if not fold:
+        return {'bf16_flops': 0., 'f32_flops': 2. * nnet * R * HV * nbJ,
+                'bytes': float(R * nbJ * 4 + nnet * nbJ * HV * 2 + m_bytes)}
+    return {'bf16_flops': 0., 'f32_flops': 4. * nnet * R * nbJ * HV,
+            'bytes': float(m_bytes + R * nbJ * 4 + nnet * nbJ * HV * 2
+                           + nnet * nbJ * HV * 4 + R * nbJ * 4)}
 
 
 # -- autograd ---------------------------------------------------------------
@@ -631,7 +844,9 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
     cotangents and the weight gradients (3x the forward's MLP FLOPs, as
     pallas_encmlp.py:666,917 counts them) and pull back through the
     encode; their bytes add the incoming g, dp, denc, dcodes and the f32
-    weight gradients."""
+    weight gradients.  Under viewfac the views input's products are a
+    ray's J rows of M a point (recompute, window cotangent, xw^T g_hv),
+    and the fold's own work is K-vf2's (``vf_cost``)."""
     J, F, nb = est.J, len(est.kp_freqs), est.view_nb
     R = n // est.S
     # per point and joint: distance 6, window 6, first sin/cos 3, each
@@ -643,7 +858,13 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
     codes = st.vparts[1] if est.has_codes else 0
     nbytes = (n * 3 * J * 4 + R * nb * 3 * J * 4 + nnet * R * codes * 4
               + nnet * wbytes + nnet * 4 * n * 4 + (J + 1) * 4)
-    flops = 2. * _mlp_macs(st) * n * nnet
+    macs = _mlp_macs(st)
+    if est.viewfac:
+        # xw @ M: a point meets its ray's J rows of M, not the 648 view
+        # rows of the views weight; M is read once a ray and net
+        macs -= (nb * 3 * J - J) * st.half
+        nbytes += nnet * R * J * st.half * 2
+    flops = 2. * macs * n * nnet
     if backward:
         flops *= 3
         # pullback per point and joint: 2F+1 window products and sums,

@@ -30,12 +30,14 @@ concatenate them in device memory.  Each is compiled for one shape, as
 the TPU kernel compiles per static shape (``cuda_build.library(which,
 dx, depth, width)``): the trunk width, the sum of the trunk parts (432
 at the flagship's encoders, 117, 1152 or 1197 at 'querypts', 'relpos'
-or 'cat'), and the net's depth and width (``kernel_static``).  A net up
-to 256 wide runs at 256 and one up to 512 at 512: the packs pad every
+or 'cat'), and the net's depth and width (``kernel_static``).  A net
+runs at its width rounded up to a multiple of 256: the packs pad every
 hidden width with zero rows, columns and biases, which is exact (a
 padded unit's pre-activation and ReLU output are 0, and its outgoing
 weights are 0, so no cotangent flows back through it), and the padding's
-gradients are dropped (``_unpack_grads``).
+gradients are dropped (``_unpack_grads``).  Past 512 columns the
+kernels keep the activations in device memory (csrc/encmlp_common.cuh
+``WIDE``).
 ``nerf_mlp_fused`` runs K5 inside ``_FusedMLP``, a
 ``torch.autograd.Function`` whose backward is K6, so the gradients
 reach every part and every weight on every device.  Beside each kernel
@@ -221,12 +223,78 @@ def _forward_tile(st: MLPStatic, xs, xvs, flat):
     feat = b16(_dot(h, wf) + bf)
     hv_pre = _dot(feat, nxt())
     for xvk in xvs:
-        hv_pre = hv_pre + _dot(xvk, nxt())
+        hv_pre = hv_pre + (_viewfac_dot(xvk, nxt()) if _is_fac(xvk)
+                           else _dot(xvk, nxt()))
     hv_pre = hv_pre + nxt()
     hv = b16(torch.relu(hv_pre))
     wr, br = nxt(), nxt()
     rgb = _dot(hv, wr) + br
     return acts, feat, hv, rgb, alpha
+
+
+def viewfac_operand(w: torch.Tensor, enc: torch.Tensor, S: int):
+    """The factorized views operand (``pallas_mlp.viewfac_operand``).
+
+    The 'relray' view rows are constant along each ray, so the views
+    layer's ``xv @ Wv`` with ``xv[t, b J + j] = enc[ray(t), b J + j]
+    w[t, j]`` equals ``xw @ M`` per ray, ``M[r, j] = sum_b enc[r, b J +
+    j] Wv[b J + j]``: w (n, J) the per-point windows, enc (R, nblk J)
+    the per-ray view rows, n = R S.  Returns the ('fac', xw, E, S) tuple
+    that ``_viewfac_dot`` / ``_viewfac_bwd`` take in place of a dense xv
+    part: xw and E rounded to bf16 (kept in f32 storage), as the TPU
+    kernel's operands are.  Where the TPU kernel builds the block-diagonal
+    form of a tile of rays, the port keeps the rays in a batch axis."""
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    return ('fac', b16(w), b16(enc), S)
+
+
+def _is_fac(x) -> bool:
+    return isinstance(x, tuple) and x[0] == 'fac'
+
+
+def viewfac_m(E: torch.Tensor, wv: torch.Tensor, J: int) -> torch.Tensor:
+    """M (R, J, half) f32: ``M[r, j] = sum_b E[r, b J + j] wv[b J + j]``
+    of bf16-valued operands, summed in f32 (``_dot(E, wv)`` of the TPU
+    kernel's block form), J the joints."""
+    R, nblkJ = E.shape
+    half = wv.shape[1]
+    E3 = E.reshape(R, nblkJ // J, J).float()
+    W3 = wv.to(torch.bfloat16).float().reshape(nblkJ // J, J, half)
+    return torch.einsum('rbj,bjh->rjh', E3, W3)
+
+
+def _viewfac_dot(fac, wv: torch.Tensor) -> torch.Tensor:
+    """``xw @ M`` per ray (``pallas_mlp._viewfac_dot``): M in f32 rounded
+    to bf16, the product of bf16-valued operands summed in f32; returns
+    (n, half) f32."""
+    _, xw, E, S = fac
+    R, J = E.shape[0], xw.shape[1]
+    Mb = viewfac_m(E, wv, J).to(torch.bfloat16).float()
+    return torch.bmm(xw.reshape(R, S, J), Mb).reshape(R * S, -1)
+
+
+def _viewfac_bwd(fac, wv: torch.Tensor, g_hv: torch.Tensor):
+    """Backward of ``_viewfac_dot`` for the views cotangent g_hv (n,
+    half) (``pallas_mlp._viewfac_bwd``): with the per-ray Gram matrix
+    ``Gw[r] = xw[ray r]^T bf16(g_hv[ray r])`` in f32, rounded to bf16,
+    returns (d_window (n, J), d_enc (R, nblk J), dWv (nblk J, half)), all
+    f32: ``d_window[t, j] = bf16(g_hv[t]) . bf16(M)[ray(t), j]``,
+    ``dWv[b J + j] = sum_r E[r, b J + j] Gw[r, j]``, ``d_enc[r, b J + j]
+    = Gw[r, j] . wv[b J + j]``."""
+    _, xw, E, S = fac
+    b16 = lambda a: a.to(torch.bfloat16).float()
+    R, nblkJ = E.shape
+    J, half = xw.shape[1], wv.shape[1]
+    g3 = b16(g_hv).reshape(R, S, half)
+    x3 = xw.reshape(R, S, J)
+    Mb = b16(viewfac_m(E, wv, J))
+    Gw = b16(torch.bmm(x3.transpose(1, 2), g3))              # (R, J, half)
+    d_window = torch.bmm(g3, Mb.transpose(1, 2)).reshape(R * S, J)
+    E3 = E.reshape(R, nblkJ // J, J)
+    W3 = b16(wv).reshape(nblkJ // J, J, half)
+    dWv = torch.einsum('rbj,rjh->bjh', E3, Gw).reshape(nblkJ, half)
+    d_enc = torch.einsum('rjh,bjh->rbj', Gw, W3).reshape(R, nblkJ)
+    return d_window, d_enc, dWv
 
 
 def _dot_nt(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -251,7 +319,9 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
     bf16 ones.  ``g`` is the raw cotangent (T, 4) [rgb, alpha].
     Returns (g_x_parts, g_xv_parts, grads): f32 input cotangents per
     part and the f32 gradient of every ``flatten_params`` operand, in
-    flatten order.
+    flatten order.  A factorized views part (``viewfac_operand``) backs
+    through ``_viewfac_bwd``: its entry of g_xv_parts is ('facg',
+    d_window, d_enc) and its weight's gradient dWv.
     """
     b16 = lambda a: a.to(torch.bfloat16).float()
     T = xs[0].shape[0]
@@ -279,7 +349,13 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
     g_hv = _dot_nt(g_rgb_b, wr) * (hv > 0)
     g_hv_b = b16(g_hv)
     g_feat = _dot_nt(g_hv_b, wvf)
-    g_xvs = [_dot_nt(g_hv_b, wvk) for wvk in wvs]
+    g_xvs, fac_dwv = [], {}
+    for k, (xvk, wvk) in enumerate(zip(xvs, wvs)):
+        if _is_fac(xvk):
+            d_window, d_enc, fac_dwv[k] = _viewfac_bwd(xvk, wvk, g_hv)
+            g_xvs.append(('facg', d_window, d_enc))
+        else:
+            g_xvs.append(_dot_nt(g_hv_b, wvk))
     g_feat_b = b16(g_feat)
     g_alpha_b = b16(g_alpha)
     g_a = _dot_nt(g_feat_b, wf) + _dot_nt(g_alpha_b, wa)
@@ -316,7 +392,8 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
     grads += [_dot_tn(a_last, g_alpha_b), col_sum(g_alpha),
               _dot_tn(a_last, g_feat_b), col_sum(g_feat),
               _dot_tn(feat, g_hv_b)]
-    grads += [_dot_tn(xvk, g_hv_b) for xvk in xvs]
+    grads += [fac_dwv[k] if k in fac_dwv else _dot_tn(xvk, g_hv_b)
+              for k, xvk in enumerate(xvs)]
     grads += [col_sum(g_hv), _dot_tn(hv, g_rgb_b), col_sum(g_rgb)]
     return g_x, g_xvs, grads
 
@@ -330,10 +407,10 @@ _XV_PAD = 672       # views input [parts | 0 ...], 42 x 16 columns
 
 
 def kernel_static(st: MLPStatic) -> MLPStatic:
-    """The net the kernels run ``st`` as: its width padded to 256, or to
-    512 past 256, ``half`` to half of that; depth, parts and skips as
+    """The net the kernels run ``st`` as: its width padded to the next
+    multiple of 256, ``half`` to half of that; depth, parts and skips as
     they are (csrc/encmlp_common.cuh ``W``, ``HV``)."""
-    width = 256 if st.width <= 256 else 512
+    width = max(256, -(-st.width // 256) * 256)
     if (st.width, st.half) == (width, width // 2):
         return st
     return dataclasses.replace(st, width=width, half=width // 2)
@@ -533,11 +610,13 @@ K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 
 # the nets the kernels are built for (csrc/encmlp_common.cuh, a library
-# per shape, ops/cuda_build.py): 1-24 layers up to 512 wide (run at 256
-# or 512, ``kernel_static``), the views branch half as wide, the skip
-# after layer 4 as factory.py sets it; trunk parts summing to 1-2048
-# columns and views parts to at most 672, at most 4 parts of each
-_MAX_DEPTH, _MAX_WIDTH, _SKIPS = 24, 512, (cuda_build.SKIP,)
+# per shape, ops/cuda_build.py): 1-64 layers up to 2048 wide (run at the
+# next multiple of 256, ``kernel_static``), depth x that width up to
+# 65,536, the views branch half as wide, the skip after layer 4 as
+# factory.py sets it; trunk parts summing to 1-2048 columns and views
+# parts to at most 672, at most 4 parts of each
+_MAX_DEPTH, _MAX_WIDTH, _SKIPS = 64, 2048, (cuda_build.SKIP,)
+_MAX_LAYER_COLS = 65536
 _MAX_DX, _MAX_PARTS = 2048, 4
 
 
@@ -569,11 +648,14 @@ def mlp_bwd_plain(st: MLPStatic, xs, xvs, flat, g):
 
 
 def _check_kernel_shape(st: MLPStatic) -> None:
-    if st.width > _MAX_WIDTH:
-        why = (f'a net {st.width} wide: past {_MAX_WIDTH} columns its two '
-               f'(64, width + 8) bf16 activation buffers, the weight ring '
-               f'and the trunk columns do not fit a block\'s 227 KB of '
-               f'shared memory (ROADMAP.md C.9)')
+    width = kernel_static(st).width if st.width >= 1 else st.width
+    if (st.width > _MAX_WIDTH or st.depth > _MAX_DEPTH
+            or st.depth * width > _MAX_LAYER_COLS):
+        why = (f'a net of {st.depth} layers {st.width} wide: they take at '
+               f'most {_MAX_DEPTH} layers, {_MAX_WIDTH} columns and depth x '
+               f'width (rounded up to 256) {_MAX_LAYER_COLS}, the sizes their '
+               f'schedules\' compile-time tables are checked at '
+               f'(ROADMAP.md C.9)')
     elif (not 1 <= st.depth <= _MAX_DEPTH or st.width < 1
           or st.half != st.width // 2 or tuple(st.skips) != _SKIPS):
         why = (f'depth {st.depth}, width {st.width}, half {st.half}, skips '
@@ -650,11 +732,13 @@ def mlp_fwd(st: MLPStatic, xs: Sequence[torch.Tensor],
     lib = _library('mlp_fwd', st)
     wbuf, bbuf = _packs(lib, flat, st)
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    ws = torch.empty(int(lib.mlp_fwd_workspace_bytes(n)), dtype=torch.uint8,
+                     device=dev)
     (xp, xw), (vp, vw) = _part_args(xs), _part_args(xvs)
     with torch.cuda.device(dev):
         err = lib.mlp_fwd(xp, xw, len(xs), vp, vw, len(xvs),
-                          wbuf.data_ptr(), bbuf.data_ptr(), out.data_ptr(),
-                          n, cuda_build.stream(dev))
+                          wbuf.data_ptr(), bbuf.data_ptr(), ws.data_ptr(),
+                          out.data_ptr(), n, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'mlp_fwd launch failed: cudaError {err}')
     K5_LAUNCHES += 1

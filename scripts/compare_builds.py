@@ -13,7 +13,11 @@ train step's R=2048 with their composited cotangents, K5/K6 on the
 two-subject model at n=131,072 and a ragged 4104 points) once with the
 base's libraries and once with the tree's, and every output must be
 bit-identical.  Prints the card's name and power limit; exits non-zero
-on the first difference.
+on the first difference.  A base from before the view factorization and
+the WIDE nets (no viewfac pointers in K1-K4's C interfaces, no
+workspace in K5's) is called through shims that drop those arguments;
+the inputs keep K1-K4 on the dense views input, which both builds
+take.
 """
 import ctypes
 import os
@@ -48,9 +52,51 @@ def build_base(csrc, out_dir):
         if which.startswith('mlp') and not hasattr(lib, 'mlp_trunk_width'):
             # a build from before K5/K6 took other trunk widths
             lib.mlp_trunk_width = lambda: cuda_build.FLAGSHIP_DX
-        cuda_build._bind(lib, which)
+        with open(os.path.join(csrc, SOURCES[which])) as f:
+            text = f.read()
+        if which in ('fwd', 'bwd') and 'vfM' not in text:
+            lib = _Shim(lib, which)
+        elif which == 'mlp_fwd' and 'workspace' not in text:
+            lib = _Shim(lib, which)
+        else:
+            cuda_build._bind(lib, which)
         libs[which] = lib
     return libs
+
+
+class _Shim:
+    """A base library with an older C interface, called as the tree's
+    wrappers call the tree's: the arguments the base does not take are
+    dropped (they are null or unused on the dense path)."""
+
+    def __init__(self, lib, which):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self._lib = lib
+
+        def fn(name, args, res, drop):
+            f = getattr(lib, name)
+            f.argtypes, f.restype = args, res
+            setattr(self, name, lambda *a: f(*[x for i, x in enumerate(a)
+                                                 if i not in drop]))
+        if which == 'fwd':
+            for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
+                fn(name, [vp] * 8 + [ci] * 3 + [vp], ci, {7})
+            fn('encmlp_weight_elems', [], cll, ())
+            fn('encmlp_bias_elems', [], ci, ())
+        elif which == 'bwd':
+            for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
+                fn(name, [vp] * 16 + [ci] * 5 + [vp], ci, {16, 17})
+            fn('encmlp_bwd_workspace_bytes', [ci, ci], cll, ())
+            fn('encmlp_grad_weight_elems', [], cll, ())
+        else:
+            fn('mlp_fwd', [vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, vp], ci,
+               {8})
+            self.mlp_fwd_workspace_bytes = lambda n: 0
+            fn('mlp_weight_elems', [], cll, ())
+            fn('mlp_bias_elems', [], ci, ())
+            for name in ('mlp_trunk_width', 'mlp_net_depth',
+                         'mlp_net_width'):
+                fn(name, [], ci, ())
 
 
 def main(base_csrc) -> int:

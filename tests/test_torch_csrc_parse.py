@@ -22,6 +22,7 @@ EXPORTS = {
     'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd'),
     'encmlp_bwd.cu': ('encmlp_bwd', 'encmlp_dual_bwd',
                       'encmlp_bwd_workspace_bytes'),
+    'viewfac.cu': ('viewfac_m', 'viewfac_fold'),
     'mlp_fwd.cu': ('mlp_fwd', 'mlp_trunk_width'),
     'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes', 'mlp_trunk_width'),
 }
@@ -174,12 +175,15 @@ def test_split_mlp_sources_parse_at_every_trunk_width(source, dx,
 
 
 # the nets K5/K6 are built for (nvcc -DANERF_DEPTH, -DANERF_WIDTH,
-# -DANERF_SKIP): no skip layer (2, 4), the skip layer (6, 8, 10, 24), 512
-# wide (its ring, activations and masks budgeted apart), at a resident
-# trunk (432) and the widest chunked one (2048)
+# -DANERF_SKIP): no skip layer (2, 4), the skip layer (6, 8, 10, 24, 32),
+# 512 wide (its ring, activations and masks budgeted apart), WIDE past
+# 512 (768 with a views layer of three 128-column blocks, 1024: the
+# activations in device memory), at a resident trunk (432) and the
+# widest chunked one (2048)
 NET_SHAPES = ((432, 2, 256), (432, 4, 256), (432, 6, 256), (432, 10, 256),
               (432, 24, 256), (117, 6, 512), (432, 8, 512), (1152, 8, 512),
-              (2048, 24, 512))
+              (2048, 24, 512), (432, 8, 1024), (432, 6, 768),
+              (432, 32, 256), (2048, 32, 1024))
 
 
 @pytest.mark.parametrize('dx,depth,width', NET_SHAPES)

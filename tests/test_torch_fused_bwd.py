@@ -7,6 +7,9 @@ anerf_tpu on the CPU.
   in interpret mode as tests/test_pallas_encmlp.py runs it, with
   viewfac off) on the same operands and the same raw cotangent: dp,
   denc, dcodes and the gradient of every ``flatten_params_cm`` operand;
+* the same with viewfac on both sides (K4's and K3's twins at S=64
+  without framecodes; cosine and norm ratio, the bars of
+  test_torch_viewfac.py);
 * the backward kernels' gradient layout (``_grad_layout``,
   ``_pack_bwd_weights``) against the flatten order.
 
@@ -75,7 +78,10 @@ def scene():
     batch = T.synthetic_batch(8, 4, kps, skts, bones, cyls)
     j_rc = dataclasses.replace(j_build(cfg, n_framecodes=4), viewfac=False)
     j_params = j_init(jax.random.PRNGKey(0), j_rc, cfg)
-    t_rc = t_build(cfg, n_framecodes=4)
+    # both dense (the port runs viewfac where the gate picks it, as
+    # anerf_tpu does; the factorized chain: test_bwd_twins_match_pallas_
+    # vjp_viewfac and test_torch_viewfac.py)
+    t_rc = dataclasses.replace(t_build(cfg, n_framecodes=4), viewfac=False)
     t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                         j_params))
     rays_t = JX.transform_batch_rays(jnp.asarray(batch['rays_d'])[:, None],
@@ -176,6 +182,50 @@ def test_bwd_twins_match_pallas_vjp(scene, S, nnet, codes):
         assert b.dtype == ins[i].dtype, i     # bf16 weights, f32 biases
         assert_grad_close(np.asarray(a, np.float32), b.float().numpy(),
                           name=f'operand {i}')
+
+
+@pytest.mark.parametrize('nnet', [2, 1])
+def test_bwd_twins_match_pallas_vjp_viewfac(scene, nnet):
+    """K4's and K3's twins with viewfac (the coarse samples, S=64, where
+    the gate takes it) against the Pallas custom_vjps with viewfac, both
+    without framecodes; the cases with them: test_torch_viewfac.py."""
+    vf = dict(scene, j_rc=dataclasses.replace(scene['j_rc'], viewfac=True),
+              t_rc=dataclasses.replace(scene['t_rc'], viewfac=True))
+    jops, tops = _operands(vf, 64, codes=False)
+    st_j, est_j, p_j, enc_j, c_j, cut_j, tau_j, f_j = jops
+    st_t, est_t, p_t, enc_t, c_t, cut_t, tau_t, f_t = tops
+    assert est_j.viewfac and est_t.viewfac
+    n = p_j.shape[0]
+    g = np.random.RandomState(8).normal(size=(nnet, 4, n)).astype(np.float32)
+    tf = jnp.zeros((1, 1), jnp.float32)
+    if nnet == 2:
+        fn = lambda p, e, fc, ff: PE._fused_dual(
+            st_j, est_j, p, e, tf, c_j[0], c_j[1], cut_j, tau_j, fc, ff)
+        _, vjp = jax.vjp(fn, p_j, enc_j, f_j[0], f_j[1])
+        dp, denc, dfc, dff = vjp((jnp.asarray(g[0]), jnp.asarray(g[1])))
+        ref = [dp, denc] + dfc + dff
+    else:
+        fn = lambda p, e, f: PE._fused(st_j, est_j, p, e, tf, c_j[1], cut_j,
+                                       tau_j, f)
+        _, vjp = jax.vjp(fn, p_j, enc_j, f_j[1])
+        dp, denc, df = vjp(jnp.asarray(g[0]))
+        ref = [dp, denc] + df
+    p, enc = _leaf(p_t), _leaf(enc_t)
+    flats = [[_leaf(w) for w in f] for f in f_t]
+    if nnet == 2:
+        outs = FE.encmlp_dual_fwd(st_t, est_t, p, enc, None, None, cut_t,
+                                  tau_t, flats[0], flats[1])
+        ins = [p, enc] + flats[0] + flats[1]
+    else:
+        outs = (FE.encmlp_fwd(st_t, est_t, p, enc, None, cut_t, tau_t,
+                              flats[1]),)
+        ins = [p, enc] + flats[1]
+    got = torch.autograd.grad(outs, ins, [torch.as_tensor(x) for x in g])
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        assert b.dtype == ins[i].dtype, i
+        assert_grad_close(np.asarray(a, np.float32), b.float().numpy(),
+                          name=f'operand {i}', elementwise=False)
 
 
 def test_bwd_wrappers_take_twins_on_cpu(scene):

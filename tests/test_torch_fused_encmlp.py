@@ -47,7 +47,8 @@ def scene():
     # the JAX dense forward: its viewfac mode would engage at S=64
     j_rc = dataclasses.replace(j_build(cfg, n_framecodes=4), viewfac=False)
     j_params = j_init(jax.random.PRNGKey(0), j_rc, cfg)
-    t_rc = t_build(cfg, n_framecodes=4)
+    # the port's dense forward alike (its viewfac: test_torch_viewfac.py)
+    t_rc = dataclasses.replace(t_build(cfg, n_framecodes=4), viewfac=False)
     t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                         j_params))
     rays_t = JX.transform_batch_rays(jnp.asarray(batch['rays_d'])[:, None],
@@ -237,6 +238,7 @@ def test_wrappers_take_twins_on_cpu(scene):
                              *flats)
     assert FE.launch_counts() == {'encmlp_fwd': 0, 'encmlp_dual_fwd': 0,
                                   'encmlp_bwd': 0, 'encmlp_dual_bwd': 0,
+                                  'vf_operand': 0, 'vf_fold': 0,
                                   'mlp_fwd': 0, 'mlp_bwd': 0}
     twin = FE.encmlp_fwd_plain(st, est, p, enc, codes[1], cutoff, tau,
                                flats[1])

@@ -187,10 +187,11 @@ def test_split_weight_layouts_round_trip(dparts, vparts):
 
 def test_kernel_cost_and_shape_gate():
     """864,000 MACs a point at the multi-subject widths, 3x the FLOPs
-    backward; any trunk width of 1-2048 columns and any net of 1-24
-    layers up to 512 wide passes the gate, and shapes the kernels are
-    not built for (a net wider than 512, views inputs past 672 columns,
-    a trunk past 2048) raise naming ROADMAP.md."""
+    backward; any trunk width of 1-2048 columns and any net of 1-64
+    layers up to 2048 wide (depth x width up to 65,536: 8 x 1024 among
+    them) passes the gate, and shapes the kernels are not built for (a
+    net wider than 2048, views inputs past 672 columns, a trunk past
+    2048) raise naming ROADMAP.md."""
     st = FM.MLPStatic(8, 256, (360, 72), (649, 16), 128, (4,))
     fwd, bwd = FM.kernel_cost(st, 1000), FM.kernel_cost(st, 1000, True)
     assert fwd['bf16_flops'] == 2 * 864000 * 1000
@@ -202,9 +203,10 @@ def test_kernel_cost_and_shape_gate():
         FM._check_kernel_shape(
             FM.MLPStatic(8, 256, dparts, (649, 16), 128, (4,)))
     for good in (FM.MLPStatic(8, 128, (360, 72), (649, 16), 64, (4,)),
-                 FM.MLPStatic(6, 256, (360, 72), (649, 16), 128, (4,))):
+                 FM.MLPStatic(6, 256, (360, 72), (649, 16), 128, (4,)),
+                 FM.MLPStatic(8, 1024, (360, 72), (649, 16), 512, (4,))):
         FM._check_kernel_shape(good)
-    for bad in (FM.MLPStatic(8, 1024, (360, 72), (649, 16), 512, (4,)),
+    for bad in (FM.MLPStatic(8, 4096, (360, 72), (649, 16), 2048, (4,)),
                 FM.MLPStatic(8, 256, (1977, 72), (649, 16), 128, (4,)),
                 FM.MLPStatic(8, 256, (360, 72), (649, 32), 128, (4,))):
         with pytest.raises(NotImplementedError, match='ROADMAP'):

@@ -1,9 +1,11 @@
 """K5/K6 at every net shape that anerf_tpu's split-operand kernel runs:
-any depth, widths up to 512 (ROADMAP C.9).
+any depth and width (ROADMAP C.9), up to the sizes the kernels' tables
+are checked at (64 layers, 2048 wide, depth x width 65,536).
 
-The kernels are built per (trunk width, depth, width) and run a net up
-to 256 wide at 256 and one up to 512 at 512, the packs padding every
-hidden width with zeros (``fused_mlp.kernel_static``).  Here, on the CPU:
+The kernels are built per (trunk width, depth, width) and run a net at
+its width rounded up to a multiple of 256, the packs padding every
+hidden width with zeros (``fused_mlp.kernel_static``); past 512 the
+activations live in device memory.  Here, on the CPU:
 
 * the twins (``fused_mlp.nerf_mlp_fused``: K5's inside ``_FusedMLP``,
   whose backward is K6's) against anerf_tpu at each (depth, width) of
@@ -44,7 +46,7 @@ from anerf_torch.training.trainer import tree_leaves
 from test_torch_fused_bwd import assert_grad_close
 
 SHAPES = [(2, 64), (4, 128), (6, 256), (8, 200), (10, 256), (8, 384),
-          (8, 512)]
+          (8, 512), (8, 1024), (6, 768), (32, 256)]
 IDS = [f'{d}x{w}' for d, w in SHAPES]
 PALLAS = {(4, 128), (8, 384)}
 DPARTS, VPARTS = (360, 72), (648, 16)
@@ -140,8 +142,8 @@ def test_padded_pack_runs_as_the_net(depth, width):
     ``_unpack_grads`` drops them."""
     st = _static(depth, width)
     stk = FM.kernel_static(st)
-    assert (stk.depth, stk.width, stk.half) == (
-        depth, 256 if width <= 256 else 512, 128 if width <= 256 else 256)
+    padded = max(256, -(-width // 256) * 256)   # the next multiple of 256
+    assert (stk.depth, stk.width, stk.half) == (depth, padded, padded // 2)
     _, t_params, _, _ = _net(depth, width)
     flat = FM.flatten_params(t_params, st)
     wb = FM._pack_bwd_weights(flat, st)
@@ -214,7 +216,7 @@ def test_library_keys_per_compiled_shape():
             cuda_build.lib_key('mlp_fwd', 432, stk.depth, stk.width))
     assert all(len(k) == 1 for k in keys.values())
     flat = [next(iter(k)) for k in keys.values()]
-    assert len(set(flat)) == len(flat) == 6
+    assert len(set(flat)) == len(flat) == 9
     assert keys[8, 256] == {('mlp_fwd', 432)}
     assert keys[8, 512] == {('mlp_fwd', 432, 8, 512)}
     assert cuda_build._shape_flags(('mlp_fwd', 432, 6, 256)) == [

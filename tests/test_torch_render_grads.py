@@ -74,7 +74,8 @@ def test_render_rays_gradients_match_jax(scene, viewfac):
     g_ref = jax.grad(jl, argnums=(0, 1))(scene['j_params'],
                                          jnp.asarray(b['skts']))
 
-    t_rc = dataclasses.replace(scene['t_rc'], mlp_backend='fused')
+    t_rc = dataclasses.replace(scene['t_rc'], mlp_backend='fused',
+                               viewfac=viewfac)
     tb = T.to_device(b, 'cpu')
     params = jax.tree_util.tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32), requires_grad=True),

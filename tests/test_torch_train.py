@@ -68,8 +68,11 @@ def _setups(backend_j, backend_t, compute_dtype):
                             near=0.0, far=1.0)
     j_state = JT.init_train_state(j_setup, jax.random.PRNGKey(0),
                                   init_kp3d=kps, init_bones=bones)
-    t_setup = TT.TrainSetup(cfg=cfg_t, rc=t_build(cfg_t,
-                                                  n_framecodes=N_FRAMES),
+    # the port's dense views input alike (its viewfac chain on the fused
+    # backend: test_torch_viewfac.py)
+    t_rc = dataclasses.replace(t_build(cfg_t, n_framecodes=N_FRAMES),
+                               viewfac=False)
+    t_setup = TT.TrainSetup(cfg=cfg_t, rc=t_rc,
                             skel=SMPLSkeleton, rest_pose=rest,
                             anchors=P.make_anchors(kps, bones), near=0.0,
                             far=1.0, device='cpu')
