@@ -61,6 +61,15 @@
 //   rows and denc.  (Formed inside the per-tile pass, the two products
 //   cost it ~0.8 ms at the flagship's train shapes, probed on the card.)  Of the views input the workspace holds
 //   only the codes' k-slice.
+// * TF (the in-kernel rigid transform, anerf_tpu's fuse_tform:
+//   _bwd_kernel / _bwd_kernel_dual with _apply_tform): the per-tile pass
+//   and the pullback read the depths z (R, S) and each ray's affine rows
+//   [A; B] (R, 2, 72) in place of the points and build each point as
+//   A + z B with the forward's own device code (load_point), so the
+//   recompute's bits are the forward's.  dp (n, 72) is still written, as
+//   the TPU kernel writes it: the wrapper contracts it into the depths'
+//   and the rows' cotangents (fused_encmlp._tform_pullback), where
+//   anerf_tpu's XLA does.
 // * The stash: the TPU stashes the f32 PE bands because its wide sin was
 //   the forward's largest VPU block.  Here the bands come from one sinf
 //   pair and the double-angle recurrence, so passes 1 and 2 recompute
@@ -93,7 +102,8 @@ static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && BWD_X_RESIDENT,
               "K3/K4 encode the flagship trunk into resident shared memory");
 
-template <int NNET, bool VF>
+// tfab last, as in encmlp_fwd.cu, here and in the pullback
+template <int NNET, bool VF, bool TF>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                 const float* __restrict__ codes,
@@ -102,7 +112,7 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                 const bf16* __restrict__ wback,
                 const float* __restrict__ bpack, const float* __restrict__ gin,
                 Work wk, const __grid_constant__ Maps<NNET> maps, int n, int S,
-                int R) {
+                int R, const float* __restrict__ tfab) {
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem sm = tile_smem(smem);
   float* WIN = sm.end;                        // windows (T, J)
@@ -118,7 +128,7 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   }
 
   const float tau = __ldg(tau_ptr);
-  encode_points(p, cutoff, tau, sm.X, WIN, t0, n);
+  encode_points<TF>(p, tfab, cutoff, tau, sm.X, WIN, t0, n, S);
   if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
   for (int net = 0; net < NNET; ++net) {
@@ -149,20 +159,22 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
 
 // dp: one thread per (point, joint).  VF: the views input's part of the
 // window cotangent is g_hv . M[ray, j] of each net (the block fold of
-// pallas_mlp._viewfac_bwd's g_hv M^T), the nets' added in f32.
-template <int NNET, bool VF>
+// pallas_mlp._viewfac_bwd's g_hv M^T), the nets' added in f32.  TF: the
+// point from its depth and its ray's affine rows (load_point).
+template <int NNET, bool VF, bool TF>
 __global__ void pullback_kernel(const float* __restrict__ p,
                                 const float* __restrict__ enc,
                                 const float* __restrict__ cutoff,
                                 const float* __restrict__ tau_ptr, Work wk,
-                                float* __restrict__ dp, int n, int S) {
+                                float* __restrict__ dp, int n, int S,
+                                const float* __restrict__ tfab) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * J) return;
   const int gp = idx / J, j = idx - gp * J;
   const float tau = __ldg(tau_ptr);
-  const float* pp = p + (size_t)gp * C3;
-  const float x = __ldg(pp + j), y = __ldg(pp + J + j), z = __ldg(pp + 2 * J + j);
-  const float d = sqrtf(x * x + y * y + z * z);
+  float x, y, z;
+  load_point<TF>(p, tfab, gp, j, S, x, y, z);
+  const float d = sqrtf(dist2(x, y, z));
   const float w = 1.f - 1.f / (1.f + expf(-tau * (d - __ldg(cutoff + j))));
   wk.win[(size_t)gp * J + j] = w;
   const float invd = 1.f / fmaxf(d, 1e-12f);
@@ -310,8 +322,9 @@ __global__ void denc_kernel(Work wk, float* __restrict__ denc,
   }
 }
 
-template <int NNET, bool VF>
-int launch_passes(const float* p, const float* enc, const float* codes,
+template <int NNET, bool VF, bool TF>
+int launch_passes(const float* p, const float* tfab, const float* enc,
+                  const float* codes,
                   const float* cutoff, const float* tau, const bf16* wf,
                   const bf16* wb, const float* bpack, const float* g,
                   const Work& wk, float* dp, float* denc, float* dcodes,
@@ -321,16 +334,16 @@ int launch_passes(const float* p, const float* enc, const float* codes,
   Maps<NNET> maps;
   cudaError_t err = make_maps<NNET, VF>(maps, wf, wb, wk, np);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_tile_kernel<NNET, VF>,
+  err = cudaFuncSetAttribute(bwd_tile_kernel<NNET, VF, TF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BWD);
   if (err != cudaSuccess) return (int)err;
-  bwd_tile_kernel<NNET, VF><<<ntile, NTHREAD + 32, SMEM_BWD, st>>>(
-      p, enc, codes, cutoff, tau, wb, bpack, g, wk, maps, n, S, R);
+  bwd_tile_kernel<NNET, VF, TF><<<ntile, NTHREAD + 32, SMEM_BWD, st>>>(
+      p, enc, codes, cutoff, tau, wb, bpack, g, wk, maps, n, S, R, tfab);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  pullback_kernel<NNET, VF><<<(n * J + 255) / 256, 256, 0, st>>>(
-      p, enc, cutoff, tau, wk, dp, n, S);
+  pullback_kernel<NNET, VF, TF><<<(n * J + 255) / 256, 256, 0, st>>>(
+      p, enc, cutoff, tau, wk, dp, n, S, tfab);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (VF) {  // after the pullback, which writes the windows it reads
     vf_gram_kernel<<<dim3(R, NNET), J * HV / 8, 0, st>>>(wk, gw, S, R);
@@ -343,33 +356,54 @@ int launch_passes(const float* p, const float* enc, const float* codes,
   return (int)launch_grads(wk, NNET, dw, db, part, P, slice, np, st, VF);
 }
 
+template <int NNET, bool TF>
+int launch_tf(const float* p, const float* tfab, const float* enc,
+              const float* codes, const float* cutoff, const float* tau,
+              const bf16* wf, const bf16* wb, const float* bpack,
+              const float* g, const Work& wk, float* dp, float* denc,
+              float* dcodes, float* dw, float* db, float* part,
+              const void* vfM, void* gw, int P, int slice, int n, int S,
+              int R, cudaStream_t st) {
+  if (vfM)
+    return launch_passes<NNET, true, TF>(
+        p, tfab, enc, codes, cutoff, tau, wf, wb, bpack, g, wk, dp, denc,
+        dcodes, dw, db, part, reinterpret_cast<bf16*>(gw), P, slice, n, S, R,
+        st);
+  return launch_passes<NNET, false, TF>(p, tfab, enc, codes, cutoff, tau, wf,
+                                        wb, bpack, g, wk, dp, denc, dcodes, dw,
+                                        db, part, nullptr, P, slice, n, S, R,
+                                        st);
+}
+
 // vfM: the nets' M (NNET, R, J, HV) bf16 for viewfac, or null for the
 // dense views input; gw: viewfac's Gram matrices (NNET, R, J, HV) bf16
-// out, which viewfac.cu's fold reads (S >= 32)
+// out, which viewfac.cu's fold reads (S >= 32).  tfab: null (p the
+// points (n, 3J)) or the affine rows (R, 2, 3J) of the in-kernel
+// transform (p the depths (R, S), n = R S); dp is (n, 3J) either way.
 template <int NNET>
 int launch_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
                float* dw, float* db, float* part, const void* vfM,
-               void* gw, int P, int slice, int n, int S, int R,
-               void* stream) {
+               void* gw, const float* tfab, int P, int slice, int n, int S,
+               int R, void* stream) {
   if (n <= 0) return 0;
   if (vfM && (S < T / (VFR - 1) || !gw)) return (int)cudaErrorInvalidValue;
+  if (tfab && n != R * S) return (int)cudaErrorInvalidValue;
   Work wk = carve(workspace, n, NNET, J);
   for (int k = 0; k < NNET && vfM; ++k)
     wk.vfM[k] = reinterpret_cast<const bf16*>(vfM) + (size_t)k * R * J * HV;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   const bf16* wb = reinterpret_cast<const bf16*>(wback);
   cudaStream_t st = (cudaStream_t)stream;
-  if (vfM)
-    return launch_passes<NNET, true>(p, enc, codes, cutoff, tau, wf, wb,
-                                     bpack, g, wk, dp, denc, dcodes, dw, db,
-                                     part, reinterpret_cast<bf16*>(gw), P,
-                                     slice, n, S, R, st);
-  return launch_passes<NNET, false>(p, enc, codes, cutoff, tau, wf, wb, bpack,
-                                    g, wk, dp, denc, dcodes, dw, db, part,
-                                    nullptr, P, slice, n, S, R, st);
+  if (tfab)
+    return launch_tf<NNET, true>(p, tfab, enc, codes, cutoff, tau, wf, wb,
+                                 bpack, g, wk, dp, denc, dcodes, dw, db, part,
+                                 vfM, gw, P, slice, n, S, R, st);
+  return launch_tf<NNET, false>(p, nullptr, enc, codes, cutoff, tau, wf, wb,
+                                bpack, g, wk, dp, denc, dcodes, dw, db, part,
+                                vfM, gw, P, slice, n, S, R, st);
 }
 
 }  // namespace
@@ -377,17 +411,17 @@ int launch_bwd(const float* p, const float* enc, const float* codes,
 extern "C" {
 
 // One net (K3): g (1, 4, n); dcodes (1, R, 16); dw (WGSZ); db (BSZ);
-// vfM, gw null, or viewfac's (launch_bwd).
+// vfM, gw null, or viewfac's; tfab null, or the affine rows (launch_bwd).
 int encmlp_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const void* wback, const float* bpack, const float* g,
                void* workspace, float* dp, float* denc, float* dcodes,
                float* dw, float* db, float* part, const void* vfM,
-               void* gw, int P, int slice, int n, int S, int R,
-               void* stream) {
+               void* gw, const float* tfab, int P, int slice, int n, int S,
+               int R, void* stream) {
   return launch_bwd<1>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw, P,
-                       slice, n, S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw,
+                       tfab, P, slice, n, S, R, stream);
 }
 
 // Coarse and fine nets on one encode (K4): every per-net operand holds
@@ -397,11 +431,11 @@ int encmlp_dual_bwd(const float* p, const float* enc, const float* codes,
                     const void* wback, const float* bpack, const float* g,
                     void* workspace, float* dp, float* denc, float* dcodes,
                     float* dw, float* db, float* part, const void* vfM,
-                    void* gw, int P, int slice, int n, int S, int R,
-                    void* stream) {
+                    void* gw, const float* tfab, int P, int slice, int n,
+                    int S, int R, void* stream) {
   return launch_bwd<2>(p, enc, codes, cutoff, tau, wpack, wback, bpack, g,
-                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw, P,
-                       slice, n, S, R, stream);
+                       workspace, dp, denc, dcodes, dw, db, part, vfM, gw,
+                       tfab, P, slice, n, S, R, stream);
 }
 
 long long encmlp_bwd_workspace_bytes(int n, int nnet) {

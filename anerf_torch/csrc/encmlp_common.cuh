@@ -185,26 +185,60 @@ __device__ __forceinline__ void write_codes(bf16* XV, int ld,
   }
 }
 
+// x^2 + y^2 + z^2 with its roundings spelled out (y^2, then x^2 and z^2
+// fused in): every kernel that takes a point's distance (the forward's
+// encode, the backward's recompute and its pullback) gets the same bits,
+// whatever ptxas would fuse in its own context.
+__device__ __forceinline__ float dist2(float x, float y, float z) {
+  return __fmaf_rn(z, z, __fmaf_rn(x, x, __fmul_rn(y, y)));
+}
+
+// The skeleton-relative coordinates (x, y, z) of point gp at joint j.
+// Dense: p is the component-major points (n, 3J).  TF (the in-kernel rigid
+// transform, anerf_tpu's fuse_tform): p is the sample depths (n = R S) and
+// tfab the per-ray affine rows (R, 2, 3J) [A; B] (fused_encmlp.tform_rows),
+// so the point is A + z B of its ray gp / S, the way pallas_encmlp.
+// _apply_tform builds it.  The product and the sum are rounded one by one
+// (no FMA contraction, which nvcc would make or not by context): the
+// forward, the backward's recompute and its pullback build the same bits,
+// and so does the plain twin's A + z * B.
+template <bool TF>
+__device__ __forceinline__ void load_point(const float* __restrict__ p,
+                                           const float* __restrict__ tfab,
+                                           int gp, int j, int S, float& x,
+                                           float& y, float& z) {
+  if constexpr (TF) {
+    const float zz = __ldg(p + gp);
+    const float* ab = tfab + (size_t)(gp / S) * 2 * C3 + j;
+    x = __fadd_rn(__ldg(ab), __fmul_rn(zz, __ldg(ab + C3)));
+    y = __fadd_rn(__ldg(ab + J), __fmul_rn(zz, __ldg(ab + C3 + J)));
+    z = __fadd_rn(__ldg(ab + 2 * J), __fmul_rn(zz, __ldg(ab + C3 + 2 * J)));
+  } else {
+    const float* pp = p + (size_t)gp * C3;
+    x = __ldg(pp + j);
+    y = __ldg(pp + J + j);
+    z = __ldg(pp + 2 * J + j);
+  }
+}
+
 // The encode of points t0 .. t0+T-1 into shared memory: X = [v | r]
 // (bf16) and WIN = the windows (f32).  Points past n encode as p = 0.
-// Leaves the block unsynchronised.
+// TF: the points from depths and affine rows (load_point).  Leaves the
+// block unsynchronised.
+template <bool TF>
 __device__ __forceinline__ void encode_points(const float* __restrict__ p,
+                                              const float* __restrict__ tfab,
                                               const float* __restrict__ cutoff,
                                               float tau, bf16* X, float* WIN,
-                                              int t0, int n) {
+                                              int t0, int n, int S) {
   const int tid = threadIdx.x;
   // ---- encode: distances, windows, kp PE (double-angle recurrence),
   // bone directions -------------------------------------------------------
   for (int idx = tid; idx < T * J; idx += NTHREAD) {
     const int t = idx / J, j = idx - t * J, gp = t0 + t;
     float x = 0.f, y = 0.f, z = 0.f;
-    if (gp < n) {
-      const float* pp = p + (size_t)gp * C3;
-      x = __ldg(pp + j);
-      y = __ldg(pp + J + j);
-      z = __ldg(pp + 2 * J + j);
-    }
-    const float d = sqrtf(x * x + y * y + z * z);
+    if (gp < n) load_point<TF>(p, tfab, gp, j, S, x, y, z);
+    const float d = sqrtf(dist2(x, y, z));
     const float w = 1.f - 1.f / (1.f + expf(-tau * (d - __ldg(cutoff + j))));
     bf16* xr = X + t * LDX;
     xr[j] = __float2bfloat16_rn(d * w);

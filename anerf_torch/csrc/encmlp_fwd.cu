@@ -34,6 +34,14 @@
 // viewfac.cu), on mma.sync with both operands built in registers
 // (encmlp_common.cuh).  The ring skips the 172 KB of the views weight's
 // view rows a tile and net.
+//
+// With TF (the in-kernel rigid transform, anerf_tpu's fuse_tform:
+// pallas_encmlp._apply_tform in _fwd_kernel / _fwd_kernel_dual) the
+// kernels read the sample depths z (R, S) and each ray's affine rows
+// [A; B] (R, 2, 72) in place of the points (n, 72): the encode builds
+// each point as A + z B (load_point, encmlp_common.cuh) from __ldg reads
+// (A and B, 1.2 MB at R = 2048, stay in L2), so no shared memory is
+// added.  The point bytes fall from n x 288 to R (S + 144) x 4.
 // Numeric chain as in the TPU kernels: f32 bias and ReLU, a bf16 re-cast
 // between layers, feat rounded to bf16 after its bias, alpha and rgb in
 // f32.  The ragged edge of the last block is masked.
@@ -65,7 +73,10 @@ static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && FWD_X_RESIDENT,
               "K1/K2 encode the flagship trunk into resident shared memory");
 
-template <int NNET, bool VF>
+// tfab (TF: the affine rows) is the last parameter, so that the point
+// form's parameters keep their offsets and ptxas builds it as it would
+// without the transform (its bits do not depend on TF's existence)
+template <int NNET, bool VF, bool TF>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                   const float* __restrict__ codes,
@@ -74,7 +85,8 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                   const bf16* __restrict__ wpack,
                   const float* __restrict__ bpack,
                   const bf16* __restrict__ vfM, float* __restrict__ out,
-                  const __grid_constant__ FwdMaps maps, int n, int S, int R) {
+                  const __grid_constant__ FwdMaps maps, int n, int S, int R,
+                  const float* __restrict__ tfab) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdSmem sm = fwd_smem(smem);
   float* WIN = sm.end;                        // windows (T, J)
@@ -86,7 +98,7 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     ring_produce(rg);            // slices arrive while the tile encodes
     return;
   }
-  encode_points(p, cutoff, __ldg(tau_ptr), sm.X, WIN, t0, n);
+  encode_points<TF>(p, tfab, cutoff, __ldg(tau_ptr), sm.X, WIN, t0, n, S);
   if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
   for (int net = 0; net < NNET; ++net) {
@@ -107,40 +119,56 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   }
 }
 
-template <int NNET, bool VF>
-int launch_vf(const float* p, const float* enc, const float* codes,
-              const float* cutoff, const float* tau, const bf16* wf,
-              const float* bpack, const bf16* vfM, float* out,
+template <int NNET, bool VF, bool TF>
+int launch_vf(const float* p, const float* tfab, const float* enc,
+              const float* codes, const float* cutoff, const float* tau,
+              const bf16* wf, const float* bpack, const bf16* vfM, float* out,
               const FwdMaps& maps, int n, int S, int R, void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      encmlp_fwd_kernel<NNET, VF>,
+      encmlp_fwd_kernel<NNET, VF, TF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_ENC);
   if (err != cudaSuccess) return (int)err;
-  encmlp_fwd_kernel<NNET, VF><<<(n + T - 1) / T, NTHREAD + 32, SMEM_ENC,
-                                (cudaStream_t)stream>>>(
-      p, enc, codes, cutoff, tau, wf, bpack, vfM, out, maps, n, S, R);
+  encmlp_fwd_kernel<NNET, VF, TF><<<(n + T - 1) / T, NTHREAD + 32, SMEM_ENC,
+                                    (cudaStream_t)stream>>>(
+      p, enc, codes, cutoff, tau, wf, bpack, vfM, out, maps, n, S, R, tfab);
   return (int)cudaGetLastError();
 }
 
+template <int NNET, bool TF>
+int launch_tf(const float* p, const float* tfab, const float* enc,
+              const float* codes, const float* cutoff, const float* tau,
+              const bf16* wf, const float* bpack, const void* vfM, float* out,
+              const FwdMaps& maps, int n, int S, int R, void* stream) {
+  if (vfM)
+    return launch_vf<NNET, true, TF>(p, tfab, enc, codes, cutoff, tau, wf,
+                                     bpack, reinterpret_cast<const bf16*>(vfM),
+                                     out, maps, n, S, R, stream);
+  return launch_vf<NNET, false, TF>(p, tfab, enc, codes, cutoff, tau, wf,
+                                    bpack, nullptr, out, maps, n, S, R,
+                                    stream);
+}
+
 // vfM: the nets' M (NNET, R, J, HV) for viewfac, or null for the dense
-// views input; viewfac needs S >= 32 (a tile's rays at most VFR)
+// views input; viewfac needs S >= 32 (a tile's rays at most VFR).  tfab:
+// null (p the points (n, 3J)) or the affine rows (R, 2, 3J) of the
+// in-kernel transform (p the depths (R, S), n = R S).
 template <int NNET>
 int launch(const float* p, const float* enc, const float* codes,
            const float* cutoff, const float* tau, const void* wpack,
-           const float* bpack, const void* vfM, float* out, int n, int S,
-           int R, void* stream) {
+           const float* bpack, const void* vfM, const float* tfab, float* out,
+           int n, int S, int R, void* stream) {
   if (n <= 0) return 0;
   if (vfM && S < T / (VFR - 1)) return (int)cudaErrorInvalidValue;
+  if (tfab && n != R * S) return (int)cudaErrorInvalidValue;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   FwdMaps maps;
   const cudaError_t err = make_fwd_maps(maps, wf, NNET);
   if (err != cudaSuccess) return (int)err;
-  if (vfM)
-    return launch_vf<NNET, true>(p, enc, codes, cutoff, tau, wf, bpack,
-                                 reinterpret_cast<const bf16*>(vfM), out,
-                                 maps, n, S, R, stream);
-  return launch_vf<NNET, false>(p, enc, codes, cutoff, tau, wf, bpack,
-                                nullptr, out, maps, n, S, R, stream);
+  if (tfab)
+    return launch_tf<NNET, true>(p, tfab, enc, codes, cutoff, tau, wf, bpack,
+                                 vfM, out, maps, n, S, R, stream);
+  return launch_tf<NNET, false>(p, nullptr, enc, codes, cutoff, tau, wf,
+                                bpack, vfM, out, maps, n, S, R, stream);
 }
 
 }  // namespace
@@ -148,23 +176,24 @@ int launch(const float* p, const float* enc, const float* codes,
 extern "C" {
 
 // One net: out (4, n) rows [r, g, b, sigma]; vfM null (dense views
-// input) or its M (1, R, J, HV) bf16 (viewfac).
+// input) or its M (1, R, J, HV) bf16 (viewfac); tfab null (p the points)
+// or the affine rows (R, 2, 3J) (p the depths; launch).
 int encmlp_fwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
-               const float* bpack, const void* vfM, float* out, int n, int S,
-               int R, void* stream) {
-  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, out, n, S,
-                   R, stream);
+               const float* bpack, const void* vfM, const float* tfab,
+               float* out, int n, int S, int R, void* stream) {
+  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab, out,
+                   n, S, R, stream);
 }
 
 // Coarse and fine nets on one encode: codes (2, R, 16), wpack/bpack two
 // packed sets back to back, vfM null or (2, R, J, HV), out (2, 4, n).
 int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
                     const float* cutoff, const float* tau, const void* wpack,
-                    const float* bpack, const void* vfM, float* out, int n,
-                    int S, int R, void* stream) {
-  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, out, n, S,
-                   R, stream);
+                    const float* bpack, const void* vfM, const float* tfab,
+                    float* out, int n, int S, int R, void* stream) {
+  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab, out,
+                   n, S, R, stream);
 }
 
 // Sizes of one packed weight set, for the wrapper's checks.

@@ -127,6 +127,7 @@ def build_raycast_config(cfg: Config,
         bone_type=cfg.bone_type,
         opt_cutoff=cfg.opt_cutoff,
         viewfac=cfg.viewfac,
+        fuse_tform=cfg.fuse_tform,
     )
 
 

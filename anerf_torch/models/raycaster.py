@@ -17,7 +17,10 @@ Two MLP backends (``RayCastConfig.mlp_backend``):
     parts to the split-operand MLP kernels (ops/fused_mlp.py), K5
     forward and K6 backward.  The wrappers take the plain twins for CPU
     tensors.  Gradients reach the nets' parameters, the framecodes and
-    the per-ray ``skts``.
+    the per-ray ``skts``.  With ``fuse_tform`` and no ray noise, K1-K4
+    take the depths and each ray's affine rows (``tform_rows``) in place
+    of the points, and the gradients reach ``skts``, the rays and the
+    depths through them.
   * 'plain': the unfused encode + MLP (the JAX package's 'xla').
 
 A multi-subject model (``n_subjects > 1``) takes each ray's subject
@@ -72,6 +75,11 @@ class RayCastConfig:
     # per-ray view factorization (anerf_tpu): the fused kernels run it
     # where the cost gate picks it (fused_encmlp._build_call)
     viewfac: bool = False
+    # in-kernel rigid transform (anerf_tpu; fused_encmlp.tform_rows): K1-K4
+    # take each ray's affine rows A + z B and the depths in place of the
+    # (n, 3J) points; ray noise, which moves points off their rays,
+    # turns it off
+    fuse_tform: bool = False
 
     def density_fn(self):
         return compositing.get_density_fn(self.density_type,
@@ -245,28 +253,38 @@ def render_rays(rc: RayCastConfig,
             enc_ray = FE.view_pe_rows(
                 rays_t_norm, [float(f) for f in rc.view_embed.freq_bands()],
                 rc.n_joints).float()
+            # the in-kernel transform's affine rows, built once for both
+            # kernel calls like enc_ray; it needs the points on their rays,
+            # so ray noise (a per-point jitter) turns it off
+            use_ft = rc.fuse_tform and rc.ray_noise_std == 0.
+            tf_rows = FE.tform_rows(skts, rays_o, rays_d) if use_ft else None
 
-            def fused_net(net_params, q_pts):  # noqa: E306
+            def _prep(q_pts):  # noqa: E306
+                if use_ft:
+                    return None   # the kernels work from the depths
+                return encoders.transform_batch_pts_cm(q_pts, skts).float()
+
+            def fused_net(net_params, q_pts, q_z):  # noqa: E306
                 return FE.nerf_encmlp(
-                    net_params, rc,
-                    encoders.transform_batch_pts_cm(q_pts, skts).float(),
-                    rays_t_norm, cutoff, state['tau'], cams,
-                    tile=rc.pallas_tile, enc_ray=enc_ray)
+                    net_params, rc, _prep(q_pts), rays_t_norm, cutoff,
+                    state['tau'], cams, tile=rc.pallas_tile, enc_ray=enc_ray,
+                    tf_rows=tf_rows, z_vals=q_z)
 
-            def fused_dual(q_pts):  # noqa: E306
+            def fused_dual(q_pts, q_z):  # noqa: E306
                 return FE.nerf_encmlp_dual(
-                    params['coarse'], params['fine'], rc,
-                    encoders.transform_batch_pts_cm(q_pts, skts).float(),
+                    params['coarse'], params['fine'], rc, _prep(q_pts),
                     rays_t_norm, cutoff, state['tau'], cams,
-                    tile=rc.pallas_tile, enc_ray=enc_ray)
+                    tile=rc.pallas_tile, enc_ray=enc_ray, tf_rows=tf_rows,
+                    z_vals=q_z)
 
     enc_cache: Dict[str, Any] = {}
 
-    def run_pass(net_params, q_pts, key):
+    def run_pass(net_params, q_pts, key, q_z):
         """Returns (raw, rows): rows=True means channel-major (4, R, S)
-        from a fused kernel, else dense (R, S, 4)."""
+        from a fused kernel, else dense (R, S, 4).  ``q_z``: the points'
+        depths, which the in-kernel transform takes."""
         if fused_net is not None:
-            return fused_net(net_params, q_pts), True
+            return fused_net(net_params, q_pts, q_z), True
         if key not in enc_cache:  # coarse encodings serve both nets
             enc_cache[key] = encode_inputs(rc, params, q_pts, rays_o,
                                            rays_d, pose, state)
@@ -289,10 +307,10 @@ def render_rays(rc: RayCastConfig,
     two_nets = (rc.N_importance > 0 and not rc.single_net
                 and params.get('fine') is not None)
     if fused_dual is not None and two_nets:
-        raw, raw_c_pre = fused_dual(pts)
+        raw, raw_c_pre = fused_dual(pts, z_vals)
         rows = True
     else:
-        raw, rows = run_pass(params['coarse'], pts, 'coarse')
+        raw, rows = run_pass(params['coarse'], pts, 'coarse', z_vals)
 
     noise = fixed.get('coarse_noise')
     if noise is None and rc.raw_noise_std > 0. and draws:
@@ -321,11 +339,11 @@ def render_rays(rc: RayCastConfig,
             if raw_c_pre is not None:
                 raw_c, rows_f = raw_c_pre, True
             else:
-                raw_c, rows_f = run_pass(fine_params, pts, 'coarse')
-            raw_n, rows_n = run_pass(fine_params, pts_is, 'fine')
+                raw_c, rows_f = run_pass(fine_params, pts, 'coarse', z_vals)
+            raw_n, rows_n = run_pass(fine_params, pts_is, 'fine', z_samples)
         else:
             raw_c, rows_f = raw, rows
-            raw_n, rows_n = run_pass(fine_params, pts_is, 'fine')
+            raw_n, rows_n = run_pass(fine_params, pts_is, 'fine', z_samples)
 
         noise = fixed.get('fine_noise')
         if noise is None and rc.raw_noise_std > 0. and draws:

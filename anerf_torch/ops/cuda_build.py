@@ -104,17 +104,19 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         fn.argtypes, fn.restype = args, res
     if which == 'fwd':
         for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-            # p, enc_ray, codes, cutoff, tau, wpack, bpack, viewfac's M,
-            # out, n, S, R, stream
-            sig(name, [vp] * 9 + [ci] * 3 + [vp])
+            # p (or the depths), enc_ray, codes, cutoff, tau, wpack,
+            # bpack, viewfac's M, fuse_tform's affine rows, out, n, S, R,
+            # stream
+            sig(name, [vp] * 10 + [ci] * 3 + [vp])
         sig('encmlp_weight_elems', [], cll)
         sig('encmlp_bias_elems', [])
     elif which == 'bwd':
         for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
-            # p, enc_ray, codes, cutoff, tau, wpack, wpack_b, bpack, g,
-            # workspace, dp, denc, dcodes, dw, db, dW partials, viewfac's
-            # M and Gw, P, slice, n, S, R, stream
-            sig(name, [vp] * 18 + [ci] * 5 + [vp])
+            # p (or the depths), enc_ray, codes, cutoff, tau, wpack,
+            # wpack_b, bpack, g, workspace, dp, denc, dcodes, dw, db, dW
+            # partials, viewfac's M and Gw, fuse_tform's affine rows, P,
+            # slice, n, S, R, stream
+            sig(name, [vp] * 19 + [ci] * 5 + [vp])
         sig('encmlp_bwd_workspace_bytes', [ci, ci], cll)
         sig('encmlp_grad_weight_elems', [], cll)
     elif which == 'viewfac':

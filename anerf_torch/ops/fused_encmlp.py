@@ -63,8 +63,18 @@ cos-as-shifted-sin per joint, as the TPU kernels do (pallas_encmlp.py
 ``SIN_RECURRENCE``), in the twins and the kernels alike; the backward
 recomputes them instead of reading the TPU's stash.
 
-Not ported yet (ROADMAP.md B.3): the in-kernel rigid transform
-(``fuse_tform``, off by default).
+The in-kernel rigid transform (``fuse_tform``, off by default as in
+anerf_tpu; ``rc.fuse_tform`` without ray noise): the sample points lie
+on their rays, so their component-major local coordinates are a per-ray
+affine in the depth, ``p = A + z B`` with ``A = W o + t`` and ``B = W
+d`` (``tform_rows``).  K1-K4 then read the depths z (R, S) and the rows
+[A; B] (R, 2, 3J) and build each point themselves (``EncStatic.
+fuse_tform``); the (n, 3J) points never exist in device memory.  K3/K4
+still write dp (n, 3J), and ``_tform_pullback`` contracts it into the
+depths' and the rows' cotangents with torch ops after the kernel, where
+anerf_tpu's XLA does.  The twins build the points with ``_apply_tform``
+and run their chain.  ``launch_counts`` counts these launches apart
+(``encmlp_fwd_tf`` .. ``encmlp_dual_bwd_tf``).
 """
 from __future__ import annotations
 
@@ -75,7 +85,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import cuda_build, fused_mlp
+from . import cuda_build, encoders, fused_mlp
 from .cuda_build import build_kernels  # noqa: F401  (re-exported)
 from .fused_mlp import (MLPStatic, _forward_tile, _grad_layout,
                         _mlp_bwd_tile, _mlp_macs, _pack_bwd_weights,
@@ -97,6 +107,51 @@ class EncStatic:
     eps: float = 1e-12
     # per-ray view factorization cost-gate decision (see _build_call)
     viewfac: bool = False
+    # in-kernel rigid transform (rc.fuse_tform): the kernels take the
+    # depths (R, S) and the affine rows (R, 2, 3J) of ``tform_rows`` in
+    # place of the points (n, 3J) (``_apply_tform``)
+    fuse_tform: bool = False
+
+
+def tform_rows(skts: torch.Tensor, rays_o: torch.Tensor,
+               rays_d: torch.Tensor) -> torch.Tensor:
+    """Each ray's rigid transforms reduced along the ray
+    (``pallas_encmlp.tform_rows``): a sample ``o + z d`` has the
+    component-major local coordinates ``W (o + z d) + t = A + z B`` with
+    ``A = W o + t`` and ``B = W d``.  skts (R, J, 4, 4), a broadcast
+    (expanded) one too; rays (R, 3).  Returns (R, 2, 3J) f32 [A; B]."""
+    rcat, tcat = encoders.cm_transform_rows(skts)
+    A = torch.einsum('rcd,rd->rc', rcat, rays_o.float()) + tcat
+    B = torch.einsum('rcd,rd->rc', rcat, rays_d.float())
+    return torch.stack([A, B], 1).float()
+
+
+def _apply_tform(tf: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The points (n, 3J) of depths z (R, S) on rays with affine rows tf
+    (R, 2, 3J): ``p[t] = A[ray(t)] + z[t] B[ray(t)]``, the product and the
+    sum rounded one by one, as the kernels build them."""
+    R, S = z.shape
+    A, B = tf[:, :1], tf[:, 1:]
+    return (A + z[..., None] * B).reshape(R * S, -1)
+
+
+def _tform_pullback(tf: torch.Tensor, z: torch.Tensor, dp: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of ``_apply_tform`` (``pallas_encmlp._tform_pullback``):
+    from the points' cotangent dp (n, 3J), returns (g_z (R, S), g_tf (R,
+    2, 3J))."""
+    R, S = z.shape
+    dp3 = dp.reshape(R, S, -1)
+    g_A = dp3.sum(1)
+    g_B = torch.einsum('rsc,rs->rc', dp3, z)
+    g_z = torch.einsum('rsc,rc->rs', dp3, tf[:, 1])
+    return g_z, torch.stack([g_A, g_B], 1)
+
+
+def _points(est: EncStatic, p: torch.Tensor, tf) -> torch.Tensor:
+    """The points (n, 3J) a kernel encodes: ``p`` itself, or under
+    ``est.fuse_tform`` the depths ``p`` (R, S) through the rows ``tf``."""
+    return _apply_tform(tf, p) if est.fuse_tform else p
 
 
 def _comp_major_perm(J: int) -> np.ndarray:
@@ -255,13 +310,16 @@ def _views_operand(est: EncStatic, xv, w, enc_ray):
 
 
 def _bwd_nets_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes_list,
-                    cutoff, tau, flats, gs):
+                    cutoff, tau, flats, gs, tf=None):
     """Shared body of the backward twins: one encode, each net's MLP
     backward, the nets' input cotangents summed in f32, rounded through
     bf16, and pulled back once (``_bwd_kernel_dual`` :784-822).  Under
     viewfac the nets' window and view-row cotangents add in f32, never
-    rounded through bf16 (:809-816)."""
+    rounded through bf16 (:809-816).  Under fuse_tform the points come
+    from the depths ``p`` and the rows ``tf``; dp is the points' (n, 3J)
+    cotangent either way."""
     b16 = lambda a: a.to(torch.bfloat16).float()
+    p = _points(est, p, tf)
     (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
                                       skip_xv=est.viewfac)
     xs = [b16(v), b16(r)]
@@ -298,31 +356,33 @@ def _bwd_nets_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes_list,
 
 
 def encmlp_bwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
-                     cutoff, tau, flat, g):
+                     cutoff, tau, flat, g, tf=None):
     """Plain twin of K3: the backward of K1 for the raw cotangent ``g``
     (4, n).  Returns (dp (n, 3J), denc (R, nb*3J), dcodes (R, C) or
     None, grads): f32 gradients of every ``flatten_params_cm`` operand.
     Mirrors ``pallas_encmlp._bwd_kernel``."""
     dp, denc, dcodes, grads = _bwd_nets_plain(
-        st, est, p, enc_ray, [codes], cutoff, tau, [flat], [g])
+        st, est, p, enc_ray, [codes], cutoff, tau, [flat], [g], tf)
     return dp, denc, dcodes[0], grads[0]
 
 
 def encmlp_dual_bwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
                           codes_c, codes_f, cutoff, tau, flat_c, flat_f,
-                          g_c, g_f):
+                          g_c, g_f, tf=None):
     """Plain twin of K4: the backward of K2.  Returns (dp, denc,
     dcodes_c, dcodes_f, grads_c, grads_f).  Mirrors
     ``pallas_encmlp._bwd_kernel_dual``."""
     dp, denc, dcodes, grads = _bwd_nets_plain(
         st, est, p, enc_ray, [codes_c, codes_f], cutoff, tau,
-        [flat_c, flat_f], [g_c, g_f])
+        [flat_c, flat_f], [g_c, g_f], tf)
     return dp, denc, dcodes[0], dcodes[1], grads[0], grads[1]
 
 
 def encmlp_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
-                     cutoff, tau, flat) -> torch.Tensor:
-    """Plain twin of K1: raw (4, n) rows [r, g, b, sigma]."""
+                     cutoff, tau, flat, tf=None) -> torch.Tensor:
+    """Plain twin of K1: raw (4, n) rows [r, g, b, sigma]; under
+    fuse_tform ``p`` is the depths (R, S) and ``tf`` their rows."""
+    p = _points(est, p, tf)
     (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
                                       skip_xv=est.viewfac)
     xvs = [_views_operand(est, xv, res[1], enc_ray)]
@@ -334,9 +394,10 @@ def encmlp_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray, codes,
 
 
 def encmlp_dual_fwd_plain(st: MLPStatic, est: EncStatic, p, enc_ray,
-                          codes_c, codes_f, cutoff, tau, flat_c, flat_f
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          codes_c, codes_f, cutoff, tau, flat_c, flat_f,
+                          tf=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K2: the encode once, both nets on it."""
+    p = _points(est, p, tf)
     (v, r, xv), res = _encode_fwd_res(est, p, enc_ray, cutoff, tau,
                                       skip_xv=est.viewfac)
     xv_op = _views_operand(est, xv, res[1], enc_ray)
@@ -359,6 +420,11 @@ K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 KVF1_LAUNCHES = 0
 KVF2_LAUNCHES = 0
+# K1-K4 under fuse_tform, counted apart
+K1_TF_LAUNCHES = 0
+K2_TF_LAUNCHES = 0
+K3_TF_LAUNCHES = 0
+K4_TF_LAUNCHES = 0
 
 # the one shape the kernels are compiled for (csrc/encmlp_common.cuh):
 # J=24 joints, kp PE 2^0..2^6, view PE 4 bands, 8x256 trunk with the
@@ -368,22 +434,29 @@ _KERNEL_SHAPE = dict(J=24, F=7, view_nb=9, depth=8, width=256, half=128,
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts of all eight kernels (K5/K6 live in
-    ``fused_mlp``)."""
+    """Zero the launch counts of all eight kernels and of K1-K4's
+    fuse_tform forms (K5/K6 live in ``fused_mlp``)."""
     global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
     global KVF1_LAUNCHES, KVF2_LAUNCHES
+    global K1_TF_LAUNCHES, K2_TF_LAUNCHES, K3_TF_LAUNCHES, K4_TF_LAUNCHES
     K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
     KVF1_LAUNCHES = KVF2_LAUNCHES = 0
+    K1_TF_LAUNCHES = K2_TF_LAUNCHES = K3_TF_LAUNCHES = K4_TF_LAUNCHES = 0
     fused_mlp.reset_launch_counts()
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of every kernel since the last reset: K1-K4 and K-vf1/
-    K-vf2 (``vf_operand``, ``vf_fold``) here, K5/K6 (``mlp_fwd``,
-    ``mlp_bwd``) from ``fused_mlp.launch_counts``.  A CUDA graph's
-    launches count at its capture, not at its replays."""
+    """Launches of every kernel since the last reset: K1-K4 on points,
+    K1-K4 under fuse_tform (the ``_tf`` keys) and K-vf1/K-vf2
+    (``vf_operand``, ``vf_fold``) here, K5/K6 (``mlp_fwd``, ``mlp_bwd``)
+    from ``fused_mlp.launch_counts``.  A CUDA graph's launches count at
+    its capture, not at its replays."""
     return {'encmlp_fwd': K1_LAUNCHES, 'encmlp_dual_fwd': K2_LAUNCHES,
             'encmlp_bwd': K3_LAUNCHES, 'encmlp_dual_bwd': K4_LAUNCHES,
+            'encmlp_fwd_tf': K1_TF_LAUNCHES,
+            'encmlp_dual_fwd_tf': K2_TF_LAUNCHES,
+            'encmlp_bwd_tf': K3_TF_LAUNCHES,
+            'encmlp_dual_bwd_tf': K4_TF_LAUNCHES,
             'vf_operand': KVF1_LAUNCHES, 'vf_fold': KVF2_LAUNCHES,
             **fused_mlp.launch_counts()}
 
@@ -424,19 +497,32 @@ def kernel_shape_ok(rc) -> bool:
     return _shape_mismatch(st, est) is None
 
 
-def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est):
+def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est, tf=None):
+    """(n, R) of a call; raises on operands the kernels do not take.
+    ``p``: the points (n, 3J), or under fuse_tform the depths (R, S)
+    with ``tf`` their rows (R, 2, 3J)."""
     dev = p.device
-    n = p.shape[0]
-    if p.dim() != 2 or p.shape[1] != 3 * est.J:
-        raise ValueError(f'pts_t must be (n, {3 * est.J}), '
-                         f'got {tuple(p.shape)}')
-    if n % est.S != 0:
-        raise ValueError(f'n={n} is not a multiple of S={est.S}')
-    R = n // est.S
+    if est.fuse_tform:
+        R = p.shape[0]
+        if p.dim() != 2 or p.shape[1] != est.S:
+            raise ValueError(f'the depths must be (R, {est.S}), '
+                             f'got {tuple(p.shape)}')
+        if tf is None or tuple(tf.shape) != (R, 2, 3 * est.J):
+            raise ValueError(f'the affine rows must be ({R}, 2, '
+                             f'{3 * est.J})')
+        n = R * est.S
+    else:
+        n = p.shape[0]
+        if p.dim() != 2 or p.shape[1] != 3 * est.J:
+            raise ValueError(f'pts_t must be (n, {3 * est.J}), '
+                             f'got {tuple(p.shape)}')
+        if n % est.S != 0:
+            raise ValueError(f'n={n} is not a multiple of S={est.S}')
+        R = n // est.S
     if tuple(enc_ray.shape) != (R, est.view_nb * 3 * est.J):
         raise ValueError(f'enc_ray must be ({R}, {est.view_nb * 3 * est.J}),'
                          f' got {tuple(enc_ray.shape)}')
-    for t in [p, enc_ray, cutoff, tau] + [c for c in codes_list
+    for t in [p, enc_ray, cutoff, tau] + [c for c in codes_list + [tf]
                                            if c is not None]:
         if t.device != dev:
             raise ValueError('all kernel inputs must be on one device')
@@ -458,18 +544,23 @@ def _check_packs(lib, nnet, wbuf, bbuf) -> None:
         raise ValueError('packed weights do not match the kernel layout')
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
-            bbuf, out, n: int, S: int, R: int, vf_m=None) -> None:
+            bbuf, out, n: int, S: int, R: int, vf_m=None, tf=None) -> None:
     """K1 or K2; ``vf_m``: the nets' M (``vf_operand``) under viewfac,
-    else None (the dense views input)."""
+    else None (the dense views input); ``tf``: the affine rows under
+    fuse_tform (``p`` the depths), else None."""
     lib = cuda_build.library('fwd')
     _check_packs(lib, nnet, wbuf, bbuf)
     with torch.cuda.device(p.device):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
-            bbuf.data_ptr(), None if vf_m is None else vf_m.data_ptr(),
-            out.data_ptr(), n, S, R, cuda_build.stream(p.device))
+            bbuf.data_ptr(), _ptr(vf_m), _ptr(tf), out.data_ptr(), n, S, R,
+            cuda_build.stream(p.device))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
@@ -494,30 +585,36 @@ def _codes_operand(codes_list, est, R, device):
                        dtype=torch.float32, device=device)
 
 
-def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat) -> torch.Tensor:
+def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat,
+         tf=None) -> torch.Tensor:
     """K1 or its twin, no autograd."""
-    global K1_LAUNCHES
-    n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
+    global K1_LAUNCHES, K1_TF_LAUNCHES
+    n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes], est, tf)
     if cuda_build.device_of(p) == 'cpu':
-        return encmlp_fwd_plain(st, est, p, enc_ray, codes, cutoff, tau, flat)
+        return encmlp_fwd_plain(st, est, p, enc_ray, codes, cutoff, tau, flat,
+                                tf)
     _check_kernel_shape(st, est)
     wbuf, bbuf = _pack_kernel_weights(flat, st)
     out = torch.empty((4, n), dtype=torch.float32, device=p.device)
     _launch('encmlp_fwd', 1, p, enc_ray,
             _codes_operand([codes], est, R, p.device), cutoff, tau, wbuf,
-            bbuf, out, n, est.S, R, _vf_m(st, est, enc_ray, [flat]))
-    K1_LAUNCHES += 1
+            bbuf, out, n, est.S, R, _vf_m(st, est, enc_ray, [flat]), tf)
+    if est.fuse_tform:
+        K1_TF_LAUNCHES += 1
+    else:
+        K1_LAUNCHES += 1
     return out
 
 
 def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
-              flat_f) -> Tuple[torch.Tensor, torch.Tensor]:
+              flat_f, tf=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 or its twin, no autograd."""
-    global K2_LAUNCHES
-    n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
+    global K2_LAUNCHES, K2_TF_LAUNCHES
+    n, R = _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est,
+                         tf)
     if cuda_build.device_of(p) == 'cpu':
         return encmlp_dual_fwd_plain(st, est, p, enc_ray, codes_c, codes_f,
-                                     cutoff, tau, flat_c, flat_f)
+                                     cutoff, tau, flat_c, flat_f, tf)
     _check_kernel_shape(st, est)
     wc, bc = _pack_kernel_weights(flat_c, st)
     wf, bf = _pack_kernel_weights(flat_f, st)
@@ -525,21 +622,26 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     _launch('encmlp_dual_fwd', 2, p, enc_ray,
             _codes_operand([codes_c, codes_f], est, R, p.device), cutoff,
             tau, torch.cat([wc, wf]), torch.cat([bc, bf]), out, n, est.S, R,
-            _vf_m(st, est, enc_ray, [flat_c, flat_f]))
-    K2_LAUNCHES += 1
+            _vf_m(st, est, enc_ray, [flat_c, flat_f]), tf)
+    if est.fuse_tform:
+        K2_TF_LAUNCHES += 1
+    else:
+        K2_LAUNCHES += 1
     return out[0], out[1]
 
 
 # -- backward ---------------------------------------------------------------
 
 def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
-                cutoff, tau, flats, gs):
+                cutoff, tau, flats, gs, tf=None):
     """Launch K3 (nnet=1) or K4 (nnet=2); under viewfac with K-vf1's M
     before and K-vf2's fold of its per-ray Gram matrices Gw after (the
-    views weight's view rows and denc).  Returns (dp, denc, dcodes (nnet,
+    views weight's view rows and denc); under fuse_tform on the depths
+    ``p`` and the rows ``tf``.  Returns (dp (n, 3J), denc, dcodes (nnet,
     R, 16), grads per net)."""
     _check_kernel_shape(st, est)
-    n, R = p.shape[0], enc_ray.shape[0]
+    R = enc_ray.shape[0]
+    n = R * est.S
     dev = p.device
     fwd_lib, lib = cuda_build.library('fwd'), cuda_build.library('bwd')
     packs = [_pack_kernel_weights(f, st) for f in flats]
@@ -569,15 +671,15 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
         vf_m = vf_operand(est, enc_ray, wvx)
         gw = torch.empty((nnet, R, est.J, st.half), dtype=torch.bfloat16,
                          device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
             wbuf_b.data_ptr(), bbuf.data_ptr(), g.data_ptr(), ws.data_ptr(),
             dp.data_ptr(), denc.data_ptr(), dcodes.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), part.data_ptr(), ptr(vf_m),
-            ptr(gw), P, slice_, n, est.S, R, cuda_build.stream(dev))
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), _ptr(vf_m),
+            _ptr(gw), _ptr(tf), P, slice_, n, est.S, R,
+            cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
     if est.viewfac:
@@ -592,36 +694,45 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
 
 
 def encmlp_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes, cutoff,
-               tau, flat, g):
+               tau, flat, g, tf=None):
     """K3: the backward of K1 for the raw cotangent ``g`` (4, n).
     Returns (dp (n, 3J), denc (R, nb*3J), dcodes (R, C) or None, f32
-    gradients of the ``flatten_params_cm`` operands).  CPU tensors take
-    the twin; CUDA tensors launch the kernel or raise."""
-    global K3_LAUNCHES
-    _check_inputs(p, enc_ray, cutoff, tau, [codes], est)
+    gradients of the ``flatten_params_cm`` operands); under fuse_tform
+    ``p`` is the depths and ``tf`` their rows, and dp is still the
+    points' cotangent.  CPU tensors take the twin; CUDA tensors launch
+    the kernel or raise."""
+    global K3_LAUNCHES, K3_TF_LAUNCHES
+    _check_inputs(p, enc_ray, cutoff, tau, [codes], est, tf)
     if cuda_build.device_of(p) == 'cpu':
         return encmlp_bwd_plain(st, est, p, enc_ray, codes, cutoff, tau,
-                                flat, g)
+                                flat, g, tf)
     dp, denc, dcodes, grads = _launch_bwd('encmlp_bwd', 1, st, est, p,
                                           enc_ray, [codes], cutoff, tau,
-                                          [flat], [g])
-    K3_LAUNCHES += 1
+                                          [flat], [g], tf)
+    if est.fuse_tform:
+        K3_TF_LAUNCHES += 1
+    else:
+        K3_LAUNCHES += 1
     return dp, denc, dcodes[0] if est.has_codes else None, grads[0]
 
 
 def encmlp_dual_bwd(st: MLPStatic, est: EncStatic, p, enc_ray, codes_c,
-                    codes_f, cutoff, tau, flat_c, flat_f, g_c, g_f):
+                    codes_f, cutoff, tau, flat_c, flat_f, g_c, g_f, tf=None):
     """K4: the backward of K2.  Returns (dp, denc, dcodes_c, dcodes_f,
     grads_c, grads_f)."""
-    global K4_LAUNCHES
-    _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est)
+    global K4_LAUNCHES, K4_TF_LAUNCHES
+    _check_inputs(p, enc_ray, cutoff, tau, [codes_c, codes_f], est, tf)
     if cuda_build.device_of(p) == 'cpu':
         return encmlp_dual_bwd_plain(st, est, p, enc_ray, codes_c, codes_f,
-                                     cutoff, tau, flat_c, flat_f, g_c, g_f)
+                                     cutoff, tau, flat_c, flat_f, g_c, g_f,
+                                     tf)
     dp, denc, dcodes, grads = _launch_bwd(
         'encmlp_dual_bwd', 2, st, est, p, enc_ray, [codes_c, codes_f],
-        cutoff, tau, [flat_c, flat_f], [g_c, g_f])
-    K4_LAUNCHES += 1
+        cutoff, tau, [flat_c, flat_f], [g_c, g_f], tf)
+    if est.fuse_tform:
+        K4_TF_LAUNCHES += 1
+    else:
+        K4_LAUNCHES += 1
     dc = (dcodes[0], dcodes[1]) if est.has_codes else (None, None)
     return dp, denc, dc[0], dc[1], grads[0], grads[1]
 
@@ -761,26 +872,35 @@ def _cast_grads(grads, flat):
     return [gr.to(w.dtype) for gr, w in zip(grads, flat)]
 
 
+def _point_grads(est: EncStatic, p, tf, dp):
+    """The cotangents of the point operands from dp (n, 3J): (dp, None),
+    or under fuse_tform those of the depths and of the rows."""
+    if est.fuse_tform:
+        return _tform_pullback(tf, p, dp)
+    return dp, None
+
+
 class _EncMLP(torch.autograd.Function):
     """K1 forward, K3 backward (``pallas_encmlp._fused`` custom_vjp).
     ``cutoff`` and ``tau`` get no gradient, as in JAX."""
 
     @staticmethod
-    def forward(ctx, st, est, p, enc_ray, codes, cutoff, tau, *flat):
+    def forward(ctx, st, est, p, enc_ray, codes, cutoff, tau, tf, *flat):
         ctx.st, ctx.est, ctx.has_codes = st, est, codes is not None
-        ctx.save_for_backward(p, enc_ray, cutoff, tau,
+        ctx.save_for_backward(p, enc_ray, cutoff, tau, tf,
                               *([codes] if codes is not None else []), *flat)
-        return _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat)
+        return _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat, tf)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        p, enc_ray, cutoff, tau = saved[:4]
-        codes = saved[4] if ctx.has_codes else None
-        flat = saved[5 if ctx.has_codes else 4:]
+        p, enc_ray, cutoff, tau, tf = saved[:5]
+        codes = saved[5] if ctx.has_codes else None
+        flat = saved[6 if ctx.has_codes else 5:]
         dp, denc, dcodes, grads = encmlp_bwd(ctx.st, ctx.est, p, enc_ray,
-                                             codes, cutoff, tau, flat, g)
-        return (None, None, dp, denc, dcodes, None, None,
+                                             codes, cutoff, tau, flat, g, tf)
+        dp, dtf = _point_grads(ctx.est, p, tf, dp)
+        return (None, None, dp, denc, dcodes, None, None, dtf,
                 *_cast_grads(grads, flat))
 
 
@@ -789,49 +909,53 @@ class _EncMLPDual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, st, est, nflat, p, enc_ray, codes_c, codes_f, cutoff,
-                tau, *flats):
+                tau, tf, *flats):
         ctx.st, ctx.est, ctx.nflat = st, est, nflat
         ctx.has_codes = codes_c is not None
         codes = [codes_c, codes_f] if ctx.has_codes else []
-        ctx.save_for_backward(p, enc_ray, cutoff, tau, *codes, *flats)
+        ctx.save_for_backward(p, enc_ray, cutoff, tau, tf, *codes, *flats)
         return _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau,
-                         flats[:nflat], flats[nflat:])
+                         flats[:nflat], flats[nflat:], tf)
 
     @staticmethod
     def backward(ctx, g_c, g_f):
         saved = ctx.saved_tensors
-        p, enc_ray, cutoff, tau = saved[:4]
-        k = 6 if ctx.has_codes else 4
-        codes_c, codes_f = saved[4:6] if ctx.has_codes else (None, None)
+        p, enc_ray, cutoff, tau, tf = saved[:5]
+        k = 7 if ctx.has_codes else 5
+        codes_c, codes_f = saved[5:7] if ctx.has_codes else (None, None)
         flat_c, flat_f = saved[k:k + ctx.nflat], saved[k + ctx.nflat:]
         dp, denc, dc_c, dc_f, gr_c, gr_f = encmlp_dual_bwd(
             ctx.st, ctx.est, p, enc_ray, codes_c, codes_f, cutoff, tau,
-            flat_c, flat_f, g_c, g_f)
-        return (None, None, None, dp, denc, dc_c, dc_f, None, None,
+            flat_c, flat_f, g_c, g_f, tf)
+        dp, dtf = _point_grads(ctx.est, p, tf, dp)
+        return (None, None, None, dp, denc, dc_c, dc_f, None, None, dtf,
                 *_cast_grads(gr_c, flat_c), *_cast_grads(gr_f, flat_f))
 
 
 def encmlp_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
                enc_ray: torch.Tensor, codes: Optional[torch.Tensor],
                cutoff: torch.Tensor, tau: torch.Tensor,
-               flat: Sequence[torch.Tensor]) -> torch.Tensor:
+               flat: Sequence[torch.Tensor],
+               tf: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: fused encode + one net.  p (n, 3J) component-major f32,
     enc_ray (R, nb*3J), codes (R, C) or None, cutoff (J,), tau (1,),
-    flat the ``flatten_params_cm`` operands.  Returns raw (4, n), with
-    K3 as its backward on every device."""
-    return _EncMLP.apply(st, est, p, enc_ray, codes, cutoff, tau, *flat)
+    flat the ``flatten_params_cm`` operands; under ``est.fuse_tform`` p
+    is the depths (R, S) and tf their affine rows (R, 2, 3J).  Returns
+    raw (4, n), with K3 as its backward on every device."""
+    return _EncMLP.apply(st, est, p, enc_ray, codes, cutoff, tau, tf, *flat)
 
 
 def encmlp_dual_fwd(st: MLPStatic, est: EncStatic, p: torch.Tensor,
                     enc_ray: torch.Tensor, codes_c: Optional[torch.Tensor],
                     codes_f: Optional[torch.Tensor], cutoff: torch.Tensor,
                     tau: torch.Tensor, flat_c: Sequence[torch.Tensor],
-                    flat_f: Sequence[torch.Tensor]
+                    flat_f: Sequence[torch.Tensor],
+                    tf: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: fused encode once + the coarse and the fine net.  Returns
     (raw_coarse, raw_fine), each (4, n), with K4 as their backward."""
     return _EncMLPDual.apply(st, est, len(flat_c), p, enc_ray, codes_c,
-                             codes_f, cutoff, tau, *flat_c, *flat_f)
+                             codes_f, cutoff, tau, tf, *flat_c, *flat_f)
 
 
 def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
@@ -846,17 +970,24 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
     encode; their bytes add the incoming g, dp, denc, dcodes and the f32
     weight gradients.  Under viewfac the views input's products are a
     ray's J rows of M a point (recompute, window cotangent, xw^T g_hv),
-    and the fold's own work is K-vf2's (``vf_cost``)."""
+    and the fold's own work is K-vf2's (``vf_cost``).  Under fuse_tform
+    the points come in as the depths and the affine rows, R (S + 6J) x 4
+    bytes (pallas_encmlp.py:592-593), and each build of a point (the
+    forward's, the backward's recompute and pullback) adds its 3
+    products and 3 sums a joint; dp (n, 3J) is still written."""
     J, F, nb = est.J, len(est.kp_freqs), est.view_nb
     R = n // est.S
     # per point and joint: distance 6, window 6, first sin/cos 3, each
     # further octave 5, v scaling 2F+1, bone dir 5, view rows 3*nb
     enc = n * J * (6 + 6 + 3 + 5 * (F - 1) + (2 * F + 1) + 5 + 3 * nb)
+    tform = 6 * n * J if est.fuse_tform else 0
     wshapes = _weight_shapes(st)
     wbytes = sum(int(np.prod(s)) * (2 if d == torch.bfloat16 else 4)
                  for s, d in wshapes)
     codes = st.vparts[1] if est.has_codes else 0
-    nbytes = (n * 3 * J * 4 + R * nb * 3 * J * 4 + nnet * R * codes * 4
+    pts_bytes = (R * (est.S + 6 * J) * 4 if est.fuse_tform
+                 else n * 3 * J * 4)
+    nbytes = (pts_bytes + R * nb * 3 * J * 4 + nnet * R * codes * 4
               + nnet * wbytes + nnet * 4 * n * 4 + (J + 1) * 4)
     macs = _mlp_macs(st)
     if est.viewfac:
@@ -865,12 +996,14 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
         macs -= (nb * 3 * J - J) * st.half
         nbytes += nnet * R * J * st.half * 2
     flops = 2. * macs * n * nnet
+    enc += tform
     if backward:
         flops *= 3
         # pullback per point and joint: 2F+1 window products and sums,
         # 2F paired-band terms (3 each), bone dir 7, view rows 4*nb
         # (window and g_w), window and sqrt' 8
         enc += n * J * (3 * (2 * F + 1) + 3 * 2 * F + 7 + 4 * 3 * nb + 8)
+        enc += tform
         gvals = sum(int(np.prod(s)) for s, _ in wshapes)
         nbytes += (n * 3 * J * 4 + R * nb * 3 * J * 4
                    + nnet * R * codes * 4 + nnet * gvals * 4)
@@ -949,8 +1082,8 @@ def view_pe_rows(rays_t_norm: torch.Tensor, freq_bands: Sequence[float],
 DEFAULT_TILE = 512
 
 
-def _statics(rc, J: int, S: int, tile: int, has_codes: bool
-             ) -> Tuple[MLPStatic, EncStatic]:
+def _statics(rc, J: int, S: int, tile: int, has_codes: bool,
+             fuse_tform: bool = False) -> Tuple[MLPStatic, EncStatic]:
     """The static shapes of a call at S samples a ray and a point tile
     of ``tile``."""
     nerf = rc.nerf
@@ -965,29 +1098,39 @@ def _statics(rc, J: int, S: int, tile: int, has_codes: bool
                     view_nb=1 + 2 * rc.view_embed.num_freqs,
                     S=S, rpt=max(tile // S, 1), has_codes=has_codes,
                     bone_windowed=rc.bone_embed.cutoff,
-                    viewfac=getattr(rc, 'viewfac', False))
+                    viewfac=getattr(rc, 'viewfac', False),
+                    fuse_tform=fuse_tform)
     return st, est
 
 
 def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
-                tile, enc_ray=None):
+                tile, enc_ray=None, tf_rows=None, z_vals=None):
     """Statics + kernel operands from component-major ``pts_t``
-    (R, S, 3J).  Returns (st, est, p, enc_ray, cutoff (J,), tau (1,)).
+    (R, S, 3J), or, given the affine rows ``tf_rows`` (R, 2, 3J) of
+    ``tform_rows`` and the depths ``z_vals`` (R, S), for the in-kernel
+    transform (``pts_t`` is then ignored and ``p`` is the depths).
+    Returns (st, est, p, enc_ray, cutoff (J,), tau (1,)).
 
     The tile arithmetic and the viewfac cost gate are those of
-    ``pallas_encmlp._build_call``; unlike the TPU kernels the CUDA
-    kernels mask their ragged edge, so every (R, S) is taken.
+    ``pallas_encmlp._build_call``, whichever form the points take;
+    unlike the TPU kernels the CUDA kernels mask their ragged edge, so
+    every (R, S) is taken.
     """
     if tile is None:
         tile = DEFAULT_TILE
-    R, S, K = pts_t.shape
-    J = K // 3
+    if tf_rows is not None:
+        R, S = z_vals.shape
+        J = tf_rows.shape[-1] // 3
+    else:
+        R, S, K = pts_t.shape
+        J = K // 3
     n = R * S
     while tile > 128 and (n < tile or tile % S != 0 or
                           R % (tile // S) != 0):
         tile //= 2
     st, est = _statics(rc, J, S, tile,
-                       rc.nerf.use_framecode and cam_idxs is not None)
+                       rc.nerf.use_framecode and cam_idxs is not None,
+                       fuse_tform=tf_rows is not None)
     if est.viewfac:
         # the factorized forward costs rptJ*nblkJ + T*rptJ MACs per
         # half-column against T*nblkJ dense: it wins only when
@@ -996,7 +1139,10 @@ def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
         if J * (nblkJ + tile) >= 0.9 * S * nblkJ:
             est = dataclasses.replace(est, viewfac=False)
 
-    p = pts_t.reshape(n, 3 * J).float().contiguous()
+    if tf_rows is not None:
+        p = z_vals.float().contiguous()
+    else:
+        p = pts_t.reshape(n, 3 * J).float().contiguous()
     if enc_ray is None:
         enc_ray = view_pe_rows(
             rays_t_norm, [float(f) for f in rc.view_embed.freq_bands()], J)
@@ -1014,43 +1160,57 @@ def _codes(net_params, cam_idxs) -> torch.Tensor:
                             cam_idxs).float().contiguous()
 
 
-def nerf_encmlp(net_params: Dict[str, Any], rc, pts_t: torch.Tensor,
+def _tf_operand(est: EncStatic, tf_rows) -> Optional[torch.Tensor]:
+    return tf_rows.float().contiguous() if est.fuse_tform else None
+
+
+def nerf_encmlp(net_params: Dict[str, Any], rc,
+                pts_t: Optional[torch.Tensor],
                 rays_t_norm: torch.Tensor, cutoff_dist, tau,
                 cam_idxs: Optional[torch.Tensor] = None,
                 tile: Optional[int] = None,
-                enc_ray: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_ray: Optional[torch.Tensor] = None,
+                tf_rows: Optional[torch.Tensor] = None,
+                z_vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused encode+MLP for one network pass (K1).
 
-    pts_t: (R, S, 3J) component-major skeleton-relative points;
+    pts_t: (R, S, 3J) component-major skeleton-relative points, or None
+    when ``tf_rows`` (R, 2, 3J, ``tform_rows``) and ``z_vals`` (R, S) are
+    given: the kernel then applies the rigid transform itself (fuse_tform);
     rays_t_norm: (R, 3J) normalized per-joint local ray directions;
     cutoff_dist: (J,); tau: scalar; cam_idxs: (R,) framecode indices or
     None; enc_ray: optionally the precomputed ``view_pe_rows``.
     Returns channel-major raw (4, R, S).
     """
-    R, S = pts_t.shape[:2]
     st, est, p, enc_ray, cutoff, tau_t = _build_call(
-        rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs, tile, enc_ray)
+        rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs, tile, enc_ray,
+        tf_rows, z_vals)
+    R = enc_ray.shape[0]
     codes = _codes(net_params, cam_idxs) if est.has_codes else None
     flat = flatten_params_cm(net_params, st, est.J, est.view_nb)
-    raw = encmlp_fwd(st, est, p, enc_ray, codes, cutoff, tau_t, flat)
-    return raw.reshape(4, R, S)
+    raw = encmlp_fwd(st, est, p, enc_ray, codes, cutoff, tau_t, flat,
+                     _tf_operand(est, tf_rows))
+    return raw.reshape(4, R, est.S)
 
 
 def nerf_encmlp_dual(coarse_params: Dict[str, Any],
                      fine_params: Dict[str, Any], rc,
-                     pts_t: torch.Tensor, rays_t_norm: torch.Tensor,
-                     cutoff_dist, tau,
+                     pts_t: Optional[torch.Tensor],
+                     rays_t_norm: torch.Tensor, cutoff_dist, tau,
                      cam_idxs: Optional[torch.Tensor] = None,
                      tile: Optional[int] = None,
-                     enc_ray: Optional[torch.Tensor] = None
+                     enc_ray: Optional[torch.Tensor] = None,
+                     tf_rows: Optional[torch.Tensor] = None,
+                     z_vals: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused encode once + BOTH MLPs on the same points (K2).  The
-    reference runs the coarse and the fine net on the same stratified
-    samples (core/raycasters.py:438,456-461).  Returns (raw_coarse,
-    raw_fine), each (4, R, S)."""
-    R, S = pts_t.shape[:2]
+    """Fused encode once + BOTH MLPs on the same points (K2), as
+    ``nerf_encmlp`` takes them.  The reference runs the coarse and the
+    fine net on the same stratified samples (core/raycasters.py:438,
+    456-461).  Returns (raw_coarse, raw_fine), each (4, R, S)."""
     st, est, p, enc_ray, cutoff, tau_t = _build_call(
-        rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs, tile, enc_ray)
+        rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs, tile, enc_ray,
+        tf_rows, z_vals)
+    R, S = enc_ray.shape[0], est.S
     if est.has_codes:
         codes_c = _codes(coarse_params, cam_idxs)
         codes_f = _codes(fine_params, cam_idxs)
@@ -1059,5 +1219,6 @@ def nerf_encmlp_dual(coarse_params: Dict[str, Any],
     flat_c = flatten_params_cm(coarse_params, st, est.J, est.view_nb)
     flat_f = flatten_params_cm(fine_params, st, est.J, est.view_nb)
     raw_c, raw_f = encmlp_dual_fwd(st, est, p, enc_ray, codes_c, codes_f,
-                                   cutoff, tau_t, flat_c, flat_f)
+                                   cutoff, tau_t, flat_c, flat_f,
+                                   _tf_operand(est, tf_rows))
     return raw_c.reshape(4, R, S), raw_f.reshape(4, R, S)

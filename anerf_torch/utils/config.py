@@ -177,10 +177,11 @@ class Config:
     mlp_backend: str = 'auto'
     remat: bool = True               # recompute encodings in backward
     # per-ray view factorization inside the fused kernels (anerf_tpu;
-    # not ported yet, see ROADMAP.md)
+    # K1-K4 where its cost gate picks it, ops/fused_encmlp.py)
     viewfac: bool = True
-    # in-kernel rigid transform inside the fused kernels (anerf_tpu;
-    # not ported yet, see ROADMAP.md)
+    # in-kernel rigid transform inside the fused kernels (anerf_tpu; K1-K4
+    # build the points from per-ray affine rows and depths,
+    # ops/fused_encmlp.tform_rows; off by default, and off under ray noise)
     fuse_tform: bool = False
     data_axis: str = 'data'          # mesh axis name for ray sharding
     n_devices: Optional[int] = None  # None = all visible devices

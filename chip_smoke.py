@@ -31,6 +31,19 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    anerf_tpu's bars between the two chains, both forms timed in turns
    with K4's passes; the flagship step with viewfac and dense, eager
    and bundled, in turns;
+2c. fuse_tform phase (``fuse_tform_phase``): K1-K4's in-kernel rigid
+   transform forms (the depths and each ray's affine rows in place of
+   the points) against their twins at a ragged point count and at the
+   kernel phases' shapes, two calls bit-identical, each timed in turns
+   with its dense form beside its bound and twin (K3/K4 with their
+   passes); one flagship step's maps and gradients against the dense
+   form on the same state, batch and draws, beside the floor of the
+   dense form against itself with its points rescaled by one rounding;
+   5 eager flagship steps launching the fuse_tform forms once a step and
+   the point forms never; the flagship step both ways, eager and
+   bundled, in turns; the render path both ways in turns (eval rays/s,
+   the fuse_tform forms of K1/K2 once a chunk, the frames against the
+   dense form's);
 3. path phase: ``ImageRenderer.render_path`` renders bullet-time frames
    at 512x512 with 4096-ray chunks through the port's render path; the
    launch counts of K1 and K2 must each equal the number of chunks, the
@@ -124,7 +137,8 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    cutoff windows and 'relpos' + 'reldir' + 'relray' with
    ``normalize_cutoff``: one chunk rendered and 2 train steps each
    through K5/K6;
-14. bundled phases (``train_bundled`` after 4, ``ms_bundled`` after 7):
+14. bundled phases (``train_bundled`` and ``train_bundled_tf``, the
+   flagship under fuse_tform, after 4; ``ms_bundled`` after 7):
    ``make_multi_train_step`` at 10 steps a dispatch, each step after the
    first call's warm-up and capture a replay of one CUDA graph, on the
    flagship (K1-K4) and the two-subject model (K5/K6), 30 steps each
@@ -156,7 +170,11 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
 17. cli_net_width phase (after 15): ``configs/mixamo.txt`` at
    ``netwidth = 512`` and ``mlp_backend = 'pallas'`` through
    ``run_train.train`` on a synthetic store, 4 steps, K5 and K6 three
-   times a step and K1-K4 never, finite losses.
+   times a step and K1-K4 never, finite losses;
+18. cli_fuse_tform phase (after 17): ``configs/mixamo.txt`` with
+   ``fuse_tform = True`` through ``run_train.train`` on cli_train's
+   store, 4 steps, K1-K4's fuse_tform forms once a step and their point
+   forms never, finite losses.
 
 Each phase prints its host seconds as it ends.  Every backward kernel's
 dW pass is its two kernels (the point slices' partial tiles and their
@@ -164,17 +182,21 @@ sum in slice order); its passes line gives the pass's bound beside its
 ms.
 
 Prints the card (nvidia-smi name and power limit), a ``kernels`` JSON
-line (K1-K6, K-vf1 ``vf_operand`` and K-vf2 ``vf_fold``; each kernel's
-launches are those of the run whose shapes its row times: the flagship
-train steps for K1-K4 and K-vf1/K-vf2, the multi-subject
-train step for K5/K6; ``launches_by_path`` adds every path's, the
+line (K1-K6, K-vf1 ``vf_operand``, K-vf2 ``vf_fold`` and K1-K4's
+fuse_tform forms ``encmlp_*_tf``; each kernel's launches are those of
+the run whose shapes its row times: the flagship train steps for K1-K4
+and K-vf1/K-vf2, the flagship train steps under fuse_tform for the
+``_tf`` rows, the multi-subject train step for K5/K6; ``launches_by_path`` adds every path's, the
 bundled ones counted at warm-up and capture; K1's and K2's rows add ``train_shape``, the
 backward kernels' ``passes_ms``, K1-K4's ``cli_train_shape`` the
 times, bound, error and launches at the CLI mixamo step's shapes, and
 K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
 the launches of the path that runs each, and ``net_shapes`` those of
 the net_shapes phase's nets with the launches of their train steps;
-K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns),
+K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
+``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
+and ``fuse_tform_times``, the flagship step's and the render's both
+ways),
 and as its last line ``{"ok": true, "device": {...}}``.  Any
 failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
@@ -228,6 +250,30 @@ VF_RATIO_TOL = 3e-2
 # summed in f32 in another order, then rounded to bf16, so a value may
 # land one bf16 step (2^-7 of it, at most) away
 VF_M_ULP = 2. ** -7
+# fuse_tform (the in-kernel rigid transform) against the dense form on
+# one flagship step (same state, batch and draws).  The two forms round
+# the points' transform differently (~1.8 f32 ulp apart on average), and
+# the bf16 chain turns that into a flipped rounding or ReLU mask here and
+# there: anerf_tpu's 8-ray bars (tests/test_pallas_encmlp.py:84-121; 1e-4
+# maps, cosine 0.9999) do not hold at the 2048-ray step for any such
+# change (the dense form against itself with its points scaled by
+# 1 + 2^-22 reads below them too; the check prints that floor).  So the
+# gradients are held at anerf_tpu's bar between two chains that round
+# differently (viewfac's, VF_COS_MIN / VF_RATIO_TOL), and the maps at
+# the bar the fused path is held to against the plain one (MAP_TOL) at
+# the worst ray and 1e-5 of the scale on average
+TF_COS_MIN = VF_COS_MIN
+TF_RATIO_TOL = VF_RATIO_TOL
+TF_MAP_TOL = MAP_TOL
+TF_MAP_MEAN_TOL = 1e-5
+TF_STEPS = 5            # eager flagship steps under fuse_tform, counted
+CLI_TF_STEPS = 4        # cli_fuse_tform: run_train.train steps
+# one flagship train step under fuse_tform: K1-K4's fuse_tform forms
+# once each (counted apart from the point forms), viewfac as in
+# FLAGSHIP_STEP
+FLAGSHIP_STEP_TF = {'encmlp_fwd_tf': 1, 'encmlp_dual_fwd_tf': 1,
+                    'encmlp_bwd_tf': 1, 'encmlp_dual_bwd_tf': 1,
+                    'vf_operand': 2, 'vf_fold': 1}
 MS_STEPS = 12           # multi-subject train steps
 SINGLE_STEPS = 2        # surreal_single train steps
 CLI_STEPS = 40          # cli_train: anerf_torch.run_train.train steps
@@ -296,11 +342,14 @@ def _rel_err(ref, got):
 
 
 def kernel_inputs(FE, T, rc, cfg, params, S, R, device, codes=True,
-                  tile=1024):
+                  tile=1024, fuse_tform=False):
     """K1/K2 operands at R rays x S samples from a synthetic scene
     (``codes=False``: a config without framecodes), the viewfac gate
     priced at a point tile of ``tile`` (the render path's 1024: dense;
-    the train step's 512: viewfac at S >= 32 where ``rc.viewfac``)."""
+    the train step's 512: viewfac at S >= 32 where ``rc.viewfac``).
+    ``fuse_tform``: the same points as the in-kernel transform takes
+    them, the depths (R, S) in place of the points and the rays' affine
+    rows (``tform_rows``) appended as a ninth operand."""
     import torch
     from anerf_torch.models.factory import embed_state
     from anerf_torch.ops import encoders, rays as ray_ops
@@ -316,8 +365,11 @@ def kernel_inputs(FE, T, rc, cfg, params, S, R, device, codes=True,
     rays_t_norm = encoders.vec_norm(rays_t)[:, 0]
     tau = embed_state(cfg, rc, 10000)['tau']
     cams = b['cam_idxs'] if codes else None
+    tf = (FE.tform_rows(b['skts'], b['rays_o'], b['rays_d']) if fuse_tform
+          else None)
     st, est, p, enc, cutoff, tau_t = FE._build_call(
-        rc, pts_t, rays_t_norm, params['cutoff_dist'], tau, cams, tile)
+        rc, pts_t, rays_t_norm, params['cutoff_dist'], tau, cams, tile,
+        tf_rows=tf, z_vals=z if fuse_tform else None)
     if not codes:     # the views weights without the framecode rows
         params = {k: dict(params[k], views_linear={
             'w': params[k]['views_linear']['w'][:-cfg.framecode_size],
@@ -326,6 +378,8 @@ def kernel_inputs(FE, T, rc, cfg, params, S, R, device, codes=True,
              for k in ('coarse', 'fine')]
     flats = [FE.flatten_params_cm(params[k], st, est.J, est.view_nb)
              for k in ('coarse', 'fine')]
+    if fuse_tform:
+        return st, est, p, enc, codes, cutoff, tau_t, flats, tf
     return st, est, p, enc, codes, cutoff, tau_t, flats
 
 
@@ -349,13 +403,14 @@ def _check_close(name, ref, got):
     return max_abs
 
 
-def _calls(FE, st, est, p, enc, codes, cutoff, tau, flats, nnet):
-    """(kernel, twin) closures of K1 (nnet=1, the fine net) or K2."""
+def _calls(FE, st, est, p, enc, codes, cutoff, tau, flats, nnet, tf=None):
+    """(kernel, twin) closures of K1 (nnet=1, the fine net) or K2;
+    ``tf``: the affine rows under fuse_tform (``p`` the depths)."""
     if nnet == 1:
-        args = (st, est, p, enc, codes[1], cutoff, tau, flats[1])
+        args = (st, est, p, enc, codes[1], cutoff, tau, flats[1], tf)
         return (lambda: [FE.encmlp_fwd(*args)],
                 lambda: [FE.encmlp_fwd_plain(*args)])
-    args = (st, est, p, enc, *codes, cutoff, tau, *flats)
+    args = (st, est, p, enc, *codes, cutoff, tau, *flats, tf)
     return (lambda: list(FE.encmlp_dual_fwd(*args)),
             lambda: list(FE.encmlp_dual_fwd_plain(*args)))
 
@@ -511,9 +566,12 @@ def pass_times(name, run, shape, dw=None, peaks=None):
     return out
 
 
-def _bwd_calls(FE, st, est, p, enc, codes, cutoff, tau, flats, g, nnet):
+def _bwd_calls(FE, st, est, p, enc, codes, cutoff, tau, flats, g, nnet,
+               tf=None):
     """(kernel, twin) closures of K3 (nnet=1) or K4, each returning the
-    named outputs [(name, tensor)]: dp, denc, dcodes, every gradient."""
+    named outputs [(name, tensor)]: dp, denc, dcodes, every gradient;
+    ``tf`` as ``_calls`` takes it (dp is the points' cotangent either
+    way)."""
     def named(out):
         if nnet == 1:
             dp, denc, dc, gr = out
@@ -527,10 +585,10 @@ def _bwd_calls(FE, st, est, p, enc, codes, cutoff, tau, flats, g, nnet):
             items += [(f'fine.g{i}', x) for i, x in enumerate(grf)]
         return [(k, v) for k, v in items if v is not None]
     if nnet == 1:
-        args = (st, est, p, enc, codes[1], cutoff, tau, flats[1], g[0])
+        args = (st, est, p, enc, codes[1], cutoff, tau, flats[1], g[0], tf)
         return (lambda: named(FE.encmlp_bwd(*args)),
                 lambda: named(FE.encmlp_bwd_plain(*args)))
-    args = (st, est, p, enc, *codes, cutoff, tau, *flats, g[0], g[1])
+    args = (st, est, p, enc, *codes, cutoff, tau, *flats, g[0], g[1], tf)
     return (lambda: named(FE.encmlp_dual_bwd(*args)),
             lambda: named(FE.encmlp_dual_bwd_plain(*args)))
 
@@ -566,13 +624,14 @@ def _composited_cotangent(FE, ins, nnet, device):
     in another order than the twin's, flips a ReLU mask now and then,
     which moves whole elements of the cotangents; the phase prints the
     cosines that gives as well.)"""
-    st, est, p, enc, codes, cutoff, tau, flats = ins
+    st, est, p, enc, codes, cutoff, tau, flats = ins[:8]
+    tf = ins[8] if len(ins) > 8 else None   # the fuse_tform form's rows
     if nnet == 2:
         outs = FE.encmlp_dual_fwd_plain(st, est, p, enc, *codes, cutoff, tau,
-                                        *flats)
+                                        *flats, tf)
     else:
         outs = [FE.encmlp_fwd_plain(st, est, p, enc, codes[1], cutoff, tau,
-                                    flats[1])]
+                                    flats[1], tf)]
     return _composite_grad(outs, est.S, device)
 
 
@@ -663,11 +722,11 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
     K-vf2 (the fold, on Gram matrices drawn N(0, 1) from seed 0, in
     bf16) against their twins, two calls bit-identical, timed with their
     bounds (``vf_cost``) and, for K-vf1, ``torch.bmm`` of (J, R, 27) x
-    (J, 27, HV) beside it; K2 and K4 with viewfac against the same kernels with
+    (J, 27, 2 HV) (both nets' M) beside it; K2 and K4 with viewfac against the same kernels with
     ``rc.viewfac`` off at anerf_tpu's bars between the two chains, and
     both timed in turns (dense, viewfac, viewfac, dense), with K4's
     passes; then the flagship step both ways, eager and bundled, in
-    turns (``flagship_viewfac_timing``).  (K2/K4 with viewfac against
+    turns (``flagship_timing``).  (K2/K4 with viewfac against
     their twins: the kernel phases' train shapes.)  Returns (the
     K-vf1 and K-vf2 rows, {K2/K4 name: their dense and viewfac ms})."""
     import torch
@@ -698,17 +757,20 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
     if bad or not torch.isfinite(got.float()).all():
         raise AssertionError('vf_operand disagrees with its twin')
     _check_deterministic('vf_operand', [('M', got)], [('M', run())])
+    # the library call for the same work: both nets' M in one torch.bmm,
+    # the nets' view rows side by side in its columns
     E = enc.to(torch.bfloat16).reshape(R, -1, est.J).permute(2, 0, 1)
     E = E.contiguous()
-    W3 = wvx[0].reshape(-1, est.J, HV).permute(1, 0, 2).contiguous()
+    W3 = torch.cat([w.reshape(-1, est.J, HV).permute(1, 0, 2) for w in wvx],
+                   -1).contiguous()
     lib_ms = _time_ms(lambda: torch.bmm(E, W3), 20)
     row = _timed_row('vf_operand', 'viewfac.cu', 151,
                      FE.vf_cost(est, R, 2, HV), _time_ms(run, 20),
                      _time_ms(plain, 5), d.max().item(), peaks,
                      f'R={R} two nets', tpu_file='pallas_mlp.py')
     row['library_ms'] = lib_ms
-    row['library'] = 'torch.bmm (J, R, 27) x (J, 27, HV), one net'
-    print(f'vf_operand: torch.bmm of one net {lib_ms:.4f} ms')
+    row['library'] = 'torch.bmm (J, R, 27) x (J, 27, 2 HV), both nets'
+    print(f'vf_operand: torch.bmm of both nets {lib_ms:.4f} ms')
     rows.append(row)
 
     # K-vf2 on drawn Gram matrices
@@ -760,14 +822,15 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
         times['encmlp_dual_bwd'][f'{mode}_passes_ms'] = pass_times(
             'encmlp_dual_bwd', run, f'R={R} S={S} {mode}')
     del fwd_vf, fwd_d, bwd_vf, bwd_d, g, ins, ins_d, gw
-    times['flagship_step'] = flagship_viewfac_timing(FE, T, device,
-                                                     gpu_line)
+    times['flagship_step'] = flagship_timing(
+        T, device, gpu_line, 'viewfac against dense',
+        {'viewfac': dict(viewfac=True), 'dense': dict(viewfac=False)})
     return rows, times
 
 
-def flagship_viewfac_timing(FE, T, device, gpu_line):
+def flagship_timing(T, device, gpu_line, what, modes):
     """The flagship train step (``build_flagship(2048,
-    steps_per_dispatch=BUNDLE)``) with viewfac on (the default) and off:
+    steps_per_dispatch=BUNDLE, **modes[mode])``) in each of two modes:
     after each bundle's warm-up and capture, 3 rounds in turns of BUNDLE
     eager steps and one bundle of each; host ms/step (medians), the
     clock ending in ``synchronize()``.  Returns {mode: {'eager',
@@ -775,22 +838,21 @@ def flagship_viewfac_timing(FE, T, device, gpu_line):
     import torch
     from anerf_torch.training import trainer as TT
     runs = {}
-    for vf in (True, False):
+    for mode, over in modes.items():
         setup, state, batches, multi = T.build_flagship(
             2048, device=device, compute_dtype='bfloat16',
-            steps_per_dispatch=BUNDLE, viewfac=vf)
+            steps_per_dispatch=BUNDLE, **over)
         eager = TT.make_train_step(setup)
         g = torch.Generator(device=device).manual_seed(7)
         state, _ = multi(state, batches, g)       # warm-up, capture
         one = {k: v[0] for k, v in batches.items()}
         state, _ = eager(state, one, g)
-        runs['viewfac' if vf else 'dense'] = [state, batches, multi, eager,
-                                              g, one]
+        runs[mode] = [state, batches, multi, eager, g, one]
     torch.cuda.synchronize()
+    first, second = modes
     ms = {(m, k): [] for m in runs for k in ('eager', 'bundled')}
     for w in range(3):
-        for m in (('viewfac', 'dense') if w % 2 == 0
-                  else ('dense', 'viewfac')):
+        for m in ((first, second) if w % 2 == 0 else (second, first)):
             state, batches, multi, eager, g, one = runs[m]
             for k in ('eager', 'bundled'):
                 torch.cuda.synchronize()
@@ -805,7 +867,7 @@ def flagship_viewfac_timing(FE, T, device, gpu_line):
             runs[m][0] = state
     out = {m: {k: statistics.median(ms[m, k]) for k in ('eager', 'bundled')}
            for m in runs}
-    print(f'flagship step, viewfac against dense (medians of 3 rounds in '
+    print(f'flagship step, {what} (medians of 3 rounds in '
           f'turns, ms/step): ' + ', '.join(
               f'{m} eager {out[m]["eager"]:.2f} bundled '
               f'{out[m]["bundled"]:.2f}' for m in out)
@@ -813,6 +875,285 @@ def flagship_viewfac_timing(FE, T, device, gpu_line):
     del runs
     torch.cuda.empty_cache()
     return out
+
+
+def _turns(a, b, reps, windows=5):
+    """Device ms per call of ``a`` and ``b`` in turns: a, b, b, a."""
+    return [_time_ms(f, reps, windows) for f in (a, b, b, a)]
+
+
+def _tf_step_check(FE, setup, state, batch, device):
+    """One flagship step's maps and gradients under fuse_tform against
+    the dense form on the same state, batch and draws (render_rays and
+    ``loss_and_grads`` with generators seeded alike): the maps within
+    TF_MAP_TOL of each map's scale at the worst ray and TF_MAP_MEAN_TOL
+    on average, every NeRF and pose gradient leaf at TF_COS_MIN /
+    TF_RATIO_TOL.  Printed beside them, the floor: the dense form against
+    itself with its points scaled by 1 + 2^-22 (about the two forms' mean
+    rounding difference).  Returns the worst readings of both."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.ops import encoders
+    from anerf_torch.training import trainer as TT
+    maps, grads = {}, {}
+    scaled = lambda f: lambda *a: f(*a) * (1. + 2. ** -22)
+    for mode in ('tf', 'dense', 'floor'):
+        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
+            setup.rc, fuse_tform=mode == 'tf'))
+        with _Wrapped(encoders, **({'transform_batch_pts_cm': scaled}
+                                   if mode == 'floor' else {})):
+            _, g_nerf, g_pose = TT.loss_and_grads(
+                s2, state, batch,
+                torch.Generator(device=device).manual_seed(3))
+            pose, _ = TT.get_batch_pose(s2, state['pose_params'], batch)
+            with torch.no_grad():
+                maps[mode] = raycaster.render_rays(
+                    s2.rc, state['params'], batch['rays_o'],
+                    batch['rays_d'], s2.near, s2.far, pose,
+                    embed_state(s2.cfg, s2.rc, 10000),
+                    cam_idxs=batch['cam_idxs'],
+                    generator=torch.Generator(device=device).manual_seed(3))
+        grads[mode] = g_nerf + g_pose
+    worst = {}
+    for mode in ('tf', 'floor'):
+        mx = mn = 0.
+        for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
+            ref, got = maps['dense'][k], maps[mode][k]
+            scale = ref.abs().max().item() + 1e-6
+            d = (ref - got).abs()
+            mx = max(mx, d.max().item() / scale)
+            mn = max(mn, d.mean().item() / scale)
+        worst[mode] = [mx, mn]
+    names = _leaf_names(state['params']) + [
+        f'pose.{k}' for k in _leaf_names(state['pose_params'])]
+    leaves = {}
+    for mode in ('tf', 'floor'):
+        leaves[mode] = []
+        for k, a, b in zip(names, grads['dense'], grads[mode]):
+            if a.norm().item() == 0:
+                if b.norm().item() != 0:
+                    raise AssertionError(f'{k}: a {mode} gradient where the '
+                                         'dense form has none')
+                continue
+            cos, ratio, _, _ = _cmp(a.float(), b.float())
+            leaves[mode].append((cos, k, ratio))
+        leaves[mode].sort()
+        worst[mode] += [leaves[mode][0][0], max(abs(r - 1) for _, _, r in
+                                                leaves[mode])]
+    for mode, what in (('tf', 'fuse_tform'), ('floor', 'floor: dense with '
+                                              'points x (1 + 2^-22)')):
+        mx, mn, cos, dr = worst[mode]
+        print(f'  {what} vs dense: maps worst max|d|/scale {mx:.3e}, mean '
+              f'{mn:.3e}; {len(leaves[mode])} gradient leaves, worst cos '
+              f'{cos:.7f}, worst |ratio - 1| {dr:.2e}: ' + ', '.join(
+                  f'{k} cos {c:.7f} ratio {r:.5f}'
+                  for c, k, r in leaves[mode][:3]))
+    mx, mn, cos, dr = worst['tf']
+    if mx > TF_MAP_TOL or mn > TF_MAP_MEAN_TOL:
+        raise AssertionError(f'fuse_tform maps off the dense form: max '
+                             f'{mx:.3e}, mean {mn:.3e}')
+    if cos < TF_COS_MIN or dr > TF_RATIO_TOL:
+        raise AssertionError(f'fuse_tform gradients off the dense form: cos '
+                             f'{cos:.6f}, |ratio - 1| {dr:.2e}')
+    return worst
+
+
+def fuse_tform_phase(FE, T, rc, cfg, params, peaks, device, gpu_line):
+    """The in-kernel rigid transform (``rc.fuse_tform``; K1-K4 on the
+    depths and the rays' affine rows): K1-K4's fuse_tform forms against
+    their twins at a ragged point count and at the kernel phases' shapes
+    (K1/K2 at the eval chunk R=4096 and the train step's R=2048, K3/K4 at
+    the train step's on a composited cotangent), two calls
+    bit-identical, each timed in turns with its dense form on the same
+    points (dense, fuse_tform, fuse_tform, dense) beside its bound and
+    twin, with K3/K4's passes; one flagship step's maps and gradients
+    against the dense form (``_tf_step_check``); TF_STEPS eager flagship
+    steps launching FLAGSHIP_STEP_TF a step and the point forms never;
+    the flagship step both ways, eager and bundled, in turns
+    (``flagship_timing``); the render path both ways
+    (``tform_render_timing``).  Returns (the four rows, the train steps'
+    launch counts, the render's, {name: times})."""
+    import torch
+    for name, S, nnet, Rr, codes in (('encmlp_fwd', 16, 1, 7, True),
+                                     ('encmlp_dual_fwd', 24, 2, 3, False)):
+        ins = kernel_inputs(FE, T, rc, cfg, params, S, Rr, device, codes,
+                            fuse_tform=True)
+        run, plain = _calls(FE, *ins[:8], nnet, tf=ins[8])
+        print(f'{name} fuse_tform n={Rr * S} codes={codes}:')
+        _check_close(f'{name}_tf', plain(), run())
+    rows, times = [], {}
+    for name, S, nnet, Rr in (('encmlp_fwd', 16, 1, 4096),
+                              ('encmlp_dual_fwd', 64, 2, 4096),
+                              ('encmlp_fwd', 16, 1, 2048),
+                              ('encmlp_dual_fwd', 64, 2, 2048)):
+        tile = 1024 if Rr == 4096 else 512
+        ins = kernel_inputs(FE, T, rc, cfg, params, S, Rr, device, tile=tile,
+                            fuse_tform=True)
+        st, est = ins[:2]
+        if not est.fuse_tform or est.viewfac != (tile == 512 and S == 64):
+            raise AssertionError(f'{name}: statics {est}')
+        run, plain = _calls(FE, *ins[:8], nnet, tf=ins[8])
+        dense = _calls(FE, *kernel_inputs(FE, T, rc, cfg, params, S, Rr,
+                                          device, tile=tile), nnet)[0]
+        got = run()
+        torch.cuda.synchronize()
+        print(f'{name} fuse_tform R={Rr} S={S}:')
+        max_abs = _check_close(f'{name}_tf', plain(), got)
+        _check_deterministic(f'{name}_tf', _named(got), _named(run()))
+        d = max((a - b).abs().max().item() / (a.abs().max().item() + 1e-6)
+                for x, y in zip(dense(), got) for a, b in zip(x, y))
+        print(f'  {name}_tf against the dense form on the same points: '
+              f'worst max|d|/scale of a channel {d:.3e} (not held)')
+        del got
+        t = _turns(dense, run, 10)
+        row = _timed_row(
+            f'{name}_tf', 'encmlp_fwd.cu', 345 if nnet == 1 else 709,
+            FE.kernel_cost(st, est, Rr * S, nnet), statistics.median(t[1:3]),
+            _time_ms(plain, 2), max_abs, peaks, f'R={Rr} S={S} fuse_tform')
+        row.update(dense_ms=statistics.median([t[0], t[3]]), turns_ms=t)
+        print(f'{name} R={Rr} S={S}: dense {t[0]:.3f} ms, fuse_tform '
+              f'{t[1]:.3f}, fuse_tform {t[2]:.3f}, dense {t[3]:.3f} '
+              f'({gpu_line})')
+        if Rr == 4096:
+            rows.append(row)
+        else:     # the train shape, beside the eval row
+            eval_row = next(r for r in rows if r['name'] == f'{name}_tf')
+            eval_row['train_shape'] = {k: row[k] for k in (
+                'ms', 'plain_ms', 'bound_ms', 'max_abs_err', 'dense_ms',
+                'turns_ms')}
+            eval_row['train_shape']['points'] = Rr * S
+    for name, S, nnet in (('encmlp_dual_bwd', 64, 2), ('encmlp_bwd', 16, 1)):
+        ins = kernel_inputs(FE, T, rc, cfg, params, S, 2048, device,
+                            tile=512, fuse_tform=True)
+        st, est = ins[:2]
+        n = 2048 * S
+        g = _composited_cotangent(FE, ins, nnet, device)
+        run, plain = _bwd_calls(FE, *ins[:8], g, nnet, tf=ins[8])
+        dense = _bwd_calls(FE, *kernel_inputs(FE, T, rc, cfg, params, S, 2048,
+                                              device, tile=512), g, nnet)[0]
+        got = run()
+        torch.cuda.synchronize()
+        print(f'{name} fuse_tform R=2048 S={S}:')
+        max_abs = _check_bwd(f'{name}_tf', plain(), got)
+        _check_deterministic(f'{name}_tf', got, run())
+        del got
+        t = _turns(dense, run, 5)
+        row = _timed_row(
+            f'{name}_tf', 'encmlp_bwd.cu', 480 if nnet == 1 else 744,
+            FE.kernel_cost(st, est, n, nnet, backward=True),
+            statistics.median(t[1:3]), _time_ms(plain, 1, windows=3),
+            max_abs, peaks, f'R=2048 S={S} fuse_tform')
+        row.update(dense_ms=statistics.median([t[0], t[3]]), turns_ms=t)
+        print(f'{name} R=2048 S={S}: dense {t[0]:.3f} ms, fuse_tform '
+              f'{t[1]:.3f}, fuse_tform {t[2]:.3f}, dense {t[3]:.3f} '
+              f'({gpu_line})')
+        row['passes_ms'] = pass_times(
+            name, run, f'R=2048 S={S} fuse_tform',
+            FE.fused_mlp.dw_cost(st, n, nnet), peaks)
+        rows.append(row)
+
+    # the flagship step: both forms on one state and batch, then eager
+    # steps under fuse_tform, counted
+    setup, state, batch, step = T.build_flagship(
+        2048, device=device, compute_dtype='bfloat16', fuse_tform=True)
+    if not (setup.rc.fuse_tform and setup.rc.mlp_backend == 'fused'):
+        raise AssertionError('the flagship setup lost fuse_tform')
+    print('flagship step, fuse_tform against dense (same state, batch and '
+          'draws):')
+    times['step_check'] = _tf_step_check(FE, setup, state, batch, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    losses = []
+    FE.reset_launch_counts()
+    for _ in range(TF_STEPS):
+        state, stats = step(state, batch, gen)
+        losses.append(stats['total_loss'])
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    expect = {k: 0 for k in counts}
+    expect.update({k: TF_STEPS * n for k, n in FLAGSHIP_STEP_TF.items()})
+    print(f'train under fuse_tform: {TF_STEPS} steps, launches {counts}')
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError('non-finite losses under fuse_tform')
+    del setup, state, batch, step
+    times['flagship_step'] = flagship_timing(
+        T, device, gpu_line, 'fuse_tform against dense',
+        {'fuse_tform': dict(fuse_tform=True), 'dense': dict(fuse_tform=False)})
+    render_counts, times['render'] = tform_render_timing(
+        FE, T, rc, cfg, params, device, gpu_line)
+    return rows, counts, render_counts, times
+
+
+def tform_render_timing(FE, T, rc, cfg, params, device, gpu_line, H=512,
+                        chunk=4096, n_bullet=3):
+    """``render_path`` of ``n_bullet`` bullet-time frames at H x H with
+    fuse_tform and with the dense form, after a warm-up of each, in turns
+    (dense, fuse_tform, fuse_tform, dense): eval rays/s of each, K1's and
+    K2's fuse_tform forms once a chunk and nothing else under fuse_tform,
+    and the frames within TF_MAP_TOL / TF_MAP_MEAN_TOL of the dense
+    form's.  Returns (the launch counts of a fuse_tform render, {mode:
+    eval rays/s})."""
+    import numpy as np
+    import torch
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.render.renderer import ImageRenderer
+    rd, _ = _bullet_data(T, n_bullet, H)
+    state = embed_state(cfg, rc, 10000)
+    rend = {m: ImageRenderer(dataclasses.replace(rc, fuse_tform=m == 'tf'),
+                             params, state, chunk=chunk, near=0., far=1.,
+                             device=device) for m in ('dense', 'tf')}
+    if not rend['tf'].rc.fuse_tform:
+        raise AssertionError('the eval variant dropped fuse_tform')
+    n_chunks = 0
+    inner = rend['tf']._render_chunk
+
+    def counted(*args):
+        nonlocal n_chunks
+        n_chunks += 1
+        return inner(*args)
+    rend['tf']._render_chunk = counted
+    for r in rend.values():
+        r.render_path(rd)                # warm-up
+    rays_s, out = {'dense': [], 'tf': []}, {}
+    for m in ('dense', 'tf', 'tf', 'dense'):
+        torch.cuda.synchronize()
+        if m == 'tf':
+            n_chunks = 0
+            FE.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[m] = rend[m].render_path(rd)
+        torch.cuda.synchronize()
+        rays_s[m].append(_frame_rays(out[m]) / (time.perf_counter() - t0))
+        if m == 'tf':
+            counts = FE.launch_counts()
+    expect = {k: 0 for k in counts}
+    expect.update(encmlp_fwd_tf=n_chunks, encmlp_dual_fwd_tf=n_chunks)
+    if counts != expect or n_chunks == 0:
+        raise AssertionError(f'fuse_tform render launches {counts}, '
+                             f'expected {expect}')
+    worst = []
+    for k in ('rgbs', 'accs', 'disps'):
+        ref, got = out['dense'][k], out['tf'][k]
+        if not np.isfinite(got).all():
+            raise AssertionError(f'non-finite {k} under fuse_tform')
+        scale = np.abs(ref).max() + 1e-6
+        d = np.abs(ref - got)
+        worst.append((d.max() / scale, d.mean() / scale, k))
+    print(f'render fuse_tform vs dense, {n_bullet} frames {H}x{H}, {n_chunks}'
+          f' chunks: ' + ', '.join(f'{k} max|d|/scale {a:.3e} mean {b:.3e}'
+                                   for a, b, k in worst))
+    if max(w[0] for w in worst) > TF_MAP_TOL or \
+            max(w[1] for w in worst) > TF_MAP_MEAN_TOL:
+        raise AssertionError('fuse_tform frames off the dense form')
+    med = {m: statistics.median(v) for m, v in rays_s.items()}
+    print(f'render: eval rays/s dense {rays_s["dense"][0]:.1f}, fuse_tform '
+          f'{rays_s["tf"][0]:.1f}, fuse_tform {rays_s["tf"][1]:.1f}, dense '
+          f'{rays_s["dense"][1]:.1f} (in turns; {gpu_line})')
+    return counts, {'dense': med['dense'], 'fuse_tform': med['tf'],
+                    'turns': [rays_s['dense'][0], rays_s['tf'][0],
+                              rays_s['tf'][1], rays_s['dense'][1]]}
 
 
 def split_inputs(FM, T, cfg, rc2, params2, R, S, device, codes=True,
@@ -958,17 +1299,10 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, per_chunk,
     import torch
     from anerf_torch.models import raycaster
     from anerf_torch.models.factory import embed_state
-    from anerf_torch.render.poses import load_bullettime
     from anerf_torch.render.renderer import ImageRenderer, kp_to_valid_rays
 
     W = H
-    focal = 0.8 * W
-    rest, bones, _, kps, _, _ = T.synthetic_pose(9, seed=0)
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = 1.2        # the subject's cylinder fills ~1/5 of the frame
-    rd = load_bullettime(kps, bones, np.stack([c2w] * len(kps)), focal,
-                         rest, selected_idxs=[0], n_bullet=n_bullet)
-    rd['hwf'] = (np.full(3, H), np.full(3, W), rd['focals'])
+    rd, focal = _bullet_data(T, n_bullet, H)
     state = embed_state(cfg, rc, 10000)
     renderer = ImageRenderer(rc, params, state, chunk=chunk, near=0.,
                              far=1., device=device)
@@ -1002,8 +1336,7 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, per_chunk,
         raise AssertionError('acc outside [0, 1]')
     if out['accs'].max() < 0.5:
         raise AssertionError('empty frames: the checks below would be vacuous')
-    n_rays = sum(int((br[0] - tl[0]) * (br[1] - tl[1]))
-                 for tl, br in out['bboxes'])
+    n_rays = _frame_rays(out)
     print(f'{what}: {n_rays} rays in {dt:.3f} s: {n_rays / dt:.1f} rays/s, '
           f'{dt / len(rd["c2ws"]):.3f} s/frame, acc mean '
           f'{out["accs"].mean():.4f} ({gpu_line})')
@@ -1039,6 +1372,27 @@ def path_phase(FE, T, rc, cfg, params, device, gpu_line, per_chunk,
         if err > MAP_TOL * scale:
             raise AssertionError(f'fused path disagrees on {k}')
     return counts
+
+
+def _bullet_data(T, n_bullet, H):
+    """The render data of ``n_bullet`` bullet-time frames of the synthetic
+    subject at H x H, and the focal length."""
+    import numpy as np
+    from anerf_torch.render.poses import load_bullettime
+    focal = 0.8 * H
+    rest, bones, _, kps, _, _ = T.synthetic_pose(9, seed=0)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 1.2        # the subject's cylinder fills ~1/5 of the frame
+    rd = load_bullettime(kps, bones, np.stack([c2w] * len(kps)), focal,
+                         rest, selected_idxs=[0], n_bullet=n_bullet)
+    rd['hwf'] = (np.full(3, H), np.full(3, H), rd['focals'])
+    return rd, focal
+
+
+def _frame_rays(out):
+    """The rays ``render_path`` cast: those of each frame's box."""
+    return sum(int((br[0] - tl[0]) * (br[1] - tl[1]))
+               for tl, br in out['bboxes'])
 
 
 def _device_ms(event):
@@ -1760,6 +2114,45 @@ def cli_net_width_phase(FE, device, gpu_line):
     return counts
 
 
+def cli_fuse_tform_phase(FE, device, gpu_line):
+    """``configs/mixamo.txt`` with ``fuse_tform = True`` through
+    ``run_train.train`` on cli_train's store: CLI_TF_STEPS steps, each
+    launching K1-K4's fuse_tform forms once (viewfac as FLAGSHIP_STEP_TF)
+    and their point forms never, finite losses.  Returns the launch
+    counts."""
+    import torch
+    from anerf_torch.run_train import train
+    tcfg = _cli_config('mixamo.txt', fuse_tform=True,
+                       dataset_type=('synthetic',),
+                       datadir=os.path.join(WORK, 'mixamo.npstore'),
+                       basedir=os.path.join(WORK, 'logs'),
+                       expname='fuse_tform', n_iters=CLI_TF_STEPS,
+                       num_workers=4)
+    rec = {'losses': []}
+
+    def on_step(i, state, stats):
+        if stats is None:
+            FE.reset_launch_counts()
+        else:
+            rec['losses'].append(stats['total_loss'])
+        if i == CLI_TF_STEPS:
+            torch.cuda.synchronize()
+            rec['counts'] = FE.launch_counts()
+
+    train(tcfg, device=device, on_step=on_step)
+    counts = rec['counts']
+    losses = torch.stack(rec['losses']).cpu()
+    print(f'cli_fuse_tform: {CLI_TF_STEPS} steps, launches {counts}, '
+          f'total_loss {losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update({k: CLI_TF_STEPS * n for k, n in FLAGSHIP_STEP_TF.items()})
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    return counts
+
+
 def _cli_config(config, **over):
     """A shipped recipe from ``configs/`` with overrides."""
     from anerf_torch.utils.config import load_config
@@ -2114,6 +2507,18 @@ BUNDLE_K1_K4 = {'encmlp_fwd': ('encmlp_fwd_kernel<1,', 1),
                 'vf_fold': ('vf_dwv_kernel', 1)}
 BUNDLE_K5_K6 = {'mlp_fwd': ('mlp_fwd_kernel', 3),
                 'mlp_bwd': ('mlp_bwd_tile_kernel', 3)}
+# under fuse_tform: the template's last argument (TF) true, and the point
+# forms of the same kernels never launched
+BUNDLE_K1_K4_TF = {
+    'encmlp_fwd_tf': ('encmlp_fwd_kernel<1, false, true>', 1),
+    'encmlp_dual_fwd_tf': ('encmlp_fwd_kernel<2, true, true>', 1),
+    'encmlp_bwd_tf': ('bwd_tile_kernel<1, false, true>', 1),
+    'encmlp_dual_bwd_tf': ('bwd_tile_kernel<2, true, true>', 1),
+    'encmlp_fwd': ('encmlp_fwd_kernel<1, false, false>', 0),
+    'encmlp_dual_fwd': ('encmlp_fwd_kernel<2, true, false>', 0),
+    'encmlp_bwd': ('bwd_tile_kernel<1, false, false>', 0),
+    'encmlp_dual_bwd': ('bwd_tile_kernel<2, true, false>', 0),
+    'vf_operand': ('vf_m_kernel', 2), 'vf_fold': ('vf_dwv_kernel', 1)}
 
 
 def bundled_phase(FE, T, device, gpu_line, what, kernels, **build_kw):
@@ -2978,6 +3383,13 @@ def main() -> int:
             row['viewfac_vs_dense'] = vf_times[row['name']]
     rows += vf_rows
     clock.mark('viewfac')
+    tf_rows, paths_tf, render_tf, tf_times = fuse_tform_phase(
+        FE, T, rc, cfg, params, peaks, device, gpu_line)
+    for row in tf_rows:
+        row['fuse_tform_times'] = {k: v for k, v in tf_times.items()
+                                   if k != 'step_check'}
+    rows += tf_rows
+    clock.mark('fuse_tform')
     rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
     clock.mark('split_mlp')
     grammar_rows = grammar_kernel_phase(FM, T, peaks, device)
@@ -2991,6 +3403,12 @@ def main() -> int:
                                            'train_bundled', BUNDLE_K1_K4,
                                            seed=1)
     clock.mark('train_bundled')
+    paths['train_tf'] = paths_tf
+    paths['render_tf'] = render_tf
+    paths['train_bundled_tf'] = bundled_phase(
+        FE, T, device, gpu_line, 'train_bundled_tf', BUNDLE_K1_K4_TF, seed=1,
+        fuse_tform=True)
+    clock.mark('train_bundled_tf')
     paths['ms_render'] = path_phase(FE, T, rc2, cfg, params2, device,
                                     gpu_line, {'mlp_fwd': 3}, n_bullet=1,
                                     what='multi-subject path')
@@ -3035,13 +3453,18 @@ def main() -> int:
         clock.mark('cli_bundled')
         paths['cli_net_width'] = cli_net_width_phase(FE, device, gpu_line)
         clock.mark('cli_net_width')
+        paths['cli_fuse_tform'] = cli_fuse_tform_phase(FE, device, gpu_line)
+        clock.mark('cli_fuse_tform')
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each row's launches come from the path whose shapes it times: the
     # flagship train step for K1-K4, the multi-subject one for K5/K6;
     # K1-K4's cli_train_shape holds the CLI mixamo step's launches with
     # the times at its shapes
-    main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train'}
+    main_path = {'mlp_fwd': 'ms_train', 'mlp_bwd': 'ms_train',
+                 **{f'{k}_tf': 'train_tf' for k in (
+                     'encmlp_fwd', 'encmlp_dual_fwd', 'encmlp_bwd',
+                     'encmlp_dual_bwd')}}
     # K5/K6 at the grammar's trunk widths: the times at the train step's
     # coarse samples, the launches of the path that runs that width
     width_path = {117: 'grammar_querypts-axisang-relray',

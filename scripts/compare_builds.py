@@ -12,12 +12,13 @@ tree's, at the flagship's trunk width; then each kernel runs on
 train step's R=2048 with their composited cotangents, K5/K6 on the
 two-subject model at n=131,072 and a ragged 4104 points) once with the
 base's libraries and once with the tree's, and every output must be
-bit-identical.  Prints the card's name and power limit; exits non-zero
-on the first difference.  A base from before the view factorization and
+bit-identical.  Prints the card's name and power limit and each output
+that differs; exits non-zero if any does.  A base from before the view factorization and
 the WIDE nets (no viewfac pointers in K1-K4's C interfaces, no
-workspace in K5's) is called through shims that drop those arguments;
-the inputs keep K1-K4 on the dense views input, which both builds
-take.
+workspace in K5's), or from before the in-kernel rigid transform (no
+affine-rows pointer in K1-K4's), is called through shims that drop
+those arguments; the inputs keep K1-K4 on the dense views input and on
+points, which every build takes.
 """
 import ctypes
 import os
@@ -54,8 +55,8 @@ def build_base(csrc, out_dir):
             lib.mlp_trunk_width = lambda: cuda_build.FLAGSHIP_DX
         with open(os.path.join(csrc, SOURCES[which])) as f:
             text = f.read()
-        if which in ('fwd', 'bwd') and 'vfM' not in text:
-            lib = _Shim(lib, which)
+        if which in ('fwd', 'bwd') and 'tfab' not in text:
+            lib = _Shim(lib, which, has_vf='vfM' in text)
         elif which == 'mlp_fwd' and 'workspace' not in text:
             lib = _Shim(lib, which)
         else:
@@ -67,9 +68,11 @@ def build_base(csrc, out_dir):
 class _Shim:
     """A base library with an older C interface, called as the tree's
     wrappers call the tree's: the arguments the base does not take are
-    dropped (they are null or unused on the dense path)."""
+    dropped (they are null or unused on the dense path).  K1-K4: a base
+    without the affine-rows pointer and, unless ``has_vf``, without
+    viewfac's pointers."""
 
-    def __init__(self, lib, which):
+    def __init__(self, lib, which, has_vf=False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self._lib = lib
 
@@ -79,13 +82,15 @@ class _Shim:
             setattr(self, name, lambda *a: f(*[x for i, x in enumerate(a)
                                                  if i not in drop]))
         if which == 'fwd':
+            drop = {8} if has_vf else {7, 8}
             for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-                fn(name, [vp] * 8 + [ci] * 3 + [vp], ci, {7})
+                fn(name, [vp] * (10 - len(drop)) + [ci] * 3 + [vp], ci, drop)
             fn('encmlp_weight_elems', [], cll, ())
             fn('encmlp_bias_elems', [], ci, ())
         elif which == 'bwd':
+            drop = {18} if has_vf else {16, 17, 18}
             for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
-                fn(name, [vp] * 16 + [ci] * 5 + [vp], ci, {16, 17})
+                fn(name, [vp] * (19 - len(drop)) + [ci] * 5 + [vp], ci, drop)
             fn('encmlp_bwd_workspace_bytes', [ci, ci], cll, ())
             fn('encmlp_grad_weight_elems', [], cll, ())
         else:
@@ -149,20 +154,22 @@ def main(base_csrc) -> int:
         g = C._split_cotangent(FM, st, xs, xvs, flat, S, dev)
         runs[f'mlp_bwd n={R * S}'] = C._split_calls(FM, st, xs, xvs, flat,
                                                     g)[0]
+    differ = 0
     for name, run in runs.items():
         cuda_build._LIBS.update(base)
         ref = run()
         cuda_build._LIBS.update(tree)
         got = run()
         torch.cuda.synchronize()
-        for (k, a), (_, b) in zip(ref, got):
-            if not torch.equal(a, b):
-                print(f'{name} {k}: the two builds differ, max |d| '
-                      f'{(a.float() - b.float()).abs().max().item():.3e}')
-                return 1
-        print(f'{name}: {len(got)} outputs bit-identical to the base build',
-              flush=True)
-    return 0
+        bad = [(k, (a.float() - b.float()).abs().max().item())
+               for (k, a), (_, b) in zip(ref, got) if not torch.equal(a, b)]
+        for k, d in bad:
+            print(f'{name} {k}: the two builds differ, max |d| {d:.3e}')
+        if not bad:
+            print(f'{name}: {len(got)} outputs bit-identical to the base '
+                  'build', flush=True)
+        differ += bool(bad)
+    return 1 if differ else 0
 
 
 if __name__ == '__main__':

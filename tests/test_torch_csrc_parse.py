@@ -68,6 +68,9 @@ __device__ float sqrtf(float);
 __device__ float expf(float);
 __device__ float sinf(float);
 __device__ float fmaxf(float, float);
+__device__ float __fadd_rn(float, float);
+__device__ float __fmul_rn(float, float);
+__device__ float __fmaf_rn(float, float, float);
 __host__ __device__ int min(int, int);
 __host__ __device__ int max(int, int);
 typedef struct CUstream_st* cudaStream_t;

@@ -238,6 +238,8 @@ def test_wrappers_take_twins_on_cpu(scene):
                              *flats)
     assert FE.launch_counts() == {'encmlp_fwd': 0, 'encmlp_dual_fwd': 0,
                                   'encmlp_bwd': 0, 'encmlp_dual_bwd': 0,
+                                  'encmlp_fwd_tf': 0, 'encmlp_dual_fwd_tf': 0,
+                                  'encmlp_bwd_tf': 0, 'encmlp_dual_bwd_tf': 0,
                                   'vf_operand': 0, 'vf_fold': 0,
                                   'mlp_fwd': 0, 'mlp_bwd': 0}
     twin = FE.encmlp_fwd_plain(st, est, p, enc, codes[1], cutoff, tau,
