@@ -126,6 +126,7 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         # nnet, stream
         sig('viewfac_fold', [vp, vp, vp, vp, cll, vp, vp] + [ci] * 4 + [vp])
         sig('viewfac_width', [])
+        sig('viewfac_slice', [])
     elif which == 'mlp_fwd':
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, bpack,
         # workspace, out, n, stream

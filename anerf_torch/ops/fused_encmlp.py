@@ -762,7 +762,7 @@ def vf_operand(est: EncStatic, enc_ray: torch.Tensor,
     HV = lib.viewfac_width()
     if (tuple(wvx.shape) != (nnet, est.view_nb * 3 * est.J, HV)
             or wvx.dtype != torch.bfloat16 or est.J != _KERNEL_SHAPE['J']
-            or not wvx.is_contiguous() or not enc_ray.is_contiguous()):
+            or not _aligned(wvx, enc_ray)):
         raise ValueError(f'viewfac weights must be (nnet, 648, {HV}) bf16')
     M = torch.empty((nnet, R, est.J, HV), dtype=torch.bfloat16,
                     device=enc_ray.device)
@@ -806,8 +806,22 @@ def vf_fold_plain(est: EncStatic, gw, enc_ray, wvx):
     return dwv, denc
 
 
-# K-vf2's dWvx: rays a slice of its partial sums
-_VF_SLICE = 64
+# K-vf2's slices (viewfac.cu's FO_SLICE) and its partial sums at most:
+# 8 partials x 24 joints, 192 blocks in clusters of 8, all resident at
+# once on an H100
+VF_SLICE = 64
+VF_PARTIALS = 8
+
+
+def vf_fold_plan(R: int) -> Tuple[int, int]:
+    """K-vf2's plan for R rays: (P, slice).  The rays go in slices of
+    ``slice`` (the last one ragged); dWvx is summed in P partials,
+    partial p over the slices p, p + P, p + 2P, ... in order, then the
+    P partials in order.  P is at most VF_PARTIALS and at most R / 216,
+    so that the partials' f32 bytes, written and read back (P x 0.66 MB
+    a net), stay under half of the Gw bytes the fold reads (R x 6 KB a
+    net): 8 partials at R = 2048, 5.3 MB each way against 25.2 MB."""
+    return max(1, min(VF_PARTIALS, R // 216)), VF_SLICE
 
 
 def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
@@ -816,9 +830,10 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     R, J, HV) bf16 (K3/K4's Gram pass) with the view rows enc_ray (R,
     nb*3J) and the views-input weight rows wvx (nnet, nb*3J, HV) bf16:
     returns (dWvx (nnet, nb*3J, HV), denc (R, nb*3J)) f32, as
-    ``vf_fold_plain``; dWvx's rays summed in slices of 64, the slices in
-    order.  CPU tensors take the twin; CUDA tensors launch the kernels or
-    raise."""
+    ``vf_fold_plain``; dWvx's rays summed in the partials of
+    ``vf_fold_plan``, each over its slices in order, then the partials
+    in order.  CPU tensors take the twin; CUDA tensors launch the
+    kernels or raise."""
     global KVF2_LAUNCHES
     if cuda_build.device_of(gw) == 'cpu':
         return vf_fold_plain(est, gw, enc_ray, wvx)
@@ -828,38 +843,46 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     if (tuple(gw.shape) != (nnet, R, est.J, HV)
             or tuple(wvx.shape) != (nnet, nbJ, HV)
             or wvx.dtype != torch.bfloat16 or gw.dtype != torch.bfloat16
-            or not gw.is_contiguous() or not enc_ray.is_contiguous()):
+            or lib.viewfac_slice() != VF_SLICE
+            or not _aligned(gw, enc_ray, wvx)):
         raise ValueError('viewfac fold operands do not match the kernel')
     dev = gw.device
     f32 = dict(dtype=torch.float32, device=dev)
-    P = -(-R // _VF_SLICE)
+    P, slice_ = vf_fold_plan(R)
     dwv = torch.empty((nnet, nbJ, HV), **f32)
     denc = torch.empty((R, nbJ), **f32)
-    part = torch.empty((P, nnet, nbJ, HV), **f32)
+    part = torch.empty((P, nnet, nbJ, HV), **f32) if P > 1 else None
     with torch.cuda.device(dev):
         err = lib.viewfac_fold(gw.data_ptr(), enc_ray.data_ptr(),
                                wvx.data_ptr(), dwv.data_ptr(), nbJ * HV,
-                               denc.data_ptr(), part.data_ptr(), P,
-                               _VF_SLICE, R, nnet, cuda_build.stream(dev))
+                               denc.data_ptr(),
+                               None if part is None else part.data_ptr(), P,
+                               slice_, R, nnet, cuda_build.stream(dev))
     if err != 0:
         raise RuntimeError(f'viewfac_fold launch failed: cudaError {err}')
     KVF2_LAUNCHES += 1
     return dwv, denc
 
 
+def _aligned(*ts) -> bool:
+    """Contiguous, on 16-byte boundaries: the viewfac kernels read whole
+    16-byte chunks."""
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts)
+
+
 def vf_cost(est: EncStatic, R: int, nnet: int, HV: int,
             fold: bool = False) -> Dict[str, float]:
-    """Work of one K-vf1 (or, ``fold``, K-vf2) launch: f32 FLOPs on the
-    CUDA cores (27 products a value of M; dWvx's and denc's sums over the
-    rays and the columns) and the bytes that must move: enc and the
-    views weights read once, M written (or Gw read, dWvx and denc
-    written) once."""
+    """Work of one K-vf1 (or, ``fold``, K-vf2) launch: bf16 FLOPs on the
+    tensor cores (bf16 operands, f32 sums: 27 products a value of M;
+    dWvx's and denc's sums over the rays and the columns) and the bytes
+    that must move: enc and the views weights read once, M written (or
+    Gw read, dWvx and denc written) once."""
     J, nbJ = est.J, est.view_nb * 3 * est.J
     m_bytes = nnet * R * J * HV * 2
     if not fold:
-        return {'bf16_flops': 0., 'f32_flops': 2. * nnet * R * HV * nbJ,
+        return {'bf16_flops': 2. * nnet * R * HV * nbJ, 'f32_flops': 0.,
                 'bytes': float(R * nbJ * 4 + nnet * nbJ * HV * 2 + m_bytes)}
-    return {'bf16_flops': 0., 'f32_flops': 4. * nnet * R * nbJ * HV,
+    return {'bf16_flops': 4. * nnet * R * nbJ * HV, 'f32_flops': 0.,
             'bytes': float(m_bytes + R * nbJ * 4 + nnet * nbJ * HV * 2
                            + nnet * nbJ * HV * 4 + R * nbJ * 4)}
 

@@ -25,8 +25,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    bit-identical outputs;
 2b. viewfac phase (``viewfac_phase``): K-vf1 and K-vf2 (the view
    factorization's per-ray operand and fold, ``csrc/viewfac.cu``)
-   against their twins at the train step's shapes, bit-identical over
-   two calls, timed beside their bounds and, for K-vf1, ``torch.bmm``;
+   against their twins at the train step's R=2048 and a ragged R=1999,
+   bit-identical over two calls, timed beside their bounds and their
+   ``torch.bmm`` yardsticks (one call for K-vf1, two for K-vf2), with
+   K-vf2's two kernels from one profiled call;
    K2 and K4 with viewfac against the dense form (``rc.viewfac`` off) at
    anerf_tpu's bars between the two chains, both forms timed in turns
    with K4's passes; the flagship step with viewfac and dense, eager
@@ -247,9 +249,16 @@ VF_SIGMA_TOL = 1e-5
 VF_COS_MIN = 0.998
 VF_RATIO_TOL = 3e-2
 # K-vf1 (M, bf16) against its twin: the 27 exact products of each value
-# summed in f32 in another order, then rounded to bf16, so a value may
-# land one bf16 step (2^-7 of it, at most) away
+# summed in f32 in another order (the tensor cores' against the twin's
+# sequential one), then rounded to bf16, so a value may land one bf16
+# step (2^-7 of it, at most) away.  Where the 27 terms cancel to less
+# than a bf16 step's worth of the f32 sums' own rounding, no order's sum
+# is good to a bf16 step (``vf_m_check`` prints how many values of the
+# exact sum, rounded, lie past one step of the twin's): each value may
+# also differ by VF_M_SUM_ULPS x 2^-24 of the sum of its terms'
+# magnitudes, the rounding of the two f32 sums
 VF_M_ULP = 2. ** -7
+VF_M_SUM_ULPS = 2.
 # fuse_tform (the in-kernel rigid transform) against the dense form on
 # one flagship step (same state, batch and draws).  The two forms round
 # the points' transform differently (~1.8 f32 ulp apart on average), and
@@ -328,6 +337,34 @@ def _time_ms(fn, reps, windows=5):
         b.record()
         b.synchronize()
         per_call.append(a.elapsed_time(b) / reps)
+    return statistics.median(per_call)
+
+
+def _graph_ms(fn, reps, windows=5):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph (after a warm-up call), CUDA events around a replay, the median
+    over ``windows`` replays.  For kernels of a few microseconds, whose
+    wrappers' Python can take longer than the kernel: the replay leaves
+    the host's launch rate out of the reading."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / reps)
+    del graph
     return statistics.median(per_call)
 
 
@@ -508,9 +545,9 @@ def _check_deterministic(name, first, second):
 # profiler's demangled names); the dW pass is its two kernels, the
 # partial tiles of the point slices and their sum in slice order
 DW_KERNELS = ('dw_kernel', 'dw_sum_kernel')
-# K-vf1 (M before the backward), K4's Gram pass and K-vf2's three kernels
-VF_KERNELS = ('vf_m_kernel', 'vf_gram_kernel', 'vf_dwv_kernel',
-              'vf_dwv_sum_kernel', 'vf_denc_kernel')
+# K-vf1 (M before the backward), K4's Gram pass and K-vf2's two kernels
+VF_KERNELS = ('vf_m_mma_kernel', 'vf_gram_kernel', 'vf_fold_kernel',
+              'vf_fold_sum_kernel')
 BWD_PASSES = {
     'encmlp_dual_bwd': (('per-tile', ('bwd_tile_kernel<2,',)),
                         ('pullback', ('pullback_kernel<2,',)),
@@ -522,6 +559,8 @@ BWD_PASSES = {
                    ('denc', ('denc_kernel<1,',)),
                    ('bias', ('bias_kernel',)), ('dW', DW_KERNELS),
                    ('viewfac', VF_KERNELS)),
+    'vf_fold': (('fold', ('vf_fold_kernel',)),
+                ('slice sum', ('vf_fold_sum_kernel',))),
     'mlp_bwd': (('per-tile', ('mlp_bwd_tile_kernel',)),
                 ('dx', ('dx_kernel',)), ('bias', ('bias_kernel',)),
                 ('dW', DW_KERNELS)),
@@ -716,13 +755,135 @@ def _vf_check_rows(name, ref, got):
                                      f'the bar at net {net} ch {ch}')
 
 
+def vf_m_check(name, est, enc, wvx, got, ref, exact=False):
+    """K-vf1's M ``got`` against ``ref`` (the twin's, or another
+    build's) on the view rows ``enc`` and weights ``wvx``: every value
+    within VF_M_ULP of ``ref`` plus VF_M_SUM_ULPS x 2^-24 of the sum of
+    its 27 terms' magnitudes; prints how many values differ, how many
+    lie past one bf16 step and the worst of those over the sum bound
+    (and, ``exact``, how many values of the exact sum, rounded to bf16,
+    lie past one bf16 step of ``ref``).  Raises where a value misses the
+    bar or is not finite."""
+    import torch
+    from anerf_torch.ops.fused_mlp import viewfac_m
+    E = enc.to(torch.bfloat16).float()
+    S = torch.stack([viewfac_m(E.abs(), w.float().abs(), est.J)
+                     for w in wvx])
+    x, y = ref.float(), got.float()
+    if exact:
+        nb = E.shape[1] // est.J
+        ex = torch.einsum('rbj,nbjh->nrjh', E.double().reshape(-1, nb, est.J),
+                          wvx.double().reshape(len(wvx), nb, est.J, -1))
+        ex = ex.float().to(torch.bfloat16).float()
+        print(f'  {name}: the exact sums rounded to bf16 lie past one bf16 '
+              f'step of the reference at '
+              f'{((ex - x).abs() > VF_M_ULP * x.abs()).sum().item()} values')
+        del ex
+    d = (y - x).abs()
+    step = d > VF_M_ULP * x.abs()
+    slack = (d - VF_M_ULP * x.abs()) / (2. ** -24 * S).clamp_min(1e-38)
+    worst = slack[step].max().item() if step.any() else 0.
+    bad = (step & (slack > VF_M_SUM_ULPS)).sum().item()
+    print(f'{name}: M {tuple(y.shape)}, {(d > 0).float().mean().item():.2e} '
+          f'of the values differ, {step.sum().item()} past one bf16 step '
+          f'(worst {worst:.3f} f32 ulps of the sum of its terms, bar '
+          f'{VF_M_SUM_ULPS}), {bad} past the bar')
+    if bad or not torch.isfinite(y).all():
+        raise AssertionError(f'{name}: M disagrees')
+    return d.max().item()
+
+
+def viewfac_kernels(FE, est, enc, wvx, peaks, device, R):
+    """K-vf1 (M) and K-vf2 (the fold, on Gram matrices drawn N(0, 1) from
+    seed 0, in bf16) on the view rows ``enc`` (R, 648) and both nets'
+    ``wvx``: each against its twin (K-vf1 each value within VF_M_ULP of
+    it, K-vf2 at ``_check_bwd``'s bars), two calls bit-identical.  With
+    ``peaks``: each timed beside its bound (``vf_cost``), its twin and
+    its yardstick in PyTorch (K-vf1: one ``torch.bmm`` of both nets' M;
+    K-vf2: two, dWvx over nnet x J batches and denc over J batches with
+    the nets side by side, bf16 outputs), all in one call, kernels and
+    yardsticks replayed from CUDA graphs (``_graph_ms``), and K-vf2's
+    two kernels' device ms from one profiled call; returns their rows."""
+    import torch
+    J, HV, nnet = est.J, wvx.shape[-1], wvx.shape[0]
+    run = lambda: FE.vf_operand(est, enc, wvx)
+    plain = lambda: FE.vf_operand_plain(est, enc, wvx)
+    got, ref_m = run(), plain()
+    m_err = vf_m_check(f'vf_operand R={R}', est, enc, wvx, got, ref_m,
+                       exact=peaks is not None)
+    _check_deterministic('vf_operand', [('M', got)], [('M', run())])
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    gw = torch.randn((nnet, R, J, HV), generator=gen,
+                     device=device).to(torch.bfloat16)
+    fold = lambda: FE.vf_fold(est, gw, enc, wvx)
+    fold_plain = lambda: FE.vf_fold_plain(est, gw, enc, wvx)
+    got = list(zip(('dWvx', 'denc'), fold()))
+    P, slice_ = FE.vf_fold_plan(R)
+    print(f'vf_fold R={R} ({P} partial sums over slices of {slice_} '
+          'rays):')
+    ref = list(zip(('dWvx', 'denc'), fold_plain()))
+    max_abs = _check_bwd('vf_fold', ref, got)
+    _check_deterministic('vf_fold', got, list(zip(('dWvx', 'denc'),
+                                                  fold())))
+    if peaks is None:
+        return []
+
+    # the yardsticks: the same products as PyTorch calls on operands laid
+    # out for them (outside the timing), each checked against the twin
+    nb = enc.shape[1] // J
+    E = enc.to(torch.bfloat16).reshape(R, nb, J).permute(2, 0, 1)
+    m_ops = (E.contiguous(), torch.cat(
+        [w.reshape(nb, J, HV).permute(1, 0, 2) for w in wvx], -1
+    ).contiguous())
+    dw_ops = (E.transpose(1, 2).repeat(nnet, 1, 1).contiguous(),
+              gw.permute(0, 2, 1, 3).reshape(nnet * J, R, HV).contiguous())
+    denc_ops = (gw.permute(2, 1, 0, 3).reshape(J, R, nnet * HV).contiguous(),
+                wvx.reshape(nnet, nb, J, HV).permute(2, 0, 3, 1)
+                .reshape(J, nnet * HV, nb).contiguous())
+    lib_m = lambda: torch.bmm(*m_ops)
+    lib_fold = lambda: (torch.bmm(*dw_ops), torch.bmm(*denc_ops))
+    m_lib = lib_m().reshape(J, R, nnet, HV).permute(2, 1, 0, 3)
+    dw_lib, denc_lib = lib_fold()
+    for k, a, b in (('M', ref_m, m_lib),
+                    ('dWvx', ref[0][1], dw_lib.reshape(nnet, J, nb, HV)
+                     .permute(0, 2, 1, 3).reshape(ref[0][1].shape)),
+                    ('denc', ref[1][1], denc_lib.permute(1, 2, 0)
+                     .reshape(ref[1][1].shape))):
+        cos = _cmp(a.float(), b.float())[0]
+        if cos < 0.9999:
+            raise AssertionError(f'the torch.bmm yardstick of {k} computes '
+                                 f'another function (cos {cos:.6f})')
+    del ref_m, m_lib, dw_lib, denc_lib
+    ms = {k: _graph_ms(f, 20) for k, f in (
+        ('vf_operand', run), ('m_lib', lib_m), ('vf_fold', fold),
+        ('fold_lib', lib_fold))}
+    rows = []
+    for name, line, cost, plain_ms, err, lib, what in (
+            ('vf_operand', 151, FE.vf_cost(est, R, nnet, HV),
+             _time_ms(plain, 5), m_err, ms['m_lib'],
+             'torch.bmm (J, R, 27) x (J, 27, 2 HV), both nets'),
+            ('vf_fold', 199, FE.vf_cost(est, R, nnet, HV, fold=True),
+             _time_ms(fold_plain, 3), max_abs, ms['fold_lib'],
+             'two calls: torch.bmm (2 J, 27, R) x (2 J, R, HV) for dWvx '
+             'and (J, R, 2 HV) x (J, 2 HV, 27) for denc, bf16 outputs')):
+        row = _timed_row(name, 'viewfac.cu', line, cost, ms[name], plain_ms,
+                         err, peaks, f'R={R} two nets',
+                         tpu_file='pallas_mlp.py')
+        row['library_ms'], row['library'] = lib, what
+        print(f'{name}: {what}: {lib:.4f} ms against the kernel\'s '
+              f'{ms[name]:.4f}')
+        rows.append(row)
+    rows[1]['passes_ms'] = pass_times('vf_fold', fold,
+                                      f'R={R} two nets, {P} partials')
+    return rows
+
+
 def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
     """The view factorization at the flagship train step's shapes (R=2048
-    x S=64 coarse samples, the gate's 512-point tile): K-vf1 (M) and
-    K-vf2 (the fold, on Gram matrices drawn N(0, 1) from seed 0, in
-    bf16) against their twins, two calls bit-identical, timed with their
-    bounds (``vf_cost``) and, for K-vf1, ``torch.bmm`` of (J, R, 27) x
-    (J, 27, 2 HV) (both nets' M) beside it; K2 and K4 with viewfac against the same kernels with
+    x S=64 coarse samples, the gate's 512-point tile): K-vf1 and K-vf2
+    (``viewfac_kernels``) at R and, checked only, at a ragged R of 1999
+    rays; K2 and K4 with viewfac against the same kernels with
     ``rc.viewfac`` off at anerf_tpu's bars between the two chains, and
     both timed in turns (dense, viewfac, viewfac, dense), with K4's
     passes; then the flagship step both ways, eager and bundled, in
@@ -739,57 +900,13 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
         raise AssertionError('the gate did not take viewfac at S=64 only '
                              'where rc.viewfac holds')
     st, est, p, enc, codes, cutoff, tau, flats = ins
-    n = p.shape[0]
     wvx = FE._wvx(st, flats)
-    HV = wvx.shape[-1]
-    rows = []
-
-    # K-vf1
-    run = lambda: FE.vf_operand(est, enc, wvx)
-    plain = lambda: FE.vf_operand_plain(est, enc, wvx)
-    got, ref = run(), plain()
-    torch.cuda.synchronize()
-    d = (got.float() - ref.float()).abs()
-    bad = (d > VF_M_ULP * ref.float().abs()).sum().item()
-    print(f'vf_operand R={R}: M {tuple(got.shape)}, values differing from '
-          f'the twin {(d > 0).float().mean().item():.2e}, past one bf16 '
-          f'step {bad}')
-    if bad or not torch.isfinite(got.float()).all():
-        raise AssertionError('vf_operand disagrees with its twin')
-    _check_deterministic('vf_operand', [('M', got)], [('M', run())])
-    # the library call for the same work: both nets' M in one torch.bmm,
-    # the nets' view rows side by side in its columns
-    E = enc.to(torch.bfloat16).reshape(R, -1, est.J).permute(2, 0, 1)
-    E = E.contiguous()
-    W3 = torch.cat([w.reshape(-1, est.J, HV).permute(1, 0, 2) for w in wvx],
-                   -1).contiguous()
-    lib_ms = _time_ms(lambda: torch.bmm(E, W3), 20)
-    row = _timed_row('vf_operand', 'viewfac.cu', 151,
-                     FE.vf_cost(est, R, 2, HV), _time_ms(run, 20),
-                     _time_ms(plain, 5), d.max().item(), peaks,
-                     f'R={R} two nets', tpu_file='pallas_mlp.py')
-    row['library_ms'] = lib_ms
-    row['library'] = 'torch.bmm (J, R, 27) x (J, 27, 2 HV), both nets'
-    print(f'vf_operand: torch.bmm of both nets {lib_ms:.4f} ms')
-    rows.append(row)
-
-    # K-vf2 on drawn Gram matrices
-    gen = torch.Generator(device=device).manual_seed(0)
-    gw = torch.randn((2, R, est.J, HV), generator=gen,
-                     device=device).to(torch.bfloat16)
-    fold = lambda: FE.vf_fold(est, gw, enc, wvx)
-    fold_plain = lambda: FE.vf_fold_plain(est, gw, enc, wvx)
-    got = list(zip(('dWvx', 'denc'), fold()))
-    print(f'vf_fold R={R}:')
-    max_abs = _check_bwd('vf_fold', list(zip(('dWvx', 'denc'),
-                                             fold_plain())), got)
-    _check_deterministic('vf_fold', got, list(zip(('dWvx', 'denc'),
-                                                  fold())))
-    rows.append(_timed_row('vf_fold', 'viewfac.cu', 199,
-                           FE.vf_cost(est, R, 2, HV, fold=True),
-                           _time_ms(fold, 20), _time_ms(fold_plain, 3),
-                           max_abs, peaks, f'R={R} two nets',
-                           tpu_file='pallas_mlp.py'))
+    rows = viewfac_kernels(FE, est, enc, wvx, peaks, device, R)
+    vf_ragged = 1999
+    print(f'K-vf1/K-vf2 at a ragged R={vf_ragged} (the first rays of the '
+          f'same inputs):')
+    viewfac_kernels(FE, est, enc[:vf_ragged].contiguous(), wvx, None, device,
+                    vf_ragged)
 
     # K2 and K4: viewfac against dense; timed in turns
     times = {}
@@ -821,7 +938,7 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
     for mode, run in (('dense', bwd_d), ('viewfac', bwd_vf)):
         times['encmlp_dual_bwd'][f'{mode}_passes_ms'] = pass_times(
             'encmlp_dual_bwd', run, f'R={R} S={S} {mode}')
-    del fwd_vf, fwd_d, bwd_vf, bwd_d, g, ins, ins_d, gw
+    del fwd_vf, fwd_d, bwd_vf, bwd_d, g, ins, ins_d
     times['flagship_step'] = flagship_timing(
         T, device, gpu_line, 'viewfac against dense',
         {'viewfac': dict(viewfac=True), 'dense': dict(viewfac=False)})
@@ -2503,8 +2620,8 @@ BUNDLE_K1_K4 = {'encmlp_fwd': ('encmlp_fwd_kernel<1,', 1),
                 'encmlp_dual_fwd': ('encmlp_fwd_kernel<2,', 1),
                 'encmlp_bwd': ('bwd_tile_kernel<1,', 1),
                 'encmlp_dual_bwd': ('bwd_tile_kernel<2,', 1),
-                'vf_operand': ('vf_m_kernel', 2),
-                'vf_fold': ('vf_dwv_kernel', 1)}
+                'vf_operand': ('vf_m_mma_kernel', 2),
+                'vf_fold': ('vf_fold_kernel', 1)}
 BUNDLE_K5_K6 = {'mlp_fwd': ('mlp_fwd_kernel', 3),
                 'mlp_bwd': ('mlp_bwd_tile_kernel', 3)}
 # under fuse_tform: the template's last argument (TF) true, and the point
@@ -2518,7 +2635,7 @@ BUNDLE_K1_K4_TF = {
     'encmlp_dual_fwd': ('encmlp_fwd_kernel<2, true, false>', 0),
     'encmlp_bwd': ('bwd_tile_kernel<1, false, false>', 0),
     'encmlp_dual_bwd': ('bwd_tile_kernel<2, true, false>', 0),
-    'vf_operand': ('vf_m_kernel', 2), 'vf_fold': ('vf_dwv_kernel', 1)}
+    'vf_operand': ('vf_m_mma_kernel', 2), 'vf_fold': ('vf_fold_kernel', 1)}
 
 
 def bundled_phase(FE, T, device, gpu_line, what, kernels, **build_kw):
@@ -3288,9 +3405,9 @@ K1_K4_GROUPS = {'K1 encmlp_fwd_kernel<1>': ('encmlp_fwd_kernel<1,',),
                                           'denc_kernel<2,'),
                 'K3+K4 dW dw_kernel, dw_sum_kernel': DW_KERNELS,
                 'K3+K4 bias_kernel': ('bias_kernel',),
-                'K-vf1 vf_m_kernel': ('vf_m_kernel',),
+                'K-vf1 vf_m_mma_kernel': ('vf_m_mma_kernel',),
                 'K3/K4 vf_gram_kernel': ('vf_gram_kernel',),
-                'K-vf2 vf_dwv(_sum), vf_denc': VF_KERNELS[2:]}
+                'K-vf2 vf_fold(_sum)_kernel': VF_KERNELS[2:]}
 K5_K6_GROUPS = {'K5 mlp_fwd_kernel': ('mlp_fwd_kernel',),
                 'K6 mlp_bwd_tile_kernel': ('mlp_bwd_tile_kernel',),
                 'K6 dx_kernel': ('dx_kernel',),

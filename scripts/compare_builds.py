@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Every kernel K1-K6 of the tree against another build of the same
-kernels, bit for bit, on one GPU.
+kernels, bit for bit, and K-vf1/K-vf2 against the other build's at
+their twins' bars, timed in turns, on one GPU.
 
     python3 scripts/compare_builds.py BASE_CSRC_DIR
 
@@ -12,8 +13,17 @@ tree's, at the flagship's trunk width; then each kernel runs on
 train step's R=2048 with their composited cotangents, K5/K6 on the
 two-subject model at n=131,072 and a ragged 4104 points) once with the
 base's libraries and once with the tree's, and every output must be
-bit-identical.  Prints the card's name and power limit and each output
-that differs; exits non-zero if any does.  A base from before the view factorization and
+bit-identical.  K-vf1 and K-vf2 (``viewfac.cu``), whose sums may run
+in another order from build to build, run on the view rows of the
+train step (R=2048, and the first 1999 of them) with Gram matrices
+drawn from seed 0: the tree's against the twins (M at
+``chip_smoke.vf_m_check``'s bar, dWvx and denc at cosine > 0.9999 and
+norm ratio within 5e-3, ``chip_smoke._check_bwd``) and against the
+base's at the same bars, and both builds timed at R=2048 in turns
+(base, tree, tree, base; 20 calls replayed from a CUDA graph, the
+outputs' allocations included: ``chip_smoke._graph_ms``).  Prints the
+card's name and power limit and each output that differs; exits
+non-zero if any does or a bar fails.  A base from before the view factorization and
 the WIDE nets (no viewfac pointers in K1-K4's C interfaces, no
 workspace in K5's), or from before the in-kernel rigid transform (no
 affine-rows pointer in K1-K4's), is called through shims that drop
@@ -28,7 +38,10 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
-           'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu'}
+           'mlp_fwd': 'mlp_fwd.cu', 'mlp_bwd': 'mlp_bwd.cu',
+           'viewfac': 'viewfac.cu'}
+# the rays of one K-vf2 slice in a base without viewfac_slice
+BASE_VF_SLICE = 64
 
 
 def build_base(csrc, out_dir):
@@ -55,7 +68,13 @@ def build_base(csrc, out_dir):
             lib.mlp_trunk_width = lambda: cuda_build.FLAGSHIP_DX
         with open(os.path.join(csrc, SOURCES[which])) as f:
             text = f.read()
-        if which in ('fwd', 'bwd') and 'tfab' not in text:
+        if which == 'viewfac':
+            vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.viewfac_m.argtypes = [vp, vp, vp, ci, ci, vp]
+            lib.viewfac_fold.argtypes = [vp, vp, vp, vp, cll, vp, vp] + \
+                [ci] * 4 + [vp]
+            lib.viewfac_m.restype = lib.viewfac_fold.restype = ci
+        elif which in ('fwd', 'bwd') and 'tfab' not in text:
             lib = _Shim(lib, which, has_vf='vfM' in text)
         elif which == 'mlp_fwd' and 'workspace' not in text:
             lib = _Shim(lib, which)
@@ -104,6 +123,96 @@ class _Shim:
                 fn(name, [], ci, ())
 
 
+def _vf_calls(lib, est, enc, wvx, gw):
+    """(K-vf1, K-vf2) of one build as closures on the same inputs, each
+    returning its named outputs: M, and dWvx and denc on the build's
+    plan (``vf_fold_plan`` where the build names its slice, else
+    BASE_VF_SLICE rays a slice, one partial each)."""
+    import torch
+    from anerf_torch.ops import cuda_build
+    from anerf_torch.ops import fused_encmlp as FE
+    nnet, R, nbJ = wvx.shape[0], enc.shape[0], enc.shape[1]
+    HV, dev = wvx.shape[-1], enc.device
+    if hasattr(lib, 'viewfac_slice'):
+        P, slice_ = FE.vf_fold_plan(R)
+    else:
+        P, slice_ = -(-R // BASE_VF_SLICE), BASE_VF_SLICE
+    stream = lambda: cuda_build.stream(dev)
+
+    def m():
+        M = torch.empty((nnet, R, est.J, HV), dtype=torch.bfloat16,
+                        device=dev)
+        err = lib.viewfac_m(enc.data_ptr(), wvx.data_ptr(), M.data_ptr(), R,
+                            nnet, stream())
+        if err:
+            raise RuntimeError(f'viewfac_m: cudaError {err}')
+        return [('M', M)]
+
+    def fold():
+        f32 = dict(dtype=torch.float32, device=dev)
+        dw = torch.empty((nnet, nbJ, HV), **f32)
+        denc = torch.empty((R, nbJ), **f32)
+        part = torch.empty((P, nnet, nbJ, HV), **f32)
+        err = lib.viewfac_fold(gw.data_ptr(), enc.data_ptr(), wvx.data_ptr(),
+                               dw.data_ptr(), nbJ * HV, denc.data_ptr(),
+                               part.data_ptr(), P, slice_, R, nnet, stream())
+        if err:
+            raise RuntimeError(f'viewfac_fold: cudaError {err}')
+        return [('dWvx', dw), ('denc', denc)]
+    return m, fold
+
+
+def compare_viewfac(C, FE, T, rc, cfg, params, base, tree, dev) -> int:
+    """K-vf1/K-vf2 of the base and the tree at R=2048 and 1999: each
+    against the twins and the other build at the twins' bars, then timed
+    in turns at R=2048.  Returns the number of failed checks."""
+    import torch
+    ins = C.kernel_inputs(FE, T, rc, cfg, params, 64, 2048, dev, tile=512)
+    est, enc_all, wvx = ins[1], ins[3], FE._wvx(ins[0], ins[7])
+    failed = 0
+    for R in (2048, 1999):
+        enc = enc_all[:R].contiguous()
+        gw = torch.randn((2, R, est.J, wvx.shape[-1]), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0)
+                         ).to(torch.bfloat16)
+        twin = [[('M', FE.vf_operand_plain(est, enc, wvx))],
+                list(zip(('dWvx', 'denc'), FE.vf_fold_plain(est, gw, enc,
+                                                            wvx)))]
+        outs = {k: [f() for f in _vf_calls(lib, est, enc, wvx, gw)]
+                for k, lib in (('base', base), ('tree', tree))}
+        torch.cuda.synchronize()
+        for which, ref in (('twin', twin), ('base', outs['base'])):
+            for kernel, a, b in zip(('K-vf1', 'K-vf2'), ref, outs['tree']):
+                what = f'R={R} {kernel}: tree against {which}'
+                try:
+                    if kernel == 'K-vf1':
+                        C.vf_m_check(what, est, enc, wvx, b[0][1], a[0][1])
+                    else:
+                        print(what + ':')
+                        C._check_bwd(what, a, b)
+                except AssertionError as e:
+                    print(f'FAILED {e}')
+                    failed += 1
+        print(f'R={R} K-vf2: base against twin (for reference):')
+        try:
+            C._check_bwd('base K-vf2', twin[1], outs['base'][1])
+        except AssertionError as e:
+            print(f'  the base misses the bars: {e}')
+    enc = enc_all
+    gw = torch.randn((2, 2048, est.J, wvx.shape[-1]), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0)
+                     ).to(torch.bfloat16)
+    calls = {k: _vf_calls(lib, est, enc, wvx, gw)
+             for k, lib in (('base', base), ('tree', tree))}
+    for i, kernel in enumerate(('K-vf1', 'K-vf2')):
+        t = [C._graph_ms(calls[k][i], 20) for k in ('base', 'tree', 'tree',
+                                                   'base')]
+        print(f'{kernel} R=2048 two nets, in turns: base {t[0]:.4f} ms, '
+              f'tree {t[1]:.4f}, tree {t[2]:.4f}, base {t[3]:.4f}',
+              flush=True)
+    return failed
+
+
 def main(base_csrc) -> int:
     import torch
     sys.path.insert(0, ROOT)
@@ -125,6 +234,7 @@ def main(base_csrc) -> int:
     cuda_build.build_kernels()
     tree = {cuda_build.lib_key(w): cuda_build._LIBS[cuda_build.lib_key(w)]
             for w in SOURCES}
+    vf_key = cuda_build.lib_key('viewfac')
     base = {cuda_build.lib_key(w): lib for w, lib in build_base(
         os.path.join(ROOT, base_csrc), tempfile.mkdtemp(dir=os.path.join(
             ROOT, 'anerf_torch', '_build'))).items()}
@@ -136,6 +246,9 @@ def main(base_csrc) -> int:
     rc2 = build_raycast_config(cfg, n_framecodes=9, n_subjects=2)
     params2 = params_to(init_raycaster_params(
         torch.Generator().manual_seed(4), rc2, cfg), dev)
+    failed = compare_viewfac(C, FE, T, rc, cfg, params, base[vf_key],
+                             tree[vf_key], dev)
+    del base[vf_key], tree[vf_key]
     runs = {}
     for name, S, nnet, R in (('encmlp_fwd', 16, 1, 4096),
                              ('encmlp_dual_fwd', 64, 2, 4096)):
@@ -169,7 +282,7 @@ def main(base_csrc) -> int:
             print(f'{name}: {len(got)} outputs bit-identical to the base '
                   'build', flush=True)
         differ += bool(bad)
-    return 1 if differ else 0
+    return 1 if differ or failed else 0
 
 
 if __name__ == '__main__':

@@ -8,9 +8,13 @@ intrinsics, the runtime calls the launchers make).  That catches C++
 errors (undeclared names, wrong types, bad template instantiations) in
 the kernels and the shared headers; PTX in inline assembly, register
 limits and shared-memory sizes only show when nvcc builds them for the
-card (``ops/cuda_build.build_kernels``).
+card (``ops/cuda_build.build_kernels``).  ``chip_smoke.py`` counts and
+times the kernels by the names of their ``__global__`` functions in a
+profile: every name it looks for must be one.
 """
 import os
+import re
+import sys
 
 import pytest
 
@@ -22,7 +26,8 @@ EXPORTS = {
     'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd'),
     'encmlp_bwd.cu': ('encmlp_bwd', 'encmlp_dual_bwd',
                       'encmlp_bwd_workspace_bytes'),
-    'viewfac.cu': ('viewfac_m', 'viewfac_fold'),
+    'viewfac.cu': ('viewfac_m', 'viewfac_fold', 'viewfac_width',
+                   'viewfac_slice'),
     'mlp_fwd.cu': ('mlp_fwd', 'mlp_trunk_width'),
     'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes', 'mlp_trunk_width'),
 }
@@ -42,6 +47,7 @@ CUDA_RUNTIME_H = r'''
 #define __launch_bounds__(...) __attribute__((launch_bounds(__VA_ARGS__)))
 #define __align__(n) __attribute__((aligned(n)))
 #define __grid_constant__ __attribute__((grid_constant))
+#define __cluster_dims__(...)
 typedef __SIZE_TYPE__ size_t;
 struct uint3 { unsigned x, y, z; };
 struct dim3 {
@@ -56,6 +62,7 @@ struct __attribute__((aligned(8))) float2 { float x, y; };
 struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
 __host__ __device__ uint4 make_uint4(unsigned, unsigned, unsigned, unsigned);
 __host__ __device__ float2 make_float2(float, float);
+__host__ __device__ float4 make_float4(float, float, float, float);
 __device__ void __syncthreads();
 __device__ void __trap();
 __device__ void __syncwarp(unsigned = 0xffffffffu);
@@ -63,6 +70,7 @@ __device__ float __shfl_xor_sync(unsigned, float, int);
 __device__ float __ldg(const float*);
 __device__ unsigned __ldg(const unsigned*);
 __device__ uint4 __ldg(const uint4*);
+__device__ float4 __ldg(const float4*);
 __device__ size_t __cvta_generic_to_shared(const void*);
 __device__ float sqrtf(float);
 __device__ float expf(float);
@@ -87,6 +95,9 @@ inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 cudaError_t cudaGetLastError();
+cudaError_t cudaGetDevice(int*);
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
 cudaError_t cudaConfigureCall(dim3, dim3, size_t = 0, cudaStream_t = 0);
 '''
 
@@ -203,3 +214,36 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
     errors = [str(d) for d in tu.diagnostics
               if d.severity >= cindex.Diagnostic.Error]
     assert not errors, '\n'.join(errors)
+
+
+def _global_kernels():
+    """The names of the ``__global__`` functions in ``csrc/``."""
+    names = set()
+    for f in os.listdir(CSRC):
+        with open(os.path.join(CSRC, f)) as fh:
+            names.update(re.findall(
+                r'__global__\s+void\s+(?:__\w+__\s*\([^)]*\)\s*)*(\w+)\s*\(',
+                fh.read()))
+    return names
+
+
+def test_smoke_kernel_names_are_global_functions():
+    """Every kernel name that chip_smoke.py's profile maps look for (the
+    passes, the launch counts of the bundled phases, the step's groups)
+    is the name of a ``__global__`` function, so no count or time reads
+    a kernel that no longer exists as 0."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    keys = [*C.DW_KERNELS, *C.VF_KERNELS]
+    keys += [k for passes in C.BWD_PASSES.values() for _, ks in passes
+             for k in ks]
+    for table in (C.BUNDLE_K1_K4, C.BUNDLE_K1_K4_TF, C.BUNDLE_K5_K6):
+        keys += [k for k, _ in table.values()]
+    for groups in (C.K1_K4_GROUPS, C.K5_K6_GROUPS):
+        keys += [k for ks in groups.values() for k in ks]
+    kernels = _global_kernels()
+    assert {'vf_m_mma_kernel', 'vf_fold_kernel',
+            'vf_fold_sum_kernel'} <= kernels
+    missing = sorted({k for k in keys
+                      if re.match(r'\w+', k).group(0) not in kernels})
+    assert not missing, missing

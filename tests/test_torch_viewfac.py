@@ -32,8 +32,16 @@ asserts that ``est.viewfac`` holds on both sides, so none is vacuous.
   scale, acc and disparity within 1e-5; gradients at cosine > 0.998 and
   norm within 3%;
 * the K-vf1 and K-vf2 wrappers taking their twins on CPU tensors and
-  counting no launch.
+  counting no launch;
+* K-vf1's and K-vf2's work as ``vf_cost`` counts it (bf16 products on
+  the tensor cores, so both are bound by their bytes at the train
+  step's R = 2048), and K-vf2's plan (``vf_fold_plan``): every ray in
+  exactly one slice, each partial's slices in order, the partial sums'
+  bytes under half of Gw's.
 """
+import os
+import sys
+
 import dataclasses
 
 import numpy as np
@@ -287,3 +295,58 @@ def test_port_viewfac_matches_its_dense_form(vf_scene):
             continue
         assert_grad_close(a.numpy(), b.numpy(), name=f'leaf {i}',
                           cos_tol=2e-3, ratio_tol=3e-2, elementwise=False)
+
+
+def test_vf_cost_counts_tensor_core_products():
+    """Both kernels' products take bf16 operands and f32 sums: bf16
+    FLOPs, none on the CUDA cores; the bytes each input read once and
+    each output written once.  At the train step's R = 2048 (two nets)
+    each is bound by its bytes: 30.8 MB (9.2 us) and 36.8 MB (11.0 us)
+    at the H100's 3.35 TB/s."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    est, R, nnet = _est(64), 2048, 2
+    m = FE.vf_cost(est, R, nnet, HALF)
+    f = FE.vf_cost(est, R, nnet, HALF, fold=True)
+    assert m['f32_flops'] == f['f32_flops'] == 0.
+    assert m['bf16_flops'] == 2. * nnet * R * J * 27 * HALF
+    assert f['bf16_flops'] == 2 * m['bf16_flops']     # dWvx and denc
+    enc, wvx, mw = R * NBJ * 4, nnet * NBJ * HALF * 2, nnet * R * J * HALF * 2
+    assert m['bytes'] == enc + wvx + mw
+    assert f['bytes'] == mw + enc + wvx + nnet * NBJ * HALF * 4 + R * NBJ * 4
+    peaks = chip_smoke._peaks('NVIDIA H100 80GB HBM3')
+    for cost, us in ((m, 9.2), (f, 11.0)):
+        t_ops = cost['bf16_flops'] / peaks[0] + cost['f32_flops'] / peaks[1]
+        t_bytes = cost['bytes'] / peaks[2]
+        assert t_bytes > 5 * t_ops
+        assert abs(1e6 * t_bytes - us) < 0.05
+
+
+@pytest.mark.parametrize('R', [1, 15, 100, 215, 216, 257, 1727, 1999, 2047,
+                               2048, 2049, 3001, 3072, 4100])
+def test_vf_fold_plan_covers_the_rays_once(R):
+    """K-vf2's plan: slices of 64 consecutive rays, the partial sums
+    each over every P-th slice in order, every ray in exactly one slice
+    of one partial; no partial without a slice; the partials' bytes
+    written and read back under half the Gw bytes the fold reads (8
+    partials at R = 2048: 5.3 MB each way against 25.2 MB)."""
+    P, sl = FE.vf_fold_plan(R)
+    assert sl == FE.VF_SLICE and 1 <= P <= FE.VF_PARTIALS
+    nslice = -(-R // sl)
+    assert P <= nslice
+    seen = []
+    for p in range(P):
+        starts = [s * sl for s in range(p, nslice, P)]
+        assert starts == sorted(starts) and starts
+        seen += [np.arange(a, min(R, a + sl)) for a in starts]
+    rays = np.sort(np.concatenate(seen))
+    assert np.array_equal(rays, np.arange(R))
+    nnet = 2
+    gw_bytes = nnet * R * J * HALF * 2
+    part_bytes = 0 if P == 1 else 2 * P * nnet * NBJ * HALF * 4
+    assert part_bytes <= gw_bytes / 2
+    if R >= 1728:
+        assert P == FE.VF_PARTIALS
+    if R == 2048:
+        assert part_bytes == 2 * 5308416
