@@ -211,9 +211,10 @@ class BaseDataset:
     # --- per-image sampling ---------------------------------------------
 
     def get_item(self, q_idx: int,
-                 rng: Optional[np.random.Generator] = None
-                 ) -> Dict[str, np.ndarray]:
-        """One image's sampled rays (reference __getitem__)."""
+                 rng: Optional[np.random.Generator] = None,
+                 host_slice=None) -> Dict[str, np.ndarray]:
+        """One image's sampled rays (reference __getitem__);
+        ``host_slice`` as in ``sample_pixels``."""
         rng = rng or np.random.default_rng()
         idx = self._idx_map[q_idx] if self._idx_map is not None else q_idx
         self.init_dataset()
@@ -222,7 +223,8 @@ class BaseDataset:
             idx, q_idx, self.N_samples)
         kp_idxs, kps, bones, skts, cyls = self.get_pose_data(
             idx, q_idx, self.N_samples, full=self.pose_per_ray)
-        pixel_idxs = self.sample_pixels(idx, q_idx, rng)
+        pixel_idxs = self.sample_pixels(idx, q_idx, rng,
+                                        host_slice=host_slice)
         rays_o, rays_d = self.get_rays(c2w, focal, pixel_idxs, center)
         rays_rgb, fg, bg = self.get_img_data(idx, pixel_idxs)
 
@@ -239,15 +241,18 @@ class BaseDataset:
             out['bgs'] = bg
         return out
 
-    def get_batch(self, q_idxs, rng: np.random.Generator
-                  ) -> Optional[Dict[str, np.ndarray]]:
+    def get_batch(self, q_idxs, rng: np.random.Generator,
+                  host_slice=None) -> Optional[Dict[str, np.ndarray]]:
         """``[get_item(q) for q in q_idxs]`` + collate in one numpy pass
         over the batch: a uniform draw without replacement per image
         from its sampling mask, rays from the precomputed direction
         mesh.  Its random stream differs from the per-image path's but
-        is as deterministic.  Returns None for the modes it does not
-        cover (patch sampling, NMS), where the caller falls back to the
-        per-image path."""
+        is as deterministic.  ``host_slice=(process_index,
+        process_count)``: one shared draw of ``N * process_count``
+        distinct pixels per image (the uniforms are the same on every
+        rank), of which rank p keeps block p.  Returns None for the
+        modes it does not cover (patch sampling, NMS), where the caller
+        falls back to the per-image path."""
         if self.patch_size > 1:
             return None
         if (self.N_nms > 0 if isinstance(self.N_nms, int)
@@ -264,24 +269,30 @@ class BaseDataset:
         q_idxs = np.asarray(q_idxs, dtype=np.int64)
         idxs = self._idx_map[q_idxs] if self._idx_map is not None else q_idxs
         n_img, N = len(q_idxs), self.N_samples
+        pidx, pcnt = host_slice if host_slice is not None else (0, 1)
+        block = slice(pidx * N, (pidx + 1) * N)
 
-        # --- pixel sampling: one draw per image -----------------------
+        # --- pixel sampling: one shared draw per image ----------------
         valid = [self._valid_pixels(int(i)) for i in idxs]
         lens = np.array([len(v) for v in valid], np.int64)
-        u = rng.random((n_img, N))
-        ok = lens >= N
+        n_draw = N * pcnt
+        u = rng.random((n_img, n_draw))  # the same on every rank
+        ok = lens >= n_draw
         pix = np.empty((n_img, N), np.int64)
         if ok.all():
-            pix[:] = sample_distinct(valid, u)
+            pix[:] = sample_distinct(valid, u)[:, block]
         else:
             if ok.any():
                 rows = np.where(ok)[0]
-                pix[rows] = sample_distinct([valid[r] for r in rows], u[rows])
-            # too few distinct pixels: draw with replacement, the rule
-            # of sample_pixels
+                pix[rows] = sample_distinct([valid[r] for r in rows],
+                                            u[rows])[:, block]
+            # too few distinct pixels to partition: the rank's own
+            # stream, with replacement where needed, the rule of
+            # sample_pixels
+            host_rng = rng.spawn(pcnt)[pidx] if pcnt > 1 else rng
             for r in np.where(~ok)[0]:
                 v = valid[r]
-                pix[r] = rng.choice(v, N, replace=len(v) < N)
+                pix[r] = host_rng.choice(v, N, replace=len(v) < N)
         pix.sort(axis=1)
 
         # --- camera + rays (batched get_rays) --------------------------
@@ -365,15 +376,36 @@ class BaseDataset:
                 img = img * fg + (1. - fg) * bg
         return img, fg, bg
 
-    def sample_pixels(self, idx, q_idx, rng: np.random.Generator):
+    def sample_pixels(self, idx, q_idx, rng: np.random.Generator,
+                      host_slice=None):
         """Sample N_samples pixel indices from the sampling mask, with
         optional patch sampling and out-of-mask (NMS) replacement
-        (reference dataset.py:277-322)."""
+        (reference dataset.py:277-322).
+
+        ``host_slice=(process_index, process_count)`` makes the ranks'
+        pixels disjoint by construction: every rank holds the same
+        ``rng``, draws one ``N_rand * process_count`` sample without
+        replacement and keeps its own block.  The rank's own randomness
+        (NMS, the too-few-pixels fallback) comes from its spawned child
+        stream, so the shared stream stays aligned across ranks."""
         p = self.patch_size
         N_rand = self.N_samples // int(p ** 2)
         valid_idxs = self._valid_pixels(idx)
-        sampled_idxs = rng.choice(valid_idxs, N_rand,
-                                  replace=len(valid_idxs) < N_rand)
+        pidx, pcnt = host_slice if host_slice is not None else (0, 1)
+        if pcnt > 1:
+            host_rng = rng.spawn(pcnt)[pidx]
+            if len(valid_idxs) >= N_rand * pcnt:
+                draw = rng.choice(valid_idxs, N_rand * pcnt, replace=False)
+                sampled_idxs = draw[pidx * N_rand:(pidx + 1) * N_rand]
+            else:
+                # too few distinct pixels to partition: the rank's own
+                # stream (collisions between ranks possible)
+                sampled_idxs = host_rng.choice(
+                    valid_idxs, N_rand, replace=len(valid_idxs) < N_rand)
+            rng = host_rng
+        else:
+            sampled_idxs = rng.choice(valid_idxs, N_rand,
+                                      replace=len(valid_idxs) < N_rand)
         if p > 1:
             H, W = self.HW
             hs = np.clip(sampled_idxs // W, 0, H - p)
@@ -588,10 +620,11 @@ class ConcatDataset:
     def __len__(self):
         return int(self.cumulative_sizes[-1])
 
-    def get_item(self, idx, rng=None):
+    def get_item(self, idx, rng=None, host_slice=None):
         d_idx = int(np.searchsorted(self.cumulative_sizes, idx, side='right'))
         s_idx = idx if d_idx == 0 else idx - self.cumulative_sizes[d_idx - 1]
-        ret = self.datasets[d_idx].get_item(int(s_idx), rng)
+        ret = self.datasets[d_idx].get_item(int(s_idx), rng,
+                                            host_slice=host_slice)
         if d_idx != 0:
             ret['cam_idxs'] = ret['cam_idxs'] + self.cumulative_views[d_idx - 1]
             ret['kp_idx'] = ret['kp_idx'] + self.cumulative_kps[d_idx - 1]
@@ -599,7 +632,7 @@ class ConcatDataset:
             len(ret['cam_idxs']), 0)
         return ret
 
-    def get_batch(self, q_idxs, rng=None):
+    def get_batch(self, q_idxs, rng=None, host_slice=None):
         """Vectorized multi-subject batch: q_idxs arrive sorted, so the
         per-sub-dataset groups are contiguous slices; each group goes
         through its dataset's batched path, then cam/kp offsets and
@@ -615,7 +648,8 @@ class ConcatDataset:
             sel = q_idxs[d_idxs == d]
             base = 0 if d == 0 else self.cumulative_sizes[d - 1]
             gb = getattr(self.datasets[d], 'get_batch', None)
-            part = gb(sel - base, rng) if gb is not None else None
+            part = gb(sel - base, rng, host_slice=host_slice) \
+                if gb is not None else None
             if part is None:
                 return None
             if d != 0:
@@ -680,8 +714,8 @@ class TemporalDatasetWrapper:
     def __getattr__(self, name):
         return getattr(self._dataset, name)
 
-    def get_item(self, idx, rng=None):
-        ret = self._dataset.get_item(idx, rng)
+    def get_item(self, idx, rng=None, host_slice=None):
+        ret = self._dataset.get_item(idx, rng, host_slice=host_slice)
         tv = self._dataset.temp_validity
         next_idx = (idx + 1) % len(tv)
         temp_val = (tv[idx] + tv[next_idx]) // 2
@@ -689,9 +723,10 @@ class TemporalDatasetWrapper:
                                     ret['kp_idx'].shape[0], 0)
         return ret
 
-    def get_batch(self, q_idxs, rng=None):
+    def get_batch(self, q_idxs, rng=None, host_slice=None):
         gb = getattr(self._dataset, 'get_batch', None)
-        ret = gb(q_idxs, rng) if gb is not None else None
+        ret = gb(q_idxs, rng, host_slice=host_slice) \
+            if gb is not None else None
         if ret is None:
             return None
         tv = np.asarray(self._dataset.temp_validity)

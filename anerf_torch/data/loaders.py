@@ -278,12 +278,14 @@ def map_data_to_n_views(img_paths, kp3d, bones, rest_pose, skts):
 
 
 def get_dataset(cfg, data_path: Optional[str] = None,
-                h5_override: Optional[str] = None):
+                h5_override: Optional[str] = None, process_count: int = 1):
     """Build the (possibly concatenated / temporal) dataset
     (reference load_data.py:87-143).  ``h5_override`` (the name
     anerf_tpu gives it) is a data store that every subject reads in
     place of its ``DATASET_CATALOG`` path, as a render catalog entry
-    names one."""
+    names one.  With ``process_count > 1`` each rank's dataset samples
+    its 1/process_count block of the per-image ray budget; the global
+    batch stays ``N_rand``."""
     data_path = data_path or cfg.datadir
     subjects, dataset_types = list(cfg.subject), list(cfg.dataset_type)
     if len(subjects) > len(dataset_types):
@@ -291,7 +293,11 @@ def get_dataset(cfg, data_path: Optional[str] = None,
             raise ValueError('subject and dataset_type lists disagree')
         dataset_types = dataset_types * len(subjects)
 
-    N_samples = cfg.N_rand // cfg.N_sample_images
+    per_img = cfg.N_rand // cfg.N_sample_images
+    if per_img % process_count:
+        raise ValueError(f'N_rand / N_sample_images = {per_img} rays per '
+                         f'image do not split over {process_count} ranks')
+    N_samples = per_img // process_count
     N_nms = N_samples * cfg.P_nms
 
     split = 'full' if not cfg.use_val else 'train'
@@ -331,17 +337,22 @@ def get_dataset(cfg, data_path: Optional[str] = None,
     return dataset
 
 
-def load_data(cfg, data_path: Optional[str] = None):
+def load_data(cfg, data_path: Optional[str] = None,
+              process_index: int = 0, process_count: int = 1):
     """(prefetcher, render_data, data_attrs): the trainer's data entry
-    point (reference load_data.py:71-84)."""
-    dataset = get_dataset(cfg, data_path)
+    point (reference load_data.py:71-84).  ``process_index`` /
+    ``process_count``: the prefetcher yields this rank's block of each
+    global batch."""
+    dataset = get_dataset(cfg, data_path, process_count=process_count)
     if cfg.opt_pose:
         # pose comes from the pose bank on the device: the batches carry
         # no per-ray kps/skts/bones
         set_pose_per_ray(dataset, False)
     prefetcher = Prefetcher(dataset, N_images=cfg.N_sample_images,
                             n_workers=min(cfg.num_workers, 8),
-                            seed=cfg.seed, N_iter=cfg.n_iters + 10)
+                            seed=cfg.seed, N_iter=cfg.n_iters + 10,
+                            process_index=process_index,
+                            process_count=process_count)
     data_attrs = dataset.get_meta()
     render_data = dataset.get_render_data()
     return prefetcher, render_data, data_attrs

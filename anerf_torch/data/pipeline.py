@@ -8,7 +8,11 @@ core/load_data.py:71-84): worker threads sample whole image batches,
 batch ``i`` from an RNG keyed on ``(seed, i)`` whatever thread builds
 it, and the consumer receives the batches strictly in index order, so
 two runs with the same seed see the same batch stream at any worker
-count.
+count.  Under several ranks every rank runs the same sampler and the
+same pixel stream, and each image's pixels are one shared draw of
+``N * process_count`` of which rank p keeps block p (the datasets'
+``host_slice``): the ranks' batches are disjoint blocks of one global
+batch.
 
 ``DeviceFeeder`` moves each numpy batch to the device without waiting
 for the stream: a copy from pageable host memory drains the stream
@@ -73,11 +77,13 @@ def ray_collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 class Prefetcher:
     """Threaded batch producer: workers sample whole image batches and
     collate them; the consumer receives batches strictly in sample-index
-    order (seed-deterministic at any worker count)."""
+    order (seed-deterministic at any worker count).  ``process_index`` /
+    ``process_count``: the rank's block of each global batch."""
 
     def __init__(self, dataset, N_images: int, n_workers: int = 4,
                  buffer_size: int = 8, seed: int = 0,
-                 N_iter: Optional[int] = None):
+                 N_iter: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.N_images = N_images
         self.n_workers = max(1, n_workers)
@@ -85,6 +91,7 @@ class Prefetcher:
         self.idx_q: 'queue.Queue' = queue.Queue(maxsize=buffer_size * 2)
         self.seed = seed
         self.N_iter = N_iter
+        self.host_slice = (process_index, process_count)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._started = False
@@ -121,15 +128,19 @@ class Prefetcher:
                 return
             i, idxs = task
             # keyed on the batch index, not the worker: the sampled
-            # pixels do not depend on thread scheduling
+            # pixels do not depend on thread scheduling; nor on the
+            # rank, whose block host_slice picks
             rng = np.random.default_rng([self.seed, i])
+            hs = self.host_slice
             try:
                 # whole-batch assembly where the dataset and mode allow
                 # it, else the per-image path (patch and NMS sampling)
                 gb = getattr(self.dataset, 'get_batch', None)
-                batch = gb(idxs, rng) if gb is not None else None
+                batch = gb(idxs, rng, host_slice=hs) \
+                    if gb is not None else None
                 if batch is None:
-                    items = [self.dataset.get_item(int(idx), rng)
+                    items = [self.dataset.get_item(int(idx), rng,
+                                                   host_slice=hs)
                              for idx in idxs]
                     batch = ray_collate(items)
             except Exception:

@@ -205,6 +205,7 @@ def render_rays(rc: RayCastConfig,
                 subject_idxs: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 fixed: Optional[Dict[str, torch.Tensor]] = None,
+                group=None,
                 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays through the articulated NeRF (reference
     ``RayCaster.render_rays``, raycasters.py:361-474): cylinder-clipped
@@ -216,7 +217,9 @@ def render_rays(rc: RayCastConfig,
     and cyls (N_rays, 5); state: {'tau', 'alpha'}; subject_idxs: (N_rays,)
     subject of each ray for a multi-subject model; generator: draws the
     jitter and noise (omit for deterministic rendering); fixed: pins
-    'coarse_u', 'fine_u', 'coarse_noise', 'fine_noise'.
+    'coarse_u', 'fine_u', 'coarse_noise', 'fine_noise'; group: the
+    process group whose ranks hold the other blocks of this batch (the
+    cylinder misses' mean near/far is the global batch's).
     Returns rgb_map/disp_map/acc_map/alpha/weights (+ rgb0/disp0/acc0/
     alpha0 of the coarse pass).
     """
@@ -230,7 +233,7 @@ def render_rays(rc: RayCastConfig,
     draws = generator is not None
 
     near, far = ray_ops.get_near_far_in_cylinder(
-        rays_o, rays_d, pose['cyls'], near=near, far=far)
+        rays_o, rays_d, pose['cyls'], near=near, far=far, group=group)
     z_vals = ray_ops.sample_from_lineseg(
         near, far, rc.N_samples, perturb=rc.perturb, lindisp=rc.lindisp,
         generator=generator, u=fixed.get('coarse_u'))

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 def get_rays_np(H, W, focal, c2w, center=None):
@@ -168,7 +169,7 @@ def isample_ranks(z_vals: torch.Tensor, weights: torch.Tensor,
 def get_near_far_in_cylinder(rays_o: torch.Tensor, rays_d: torch.Tensor,
                              cyl: torch.Tensor,
                              near=0.35, far=2.75,
-                             g_axes=(0, 2)
+                             g_axes=(0, 2), group=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-ray near/far from intersecting the bounding cylinder
     (reference ray_utils.py:292-344).
@@ -176,8 +177,11 @@ def get_near_far_in_cylinder(rays_o: torch.Tensor, rays_d: torch.Tensor,
     Rays that miss the cylinder take the mean near/far of the rays in
     the SAME batch that hit it (the input bounds when none hits), as the
     JAX package does; callers that chunk must chunk and pad alike to get
-    the same values.  cyl: (N_rays, 5) (cx, cz, radius, top, bot).
-    Returns (new_near, new_far), each (N_rays, 1).
+    the same values.  With a process ``group`` the batch is the ranks'
+    blocks together: the hits' sums and count are all-reduced over it
+    first, so that a rank's misses take the global batch's mean, as on
+    anerf_tpu's sharded mesh.  cyl: (N_rays, 5) (cx, cz, radius, top,
+    bot).  Returns (new_near, new_far), each (N_rays, 1).
     """
     # the two ground-plane axes, picked by slicing: indexing with a
     # python list builds an index tensor on the host and waits for the
@@ -216,10 +220,14 @@ def get_near_far_in_cylinder(rays_o: torch.Tensor, rays_d: torch.Tensor,
     new_far = near + (K + Q) / scale
 
     hit_f = hit.to(rays_o.dtype)[..., None]
-    n_hit = torch.clamp(hit_f.sum(), min=1.)
-    mean_near = (new_near * hit_f).sum() / n_hit
-    mean_far = (new_far * hit_f).sum() / n_hit
-    any_hit = hit_f.sum() > 0.
+    sums = torch.stack([(new_near * hit_f).sum(), (new_far * hit_f).sum(),
+                        hit_f.sum()])
+    if group is not None:
+        torch.distributed.all_reduce(sums, group=group)
+    n_hit = torch.clamp(sums[2], min=1.)
+    mean_near = sums[0] / n_hit
+    mean_far = sums[1] / n_hit
+    any_hit = sums[2] > 0.
     new_near = torch.where(hit[..., None], new_near,
                            torch.where(any_hit, mean_near, near))
     new_far = torch.where(hit[..., None], new_far,

@@ -2,12 +2,15 @@
 
 Port of ``anerf_tpu/render/renderer.py`` (reference run_nerf.py:27-145
 ``render_path``, core/trainer.py:64-145 ``render``/``batchify_rays``,
-core/utils/ray_utils.py:83-136 ``kp_to_valid_rays``), single device.
+core/utils/ray_utils.py:83-136 ``kp_to_valid_rays``).
 
 Each image's valid rays (inside the projected cylinder box) are padded
 to a multiple of the chunk size and rendered chunk by chunk, as the JAX
 renderer does: rays that miss the cylinder take their chunk's mean
-near/far, so the chunking is part of the result.
+near/far, so the chunking is part of the result.  Over a ray group
+(``mesh``) each chunk is cut into one contiguous block a rank, as
+anerf_tpu shards a chunk over its mesh, and the chunk's mean near/far
+stays the whole chunk's.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..interop import params_to
 from ..models.raycaster import RayCastConfig, render_rays
@@ -62,16 +66,23 @@ def kp_to_valid_rays(c2ws, H, W, focals, kps=None, cylinder_params=None,
 
 
 class ImageRenderer:
-    """Chunked full-image renderer on one device.
+    """Chunked full-image renderer.
 
     ``device=None`` renders on the GPU and raises when there is none;
     pass ``device='cpu'`` to render on the CPU (the kernels' plain twins
-    then stand in for them).
+    then stand in for them).  ``mesh`` (a ``parallel.sharding.RayMesh``
+    of several ranks, each calling the renderer alike): rank r renders
+    block r of each chunk of C rays (C must split into equal blocks),
+    and every rank gets the whole image back.
     """
 
     def __init__(self, rc: RayCastConfig, params, state: Dict[str, Any],
                  chunk: int = 4096, near: float = 0., far: float = 1.,
-                 white_bkgd: bool = False, device=None):
+                 white_bkgd: bool = False, device=None, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and chunk % mesh.size:
+            raise ValueError(f'chunk {chunk} does not split over '
+                             f'{mesh.size} ranks')
         self.device = resolve_device(device)
         self.rc = rc.eval_variant()
         self.params = params_to(params, self.device)
@@ -87,7 +98,9 @@ class ImageRenderer:
         with torch.inference_mode():
             out = render_rays(self.rc, self.params, rays_o, rays_d,
                               self.near, self.far, pose, self.state,
-                              cam_idxs=cam_idxs)
+                              cam_idxs=cam_idxs,
+                              group=None if self.mesh is None
+                              else self.mesh.group)
         return {'rgb_map': out['rgb_map'], 'disp_map': out['disp_map'],
                 'acc_map': out['acc_map']}
 
@@ -103,26 +116,46 @@ class ImageRenderer:
         ro = np.concatenate([rays_o, np.repeat(rays_o[-1:], pad, 0)], 0)
         rd = np.concatenate([rays_d, np.repeat(rays_d[-1:], pad, 0)], 0)
         dev = self.device
+        # this rank's block [b0, b0 + B) of every chunk
+        P, r = (1, 0) if self.mesh is None else (self.mesh.size,
+                                                 self.mesh.rank)
+        B = C // P
+        b0 = r * B
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         pose = {
-            'kps': t(kp).expand(C, 24, 3),
-            'skts': t(skt).expand(C, 24, 4, 4),
-            'bones': t(bone).expand((C,) + tuple(np.shape(bone)[-2:])),
-            'cyls': t(cyl).expand(C, 5),
+            'kps': t(kp).expand(B, 24, 3),
+            'skts': t(skt).expand(B, 24, 4, 4),
+            'bones': t(bone).expand((B,) + tuple(np.shape(bone)[-2:])),
+            'cyls': t(cyl).expand(B, 5),
         }
         # cam_idx: int frame index, or a length-3 [idx_a, idx_b, w]
         # framecode-mixing row (models.nerf_mlp.framecode_select)
         if np.ndim(cam_idx) == 1:
-            cam = t(cam_idx).expand(C, 3)
+            cam = t(cam_idx).expand(B, 3)
         else:
-            cam = torch.full((C,), int(cam_idx), dtype=torch.long,
+            cam = torch.full((B,), int(cam_idx), dtype=torch.long,
                              device=dev)
         ro_t, rd_t = t(ro), t(rd)
         # every chunk is queued before any result comes back to the host
-        rets = [self._render_chunk(ro_t[s:s + C], rd_t[s:s + C], pose, cam)
+        rets = [self._render_chunk(ro_t[s + b0:s + b0 + B],
+                                   rd_t[s + b0:s + b0 + B], pose, cam)
                 for s in range(0, n_pad, C)]
-        return {k: torch.cat([r[k] for r in rets]).cpu().numpy()[:n]
-                for k in ('rgb_map', 'disp_map', 'acc_map')}
+        keys = ('rgb_map', 'disp_map', 'acc_map')
+        if self.mesh is None:
+            return {k: torch.cat([x[k] for x in rets]).cpu().numpy()[:n]
+                    for k in keys}
+        # the ranks' blocks gathered by summing zero-filled chunk
+        # buffers, each holding its rank's block: exact, since every
+        # value meets only zeros
+        maps = torch.zeros((len(rets), P, B, 5), dtype=torch.float32,
+                           device=dev)
+        for j, x in enumerate(rets):
+            maps[j, r] = torch.cat([x['rgb_map'], x['disp_map'][:, None],
+                                    x['acc_map'][:, None]], -1)
+        dist.all_reduce(maps, group=self.mesh.group)
+        maps = maps.reshape(n_pad, 5).cpu().numpy()[:n]
+        return {'rgb_map': maps[:, :3], 'disp_map': maps[:, 3],
+                'acc_map': maps[:, 4]}
 
     def render_image(self, H: int, W: int, focal, c2w,
                      kp, skt, bone, cyl=None, center=None, cam_idx=-1,

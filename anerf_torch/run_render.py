@@ -22,8 +22,17 @@ anerf_tpu's ``.msgpack`` or the reference's ``.tar``.
 ``main(argv, device=None)`` is the function form: ``device=None``
 renders on the GPU and raises without one; pass ``device='cpu'`` to
 render on the CPU (the fused kernels' plain twins stand in).  It
-returns what it rendered (see ``main``).  Sharding a render over
-several devices (``--mesh_devices > 1``) is not ported yet and raises.
+returns what it rendered (see ``main``).
+
+``--mesh_devices N`` shards each chunk of rays over N ranks, one a
+device (``render.renderer.ImageRenderer``'s ``mesh``), launched as
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m anerf_torch.run_render --mesh_devices N ...
+
+Every rank renders its block of every chunk and gets the frames back;
+rank 0 alone writes the files (a mesh is extracted on rank 0 alone).
+N must be the number of ranks.
 """
 from __future__ import annotations
 
@@ -86,7 +95,8 @@ def parse_args(argv):
     p.add_argument('--chunk', type=int, default=None)
     p.add_argument('--mesh_devices', type=int, default=0,
                    help='>1: shard each render chunk over this many '
-                        'devices (not ported yet: raises)')
+                        'ranks, one a device (launched by torchrun); '
+                        'the chunk must split evenly')
     p.add_argument('--render_factor', type=int, default=0,
                    help='downsample factor for fast renders '
                         '(reference run_nerf.py:37-48)')
@@ -291,12 +301,16 @@ def main(argv, device=None) -> Dict[str, Any]:
     ``render_path``'s 'rgbs', 'disps', 'accs', 'bboxes'} for a render, or
     {'outdir', 'renderer', 'meshes': [{'idx', 'verts', 'faces', 'pose'},
     ...]} for ``mesh``."""
+    import torch
+    from .parallel.sharding import init_distributed, make_mesh
     from .utils.device import resolve_device
     args = parse_args(argv)
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            'sharding a render over several devices (--mesh_devices > 1) '
-            'is not ported yet: ROADMAP.md A.7')
+    # several ranks: join the job torchrun describes (one process: a
+    # no-op); --mesh_devices must be its size
+    init_distributed(backend='gloo' if device is not None and torch.device(
+        device).type == 'cpu' else None)
+    mesh = make_mesh(args.mesh_devices or None)
+    rank0 = mesh.rank == 0
     device = resolve_device(device)
     gen_kwargs = apply_entry(args)
     if args.mix_framecodes:
@@ -308,7 +322,8 @@ def main(argv, device=None) -> Dict[str, Any]:
     cfg, rc, params, state, step, pose_params, dataset, data_attrs = \
         load_everything(args)
     outdir = os.path.join(args.outputdir, args.runname)
-    os.makedirs(outdir, exist_ok=True)
+    if rank0:
+        os.makedirs(outdir, exist_ok=True)
 
     rest_pose = np.asarray(data_attrs['rest_pose'], np.float32)
     kps, bones = get_poses(args, cfg, data_attrs, pose_params)
@@ -328,12 +343,12 @@ def main(argv, device=None) -> Dict[str, Any]:
     renderer = ImageRenderer(rc, params, state,
                              chunk=args.chunk or cfg.chunk,
                              near=0., far=1., white_bkgd=args.white_bkgd,
-                             device=device)
+                             device=device, mesh=mesh)
 
     if args.render_type == 'mesh':
         return {'outdir': outdir, 'renderer': renderer,
                 'meshes': _meshes(args, rc, renderer, kps, bones,
-                                  rest_pose, sel, outdir)}
+                                  rest_pose, sel, outdir) if rank0 else []}
 
     render_data = _render_data(args, gen_kwargs, dataset, data_attrs, kps,
                                bones, rest_pose, sel)
@@ -343,7 +358,10 @@ def main(argv, device=None) -> Dict[str, Any]:
                               np.asarray(render_data.get('focals', f0)))
     out = renderer.render_path(render_data, ext_scale=cfg.ext_scale,
                                render_factor=args.render_factor,
-                               verbose=True)
+                               verbose=rank0)
+    if not rank0:
+        return dict(out, outdir=outdir, renderer=renderer,
+                    render_data=render_data)
     save_images(outdir, out['rgbs'])
     save_video(os.path.join(outdir, f'{args.render_type}.mp4'),
                out['rgbs'], fps=args.fps)
@@ -364,3 +382,6 @@ def main(argv, device=None) -> Dict[str, Any]:
 
 if __name__ == '__main__':
     main(sys.argv[1:])
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -18,8 +18,20 @@ bundle, so they should be multiples of k.
 
 ``train(cfg, device=None)`` is the function form: ``device=None`` means
 the GPU and raises without one; pass ``device='cpu'`` to train on the
-CPU (the fused kernels' plain twins stand in).  Not ported yet, so it
-raises: several devices or processes (ROADMAP.md A.7).
+CPU (the fused kernels' plain twins stand in).
+
+Several processes, one a device, as ``run_train.py`` trains over
+several hosts:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m anerf_torch.run_train --config configs/mixamo.txt ...
+
+Each rank draws its block of every global batch of ``N_rand`` rays
+(``data.pipeline.Prefetcher``), the states start bit-equal
+(``parallel.sharding.replicate_state``) and the step all-reduces its
+gradients (``parallel.sharding.shard_train_step``); rank 0 alone writes
+the logdir: ``args.txt``, the logs, the checkpoints and the validation
+renders.  ``n_devices``, when set, must be the number of ranks.
 """
 from __future__ import annotations
 
@@ -31,13 +43,6 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-
-
-def _check_supported(cfg) -> None:
-    if (cfg.n_devices or 1) > 1 or int(os.environ.get('WORLD_SIZE', '1')) > 1:
-        raise NotImplementedError(
-            'training over several devices or processes is not ported '
-            'yet: ROADMAP.md A.7')
 
 
 def _validate(cfg, renderer, render_data, logger, logdir: str,
@@ -86,6 +91,9 @@ def train(cfg, device=None,
     from .data.loaders import load_data
     from .data.pipeline import DeviceFeeder
     from .models.factory import build_raycast_config, embed_state
+    from .parallel.sharding import (init_distributed, make_mesh,
+                                    rank_generator, replicate_state,
+                                    shard_train_step)
     from .render.renderer import ImageRenderer
     from .training import pose_opt as P
     from .training.checkpoint import (latest_checkpoint, load_checkpoint,
@@ -100,15 +108,22 @@ def train(cfg, device=None,
     from .utils.device import resolve_device
     from .utils.logging import MetricLogger
 
-    _check_supported(cfg)
+    # several ranks: join the job torchrun describes (one process: a
+    # no-op); rank 0 alone writes the logdir
+    init_distributed(backend='gloo' if device is not None and torch.device(
+        device).type == 'cpu' else None)
+    mesh = make_mesh(cfg.n_devices)
+    rank0 = mesh.rank == 0
     device = resolve_device(device)
     logdir = os.path.join(cfg.basedir, cfg.expname)
-    os.makedirs(logdir, exist_ok=True)
-    save_args_txt(cfg, logdir)
-    logger = MetricLogger(logdir)
+    if rank0:
+        os.makedirs(logdir, exist_ok=True)
+        save_args_txt(cfg, logdir)
+    logger = MetricLogger(logdir) if rank0 else None
 
-    # --- data ---
-    prefetcher, render_data, data_attrs = load_data(cfg)
+    # --- data: this rank's block of each global batch ---
+    prefetcher, render_data, data_attrs = load_data(
+        cfg, process_index=mesh.rank, process_count=mesh.size)
     n_framecodes = int(data_attrs['n_views'])
     rest_pose = np.asarray(data_attrs['rest_pose'], np.float32)
 
@@ -174,11 +189,20 @@ def train(cfg, device=None,
         setup = dataclasses.replace(setup, anchors=anchors)
 
     spd = max(1, int(cfg.steps_per_dispatch))
-    step_fn = (make_multi_train_step(setup, spd) if spd > 1
-               else make_train_step(setup))
+    if mesh.size > 1:
+        # every rank resumed from the same checkpoint: now bit-equal
+        state = replicate_state(mesh, state)
+        setup = dataclasses.replace(setup, mesh=mesh)
+    if spd > 1:
+        step_fn = make_multi_train_step(setup, spd)  # raises over ranks
+    elif mesh.size > 1:
+        step_fn = shard_train_step(setup, mesh, global_batch=True)
+    else:
+        step_fn = make_train_step(setup)
     feeder = DeviceFeeder(device)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-    print(f'Training {cfg.expname}: steps {start}..{cfg.n_iters} on {device}')
+    gen = rank_generator(mesh, cfg.seed + 1, device)
+    print(f'Training {cfg.expname}: steps {start}..{cfg.n_iters} on {device}'
+          + (f', rank {mesh.rank} of {mesh.size}' if mesh.size > 1 else ''))
     t_last = time.time()
     i = start
     pending_log = None
@@ -212,6 +236,8 @@ def train(cfg, device=None,
         if on_step is not None:
             on_step(i, state, stats)
 
+        if not rank0:
+            continue
         if i % cfg.i_print == 0:
             dt = time.time() - t_last
             t_last = time.time()
@@ -237,10 +263,11 @@ def train(cfg, device=None,
                                      device=device)
             _validate(cfg, renderer, render_data, logger, logdir, i)
 
-    if pending_log is not None:
-        _flush_log(pending_log)
-    save_checkpoint(logdir, state, i, anchors=anchors)
-    logger.close()
+    if rank0:
+        if pending_log is not None:
+            _flush_log(pending_log)
+        save_checkpoint(logdir, state, i, anchors=anchors)
+        logger.close()
     prefetcher.stop()
     print('Training done at step', i)
     return state
@@ -249,3 +276,5 @@ def train(cfg, device=None,
 if __name__ == '__main__':
     from anerf_torch.utils.config import config_from_cli
     train(config_from_cli(sys.argv[1:]))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -26,6 +26,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..interop import tree_map
 
@@ -50,14 +51,23 @@ def init_tracker_state(n_kps: int, device='cpu') -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def accumulate_loss(tracker: Dict[str, torch.Tensor], loss: torch.Tensor,
-                    kp_idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    kp_idx: torch.Tensor, group=None
+                    ) -> Dict[str, torch.Tensor]:
     """Scatter-add per-frame losses into the CMA trackers, in place
-    (reference accumulate_loss, pose_opt.py:638-662)."""
+    (reference accumulate_loss, pose_opt.py:638-662).  With a process
+    ``group`` whose ranks hold the other blocks of the batch, the
+    per-frame sums and counts are all-reduced before the update: the
+    global batch's."""
     loss = loss.reshape(-1).float()
     kp_idx = kp_idx.reshape(-1).long()
     cma, cnt = tracker['kp_loss_tracker'], tracker['kp_loss_cnt']
     acc = torch.zeros_like(cma).index_add_(0, kp_idx, loss)
-    cnt.index_add_(0, kp_idx, torch.ones_like(loss))
+    inc = torch.zeros_like(cnt).index_add_(0, kp_idx, torch.ones_like(loss))
+    if group is not None:
+        both = torch.stack([acc, inc])
+        dist.all_reduce(both, group=group)
+        acc, inc = both
+    cnt.add_(inc)       # whole numbers: the bits of an index_add_ into cnt
     cma.add_((acc - cma) / torch.clamp(cnt, min=1.))
     return tracker
 

@@ -51,6 +51,12 @@ batch's ``subject_idxs`` feeding the model's subject channel.
 ``make_multi_train_step`` bundles k steps into one call (anerf_tpu's
 ``lax.scan`` of k steps): on the CPU k runs of the step body, on a GPU
 k replays of one CUDA graph of the step (``_GraphStep``).
+
+Over several ranks (``TrainSetup.mesh``, ``parallel.sharding``) each
+rank steps its block of the global batch and the step all-reduces what
+XLA's partitioner reduces for anerf_tpu: the cylinder misses' mean
+near/far, the masked-mean regularizer's count, the gradients of both
+trees, the statistics and the FlipFlop trackers' increments.
 """
 from __future__ import annotations
 
@@ -59,10 +65,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..interop import params_to, tree_map
 from ..models.factory import embed_state, init_raycaster_params
 from ..models.raycaster import RayCastConfig, render_rays
+from ..parallel.sharding import all_reduce_mean
 from ..skeleton import Skeleton
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -166,7 +174,9 @@ class TrainSetup:
     the GPU and raises when there is none; pass 'cpu' to train there
     (the fused kernels' plain twins stand in).  The rest pose, the
     subject of each frame and the anchors move to the device on
-    construction."""
+    construction.  ``mesh`` (a ``parallel.sharding.RayMesh``): the ray
+    group whose ranks step the other blocks of each global batch;
+    None, one process."""
     cfg: Config
     rc: RayCastConfig
     skel: Skeleton
@@ -179,6 +189,7 @@ class TrainSetup:
     near: float = 0.0
     far: float = 1.0
     device: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -194,6 +205,11 @@ class TrainSetup:
             self.kp_map = idx(self.kp_map)
         if self.rest_pose_idxs is not None:
             self.rest_pose_idxs = idx(self.rest_pose_idxs)
+
+    @property
+    def group(self):
+        """The ray group's process group (None: no collectives)."""
+        return None if self.mesh is None else self.mesh.group
 
     def frame_rest_pose(self, kp_idx: torch.Tensor) -> torch.Tensor:
         """Rest pose rows of the indexed frames: (N, J, 3) when
@@ -263,13 +279,25 @@ def get_batch_pose(setup: TrainSetup, pose_params, batch
 
 def compute_losses(setup: TrainSetup, out, batch, pose, extras, pose_params,
                    use_pose_loss: float) -> Tuple[torch.Tensor, Dict]:
-    """The full loss stack (reference trainer.py:319-441)."""
+    """The full loss stack (reference trainer.py:319-441).
+
+    Over several ranks every term is this rank's share of the global
+    batch's loss, so that the mean of the ranks' terms is the global
+    term and the mean of their gradients its gradient: the photometric
+    loss is a mean over (rays, channels), ``kp_reg_loss`` over (rays,
+    joints) and the temporal loss over (rays, joints), each over equal
+    blocks; the regularizer's mean over the off-foreground pixels is
+    rescaled to the global count (``_masked_share``).  ``psnr`` is then
+    taken from the reduced MSE (stats ``_mse``, ``_mse0``; ``_step_body``)."""
     cfg = setup.cfg
+    group = setup.group
     loss_fn = L.get_loss_fn(cfg.loss_fn, cfg.loss_beta, cfg.use_yuv)
     reg_fn = L.get_reg_fn(cfg.reg_fn)
     bgs = batch.get('bgs', 1.0)
     stats: Dict[str, torch.Tensor] = {}
     total = 0.
+    share = (_masked_share(setup.mesh, batch['fgs'][..., 0])
+             if reg_fn is not None and group is not None else None)
 
     def nerf_loss(rgb_pred, acc_pred, coarse):
         nonlocal total
@@ -279,13 +307,19 @@ def compute_losses(setup: TrainSetup, out, batch, pose, extras, pose_params,
         rl = loss_fn(rgb, batch['target_s'])
         if coarse:
             rl = rl * cfg.coarse_weight
-        stats['psnr0' if coarse else 'psnr'] = L.img2psnr(
-            rgb.detach(), batch['target_s'])
+        if group is None:
+            stats['psnr0' if coarse else 'psnr'] = L.img2psnr(
+                rgb.detach(), batch['target_s'])
+        else:
+            stats['_mse0' if coarse else '_mse'] = L.img2mse(
+                rgb.detach(), batch['target_s'])
         stats['rgb_loss0' if coarse else 'rgb_loss'] = rl
         total = total + rl
         if reg_fn is not None:
             reg = reg_fn(acc_pred, batch['fgs'][..., 0],
                          reduction='off') * cfg.reg_coef
+            if share is not None:
+                reg = reg * share
             stats['reg_loss0' if coarse else 'reg_loss'] = reg
             total = total + reg
 
@@ -333,6 +367,33 @@ def compute_losses(setup: TrainSetup, out, batch, pose, extras, pose_params,
     return total, stats
 
 
+def _masked_share(mesh, y: torch.Tensor) -> torch.Tensor:
+    """The factor that turns this rank's regularizer, a mean over its
+    pixels off the foreground (``losses._masked_mean``: y < 1), into its
+    share of the global batch's: P max(c, 1) / max(C, 1), with c this
+    rank's count and C the ranks' total.  (A rank with c = 0 has a zero
+    sum, so its max(c, 1) changes nothing.)  Data only: no gradient
+    flows through it."""
+    c = (y < 1.0).to(y.dtype).sum()
+    total = c.clone()
+    dist.all_reduce(total, group=mesh.group)
+    return mesh.size * torch.clamp(c, min=1.) / torch.clamp(total, min=1.)
+
+
+def reduce_stats(mesh, stats: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """The ranks' mean of every scalar statistic (one buffer), then
+    ``psnr``/``psnr0`` from the mean MSE: the global batch's values.
+    tau, the same on every rank, stays as it is."""
+    keys = sorted(k for k, v in stats.items() if v.dim() == 0 and k != 'tau')
+    stats = dict(stats)
+    stats.update(zip(keys, all_reduce_mean(mesh, [stats[k] for k in keys])))
+    for tag in ('', '0'):
+        if '_mse' + tag in stats:
+            stats['psnr' + tag] = L.mse2psnr(stats.pop('_mse' + tag))
+    return stats
+
+
 def _use_pose(cfg: Config, step: int) -> bool:
     """Pose refinement is on at this step: inside the warmup/stop
     window (reference trainer.py:240-241)."""
@@ -370,7 +431,8 @@ def loss_and_grads(setup: TrainSetup, state, batch, generator=None,
             rc, state['params'], batch['rays_o'], batch['rays_d'],
             setup.near, setup.far, pose, est,
             cam_idxs=batch.get('cam_idxs') if cfg.opt_framecode else None,
-            subject_idxs=batch.get('subject_idxs'), generator=generator)
+            subject_idxs=batch.get('subject_idxs'), generator=generator,
+            group=setup.group)
         total, stats = compute_losses(setup, out, batch, pose, extras,
                                       state['pose_params'],
                                       values['use_pose'])
@@ -517,6 +579,13 @@ def _step_body(setup: TrainSetup, state, batch, row: torch.Tensor,
     v = row_values(row)
     stats, g_nerf, g_pose = loss_and_grads(setup, state, batch, generator,
                                            v)
+    if setup.group is not None:
+        # each rank's loss is its share of the global one (compute_losses)
+        # over equal blocks, so the global gradient is the ranks' mean
+        g_nerf = all_reduce_mean(setup.mesh, g_nerf)
+        if g_pose:
+            g_pose = all_reduce_mean(setup.mesh, g_pose)
+        stats = reduce_stats(setup.mesh, stats)
     nerf_leaves = tree_leaves(state['params'])
     if cfg.opt_pose and cfg.testopt:
         # test-time pose optimization: the NeRF is frozen and only
@@ -570,7 +639,7 @@ def _step_body(setup: TrainSetup, state, batch, row: torch.Tensor,
             a.masked_fill_(fire, 0.)
         if cfg.opt_pose_flipflop and kp_per_ray is not None:
             FF.accumulate_loss(state['kp_tracker'], kp_per_ray,
-                               batch['kp_idx'])
+                               batch['kp_idx'], group=setup.group)
             stats['kp_tracker_mean'] = FF.get_trackers(
                 state['kp_tracker']).mean()
     return stats
@@ -702,6 +771,11 @@ def make_multi_train_step(setup: TrainSetup, steps: int) -> Callable:
     step two small copies and a replay."""
     if steps < 1:
         raise ValueError(f'steps_per_dispatch {steps} < 1')
+    if setup.mesh is not None and setup.mesh.size > 1:
+        # the graph would have to capture the step's collectives
+        raise NotImplementedError(
+            'steps_per_dispatch with several ranks is not ported: '
+            'ROADMAP.md A.7')
     graph = _GraphStep(setup) if setup.device.type == 'cuda' else None
 
     def multi_step(state, batches, generator=None):

@@ -176,7 +176,25 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
 18. cli_fuse_tform phase (after 17): ``configs/mixamo.txt`` with
    ``fuse_tform = True`` through ``run_train.train`` on cli_train's
    store, 4 steps, K1-K4's fuse_tform forms once a step and their point
-   forms never, finite losses.
+   forms never, finite losses;
+19. dist_train phase (after 18; ROADMAP A.7, ``anerf_torch/parallel``):
+   (a) a world of one under NCCL in this process: 3 flagship steps
+   (pose every step) through ``shard_train_step`` bit-identical to
+   ``make_train_step``'s under deterministic algorithms (the plain step
+   run twice shows the bar can hold); (b) two gloo ranks spawned with
+   ``torch.multiprocessing``, both on this card, on the flagship at full
+   width without draws, the 2048-ray batch split 1024/1024 against the
+   one-rank step on the same rays: the loss within 1e-5, each tree's
+   all-reduced gradient at the backward bars, the NeRF parameters' and
+   the pose bank's updates after 3 steps at DIST_NERF_UPD_COS_MIN and
+   DIST_UPD_COS_MIN (beside one rank on the same rays permuted), the
+   ranks' states bit-equal, K1-K4, K-vf1 and K-vf2 counted on each rank;
+20. dist_render phase: two gloo ranks render one 512x512 bullet frame
+   at chunk 4096 (2048 rays a rank a chunk) through the sharded
+   ``ImageRenderer``: K1 and K2 once a chunk on each rank, the ranks'
+   frames bit-equal, within MAP_TOL of the one-rank frame (whether
+   bit-equal is printed).  Two ranks share one card in 19 and 20, so
+   their times are no scaling numbers.
 
 Each phase prints its host seconds as it ends.  Every backward kernel's
 dW pass is its two kernels (the point slices' partial tiles and their
@@ -195,6 +213,8 @@ times, bound, error and launches at the CLI mixamo step's shapes, and
 K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
 the launches of the path that runs each, and ``net_shapes`` those of
 the net_shapes phase's nets with the launches of their train steps;
+``dist_train`` and ``dist_render`` in ``launches_by_path`` add both
+ranks' launches;
 K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
 ``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
 and ``fuse_tform_times``, the flagship step's and the render's both
@@ -3427,6 +3447,402 @@ def profile_step(step, state, batch, gen, groups):
         print(f'  {g}: {ms:.3f} ms')
 
 
+# ---- several ranks (ROADMAP A.7) --------------------------------------------
+
+DIST_STEPS = 3          # dist_train: train steps of each form
+DIST_RAYS = 2048        # dist_train: the global batch (the flagship's)
+DIST_H = 512            # dist_render: the frame's side
+DIST_TIMEOUT = 300      # seconds the spawned ranks of a phase may take
+DIST_LOSS_RTOL = 1e-5   # two ranks' loss against one rank's
+# the updates after DIST_STEPS steps, two ranks against one.  Each
+# backward call rounds the weights' gradients to bf16 (the weights' dtype,
+# anerf_tpu's ``gr.astype(d)``), so two ranks round two halves that one
+# rank rounds as one sum; where the halves cancel, Adam's sign-like first
+# steps turn that rounding into a whole step.  The pose bank's gradient
+# takes no bf16 rounding (its update at cosine > 0.9999); the NeRF
+# parameters' update is held at 0.999 (measured 0.99961 on an H100,
+# beside 0.99993 for one rank on the same rays permuted, which moves only
+# the f32 order of the sums)
+DIST_UPD_COS_MIN = 0.9999
+DIST_NERF_UPD_COS_MIN = 0.999
+
+
+def _spawn_ranks(fn, world, *args):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes (each
+    loads the kernels' libraries the parent built).  A rank that raises
+    fails the call with its traceback, and one that outlives
+    DIST_TIMEOUT seconds is killed and fails it; no process of the call
+    outlives it."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
+                             join=False, start_method='spawn')
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f'{fn.__name__}: the ranks did not end '
+                                   f'within {DIST_TIMEOUT} s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _dist_dir(name):
+    """A fresh directory under WORK for a phase's store and results."""
+    import tempfile
+    os.makedirs(WORK, exist_ok=True)
+    return tempfile.mkdtemp(prefix=name, dir=WORK)
+
+
+def _cpu_state(x):
+    import torch
+    if isinstance(x, dict):
+        return {k: _cpu_state(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_cpu_state(v) for v in x]
+    return x.detach().cpu().clone() if torch.is_tensor(x) else x
+
+
+def _flagship_dist(T, device, n_rays, **over):
+    """The flagship setup, state and batch, with the pose optimizer
+    firing every step (``opt_pose_step`` 1), so that the pose bank's
+    reduced gradient moves it in every step; seed 1's weights, whose
+    density is positive inside the subject's cylinder (seed 0's renders
+    nothing, and its loss barely moves)."""
+    setup, state, batch, _ = T.build_flagship(
+        n_rays, device=device, compute_dtype='bfloat16', seed=1, **over)
+    setup = dataclasses.replace(setup, cfg=dataclasses.replace(
+        setup.cfg, opt_pose_step=1))
+    return setup, state, batch
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _dist_rank_init(rank, world, store):
+    import torch
+    sys.path.insert(0, ROOT)
+    from anerf_torch.parallel import sharding as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S.init_distributed(backend='gloo', init_method=f'file://{store}',
+                       rank=rank, world_size=world)
+    return S
+
+
+def _dist_train_rank(rank, world, store, out, device, n_rays):
+    """One rank of dist_train (b): the flagship's gradients on this
+    rank's half of the ``n_rays`` batch, all-reduced, then DIST_STEPS
+    steps of ``shard_train_step``, counted and timed."""
+    import torch
+    S = _dist_rank_init(rank, world, store)
+    from anerf_torch import testing_utils as T
+    from anerf_torch.ops import fused_encmlp as FE
+    from anerf_torch.training import trainer as TT
+    try:
+        setup, state, batch = _flagship_dist(T, device, n_rays, perturb=0.,
+                                             raw_noise_std=0.)
+        mesh = S.make_mesh(world)
+        # rank 0's state to every rank, as run_train starts (the same
+        # bits here: gloo's broadcast on CUDA tensors)
+        S.replicate_state(mesh, state)
+        msetup = dataclasses.replace(setup, mesh=mesh)
+        stats, g_nerf, g_pose = TT.loss_and_grads(
+            msetup, state, S.shard_batch(mesh, batch))
+        grads = [S.all_reduce_mean(mesh, g) for g in (g_nerf, g_pose)]
+        loss0 = float(TT.reduce_stats(mesh, stats)['total_loss'])
+        start = _cpu_state(state)
+        step = S.shard_train_step(setup, mesh)
+        FE.reset_launch_counts()
+        losses, ms = [], []
+        for _ in range(DIST_STEPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            state, st = step(state, batch, None)
+            losses.append(float(st['total_loss']))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = FE.launch_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save({'counts': counts, 'losses': losses, 'ms': ms,
+                'loss0': loss0, 'grads': _cpu_state(grads), 'start': start,
+                'state': _cpu_state(state)},
+               os.path.join(out, f'rank{rank}.pt'))
+
+
+def _flat_tree(leaves):
+    import torch
+    return torch.cat([t.double().reshape(-1) for t in leaves])
+
+
+def dist_train_phase(FE, T, device, gpu_line, backend='nccl'):
+    """Training over several ranks: (a) a world of one under NCCL in
+    this process, DIST_STEPS flagship steps through ``shard_train_step``
+    bit-identical to ``make_train_step``'s (both under deterministic
+    algorithms, the gathers' backward atomics included; the plain step
+    run twice shows that the bar can hold); (b) two gloo ranks in
+    spawned processes, both on this card, on the flagship at full width
+    without draws: the 2048-ray batch split 1024/1024 against the
+    one-rank step on the same rays (the loss within DIST_LOSS_RTOL, each
+    tree's all-reduced gradient at the backward bars, the updates after
+    DIST_STEPS steps at DIST_NERF_UPD_COS_MIN for the NeRF parameters
+    and DIST_UPD_COS_MIN for the pose bank, each printed beside one rank
+    on the same rays permuted, the ranks' states bit-equal),
+    K1-K4, K-vf1 and K-vf2 counted on each rank.  Returns the two ranks'
+    launch counts, summed.  (``backend='gloo'`` rehearses (a) on the
+    CPU.)"""
+    import torch
+    import torch.distributed as dist
+    from anerf_torch.parallel import sharding as S
+    from anerf_torch.training.trainer import _state_tensors, make_train_step
+
+    # (a) NCCL, a world of one
+    work = _dist_dir('dist_train_a')
+    S.init_distributed(backend=backend,
+                       init_method=f'file://{work}/store', rank=0,
+                       world_size=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        setup, state, batch = _flagship_dist(T, device, DIST_RAYS)
+        mesh = S.make_mesh(1)
+        S.replicate_state(mesh, state)
+        runs, ms = {}, {}
+        for name, step in (('plain', make_train_step(setup)),
+                           ('plain again', make_train_step(setup)),
+                           ('sharded', S.shard_train_step(setup, mesh))):
+            st = _clone_state(state)
+            gen = torch.Generator(device=device).manual_seed(0)
+            FE.reset_launch_counts()
+            runs[name] = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_STEPS):
+                st, _ = step(st, batch, gen)
+                runs[name].append(_state_tensors(_clone_state(st)))
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+            counts = FE.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    same = lambda a, b: all(torch.equal(x, y) for s, t in zip(a, b)
+                            for x, y in zip(s, t))
+    expect = {k: 0 for k in counts}
+    expect.update({k: DIST_STEPS * n for k, n in FLAGSHIP_STEP.items()})
+    print(f'dist_train (a): {backend} world of one, {DIST_STEPS} flagship '
+          f'steps: '
+          f'shard_train_step bit-identical to make_train_step '
+          f'{same(runs["plain"], runs["sharded"])}, make_train_step to '
+          f'itself {same(runs["plain"], runs["plain again"])}; launches '
+          f'{counts}; ms/step ' + ', '.join(f'{k} {v:.2f}'
+                                            for k, v in ms.items())
+          + f' (deterministic algorithms; {gpu_line})')
+    if not same(runs['plain'], runs['sharded']):
+        raise AssertionError('a world of one through shard_train_step is '
+                             'not bit-identical to make_train_step')
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+
+    # (b) two gloo ranks on this card
+    work = _dist_dir('dist_train_b')
+    t0 = time.perf_counter()
+    _spawn_ranks(_dist_train_rank, 2, f'{work}/store', work, str(device),
+                 DIST_RAYS)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f'rank{r}.pt'),
+                        weights_only=False) for r in range(2)]
+    from anerf_torch.training import trainer as TT
+    setup, state, batch = _flagship_dist(T, device, DIST_RAYS, perturb=0.,
+                                         raw_noise_std=0.)
+    stats, g_nerf, g_pose = TT.loss_and_grads(setup, state, batch)
+    start = _cpu_state(state)
+    step = make_train_step(setup)
+    losses, one_ms = [], []
+    for _ in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, st = step(state, batch, None)
+        losses.append(float(st['total_loss']))
+        one_ms.append((time.perf_counter() - t1) * 1e3)
+    end = _cpu_state(state)
+    # beside it: the same one-rank steps on the batch with its rays
+    # permuted, the same sums in another f32 order and no ranks
+    perm = torch.randperm(DIST_RAYS, generator=torch.Generator().manual_seed(
+        0)).to(device)
+    swap = {k: v[perm] for k, v in batch.items()}
+    setup, state, _ = _flagship_dist(T, device, DIST_RAYS, perturb=0.,
+                                     raw_noise_std=0.)
+    step = make_train_step(setup)
+    for _ in range(DIST_STEPS):
+        state, _ = step(state, swap, None)
+    floor = _cpu_state(state)
+    r0 = ranks[0]
+    if not all(torch.equal(a, b) for a, b in zip(
+            _state_tensors(r0['state']), _state_tensors(ranks[1]['state']))):
+        raise AssertionError('the two ranks\' states differ')
+    for r, res in enumerate(ranks):
+        want = {k: 0 for k in res['counts']}
+        want.update({k: DIST_STEPS * n for k, n in FLAGSHIP_STEP.items()})
+        if res['counts'] != want:
+            raise AssertionError(f'rank {r}: launch counts {res["counts"]}, '
+                                 f'expected {want}')
+    for name, ref, got in (('NeRF', g_nerf, r0['grads'][0]),
+                           ('pose', g_pose, r0['grads'][1])):
+        cos, ratio, _, _ = _cmp(_flat_tree(ref).cpu(), _flat_tree(got))
+        print(f'  dist_train (b) {name} gradient, all-reduced against one '
+              f'rank: cos {cos:.9f} ratio {ratio:.9f}')
+        if cos < BWD_COS_MIN or abs(ratio - 1) > BWD_RATIO_TOL:
+            raise AssertionError(f'dist_train: the {name} gradient disagrees')
+    for name, bar in (('params', DIST_NERF_UPD_COS_MIN),
+                      ('pose_params', DIST_UPD_COS_MIN),
+                      ('opt_state', None), ('pose_opt_state', None)):
+        upd = [_flat_tree(_state_tensors({name: e[name]})) -
+               _flat_tree(_state_tensors({name: s[name]}))
+               for s, e in ((start, end), (r0['start'], r0['state']),
+                            (start, floor))]
+        cos, ratio, _, _ = _cmp(upd[0], upd[1])
+        fcos, fratio, _, _ = _cmp(upd[0], upd[2])
+        print(f'  dist_train (b) {name} update after {DIST_STEPS} steps: '
+              f'cos {cos:.7f} ratio {ratio:.6f}'
+              + (f' (bar {bar})' if bar else ' (not held)')
+              + f'; one rank on the permuted rays cos {fcos:.7f} ratio '
+              f'{fratio:.6f}')
+        if bar and cos < bar:
+            raise AssertionError(f'dist_train: the {name} update disagrees')
+    # the loss of one step on the same state and rays (in the step and
+    # from loss_and_grads); the later steps' start from states that
+    # differ where Adam's first steps turn a gradient at noise level into
+    # a whole step, which the update bars above hold
+    pairs = [('loss before', float(stats['total_loss']), r0['loss0'])] + [
+        (f'loss step {i}', a, b) for i, (a, b) in enumerate(
+            zip(losses, r0['losses']))]
+    for what, a, b in pairs:
+        held = what in ('loss before', 'loss step 0')
+        print(f'  dist_train (b) {what}: one rank {a:.7f}, two ranks '
+              f'{b:.7f}, rel {abs(a - b) / abs(a):.2e}'
+              + ('' if held else ' (not held: the states differ)'))
+        if held and abs(a - b) > DIST_LOSS_RTOL * abs(a):
+            raise AssertionError(f'dist_train: {what} disagrees')
+    print(f'dist_train (b): two gloo ranks on one card, {DIST_RAYS // 2} '
+          f'rays each, '
+          f'ms/step by rank ' + '; '.join(
+              ', '.join(f'{m:.1f}' for m in res['ms']) for res in ranks)
+          + f', one rank on {DIST_RAYS} rays '
+          + ', '.join(f'{m:.1f}' for m in one_ms)
+          + f' (steps 1-{DIST_STEPS}, the first with its warm-up); the two '
+          f'ranks share the card, so this is no scaling number; the spawn '
+          f'took {spawn_s:.1f} s; the ranks\' states bit-equal; launches a '
+          f'rank {r0["counts"]} ({gpu_line})')
+    return {k: sum(res['counts'][k] for res in ranks) for k in r0['counts']}
+
+
+def _dist_render_rank(rank, world, store, out, device, H):
+    """One rank of dist_render: its blocks of one H x H bullet frame's
+    4096-ray chunks, counted and timed after a warm-up render."""
+    import torch
+    S = _dist_rank_init(rank, world, store)
+    from anerf_torch import testing_utils as T
+    from anerf_torch.ops import fused_encmlp as FE
+    try:
+        renderer, rd = _dist_renderer(T, device, H, S.make_mesh(world))
+        n_chunks = 0
+        inner = renderer._render_chunk
+
+        def counted(*args):
+            nonlocal n_chunks
+            n_chunks += 1
+            return inner(*args)
+
+        renderer._render_chunk = counted
+        renderer.render_path(rd)        # warm-up: cuBLAS, allocator
+        _sync(device)
+        n_chunks = 0
+        FE.reset_launch_counts()
+        t0 = time.perf_counter()
+        frame = renderer.render_path(rd)
+        _sync(device)
+        s = time.perf_counter() - t0
+        counts = FE.launch_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save({'frame': frame, 'counts': counts, 'n_chunks': n_chunks,
+                's': s}, os.path.join(out, f'rank{rank}.pt'))
+
+
+def _dist_renderer(T, device, H, mesh=None):
+    """The render path phase's renderer (seed 1's weights, chunk 4096)
+    over ``mesh``, and one H x H bullet frame."""
+    import torch
+    from anerf_torch.interop import params_to
+    from anerf_torch.models.factory import (build_raycast_config,
+                                            embed_state,
+                                            init_raycaster_params)
+    from anerf_torch.render.renderer import ImageRenderer
+    cfg = T.surreal_config(compute_dtype='bfloat16')
+    rc = build_raycast_config(cfg, n_framecodes=9)
+    params = params_to(init_raycaster_params(
+        torch.Generator().manual_seed(1), rc, cfg), device)
+    rd, _ = _bullet_data(T, 1, H)
+    return ImageRenderer(rc, params, embed_state(cfg, rc, 10000),
+                         chunk=4096, near=0., far=1., device=device,
+                         mesh=mesh), rd
+
+
+def dist_render_phase(FE, T, device, gpu_line):
+    """Rendering over two gloo ranks on this card: one DIST_H x DIST_H
+    (512 x 512) bullet frame at chunk 4096 (2048 rays a rank a chunk),
+    K1 and K2 once a chunk on each rank, the ranks' frames bit-equal
+    and within MAP_TOL of the frame's max of the one-rank frame (whether
+    bit-equal is printed).  Returns the two ranks' launch counts,
+    summed."""
+    import numpy as np
+    import torch
+    work = _dist_dir('dist_render')
+    t0 = time.perf_counter()
+    _spawn_ranks(_dist_render_rank, 2, f'{work}/store', work, str(device),
+                 DIST_H)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f'rank{r}.pt'),
+                        weights_only=False) for r in range(2)]
+    renderer, rd = _dist_renderer(T, device, DIST_H)
+    renderer.render_path(rd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = renderer.render_path(rd)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        want = {k: 0 for k in res['counts']}
+        want.update(encmlp_fwd=res['n_chunks'],
+                    encmlp_dual_fwd=res['n_chunks'])
+        if res['counts'] != want or res['n_chunks'] == 0:
+            raise AssertionError(f'rank {r}: launch counts {res["counts"]}, '
+                                 f'expected {want}')
+    f0, f1 = ranks[0]['frame'], ranks[1]['frame']
+    if not all(np.array_equal(f0[k], f1[k]) for k in ('rgbs', 'disps',
+                                                      'accs')):
+        raise AssertionError('the two ranks\' frames differ')
+    if one['accs'].max() < 0.5:
+        raise AssertionError('an empty frame: the check would be vacuous')
+    bits = {k: bool(np.array_equal(one[k], f0[k]))
+            for k in ('rgbs', 'disps', 'accs')}
+    _maps_close('dist_render two ranks vs one', one, f0)
+    print(f'dist_render: one {DIST_H}x{DIST_H} frame, '
+          f'{ranks[0]["n_chunks"]} chunks '
+          f'of 4096 rays, 2048 a rank; bit-equal to one rank {bits}; '
+          f'launches a rank {ranks[0]["counts"]}; s/frame by rank '
+          f'{ranks[0]["s"]:.3f}, {ranks[1]["s"]:.3f}, one rank {one_s:.3f}: '
+          f'the two ranks share the card, so this is no scaling number; '
+          f'the spawn took {spawn_s:.1f} s ({gpu_line})')
+    return {k: sum(res['counts'][k] for res in ranks)
+            for k in ranks[0]['counts']}
+
+
 class PhaseClock:
     """Host seconds of each phase, printed as it ends, so that the run
     can be kept inside its time limit."""
@@ -3572,6 +3988,10 @@ def main() -> int:
         clock.mark('cli_net_width')
         paths['cli_fuse_tform'] = cli_fuse_tform_phase(FE, device, gpu_line)
         clock.mark('cli_fuse_tform')
+        paths['dist_train'] = dist_train_phase(FE, T, device, gpu_line)
+        clock.mark('dist_train')
+        paths['dist_render'] = dist_render_phase(FE, T, device, gpu_line)
+        clock.mark('dist_render')
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each row's launches come from the path whose shapes it times: the

@@ -76,12 +76,20 @@ def test_train_cli_writes_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_several_devices(monkeypatch):
-    """Several devices or processes are not ported (ROADMAP.md A.7)."""
+    """One process drives one device: ``n_devices=2`` in a world of one
+    raises, naming torchrun, and so does ``WORLD_SIZE=2`` without the
+    rest of a launcher's environment (``tests/test_torch_parallel_cli.py``
+    trains two ranks)."""
     from anerf_torch.run_train import train
-    with pytest.raises(NotImplementedError, match='A.7'):
+    with pytest.raises(ValueError, match='torchrun'):
         train(load_config(CONFIG, n_devices=2), device='cpu')
+    for k in ('RANK', 'MASTER_ADDR', 'MASTER_PORT'):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(NotImplementedError, match='A.7'):
+    with pytest.raises(RuntimeError, match='torchrun'):
+        train(load_config(CONFIG), device='cpu')
+    monkeypatch.setenv('RANK', '1')
+    with pytest.raises(RuntimeError, match='MASTER_ADDR and MASTER_PORT'):
         train(load_config(CONFIG), device='cpu')
 
 

@@ -1,8 +1,8 @@
-"""Boundaries of the port: ``anerf_torch`` and ``chip_smoke.py`` import
-nothing of JAX or anerf_tpu (the machine with the GPU has no JAX) and
-import imageio, cv2, h5py and msgpack (which that machine lacks too)
-only inside functions, and the renderer never falls back to the CPU on
-its own.
+"""Boundaries of the port: ``anerf_torch``, ``chip_smoke.py`` and the
+multi-process tests' rank module import nothing of JAX or anerf_tpu
+(the machine with the GPU has no JAX) and import imageio, cv2, h5py and
+msgpack (which that machine lacks too) only inside functions, and the
+renderer never falls back to the CPU on its own.
 
 The import check walks the sources' syntax trees: this environment
 preloads jax at interpreter start, so ``sys.modules`` cannot show it.
@@ -19,7 +19,9 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'anerf_tpu')
 
 
 def _sources():
-    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    # the ranks of the multi-process tests run this module alone
+    out = [os.path.join(ROOT, 'chip_smoke.py'),
+           os.path.join(ROOT, 'tests', '_torch_parallel_worker.py')]
     for d, _, files in os.walk(os.path.join(ROOT, 'anerf_torch')):
         out += [os.path.join(d, f) for f in files if f.endswith('.py')]
     return sorted(out)

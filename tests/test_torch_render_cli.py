@@ -523,9 +523,12 @@ def test_render_cli_every_type(cli, render_type, ckpt):
 
 
 def test_render_cli_needs_a_gpu_and_one_device(cli, monkeypatch):
+    """``--mesh_devices 2`` in a world of one raises, naming torchrun
+    (``tests/test_torch_parallel_cli.py`` renders over two ranks), and
+    without CUDA the default device raises; neither writes a file."""
     from anerf_torch.run_render import main
     argv = _argv(cli, 't', 'pt', 'bullet', 'refused')
-    with pytest.raises(NotImplementedError, match='A.7'):
+    with pytest.raises(ValueError, match='torchrun'):
         main(argv + ['--mesh_devices', '2'], device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
