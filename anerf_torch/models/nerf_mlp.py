@@ -162,3 +162,13 @@ def density_only(params, cfg: NeRFConfig, x_pts: torch.Tensor
     (reference raycasters.py:626-646)."""
     h = forward_density(params, cfg, x_pts)
     return _dense(params['alpha_linear'], h, cfg.compute_dtype)
+
+
+def count_params(params) -> int:
+    """The number of values in a parameter tree (nested dicts and lists
+    of tensors or arrays; None leaves count nothing)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return 0 if params is None else int(np.prod(params.shape))

@@ -112,3 +112,18 @@ def get_smpl_l2ws_np(pose: np.ndarray, rest_pose: np.ndarray = None,
             p = joint_trees[j]
             l2ws[j] = l2ws[p] @ hom(rots[j], rest_kp[j] - rest_kp[p])
     return np.stack(l2ws, axis=0)
+
+
+def get_rest_pose_from_l2ws_np(l2ws: np.ndarray,
+                               skel: Skeleton = SMPLSkeleton) -> np.ndarray:
+    """Recover rest pose from l2ws (reference skeleton_utils.py:378-395)."""
+    joint_trees = np.asarray(skel.joint_trees)
+    kp = l2ws[:, :3, -1]
+    rest = [None] * skel.n_joints
+    rest[skel.root_id] = kp[skel.root_id]
+    for level in skel.kinematic_levels()[1:]:
+        for j in level:
+            p = joint_trees[j]
+            rel = l2ws[p, :3, :3].T @ (kp[j] - kp[p])
+            rest[j] = rest[p] + rel
+    return np.stack(rest, axis=0)

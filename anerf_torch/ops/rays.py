@@ -233,3 +233,25 @@ def get_near_far_in_cylinder(rays_o: torch.Tensor, rays_d: torch.Tensor,
     new_far = torch.where(hit[..., None], new_far,
                           torch.where(any_hit, mean_far, far))
     return new_near, new_far
+
+
+def get_near_far_in_cylinder_np(rays_o, rays_d, cyl, near=0.35, far=2.75):
+    """Numpy twin (reference ray_utils.py:346-379) for host-side prep."""
+    r_near = (rays_o + rays_d * near)[..., [0, -1]]
+    r_far = (rays_o + rays_d * far)[..., [0, -1]]
+    radius = cyl[..., 2:3]
+    center = cyl[..., :2]
+    nc = center - r_near
+    nf = r_far - r_near
+    nf_norm = np.linalg.norm(nf, axis=-1)
+    scale = np.linalg.norm(rays_d[..., [0, -1]], axis=-1)[..., None]
+    cross = nc[..., 0] * nf[..., 1] - nc[..., 1] * nf[..., 0]
+    dist = (np.abs(cross) / nf_norm)[..., None]
+    q_sq = radius ** 2 - dist ** 2
+    hit = q_sq > 0.
+    Q = np.sqrt(np.maximum(q_sq, 0.))
+    K = ((nc * nf).sum(-1) / nf_norm)[..., None]
+    mask = (Q < K).astype(np.float32)
+    new_near = np.where(hit, near + mask * (K - Q) / scale, near)
+    new_far = np.where(hit, near + (K + Q) / scale, far)
+    return new_near, new_far

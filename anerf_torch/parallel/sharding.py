@@ -150,25 +150,30 @@ def all_reduce_mean(mesh: RayMesh, tensors: List[torch.Tensor]
     return out
 
 
-def shard_batch(mesh: RayMesh, batch: Dict[str, Any]) -> Dict[str, Any]:
+def shard_batch(mesh: RayMesh, batch: Dict[str, Any],
+                stacked: bool = False) -> Dict[str, Any]:
     """This rank's contiguous 1/P block of every array of a global
-    batch (numpy or tensors), on its leading (ray) axis."""
+    batch (numpy or tensors), on its leading (ray) axis; with
+    ``stacked`` on the second axis of a bundle's batches, whose leading
+    axis is the step (anerf_tpu's ``P(None, 'data')``)."""
+    axis = 1 if stacked else 0
     out: Dict[str, Any] = {}
     for k, v in batch.items():
         if v is None:
             out[k] = None
             continue
-        n = v.shape[0]
+        n = v.shape[axis]
         if n % mesh.size:
             raise ValueError(f'batch {k!r} has {n} rays, not a multiple of '
                              f'{mesh.size} ranks (pad_rays_to_shards)')
         m = n // mesh.size
-        out[k] = v[mesh.rank * m:(mesh.rank + 1) * m]
+        block = slice(mesh.rank * m, (mesh.rank + 1) * m)
+        out[k] = v[:, block] if stacked else v[block]
     return out
 
 
-def shard_train_step(setup, mesh: RayMesh,
-                     global_batch: bool = False) -> Callable:
+def shard_train_step(setup, mesh: RayMesh, global_batch: bool = False,
+                     stacked: bool = False, steps: int = 1) -> Callable:
     """``train_step(state, batch, generator)`` over the ray group: the
     step of ``training.trainer.make_train_step`` with its gradients,
     statistics and kp-loss trackers all-reduced over ``mesh``.
@@ -180,16 +185,48 @@ def shard_train_step(setup, mesh: RayMesh,
     anerf_tpu's ``make_global_batch`` input path).  The state must be
     the same on every rank (``replicate_state``); it stays so.  Each
     rank's ``generator`` should be seeded differently
-    (``rank_generator``), or the ranks draw the same jitter rows."""
-    from ..training.trainer import make_train_step
-    step = make_train_step(dataclasses.replace(setup, mesh=mesh))
+    (``rank_generator``), or the ranks draw the same jitter rows.
+
+    ``stacked=True`` bundles ``steps`` steps into one call
+    (``training.trainer.make_multi_train_step`` over the ranks): the
+    batch carries a leading ``steps`` axis and the rays are its second
+    axis, of which each rank keeps its block of every step
+    (``shard_batch(..., stacked=True)``); with ``global_batch=True`` the
+    batches are this rank's blocks, stacked (its own draws).  anerf_tpu
+    refuses a global batch here only because it drives every device of
+    a host from one process; a host of several cards here is several
+    ranks, each stacking its own draws.  Bundles are one host's, as in
+    anerf_tpu (``require_one_host``)."""
+    from ..training.trainer import make_multi_train_step, make_train_step
+    setup = dataclasses.replace(setup, mesh=mesh)
+    step = (make_multi_train_step(setup, steps) if stacked
+            else make_train_step(setup))
 
     def sharded(state, batch, generator=None):
         if not global_batch:
-            batch = shard_batch(mesh, batch)
+            batch = shard_batch(mesh, batch, stacked=stacked)
         return step(state, batch, generator)
 
     return sharded
+
+
+def require_one_host(mesh: Optional[RayMesh], steps: int) -> None:
+    """Bundles of ``steps`` > 1 steps are one host's, as anerf_tpu
+    asserts a single process for them: raises unless ``mesh`` is one
+    rank or every rank runs on this host (torchrun's
+    ``LOCAL_WORLD_SIZE`` equal to the world size).  A job joined
+    through ``init_distributed``'s arguments, without torchrun's
+    environment, counts as one host: its ranks are the processes one
+    launcher spawned."""
+    if steps <= 1 or mesh is None or mesh.size == 1:
+        return
+    local = int(os.environ.get('LOCAL_WORLD_SIZE', mesh.size))
+    if local != mesh.size:
+        raise NotImplementedError(
+            f'steps_per_dispatch {steps} over {mesh.size} ranks on several '
+            f'hosts (LOCAL_WORLD_SIZE {local}): bundles run on one host '
+            'only, as anerf_tpu asserts one process for them; start one '
+            "host's ranks, or --steps_per_dispatch 1")
 
 
 def rank_generator(mesh: RayMesh, seed: int, device) -> torch.Generator:

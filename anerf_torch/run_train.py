@@ -31,7 +31,11 @@ Each rank draws its block of every global batch of ``N_rand`` rays
 (``parallel.sharding.replicate_state``) and the step all-reduces its
 gradients (``parallel.sharding.shard_train_step``); rank 0 alone writes
 the logdir: ``args.txt``, the logs, the checkpoints and the validation
-renders.  ``n_devices``, when set, must be the number of ranks.
+renders.  ``n_devices``, when set, must be the number of ranks.  With
+``--steps_per_dispatch k`` each rank stacks k of its own draws into one
+bundle (``shard_train_step(..., stacked=True)``; under NCCL the graph
+holds the collectives), on one host's ranks only, as ``run_train.py``
+bundles on one host.
 """
 from __future__ import annotations
 
@@ -93,7 +97,7 @@ def train(cfg, device=None,
     from .models.factory import build_raycast_config, embed_state
     from .parallel.sharding import (init_distributed, make_mesh,
                                     rank_generator, replicate_state,
-                                    shard_train_step)
+                                    require_one_host, shard_train_step)
     from .render.renderer import ImageRenderer
     from .training import pose_opt as P
     from .training.checkpoint import (latest_checkpoint, load_checkpoint,
@@ -113,6 +117,8 @@ def train(cfg, device=None,
     init_distributed(backend='gloo' if device is not None and torch.device(
         device).type == 'cpu' else None)
     mesh = make_mesh(cfg.n_devices)
+    spd = max(1, int(cfg.steps_per_dispatch))
+    require_one_host(mesh, spd)
     rank0 = mesh.rank == 0
     device = resolve_device(device)
     logdir = os.path.join(cfg.basedir, cfg.expname)
@@ -188,15 +194,14 @@ def train(cfg, device=None,
     if anchors is not setup.anchors:
         setup = dataclasses.replace(setup, anchors=anchors)
 
-    spd = max(1, int(cfg.steps_per_dispatch))
     if mesh.size > 1:
         # every rank resumed from the same checkpoint: now bit-equal
         state = replicate_state(mesh, state)
-        setup = dataclasses.replace(setup, mesh=mesh)
-    if spd > 1:
-        step_fn = make_multi_train_step(setup, spd)  # raises over ranks
-    elif mesh.size > 1:
-        step_fn = shard_train_step(setup, mesh, global_batch=True)
+        # each rank draws its own block of the global batch (host_slice)
+        step_fn = shard_train_step(setup, mesh, global_batch=True,
+                                   stacked=spd > 1, steps=spd)
+    elif spd > 1:
+        step_fn = make_multi_train_step(setup, spd)
     else:
         step_fn = make_train_step(setup)
     feeder = DeviceFeeder(device)

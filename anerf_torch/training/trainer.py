@@ -49,8 +49,9 @@ subject, ``rest_pose_idxs`` naming each frame's subject for FK, and the
 batch's ``subject_idxs`` feeding the model's subject channel.
 
 ``make_multi_train_step`` bundles k steps into one call (anerf_tpu's
-``lax.scan`` of k steps): on the CPU k runs of the step body, on a GPU
-k replays of one CUDA graph of the step (``_GraphStep``).
+``lax.scan`` of k steps): on the CPU and under gloo k runs of the step
+body, on a GPU k replays of one CUDA graph of the step (``_GraphStep``),
+the collectives of NCCL ranks captured in it.
 
 Over several ranks (``TrainSetup.mesh``, ``parallel.sharding``) each
 rank steps its block of the global batch and the step all-reduces what
@@ -70,7 +71,7 @@ import torch.distributed as dist
 from ..interop import params_to, tree_map
 from ..models.factory import embed_state, init_raycaster_params
 from ..models.raycaster import RayCastConfig, render_rays
-from ..parallel.sharding import all_reduce_mean
+from ..parallel.sharding import all_reduce_mean, require_one_host
 from ..skeleton import Skeleton
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -685,7 +686,13 @@ class _GraphStep:
     its batch and row into the static inputs and replays.  A failed
     capture raises; nothing replays eager steps in its place.  The
     kernels' launch counters advance at capture only (the wrappers'
-    Python runs then); a replay launches without them."""
+    Python runs then); a replay launches without them.
+
+    Over NCCL ranks the graph holds the step's collectives.  The
+    warm-up runs them first, on every capture: NCCL makes its
+    communicator at a group's first collective, which a capture cannot
+    hold, and every rank warms up and captures at the same steps, as
+    their keys change together."""
 
     WARMUP = 2
 
@@ -768,15 +775,21 @@ def make_multi_train_step(setup: TrainSetup, steps: int) -> Callable:
     stats.  The result is that of ``steps`` calls of the train step: on
     the CPU it is those calls' body; on a GPU one captured CUDA graph of
     the step replayed once a step (``_GraphStep``), the host's work per
-    step two small copies and a replay."""
+    step two small copies and a replay.
+
+    Over several ranks (``setup.mesh``; ``parallel.sharding.
+    shard_train_step(..., stacked=True)`` shards the batches) the graph
+    captures the step's collectives, which NCCL allows; a group of
+    another backend (gloo) cannot be captured, so there the bundle is
+    the steps' body run in turn, as on the CPU.  The ranks must share
+    one host (torchrun's ``LOCAL_WORLD_SIZE`` equal to the world size),
+    as anerf_tpu bundles only on one host; past that it raises."""
     if steps < 1:
         raise ValueError(f'steps_per_dispatch {steps} < 1')
-    if setup.mesh is not None and setup.mesh.size > 1:
-        # the graph would have to capture the step's collectives
-        raise NotImplementedError(
-            'steps_per_dispatch with several ranks is not ported: '
-            'ROADMAP.md A.7')
-    graph = _GraphStep(setup) if setup.device.type == 'cuda' else None
+    require_one_host(setup.mesh, steps)
+    capture = setup.device.type == 'cuda' and (
+        setup.group is None or dist.get_backend(setup.group) == 'nccl')
+    graph = _GraphStep(setup) if capture else None
 
     def multi_step(state, batches, generator=None):
         rows = step_table(setup, state, steps)

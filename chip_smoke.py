@@ -189,6 +189,17 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    the pose bank's updates after 3 steps at DIST_NERF_UPD_COS_MIN and
    DIST_UPD_COS_MIN (beside one rank on the same rays permuted), the
    ranks' states bit-equal, K1-K4, K-vf1 and K-vf2 counted on each rank;
+   (c) in (a)'s NCCL world of one, bundles of 3 steps through
+   ``shard_train_step(..., stacked=True)`` (the CUDA graph holding the
+   step's collectives), three calls bit-identical to as many eager
+   sharded steps under deterministic algorithms, one replayed bundle
+   profiled (K1-K4 once a step, K-vf1 twice, K-vf2 once, the NCCL
+   kernels as many a step as one eager step's), and its ms/step in
+   turns with the plain bundle's (``make_multi_train_step`` without a
+   group); (d) in (b)'s ranks, a bundle of 3 steps on each (under gloo
+   the steps' body in turn) bit-equal to as many eager sharded steps
+   from the same start under deterministic algorithms, the ranks'
+   bundles bit-equal, its launches counted;
 20. dist_render phase: two gloo ranks render one 512x512 bullet frame
    at chunk 4096 (2048 rays a rank a chunk) through the sharded
    ``ImageRenderer``: K1 and K2 once a chunk on each rank, the ranks'
@@ -213,8 +224,8 @@ times, bound, error and launches at the CLI mixamo step's shapes, and
 K5's and K6's ``trunk_widths`` those of the grammar phase's widths with
 the launches of the path that runs each, and ``net_shapes`` those of
 the net_shapes phase's nets with the launches of their train steps;
-``dist_train`` and ``dist_render`` in ``launches_by_path`` add both
-ranks' launches;
+``dist_train``, ``dist_bundled`` and ``dist_render`` in
+``launches_by_path`` add both ranks' launches;
 K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
 ``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
 and ``fuse_tform_times``, the flagship step's and the render's both
@@ -3567,12 +3578,50 @@ def _dist_train_rank(rank, world, store, out, device, n_rays):
             losses.append(float(st['total_loss']))
             ms.append((time.perf_counter() - t0) * 1e3)
         counts = FE.launch_counts()
+        # (d) DIST_STEPS steps bundled into one call (under gloo the
+        # steps' body in turn) against as many eager sharded steps from
+        # the same start, both under deterministic algorithms (the
+        # gathers' backward atomics change bits from run to run)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ref = _state_on(start, device)
+            for _ in range(DIST_STEPS):
+                ref, _ = step(ref, batch, None)
+            bundle = S.shard_train_step(setup, mesh, stacked=True,
+                                        steps=DIST_STEPS)
+            stacked = {k: torch.stack([v] * DIST_STEPS)
+                       for k, v in batch.items()}
+            bundled = _state_on(start, device)
+            FE.reset_launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            bundled, _ = bundle(bundled, stacked, None)
+            _sync(device)
+            bundle_ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+            bundle_counts = FE.launch_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        bundle_same = all(torch.equal(a, b) for a, b in zip(
+            TT._state_tensors(ref), TT._state_tensors(bundled))) and \
+            ref['step'] == bundled['step']
     finally:
         torch.distributed.destroy_process_group()
     torch.save({'counts': counts, 'losses': losses, 'ms': ms,
                 'loss0': loss0, 'grads': _cpu_state(grads), 'start': start,
-                'state': _cpu_state(state)},
+                'state': _cpu_state(state), 'bundle_same': bundle_same,
+                'bundle_counts': bundle_counts, 'bundle_ms': bundle_ms,
+                'bundle_state': _cpu_state(bundled)},
                os.path.join(out, f'rank{rank}.pt'))
+
+
+def _state_on(x, device):
+    """A copy of a train state (nested dicts and lists) on ``device``."""
+    import torch
+    if isinstance(x, dict):
+        return {k: _state_on(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_state_on(v, device) for v in x]
+    return x.to(device, copy=True) if torch.is_tensor(x) else x
 
 
 def _flat_tree(leaves):
@@ -3593,9 +3642,11 @@ def dist_train_phase(FE, T, device, gpu_line, backend='nccl'):
     DIST_STEPS steps at DIST_NERF_UPD_COS_MIN for the NeRF parameters
     and DIST_UPD_COS_MIN for the pose bank, each printed beside one rank
     on the same rays permuted, the ranks' states bit-equal),
-    K1-K4, K-vf1 and K-vf2 counted on each rank.  Returns the two ranks'
-    launch counts, summed.  (``backend='gloo'`` rehearses (a) on the
-    CPU.)"""
+    K1-K4, K-vf1 and K-vf2 counted on each rank; (c) bundles in (a)'s
+    world (``dist_bundle_nccl``); (d) a bundle on each of (b)'s ranks
+    bit-equal to its eager sharded steps.  Returns the two ranks' launch
+    counts of (b) and of (d), each summed.  (``backend='gloo'``
+    rehearses (a) and (c) on the CPU.)"""
     import torch
     import torch.distributed as dist
     from anerf_torch.parallel import sharding as S
@@ -3627,6 +3678,8 @@ def dist_train_phase(FE, T, device, gpu_line, backend='nccl'):
             torch.cuda.synchronize()
             ms[name] = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
             counts = FE.launch_counts()
+        dist_bundle_nccl(FE, device, gpu_line, setup, state, batch, mesh,
+                         backend)
     finally:
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
@@ -3738,7 +3791,119 @@ def dist_train_phase(FE, T, device, gpu_line, backend='nccl'):
           f'ranks share the card, so this is no scaling number; the spawn '
           f'took {spawn_s:.1f} s; the ranks\' states bit-equal; launches a '
           f'rank {r0["counts"]} ({gpu_line})')
-    return {k: sum(res['counts'][k] for res in ranks) for k in r0['counts']}
+    for r, res in enumerate(ranks):
+        want = {k: 0 for k in res['bundle_counts']}
+        want.update({k: DIST_STEPS * n for k, n in FLAGSHIP_STEP.items()})
+        if not res['bundle_same']:
+            raise AssertionError(f'rank {r}: the bundle is not bit-equal to '
+                                 f'{DIST_STEPS} eager sharded steps')
+        if res['bundle_counts'] != want:
+            raise AssertionError(f'rank {r}: bundle launch counts '
+                                 f'{res["bundle_counts"]}, expected {want}')
+    if not all(torch.equal(a, b) for a, b in zip(
+            _state_tensors(r0['bundle_state']),
+            _state_tensors(ranks[1]['bundle_state']))):
+        raise AssertionError('the two ranks\' bundles differ')
+    print(f'dist_train (d): two gloo ranks, a bundle of {DIST_STEPS} steps '
+          f'each (the steps\' body in turn: gloo cannot be captured) '
+          f'bit-equal to {DIST_STEPS} eager sharded steps on each rank, the '
+          f'ranks\' bundles bit-equal; launches a rank '
+          f'{r0["bundle_counts"]}; ms/step by rank ' + ', '.join(
+              f'{res["bundle_ms"]:.1f}' for res in ranks)
+          + f' (deterministic algorithms; {gpu_line})')
+    total = lambda key: {k: sum(res[key][k] for res in ranks)
+                         for k in r0[key]}
+    return total('counts'), total('bundle_counts')
+
+
+def dist_bundle_nccl(FE, device, gpu_line, setup, state, batch, mesh,
+                     backend):
+    """dist_train (c), in (a)'s world of one under deterministic
+    algorithms: bundles of DIST_STEPS steps through ``shard_train_step(
+    ..., stacked=True)`` (the first call warms up and captures the step,
+    its collectives in the graph; every later step replays it), three
+    calls each bit-identical to as many eager sharded steps drawing from
+    a generator seeded alike; one eager step and one replayed bundle
+    profiled: K1-K4, K-vf1 and K-vf2 DIST_STEPS times their count a
+    step, the NCCL kernels DIST_STEPS times the eager step's; then, with
+    deterministic algorithms off, the bundle's ms/step in turns with the
+    plain bundle's (``make_multi_train_step`` of the setup without a
+    group: no collectives), TIMING_WINDOWS calls each."""
+    import torch
+    from anerf_torch.parallel import sharding as S
+    from anerf_torch.training import trainer as TT
+    from torch.profiler import ProfilerActivity, profile
+    K = DIST_STEPS
+    stacked = {k: torch.stack([v] * K) for k, v in batch.items()}
+    eager = S.shard_train_step(setup, mesh)
+    bundle = S.shard_train_step(setup, mesh, stacked=True, steps=K)
+    ref, st = _clone_state(state), _clone_state(state)
+    g_ref = torch.Generator(device=device).manual_seed(0)
+    g_st = torch.Generator(device=device).manual_seed(0)
+    same = []
+    for _ in range(3):
+        for _ in range(K):
+            ref, _ = eager(ref, batch, g_ref)
+        st, _ = bundle(st, stacked, g_st)
+        same.append(ref['step'] == st['step'] and all(
+            torch.equal(a, b) for a, b in zip(TT._state_tensors(ref),
+                                              TT._state_tensors(st))))
+    launches, nccl = {}, {}
+    for mode in ('eager', 'bundle'):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if mode == 'eager':
+                ref, _ = eager(ref, batch, g_ref)
+            else:
+                st, _ = bundle(st, stacked, g_st)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        launches[mode] = {k: _kernel_launches(events, kern)
+                          for k, (kern, _) in BUNDLE_K1_K4.items()}
+        nccl[mode] = {e.key: e.count for e in events
+                      if _device_ms(e) > 0
+                      and str(e.device_type).endswith('CUDA')
+                      and 'nccl' in e.key.lower()}
+    want = {k: K * n for k, (_, n) in BUNDLE_K1_K4.items()}
+    n_eager, n_bundle = (sum(nccl[m].values()) for m in ('eager', 'bundle'))
+    print(f'dist_train (c): {backend} world of one, bundles of {K} steps '
+          f'through shard_train_step(stacked=True), three calls '
+          f'bit-identical to {K} eager sharded steps each: {same}; one '
+          f'replayed bundle launched {launches["bundle"]} (expected '
+          f'{want}) and NCCL kernels {nccl["bundle"]} ({n_bundle}; one '
+          f'eager step {nccl["eager"]}, {n_eager}) (deterministic '
+          f'algorithms; {gpu_line})')
+    if not all(same):
+        raise AssertionError('the NCCL bundle is not bit-identical to the '
+                             'eager sharded steps')
+    if launches['bundle'] != want or n_bundle != K * n_eager:
+        raise AssertionError(f'bundle launches {launches["bundle"]}, NCCL '
+                             f'{n_bundle}; expected {want}, {K * n_eager}')
+    del ref, st, eager, bundle
+    torch.use_deterministic_algorithms(False)
+    runs = {'sharded': S.shard_train_step(setup, mesh, stacked=True,
+                                          steps=K),
+            'plain': TT.make_multi_train_step(setup, K)}
+    states = {k: _clone_state(state) for k in runs}
+    gens = {k: torch.Generator(device=device).manual_seed(0) for k in runs}
+    for k, run in runs.items():         # warm-up and capture
+        states[k], _ = run(states[k], stacked, gens[k])
+    ms = {k: [] for k in runs}
+    for _ in range(TIMING_WINDOWS):
+        for k, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[k], _ = run(states[k], stacked, gens[k])
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3 / K)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f'dist_train (c): bundled ms/step, {TIMING_WINDOWS} calls of {K} '
+          f'steps each in turns: sharded (collectives captured) '
+          f'{med["sharded"]:.3f} (' + ', '.join(
+              f'{x:.3f}' for x in ms['sharded']) + f'), plain '
+          f'{med["plain"]:.3f} (' + ', '.join(f'{x:.3f}' for x in ms['plain'])
+          + f'); medians ({gpu_line})')
 
 
 def _dist_render_rank(rank, world, store, out, device, H):
@@ -3841,6 +4006,107 @@ def dist_render_phase(FE, T, device, gpu_line):
           f'the spawn took {spawn_s:.1f} s ({gpu_line})')
     return {k: sum(res['counts'][k] for res in ranks)
             for k in ranks[0]['counts']}
+
+
+# ---- the offline tools (ROADMAP A.8) ----------------------------------------
+
+OFFLINE_FRAMES = (4, 256, 256)  # the segmentation phase's frames
+OFFLINE_MARGIN = 1e-3   # least top-2 logit gap of every pixel's colour
+OFFLINE_POSES = 64      # poses scored through the FK source
+OFFLINE_RTOL = 1e-5     # the card's pose metrics against the CPU's
+
+
+def offline_phase(device, gpu_line):
+    """The offline tools' device paths: (1) a small segmentation net
+    scripted here with ``torch.jit.script`` (two 1x1 convolutions, so a
+    pixel's logits depend on its colour alone; random weights from a
+    seeded generator; frames of blocks of six colours, each colour's
+    top-2 logit gap at least OFFLINE_MARGIN on the CPU, so that argmax
+    has no ties) run through ``data.mask_extract.torchscript_seg_fn`` on
+    the card and on the CPU: the labels and ``segment_person``'s masks
+    equal; (2) ``eval.metrics.pose_metrics_from_smpl_params``' FK source
+    on the card against the CPU within OFFLINE_RTOL.  Imports no cv2,
+    imageio or h5py (the card's machine has none of them)."""
+    import numpy as np
+    import torch
+    from anerf_torch.data.mask_extract import (segment_person,
+                                               torchscript_seg_fn)
+    from anerf_torch.eval.metrics import pose_metrics_from_smpl_params
+    from anerf_torch.ops.fk import fk
+    from anerf_torch.skeleton import SMPL_REST_POSE
+
+    class Seg(torch.nn.Module):
+        def __init__(self, g: torch.Generator):
+            super().__init__()
+            self.a = torch.nn.Conv2d(3, 16, 1)
+            self.b = torch.nn.Conv2d(16, 21, 1)
+            with torch.no_grad():
+                for t in (self.a.weight, self.a.bias, self.b.weight,
+                          self.b.bias):
+                    t.copy_(torch.randn(t.shape, generator=g))
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return self.b(torch.relu(self.a(x)))
+
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, 'seg.ts')
+    torch.jit.script(Seg(torch.Generator().manual_seed(0))).save(path)
+    rng = np.random.default_rng(0)
+    palette = rng.integers(0, 256, (6, 3), dtype=np.uint8)
+    n, H, W = OFFLINE_FRAMES
+    blocks = rng.integers(0, 6, (n, H // 32, W // 32))
+    imgs = palette[blocks.repeat(32, 1).repeat(32, 2)]
+    # every colour's logits on the CPU: the top-2 gap
+    logits = torch.jit.load(path)(torch.from_numpy(
+        ((palette[None, None].astype(np.float32) / 255. - [0.485, 0.456,
+         0.406]) / [0.229, 0.224, 0.225]).astype(np.float32).transpose(
+            0, 3, 1, 2)))[0, :, 0]
+    top2 = logits.topk(2, dim=0).values
+    margin = float((top2[0] - top2[1]).min().detach())
+    if margin < OFFLINE_MARGIN:
+        raise AssertionError(f'offline: a colour\'s top-2 logit gap is '
+                             f'{margin}, under {OFFLINE_MARGIN}')
+    devices = {'card': device, 'cpu': 'cpu'}
+    times, labels, masks = {}, {}, {}
+    for k, dev in devices.items():
+        fn = torchscript_seg_fn(path, device=dev)
+        fn(imgs[:1])                    # warm-up
+        _sync(dev)
+        t0 = time.perf_counter()
+        labels[k] = fn(imgs)
+        times[k] = (time.perf_counter() - t0) * 1e3
+    got, ref = labels['card'], labels['cpu']
+    person = int(ref.reshape(-1)[0])
+    for k in devices:
+        masks[k] = segment_person(imgs, lambda _, v=labels[k]: v, person)
+    n_labels = len(np.unique(ref))
+    same_masks = np.array_equal(masks['card'], masks['cpu'])
+    print(f'offline: torchscript_seg_fn on {n} frames of {H}x{W}: labels '
+          f'equal to the CPU\'s {np.array_equal(got, ref)} ({n_labels} '
+          f'labels; least top-2 logit gap {margin:.4f}), person masks '
+          f'equal {same_masks}; ms ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in times.items()) + f' ({gpu_line})')
+    if not np.array_equal(got, ref) or not same_masks or n_labels < 2:
+        raise AssertionError('offline: the card\'s labels differ from the '
+                             'CPU\'s, or hold one label')
+
+    rng = np.random.default_rng(1)
+    bones = rng.normal(scale=0.3, size=(OFFLINE_POSES, 24, 3))
+    pelvis = rng.normal(scale=0.1, size=(OFFLINE_POSES, 3))
+    rest = SMPL_REST_POSE           # metres, scored in mm
+    # the ground truth: FK of the poses with noise added, on the CPU
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    gt_kps = fk(f32(bones + rng.normal(scale=0.05, size=bones.shape)),
+                f32(pelvis), f32(rest))[0].numpy()
+    a, b = (pose_metrics_from_smpl_params(gt_kps, bones=bones, pelvis=pelvis,
+                                          rest_pose=rest, device=dev)
+            for dev in devices.values())
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+    print(f'offline: pose_metrics_from_smpl_params (FK source) on '
+          f'{OFFLINE_POSES} poses, {device} {a} against cpu {b}: worst '
+          f'relative difference {worst:.2e} (bar {OFFLINE_RTOL})')
+    if worst > OFFLINE_RTOL or not 0 < b['mpjpe']:
+        raise AssertionError('offline: the card\'s pose metrics differ')
 
 
 class PhaseClock:
@@ -3988,10 +4254,13 @@ def main() -> int:
         clock.mark('cli_net_width')
         paths['cli_fuse_tform'] = cli_fuse_tform_phase(FE, device, gpu_line)
         clock.mark('cli_fuse_tform')
-        paths['dist_train'] = dist_train_phase(FE, T, device, gpu_line)
+        paths['dist_train'], paths['dist_bundled'] = dist_train_phase(
+            FE, T, device, gpu_line)
         clock.mark('dist_train')
         paths['dist_render'] = dist_render_phase(FE, T, device, gpu_line)
         clock.mark('dist_render')
+        offline_phase(device, gpu_line)
+        clock.mark('offline')
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each row's launches come from the path whose shapes it times: the

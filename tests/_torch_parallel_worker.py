@@ -104,6 +104,31 @@ def train_task(rank, world, spec, state, batch, steps, global_batch):
     return {'steps': out}
 
 
+def bundle_task(rank, world, spec, state, batch, steps, global_batch):
+    """One bundle of ``steps`` steps (``shard_train_step(...,
+    stacked=True)``) on ``batch`` stacked ``steps`` times (this rank's
+    block of it, stacked, with ``global_batch``), and ``steps`` eager
+    sharded steps from the same state: both final states and stats."""
+    from anerf_torch.parallel.sharding import (make_mesh, shard_batch,
+                                               shard_train_step)
+    mesh = make_mesh(world)
+    setup = _setup(spec)
+    batch = to_torch(batch)
+    if global_batch:
+        batch = shard_batch(mesh, batch)
+    eager = shard_train_step(setup, mesh, global_batch=global_batch)
+    bundle = shard_train_step(setup, mesh, global_batch=global_batch,
+                              stacked=True, steps=steps)
+    a = to_torch(state)
+    for _ in range(steps):
+        a, sa = eager(a, batch, None)
+    b, sb = bundle(to_torch(state),
+                   {k: torch.stack([v] * steps) for k, v in batch.items()},
+                   None)
+    return {'eager': (to_numpy(a), to_numpy(sa)),
+            'bundle': (to_numpy(b), to_numpy(sb))}
+
+
 def render_task(rank, world, spec, params, est, chunks, image):
     """``ImageRenderer.render_image`` over the ranks, at each chunk."""
     from anerf_torch.parallel.sharding import make_mesh
@@ -115,11 +140,14 @@ def render_task(rank, world, spec, params, est, chunks, image):
                        for c in chunks]}
 
 
-def cli_task(rank, world, cfg_args, render_argv, root):
-    """``run_train.train`` then ``run_render.main --mesh_devices``, with
-    every file this rank opens for writing or saves with ``torch.save``
-    (which writes from C++) and every directory it makes under ``root``
-    recorded."""
+def cli_task(rank, world, cfg_args, render_argv, root, env=None):
+    """``run_train.train`` then, given ``render_argv``, ``run_render.main
+    --mesh_devices``, with every file this rank opens for writing or
+    saves with ``torch.save`` (which writes from C++) and every
+    directory it makes under ``root`` recorded.  ``env`` is set in the
+    rank's environment for the call; a ``NotImplementedError`` the
+    training raises is returned as ``error`` (every rank raises it
+    before the data loads)."""
     import torch.distributed as dist
     from anerf_torch.run_render import main
     from anerf_torch.run_train import train
@@ -127,6 +155,7 @@ def cli_task(rank, world, cfg_args, render_argv, root):
     writes = []
     real_open, real_makedirs, real_save = builtins.open, os.makedirs, \
         torch.save
+    saved_env = {k: os.environ.get(k) for k in env or {}}
 
     def under_root(path):
         return os.path.abspath(str(path)).startswith(root)
@@ -149,16 +178,25 @@ def cli_task(rank, world, cfg_args, render_argv, root):
 
     builtins.open, os.makedirs, torch.save = spy_open, spy_makedirs, \
         spy_save
+    os.environ.update(env or {})
     try:
-        state = train(config_from_cli(cfg_args), device='cpu')
+        try:
+            state = train(config_from_cli(cfg_args), device='cpu')
+        except NotImplementedError as e:
+            return {'error': str(e), 'writes': writes}
         dist.barrier()          # rank 0's final checkpoint is written
-        out = main(render_argv, device='cpu')
+        out = main(render_argv, device='cpu') if render_argv else None
     finally:
         builtins.open, os.makedirs, torch.save = real_open, \
             real_makedirs, real_save
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return {'state': to_numpy({k: state[k] for k in (
         'params', 'opt_state', 'pose_params', 'pose_opt_state', 'step')}),
-        'rgbs': out['rgbs'], 'writes': writes}
+        'rgbs': None if out is None else out['rgbs'], 'writes': writes}
 
 
 def jobs_task(rank, world, jobs):
@@ -168,8 +206,8 @@ def jobs_task(rank, world, jobs):
                      for name, (task, kw) in jobs.items()}}
 
 
-TASKS = {'train': train_task, 'render': render_task, 'cli': cli_task,
-         'jobs': jobs_task}
+TASKS = {'train': train_task, 'bundle': bundle_task, 'render': render_task,
+         'cli': cli_task, 'jobs': jobs_task}
 
 
 def _rank(rank, world, store, task, kwargs, out_dir):

@@ -1,8 +1,10 @@
 """Boundaries of the port: ``anerf_torch``, ``chip_smoke.py`` and the
 multi-process tests' rank module import nothing of JAX or anerf_tpu
-(the machine with the GPU has no JAX) and import imageio, cv2, h5py and
-msgpack (which that machine lacks too) only inside functions, and the
-renderer never falls back to the CPU on its own.
+(the machine with the GPU has no JAX) and import imageio, cv2, h5py,
+msgpack, smplx, deepdish and transformers (which that machine lacks
+too) only inside functions; the offline modules define every public
+name of anerf_tpu's; and the renderer never falls back to the CPU on
+its own.
 
 The import check walks the sources' syntax trees: this environment
 preloads jax at interpreter start, so ``sys.modules`` cannot show it.
@@ -47,7 +49,8 @@ def test_port_imports_no_jax(path):
 
 # absent from the card's machine: imported inside the functions that
 # need them, never when a module of the port is imported
-FUNCTION_ONLY = ('imageio', 'cv2', 'h5py', 'msgpack')
+FUNCTION_ONLY = ('imageio', 'cv2', 'h5py', 'msgpack', 'smplx', 'deepdish',
+                 'transformers')
 
 
 def _module_level_imports(path):
@@ -73,6 +76,33 @@ def test_port_imports_card_absent_packages_inside_functions(path):
     bad = [m for m in _module_level_imports(path)
            if m.split('.')[0] in FUNCTION_ONLY]
     assert not bad, f'{path} imports {bad} at module level'
+
+
+def _public_names(path):
+    """The top-level public names a module defines: its functions,
+    classes and assigned constants."""
+    names = set()
+    for node in ast.parse(open(path).read(), filename=path).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for t in (node.targets if isinstance(node, ast.Assign)
+                      else [node.target]):
+                names.update(n.id for n in ast.walk(t)
+                             if isinstance(n, ast.Name))
+    return {n for n in names if not n.startswith('_')}
+
+
+@pytest.mark.parametrize('module', ['data/preprocess.py', 'data/spin.py',
+                                    'data/mask_extract.py',
+                                    'eval/metrics.py'])
+def test_offline_modules_define_anerf_tpu_names(module):
+    """Every public top-level name of anerf_tpu's offline modules has
+    its counterpart in the port's module of the same path."""
+    ref = _public_names(os.path.join(ROOT, 'anerf_tpu', module))
+    got = _public_names(os.path.join(ROOT, 'anerf_torch', module))
+    assert ref and not ref - got, sorted(ref - got)
 
 
 def test_renderer_without_device_needs_cuda(monkeypatch):
