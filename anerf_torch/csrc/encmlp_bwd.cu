@@ -4,9 +4,11 @@
 //   encmlp_bwd       <- _fused_bwd / _bwd_kernel            (one net; K3)
 //   encmlp_dual_bwd  <- _fused_dual_bwd / _bwd_kernel_dual  (coarse and
 //                       fine nets on one encode; K4)
-// at the flagship shape of encmlp_common.cuh.  Given the raw cotangent g
-// (nnet, 4, n) they return dp (n, 72), denc (R, 648), dcodes (nnet, R, 16)
-// and the f32 gradient of every weight and bias of each net.
+// at the shape of encmlp_common.cuh (the flagship's by default, or a
+// build per static shape as K1/K2's, encmlp_fwd.cu).  Given the raw
+// cotangent g (nnet, 4, n) they return dp (n, 72), denc (R, 72 NB: 648),
+// dcodes (nnet, R, 16) and the f32 gradient of every weight and bias of
+// each net.
 //
 // What the TPU kernel does that a Hopper block cannot, and the design:
 //
@@ -91,8 +93,8 @@
 // the six launches.
 #include "mlp_bwd_common.cuh"
 
-static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
-              "K3/K4 are built for the flagship's 8 x 256 nets");
+static_assert(W == 256 && SKIP == 4,
+              "K3/K4 take 256-wide nets with the skip after layer 4");
 
 namespace {
 
@@ -100,7 +102,7 @@ namespace {
 constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J + sizeof(int) * T;
 static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && BWD_X_RESIDENT,
-              "K3/K4 encode the flagship trunk into resident shared memory");
+              "K3/K4 encode the trunk into resident shared memory");
 
 // tfab last, as in encmlp_fwd.cu, here and in the pullback
 template <int NNET, bool VF, bool TF>
@@ -161,6 +163,8 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
 // window cotangent is g_hv . M[ray, j] of each net (the block fold of
 // pallas_mlp._viewfac_bwd's g_hv M^T), the nets' added in f32.  TF: the
 // point from its depth and its ray's affine rows (load_point).
+// BONE_WIN: r = p / d x w, so the bone part's cotangent takes its share
+// of the window's (pallas_encmlp._encode_pullback under bone_windowed).
 template <int NNET, bool VF, bool TF>
 __global__ void pullback_kernel(const float* __restrict__ p,
                                 const float* __restrict__ enc,
@@ -205,14 +209,21 @@ __global__ void pullback_kernel(const float* __restrict__ p,
     bandsum += gc * w * (-f) * s;   // d cos(f d) = -f sin(f d)
   }
   g_dists += bandsum;
-  // r = p / d
+  // r = p / d (BONE_WIN: x w)
   const float pc[3] = {x, y, z};
   float gr[3], g_invd = 0.f;
+  [[maybe_unused]] float g_wb = 0.f;  // the bone part's window cotangent
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     gr[k] = gx(DV + k * J + j);
-    g_invd += gr[k] * pc[k];
+    if constexpr (BONE_WIN) {
+      g_wb += gr[k] * pc[k] * invd;
+      g_invd += gr[k] * pc[k] * w;
+    } else {
+      g_invd += gr[k] * pc[k];
+    }
   }
+  if constexpr (BONE_WIN) g_w += g_wb;
   g_dists -= g_invd * (invd * invd) * (d > 1e-12f ? 1.f : 0.f);
   // xv = enc[ray] * w
   if constexpr (VF) {
@@ -256,7 +267,8 @@ __global__ void pullback_kernel(const float* __restrict__ p,
   const float gd = g_dists * invd;
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    dp[(size_t)gp * C3 + k * J + j] = gr[k] * invd + pc[k] * gd;
+    dp[(size_t)gp * C3 + k * J + j] =
+        (BONE_WIN ? gr[k] * invd * w : gr[k] * invd) + pc[k] * gd;
 }
 
 // viewfac's per-ray Gram matrix Gw[net, r, j, :] = bf16(sum over the
@@ -443,5 +455,14 @@ long long encmlp_bwd_workspace_bytes(int n, int nnet) {
 }
 
 long long encmlp_grad_weight_elems(void) { return (long long)WGSZ; }
+
+// The build's encode shape, as encmlp_fwd.cu's.
+int encmlp_shape(int* out) {
+  out[0] = NF;
+  out[1] = NB;
+  out[2] = BONE_WIN ? 1 : 0;
+  out[3] = DEPTH;
+  return 4;
+}
 
 }  // extern "C"

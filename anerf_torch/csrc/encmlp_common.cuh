@@ -14,13 +14,32 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// The encode's shape (K1-K4, K-vf1/K-vf2): J joints, NF kp bands 2^0 ..
+// 2^(NF-1), NB view PE rows (1 + 2 multires_views), the bone directions
+// windowed (--cutoff_bones) or not.  The flagship's by default; a build
+// per shape takes NF 1-7 and NB 1-9 (nvcc -DANERF_NF=... -DANERF_NB=...
+// -DANERF_BONE_WIN=0|1, with -DANERF_DX the trunk width DV + C3 and
+// -DANERF_DEPTH; ops/cuda_build.py, fused_encmlp.kernel_shape), where
+// the trunk input stays resident in shared memory; the headers' and the
+// sources' static_asserts refuse the rest.  K5/K6 ignore all three.
+#ifndef ANERF_NF
+#define ANERF_NF 7
+#endif
+#ifndef ANERF_NB
+#define ANERF_NB 9
+#endif
+#ifndef ANERF_BONE_WIN
+#define ANERF_BONE_WIN 0
+#endif
 constexpr int J = 24;
-constexpr int NF = 7;                  // kp bands 2^0 .. 2^6
-constexpr int NB = 9;                  // view PE rows (1 + 2 x 4)
+constexpr int NF = ANERF_NF;           // kp bands: 7 (2^0 .. 2^6)
+constexpr int NB = ANERF_NB;           // view PE rows: 9 (1 + 2 x 4)
+constexpr bool BONE_WIN = ANERF_BONE_WIN != 0;  // r = p / d x window
+static_assert(NF >= 1 && NB >= 1 && NB % 2 == 1, "kp bands and view rows");
 constexpr int C3 = 3 * J;              // 72
 constexpr int DV = (2 * NF + 1) * J;   // 360 kp encoding
-// the trunk input [v | r]: 432 wide for K1-K4; a K5/K6 build takes any
-// width from 1 to 2048 (nvcc -DANERF_DX=...; ops/cuda_build.py)
+// the trunk input [v | r]: DV + C3 (432) wide for K1-K4; a K5/K6 build
+// takes any width from 1 to 2048 (nvcc -DANERF_DX=...; ops/cuda_build.py)
 #ifndef ANERF_DX
 #define ANERF_DX 432
 #endif
@@ -31,10 +50,14 @@ static_assert(DX >= 1 && DX <= 2048, "trunk inputs of 1 to 2048 columns");
 constexpr int DXP = (DX + 15) / 16 * 16;
 constexpr int DE = NB * C3;            // 648 view encoding
 constexpr int NCODE = 16;
-constexpr int DXV = 672;               // views input [xv | codes | 0 x 8]
+// the views input [xv | codes | 0 x 8]: 672 (K5/K6's for any views
+// parts up to it), a multiple of 16 for every odd NB
+constexpr int DXV = DE + NCODE + 8;
+static_assert(DXV % 16 == 0, "the views input in whole k-steps");
 // the net: DEPTH trunk layers of W units, the views layer HV = W / 2
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
-// for 8 x 256; a K5/K6 build takes any depth from 1 to 64 and any W
+// for 1-8 layers of 256 (8 x 256 by default); a K5/K6 build takes any
+// depth from 1 to 64 and any W
 // that is a multiple of 256 up to 2048, depth x W up to 65,536 (64 x
 // 1024, 32 x 2048; nvcc -DANERF_DEPTH=...
 // -DANERF_WIDTH=... -DANERF_SKIP=...; ops/cuda_build.py), other nets
@@ -222,7 +245,9 @@ __device__ __forceinline__ void load_point(const float* __restrict__ p,
 }
 
 // The encode of points t0 .. t0+T-1 into shared memory: X = [v | r]
-// (bf16) and WIN = the windows (f32).  Points past n encode as p = 0.
+// (bf16; BONE_WIN: r times the window, as pallas_encmlp._encode_fwd_res
+// under bone_windowed) and WIN = the windows (f32).  Points past n
+// encode as p = 0.
 // TF: the points from depths and affine rows (load_point).  Leaves the
 // block unsynchronised.
 template <bool TF>
@@ -254,9 +279,15 @@ __device__ __forceinline__ void encode_points(const float* __restrict__ p,
       xr[(2 + 2 * k) * J + j] = __float2bfloat16_rn(c * w);
     }
     const float invd = 1.f / fmaxf(d, 1e-12f);
-    xr[DV + j] = __float2bfloat16_rn(x * invd);
-    xr[DV + J + j] = __float2bfloat16_rn(y * invd);
-    xr[DV + 2 * J + j] = __float2bfloat16_rn(z * invd);
+    float rx = x * invd, ry = y * invd, rz = z * invd;
+    if constexpr (BONE_WIN) {  // the windowed bone encoding
+      rx *= w;
+      ry *= w;
+      rz *= w;
+    }
+    xr[DV + j] = __float2bfloat16_rn(rx);
+    xr[DV + J + j] = __float2bfloat16_rn(ry);
+    xr[DV + 2 * J + j] = __float2bfloat16_rn(rz);
     WIN[t * J + j] = w;
   }
 }

@@ -4,10 +4,13 @@
 //   encmlp_fwd       <- _fused_call / _fwd_kernel           (one net)
 //   encmlp_dual_fwd  <- _fused_dual_call / _fwd_kernel_dual (encode once,
 //                       coarse and fine nets)
-// at the flagship A-NeRF shape: J=24 joints, kp PE bands 2^0..2^6 (360
-// channels), bone directions (72), view PE rows 9 x 72 (648), framecodes
-// (16), an 8 x 256 trunk with the input re-entering after layer 4, a
-// 128-wide views branch.
+// at the flagship A-NeRF shape by default: J=24 joints, kp PE bands
+// 2^0..2^6 (360 channels), bone directions (72), view PE rows 9 x 72
+// (648), framecodes (16), an 8 x 256 trunk with the input re-entering
+// after layer 4, a 128-wide views branch.  A build per static shape
+// takes 1-7 kp bands, 1-9 view rows, the windowed bone directions and
+// 1-8 layers (encmlp_common.cuh; fused_encmlp.kernel_shape): the shapes
+// whose trunk input stays resident in shared memory beside the ring.
 //
 // Per block: 64 points (one S=64 ray, or four S=16 rays), two consumer
 // warpgroups and a producer warp.  The encode runs in f32 on the CUDA
@@ -62,8 +65,8 @@
 // the stream is PyTorch's current stream; returns cudaGetLastError().
 #include "mlp_fwd_common.cuh"
 
-static_assert(W == 256 && DEPTH == 8 && HAS_SKIP && SKIP == 4,
-              "K1/K2 are built for the flagship's 8 x 256 nets");
+static_assert(W == 256 && SKIP == 4,
+              "K1/K2 take 256-wide nets with the skip after layer 4");
 
 namespace {
 
@@ -71,7 +74,7 @@ namespace {
 constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J + sizeof(int) * T;
 static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX && FWD_X_RESIDENT,
-              "K1/K2 encode the flagship trunk into resident shared memory");
+              "K1/K2 encode the trunk into resident shared memory");
 
 // tfab (TF: the affine rows) is the last parameter, so that the point
 // form's parameters keep their offsets and ptxas builds it as it would
@@ -199,5 +202,15 @@ int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
 // Sizes of one packed weight set, for the wrapper's checks.
 long long encmlp_weight_elems(void) { return (long long)WSZ; }
 int encmlp_bias_elems(void) { return BSZ; }
+
+// The build's encode shape, for the wrapper's checks: out[0 .. 3] = kp
+// bands, view rows, bone window, depth; returns the count.
+int encmlp_shape(int* out) {
+  out[0] = NF;
+  out[1] = NB;
+  out[2] = BONE_WIN ? 1 : 0;
+  out[3] = DEPTH;
+  return 4;
+}
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 //
 // Replaces anerf_tpu/ops/pallas_mlp.py _fused_mlp_fwd / _fwd_kernel, the
 // MLP that configs outside the fused encode (multi-subject models,
-// trainable cutoffs, shapes K1-K4 are not compiled for, such as
-// surreal_single's view encoding without PE bands) run on encodings
+// trainable cutoffs, shapes K1-K4 are not built for, such as 8 x 512
+// nets: fused_encmlp.kernel_shape) run on encodings
 // computed outside the kernel.  The encodings arrive as separate bf16
 // part arrays, never concatenated in device memory: the trunk parts (the
 // kp and bone encodings, 360 + 72 for the flagship's) must sum to DX,

@@ -56,6 +56,10 @@
 //
 // C interface (loaded with ctypes): every pointer is device memory, the
 // stream is PyTorch's current stream; returns cudaGetLastError().
+//
+// Built per view PE row count NB (1-9: a joint's NB x 3 view columns fit
+// the 32 of two k-steps; nvcc -DANERF_NB, ops/cuda_build.py), the
+// flagship's 9 (27 columns, the counts above) by default.
 #include "encmlp_common.cuh"
 
 namespace {
@@ -548,8 +552,9 @@ cudaError_t set_smem_once() {
 
 extern "C" {
 
-// K-vf1: M (nnet, R, J, HV) bf16 from enc (R, 648) f32 and each net's
-// views-input weight rows wvx (nnet, 648, HV) bf16 (16-byte aligned).
+// K-vf1: M (nnet, R, J, HV) bf16 from enc (R, DE) f32 and each net's
+// views-input weight rows wvx (nnet, DE, HV) bf16 (16-byte aligned); DE
+// = 72 NB, 648 at the flagship's 9 view rows.
 int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
               void* stream) {
   if (R <= 0) return 0;
@@ -572,9 +577,9 @@ int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
 
 // K-vf2: from the nets' per-ray Gram matrices gw (nnet, R, J, HV) bf16
 // (encmlp_bwd.cu's vf_gram_kernel): dWvx into dw (net's at dw + net *
-// wstride, (648, HV) row-major f32) and denc (R, 648) f32, over slices
+// wstride, (DE, HV) row-major f32) and denc (R, DE) f32, over slices
 // of `slice` (= FO_SLICE) rays, P partial sums (fused_encmlp.vf_fold_plan):
-// partial p over the slices p, p + P, ...; part (P, nnet, 648, HV) f32
+// partial p over the slices p, p + P, ...; part (P, nnet, DE, HV) f32
 // is scratch, unused (and may be null) when P is 1.
 int viewfac_fold(const void* gw, const float* enc, const void* wvx,
                  float* dw, long long wstride, float* denc, float* part,
@@ -597,8 +602,9 @@ int viewfac_fold(const void* gw, const float* enc, const void* wvx,
   return (int)cudaGetLastError();
 }
 
-// The build's views width, for the wrapper's checks.
+// The build's views width and view PE rows, for the wrapper's checks.
 int viewfac_width(void) { return HV; }
+int viewfac_rows(void) { return NB; }
 
 // K-vf2's slice, for fused_encmlp.vf_fold_plan's check.
 int viewfac_slice(void) { return FO_SLICE; }

@@ -11,8 +11,8 @@ Two MLP backends (``RayCastConfig.mlp_backend``):
     (ops/fused_encmlp.py) when the model has one subject and
     ``kernel_shape_ok`` holds, K1/K2 forward and K3/K4 backward.
     Otherwise (multi-subject models, trainable cutoffs, other encoders,
-    shapes the fused kernels are not compiled for, such as
-    surreal_single's view encoding without PE bands)
+    shapes the fused kernels are not built for, such as 8 x 512 nets:
+    ``fused_encmlp.kernel_shape``)
     the encodings are computed with plain ops and handed as separate
     parts to the split-operand MLP kernels (ops/fused_mlp.py), K5
     forward and K6 backward.  The wrappers take the plain twins for CPU

@@ -12,18 +12,23 @@ source, and for the split-operand MLP kernels one per shape:
   * ``mlp_fwd`` ``csrc/mlp_fwd.cu``     K5 (split-operand MLP);
   * ``mlp_bwd`` ``csrc/mlp_bwd.cu``     K6 (its backward).
 
-K5 and K6 are compiled for one shape each, as the TPU's Mosaic compiles
-its kernel per static shape: a trunk width (``-DANERF_DX=dx``, the sum
-of the trunk parts: 432 at the flagship's encoders, 117, 1152 or 1197
-at others') and a net (``-DANERF_DEPTH``, ``-DANERF_WIDTH`` a multiple of
-256, ``-DANERF_SKIP``: the depth, the width a net is padded to, the skip
-after layer 4; ``fused_mlp.kernel_static``).  ``build_kernels``
-starts one nvcc per library it lacks, all together, into
-``anerf_torch/_build/``; each library is keyed by the hash of its
-source, the shared headers (``csrc/*.cuh``) and its shape, so an edit
-rebuilds it.  ``library`` builds a shape at its first use.  Nothing here
-runs at import: the CPU tests import every module, and this machine may
-have no nvcc.
+Every library is compiled for one static shape, as the TPU's Mosaic
+compiles its kernel per static shape.  K5 and K6: a trunk width
+(``-DANERF_DX=dx``, the sum of the trunk parts: 432 at the flagship's
+encoders, 117, 1152 or 1197 at others') and a net (``-DANERF_DEPTH``,
+``-DANERF_WIDTH`` a multiple of 256, ``-DANERF_SKIP``: the depth, the
+width a net is padded to, the skip after layer 4;
+``fused_mlp.kernel_static``).  K1-K4: an encode shape ``(NF, NB, bone
+window, depth)`` (``-DANERF_NF`` kp bands, ``-DANERF_NB`` view PE rows,
+``-DANERF_BONE_WIN``, ``-DANERF_DX`` their trunk width and
+``-DANERF_DEPTH``; ``fused_encmlp.kernel_shape``), and K-vf1/K-vf2 its
+view rows NB alone.  The flagship's shapes build with no flags.
+``build_kernels`` starts one nvcc per library it lacks, all together,
+into ``anerf_torch/_build/``; each library is keyed by the hash of its
+source, the shared headers (``csrc/*.cuh``) and its shape's flags, so an
+edit rebuilds it.  ``library`` builds a shape at its first use.  Nothing
+here runs at import: the CPU tests import every module, and this machine
+may have no nvcc.
 """
 from __future__ import annotations
 
@@ -44,27 +49,44 @@ _CSRC = os.path.join(_ROOT, 'csrc')
 _SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
             'viewfac': 'viewfac.cu', 'mlp_fwd': 'mlp_fwd.cu',
             'mlp_bwd': 'mlp_bwd.cu'}
-# the libraries built per shape, and K1-K4's shape: the trunk width,
-# the nets' depth and width, the skip layer
+# the split-operand libraries (K5/K6), built per trunk width and net,
+# and the fused encode's (K1-K4, K-vf1/K-vf2), built per encode shape
 _SHAPED = ('mlp_fwd', 'mlp_bwd')
+_ENC = ('fwd', 'bwd', 'viewfac')
 FLAGSHIP_DX = 432
 FLAGSHIP_NET = (8, 256)
 SKIP = 4
+# K1-K4's flagship shape: (kp bands NF, view PE rows NB, bone window,
+# depth), the defaults of csrc/encmlp_common.cuh
+FLAGSHIP_ENC = (7, 9, False, 8)
 _BUILD_DIR = os.path.join(_ROOT, '_build')
 # lib_key(...) -> the loaded library
 _LIBS: Dict[Tuple, ctypes.CDLL] = {}
 
 
 def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
-            width: int = 256) -> Tuple:
-    """``_LIBS``'s key of library ``which``: for K5/K6 at trunk width
-    ``dx`` (the flagship's by default) and a ``depth`` x ``width`` net
-    (the compiled width, a multiple of 256), ``(which, dx)`` at the flagship's
-    8 x 256 and ``(which, dx, depth, width)`` at any other net."""
+            width: int = 256, enc: Optional[Tuple] = None) -> Tuple:
+    """``_LIBS``'s key of library ``which``.  K5/K6 at trunk width ``dx``
+    (the flagship's by default) and a ``depth`` x ``width`` net (the
+    compiled width, a multiple of 256): ``(which, dx)`` at the
+    flagship's 8 x 256 and ``(which, dx, depth, width)`` at any other
+    net.  K1-K4 (``'fwd'``, ``'bwd'``) at the encode shape ``enc`` =
+    (NF, NB, bone window, depth) and K-vf1/K-vf2 (``'viewfac'``) at the
+    view PE rows ``enc`` = NB: ``(which, None)`` at the flagship's, else
+    ``(which, 'enc', NF, NB, bone window, depth)`` and ``('viewfac',
+    'enc', NB)``."""
     if which not in _SOURCES:
         raise KeyError(f'no library {which!r}')
-    if which not in _SHAPED:
-        return which, None
+    if which == 'viewfac':
+        nb = FLAGSHIP_ENC[1] if enc is None else int(enc)
+        return (which, None) if nb == FLAGSHIP_ENC[1] else (
+            which, 'enc', nb)
+    if which in _ENC:
+        nf, nb, bw, d = FLAGSHIP_ENC if enc is None else enc
+        shape = (int(nf), int(nb), bool(bw), int(d))
+        if shape == FLAGSHIP_ENC:
+            return which, None
+        return (which, 'enc') + shape
     dx = FLAGSHIP_DX if dx is None else int(dx)
     if (int(depth), int(width)) == FLAGSHIP_NET:
         return which, dx
@@ -72,16 +94,41 @@ def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
 
 
 def _shape_flags(key: Tuple) -> list:
-    """nvcc's defines of a K5/K6 key: the trunk width and, at a net
-    other than 8 x 256, the net's depth, width and skip layer."""
+    """nvcc's defines of a key: none at the flagship's shapes; for
+    K5/K6 the trunk width and, at a net other than 8 x 256, the net's
+    depth, width and skip layer; for K1-K4 every define of the encode
+    shape, for K-vf1/K-vf2 its view rows."""
     if key[1] is None:
         return []
+    if key[1] == 'enc':
+        if key[0] == 'viewfac':
+            return [f'-DANERF_NB={key[2]}']
+        nf, nb, bw, depth = key[2:]
+        return [f'-DANERF_NF={nf}', f'-DANERF_NB={nb}',
+                f'-DANERF_DX={(2 * nf + 1) * 24 + 72}',
+                f'-DANERF_DEPTH={depth}', f'-DANERF_BONE_WIN={int(bw)}']
     depth, width = key[2:] if len(key) == 4 else FLAGSHIP_NET
     flags = [f'-DANERF_DX={key[1]}']
     if (depth, width) != FLAGSHIP_NET:
         flags += [f'-DANERF_DEPTH={depth}', f'-DANERF_WIDTH={width}',
                   f'-DANERF_SKIP={SKIP}']
     return flags
+
+
+def _tag(key: Tuple) -> str:
+    """The file name stem of a key's library."""
+    stem = _SOURCES[key[0]][:-3]
+    if key[1] is None:
+        return stem
+    if key[1] == 'enc':
+        if key[0] == 'viewfac':
+            return f'{stem}_nb{key[2]}'
+        nf, nb, bw, depth = key[2:]
+        return f'{stem}_nf{nf}nb{nb}bw{int(bw)}d{depth}'
+    tag = f'{stem}_dx{key[1]}'
+    if len(key) == 4:
+        tag += f'_d{key[2]}w{key[3]}'
+    return tag
 
 
 def _nvcc() -> str:
@@ -145,22 +192,56 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
     if which in _SHAPED:
         for name in ('mlp_trunk_width', 'mlp_net_depth', 'mlp_net_width'):
             sig(name, [])
+    # the build's encode shape (absent from builds before it was a
+    # define, which scripts/compare_builds.py loads)
+    if which in ('fwd', 'bwd') and hasattr(lib, 'encmlp_shape'):
+        sig('encmlp_shape', [ctypes.POINTER(ci)])
+    if which == 'viewfac' and hasattr(lib, 'viewfac_rows'):
+        sig('viewfac_rows', [])
+
+
+def _check_built(key: Tuple, lib: ctypes.CDLL) -> None:
+    """A K1-K4 library must be built for the encode shape of its key, a
+    K-vf1/K-vf2 library for its view rows (its flags reached the
+    sources)."""
+    if key[0] == 'viewfac':
+        want = FLAGSHIP_ENC[1] if key[1] is None else key[2]
+        got = lib.viewfac_rows()
+    elif key[0] in _ENC:
+        want = FLAGSHIP_ENC if key[1] is None else key[2:]
+        out = (ctypes.c_int * 4)()
+        lib.encmlp_shape(out)
+        got = out[0], out[1], bool(out[2]), out[3]
+    else:
+        return
+    if got != want:
+        raise RuntimeError(f'library {key} was built for {got}, not {want}')
 
 
 def build_kernels(verbose: bool = False,
                   trunk_widths: Iterable[int] = (),
-                  shapes: Iterable[Tuple[int, int, int]] = ()) -> float:
+                  shapes: Iterable[Tuple[int, int, int]] = (),
+                  enc_shapes: Iterable[Tuple[int, int, bool, int]] = (),
+                  view_rows: Iterable[int] = ()) -> float:
     """Compile every library not loaded yet for sm_90a into ``_build/``:
     K1-K4's, K-vf1/K-vf2's and K5/K6's at the flagship's shape, K5/K6's at each of
     ``trunk_widths`` (8 x 256 nets) and at each (trunk width, depth,
-    compiled width) of ``shapes``; one nvcc per library, all started
-    together.  Load them, and return the seconds spent (0 when all were
-    loaded already).  A failed build raises with nvcc's output."""
+    compiled width) of ``shapes``, K1-K4's and K-vf1/K-vf2's at each
+    (NF, NB, bone window, depth) of ``enc_shapes``, K-vf1/K-vf2's at
+    each NB of ``view_rows``; one nvcc per library, all started
+    together.  Load them, and return the seconds
+    spent (0 when all were loaded already).  A failed build raises with
+    nvcc's output."""
     wanted = [lib_key(w) for w in _SOURCES]
     wanted += [lib_key(w, dx) for dx in sorted(set(trunk_widths))
                for w in _SHAPED]
     wanted += [lib_key(w, *shape) for shape in dict.fromkeys(shapes)
                for w in _SHAPED]
+    enc_shapes = list(dict.fromkeys(enc_shapes))
+    wanted += [lib_key(w, enc=shape) for shape in enc_shapes
+               for w in ('fwd', 'bwd')]
+    wanted += [lib_key('viewfac', enc=nb)
+               for nb in [shape[1] for shape in enc_shapes] + list(view_rows)]
     todo = [k for k in dict.fromkeys(wanted) if k not in _LIBS]
     if not todo:
         return 0.
@@ -172,17 +253,12 @@ def build_kernels(verbose: bool = False,
             headers += f.read()
     jobs = {}
     for key in todo:
-        which, dx = key[:2]
-        name = _SOURCES[which]
-        src = os.path.join(_CSRC, name)
+        src = os.path.join(_CSRC, _SOURCES[key[0]])
         flags = _shape_flags(key)
         with open(src, 'rb') as f:
             digest = hashlib.sha1(f.read() + headers + ' '.join(flags).encode()
                                   ).hexdigest()[:12]
-        tag = name[:-3] if dx is None else f'{name[:-3]}_dx{dx}'
-        if len(key) == 4:
-            tag += f'_d{key[2]}w{key[3]}'
-        so = os.path.join(_BUILD_DIR, f'lib{tag}_{digest}.so')
+        so = os.path.join(_BUILD_DIR, f'lib{_tag(key)}_{digest}.so')
         if os.path.exists(so):
             jobs[key] = (so, None, None)
             continue
@@ -214,19 +290,27 @@ def build_kernels(verbose: bool = False,
     for key, (so, _, _) in jobs.items():
         lib = ctypes.CDLL(so)
         _bind(lib, key[0])
+        _check_built(key, lib)
         _LIBS[key] = lib
     return time.perf_counter() - t0
 
 
 def library(which: str, dx: Optional[int] = None, depth: int = 8,
-            width: int = 256) -> ctypes.CDLL:
+            width: int = 256, enc: Optional[Tuple] = None) -> ctypes.CDLL:
     """The loaded library ``which`` (see the module docstring; K5/K6's at
-    trunk width ``dx`` and a ``depth`` x ``width`` net, the flagship's by
-    default), built on first use."""
-    key = lib_key(which, dx, depth, width)
+    trunk width ``dx`` and a ``depth`` x ``width`` net, K1-K4's at the
+    encode shape ``enc``, K-vf1/K-vf2's at the view rows ``enc``, the
+    flagship's by default), built on first use: K1-K4's with the
+    K-vf1/K-vf2 build of their view rows, all at once."""
+    key = lib_key(which, dx, depth, width, enc)
     if key not in _LIBS:
-        build_kernels(shapes=() if key[1] is None
-                      else ((key[1], depth, width),))
+        if which == 'viewfac':
+            build_kernels(view_rows=() if key[1] is None else (key[2],))
+        elif which in _ENC:
+            build_kernels(enc_shapes=() if enc is None else (enc,))
+        else:
+            build_kernels(shapes=() if key[1] is None
+                          else ((key[1], depth, width),))
     return _LIBS[key]
 
 

@@ -20,7 +20,14 @@ train step:
   * K4 ``encmlp_dual_bwd`` <- ``_fused_dual_bwd`` / ``_bwd_kernel_dual``.
 
 K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
-(their source notes give the designs and bounds).
+(their source notes give the designs and bounds).  Each is built per
+static shape, as anerf_tpu's kernels are (``_build_call`` per shape):
+1-7 kp bands, 1-9 view PE rows, the windowed bone directions
+(``--cutoff_bones``), 1-8 layers of 256 and framecodes of at most 16
+(``kernel_shape``: the encode shape a build is keyed by in
+``cuda_build``); a shape outside that set takes the plain encode and
+K5/K6 (``kernel_shape_ok``), and one inside it launches its build or
+raises.
 
 The per-ray view factorization (``viewfac``, on by default; the cost
 gate of ``pallas_encmlp._build_call`` picks it, on the flagship for the
@@ -426,11 +433,21 @@ K2_TF_LAUNCHES = 0
 K3_TF_LAUNCHES = 0
 K4_TF_LAUNCHES = 0
 
-# the one shape the kernels are compiled for (csrc/encmlp_common.cuh):
-# J=24 joints, kp PE 2^0..2^6, view PE 4 bands, 8x256 trunk with the
-# skip after layer 4, views branch 128, framecodes of 16 (or none)
-_KERNEL_SHAPE = dict(J=24, F=7, view_nb=9, depth=8, width=256, half=128,
-                     skips=(4,), codes=16)
+# the static shapes K1-K4 (and K-vf1/K-vf2 under viewfac) are built
+# for, a library per shape (csrc/encmlp_common.cuh, ops/cuda_build.py):
+# SMPL's 24 joints, 1-7 kp bands on the 2^k grid, 1-9 view PE rows
+# (multires_views 0-4), the bone directions windowed or not, 1-8 trunk
+# layers 256 wide with the skip after layer 4 (none below 6 layers), the
+# views layer 128 wide, framecodes of at most 16 (zero-padded to 16) or
+# none: the shapes whose trunk input stays resident in a block's shared
+# memory in all four kernels.  The rest is ROADMAP B.1.2.
+KERNEL_J = 24
+KERNEL_NF = range(1, 8)
+KERNEL_NB = (1, 3, 5, 7, 9)
+KERNEL_DEPTH = range(1, 9)
+KERNEL_WIDTH = 256
+KERNEL_SKIPS = (4,)
+KERNEL_CODES = 16
 
 
 def reset_launch_counts() -> None:
@@ -461,40 +478,60 @@ def launch_counts() -> Dict[str, int]:
             **fused_mlp.launch_counts()}
 
 
-def _shape_mismatch(st: MLPStatic, est: EncStatic) -> Optional[Dict]:
-    """None when the kernels are compiled for this static shape, else
-    the shape that was asked for."""
-    k = _KERNEL_SHAPE
-    got = dict(J=est.J, F=len(est.kp_freqs), view_nb=est.view_nb,
-               depth=st.depth, width=st.width, half=st.half,
-               skips=tuple(st.skips),
-               codes=st.vparts[1] if est.has_codes else k['codes'])
-    if (got != k or not _doubling_freqs(est.kp_freqs)
-            or est.bone_windowed or st.dparts != (k['J'] * (2 * k['F'] + 1),
-                                                  3 * k['J'])):
-        return got
+def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
+    """None where K1-K4 (and K-vf1/K-vf2, which take every NB they do)
+    are built for this static shape, else what they do not take."""
+    F, nb = len(est.kp_freqs), est.view_nb
+    codes = st.vparts[1] if est.has_codes and len(st.vparts) > 1 else 0
+    if est.J != KERNEL_J:
+        return f'{est.J} joints (they take SMPL\'s {KERNEL_J})'
+    if not _doubling_freqs(est.kp_freqs) or F not in KERNEL_NF:
+        return (f'the kp bands {est.kp_freqs} (they take 1-7 bands on the '
+                '2^k grid)')
+    if nb not in KERNEL_NB:
+        return (f'{nb} view PE rows (they take 1, 3, 5, 7 or 9: '
+                'multires_views 0-4)')
+    if (st.width, st.half) != (KERNEL_WIDTH, KERNEL_WIDTH // 2):
+        return f'a net {st.width} wide (they take {KERNEL_WIDTH})'
+    if tuple(st.skips) != KERNEL_SKIPS or st.depth not in KERNEL_DEPTH:
+        return (f'{st.depth} layers with skips {tuple(st.skips)} (they take '
+                f'1-8 layers, the skip after layer 4)')
+    if codes > KERNEL_CODES:
+        return f'framecodes of {codes} (they take at most {KERNEL_CODES})'
+    if (st.dparts != ((2 * F + 1) * est.J, 3 * est.J)
+            or st.vparts[0] != nb * 3 * est.J
+            or len(st.vparts) != 1 + est.has_codes):
+        return f'the parts {st.dparts} / {st.vparts} of another encoding'
     return None
 
 
-def _check_kernel_shape(st: MLPStatic, est: EncStatic) -> None:
-    got = _shape_mismatch(st, est)
-    if got is not None:
+def kernel_shape(st: MLPStatic, est: EncStatic) -> Tuple[int, int, bool,
+                                                         int]:
+    """The build of K1-K4 that runs this static shape: its encode shape
+    (kp bands NF, view PE rows NB, bone window, depth), the key
+    ``cuda_build.library(..., enc=...)`` takes (K-vf1/K-vf2's build is
+    its NB's).  Raises NotImplementedError for a shape they are not
+    built for (``_shape_refusal``), which ROADMAP B.1.2 queues."""
+    why = _shape_refusal(st, est)
+    if why is not None:
         raise NotImplementedError(
-            f'the fused CUDA kernels are built for {_KERNEL_SHAPE}, got '
-            f'{got}; other shapes are not ported yet (ROADMAP.md)')
+            f'the fused CUDA kernels K1-K4 do not take {why}; such shapes '
+            'are not ported yet (ROADMAP.md B.1.2)')
+    return len(est.kp_freqs), est.view_nb, bool(est.bone_windowed), st.depth
 
 
 def kernel_shape_ok(rc) -> bool:
     """Whether the fused encode kernels take this raycast config:
-    ``supported_config`` holds and its static shape is the one the
-    kernels are compiled for (the check ``_check_kernel_shape`` makes
-    at a launch).  Depends on ``rc`` alone, so the CPU takes the route
-    the card takes; a config with framecodes is judged with them."""
+    ``supported_config`` holds and K1-K4 are built for its static shape
+    (the check ``kernel_shape`` makes at a launch).  Depends on ``rc``
+    alone, so the CPU takes the route the card takes, and training and
+    rendering take the same one; a config with framecodes is judged with
+    them."""
     if not supported_config(rc):
         return False
     st, est = _statics(rc, rc.n_joints, 1, DEFAULT_TILE,
                        rc.nerf.use_framecode)
-    return _shape_mismatch(st, est) is None
+    return _shape_refusal(st, est) is None
 
 
 def _check_inputs(p, enc_ray, cutoff, tau, codes_list, est, tf=None):
@@ -544,16 +581,26 @@ def _check_packs(lib, nnet, wbuf, bbuf) -> None:
         raise ValueError('packed weights do not match the kernel layout')
 
 
+def _packs(st: MLPStatic, flats):
+    """The nets' forward packs (bf16 weights, f32 biases) back to back,
+    in the layout of their K1-K4 build (``st.xv_pad``: ``_statics``)."""
+    packs = [_pack_kernel_weights(f, st) for f in flats]
+    return (torch.cat([w for w, _ in packs]),
+            torch.cat([b for _, b in packs]))
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
-            bbuf, out, n: int, S: int, R: int, vf_m=None, tf=None) -> None:
-    """K1 or K2; ``vf_m``: the nets' M (``vf_operand``) under viewfac,
-    else None (the dense views input); ``tf``: the affine rows under
-    fuse_tform (``p`` the depths), else None."""
-    lib = cuda_build.library('fwd')
+def _launch(name: str, shape, nnet: int, p, enc_ray, codes, cutoff, tau,
+            wbuf, bbuf, out, n: int, S: int, R: int, vf_m=None,
+            tf=None) -> None:
+    """K1 or K2, built for the encode shape ``shape`` (``kernel_shape``);
+    ``vf_m``: the nets' M (``vf_operand``) under viewfac, else None (the
+    dense views input); ``tf``: the affine rows under fuse_tform (``p``
+    the depths), else None."""
+    lib = cuda_build.library('fwd', enc=shape)
     _check_packs(lib, nnet, wbuf, bbuf)
     with torch.cuda.device(p.device):
         err = getattr(lib, name)(
@@ -566,8 +613,9 @@ def _launch(name: str, nnet: int, p, enc_ray, codes, cutoff, tau, wbuf,
 
 
 def _wvx(st: MLPStatic, flats) -> torch.Tensor:
-    """The nets' views-input weight rows (nnet, 648, HV) bf16, the
-    ``flatten_params_cm`` operand after the views layer's feat part."""
+    """The nets' views-input weight rows (nnet, 72 NB, HV) bf16 (648 rows
+    at the flagship's 9), the ``flatten_params_cm`` operand after the
+    views layer's feat part."""
     k = len(flats[0]) - 3 - len(st.vparts)
     return torch.stack([f[k] for f in flats]).to(torch.bfloat16).contiguous()
 
@@ -578,10 +626,16 @@ def _vf_m(st, est, enc_ray, flats) -> Optional[torch.Tensor]:
 
 
 def _codes_operand(codes_list, est, R, device):
-    """(nnet, R, 16) f32 codes for the kernel (zeros without codes)."""
+    """(nnet, R, 16) f32 codes for the kernel: narrower codes padded
+    with zero columns (which meet the pack's zero weight rows), zeros
+    without codes."""
     if est.has_codes:
-        return torch.stack(codes_list).contiguous()
-    return torch.zeros((len(codes_list), R, _KERNEL_SHAPE['codes']),
+        codes = torch.stack(codes_list)
+        pad = KERNEL_CODES - codes.shape[-1]
+        if pad:
+            codes = torch.nn.functional.pad(codes, (0, pad))
+        return codes.contiguous()
+    return torch.zeros((len(codes_list), R, KERNEL_CODES),
                        dtype=torch.float32, device=device)
 
 
@@ -593,10 +647,10 @@ def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat,
     if cuda_build.device_of(p) == 'cpu':
         return encmlp_fwd_plain(st, est, p, enc_ray, codes, cutoff, tau, flat,
                                 tf)
-    _check_kernel_shape(st, est)
-    wbuf, bbuf = _pack_kernel_weights(flat, st)
+    shape = kernel_shape(st, est)
+    wbuf, bbuf = _packs(st, [flat])
     out = torch.empty((4, n), dtype=torch.float32, device=p.device)
-    _launch('encmlp_fwd', 1, p, enc_ray,
+    _launch('encmlp_fwd', shape, 1, p, enc_ray,
             _codes_operand([codes], est, R, p.device), cutoff, tau, wbuf,
             bbuf, out, n, est.S, R, _vf_m(st, est, enc_ray, [flat]), tf)
     if est.fuse_tform:
@@ -615,13 +669,12 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     if cuda_build.device_of(p) == 'cpu':
         return encmlp_dual_fwd_plain(st, est, p, enc_ray, codes_c, codes_f,
                                      cutoff, tau, flat_c, flat_f, tf)
-    _check_kernel_shape(st, est)
-    wc, bc = _pack_kernel_weights(flat_c, st)
-    wf, bf = _pack_kernel_weights(flat_f, st)
+    shape = kernel_shape(st, est)
+    wbuf, bbuf = _packs(st, [flat_c, flat_f])
     out = torch.empty((2, 4, n), dtype=torch.float32, device=p.device)
-    _launch('encmlp_dual_fwd', 2, p, enc_ray,
+    _launch('encmlp_dual_fwd', shape, 2, p, enc_ray,
             _codes_operand([codes_c, codes_f], est, R, p.device), cutoff,
-            tau, torch.cat([wc, wf]), torch.cat([bc, bf]), out, n, est.S, R,
+            tau, wbuf, bbuf, out, n, est.S, R,
             _vf_m(st, est, enc_ray, [flat_c, flat_f]), tf)
     if est.fuse_tform:
         K2_TF_LAUNCHES += 1
@@ -638,15 +691,14 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
     before and K-vf2's fold of its per-ray Gram matrices Gw after (the
     views weight's view rows and denc); under fuse_tform on the depths
     ``p`` and the rows ``tf``.  Returns (dp (n, 3J), denc, dcodes (nnet,
-    R, 16), grads per net)."""
-    _check_kernel_shape(st, est)
+    R, C), grads per net)."""
+    shape = kernel_shape(st, est)
     R = enc_ray.shape[0]
     n = R * est.S
     dev = p.device
-    fwd_lib, lib = cuda_build.library('fwd'), cuda_build.library('bwd')
-    packs = [_pack_kernel_weights(f, st) for f in flats]
-    wbuf = torch.cat([w for w, _ in packs])
-    bbuf = torch.cat([b for _, b in packs])
+    fwd_lib = cuda_build.library('fwd', enc=shape)
+    lib = cuda_build.library('bwd', enc=shape)
+    wbuf, bbuf = _packs(st, flats)
     _check_packs(fwd_lib, nnet, wbuf, bbuf)
     wbuf_b = torch.cat([_pack_bwd_weights(f, st) for f in flats])
     n_dw = lib.encmlp_grad_weight_elems()
@@ -660,7 +712,7 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
                      dtype=torch.uint8, device=dev)
     dp = torch.empty((n, 3 * est.J), **f32)
     denc = torch.empty(tuple(enc_ray.shape), **f32)
-    dcodes = torch.empty((nnet, R, _KERNEL_SHAPE['codes']), **f32)
+    dcodes = torch.empty((nnet, R, KERNEL_CODES), **f32)
     dw = torch.empty((nnet, n_dw), **f32)
     db = torch.empty((nnet, fwd_lib.encmlp_bias_elems()), **f32)
     part, P, slice_ = fused_mlp.dw_partials(st, n, n_dw, nnet, dev)
@@ -690,6 +742,8 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
         dwv, denc = vf_fold(est, gw, enc_ray, wvx)
         dw[:, off:off + dwv[0].numel()] = dwv.reshape(nnet, -1)
     grads = [_unpack_grads(st, dw[i], db[i]) for i in range(nnet)]
+    if est.has_codes:   # the codes' own columns
+        dcodes = dcodes[..., :st.vparts[1]]
     return dp, denc, dcodes, grads
 
 
@@ -758,12 +812,13 @@ def vf_operand(est: EncStatic, enc_ray: torch.Tensor,
     nnet, R = wvx.shape[0], enc_ray.shape[0]
     if cuda_build.device_of(enc_ray) == 'cpu':
         return vf_operand_plain(est, enc_ray, wvx)
-    lib = cuda_build.library('viewfac')
-    HV = lib.viewfac_width()
-    if (tuple(wvx.shape) != (nnet, est.view_nb * 3 * est.J, HV)
-            or wvx.dtype != torch.bfloat16 or est.J != _KERNEL_SHAPE['J']
-            or not _aligned(wvx, enc_ray)):
-        raise ValueError(f'viewfac weights must be (nnet, 648, {HV}) bf16')
+    lib = cuda_build.library('viewfac', enc=est.view_nb)
+    HV, nbJ = lib.viewfac_width(), est.view_nb * 3 * est.J
+    if (tuple(wvx.shape) != (nnet, nbJ, HV)
+            or tuple(enc_ray.shape) != (R, nbJ) or est.J != KERNEL_J
+            or wvx.dtype != torch.bfloat16 or not _aligned(wvx, enc_ray)):
+        raise ValueError(f'viewfac weights must be (nnet, {nbJ}, {HV}) '
+                         'bf16')
     M = torch.empty((nnet, R, est.J, HV), dtype=torch.bfloat16,
                     device=enc_ray.device)
     with torch.cuda.device(enc_ray.device):
@@ -837,7 +892,7 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     global KVF2_LAUNCHES
     if cuda_build.device_of(gw) == 'cpu':
         return vf_fold_plain(est, gw, enc_ray, wvx)
-    lib = cuda_build.library('viewfac')
+    lib = cuda_build.library('viewfac', enc=est.view_nb)
     nnet, R, nbJ = wvx.shape[0], enc_ray.shape[0], enc_ray.shape[1]
     HV = lib.viewfac_width()
     if (tuple(gw.shape) != (nnet, R, est.J, HV)
@@ -1000,9 +1055,11 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
     products and 3 sums a joint; dp (n, 3J) is still written."""
     J, F, nb = est.J, len(est.kp_freqs), est.view_nb
     R = n // est.S
+    bw = 3 if est.bone_windowed else 0
     # per point and joint: distance 6, window 6, first sin/cos 3, each
-    # further octave 5, v scaling 2F+1, bone dir 5, view rows 3*nb
-    enc = n * J * (6 + 6 + 3 + 5 * (F - 1) + (2 * F + 1) + 5 + 3 * nb)
+    # further octave 5, v scaling 2F+1, bone dir 5 (+3 windowed), view
+    # rows 3*nb
+    enc = n * J * (6 + 6 + 3 + 5 * (F - 1) + (2 * F + 1) + 5 + bw + 3 * nb)
     tform = 6 * n * J if est.fuse_tform else 0
     wshapes = _weight_shapes(st)
     wbytes = sum(int(np.prod(s)) * (2 if d == torch.bfloat16 else 4)
@@ -1023,9 +1080,11 @@ def kernel_cost(st: MLPStatic, est: EncStatic, n: int, nnet: int,
     if backward:
         flops *= 3
         # pullback per point and joint: 2F+1 window products and sums,
-        # 2F paired-band terms (3 each), bone dir 7, view rows 4*nb
-        # (window and g_w), window and sqrt' 8
-        enc += n * J * (3 * (2 * F + 1) + 3 * 2 * F + 7 + 4 * 3 * nb + 8)
+        # 2F paired-band terms (3 each), bone dir 7 (+9 windowed: the
+        # window's share and its product in dp), view rows 4*nb (window
+        # and g_w), window and sqrt' 8
+        enc += n * J * (3 * (2 * F + 1) + 3 * 2 * F + 7 + 3 * bw
+                        + 4 * 3 * nb + 8)
         enc += tform
         gvals = sum(int(np.prod(s)) for s, _ in wshapes)
         nbytes += (n * 3 * J * 4 + R * nb * 3 * J * 4
@@ -1115,7 +1174,9 @@ def _statics(rc, J: int, S: int, tile: int, has_codes: bool,
         dparts=((1 + 2 * rc.kp_embed.num_freqs) * J, 3 * J),
         vparts=(((1 + 2 * rc.view_embed.num_freqs) * 3 * J,)
                 + ((nerf.framecode_ch,) if has_codes else ())),
-        half=nerf.width // 2, skips=tuple(nerf.skips), tile=tile)
+        half=nerf.width // 2, skips=tuple(nerf.skips), tile=tile,
+        # K1-K4's views input [view rows | codes (16) | 0 x 8], DXV
+        xv_pad=(1 + 2 * rc.view_embed.num_freqs) * 3 * J + KERNEL_CODES + 8)
     est = EncStatic(J=J, kp_freqs=tuple(float(f) for f in
                                         rc.kp_embed.freq_bands()),
                     view_nb=1 + 2 * rc.view_embed.num_freqs,

@@ -16,7 +16,7 @@ Two hand-written CUDA kernels replace the two Pallas kernels of
 ``pallas_mlp._fused_mlp`` (taken for configs outside
 ``fused_encmlp.kernel_shape_ok``: multi-subject models, trainable
 cutoffs, other encoders, shapes the fused encode kernels are not
-compiled for such as surreal_single's):
+built for such as 8 x 512 nets, ROADMAP B.1.2):
 
   * K5 ``mlp_fwd`` <- ``_fused_mlp_fwd`` / ``_fwd_kernel``
     (``csrc/mlp_fwd.cu``);
@@ -70,6 +70,10 @@ class MLPStatic:
     half: int                 # views-branch width (W // 2)
     skips: Tuple[int, ...]
     tile: int = 512
+    # the views input's width in the kernels' layouts ([parts | 0 ...]):
+    # K5/K6's 672 for any views parts up to it; a K1-K4 build's 72 NB +
+    # 16 codes + 8 (fused_encmlp._statics)
+    xv_pad: int = 672
 
     @property
     def dnet(self) -> int:
@@ -144,7 +148,7 @@ def _weight_blocks(st: MLPStatic) -> List[Tuple[Tuple[int, int],
     ``flatten_params`` operand, in order: the last trunk part of layer 0
     and of the skip layer is followed by the trunk input's padding to
     ``_dx_pad``, the last views part by the views input's to
-    ``_XV_PAD``."""
+    ``st.xv_pad``."""
     blocks: List[Tuple[Tuple[int, int], torch.dtype, int]] = []
     W, H = st.width, st.half
     b16, f32 = torch.bfloat16, torch.float32
@@ -163,7 +167,7 @@ def _weight_blocks(st: MLPStatic) -> List[Tuple[Tuple[int, int],
     blocks += [((W, 1), b16, 0), ((1, 1), f32, 0),
                ((W, W), b16, 0), ((1, W), f32, 0),
                ((W, H), b16, 0)]
-    vpad = _XV_PAD - sum(st.vparts)
+    vpad = st.xv_pad - sum(st.vparts)
     blocks += [((d, H), b16, vpad if k == len(st.vparts) - 1 else 0)
                for k, d in enumerate(st.vparts)]
     blocks += [((1, H), f32, 0), ((H, 3), b16, 0), ((1, 3), f32, 0)]
@@ -403,7 +407,7 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
 # csrc/mlp_bwd_common.cuh), shared by K1-K6
 # ---------------------------------------------------------------------------
 
-_XV_PAD = 672       # views input [parts | 0 ...], 42 x 16 columns
+_XV_PAD = 672       # K5/K6's views input [parts | 0 ...], 42 x 16 columns
 
 
 def kernel_static(st: MLPStatic) -> MLPStatic:
@@ -435,12 +439,13 @@ def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
 
     bf16 buffer, each weight TRANSPOSED to (out, in) with the input
     parts of one product concatenated along ``in`` (zero rows padding
-    the trunk input to ``_dx_pad`` and the views input to 672, both
-    multiples of 16):
+    the trunk input to ``_dx_pad`` and the views input to ``st.xv_pad``,
+    both multiples of 16):
       L0 [v|r|0] (256, DXP: 432 at the flagship's encoders);
       L1-L4 (256, 256); L5 h (256, 256) then [v|r|0] (256, DXP);
       L6, L7 (256, 256); feature (256, 256); views feature-part
-      (128, 256) then [xv|codes|0] (128, 672); alpha (256,); rgb (3, 128).
+      (128, 256) then [xv|codes|0] (128, ``st.xv_pad``: 672 for K5/K6);
+      alpha (256,); rgb (3, 128).
     f32 buffer: b0..b7 (8 x 256), feature bias (256), views bias (128),
     alpha bias (1), rgb biases (3).  (The flagship's 8 x 256 net; a net
     of other depth has its layers and biases in the same order, one of
@@ -475,7 +480,7 @@ def _pack_kernel_weights(flat: Sequence[torch.Tensor], st: MLPStatic
     bv, wr, br = next(it), next(it), next(it)
     w_parts.append(t(wf))
     w_parts.append(t(wvf))
-    zeros = torch.zeros((_XV_PAD - sum(st.vparts), st.half),
+    zeros = torch.zeros((st.xv_pad - sum(st.vparts), st.half),
                         dtype=wvf.dtype, device=wvf.device)
     w_parts.append(t(torch.cat(wvx + [zeros], 0)))
     w_parts.append(wa.reshape(-1))
@@ -496,7 +501,7 @@ def _grad_layout(st: MLPStatic) -> List[Tuple[str, int, Tuple[int, int]]]:
     flatten order, which puts the input parts of one product side by
     side, followed by the zero rows of the input's padding (L0
     [v|r|0] (DXP, 256), L5 h then [v|r|0], ..., views feature part then
-    [xv|codes|0] (672, 128)): the layout ``_pack_bwd_weights`` writes
+    [xv|codes|0] (``st.xv_pad``, 128)): the layout ``_pack_bwd_weights`` writes
     and ``csrc/mlp_bwd_common.cuh`` reads.  The bias buffer has the
     forward's bias layout (b0..b7, feature, views, alpha, rgb).
     """
@@ -577,7 +582,7 @@ def dw_tiles(st: MLPStatic, nnet: int = 1) -> int:
     skip = any(stk.has_x_part(i) for i in range(stk.depth))
     per_net = ((2 if skip else 1) * tiles(dxp, W)
                + (stk.depth - 1) * tiles(W, W) + tiles(W, 1) + tiles(W, W)
-               + tiles(W, H) + tiles(_XV_PAD, H) + tiles(H, 3))
+               + tiles(W, H) + tiles(stk.xv_pad, H) + tiles(H, 3))
     return nnet * per_net
 
 

@@ -76,11 +76,30 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    the plain backend's, and the same rays as subject 0 and subject 1
    must give other colors and the same densities; train rays/s, ms/step,
    peak memory and a profile of one step;
+2d. encmlp_shapes phase (``encmlp_shapes_phase``, ROADMAP B.1): K1-K4
+   built per static shape, at R=2048 (K2/K4 at S=64, K1/K3 at S=16, the
+   train step's tile) on weights whose composited cotangent reaches
+   every net: five view PE rows, seven (viewfac at S=64, with K-vf1 and
+   K-vf2 at their own build against their twins), four kp bands at six
+   layers (also under fuse_tform), four layers (no skip layer), the
+   windowed bone directions and framecodes of 8 (zero-padded to 16),
+   then surreal_single's one view row at its 96 (viewfac) and 48
+   samples: each against its twin at the flagship's bars, two calls
+   bit-identical, launches counted exactly, timed beside its twin and
+   its bound;
 8. single-net phase: ``configs/surreal_single.txt`` (one net, 96 + 48
-   samples, no view PE bands: a shape the fused encode kernels are not
-   compiled for, so the fused backend routes it to K5/K6): one chunk
-   rendered (K5 twice, K1-K4 never, maps within the plain path's bar)
-   and 2 train steps (K5 and K6 twice a step, finite losses);
+   samples, no view PE bands: K1/K3 at the one-view-row build, viewfac
+   on the coarse pass, where the gate prices S = 96 at the 128-point
+   tile): one chunk rendered (K1 twice and K-vf1 once, K3-K6 never;
+   maps within MAP_TOL of the plain path and of the split route, which
+   the port took before, forced), 2 train steps (K1 and K3 twice a
+   step, K-vf1 twice, K-vf2 once, K5/K6 never, finite losses), one
+   step's NeRF gradients with viewfac off against the split route's at
+   the backward bars and with viewfac on against off at viewfac's;
+   then ``single_bundled`` (``bundled_phase`` on the recipe, K1/K3 and
+   the viewfac kernels its counts a step) and ``single_timing`` (the
+   train step eager and bundled and a 4096-ray eval chunk, the fused
+   route in turns with the split route);
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -226,6 +245,9 @@ the launches of the path that runs each, and ``net_shapes`` those of
 the net_shapes phase's nets with the launches of their train steps;
 ``dist_train``, ``dist_bundled`` and ``dist_render`` in
 ``launches_by_path`` add both ranks' launches;
+K1-K4's and K-vf1/K-vf2's ``enc_shapes`` the times, bound, error and
+launches of each of the encmlp_shapes phase's shapes, and K1, K3,
+K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
 K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
 ``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
 and ``fuse_tform_times``, the flagship step's and the render's both
@@ -235,6 +257,7 @@ failure raises: the exit code is then non-zero and the last line is
 not printed.  Without CUDA, or outside a checkout of the repository,
 it fails the same way.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -316,6 +339,21 @@ FLAGSHIP_STEP_TF = {'encmlp_fwd_tf': 1, 'encmlp_dual_fwd_tf': 1,
                     'vf_operand': 2, 'vf_fold': 1}
 MS_STEPS = 12           # multi-subject train steps
 SINGLE_STEPS = 2        # surreal_single train steps
+SINGLE_CHUNK = 4096     # surreal_single's eval chunk (its config's)
+# the kernels of one surreal_single train step: K1 on the coarse and the
+# importance samples and K3 for both, K-vf1 before the coarse pass's K1
+# and K3, K-vf2 after that K3 (the gate takes viewfac at S = 96, priced
+# at the 128-point tile the loop ends at; not at S = 48)
+SINGLE_STEP = {'encmlp_fwd': 2, 'encmlp_bwd': 2, 'vf_operand': 2,
+               'vf_fold': 1}
+# one surreal_single step's NeRF gradients, the fused route's dense form
+# against the split route on the same state, batch and draws: the same
+# bf16 chain but for the encode's rounding (the in-kernel double-angle
+# bands against the plain encoders' sines), held at the backward
+# kernels' bars against their twins (measured on the CPU's twins at 128
+# rays: cosine 1 - 1.6e-6); viewfac against dense at VF_COS_MIN
+SINGLE_GRAD_COS_MIN = BWD_COS_MIN
+SINGLE_GRAD_RATIO_TOL = BWD_RATIO_TOL
 CLI_STEPS = 40          # cli_train: anerf_torch.run_train.train steps
 FF_STEPS = 12           # cli_flipflop steps
 CLI_MS_STEPS = 4        # cli_multisubject steps
@@ -976,25 +1014,31 @@ def viewfac_phase(FE, T, rc, cfg, params, peaks, device, gpu_line, R=2048):
     return rows, times
 
 
-def flagship_timing(T, device, gpu_line, what, modes):
-    """The flagship train step (``build_flagship(2048,
+def flagship_timing(T, device, gpu_line, what, modes,
+                    title='flagship step', n_rays=2048, route=None):
+    """The flagship train step (``build_flagship(n_rays,
     steps_per_dispatch=BUNDLE, **modes[mode])``) in each of two modes:
     after each bundle's warm-up and capture, 3 rounds in turns of BUNDLE
     eager steps and one bundle of each; host ms/step (medians), the
-    clock ending in ``synchronize()``.  Returns {mode: {'eager',
-    'bundled'}: ms}."""
+    clock ending in ``synchronize()``.  ``route``: {mode: a context
+    manager factory} around that mode's every call (the eager steps read
+    the route at each call, a bundle at its capture).  Returns {mode:
+    {'eager', 'bundled'}: ms}."""
     import torch
     from anerf_torch.training import trainer as TT
+    route = route or {}
+    ctx = lambda m: route[m]() if m in route else contextlib.nullcontext()
     runs = {}
     for mode, over in modes.items():
         setup, state, batches, multi = T.build_flagship(
-            2048, device=device, compute_dtype='bfloat16',
+            n_rays, device=device, compute_dtype='bfloat16',
             steps_per_dispatch=BUNDLE, **over)
         eager = TT.make_train_step(setup)
         g = torch.Generator(device=device).manual_seed(7)
-        state, _ = multi(state, batches, g)       # warm-up, capture
-        one = {k: v[0] for k, v in batches.items()}
-        state, _ = eager(state, one, g)
+        with ctx(mode):
+            state, _ = multi(state, batches, g)       # warm-up, capture
+            one = {k: v[0] for k, v in batches.items()}
+            state, _ = eager(state, one, g)
         runs[mode] = [state, batches, multi, eager, g, one]
     torch.cuda.synchronize()
     first, second = modes
@@ -1005,17 +1049,18 @@ def flagship_timing(T, device, gpu_line, what, modes):
             for k in ('eager', 'bundled'):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                if k == 'eager':
-                    for _ in range(BUNDLE):
-                        state, _ = eager(state, one, g)
-                else:
-                    state, _ = multi(state, batches, g)
+                with ctx(m):
+                    if k == 'eager':
+                        for _ in range(BUNDLE):
+                            state, _ = eager(state, one, g)
+                    else:
+                        state, _ = multi(state, batches, g)
                 torch.cuda.synchronize()
                 ms[m, k].append(1e3 * (time.perf_counter() - t0) / BUNDLE)
             runs[m][0] = state
     out = {m: {k: statistics.median(ms[m, k]) for k in ('eager', 'bundled')}
            for m in runs}
-    print(f'flagship step, {what} (medians of 3 rounds in '
+    print(f'{title}, {what} (medians of 3 rounds in '
           f'turns, ms/step): ' + ', '.join(
               f'{m} eager {out[m]["eager"]:.2f} bundled '
               f'{out[m]["bundled"]:.2f}' for m in out)
@@ -1775,32 +1820,376 @@ def ms_train_phase(FE, T, device, gpu_line):
     return counts
 
 
-def single_net_phase(FE, T, device, gpu_line):
-    """``configs/surreal_single.txt`` on the card: its settings over
-    ``build_flagship``'s recipe (which adds framecodes and pose
-    refinement), ``mlp_backend`` as shipped.  Its view encoding has no PE
-    bands, a shape the fused encode kernels are not compiled for, so the
-    fused backend must take the plain encode and K5/K6: one chunk of the
-    train batch's rays rendered at the eval variant (K5 twice: the one
-    net on the coarse and on the importance samples, K1-K4 never; maps
-    finite and within ``MAP_TOL`` of the plain path), then
-    ``SINGLE_STEPS`` train steps (K5 and K6 twice a step, finite losses).
-    Returns the launch counts of the train steps."""
+def _single_over():
+    """``configs/surreal_single.txt``'s settings (its N_rand apart)."""
     from anerf_torch.utils.config import parse_config_txt
     over = parse_config_txt(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), 'configs',
         'surreal_single.txt'))
+    return over.pop('N_rand'), over
+
+
+def _split_route(FE):
+    """``render_rays`` forced onto the split route (the plain encode and
+    K5/K6), the route surreal_single took before K1-K4 were built for its
+    one view row: a yardstick, for the ``with`` block only."""
+    return _Wrapped(FE, kernel_shape_ok=lambda _: (lambda rc: False))
+
+
+def single_net_phase(FE, T, device, gpu_line):
+    """``configs/surreal_single.txt`` on the card: its settings over
+    ``build_flagship``'s recipe (which adds framecodes and pose
+    refinement), ``mlp_backend`` as shipped: one net on 96 coarse and 48
+    importance samples at one view PE row, a shape K1-K4 are built for
+    (``kernel_shape_ok``), where the gate takes viewfac for the coarse
+    pass (S = 96 prices at the 128-point tile).  One chunk of the train
+    batch's rays rendered at the eval variant (K1 twice, K-vf1 once,
+    K3-K6 never; maps finite and within ``MAP_TOL`` of the plain path,
+    and of the split route), then ``SINGLE_STEPS`` train steps (K1 and K3
+    twice a step, K-vf1 twice, K-vf2 once, K5/K6 never; finite losses),
+    then one step's NeRF gradients on the same state, batch and draws:
+    the fused route with viewfac off against the split route (forced,
+    ``_split_route``) at the backward bars, and with viewfac on against
+    it off at anerf_tpu's bars between those two chains.  Returns the
+    launch counts of the train steps."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.training import trainer as TT
+    n_rays, over = _single_over()
     # weights from seed 1, whose random density is positive inside the
     # subject's cylinder (seed 0's renders empty maps)
     setup, state, batch, step = T.build_flagship(
-        over.pop('N_rand'), device=device, compute_dtype='bfloat16',
-        seed=1, **over)
+        n_rays, device=device, compute_dtype='bfloat16', seed=1, **over)
     rc = setup.rc
     if (rc.mlp_backend != 'fused' or not rc.single_net
-            or rc.view_embed.num_freqs != 0 or FE.kernel_shape_ok(rc)):
+            or rc.view_embed.num_freqs != 0 or not FE.kernel_shape_ok(rc)):
         raise AssertionError('the surreal_single recipe changed')
-    return split_chunk_and_steps(FE, device, gpu_line, 'surreal_single',
-                                 setup, state, batch, step, 2, SINGLE_STEPS)
+    what = 'surreal_single'
+    pose = {k: batch[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+    res = {}
+    for route in ('fused', 'split', 'plain'):
+        rc_b = dataclasses.replace(
+            rc.eval_variant(),
+            mlp_backend='plain' if route == 'plain' else 'fused')
+        FE.reset_launch_counts()
+        with torch.inference_mode(), (_split_route(FE) if route == 'split'
+                                      else contextlib.nullcontext()):
+            res[route] = raycaster.render_rays(
+                rc_b, state['params'], batch['rays_o'], batch['rays_d'],
+                setup.near, setup.far, pose, embed_state(setup.cfg, rc, 10000),
+                cam_idxs=batch['cam_idxs'])
+        torch.cuda.synchronize()
+        if route == 'fused':
+            counts = FE.launch_counts()
+    print(f'{what} render: {batch["rays_o"].shape[0]} rays, '
+          f'launches {counts}')
+    expect = {k: 0 for k in counts}
+    expect.update(encmlp_fwd=2, vf_operand=1)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
+        got = res['fused'][k]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f'{what}: non-finite {k}')
+        for ref_route in ('plain', 'split'):
+            ref = res[ref_route][k]
+            scale = ref.abs().max().item() + 1e-6
+            err = (ref - got).abs().max().item()
+            print(f'  {what} {k} against the {ref_route} route: max|d| '
+                  f'{err:.3e} scale {scale:.3e}')
+            if err > MAP_TOL * scale:
+                raise AssertionError(f'{what}: fused route disagrees with '
+                                     f'the {ref_route} route on {k}')
+    if res['fused']['acc_map'].max() < 0.5:
+        raise AssertionError(f'{what}: empty maps, the check above would '
+                             'be vacuous')
+    del res
+    gen = torch.Generator(device=device).manual_seed(0)
+    FE.reset_launch_counts()
+    losses = []
+    for _ in range(SINGLE_STEPS):
+        state, stats = step(state, batch, gen)
+        losses.append(stats['total_loss'])
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    losses = torch.stack(losses).cpu()
+    print(f'{what} train: {SINGLE_STEPS} steps, launches {counts}, '
+          f'total_loss {losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update({k: SINGLE_STEPS * n for k, n in SINGLE_STEP.items()})
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    # one step's NeRF gradients: the fused route's dense form against the
+    # split route (the same chain but for the encode's rounding) at the
+    # backward bars, and the fused route as shipped (viewfac on the
+    # coarse pass) against its dense form at anerf_tpu's bars between
+    # the two chains
+    grads = {}
+    for route, vf in (('split', False), ('dense', False), ('viewfac', True)):
+        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
+            rc, viewfac=vf))
+        with (_split_route(FE) if route == 'split'
+              else contextlib.nullcontext()):
+            _, grads[route], _ = TT.loss_and_grads(
+                s2, state, batch,
+                torch.Generator(device=device).manual_seed(3))
+    for ref, got, cos_min, ratio_tol in (
+            ('split', 'dense', SINGLE_GRAD_COS_MIN, SINGLE_GRAD_RATIO_TOL),
+            ('dense', 'viewfac', VF_COS_MIN, VF_RATIO_TOL)):
+        worst = []
+        for k, a, b in zip(_leaf_names(state['params']), grads[ref],
+                           grads[got]):
+            cos, ratio, _, _ = _cmp(a.float(), b.float())
+            worst.append((cos, k, ratio))
+        worst.sort()
+        print(f'{what}: one step\'s NeRF gradients, the fused route '
+              f'({got}) against the {ref} route, {len(worst)} leaves, '
+              'worst: ' + ', '.join(f'{k} cos {c:.7f} ratio {r:.5f}'
+                                    for c, k, r in worst[:4])
+              + f' (bars {cos_min}, {ratio_tol})')
+        bad = [(k, c, r) for c, k, r in worst
+               if c < cos_min or abs(r - 1) > ratio_tol]
+        if bad:
+            raise AssertionError(f'{what}: the {got} gradients disagree '
+                                 f'with the {ref} route: {bad}')
+    return counts
+
+
+def single_timing(FE, T, device, gpu_line):
+    """surreal_single's fused route against the split route it replaces
+    (``_split_route``), in turns: the train step eager and bundled
+    (``flagship_timing``), and eval rays/s of a 4096-ray chunk (the
+    config's chunk) at the eval variant, device ms in turns (split,
+    fused, fused, split).  Returns {'step': ..., 'eval': ...}."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    n_rays, over = _single_over()
+    out = {'step': flagship_timing(
+        T, device, gpu_line, 'fused route against the split route',
+        {'fused': dict(seed=1, **over), 'split': dict(seed=1, **over)},
+        title='surreal_single step', n_rays=n_rays,
+        route={'split': lambda: _split_route(FE)})}
+    setup, state, _, _ = T.build_flagship(
+        n_rays, device=device, compute_dtype='bfloat16', seed=1, **over)
+    rc = setup.rc.eval_variant()
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(
+        9, ext_scale=setup.cfg.ext_scale)
+    b = T.to_device(T.synthetic_batch(SINGLE_CHUNK, 9, kps, skts, bones,
+                                      cyls, seed=1), device)
+    pose = {k: b[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+    est = embed_state(setup.cfg, rc, 10000)
+
+    def chunk(route):
+        def run():
+            with torch.inference_mode(), (
+                    _split_route(FE) if route == 'split'
+                    else contextlib.nullcontext()):
+                return raycaster.render_rays(
+                    rc, state['params'], b['rays_o'], b['rays_d'],
+                    setup.near, setup.far, pose, est, cam_idxs=b['cam_idxs'])
+        return run
+    t = [_time_ms(chunk(r), 3) for r in ('split', 'fused', 'fused', 'split')]
+    ms = {'split': statistics.median([t[0], t[3]]),
+          'fused': statistics.median([t[1], t[2]])}
+    out['eval'] = {'chunk': SINGLE_CHUNK, 'turns_ms': t,
+                   **{f'{k}_ms': v for k, v in ms.items()},
+                   **{f'{k}_rays_s': SINGLE_CHUNK / (v * 1e-3)
+                      for k, v in ms.items()}}
+    print(f'surreal_single eval chunk of {SINGLE_CHUNK} rays, device ms in '
+          f'turns: split {t[0]:.3f}, fused {t[1]:.3f}, fused {t[2]:.3f}, '
+          f'split {t[3]:.3f}: fused {out["eval"]["fused_rays_s"]:.1f} eval '
+          f'rays/s, split {out["eval"]["split_rays_s"]:.1f} ({gpu_line})')
+    return out
+
+
+# encmlp_shapes phase (ROADMAP B.1): K1-K4 at static shapes past the
+# flagship's, each its own build (``fused_encmlp.kernel_shape``): name ->
+# (config overrides over the SURREAL recipe, under fuse_tform, K1/K3's
+# samples alone or None for K2/K4 at S = 64 and K1/K3 at 16).  Five and
+# seven view PE rows (seven: viewfac at S = 64, the gate's), four kp
+# bands at six layers, four layers (no skip layer), the windowed bone
+# directions, framecodes of 8 (zero-padded to 16: the flagship's build),
+# six layers under fuse_tform, and surreal_single's one view row at its
+# own samples (``ENC_SINGLE``: K1/K3 at S = 96, viewfac, the coarse pass,
+# and 48, the fine pass)
+ENC_SHAPES = {
+    'nb5': (dict(multires_views=2), False, None),
+    'nb7': (dict(multires_views=3), False, None),
+    'nf4_depth6': (dict(multires=4, netdepth=6, netdepth_fine=6), False,
+                   None),
+    'depth4': (dict(netdepth=4, netdepth_fine=4), False, None),
+    'cutoff_bones': (dict(cutoff_bones=True), False, None),
+    'codes8': (dict(framecode_size=8), False, None),
+    'nf4_depth6_tf': (dict(multires=4, netdepth=6, netdepth_fine=6), True,
+                      None),
+    'nb1': (dict(multires_views=0), False, (96, 48)),
+}
+ENC_SINGLE = 'nb1'
+ENC_SHAPE_R = 2048
+
+
+def enc_shape_key(FE, T, over):
+    """The K1-K4 build (``kernel_shape``) of the SURREAL recipe with
+    ``over``, from its statics alone."""
+    from anerf_torch.models.factory import build_raycast_config
+    rc = build_raycast_config(T.surreal_config(**over), n_framecodes=9)
+    st, est = FE._statics(rc, rc.n_joints, 1, FE.DEFAULT_TILE,
+                          rc.nerf.use_framecode)
+    return FE.kernel_shape(st, est)
+
+
+def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512):
+    """K1 (nnet 1, the fine net) or K2 at R = ENC_SHAPE_R x S, and K3 or
+    K4 on the composited cotangent, as (forward (run, plain), backward
+    (run, plain), the inputs)."""
+    ins = kernel_inputs(FE, T, rc, cfg, params, S, ENC_SHAPE_R, device,
+                        tile=tile, fuse_tform=tf)
+    g = _composited_cotangent(FE, ins, nnet, device)
+    rows = ins[8] if tf else None   # the affine rows under fuse_tform
+    return (_calls(FE, *ins[:8], nnet, rows),
+            _bwd_calls(FE, *ins[:8], g, nnet, rows), ins)
+
+
+def _counted(FE, run, expect, name):
+    """``run()`` with the launch counters zeroed before; every counter
+    must read ``expect`` (the rest 0) after.  Returns the outputs."""
+    import torch
+    FE.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    want = {k: expect.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f'{name}: launch counts {counts}, expected '
+                             f'{want}')
+    return out
+
+
+def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
+    """K1-K4 at one shape on the card, at R = ENC_SHAPE_R and the train
+    step's 512-point tile (the gate's viewfac where it takes it), on
+    weights whose composited cotangent is not zero: K2/K4
+    at S = 64 and K1/K3 at S = 16 (``samples``: K1/K3 alone at each S
+    of it), each against its twin at the flagship's bars (``_check_close``,
+    ``_check_bwd`` on the composited cotangent), two calls bit-identical,
+    its launches counted exactly (K-vf1 before K2/K4 under viewfac,
+    K-vf2 after K4), timed (CUDA graph replays, ``_graph_ms``; back to
+    back as well) beside its twin and its bound (``kernel_cost``);
+    K-vf1/K-vf2 against their twins and timed (``viewfac_kernels``)
+    where the gate takes viewfac at a view row count other than the
+    flagship's (its own K-vf1/K-vf2 build).  Returns ({kernel name: {S:
+    row}}, the K-vf1/K-vf2 rows, the launches counted)."""
+    import torch
+    from anerf_torch.interop import params_to
+    from anerf_torch.models.factory import (build_raycast_config,
+                                            init_raycaster_params)
+    cfg = T.surreal_config(compute_dtype='bfloat16', **over)
+    rc = build_raycast_config(cfg, n_framecodes=9)
+    suffix = '_tf' if tf else ''
+    plan = ([(S, 1) for S in samples] if samples
+            else [(64, 2), (16, 1)])
+    # the weights of the first of NET_SEEDS whose random density gives
+    # every net of the plan a composited cotangent on a quarter of the
+    # points (else the backward checks would compare zeros)
+    for seed in NET_SEEDS:
+        params = params_to(init_raycaster_params(
+            torch.Generator().manual_seed(seed), rc, cfg), device)
+        shares = []
+        for S, nnet in plan:
+            g = _composited_cotangent(FE, kernel_inputs(
+                FE, T, rc, cfg, params, S, 171, device, tile=512), nnet,
+                device)
+            shares += [(gi.abs().sum(0) > 0).float().mean().item()
+                       for gi in g]
+        if min(shares) >= 0.25:
+            break
+    else:
+        raise AssertionError(f'{name}: no seed of {NET_SEEDS} gives every '
+                             'net a cotangent on a quarter of the points')
+    print(f'{name}: weights from seed {seed}, cotangents on '
+          f'{min(shares):.1%} of the points or more')
+    rows, vf_rows, total = {}, [], {}
+    for S, nnet in plan:
+        (fwd, fwd_plain), (bwd, bwd_plain), ins = _enc_shape_calls(
+            FE, T, rc, cfg, params, S, nnet, device, tf)
+        st, est = ins[0], ins[1]
+        key = FE.kernel_shape(st, est)
+        vf = est.viewfac
+        fname = ('encmlp_fwd' if nnet == 1 else 'encmlp_dual_fwd') + suffix
+        bname = ('encmlp_bwd' if nnet == 1 else 'encmlp_dual_bwd') + suffix
+        n = ENC_SHAPE_R * S
+        label = (f'{name} {key} R={ENC_SHAPE_R} S={S}'
+                 f'{" viewfac" if vf else ""}')
+        print(f'{fname} {label}:')
+        got = _counted(FE, fwd, {fname: 1, 'vf_operand': int(vf)}, fname)
+        max_abs = _check_close(fname, fwd_plain(), got)
+        _check_deterministic(fname, _named(got), _named(fwd()))
+        del got
+        print(f'{bname} {label}:')
+        got = _counted(FE, bwd, {bname: 1, 'vf_operand': int(vf),
+                                 'vf_fold': int(vf)}, bname)
+        max_abs_b = _check_bwd(bname, bwd_plain(), got)
+        _check_deterministic(bname, got, bwd())
+        del got
+        for k, cnt in ((fname, 1), (bname, 1), ('vf_operand', 2 * vf),
+                       ('vf_fold', int(vf))):
+            total[k] = total.get(k, 0) + cnt
+        for kname, run, plain, err, bw, tpu in (
+                (fname, fwd, fwd_plain, max_abs, False,
+                 345 if nnet == 1 else 709),
+                (bname, bwd, bwd_plain, max_abs_b, True,
+                 480 if nnet == 1 else 744)):
+            # the device's ms from CUDA graph replays of the wrapper (its
+            # weight packing included): a call's host work outlasts K1's
+            # ~0.4 ms at S = 16, which back-to-back calls would read;
+            # those calls' ms beside it as 'wrapper_ms'
+            row = _timed_row(
+                kname, 'encmlp_bwd.cu' if bw else 'encmlp_fwd.cu', tpu,
+                FE.kernel_cost(st, est, n, nnet, backward=bw),
+                _graph_ms(run, 5 if bw else 10),
+                _time_ms(plain, 1, windows=3) if bw else _time_ms(plain, 2),
+                err, peaks, label)
+            row.update(shape=dict(zip(('kp_bands', 'view_rows',
+                                       'bone_window', 'depth'), key)),
+                       points=n, viewfac=vf,
+                       wrapper_ms=_time_ms(run, 5 if bw else 10))
+            print(f'  {kname} {label}: {row["wrapper_ms"]:.3f} ms a call '
+                  'back to back')
+            rows.setdefault(kname, {})[S] = row
+        if vf and est.view_nb != FE.cuda_build.FLAGSHIP_ENC[1]:
+            # K-vf1/K-vf2 at a view row count of their own build
+            wvx = FE._wvx(st, ins[7])
+            vf_rows = viewfac_kernels(FE, est, ins[3], wvx[:nnet], peaks,
+                                      device, ENC_SHAPE_R)
+            for r in vf_rows:
+                r['label'] = label
+        del fwd, fwd_plain, bwd, bwd_plain, ins
+        torch.cuda.empty_cache()
+    return rows, vf_rows, total
+
+
+def encmlp_shapes_phase(FE, T, peaks, device, gpu_line):
+    """K1-K4 at every shape of ``ENC_SHAPES`` and at surreal_single's
+    (``ENC_SINGLE``) through ``enc_shape_check``.  Returns ({shape name:
+    its rows}, {shape name: its K-vf1/K-vf2 rows}, the launches counted
+    over the phase, {shape name: its launches})."""
+    rows, vf_rows, by_shape = {}, {}, {}
+    total = {k: 0 for k in FE.launch_counts()}
+    for name, (over, tf, samples) in ENC_SHAPES.items():
+        rows[name], vf, counts = enc_shape_check(FE, T, name, over, tf,
+                                                 peaks, device, samples)
+        if vf:
+            vf_rows[name] = vf
+        by_shape[name] = counts
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    print(f'encmlp_shapes: {len(ENC_SHAPES)} shapes, launches {total} '
+          f'({gpu_line})')
+    return rows, vf_rows, total, by_shape
 
 
 def split_chunk_and_steps(FE, device, gpu_line, what, setup, state, batch,
@@ -2655,6 +3044,16 @@ BUNDLE_K1_K4 = {'encmlp_fwd': ('encmlp_fwd_kernel<1,', 1),
                 'vf_fold': ('vf_fold_kernel', 1)}
 BUNDLE_K5_K6 = {'mlp_fwd': ('mlp_fwd_kernel', 3),
                 'mlp_bwd': ('mlp_bwd_tile_kernel', 3)}
+# surreal_single (SINGLE_STEP): K1 and K3 twice a step, K-vf1 twice,
+# K-vf2 once, K2/K4 and K5/K6 never
+BUNDLE_SINGLE = {'encmlp_fwd': ('encmlp_fwd_kernel<1,', 2),
+                 'encmlp_bwd': ('bwd_tile_kernel<1,', 2),
+                 'encmlp_dual_fwd': ('encmlp_fwd_kernel<2,', 0),
+                 'encmlp_dual_bwd': ('bwd_tile_kernel<2,', 0),
+                 'vf_operand': ('vf_m_mma_kernel', 2),
+                 'vf_fold': ('vf_fold_kernel', 1),
+                 'mlp_fwd': ('mlp_fwd_kernel', 0),
+                 'mlp_bwd': ('mlp_bwd_tile_kernel', 0)}
 # under fuse_tform: the template's last argument (TF) true, and the point
 # forms of the same kernels never launched
 BUNDLE_K1_K4_TF = {
@@ -2702,7 +3101,7 @@ def bundled_phase(FE, T, device, gpu_line, what, kernels, **build_kw):
 
     def build(**over):
         return T.build_flagship(2048, device=device, compute_dtype='bfloat16',
-                                steps_per_dispatch=K, **build_kw, **over)
+                                steps_per_dispatch=K, **dict(build_kw, **over))
 
     def gen():
         return torch.Generator(device=device).manual_seed(7)
@@ -4123,6 +4522,22 @@ class PhaseClock:
         self.last = now
 
 
+def _shape_entry(row, shape, paths, shape_counts, name):
+    """A kernel row of the encmlp_shapes phase as an entry of its
+    kernel's ``enc_shapes``: its numbers and the launches of the path
+    that runs its shape (surreal_single's train steps for its one view
+    row, else that shape's calls in the phase)."""
+    entry = {f: row[f] for f in (
+        'ms', 'wrapper_ms', 'plain_ms', 'bound_ms', 'bound_by',
+        'max_abs_err', 'library_ms', 'shape', 'points', 'viewfac', 'label')
+        if f in row}
+    if shape == ENC_SINGLE:
+        return dict(entry, launches=paths['single_train'][name],
+                    launches_path='single_train')
+    return dict(entry, launches=shape_counts[shape][name],
+                launches_path=f'encmlp_shapes {shape}')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4147,10 +4562,14 @@ def main() -> int:
           f'device {torch.cuda.get_device_name(0)}')
     net_builds = [(432, d, FM.kernel_static(FM.MLPStatic(
         d, w, (432,), (665,), w // 2, (4,))).width) for d, w in NET_SHAPES]
+    # K1-K4 and K-vf1/K-vf2 at the encode shapes past the flagship's
+    enc_builds = [enc_shape_key(FE, T, over)
+                  for over, _, _ in ENC_SHAPES.values()]
     build_s = FE.build_kernels(verbose=True,
                                trunk_widths=tuple(GRAMMAR_WIDTHS),
-                               shapes=net_builds)
-    print(f'kernel build: {build_s:.1f} s')
+                               shapes=net_builds, enc_shapes=enc_builds)
+    print(f'kernel build: {build_s:.1f} s (encode shapes '
+          f'{sorted(set(enc_builds))})')
 
     device = torch.device('cuda')
     cfg = T.surreal_config(compute_dtype='bfloat16')
@@ -4189,6 +4608,9 @@ def main() -> int:
                                    if k != 'step_check'}
     rows += tf_rows
     clock.mark('fuse_tform')
+    shape_rows, shape_vf_rows, paths_shapes, shape_counts = \
+        encmlp_shapes_phase(FE, T, peaks, device, gpu_line)
+    clock.mark('encmlp_shapes')
     rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
     clock.mark('split_mlp')
     grammar_rows = grammar_kernel_phase(FM, T, peaks, device)
@@ -4220,6 +4642,13 @@ def main() -> int:
     clock.mark('ms_bundled')
     paths['single_train'] = single_net_phase(FE, T, device, gpu_line)
     clock.mark('single_train')
+    paths['single_bundled'] = bundled_phase(
+        FE, T, device, gpu_line, 'single_bundled', BUNDLE_SINGLE, seed=1,
+        **_single_over()[1])
+    clock.mark('single_bundled')
+    single_times = single_timing(FE, T, device, gpu_line)
+    clock.mark('single_timing')
+    paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
         FE, T, device, gpu_line)
     clock.mark('grammar_path')
@@ -4300,6 +4729,24 @@ def main() -> int:
         if name in cli_shapes:
             row['cli_train_shape'] = dict(
                 cli_shapes[name], launches=paths['cli_train'][name])
+        # K1-K4 (and K-vf1/K-vf2) at the encode shapes past the
+        # flagship's: each shape's times at its own build, the launches
+        # of its path (surreal_single's train steps for its one view
+        # row, else the shapes phase's counted calls)
+        enc = {}
+        for shape, by_kernel in shape_rows.items():
+            for S, r in by_kernel.get(name, {}).items():
+                enc[f'{shape} S={S}'] = _shape_entry(r, shape, paths,
+                                                     shape_counts, name)
+        for shape, vrs in shape_vf_rows.items():
+            for r in vrs:
+                if r['name'] == name:
+                    enc[shape] = _shape_entry(r, shape, paths, shape_counts,
+                                              name)
+        if enc:
+            row['enc_shapes'] = enc
+        if name in SINGLE_STEP:
+            row['surreal_single_times'] = single_times
         row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

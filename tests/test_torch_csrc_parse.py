@@ -23,11 +23,11 @@ CSRC = os.path.join(ROOT, 'anerf_torch', 'csrc')
 
 # what each source must define for its ctypes binding (ops/cuda_build.py)
 EXPORTS = {
-    'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd'),
+    'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd', 'encmlp_shape'),
     'encmlp_bwd.cu': ('encmlp_bwd', 'encmlp_dual_bwd',
-                      'encmlp_bwd_workspace_bytes'),
+                      'encmlp_bwd_workspace_bytes', 'encmlp_shape'),
     'viewfac.cu': ('viewfac_m', 'viewfac_fold', 'viewfac_width',
-                   'viewfac_slice'),
+                   'viewfac_slice', 'viewfac_rows'),
     'mlp_fwd.cu': ('mlp_fwd', 'mlp_trunk_width'),
     'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes', 'mlp_trunk_width'),
 }
@@ -216,6 +216,69 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
     assert not errors, '\n'.join(errors)
 
 
+# K1-K4 (encmlp_fwd.cu, encmlp_bwd.cu) and K-vf1/K-vf2 (viewfac.cu) per
+# encode shape (nvcc -DANERF_NF, -DANERF_NB, -DANERF_BONE_WIN, -DANERF_DX
+# and -DANERF_DEPTH; cuda_build._shape_flags): one shape for each value
+# of each axis fused_encmlp.kernel_shape admits, the others at the
+# flagship's (kp bands 1-7, view rows 1-9, depths 1-8 (1-5 without a
+# skip layer), the bone window), and the extremes together
+ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
+              + [dict(nb=b) for b in (1, 3, 5, 7)]
+              + [dict(depth=d) for d in range(1, 8)]
+              + [dict(bw=1), dict(nf=7, nb=9, bw=1, depth=8),
+                 dict(nf=1, nb=1, bw=1, depth=1)])
+# the first value each axis refuses, the source that refuses it and the
+# message of the static_assert it fails (ROADMAP B.1.2): 11 view rows
+# (K1/K2's shared memory; viewfac's 32-column k-pair), 8 kp bands (K3/K4's
+# shared memory), 9 layers (K3/K4's), 512 wide (K1-K4's trunk residency,
+# viewfac's 128-wide views layer)
+ENC_REFUSED = [
+    (dict(nb=11), 'encmlp_fwd.cu', 'a block takes at most 227 KB'),
+    (dict(nb=11), 'viewfac.cu', 'whole joint groups'),
+    (dict(nf=8), 'encmlp_bwd.cu', 'a block takes at most 227 KB'),
+    (dict(depth=9), 'encmlp_bwd.cu', 'a block takes at most 227 KB'),
+    (dict(width=512), 'encmlp_fwd.cu', 'resident shared memory'),
+    (dict(width=512), 'encmlp_bwd.cu', 'resident shared memory'),
+    (dict(width=512), 'viewfac.cu', '128-wide views layer')]
+
+
+def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256):
+    defines = [f'ANERF_NF={nf}', f'ANERF_NB={nb}', f'ANERF_BONE_WIN={bw}',
+               f'ANERF_DX={(2 * nf + 1) * 24 + 72}', f'ANERF_DEPTH={depth}']
+    return defines + ([f'ANERF_WIDTH={width}'] if width != 256 else [])
+
+
+def _errors(cindex, tu):
+    return [str(d) for d in tu.diagnostics
+            if d.severity >= cindex.Diagnostic.Error]
+
+
+@pytest.mark.parametrize('shape', ENC_SHAPES, ids=lambda d: '-'.join(
+    f'{k}{v}' for k, v in d.items()))
+def test_encode_sources_parse_at_every_admitted_shape(shape, mock_include):
+    """K1-K4 and, at its view rows, K-vf1/K-vf2 at each encode shape the
+    gate admits: the shared-memory budgets, the trunk's residency, the
+    schedules' tables and their coverage checks are static asserts, so a
+    shape they cannot take fails here."""
+    for source in ('encmlp_fwd.cu', 'encmlp_bwd.cu', 'viewfac.cu'):
+        cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                            _enc_defines(**shape))
+        errors = _errors(cindex, tu)
+        assert not errors, (source, '\n'.join(errors))
+
+
+@pytest.mark.parametrize('shape,source,message', ENC_REFUSED)
+def test_encode_sources_refuse_the_next_shape(shape, source, message,
+                                              mock_include):
+    """The first value of each axis past the admitted set fails its
+    source's own static_assert: the gate (``fused_encmlp.kernel_shape``)
+    stops where the headers do."""
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        _enc_defines(**shape))
+    failed = [e for e in _errors(cindex, tu) if 'static assertion' in e]
+    assert any(message in e for e in failed), failed
+
+
 def _global_kernels():
     """The names of the ``__global__`` functions in ``csrc/``."""
     names = set()
@@ -237,7 +300,8 @@ def test_smoke_kernel_names_are_global_functions():
     keys = [*C.DW_KERNELS, *C.VF_KERNELS]
     keys += [k for passes in C.BWD_PASSES.values() for _, ks in passes
              for k in ks]
-    for table in (C.BUNDLE_K1_K4, C.BUNDLE_K1_K4_TF, C.BUNDLE_K5_K6):
+    for table in (C.BUNDLE_K1_K4, C.BUNDLE_K1_K4_TF, C.BUNDLE_K5_K6,
+                  C.BUNDLE_SINGLE):
         keys += [k for k, _ in table.values()]
     for groups in (C.K1_K4_GROUPS, C.K5_K6_GROUPS):
         keys += [k for ks in groups.values() for k in ks]

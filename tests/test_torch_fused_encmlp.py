@@ -7,7 +7,10 @@
   interpret mode (as tests/test_pallas_encmlp.py runs them) at R=8 rays
   and full width 256;
 * the kernels' packed weight layout, read with the offsets of
-  csrc/encmlp_fwd.cu, reproduces the twins;
+  csrc/encmlp_common.cuh at a build's shape (the flagship's, one view
+  row, 6 layers, framecodes of 8), reproduces the twins;
+* the shape gate admits the shapes the kernels are built for and
+  refuses the rest;
 * the wrappers take the twins on CPU tensors and count no launch.
 
 Tolerance for the twins against the Pallas kernels: both run the same
@@ -34,6 +37,7 @@ from anerf_tpu.ops import pallas_encmlp as PE
 from anerf_torch import testing_utils as T
 from anerf_torch.interop import params_from_numpy
 from anerf_torch.models.factory import build_raycast_config as t_build
+from anerf_torch.models.factory import init_raycaster_params as t_init
 from anerf_torch.ops import fused_encmlp as FE
 
 J = 24
@@ -157,67 +161,95 @@ def test_plain_twins_match_pallas_interpret(scene, S):
 
 # ---- the CUDA kernels' packed weight layout, read as the kernel does ----
 
-# offsets of csrc/encmlp_fwd.cu (bf16 elements / f32 elements)
-_W, _HV, _DX, _DXV, _DE = 256, 128, 432, 672, 648
-_SZ_X, _SZ_H = _W * _DX, _W * _W
+def _layout(dx, depth, dxv, W=256, HV=128, skip=4):
+    """The offsets of csrc/encmlp_common.cuh at a build's shape (bf16
+    elements / f32 elements): trunk width ``dx`` (DXP), ``depth`` layers,
+    views input ``dxv`` (DXV = 72 NB + 24)."""
+    has_skip = skip + 1 < depth
+    sz_x, sz_h = W * dx, W * W
+    L = dict(W=W, HV=HV, DX=dx, DXV=dxv, depth=depth, skip=skip,
+             has_skip=has_skip)
+    L['off_h'] = lambda i: (sz_x + (i - 1) * sz_h
+                            + (sz_x if has_skip and i > skip + 1 else 0))
+    L['OFF_SKIPX'] = sz_x + (skip + 1) * sz_h
+    L['OFF_F'] = sz_x + (depth - 1) * sz_h + (sz_x if has_skip else 0)
+    L['OFF_VF'] = L['OFF_F'] + sz_h
+    L['OFF_VX'] = L['OFF_VF'] + HV * W
+    L['OFF_A'] = L['OFF_VX'] + HV * dxv
+    L['OFF_R'] = L['OFF_A'] + W
+    L['WSZ'] = L['OFF_R'] + 3 * HV
+    L['OB_F'] = depth * W
+    L['OB_V'] = L['OB_F'] + W
+    L['OB_A'] = L['OB_V'] + HV
+    L['OB_R'] = L['OB_A'] + 1
+    return L
 
 
-def _off_h(i):
-    return _SZ_X + (i - 1) * _SZ_H + (_SZ_X if i > 5 else 0)
-
-
-_OFF_SKIPX = _SZ_X + 5 * _SZ_H
-_OFF_F = 2 * _SZ_X + 7 * _SZ_H
-_OFF_VF = _OFF_F + _SZ_H
-_OFF_VX = _OFF_VF + _HV * _W
-_OFF_A = _OFF_VX + _HV * _DXV
-_OFF_R = _OFF_A + _W
-_WSZ = _OFF_R + 3 * _HV
-_OB_F, _OB_V = 8 * _W, 9 * _W
-_OB_A = _OB_V + _HV
-_OB_R = _OB_A + 1
-
-
-def _emulate_kernel(v, r, xv, codes_pt, wbuf, bbuf):
+def _emulate_kernel(L, v, r, xv, codes_pt, wbuf, bbuf):
     """One net through the packed buffers with the kernel's offsets and
-    operand layouts ([v|r] trunk input, [xv|codes|0] views input)."""
+    operand layouts ([v|r] trunk input, [xv|codes|0] views input, the
+    codes zero-padded to 16 as ``_codes_operand`` pads them)."""
     b16 = lambda a: a.to(torch.bfloat16).float()
+    W, HV, DX, DXV = L['W'], L['HV'], L['DX'], L['DXV']
     wb = wbuf.float()
     mat = lambda off, n, k: wb[off:off + n * k].reshape(n, k)
     X = b16(torch.cat([v, r], -1))
-    XV = b16(torch.cat([xv, codes_pt,
-                        torch.zeros((v.shape[0], _DXV - _DE - 16))], -1))
-    h = b16(torch.relu(X @ mat(0, _W, _DX).T + bbuf[:_W]))
-    for i in range(1, 8):
-        pre = h @ mat(_off_h(i), _W, _W).T
-        if i == 5:
-            pre = pre + X @ mat(_OFF_SKIPX, _W, _DX).T
-        h = b16(torch.relu(pre + bbuf[i * _W:(i + 1) * _W]))
-    alpha = h @ wb[_OFF_A:_OFF_A + _W] + bbuf[_OB_A]
-    feat = b16(h @ mat(_OFF_F, _W, _W).T + bbuf[_OB_F:_OB_F + _W])
-    hv = b16(torch.relu(feat @ mat(_OFF_VF, _HV, _W).T
-                        + XV @ mat(_OFF_VX, _HV, _DXV).T
-                        + bbuf[_OB_V:_OB_V + _HV]))
-    rgb = hv @ mat(_OFF_R, 3, _HV).T + bbuf[_OB_R:_OB_R + 3]
+    codes16 = torch.nn.functional.pad(codes_pt, (0, 16 - codes_pt.shape[1]))
+    XV = b16(torch.cat([xv, codes16,
+                        torch.zeros((v.shape[0], DXV - xv.shape[1] - 16))],
+                       -1))
+    h = b16(torch.relu(X @ mat(0, W, DX).T + bbuf[:W]))
+    for i in range(1, L['depth']):
+        pre = h @ mat(L['off_h'](i), W, W).T
+        if L['has_skip'] and i == L['skip'] + 1:
+            pre = pre + X @ mat(L['OFF_SKIPX'], W, DX).T
+        h = b16(torch.relu(pre + bbuf[i * W:(i + 1) * W]))
+    alpha = h @ wb[L['OFF_A']:L['OFF_A'] + W] + bbuf[L['OB_A']]
+    feat = b16(h @ mat(L['OFF_F'], W, W).T + bbuf[L['OB_F']:L['OB_F'] + W])
+    hv = b16(torch.relu(feat @ mat(L['OFF_VF'], HV, W).T
+                        + XV @ mat(L['OFF_VX'], HV, DXV).T
+                        + bbuf[L['OB_V']:L['OB_V'] + HV]))
+    rgb = hv @ mat(L['OFF_R'], 3, HV).T + bbuf[L['OB_R']:L['OB_R'] + 3]
     return torch.cat([rgb, alpha[:, None]], -1).T
 
 
-def test_kernel_weight_pack_matches_twin(scene):
+def _port_variant(**over):
+    """(rc, params) of the SURREAL recipe with ``over``, from the port's
+    own initializer (seed 0), the dense views input."""
+    cfg = T.surreal_config(N_rand=8, **over)
+    rc = dataclasses.replace(t_build(cfg, n_framecodes=4), viewfac=False)
+    return rc, t_init(torch.Generator().manual_seed(0), rc, cfg)
+
+
+# the flagship; one view row (multires_views 0: surreal_single's); 6
+# layers (the skip layer last but one); framecodes of 8, padded to 16
+PACK_SHAPES = {'flagship': {}, 'nb1': dict(multires_views=0),
+               'depth6': dict(netdepth=6, netdepth_fine=6),
+               'codes8': dict(framecode_size=8)}
+
+
+@pytest.mark.parametrize('variant', sorted(PACK_SHAPES))
+def test_kernel_weight_pack_matches_twin(scene, variant):
+    if variant == 'flagship':
+        rc, params = scene['t_rc'], scene['t_params']
+    else:
+        rc, params = _port_variant(**PACK_SHAPES[variant])
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))
     st, est, p, enc, cutoff, tau = FE._build_call(
-        scene['t_rc'], pts, torch.as_tensor(scene['rays_t_norm']),
-        scene['t_params']['cutoff_dist'], 21.9,
+        rc, pts, torch.as_tensor(scene['rays_t_norm']),
+        params['cutoff_dist'], 21.9,
         torch.as_tensor(scene['batch']['cam_idxs']), None)
-    FE._check_kernel_shape(st, est)
-    codes = FE._codes(scene['t_params']['fine'],
+    nf, nb, _, depth = FE.kernel_shape(st, est)
+    L = _layout((2 * nf + 1) * J + 3 * J, depth, nb * 3 * J + 24)
+    codes = FE._codes(params['fine'],
                       torch.as_tensor(scene['batch']['cam_idxs']))
-    flat = FE.flatten_params_cm(scene['t_params']['fine'], st, J, 9)
-    wbuf, bbuf = FE._pack_kernel_weights(flat, st)
+    flat = FE.flatten_params_cm(params['fine'], st, J, nb)
+    wbuf, bbuf = FE._packs(st, [flat])
     assert wbuf.dtype == torch.bfloat16 and bbuf.dtype == torch.float32
-    assert (wbuf.numel(), bbuf.numel()) == (_WSZ, _OB_R + 3)
+    assert (wbuf.numel(), bbuf.numel()) == (L['WSZ'], L['OB_R'] + 3)
     v, r, xv = FE._encode_plain(est, p, enc, cutoff, tau)
     ray = torch.arange(p.shape[0]) // est.S
-    got = _emulate_kernel(v, r, xv, codes[ray], wbuf, bbuf)
+    got = _emulate_kernel(L, v, r, xv, codes[ray], wbuf, bbuf)
     ref = FE.encmlp_fwd_plain(st, est, p, enc, codes, cutoff, tau, flat)
     # one [v|r] product in place of two summed ones: f32 order only
     _assert_raw_close(ref, got)
@@ -253,17 +285,29 @@ def test_wrappers_take_twins_on_cpu(scene):
                       tau, flats[1])
 
 
-@pytest.mark.parametrize('change', [dict(width=512), dict(depth=6),
-                                    dict(skips=(3,)), dict(vparts=(648, 8))])
-def test_kernel_shape_gate(scene, change):
-    """The CUDA kernels are compiled for the flagship shape only; any
-    other static must be refused before a launch, never run wrong."""
+# (change to the flagship's statics, admitted): 6 layers and framecodes
+# of 8 are built for now (ROADMAP B.1); 512 wide, another skip, 9 layers
+# and framecodes of 32 are not (B.1.2)
+GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
+              (dict(skips=(3,)), False), (dict(vparts=(648, 8)), True),
+              (dict(depth=9), False), (dict(vparts=(648, 32)), False)]
+
+
+@pytest.mark.parametrize('change,admitted', GATE_CASES)
+def test_kernel_shape_gate(scene, change, admitted):
+    """The CUDA kernels are compiled per static shape for the shapes
+    whose trunk input stays resident in shared memory; any other static
+    must be refused before a launch, never run wrong."""
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))
     st, est = FE._build_call(scene['t_rc'], pts,
                              torch.as_tensor(scene['rays_t_norm']),
                              scene['t_params']['cutoff_dist'], 21.9,
                              torch.as_tensor(scene['batch']['cam_idxs']),
                              None)[:2]
-    FE._check_kernel_shape(st, est)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        FE._check_kernel_shape(dataclasses.replace(st, **change), est)
+    assert FE.kernel_shape(st, est) == (7, 9, False, 8)
+    changed = dataclasses.replace(st, **change)
+    if admitted:
+        assert FE.kernel_shape(changed, est)[3] == changed.depth
+    else:
+        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.2'):
+            FE.kernel_shape(changed, est)

@@ -1,8 +1,9 @@
 """Which MLP kernels ``render_rays`` routes each shipped config to, on
 the CPU, where the route is the one the card takes.
 
-The fused encode kernels K1-K4 are compiled for one static shape
-(``fused_encmlp._KERNEL_SHAPE``).  ``fused_encmlp.kernel_shape_ok``
+The fused encode kernels K1-K4 are compiled per static shape, for the
+shapes whose trunk input stays resident in shared memory
+(``fused_encmlp.kernel_shape``).  ``fused_encmlp.kernel_shape_ok``
 decides from the raycast config alone whether they take it; a
 one-subject config on the fused backend that they do not take runs the
 plain encode and the split-operand kernels K5/K6
@@ -45,22 +46,35 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
 POSE_KEYS = ('kps', 'skts', 'bones', 'cyls')
 N_FRAMES = 4
 
-# the route of each shipped config: 'fused' (K1/K2 and their backwards),
-# 'split' (the plain encode and K5/K6: surreal_single's view encoding has
-# no PE bands, view_nb = 1, and the fused kernels are compiled for 9
-# rows) or 'plain' (synthetic_tiny's 2 x 32 net maps to the plain
-# backend: 'auto' takes the kernels for widths that are multiples of
-# 256, as anerf_tpu's auto_worthwhile does, though K5/K6 take the net)
+# the route of each shipped config: 'fused' (K1/K2 and their backwards;
+# surreal_single's one view PE row, view_nb = 1, has its build), 'split'
+# (the plain encode and K5/K6) or 'plain' (synthetic_tiny's 2 x 32 net
+# maps to the plain backend: 'auto' takes the kernels for widths that
+# are multiples of 256, as anerf_tpu's auto_worthwhile does, though
+# K5/K6 take the net)
 ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
           'mixamo.txt': 'fused', 'mixamo_finetune.txt': 'fused',
           'perfcap.txt': 'fused', 'perfcap_finetune.txt': 'fused',
-          'surreal.txt': 'fused', 'surreal_single.txt': 'split',
+          'surreal.txt': 'fused', 'surreal_single.txt': 'fused',
           'synthetic_tiny.txt': 'plain'}
+# shipped configs changed to a shape the fused kernels are not built
+# for (ROADMAP B.1.2), which keep the split route: surreal_single at a
+# net 512 wide
+VARIANTS = {'surreal_single.txt:netwidth512': (
+    'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'split')}
 
 
 def test_every_shipped_config_is_listed():
     assert sorted(f for f in os.listdir(CONFIGS) if f.endswith('.txt')) \
         == sorted(ROUTES)
+
+
+def _route_config(name):
+    """(config, route) of a shipped config or of a variant of one."""
+    if name in VARIANTS:
+        path, over, route = VARIANTS[name]
+        return load_config(os.path.join(CONFIGS, path), **over), route
+    return load_config(os.path.join(CONFIGS, name)), ROUTES[name]
 
 
 def _split_static(rc):
@@ -83,16 +97,15 @@ def _spy(monkeypatch, module, name, calls):
     monkeypatch.setattr(module, name, counted)
 
 
-@pytest.mark.parametrize('name', sorted(ROUTES))
+@pytest.mark.parametrize('name', sorted(ROUTES) + sorted(VARIANTS))
 def test_render_route(name, monkeypatch):
     """``kernel_shape_ok`` holds for exactly the configs routed to the
     fused kernels, and ``render_rays`` takes that route: the fused
-    wrappers for those, the split wrapper (three calls, or two with a
-    single net) and never a fused one for the rest on the fused
-    backend."""
-    cfg = load_config(os.path.join(CONFIGS, name))
+    wrappers for those (K1 on both passes with a single net), the split
+    wrapper (three calls, or two with a single net) and never a fused
+    one for the rest on the fused backend."""
+    cfg, route = _route_config(name)
     rc = t_build(cfg, n_framecodes=N_FRAMES)
-    route = ROUTES[name]
     assert FE.kernel_shape_ok(rc) == (route == 'fused')
     if route == 'plain':
         assert rc.mlp_backend == 'plain'
@@ -119,7 +132,9 @@ def test_render_route(name, monkeypatch):
                               t_embed_state(cfg, rc, 0),
                               cam_idxs=b['cam_idxs'])
     assert all(torch.isfinite(out[k]).all() for k in MAPS if k in out)
-    if route == 'fused':
+    if route == 'fused' and rc.single_net:
+        assert calls == {'encmlp_fwd': 2}
+    elif route == 'fused':
         assert calls == {'encmlp_dual_fwd': 1, 'encmlp_fwd': 1}
     else:
         assert calls == {'nerf_mlp_fused': 2 if rc.single_net else 3}
@@ -170,10 +185,11 @@ def test_grammar_route(name, monkeypatch):
 
 def test_surreal_single_fused_matches_jax():
     """surreal_single's recipe (one net, 96 + 48 samples, no view PE
-    bands) through the port's fused backend, which takes the plain
-    encode and the K5 twin, against anerf_tpu's XLA path on the same
-    parameters and pinned samples, at the render tests' bar (1e-3 x the
-    reference map's max)."""
+    bands) through the port's fused backend, which takes K1's twin on
+    both passes (with viewfac on the coarse pass, where the gate takes
+    it), against anerf_tpu's XLA path on the same parameters and pinned
+    samples, at the render tests' bar (1e-3 x the reference map's
+    max)."""
     path = os.path.join(CONFIGS, 'surreal_single.txt')
     R = 8
     j_cfg, t_cfg = j_load_config(path), load_config(path)
@@ -182,7 +198,7 @@ def test_surreal_single_fused_matches_jax():
     j_rc = dataclasses.replace(j_build(j_cfg, n_framecodes=N_FRAMES),
                                mlp_backend='xla')
     t_rc = t_build(t_cfg, n_framecodes=N_FRAMES)
-    assert t_rc.mlp_backend == 'fused' and not FE.kernel_shape_ok(t_rc)
+    assert t_rc.mlp_backend == 'fused' and FE.kernel_shape_ok(t_rc)
     j_params = j_init(jax.random.PRNGKey(0), j_rc, j_cfg)
     t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                         j_params))
