@@ -52,7 +52,19 @@
 //   the views layer's forward reads it back through the ring; the ReLU
 //   masks of the recompute stay in shared memory as bits.  Pass 1 holds
 //   the ring (80 KB), X, two activation buffers, the masks, g and the
-//   windows: 231,584 bytes with the ring's alignment and barriers.
+//   windows: 231,584 bytes with the ring's alignment and barriers at the
+//   flagship's shape.  Where that does not fit (512 wide: a 3-stage
+//   ring, two (64, 520) buffers; 9 layers or more; 8 kp bands or more),
+//   the masks keep their bits in shared memory only where they fit
+//   beside a 256-column buffer of X, else in the workspace
+//   (MASK_RESIDENT), and X stays resident only where it then fits: else
+//   the encode writes it straight to the workspace's copy, and the
+//   products that read it (layer 0 and the skip layer of the recompute)
+//   bring it back 256 columns at a time, each mma's sum added with
+//   rounding (ring_mma_x, mlp_bwd_common.cuh), where the resident X's
+//   chain adds into its accumulators.  Both choices count the windows
+//   and slots (SMEM_ADD) and are constexpr: a shape that fits stays
+//   resident with its bits.
 // * viewfac (the view factorization, K4 on the flagship's coarse pass):
 //   the per-tile pass recomputes the views layer from the codes' k-slice
 //   and xw @ M and writes the codes' cotangent alone; the pullback adds
@@ -91,18 +103,20 @@
 // C interface (loaded with ctypes): every pointer is device memory, the
 // stream is PyTorch's current stream; returns the first cudaError of
 // the six launches.
+#define ANERF_ENC_KERNEL  // the windows and slots count (SMEM_ADD)
 #include "mlp_bwd_common.cuh"
 
-static_assert(W == 256 && SKIP == 4,
-              "K3/K4 take 256-wide nets with the skip after layer 4");
+static_assert((W == 256 || W == 512) && SKIP == 4,
+              "K3/K4 take nets 256 or 512 wide (no WIDE body) with the skip "
+              "after layer 4");
 
 namespace {
 
 // + the windows (T, J) and viewfac's ray slots (T)
-constexpr size_t SMEM_BWD = SMEM_TILE + sizeof(float) * T * J + sizeof(int) * T;
+constexpr size_t SMEM_BWD = SMEM_TILE + SMEM_ADD;
 static_assert(SMEM_BWD <= 232448, "a block takes at most 227 KB");
-static_assert(DX == DV + C3 && DXP == DX && BWD_X_RESIDENT,
-              "K3/K4 encode the trunk into resident shared memory");
+static_assert(DX == DV + C3 && DXP == DX,
+              "K3/K4 encode the trunk input [v | r], a whole k-step wide");
 
 // tfab last, as in encmlp_fwd.cu, here and in the pullback
 template <int NNET, bool VF, bool TF>
@@ -130,7 +144,12 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   }
 
   const float tau = __ldg(tau_ptr);
-  encode_points<TF>(p, tfab, cutoff, tau, sm.X, WIN, t0, n, S);
+  // X in shared memory, copied to the workspace for the dW pass below,
+  // or straight into the workspace, where the recompute's products read
+  // it back after the barrier below orders the stores (ring_mma_x)
+  bf16* xg = wk.x + (size_t)t0 * DXP;
+  encode_points<TF>(p, tfab, cutoff, tau, BWD_X_RESIDENT ? sm.X : xg,
+                    BWD_X_RESIDENT ? LDX : DXP, WIN, t0, n, S);
   if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
   for (int net = 0; net < NNET; ++net) {
@@ -144,7 +163,7 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     }
   }
   fence_async_global();  // the ring reads the views input back by TMA
-  copy_rows(wk.x + (size_t)t0 * DX, DX, sm.X, LDX, DX);
+  if constexpr (BWD_X_RESIDENT) copy_rows(xg, DXP, sm.X, LDX, DXP);
 
   for (int net = 0; net < NNET; ++net) {
     // g of this net; the pass reads it after its first stage's barrier,
@@ -155,7 +174,7 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     }
     const VfTile vf = vf_tile(WIN, SLOT, wk.vfM[net], t0, n, S);
     mlp_bwd_tile<VF>(rg, sm, wback + (size_t)net * WGSZ,
-                     bpack + (size_t)net * BSZ, wk, net, t0, nullptr, &vf);
+                     bpack + (size_t)net * BSZ, wk, net, t0, xg, &vf);
   }
 }
 
@@ -462,7 +481,8 @@ int encmlp_shape(int* out) {
   out[1] = NB;
   out[2] = BONE_WIN ? 1 : 0;
   out[3] = DEPTH;
-  return 4;
+  out[4] = W;
+  return 5;
 }
 
 }  // extern "C"

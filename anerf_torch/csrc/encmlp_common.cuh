@@ -17,11 +17,11 @@ typedef __nv_bfloat16 bf16;
 // The encode's shape (K1-K4, K-vf1/K-vf2): J joints, NF kp bands 2^0 ..
 // 2^(NF-1), NB view PE rows (1 + 2 multires_views), the bone directions
 // windowed (--cutoff_bones) or not.  The flagship's by default; a build
-// per shape takes NF 1-7 and NB 1-9 (nvcc -DANERF_NF=... -DANERF_NB=...
-// -DANERF_BONE_WIN=0|1, with -DANERF_DX the trunk width DV + C3 and
-// -DANERF_DEPTH; ops/cuda_build.py, fused_encmlp.kernel_shape), where
-// the trunk input stays resident in shared memory; the headers' and the
-// sources' static_asserts refuse the rest.  K5/K6 ignore all three.
+// per shape takes NF 1-10 and NB 1-9 (nvcc -DANERF_NF=... -DANERF_NB=...
+// -DANERF_BONE_WIN=0|1, with -DANERF_DX the trunk width DV + C3,
+// -DANERF_DEPTH and -DANERF_WIDTH; ops/cuda_build.py,
+// fused_encmlp.kernel_shape); the headers' and the sources'
+// static_asserts refuse the rest.  K5/K6 ignore all three.
 #ifndef ANERF_NF
 #define ANERF_NF 7
 #endif
@@ -49,15 +49,22 @@ static_assert(DX >= 1 && DX <= 2048, "trunk inputs of 1 to 2048 columns");
 // the 16-deep k-step of a product
 constexpr int DXP = (DX + 15) / 16 * 16;
 constexpr int DE = NB * C3;            // 648 view encoding
-constexpr int NCODE = 16;
+// the framecodes' columns of the views input: K1-K4 take codes of at
+// most 16, zero-padded to it.  No build sets -DANERF_NCODE: only
+// tests/test_torch_csrc_parse.py does, to show that a wider one fails
+// the sources' static_asserts.
+#ifndef ANERF_NCODE
+#define ANERF_NCODE 16
+#endif
+constexpr int NCODE = ANERF_NCODE;
 // the views input [xv | codes | 0 x 8]: 672 (K5/K6's for any views
 // parts up to it), a multiple of 16 for every odd NB
 constexpr int DXV = DE + NCODE + 8;
 static_assert(DXV % 16 == 0, "the views input in whole k-steps");
 // the net: DEPTH trunk layers of W units, the views layer HV = W / 2
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
-// for 1-8 layers of 256 (8 x 256 by default); a K5/K6 build takes any
-// depth from 1 to 64 and any W
+// for 1-16 layers 256 or 512 wide (8 x 256 by default); a K5/K6 build
+// takes any depth from 1 to 64 and any W
 // that is a multiple of 256 up to 2048, depth x W up to 65,536 (64 x
 // 1024, 32 x 2048; nvcc -DANERF_DEPTH=...
 // -DANERF_WIDTH=... -DANERF_SKIP=...; ops/cuda_build.py), other nets
@@ -95,6 +102,17 @@ constexpr int NBLK = W / WB;
 constexpr int T = 64;                  // points per block
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
+// the shared memory a kernel adds after its MLP body's own, counted
+// where the headers decide what stays resident beside the ring
+// (mlp_fwd_common.cuh FWD_X_RESIDENT, mlp_bwd_common.cuh MASK_RESIDENT,
+// BWD_X_RESIDENT): K1-K4 (whose sources define ANERF_ENC_KERNEL before
+// they include a header) keep the tile's windows (T, J) f32 and
+// viewfac's ray slots (T), 6,400 bytes; K5/K6 nothing
+#ifdef ANERF_ENC_KERNEL
+constexpr size_t SMEM_ADD = sizeof(float) * T * J + sizeof(int) * T;
+#else
+constexpr size_t SMEM_ADD = 0;
+#endif
 
 // shared-memory row strides in bf16 elements: rows stay 16-byte
 // aligned and the +8 spreads the fragment loads over all 32 banks
@@ -244,18 +262,21 @@ __device__ __forceinline__ void load_point(const float* __restrict__ p,
   }
 }
 
-// The encode of points t0 .. t0+T-1 into shared memory: X = [v | r]
-// (bf16; BONE_WIN: r times the window, as pallas_encmlp._encode_fwd_res
-// under bone_windowed) and WIN = the windows (f32).  Points past n
-// encode as p = 0.
+// The encode of points t0 .. t0+T-1: X = [v | r] (bf16; BONE_WIN: r
+// times the window, as pallas_encmlp._encode_fwd_res under
+// bone_windowed), T rows of stride ldx, in shared memory where the
+// trunk input stays resident (sm.X, LDX) or else the tile's rows of
+// device memory (DXP), and WIN = the windows (f32, shared memory).
+// Points past n encode as p = 0.
 // TF: the points from depths and affine rows (load_point).  Leaves the
 // block unsynchronised.
 template <bool TF>
 __device__ __forceinline__ void encode_points(const float* __restrict__ p,
                                               const float* __restrict__ tfab,
                                               const float* __restrict__ cutoff,
-                                              float tau, bf16* X, float* WIN,
-                                              int t0, int n, int S) {
+                                              float tau, bf16* X, int ldx,
+                                              float* WIN, int t0, int n,
+                                              int S) {
   const int tid = threadIdx.x;
   // ---- encode: distances, windows, kp PE (double-angle recurrence),
   // bone directions -------------------------------------------------------
@@ -265,7 +286,7 @@ __device__ __forceinline__ void encode_points(const float* __restrict__ p,
     if (gp < n) load_point<TF>(p, tfab, gp, j, S, x, y, z);
     const float d = sqrtf(dist2(x, y, z));
     const float w = 1.f - 1.f / (1.f + expf(-tau * (d - __ldg(cutoff + j))));
-    bf16* xr = X + t * LDX;
+    bf16* xr = X + t * ldx;
     xr[j] = __float2bfloat16_rn(d * w);
     float s = sinf(d), c = sinf(d + 1.57079632679489662f);
     xr[J + j] = __float2bfloat16_rn(s * w);

@@ -8,14 +8,22 @@
 // 2^0..2^6 (360 channels), bone directions (72), view PE rows 9 x 72
 // (648), framecodes (16), an 8 x 256 trunk with the input re-entering
 // after layer 4, a 128-wide views branch.  A build per static shape
-// takes 1-7 kp bands, 1-9 view rows, the windowed bone directions and
-// 1-8 layers (encmlp_common.cuh; fused_encmlp.kernel_shape): the shapes
-// whose trunk input stays resident in shared memory beside the ring.
+// takes 1-10 kp bands, 1-9 view rows, the windowed bone directions and
+// 1-16 layers 256 or 512 wide (encmlp_common.cuh;
+// fused_encmlp.kernel_shape).
 //
 // Per block: 64 points (one S=64 ray, or four S=16 rays), two consumer
 // warpgroups and a producer warp.  The encode runs in f32 on the CUDA
-// cores and lands in shared memory as bf16; it never touches device
-// memory.  Meanwhile the producer warp has the net's first weight slices
+// cores and lands as bf16 in shared memory, where the trunk input stays
+// resident beside the ring and the kernel's windows (FWD_X_RESIDENT,
+// SMEM_ENC below: the flagship's and every shape of 256 up to 9 kp
+// bands); else (512 wide, 10 kp bands) in the tile's rows of a device-
+// memory workspace (n rounded up to 64, DXP columns: 113 MB at the
+// train step's coarse n = 131,072), which each product that reads X
+// (layer 0, the skip layer; K2: of both nets) brings back 256 columns
+// at a time from L2 (ring_wgmma_x, mlp_fwd_common.cuh).  The products'
+// sums are the same either way.  Meanwhile the producer warp has the
+// net's first weight slices
 // in flight: every weight reaches the block through a 4-stage ring of
 // 32-deep k-slices in shared memory, one TMA copy a stage, walking a
 // fixed schedule across the layers and the nets (ring.cuh).  Every
@@ -63,22 +71,29 @@
 //
 // C interface (loaded with ctypes): every pointer is device memory,
 // the stream is PyTorch's current stream; returns cudaGetLastError().
+#define ANERF_ENC_KERNEL  // the windows and slots count (SMEM_ADD)
 #include "mlp_fwd_common.cuh"
 
-static_assert(W == 256 && SKIP == 4,
-              "K1/K2 take 256-wide nets with the skip after layer 4");
+static_assert((W == 256 || W == 512) && SKIP == 4,
+              "K1/K2 take nets 256 or 512 wide (no WIDE body) with the skip "
+              "after layer 4");
 
 namespace {
 
 // + the windows (T, J) and viewfac's ray slots (T)
-constexpr size_t SMEM_ENC = SMEM_FWD + sizeof(float) * T * J + sizeof(int) * T;
+constexpr size_t SMEM_ENC = SMEM_FWD + SMEM_ADD;
 static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
-static_assert(DX == DV + C3 && DXP == DX && FWD_X_RESIDENT,
-              "K1/K2 encode the trunk into resident shared memory");
+static_assert(DX == DV + C3 && DXP == DX,
+              "K1/K2 encode the trunk input [v | r], a whole k-step wide");
 
-// tfab (TF: the affine rows) is the last parameter, so that the point
-// form's parameters keep their offsets and ptxas builds it as it would
-// without the transform (its bits do not depend on TF's existence)
+// X's device-memory rows (null where X stays resident): n rounded up to
+// T, DXP bf16 each
+constexpr size_t XWORK_ROW = FWD_X_RESIDENT ? 0 : (size_t)DXP * sizeof(bf16);
+
+// tfab (TF: the affine rows) and then xwork are the last parameters, so
+// that the point form's parameters keep their offsets and ptxas builds it
+// as it would without the transform (its bits do not depend on TF's
+// existence, nor on the workspace's)
 template <int NNET, bool VF, bool TF>
 __global__ void __launch_bounds__(NTHREAD + 32, 1)
 encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
@@ -89,7 +104,7 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
                   const float* __restrict__ bpack,
                   const bf16* __restrict__ vfM, float* __restrict__ out,
                   const __grid_constant__ FwdMaps maps, int n, int S, int R,
-                  const float* __restrict__ tfab) {
+                  const float* __restrict__ tfab, bf16* xwork) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdSmem sm = fwd_smem(smem);
   float* WIN = sm.end;                        // windows (T, J)
@@ -101,9 +116,19 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     ring_produce(rg);            // slices arrive while the tile encodes
     return;
   }
-  encode_points<TF>(p, tfab, cutoff, __ldg(tau_ptr), sm.X, WIN, t0, n, S);
+  // X in shared memory, or the tile's rows of the workspace.  Those
+  // rows' stores are ordered before every read of them (x_cols, from the
+  // first trunk product of the first net on) by the consumers' barrier
+  // right after the encode: bar.sync makes a thread's prior memory
+  // accesses, global ones included, visible to the threads it
+  // synchronises, and x_cols' barriers come later still.
+  bf16* xg = FWD_X_RESIDENT ? nullptr : xwork + (size_t)t0 * DXP;
+  encode_points<TF>(p, tfab, cutoff, __ldg(tau_ptr),
+                    FWD_X_RESIDENT ? sm.X : xg, FWD_X_RESIDENT ? LDX : DXP,
+                    WIN, t0, n, S);
   if constexpr (VF) vf_slots(SLOT, t0, n, S);
   sync_tile();
+  const XRows xr{xg};
   for (int net = 0; net < NNET; ++net) {
     // the views input of this net (the last net's trunk wrote over it)
     const float* cn = codes + (size_t)net * R * NCODE;
@@ -116,9 +141,9 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
       write_codes(sm.XV, LDXV, cn, t0, n, S);
     }
     sync_tile();
-    mlp_fwd_tile<VF>(rg, sm, wpack + (size_t)net * WSZ,
-                     bpack + (size_t)net * BSZ, out + (size_t)net * 4 * n, n,
-                     1, t0, n);
+    mlp_fwd_tile<VF, XRows>(rg, sm, wpack + (size_t)net * WSZ,
+                            bpack + (size_t)net * BSZ,
+                            out + (size_t)net * 4 * n, n, 1, t0, n, &xr);
   }
 }
 
@@ -126,14 +151,16 @@ template <int NNET, bool VF, bool TF>
 int launch_vf(const float* p, const float* tfab, const float* enc,
               const float* codes, const float* cutoff, const float* tau,
               const bf16* wf, const float* bpack, const bf16* vfM, float* out,
-              const FwdMaps& maps, int n, int S, int R, void* stream) {
+              const FwdMaps& maps, int n, int S, int R, bf16* xwork,
+              void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       encmlp_fwd_kernel<NNET, VF, TF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_ENC);
   if (err != cudaSuccess) return (int)err;
   encmlp_fwd_kernel<NNET, VF, TF><<<(n + T - 1) / T, NTHREAD + 32, SMEM_ENC,
                                     (cudaStream_t)stream>>>(
-      p, enc, codes, cutoff, tau, wf, bpack, vfM, out, maps, n, S, R, tfab);
+      p, enc, codes, cutoff, tau, wf, bpack, vfM, out, maps, n, S, R, tfab,
+      xwork);
   return (int)cudaGetLastError();
 }
 
@@ -141,37 +168,41 @@ template <int NNET, bool TF>
 int launch_tf(const float* p, const float* tfab, const float* enc,
               const float* codes, const float* cutoff, const float* tau,
               const bf16* wf, const float* bpack, const void* vfM, float* out,
-              const FwdMaps& maps, int n, int S, int R, void* stream) {
+              const FwdMaps& maps, int n, int S, int R, bf16* xwork,
+              void* stream) {
   if (vfM)
     return launch_vf<NNET, true, TF>(p, tfab, enc, codes, cutoff, tau, wf,
                                      bpack, reinterpret_cast<const bf16*>(vfM),
-                                     out, maps, n, S, R, stream);
+                                     out, maps, n, S, R, xwork, stream);
   return launch_vf<NNET, false, TF>(p, tfab, enc, codes, cutoff, tau, wf,
-                                    bpack, nullptr, out, maps, n, S, R,
+                                    bpack, nullptr, out, maps, n, S, R, xwork,
                                     stream);
 }
 
 // vfM: the nets' M (NNET, R, J, HV) for viewfac, or null for the dense
 // views input; viewfac needs S >= 32 (a tile's rays at most VFR).  tfab:
 // null (p the points (n, 3J)) or the affine rows (R, 2, 3J) of the
-// in-kernel transform (p the depths (R, S), n = R S).
+// in-kernel transform (p the depths (R, S), n = R S).  xwork: the trunk
+// input's rows, encmlp_fwd_workspace_bytes(n) (null where that is 0).
 template <int NNET>
 int launch(const float* p, const float* enc, const float* codes,
            const float* cutoff, const float* tau, const void* wpack,
-           const float* bpack, const void* vfM, const float* tfab, float* out,
-           int n, int S, int R, void* stream) {
+           const float* bpack, const void* vfM, const float* tfab,
+           void* xwork, float* out, int n, int S, int R, void* stream) {
   if (n <= 0) return 0;
   if (vfM && S < T / (VFR - 1)) return (int)cudaErrorInvalidValue;
   if (tfab && n != R * S) return (int)cudaErrorInvalidValue;
+  if (!FWD_X_RESIDENT && !xwork) return (int)cudaErrorInvalidValue;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
+  bf16* xw = reinterpret_cast<bf16*>(xwork);
   FwdMaps maps;
   const cudaError_t err = make_fwd_maps(maps, wf, NNET);
   if (err != cudaSuccess) return (int)err;
   if (tfab)
     return launch_tf<NNET, true>(p, tfab, enc, codes, cutoff, tau, wf, bpack,
-                                 vfM, out, maps, n, S, R, stream);
+                                 vfM, out, maps, n, S, R, xw, stream);
   return launch_tf<NNET, false>(p, nullptr, enc, codes, cutoff, tau, wf,
-                                bpack, vfM, out, maps, n, S, R, stream);
+                                bpack, vfM, out, maps, n, S, R, xw, stream);
 }
 
 }  // namespace
@@ -180,37 +211,47 @@ extern "C" {
 
 // One net: out (4, n) rows [r, g, b, sigma]; vfM null (dense views
 // input) or its M (1, R, J, HV) bf16 (viewfac); tfab null (p the points)
-// or the affine rows (R, 2, 3J) (p the depths; launch).
+// or the affine rows (R, 2, 3J) (p the depths); xwork the trunk input's
+// workspace (launch).
 int encmlp_fwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
                const float* bpack, const void* vfM, const float* tfab,
-               float* out, int n, int S, int R, void* stream) {
-  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab, out,
-                   n, S, R, stream);
+               void* xwork, float* out, int n, int S, int R, void* stream) {
+  return launch<1>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab,
+                   xwork, out, n, S, R, stream);
 }
 
 // Coarse and fine nets on one encode: codes (2, R, 16), wpack/bpack two
-// packed sets back to back, vfM null or (2, R, J, HV), out (2, 4, n).
+// packed sets back to back, vfM null or (2, R, J, HV), out (2, 4, n);
+// both nets read the one xwork.
 int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
                     const float* cutoff, const float* tau, const void* wpack,
                     const float* bpack, const void* vfM, const float* tfab,
-                    float* out, int n, int S, int R, void* stream) {
-  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab, out,
-                   n, S, R, stream);
+                    void* xwork, float* out, int n, int S, int R,
+                    void* stream) {
+  return launch<2>(p, enc, codes, cutoff, tau, wpack, bpack, vfM, tfab,
+                   xwork, out, n, S, R, stream);
+}
+
+// Bytes of the trunk input's workspace for n points: 0 where X stays
+// resident in shared memory, else n rounded up to T rows of DXP bf16.
+long long encmlp_fwd_workspace_bytes(int n) {
+  return ((long long)n + T - 1) / T * T * (long long)XWORK_ROW;
 }
 
 // Sizes of one packed weight set, for the wrapper's checks.
 long long encmlp_weight_elems(void) { return (long long)WSZ; }
 int encmlp_bias_elems(void) { return BSZ; }
 
-// The build's encode shape, for the wrapper's checks: out[0 .. 3] = kp
-// bands, view rows, bone window, depth; returns the count.
+// The build's encode shape, for the wrapper's checks: out[0 .. 4] = kp
+// bands, view rows, bone window, depth, width; returns the count.
 int encmlp_shape(int* out) {
   out[0] = NF;
   out[1] = NB;
   out[2] = BONE_WIN ? 1 : 0;
   out[3] = DEPTH;
-  return 4;
+  out[4] = W;
+  return 5;
 }
 
 }  // extern "C"

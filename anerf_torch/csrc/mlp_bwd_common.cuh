@@ -60,14 +60,15 @@ constexpr int NGS = 8;  // bf16 head cotangents a point: [rgb 3 | alpha | 0]
 // activation / cotangent buffers (T, LDH) (WIDE: one buffer C of XCH
 // columns for the A operands read back from the workspace), the ReLU
 // mask bits, the raw cotangent g (T, 4), a reduction scratch; K3/K4 add
-// the windows (T, J) after it.  The ring has 5 stages, 3 at W = 512.
+// the windows (T, J) and the ray slots after it (SMEM_ADD, counted in
+// both choices below).  The ring has 5 stages, 3 at W = 512.
 // The mask bits of every trunk layer ([layer][block][warp][row][q]
 // bytes) stay in shared memory where they fit beside a buffer of XCH
-// trunk columns (K3/K4; K6 at W = 256 up to 16 layers), else each tile
-// keeps its own in the workspace.  X is the whole trunk input (T, LDX)
-// where that fits in a block's 227 KB as well, else a buffer of XCH
-// columns that its products refill from the workspace's copy
-// (ring_mma_x), and then C too.
+// trunk columns (K3/K4 up to 19 layers of 256; K6 at W = 256 up to 16
+// layers), else each tile keeps its own in the workspace.  X is the
+// whole trunk input (T, LDX) where that fits in a block's 227 KB as
+// well, else a buffer of XCH columns that its products refill from the
+// workspace's copy (ring_mma_x), and then C too.
 constexpr int NSTAGE = W == 512 ? 3 : 5;
 constexpr int MASK_LAYER = NBLK * NWARP * T * 4;
 constexpr int MASK_BYTES = DEPTH * MASK_LAYER;
@@ -78,8 +79,10 @@ constexpr size_t tile_smem_bytes(int ldx, bool mask) {
              (ldx + (WIDE ? (ldx == LDC ? 0 : LDC) : 2 * LDH)) +
          (mask ? MASK_BYTES : 0) + sizeof(float) * (T * 4 + NRED);
 }
-constexpr bool MASK_RESIDENT = tile_smem_bytes(LDC, true) <= SMEM_MAX;
-constexpr bool BWD_X_RESIDENT = tile_smem_bytes(LDX, MASK_RESIDENT) <= SMEM_MAX;
+constexpr bool MASK_RESIDENT =
+    tile_smem_bytes(LDC, true) + SMEM_ADD <= SMEM_MAX;
+constexpr bool BWD_X_RESIDENT =
+    tile_smem_bytes(LDX, MASK_RESIDENT) + SMEM_ADD <= SMEM_MAX;
 constexpr int LDXB = BWD_X_RESIDENT ? LDX : LDC;
 constexpr size_t SMEM_TILE = tile_smem_bytes(LDXB, MASK_RESIDENT);
 constexpr size_t MASK_SMEM = MASK_RESIDENT ? MASK_BYTES : 0;
@@ -723,6 +726,9 @@ __device__ __forceinline__ void ring_to_global(Ring<SC>& rg, const bf16* A,
 // the views input's cotangent is the codes' alone (encmlp_bwd.cu's
 // passes take the rest from g_hv in the workspace).  Run by the
 // consumer warps; ends with them synchronised.
+static_assert(VF_STAGE <= T * LDH,
+              "viewfac's staging (K3/K4) in an activation buffer");
+
 template <bool VF>
 __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
                                              const TileSmem& sm,

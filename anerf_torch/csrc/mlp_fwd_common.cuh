@@ -140,11 +140,13 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
 
 // ---- shared memory --------------------------------------------------------
 // the ring (1024-byte aligned for the swizzle), its barriers, X, then up
-// to 512 wide the XV / H0 H1 region (K1/K2 add the windows (T, J) after
-// it), WIDE the views input XV and a buffer C of XCH columns for the A
-// operands read back from device memory.  X is the whole trunk input (T,
-// LDX) where that fits in a block's 227 KB, else a buffer of XCH columns
-// that its products refill (ring_wgmma_x), and then C too.  The ring
+// to 512 wide the XV / H0 H1 region (K1/K2 add the windows (T, J) and
+// the ray slots after it: SMEM_ADD), WIDE the views input XV and a
+// buffer C of XCH columns for the A operands read back from device
+// memory.  X is the whole trunk input (T, LDX) where that fits in a
+// block's 227 KB with the kernel's additions, else a buffer of XCH
+// columns that its products refill (ring_wgmma_x), and then C too.  The
+// ring
 // has 4 stages, 3 at W = 512, whose two (T, 520) activation buffers
 // leave no room for a fourth beside the trunk input's column buffer
 // (the buffer cannot share the activations' room: the skip layer reads
@@ -160,7 +162,8 @@ constexpr size_t fwd_smem_bytes(int nstage, bool xres) {
 constexpr int FWD_NSTAGE = !WIDE ? (W == 512 ? 3 : 4)
                            : fwd_smem_bytes(4, true) <= SMEM_MAX ? 4
                            : fwd_smem_bytes(3, true) <= SMEM_MAX ? 3 : 4;
-constexpr bool FWD_X_RESIDENT = fwd_smem_bytes(FWD_NSTAGE, true) <= SMEM_MAX;
+constexpr bool FWD_X_RESIDENT =
+    fwd_smem_bytes(FWD_NSTAGE, true) + SMEM_ADD <= SMEM_MAX;
 constexpr int LDXF = FWD_X_RESIDENT ? LDX : LDC;
 constexpr size_t SMEM_FWD = fwd_smem_bytes(FWD_NSTAGE, FWD_X_RESIDENT);
 static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
@@ -340,14 +343,40 @@ __device__ __forceinline__ void ring_wgmma(Ring<SC>& r, float (&d)[NJ][4],
   wgmma_slices(r, d, A, lda, s.kb, s.K);
 }
 
+// Where the trunk input does not stay resident, its source: the split
+// parts (K5: Parts, load_cols) or the rows that K1/K2's encode wrote to
+// device memory (XRows: the tile's first row, stride DXP, every one of
+// its T rows written).  x_cols brings columns c0 .. c1-1 of the tile's
+// rows into dst (stride LDXF); leaves the block unsynchronised.
+struct XRows {
+  const bf16* x;
+};
+
+__device__ __forceinline__ void x_cols(const Parts& xs, bf16* dst, int c0,
+                                       int c1, int t0, int n) {
+  load_cols(xs, dst, LDXF, c0, c1, t0, n);
+}
+
+// 16 bytes a load, from L2 (ld.global.cg): the block wrote these rows
+// itself earlier in the same kernel
+__device__ __forceinline__ void x_cols(const XRows& xs, bf16* dst, int c0,
+                                       int c1, int, int) {
+  const int per_row = (c1 - c0) / 8;
+  for (int idx = threadIdx.x; idx < T * per_row; idx += NTHREAD) {
+    const int t = idx / per_row, c = (idx - t * per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + t * LDXF + c) = __ldcg(
+        reinterpret_cast<const uint4*>(xs.x + (size_t)t * DXP + c0 + c));
+  }
+}
+
 // d += X @ Wseg^T over the ring's next segment, whose A operand is the
 // trunk input X: resident in sm.X, or, where it does not fit, brought
-// from the parts xs into sm.X XCH columns at a time between two
-// barriers of the consumer warps (the producer runs on ahead).
-template <class SC, int NJ>
+// from its source xs (x_cols) into sm.X XCH columns at a time between
+// two barriers of the consumer warps (the producer runs on ahead).
+template <class SC, int NJ, class XS>
 __device__ __forceinline__ void ring_wgmma_x(Ring<SC>& r, float (&d)[NJ][4],
-                                             const FwdSmem& sm,
-                                             const Parts* xs, int t0, int n) {
+                                             const FwdSmem& sm, const XS* xs,
+                                             int t0, int n) {
   if constexpr (FWD_X_RESIDENT) {
     ring_wgmma(r, d, sm.X, LDXF);
   } else {
@@ -355,7 +384,7 @@ __device__ __forceinline__ void ring_wgmma_x(Ring<SC>& r, float (&d)[NJ][4],
     for (int c0 = 0; c0 < s.K; c0 += XCH) {
       const int c1 = min(c0 + XCH, s.K);
       sync_tile();  // every warp is past its reads of the last columns
-      load_cols(*xs, sm.X, LDXF, c0, c1, t0, n);
+      x_cols(*xs, sm.X, c0, c1, t0, n);
       sync_tile();
       wgmma_slices(r, d, sm.X, LDXF, c0, c1);
     }
@@ -454,7 +483,8 @@ __device__ __forceinline__ void rgb_head(const bf16* hv, int ld,
 
 #if !ANERF_WIDE
 // ---- the MLP forward of one 64-point tile, up to 512 wide ----------------
-// X (the trunk input, where it stays resident; else xs, its parts) and
+// X (the trunk input, where it stays resident; else xs, its source:
+// x_cols) and
 // XV (the views input) complete in shared memory and the consumers
 // synchronised; the ring's schedule at the net's first
 // segment.  Wn/Bn = one net's packed weights and biases (the heads'
@@ -468,7 +498,7 @@ __device__ __forceinline__ void rgb_head(const bf16* hv, int ld,
 // views-input part is that slice's product plus xw @ M (vf_xw_m).
 // Run by the consumer warps; ends with them synchronised, past every
 // read of the region that holds XV.
-template <bool VF>
+template <bool VF, class XS = Parts>
 __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
                                              const FwdSmem& sm,
                                              const bf16* __restrict__ Wn,
@@ -476,7 +506,7 @@ __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
                                              float* __restrict__ out,
                                              size_t cs, size_t ps, int t0,
                                              int n,
-                                             const Parts* xs = nullptr) {
+                                             const XS* xs = nullptr) {
   const int tid = threadIdx.x, wg = tid >> 7;
   constexpr int NJV = HV / 16;  // the views layer: HV / 2 columns a group
   // ---- the views layer's views-input part, while XV is resident -------

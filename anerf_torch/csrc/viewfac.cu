@@ -58,13 +58,26 @@
 // stream is PyTorch's current stream; returns cudaGetLastError().
 //
 // Built per view PE row count NB (1-9: a joint's NB x 3 view columns fit
-// the 32 of two k-steps; nvcc -DANERF_NB, ops/cuda_build.py), the
-// flagship's 9 (27 columns, the counts above) by default.
+// the 32 of two k-steps; nvcc -DANERF_NB, ops/cuda_build.py) and views
+// layer width HV (128, or 256 for a net 512 wide: -DANERF_WIDTH), the
+// flagship's 9 and 128 (27 columns, the counts above) by default.
+//
+// At HV = 256 the two kernels differ in how they take the extra columns.
+// K-vf1's columns are independent (M[r, j, h] sums over b alone), so a
+// block computes 128 of them, exactly as at HV = 128, and a grid
+// dimension walks the halves (VM_HALF): the staging stays 91 KB a block,
+// two blocks a multiprocessor, for a kernel bound by its 50 MB of M.
+// K-vf2's denc sums over all HV columns of both nets, so halves would
+// need a second pass to add their partial denc; a block keeps all 256
+// columns in its chain instead (FO_SMEM 178 KB: one block a
+// multiprocessor, FO_BLOCKS), dWvx's columns split over its warps as at
+// 128.  The HV = 128 builds are the kernels above unchanged.
 #include "encmlp_common.cuh"
 
 namespace {
 
-static_assert(HV == 128, "viewfac's kernels take a 128-wide views layer");
+static_assert(HV == 128 || HV == 256,
+              "viewfac's kernels take a views layer 128 or 256 wide");
 
 constexpr int NBJ = NB * 3;          // 27 view columns a joint
 constexpr int KB = 32;               // NBJ zero-padded to two k-steps
@@ -131,18 +144,23 @@ __device__ __forceinline__ int swz(int row, int c) {
 
 constexpr int VM_RAYS = 16;            // rays a tile: one m-tile
 constexpr int VM_LDE = KB + 8;         // E's row stride (bf16): 80 bytes
-constexpr int VM_W = JG * NBJ * HV;    // weights: [jj][b][HV], swizzled
+constexpr int VM_H = HV < 128 ? HV : 128;   // columns of M a block
+constexpr int VM_HALF = HV / VM_H;     // blocks a (tile run, group, net)
+constexpr int VM_HCH = VM_H / 8;       // 16-byte chunks of a block's row
+constexpr int VM_W = JG * NBJ * VM_H;  // weights: [jj][b][VM_H], swizzled
 constexpr int VM_E = JG * VM_RAYS * VM_LDE;   // view values: [jj][ray][b]
-constexpr int VM_O = VM_RAYS * JG * HV;   // output tile: [ray][jj][HV], swizzled
+constexpr int VM_O = VM_RAYS * JG * VM_H;  // output tile: [ray][jj][VM_H], swizzled
 constexpr int VM_SMEM = 2 * (VM_W + VM_E + VM_O + 8);
 constexpr int VM_NP = VM_RAYS * NBJ;   // a tile's (ray, b) sectors of enc
 constexpr int VM_PPT = (VM_NP + NTH - 1) / NTH;
+static_assert(VM_H * VM_HALF == HV, "whole column blocks of M");
 static_assert(2 * (VM_SMEM + 1024) <= 233472, "two blocks a multiprocessor");
 
-// M[net, r, j0 .. j0 + 7, :] for the rays r of tiles q, q + Q, ... (Q =
-// gridDim.x) at joint group blockIdx.y, net blockIdx.z; enc (R, DE) f32,
-// wvx (nnet, DE, HV) bf16.  The group's weights are staged once; the
-// next tile's view values load while this one's products run.
+// M[net, r, j0 .. j0 + 7, h0 .. h0 + VM_H - 1] for the rays r of tiles
+// q, q + Q, ... (Q = gridDim.x) at joint group blockIdx.y, (net, column
+// block) blockIdx.z = net VM_HALF + h0 / VM_H; enc (R, DE) f32, wvx
+// (nnet, DE, HV) bf16.  The group's weights are staged once; the next
+// tile's view values load while this one's products run.
 __global__ void __launch_bounds__(NTH, 2)
 vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
                 bf16* __restrict__ M, int R) {
@@ -151,15 +169,18 @@ vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
   bf16* Es = Ws + VM_W;
   bf16* Os = Es + VM_E;
   bf16* Z = Os + VM_O;                 // a zero chunk: W's rows b >= 27
-  const int tid = threadIdx.x, j0 = blockIdx.y * JG, net = blockIdx.z;
+  const int tid = threadIdx.x, j0 = blockIdx.y * JG;
+  const int net = blockIdx.z / VM_HALF;
+  const int h0 = (blockIdx.z - net * VM_HALF) * VM_H;
   const int ntile = (R + VM_RAYS - 1) / VM_RAYS;
-  // the group's weight rows b J + j0 .. + 7: 2 KB contiguous a b
-  const bf16* wn = wvx + ((size_t)net * DE + j0) * HV;
-  for (int i = tid; i < NBJ * JG * HCH; i += NTH) {
-    const int b = i / (JG * HCH), rem = i - b * (JG * HCH);
-    const int jj = rem / HCH, c = rem - jj * HCH;
-    cp_async16(Ws + (jj * NBJ + b) * HV + swz(b, c),
-               wn + (size_t)b * J * HV + rem * 8);
+  // the group's weight rows b J + j0 .. + 7, columns h0 ..: 2 KB
+  // contiguous a b at HV = 128
+  const bf16* wn = wvx + ((size_t)net * DE + j0) * HV + h0;
+  for (int i = tid; i < NBJ * JG * VM_HCH; i += NTH) {
+    const int b = i / (JG * VM_HCH), rem = i - b * (JG * VM_HCH);
+    const int jj = rem / VM_HCH, c = rem - jj * VM_HCH;
+    cp_async16(Ws + (jj * NBJ + b) * VM_H + swz(b, c),
+               wn + ((size_t)b * J + jj) * HV + c * 8);
   }
   cp_async_commit();
   if (tid == 0) *reinterpret_cast<uint4*>(Z) = make_uint4(0u, 0u, 0u, 0u);
@@ -187,7 +208,7 @@ vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
   const int warp = tid >> 5, lane = tid & 31, mat = lane >> 3, r8 = lane & 7;
   const int g = lane >> 2, q = lane & 3;
   const bf16* Ej = Es + warp * VM_RAYS * VM_LDE;   // warp jj: joint j0 + jj
-  const bf16* Wj = Ws + warp * NBJ * HV;
+  const bf16* Wj = Ws + warp * NBJ * VM_H;
   int tile = blockIdx.x;
   if (tile < ntile) load_v(tile);
   for (; tile < ntile; tile += gridDim.x) {
@@ -205,9 +226,9 @@ vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
     cp_async_wait<0>();
     __syncthreads();                   // E whole; the last tile left Os
     if (tile + (int)gridDim.x < ntile) load_v(tile + gridDim.x);
-    float acc[HCH][4];
+    float acc[VM_HCH][4];
 #pragma unroll
-    for (int t = 0; t < HCH; ++t)
+    for (int t = 0; t < VM_HCH; ++t)
       acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KB / 16; ++ks) {
@@ -215,32 +236,32 @@ vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
       ldsm_x4(a, Ej + (lane & 15) * VM_LDE + ks * 16 + (lane >> 4) * 8);
       const int k = ks * 16 + r8 + ((mat & 1) << 3);   // this lane's b
 #pragma unroll
-      for (int jp = 0; jp < HCH / 2; ++jp) {
+      for (int jp = 0; jp < VM_HCH / 2; ++jp) {
         uint32_t bb[4];
-        ldsm_x4_t(bb, k < NBJ ? Wj + k * HV + swz(k, 2 * jp + (mat >> 1))
+        ldsm_x4_t(bb, k < NBJ ? Wj + k * VM_H + swz(k, 2 * jp + (mat >> 1))
                               : Z);
         mma_bf16(acc[2 * jp], a, bb[0], bb[1]);
         mma_bf16(acc[2 * jp + 1], a, bb[2], bb[3]);
       }
     }
 #pragma unroll
-    for (int t = 0; t < HCH; ++t)
+    for (int t = 0; t < VM_HCH; ++t)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int ray = g + 8 * hf;
         *reinterpret_cast<__nv_bfloat162*>(
-            Os + (ray * JG + warp) * HV + swz(ray, t) + 2 * q) =
+            Os + (ray * JG + warp) * VM_H + swz(ray, t) + 2 * q) =
             __floats2bfloat162_rn(acc[t][2 * hf], acc[t][2 * hf + 1]);
       }
     __syncthreads();                   // Os whole; E free
-    for (int i = tid; i < VM_RAYS * JG * HCH; i += NTH) {
-      const int ray = i / (JG * HCH), rem = i - ray * (JG * HCH);
-      const int jj = rem / HCH, c = rem - jj * HCH;
+    for (int i = tid; i < VM_RAYS * JG * VM_HCH; i += NTH) {
+      const int ray = i / (JG * VM_HCH), rem = i - ray * (JG * VM_HCH);
+      const int jj = rem / VM_HCH, c = rem - jj * VM_HCH;
       const int r = tile * VM_RAYS + ray;
       if (r < R)
-        *reinterpret_cast<uint4*>(M + (((size_t)net * R + r) * J + j0) * HV +
-                                  rem * 8) =
-            *reinterpret_cast<const uint4*>(Os + (ray * JG + jj) * HV +
+        *reinterpret_cast<uint4*>(
+            M + (((size_t)net * R + r) * J + j0 + jj) * HV + h0 + c * 8) =
+            *reinterpret_cast<const uint4*>(Os + (ray * JG + jj) * VM_H +
                                             swz(ray, c));
     }
   }
@@ -260,7 +281,10 @@ constexpr int FO_D = FO_SLICE * NBJ;   // a slice's denc at the joint: [ray][b]
 constexpr int FO_G = 2 * FO_CH * FO_LDG;   // a stage: [net][ray][HV]
 constexpr size_t FO_SMEM = 2 * ((size_t)FO_W + FO_NB * FO_E + FO_NST * FO_G) +
                            sizeof(float) * (FO_NB * FO_D + NTH * JG);
-static_assert(2 * (FO_SMEM + 1024) <= 233472, "two blocks a multiprocessor");
+// blocks a multiprocessor: two at HV = 128, one at 256 (the note above)
+constexpr int FO_BLOCKS = HV == 128 ? 2 : 1;
+static_assert(FO_BLOCKS * (FO_SMEM + 1024) <= 233472,
+              "FO_BLOCKS blocks a multiprocessor");
 static_assert(FO_SLICE == 2 * FO_CH && FO_SLICE * 4 == NTH && FO_D % 4 == 0,
               "a thread a (ray, 8 b) unit's b, and a (unit, joint)");
 
@@ -277,7 +301,7 @@ static_assert(FO_SLICE == 2 * FO_CH && FO_SLICE * 4 == NTH && FO_D % 4 == 0,
 // (arrive after its products, wait before the next slice's hand-over)
 // orders both, so no block waits on the others while its products run.
 // dst: the partial of net n at dst + n * net_stride + y * slice_stride.
-__global__ void __cluster_dims__(JG, 1, 1) __launch_bounds__(NTH, 2)
+__global__ void __cluster_dims__(JG, 1, 1) __launch_bounds__(NTH, FO_BLOCKS)
 vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
                const bf16* __restrict__ wvx, float* __restrict__ dst,
                long long net_stride, long long slice_stride,
@@ -568,8 +592,9 @@ int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
                                     dev)) != cudaSuccess)
     return (int)err;
   const int ntile = (R + VM_RAYS - 1) / VM_RAYS;
-  const int lanes = max(1, min(ntile, 2 * nsm / (J / JG * nnet)));
-  vf_m_mma_kernel<<<dim3(lanes, J / JG, nnet), NTH, VM_SMEM,
+  const int lanes =
+      max(1, min(ntile, 2 * nsm / (J / JG * nnet * VM_HALF)));
+  vf_m_mma_kernel<<<dim3(lanes, J / JG, nnet * VM_HALF), NTH, VM_SMEM,
                     (cudaStream_t)stream>>>(
       enc, reinterpret_cast<const bf16*>(wvx), reinterpret_cast<bf16*>(M), R);
   return (int)cudaGetLastError();

@@ -19,10 +19,12 @@ encoders, 117, 1152 or 1197 at others') and a net (``-DANERF_DEPTH``,
 ``-DANERF_WIDTH`` a multiple of 256, ``-DANERF_SKIP``: the depth, the
 width a net is padded to, the skip after layer 4;
 ``fused_mlp.kernel_static``).  K1-K4: an encode shape ``(NF, NB, bone
-window, depth)`` (``-DANERF_NF`` kp bands, ``-DANERF_NB`` view PE rows,
-``-DANERF_BONE_WIN``, ``-DANERF_DX`` their trunk width and
-``-DANERF_DEPTH``; ``fused_encmlp.kernel_shape``), and K-vf1/K-vf2 its
-view rows NB alone.  The flagship's shapes build with no flags.
+window, depth, width)`` (``-DANERF_NF`` kp bands, ``-DANERF_NB`` view
+PE rows, ``-DANERF_BONE_WIN``, ``-DANERF_DX`` their trunk width,
+``-DANERF_DEPTH`` and, past 256, ``-DANERF_WIDTH``;
+``fused_encmlp.kernel_shape``), and K-vf1/K-vf2 its view rows NB and
+views width HV (``-DANERF_WIDTH`` = 2 HV past 128).  The flagship's
+shapes build with no flags.
 ``build_kernels`` starts one nvcc per library it lacks, all together,
 into ``anerf_torch/_build/``; each library is keyed by the hash of its
 source, the shared headers (``csrc/*.cuh``) and its shape's flags, so an
@@ -57,8 +59,10 @@ FLAGSHIP_DX = 432
 FLAGSHIP_NET = (8, 256)
 SKIP = 4
 # K1-K4's flagship shape: (kp bands NF, view PE rows NB, bone window,
-# depth), the defaults of csrc/encmlp_common.cuh
-FLAGSHIP_ENC = (7, 9, False, 8)
+# depth, width), the defaults of csrc/encmlp_common.cuh; K-vf1/K-vf2's:
+# (NB, views width HV)
+FLAGSHIP_ENC = (7, 9, False, 8, 256)
+FLAGSHIP_VF = (9, 128)
 _BUILD_DIR = os.path.join(_ROOT, '_build')
 # lib_key(...) -> the loaded library
 _LIBS: Dict[Tuple, ctypes.CDLL] = {}
@@ -71,19 +75,18 @@ def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
     compiled width, a multiple of 256): ``(which, dx)`` at the
     flagship's 8 x 256 and ``(which, dx, depth, width)`` at any other
     net.  K1-K4 (``'fwd'``, ``'bwd'``) at the encode shape ``enc`` =
-    (NF, NB, bone window, depth) and K-vf1/K-vf2 (``'viewfac'``) at the
-    view PE rows ``enc`` = NB: ``(which, None)`` at the flagship's, else
-    ``(which, 'enc', NF, NB, bone window, depth)`` and ``('viewfac',
-    'enc', NB)``."""
+    (NF, NB, bone window, depth, width) and K-vf1/K-vf2 (``'viewfac'``)
+    at ``enc`` = (view PE rows NB, views width HV): ``(which, None)`` at
+    the flagship's, else ``(which, 'enc', NF, NB, bone window, depth,
+    width)`` and ``('viewfac', 'enc', NB, HV)``."""
     if which not in _SOURCES:
         raise KeyError(f'no library {which!r}')
     if which == 'viewfac':
-        nb = FLAGSHIP_ENC[1] if enc is None else int(enc)
-        return (which, None) if nb == FLAGSHIP_ENC[1] else (
-            which, 'enc', nb)
+        vf = FLAGSHIP_VF if enc is None else (int(enc[0]), int(enc[1]))
+        return (which, None) if vf == FLAGSHIP_VF else (which, 'enc') + vf
     if which in _ENC:
-        nf, nb, bw, d = FLAGSHIP_ENC if enc is None else enc
-        shape = (int(nf), int(nb), bool(bw), int(d))
+        nf, nb, bw, d, w = FLAGSHIP_ENC if enc is None else enc
+        shape = (int(nf), int(nb), bool(bw), int(d), int(w))
         if shape == FLAGSHIP_ENC:
             return which, None
         return (which, 'enc') + shape
@@ -102,11 +105,15 @@ def _shape_flags(key: Tuple) -> list:
         return []
     if key[1] == 'enc':
         if key[0] == 'viewfac':
-            return [f'-DANERF_NB={key[2]}']
-        nf, nb, bw, depth = key[2:]
-        return [f'-DANERF_NF={nf}', f'-DANERF_NB={nb}',
-                f'-DANERF_DX={(2 * nf + 1) * 24 + 72}',
-                f'-DANERF_DEPTH={depth}', f'-DANERF_BONE_WIN={int(bw)}']
+            nb, hv = key[2:]
+            return [f'-DANERF_NB={nb}'] + (
+                [f'-DANERF_WIDTH={2 * hv}'] if hv != FLAGSHIP_VF[1] else [])
+        nf, nb, bw, depth, width = key[2:]
+        flags = [f'-DANERF_NF={nf}', f'-DANERF_NB={nb}',
+                 f'-DANERF_DX={(2 * nf + 1) * 24 + 72}',
+                 f'-DANERF_DEPTH={depth}', f'-DANERF_BONE_WIN={int(bw)}']
+        return flags + ([f'-DANERF_WIDTH={width}']
+                        if width != FLAGSHIP_ENC[4] else [])
     depth, width = key[2:] if len(key) == 4 else FLAGSHIP_NET
     flags = [f'-DANERF_DX={key[1]}']
     if (depth, width) != FLAGSHIP_NET:
@@ -122,9 +129,9 @@ def _tag(key: Tuple) -> str:
         return stem
     if key[1] == 'enc':
         if key[0] == 'viewfac':
-            return f'{stem}_nb{key[2]}'
-        nf, nb, bw, depth = key[2:]
-        return f'{stem}_nf{nf}nb{nb}bw{int(bw)}d{depth}'
+            return f'{stem}_nb{key[2]}hv{key[3]}'
+        nf, nb, bw, depth, width = key[2:]
+        return f'{stem}_nf{nf}nb{nb}bw{int(bw)}d{depth}w{width}'
     tag = f'{stem}_dx{key[1]}'
     if len(key) == 4:
         tag += f'_d{key[2]}w{key[3]}'
@@ -152,11 +159,12 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
     if which == 'fwd':
         for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
             # p (or the depths), enc_ray, codes, cutoff, tau, wpack,
-            # bpack, viewfac's M, fuse_tform's affine rows, out, n, S, R,
-            # stream
-            sig(name, [vp] * 10 + [ci] * 3 + [vp])
+            # bpack, viewfac's M, fuse_tform's affine rows, the trunk
+            # input's workspace, out, n, S, R, stream
+            sig(name, [vp] * 11 + [ci] * 3 + [vp])
         sig('encmlp_weight_elems', [], cll)
         sig('encmlp_bias_elems', [])
+        sig('encmlp_fwd_workspace_bytes', [ci], cll)
     elif which == 'bwd':
         for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
             # p (or the depths), enc_ray, codes, cutoff, tau, wpack,
@@ -202,16 +210,16 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
 
 def _check_built(key: Tuple, lib: ctypes.CDLL) -> None:
     """A K1-K4 library must be built for the encode shape of its key, a
-    K-vf1/K-vf2 library for its view rows (its flags reached the
-    sources)."""
+    K-vf1/K-vf2 library for its view rows and views width (its flags
+    reached the sources)."""
     if key[0] == 'viewfac':
-        want = FLAGSHIP_ENC[1] if key[1] is None else key[2]
-        got = lib.viewfac_rows()
+        want = FLAGSHIP_VF if key[1] is None else key[2:]
+        got = lib.viewfac_rows(), lib.viewfac_width()
     elif key[0] in _ENC:
         want = FLAGSHIP_ENC if key[1] is None else key[2:]
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 5)()
         lib.encmlp_shape(out)
-        got = out[0], out[1], bool(out[2]), out[3]
+        got = out[0], out[1], bool(out[2]), out[3], out[4]
     else:
         return
     if got != want:
@@ -221,15 +229,15 @@ def _check_built(key: Tuple, lib: ctypes.CDLL) -> None:
 def build_kernels(verbose: bool = False,
                   trunk_widths: Iterable[int] = (),
                   shapes: Iterable[Tuple[int, int, int]] = (),
-                  enc_shapes: Iterable[Tuple[int, int, bool, int]] = (),
-                  view_rows: Iterable[int] = ()) -> float:
+                  enc_shapes: Iterable[Tuple[int, int, bool, int, int]] = (),
+                  view_shapes: Iterable[Tuple[int, int]] = ()) -> float:
     """Compile every library not loaded yet for sm_90a into ``_build/``:
     K1-K4's, K-vf1/K-vf2's and K5/K6's at the flagship's shape, K5/K6's at each of
     ``trunk_widths`` (8 x 256 nets) and at each (trunk width, depth,
     compiled width) of ``shapes``, K1-K4's and K-vf1/K-vf2's at each
-    (NF, NB, bone window, depth) of ``enc_shapes``, K-vf1/K-vf2's at
-    each NB of ``view_rows``; one nvcc per library, all started
-    together.  Load them, and return the seconds
+    (NF, NB, bone window, depth, width) of ``enc_shapes``,
+    K-vf1/K-vf2's at each (NB, HV) of ``view_shapes``; one nvcc per
+    library, all started together.  Load them, and return the seconds
     spent (0 when all were loaded already).  A failed build raises with
     nvcc's output."""
     wanted = [lib_key(w) for w in _SOURCES]
@@ -240,8 +248,9 @@ def build_kernels(verbose: bool = False,
     enc_shapes = list(dict.fromkeys(enc_shapes))
     wanted += [lib_key(w, enc=shape) for shape in enc_shapes
                for w in ('fwd', 'bwd')]
-    wanted += [lib_key('viewfac', enc=nb)
-               for nb in [shape[1] for shape in enc_shapes] + list(view_rows)]
+    wanted += [lib_key('viewfac', enc=vf) for vf in
+               [(shape[1], shape[4] // 2) for shape in enc_shapes]
+               + list(view_shapes)]
     todo = [k for k in dict.fromkeys(wanted) if k not in _LIBS]
     if not todo:
         return 0.
@@ -299,13 +308,14 @@ def library(which: str, dx: Optional[int] = None, depth: int = 8,
             width: int = 256, enc: Optional[Tuple] = None) -> ctypes.CDLL:
     """The loaded library ``which`` (see the module docstring; K5/K6's at
     trunk width ``dx`` and a ``depth`` x ``width`` net, K1-K4's at the
-    encode shape ``enc``, K-vf1/K-vf2's at the view rows ``enc``, the
-    flagship's by default), built on first use: K1-K4's with the
-    K-vf1/K-vf2 build of their view rows, all at once."""
+    encode shape ``enc``, K-vf1/K-vf2's at the (view rows, views width)
+    ``enc``, the flagship's by default), built on first use: K1-K4's
+    with the K-vf1/K-vf2 build of their view rows and width, all at
+    once."""
     key = lib_key(which, dx, depth, width, enc)
     if key not in _LIBS:
         if which == 'viewfac':
-            build_kernels(view_rows=() if key[1] is None else (key[2],))
+            build_kernels(view_shapes=() if key[1] is None else (key[2:],))
         elif which in _ENC:
             build_kernels(enc_shapes=() if enc is None else (enc,))
         else:

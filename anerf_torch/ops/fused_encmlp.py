@@ -22,12 +22,14 @@ train step:
 K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
 (their source notes give the designs and bounds).  Each is built per
 static shape, as anerf_tpu's kernels are (``_build_call`` per shape):
-1-7 kp bands, 1-9 view PE rows, the windowed bone directions
-(``--cutoff_bones``), 1-8 layers of 256 and framecodes of at most 16
-(``kernel_shape``: the encode shape a build is keyed by in
+1-10 kp bands, 1-9 view PE rows, the windowed bone directions
+(``--cutoff_bones``), 1-16 layers 256 or 512 wide and framecodes of at
+most 16 (``kernel_shape``: the encode shape a build is keyed by in
 ``cuda_build``); a shape outside that set takes the plain encode and
 K5/K6 (``kernel_shape_ok``), and one inside it launches its build or
-raises.
+raises.  Where the trunk input does not stay resident in a block's
+shared memory (512 wide, 10 kp bands), K1/K2 write it to a workspace of
+``encmlp_fwd_workspace_bytes(n)`` that the wrapper allocates a call.
 
 The per-ray view factorization (``viewfac``, on by default; the cost
 gate of ``pallas_encmlp._build_call`` picks it, on the flagship for the
@@ -435,17 +437,22 @@ K4_TF_LAUNCHES = 0
 
 # the static shapes K1-K4 (and K-vf1/K-vf2 under viewfac) are built
 # for, a library per shape (csrc/encmlp_common.cuh, ops/cuda_build.py):
-# SMPL's 24 joints, 1-7 kp bands on the 2^k grid, 1-9 view PE rows
-# (multires_views 0-4), the bone directions windowed or not, 1-8 trunk
-# layers 256 wide with the skip after layer 4 (none below 6 layers), the
-# views layer 128 wide, framecodes of at most 16 (zero-padded to 16) or
-# none: the shapes whose trunk input stays resident in a block's shared
-# memory in all four kernels.  The rest is ROADMAP B.1.2.
+# SMPL's 24 joints, 1-10 kp bands on the 2^k grid (nerf-pytorch's
+# default multires is 10), 1-9 view PE rows (multires_views 0-4; viewfac's
+# 32-column k-pair), the bone directions windowed or not, 1-16 trunk
+# layers 256 or 512 wide with the skip after layer 4 (none below 6
+# layers; past 16 K3/K4's tensor-core sums put the later layers' weight
+# gradients further from an f64 evaluation of the chain than twice the
+# twin's distance, chip_smoke._check_bwd_f64), the views layer half as
+# wide, framecodes of at most 16 (zero-padded to 16) or none.  The trunk
+# input stays in a block's shared memory where it fits, else in device
+# memory (the kernels decide, csrc/encmlp_fwd.cu, encmlp_bwd.cu).  The
+# rest is ROADMAP B.1.3.
 KERNEL_J = 24
-KERNEL_NF = range(1, 8)
+KERNEL_NF = range(1, 11)
 KERNEL_NB = (1, 3, 5, 7, 9)
-KERNEL_DEPTH = range(1, 9)
-KERNEL_WIDTH = 256
+KERNEL_DEPTH = range(1, 17)
+KERNEL_WIDTH = (256, 512)
 KERNEL_SKIPS = (4,)
 KERNEL_CODES = 16
 
@@ -486,16 +493,17 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
     if est.J != KERNEL_J:
         return f'{est.J} joints (they take SMPL\'s {KERNEL_J})'
     if not _doubling_freqs(est.kp_freqs) or F not in KERNEL_NF:
-        return (f'the kp bands {est.kp_freqs} (they take 1-7 bands on the '
-                '2^k grid)')
+        return (f'the kp bands {est.kp_freqs} (they take 1-10 bands on '
+                'the 2^k grid)')
     if nb not in KERNEL_NB:
         return (f'{nb} view PE rows (they take 1, 3, 5, 7 or 9: '
                 'multires_views 0-4)')
-    if (st.width, st.half) != (KERNEL_WIDTH, KERNEL_WIDTH // 2):
-        return f'a net {st.width} wide (they take {KERNEL_WIDTH})'
+    if st.width not in KERNEL_WIDTH or st.half != st.width // 2:
+        return (f'a net {st.width} wide with a views layer of {st.half} '
+                '(they take 256 or 512, the views layer half as wide)')
     if tuple(st.skips) != KERNEL_SKIPS or st.depth not in KERNEL_DEPTH:
         return (f'{st.depth} layers with skips {tuple(st.skips)} (they take '
-                f'1-8 layers, the skip after layer 4)')
+                f'1-16 layers, the skip after layer 4)')
     if codes > KERNEL_CODES:
         return f'framecodes of {codes} (they take at most {KERNEL_CODES})'
     if (st.dparts != ((2 * F + 1) * est.J, 3 * est.J)
@@ -506,18 +514,20 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
 
 
 def kernel_shape(st: MLPStatic, est: EncStatic) -> Tuple[int, int, bool,
-                                                         int]:
+                                                         int, int]:
     """The build of K1-K4 that runs this static shape: its encode shape
-    (kp bands NF, view PE rows NB, bone window, depth), the key
+    (kp bands NF, view PE rows NB, bone window, depth, width), the key
     ``cuda_build.library(..., enc=...)`` takes (K-vf1/K-vf2's build is
-    its NB's).  Raises NotImplementedError for a shape they are not
-    built for (``_shape_refusal``), which ROADMAP B.1.2 queues."""
+    its (NB, width / 2)).  Raises NotImplementedError for a shape they
+    are not built for (``_shape_refusal``), which ROADMAP B.1.3
+    queues."""
     why = _shape_refusal(st, est)
     if why is not None:
         raise NotImplementedError(
             f'the fused CUDA kernels K1-K4 do not take {why}; such shapes '
-            'are not ported yet (ROADMAP.md B.1.2)')
-    return len(est.kp_freqs), est.view_nb, bool(est.bone_windowed), st.depth
+            'are not ported yet (ROADMAP.md B.1.3)')
+    return (len(est.kp_freqs), est.view_nb, bool(est.bone_windowed),
+            st.depth, st.width)
 
 
 def kernel_shape_ok(rc) -> bool:
@@ -599,15 +609,21 @@ def _launch(name: str, shape, nnet: int, p, enc_ray, codes, cutoff, tau,
     """K1 or K2, built for the encode shape ``shape`` (``kernel_shape``);
     ``vf_m``: the nets' M (``vf_operand``) under viewfac, else None (the
     dense views input); ``tf``: the affine rows under fuse_tform (``p``
-    the depths), else None."""
+    the depths), else None.  Where the build's trunk input does not stay
+    in shared memory, the call's workspace for it (n rounded up to 64
+    rows of its width, bf16: 113 MB at 131,072 points and 432 columns),
+    which the encode writes and both nets of K2 read."""
     lib = cuda_build.library('fwd', enc=shape)
     _check_packs(lib, nnet, wbuf, bbuf)
+    nx = int(lib.encmlp_fwd_workspace_bytes(n))
+    xwork = (torch.empty(nx, dtype=torch.uint8, device=p.device) if nx
+             else None)
     with torch.cuda.device(p.device):
         err = getattr(lib, name)(
             p.data_ptr(), enc_ray.data_ptr(), codes.data_ptr(),
             cutoff.data_ptr(), tau.data_ptr(), wbuf.data_ptr(),
-            bbuf.data_ptr(), _ptr(vf_m), _ptr(tf), out.data_ptr(), n, S, R,
-            cuda_build.stream(p.device))
+            bbuf.data_ptr(), _ptr(vf_m), _ptr(tf), _ptr(xwork),
+            out.data_ptr(), n, S, R, cuda_build.stream(p.device))
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
@@ -812,7 +828,7 @@ def vf_operand(est: EncStatic, enc_ray: torch.Tensor,
     nnet, R = wvx.shape[0], enc_ray.shape[0]
     if cuda_build.device_of(enc_ray) == 'cpu':
         return vf_operand_plain(est, enc_ray, wvx)
-    lib = cuda_build.library('viewfac', enc=est.view_nb)
+    lib = cuda_build.library('viewfac', enc=(est.view_nb, wvx.shape[-1]))
     HV, nbJ = lib.viewfac_width(), est.view_nb * 3 * est.J
     if (tuple(wvx.shape) != (nnet, nbJ, HV)
             or tuple(enc_ray.shape) != (R, nbJ) or est.J != KERNEL_J
@@ -892,7 +908,7 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     global KVF2_LAUNCHES
     if cuda_build.device_of(gw) == 'cpu':
         return vf_fold_plain(est, gw, enc_ray, wvx)
-    lib = cuda_build.library('viewfac', enc=est.view_nb)
+    lib = cuda_build.library('viewfac', enc=(est.view_nb, wvx.shape[-1]))
     nnet, R, nbJ = wvx.shape[0], enc_ray.shape[0], enc_ray.shape[1]
     HV = lib.viewfac_width()
     if (tuple(gw.shape) != (nnet, R, est.J, HV)

@@ -16,7 +16,7 @@ Two hand-written CUDA kernels replace the two Pallas kernels of
 ``pallas_mlp._fused_mlp`` (taken for configs outside
 ``fused_encmlp.kernel_shape_ok``: multi-subject models, trainable
 cutoffs, other encoders, shapes the fused encode kernels are not
-built for such as 8 x 512 nets, ROADMAP B.1.2):
+built for such as 768-wide nets, ROADMAP B.1.3):
 
   * K5 ``mlp_fwd`` <- ``_fused_mlp_fwd`` / ``_fwd_kernel``
     (``csrc/mlp_fwd.cu``);

@@ -84,7 +84,12 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    layers (also under fuse_tform), four layers (no skip layer), the
    windowed bone directions and framecodes of 8 (zero-padded to 16),
    then surreal_single's one view row at its 96 (viewfac) and 48
-   samples: each against its twin at the flagship's bars, two calls
+   samples, and (ROADMAP B.1.2: the trunk input in device memory where
+   it does not fit) two 8x512 nets (viewfac with K-vf1/K-vf2 at a
+   256-wide views layer; also under fuse_tform), nine layers, eight kp
+   bands and 16 layers of 512 at ten bands: each against its twin at
+   the flagship's bars (the nine and 16 layers against an f64
+   evaluation of the chain, ``DEEP_ENC_LAYERS``), two calls
    bit-identical, launches counted exactly, timed beside its twin and
    its bound;
 8. single-net phase: ``configs/surreal_single.txt`` (one net, 96 + 48
@@ -100,6 +105,17 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    the viewfac kernels its counts a step) and ``single_timing`` (the
    train step eager and bundled and a 4096-ray eval chunk, the fused
    route in turns with the split route);
+8b. wide_flagship phase (``wide_flagship_phase``): ``build_flagship(
+   2048)`` with two 8x512 nets (K1-K4 and K-vf1/K-vf2 at the 256-wide
+   views layer): a 4096-ray eval chunk (K2 and K1 once; maps within
+   MAP_TOL of the plain path), 5 eager steps (``FLAGSHIP_STEP`` a step,
+   K5/K6 never), one step's NeRF gradients of the fused route and of
+   the split route it replaces (forced, ``_split_route``), each against
+   an f64 evaluation of the step's chain by the deep nets' rule
+   (``_check_bwd_f64``), viewfac against dense at viewfac's bars, and
+   both routes timed in turns (the step eager and bundled, the eval
+   chunk); then ``wide_bundled``
+   (``bundled_phase`` at the same nets);
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -190,8 +206,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    (K5/K6 three times a step, K1-K4 never);
 17. cli_net_width phase (after 15): ``configs/mixamo.txt`` at
    ``netwidth = 512`` and ``mlp_backend = 'pallas'`` through
-   ``run_train.train`` on a synthetic store, 4 steps, K5 and K6 three
-   times a step and K1-K4 never, finite losses;
+   ``run_train.train`` on a synthetic store, 4 steps, K1-K4 (and
+   K-vf1/K-vf2) as ``FLAGSHIP_STEP`` counts them a step and K5/K6
+   never, finite losses; then one bullet frame of its checkpoint through
+   ``run_render.main`` (K1 and K2 once a chunk, finite frames);
 18. cli_fuse_tform phase (after 17): ``configs/mixamo.txt`` with
    ``fuse_tform = True`` through ``run_train.train`` on cli_train's
    store, 4 steps, K1-K4's fuse_tform forms once a step and their point
@@ -248,6 +266,8 @@ the net_shapes phase's nets with the launches of their train steps;
 K1-K4's and K-vf1/K-vf2's ``enc_shapes`` the times, bound, error and
 launches of each of the encmlp_shapes phase's shapes, and K1, K3,
 K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
+K1-K4's and K-vf1/K-vf2's ``wide_flagship_times`` the wide_flagship
+phase's (the 8x512 step and eval chunk, both routes);
 K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
 ``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
 and ``fuse_tform_times``, the flagship step's and the render's both
@@ -2006,6 +2026,188 @@ def single_timing(FE, T, device, gpu_line):
     return out
 
 
+# the wide_flagship phase (ROADMAP B.1.2): the flagship recipe with two
+# nets 512 wide, on K1-K4 since B.1.2 (K-vf1/K-vf2 at a 256-wide views
+# layer); its eager steps, and the eval chunk of WIDE_CHUNK rays (K2 at
+# 262,144 points, K1 at 65,536)
+WIDE = dict(netwidth=512, netwidth_fine=512)
+WIDE_STEPS = 5
+WIDE_CHUNK = 4096
+
+
+def wide_flagship_phase(FE, T, device, gpu_line):
+    """``build_flagship(2048)`` with two 8 x 512 nets on the card, its
+    weights from the first of NET_SEEDS whose eval chunk renders the
+    subject (acc_map above 0.5 somewhere): one chunk of WIDE_CHUNK rays at
+    the eval variant (K2 and K1 once each, nothing else; maps finite and
+    within ``MAP_TOL`` of the plain path), then WIDE_STEPS eager train
+    steps (``FLAGSHIP_STEP`` a step, K5/K6 never; finite losses), one
+    step's NeRF gradients on the same state, batch and draws (the fused
+    route's dense form and the split route it replaces, ``_split_route``,
+    each against the step on K1-K4's twins in f64 (``_f64_twins``) by
+    ``_check_bwd_f64``, the two against each other printed; viewfac
+    against dense at anerf_tpu's bars between the two chains), and both
+    routes timed in turns: the step eager and
+    bundled (``flagship_timing``), and the eval chunk (device ms: split,
+    fused, fused, split).  Returns (the eager steps' launch counts, the
+    seed, the times)."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    from anerf_torch.training import trainer as TT
+    what = 'wide_flagship'
+    for seed in NET_SEEDS:
+        setup, state, batch, step = T.build_flagship(
+            2048, device=device, compute_dtype='bfloat16', seed=seed, **WIDE)
+        rc = setup.rc
+        if (rc.mlp_backend != 'fused' or rc.nerf.width != 512
+                or not FE.kernel_shape_ok(rc)):
+            raise AssertionError(f'{what}: not the fused route at 512 wide')
+        erc = rc.eval_variant()
+        _, bones, _, kps, skts, cyls = T.synthetic_pose(
+            9, ext_scale=setup.cfg.ext_scale)
+        b = T.to_device(T.synthetic_batch(WIDE_CHUNK, 9, kps, skts, bones,
+                                          cyls, seed=1), device)
+        pose = {k: b[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+        est = embed_state(setup.cfg, rc, 10000)
+
+        def chunk(route, backend='fused'):
+            def run():
+                with torch.inference_mode(), (
+                        _split_route(FE) if route == 'split'
+                        else contextlib.nullcontext()):
+                    return raycaster.render_rays(
+                        dataclasses.replace(erc, mlp_backend=backend),
+                        state['params'], b['rays_o'], b['rays_d'],
+                        setup.near, setup.far, pose, est,
+                        cam_idxs=b['cam_idxs'])
+            return run
+        FE.reset_launch_counts()
+        got = chunk('fused')()
+        torch.cuda.synchronize()
+        counts = FE.launch_counts()
+        if got['acc_map'].max() >= 0.5:
+            break
+    else:
+        raise AssertionError(f'{what}: no seed of {NET_SEEDS} renders the '
+                             'subject')
+    print(f'{what} eval chunk: {WIDE_CHUNK} rays, weights from seed {seed}, '
+          f'launches {counts}')
+    shape = FE.kernel_shape(*FE._statics(rc, rc.n_joints, 64,
+                                         FE.DEFAULT_TILE, True))
+    n_c, n_e = 2048 * rc.N_samples, WIDE_CHUNK * rc.N_samples
+    if str(device).startswith('cuda'):   # the builds' own reckoning
+        print(f'{what}: workspaces of the build {shape}: K4 '
+              f'{FE.cuda_build.library("bwd", enc=shape).encmlp_bwd_workspace_bytes(n_c, 2)} '
+              f'bytes at the train step\'s n={n_c}, K1/K2\'s trunk input '
+              f'{FE.cuda_build.library("fwd", enc=shape).encmlp_fwd_workspace_bytes(n_c)} '
+              f'bytes there and '
+              f'{FE.cuda_build.library("fwd", enc=shape).encmlp_fwd_workspace_bytes(n_e)} '
+              f'at the eval chunk\'s n={n_e}')
+    expect = {k: 0 for k in counts}
+    expect.update(encmlp_fwd=1, encmlp_dual_fwd=1)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    ref = chunk('fused', 'plain')()
+    for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f'{what}: non-finite {k}')
+        scale = ref[k].abs().max().item() + 1e-6
+        err = (ref[k] - got[k]).abs().max().item()
+        print(f'  {what} {k} against the plain path: max|d| {err:.3e} '
+              f'scale {scale:.3e}')
+        if err > MAP_TOL * scale:
+            raise AssertionError(f'{what}: fused route disagrees with the '
+                                 f'plain path on {k}')
+    del got, ref
+    gen = torch.Generator(device=device).manual_seed(0)
+    FE.reset_launch_counts()
+    losses = []
+    for _ in range(WIDE_STEPS):
+        state, stats = step(state, batch, gen)
+        losses.append(stats['total_loss'])
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    losses = torch.stack(losses).cpu()
+    print(f'{what} train: {WIDE_STEPS} steps, launches {counts}, '
+          f'total_loss {losses.tolist()} ({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update({k: WIDE_STEPS * n for k, n in FLAGSHIP_STEP.items()})
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f'non-finite losses {losses.tolist()}')
+    grads = {}
+    for route, vf in (('split', False), ('dense', False), ('twins', False),
+                      ('f64', False), ('viewfac', True)):
+        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
+            rc, viewfac=vf))
+        with contextlib.ExitStack() as routing:
+            if route == 'split':
+                routing.enter_context(_split_route(FE))
+            if route == 'f64':
+                routing.enter_context(_f64_twins(FE))
+            if route in ('twins', 'f64'):
+                routing.enter_context(_kernel_twins(FE, backward=True))
+            _, g, _ = TT.loss_and_grads(
+                s2, state, batch,
+                torch.Generator(device=device).manual_seed(3))
+        grads[route] = list(zip(_leaf_names(state['params']), g))
+
+    def leaves(ref_r, got_r):
+        worst = []
+        for (k, a), (_, g) in zip(grads[ref_r], grads[got_r]):
+            cos, ratio = _cmp(a.float(), g.float())[:2]
+            worst.append((cos, k, ratio))
+        return sorted(worst)
+    # each route against the step on K1-K4's twins in f64 by the deep
+    # nets' rule (_check_bwd_f64): K4's twin at 8 x 512 reads cosine
+    # 0.99988 against the f64 chain (the kp bands' recurrence,
+    # DEEP_ENC_LAYERS' note), the split route's plain encode (sin and cos
+    # of each band) rounds less, and the two routes meet at about the sum
+    # of their distances (printed)
+    for route in ('dense', 'split'):
+        print(f'{what}: one step\'s NeRF gradients, the {route} route '
+              'against the f64 chain:')
+        _check_bwd_f64(f'{what} {route}', grads['f64'], grads[route],
+                       grads['twins'])
+    for ref_r, got_r, bars in (('dense', 'viewfac', (VF_COS_MIN,
+                                                      VF_RATIO_TOL)),
+                               ('split', 'dense', None)):
+        worst = leaves(ref_r, got_r)
+        print(f'{what}: one step\'s NeRF gradients, the {got_r} route '
+              f'against the {ref_r} route, {len(worst)} leaves, worst: '
+              + ', '.join(f'{k} cos {c:.7f} ratio {r:.5f}'
+                          for c, k, r in worst[:4])
+              + (f' (bars {bars[0]}, {bars[1]})' if bars else ''))
+        bad = [(k, c, r) for c, k, r in worst
+               if bars and (c < bars[0] or abs(r - 1) > bars[1])]
+        if bad:
+            raise AssertionError(f'{what}: the {got_r} gradients disagree '
+                                 f'with the {ref_r} route: {bad}')
+    del grads
+    train_counts = counts
+    t = [_time_ms(chunk(r), 3) for r in ('split', 'fused', 'fused', 'split')]
+    ms = {'split': statistics.median([t[0], t[3]]),
+          'fused': statistics.median([t[1], t[2]])}
+    times = {'eval': {'chunk': WIDE_CHUNK, 'turns_ms': t,
+                      **{f'{k}_ms': v for k, v in ms.items()},
+                      **{f'{k}_rays_s': WIDE_CHUNK / (v * 1e-3)
+                         for k, v in ms.items()}}}
+    print(f'{what} eval chunk of {WIDE_CHUNK} rays, device ms in turns: '
+          f'split {t[0]:.3f}, fused {t[1]:.3f}, fused {t[2]:.3f}, split '
+          f'{t[3]:.3f}: fused {times["eval"]["fused_rays_s"]:.1f} eval '
+          f'rays/s, split {times["eval"]["split_rays_s"]:.1f} ({gpu_line})')
+    del setup, state, batch, step
+    torch.cuda.empty_cache()
+    times['step'] = flagship_timing(
+        T, device, gpu_line, 'fused route against the split route',
+        {'fused': dict(seed=seed, **WIDE), 'split': dict(seed=seed, **WIDE)},
+        title='wide flagship step (8 x 512)',
+        route={'split': lambda: _split_route(FE)})
+    return train_counts, seed, times
+
+
 # encmlp_shapes phase (ROADMAP B.1): K1-K4 at static shapes past the
 # flagship's, each its own build (``fused_encmlp.kernel_shape``): name ->
 # (config overrides over the SURREAL recipe, under fuse_tform, K1/K3's
@@ -2015,7 +2217,11 @@ def single_timing(FE, T, device, gpu_line):
 # directions, framecodes of 8 (zero-padded to 16: the flagship's build),
 # six layers under fuse_tform, and surreal_single's one view row at its
 # own samples (``ENC_SINGLE``: K1/K3 at S = 96, viewfac, the coarse pass,
-# and 48, the fine pass)
+# and 48, the fine pass); then the shapes whose trunk input leaves shared
+# memory in some of K1-K4 (ROADMAP B.1.2): two 8 x 512 nets (viewfac on
+# K2/K4 with K-vf1/K-vf2 at a 256-wide views layer), the same under
+# fuse_tform, nine layers, eight kp bands, and the gate's corner, 16
+# layers of 512 at ten kp bands
 ENC_SHAPES = {
     'nb5': (dict(multires_views=2), False, None),
     'nb7': (dict(multires_views=3), False, None),
@@ -2027,6 +2233,12 @@ ENC_SHAPES = {
     'nf4_depth6_tf': (dict(multires=4, netdepth=6, netdepth_fine=6), True,
                       None),
     'nb1': (dict(multires_views=0), False, (96, 48)),
+    'w512': (dict(netwidth=512, netwidth_fine=512), False, None),
+    'w512_tf': (dict(netwidth=512, netwidth_fine=512), True, None),
+    'depth9': (dict(netdepth=9, netdepth_fine=9), False, None),
+    'nf8': (dict(multires=8), False, None),
+    'w512_depth16_nf10': (dict(netwidth=512, netwidth_fine=512, netdepth=16,
+                               netdepth_fine=16, multires=10), False, None),
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
@@ -2054,6 +2266,20 @@ def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512):
             _bwd_calls(FE, *ins[:8], g, nnet, rows), ins)
 
 
+# past the flagship's depth the encmlp_shapes phase holds K1-K4 to the
+# f64 chain (``_f64_twins``: the twins' chain in f64 from the same f32
+# inputs, the encode too) by ``_check_close_f64`` and ``_check_bwd_f64``,
+# as net_shapes holds K6 past DEEP_NET_LAYERS.  There no two f32
+# evaluations meet the flagship's bars: the kp bands' double-angle
+# recurrence (anerf_tpu's) doubles its f32 rounding with each band, the
+# kernels and the twins round it differently (nvcc fuses the
+# recurrence's multiply-adds), and a longer chain carries that further:
+# at 16 layers of 512 at ten bands K4 and the twin read cosine 0.99816
+# and 0.99782 against the f64 chain, 0.99858 against each other
+# (scripts/check_k6_f64.py --enc)
+DEEP_ENC_LAYERS = 8
+
+
 def _counted(FE, run, expect, name):
     """``run()`` with the launch counters zeroed before; every counter
     must read ``expect`` (the rest 0) after.  Returns the outputs."""
@@ -2069,32 +2295,21 @@ def _counted(FE, run, expect, name):
     return out
 
 
-def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
-    """K1-K4 at one shape on the card, at R = ENC_SHAPE_R and the train
-    step's 512-point tile (the gate's viewfac where it takes it), on
-    weights whose composited cotangent is not zero: K2/K4
-    at S = 64 and K1/K3 at S = 16 (``samples``: K1/K3 alone at each S
-    of it), each against its twin at the flagship's bars (``_check_close``,
-    ``_check_bwd`` on the composited cotangent), two calls bit-identical,
-    its launches counted exactly (K-vf1 before K2/K4 under viewfac,
-    K-vf2 after K4), timed (CUDA graph replays, ``_graph_ms``; back to
-    back as well) beside its twin and its bound (``kernel_cost``);
-    K-vf1/K-vf2 against their twins and timed (``viewfac_kernels``)
-    where the gate takes viewfac at a view row count other than the
-    flagship's (its own K-vf1/K-vf2 build).  Returns ({kernel name: {S:
-    row}}, the K-vf1/K-vf2 rows, the launches counted)."""
+def enc_shape_model(FE, T, name, over, samples, device):
+    """(cfg, rc, params, plan) of shape ``name``: the SURREAL recipe with
+    ``over`` in bf16, the plan of (S, nets) its checks run (K2/K4 at
+    S = 64 and K1/K3 at 16, or K1/K3 alone at each S of ``samples``),
+    and the weights of the first of NET_SEEDS whose random density gives
+    every net of the plan a composited cotangent on a quarter of the
+    points (else the backward checks would compare zeros)."""
     import torch
     from anerf_torch.interop import params_to
     from anerf_torch.models.factory import (build_raycast_config,
                                             init_raycaster_params)
     cfg = T.surreal_config(compute_dtype='bfloat16', **over)
     rc = build_raycast_config(cfg, n_framecodes=9)
-    suffix = '_tf' if tf else ''
     plan = ([(S, 1) for S in samples] if samples
             else [(64, 2), (16, 1)])
-    # the weights of the first of NET_SEEDS whose random density gives
-    # every net of the plan a composited cotangent on a quarter of the
-    # points (else the backward checks would compare zeros)
     for seed in NET_SEEDS:
         params = params_to(init_raycaster_params(
             torch.Generator().manual_seed(seed), rc, cfg), device)
@@ -2112,6 +2327,27 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
                              'net a cotangent on a quarter of the points')
     print(f'{name}: weights from seed {seed}, cotangents on '
           f'{min(shares):.1%} of the points or more')
+    return cfg, rc, params, plan
+
+
+def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
+    """K1-K4 at one shape on the card, at R = ENC_SHAPE_R and the train
+    step's 512-point tile (the gate's viewfac where it takes it), on
+    weights whose composited cotangent is not zero: K2/K4
+    at S = 64 and K1/K3 at S = 16 (``samples``: K1/K3 alone at each S
+    of it), each against its twin at the flagship's bars (``_check_close``,
+    ``_check_bwd`` on the composited cotangent), two calls bit-identical,
+    its launches counted exactly (K-vf1 before K2/K4 under viewfac,
+    K-vf2 after K4), timed (CUDA graph replays, ``_graph_ms``; back to
+    back as well) beside its twin and its bound (``kernel_cost``);
+    K-vf1/K-vf2 against their twins and timed (``viewfac_kernels``)
+    where the gate takes viewfac at a view row count other than the
+    flagship's (its own K-vf1/K-vf2 build).  Returns ({kernel name: {S:
+    row}}, the K-vf1/K-vf2 rows, the launches counted)."""
+    import torch
+    cfg, rc, params, plan = enc_shape_model(FE, T, name, over, samples,
+                                            device)
+    suffix = '_tf' if tf else ''
     rows, vf_rows, total = {}, [], {}
     for S, nnet in plan:
         (fwd, fwd_plain), (bwd, bwd_plain), ins = _enc_shape_calls(
@@ -2119,6 +2355,7 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
         st, est = ins[0], ins[1]
         key = FE.kernel_shape(st, est)
         vf = est.viewfac
+        deep = st.depth > DEEP_ENC_LAYERS
         fname = ('encmlp_fwd' if nnet == 1 else 'encmlp_dual_fwd') + suffix
         bname = ('encmlp_bwd' if nnet == 1 else 'encmlp_dual_bwd') + suffix
         n = ENC_SHAPE_R * S
@@ -2126,13 +2363,25 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
                  f'{" viewfac" if vf else ""}')
         print(f'{fname} {label}:')
         got = _counted(FE, fwd, {fname: 1, 'vf_operand': int(vf)}, fname)
-        max_abs = _check_close(fname, fwd_plain(), got)
+        if deep:
+            with _f64_twins(FE):
+                ref = fwd_plain()
+            max_abs = _check_close_f64(fname, ref, got, fwd_plain())
+            del ref
+        else:
+            max_abs = _check_close(fname, fwd_plain(), got)
         _check_deterministic(fname, _named(got), _named(fwd()))
         del got
         print(f'{bname} {label}:')
         got = _counted(FE, bwd, {bname: 1, 'vf_operand': int(vf),
                                  'vf_fold': int(vf)}, bname)
-        max_abs_b = _check_bwd(bname, bwd_plain(), got)
+        if deep:
+            with _f64_twins(FE):
+                ref = bwd_plain()
+            max_abs_b = _check_bwd_f64(bname, ref, got, bwd_plain())
+            del ref
+        else:
+            max_abs_b = _check_bwd(bname, bwd_plain(), got)
         _check_deterministic(bname, got, bwd())
         del got
         for k, cnt in ((fname, 1), (bname, 1), ('vf_operand', 2 * vf),
@@ -2154,14 +2403,19 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
                 _time_ms(plain, 1, windows=3) if bw else _time_ms(plain, 2),
                 err, peaks, label)
             row.update(shape=dict(zip(('kp_bands', 'view_rows',
-                                       'bone_window', 'depth'), key)),
+                                       'bone_window', 'depth', 'width'),
+                                      key)),
                        points=n, viewfac=vf,
                        wrapper_ms=_time_ms(run, 5 if bw else 10))
+            if bw:   # the backward's passes, from one profiled call
+                row['passes_ms'] = pass_times(
+                    kname[:-3] if tf else kname, run, label,
+                    FE.fused_mlp.dw_cost(st, n, nnet), peaks)
             print(f'  {kname} {label}: {row["wrapper_ms"]:.3f} ms a call '
                   'back to back')
             rows.setdefault(kname, {})[S] = row
-        if vf and est.view_nb != FE.cuda_build.FLAGSHIP_ENC[1]:
-            # K-vf1/K-vf2 at a view row count of their own build
+        if vf and (est.view_nb, st.half) != FE.cuda_build.FLAGSHIP_VF:
+            # K-vf1/K-vf2 at a view row count or width of their own build
             wvx = FE._wvx(st, ins[7])
             vf_rows = viewfac_kernels(FE, est, ins[3], wvx[:nnet], peaks,
                                       device, ENC_SHAPE_R)
@@ -2458,8 +2712,9 @@ NET_SHAPES = ((6, 256), (8, 128), (10, 256), (8, 512), (4, 128), (8, 384),
               (8, 1024), (6, 768), (32, 256))
 # the weights of each shape come from the first of these seeds whose
 # random density makes K6's composited cotangent reach a quarter of the
-# points (else the check would compare zeros)
-NET_SEEDS = tuple(range(1, 9))
+# points (else the check would compare zeros); the encmlp_shapes phase
+# takes them so for K1-K4 (nine layers find theirs at seed 12)
+NET_SEEDS = tuple(range(1, 17))
 NET_STEPS = 2           # train steps at each shape
 # past this depth (K6's compensated sums, mlp_bwd_common.cuh DEEP_NET)
 # the bf16 chain of a net is itself ill-conditioned at the train step's
@@ -2496,30 +2751,86 @@ def _net_model(FM, T, device, depth, width):
                          'cotangent on a quarter of the points')
 
 
-def _check_bwd_f64(FM, st, xs, xvs, flat, g, got, twin):
-    """K6's outputs against an f64 evaluation of the twin's chain
-    (scripts/check_k6_f64.py's): each at 1 - cosine within max(1 -
-    BWD_COS_MIN, DEEP_F64_RATIO x the twin's own 1 - cosine to it).
-    Returns max |d| against the twin."""
+def _f64_chain(FM, fn):
+    """``fn()`` with ``fused_mlp``'s products in float64 on the same
+    bf16-rounded operands (scripts/check_k6_f64.py's): a twin's chain
+    evaluated in f64."""
     from scripts.check_k6_f64 import _f64_products
     with _f64_products(FM):
-        dxs, dxvs, grads = FM._mlp_bwd_tile(st, xs, xvs, flat, g)
-    ref = ([(f'dx{i}', x) for i, x in enumerate(dxs)]
-           + [(f'dxv{i}', x) for i, x in enumerate(dxvs)]
-           + [(f'g{i}', x) for i, x in enumerate(grads)])
+        return fn()
+
+
+def _check_bwd_f64(name, ref, got, twin):
+    """A deep net's backward outputs ``got`` against ``ref``, an f64
+    evaluation of the twin's chain (``_f64_chain``): each at 1 - cosine
+    within max(1 - BWD_COS_MIN, DEEP_F64_RATIO x the twin's own 1 -
+    cosine to it).  Returns max |d| against the twin."""
+    import torch
     rows, max_abs = [], 0.
     for (k, r), (_, a), (_, t) in zip(ref, got, twin):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f'{name}: non-finite {k}')
         ck, ct = _cmp(r, a)[0], _cmp(r, t)[0]
         max_abs = max(max_abs, _cmp(t, a)[3])
         bar = 1. - max(1. - BWD_COS_MIN, DEEP_F64_RATIO * (1. - ct))
         rows.append((ck - bar, k, ck, ct))
         if ck < bar:
-            raise AssertionError(f'mlp_bwd {k}: cos {ck:.7f} against the '
+            raise AssertionError(f'{name} {k}: cos {ck:.7f} against the '
                                  f'f64 chain, the twin {ct:.7f}')
     rows.sort()
-    print('  mlp_bwd against the f64 chain, closest to the bar: ' + ', '.join(
-        f'{k} K6 {ck:.7f} twin {ct:.7f}' for _, k, ck, ct in rows[:4]))
+    print(f'  {name} against the f64 chain, closest to the bar: '
+          + ', '.join(f'{k} kernel {ck:.7f} twin {ct:.7f}'
+                      for _, k, ck, ct in rows[:4]))
     return max_abs
+
+
+def _check_close_f64(name, ref, got, twin):
+    """A deep net's raw rows ``got`` against ``ref``, the f64 chain
+    (``_f64_twins``): the worst channel's max and mean |d| / scale within
+    the flagship's bars or DEEP_F64_RATIO x the twin's own, whichever is
+    wider.  Returns max |d| against the twin."""
+    import torch
+    worst = {}
+    for who, rows in (('kernel', got), ('twin', twin)):
+        errs = [e for r, x in zip(ref, rows) for e in _rel_err(r, x)]
+        worst[who] = (max(e[0] for e in errs), max(e[1] for e in errs))
+    max_tol = max(RAW_MAX_TOL, DEEP_F64_RATIO * worst['twin'][0])
+    mean_tol = max(RAW_MEAN_TOL, DEEP_F64_RATIO * worst['twin'][1])
+    print(f'  {name} against the f64 chain: kernel max|d|/scale '
+          f'{worst["kernel"][0]:.3e} mean {worst["kernel"][1]:.3e}, twin '
+          f'{worst["twin"][0]:.3e} and {worst["twin"][1]:.3e}; bars '
+          f'{max_tol:.3e}, {mean_tol:.3e}')
+    for g in got:
+        if not torch.isfinite(g).all():
+            raise AssertionError(f'{name}: non-finite kernel output')
+    if worst['kernel'][0] > max_tol or worst['kernel'][1] > mean_tol:
+        raise AssertionError(f'{name} disagrees with the f64 chain')
+    return max((t - g).abs().max().item() for t, g in zip(twin, got))
+
+
+def _f64_twins(FE):
+    """K1-K4's twins (``FE.encmlp_*_plain``) as the f64 chain for the
+    ``with`` block: every f32 tensor argument in f64 (the encode runs in
+    f64 too) and ``fused_mlp``'s products in f64 on the same bf16-rounded
+    operands (``_f64_chain``), the outputs back in f32."""
+    import torch
+
+    def up(a):
+        return (a.double() if torch.is_tensor(a) and a.dtype == torch.float32
+                else a)
+
+    def down(a):
+        if isinstance(a, (list, tuple)):
+            return type(a)(down(x) for x in a)
+        return (a.float() if torch.is_tensor(a) and a.dtype == torch.float64
+                else a)
+
+    def wrap(plain):
+        return lambda *a: down(_f64_chain(
+            FE.fused_mlp, lambda: plain(*[up(x) for x in a])))
+    return _Wrapped(FE, **{k: wrap for k in (
+        'encmlp_fwd_plain', 'encmlp_dual_fwd_plain', 'encmlp_bwd_plain',
+        'encmlp_dual_bwd_plain')})
 
 
 def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
@@ -2565,7 +2876,10 @@ def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
         run, plain = _split_calls(FM, st, xs, xvs, flat, g)
         print(f'mlp_bwd {key} R=2048 S=64:')
         if depth > DEEP_NET_LAYERS:
-            max_abs = _check_bwd_f64(FM, st, xs, xvs, flat, g, run(), plain())
+            from scripts.check_k6_f64 import _named as named
+            ref = named(*_f64_chain(FM, lambda: FM._mlp_bwd_tile(
+                st, xs, xvs, flat, g)))
+            max_abs = _check_bwd_f64('mlp_bwd', ref, run(), plain())
         else:
             max_abs = _check_bwd('mlp_bwd', plain(), run())
         bwd = _timed_row(
@@ -2608,11 +2922,17 @@ def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
 def cli_net_width_phase(FE, device, gpu_line):
     """``configs/mixamo.txt`` at ``netwidth = NET_CLI_WIDTH`` and
     ``mlp_backend = 'pallas'`` through ``run_train.train`` on a
-    synthetic store: ``NET_CLI_STEPS`` steps, K5 and K6 three times a
-    step (K1-K4 are built for 256 wide nets) and K1-K4 never, finite
-    losses.  Returns the launch counts."""
+    synthetic store: ``NET_CLI_STEPS`` steps, each launching K1-K4 as
+    ``FLAGSHIP_STEP`` counts them (K1-K4 are built for 512-wide nets
+    since ROADMAP B.1.2; K-vf1/K-vf2 at the 256-wide views layer) and
+    K5/K6 never, finite losses; then one bullet frame of its checkpoint
+    through ``run_render.main`` (K1 and K2 once a chunk, nothing else,
+    finite frames).  Returns the launch counts of the train steps."""
+    import numpy as np
     import torch
+    from anerf_torch import run_render as RR
     from anerf_torch.data.writer import make_synthetic_store
+    from anerf_torch.render.renderer import ImageRenderer
     from anerf_torch.run_train import train
     store = make_synthetic_store(os.path.join(WORK, 'wide.npstore'),
                                  n_frames=8, H=256, W=256, body_scale=450.0,
@@ -2621,7 +2941,8 @@ def cli_net_width_phase(FE, device, gpu_line):
                        netwidth_fine=NET_CLI_WIDTH, mlp_backend='pallas',
                        dataset_type=('synthetic',), datadir=store,
                        basedir=os.path.join(WORK, 'logs'), expname='wide',
-                       n_iters=NET_CLI_STEPS, num_workers=4)
+                       n_iters=NET_CLI_STEPS, num_workers=4,
+                       i_weights=NET_CLI_STEPS)
     rec = {'losses': []}
 
     def on_step(i, state, stats):
@@ -2641,13 +2962,42 @@ def cli_net_width_phase(FE, device, gpu_line):
           f'views layer {tuple(rec["views"])}, launches {counts}, '
           f'total_loss {losses.tolist()} ({gpu_line})')
     expect = {k: 0 for k in counts}
-    expect.update(mlp_fwd=3 * NET_CLI_STEPS, mlp_bwd=3 * NET_CLI_STEPS)
+    expect.update({k: NET_CLI_STEPS * n for k, n in FLAGSHIP_STEP.items()})
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if rec['views'][1] != NET_CLI_WIDTH // 2:
         raise AssertionError(f'views layer {rec["views"]}: not the wide net')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
+    logdir = os.path.join(WORK, 'logs', 'wide')
+    chunks = [0]
+
+    def count_chunks(fn):
+        def run(*args):
+            chunks[0] += 1
+            return fn(*args)
+        return run
+    FE.reset_launch_counts()
+    with _Wrapped(ImageRenderer, _render_chunk=count_chunks):
+        out = RR.main(['--nerf_args', os.path.join(logdir, 'args.txt'),
+                       '--ckptpath', os.path.join(
+                           logdir, f'ckpt_{NET_CLI_STEPS:08d}.pt'),
+                       '--outputdir', os.path.join(WORK, 'render_wide'),
+                       '--render_type', 'bullet', '--n_bullet', '1',
+                       '--runname', 'wide'], device=device)
+    torch.cuda.synchronize()
+    rcounts = FE.launch_counts()
+    print(f'cli_net_width render: {len(out["rgbs"])} bullet frame '
+          f'{out["rgbs"].shape[1]}x{out["rgbs"].shape[2]} through '
+          f'run_render.main, {chunks[0]} chunks, launches {rcounts}')
+    expect = {k: 0 for k in rcounts}
+    expect.update(encmlp_fwd=chunks[0], encmlp_dual_fwd=chunks[0])
+    if rcounts != expect or not chunks[0] or len(out['rgbs']) != 1:
+        raise AssertionError(f'cli_net_width render: launches {rcounts} '
+                             f'for {chunks[0]} chunks')
+    for k in ('rgbs', 'accs', 'disps'):
+        if not np.isfinite(out[k]).all():
+            raise AssertionError(f'cli_net_width render: non-finite {k}')
     return counts
 
 
@@ -3550,10 +3900,15 @@ class _Wrapped:
             setattr(self.obj, name, fn)
 
 
-def _kernel_twins(FE):
-    """K1 and K2 replaced by their plain twins, on the card's tensors."""
-    return _Wrapped(FE, _fwd=lambda _: FE.encmlp_fwd_plain,
-                    _dual_fwd=lambda _: FE.encmlp_dual_fwd_plain)
+def _kernel_twins(FE, backward=False):
+    """K1 and K2 (and with ``backward`` K3 and K4) replaced by their plain
+    twins, on the card's tensors."""
+    twins = dict(_fwd=lambda _: FE.encmlp_fwd_plain,
+                 _dual_fwd=lambda _: FE.encmlp_dual_fwd_plain)
+    if backward:
+        twins.update(encmlp_bwd=lambda _: FE.encmlp_bwd_plain,
+                     encmlp_dual_bwd=lambda _: FE.encmlp_dual_bwd_plain)
+    return _Wrapped(FE, **twins)
 
 
 def _clocked(times, name):
@@ -4529,7 +4884,8 @@ def _shape_entry(row, shape, paths, shape_counts, name):
     row, else that shape's calls in the phase)."""
     entry = {f: row[f] for f in (
         'ms', 'wrapper_ms', 'plain_ms', 'bound_ms', 'bound_by',
-        'max_abs_err', 'library_ms', 'shape', 'points', 'viewfac', 'label')
+        'max_abs_err', 'library_ms', 'shape', 'points', 'viewfac', 'label',
+        'passes_ms')
         if f in row}
     if shape == ENC_SINGLE:
         return dict(entry, launches=paths['single_train'][name],
@@ -4648,6 +5004,13 @@ def main() -> int:
     clock.mark('single_bundled')
     single_times = single_timing(FE, T, device, gpu_line)
     clock.mark('single_timing')
+    paths['wide_train'], wide_seed, wide_times = wide_flagship_phase(
+        FE, T, device, gpu_line)
+    clock.mark('wide_flagship')
+    paths['wide_bundled'] = bundled_phase(
+        FE, T, device, gpu_line, 'wide_bundled', BUNDLE_K1_K4,
+        seed=wide_seed, **WIDE)
+    clock.mark('wide_bundled')
     paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
         FE, T, device, gpu_line)
@@ -4747,6 +5110,8 @@ def main() -> int:
             row['enc_shapes'] = enc
         if name in SINGLE_STEP:
             row['surreal_single_times'] = single_times
+        if name in FLAGSHIP_STEP:
+            row['wide_flagship_times'] = wide_times
         row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

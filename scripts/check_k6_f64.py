@@ -20,6 +20,20 @@ reaches and, for every output, the cosine and the worst |d| / max |ref|
 of K6 and of the twin against the reference, worst outputs first.
 On ``--device cpu`` the twin stands in for K6 (a rehearsal).  Exits
 non-zero when K6 fails to build or launch.
+
+    python3 scripts/check_k6_f64.py --enc [SHAPE ...]
+
+holds K1-K4 and their twins to the f64 chain instead (the twins'
+chain evaluated in f64 from the same f32 inputs, the encode too:
+``chip_smoke._f64_twins``), at the encode shapes of
+``chip_smoke.ENC_SHAPES`` (default: those deeper than
+``chip_smoke.DEEP_ENC_LAYERS``, and ``w512``), each run as
+``chip_smoke.enc_shape_check`` runs it (its weights, K2/K4 at R=2048 x
+S=64 and K1/K3 at S=16, K3/K4 on the composited cotangent): for the
+forward each raw channel's worst and mean |d| / scale of the kernel and
+of the twin against the chain, for the backward the outputs nearest
+``chip_smoke._check_bwd_f64``'s bar (the kernel's and the twin's cosine
+to the chain, the kernel's to the twin), then the worst of each.
 """
 import argparse
 import contextlib
@@ -55,13 +69,18 @@ def main(argv) -> int:
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--seed', type=int, default=4)
     ap.add_argument('--width', type=int, nargs='+', default=[1152])
+    ap.add_argument('--enc', nargs='*', default=None, metavar='SHAPE')
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as C
     from anerf_torch import testing_utils as T
-    from anerf_torch.ops import cuda_build, fused_mlp as FM
+    from anerf_torch.ops import cuda_build, fused_encmlp as FE
+    from anerf_torch.ops import fused_mlp as FM
     device = torch.device(args.device)
+    shapes = args.enc or [n for n, (over, _, _) in C.ENC_SHAPES.items()
+                          if over.get('netdepth', 8) > C.DEEP_ENC_LAYERS
+                          or n == 'w512']
     if device.type == 'cuda':
         if not torch.cuda.is_available():
             print('no CUDA device', file=sys.stderr)
@@ -70,10 +89,61 @@ def main(argv) -> int:
                               '--format=csv,noheader'], capture_output=True,
                              text=True, timeout=60).stdout.strip())
         torch.backends.cuda.matmul.allow_tf32 = False
-        cuda_build.build_kernels(trunk_widths=args.width)
+        if args.enc is not None:
+            FE.build_kernels(enc_shapes=[C.enc_shape_key(
+                FE, T, C.ENC_SHAPES[n][0]) for n in shapes])
+        else:
+            cuda_build.build_kernels(trunk_widths=args.width)
+    if args.enc is not None:
+        for name in shapes:
+            check_enc(C, T, FE, device, name)
+        return 0
     for width in args.width:
         check(C, T, FM, device, width, args.seed)
     return 0
+
+
+def check_enc(C, T, FE, device, name):
+    """K1-K4 and their twins at encode shape ``name`` against the f64
+    chain, the encode in f64 too (``chip_smoke._f64_twins``; ``--enc``)."""
+    import torch
+    over, tf, samples = C.ENC_SHAPES[name]
+    cfg, rc, params, plan = C.enc_shape_model(FE, T, name, over, samples,
+                                              device)
+    for S, nnet in plan:
+        (fwd, fplain), (bwd, bplain), _ = C._enc_shape_calls(
+            FE, T, rc, cfg, params, S, nnet, device, tf)
+        if device.type == 'cpu':     # the twins stand in for the kernels
+            fwd, bwd = fplain, bplain
+        k, t = fwd(), fplain()
+        with C._f64_twins(FE):
+            d = fplain()
+        for net in range(nnet):
+            for who, x in (('kernel', k[net]), ('twin', t[net])):
+                print(f'{name} S={S} fwd net{net} {who} vs f64: ' + ', '.join(
+                    f'ch{c} max {a:.2e} mean {b:.2e}' for c, (a, b)
+                    in enumerate(C._rel_err(d[net].float(), x.float()))))
+        del k, t, d
+        kb, tb = bwd(), bplain()
+        with C._f64_twins(FE):
+            db = bplain()
+        rows = []
+        for (k, a), (_, b), (_, r) in zip(kb, tb, db):
+            ck, ct, kt = C._cmp(r, a)[0], C._cmp(r, b)[0], C._cmp(b, a)[0]
+            bar = 1. - max(1. - C.BWD_COS_MIN, C.DEEP_F64_RATIO * (1. - ct))
+            rows.append((ck - bar, k, ck, ct, kt))
+        rows.sort()
+        for _, k, ck, ct, kt in rows[:6]:
+            print(f'{name} S={S} bwd {k}: kernel~f64 {ck:.7f} twin~f64 '
+                  f'{ct:.7f} kernel~twin {kt:.7f}')
+        print(f'{name} S={S} bwd worst: kernel~f64 '
+              f'{min(r[2] for r in rows):.7f} twin~f64 '
+              f'{min(r[3] for r in rows):.7f} kernel~twin '
+              f'{min(r[4] for r in rows):.7f}; nearest the bar by '
+              f'{rows[0][0]:+.2e}', flush=True)
+        del kb, tb, db
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
 
 
 def check(C, T, FM, device, width, seed):

@@ -7,29 +7,36 @@ their twins' bars, timed in turns, on one GPU.
 
 BASE_CSRC_DIR holds another version of ``anerf_torch/csrc`` (for
 instance a parent commit's, unpacked with ``git archive`` into an
-ignored directory).  Its four libraries are built with nvcc beside the
-tree's, at the flagship's trunk width; then each kernel runs on
+ignored directory).  Its libraries are built with nvcc beside the
+tree's, at the flagship's trunk width, and, with ``--shapes``, K1-K4's
+(and K-vf1/K-vf2's at their view rows) at each named encode shape of
+``chip_smoke.ENC_SHAPES`` as well; then each kernel runs on
 ``chip_smoke.py``'s inputs (K1/K2 at R=4096 with S=16/64, K3/K4 at the
 train step's R=2048 with their composited cotangents, K5/K6 on the
-two-subject model at n=131,072 and a ragged 4104 points) once with the
-base's libraries and once with the tree's, and every output must be
-bit-identical.  K-vf1 and K-vf2 (``viewfac.cu``), whose sums may run
-in another order from build to build, run on the view rows of the
-train step (R=2048, and the first 1999 of them) with Gram matrices
-drawn from seed 0: the tree's against the twins (M at
-``chip_smoke.vf_m_check``'s bar, dWvx and denc at cosine > 0.9999 and
-norm ratio within 5e-3, ``chip_smoke._check_bwd``) and against the
-base's at the same bars, and both builds timed at R=2048 in turns
-(base, tree, tree, base; 20 calls replayed from a CUDA graph, the
-outputs' allocations included: ``chip_smoke._graph_ms``).  Prints the
-card's name and power limit and each output that differs; exits
-non-zero if any does or a bar fails.  A base from before the view factorization and
-the WIDE nets (no viewfac pointers in K1-K4's C interfaces, no
-workspace in K5's), or from before the in-kernel rigid transform (no
-affine-rows pointer in K1-K4's), is called through shims that drop
-those arguments; the inputs keep K1-K4 on the dense views input and on
-points, which every build takes.
+two-subject model at n=131,072 and a ragged 4104 points; at each named
+shape K1-K4 as ``chip_smoke.enc_shape_check`` runs them, at R=2048)
+once with the base's libraries and once with the tree's, and every
+output must be bit-identical.  K-vf1 and K-vf2 (``viewfac.cu``) run on
+the view rows of the train step (R=2048, and the first 1999 of them)
+with Gram matrices drawn from seed 0: the tree's against the twins (M
+at ``chip_smoke.vf_m_check``'s bar, dWvx and denc at cosine > 0.9999
+and norm ratio within 5e-3, ``chip_smoke._check_bwd``) and against the
+base's, bit-identical where the base's build states its view rows
+(``viewfac_rows``; before that its sums may run in another order), else
+at the same bars, and both builds timed at R=2048 in turns (base, tree, tree,
+base; 20 calls replayed from a CUDA graph, the outputs' allocations
+included: ``chip_smoke._graph_ms``).  Prints the card's name and power
+limit and each output that differs; exits non-zero if any does or a bar
+fails.  A base from before the view factorization and the WIDE nets (no
+viewfac pointers in K1-K4's C interfaces, no workspace in K5's), from
+before the in-kernel rigid transform (no affine-rows pointer in
+K1-K4's) or from before K1/K2's trunk-input workspace (no pointer for
+it) is called through shims that drop those arguments; the inputs keep
+K1-K4 on the dense views input and on points, which every build takes.
+
+    python3 scripts/compare_builds.py BASE_CSRC_DIR --shapes nb1 nb5 ...
 """
+import argparse
 import ctypes
 import os
 import subprocess
@@ -44,24 +51,28 @@ SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
 BASE_VF_SLICE = 64
 
 
-def build_base(csrc, out_dir):
-    """{library: loaded CDLL} of the sources in ``csrc``, one nvcc per
-    source, all started together."""
+def build_base(csrc, out_dir, keys):
+    """{key: loaded CDLL} of the sources in ``csrc`` at each
+    ``cuda_build.lib_key`` of ``keys`` (with the flags the tree's build
+    of that key takes), one nvcc per library, all started together."""
     from anerf_torch.ops import cuda_build
     procs = {}
-    for which, name in SOURCES.items():
-        so = os.path.join(out_dir, f'base_{which}.so')
+    for key in keys:
+        which = key[0]
+        so = os.path.join(out_dir, f'base_{cuda_build._tag(key)}.so')
         cmd = [cuda_build._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
                '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o',
-               so, os.path.join(csrc, name)]
-        procs[which] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
+               so, os.path.join(csrc, SOURCES[which])]
+        cmd[1:1] = cuda_build._shape_flags(key)
+        procs[key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
     libs = {}
-    for which, (so, proc) in procs.items():
+    for key, (so, proc) in procs.items():
+        which = key[0]
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f'base {which} failed to build:\n{log}')
+            raise RuntimeError(f'base {key} failed to build:\n{log}')
         lib = ctypes.CDLL(so)
         if which.startswith('mlp') and not hasattr(lib, 'mlp_trunk_width'):
             # a build from before K5/K6 took other trunk widths
@@ -76,11 +87,13 @@ def build_base(csrc, out_dir):
             lib.viewfac_m.restype = lib.viewfac_fold.restype = ci
         elif which in ('fwd', 'bwd') and 'tfab' not in text:
             lib = _Shim(lib, which, has_vf='vfM' in text)
+        elif which == 'fwd' and 'xwork' not in text:
+            lib = _Shim(lib, which, has_vf=True, has_tf=True)
         elif which == 'mlp_fwd' and 'workspace' not in text:
             lib = _Shim(lib, which)
         else:
             cuda_build._bind(lib, which)
-        libs[which] = lib
+        libs[key] = lib
     return libs
 
 
@@ -88,10 +101,11 @@ class _Shim:
     """A base library with an older C interface, called as the tree's
     wrappers call the tree's: the arguments the base does not take are
     dropped (they are null or unused on the dense path).  K1-K4: a base
-    without the affine-rows pointer and, unless ``has_vf``, without
-    viewfac's pointers."""
+    without K1/K2's trunk-input workspace, unless ``has_tf`` without the
+    affine-rows pointer, and unless ``has_vf`` without viewfac's
+    pointers."""
 
-    def __init__(self, lib, which, has_vf=False):
+    def __init__(self, lib, which, has_vf=False, has_tf=False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self._lib = lib
 
@@ -101,11 +115,13 @@ class _Shim:
             setattr(self, name, lambda *a: f(*[x for i, x in enumerate(a)
                                                  if i not in drop]))
         if which == 'fwd':
-            drop = {8} if has_vf else {7, 8}
+            drop = {9} | (set() if has_tf else {8}) | (
+                set() if has_vf else {7})
             for name in ('encmlp_fwd', 'encmlp_dual_fwd'):
-                fn(name, [vp] * (10 - len(drop)) + [ci] * 3 + [vp], ci, drop)
+                fn(name, [vp] * (11 - len(drop)) + [ci] * 3 + [vp], ci, drop)
             fn('encmlp_weight_elems', [], cll, ())
             fn('encmlp_bias_elems', [], ci, ())
+            self.encmlp_fwd_workspace_bytes = lambda n: 0
         elif which == 'bwd':
             drop = {18} if has_vf else {16, 17, 18}
             for name in ('encmlp_bwd', 'encmlp_dual_bwd'):
@@ -164,8 +180,9 @@ def _vf_calls(lib, est, enc, wvx, gw):
 
 def compare_viewfac(C, FE, T, rc, cfg, params, base, tree, dev) -> int:
     """K-vf1/K-vf2 of the base and the tree at R=2048 and 1999: each
-    against the twins and the other build at the twins' bars, then timed
-    in turns at R=2048.  Returns the number of failed checks."""
+    against the twins and the other build at the twins' bars (and bit for
+    bit where the base states its views width), then timed in turns at
+    R=2048.  Returns the number of failed checks."""
     import torch
     ins = C.kernel_inputs(FE, T, rc, cfg, params, 64, 2048, dev, tile=512)
     est, enc_all, wvx = ins[1], ins[3], FE._wvx(ins[0], ins[7])
@@ -181,6 +198,14 @@ def compare_viewfac(C, FE, T, rc, cfg, params, base, tree, dev) -> int:
         outs = {k: [f() for f in _vf_calls(lib, est, enc, wvx, gw)]
                 for k, lib in (('base', base), ('tree', tree))}
         torch.cuda.synchronize()
+        if hasattr(base, 'viewfac_rows'):
+            bad = [k for (k, a), (_, b) in zip(
+                outs['base'][0] + outs['base'][1],
+                outs['tree'][0] + outs['tree'][1]) if not torch.equal(a, b)]
+            print(f'R={R} K-vf1/K-vf2: ' + (
+                f'FAILED {bad} differ from the base build' if bad else
+                'M, dWvx, denc bit-identical to the base build'))
+            failed += len(bad)
         for which, ref in (('twin', twin), ('base', outs['base'])):
             for kernel, a, b in zip(('K-vf1', 'K-vf2'), ref, outs['tree']):
                 what = f'R={R} {kernel}: tree against {which}'
@@ -213,7 +238,12 @@ def compare_viewfac(C, FE, T, rc, cfg, params, base, tree, dev) -> int:
     return failed
 
 
-def main(base_csrc) -> int:
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument('base_csrc')
+    ap.add_argument('--shapes', nargs='*', default=[],
+                    help='chip_smoke.ENC_SHAPES names to compare K1-K4 at')
+    args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as C
@@ -231,13 +261,20 @@ def main(base_csrc) -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_build.build_kernels()
-    tree = {cuda_build.lib_key(w): cuda_build._LIBS[cuda_build.lib_key(w)]
-            for w in SOURCES}
+    enc = {name: C.enc_shape_key(FE, T, C.ENC_SHAPES[name][0])
+           for name in args.shapes}
+    cuda_build.build_kernels(enc_shapes=enc.values())
+    keys = [cuda_build.lib_key(w) for w in SOURCES]
+    for shape in enc.values():
+        keys += [cuda_build.lib_key(w, enc=shape) for w in ('fwd', 'bwd')]
+        keys.append(cuda_build.lib_key('viewfac', enc=(shape[1],
+                                                       shape[4] // 2)))
+    keys = list(dict.fromkeys(keys))
+    tree = {k: cuda_build._LIBS[k] for k in keys}
     vf_key = cuda_build.lib_key('viewfac')
-    base = {cuda_build.lib_key(w): lib for w, lib in build_base(
-        os.path.join(ROOT, base_csrc), tempfile.mkdtemp(dir=os.path.join(
-            ROOT, 'anerf_torch', '_build'))).items()}
+    os.makedirs(os.path.join(ROOT, 'anerf_torch', '_build'), exist_ok=True)
+    base = build_base(os.path.join(ROOT, args.base_csrc), tempfile.mkdtemp(
+        dir=os.path.join(ROOT, 'anerf_torch', '_build')), keys)
     dev = torch.device('cuda')
     cfg = T.surreal_config(compute_dtype='bfloat16')
     rc = build_raycast_config(cfg, n_framecodes=9)
@@ -267,6 +304,16 @@ def main(base_csrc) -> int:
         g = C._split_cotangent(FM, st, xs, xvs, flat, S, dev)
         runs[f'mlp_bwd n={R * S}'] = C._split_calls(FM, st, xs, xvs, flat,
                                                     g)[0]
+    for name, shape in enc.items():
+        over, tf, samples = C.ENC_SHAPES[name]
+        cfg_s, rc_s, params_s, plan = C.enc_shape_model(FE, T, name, over,
+                                                        samples, dev)
+        for S, nnet in plan:
+            (fwd, _), (bwd, _), _ = C._enc_shape_calls(
+                FE, T, rc_s, cfg_s, params_s, S, nnet, dev, tf)
+            runs[f'{name} {shape} K{nnet} S={S}'] = \
+                lambda fwd=fwd: C._named(fwd())
+            runs[f'{name} {shape} K{nnet + 2} S={S}'] = bwd
     differ = 0
     for name, run in runs.items():
         cuda_build._LIBS.update(base)
@@ -286,4 +333,4 @@ def main(base_csrc) -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1:]))

@@ -23,7 +23,8 @@ CSRC = os.path.join(ROOT, 'anerf_torch', 'csrc')
 
 # what each source must define for its ctypes binding (ops/cuda_build.py)
 EXPORTS = {
-    'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd', 'encmlp_shape'),
+    'encmlp_fwd.cu': ('encmlp_fwd', 'encmlp_dual_fwd', 'encmlp_shape',
+                      'encmlp_fwd_workspace_bytes'),
     'encmlp_bwd.cu': ('encmlp_bwd', 'encmlp_dual_bwd',
                       'encmlp_bwd_workspace_bytes', 'encmlp_shape'),
     'viewfac.cu': ('viewfac_m', 'viewfac_fold', 'viewfac_width',
@@ -70,6 +71,7 @@ __device__ float __shfl_xor_sync(unsigned, float, int);
 __device__ float __ldg(const float*);
 __device__ unsigned __ldg(const unsigned*);
 __device__ uint4 __ldg(const uint4*);
+__device__ uint4 __ldcg(const uint4*);
 __device__ float4 __ldg(const float4*);
 __device__ size_t __cvta_generic_to_shared(const void*);
 __device__ float sqrtf(float);
@@ -217,35 +219,44 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
 
 
 # K1-K4 (encmlp_fwd.cu, encmlp_bwd.cu) and K-vf1/K-vf2 (viewfac.cu) per
-# encode shape (nvcc -DANERF_NF, -DANERF_NB, -DANERF_BONE_WIN, -DANERF_DX
-# and -DANERF_DEPTH; cuda_build._shape_flags): one shape for each value
-# of each axis fused_encmlp.kernel_shape admits, the others at the
-# flagship's (kp bands 1-7, view rows 1-9, depths 1-8 (1-5 without a
-# skip layer), the bone window), and the extremes together
+# encode shape (nvcc -DANERF_NF, -DANERF_NB, -DANERF_BONE_WIN, -DANERF_DX,
+# -DANERF_DEPTH and -DANERF_WIDTH; cuda_build._shape_flags): one shape for
+# each value of each axis fused_encmlp.kernel_shape admitted at first
+# (kp bands 1-7, view rows 1-9, depths 1-8 (1-5 without a skip layer),
+# the bone window), the extremes together, and the shapes whose trunk
+# input leaves shared memory in some of the four kernels (ROADMAP
+# B.1.2): 8 x 512, nine and 16 layers, eight and ten kp bands, and the
+# corner, 16 layers of 512 at ten bands
 ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(nb=b) for b in (1, 3, 5, 7)]
               + [dict(depth=d) for d in range(1, 8)]
               + [dict(bw=1), dict(nf=7, nb=9, bw=1, depth=8),
-                 dict(nf=1, nb=1, bw=1, depth=1)])
+                 dict(nf=1, nb=1, bw=1, depth=1)]
+              + [dict(width=512), dict(depth=9), dict(depth=16),
+                 dict(nf=8), dict(nf=10),
+                 dict(nf=10, depth=16, width=512),
+                 dict(nf=1, nb=1, depth=1, width=512)])
 # the first value each axis refuses, the source that refuses it and the
-# message of the static_assert it fails (ROADMAP B.1.2): 11 view rows
-# (K1/K2's shared memory; viewfac's 32-column k-pair), 8 kp bands (K3/K4's
-# shared memory), 9 layers (K3/K4's), 512 wide (K1-K4's trunk residency,
-# viewfac's 128-wide views layer)
+# message of the static_assert it fails (ROADMAP B.1.3): 11 view rows
+# (viewfac's 32-column k-pair), 768 wide (no WIDE body in K1-K4; viewfac's
+# views layer), framecodes of 32 (the codes' k-slice of viewfac in
+# K1-K4); and where K1/K2's shared memory ends for the views input
+# (15 view rows at 256 wide, the trunk input out of it)
 ENC_REFUSED = [
-    (dict(nb=11), 'encmlp_fwd.cu', 'a block takes at most 227 KB'),
+    (dict(nb=15), 'encmlp_fwd.cu', 'a block takes at most 227 KB'),
     (dict(nb=11), 'viewfac.cu', 'whole joint groups'),
-    (dict(nf=8), 'encmlp_bwd.cu', 'a block takes at most 227 KB'),
-    (dict(depth=9), 'encmlp_bwd.cu', 'a block takes at most 227 KB'),
-    (dict(width=512), 'encmlp_fwd.cu', 'resident shared memory'),
-    (dict(width=512), 'encmlp_bwd.cu', 'resident shared memory'),
-    (dict(width=512), 'viewfac.cu', '128-wide views layer')]
+    (dict(width=768), 'encmlp_fwd.cu', 'no WIDE body'),
+    (dict(width=768), 'encmlp_bwd.cu', 'no WIDE body'),
+    (dict(width=768), 'viewfac.cu', 'views layer 128 or 256 wide'),
+    (dict(ncode=32), 'encmlp_fwd.cu', "viewfac's codes slice"),
+    (dict(ncode=32), 'encmlp_bwd.cu', "the codes' k-slice")]
 
 
-def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256):
+def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256, ncode=16):
     defines = [f'ANERF_NF={nf}', f'ANERF_NB={nb}', f'ANERF_BONE_WIN={bw}',
                f'ANERF_DX={(2 * nf + 1) * 24 + 72}', f'ANERF_DEPTH={depth}']
-    return defines + ([f'ANERF_WIDTH={width}'] if width != 256 else [])
+    return defines + ([f'ANERF_WIDTH={width}'] if width != 256 else []) + (
+        [f'ANERF_NCODE={ncode}'] if ncode != 16 else [])
 
 
 def _errors(cindex, tu):

@@ -4,14 +4,21 @@ for beyond the flagship's (ROADMAP B.1), against anerf_tpu's
 
 The shapes: one view PE row (``multires_views = 0``, surreal_single's),
 five and seven; four kp bands with six layers; four layers (no skip
-layer); the windowed bone directions (``--cutoff_bones``).  Each is
+layer); the windowed bone directions (``--cutoff_bones``); and those
+whose trunk input does not stay in a block's shared memory in some of
+K1-K4 (ROADMAP B.1.2): two 8 x 512 nets, nine layers, eight kp bands,
+and the corner of the gate, 16 layers of 512 at ten kp bands.  Each is
 built from the same seed-made parameters in both packages (the JAX tree
-converted with ``params_from_numpy``), at R=8 rays and full width 256,
-with the viewfac form off on both sides (its chain:
-``test_torch_viewfac.py``; K-vf1/K-vf2 at seven rows on the card).  The
-samples per ray are ones anerf_tpu's kernels tile (16 and 64): at
-surreal_single's 96 its ``_build_call`` returns None and it runs its
-split kernels, which ``test_torch_surreal_single.py`` compares against.
+converted with ``params_from_numpy``), at R=8 rays and full width, with
+the viewfac form off on both sides (its chain:
+``test_torch_viewfac.py``; K-vf1/K-vf2 at seven rows and at the 256-wide
+views layer on the card).  The samples per ray are ones anerf_tpu's
+kernels tile (16 and 64): at surreal_single's 96 its ``_build_call``
+returns None and it runs its split kernels, which
+``test_torch_surreal_single.py`` compares against.  The resident shapes
+and 8 x 512 run at both (K2 at 64, K1 at 16); nine layers, eight bands
+and the corner at one each (``SAMPLES``), to keep the interpret mode's
+seconds in check.
 
 * the gate admits each shape on both sides, with the build key the
   port's libraries are keyed by;
@@ -45,16 +52,36 @@ from anerf_torch.ops import fused_encmlp as FE
 from test_torch_fused_encmlp import _assert_raw_close, _pts_cm
 
 # name: (config overrides, the build key (kp bands, view rows, bone
-# window, depth))
+# window, depth, width))
 SHAPES = {
-    'nb1': (dict(multires_views=0), (7, 1, False, 8)),
-    'nb5': (dict(multires_views=2), (7, 5, False, 8)),
-    'nb7': (dict(multires_views=3), (7, 7, False, 8)),
+    'nb1': (dict(multires_views=0), (7, 1, False, 8, 256)),
+    'nb5': (dict(multires_views=2), (7, 5, False, 8, 256)),
+    'nb7': (dict(multires_views=3), (7, 7, False, 8, 256)),
     'nf4_depth6': (dict(multires=4, netdepth=6, netdepth_fine=6),
-                   (4, 9, False, 6)),
-    'depth4': (dict(netdepth=4, netdepth_fine=4), (7, 9, False, 4)),
-    'cutoff_bones': (dict(cutoff_bones=True), (7, 9, True, 8)),
+                   (4, 9, False, 6, 256)),
+    'depth4': (dict(netdepth=4, netdepth_fine=4), (7, 9, False, 4, 256)),
+    'cutoff_bones': (dict(cutoff_bones=True), (7, 9, True, 8, 256)),
+    'w512': (dict(netwidth=512, netwidth_fine=512), (7, 9, False, 8, 512)),
+    'depth9': (dict(netdepth=9, netdepth_fine=9), (7, 9, False, 9, 256)),
+    'nf8': (dict(multires=8), (8, 9, False, 8, 256)),
+    'w512_depth16_nf10': (dict(netwidth=512, netwidth_fine=512,
+                               netdepth=16, netdepth_fine=16, multires=10),
+                          (10, 9, False, 16, 512)),
 }
+# the samples each shape's twins are held at: K2 (and K4) at 64, K1
+# (and K3) at 16
+SAMPLES = {name: (64, 16) for name in SHAPES}
+SAMPLES.update(depth9=(16,), nf8=(64,), w512_depth16_nf10=(16,))
+CASES = [(name, S) for name in sorted(SHAPES) for S in SAMPLES[name]]
+# the backwards' cases: 8 x 512 and eight kp bands at S=16 (K3's twin;
+# K4's two nets at S=64 take 12-20 s each in interpret mode alone, 55 s
+# in the suite), the rest as the forwards'
+BWD_CASES = [c for c in CASES if c != ('w512', 64)]
+BWD_CASES[BWD_CASES.index(('nf8', 64))] = ('nf8', 16)
+# the shapes whose trunk input leaves shared memory in some of K1-K4
+# (ROADMAP B.1.2), whose backward cases test_torch_encmlp_shapes_bwd_b12.py
+# holds apart (one file of them all would run past a minute alone)
+B12_SHAPES = ('w512', 'depth9', 'nf8', 'w512_depth16_nf10')
 _SCENES = {}
 
 
@@ -103,8 +130,7 @@ def test_shape_is_admitted(name):
         (est_j.view_nb, tuple(est_j.kp_freqs), est_j.bone_windowed)
 
 
-@pytest.mark.parametrize('S', [64, 16])
-@pytest.mark.parametrize('name', sorted(SHAPES))
+@pytest.mark.parametrize('name,S', CASES, ids=[f'{n}-{S}' for n, S in CASES])
 def test_fwd_twins_match_pallas_interpret(name, S):
     """K2's twin at S=64 (the coarse pass) and K1's at S=16 (the fine
     pass) against the Pallas kernels in interpret mode."""

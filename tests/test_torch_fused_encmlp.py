@@ -222,10 +222,13 @@ def _port_variant(**over):
 
 
 # the flagship; one view row (multires_views 0: surreal_single's); 6
-# layers (the skip layer last but one); framecodes of 8, padded to 16
+# layers (the skip layer last but one); framecodes of 8, padded to 16;
+# two 8 x 512 nets (a 256-wide views layer) and 16 layers of 256
 PACK_SHAPES = {'flagship': {}, 'nb1': dict(multires_views=0),
                'depth6': dict(netdepth=6, netdepth_fine=6),
-               'codes8': dict(framecode_size=8)}
+               'codes8': dict(framecode_size=8),
+               'w512': dict(netwidth=512, netwidth_fine=512),
+               'depth16': dict(netdepth=16, netdepth_fine=16)}
 
 
 @pytest.mark.parametrize('variant', sorted(PACK_SHAPES))
@@ -239,8 +242,9 @@ def test_kernel_weight_pack_matches_twin(scene, variant):
         rc, pts, torch.as_tensor(scene['rays_t_norm']),
         params['cutoff_dist'], 21.9,
         torch.as_tensor(scene['batch']['cam_idxs']), None)
-    nf, nb, _, depth = FE.kernel_shape(st, est)
-    L = _layout((2 * nf + 1) * J + 3 * J, depth, nb * 3 * J + 24)
+    nf, nb, _, depth, width = FE.kernel_shape(st, est)
+    L = _layout((2 * nf + 1) * J + 3 * J, depth, nb * 3 * J + 24, W=width,
+                HV=width // 2)
     codes = FE._codes(params['fine'],
                       torch.as_tensor(scene['batch']['cam_idxs']))
     flat = FE.flatten_params_cm(params['fine'], st, J, nb)
@@ -286,28 +290,46 @@ def test_wrappers_take_twins_on_cpu(scene):
 
 
 # (change to the flagship's statics, admitted): 6 layers and framecodes
-# of 8 are built for now (ROADMAP B.1); 512 wide, another skip, 9 layers
-# and framecodes of 32 are not (B.1.2)
+# of 8 are built for (ROADMAP B.1), so are 512-wide nets (with their
+# 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2); a net
+# 512 wide with a 128-wide views layer, another skip, framecodes of 32,
+# 768 wide, 17 layers, 11 kp bands and 11 view rows are not (B.1.3)
+KP10 = tuple(2. ** k for k in range(10))
 GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(skips=(3,)), False), (dict(vparts=(648, 8)), True),
-              (dict(depth=9), False), (dict(vparts=(648, 32)), False)]
+              (dict(depth=9), True), (dict(vparts=(648, 32)), False),
+              (dict(width=512, half=256), True), (dict(depth=16), True),
+              (dict(kp_freqs=KP10, dparts=(21 * J, 3 * J)), True),
+              (dict(width=768, half=384), False), (dict(depth=17), False),
+              (dict(kp_freqs=KP10 + (1024.,), dparts=(23 * J, 3 * J)),
+               False),
+              (dict(view_nb=11, vparts=(11 * 3 * J, 16)), False),
+              (dict(width=512, half=256, vparts=(648, 32)), False)]
 
 
 @pytest.mark.parametrize('change,admitted', GATE_CASES)
 def test_kernel_shape_gate(scene, change, admitted):
-    """The CUDA kernels are compiled per static shape for the shapes
-    whose trunk input stays resident in shared memory; any other static
-    must be refused before a launch, never run wrong."""
+    """The CUDA kernels are compiled per static shape for every shape
+    of the gate (256 or 512 wide, 1-16 layers, 1-10 kp bands, 1-9 view
+    rows, codes of at most 16); any other static must be refused before
+    a launch, never run wrong.  A change to ``kp_freqs`` or ``view_nb``
+    changes the encode's statics, the rest the net's."""
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))
     st, est = FE._build_call(scene['t_rc'], pts,
                              torch.as_tensor(scene['rays_t_norm']),
                              scene['t_params']['cutoff_dist'], 21.9,
                              torch.as_tensor(scene['batch']['cam_idxs']),
                              None)[:2]
-    assert FE.kernel_shape(st, est) == (7, 9, False, 8)
-    changed = dataclasses.replace(st, **change)
+    assert FE.kernel_shape(st, est) == (7, 9, False, 8, 256)
+    enc_keys = {'kp_freqs', 'view_nb'}
+    changed = dataclasses.replace(
+        st, **{k: v for k, v in change.items() if k not in enc_keys})
+    est_c = dataclasses.replace(
+        est, **{k: v for k, v in change.items() if k in enc_keys})
     if admitted:
-        assert FE.kernel_shape(changed, est)[3] == changed.depth
+        assert FE.kernel_shape(changed, est_c) == (
+            len(est_c.kp_freqs), est_c.view_nb, False, changed.depth,
+            changed.width)
     else:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.2'):
-            FE.kernel_shape(changed, est)
+        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.3'):
+            FE.kernel_shape(changed, est_c)

@@ -17,6 +17,7 @@ asked for.
 """
 import os
 import pickle
+import sys
 
 import h5py
 import jax
@@ -147,9 +148,13 @@ def test_read_spin_data_pkl_and_deepdish_h5(tmp_path):
     _same(JS._load_deepdish_h5(h5), TS._load_deepdish_h5(h5))
 
 
-def test_smplx_paths_raise_without_smplx():
+def test_smplx_paths_raise_without_smplx(monkeypatch):
     """``rest_pose_from_betas`` and ``_smpl_vertices`` need the optional
-    smplx package, absent here: both packages raise."""
+    smplx package: without it both packages raise.  (Absent here, but
+    tests/ref_oracle.py installs a stub of it into ``sys.modules`` for
+    the reference's imports, which a worker that ran such a test before
+    this one still holds: the test hides it.)"""
+    monkeypatch.setitem(sys.modules, 'smplx', None)
     betas = np.zeros((1, 10), np.float32)
     for mod in (JS, TS):
         with pytest.raises(ImportError, match='smplx'):

@@ -1,8 +1,8 @@
 """Which MLP kernels ``render_rays`` routes each shipped config to, on
 the CPU, where the route is the one the card takes.
 
-The fused encode kernels K1-K4 are compiled per static shape, for the
-shapes whose trunk input stays resident in shared memory
+The fused encode kernels K1-K4 are compiled per static shape, for nets
+256 or 512 wide of 1-16 layers at 1-10 kp bands and 1-9 view rows
 (``fused_encmlp.kernel_shape``).  ``fused_encmlp.kernel_shape_ok``
 decides from the raycast config alone whether they take it; a
 one-subject config on the fused backend that they do not take runs the
@@ -57,11 +57,13 @@ ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
           'perfcap.txt': 'fused', 'perfcap_finetune.txt': 'fused',
           'surreal.txt': 'fused', 'surreal_single.txt': 'fused',
           'synthetic_tiny.txt': 'plain'}
-# shipped configs changed to a shape the fused kernels are not built
-# for (ROADMAP B.1.2), which keep the split route: surreal_single at a
-# net 512 wide
+# shipped configs changed in their net: surreal_single at a net 512
+# wide, which the fused kernels take since ROADMAP B.1.2, and at 768,
+# which they do not (B.1.3) and which keeps the split route
 VARIANTS = {'surreal_single.txt:netwidth512': (
-    'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'split')}
+    'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'fused'),
+    'surreal_single.txt:netwidth768': (
+    'surreal_single.txt', dict(netwidth=768, netwidth_fine=768), 'split')}
 
 
 def test_every_shipped_config_is_listed():

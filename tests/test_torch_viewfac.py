@@ -63,6 +63,9 @@ from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.ops import fused_mlp as FM
 
 J, NBJ, HALF = 24, 648, 128
+# the views layer's widths K-vf1/K-vf2 are built for: 128 (nets 256 wide)
+# and 256 (512 wide)
+HALVES = (128, 256)
 F32_TOL = 1e-5
 
 
@@ -75,15 +78,15 @@ def _close(ref, got, tol=F32_TOL, name=''):
     assert err < tol, (name, err)
 
 
-def _arrays(S, R=8, seed=0):
+def _arrays(S, R=8, seed=0, half=HALF):
     """Windows (n, J) in (0, 1), view rows (R, 648), the views weight's
-    view rows (648, 128) and a views cotangent (n, 128), from numpy."""
+    view rows (648, half) and a views cotangent (n, half), from numpy."""
     rng = np.random.RandomState(seed)
     n = R * S
     w = rng.uniform(0, 1, (n, J)).astype(np.float32)
     enc = rng.uniform(-1, 1, (R, NBJ)).astype(np.float32)
-    wv = (rng.normal(size=(NBJ, HALF)) / np.sqrt(NBJ)).astype(np.float32)
-    g = rng.normal(size=(n, HALF)).astype(np.float32)
+    wv = (rng.normal(size=(NBJ, half)) / np.sqrt(NBJ)).astype(np.float32)
+    g = rng.normal(size=(n, half)).astype(np.float32)
     wv = np.asarray(jnp.asarray(wv).astype(jnp.bfloat16).astype(jnp.float32))
     return w, enc, wv, g
 
@@ -99,11 +102,12 @@ def _est(S):
                         viewfac=True)
 
 
+@pytest.mark.parametrize('half', HALVES)
 @pytest.mark.parametrize('S', [64, 48])
-def test_viewfac_products_match_pallas_mlp(S):
+def test_viewfac_products_match_pallas_mlp(S, half):
     """The port's operand, its product and its backward against
     pallas_mlp's block-diagonal forms over the same rays."""
-    w, enc, wv, g = _arrays(S)
+    w, enc, wv, g = _arrays(S, half=half)
     R, n = enc.shape[0], w.shape[0]
     jfac = _jax_fac(w, enc, S)
     tfac = FM.viewfac_operand(torch.as_tensor(w), torch.as_tensor(enc), S)
@@ -129,36 +133,38 @@ def test_viewfac_products_match_pallas_mlp(S):
     _close(dwv_j, dwv_t, name='dWv')
 
 
-def test_vf_operand_twin_matches_viewfac_dot():
+@pytest.mark.parametrize('half', HALVES)
+def test_vf_operand_twin_matches_viewfac_dot(half):
     """K-vf1's twin is _viewfac_dot's M, rounded to bf16, for each net."""
-    w, enc, wv, _ = _arrays(64)
+    w, enc, wv, _ = _arrays(64, half=half)
     R = enc.shape[0]
     _, _, E_j = _jax_fac(w, enc, 64)[:3]
     wvx = torch.stack([torch.as_tensor(wv), -torch.as_tensor(wv)]).to(
         torch.bfloat16)
     M = FE.vf_operand_plain(_est(64), torch.as_tensor(enc), wvx)
-    assert M.dtype == torch.bfloat16 and M.shape == (2, R, J, HALF)
+    assert M.dtype == torch.bfloat16 and M.shape == (2, R, J, half)
     for net, sign in enumerate((1., -1.)):
         ref = PM._dot(E_j, (sign * jnp.asarray(wv)).astype(jnp.bfloat16))
         ref = np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32))
-        got = M[net].float().numpy().reshape(R * J, HALF)
+        got = M[net].float().numpy().reshape(R * J, half)
         # the f32 sums run in other orders: a bf16 rounding may flip
         assert np.mean(ref != got) < 1e-3
         _close(ref, got, tol=8e-3, name=f'M net {net}')
 
 
+@pytest.mark.parametrize('half', HALVES)
 @pytest.mark.parametrize('S', [64, 48])
-def test_vf_fold_twin_matches_viewfac_bwd(S):
+def test_vf_fold_twin_matches_viewfac_bwd(S, half):
     """K-vf2's twin on the Gram matrices of K3/K4's pass gives
     _viewfac_bwd's dWv and d_enc (at S = 48 rays straddle the kernels'
     64-point tiles; the pass sums each ray whole)."""
-    w, enc, wv, g = _arrays(S, seed=1)
+    w, enc, wv, g = _arrays(S, seed=1, half=half)
     est = _est(S)
     wv_j = jnp.asarray(wv).astype(jnp.bfloat16)
     _, denc_j, dwv_j = PM._viewfac_bwd(_jax_fac(w, enc, S), wv_j,
                                        jnp.asarray(g))
     gw = FE.vf_gram_plain(est, torch.as_tensor(w), torch.as_tensor(g))
-    assert gw.shape == (enc.shape[0], J, HALF) and gw.dtype == torch.bfloat16
+    assert gw.shape == (enc.shape[0], J, half) and gw.dtype == torch.bfloat16
     wvx = torch.as_tensor(wv)[None].to(torch.bfloat16)
     dwv, denc = FE.vf_fold_plain(est, gw[None], torch.as_tensor(enc), wvx)
     _close(dwv_j, dwv[0], tol=2e-3, name='dWv')
