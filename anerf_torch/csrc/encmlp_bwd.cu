@@ -7,7 +7,7 @@
 // at the shape of encmlp_common.cuh (the flagship's by default, or a
 // build per static shape as K1/K2's, encmlp_fwd.cu).  Given the raw
 // cotangent g (nnet, 4, n) they return dp (n, 72), denc (R, 72 NB: 648),
-// dcodes (nnet, R, 16) and the f32 gradient of every weight and bias of
+// dcodes (nnet, R, NCODE) and the f32 gradient of every weight and bias of
 // each net.
 //
 // What the TPU kernel does that a Hopper block cannot, and the design:
@@ -156,10 +156,9 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     bf16* xv = wk.xv[net] + (size_t)t0 * DXV;
     const float* cn = codes + (size_t)net * R * NCODE;
     if constexpr (VF) {  // the codes' k-slice alone
-      write_vf_codes(xv + DXV - KS, DXV, cn, t0, n, S);
+      write_vf_codes(xv + VF_KB, DXV, cn, t0, n, S);
     } else {
-      encode_views(enc, WIN, xv, DXV, t0, n, S);
-      write_codes(xv, DXV, cn, t0, n, S);
+      encode_views(XvEnc{enc, WIN, cn, S}, xv, DXV, 0, DXV, t0, n);
     }
   }
   fence_async_global();  // the ring reads the views input back by TMA
@@ -441,7 +440,7 @@ int launch_bwd(const float* p, const float* enc, const float* codes,
 
 extern "C" {
 
-// One net (K3): g (1, 4, n); dcodes (1, R, 16); dw (WGSZ); db (BSZ);
+// One net (K3): g (1, 4, n); dcodes (1, R, NCODE); dw (WGSZ); db (BSZ);
 // vfM, gw null, or viewfac's; tfab null, or the affine rows (launch_bwd).
 int encmlp_bwd(const float* p, const float* enc, const float* codes,
                const float* cutoff, const float* tau, const void* wpack,
@@ -482,7 +481,8 @@ int encmlp_shape(int* out) {
   out[2] = BONE_WIN ? 1 : 0;
   out[3] = DEPTH;
   out[4] = W;
-  return 5;
+  out[5] = NCODE;
+  return 6;
 }
 
 }  // extern "C"

@@ -17,9 +17,9 @@ typedef __nv_bfloat16 bf16;
 // The encode's shape (K1-K4, K-vf1/K-vf2): J joints, NF kp bands 2^0 ..
 // 2^(NF-1), NB view PE rows (1 + 2 multires_views), the bone directions
 // windowed (--cutoff_bones) or not.  The flagship's by default; a build
-// per shape takes NF 1-10 and NB 1-9 (nvcc -DANERF_NF=... -DANERF_NB=...
+// per shape takes NF 1-10 and NB 1-21 (nvcc -DANERF_NF=... -DANERF_NB=...
 // -DANERF_BONE_WIN=0|1, with -DANERF_DX the trunk width DV + C3,
-// -DANERF_DEPTH and -DANERF_WIDTH; ops/cuda_build.py,
+// -DANERF_DEPTH, -DANERF_WIDTH and -DANERF_NCODE; ops/cuda_build.py,
 // fused_encmlp.kernel_shape); the headers' and the sources'
 // static_asserts refuse the rest.  K5/K6 ignore all three.
 #ifndef ANERF_NF
@@ -36,6 +36,7 @@ constexpr int NF = ANERF_NF;           // kp bands: 7 (2^0 .. 2^6)
 constexpr int NB = ANERF_NB;           // view PE rows: 9 (1 + 2 x 4)
 constexpr bool BONE_WIN = ANERF_BONE_WIN != 0;  // r = p / d x window
 static_assert(NF >= 1 && NB >= 1 && NB % 2 == 1, "kp bands and view rows");
+static_assert(NB <= 21, "at most 21 view PE rows (multires_views 10)");
 constexpr int C3 = 3 * J;              // 72
 constexpr int DV = (2 * NF + 1) * J;   // 360 kp encoding
 // the trunk input [v | r]: DV + C3 (432) wide for K1-K4; a K5/K6 build
@@ -49,18 +50,33 @@ static_assert(DX >= 1 && DX <= 2048, "trunk inputs of 1 to 2048 columns");
 // the 16-deep k-step of a product
 constexpr int DXP = (DX + 15) / 16 * 16;
 constexpr int DE = NB * C3;            // 648 view encoding
-// the framecodes' columns of the views input: K1-K4 take codes of at
-// most 16, zero-padded to it.  No build sets -DANERF_NCODE: only
-// tests/test_torch_csrc_parse.py does, to show that a wider one fails
-// the sources' static_asserts.
+// the framecodes' columns of the views input: K1-K4 take codes of 16 to
+// 128 columns, narrower ones zero-padded to the next multiple of 16
+// (nvcc -DANERF_NCODE=..., 16 by default), so that the views input stays
+// whole k-steps: 72 NB is 8 past a multiple of 16 for every odd NB
 #ifndef ANERF_NCODE
 #define ANERF_NCODE 16
 #endif
 constexpr int NCODE = ANERF_NCODE;
-// the views input [xv | codes | 0 x 8]: 672 (K5/K6's for any views
-// parts up to it), a multiple of 16 for every odd NB
+static_assert(NCODE >= 16 && NCODE <= 128 && NCODE % 16 == 0,
+              "framecodes of 16 to 128 columns, in whole k-steps");
+// the views input [xv | codes | 0 x 8]: K1-K4's 72 NB + NCODE + 8 (672
+// at the flagship's shape); K5/K6 are built for a views width of their
+// own (nvcc -DANERF_DXV=...: 672 for any views parts up to it, else the
+// parts' sum + 8 rounded up to 16; ops/fused_mlp.py), at most 1664
+#ifdef ANERF_DXV
+constexpr int DXV = ANERF_DXV;
+#else
 constexpr int DXV = DE + NCODE + 8;
-static_assert(DXV % 16 == 0, "the views input in whole k-steps");
+#endif
+static_assert(DXV % 16 == 0 && DXV <= 1664,
+              "the views input in whole k-steps, at most 1664 columns");
+// viewfac's codes k-slice (K1-K4): the views input's columns VF_KB ..
+// DXV - 1, [0 x 8 | codes | 0 x 8], NCODE + 16 wide: it starts on the
+// last 8 view columns (masked to zeros), since DE is 8 past a k-step
+constexpr int VF_KB = DE - 8;
+constexpr int VF_CW = NCODE + 16;
+
 // the net: DEPTH trunk layers of W units, the views layer HV = W / 2
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
 // for 1-16 layers 256 or 512 wide (8 x 256 by default); a K5/K6 build
@@ -104,8 +120,8 @@ constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
 // the shared memory a kernel adds after its MLP body's own, counted
 // where the headers decide what stays resident beside the ring
-// (mlp_fwd_common.cuh FWD_X_RESIDENT, mlp_bwd_common.cuh MASK_RESIDENT,
-// BWD_X_RESIDENT): K1-K4 (whose sources define ANERF_ENC_KERNEL before
+// (mlp_fwd_common.cuh FWD_XV_RESIDENT, FWD_X_RESIDENT, mlp_bwd_common.cuh
+// MASK_RESIDENT, BWD_X_RESIDENT): K1-K4 (whose sources define ANERF_ENC_KERNEL before
 // they include a header) keep the tile's windows (T, J) f32 and
 // viewfac's ray slots (T), 6,400 bytes; K5/K6 nothing
 #ifdef ANERF_ENC_KERNEL
@@ -120,8 +136,10 @@ constexpr int LDX = DXP + 8;
 constexpr int LDXV = DXV + 8;
 constexpr int LDH = W + 8;
 // a trunk input too wide to stay in shared memory (K5 past 592 columns,
-// K6 past 480), and a WIDE net's activations, take part in their
-// products XCH columns at a time, through a buffer of stride LDC
+// K6 past 480), a views input too wide for the forward's (K1/K2 past 11
+// view rows, K5 past 832 columns), and a WIDE net's activations, take
+// part in their products XCH columns at a time, through a buffer of
+// stride LDC
 constexpr int XCH = 256;
 constexpr int LDC = XCH + 8;
 
@@ -208,24 +226,6 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
   return r;
 }
 
-// XV[:, DE:DE+NCODE] = this net's per-ray codes (XV: T rows, stride ld,
-// 16-byte aligned rows in shared or device memory)
-__device__ __forceinline__ void write_codes(bf16* XV, int ld,
-                                            const float* __restrict__ codes,
-                                            int t0, int n, int S) {
-  for (int idx = threadIdx.x; idx < T * (NCODE / 8); idx += NTHREAD) {
-    const int t = idx / (NCODE / 8), c = (idx - t * (NCODE / 8)) * 8;
-    const int gp = t0 + t;
-    float v[8] = {};
-    if (gp < n) {
-      const float* cr = codes + (size_t)(gp / S) * NCODE + c;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = __ldg(cr + q);
-    }
-    *reinterpret_cast<uint4*>(XV + t * ld + DE + c) = pack8(v);
-  }
-}
-
 // x^2 + y^2 + z^2 with its roundings spelled out (y^2, then x^2 and z^2
 // fused in): every kernel that takes a point's distance (the forward's
 // encode, the backward's recompute and its pullback) gets the same bits,
@@ -310,32 +310,6 @@ __device__ __forceinline__ void encode_points(const float* __restrict__ p,
     xr[DV + J + j] = __float2bfloat16_rn(ry);
     xr[DV + 2 * J + j] = __float2bfloat16_rn(rz);
     WIN[t * J + j] = w;
-  }
-}
-
-// The views input of the tile but its codes, from the windows WIN:
-// XV[:, 0:DE] = view rows x per-sample window (xv[t, c] = enc[ray, c]
-// w[t, c % J]) and the zero tail past the codes (bf16; XV: T rows,
-// stride ld, 16-byte aligned rows in shared or device memory), 8 values
-// a store.  Leaves the block unsynchronised.
-__device__ __forceinline__ void encode_views(const float* __restrict__ enc,
-                                             const float* WIN, bf16* XV,
-                                             int ld, int t0, int n, int S) {
-  static_assert(DE % 8 == 0 && J % 8 == 0 && DXV - DE - NCODE == 8,
-                "8-value pieces of the views input");
-  constexpr int PER_ROW = DE / 8 + 1;  // the view rows, then the zero tail
-  for (int idx = threadIdx.x; idx < T * PER_ROW; idx += NTHREAD) {
-    const int t = idx / PER_ROW, c = (idx - t * PER_ROW) * 8;
-    const int gp = t0 + t;
-    float v[8] = {};
-    if (c < DE && gp < n) {
-      const float* er = enc + (size_t)(gp / S) * DE + c;
-      const float* wr = WIN + t * J + c % J;  // c % J + 7 < J
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = __ldg(er + q) * wr[q];
-    }
-    *reinterpret_cast<uint4*>(XV + t * ld + (c < DE ? c : DE + NCODE)) =
-        pack8(v);
   }
 }
 
@@ -467,23 +441,64 @@ __device__ __forceinline__ void vf_xw_m(float (&d)[NJ][4], const bf16* buf,
   }
 }
 
-// XV[:, 0:32] = the views input's last k-slice [0 x 8 | codes | 0 x 8]
-// (columns DXV - 32 .. DXV - 1; XV: T rows, stride ld), viewfac's only
+// XV[:, 0:VF_CW] = the views input's codes k-slice [0 x 8 | codes | 0 x
+// 8] (columns VF_KB .. DXV - 1; XV: T rows, stride ld), viewfac's only
 // views-input columns beside xw
 __device__ __forceinline__ void write_vf_codes(bf16* XV, int ld,
                                                const float* __restrict__ codes,
                                                int t0, int n, int S) {
-  static_assert(DXV - 32 == DE - 8 && DXV - DE - NCODE == 8,
+  static_assert(VF_KB % 8 == 0 && VF_KB + 8 == DE && VF_CW % 16 == 0,
                 "the codes' k-slice");
-  for (int idx = threadIdx.x; idx < T * 4; idx += NTHREAD) {
-    const int t = idx >> 2, c = (idx & 3) * 8, gp = t0 + t;
+  constexpr int PER_ROW = VF_CW / 8;
+  for (int idx = threadIdx.x; idx < T * PER_ROW; idx += NTHREAD) {
+    const int t = idx / PER_ROW, c = (idx - t * PER_ROW) * 8, gp = t0 + t;
     float v[8] = {};
-    if ((c == 8 || c == 16) && gp < n) {
+    if (c >= 8 && c < 8 + NCODE && gp < n) {
       const float* cr = codes + (size_t)(gp / S) * NCODE + c - 8;
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = __ldg(cr + q);
     }
     *reinterpret_cast<uint4*>(XV + t * ld + c) = pack8(v);
+  }
+}
+
+// The views input [view rows x window | codes | 0 x 8] of the tile, or
+// its columns c0 .. c1-1 (multiples of 8; where it does not stay in the
+// forward's shared memory, K1/K2 build it a column block at a time:
+// mlp_fwd_common.cuh FWD_XV_RESIDENT), into XV (T rows, stride ld,
+// 16-byte aligned rows in shared or device memory), 8 values a store:
+// the view rows times each sample's windows (xv[t, c] = enc[ray, c]
+// w[t, c % J], WIN f32 in shared memory), this net's codes, zeros past
+// them and past n.  Leaves the block unsynchronised.
+struct XvEnc {
+  const float* enc;     // the view rows (R, DE)
+  const float* win;     // the tile's windows (T, J), shared memory
+  const float* codes;   // this net's codes (R, NCODE)
+  int S;
+};
+
+__device__ __forceinline__ void encode_views(const XvEnc& xe, bf16* XV,
+                                             int ld, int c0, int c1, int t0,
+                                             int n) {
+  static_assert(DE % 8 == 0 && J % 8 == 0 && NCODE % 8 == 0 &&
+                    DXV - DE - NCODE >= 8,
+                "8-value pieces of the views input");
+  const int per_row = (c1 - c0) / 8;
+  for (int idx = threadIdx.x; idx < T * per_row; idx += NTHREAD) {
+    const int t = idx / per_row, cc = (idx - t * per_row) * 8, c = c0 + cc;
+    const int gp = t0 + t;
+    float v[8] = {};
+    if (gp < n && c < DE) {
+      const float* er = xe.enc + (size_t)(gp / xe.S) * DE + c;
+      const float* wr = xe.win + t * J + c % J;  // c % J + 7 < J
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(er + q) * wr[q];
+    } else if (gp < n && c < DE + NCODE) {
+      const float* cr = xe.codes + (size_t)(gp / xe.S) * NCODE + c - DE;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(cr + q);
+    }
+    *reinterpret_cast<uint4*>(XV + t * ld + cc) = pack8(v);
   }
 }
 

@@ -8,9 +8,9 @@
 // 2^0..2^6 (360 channels), bone directions (72), view PE rows 9 x 72
 // (648), framecodes (16), an 8 x 256 trunk with the input re-entering
 // after layer 4, a 128-wide views branch.  A build per static shape
-// takes 1-10 kp bands, 1-9 view rows, the windowed bone directions and
-// 1-16 layers 256 or 512 wide (encmlp_common.cuh;
-// fused_encmlp.kernel_shape).
+// takes 1-10 kp bands, 1-21 view rows, framecodes of 16-128 columns, the
+// windowed bone directions and 1-16 layers 256 or 512 wide
+// (encmlp_common.cuh; fused_encmlp.kernel_shape).
 //
 // Per block: 64 points (one S=64 ray, or four S=16 rays), two consumer
 // warpgroups and a producer warp.  The encode runs in f32 on the CUDA
@@ -21,7 +21,13 @@
 // memory workspace (n rounded up to 64, DXP columns: 113 MB at the
 // train step's coarse n = 131,072), which each product that reads X
 // (layer 0, the skip layer; K2: of both nets) brings back 256 columns
-// at a time from L2 (ring_wgmma_x, mlp_fwd_common.cuh).  The products'
+// at a time from L2 (ring_wgmma_x, mlp_fwd_common.cuh).  The views
+// input [view rows x window | codes | 0 x 8] stays resident where it
+// fits beside a buffer of X (up to 13 view rows at 256 wide, framecodes
+// of 16 there); else the views product builds it again 256 columns at a
+// time from the view rows (L2), the windows (shared memory) and the
+// codes, into the region the activations take after it (ring_wgmma_xv,
+// encode_views): no workspace, and the same values.  The products'
 // sums are the same either way.  Meanwhile the producer warp has the
 // net's first weight slices
 // in flight: every weight reaches the block through a 4-stage ring of
@@ -130,20 +136,23 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   sync_tile();
   const XRows xr{xg};
   for (int net = 0; net < NNET; ++net) {
-    // the views input of this net (the last net's trunk wrote over it)
+    // the views input of this net (the last net's trunk wrote over it);
+    // where it does not stay resident, the views product builds it again
+    // 256 columns at a time from the view rows, the windows and the codes
     const float* cn = codes + (size_t)net * R * NCODE;
+    const XvEnc xe{enc, WIN, cn, S};
     if constexpr (VF) {
       write_vf_codes(sm.XV, LDCV, cn, t0, n, S);
       vf_stage(sm.XV + T * LDCV,
                vf_tile(WIN, SLOT, vfM + (size_t)net * R * J * HV, t0, n, S));
-    } else {
-      encode_views(enc, WIN, sm.XV, LDXV, t0, n, S);
-      write_codes(sm.XV, LDXV, cn, t0, n, S);
+    } else if constexpr (FWD_XV_RESIDENT) {
+      encode_views(xe, sm.XV, LDXV, 0, DXV, t0, n);
     }
     sync_tile();
-    mlp_fwd_tile<VF, XRows>(rg, sm, wpack + (size_t)net * WSZ,
-                            bpack + (size_t)net * BSZ,
-                            out + (size_t)net * 4 * n, n, 1, t0, n, &xr);
+    mlp_fwd_tile<VF, XRows, XvEnc>(rg, sm, wpack + (size_t)net * WSZ,
+                                   bpack + (size_t)net * BSZ,
+                                   out + (size_t)net * 4 * n, n, 1, t0, n,
+                                   &xr, &xe);
   }
 }
 
@@ -221,7 +230,7 @@ int encmlp_fwd(const float* p, const float* enc, const float* codes,
                    xwork, out, n, S, R, stream);
 }
 
-// Coarse and fine nets on one encode: codes (2, R, 16), wpack/bpack two
+// Coarse and fine nets on one encode: codes (2, R, NCODE), wpack/bpack two
 // packed sets back to back, vfM null or (2, R, J, HV), out (2, 4, n);
 // both nets read the one xwork.
 int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
@@ -243,15 +252,17 @@ long long encmlp_fwd_workspace_bytes(int n) {
 long long encmlp_weight_elems(void) { return (long long)WSZ; }
 int encmlp_bias_elems(void) { return BSZ; }
 
-// The build's encode shape, for the wrapper's checks: out[0 .. 4] = kp
-// bands, view rows, bone window, depth, width; returns the count.
+// The build's encode shape, for the wrapper's checks: out[0 .. 5] = kp
+// bands, view rows, bone window, depth, width, framecode columns;
+// returns the count.
 int encmlp_shape(int* out) {
   out[0] = NF;
   out[1] = NB;
   out[2] = BONE_WIN ? 1 : 0;
   out[3] = DEPTH;
   out[4] = W;
-  return 5;
+  out[5] = NCODE;
+  return 6;
 }
 
 }  // extern "C"

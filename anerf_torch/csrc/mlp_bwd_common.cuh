@@ -45,7 +45,7 @@ namespace {
 constexpr size_t G_A = OFF_F;                   // (W, 1)
 constexpr size_t G_F = G_A + W;                 // (W, W)
 constexpr size_t G_VF = G_F + SZ_H;             // (W, HV)
-constexpr size_t G_VX = G_VF + (size_t)W * HV;  // (672, HV)
+constexpr size_t G_VX = G_VF + (size_t)W * HV;  // (DXV, HV)
 constexpr size_t G_R = G_VX + (size_t)DXV * HV; // (HV, 3)
 constexpr size_t WGSZ = G_R + 3 * HV;
 static_assert(WGSZ % 4 == 0, "the dW partials are summed 4 at a time");
@@ -90,7 +90,7 @@ constexpr size_t MASK_SMEM = MASK_RESIDENT ? MASK_BYTES : 0;
 // workspace: bf16 arrays, each (n_pad, width) row-major, then f32 ones
 struct Work {
   bf16* x;            // [v | r | 0]                   (DXP)
-  bf16* xv[2];        // [xv | codes | 0] per net      (672)
+  bf16* xv[2];        // [xv | codes | 0] per net      (DXV)
   bf16* act[2];       // trunk activations             (DEPTH x W)
   bf16* feat[2];      // (W)
   bf16* hv[2];        // (HV)
@@ -99,7 +99,7 @@ struct Work {
   bf16* ghv[2];       // views cotangent               (HV)
   bf16* gs[2];        // head cotangents               (8)
   float* gx[2];       // [v | r | 0] input cotangent   (DXP)
-  float* gxv[2];      // views input cotangent         (672)
+  float* gxv[2];      // views input cotangent         (DXV)
   float* win;         // windows (K3/K4 only)          (24)
   float* bpart[2];    // per-tile bias partials        (ntile, BSZ)
   uint8_t* mask;      // per-tile ReLU masks, where not in shared memory
@@ -180,13 +180,14 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
 // Every product with W output columns runs as NBLK blocks of 256 (a
 // segment each); one with more output columns than that (the input
 // cotangents) is cut into 256-row chunks, one product each: ceil(DXP /
-// 256) for each of the two trunk-input cotangents, ceil(672 / 256) for
+// 256) for each of the two trunk-input cotangents, ceil(DXV / 256) for
 // the views input's.  The views layer's views-input part streams the
 // tile's views input in each stage after its weight rows, 128 rows a
 // segment; WIDE, the views layer's recompute runs in blocks of 128
 // outputs, each its feat part and its views-input part.  With viewfac
-// (K3, K4) the views-input part streams only the codes' k-slice and the
-// views input's cotangent is the codes' alone (16 rows).
+// (K3, K4) the views-input part streams only the codes' k-slice (from
+// VF_KB: NCODE + 16 columns) and the views input's cotangent is the
+// codes' alone (NCODE rows).
 constexpr int NXC = (DXP + 255) / 256;
 constexpr int NVC = (DXV + 255) / 256;
 constexpr int VXR = 128;
@@ -224,7 +225,7 @@ __host__ __device__ constexpr void put_chunks(SegTable& t, int& i,
 __host__ __device__ constexpr SegTable bwd_segs(bool viewfac) {
   SegTable t{};
   int i = 0;
-  const int kb = viewfac ? DXV - KS : 0;    // the codes' k-slice
+  const int kb = viewfac ? VF_KB : 0;       // the codes' k-slice
   // forward recompute
   for (int b = 0; b < NBLK; ++b)              // layer 0          A = X
     put(t, i, 0, (size_t)b * WB * DXP, WB, DXP, 0);

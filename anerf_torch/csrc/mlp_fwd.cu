@@ -10,7 +10,10 @@
 // the width the library is built for (nvcc -DANERF_DX=..., 1 to 2048,
 // 432 by default; the TPU kernel compiles per shape too), the views
 // parts (view encoding 648, 216 or 72, the subject channel 1 of a
-// multi-subject model, framecodes 16) to at most 672.  It is built for
+// multi-subject model, framecodes 16) to at most DXV, the views width
+// it is built for (nvcc -DANERF_DXV=..., 672 by default; past 672 the
+// parts' sum + 8 rounded up to 16, up to 1664: 1512 view columns at
+// multires_views 10, a subject channel, 128 framecodes).  It is built for
 // one net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH a multiple of 256,
 // -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads other nets'
 // weights with zeros): 1-64 layers, a layer of W outputs as W / 256
@@ -30,7 +33,7 @@
 // part's column offset (load_parts: a part's 64 rows are one contiguous
 // 16-byte-aligned run, read 16 bytes at a time and scattered value by
 // value, since a 649-wide bf16 row is 1298 bytes and rows are not even
-// 4-byte aligned), zero-fills the views input up to 672 columns, the
+// 4-byte aligned), zero-fills the views input up to DXV columns, the
 // trunk input up to the 16-column k-step and the rows past n, while the
 // producer warp has the first weight slices in flight; then it runs K1's MLP body (mlp_fwd_tile, mlp_fwd_common.cuh):
 // every weight through the TMA-fed ring of k-slices in shared memory,
@@ -40,7 +43,11 @@
 // ring and the activations in a block's 227 KB: layer 0 and the skip
 // layer then read it from the parts 256 columns at a time into a buffer
 // that their products refill between two barriers (ring_wgmma_x); the
-// sums run in the same order.  Numeric chain as in the TPU kernel: f32 bias and ReLU, a bf16
+// sums run in the same order.  A views input wider than 832 columns
+// does not fit beside them either: the views product then reads it
+// from the parts 256 columns at a time into the region the activations
+// take after it (ring_wgmma_xv), value by value (load_cols), which
+// costs K5 2.5 ms at n = 131,072 and 1664 columns (PERF.md §6).  Numeric chain as in the TPU kernel: f32 bias and ReLU, a bf16
 // re-cast between layers, feat rounded to bf16 after its bias, alpha and
 // rgb in f32.
 //
@@ -75,13 +82,13 @@ mlp_fwd_kernel(const Parts xs, const Parts xvs,
     return;
   }
   if constexpr (FWD_X_RESIDENT) load_parts(xs, sm.X, LDXF, DXP, t0, n);
-  load_parts(xvs, sm.XV, LDXV, DXV, t0, n);
+  if constexpr (FWD_XV_RESIDENT) load_parts(xvs, sm.XV, LDXV, DXV, t0, n);
   sync_tile();
 #if ANERF_WIDE
-  mlp_fwd_tile_wide(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs,
+  mlp_fwd_tile_wide(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs, &xvs,
                     work + (size_t)blockIdx.x * FWD_WORK_ELEMS);
 #else
-  mlp_fwd_tile<false>(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs);
+  mlp_fwd_tile<false>(rg, sm, wpack, bpack, out, 1, 4, t0, n, &xs, &xvs);
 #endif
 }
 
@@ -90,7 +97,7 @@ mlp_fwd_kernel(const Parts xs, const Parts xvs,
 extern "C" {
 
 // xs: nx trunk part pointers (n, xw[k]) bf16, summing to DX columns;
-// xvs: nxv views part pointers (n, xvw[k]) bf16, at most 672 columns;
+// xvs: nxv views part pointers (n, xvw[k]) bf16, at most DXV columns;
 // wpack/bpack: one packed weight set; workspace:
 // mlp_fwd_workspace_bytes(n) (none up to 512 wide); out (n, 4) f32.
 int mlp_fwd(const void* const* xs, const int* xw, int nx,
@@ -121,9 +128,10 @@ long long mlp_fwd_workspace_bytes(int n) {
   return (long long)((n + T - 1) / T) * (long long)FWD_WORK_ELEMS * 2;
 }
 
-// The build's trunk width and the sizes of one packed weight set, for
-// the wrapper's checks.
+// The build's trunk and views widths and the sizes of one packed
+// weight set, for the wrapper's checks.
 int mlp_trunk_width(void) { return DX; }
+int mlp_views_width(void) { return DXV; }
 int mlp_net_depth(void) { return DEPTH; }
 int mlp_net_width(void) { return W; }
 long long mlp_weight_elems(void) { return (long long)WSZ; }

@@ -21,12 +21,14 @@
 // Shared memory: the ring (4 stages of 16 KB, 3 at W = 512), X (T, LDX;
 // or, for a trunk input too wide to stay, XCH of its columns at a
 // time), and one region
-// that holds the views input XV (T, LDXV) and then the two activation
-// buffers H0, H1 (T, LDH) over it.  XV feeds one product, the views
-// layer's views-input part, so that product runs first, right after the
-// encode, into its own f32 accumulators that stay in registers through
-// the trunk; the feat part adds into them at the end.  (The views layer
-// thus sums its two parts in the other order than the plain twin.)  K2
+// that holds the views input XV (T, LDXV; or, for a views input too
+// wide to stay, XCH of its columns at a time) and then the two
+// activation buffers H0, H1 (T, LDH) over it.  XV feeds one product, the
+// views layer's views-input part, so that product runs first, right
+// after the encode, into its own f32 accumulators that stay in registers
+// through the trunk; the feat part adds into them at the end.  (The
+// views layer thus sums its two parts in the other order than the plain
+// twin.)  K2
 // encodes the views input again for its second net, from the windows
 // kept in shared memory.
 #pragma once
@@ -90,15 +92,16 @@ __host__ __device__ constexpr FSegTable fwd_segs(bool viewfac) {
     }
   }
   t.nmap = assign_maps(t.s, NFSEG, t.m);
-  if (viewfac) t.s[0].kb = DXV - KS;                // the codes' slice
+  if (viewfac) t.s[0].kb = VF_KB;                   // the codes' slice
   return t;
 }
 __constant__ FSegTable FSEGS = fwd_segs(false);
 __constant__ FSegTable FSEGS_VF = fwd_segs(true);
 constexpr FSegTable FSEGS_HOST = fwd_segs(false);
 static_assert(FSEGS_HOST.nmap > 0, "the forward's blocks on MAXMAP maps");
-static_assert(DXV - KS <= DE - 8 && DXV - KS + KS >= DE + NCODE,
-              "viewfac's codes slice holds the codes and no view rows");
+static_assert(VF_KB + 8 == DE && DXV - VF_KB >= VF_CW,
+              "viewfac's codes slice holds the codes and no view rows but "
+              "the 8 it masks");
 
 // The schedule covers the forward pack's matrices (everything before
 // the head vectors at OFF_A) exactly once: weight blocks of the forward
@@ -145,27 +148,39 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
 // buffer C of XCH columns for the A operands read back from device
 // memory.  X is the whole trunk input (T, LDX) where that fits in a
 // block's 227 KB with the kernel's additions, else a buffer of XCH
-// columns that its products refill (ring_wgmma_x), and then C too.  The
-// ring
+// columns that its products refill (ring_wgmma_x), and then C too.  XV
+// is the whole views input (T, LDXV) where that fits beside the ring and
+// a buffer of X (FWD_XV_RESIDENT), else its product refills XCH columns
+// at a time (ring_wgmma_xv): up to 512 wide in the XV region, which then
+// holds H0 and H1 alone, WIDE in C, the XV region then empty.  The ring
 // has 4 stages, 3 at W = 512, whose two (T, 520) activation buffers
 // leave no room for a fourth beside the trunk input's column buffer
 // (the buffer cannot share the activations' room: the skip layer reads
 // both); WIDE 4, or 3 where a resident X needs the room.
-constexpr size_t XH_ELEMS =
-    WIDE ? (size_t)T * LDXV : (size_t)T * (LDXV > 2 * LDH ? LDXV : 2 * LDH);
-constexpr size_t fwd_smem_bytes(int nstage, bool xres) {
+constexpr size_t xh_elems(bool xvres) {
+  return WIDE ? (xvres ? (size_t)T * LDXV : 0)
+              : (size_t)T * (xvres && LDXV > 2 * LDH ? LDXV : 2 * LDH);
+}
+constexpr size_t fwd_smem_bytes(int nstage, bool xres, bool xvres = true) {
   return 1024 + sizeof(bf16) * (size_t)nstage * STAGE +
          sizeof(uint64_t) * 16 +
-         sizeof(bf16) * ((size_t)T * (xres ? LDX : LDC) + XH_ELEMS +
+         sizeof(bf16) * ((size_t)T * (xres ? LDX : LDC) + xh_elems(xvres) +
                          (WIDE && xres ? (size_t)T * LDC : 0));
 }
 constexpr int FWD_NSTAGE = !WIDE ? (W == 512 ? 3 : 4)
                            : fwd_smem_bytes(4, true) <= SMEM_MAX ? 4
                            : fwd_smem_bytes(3, true) <= SMEM_MAX ? 3 : 4;
+// the views input stays where it fits beside a buffer of X (so every
+// shape whose views input stayed before keeps its bits), then X where it
+// fits beside what the views input takes
+constexpr bool FWD_XV_RESIDENT =
+    fwd_smem_bytes(FWD_NSTAGE, false, true) + SMEM_ADD <= SMEM_MAX;
 constexpr bool FWD_X_RESIDENT =
-    fwd_smem_bytes(FWD_NSTAGE, true) + SMEM_ADD <= SMEM_MAX;
+    fwd_smem_bytes(FWD_NSTAGE, true, FWD_XV_RESIDENT) + SMEM_ADD <= SMEM_MAX;
 constexpr int LDXF = FWD_X_RESIDENT ? LDX : LDC;
-constexpr size_t SMEM_FWD = fwd_smem_bytes(FWD_NSTAGE, FWD_X_RESIDENT);
+constexpr size_t XH_ELEMS = xh_elems(FWD_XV_RESIDENT);
+constexpr size_t SMEM_FWD =
+    fwd_smem_bytes(FWD_NSTAGE, FWD_X_RESIDENT, FWD_XV_RESIDENT);
 static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
 
 // the forward's schedule; VF: viewfac's (K1, K2)
@@ -184,7 +199,8 @@ struct FwdSmem {
   bf16* ring;
   uint64_t* bars;   // the ring's full and empty barriers
   bf16* X;
-  bf16* XV;         // the views input, then (up to 512 wide) H0, H1 over it
+  bf16* XV;         // the views input (or its column buffer), then (up to
+                    // 512 wide) H0, H1 over it
   bf16* H0;
   bf16* H1;
   bf16* C;          // WIDE: the A operands' column buffer
@@ -208,7 +224,7 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* base) {
 
 // viewfac (K1/K2): the codes' k-slice (T, LDCV) and the staging of M and
 // xw in the XV region
-constexpr int LDCV = KS + 8;
+constexpr int LDCV = VF_CW + 8;
 static_assert(WIDE || T * LDCV + VF_STAGE <= (int)XH_ELEMS,
               "viewfac's operands in the XV region");
 
@@ -391,6 +407,47 @@ __device__ __forceinline__ void ring_wgmma_x(Ring<SC>& r, float (&d)[NJ][4],
   }
 }
 
+// Where the views input does not stay resident (FWD_XV_RESIDENT), its
+// source: the split parts (K5: Parts, load_cols) or the view rows,
+// windows and codes that K1/K2 build it from (XvEnc, encode_views).
+// xv_cols brings columns c0 .. c1-1 of the tile's rows into dst (stride
+// LDC); leaves the block unsynchronised.
+__device__ __forceinline__ void xv_cols(const Parts& xvs, bf16* dst, int c0,
+                                        int c1, int t0, int n) {
+  load_cols(xvs, dst, LDC, c0, c1, t0, n);
+}
+
+__device__ __forceinline__ void xv_cols(const XvEnc& xe, bf16* dst, int c0,
+                                        int c1, int t0, int n) {
+  encode_views(xe, dst, LDC, c0, c1, t0, n);
+}
+
+// d += XV @ Wseg^T over the ring's next segment, whose A operand is the
+// views input: resident in sm.XV, or, where it does not fit, brought
+// from its source xvs (xv_cols) XCH columns at a time between two
+// barriers of the consumer warps into the XV region (up to 512 wide,
+// before H0 and H1 take it) or sm.C (WIDE).  The sums run in the same
+// order either way.  (Viewfac's codes slice always stays resident.)
+template <class SC, int NJ, class XVS>
+__device__ __forceinline__ void ring_wgmma_xv(Ring<SC>& r, float (&d)[NJ][4],
+                                              const FwdSmem& sm,
+                                              const XVS* xvs, int t0,
+                                              int n) {
+  if constexpr (FWD_XV_RESIDENT) {
+    ring_wgmma(r, d, sm.XV, LDXV);
+  } else {
+    bf16* buf = WIDE ? sm.C : sm.XV;
+    const Seg s = ring_next_seg(r);
+    for (int c0 = 0; c0 < s.K; c0 += XCH) {
+      const int c1 = min(c0 + XCH, s.K);
+      sync_tile();  // every warp is past its reads of the last columns
+      xv_cols(*xvs, buf, c0, c1, t0, n);
+      sync_tile();
+      wgmma_slices(r, d, buf, LDC, c0, c1);
+    }
+  }
+}
+
 // d += A @ Wseg^T over the ring's next segment, A (T rows, row stride
 // lda) in device memory, brought into sm.C XCH columns at a time between
 // two barriers of the consumer warps (WIDE)
@@ -485,7 +542,8 @@ __device__ __forceinline__ void rgb_head(const bf16* hv, int ld,
 // ---- the MLP forward of one 64-point tile, up to 512 wide ----------------
 // X (the trunk input, where it stays resident; else xs, its source:
 // x_cols) and
-// XV (the views input) complete in shared memory and the consumers
+// XV (the views input, where it stays resident; else xvs, its source:
+// xv_cols) complete in shared memory and the consumers
 // synchronised; the ring's schedule at the net's first
 // segment.  Wn/Bn = one net's packed weights and biases (the heads'
 // vectors are read from Wn directly).  Writes channel ch of point
@@ -498,7 +556,7 @@ __device__ __forceinline__ void rgb_head(const bf16* hv, int ld,
 // views-input part is that slice's product plus xw @ M (vf_xw_m).
 // Run by the consumer warps; ends with them synchronised, past every
 // read of the region that holds XV.
-template <bool VF, class XS = Parts>
+template <bool VF, class XS = Parts, class XVS = Parts>
 __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
                                              const FwdSmem& sm,
                                              const bf16* __restrict__ Wn,
@@ -506,15 +564,19 @@ __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
                                              float* __restrict__ out,
                                              size_t cs, size_t ps, int t0,
                                              int n,
-                                             const XS* xs = nullptr) {
+                                             const XS* xs = nullptr,
+                                             const XVS* xvs = nullptr) {
   const int tid = threadIdx.x, wg = tid >> 7;
   constexpr int NJV = HV / 16;  // the views layer: HV / 2 columns a group
-  // ---- the views layer's views-input part, while XV is resident -------
+  // ---- the views layer's views-input part, before the trunk ------------
   float dv[NJV][4];
   zero_wg(dv);
-  ring_wgmma(rg, dv, sm.XV, VF ? LDCV : LDXV);
-  if constexpr (VF)
+  if constexpr (VF) {
+    ring_wgmma(rg, dv, sm.XV, LDCV);
     vf_xw_m<NJV>(dv, sm.XV + T * LDCV, 16 * ((tid >> 5) & 3), wg * (HV / 2));
+  } else {
+    ring_wgmma_xv(rg, dv, sm, xvs, t0, n);
+  }
 
   // ---- density trunk -----------------------------------------------------
   float d[16][4];
@@ -570,12 +632,13 @@ __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
 // Each trunk block, feat block and views block reads its A operand back
 // XCH columns at a time (ring_wgmma_g); the views layer runs last, in
 // NVB blocks of 128 outputs (warpgroup g takes 64), each its views-input
-// part from XV (resident in shared memory throughout) then its feat
-// part, the order of mlp_fwd_tile's sums.
+// part from XV (resident in shared memory throughout, or brought from
+// xvs XCH columns at a time: ring_wgmma_xv) then its feat part, the
+// order of mlp_fwd_tile's sums.
 __device__ __forceinline__ void mlp_fwd_tile_wide(
     FwdRing& rg, const FwdSmem& sm, const bf16* __restrict__ Wn,
     const float* __restrict__ Bn, float* __restrict__ out, size_t cs,
-    size_t ps, int t0, int n, const Parts* xs, bf16* hw) {
+    size_t ps, int t0, int n, const Parts* xs, const Parts* xvs, bf16* hw) {
   const int wg = threadIdx.x >> 7;
   bf16* hin = hw;
   bf16* hout = hw + T * W;
@@ -614,7 +677,7 @@ __device__ __forceinline__ void mlp_fwd_tile_wide(
 #pragma unroll 1
   for (int v = 0; v < NVB; ++v) {
     zero_wg(dv);
-    ring_wgmma(rg, dv, sm.XV, LDXV);
+    ring_wgmma_xv(rg, dv, sm, xvs, t0, n);
     ring_wgmma_g(rg, dv, sm, hout, W);
     store_wg<8, true>(dv, Bn + OB_V, hv, v * VB + wg * (VB / 2), HV);
   }

@@ -57,10 +57,17 @@
 // C interface (loaded with ctypes): every pointer is device memory, the
 // stream is PyTorch's current stream; returns cudaGetLastError().
 //
-// Built per view PE row count NB (1-9: a joint's NB x 3 view columns fit
-// the 32 of two k-steps; nvcc -DANERF_NB, ops/cuda_build.py) and views
-// layer width HV (128, or 256 for a net 512 wide: -DANERF_WIDTH), the
-// flagship's 9 and 128 (27 columns, the counts above) by default.
+// Built per view PE row count NB (1-21: -DANERF_NB, ops/cuda_build.py)
+// and views layer width HV (128, or 256 for a net 512 wide:
+// -DANERF_WIDTH), the flagship's 9 and 128 (27 columns, the counts
+// above) by default.  Up to 9 rows a joint's NB x 3 view columns fit the
+// 32 of two k-steps (KB); past that (11-21 rows, 33-63 columns) K-vf1
+// takes them in KB = 48 or 64 (whole k-steps), its staged weights then
+// one block a multiprocessor past 11 rows (VM_BLOCKS: 180 KB at 21),
+// and K-vf2 takes them in two blocks along a third grid dimension, each
+// its even share of the columns in the 32-column block above (FO_NBH,
+// FO_NBJ: dWvx and denc are per column), each reading its rays' Gw:
+// Gw's 25.2 MB twice at R = 2048.
 //
 // At HV = 256 the two kernels differ in how they take the extra columns.
 // K-vf1's columns are independent (M[r, j, h] sums over b alone), so a
@@ -80,11 +87,13 @@ static_assert(HV == 128 || HV == 256,
               "viewfac's kernels take a views layer 128 or 256 wide");
 
 constexpr int NBJ = NB * 3;          // 27 view columns a joint
-constexpr int KB = 32;               // NBJ zero-padded to two k-steps
+// K-vf1: NBJ zero-padded to two k-steps, or past 32 (11 view rows and
+// up) to whole k-steps: 48 at 11-15 rows, 64 at 17-21
+constexpr int KB = NBJ <= 32 ? 32 : (NBJ + 15) / 16 * 16;
 constexpr int JG = 8;                // joints a group: a sector of enc
 constexpr int HCH = HV / 8;          // 16-byte chunks a row of M
 constexpr int NTH = 256;
-static_assert(J % JG == 0 && NBJ <= KB, "whole joint groups");
+static_assert(J % JG == 0 && NBJ <= KB && KB <= 64, "whole joint groups");
 
 // ---- asynchronous copies and the cluster's shared memory ---------------
 
@@ -153,15 +162,18 @@ constexpr int VM_O = VM_RAYS * JG * VM_H;  // output tile: [ray][jj][VM_H], swiz
 constexpr int VM_SMEM = 2 * (VM_W + VM_E + VM_O + 8);
 constexpr int VM_NP = VM_RAYS * NBJ;   // a tile's (ray, b) sectors of enc
 constexpr int VM_PPT = (VM_NP + NTH - 1) / NTH;
+// blocks a multiprocessor: two up to 11 view rows, past that one (the
+// group's staged weights grow with NBJ: 180 KB a block at 21 rows)
+constexpr int VM_BLOCKS = 2 * (VM_SMEM + 1024) <= 233472 ? 2 : 1;
 static_assert(VM_H * VM_HALF == HV, "whole column blocks of M");
-static_assert(2 * (VM_SMEM + 1024) <= 233472, "two blocks a multiprocessor");
+static_assert(VM_SMEM + 1024 <= 233472, "a block a multiprocessor");
 
 // M[net, r, j0 .. j0 + 7, h0 .. h0 + VM_H - 1] for the rays r of tiles
 // q, q + Q, ... (Q = gridDim.x) at joint group blockIdx.y, (net, column
 // block) blockIdx.z = net VM_HALF + h0 / VM_H; enc (R, DE) f32, wvx
 // (nnet, DE, HV) bf16.  The group's weights are staged once; the next
 // tile's view values load while this one's products run.
-__global__ void __launch_bounds__(NTH, 2)
+__global__ void __launch_bounds__(NTH, VM_BLOCKS)
 vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
                 bf16* __restrict__ M, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -184,7 +196,7 @@ vf_m_mma_kernel(const float* __restrict__ enc, const bf16* __restrict__ wvx,
   }
   cp_async_commit();
   if (tid == 0) *reinterpret_cast<uint4*>(Z) = make_uint4(0u, 0u, 0u, 0u);
-  // E's pads b = 27 .. 31 stay zero
+  // E's pads b = NBJ .. KB - 1 (27 .. 31) stay zero
   for (int i = tid; i < JG * VM_RAYS * (KB - NBJ); i += NTH) {
     const int row = i / (KB - NBJ);
     Es[row * VM_LDE + NBJ + i - row * (KB - NBJ)] = __ushort_as_bfloat16(0);
@@ -273,25 +285,36 @@ constexpr int FO_SLICE = 64;           // rays a slice
 constexpr int FO_CH = 32;              // Gw's rays a stage: two a slice
 constexpr int FO_NST = 3;              // stages in the ring
 constexpr int FO_NB = 3;               // slices' E and Ds buffers
+// a block's view columns b: 32 (two k-steps) at most; past 32 a joint
+// (11 view rows and up) the blocks of a third grid dimension share the
+// columns evenly, FO_NBJ each (17 at 11 rows, 32 at 21; dWvx and denc
+// are per column: no sum crosses them), each reading its rays' Gw again
+constexpr int FO_KB = 32;
+constexpr int FO_NBH = (NBJ + FO_KB - 1) / FO_KB;   // column blocks
+constexpr int FO_NBJ = (NBJ + FO_NBH - 1) / FO_NBH;  // a block's at most
 constexpr int FO_LDG = HV + 8;         // a stage's row stride (bf16)
-constexpr int FO_LDE = KB + 8;         // E's row stride (bf16)
-constexpr int FO_W = 2 * KB * HV;      // both nets' rows: [net][b][HV], swizzled
+constexpr int FO_LDE = FO_KB + 8;      // E's row stride (bf16)
+constexpr int FO_W = 2 * FO_KB * HV;   // both nets' rows: [net][b][HV], swizzled
 constexpr int FO_E = FO_SLICE * FO_LDE;    // a slice's view values: [ray][b]
-constexpr int FO_D = FO_SLICE * NBJ;   // a slice's denc at the joint: [ray][b]
+constexpr int FO_D = FO_SLICE * FO_NBJ;    // a slice's denc at the joint: [ray][b]
 constexpr int FO_G = 2 * FO_CH * FO_LDG;   // a stage: [net][ray][HV]
 constexpr size_t FO_SMEM = 2 * ((size_t)FO_W + FO_NB * FO_E + FO_NST * FO_G) +
                            sizeof(float) * (FO_NB * FO_D + NTH * JG);
-// blocks a multiprocessor: two at HV = 128, one at 256 (the note above)
-constexpr int FO_BLOCKS = HV == 128 ? 2 : 1;
+// blocks a multiprocessor: two at HV = 128 where a block's view columns
+// are at most 27 (up to 9 view rows, 11-17 rows' halves), else one (the
+// note above)
+constexpr int FO_BLOCKS = 2 * (FO_SMEM + 1024) <= 233472 ? 2 : 1;
 static_assert(FO_BLOCKS * (FO_SMEM + 1024) <= 233472,
               "FO_BLOCKS blocks a multiprocessor");
 static_assert(FO_SLICE == 2 * FO_CH && FO_SLICE * 4 == NTH && FO_D % 4 == 0,
               "a thread a (ray, 8 b) unit's b, and a (unit, joint)");
 
-// Block (joint j = blockIdx.x, partial y = blockIdx.y), cluster rank
-// j % JG: the dWvx partial of joint j's rows over the slices y, y + P,
-// ... (P = gridDim.y) of FO_SLICE rays, both nets, and denc of those
-// slices' rays at joint j.  Gw streams through a ring of FO_NST stages
+// Block (joint j = blockIdx.x, partial y = blockIdx.y, view columns b0
+// = FO_NBJ blockIdx.z .. b0 + FO_NBJ - 1), cluster rank j % JG: the
+// dWvx partial of
+// joint j's rows of those columns over the slices y, y + P, ... (P =
+// gridDim.y) of FO_SLICE rays, both nets, and denc of those slices' rays
+// at joint j and those columns.  Gw streams through a ring of FO_NST stages
 // across the slices.  A slice's view values come in as (ray, 8 b)
 // units, each unit's 8 sectors read by one block of the cluster (a
 // sector a thread, cp.async into Xf) and handed to the 8 blocks as
@@ -314,6 +337,10 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
   float* Xf = Ds + FO_NB * FO_D;         // [unit][b][joint]: a sector a thread
   const int tid = threadIdx.x, j = blockIdx.x, jj = j % JG, j0 = j - jj;
   const int y = blockIdx.y, P = gridDim.y;
+  // this block's view columns b0 .. b0 + nbj - 1 (all NBJ in one block
+  // up to 9 view rows); b below counts from b0
+  const int b0 = blockIdx.z * FO_NBJ;
+  const int nbj = FO_NBH == 1 ? NBJ : min(FO_NBJ, NBJ - b0);
   const int nslice = (R + FO_SLICE - 1) / FO_SLICE;
   const int T = (nslice - y + P - 1) / P;          // this block's slices
   const int K = 2 * T;                             // and their stages
@@ -324,8 +351,8 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
   auto load_x = [&](int t) {
     const int u = jj + JG * (tid >> 3), b = (u & 3) * 8 + (tid & 7);
     const int r = slice_ray(t) + (u >> 2);
-    const bool on = b < NBJ && r < R;
-    const float* src = enc + (on ? (size_t)r * DE + b * J + j0 : 0);
+    const bool on = b < nbj && r < R;
+    const float* src = enc + (on ? (size_t)r * DE + (b0 + b) * J + j0 : 0);
     cp_async16(Xf + tid * JG, src, on ? 16 : 0);
     cp_async16(Xf + tid * JG + 4, src + 4, on ? 16 : 0);
   };
@@ -347,10 +374,10 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
                                        2),
                   pack8(v));
   };
-  // slice t's denc: this block's run of its (ray, b) pairs, i / 27 and
-  // i % 27, 4 at a time, each pair's 8 joints from the 8 blocks' Ds
+  // slice t's denc: this block's run of its (ray, b) pairs, i / nbj and
+  // i % nbj, 4 at a time, each pair's 8 joints from the 8 blocks' Ds
   auto pull_d = [&](int t) {
-    const int npair = min(FO_SLICE, R - slice_ray(t)) * NBJ;
+    const int npair = min(FO_SLICE, R - slice_ray(t)) * nbj;
     const int per = (npair + 4 * JG - 1) / (4 * JG) * 4;
     const uint32_t dof = (uint32_t)(t % FO_NB) * FO_D * 4u;
     for (int i0 = jj * per + 4 * tid; i0 < min(npair, (jj + 1) * per);
@@ -366,10 +393,10 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
           {v[6].x, v[6].y, v[6].z, v[6].w}, {v[7].x, v[7].y, v[7].z, v[7].w}};
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
-        const int i = i0 + p, r = i / NBJ, b = i - r * NBJ;
+        const int i = i0 + p, r = i / nbj, b = i - r * nbj;
         if (i < npair) {
           float4* o = reinterpret_cast<float4*>(
-              denc + (size_t)(slice_ray(t) + r) * DE + b * J + j0);
+              denc + (size_t)(slice_ray(t) + r) * DE + (b0 + b) * J + j0);
           o[0] = make_float4(w[0][p], w[1][p], w[2][p], w[3][p]);
           o[1] = make_float4(w[4][p], w[5][p], w[6][p], w[7][p]);
         }
@@ -390,19 +417,20 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
     }
   };
 
-  // both nets' 27 weight rows of joint j, rows 27 .. 31 zero
-  for (int i = tid; i < nnet * NBJ * HCH; i += NTH) {
-    const int row = i / HCH, c = i - row * HCH, n = row / NBJ;
-    const int b = row - n * NBJ;
-    cp_async16(Ws + (n * KB + b) * HV + swz(b, c),
-               wvx + ((size_t)n * DE + b * J + j) * HV + c * 8);
+  // both nets' nbj (27) weight rows of joint j, rows nbj .. 31 zero
+  for (int i = tid; i < nnet * nbj * HCH; i += NTH) {
+    const int row = i / HCH, c = i - row * HCH, n = row / nbj;
+    const int b = row - n * nbj;
+    cp_async16(Ws + (n * FO_KB + b) * HV + swz(b, c),
+               wvx + ((size_t)n * DE + (b0 + b) * J + j) * HV + c * 8);
   }
   load_x(0);
   cp_async_commit();
-  for (int i = tid; i < 2 * (KB - NBJ) * HCH; i += NTH) {
-    const int row = i / HCH, n = row / (KB - NBJ);
-    *reinterpret_cast<uint4*>(Ws + (n * KB + NBJ + row - n * (KB - NBJ)) *
-                                       HV + (i - row * HCH) * 8) =
+  for (int i = tid; i < 2 * (FO_KB - nbj) * HCH; i += NTH) {
+    const int row = i / HCH, n = row / (FO_KB - nbj);
+    *reinterpret_cast<uint4*>(Ws + (n * FO_KB + nbj + row -
+                                    n * (FO_KB - nbj)) * HV +
+                              (i - row * HCH) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
   for (int k = 0; k < FO_NST - 1; ++k) {
@@ -488,7 +516,8 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
             ldsm_x4(a, G + (n * FO_CH + mt * 16 + (lane & 15)) * FO_LDG +
                            ks * 16 + (lane >> 4) * 8);
             const int wr = nb * 16 + r8 + ((mat >> 1) << 3);
-            ldsm_x4(bb, Ws + (n * KB + wr) * HV + swz(wr, ks * 2 + (mat & 1)));
+            ldsm_x4(bb,
+                    Ws + (n * FO_KB + wr) * HV + swz(wr, ks * 2 + (mat & 1)));
             mma_bf16(e8[0], a, bb[0], bb[1]);
             mma_bf16(e8[1], a, bb[2], bb[3]);
           }
@@ -499,8 +528,8 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
           for (int hf = 0; hf < 2; ++hf) {
             const int r = h * FO_CH + mt * 16 + g + 8 * hf;
             const int b = nb * 16 + nt * 8 + 2 * q;
-            if (b < NBJ) D[r * NBJ + b] = e8[nt][2 * hf];
-            if (b + 1 < NBJ) D[r * NBJ + b + 1] = e8[nt][2 * hf + 1];
+            if (b < nbj) D[r * nbj + b] = e8[nt][2 * hf];
+            if (b + 1 < nbj) D[r * nbj + b + 1] = e8[nt][2 * hf + 1];
           }
       }
       __syncthreads();   // the stage is free for the load FO_NST - 1 on
@@ -528,8 +557,8 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int b = m * 16 + g + 8 * hf;
-          if (b < NBJ)
-            *reinterpret_cast<float2*>(o + (size_t)(b * J + j) * HV +
+          if (b < nbj)
+            *reinterpret_cast<float2*>(o + (size_t)((b0 + b) * J + j) * HV +
                                        nh * (HV / 2) + t * 8 + 2 * q) =
                 make_float2(dacc[m][t][2 * hf], dacc[m][t][2 * hf + 1]);
         }
@@ -585,7 +614,7 @@ int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
   if (nnet < 1 || nnet > 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem_once();
   if (err != cudaSuccess) return (int)err;
-  // two blocks a multiprocessor, each a run of ray tiles
+  // VM_BLOCKS blocks a multiprocessor, each a run of ray tiles
   int dev = 0, nsm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
@@ -593,7 +622,7 @@ int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
     return (int)err;
   const int ntile = (R + VM_RAYS - 1) / VM_RAYS;
   const int lanes =
-      max(1, min(ntile, 2 * nsm / (J / JG * nnet * VM_HALF)));
+      max(1, min(ntile, VM_BLOCKS * nsm / (J / JG * nnet * VM_HALF)));
   vf_m_mma_kernel<<<dim3(lanes, J / JG, nnet * VM_HALF), NTH, VM_SMEM,
                     (cudaStream_t)stream>>>(
       enc, reinterpret_cast<const bf16*>(wvx), reinterpret_cast<bf16*>(M), R);
@@ -617,7 +646,7 @@ int viewfac_fold(const void* gw, const float* enc, const void* wvx,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const long long per = (long long)DE * HV;
-  vf_fold_kernel<<<dim3(J, P), NTH, FO_SMEM, st>>>(
+  vf_fold_kernel<<<dim3(J, P, FO_NBH), NTH, FO_SMEM, st>>>(
       reinterpret_cast<const bf16*>(gw), enc,
       reinterpret_cast<const bf16*>(wvx), P > 1 ? part : dw,
       P > 1 ? per : wstride, P > 1 ? per * nnet : 0, denc, R, nnet);

@@ -15,16 +15,17 @@ source, and for the split-operand MLP kernels one per shape:
 Every library is compiled for one static shape, as the TPU's Mosaic
 compiles its kernel per static shape.  K5 and K6: a trunk width
 (``-DANERF_DX=dx``, the sum of the trunk parts: 432 at the flagship's
-encoders, 117, 1152 or 1197 at others') and a net (``-DANERF_DEPTH``,
+encoders, 117, 1152 or 1197 at others'), a net (``-DANERF_DEPTH``,
 ``-DANERF_WIDTH`` a multiple of 256, ``-DANERF_SKIP``: the depth, the
 width a net is padded to, the skip after layer 4;
-``fused_mlp.kernel_static``).  K1-K4: an encode shape ``(NF, NB, bone
-window, depth, width)`` (``-DANERF_NF`` kp bands, ``-DANERF_NB`` view
-PE rows, ``-DANERF_BONE_WIN``, ``-DANERF_DX`` their trunk width,
-``-DANERF_DEPTH`` and, past 256, ``-DANERF_WIDTH``;
-``fused_encmlp.kernel_shape``), and K-vf1/K-vf2 its view rows NB and
-views width HV (``-DANERF_WIDTH`` = 2 HV past 128).  The flagship's
-shapes build with no flags.
+``fused_mlp.kernel_static``) and a views width (``-DANERF_DXV``, past
+672: ``MLPStatic.xv_pad``).  K1-K4: an encode shape ``(NF, NB, bone
+window, depth, width, framecode columns)`` (``-DANERF_NF`` kp bands,
+``-DANERF_NB`` view PE rows, ``-DANERF_BONE_WIN``, ``-DANERF_DX`` their
+trunk width, ``-DANERF_DEPTH`` and, past 256, ``-DANERF_WIDTH``, past
+16 ``-DANERF_NCODE``; ``fused_encmlp.kernel_shape``), and K-vf1/K-vf2
+its view rows NB and views width HV (``-DANERF_WIDTH`` = 2 HV past
+128).  The flagship's shapes build with no flags.
 ``build_kernels`` starts one nvcc per library it lacks, all together,
 into ``anerf_torch/_build/``; each library is keyed by the hash of its
 source, the shared headers (``csrc/*.cuh``) and its shape's flags, so an
@@ -57,40 +58,58 @@ _SHAPED = ('mlp_fwd', 'mlp_bwd')
 _ENC = ('fwd', 'bwd', 'viewfac')
 FLAGSHIP_DX = 432
 FLAGSHIP_NET = (8, 256)
+# K5/K6's views width up to 672 parts' columns (csrc/encmlp_common.cuh
+# DXV's default)
+FLAGSHIP_XV = 672
 SKIP = 4
 # K1-K4's flagship shape: (kp bands NF, view PE rows NB, bone window,
-# depth, width), the defaults of csrc/encmlp_common.cuh; K-vf1/K-vf2's:
-# (NB, views width HV)
-FLAGSHIP_ENC = (7, 9, False, 8, 256)
+# depth, width, framecode columns NCODE), the defaults of
+# csrc/encmlp_common.cuh (a shape of five leaves NCODE at 16);
+# K-vf1/K-vf2's: (NB, views width HV)
+FLAGSHIP_ENC = (7, 9, False, 8, 256, 16)
 FLAGSHIP_VF = (9, 128)
 _BUILD_DIR = os.path.join(_ROOT, '_build')
 # lib_key(...) -> the loaded library
 _LIBS: Dict[Tuple, ctypes.CDLL] = {}
 
 
+def enc_shape(enc: Optional[Tuple] = None) -> Tuple:
+    """A K1-K4 encode shape as six values (NF, NB, bone window, depth,
+    width, framecode columns): the flagship's for None, NCODE 16 for a
+    shape of five."""
+    nf, nb, bw, d, w, *nc = FLAGSHIP_ENC if enc is None else enc
+    return (int(nf), int(nb), bool(bw), int(d), int(w),
+            int(nc[0]) if nc else FLAGSHIP_ENC[5])
+
+
 def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
-            width: int = 256, enc: Optional[Tuple] = None) -> Tuple:
+            width: int = 256, enc: Optional[Tuple] = None,
+            xv: int = FLAGSHIP_XV) -> Tuple:
     """``_LIBS``'s key of library ``which``.  K5/K6 at trunk width ``dx``
-    (the flagship's by default) and a ``depth`` x ``width`` net (the
-    compiled width, a multiple of 256): ``(which, dx)`` at the
-    flagship's 8 x 256 and ``(which, dx, depth, width)`` at any other
-    net.  K1-K4 (``'fwd'``, ``'bwd'``) at the encode shape ``enc`` =
-    (NF, NB, bone window, depth, width) and K-vf1/K-vf2 (``'viewfac'``)
-    at ``enc`` = (view PE rows NB, views width HV): ``(which, None)`` at
-    the flagship's, else ``(which, 'enc', NF, NB, bone window, depth,
-    width)`` and ``('viewfac', 'enc', NB, HV)``."""
+    (the flagship's by default), a ``depth`` x ``width`` net (the
+    compiled width, a multiple of 256) and views width ``xv``:
+    ``(which, dx)`` at the flagship's 8 x 256 and 672, ``(which, dx,
+    depth, width)`` at any other net, ``(which, dx, depth, width, xv)``
+    past 672.  K1-K4 (``'fwd'``, ``'bwd'``) at the encode shape ``enc``
+    (``enc_shape``) and K-vf1/K-vf2 (``'viewfac'``) at ``enc`` = (view PE
+    rows NB, views width HV): ``(which, None)`` at the flagship's, else
+    ``(which, 'enc', NF, NB, bone window, depth, width)`` (framecodes of
+    16) or ``(which, 'enc', NF, NB, bone window, depth, width, NCODE)``
+    and ``('viewfac', 'enc', NB, HV)``."""
     if which not in _SOURCES:
         raise KeyError(f'no library {which!r}')
     if which == 'viewfac':
         vf = FLAGSHIP_VF if enc is None else (int(enc[0]), int(enc[1]))
         return (which, None) if vf == FLAGSHIP_VF else (which, 'enc') + vf
     if which in _ENC:
-        nf, nb, bw, d, w = FLAGSHIP_ENC if enc is None else enc
-        shape = (int(nf), int(nb), bool(bw), int(d), int(w))
+        shape = enc_shape(enc)
         if shape == FLAGSHIP_ENC:
             return which, None
-        return (which, 'enc') + shape
+        return (which, 'enc') + (shape if shape[5] != FLAGSHIP_ENC[5]
+                                 else shape[:5])
     dx = FLAGSHIP_DX if dx is None else int(dx)
+    if int(xv) != FLAGSHIP_XV:
+        return which, dx, int(depth), int(width), int(xv)
     if (int(depth), int(width)) == FLAGSHIP_NET:
         return which, dx
     return which, dx, int(depth), int(width)
@@ -99,8 +118,9 @@ def lib_key(which: str, dx: Optional[int] = None, depth: int = 8,
 def _shape_flags(key: Tuple) -> list:
     """nvcc's defines of a key: none at the flagship's shapes; for
     K5/K6 the trunk width and, at a net other than 8 x 256, the net's
-    depth, width and skip layer; for K1-K4 every define of the encode
-    shape, for K-vf1/K-vf2 its view rows."""
+    depth, width and skip layer, past 672 the views width; for K1-K4
+    every define of the encode shape (NCODE past 16), for K-vf1/K-vf2
+    its view rows."""
     if key[1] is None:
         return []
     if key[1] == 'enc':
@@ -108,17 +128,20 @@ def _shape_flags(key: Tuple) -> list:
             nb, hv = key[2:]
             return [f'-DANERF_NB={nb}'] + (
                 [f'-DANERF_WIDTH={2 * hv}'] if hv != FLAGSHIP_VF[1] else [])
-        nf, nb, bw, depth, width = key[2:]
+        nf, nb, bw, depth, width, ncode = enc_shape(key[2:])
         flags = [f'-DANERF_NF={nf}', f'-DANERF_NB={nb}',
                  f'-DANERF_DX={(2 * nf + 1) * 24 + 72}',
                  f'-DANERF_DEPTH={depth}', f'-DANERF_BONE_WIN={int(bw)}']
         return flags + ([f'-DANERF_WIDTH={width}']
-                        if width != FLAGSHIP_ENC[4] else [])
-    depth, width = key[2:] if len(key) == 4 else FLAGSHIP_NET
+                        if width != FLAGSHIP_ENC[4] else []) + (
+            [f'-DANERF_NCODE={ncode}'] if ncode != FLAGSHIP_ENC[5] else [])
+    depth, width = key[2:4] if len(key) >= 4 else FLAGSHIP_NET
     flags = [f'-DANERF_DX={key[1]}']
     if (depth, width) != FLAGSHIP_NET:
         flags += [f'-DANERF_DEPTH={depth}', f'-DANERF_WIDTH={width}',
                   f'-DANERF_SKIP={SKIP}']
+    if len(key) == 5:
+        flags.append(f'-DANERF_DXV={key[4]}')
     return flags
 
 
@@ -130,11 +153,14 @@ def _tag(key: Tuple) -> str:
     if key[1] == 'enc':
         if key[0] == 'viewfac':
             return f'{stem}_nb{key[2]}hv{key[3]}'
-        nf, nb, bw, depth, width = key[2:]
-        return f'{stem}_nf{nf}nb{nb}bw{int(bw)}d{depth}w{width}'
+        nf, nb, bw, depth, width, ncode = enc_shape(key[2:])
+        return (f'{stem}_nf{nf}nb{nb}bw{int(bw)}d{depth}w{width}'
+                + (f'c{ncode}' if ncode != FLAGSHIP_ENC[5] else ''))
     tag = f'{stem}_dx{key[1]}'
-    if len(key) == 4:
+    if len(key) >= 4:
         tag += f'_d{key[2]}w{key[3]}'
+    if len(key) == 5:
+        tag += f'_xv{key[4]}'
     return tag
 
 
@@ -200,6 +226,8 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
     if which in _SHAPED:
         for name in ('mlp_trunk_width', 'mlp_net_depth', 'mlp_net_width'):
             sig(name, [])
+    if which == 'mlp_fwd' and hasattr(lib, 'mlp_views_width'):
+        sig('mlp_views_width', [])
     # the build's encode shape (absent from builds before it was a
     # define, which scripts/compare_builds.py loads)
     if which in ('fwd', 'bwd') and hasattr(lib, 'encmlp_shape'):
@@ -216,10 +244,11 @@ def _check_built(key: Tuple, lib: ctypes.CDLL) -> None:
         want = FLAGSHIP_VF if key[1] is None else key[2:]
         got = lib.viewfac_rows(), lib.viewfac_width()
     elif key[0] in _ENC:
-        want = FLAGSHIP_ENC if key[1] is None else key[2:]
-        out = (ctypes.c_int * 5)()
-        lib.encmlp_shape(out)
-        got = out[0], out[1], bool(out[2]), out[3], out[4]
+        want = enc_shape(None if key[1] is None else key[2:])
+        out = (ctypes.c_int * 6)()
+        count = lib.encmlp_shape(out)
+        got = enc_shape((out[0], out[1], bool(out[2]), out[3], out[4])
+                        + tuple(out[5:count]))
     else:
         return
     if got != want:
@@ -228,23 +257,24 @@ def _check_built(key: Tuple, lib: ctypes.CDLL) -> None:
 
 def build_kernels(verbose: bool = False,
                   trunk_widths: Iterable[int] = (),
-                  shapes: Iterable[Tuple[int, int, int]] = (),
-                  enc_shapes: Iterable[Tuple[int, int, bool, int, int]] = (),
+                  shapes: Iterable[Tuple[int, ...]] = (),
+                  enc_shapes: Iterable[Tuple] = (),
                   view_shapes: Iterable[Tuple[int, int]] = ()) -> float:
     """Compile every library not loaded yet for sm_90a into ``_build/``:
     K1-K4's, K-vf1/K-vf2's and K5/K6's at the flagship's shape, K5/K6's at each of
     ``trunk_widths`` (8 x 256 nets) and at each (trunk width, depth,
-    compiled width) of ``shapes``, K1-K4's and K-vf1/K-vf2's at each
-    (NF, NB, bone window, depth, width) of ``enc_shapes``,
-    K-vf1/K-vf2's at each (NB, HV) of ``view_shapes``; one nvcc per
-    library, all started together.  Load them, and return the seconds
-    spent (0 when all were loaded already).  A failed build raises with
-    nvcc's output."""
+    compiled width[, views width]) of ``shapes``, K1-K4's and
+    K-vf1/K-vf2's at each encode shape (``enc_shape``) of
+    ``enc_shapes``, K-vf1/K-vf2's at each (NB, HV) of ``view_shapes``;
+    one nvcc per library, all started together.  Load them, and return
+    the seconds spent (0 when all were loaded already).  A failed build
+    raises with nvcc's output."""
     wanted = [lib_key(w) for w in _SOURCES]
     wanted += [lib_key(w, dx) for dx in sorted(set(trunk_widths))
                for w in _SHAPED]
-    wanted += [lib_key(w, *shape) for shape in dict.fromkeys(shapes)
-               for w in _SHAPED]
+    wanted += [lib_key(w, *shape[:3], xv=shape[3] if len(shape) > 3
+                       else FLAGSHIP_XV)
+               for shape in dict.fromkeys(shapes) for w in _SHAPED]
     enc_shapes = list(dict.fromkeys(enc_shapes))
     wanted += [lib_key(w, enc=shape) for shape in enc_shapes
                for w in ('fwd', 'bwd')]
@@ -305,14 +335,15 @@ def build_kernels(verbose: bool = False,
 
 
 def library(which: str, dx: Optional[int] = None, depth: int = 8,
-            width: int = 256, enc: Optional[Tuple] = None) -> ctypes.CDLL:
+            width: int = 256, enc: Optional[Tuple] = None,
+            xv: int = FLAGSHIP_XV) -> ctypes.CDLL:
     """The loaded library ``which`` (see the module docstring; K5/K6's at
-    trunk width ``dx`` and a ``depth`` x ``width`` net, K1-K4's at the
-    encode shape ``enc``, K-vf1/K-vf2's at the (view rows, views width)
-    ``enc``, the flagship's by default), built on first use: K1-K4's
-    with the K-vf1/K-vf2 build of their view rows and width, all at
-    once."""
-    key = lib_key(which, dx, depth, width, enc)
+    trunk width ``dx``, a ``depth`` x ``width`` net and views width
+    ``xv``, K1-K4's at the encode shape ``enc``, K-vf1/K-vf2's at the
+    (view rows, views width) ``enc``, the flagship's by default), built
+    on first use: K1-K4's with the K-vf1/K-vf2 build of their view rows
+    and width, all at once."""
+    key = lib_key(which, dx, depth, width, enc, xv)
     if key not in _LIBS:
         if which == 'viewfac':
             build_kernels(view_shapes=() if key[1] is None else (key[2:],))
@@ -320,7 +351,7 @@ def library(which: str, dx: Optional[int] = None, depth: int = 8,
             build_kernels(enc_shapes=() if enc is None else (enc,))
         else:
             build_kernels(shapes=() if key[1] is None
-                          else ((key[1], depth, width),))
+                          else ((key[1], depth, width, xv),))
     return _LIBS[key]
 
 

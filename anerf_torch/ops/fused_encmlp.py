@@ -22,14 +22,17 @@ train step:
 K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
 (their source notes give the designs and bounds).  Each is built per
 static shape, as anerf_tpu's kernels are (``_build_call`` per shape):
-1-10 kp bands, 1-9 view PE rows, the windowed bone directions
+1-10 kp bands, 1-21 view PE rows, the windowed bone directions
 (``--cutoff_bones``), 1-16 layers 256 or 512 wide and framecodes of at
-most 16 (``kernel_shape``: the encode shape a build is keyed by in
+most 128 (``kernel_shape``: the encode shape a build is keyed by in
 ``cuda_build``); a shape outside that set takes the plain encode and
 K5/K6 (``kernel_shape_ok``), and one inside it launches its build or
 raises.  Where the trunk input does not stay resident in a block's
 shared memory (512 wide, 10 kp bands), K1/K2 write it to a workspace of
-``encmlp_fwd_workspace_bytes(n)`` that the wrapper allocates a call.
+``encmlp_fwd_workspace_bytes(n)`` that the wrapper allocates a call;
+where the views input does not (15 view rows and up, 13 with
+framecodes past 16, at 256 wide), their views
+product builds it again 256 columns at a time in shared memory.
 
 The per-ray view factorization (``viewfac``, on by default; the cost
 gate of ``pallas_encmlp._build_call`` picks it, on the flagship for the
@@ -438,23 +441,31 @@ K4_TF_LAUNCHES = 0
 # the static shapes K1-K4 (and K-vf1/K-vf2 under viewfac) are built
 # for, a library per shape (csrc/encmlp_common.cuh, ops/cuda_build.py):
 # SMPL's 24 joints, 1-10 kp bands on the 2^k grid (nerf-pytorch's
-# default multires is 10), 1-9 view PE rows (multires_views 0-4; viewfac's
-# 32-column k-pair), the bone directions windowed or not, 1-16 trunk
+# default multires is 10), 1-21 view PE rows (multires_views 0-10), the
+# bone directions windowed or not, 1-16 trunk
 # layers 256 or 512 wide with the skip after layer 4 (none below 6
 # layers; past 16 K3/K4's tensor-core sums put the later layers' weight
 # gradients further from an f64 evaluation of the chain than twice the
 # twin's distance, chip_smoke._check_bwd_f64), the views layer half as
-# wide, framecodes of at most 16 (zero-padded to 16) or none.  The trunk
-# input stays in a block's shared memory where it fits, else in device
-# memory (the kernels decide, csrc/encmlp_fwd.cu, encmlp_bwd.cu).  The
-# rest is ROADMAP B.1.3.
+# wide, framecodes of at most 128 (zero-padded to the next multiple of
+# 16, the views input's k-step; at least 16) or none.  The trunk and the
+# views inputs stay in a block's shared memory where they fit, else the
+# trunk input in device memory and the views input built again a
+# column block at a time (the kernels decide, csrc/encmlp_fwd.cu,
+# encmlp_bwd.cu).  The rest is ROADMAP B.1.4.
 KERNEL_J = 24
 KERNEL_NF = range(1, 11)
-KERNEL_NB = (1, 3, 5, 7, 9)
+KERNEL_NB = tuple(range(1, 22, 2))
 KERNEL_DEPTH = range(1, 17)
 KERNEL_WIDTH = (256, 512)
 KERNEL_SKIPS = (4,)
-KERNEL_CODES = 16
+KERNEL_CODES = 128
+
+
+def kernel_codes(codes: int) -> int:
+    """The framecode columns of the K1-K4 build for codes ``codes``
+    wide (0: none): the next multiple of 16, at least 16."""
+    return max(16, -(-codes // 16) * 16)
 
 
 def reset_launch_counts() -> None:
@@ -496,8 +507,8 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
         return (f'the kp bands {est.kp_freqs} (they take 1-10 bands on '
                 'the 2^k grid)')
     if nb not in KERNEL_NB:
-        return (f'{nb} view PE rows (they take 1, 3, 5, 7 or 9: '
-                'multires_views 0-4)')
+        return (f'{nb} view PE rows (they take 1-21, odd: '
+                'multires_views 0-10)')
     if st.width not in KERNEL_WIDTH or st.half != st.width // 2:
         return (f'a net {st.width} wide with a views layer of {st.half} '
                 '(they take 256 or 512, the views layer half as wide)')
@@ -514,20 +525,27 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
 
 
 def kernel_shape(st: MLPStatic, est: EncStatic) -> Tuple[int, int, bool,
-                                                         int, int]:
+                                                         int, int, int]:
     """The build of K1-K4 that runs this static shape: its encode shape
-    (kp bands NF, view PE rows NB, bone window, depth, width), the key
-    ``cuda_build.library(..., enc=...)`` takes (K-vf1/K-vf2's build is
-    its (NB, width / 2)).  Raises NotImplementedError for a shape they
-    are not built for (``_shape_refusal``), which ROADMAP B.1.3
-    queues."""
+    (kp bands NF, view PE rows NB, bone window, depth, width, framecode
+    columns NCODE), the key ``cuda_build.library(..., enc=...)`` takes
+    (K-vf1/K-vf2's build is its (NB, width / 2)).  Raises
+    NotImplementedError for a shape they are not built for
+    (``_shape_refusal``), which ROADMAP B.1.4 queues."""
     why = _shape_refusal(st, est)
     if why is not None:
         raise NotImplementedError(
             f'the fused CUDA kernels K1-K4 do not take {why}; such shapes '
-            'are not ported yet (ROADMAP.md B.1.3)')
+            'are not ported yet (ROADMAP.md B.1.4)')
     return (len(est.kp_freqs), est.view_nb, bool(est.bone_windowed),
-            st.depth, st.width)
+            st.depth, st.width, _ncode(st, est))
+
+
+def _ncode(st: MLPStatic, est: EncStatic) -> int:
+    """The framecode columns NCODE of the build that runs ``st``
+    (``kernel_codes`` of its codes part)."""
+    return kernel_codes(st.vparts[1] if est.has_codes and len(st.vparts) > 1
+                        else 0)
 
 
 def kernel_shape_ok(rc) -> bool:
@@ -641,17 +659,18 @@ def _vf_m(st, est, enc_ray, flats) -> Optional[torch.Tensor]:
     return vf_operand(est, enc_ray, _wvx(st, flats)) if est.viewfac else None
 
 
-def _codes_operand(codes_list, est, R, device):
-    """(nnet, R, 16) f32 codes for the kernel: narrower codes padded
-    with zero columns (which meet the pack's zero weight rows), zeros
-    without codes."""
+def _codes_operand(codes_list, st, est, R, device):
+    """(nnet, R, NCODE) f32 codes for the kernel, NCODE the build's
+    (``_ncode``): narrower codes padded with zero columns (which meet the
+    pack's zero weight rows), zeros without codes."""
+    ncode = _ncode(st, est)
     if est.has_codes:
         codes = torch.stack(codes_list)
-        pad = KERNEL_CODES - codes.shape[-1]
+        pad = ncode - codes.shape[-1]
         if pad:
             codes = torch.nn.functional.pad(codes, (0, pad))
         return codes.contiguous()
-    return torch.zeros((len(codes_list), R, KERNEL_CODES),
+    return torch.zeros((len(codes_list), R, ncode),
                        dtype=torch.float32, device=device)
 
 
@@ -667,7 +686,7 @@ def _fwd(st, est, p, enc_ray, codes, cutoff, tau, flat,
     wbuf, bbuf = _packs(st, [flat])
     out = torch.empty((4, n), dtype=torch.float32, device=p.device)
     _launch('encmlp_fwd', shape, 1, p, enc_ray,
-            _codes_operand([codes], est, R, p.device), cutoff, tau, wbuf,
+            _codes_operand([codes], st, est, R, p.device), cutoff, tau, wbuf,
             bbuf, out, n, est.S, R, _vf_m(st, est, enc_ray, [flat]), tf)
     if est.fuse_tform:
         K1_TF_LAUNCHES += 1
@@ -689,8 +708,8 @@ def _dual_fwd(st, est, p, enc_ray, codes_c, codes_f, cutoff, tau, flat_c,
     wbuf, bbuf = _packs(st, [flat_c, flat_f])
     out = torch.empty((2, 4, n), dtype=torch.float32, device=p.device)
     _launch('encmlp_dual_fwd', shape, 2, p, enc_ray,
-            _codes_operand([codes_c, codes_f], est, R, p.device), cutoff,
-            tau, wbuf, bbuf, out, n, est.S, R,
+            _codes_operand([codes_c, codes_f], st, est, R, p.device),
+            cutoff, tau, wbuf, bbuf, out, n, est.S, R,
             _vf_m(st, est, enc_ray, [flat_c, flat_f]), tf)
     if est.fuse_tform:
         K2_TF_LAUNCHES += 1
@@ -728,11 +747,11 @@ def _launch_bwd(name: str, nnet: int, st, est, p, enc_ray, codes_list,
                      dtype=torch.uint8, device=dev)
     dp = torch.empty((n, 3 * est.J), **f32)
     denc = torch.empty(tuple(enc_ray.shape), **f32)
-    dcodes = torch.empty((nnet, R, KERNEL_CODES), **f32)
+    dcodes = torch.empty((nnet, R, _ncode(st, est)), **f32)
     dw = torch.empty((nnet, n_dw), **f32)
     db = torch.empty((nnet, fwd_lib.encmlp_bias_elems()), **f32)
     part, P, slice_ = fused_mlp.dw_partials(st, n, n_dw, nnet, dev)
-    codes = _codes_operand(codes_list, est, R, dev)
+    codes = _codes_operand(codes_list, st, est, R, dev)
     vf_m = gw = None
     if est.viewfac:
         wvx = _wvx(st, flats)
@@ -1191,8 +1210,9 @@ def _statics(rc, J: int, S: int, tile: int, has_codes: bool,
         vparts=(((1 + 2 * rc.view_embed.num_freqs) * 3 * J,)
                 + ((nerf.framecode_ch,) if has_codes else ())),
         half=nerf.width // 2, skips=tuple(nerf.skips), tile=tile,
-        # K1-K4's views input [view rows | codes (16) | 0 x 8], DXV
-        xv_pad=(1 + 2 * rc.view_embed.num_freqs) * 3 * J + KERNEL_CODES + 8)
+        # K1-K4's views input [view rows | codes (NCODE) | 0 x 8], DXV
+        xv_pad=((1 + 2 * rc.view_embed.num_freqs) * 3 * J + 8
+                + kernel_codes(nerf.framecode_ch if has_codes else 0)))
     est = EncStatic(J=J, kp_freqs=tuple(float(f) for f in
                                         rc.kp_embed.freq_bands()),
                     view_nb=1 + 2 * rc.view_embed.num_freqs,
@@ -1201,6 +1221,17 @@ def _statics(rc, J: int, S: int, tile: int, has_codes: bool,
                     viewfac=getattr(rc, 'viewfac', False),
                     fuse_tform=fuse_tform)
     return st, est
+
+
+def viewfac_taken(est: EncStatic, tile: int) -> bool:
+    """The viewfac cost gate at a point tile of ``tile``: the factorized
+    forward costs rptJ*nblkJ + T*rptJ MACs per half-column against
+    T*nblkJ dense, so it wins only when J*(nblkJ + tile) < 0.9*S*nblkJ
+    (pallas_encmlp.py:1116-1133): at S = 64 from 7 view rows on with
+    the train step's 512-point tile, from 11 with the eval tile of
+    1024."""
+    nblkJ = est.view_nb * 3 * est.J
+    return est.J * (nblkJ + tile) < 0.9 * est.S * nblkJ
 
 
 def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
@@ -1231,13 +1262,8 @@ def _build_call(rc, pts_t, rays_t_norm, cutoff_dist, tau, cam_idxs,
     st, est = _statics(rc, J, S, tile,
                        rc.nerf.use_framecode and cam_idxs is not None,
                        fuse_tform=tf_rows is not None)
-    if est.viewfac:
-        # the factorized forward costs rptJ*nblkJ + T*rptJ MACs per
-        # half-column against T*nblkJ dense: it wins only when
-        # J*(nblkJ + tile) < 0.9*S*nblkJ (pallas_encmlp.py:1116-1133)
-        nblkJ = est.view_nb * 3 * J
-        if J * (nblkJ + tile) >= 0.9 * S * nblkJ:
-            est = dataclasses.replace(est, viewfac=False)
+    if est.viewfac and not viewfac_taken(est, tile):
+        est = dataclasses.replace(est, viewfac=False)
 
     if tf_rows is not None:
         p = z_vals.float().contiguous()

@@ -16,7 +16,7 @@ Two hand-written CUDA kernels replace the two Pallas kernels of
 ``pallas_mlp._fused_mlp`` (taken for configs outside
 ``fused_encmlp.kernel_shape_ok``: multi-subject models, trainable
 cutoffs, other encoders, shapes the fused encode kernels are not
-built for such as 768-wide nets, ROADMAP B.1.3):
+built for such as 768-wide nets, ROADMAP B.1.4):
 
   * K5 ``mlp_fwd`` <- ``_fused_mlp_fwd`` / ``_fwd_kernel``
     (``csrc/mlp_fwd.cu``);
@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,9 +71,13 @@ class MLPStatic:
     skips: Tuple[int, ...]
     tile: int = 512
     # the views input's width in the kernels' layouts ([parts | 0 ...]):
-    # K5/K6's 672 for any views parts up to it; a K1-K4 build's 72 NB +
-    # 16 codes + 8 (fused_encmlp._statics)
-    xv_pad: int = 672
+    # K5/K6's ``views_pad`` of the parts (None: that), a K1-K4 build's
+    # 72 NB + its framecode columns + 8 (fused_encmlp._statics)
+    xv_pad: Optional[int] = None
+
+    def __post_init__(self):
+        if self.xv_pad is None:
+            object.__setattr__(self, 'xv_pad', views_pad(sum(self.vparts)))
 
     @property
     def dnet(self) -> int:
@@ -407,7 +411,18 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
 # csrc/mlp_bwd_common.cuh), shared by K1-K6
 # ---------------------------------------------------------------------------
 
-_XV_PAD = 672       # K5/K6's views input [parts | 0 ...], 42 x 16 columns
+# K5/K6's views input [parts | 0 ...]: 672 columns (42 x 16) for any
+# views parts up to it, as every build before views widths of their own
+# had it; past that the parts' sum + 8 rounded up to 16, a build per
+# width (cuda_build ``-DANERF_DXV``), up to 1664 (multires_views 10's
+# 1512 view columns, a subject channel and 128 framecodes: 1641)
+_XV_PAD = cuda_build.FLAGSHIP_XV
+_MAX_XV_PAD = 1664
+
+
+def views_pad(xv: int) -> int:
+    """K5/K6's views width for views parts summing to ``xv``."""
+    return _XV_PAD if xv <= _XV_PAD else -(-(xv + 8) // 16) * 16
 
 
 def kernel_static(st: MLPStatic) -> MLPStatic:
@@ -619,7 +634,8 @@ K6_LAUNCHES = 0
 # next multiple of 256, ``kernel_static``), depth x that width up to
 # 65,536, the views branch half as wide, the skip after layer 4 as
 # factory.py sets it; trunk parts summing to 1-2048 columns and views
-# parts to at most 672, at most 4 parts of each
+# parts to a views width (``views_pad``) of at most 1664, at most 4
+# parts of each
 _MAX_DEPTH, _MAX_WIDTH, _SKIPS = 64, 2048, (cuda_build.SKIP,)
 _MAX_LAYER_COLS = 65536
 _MAX_DX, _MAX_PARTS = 2048, 4
@@ -666,11 +682,12 @@ def _check_kernel_shape(st: MLPStatic) -> None:
         why = (f'depth {st.depth}, width {st.width}, half {st.half}, skips '
                f'{tuple(st.skips)}: they take 1-{_MAX_DEPTH} layers, half = '
                f'width // 2 and skips {_SKIPS} (ROADMAP.md)')
-    elif (not 1 <= st.dnet <= _MAX_DX or st.xv > _XV_PAD
+    elif (not 1 <= st.dnet <= _MAX_DX or views_pad(st.xv) > _MAX_XV_PAD
           or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
         why = (f'parts {st.dparts} / {st.vparts}: they take trunk parts '
                f'summing to at most {_MAX_DX} and views parts to at most '
-               f'{_XV_PAD}, {_MAX_PARTS} of each (ROADMAP.md)')
+               f'{_MAX_XV_PAD - 8} (a views width of {_MAX_XV_PAD}), '
+               f'{_MAX_PARTS} of each (ROADMAP.md)')
     else:
         return
     raise NotImplementedError(f'the split-MLP CUDA kernels do not take {why}')
@@ -702,14 +719,18 @@ def _part_args(ts):
 
 
 def _library(which: str, st: MLPStatic):
-    """K5's or K6's library for the trunk width and net of ``st`` (at
-    ``kernel_static``), built at its first use."""
+    """K5's or K6's library for the trunk width, net (at
+    ``kernel_static``) and views width of ``st``, built at its first
+    use."""
     want = (st.dnet, st.depth, kernel_static(st).width)
-    lib = cuda_build.library(which, *want)
+    lib = cuda_build.library(which, *want, xv=st.xv_pad)
     got = (lib.mlp_trunk_width(), lib.mlp_net_depth(), lib.mlp_net_width())
     if got != want:
         raise RuntimeError(f'{which} library built for (trunk, depth, width)'
                            f' {got}, not {want}')
+    if which == 'mlp_fwd' and lib.mlp_views_width() != st.xv_pad:
+        raise RuntimeError(f'{which} library built for views width '
+                           f'{lib.mlp_views_width()}, not {st.xv_pad}')
     return lib
 
 

@@ -91,7 +91,21 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    the flagship's bars (the nine and 16 layers against an f64
    evaluation of the chain, ``DEEP_ENC_LAYERS``), two calls
    bit-identical, launches counted exactly, timed beside its twin and
-   its bound;
+   its bound; then (ROADMAP B.1.3: the views input at every width) 11
+   view rows (also under fuse_tform), framecodes of 32, and 21 view rows
+   with framecodes of 128 (the views input out of K1/K2's shared
+   memory; also at two 8x512 nets), K-vf1/K-vf2 at 11 and 21 rows at
+   their own builds;
+2e. vf_widths phase (``vf_widths_phase``): K-vf1/K-vf2 at 11 view rows
+   and a 256-wide views layer (the one pair of their builds no encode
+   shape above brings), each launched once and counted, then against
+   their twins, bit-identical twice, timed beside ``torch.bmm``;
+2f. views_kernel phase (``views_kernel_phase``, ROADMAP C.15): K5/K6
+   at the views widths past 672 (views parts 648 + 32, 792 + 1 + 16 and
+   1512 + 1 + 128: builds of views width 688, 832 and 1664, the last
+   also at two 8x1024 nets) against their twins at 4104 and 131,072
+   points, bit-identical twice, counted, timed at 131,072 with K6's
+   passes;
 8. single-net phase: ``configs/surreal_single.txt`` (one net, 96 + 48
    samples, no view PE bands: K1/K3 at the one-view-row build, viewfac
    on the coarse pass, where the gate prices S = 96 at the 128-point
@@ -116,6 +130,15 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    both routes timed in turns (the step eager and bundled, the eval
    chunk); then ``wide_bundled``
    (``bundled_phase`` at the same nets);
+8c. views_flagship phase (``wide_flagship_phase`` with ``VIEWS10``,
+   ROADMAP B.1.3): the same at two 8x256 nets with 21 view rows and
+   framecodes of 128 (the split route: K5/K6 at views width 1648); then
+   ``views_bundled`` (``bundle_once``: one call of a 10-step bundle,
+   its counters those of the warm-up steps and the capture, a finite
+   loss); then ``ms_views`` (``ms_views_phase``, C.15): the two-subject
+   model at 11 view rows, 4 eager steps through K5/K6 (3 a step,
+   ``split_train``: finite losses, the fused-vs-plain gradients) and a
+   10-step bundle (``bundle_once``), where K5/K6 raised before;
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -210,6 +233,12 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    K-vf1/K-vf2) as ``FLAGSHIP_STEP`` counts them a step and K5/K6
    never, finite losses; then one bullet frame of its checkpoint through
    ``run_render.main`` (K1 and K2 once a chunk, finite frames);
+17b. cli_views phase (after 17, ``cli_net_width_phase`` with
+   ``CLI_VIEWS``): the same recipe at ``multires_views = 5`` and
+   ``framecode_size = 32`` (K1-K4 at 11 view rows and framecodes of
+   32), 4 steps, then 10 more at ``--steps_per_dispatch`` 10 (its
+   counters those of the warm-up steps and the capture), then one
+   bullet frame through ``run_render.main``;
 18. cli_fuse_tform phase (after 17): ``configs/mixamo.txt`` with
    ``fuse_tform = True`` through ``run_train.train`` on cli_train's
    store, 4 steps, K1-K4's fuse_tform forms once a step and their point
@@ -267,7 +296,11 @@ K1-K4's and K-vf1/K-vf2's ``enc_shapes`` the times, bound, error and
 launches of each of the encmlp_shapes phase's shapes, and K1, K3,
 K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
 K1-K4's and K-vf1/K-vf2's ``wide_flagship_times`` the wide_flagship
-phase's (the 8x512 step and eval chunk, both routes);
+phase's (the 8x512 step and eval chunk, both routes) and
+``views_flagship_times`` the views_flagship phase's; K5's and K6's
+``views_widths`` the views_kernel phase's numbers at each views width
+with the launches of the path that runs it; K-vf1's and K-vf2's
+``enc_shapes`` also the vf_widths phase's;
 K2's and K4's ``viewfac_vs_dense`` the two forms' ms in turns; the
 ``_tf`` rows their dense forms' ms in turns, ``train_shape`` (K1/K2)
 and ``fuse_tform_times``, the flagship step's and the render's both
@@ -2035,8 +2068,21 @@ WIDE_STEPS = 5
 WIDE_CHUNK = 4096
 
 
-def wide_flagship_phase(FE, T, device, gpu_line):
-    """``build_flagship(2048)`` with two 8 x 512 nets on the card, its
+def _eval_viewfac(FE, rc):
+    """K-vf1's launches a render chunk of ``rc``: 1 where the viewfac
+    gate takes K2's coarse pass at the eval tile of 1024 (from 11 view
+    rows), else 0."""
+    erc = rc.eval_variant()
+    est = FE._statics(erc, rc.n_joints, rc.N_samples, erc.pallas_tile,
+                      True)[1]
+    return int(est.viewfac and FE.viewfac_taken(est, erc.pallas_tile))
+
+
+def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
+                        over=WIDE, title='wide flagship step (8 x 512)'):
+    """``build_flagship(2048)`` with two 8 x 512 nets on the card (or
+    with the config overrides ``over``: the views flagship's 21 view
+    rows and framecodes of 128, VIEWS10), its
     weights from the first of NET_SEEDS whose eval chunk renders the
     subject (acc_map above 0.5 somewhere): one chunk of WIDE_CHUNK rays at
     the eval variant (K2 and K1 once each, nothing else; maps finite and
@@ -2055,14 +2101,13 @@ def wide_flagship_phase(FE, T, device, gpu_line):
     from anerf_torch.models import raycaster
     from anerf_torch.models.factory import embed_state
     from anerf_torch.training import trainer as TT
-    what = 'wide_flagship'
     for seed in NET_SEEDS:
         setup, state, batch, step = T.build_flagship(
-            2048, device=device, compute_dtype='bfloat16', seed=seed, **WIDE)
+            2048, device=device, compute_dtype='bfloat16', seed=seed, **over)
         rc = setup.rc
-        if (rc.mlp_backend != 'fused' or rc.nerf.width != 512
-                or not FE.kernel_shape_ok(rc)):
-            raise AssertionError(f'{what}: not the fused route at 512 wide')
+        if (rc.mlp_backend != 'fused' or not FE.kernel_shape_ok(rc)
+                or any(getattr(setup.cfg, k) != v for k, v in over.items())):
+            raise AssertionError(f'{what}: not the fused route at {over}')
         erc = rc.eval_variant()
         _, bones, _, kps, skts, cyls = T.synthetic_pose(
             9, ext_scale=setup.cfg.ext_scale)
@@ -2105,7 +2150,8 @@ def wide_flagship_phase(FE, T, device, gpu_line):
               f'{FE.cuda_build.library("fwd", enc=shape).encmlp_fwd_workspace_bytes(n_e)} '
               f'at the eval chunk\'s n={n_e}')
     expect = {k: 0 for k in counts}
-    expect.update(encmlp_fwd=1, encmlp_dual_fwd=1)
+    expect.update(encmlp_fwd=1, encmlp_dual_fwd=1,
+                  vf_operand=_eval_viewfac(FE, rc))
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     ref = chunk('fused', 'plain')()
@@ -2202,10 +2248,197 @@ def wide_flagship_phase(FE, T, device, gpu_line):
     torch.cuda.empty_cache()
     times['step'] = flagship_timing(
         T, device, gpu_line, 'fused route against the split route',
-        {'fused': dict(seed=seed, **WIDE), 'split': dict(seed=seed, **WIDE)},
-        title='wide flagship step (8 x 512)',
-        route={'split': lambda: _split_route(FE)})
+        {'fused': dict(seed=seed, **over), 'split': dict(seed=seed, **over)},
+        title=title, route={'split': lambda: _split_route(FE)})
     return train_counts, seed, times
+
+
+# views inputs past the flagship's (ROADMAP B.1.3, C.15): the views
+# flagship (21 view rows, framecodes of 128: views_flagship, views_bundled,
+# through wide_flagship_phase); K5/K6 at views widths past 672
+# (views_kernel_phase): name -> (subjects, config overrides over the
+# SURREAL recipe), views parts 648 + 32, 792 + 1 + 16 and 1512 + 1 + 128
+# (views widths 688, 832 and 1664, the ceiling; the last also at two
+# 8 x 1024 nets, WIDE, where the views input goes through the column
+# buffer of the A operands); the two-subject model at
+# 11 view rows through K5/K6 (ms_views_phase); K-vf1/K-vf2 at a view row
+# count and views width no encode shape of ENC_SHAPES brings
+# (vf_widths_phase); mixamo at 11 view rows and framecodes of 32 through
+# the entry points (cli_views)
+VIEWS10 = dict(multires_views=10, framecode_size=128)
+VIEWS_WIDTHS = {'680': (1, dict(framecode_size=32)),
+                '809': (2, dict(multires_views=5)),
+                '1641': (2, VIEWS10),
+                '1641_w1024': (2, dict(VIEWS10, netwidth=1024,
+                                       netwidth_fine=1024))}
+MS_VIEWS = dict(multires_views=5)
+MS_VIEWS_STEPS = 4
+VF_WIDTHS = ((11, 256),)
+CLI_VIEWS = dict(multires_views=5, framecode_size=32)
+
+
+def _views_model(FM, T, device, name, ns, over):
+    """(cfg, rc, params) of VIEWS_WIDTHS' ``name``: the weights of the
+    first of NET_SEEDS whose K6 cotangent at both of the phase's shapes
+    (R=171 x S=24, R=2048 x S=64) reaches a quarter of the points (a
+    check on weights of no density compares zeros)."""
+    for seed in NET_SEEDS:
+        cfg, rc, params = _grammar_model(T, device, seed, ns, **over)
+        shares = []
+        for R, S in ((171, 24), (2048, 64)):
+            st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, R, S,
+                                             device)
+            g = _split_cotangent(FM, st, xs, xvs, flat, S, device)
+            shares.append((g.abs().sum(-1) > 0).float().mean().item())
+        if min(shares) >= 0.25:
+            print(f'views width {name}: weights from seed {seed}')
+            return cfg, rc, params
+    raise AssertionError(f'views width {name}: no seed of {NET_SEEDS} gives '
+                         'a cotangent on a quarter of the points')
+
+
+def views_kernel_phase(FM, T, peaks, device):
+    """K5 and K6 at the views widths of VIEWS_WIDTHS (builds of their
+    own, ``fused_mlp.views_pad``) against their twins on the plain
+    encoders' encodings: at a ragged 4104 points (S=24, R=171), then at
+    the train step's coarse samples (R=2048 x S=64, n=131,072), each
+    check two calls bit-identical and its launches counted exactly, the
+    latter timed beside the twin and the bound, with K6's passes.
+    Returns {views parts' sum: (K5 row, K6 row)} at n=131,072."""
+    import torch
+    rows = {}
+    for name, (ns, over) in VIEWS_WIDTHS.items():
+        cfg, rc, params = _views_model(FM, T, device, name, ns, over)
+        for R, S in ((171, 24), (2048, 64)):
+            st, xs, xvs, flat = split_inputs(FM, T, cfg, rc, params, R, S,
+                                             device)
+            n = R * S
+            if sum(st.vparts) != int(name.split('_')[0]):
+                raise AssertionError(f'views parts {st.vparts}, expected '
+                                     f'{name} columns')
+            label = f'views {st.vparts} (width {st.xv_pad}) n={n}'
+            print(f'mlp_fwd, mlp_bwd {label}:')
+            run, plain = _split_calls(FM, st, xs, xvs, flat)
+            got = _counted(FM, run, {'mlp_fwd': 1}, 'mlp_fwd')
+            max_abs = _check_close('mlp_fwd', plain(), got)
+            _check_deterministic('mlp_fwd', _named(got), _named(run()))
+            del got
+            g = _split_cotangent(FM, st, xs, xvs, flat, S, device)
+            _check_cotangent(g)
+            brun, bplain = _split_calls(FM, st, xs, xvs, flat, g)
+            got = _counted(FM, brun, {'mlp_bwd': 1}, 'mlp_bwd')
+            max_abs_b = _check_bwd('mlp_bwd', bplain(), got)
+            _check_deterministic('mlp_bwd', got, brun())
+            del got
+            if R != 2048:
+                continue
+            fwd = _timed_row(
+                'mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
+                _time_ms(run, 10), _time_ms(plain, 2), max_abs, peaks,
+                label, tpu_file='pallas_mlp.py')
+            bwd = _timed_row(
+                'mlp_bwd', 'mlp_bwd.cu', 276,
+                FM.kernel_cost(st, n, backward=True), _time_ms(brun, 5),
+                _time_ms(bplain, 1, windows=3), max_abs_b, peaks, label,
+                tpu_file='pallas_mlp.py')
+            bwd['passes_ms'] = pass_times('mlp_bwd', brun, label,
+                                          FM.dw_cost(st, n), peaks)
+            fwd['views_width'] = bwd['views_width'] = st.xv_pad
+            rows[name] = (fwd, bwd)
+        del cfg, rc, params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vf_widths_phase(FE, peaks, device, R=2048):
+    """K-vf1/K-vf2 at each (view rows, views width) of VF_WIDTHS (their
+    own build) on view rows drawn U(-1, 1) and views weights N(0,
+    1/sqrt(rows)) of two nets from seed 5: one call of each counted
+    exactly, then ``viewfac_kernels`` (against their twins, two calls
+    bit-identical, timed beside ``torch.bmm``).  Returns (their rows,
+    the launches counted)."""
+    import torch
+    rows, counts = [], {k: 0 for k in FE.launch_counts()}
+    for nb, hv in VF_WIDTHS:
+        est = FE.EncStatic(J=24, kp_freqs=tuple(2. ** k for k in range(7)),
+                           view_nb=nb, S=64, rpt=8, has_codes=True,
+                           viewfac=True)
+        gen = torch.Generator(device=device).manual_seed(5)
+        nbj = nb * 3 * est.J
+        enc = torch.rand((R, nbj), generator=gen, device=device) * 2 - 1
+        wvx = (torch.randn((2, nbj, hv), generator=gen, device=device)
+               / nbj ** 0.5).to(torch.bfloat16)
+        M = _counted(FE, lambda: FE.vf_operand(est, enc, wvx),
+                     {'vf_operand': 1}, 'vf_operand')
+        counts['vf_operand'] += 1
+        counts['vf_fold'] += 1
+        gw = torch.randn((2, R, est.J, hv), generator=gen,
+                         device=device).to(torch.bfloat16)
+        _counted(FE, lambda: FE.vf_fold(est, gw, enc, wvx),
+                 {'vf_fold': 1}, 'vf_fold')
+        del M, gw
+        print(f'K-vf1/K-vf2 at {nb} view rows, views width {hv}:')
+        for r in viewfac_kernels(FE, est, enc, wvx, peaks, device, R):
+            r['label'] = f'{nb} view rows, HV {hv}, R={R} two nets'
+            rows.append(r)
+    return rows, counts
+
+
+def bundle_once(FE, T, device, gpu_line, what, kernels, **build_kw):
+    """One call of ``build_flagship(2048, steps_per_dispatch=BUNDLE,
+    **build_kw)``'s bundled step (2 warm-up steps, the capture, the
+    replays): the launch counters those of the warm-up steps and the
+    capture (each of ``kernels`` (counter -> launches a step)
+    ``_GraphStep.WARMUP`` + 1 times, the rest 0), a finite last loss.
+    Returns the counters."""
+    import torch
+    from anerf_torch.training import trainer as TT
+    setup, state, batches, multi = T.build_flagship(
+        2048, device=device, compute_dtype='bfloat16',
+        steps_per_dispatch=BUNDLE, **build_kw)
+    FE.reset_launch_counts()
+    state, stats = multi(state, batches,
+                         torch.Generator(device=device).manual_seed(7))
+    torch.cuda.synchronize()
+    counts = FE.launch_counts()
+    W = TT._GraphStep.WARMUP
+    expect = {k: 0 for k in counts}
+    expect.update({k: (W + 1) * n for k, n in kernels.items()})
+    loss = stats['total_loss'].float().cpu()
+    print(f'{what}: one call of {BUNDLE} steps, launch counters {counts} '
+          f'({W} warm-up steps and the capture), last total_loss '
+          f'{loss.tolist()} ({gpu_line})')
+    if counts != expect:
+        raise AssertionError(f'{what}: launch counts {counts}, expected '
+                             f'{expect}')
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f'{what}: non-finite loss {loss.tolist()}')
+    return counts
+
+
+def ms_views_phase(FE, T, device, gpu_line):
+    """The two-subject model at 11 view rows (MS_VIEWS: views parts
+    792 + 1 + 16, a K5/K6 build of views width 832; before C.15 K5/K6
+    raised there): MS_VIEWS_STEPS eager train steps (``split_train``:
+    K5/K6 3 times a step, K1-K4 never, finite losses, the fused-vs-plain
+    gradients of one step), then one bundle of BUNDLE steps
+    (``bundle_once``).  Returns (the eager steps' launch counts, the
+    bundle's)."""
+    def build():
+        out = T.build_flagship(2048, n_subjects=2, device=device,
+                               compute_dtype='bfloat16', seed=4, **MS_VIEWS)
+        if out[0].rc.n_subjects != 2 or out[0].rc.view_embed.out_dim != 792:
+            raise AssertionError('the two-subject setup at 11 view rows '
+                                 'changed')
+        return out
+    _, _, _, counts = split_train(FE, T, device, gpu_line,
+                                  'multi-subject train at 11 view rows',
+                                  build, MS_VIEWS_STEPS, falls=False)
+    bundled = bundle_once(FE, T, device, gpu_line,
+                          'multi-subject bundle at 11 view rows',
+                          {'mlp_fwd': 3, 'mlp_bwd': 3}, n_subjects=2, seed=4,
+                          **MS_VIEWS)
+    return counts, bundled
 
 
 # encmlp_shapes phase (ROADMAP B.1): K1-K4 at static shapes past the
@@ -2221,7 +2454,13 @@ def wide_flagship_phase(FE, T, device, gpu_line):
 # memory in some of K1-K4 (ROADMAP B.1.2): two 8 x 512 nets (viewfac on
 # K2/K4 with K-vf1/K-vf2 at a 256-wide views layer), the same under
 # fuse_tform, nine layers, eight kp bands, and the gate's corner, 16
-# layers of 512 at ten kp bands
+# layers of 512 at ten kp bands; then the views inputs of B.1.3: eleven
+# view rows (K1/K2's trunk input out of shared memory; K-vf1/K-vf2 at 33
+# columns a joint), also under fuse_tform, framecodes of 32 (the codes'
+# k-slice over two ring stages under viewfac), and the corner, 21 view
+# rows with framecodes of 128 (the views input out of K1/K2's shared
+# memory, rebuilt 256 columns at a time), also at two 8 x 512 nets
+# (K-vf1/K-vf2 at HV = 256)
 ENC_SHAPES = {
     'nb5': (dict(multires_views=2), False, None),
     'nb7': (dict(multires_views=3), False, None),
@@ -2239,6 +2478,12 @@ ENC_SHAPES = {
     'nf8': (dict(multires=8), False, None),
     'w512_depth16_nf10': (dict(netwidth=512, netwidth_fine=512, netdepth=16,
                                netdepth_fine=16, multires=10), False, None),
+    'nb11': (dict(multires_views=5), False, None),
+    'nb11_tf': (dict(multires_views=5), True, None),
+    'codes32': (dict(framecode_size=32), False, None),
+    'nb21_codes128': (VIEWS10, False, None),
+    'nb21_codes128_w512': (dict(VIEWS10, netwidth=512, netwidth_fine=512),
+                           False, None),
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
@@ -2403,8 +2648,8 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
                 _time_ms(plain, 1, windows=3) if bw else _time_ms(plain, 2),
                 err, peaks, label)
             row.update(shape=dict(zip(('kp_bands', 'view_rows',
-                                       'bone_window', 'depth', 'width'),
-                                      key)),
+                                       'bone_window', 'depth', 'width',
+                                       'framecodes'), key)),
                        points=n, viewfac=vf,
                        wrapper_ms=_time_ms(run, 5 if bw else 10))
             if bw:   # the backward's passes, from one profiled call
@@ -2919,30 +3164,40 @@ def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
     return rows, counts
 
 
-def cli_net_width_phase(FE, device, gpu_line):
-    """``configs/mixamo.txt`` at ``netwidth = NET_CLI_WIDTH`` and
-    ``mlp_backend = 'pallas'`` through ``run_train.train`` on a
+def cli_net_width_phase(FE, device, gpu_line, what='cli_net_width',
+                        over=None, bundled=False):
+    """``configs/mixamo.txt`` at ``netwidth = NET_CLI_WIDTH`` (or with
+    the config overrides ``over``: CLI_VIEWS' 11 view rows and
+    framecodes of 32) and ``mlp_backend = 'pallas'`` through
+    ``run_train.train`` on a
     synthetic store: ``NET_CLI_STEPS`` steps, each launching K1-K4 as
     ``FLAGSHIP_STEP`` counts them (K1-K4 are built for 512-wide nets
     since ROADMAP B.1.2; K-vf1/K-vf2 at the 256-wide views layer) and
-    K5/K6 never, finite losses; then one bullet frame of its checkpoint
-    through ``run_render.main`` (K1 and K2 once a chunk, nothing else,
-    finite frames).  Returns the launch counts of the train steps."""
+    K5/K6 never, finite losses; with ``bundled``, BUNDLE more steps at
+    ``--steps_per_dispatch`` BUNDLE (the counters those of the warm-up
+    steps and the capture, finite losses); then one bullet frame of its
+    checkpoint through ``run_render.main`` (K1 and K2 once a chunk,
+    nothing else, finite frames).  Returns the launch counts of the
+    train steps."""
     import numpy as np
     import torch
     from anerf_torch import run_render as RR
     from anerf_torch.data.writer import make_synthetic_store
     from anerf_torch.render.renderer import ImageRenderer
     from anerf_torch.run_train import train
-    store = make_synthetic_store(os.path.join(WORK, 'wide.npstore'),
-                                 n_frames=8, H=256, W=256, body_scale=450.0,
-                                 blob_radius=2, seed=2)
-    wcfg = _cli_config('mixamo.txt', netwidth=NET_CLI_WIDTH,
-                       netwidth_fine=NET_CLI_WIDTH, mlp_backend='pallas',
+    from anerf_torch.training import trainer as TT
+    if over is None:
+        over = dict(netwidth=NET_CLI_WIDTH, netwidth_fine=NET_CLI_WIDTH)
+    name = 'wide' if what == 'cli_net_width' else what
+    store = os.path.join(WORK, 'wide.npstore')
+    if not os.path.exists(store):
+        make_synthetic_store(store, n_frames=8, H=256, W=256,
+                             body_scale=450.0, blob_radius=2, seed=2)
+    wcfg = _cli_config('mixamo.txt', mlp_backend='pallas',
                        dataset_type=('synthetic',), datadir=store,
-                       basedir=os.path.join(WORK, 'logs'), expname='wide',
+                       basedir=os.path.join(WORK, 'logs'), expname=name,
                        n_iters=NET_CLI_STEPS, num_workers=4,
-                       i_weights=NET_CLI_STEPS)
+                       i_weights=NET_CLI_STEPS, **over)
     rec = {'losses': []}
 
     def on_step(i, state, stats):
@@ -2958,18 +3213,48 @@ def cli_net_width_phase(FE, device, gpu_line):
     train(wcfg, device=device, on_step=on_step)
     counts = rec['counts']
     losses = torch.stack(rec['losses']).cpu()
-    print(f'cli_net_width: netwidth {NET_CLI_WIDTH}, {NET_CLI_STEPS} steps, '
+    print(f'{what}: {over}, {NET_CLI_STEPS} steps, '
           f'views layer {tuple(rec["views"])}, launches {counts}, '
           f'total_loss {losses.tolist()} ({gpu_line})')
     expect = {k: 0 for k in counts}
     expect.update({k: NET_CLI_STEPS * n for k, n in FLAGSHIP_STEP.items()})
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
-    if rec['views'][1] != NET_CLI_WIDTH // 2:
-        raise AssertionError(f'views layer {rec["views"]}: not the wide net')
+    views = (wcfg.netwidth + (1 + 2 * wcfg.multires_views) * 72
+             + (wcfg.framecode_size if wcfg.opt_framecode else 0),
+             wcfg.netwidth // 2)
+    if tuple(rec['views']) != views:
+        raise AssertionError(f'views layer {rec["views"]}, expected {views}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
-    logdir = os.path.join(WORK, 'logs', 'wide')
+    if bundled:   # BUNDLE more steps at BUNDLE a dispatch, resumed
+        brec = {'losses': []}
+
+        def on_bundle(i, state, stats):
+            if stats is None:
+                FE.reset_launch_counts()
+            else:
+                brec['losses'].append(stats['total_loss'])
+            if i == NET_CLI_STEPS + BUNDLE:
+                torch.cuda.synchronize()
+                brec['counts'] = FE.launch_counts()
+        train(dataclasses.replace(wcfg, n_iters=NET_CLI_STEPS + BUNDLE,
+                                  steps_per_dispatch=BUNDLE,
+                                  i_weights=NET_CLI_STEPS + BUNDLE),
+              device=device, on_step=on_bundle)
+        bl = torch.stack(brec['losses']).float().cpu()
+        W = TT._GraphStep.WARMUP
+        bexpect = {k: 0 for k in brec['counts']}
+        bexpect.update({k: (W + 1) * n for k, n in FLAGSHIP_STEP.items()})
+        print(f'{what}: {BUNDLE} more steps at {BUNDLE} a dispatch, launch '
+              f'counters {brec["counts"]} ({W} warm-up steps and the '
+              f'capture), total_loss {bl.tolist()}')
+        if brec['counts'] != bexpect or not torch.isfinite(bl).all():
+            raise AssertionError(f'{what} bundled: launch counts '
+                                 f'{brec["counts"]}, expected {bexpect}, '
+                                 f'losses {bl.tolist()}')
+    logdir = os.path.join(WORK, 'logs', name)
+    last = NET_CLI_STEPS + (BUNDLE if bundled else 0)
     chunks = [0]
 
     def count_chunks(fn):
@@ -2981,23 +3266,25 @@ def cli_net_width_phase(FE, device, gpu_line):
     with _Wrapped(ImageRenderer, _render_chunk=count_chunks):
         out = RR.main(['--nerf_args', os.path.join(logdir, 'args.txt'),
                        '--ckptpath', os.path.join(
-                           logdir, f'ckpt_{NET_CLI_STEPS:08d}.pt'),
-                       '--outputdir', os.path.join(WORK, 'render_wide'),
+                           logdir, f'ckpt_{last:08d}.pt'),
+                       '--outputdir', os.path.join(WORK, f'render_{name}'),
                        '--render_type', 'bullet', '--n_bullet', '1',
-                       '--runname', 'wide'], device=device)
+                       '--runname', name], device=device)
     torch.cuda.synchronize()
     rcounts = FE.launch_counts()
-    print(f'cli_net_width render: {len(out["rgbs"])} bullet frame '
+    print(f'{what} render: {len(out["rgbs"])} bullet frame '
           f'{out["rgbs"].shape[1]}x{out["rgbs"].shape[2]} through '
           f'run_render.main, {chunks[0]} chunks, launches {rcounts}')
     expect = {k: 0 for k in rcounts}
-    expect.update(encmlp_fwd=chunks[0], encmlp_dual_fwd=chunks[0])
+    expect.update(encmlp_fwd=chunks[0], encmlp_dual_fwd=chunks[0],
+                  vf_operand=chunks[0] * _eval_viewfac(
+                      FE, out['renderer'].rc))
     if rcounts != expect or not chunks[0] or len(out['rgbs']) != 1:
-        raise AssertionError(f'cli_net_width render: launches {rcounts} '
+        raise AssertionError(f'{what} render: launches {rcounts} '
                              f'for {chunks[0]} chunks')
     for k in ('rgbs', 'accs', 'disps'):
         if not np.isfinite(out[k]).all():
-            raise AssertionError(f'cli_net_width render: non-finite {k}')
+            raise AssertionError(f'{what} render: non-finite {k}')
     return counts
 
 
@@ -4918,12 +5205,21 @@ def main() -> int:
           f'device {torch.cuda.get_device_name(0)}')
     net_builds = [(432, d, FM.kernel_static(FM.MLPStatic(
         d, w, (432,), (665,), w // 2, (4,))).width) for d, w in NET_SHAPES]
-    # K1-K4 and K-vf1/K-vf2 at the encode shapes past the flagship's
+    # K5/K6 at the views widths past 672: VIEWS_WIDTHS' and the views
+    # flagship's split route (1512 + 128 columns)
+    net_builds += [(432, 8, over.get('netwidth', 256),
+                    FM.views_pad(int(k.split('_')[0])))
+                   for k, (_, over) in VIEWS_WIDTHS.items()]
+    net_builds.append((432, 8, 256, FM.views_pad(1640)))
+    # K1-K4 and K-vf1/K-vf2 at the encode shapes past the flagship's, and
+    # at cli_views' (mixamo at 11 view rows and framecodes of 32)
     enc_builds = [enc_shape_key(FE, T, over)
                   for over, _, _ in ENC_SHAPES.values()]
+    enc_builds.append(enc_shape_key(FE, T, CLI_VIEWS))
     build_s = FE.build_kernels(verbose=True,
                                trunk_widths=tuple(GRAMMAR_WIDTHS),
-                               shapes=net_builds, enc_shapes=enc_builds)
+                               shapes=net_builds, enc_shapes=enc_builds,
+                               view_shapes=VF_WIDTHS)
     print(f'kernel build: {build_s:.1f} s (encode shapes '
           f'{sorted(set(enc_builds))})')
 
@@ -4967,6 +5263,10 @@ def main() -> int:
     shape_rows, shape_vf_rows, paths_shapes, shape_counts = \
         encmlp_shapes_phase(FE, T, peaks, device, gpu_line)
     clock.mark('encmlp_shapes')
+    vfw_rows, vfw_counts = vf_widths_phase(FE, peaks, device)
+    clock.mark('vf_widths')
+    views_rows = views_kernel_phase(FM, T, peaks, device)
+    clock.mark('views_kernel')
     rows += split_mlp_phase(FM, T, cfg, rc2, params2, peaks, device)
     clock.mark('split_mlp')
     grammar_rows = grammar_kernel_phase(FM, T, peaks, device)
@@ -5011,6 +5311,19 @@ def main() -> int:
         FE, T, device, gpu_line, 'wide_bundled', BUNDLE_K1_K4,
         seed=wide_seed, **WIDE)
     clock.mark('wide_bundled')
+    paths['views_train'], views_seed, views_times = wide_flagship_phase(
+        FE, T, device, gpu_line, 'views_flagship', VIEWS10,
+        'views flagship step (21 view rows, framecodes of 128)')
+    clock.mark('views_flagship')
+    paths['views_bundled'] = bundle_once(
+        FE, T, device, gpu_line, 'views_bundled',
+        {k: n for k, (_, n) in BUNDLE_K1_K4.items()}, seed=views_seed,
+        **VIEWS10)
+    clock.mark('views_bundled')
+    paths['ms_views_train'], paths['ms_views_bundled'] = ms_views_phase(
+        FE, T, device, gpu_line)
+    clock.mark('ms_views')
+    paths['vf_widths'] = vfw_counts
     paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
         FE, T, device, gpu_line)
@@ -5044,6 +5357,9 @@ def main() -> int:
         clock.mark('cli_bundled')
         paths['cli_net_width'] = cli_net_width_phase(FE, device, gpu_line)
         clock.mark('cli_net_width')
+        paths['cli_views'] = cli_net_width_phase(
+            FE, device, gpu_line, 'cli_views', CLI_VIEWS, bundled=True)
+        clock.mark('cli_views')
         paths['cli_fuse_tform'] = cli_fuse_tform_phase(FE, device, gpu_line)
         clock.mark('cli_fuse_tform')
         paths['dist_train'], paths['dist_bundled'] = dist_train_phase(
@@ -5089,6 +5405,19 @@ def main() -> int:
                     launches=paths[f'net_{key}'][name],
                     launches_path=f'net_{key}')
                 for key, r in net_rows.items()}
+            # K5/K6 at the views widths past 672 (C.15): the times at the
+            # train step's coarse samples, the launches of the two-subject
+            # steps at 11 view rows for 809 columns, else of the phase's
+            # counted checks (one at n=4104, one at n=131,072)
+            row['views_widths'] = {
+                key: dict({f: r[k][f] for f in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err',
+                    'passes_ms', 'views_width', 'shape') if f in r[k]},
+                    **({'launches': paths['ms_views_train'][name],
+                        'launches_path': 'ms_views_train'} if key == '809'
+                       else {'launches': 2,
+                             'launches_path': 'views_kernel'}))
+                for key, r in views_rows.items()}
         if name in cli_shapes:
             row['cli_train_shape'] = dict(
                 cli_shapes[name], launches=paths['cli_train'][name])
@@ -5106,12 +5435,21 @@ def main() -> int:
                 if r['name'] == name:
                     enc[shape] = _shape_entry(r, shape, paths, shape_counts,
                                               name)
+        for r in vfw_rows:   # K-vf1/K-vf2 at VF_WIDTHS
+            if r['name'] == name:
+                enc[r['label']] = dict(
+                    {f: r[f] for f in ('ms', 'plain_ms', 'bound_ms',
+                                       'bound_by', 'max_abs_err',
+                                       'library_ms', 'label', 'passes_ms')
+                     if f in r},
+                    launches=vfw_counts[name], launches_path='vf_widths')
         if enc:
             row['enc_shapes'] = enc
         if name in SINGLE_STEP:
             row['surreal_single_times'] = single_times
         if name in FLAGSHIP_STEP:
             row['wide_flagship_times'] = wide_times
+            row['views_flagship_times'] = views_times
         row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

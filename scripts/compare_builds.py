@@ -77,6 +77,9 @@ def build_base(csrc, out_dir, keys):
         if which.startswith('mlp') and not hasattr(lib, 'mlp_trunk_width'):
             # a build from before K5/K6 took other trunk widths
             lib.mlp_trunk_width = lambda: cuda_build.FLAGSHIP_DX
+        if which == 'mlp_fwd' and not hasattr(lib, 'mlp_views_width'):
+            # a build from before K5/K6 took other views widths
+            lib.mlp_views_width = lambda: cuda_build.FLAGSHIP_XV
         with open(os.path.join(csrc, SOURCES[which])) as f:
             text = f.read()
         if which == 'viewfac':

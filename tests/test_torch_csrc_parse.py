@@ -36,6 +36,13 @@ EXPORTS = {
 # in shared memory (117, 432) and read in column chunks (1152, 1197),
 # odd widths padded to the k-step (117, 1197)
 TRUNK_WIDTHS = (117, 432, 1152, 1197)
+# the views widths K5/K6 are built for past 672 (nvcc -DANERF_DXV=...,
+# fused_mlp.views_pad): resident in K5's shared memory (688, 832) and
+# read in column chunks (1664, the ceiling), at the flagship's net, at
+# 8 x 512 and WIDE (8 x 1024) and beside a chunked trunk input (1152)
+VIEWS_WIDTHS = ((688, 432, 8, 256), (832, 432, 8, 256),
+                (1664, 432, 8, 256), (1664, 432, 8, 512),
+                (1664, 1152, 8, 512), (1664, 432, 8, 1024))
 
 CUDA_RUNTIME_H = r'''
 #pragma once
@@ -190,6 +197,24 @@ def test_split_mlp_sources_parse_at_every_trunk_width(source, dx,
     assert not errors, '\n'.join(errors)
 
 
+@pytest.mark.parametrize('dxv,dx,depth,width', VIEWS_WIDTHS)
+@pytest.mark.parametrize('source', ['mlp_fwd.cu', 'mlp_bwd.cu'])
+def test_split_mlp_sources_parse_at_every_views_width(source, dxv, dx, depth,
+                                                      width, mock_include):
+    """K5/K6 at the views widths past 672 that they are built for: the
+    residency choices, the shared-memory budgets and the schedules'
+    tables are static asserts, so a width they cannot take fails here;
+    the next width past the ceiling fails its own."""
+    net = ([f'ANERF_DEPTH={depth}', f'ANERF_WIDTH={width}', 'ANERF_SKIP=4']
+           if (depth, width) != (8, 256) else [])
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        [f'ANERF_DX={dx}', f'ANERF_DXV={dxv}', *net])
+    assert not _errors(cindex, tu), '\n'.join(_errors(cindex, tu))
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        [f'ANERF_DX={dx}', 'ANERF_DXV=1680', *net])
+    assert any('at most 1664 columns' in e for e in _errors(cindex, tu))
+
+
 # the nets K5/K6 are built for (nvcc -DANERF_DEPTH, -DANERF_WIDTH,
 # -DANERF_SKIP): no skip layer (2, 4), the skip layer (6, 8, 10, 24, 32),
 # 512 wide (its ring, activations and masks budgeted apart), WIDE past
@@ -226,7 +251,11 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
 # the bone window), the extremes together, and the shapes whose trunk
 # input leaves shared memory in some of the four kernels (ROADMAP
 # B.1.2): 8 x 512, nine and 16 layers, eight and ten kp bands, and the
-# corner, 16 layers of 512 at ten bands
+# corner, 16 layers of 512 at ten bands; then the views inputs of B.1.3:
+# 11 view rows (viewfac's 48-column k-steps; K1/K2's trunk input out of
+# shared memory), framecodes of 32, and the corner, 21 view rows with
+# framecodes of 128 (the views input out of K1/K2's shared memory), at
+# 8 x 256, at 8 x 512 and at 16 layers of 512 with 10 kp bands
 ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(nb=b) for b in (1, 3, 5, 7)]
               + [dict(depth=d) for d in range(1, 8)]
@@ -235,21 +264,23 @@ ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(width=512), dict(depth=9), dict(depth=16),
                  dict(nf=8), dict(nf=10),
                  dict(nf=10, depth=16, width=512),
-                 dict(nf=1, nb=1, depth=1, width=512)])
+                 dict(nf=1, nb=1, depth=1, width=512)]
+              + [dict(nb=11), dict(ncode=32), dict(nb=21, ncode=128),
+                 dict(nb=21, ncode=128, width=512),
+                 dict(nb=21, ncode=128, nf=10, depth=16, width=512)])
 # the first value each axis refuses, the source that refuses it and the
-# message of the static_assert it fails (ROADMAP B.1.3): 11 view rows
-# (viewfac's 32-column k-pair), 768 wide (no WIDE body in K1-K4; viewfac's
-# views layer), framecodes of 32 (the codes' k-slice of viewfac in
-# K1-K4); and where K1/K2's shared memory ends for the views input
-# (15 view rows at 256 wide, the trunk input out of it)
+# message of the static_assert it fails (ROADMAP B.1.4): 23 view rows
+# (the headers' cap; viewfac's four k-steps a joint), 768 wide (no WIDE
+# body in K1-K4; viewfac's views layer), framecodes of 144 (the
+# headers' cap, past 128)
 ENC_REFUSED = [
-    (dict(nb=15), 'encmlp_fwd.cu', 'a block takes at most 227 KB'),
-    (dict(nb=11), 'viewfac.cu', 'whole joint groups'),
+    (dict(nb=23), 'encmlp_fwd.cu', 'at most 21 view PE rows'),
+    (dict(nb=23), 'viewfac.cu', 'whole joint groups'),
     (dict(width=768), 'encmlp_fwd.cu', 'no WIDE body'),
     (dict(width=768), 'encmlp_bwd.cu', 'no WIDE body'),
     (dict(width=768), 'viewfac.cu', 'views layer 128 or 256 wide'),
-    (dict(ncode=32), 'encmlp_fwd.cu', "viewfac's codes slice"),
-    (dict(ncode=32), 'encmlp_bwd.cu', "the codes' k-slice")]
+    (dict(ncode=144), 'encmlp_fwd.cu', 'framecodes of 16 to 128 columns'),
+    (dict(ncode=144), 'encmlp_bwd.cu', 'framecodes of 16 to 128 columns')]
 
 
 def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256, ncode=16):

@@ -52,21 +52,22 @@ from anerf_torch.ops import fused_encmlp as FE
 from test_torch_fused_encmlp import _assert_raw_close, _pts_cm
 
 # name: (config overrides, the build key (kp bands, view rows, bone
-# window, depth, width))
+# window, depth, width, framecode columns))
 SHAPES = {
-    'nb1': (dict(multires_views=0), (7, 1, False, 8, 256)),
-    'nb5': (dict(multires_views=2), (7, 5, False, 8, 256)),
-    'nb7': (dict(multires_views=3), (7, 7, False, 8, 256)),
+    'nb1': (dict(multires_views=0), (7, 1, False, 8, 256, 16)),
+    'nb5': (dict(multires_views=2), (7, 5, False, 8, 256, 16)),
+    'nb7': (dict(multires_views=3), (7, 7, False, 8, 256, 16)),
     'nf4_depth6': (dict(multires=4, netdepth=6, netdepth_fine=6),
-                   (4, 9, False, 6, 256)),
-    'depth4': (dict(netdepth=4, netdepth_fine=4), (7, 9, False, 4, 256)),
-    'cutoff_bones': (dict(cutoff_bones=True), (7, 9, True, 8, 256)),
-    'w512': (dict(netwidth=512, netwidth_fine=512), (7, 9, False, 8, 512)),
-    'depth9': (dict(netdepth=9, netdepth_fine=9), (7, 9, False, 9, 256)),
-    'nf8': (dict(multires=8), (8, 9, False, 8, 256)),
+                   (4, 9, False, 6, 256, 16)),
+    'depth4': (dict(netdepth=4, netdepth_fine=4), (7, 9, False, 4, 256, 16)),
+    'cutoff_bones': (dict(cutoff_bones=True), (7, 9, True, 8, 256, 16)),
+    'w512': (dict(netwidth=512, netwidth_fine=512),
+             (7, 9, False, 8, 512, 16)),
+    'depth9': (dict(netdepth=9, netdepth_fine=9), (7, 9, False, 9, 256, 16)),
+    'nf8': (dict(multires=8), (8, 9, False, 8, 256, 16)),
     'w512_depth16_nf10': (dict(netwidth=512, netwidth_fine=512,
                                netdepth=16, netdepth_fine=16, multires=10),
-                          (10, 9, False, 16, 512)),
+                          (10, 9, False, 16, 512, 16)),
 }
 # the samples each shape's twins are held at: K2 (and K4) at 64, K1
 # (and K3) at 16

@@ -242,7 +242,7 @@ def test_kernel_weight_pack_matches_twin(scene, variant):
         rc, pts, torch.as_tensor(scene['rays_t_norm']),
         params['cutoff_dist'], 21.9,
         torch.as_tensor(scene['batch']['cam_idxs']), None)
-    nf, nb, _, depth, width = FE.kernel_shape(st, est)
+    nf, nb, _, depth, width, _ = FE.kernel_shape(st, est)
     L = _layout((2 * nf + 1) * J + 3 * J, depth, nb * 3 * J + 24, W=width,
                 HV=width // 2)
     codes = FE._codes(params['fine'],
@@ -291,27 +291,31 @@ def test_wrappers_take_twins_on_cpu(scene):
 
 # (change to the flagship's statics, admitted): 6 layers and framecodes
 # of 8 are built for (ROADMAP B.1), so are 512-wide nets (with their
-# 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2); a net
-# 512 wide with a 128-wide views layer, another skip, framecodes of 32,
-# 768 wide, 17 layers, 11 kp bands and 11 view rows are not (B.1.3)
+# 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2), 11
+# and 21 view rows and framecodes of 32 and 128 (B.1.3); a net 512 wide
+# with a 128-wide views layer, another skip, 768 wide, 17 layers, 11 kp
+# bands, 23 view rows and framecodes of 144 are not (B.1.4)
 KP10 = tuple(2. ** k for k in range(10))
 GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(skips=(3,)), False), (dict(vparts=(648, 8)), True),
-              (dict(depth=9), True), (dict(vparts=(648, 32)), False),
+              (dict(depth=9), True), (dict(vparts=(648, 32)), True),
               (dict(width=512, half=256), True), (dict(depth=16), True),
               (dict(kp_freqs=KP10, dparts=(21 * J, 3 * J)), True),
               (dict(width=768, half=384), False), (dict(depth=17), False),
               (dict(kp_freqs=KP10 + (1024.,), dparts=(23 * J, 3 * J)),
                False),
-              (dict(view_nb=11, vparts=(11 * 3 * J, 16)), False),
-              (dict(width=512, half=256, vparts=(648, 32)), False)]
+              (dict(view_nb=11, vparts=(11 * 3 * J, 16)), True),
+              (dict(width=512, half=256, vparts=(648, 32)), True),
+              (dict(view_nb=21, vparts=(21 * 3 * J, 128)), True),
+              (dict(vparts=(648, 144)), False),
+              (dict(view_nb=23, vparts=(23 * 3 * J, 16)), False)]
 
 
 @pytest.mark.parametrize('change,admitted', GATE_CASES)
 def test_kernel_shape_gate(scene, change, admitted):
     """The CUDA kernels are compiled per static shape for every shape
-    of the gate (256 or 512 wide, 1-16 layers, 1-10 kp bands, 1-9 view
-    rows, codes of at most 16); any other static must be refused before
+    of the gate (256 or 512 wide, 1-16 layers, 1-10 kp bands, 1-21 view
+    rows, codes of at most 128); any other static must be refused before
     a launch, never run wrong.  A change to ``kp_freqs`` or ``view_nb``
     changes the encode's statics, the rest the net's."""
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))
@@ -320,7 +324,7 @@ def test_kernel_shape_gate(scene, change, admitted):
                              scene['t_params']['cutoff_dist'], 21.9,
                              torch.as_tensor(scene['batch']['cam_idxs']),
                              None)[:2]
-    assert FE.kernel_shape(st, est) == (7, 9, False, 8, 256)
+    assert FE.kernel_shape(st, est) == (7, 9, False, 8, 256, 16)
     enc_keys = {'kp_freqs', 'view_nb'}
     changed = dataclasses.replace(
         st, **{k: v for k, v in change.items() if k not in enc_keys})
@@ -329,7 +333,7 @@ def test_kernel_shape_gate(scene, change, admitted):
     if admitted:
         assert FE.kernel_shape(changed, est_c) == (
             len(est_c.kp_freqs), est_c.view_nb, False, changed.depth,
-            changed.width)
+            changed.width, FE.kernel_codes(changed.vparts[1]))
     else:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.3'):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.4'):
             FE.kernel_shape(changed, est_c)

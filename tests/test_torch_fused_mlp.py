@@ -190,8 +190,8 @@ def test_kernel_cost_and_shape_gate():
     backward; any trunk width of 1-2048 columns and any net of 1-64
     layers up to 2048 wide (depth x width up to 65,536: 8 x 1024 among
     them) passes the gate, and shapes the kernels are not built for (a
-    net wider than 2048, views inputs past 672 columns, a trunk past
-    2048) raise naming ROADMAP.md."""
+    net wider than 2048, views inputs past 1656 columns (a views width
+    past 1664), a trunk past 2048) raise naming ROADMAP.md."""
     st = FM.MLPStatic(8, 256, (360, 72), (649, 16), 128, (4,))
     fwd, bwd = FM.kernel_cost(st, 1000), FM.kernel_cost(st, 1000, True)
     assert fwd['bf16_flops'] == 2 * 864000 * 1000
@@ -208,6 +208,6 @@ def test_kernel_cost_and_shape_gate():
         FM._check_kernel_shape(good)
     for bad in (FM.MLPStatic(8, 4096, (360, 72), (649, 16), 2048, (4,)),
                 FM.MLPStatic(8, 256, (1977, 72), (649, 16), 128, (4,)),
-                FM.MLPStatic(8, 256, (360, 72), (649, 32), 128, (4,))):
+                FM.MLPStatic(8, 256, (360, 72), (1512, 1, 144), 128, (4,))):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             FM._check_kernel_shape(bad)

@@ -59,11 +59,19 @@ ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
           'synthetic_tiny.txt': 'plain'}
 # shipped configs changed in their net: surreal_single at a net 512
 # wide, which the fused kernels take since ROADMAP B.1.2, and at 768,
-# which they do not (B.1.3) and which keeps the split route
+# which they do not (B.1.4) and which keeps the split route; surreal at
+# 21 view rows with framecodes of 128, which they take since B.1.3, and
+# with two subjects at 11 view rows, which runs the split route, whose
+# K5/K6 take its views parts 792 + 1 + 16 since C.15
 VARIANTS = {'surreal_single.txt:netwidth512': (
     'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'fused'),
     'surreal_single.txt:netwidth768': (
-    'surreal_single.txt', dict(netwidth=768, netwidth_fine=768), 'split')}
+    'surreal_single.txt', dict(netwidth=768, netwidth_fine=768), 'split'),
+    'surreal.txt:views10_codes128': (
+    'surreal.txt', dict(multires_views=10, framecode_size=128,
+                        opt_framecode=True), 'fused'),
+    'surreal.txt:two_subjects_views5': (
+    'surreal.txt', dict(multires_views=5, n_subjects=2), 'split')}
 
 
 def test_every_shipped_config_is_listed():
@@ -82,8 +90,9 @@ def _route_config(name):
 def _split_static(rc):
     """The split kernels' static shape for ``rc``'s parts, as
     ``_run_network`` hands them over."""
-    views = (rc.view_embed.out_dim,) + (
-        (rc.nerf.framecode_ch,) if rc.nerf.use_framecode else ())
+    views = ((rc.view_embed.out_dim,)
+             + ((1,) if rc.n_subjects > 1 else ())
+             + ((rc.nerf.framecode_ch,) if rc.nerf.use_framecode else ()))
     return FM.MLPStatic(depth=rc.nerf.depth, width=rc.nerf.width,
                         dparts=(rc.kp_embed.out_dim, rc.bone_embed.out_dim),
                         vparts=views, half=rc.nerf.width // 2,
@@ -101,19 +110,22 @@ def _spy(monkeypatch, module, name, calls):
 
 @pytest.mark.parametrize('name', sorted(ROUTES) + sorted(VARIANTS))
 def test_render_route(name, monkeypatch):
-    """``kernel_shape_ok`` holds for exactly the configs routed to the
-    fused kernels, and ``render_rays`` takes that route: the fused
-    wrappers for those (K1 on both passes with a single net), the split
-    wrapper (three calls, or two with a single net) and never a fused
-    one for the rest on the fused backend."""
+    """``kernel_shape_ok`` holds for exactly the one-subject configs
+    routed to the fused kernels, and ``render_rays`` takes that route:
+    the fused wrappers for those (K1 on both passes with a single net),
+    the split wrapper (three calls, or two with a single net) and never
+    a fused one for the rest on the fused backend (multi-subject models
+    among them)."""
     cfg, route = _route_config(name)
     rc = t_build(cfg, n_framecodes=N_FRAMES)
-    assert FE.kernel_shape_ok(rc) == (route == 'fused')
+    assert (FE.kernel_shape_ok(rc) and rc.n_subjects == 1) == \
+        (route == 'fused')
     if route == 'plain':
         assert rc.mlp_backend == 'plain'
         FM._check_kernel_shape(_split_static(rc))   # K5/K6 would take it
         return
-    assert rc.mlp_backend == 'fused' and rc.n_subjects == 1
+    assert rc.mlp_backend == 'fused'
+    assert rc.n_subjects == 1 or route == 'split'
     if route == 'split':
         assert FE.supported_config(rc)
         FM._check_kernel_shape(_split_static(rc))   # K5/K6 take it

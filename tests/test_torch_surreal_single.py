@@ -82,7 +82,7 @@ def test_route_is_k1_with_viewfac_on_the_coarse_pass(monkeypatch):
         trc.render_rays(rc.eval_variant(), params, b['rays_o'], b['rays_d'],
                         0., 1., {k: b[k] for k in POSE_KEYS},
                         t_embed_state(cfg, rc, 0), cam_idxs=b['cam_idxs'])
-    one_row = (7, 1, False, 8, 256)
+    one_row = (7, 1, False, 8, 256, 16)
     assert seen == [(96, True, one_row), (48, False, one_row)]
 
 
