@@ -65,6 +65,18 @@
 //   chain adds into its accumulators.  Both choices count the windows
 //   and slots (SMEM_ADD) and are constexpr: a shape that fits stays
 //   resident with its bits.
+// * WIDE nets (768-2048 wide): no activation buffer fits beside the
+//   ring, so the per-tile pass is K6's WIDE body (mlp_bwd_tile_wide,
+//   mlp_bwd_common.cuh): every bf16 activation and cotangent goes
+//   straight to the workspace, where the next product reads its A
+//   operand back 256 columns at a time, each mma's sum added with
+//   rounding; the views layer's recompute runs in blocks of 128 outputs.
+//   The workspace then holds (2 DEPTH + 2) W + 2 HV bf16 a net and point
+//   beside the inputs' and cotangents' rows: 38.9 KB a net and point at
+//   8 x 1024, 10.2 GB for K4 at n = 131,072 (offsets in size_t
+//   throughout).  Under viewfac each views block stages its 128 columns
+//   of M in the A operands' column buffer; the Gram pass walks HV in
+//   blocks of 128 columns past 256.
 // * viewfac (the view factorization, K4 on the flagship's coarse pass):
 //   the per-tile pass recomputes the views layer from the codes' k-slice
 //   and xw @ M and writes the codes' cotangent alone; the pullback adds
@@ -106,9 +118,7 @@
 #define ANERF_ENC_KERNEL  // the windows and slots count (SMEM_ADD)
 #include "mlp_bwd_common.cuh"
 
-static_assert((W == 256 || W == 512) && SKIP == 4,
-              "K3/K4 take nets 256 or 512 wide (no WIDE body) with the skip "
-              "after layer 4");
+static_assert(SKIP == 4, "K3/K4 take nets with the skip after layer 4");
 
 namespace {
 
@@ -172,8 +182,13 @@ bwd_tile_kernel(const float* __restrict__ p, const float* __restrict__ enc,
       sm.gsm[idx] = gpt < n ? __ldg(gin + ((size_t)net * 4 + c) * n + gpt) : 0.f;
     }
     const VfTile vf = vf_tile(WIN, SLOT, wk.vfM[net], t0, n, S);
+#if ANERF_WIDE
+    mlp_bwd_tile_wide<VF>(rg, sm, wback + (size_t)net * WGSZ,
+                          bpack + (size_t)net * BSZ, wk, net, t0, xg, &vf);
+#else
     mlp_bwd_tile<VF>(rg, sm, wback + (size_t)net * WGSZ,
                      bpack + (size_t)net * BSZ, wk, net, t0, xg, &vf);
+#endif
   }
 }
 
@@ -292,17 +307,24 @@ __global__ void pullback_kernel(const float* __restrict__ p,
 // viewfac's per-ray Gram matrix Gw[net, r, j, :] = bf16(sum over the
 // ray's points t, in order, of bf16(w[t, j]) g_hv[t, :]) (the xw^T g_hv
 // of pallas_mlp._viewfac_bwd), which K-vf2 (viewfac.cu) folds into the
-// views weight's view rows and denc: a block per (ray, net), its points'
-// windows and g_hv staged in shared memory VF_GS at a time, a thread per
-// (joint, 8 columns)
+// views weight's view rows and denc: a block per (ray, net, VF_GC
+// columns), its points' windows and g_hv's columns staged in shared
+// memory VF_GS at a time, a thread per (joint, 8 columns).  All HV
+// columns in one block up to 256 (768 threads); past that (WIDE nets'
+// views layers of 384-1024) blocks of 128 along a third grid dimension,
+// each column's sum over the points in the same order.
 constexpr int VF_GS = 32;
+constexpr int VF_GC = HV <= 256 ? HV : 128;
+static_assert(HV % VF_GC == 0 && J * VF_GC / 8 <= 1024,
+              "the Gram pass's column blocks");
 
-__global__ void __launch_bounds__(J * HV / 8)
+__global__ void __launch_bounds__(J * VF_GC / 8)
 vf_gram_kernel(Work wk, bf16* __restrict__ gw, int S, int R) {
   __shared__ float w[VF_GS][J];
-  __shared__ __align__(16) bf16 g[VF_GS][HV];
-  const int r = blockIdx.x, net = blockIdx.y;
-  const int j = threadIdx.x / (HV / 8), c = (threadIdx.x % (HV / 8)) * 8;
+  __shared__ __align__(16) bf16 g[VF_GS][VF_GC];
+  const int r = blockIdx.x, net = blockIdx.y, c0 = blockIdx.z * VF_GC;
+  const int j = threadIdx.x / (VF_GC / 8);
+  const int c = (threadIdx.x % (VF_GC / 8)) * 8;
   float acc[8] = {};
   for (int s0 = 0; s0 < S; s0 += VF_GS) {
     const int ns = min(VF_GS, S - s0);
@@ -310,9 +332,11 @@ vf_gram_kernel(Work wk, bf16* __restrict__ gw, int S, int R) {
     __syncthreads();
     for (int i = threadIdx.x; i < ns * J; i += blockDim.x)
       w[i / J][i % J] = bf16r(wk.win[p0 * J + i]);
-    for (int i = threadIdx.x; i < ns * HV / 8; i += blockDim.x)
-      reinterpret_cast<uint4*>(&g[0][0])[i] =
-          reinterpret_cast<const uint4*>(wk.ghv[net] + p0 * HV)[i];
+    for (int i = threadIdx.x; i < ns * VF_GC / 8; i += blockDim.x) {
+      const int s = i / (VF_GC / 8), ch = i - s * (VF_GC / 8);
+      reinterpret_cast<uint4*>(&g[s][0])[ch] = reinterpret_cast<const uint4*>(
+          wk.ghv[net] + (p0 + s) * HV + c0)[ch];
+    }
     __syncthreads();
     for (int s = 0; s < ns; ++s) {
       const float ws = w[s][j];
@@ -321,7 +345,7 @@ vf_gram_kernel(Work wk, bf16* __restrict__ gw, int S, int R) {
       for (int q = 0; q < 8; ++q) acc[q] += ws * __bfloat162float(bf16_of(gv, q));
     }
   }
-  bf16* o = gw + (((size_t)net * R + r) * J + j) * HV + c;
+  bf16* o = gw + (((size_t)net * R + r) * J + j) * HV + c0 + c;
 #pragma unroll
   for (int q = 0; q < 8; ++q) o[q] = __float2bfloat16_rn(acc[q]);
 }
@@ -376,7 +400,8 @@ int launch_passes(const float* p, const float* tfab, const float* enc,
       p, enc, cutoff, tau, wk, dp, n, S, tfab);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (VF) {  // after the pullback, which writes the windows it reads
-    vf_gram_kernel<<<dim3(R, NNET), J * HV / 8, 0, st>>>(wk, gw, S, R);
+    vf_gram_kernel<<<dim3(R, NNET, HV / VF_GC), J * VF_GC / 8, 0, st>>>(
+        wk, gw, S, R);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int ncol = (VF ? 0 : DE) + NNET * NCODE;

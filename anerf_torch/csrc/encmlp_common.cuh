@@ -79,8 +79,9 @@ constexpr int VF_CW = NCODE + 16;
 
 // the net: DEPTH trunk layers of W units, the views layer HV = W / 2
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
-// for 1-16 layers 256 or 512 wide (8 x 256 by default); a K5/K6 build
-// takes any depth from 1 to 64 and any W
+// for 1-16 layers of any W that is a multiple of 256 up to 2048 (8 x 256
+// by default; fused_encmlp.kernel_shape admits the depths); a K5/K6
+// build takes any depth from 1 to 64 and any W
 // that is a multiple of 256 up to 2048, depth x W up to 65,536 (64 x
 // 1024, 32 x 2048; nvcc -DANERF_DEPTH=...
 // -DANERF_WIDTH=... -DANERF_SKIP=...; ops/cuda_build.py), other nets
@@ -125,8 +126,10 @@ constexpr int NTHREAD = NWARP * 32;
 // they include a header) keep the tile's windows (T, J) f32 and
 // viewfac's ray slots (T), 6,400 bytes; K5/K6 nothing
 #ifdef ANERF_ENC_KERNEL
+constexpr bool ENC_KERNEL = true;
 constexpr size_t SMEM_ADD = sizeof(float) * T * J + sizeof(int) * T;
 #else
+constexpr bool ENC_KERNEL = false;
 constexpr size_t SMEM_ADD = 0;
 #endif
 
@@ -335,10 +338,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
 // product is 64 x VFK x HV, VFK = VFR J padded to the 16-deep k-step,
 // on mma.sync, both operands staged in shared memory (vf_stage): M's
 // rows of the tile's rays, from device memory (L2), and xw, from the
-// tile's windows.
+// tile's windows.  Up to 512 wide a staging holds all HV columns of M;
+// WIDE the views layer runs in blocks of 128 outputs (mlp_fwd_common.cuh
+// VB, mlp_bwd_common.cuh VXR) and a staging holds one block's columns
+// (VF_MC), staged again for each block.
 constexpr int VFR = 3;
 constexpr int VFK = (VFR * J + 15) / 16 * 16;
-constexpr int VF_LDM = HV + 8;    // the staged M's row stride (bf16)
+constexpr int VF_MC = WIDE ? 128 : HV;   // the staged columns of M
+constexpr int VF_LDM = VF_MC + 8; // the staged M's row stride (bf16)
 constexpr int VF_LDW = VFK + 8;   // the staged xw's
 constexpr int VF_STAGE = VFK * VF_LDM + T * VF_LDW;  // bf16 of a staging
 
@@ -375,20 +382,22 @@ __device__ __forceinline__ uint32_t vf_xw(const VfTile& v, int t, int k) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v.win[t * J + k - kr * J]));
 }
 
-// buf (VF_STAGE bf16, 16-byte aligned) = MS (VFK, VF_LDM): row k the row
-// k % J of M of the tile's ray k / J, zeros past its rays; then XW (T,
-// VF_LDW): xw.  Run by the consumer warps; the caller synchronises them
-// before the products read it.
-__device__ __forceinline__ void vf_stage(bf16* buf, const VfTile& v) {
-  static_assert(HV % 8 == 0 && VF_LDM % 8 == 0, "16-byte rows of M");
-  constexpr int C8 = HV / 8, NL = (VFK * C8 + NTHREAD - 1) / NTHREAD;
+// buf (VF_STAGE bf16, 16-byte aligned) = MS (VFK, VF_LDM): row k the
+// columns c0 .. c0 + VF_MC - 1 of row k % J of M of the tile's ray k / J,
+// zeros past its rays; then XW (T, VF_LDW): xw.  Run by the consumer
+// warps; the caller synchronises them before the products read it.
+__device__ __forceinline__ void vf_stage(bf16* buf, const VfTile& v,
+                                         int c0 = 0) {
+  static_assert(VF_MC % 8 == 0 && VF_LDM % 8 == 0 && HV % VF_MC == 0,
+                "16-byte rows of M");
+  constexpr int C8 = VF_MC / 8, NL = (VFK * C8 + NTHREAD - 1) / NTHREAD;
   uint4 val[NL];   // every load in flight before the first store
 #pragma unroll
   for (int u = 0; u < NL; ++u) {
     const int idx = threadIdx.x + u * NTHREAD, k = idx / C8, kr = k / J;
     const bool on = idx < VFK * C8 && kr < v.nr;
     val[u] = *reinterpret_cast<const uint4*>(
-        v.M + (on ? ((size_t)(v.r0 + kr) * J + (k - kr * J)) * HV +
+        v.M + (on ? ((size_t)(v.r0 + kr) * J + (k - kr * J)) * HV + c0 +
                         (idx - k * C8) * 8
                   : (size_t)v.r0 * J * HV));
     if (!on) val[u] = make_uint4(0u, 0u, 0u, 0u);

@@ -9,8 +9,21 @@
 // (648), framecodes (16), an 8 x 256 trunk with the input re-entering
 // after layer 4, a 128-wide views branch.  A build per static shape
 // takes 1-10 kp bands, 1-21 view rows, framecodes of 16-128 columns, the
-// windowed bone directions and 1-16 layers 256 or 512 wide
-// (encmlp_common.cuh; fused_encmlp.kernel_shape).
+// windowed bone directions and 1-16 layers of any width that is a
+// multiple of 256 up to 2048 (encmlp_common.cuh;
+// fused_encmlp.kernel_shape).
+//
+// Past 512 wide (WIDE) a block's activations do not fit its shared
+// memory: the MLP body is K5's (mlp_fwd_tile_wide), each layer's bf16
+// output going to a per-block workspace in device memory (L2-hot: two
+// (64, W) buffers and hv, (2 W + HV) x 2 bytes a point, 1.34 GB at K2's
+// eval chunk of 262,144 points at 8 x 1024) and each product reading
+// its A operand back 256 columns at a time, the views layer last in
+// blocks of 128 outputs.  Where the views input does not stay resident,
+// each views block builds it again (NVB times a net).  With viewfac
+// each views block stages its 128 columns of M for the tile's rays in
+// the A operands' column buffer and adds xw @ M's block to the codes'
+// k-slice product.
 //
 // Per block: 64 points (one S=64 ray, or four S=16 rays), two consumer
 // warpgroups and a producer warp.  The encode runs in f32 on the CUDA
@@ -80,9 +93,7 @@
 #define ANERF_ENC_KERNEL  // the windows and slots count (SMEM_ADD)
 #include "mlp_fwd_common.cuh"
 
-static_assert((W == 256 || W == 512) && SKIP == 4,
-              "K1/K2 take nets 256 or 512 wide (no WIDE body) with the skip "
-              "after layer 4");
+static_assert(SKIP == 4, "K1/K2 take nets with the skip after layer 4");
 
 namespace {
 
@@ -92,8 +103,9 @@ static_assert(SMEM_ENC <= 232448, "a block takes at most 227 KB");
 static_assert(DX == DV + C3 && DXP == DX,
               "K1/K2 encode the trunk input [v | r], a whole k-step wide");
 
-// X's device-memory rows (null where X stays resident): n rounded up to
-// T, DXP bf16 each
+// the workspace: X's device-memory rows (none where X stays resident),
+// n rounded up to T, DXP bf16 each; then, WIDE, each block's activations
+// (FWD_WORK_ELEMS bf16 a block)
 constexpr size_t XWORK_ROW = FWD_X_RESIDENT ? 0 : (size_t)DXP * sizeof(bf16);
 
 // tfab (TF: the affine rows) and then xwork are the last parameters, so
@@ -129,6 +141,9 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
   // accesses, global ones included, visible to the threads it
   // synchronises, and x_cols' barriers come later still.
   bf16* xg = FWD_X_RESIDENT ? nullptr : xwork + (size_t)t0 * DXP;
+  bf16* hw = WIDE ? xwork + (FWD_X_RESIDENT ? 0 : (size_t)gridDim.x * T * DXP) +
+                        (size_t)blockIdx.x * FWD_WORK_ELEMS
+                  : nullptr;
   encode_points<TF>(p, tfab, cutoff, __ldg(tau_ptr),
                     FWD_X_RESIDENT ? sm.X : xg, FWD_X_RESIDENT ? LDX : DXP,
                     WIN, t0, n, S);
@@ -141,18 +156,25 @@ encmlp_fwd_kernel(const float* __restrict__ p, const float* __restrict__ enc,
     // 256 columns at a time from the view rows, the windows and the codes
     const float* cn = codes + (size_t)net * R * NCODE;
     const XvEnc xe{enc, WIN, cn, S};
+    const VfTile vft = vf_tile(
+        WIN, SLOT, VF ? vfM + (size_t)net * R * J * HV : vfM, t0, n, S);
     if constexpr (VF) {
       write_vf_codes(sm.XV, LDCV, cn, t0, n, S);
-      vf_stage(sm.XV + T * LDCV,
-               vf_tile(WIN, SLOT, vfM + (size_t)net * R * J * HV, t0, n, S));
+      if constexpr (!WIDE) vf_stage(sm.XV + T * LDCV, vft);
     } else if constexpr (FWD_XV_RESIDENT) {
       encode_views(xe, sm.XV, LDXV, 0, DXV, t0, n);
     }
     sync_tile();
+#if ANERF_WIDE
+    mlp_fwd_tile_wide<VF, XRows, XvEnc>(
+        rg, sm, wpack + (size_t)net * WSZ, bpack + (size_t)net * BSZ,
+        out + (size_t)net * 4 * n, n, 1, t0, n, &xr, &xe, hw, &vft);
+#else
     mlp_fwd_tile<VF, XRows, XvEnc>(rg, sm, wpack + (size_t)net * WSZ,
                                    bpack + (size_t)net * BSZ,
                                    out + (size_t)net * 4 * n, n, 1, t0, n,
                                    &xr, &xe);
+#endif
   }
 }
 
@@ -192,7 +214,8 @@ int launch_tf(const float* p, const float* tfab, const float* enc,
 // views input; viewfac needs S >= 32 (a tile's rays at most VFR).  tfab:
 // null (p the points (n, 3J)) or the affine rows (R, 2, 3J) of the
 // in-kernel transform (p the depths (R, S), n = R S).  xwork: the trunk
-// input's rows, encmlp_fwd_workspace_bytes(n) (null where that is 0).
+// input's rows and (WIDE) the blocks' activations,
+// encmlp_fwd_workspace_bytes(n) (null where that is 0).
 template <int NNET>
 int launch(const float* p, const float* enc, const float* codes,
            const float* cutoff, const float* tau, const void* wpack,
@@ -201,7 +224,7 @@ int launch(const float* p, const float* enc, const float* codes,
   if (n <= 0) return 0;
   if (vfM && S < T / (VFR - 1)) return (int)cudaErrorInvalidValue;
   if (tfab && n != R * S) return (int)cudaErrorInvalidValue;
-  if (!FWD_X_RESIDENT && !xwork) return (int)cudaErrorInvalidValue;
+  if ((!FWD_X_RESIDENT || WIDE) && !xwork) return (int)cudaErrorInvalidValue;
   const bf16* wf = reinterpret_cast<const bf16*>(wpack);
   bf16* xw = reinterpret_cast<bf16*>(xwork);
   FwdMaps maps;
@@ -242,10 +265,13 @@ int encmlp_dual_fwd(const float* p, const float* enc, const float* codes,
                    xwork, out, n, S, R, stream);
 }
 
-// Bytes of the trunk input's workspace for n points: 0 where X stays
-// resident in shared memory, else n rounded up to T rows of DXP bf16.
+// Bytes of the workspace for n points: the trunk input's rows (none
+// where X stays resident in shared memory, else n rounded up to T rows
+// of DXP bf16), then (WIDE) FWD_WORK_ELEMS bf16 of activations a block.
 long long encmlp_fwd_workspace_bytes(int n) {
-  return ((long long)n + T - 1) / T * T * (long long)XWORK_ROW;
+  const long long ntile = ((long long)n + T - 1) / T;
+  return ntile * T * (long long)XWORK_ROW +
+         ntile * (long long)FWD_WORK_ELEMS * (long long)sizeof(bf16);
 }
 
 // Sizes of one packed weight set, for the wrapper's checks.

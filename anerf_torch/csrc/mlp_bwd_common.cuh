@@ -943,11 +943,20 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 // trunk input and the streamed views input read back from there XCH
 // columns at a time (ring_mma_g, with mma_slices' RN); the views layer's
 // recompute in blocks of 128 outputs (warp w takes 16 of each); the
-// masks in the workspace where they do not fit.  No viewfac.
+// masks in the workspace where they do not fit.  VF (viewfac, K3/K4):
+// each views block's recompute adds xw @ M's 128 columns of the block
+// (M's rows of the tile's rays, `vf`, staged into C after the block's
+// feat part has read it) to the codes' k-slice streamed from the
+// workspace, and the views input's cotangent is the codes' alone (as
+// mlp_bwd_tile's).
+static_assert(VF_STAGE <= T * LDC && VXR == VF_MC,
+              "viewfac's staging (K3/K4) in the A operands' column buffer");
+
+template <bool VF>
 __device__ __forceinline__ void mlp_bwd_tile_wide(
-    BwdRing& rg, const TileSmem& sm, const bf16* __restrict__ Wb,
+    Ring<BwdSchedT<VF>>& rg, const TileSmem& sm, const bf16* __restrict__ Wb,
     const float* __restrict__ Bn, const Work& wk, int net, int t0,
-    const bf16* xg) {
+    const bf16* xg, const VfTile* vf = nullptr) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const float* GSM = sm.gsm;
   float* bpart = wk.bpart[net] + (size_t)blockIdx.x * BSZ;
@@ -996,7 +1005,16 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
     const int nv = warp * 16;
     zero_acc<2>(accv);
     ring_mma_g<2>(rg, accv, sm, feat, W, nv);
+    if constexpr (VF) {
+      sync_tile();  // every warp is past its reads of C
+      vf_stage(sm.C, *vf, v * VXR);
+      sync_tile();
+    }
     ring_mma<2>(rg, accv, nullptr, 0, nv);  // the views input, streamed
+    if constexpr (VF) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) vf_xw_m<2>(accv[m], sm.C, 16 * m, nv);
+    }
     store_act<2, true>(accv, Bn + OB_V + v * VXR, hv + v * VXR, HV, nv);
   }
   sync_tile();
@@ -1049,8 +1067,12 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
     colsum_store<4>(acc, bpart + OB_F + b * WB, nw);
     emit_bf16<4>(acc, gf + b * WB, nw, W);
   }
-  ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
-                        DXV, &sm, HV);
+  if constexpr (VF)  // the codes' cotangent alone
+    ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV + DE,
+                          NCODE, nw, DXV, &sm, HV);
+  else
+    ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
+                          DXV, &sm, HV);
 
   // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
 #pragma unroll 1

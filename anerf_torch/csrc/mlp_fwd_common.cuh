@@ -45,10 +45,11 @@ namespace {
 // the same way, then the views layer in blocks of 128 outputs, each its
 // views-input part and its feat part.  Every layer of W outputs runs as
 // NBLK blocks of 256 output rows, each block's parts in a row.  With
-// viewfac (K1, K2), the views-input part streams only its last k-slice:
+// viewfac (K1, K2), each views-input part streams only its last k-slice:
 // the codes (mlp_fwd_tile's note).
 constexpr int VB = 128;                           // WIDE: views block rows
 constexpr int NVB = HV / VB;
+static_assert(!WIDE || VB == VF_MC, "viewfac's staging a views block's M");
 constexpr int NFSEG = (WIDE ? 2 * NVB : 2) +
                       NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1);
 
@@ -92,7 +93,10 @@ __host__ __device__ constexpr FSegTable fwd_segs(bool viewfac) {
     }
   }
   t.nmap = assign_maps(t.s, NFSEG, t.m);
-  if (viewfac) t.s[0].kb = VF_KB;                   // the codes' slice
+  // viewfac: each views-input part streams the codes' slice alone (up
+  // to 512 wide the first segment, WIDE each views block's first)
+  for (int v = 0; viewfac && v < (WIDE ? NVB : 1); ++v)
+    t.s[WIDE ? NFSEG - 2 * (NVB - v) : 0].kb = VF_KB;
   return t;
 }
 __constant__ FSegTable FSEGS = fwd_segs(false);
@@ -156,9 +160,13 @@ cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
 // has 4 stages, 3 at W = 512, whose two (T, 520) activation buffers
 // leave no room for a fourth beside the trunk input's column buffer
 // (the buffer cannot share the activations' room: the skip layer reads
-// both); WIDE 4, or 3 where a resident X needs the room.
+// both); WIDE 4, or 3 where a resident X needs the room (the kernel's
+// additions counted).  K1/K2's WIDE XV region holds at least viewfac's
+// codes k-slice (T, LDCV), M's staging going to C a views block at a
+// time (mlp_fwd_tile_wide).
+constexpr int LDCV = VF_CW + 8;
 constexpr size_t xh_elems(bool xvres) {
-  return WIDE ? (xvres ? (size_t)T * LDXV : 0)
+  return WIDE ? (size_t)T * (xvres ? LDXV : ENC_KERNEL ? LDCV : 0)
               : (size_t)T * (xvres && LDXV > 2 * LDH ? LDXV : 2 * LDH);
 }
 constexpr size_t fwd_smem_bytes(int nstage, bool xres, bool xvres = true) {
@@ -167,9 +175,10 @@ constexpr size_t fwd_smem_bytes(int nstage, bool xres, bool xvres = true) {
          sizeof(bf16) * ((size_t)T * (xres ? LDX : LDC) + xh_elems(xvres) +
                          (WIDE && xres ? (size_t)T * LDC : 0));
 }
-constexpr int FWD_NSTAGE = !WIDE ? (W == 512 ? 3 : 4)
-                           : fwd_smem_bytes(4, true) <= SMEM_MAX ? 4
-                           : fwd_smem_bytes(3, true) <= SMEM_MAX ? 3 : 4;
+constexpr int FWD_NSTAGE =
+    !WIDE ? (W == 512 ? 3 : 4)
+    : fwd_smem_bytes(4, true) + SMEM_ADD <= SMEM_MAX ? 4
+    : fwd_smem_bytes(3, true) + SMEM_ADD <= SMEM_MAX ? 3 : 4;
 // the views input stays where it fits beside a buffer of X (so every
 // shape whose views input stayed before keeps its bits), then X where it
 // fits beside what the views input takes
@@ -223,9 +232,11 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* base) {
 }
 
 // viewfac (K1/K2): the codes' k-slice (T, LDCV) and the staging of M and
-// xw in the XV region
-constexpr int LDCV = VF_CW + 8;
-static_assert(WIDE || T * LDCV + VF_STAGE <= (int)XH_ELEMS,
+// xw in the XV region; WIDE the codes' slice there and the staging of a
+// views block's columns of M in C
+static_assert(WIDE ? !ENC_KERNEL || (T * LDCV <= (int)XH_ELEMS &&
+                                     VF_STAGE <= T * LDC)
+                   : T * LDCV + VF_STAGE <= (int)XH_ELEMS,
               "viewfac's operands in the XV region");
 
 // WIDE: the device-memory activations of one block: two (T, W) buffers
@@ -627,18 +638,24 @@ __device__ __forceinline__ void mlp_fwd_tile(Ring<FwdSchedT<VF>>& rg,
 }
 #else
 // ---- the MLP forward of one 64-point tile, WIDE -----------------------------
-// As mlp_fwd_tile (no viewfac), with the activations in device memory:
-// hw, the block's FWD_WORK_ELEMS (two (T, W) buffers, then hv (T, HV)).
-// Each trunk block, feat block and views block reads its A operand back
-// XCH columns at a time (ring_wgmma_g); the views layer runs last, in
-// NVB blocks of 128 outputs (warpgroup g takes 64), each its views-input
-// part from XV (resident in shared memory throughout, or brought from
-// xvs XCH columns at a time: ring_wgmma_xv) then its feat part, the
-// order of mlp_fwd_tile's sums.
+// As mlp_fwd_tile, with the activations in device memory: hw, the
+// block's FWD_WORK_ELEMS (two (T, W) buffers, then hv (T, HV)).  Each
+// trunk block, feat block and views block reads its A operand back XCH
+// columns at a time (ring_wgmma_g); the trunk input comes as
+// ring_wgmma_x takes it (resident, or from xs); the views layer runs
+// last, in NVB blocks of 128 outputs (warpgroup g takes 64), each its
+// views-input part from XV (resident in shared memory throughout, or
+// brought from xvs XCH columns at a time: ring_wgmma_xv) then its feat
+// part, the order of mlp_fwd_tile's sums.  VF (viewfac, K1/K2): XV holds
+// the codes' k-slice (T, LDCV) and each views block's views-input part
+// is that slice's product plus xw @ M's 128 columns of the block, M's
+// rows of the tile's rays (vft) staged into C a block at a time.
+template <bool VF, class XS = Parts, class XVS = Parts>
 __device__ __forceinline__ void mlp_fwd_tile_wide(
-    FwdRing& rg, const FwdSmem& sm, const bf16* __restrict__ Wn,
+    Ring<FwdSchedT<VF>>& rg, const FwdSmem& sm, const bf16* __restrict__ Wn,
     const float* __restrict__ Bn, float* __restrict__ out, size_t cs,
-    size_t ps, int t0, int n, const Parts* xs, const Parts* xvs, bf16* hw) {
+    size_t ps, int t0, int n, const XS* xs, const XVS* xvs, bf16* hw,
+    const VfTile* vft = nullptr) {
   const int wg = threadIdx.x >> 7;
   bf16* hin = hw;
   bf16* hout = hw + T * W;
@@ -677,7 +694,15 @@ __device__ __forceinline__ void mlp_fwd_tile_wide(
 #pragma unroll 1
   for (int v = 0; v < NVB; ++v) {
     zero_wg(dv);
-    ring_wgmma_xv(rg, dv, sm, xvs, t0, n);
+    if constexpr (VF) {
+      sync_tile();  // every warp is past its reads of C
+      vf_stage(sm.C, *vft, v * VB);
+      sync_tile();
+      ring_wgmma(rg, dv, sm.XV, LDCV);
+      vf_xw_m<8>(dv, sm.C, 16 * ((threadIdx.x >> 5) & 3), wg * (VB / 2));
+    } else {
+      ring_wgmma_xv(rg, dv, sm, xvs, t0, n);
+    }
     ring_wgmma_g(rg, dv, sm, hout, W);
     store_wg<8, true>(dv, Bn + OB_V, hv, v * VB + wg * (VB / 2), HV);
   }

@@ -58,8 +58,8 @@
 // stream is PyTorch's current stream; returns cudaGetLastError().
 //
 // Built per view PE row count NB (1-21: -DANERF_NB, ops/cuda_build.py)
-// and views layer width HV (128, or 256 for a net 512 wide:
-// -DANERF_WIDTH), the flagship's 9 and 128 (27 columns, the counts
+// and views layer width HV (128, or 2 x 128 up to 8 x 128 for a net
+// 512-2048 wide: -DANERF_WIDTH), the flagship's 9 and 128 (27 columns, the counts
 // above) by default.  Up to 9 rows a joint's NB x 3 view columns fit the
 // 32 of two k-steps (KB); past that (11-21 rows, 33-63 columns) K-vf1
 // takes them in KB = 48 or 64 (whole k-steps), its staged weights then
@@ -79,19 +79,31 @@
 // columns in its chain instead (FO_SMEM 178 KB: one block a
 // multiprocessor, FO_BLOCKS), dWvx's columns split over its warps as at
 // 128.  The HV = 128 builds are the kernels above unchanged.
+//
+// Past 256 (the views layers of WIDE nets, HV = 384-1024: -DANERF_WIDTH
+// 768-2048) K-vf1 walks HV / 128 column blocks on its grid dimension as
+// at 256.  K-vf2's chain of all HV columns would not fit a block (its
+// ring stages and weight rows grow with HV: ~238 KB at 384 with 9 view
+// rows), so it too runs blocks of 128 columns along its third grid
+// dimension, each exactly the HV = 128 kernel on its columns: dWvx is
+// per column, and each block writes its partial denc over its 128
+// columns to scratch, which vf_denc_sum_kernel adds in column-block
+// order (no atomics; two calls give the same bits).  Each block reads
+// its columns of Gw once: Gw is read once in all, and the partial denc
+// adds (HV / 128) x R x DE x 4 bytes each way (42 MB at R = 2048 and HV
+// 1024).
 #include "encmlp_common.cuh"
 
 namespace {
 
-static_assert(HV == 128 || HV == 256,
-              "viewfac's kernels take a views layer 128 or 256 wide");
+static_assert(HV % 128 == 0 && HV <= 1024,
+              "viewfac's kernels take a views layer of 128-column blocks");
 
 constexpr int NBJ = NB * 3;          // 27 view columns a joint
 // K-vf1: NBJ zero-padded to two k-steps, or past 32 (11 view rows and
 // up) to whole k-steps: 48 at 11-15 rows, 64 at 17-21
 constexpr int KB = NBJ <= 32 ? 32 : (NBJ + 15) / 16 * 16;
 constexpr int JG = 8;                // joints a group: a sector of enc
-constexpr int HCH = HV / 8;          // 16-byte chunks a row of M
 constexpr int NTH = 256;
 static_assert(J % JG == 0 && NBJ <= KB && KB <= 64, "whole joint groups");
 
@@ -292,12 +304,20 @@ constexpr int FO_NB = 3;               // slices' E and Ds buffers
 constexpr int FO_KB = 32;
 constexpr int FO_NBH = (NBJ + FO_KB - 1) / FO_KB;   // column blocks
 constexpr int FO_NBJ = (NBJ + FO_NBH - 1) / FO_NBH;  // a block's at most
-constexpr int FO_LDG = HV + 8;         // a stage's row stride (bf16)
+// a block's columns h of Gw and dWvx: all HV up to 256 (denc's chain
+// over them in one block); past 256 (WIDE nets' views layers, 384-1024)
+// blocks of 128 along the third grid dimension as well, each writing its
+// partial denc over its columns to scratch, which vf_denc_sum_kernel
+// adds in block order
+constexpr int FO_H = HV <= 256 ? HV : 128;
+constexpr int FO_NHB = HV / FO_H;      // column blocks of h
+constexpr int FO_HCH = FO_H / 8;       // 16-byte chunks of a block's row
+constexpr int FO_LDG = FO_H + 8;       // a stage's row stride (bf16)
 constexpr int FO_LDE = FO_KB + 8;      // E's row stride (bf16)
-constexpr int FO_W = 2 * FO_KB * HV;   // both nets' rows: [net][b][HV], swizzled
+constexpr int FO_W = 2 * FO_KB * FO_H; // both nets' rows: [net][b][FO_H], swizzled
 constexpr int FO_E = FO_SLICE * FO_LDE;    // a slice's view values: [ray][b]
 constexpr int FO_D = FO_SLICE * FO_NBJ;    // a slice's denc at the joint: [ray][b]
-constexpr int FO_G = 2 * FO_CH * FO_LDG;   // a stage: [net][ray][HV]
+constexpr int FO_G = 2 * FO_CH * FO_LDG;   // a stage: [net][ray][FO_H]
 constexpr size_t FO_SMEM = 2 * ((size_t)FO_W + FO_NB * FO_E + FO_NST * FO_G) +
                            sizeof(float) * (FO_NB * FO_D + NTH * JG);
 // blocks a multiprocessor: two at HV = 128 where a block's view columns
@@ -310,11 +330,13 @@ static_assert(FO_SLICE == 2 * FO_CH && FO_SLICE * 4 == NTH && FO_D % 4 == 0,
               "a thread a (ray, 8 b) unit's b, and a (unit, joint)");
 
 // Block (joint j = blockIdx.x, partial y = blockIdx.y, view columns b0
-// = FO_NBJ blockIdx.z .. b0 + FO_NBJ - 1), cluster rank j % JG: the
-// dWvx partial of
+// = FO_NBJ (blockIdx.z % FO_NBH) .. b0 + FO_NBJ - 1, columns h0 = FO_H
+// (blockIdx.z / FO_NBH) .. h0 + FO_H - 1 of Gw), cluster rank j % JG:
+// the dWvx partial of
 // joint j's rows of those columns over the slices y, y + P, ... (P =
 // gridDim.y) of FO_SLICE rays, both nets, and denc of those slices' rays
-// at joint j and those columns.  Gw streams through a ring of FO_NST stages
+// at joint j and those columns (past 256 columns of h, its column block's
+// partial, to denc + (h0 / FO_H) R DE).  Gw streams through a ring of FO_NST stages
 // across the slices.  A slice's view values come in as (ray, 8 b)
 // units, each unit's 8 sectors read by one block of the cluster (a
 // sector a thread, cp.async into Xf) and handed to the 8 blocks as
@@ -338,8 +360,11 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
   const int tid = threadIdx.x, j = blockIdx.x, jj = j % JG, j0 = j - jj;
   const int y = blockIdx.y, P = gridDim.y;
   // this block's view columns b0 .. b0 + nbj - 1 (all NBJ in one block
-  // up to 9 view rows); b below counts from b0
-  const int b0 = blockIdx.z * FO_NBJ;
+  // up to 9 view rows), b below counting from b0, and its columns of Gw
+  // h0 .. h0 + FO_H - 1 (all HV up to 256)
+  const int b0 = (blockIdx.z % FO_NBH) * FO_NBJ;
+  const int hb = blockIdx.z / FO_NBH, h0 = hb * FO_H;
+  float* dn = denc + (size_t)hb * R * DE;
   const int nbj = FO_NBH == 1 ? NBJ : min(FO_NBJ, NBJ - b0);
   const int nslice = (R + FO_SLICE - 1) / FO_SLICE;
   const int T = (nslice - y + P - 1) / P;          // this block's slices
@@ -396,7 +421,7 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
         const int i = i0 + p, r = i / nbj, b = i - r * nbj;
         if (i < npair) {
           float4* o = reinterpret_cast<float4*>(
-              denc + (size_t)(slice_ray(t) + r) * DE + (b0 + b) * J + j0);
+              dn + (size_t)(slice_ray(t) + r) * DE + (b0 + b) * J + j0);
           o[0] = make_float4(w[0][p], w[1][p], w[2][p], w[3][p]);
           o[1] = make_float4(w[4][p], w[5][p], w[6][p], w[7][p]);
         }
@@ -407,30 +432,31 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
   auto load_stage = [&](int k) {
     bf16* G = Gs + (k % FO_NST) * FO_G;
     const int r0 = slice_ray(k >> 1) + (k & 1) * FO_CH;
-    for (int i = tid; i < nnet * FO_CH * HCH; i += NTH) {
-      const int row = i / HCH, ch = i - row * HCH, n = row / FO_CH;
+    for (int i = tid; i < nnet * FO_CH * FO_HCH; i += NTH) {
+      const int row = i / FO_HCH, ch = i - row * FO_HCH, n = row / FO_CH;
       const int r = r0 + row - n * FO_CH;
       const bool on = r < R;
       cp_async16(G + row * FO_LDG + ch * 8,
-                 gw + (((size_t)n * R + (on ? r : 0)) * J + j) * HV + ch * 8,
+                 gw + (((size_t)n * R + (on ? r : 0)) * J + j) * HV + h0 +
+                     ch * 8,
                  on ? 16 : 0);
     }
   };
 
   // both nets' nbj (27) weight rows of joint j, rows nbj .. 31 zero
-  for (int i = tid; i < nnet * nbj * HCH; i += NTH) {
-    const int row = i / HCH, c = i - row * HCH, n = row / nbj;
+  for (int i = tid; i < nnet * nbj * FO_HCH; i += NTH) {
+    const int row = i / FO_HCH, c = i - row * FO_HCH, n = row / nbj;
     const int b = row - n * nbj;
-    cp_async16(Ws + (n * FO_KB + b) * HV + swz(b, c),
-               wvx + ((size_t)n * DE + (b0 + b) * J + j) * HV + c * 8);
+    cp_async16(Ws + (n * FO_KB + b) * FO_H + swz(b, c),
+               wvx + ((size_t)n * DE + (b0 + b) * J + j) * HV + h0 + c * 8);
   }
   load_x(0);
   cp_async_commit();
-  for (int i = tid; i < 2 * (FO_KB - nbj) * HCH; i += NTH) {
-    const int row = i / HCH, n = row / (FO_KB - nbj);
+  for (int i = tid; i < 2 * (FO_KB - nbj) * FO_HCH; i += NTH) {
+    const int row = i / FO_HCH, n = row / (FO_KB - nbj);
     *reinterpret_cast<uint4*>(Ws + (n * FO_KB + nbj + row -
-                                    n * (FO_KB - nbj)) * HV +
-                              (i - row * HCH) * 8) =
+                                    n * (FO_KB - nbj)) * FO_H +
+                              (i - row * FO_HCH) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
   for (int k = 0; k < FO_NST - 1; ++k) {
@@ -460,11 +486,11 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
   const bool dw_warp = warp < 4;
   const int wn = (warp >> 1) & 1, nh = warp & 1;
   const int mt = (warp >> 1) & 1, nb = warp & 1;
-  float dacc[2][HCH / 2][4];
+  float dacc[2][FO_HCH / 2][4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int t = 0; t < HCH / 2; ++t)
+    for (int t = 0; t < FO_HCH / 2; ++t)
       dacc[m][t][0] = dacc[m][t][1] = dacc[m][t][2] = dacc[m][t][3] = 0.f;
 
   for (int t = 0; t < T; ++t) {
@@ -495,10 +521,10 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
                                  ((mat >> 1) << 3)) * FO_LDE + m * 16 +
                                 ((mat & 1) << 3));
 #pragma unroll
-          for (int jp = 0; jp < HCH / 4; ++jp) {
+          for (int jp = 0; jp < FO_HCH / 4; ++jp) {
             uint32_t bb[4];
             ldsm_x4_t(bb, G + (wn * FO_CH + ks * 16 + r8 +
-                               ((mat & 1) << 3)) * FO_LDG + nh * (HV / 2) +
+                               ((mat & 1) << 3)) * FO_LDG + nh * (FO_H / 2) +
                               jp * 16 + ((mat >> 1) << 3));
 #pragma unroll
             for (int m = 0; m < 2; ++m) {
@@ -511,13 +537,13 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
         float e8[2][4] = {};
         for (int n = 0; n < nnet; ++n) {
 #pragma unroll
-          for (int ks = 0; ks < HV / 16; ++ks) {
+          for (int ks = 0; ks < FO_H / 16; ++ks) {
             uint32_t a[4], bb[4];   // Wvx rows nb 16 .. + 15, h ks 16 ..
             ldsm_x4(a, G + (n * FO_CH + mt * 16 + (lane & 15)) * FO_LDG +
                            ks * 16 + (lane >> 4) * 8);
             const int wr = nb * 16 + r8 + ((mat >> 1) << 3);
-            ldsm_x4(bb,
-                    Ws + (n * FO_KB + wr) * HV + swz(wr, ks * 2 + (mat & 1)));
+            ldsm_x4(bb, Ws + (n * FO_KB + wr) * FO_H +
+                            swz(wr, ks * 2 + (mat & 1)));
             mma_bf16(e8[0], a, bb[0], bb[1]);
             mma_bf16(e8[1], a, bb[2], bb[3]);
           }
@@ -553,13 +579,13 @@ vf_fold_kernel(const bf16* __restrict__ gw, const float* __restrict__ enc,
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int t = 0; t < HCH / 2; ++t)
+      for (int t = 0; t < FO_HCH / 2; ++t)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int b = m * 16 + g + 8 * hf;
           if (b < nbj)
             *reinterpret_cast<float2*>(o + (size_t)((b0 + b) * J + j) * HV +
-                                       nh * (HV / 2) + t * 8 + 2 * q) =
+                                       h0 + nh * (FO_H / 2) + t * 8 + 2 * q) =
                 make_float2(dacc[m][t][2 * hf], dacc[m][t][2 * hf + 1]);
         }
   }
@@ -585,6 +611,27 @@ vf_fold_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
     }
     const size_t net = i / per;
     reinterpret_cast<float4*>(dw + net * (size_t)wstride)[i - net * per] = s;
+  }
+}
+
+// denc[i] = the FO_NHB column blocks' partials of i summed in block
+// order (past 256 columns of Gw), 4 values a thread
+__global__ void __launch_bounds__(NTH)
+vf_denc_sum_kernel(const float* __restrict__ dpart, float* __restrict__ denc,
+                   int R) {
+  const size_t total = (size_t)R * DE / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(dpart);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 s = p4[i];
+    for (int hb = 1; hb < FO_NHB; ++hb) {
+      const float4 x = p4[(size_t)hb * total + i];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    reinterpret_cast<float4*>(denc)[i] = s;
   }
 }
 
@@ -629,31 +676,50 @@ int viewfac_m(const float* enc, const void* wvx, void* M, int R, int nnet,
   return (int)cudaGetLastError();
 }
 
+// K-vf2's scratch, f32 values: the P partials of dWvx (P, nnet, DE, HV)
+// where P > 1, then past 256 columns of Gw the column blocks' partial
+// denc (FO_NHB, R, DE); 0 where it needs none.
+long long viewfac_fold_scratch(int R, int nnet, int P) {
+  return (P > 1 ? (long long)P * nnet * DE * HV : 0) +
+         (FO_NHB > 1 ? (long long)FO_NHB * R * DE : 0);
+}
+
 // K-vf2: from the nets' per-ray Gram matrices gw (nnet, R, J, HV) bf16
 // (encmlp_bwd.cu's vf_gram_kernel): dWvx into dw (net's at dw + net *
 // wstride, (DE, HV) row-major f32) and denc (R, DE) f32, over slices
 // of `slice` (= FO_SLICE) rays, P partial sums (fused_encmlp.vf_fold_plan):
-// partial p over the slices p, p + P, ...; part (P, nnet, DE, HV) f32
-// is scratch, unused (and may be null) when P is 1.
+// partial p over the slices p, p + P, ...; part is scratch of
+// viewfac_fold_scratch(R, nnet, P) values (null where that is 0).
 int viewfac_fold(const void* gw, const float* enc, const void* wvx,
                  float* dw, long long wstride, float* denc, float* part,
                  int P, int slice, int R, int nnet, void* stream) {
   if (R <= 0) return 0;
   if (nnet < 1 || nnet > 2 || slice != FO_SLICE || P < 1 ||
-      P > (R + slice - 1) / slice || wstride % 4 != 0 || (P > 1 && !part))
+      P > (R + slice - 1) / slice || wstride % 4 != 0 ||
+      (viewfac_fold_scratch(R, nnet, P) > 0 && !part))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem_once();
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const long long per = (long long)DE * HV;
-  vf_fold_kernel<<<dim3(J, P, FO_NBH), NTH, FO_SMEM, st>>>(
+  float* dpart = part + (P > 1 ? (long long)P * nnet * per : 0);
+  vf_fold_kernel<<<dim3(J, P, FO_NBH * FO_NHB), NTH, FO_SMEM, st>>>(
       reinterpret_cast<const bf16*>(gw), enc,
       reinterpret_cast<const bf16*>(wvx), P > 1 ? part : dw,
-      P > 1 ? per : wstride, P > 1 ? per * nnet : 0, denc, R, nnet);
-  if ((err = cudaGetLastError()) != cudaSuccess || P == 1) return (int)err;
-  vf_fold_sum_kernel<<<(int)((per / 4 * nnet + NTH - 1) / NTH), NTH, 0, st>>>(
-      part, dw, wstride, nnet, P);
-  return (int)cudaGetLastError();
+      P > 1 ? per : wstride, P > 1 ? per * nnet : 0,
+      FO_NHB > 1 ? dpart : denc, R, nnet);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (P > 1) {
+    vf_fold_sum_kernel<<<(int)((per / 4 * nnet + NTH - 1) / NTH), NTH, 0,
+                         st>>>(part, dw, wstride, nnet, P);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (FO_NHB > 1) {
+    vf_denc_sum_kernel<<<(int)(((long long)R * DE / 4 + NTH - 1) / NTH), NTH,
+                         0, st>>>(dpart, denc, R);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 // The build's views width and view PE rows, for the wrapper's checks.

@@ -23,9 +23,10 @@ width a net is padded to, the skip after layer 4;
 window, depth, width, framecode columns)`` (``-DANERF_NF`` kp bands,
 ``-DANERF_NB`` view PE rows, ``-DANERF_BONE_WIN``, ``-DANERF_DX`` their
 trunk width, ``-DANERF_DEPTH`` and, past 256, ``-DANERF_WIDTH``, past
-16 ``-DANERF_NCODE``; ``fused_encmlp.kernel_shape``), and K-vf1/K-vf2
-its view rows NB and views width HV (``-DANERF_WIDTH`` = 2 HV past
-128).  The flagship's shapes build with no flags.
+16 ``-DANERF_NCODE``; ``fused_encmlp.kernel_shape``: widths 256-2048),
+and K-vf1/K-vf2 its view rows NB and views width HV (``-DANERF_WIDTH``
+= 2 HV past 128: 256-1024).  The flagship's shapes build with no
+flags.
 ``build_kernels`` starts one nvcc per library it lacks, all together,
 into ``anerf_torch/_build/``; each library is keyed by the hash of its
 source, the shared headers (``csrc/*.cuh``) and its shape's flags, so an
@@ -208,6 +209,8 @@ def _bind(lib: ctypes.CDLL, which: str) -> None:
         sig('viewfac_fold', [vp, vp, vp, vp, cll, vp, vp] + [ci] * 4 + [vp])
         sig('viewfac_width', [])
         sig('viewfac_slice', [])
+        # R, nnet, P
+        sig('viewfac_fold_scratch', [ci, ci, ci], cll)
     elif which == 'mlp_fwd':
         # x ptrs, x widths, nx, xv ptrs, xv widths, nxv, wpack, bpack,
         # workspace, out, n, stream
@@ -322,7 +325,7 @@ def build_kernels(verbose: bool = False,
             errors.append(f'nvcc {key} failed ({proc.returncode}):\n{out}')
             continue
         if verbose:
-            print(out)
+            print(f'nvcc {_tag(key)}:\n{out}')
         os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))

@@ -23,15 +23,17 @@ K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
 (their source notes give the designs and bounds).  Each is built per
 static shape, as anerf_tpu's kernels are (``_build_call`` per shape):
 1-10 kp bands, 1-21 view PE rows, the windowed bone directions
-(``--cutoff_bones``), 1-16 layers 256 or 512 wide and framecodes of at
-most 128 (``kernel_shape``: the encode shape a build is keyed by in
+(``--cutoff_bones``), nets of 1-16 layers of any width that is a
+multiple of 256 up to 2048 and framecodes of at most 128
+(``kernel_shape``: the encode shape a build is keyed by in
 ``cuda_build``); a shape outside that set takes the plain encode and
 K5/K6 (``kernel_shape_ok``), and one inside it launches its build or
 raises.  Where the trunk input does not stay resident in a block's
-shared memory (512 wide, 10 kp bands), K1/K2 write it to a workspace of
-``encmlp_fwd_workspace_bytes(n)`` that the wrapper allocates a call;
-where the views input does not (15 view rows and up, 13 with
-framecodes past 16, at 256 wide), their views
+shared memory (512 wide and WIDE, 10 kp bands), K1/K2 write it to a
+workspace of ``encmlp_fwd_workspace_bytes(n)`` that the wrapper
+allocates a call, which WIDE nets (768-2048 wide) extend by each
+block's activations; where the views input does not (15 view rows and
+up, 13 with framecodes past 16, at 256 wide), their views
 product builds it again 256 columns at a time in shared memory.
 
 The per-ray view factorization (``viewfac``, on by default; the cost
@@ -443,21 +445,25 @@ K4_TF_LAUNCHES = 0
 # SMPL's 24 joints, 1-10 kp bands on the 2^k grid (nerf-pytorch's
 # default multires is 10), 1-21 view PE rows (multires_views 0-10), the
 # bone directions windowed or not, 1-16 trunk
-# layers 256 or 512 wide with the skip after layer 4 (none below 6
-# layers; past 16 K3/K4's tensor-core sums put the later layers' weight
-# gradients further from an f64 evaluation of the chain than twice the
-# twin's distance, chip_smoke._check_bwd_f64), the views layer half as
-# wide, framecodes of at most 128 (zero-padded to the next multiple of
-# 16, the views input's k-step; at least 16) or none.  The trunk and the
-# views inputs stay in a block's shared memory where they fit, else the
-# trunk input in device memory and the views input built again a
-# column block at a time (the kernels decide, csrc/encmlp_fwd.cu,
-# encmlp_bwd.cu).  The rest is ROADMAP B.1.4.
+# layers of any width that is a multiple of 256 up to 2048 (past 512,
+# WIDE, the activations in device memory) with the skip after layer 4
+# (none below 6 layers; past 16 K3/K4's tensor-core sums put the later
+# layers' weight gradients further from an f64 evaluation of the chain
+# than twice the twin's distance, chip_smoke._check_bwd_f64; WIDE nets
+# up to KERNEL_WIDE_DEPTH layers, 8: at 16 layers of 1024 and 2048 the
+# WIDE backward's sums miss that rule, ROADMAP B.1.4), the
+# views layer half as wide, framecodes of at most 128 (zero-padded to
+# the next multiple of 16, the views input's k-step; at least 16) or
+# none.  The trunk and the views inputs stay in a block's shared memory
+# where they fit, else the trunk input in device memory and the views
+# input built again a column block at a time (the kernels decide,
+# csrc/encmlp_fwd.cu, encmlp_bwd.cu).  The rest is ROADMAP B.1.4.
 KERNEL_J = 24
 KERNEL_NF = range(1, 11)
 KERNEL_NB = tuple(range(1, 22, 2))
 KERNEL_DEPTH = range(1, 17)
-KERNEL_WIDTH = (256, 512)
+KERNEL_WIDTH = tuple(range(256, 2049, 256))
+KERNEL_WIDE_DEPTH = range(1, 9)
 KERNEL_SKIPS = (4,)
 KERNEL_CODES = 128
 
@@ -511,10 +517,13 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
                 'multires_views 0-10)')
     if st.width not in KERNEL_WIDTH or st.half != st.width // 2:
         return (f'a net {st.width} wide with a views layer of {st.half} '
-                '(they take 256 or 512, the views layer half as wide)')
-    if tuple(st.skips) != KERNEL_SKIPS or st.depth not in KERNEL_DEPTH:
-        return (f'{st.depth} layers with skips {tuple(st.skips)} (they take '
-                f'1-16 layers, the skip after layer 4)')
+                '(they take a multiple of 256 up to 2048, the views layer '
+                'half as wide)')
+    depths = KERNEL_DEPTH if st.width <= 512 else KERNEL_WIDE_DEPTH
+    if tuple(st.skips) != KERNEL_SKIPS or st.depth not in depths:
+        return (f'{st.depth} layers {st.width} wide with skips '
+                f'{tuple(st.skips)} (they take {depths[0]}-{depths[-1]} '
+                'layers, the skip after layer 4)')
     if codes > KERNEL_CODES:
         return f'framecodes of {codes} (they take at most {KERNEL_CODES})'
     if (st.dparts != ((2 * F + 1) * est.J, 3 * est.J)
@@ -630,7 +639,9 @@ def _launch(name: str, shape, nnet: int, p, enc_ray, codes, cutoff, tau,
     the depths), else None.  Where the build's trunk input does not stay
     in shared memory, the call's workspace for it (n rounded up to 64
     rows of its width, bf16: 113 MB at 131,072 points and 432 columns),
-    which the encode writes and both nets of K2 read."""
+    which the encode writes and both nets of K2 read; a WIDE net's adds
+    each 64-point block's activations, (2 W + W / 2) x 2 bytes a point
+    (1.34 GB at 262,144 points 1024 wide)."""
     lib = cuda_build.library('fwd', enc=shape)
     _check_packs(lib, nnet, wbuf, bbuf)
     nx = int(lib.encmlp_fwd_workspace_bytes(n))
@@ -922,8 +933,9 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     returns (dWvx (nnet, nb*3J, HV), denc (R, nb*3J)) f32, as
     ``vf_fold_plain``; dWvx's rays summed in the partials of
     ``vf_fold_plan``, each over its slices in order, then the partials
-    in order.  CPU tensors take the twin; CUDA tensors launch the
-    kernels or raise."""
+    in order; past 256 views columns (WIDE nets) denc's sum over them in
+    blocks of 128, then the blocks in order.  CPU tensors take the twin;
+    CUDA tensors launch the kernels or raise."""
     global KVF2_LAUNCHES
     if cuda_build.device_of(gw) == 'cpu':
         return vf_fold_plain(est, gw, enc_ray, wvx)
@@ -941,7 +953,10 @@ def vf_fold(est: EncStatic, gw: torch.Tensor, enc_ray: torch.Tensor,
     P, slice_ = vf_fold_plan(R)
     dwv = torch.empty((nnet, nbJ, HV), **f32)
     denc = torch.empty((R, nbJ), **f32)
-    part = torch.empty((P, nnet, nbJ, HV), **f32) if P > 1 else None
+    # the dWvx partials past one, and past 256 columns the column
+    # blocks' partial denc
+    nscratch = int(lib.viewfac_fold_scratch(R, nnet, P))
+    part = torch.empty(nscratch, **f32) if nscratch else None
     with torch.cuda.device(dev):
         err = lib.viewfac_fold(gw.data_ptr(), enc_ray.data_ptr(),
                                wvx.data_ptr(), dwv.data_ptr(), nbJ * HV,

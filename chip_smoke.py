@@ -95,11 +95,19 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    view rows (also under fuse_tform), framecodes of 32, and 21 view rows
    with framecodes of 128 (the views input out of K1/K2's shared
    memory; also at two 8x512 nets), K-vf1/K-vf2 at 11 and 21 rows at
-   their own builds;
+   their own builds; then (ROADMAP B.1.4's first part: the WIDE nets,
+   K5/K6's body inside K1-K4, the activations in device memory) two
+   8x768 nets (a 384-wide views layer: K-vf1/K-vf2 at HV 384; also under
+   fuse_tform), two 8x1024 nets (the flagship1024's build), 8x1024 with
+   21 view rows and framecodes of 128 (the views input rebuilt in each
+   views block) and two 8x2048 nets (at R=1024, ``ENC_SHAPE_RS``), each
+   held to its twin at the flagship's bars or, where K3/K4's RN-added
+   sums miss them, to the f64 chain by the deep nets' rule;
 2e. vf_widths phase (``vf_widths_phase``): K-vf1/K-vf2 at 11 view rows
-   and a 256-wide views layer (the one pair of their builds no encode
-   shape above brings), each launched once and counted, then against
-   their twins, bit-identical twice, timed beside ``torch.bmm``;
+   and a 256-wide views layer, and at 9 rows and views layers of 384,
+   512 and 1024 and 21 rows at 512 (the WIDE nets'), each launched once
+   and counted, then against their twins, bit-identical twice, timed
+   beside ``torch.bmm``;
 2f. views_kernel phase (``views_kernel_phase``, ROADMAP C.15): K5/K6
    at the views widths past 672 (views parts 648 + 32, 792 + 1 + 16 and
    1512 + 1 + 128: builds of views width 688, 832 and 1664, the last
@@ -139,6 +147,11 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    model at 11 view rows, 4 eager steps through K5/K6 (3 a step,
    ``split_train``: finite losses, the fused-vs-plain gradients) and a
    10-step bundle (``bundle_once``), where K5/K6 raised before;
+8d. flagship1024 phase (``wide_flagship_phase`` with ``W1024``, ROADMAP
+   B.1.4's first part): the same as 8b at two 8x1024 nets, on K1-K4's
+   WIDE body (K-vf1/K-vf2 at a 512-wide views layer), the split route it
+   replaces K5/K6 at 8x1024; then ``flagship1024_bundled``
+   (``bundle_once``);
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -228,11 +241,13 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    passes and bounds at the real shape; then 2 train steps at each net
    (K5/K6 three times a step, K1-K4 never);
 17. cli_net_width phase (after 15): ``configs/mixamo.txt`` at
-   ``netwidth = 512`` and ``mlp_backend = 'pallas'`` through
-   ``run_train.train`` on a synthetic store, 4 steps, K1-K4 (and
+   ``netwidth = 1024`` (the WIDE nets) and ``mlp_backend = 'pallas'``
+   through ``run_train.train`` on a synthetic store, 4 steps, K1-K4 (and
    K-vf1/K-vf2) as ``FLAGSHIP_STEP`` counts them a step and K5/K6
-   never, finite losses; then one bullet frame of its checkpoint through
-   ``run_render.main`` (K1 and K2 once a chunk, finite frames);
+   never, finite losses, then 10 more at ``--steps_per_dispatch`` 10
+   (its counters those of the warm-up steps and the capture); then one
+   bullet frame of its checkpoint through ``run_render.main`` (K1 and K2
+   once a chunk, finite frames);
 17b. cli_views phase (after 17, ``cli_net_width_phase`` with
    ``CLI_VIEWS``): the same recipe at ``multires_views = 5`` and
    ``framecode_size = 32`` (K1-K4 at 11 view rows and framecodes of
@@ -296,8 +311,9 @@ K1-K4's and K-vf1/K-vf2's ``enc_shapes`` the times, bound, error and
 launches of each of the encmlp_shapes phase's shapes, and K1, K3,
 K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
 K1-K4's and K-vf1/K-vf2's ``wide_flagship_times`` the wide_flagship
-phase's (the 8x512 step and eval chunk, both routes) and
-``views_flagship_times`` the views_flagship phase's; K5's and K6's
+phase's (the 8x512 step and eval chunk, both routes),
+``views_flagship_times`` the views_flagship phase's and
+``flagship1024_times`` the flagship1024 phase's; K5's and K6's
 ``views_widths`` the views_kernel phase's numbers at each views width
 with the launches of the path that runs it; K-vf1's and K-vf2's
 ``enc_shapes`` also the vf_widths phase's;
@@ -413,6 +429,7 @@ CLI_MS_STEPS = 4        # cli_multisubject steps
 BUNDLE = 10             # bundled phases: steps per dispatch (bench.py's)
 BUNDLED_STEPS = 30      # bundled phases: steps, in bundles of BUNDLE
 TIMING_WINDOWS = 5      # eager and bundled windows of BUNDLE steps, in turns
+TIMING_ROUNDS = 2       # flagship_timing's rounds of each mode, in turns
 # a bundle against as many eager steps from the same state and batches,
 # no draws: the same kernels on the same inputs, but cuBLAS may pick
 # other algorithms inside a graph and atomic sums (the gathers'
@@ -667,9 +684,10 @@ def _check_deterministic(name, first, second):
 # profiler's demangled names); the dW pass is its two kernels, the
 # partial tiles of the point slices and their sum in slice order
 DW_KERNELS = ('dw_kernel', 'dw_sum_kernel')
-# K-vf1 (M before the backward), K4's Gram pass and K-vf2's two kernels
+# K-vf1 (M before the backward), K4's Gram pass and K-vf2's kernels (the
+# column blocks' denc sum past 256 views columns)
 VF_KERNELS = ('vf_m_mma_kernel', 'vf_gram_kernel', 'vf_fold_kernel',
-              'vf_fold_sum_kernel')
+              'vf_fold_sum_kernel', 'vf_denc_sum_kernel')
 BWD_PASSES = {
     'encmlp_dual_bwd': (('per-tile', ('bwd_tile_kernel<2,',)),
                         ('pullback', ('pullback_kernel<2,',)),
@@ -682,7 +700,8 @@ BWD_PASSES = {
                    ('bias', ('bias_kernel',)), ('dW', DW_KERNELS),
                    ('viewfac', VF_KERNELS)),
     'vf_fold': (('fold', ('vf_fold_kernel',)),
-                ('slice sum', ('vf_fold_sum_kernel',))),
+                ('slice sum', ('vf_fold_sum_kernel',)),
+                ('denc sum', ('vf_denc_sum_kernel',))),
     'mlp_bwd': (('per-tile', ('mlp_bwd_tile_kernel',)),
                 ('dx', ('dx_kernel',)), ('bias', ('bias_kernel',)),
                 ('dW', DW_KERNELS)),
@@ -1071,8 +1090,9 @@ def flagship_timing(T, device, gpu_line, what, modes,
                     title='flagship step', n_rays=2048, route=None):
     """The flagship train step (``build_flagship(n_rays,
     steps_per_dispatch=BUNDLE, **modes[mode])``) in each of two modes:
-    after each bundle's warm-up and capture, 3 rounds in turns of BUNDLE
-    eager steps and one bundle of each; host ms/step (medians), the
+    after each bundle's warm-up and capture, TIMING_ROUNDS rounds in
+    turns of BUNDLE eager steps and one bundle of each; host ms/step
+    (medians), the
     clock ending in ``synchronize()``.  ``route``: {mode: a context
     manager factory} around that mode's every call (the eager steps read
     the route at each call, a bundle at its capture).  Returns {mode:
@@ -1096,7 +1116,7 @@ def flagship_timing(T, device, gpu_line, what, modes,
     torch.cuda.synchronize()
     first, second = modes
     ms = {(m, k): [] for m in runs for k in ('eager', 'bundled')}
-    for w in range(3):
+    for w in range(TIMING_ROUNDS):
         for m in ((first, second) if w % 2 == 0 else (second, first)):
             state, batches, multi, eager, g, one = runs[m]
             for k in ('eager', 'bundled'):
@@ -1113,7 +1133,7 @@ def flagship_timing(T, device, gpu_line, what, modes,
             runs[m][0] = state
     out = {m: {k: statistics.median(ms[m, k]) for k in ('eager', 'bundled')}
            for m in runs}
-    print(f'{title}, {what} (medians of 3 rounds in '
+    print(f'{title}, {what} (medians of {TIMING_ROUNDS} rounds in '
           f'turns, ms/step): ' + ', '.join(
               f'{m} eager {out[m]["eager"]:.2f} bundled '
               f'{out[m]["bundled"]:.2f}' for m in out)
@@ -2063,9 +2083,13 @@ def single_timing(FE, T, device, gpu_line):
 # nets 512 wide, on K1-K4 since B.1.2 (K-vf1/K-vf2 at a 256-wide views
 # layer); its eager steps, and the eval chunk of WIDE_CHUNK rays (K2 at
 # 262,144 points, K1 at 65,536)
-WIDE = dict(netwidth=512, netwidth_fine=512)
+W512 = dict(netwidth=512, netwidth_fine=512)
 WIDE_STEPS = 5
 WIDE_CHUNK = 4096
+# the flagship1024 phase (ROADMAP B.1.4's first part): the flagship
+# recipe with two 8 x 1024 nets, on K1-K4's WIDE body (K-vf1/K-vf2 at a
+# 512-wide views layer), through the same phase
+W1024 = dict(netwidth=1024, netwidth_fine=1024)
 
 
 def _eval_viewfac(FE, rc):
@@ -2079,7 +2103,7 @@ def _eval_viewfac(FE, rc):
 
 
 def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
-                        over=WIDE, title='wide flagship step (8 x 512)'):
+                        over=W512, title='wide flagship step (8 x 512)'):
     """``build_flagship(2048)`` with two 8 x 512 nets on the card (or
     with the config overrides ``over``: the views flagship's 21 view
     rows and framecodes of 128, VIEWS10), its
@@ -2273,7 +2297,7 @@ VIEWS_WIDTHS = {'680': (1, dict(framecode_size=32)),
                                        netwidth_fine=1024))}
 MS_VIEWS = dict(multires_views=5)
 MS_VIEWS_STEPS = 4
-VF_WIDTHS = ((11, 256),)
+VF_WIDTHS = ((11, 256), (9, 384), (9, 512), (9, 1024), (21, 512))
 CLI_VIEWS = dict(multires_views=5, framecode_size=32)
 
 
@@ -2484,9 +2508,19 @@ ENC_SHAPES = {
     'nb21_codes128': (VIEWS10, False, None),
     'nb21_codes128_w512': (dict(VIEWS10, netwidth=512, netwidth_fine=512),
                            False, None),
+    'w768': (dict(netwidth=768, netwidth_fine=768), False, None),
+    'w768_tf': (dict(netwidth=768, netwidth_fine=768), True, None),
+    'w1024': (W1024, False, None),
+    'w1024_nb21_codes128': (dict(VIEWS10, **W1024), False, None),
+    'w2048': (dict(netwidth=2048, netwidth_fine=2048), False, None),
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
+SHAPE_WINDOWS = 3       # the shapes' timing windows (medians)
+# shapes checked at fewer rays than ENC_SHAPE_R: the 2048-wide net, whose
+# twins (f32, and f64 where a check takes the f64 chain) would not fit the
+# card's memory beside K4's workspace (20.4 GB at R = 2048)
+ENC_SHAPE_RS = {'w2048': 1024}
 
 
 def enc_shape_key(FE, T, over):
@@ -2499,11 +2533,12 @@ def enc_shape_key(FE, T, over):
     return FE.kernel_shape(st, est)
 
 
-def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512):
-    """K1 (nnet 1, the fine net) or K2 at R = ENC_SHAPE_R x S, and K3 or
-    K4 on the composited cotangent, as (forward (run, plain), backward
-    (run, plain), the inputs)."""
-    ins = kernel_inputs(FE, T, rc, cfg, params, S, ENC_SHAPE_R, device,
+def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512,
+                     R=ENC_SHAPE_R):
+    """K1 (nnet 1, the fine net) or K2 at R x S, and K3 or K4 on the
+    composited cotangent, as (forward (run, plain), backward (run,
+    plain), the inputs)."""
+    ins = kernel_inputs(FE, T, rc, cfg, params, S, R, device,
                         tile=tile, fuse_tform=tf)
     g = _composited_cotangent(FE, ins, nnet, device)
     rows = ins[8] if tf else None   # the affine rows under fuse_tform
@@ -2521,7 +2556,11 @@ def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512):
 # recurrence's multiply-adds), and a longer chain carries that further:
 # at 16 layers of 512 at ten bands K4 and the twin read cosine 0.99816
 # and 0.99782 against the f64 chain, 0.99858 against each other
-# (scripts/check_k6_f64.py --enc)
+# (scripts/check_k6_f64.py --enc).  A WIDE net (past 512) is held to the
+# twin at the flagship's bars first, and, where it misses them, to the
+# f64 chain by the same rule: its backward adds each mma's sum with
+# rounding (K6's WIDE chain), so it reads further from the twin, whose
+# sums run in another order.
 DEEP_ENC_LAYERS = 8
 
 
@@ -2575,13 +2614,35 @@ def enc_shape_model(FE, T, name, over, samples, device):
     return cfg, rc, params, plan
 
 
+def _held(name, check, deep, ref_f64, run_plain, got):
+    """``got`` against the twin at the flagship's bars (``check``: a
+    ``_check_close``/``_check_bwd``-like function of (name, ref, got)),
+    or against the f64 chain (``ref_f64()``, with the twin ``run_plain()``
+    beside it: ``_check_close_f64``/``_check_bwd_f64``) where ``deep``
+    (past DEEP_ENC_LAYERS), or where a WIDE net misses the bars (``deep``
+    None).  Returns max |d| against the twin."""
+    f64 = {_check_close: _check_close_f64, _check_bwd: _check_bwd_f64}[check]
+    if not deep:
+        try:
+            return check(name, run_plain(), got)
+        except AssertionError as e:
+            if deep is not None:
+                raise
+            print(f'  {name}: a WIDE net misses the twin\'s bars ({e}); '
+                  'held to the f64 chain')
+    ref = ref_f64()
+    return f64(name, ref, got, run_plain())
+
+
 def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
-    """K1-K4 at one shape on the card, at R = ENC_SHAPE_R and the train
+    """K1-K4 at one shape on the card, at R = ENC_SHAPE_R (or the
+    shape's ENC_SHAPE_RS) and the train
     step's 512-point tile (the gate's viewfac where it takes it), on
     weights whose composited cotangent is not zero: K2/K4
     at S = 64 and K1/K3 at S = 16 (``samples``: K1/K3 alone at each S
     of it), each against its twin at the flagship's bars (``_check_close``,
-    ``_check_bwd`` on the composited cotangent), two calls bit-identical,
+    ``_check_bwd`` on the composited cotangent; past DEEP_ENC_LAYERS, and
+    where a WIDE net misses them, the f64 chain's rule), two calls bit-identical,
     its launches counted exactly (K-vf1 before K2/K4 under viewfac,
     K-vf2 after K4), timed (CUDA graph replays, ``_graph_ms``; back to
     back as well) beside its twin and its bound (``kernel_cost``);
@@ -2593,40 +2654,40 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
     cfg, rc, params, plan = enc_shape_model(FE, T, name, over, samples,
                                             device)
     suffix = '_tf' if tf else ''
+    R = ENC_SHAPE_RS.get(name, ENC_SHAPE_R)
     rows, vf_rows, total = {}, [], {}
     for S, nnet in plan:
         (fwd, fwd_plain), (bwd, bwd_plain), ins = _enc_shape_calls(
-            FE, T, rc, cfg, params, S, nnet, device, tf)
+            FE, T, rc, cfg, params, S, nnet, device, tf, R=R)
         st, est = ins[0], ins[1]
         key = FE.kernel_shape(st, est)
         vf = est.viewfac
-        deep = st.depth > DEEP_ENC_LAYERS
+        # past DEEP_ENC_LAYERS the f64 chain; a WIDE net's where it misses
+        # the twin's bars (None)
+        deep = (True if st.depth > DEEP_ENC_LAYERS
+                else None if st.width > 512 else False)
+
+        def f64(plain):
+            def ref():
+                with _f64_twins(FE):
+                    return plain()
+            return ref
         fname = ('encmlp_fwd' if nnet == 1 else 'encmlp_dual_fwd') + suffix
         bname = ('encmlp_bwd' if nnet == 1 else 'encmlp_dual_bwd') + suffix
-        n = ENC_SHAPE_R * S
-        label = (f'{name} {key} R={ENC_SHAPE_R} S={S}'
+        n = R * S
+        label = (f'{name} {key} R={R} S={S}'
                  f'{" viewfac" if vf else ""}')
         print(f'{fname} {label}:')
         got = _counted(FE, fwd, {fname: 1, 'vf_operand': int(vf)}, fname)
-        if deep:
-            with _f64_twins(FE):
-                ref = fwd_plain()
-            max_abs = _check_close_f64(fname, ref, got, fwd_plain())
-            del ref
-        else:
-            max_abs = _check_close(fname, fwd_plain(), got)
+        max_abs = _held(fname, _check_close, deep, f64(fwd_plain), fwd_plain,
+                        got)
         _check_deterministic(fname, _named(got), _named(fwd()))
         del got
         print(f'{bname} {label}:')
         got = _counted(FE, bwd, {bname: 1, 'vf_operand': int(vf),
                                  'vf_fold': int(vf)}, bname)
-        if deep:
-            with _f64_twins(FE):
-                ref = bwd_plain()
-            max_abs_b = _check_bwd_f64(bname, ref, got, bwd_plain())
-            del ref
-        else:
-            max_abs_b = _check_bwd(bname, bwd_plain(), got)
+        max_abs_b = _held(bname, _check_bwd, deep, f64(bwd_plain), bwd_plain,
+                          got)
         _check_deterministic(bname, got, bwd())
         del got
         for k, cnt in ((fname, 1), (bname, 1), ('vf_operand', 2 * vf),
@@ -2640,18 +2701,21 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
             # the device's ms from CUDA graph replays of the wrapper (its
             # weight packing included): a call's host work outlasts K1's
             # ~0.4 ms at S = 16, which back-to-back calls would read;
-            # those calls' ms beside it as 'wrapper_ms'
+            # those calls' ms beside it as 'wrapper_ms' (3 windows each,
+            # SHAPE_WINDOWS, to keep the phase's time)
             row = _timed_row(
                 kname, 'encmlp_bwd.cu' if bw else 'encmlp_fwd.cu', tpu,
                 FE.kernel_cost(st, est, n, nnet, backward=bw),
-                _graph_ms(run, 5 if bw else 10),
-                _time_ms(plain, 1, windows=3) if bw else _time_ms(plain, 2),
+                _graph_ms(run, 3 if bw else 5, SHAPE_WINDOWS),
+                _time_ms(plain, 1, windows=1) if bw
+                else _time_ms(plain, 1, SHAPE_WINDOWS),
                 err, peaks, label)
             row.update(shape=dict(zip(('kp_bands', 'view_rows',
                                        'bone_window', 'depth', 'width',
                                        'framecodes'), key)),
                        points=n, viewfac=vf,
-                       wrapper_ms=_time_ms(run, 5 if bw else 10))
+                       wrapper_ms=_time_ms(run, 3 if bw else 5,
+                                           SHAPE_WINDOWS))
             if bw:   # the backward's passes, from one profiled call
                 row['passes_ms'] = pass_times(
                     kname[:-3] if tf else kname, run, label,
@@ -2663,7 +2727,7 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
             # K-vf1/K-vf2 at a view row count or width of their own build
             wvx = FE._wvx(st, ins[7])
             vf_rows = viewfac_kernels(FE, est, ins[3], wvx[:nnet], peaks,
-                                      device, ENC_SHAPE_R)
+                                      device, R)
             for r in vf_rows:
                 r['label'] = label
         del fwd, fwd_plain, bwd, bwd_plain, ins
@@ -2679,8 +2743,10 @@ def encmlp_shapes_phase(FE, T, peaks, device, gpu_line):
     rows, vf_rows, by_shape = {}, {}, {}
     total = {k: 0 for k in FE.launch_counts()}
     for name, (over, tf, samples) in ENC_SHAPES.items():
+        t0 = time.perf_counter()
         rows[name], vf, counts = enc_shape_check(FE, T, name, over, tf,
                                                  peaks, device, samples)
+        print(f'[shape {name}: {time.perf_counter() - t0:.1f} s]')
         if vf:
             vf_rows[name] = vf
         by_shape[name] = counts
@@ -2972,7 +3038,7 @@ NET_STEPS = 2           # train steps at each shape
 # 4104 points every net is held to the twin.)
 DEEP_NET_LAYERS = 24
 DEEP_F64_RATIO = 2.
-NET_CLI_WIDTH = 512     # the width run_train trains the mixamo recipe at
+NET_CLI_WIDTH = 1024    # the width run_train trains the mixamo recipe at
 NET_CLI_STEPS = 4
 
 
@@ -5309,7 +5375,7 @@ def main() -> int:
     clock.mark('wide_flagship')
     paths['wide_bundled'] = bundled_phase(
         FE, T, device, gpu_line, 'wide_bundled', BUNDLE_K1_K4,
-        seed=wide_seed, **WIDE)
+        seed=wide_seed, **W512)
     clock.mark('wide_bundled')
     paths['views_train'], views_seed, views_times = wide_flagship_phase(
         FE, T, device, gpu_line, 'views_flagship', VIEWS10,
@@ -5323,6 +5389,15 @@ def main() -> int:
     paths['ms_views_train'], paths['ms_views_bundled'] = ms_views_phase(
         FE, T, device, gpu_line)
     clock.mark('ms_views')
+    paths['flagship1024_train'], f1024_seed, f1024_times = \
+        wide_flagship_phase(FE, T, device, gpu_line, 'flagship1024', W1024,
+                            'flagship1024 step (8 x 1024)')
+    clock.mark('flagship1024')
+    paths['flagship1024_bundled'] = bundle_once(
+        FE, T, device, gpu_line, 'flagship1024_bundled',
+        {k: n for k, (_, n) in BUNDLE_K1_K4.items()}, seed=f1024_seed,
+        **W1024)
+    clock.mark('flagship1024_bundled')
     paths['vf_widths'] = vfw_counts
     paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
@@ -5355,7 +5430,8 @@ def main() -> int:
         paths['cli_bundled'] = cli_bundled_phase(FE, device, gpu_line,
                                                  cli_rays_s)
         clock.mark('cli_bundled')
-        paths['cli_net_width'] = cli_net_width_phase(FE, device, gpu_line)
+        paths['cli_net_width'] = cli_net_width_phase(FE, device, gpu_line,
+                                                     bundled=True)
         clock.mark('cli_net_width')
         paths['cli_views'] = cli_net_width_phase(
             FE, device, gpu_line, 'cli_views', CLI_VIEWS, bundled=True)
@@ -5450,6 +5526,7 @@ def main() -> int:
         if name in FLAGSHIP_STEP:
             row['wide_flagship_times'] = wide_times
             row['views_flagship_times'] = views_times
+            row['flagship1024_times'] = f1024_times
         row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

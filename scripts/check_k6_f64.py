@@ -33,7 +33,19 @@ S=64 and K1/K3 at S=16, K3/K4 on the composited cotangent): for the
 forward each raw channel's worst and mean |d| / scale of the kernel and
 of the twin against the chain, for the backward the outputs nearest
 ``chip_smoke._check_bwd_f64``'s bar (the kernel's and the twin's cosine
-to the chain, the kernel's to the twin), then the worst of each.
+to the chain, the kernel's to the twin), then the worst of each.  A
+name of ``WIDE_DEEP`` (WIDE nets past 8 layers, which the gate refuses
+because they miss that bar) is measured with the gate's cap lifted for
+the run (``fused_encmlp.KERNEL_WIDE_DEPTH``); each shape at its
+``chip_smoke.ENC_SHAPE_RS`` rays (``--rays R``: every shape at R).
+
+    python3 scripts/check_k6_f64.py --enc w1024_depth16_nf10 --acc comp
+
+also measures K3/K4 built from a copy of the sources whose WIDE
+per-tile pass adds each product's mma sums compensated (``ACC_COMP``,
+mlp_bwd_common.cuh) in place of rounded to nearest (``ACC_RN``), and
+times both builds' K3/K4 calls in turns: what the more exact sums would
+buy at those depths, and cost.
 """
 import argparse
 import contextlib
@@ -42,6 +54,20 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the deep corners of the WIDE nets, 16 layers at ten kp bands 1024 and
+# 2048 wide (config overrides over the SURREAL recipe, as
+# chip_smoke.ENC_SHAPES' entries), and the rays each is measured at: the
+# twins in f64 beside K4's workspace (37.6 GB at 16 x 2048 and R = 2048)
+# fit the card at R = 512
+WIDE_DEEP = {
+    'w1024_depth16_nf10': (dict(netwidth=1024, netwidth_fine=1024,
+                                netdepth=16, netdepth_fine=16, multires=10),
+                           False, None),
+    'w2048_depth16_nf10': (dict(netwidth=2048, netwidth_fine=2048,
+                                netdepth=16, netdepth_fine=16, multires=10),
+                           False, None),
+}
+WIDE_DEEP_RAYS = {'w2048_depth16_nf10': 512}
 
 
 @contextlib.contextmanager
@@ -70,6 +96,11 @@ def main(argv) -> int:
     ap.add_argument('--seed', type=int, default=4)
     ap.add_argument('--width', type=int, nargs='+', default=[1152])
     ap.add_argument('--enc', nargs='*', default=None, metavar='SHAPE')
+    ap.add_argument('--acc', choices=('comp',), default=None,
+                    help='also K3/K4 with the WIDE per-tile pass compensated')
+    ap.add_argument('--rays', type=int, default=None,
+                    help='--enc at this many rays (default the shape\'s '
+                    'chip_smoke.ENC_SHAPE_RS, else ENC_SHAPE_R)')
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, ROOT)
@@ -81,6 +112,13 @@ def main(argv) -> int:
     shapes = args.enc or [n for n, (over, _, _) in C.ENC_SHAPES.items()
                           if over.get('netdepth', 8) > C.DEEP_ENC_LAYERS
                           or n == 'w512']
+    table = dict(C.ENC_SHAPES, **WIDE_DEEP)
+    C.ENC_SHAPE_RS.update(WIDE_DEEP_RAYS)
+    if args.rays:
+        C.ENC_SHAPE_RS.update({n: args.rays for n in shapes})
+    if any(n in WIDE_DEEP for n in shapes):
+        # measured where the gate refuses them: its cap lifted for the run
+        FE.KERNEL_WIDE_DEPTH = FE.KERNEL_DEPTH
     if device.type == 'cuda':
         if not torch.cuda.is_available():
             print('no CUDA device', file=sys.stderr)
@@ -91,39 +129,103 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         if args.enc is not None:
             FE.build_kernels(enc_shapes=[C.enc_shape_key(
-                FE, T, C.ENC_SHAPES[n][0]) for n in shapes])
+                FE, T, table[n][0]) for n in shapes])
         else:
             cuda_build.build_kernels(trunk_widths=args.width)
     if args.enc is not None:
         for name in shapes:
-            check_enc(C, T, FE, device, name)
+            check_enc(C, T, FE, device, name, table)
+            if args.acc and device.type == 'cuda':
+                acc_variant(C, T, FE, device, name, table)
         return 0
     for width in args.width:
         check(C, T, FM, device, width, args.seed)
     return 0
 
 
-def check_enc(C, T, FE, device, name):
-    """K1-K4 and their twins at encode shape ``name`` against the f64
-    chain, the encode in f64 too (``chip_smoke._f64_twins``; ``--enc``)."""
-    import torch
-    over, tf, samples = C.ENC_SHAPES[name]
+def acc_variant(C, T, FE, device, name, table):
+    """``--acc comp``: K3/K4 at shape ``name`` built from a copy of the
+    sources whose WIDE per-tile pass adds its products' mma sums
+    compensated (ACC_COMP): their outputs against the f64 chain, as
+    ``check_enc``'s, and both builds' calls timed in turns (tree,
+    variant, variant, tree)."""
+    import shutil
+    import tempfile
+    from anerf_torch.ops import cuda_build
+    key = cuda_build.lib_key('bwd', enc=C.enc_shape_key(FE, T,
+                                                          table[name][0]))
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, 'anerf_torch', '_build'))
+    shutil.copytree(os.path.join(ROOT, 'anerf_torch', 'csrc'),
+                    os.path.join(d, 'csrc'))
+    path = os.path.join(d, 'csrc', 'mlp_bwd_common.cuh')
+    with open(path) as f:
+        text = f.read()
+    old = 'constexpr int ACC_NET_G = ACC_NET > ACC_RN ? ACC_NET : ACC_RN;'
+    if old not in text:
+        raise RuntimeError(f'anchor not in mlp_bwd_common.cuh: {old!r}')
+    with open(path, 'w') as f:
+        f.write(text.replace(old, 'constexpr int ACC_NET_G = ACC_COMP;'))
+    so = os.path.join(d, 'lib.so')
+    proc = subprocess.run(
+        [cuda_build._nvcc(), *cuda_build._shape_flags(key), '-gencode',
+         'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
+         '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o', so,
+         os.path.join(d, 'csrc', 'encmlp_bwd.cu')],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f'the variant failed to build:\n{proc.stdout}'
+                           f'{proc.stderr}')
+    print('\n'.join(l for l in (proc.stdout + proc.stderr).splitlines()
+                    if 'spill' in l))
+    import ctypes
+    lib = ctypes.CDLL(so)
+    cuda_build._bind(lib, 'bwd')
+    tree = cuda_build._LIBS[key]
+    over, tf, samples = table[name]
     cfg, rc, params, plan = C.enc_shape_model(FE, T, name, over, samples,
                                               device)
+    R = C.ENC_SHAPE_RS.get(name, C.ENC_SHAPE_R)
+    for S, nnet in plan:
+        _, (bwd, _), _ = C._enc_shape_calls(FE, T, rc, cfg, params, S, nnet,
+                                            device, tf, R=R)
+        ms = []
+        for which in (tree, lib, lib, tree):
+            cuda_build._LIBS[key] = which
+            ms.append(C._time_ms(bwd, 2, 3))
+        print(f'{name} S={S} K{nnet + 2} ms in turns: tree (RN) '
+              f'{ms[0]:.3f}, compensated {ms[1]:.3f}, {ms[2]:.3f}, tree '
+              f'{ms[3]:.3f}', flush=True)
+    cuda_build._LIBS[key] = lib
+    print(f'{name}: the compensated variant against the f64 chain:')
+    check_enc(C, T, FE, device, name, table, bwd_only=True)
+    cuda_build._LIBS[key] = tree
+
+
+def check_enc(C, T, FE, device, name, table=None, bwd_only=False):
+    """K1-K4 and their twins at encode shape ``name`` against the f64
+    chain, the encode in f64 too (``chip_smoke._f64_twins``; ``--enc``),
+    at the shape's ``chip_smoke.ENC_SHAPE_RS`` rays."""
+    import torch
+    over, tf, samples = (table or C.ENC_SHAPES)[name]
+    cfg, rc, params, plan = C.enc_shape_model(FE, T, name, over, samples,
+                                              device)
+    R = C.ENC_SHAPE_RS.get(name, C.ENC_SHAPE_R)
     for S, nnet in plan:
         (fwd, fplain), (bwd, bplain), _ = C._enc_shape_calls(
-            FE, T, rc, cfg, params, S, nnet, device, tf)
+            FE, T, rc, cfg, params, S, nnet, device, tf, R=R)
         if device.type == 'cpu':     # the twins stand in for the kernels
             fwd, bwd = fplain, bplain
-        k, t = fwd(), fplain()
-        with C._f64_twins(FE):
-            d = fplain()
-        for net in range(nnet):
-            for who, x in (('kernel', k[net]), ('twin', t[net])):
-                print(f'{name} S={S} fwd net{net} {who} vs f64: ' + ', '.join(
-                    f'ch{c} max {a:.2e} mean {b:.2e}' for c, (a, b)
-                    in enumerate(C._rel_err(d[net].float(), x.float()))))
-        del k, t, d
+        if not bwd_only:
+            k, t = fwd(), fplain()
+            with C._f64_twins(FE):
+                d = fplain()
+            for net in range(nnet):
+                for who, x in (('kernel', k[net]), ('twin', t[net])):
+                    print(f'{name} R={R} S={S} fwd net{net} {who} vs f64: '
+                          + ', '.join(f'ch{c} max {a:.2e} mean {b:.2e}'
+                                      for c, (a, b) in enumerate(C._rel_err(
+                                          d[net].float(), x.float()))))
+            del k, t, d
         kb, tb = bwd(), bplain()
         with C._f64_twins(FE):
             db = bplain()
@@ -134,9 +236,9 @@ def check_enc(C, T, FE, device, name):
             rows.append((ck - bar, k, ck, ct, kt))
         rows.sort()
         for _, k, ck, ct, kt in rows[:6]:
-            print(f'{name} S={S} bwd {k}: kernel~f64 {ck:.7f} twin~f64 '
-                  f'{ct:.7f} kernel~twin {kt:.7f}')
-        print(f'{name} S={S} bwd worst: kernel~f64 '
+            print(f'{name} R={R} S={S} bwd {k}: kernel~f64 {ck:.7f} '
+                  f'twin~f64 {ct:.7f} kernel~twin {kt:.7f}')
+        print(f'{name} R={R} S={S} bwd worst: kernel~f64 '
               f'{min(r[2] for r in rows):.7f} twin~f64 '
               f'{min(r[3] for r in rows):.7f} kernel~twin '
               f'{min(r[4] for r in rows):.7f}; nearest the bar by '

@@ -35,6 +35,16 @@ it) is called through shims that drop those arguments; the inputs keep
 K1-K4 on the dense views input and on points, which every build takes.
 
     python3 scripts/compare_builds.py BASE_CSRC_DIR --shapes nb1 nb5 ...
+
+With ``--nets`` (``chip_smoke.NET_SHAPES`` keys such as ``8x1024``) and
+``--views`` (``chip_smoke.VIEWS_WIDTHS`` names such as ``1641_w1024``),
+K5/K6 are built at those nets and views widths too, and run as
+``chip_smoke.net_shapes_phase`` and ``views_kernel_phase`` run them (the
+two-subject scene's parts at 4104 and 131,072 points, weights from
+their seed rule) with the base's libraries and with the tree's, every
+output bit for bit; ``--nets all`` / ``--views all`` take every one.
+
+    python3 scripts/compare_builds.py BASE_CSRC_DIR --nets all --views all
 """
 import argparse
 import ctypes
@@ -49,6 +59,8 @@ SOURCES = {'fwd': 'encmlp_fwd.cu', 'bwd': 'encmlp_bwd.cu',
            'viewfac': 'viewfac.cu'}
 # the rays of one K-vf2 slice in a base without viewfac_slice
 BASE_VF_SLICE = 64
+# the base's nvcc processes at a time
+MAX_NVCC = 24
 
 
 def build_base(csrc, out_dir, keys):
@@ -56,7 +68,7 @@ def build_base(csrc, out_dir, keys):
     ``cuda_build.lib_key`` of ``keys`` (with the flags the tree's build
     of that key takes), one nvcc per library, all started together."""
     from anerf_torch.ops import cuda_build
-    procs = {}
+    procs, logs = {}, {}
     for key in keys:
         which = key[0]
         so = os.path.join(out_dir, f'base_{cuda_build._tag(key)}.so')
@@ -64,13 +76,17 @@ def build_base(csrc, out_dir, keys):
                '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-o',
                so, os.path.join(csrc, SOURCES[which])]
         cmd[1:1] = cuda_build._shape_flags(key)
+        # at most MAX_NVCC compilers at a time: each takes ~1 GB
+        running = [k for k, (_, p) in procs.items() if k not in logs]
+        if len(running) >= MAX_NVCC:
+            logs[running[0]] = procs[running[0]][1].communicate()[0]
         procs[key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True))
     libs = {}
     for key, (so, proc) in procs.items():
         which = key[0]
-        log = proc.communicate()[0]
+        log = logs[key] if key in logs else proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f'base {key} failed to build:\n{log}')
         lib = ctypes.CDLL(so)
@@ -83,6 +99,14 @@ def build_base(csrc, out_dir, keys):
         with open(os.path.join(csrc, SOURCES[which])) as f:
             text = f.read()
         if which == 'viewfac':
+            if not hasattr(lib, 'viewfac_fold_scratch'):
+                # a build from before the views layers past 256: its
+                # scratch the dWvx partials alone, (P, nnet, 72 NB, HV)
+                nb, hv = (cuda_build.FLAGSHIP_VF if key[1] is None
+                          else key[2:])
+                lib.viewfac_fold_scratch = (
+                    lambda R, nnet, P, per=72 * nb * hv:
+                    P * nnet * per if P > 1 else 0)
             vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.viewfac_m.argtypes = [vp, vp, vp, ci, ci, vp]
             lib.viewfac_fold.argtypes = [vp, vp, vp, vp, cll, vp, vp] + \
@@ -246,6 +270,12 @@ def main(argv) -> int:
     ap.add_argument('base_csrc')
     ap.add_argument('--shapes', nargs='*', default=[],
                     help='chip_smoke.ENC_SHAPES names to compare K1-K4 at')
+    ap.add_argument('--nets', nargs='*', default=[],
+                    help='chip_smoke.NET_SHAPES keys (DxW) to compare K5/K6 '
+                    'at, or all')
+    ap.add_argument('--views', nargs='*', default=[],
+                    help='chip_smoke.VIEWS_WIDTHS names to compare K5/K6 '
+                    'at, or all')
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, ROOT)
@@ -266,8 +296,24 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     enc = {name: C.enc_shape_key(FE, T, C.ENC_SHAPES[name][0])
            for name in args.shapes}
+    nets = (list(C.NET_SHAPES) if args.nets == ['all'] else
+            [tuple(int(x) for x in k.split('x')) for k in args.nets])
+    views = (list(C.VIEWS_WIDTHS) if args.views == ['all'] else args.views)
+    # K5/K6's builds (trunk width, depth, compiled width[, views width]),
+    # as chip_smoke.main builds them
+    split = {f'{d}x{w}': (432, d, FM.kernel_static(FM.MLPStatic(
+        d, w, (432,), (665,), w // 2, (4,))).width) for d, w in nets}
+    split.update({name: (432, 8, C.VIEWS_WIDTHS[name][1].get('netwidth',
+                                                             256),
+                         FM.views_pad(int(name.split('_')[0])))
+                  for name in views})
     cuda_build.build_kernels(enc_shapes=enc.values())
+    cuda_build.build_kernels(shapes=split.values())
     keys = [cuda_build.lib_key(w) for w in SOURCES]
+    for shape in split.values():
+        keys += [cuda_build.lib_key(w, *shape[:3], xv=shape[3] if
+                                    len(shape) > 3 else cuda_build.FLAGSHIP_XV)
+                 for w in ('mlp_fwd', 'mlp_bwd')]
     for shape in enc.values():
         keys += [cuda_build.lib_key(w, enc=shape) for w in ('fwd', 'bwd')]
         keys.append(cuda_build.lib_key('viewfac', enc=(shape[1],
@@ -307,6 +353,25 @@ def main(argv) -> int:
         g = C._split_cotangent(FM, st, xs, xvs, flat, S, dev)
         runs[f'mlp_bwd n={R * S}'] = C._split_calls(FM, st, xs, xvs, flat,
                                                     g)[0]
+    for key in split:    # K5/K6 at the nets and views widths
+        if key in views:
+            ns, over = C.VIEWS_WIDTHS[key]
+            cfg_s, rc_s, params_s = C._views_model(FM, T, dev, key, ns, over)
+            cat = False
+        else:
+            depth, width = (int(x) for x in key.split('x'))
+            cfg_s, rc_s, params_s, _, _ = C._net_model(FM, T, dev, depth,
+                                                       width)
+            cat = True
+        for R, S in ((171, 24), (2048, 64)):
+            st, xs, xvs, flat = C.split_inputs(FM, T, cfg_s, rc_s, params_s,
+                                               R, S, dev, cat_subject=cat)
+            runs[f'{key} mlp_fwd n={R * S}'] = \
+                lambda a=(st, xs, xvs, flat): C._named(
+                    C._split_calls(FM, *a)[0]())
+            g = C._split_cotangent(FM, st, xs, xvs, flat, S, dev)
+            runs[f'{key} mlp_bwd n={R * S}'] = C._split_calls(
+                FM, st, xs, xvs, flat, g)[0]
     for name, shape in enc.items():
         over, tf, samples = C.ENC_SHAPES[name]
         cfg_s, rc_s, params_s, plan = C.enc_shape_model(FE, T, name, over,

@@ -255,7 +255,15 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
 # 11 view rows (viewfac's 48-column k-steps; K1/K2's trunk input out of
 # shared memory), framecodes of 32, and the corner, 21 view rows with
 # framecodes of 128 (the views input out of K1/K2's shared memory), at
-# 8 x 256, at 8 x 512 and at 16 layers of 512 with 10 kp bands
+# 8 x 256, at 8 x 512 and at 16 layers of 512 with 10 kp bands; then
+# the WIDE nets (ROADMAP B.1.4's first part: K5/K6's body inside K1-K4,
+# the activations in device memory, viewfac's staging a views block at a
+# time): 768 (three 128-column views blocks), 1024, 1536 and 2048 wide,
+# one layer at 768, 21 view rows with framecodes of 128 at 1024 (the
+# views input rebuilt in each views block), and the deep corners, 16
+# layers at 10 kp bands 1024 and 2048 wide, which the gate caps at 8
+# layers (their K3/K4 miss the f64 chain's rule) and
+# scripts/check_k6_f64.py --enc builds and measures
 ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(nb=b) for b in (1, 3, 5, 7)]
               + [dict(depth=d) for d in range(1, 8)]
@@ -267,18 +275,26 @@ ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
                  dict(nf=1, nb=1, depth=1, width=512)]
               + [dict(nb=11), dict(ncode=32), dict(nb=21, ncode=128),
                  dict(nb=21, ncode=128, width=512),
-                 dict(nb=21, ncode=128, nf=10, depth=16, width=512)])
+                 dict(nb=21, ncode=128, nf=10, depth=16, width=512)]
+              + [dict(width=768), dict(width=1024), dict(width=1536),
+                 dict(width=2048), dict(width=768, depth=1),
+                 dict(nb=21, ncode=128, width=1024),
+                 dict(nf=10, depth=16, width=1024),
+                 dict(nf=10, depth=16, width=2048)])
 # the first value each axis refuses, the source that refuses it and the
 # message of the static_assert it fails (ROADMAP B.1.4): 23 view rows
-# (the headers' cap; viewfac's four k-steps a joint), 768 wide (no WIDE
-# body in K1-K4; viewfac's views layer), framecodes of 144 (the
-# headers' cap, past 128)
+# (the headers' cap; viewfac's four k-steps a joint), 2304 wide (the
+# headers' cap, which K5/K6 share), framecodes of 144 (the headers' cap,
+# past 128)
 ENC_REFUSED = [
     (dict(nb=23), 'encmlp_fwd.cu', 'at most 21 view PE rows'),
     (dict(nb=23), 'viewfac.cu', 'whole joint groups'),
-    (dict(width=768), 'encmlp_fwd.cu', 'no WIDE body'),
-    (dict(width=768), 'encmlp_bwd.cu', 'no WIDE body'),
-    (dict(width=768), 'viewfac.cu', 'views layer 128 or 256 wide'),
+    (dict(width=2304), 'encmlp_fwd.cu',
+     'nets a multiple of 256 wide, up to 2048'),
+    (dict(width=2304), 'encmlp_bwd.cu',
+     'nets a multiple of 256 wide, up to 2048'),
+    (dict(width=2304), 'viewfac.cu',
+     'nets a multiple of 256 wide, up to 2048'),
     (dict(ncode=144), 'encmlp_fwd.cu', 'framecodes of 16 to 128 columns'),
     (dict(ncode=144), 'encmlp_bwd.cu', 'framecodes of 16 to 128 columns')]
 
@@ -299,9 +315,10 @@ def _errors(cindex, tu):
     f'{k}{v}' for k, v in d.items()))
 def test_encode_sources_parse_at_every_admitted_shape(shape, mock_include):
     """K1-K4 and, at its view rows, K-vf1/K-vf2 at each encode shape the
-    gate admits: the shared-memory budgets, the trunk's residency, the
-    schedules' tables and their coverage checks are static asserts, so a
-    shape they cannot take fails here."""
+    gate admits (and at the deep WIDE corners that scripts/check_k6_f64.py
+    builds past the gate's cap): the shared-memory budgets, the trunk's
+    residency, the schedules' tables and their coverage checks are static
+    asserts, so a shape they cannot take fails here."""
     for source in ('encmlp_fwd.cu', 'encmlp_bwd.cu', 'viewfac.cu'):
         cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
                             _enc_defines(**shape))

@@ -292,16 +292,19 @@ def test_wrappers_take_twins_on_cpu(scene):
 # (change to the flagship's statics, admitted): 6 layers and framecodes
 # of 8 are built for (ROADMAP B.1), so are 512-wide nets (with their
 # 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2), 11
-# and 21 view rows and framecodes of 32 and 128 (B.1.3); a net 512 wide
-# with a 128-wide views layer, another skip, 768 wide, 17 layers, 11 kp
-# bands, 23 view rows and framecodes of 144 are not (B.1.4)
+# and 21 view rows and framecodes of 32 and 128 (B.1.3), and WIDE nets,
+# 768 wide with a 384-wide views layer (B.1.4's first part); a net 512
+# wide with a 128-wide views layer, another skip, 2304 wide (the
+# headers' cap), 17 layers, 11 kp bands, 23 view rows and framecodes of
+# 144 are not (B.1.4)
 KP10 = tuple(2. ** k for k in range(10))
 GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(skips=(3,)), False), (dict(vparts=(648, 8)), True),
               (dict(depth=9), True), (dict(vparts=(648, 32)), True),
               (dict(width=512, half=256), True), (dict(depth=16), True),
               (dict(kp_freqs=KP10, dparts=(21 * J, 3 * J)), True),
-              (dict(width=768, half=384), False), (dict(depth=17), False),
+              (dict(width=768, half=384), True), (dict(depth=17), False),
+              (dict(width=2304, half=1152), False),
               (dict(kp_freqs=KP10 + (1024.,), dparts=(23 * J, 3 * J)),
                False),
               (dict(view_nb=11, vparts=(11 * 3 * J, 16)), True),
@@ -314,8 +317,9 @@ GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
 @pytest.mark.parametrize('change,admitted', GATE_CASES)
 def test_kernel_shape_gate(scene, change, admitted):
     """The CUDA kernels are compiled per static shape for every shape
-    of the gate (256 or 512 wide, 1-16 layers, 1-10 kp bands, 1-21 view
-    rows, codes of at most 128); any other static must be refused before
+    of the gate (a multiple of 256 up to 2048 wide, 1-16 layers, 1-10 kp
+    bands, 1-21 view rows, codes of at most 128); any other static must
+    be refused before
     a launch, never run wrong.  A change to ``kp_freqs`` or ``view_nb``
     changes the encode's statics, the rest the net's."""
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))

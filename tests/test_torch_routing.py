@@ -59,14 +59,17 @@ ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
           'synthetic_tiny.txt': 'plain'}
 # shipped configs changed in their net: surreal_single at a net 512
 # wide, which the fused kernels take since ROADMAP B.1.2, and at 768,
-# which they do not (B.1.4) and which keeps the split route; surreal at
+# which they take since B.1.4's first part (the WIDE nets), as surreal
+# at two 8 x 1024 nets, the 8 x 1024 flagship; surreal at
 # 21 view rows with framecodes of 128, which they take since B.1.3, and
 # with two subjects at 11 view rows, which runs the split route, whose
 # K5/K6 take its views parts 792 + 1 + 16 since C.15
 VARIANTS = {'surreal_single.txt:netwidth512': (
     'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'fused'),
     'surreal_single.txt:netwidth768': (
-    'surreal_single.txt', dict(netwidth=768, netwidth_fine=768), 'split'),
+    'surreal_single.txt', dict(netwidth=768, netwidth_fine=768), 'fused'),
+    'surreal.txt:netwidth1024': (
+    'surreal.txt', dict(netwidth=1024, netwidth_fine=1024), 'fused'),
     'surreal.txt:views10_codes128': (
     'surreal.txt', dict(multires_views=10, framecode_size=128,
                         opt_framecode=True), 'fused'),
