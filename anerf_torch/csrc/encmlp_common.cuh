@@ -40,12 +40,12 @@ static_assert(NB <= 21, "at most 21 view PE rows (multires_views 10)");
 constexpr int C3 = 3 * J;              // 72
 constexpr int DV = (2 * NF + 1) * J;   // 360 kp encoding
 // the trunk input [v | r]: DV + C3 (432) wide for K1-K4; a K5/K6 build
-// takes any width from 1 to 2048 (nvcc -DANERF_DX=...; ops/cuda_build.py)
+// takes any width from 1 to 4096 (nvcc -DANERF_DX=...; ops/cuda_build.py)
 #ifndef ANERF_DX
 #define ANERF_DX 432
 #endif
 constexpr int DX = ANERF_DX;
-static_assert(DX >= 1 && DX <= 2048, "trunk inputs of 1 to 2048 columns");
+static_assert(DX >= 1 && DX <= 4096, "trunk inputs of 1 to 4096 columns");
 // X's columns and the weight rows that meet them, padded with zeros to
 // the 16-deep k-step of a product
 constexpr int DXP = (DX + 15) / 16 * 16;
@@ -63,14 +63,14 @@ static_assert(NCODE >= 16 && NCODE <= 128 && NCODE % 16 == 0,
 // the views input [xv | codes | 0 x 8]: K1-K4's 72 NB + NCODE + 8 (672
 // at the flagship's shape); K5/K6 are built for a views width of their
 // own (nvcc -DANERF_DXV=...: 672 for any views parts up to it, else the
-// parts' sum + 8 rounded up to 16; ops/fused_mlp.py), at most 1664
+// parts' sum + 8 rounded up to 16; ops/fused_mlp.py), at most 4096
 #ifdef ANERF_DXV
 constexpr int DXV = ANERF_DXV;
 #else
 constexpr int DXV = DE + NCODE + 8;
 #endif
-static_assert(DXV % 16 == 0 && DXV <= 1664,
-              "the views input in whole k-steps, at most 1664 columns");
+static_assert(DXV % 16 == 0 && DXV <= 4096,
+              "the views input in whole k-steps, at most 4096 columns");
 // viewfac's codes k-slice (K1-K4): the views input's columns VF_KB ..
 // DXV - 1, [0 x 8 | codes | 0 x 8], NCODE + 16 wide: it starts on the
 // last 8 view columns (masked to zeros), since DE is 8 past a k-step
@@ -81,14 +81,15 @@ constexpr int VF_CW = NCODE + 16;
 // wide, layer SKIP + 1 taking [h, x] where it exists.  K1-K4 are built
 // for 1-16 layers of any W that is a multiple of 256 up to 2048 (8 x 256
 // by default; fused_encmlp.kernel_shape admits the depths); a K5/K6
-// build takes any depth from 1 to 64 and any W
-// that is a multiple of 256 up to 2048, depth x W up to 65,536 (64 x
-// 1024, 32 x 2048; nvcc -DANERF_DEPTH=...
-// -DANERF_WIDTH=... -DANERF_SKIP=...; ops/cuda_build.py), other nets
-// padded with zeros to the next multiple of 256 (ops/fused_mlp.py).  A
-// net past 512 wide is WIDE: its activations do not fit a block's
-// shared memory, so they live in device memory (L2) and each product
-// reads its A operand back XCH columns at a time.
+// build takes any depth from 1 to 128 and any W that is a multiple of
+// 256 up to 4096, depth x W up to 262,144 (64 x 4096, 128 x 2048: past
+// that K6's workspace for the train step's 131,072 points outgrows the
+// card; nvcc -DANERF_DEPTH=... -DANERF_WIDTH=... -DANERF_SKIP=...;
+// ops/cuda_build.py), other nets padded with zeros to the next multiple
+// of 256 (ops/fused_mlp.py).  A net past 512 wide is WIDE: its
+// activations do not fit a block's shared memory, so they live in device
+// memory (L2) and each product reads its A operand back XCH columns at
+// a time.
 #ifndef ANERF_DEPTH
 #define ANERF_DEPTH 8
 #endif
@@ -103,12 +104,10 @@ constexpr int HV = W / 2;
 constexpr int DEPTH = ANERF_DEPTH;
 constexpr int SKIP = ANERF_SKIP;       // layer SKIP+1 consumes [h, x]
 constexpr bool HAS_SKIP = SKIP >= 0 && SKIP + 1 < DEPTH;
-static_assert(W % 256 == 0 && W >= 256 && W <= 2048,
-              "nets a multiple of 256 wide, up to 2048");
-static_assert(DEPTH >= 1 && DEPTH <= 64, "1 to 64 trunk layers");
-// the schedules' tables (and their compile-time checks) grow with the
-// layers' 256-column blocks
-static_assert(DEPTH * W <= 65536, "at most depth x width = 65,536");
+static_assert(W % 256 == 0 && W >= 256 && W <= 4096,
+              "nets a multiple of 256 wide, up to 4096");
+static_assert(DEPTH >= 1 && DEPTH <= 128, "1 to 128 trunk layers");
+static_assert(DEPTH * W <= 262144, "at most depth x width = 262,144");
 #define ANERF_WIDE (ANERF_WIDTH > 512)
 constexpr bool WIDE = ANERF_WIDE;
 constexpr int SMEM_MAX = 232448;       // a block's shared memory
@@ -132,6 +131,10 @@ constexpr size_t SMEM_ADD = sizeof(float) * T * J + sizeof(int) * T;
 constexpr bool ENC_KERNEL = false;
 constexpr size_t SMEM_ADD = 0;
 #endif
+// K1-K4 keep the nets they were built for before K5/K6's went past them
+static_assert(!ENC_KERNEL || W <= 2048,
+              "nets a multiple of 256 wide, up to 2048");
+static_assert(!ENC_KERNEL || DEPTH <= 64, "1 to 64 trunk layers");
 
 // shared-memory row strides in bf16 elements: rows stay 16-byte
 // aligned and the +8 spreads the fragment loads over all 32 banks

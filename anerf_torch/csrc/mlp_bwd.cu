@@ -23,7 +23,7 @@
 //      cotangents).  It writes the layers' bf16 inputs, activations and
 //      cotangents and the f32 input cotangents to a workspace (about
 //      16 KB a point: 2.1 GB at n = 131,072).  The library is built
-//      for one trunk width DX (nvcc -DANERF_DX=..., 1 to 2048, 432 by
+//      for one trunk width DX (nvcc -DANERF_DX=..., 1 to 4096, 432 by
 //      default); a trunk input wider than 480 columns does not fit in
 //      shared memory beside the ring, the activations and the masks, so
 //      it goes to the workspace only, and layer 0 and the skip layer
@@ -40,7 +40,9 @@
 //      in slice order.
 //
 // The library is built for one net too (nvcc -DANERF_DEPTH, -DANERF_WIDTH
-// a multiple of 256, -DANERF_SKIP; 8 x 256 by default): 1-64 layers,
+// a multiple of 256 up to 4096, -DANERF_SKIP; 8 x 256 by default): 1-128
+// layers, depth x width up to 262,144 (mlp_bwd_common.cuh bwd_seg
+// computes each segment of the schedule from its index),
 // every layer of W outputs as W / 256 blocks of 256 columns over the
 // same A operand.  At W = 512 the ring keeps 3 stages and the ReLU
 // masks go to the workspace, so that the two (64, 520) activation

@@ -9,7 +9,7 @@
 // Every product of it, forward and backward, reads its weights from the
 // weight ring of ring.cuh (NSTAGE stages of 32-deep k-slices, filled by
 // TMA from a producer warp beside the 8 consumer warps), walking one
-// fixed schedule (SEGS) across the products and the nets of the tile.
+// fixed schedule (bwd_seg) across the products and the nets of the tile.
 // The views layer's forward takes its A operand, the tile's views input,
 // from the workspace through the same ring, so no views input stays in
 // shared memory.  The recompute keeps each trunk layer's ReLU mask as
@@ -187,136 +187,157 @@ __device__ __forceinline__ void copy_rows(bf16* __restrict__ dst, int ldg,
 // outputs, each its feat part and its views-input part.  With viewfac
 // (K3, K4) the views-input part streams only the codes' k-slice (from
 // VF_KB: NCODE + 16 columns) and the views input's cotangent is the
-// codes' alone (NCODE rows).
+// codes' alone (NCODE rows).  bwd_seg computes segment i from its index,
+// on nine maps: the forward pack's five (the views layer's parts in
+// blocks of 128 rows, its feat part whole up to 512 wide), and in the
+// backward pack (pack 1, from its start) the 256-row blocks and chunks
+// HV deep (g_feat's, the views input's) and W deep (every trunk layer's
+// and the feature layer's, the trunk input's chunks), and the ragged
+// last chunk of each (or viewfac's codes rows).
 constexpr int NXC = (DXP + 255) / 256;
 constexpr int NVC = (DXV + 255) / 256;
 constexpr int VXR = 128;
 constexpr int NVXS = HV / VXR;
 constexpr int NSEG_VIEWS = WIDE ? 2 * NVXS : 1 + NVXS;
+// the trunk's backward after layer D-1's cotangent: layers D-1 .. 1, the
+// skip layer's trunk-input chunks before its blocks
+constexpr int NREV = NBLK * (DEPTH - 1) + (HAS_SKIP ? NXC : 0);
 constexpr int NSEG = NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1) + NSEG_VIEWS +
                      NBLK * (DEPTH + 1) + NVC + (HAS_SKIP ? 2 : 1) * NXC;
 
-struct SegTable {
-  Seg s[NSEG];
-  MapSpec m[MAXMAP];
-  int nmap, n;   // maps; segments (viewfac's table has fewer)
+enum { M_GHV = NMAP_FWD, M_GHV_T, M_GW, M_GW_T, NMAP_BWD };
+static_assert(NMAP_BWD <= MAXMAP, "a net's maps");
+
+// the rows of the last of the chunks of N rows
+__host__ __device__ __forceinline__ constexpr int tail_rows(int N) {
+  return N % 256 ? N % 256 : 256;
+}
+
+template <bool VF>
+struct BwdPack {
+  __host__ __device__ __forceinline__ static constexpr MapSpec map(int k) {
+    return k < NMAP_FWD ? fwd_pack_map(k, WIDE ? VXR : HV, VXR)
+           : k == M_GHV ? MapSpec{1, 0, HV, 256}
+           : k == M_GHV_T ? MapSpec{1, 0, HV, VF ? NCODE : tail_rows(DXV)}
+           : k == M_GW  ? MapSpec{1, 0, W, 256}
+                        : MapSpec{1, 0, W, tail_rows(DXP)};
+  }
+  // chunk c of the (N, K) block of the backward pack at off, on the
+  // map of its rows (full, or the ragged last)
+  __host__ __device__ __forceinline__ static constexpr Seg chunk(
+      size_t off, int c, int N, int full, int tail) {
+    const int k = (c + 1) * 256 <= N ? full : tail;
+    return seg_on(map(k), k, off + (size_t)c * 256 * map(k).K);
+  }
 };
 
-__host__ __device__ constexpr void put(SegTable& t, int& i, int pack,
-                                      size_t off, int rows, int K, int sa,
-                                      int kb = 0) {
-  t.s[i].pack = pack;
-  t.s[i].off = (int)off;
-  t.s[i].rows = rows;
-  t.s[i].K = K;
-  t.s[i].stream_a = sa;
-  t.s[i].kb = kb;
-  ++i;
-}
-
-// the 256-row chunks of a (N, K) block of the backward pack at off
-__host__ __device__ constexpr void put_chunks(SegTable& t, int& i,
-                                             size_t off, int N, int K) {
-  for (int c = 0; c * 256 < N; ++c)
-    put(t, i, 1, off + (size_t)c * 256 * K,
-        N - 256 * c < 256 ? N - 256 * c : 256, K, 0);
-}
-
-__host__ __device__ constexpr SegTable bwd_segs(bool viewfac) {
-  SegTable t{};
-  int i = 0;
-  const int kb = viewfac ? VF_KB : 0;       // the codes' k-slice
+template <bool VF>
+__host__ __device__ __forceinline__ constexpr Seg bwd_seg(int i) {
+  typedef BwdPack<VF> P;
+  const int kb = VF ? VF_KB : 0;  // the codes' k-slice
   // forward recompute
-  for (int b = 0; b < NBLK; ++b)              // layer 0          A = X
-    put(t, i, 0, (size_t)b * WB * DXP, WB, DXP, 0);
-  for (int l = 1; l < DEPTH; ++l)             // layers 1 ..      A = h
-    for (int b = 0; b < NBLK; ++b) {
-      put(t, i, 0, off_h(l) + (size_t)b * WB * W, WB, W, 0);
-      if (HAS_SKIP && l == SKIP + 1)          //   skip: x part   A = X
-        put(t, i, 0, OFF_SKIPX + (size_t)b * WB * DXP, WB, DXP, 0);
+  if (i < NBLK)                                         // layer 0   A = X
+    return seg_on(P::map(M_X), M_X, (size_t)i * WB * DXP);
+  i -= NBLK;
+  if (i < NTRUNK) return trunk_seg<P>(i);               // layers 1 ..
+  i -= NTRUNK;                                          //   skip: x part
+  if (i < NBLK)                                         // feat
+    return seg_on(P::map(M_H), M_H, OFF_F + (size_t)i * WB * W);
+  i -= NBLK;
+  if (i < NSEG_VIEWS) {
+    if (!WIDE) {
+      if (i == 0) return seg_on(P::map(M_VF), M_VF, OFF_VF);  // views: feat
+      return seg_on(P::map(M_VX), M_VX,                       //   views-input
+                    OFF_VX + (size_t)(i - 1) * VXR * DXV, kb, 1);  // part
     }
-  for (int b = 0; b < NBLK; ++b)              // feat
-    put(t, i, 0, OFF_F + (size_t)b * WB * W, WB, W, 0);
-  if (!WIDE) {
-    put(t, i, 0, OFF_VF, HV, W, 0);           // views: feat part
-    for (int v = 0; v < NVXS; ++v)            //   views-input part
-      put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1, kb);
-  } else {
-    for (int v = 0; v < NVXS; ++v) {          // views, by blocks
-      put(t, i, 0, OFF_VF + (size_t)v * VXR * W, VXR, W, 0);
-      put(t, i, 0, OFF_VX + (size_t)v * VXR * DXV, VXR, DXV, 1, kb);
-    }
+    const size_t v = (size_t)(i / 2);                   // views, by blocks
+    return i % 2 == 0
+               ? seg_on(P::map(M_VF), M_VF, OFF_VF + v * VXR * W)
+               : seg_on(P::map(M_VX), M_VX, OFF_VX + v * VXR * DXV, kb, 1);
   }
+  i -= NSEG_VIEWS;
   // backward
-  for (int b = 0; b < NBLK; ++b)              // g_feat           A = g_hv
-    put(t, i, 1, G_VF + (size_t)b * WB * HV, WB, HV, 0);
-  if (viewfac)                                // g_codes          A = g_hv
-    put(t, i, 1, G_VX + (size_t)DE * HV, NCODE, HV, 0);
-  else
-    put_chunks(t, i, G_VX, DXV, HV);          // g_xv             A = g_hv
-  for (int b = 0; b < NBLK; ++b)              // g of layer D-1   A = g_feat
-    put(t, i, 1, G_F + (size_t)b * WB * W, WB, W, 0);
-  for (int l = DEPTH - 1; l >= 1; --l) {
-    if (HAS_SKIP && l == SKIP + 1)            // g_x skip part
-      put_chunks(t, i, OFF_SKIPX, DXP, W);
-    for (int b = 0; b < NBLK; ++b)            // g of layer l-1
-      put(t, i, 1, off_h(l) + (size_t)b * WB * W, WB, W, 0);
+  if (i < NBLK)                                         // g_feat    A = g_hv
+    return seg_on(P::map(M_GHV), M_GHV, G_VF + (size_t)i * WB * HV);
+  i -= NBLK;
+  if (VF) {                                             // g_codes   A = g_hv
+    if (i == 0)
+      return seg_on(P::map(M_GHV_T), M_GHV_T, G_VX + (size_t)DE * HV);
+    i -= 1;
+  } else {                                              // g_xv      A = g_hv
+    if (i < NVC) return P::chunk(G_VX, i, DXV, M_GHV, M_GHV_T);
+    i -= NVC;
   }
-  put_chunks(t, i, 0, DXP, W);                // g_x layer-0 part
-  t.n = i;
-  t.nmap = assign_maps(t.s, i, t.m);
-  return t;
-}
-__constant__ SegTable SEGS = bwd_segs(false);
-__constant__ SegTable SEGS_VF = bwd_segs(true);
-constexpr SegTable SEGS_HOST = bwd_segs(false);
-constexpr SegTable SEGS_VF_HOST = bwd_segs(true);
-static_assert(SEGS_HOST.nmap > 0 && SEGS_VF_HOST.nmap > 0,
-              "the backward's blocks on MAXMAP maps");
-static_assert(SEGS_HOST.n == NSEG, "the dense schedule's segments");
-
-// The segments of pack `pack` are blocks of it, pairwise disjoint, inside
-// [0, end) and outside [gap_lo, gap_hi), and sum to `total`.
-constexpr bool covers_pack(const SegTable& t, int pack, size_t end,
-                           size_t gap_lo, size_t gap_hi, size_t total) {
-  size_t sum = 0;
-  for (int i = 0; i < t.n; ++i) {
-    const Seg& a = t.s[i];
-    if (a.pack != pack) continue;
-    const size_t lo = (size_t)a.off, hi = lo + (size_t)a.rows * a.K;
-    if (a.off < 0 || a.rows < 1 || hi > end || (lo < gap_hi && gap_lo < hi))
-      return false;
-    for (int j = 0; j < t.n; ++j) {
-      const Seg& b = t.s[j];
-      const size_t lj = (size_t)b.off, hj = lj + (size_t)b.rows * b.K;
-      if (j != i && b.pack == pack && lo < hj && lj < hi) return false;
+  if (i < NBLK)                                         // g of layer D-1
+    return seg_on(P::map(M_GW), M_GW, G_F + (size_t)i * WB * W);  // A = g_feat
+  i -= NBLK;
+  if (i < NREV) {
+    if (HAS_SKIP) {
+      constexpr int a = (DEPTH - 2 - SKIP) * NBLK;      // layers D-1 .. SKIP+2
+      if (i >= a && i < a + NXC)                        // g_x skip part
+        return P::chunk(OFF_SKIPX, i - a, DXP, M_GW, M_GW_T);
+      if (i >= a + NXC) i -= NXC;
     }
-    sum += hi - lo;
+    return seg_on(P::map(M_GW), M_GW,                   // g of layer l-1
+                  off_h(DEPTH - 1 - i / NBLK) + (size_t)(i % NBLK) * WB * W);
   }
-  return sum == total;
+  i -= NREV;
+  return P::chunk(0, i, DXP, M_GW, M_GW_T);             // g_x layer-0 part
 }
-// the recompute reads every matrix of the forward pack once; the
-// backward every matrix of the backward pack but the heads' vectors
-// (alpha's and rgb's, read directly); viewfac's backward skips the
-// views input's rows but the codes'
-static_assert(covers_pack(SEGS_HOST, 0, OFF_A, 0, 0, OFF_A),
-              "the recompute must cover the forward pack once");
-static_assert(covers_pack(SEGS_HOST, 1, G_R, G_A, G_F, G_A + (G_R - G_F)),
-              "the backward must cover the backward pack once");
-static_assert(covers_pack(SEGS_VF_HOST, 1, G_R, G_A, G_F,
-                          G_A + (G_R - G_F) - (size_t)(DXV - NCODE) * HV),
-              "viewfac's backward must cover the backward pack but xv's rows");
+static_assert(WGSZ <= MAX_PACK && WSZ <= MAX_PACK,
+              "a pack's offsets are ints");
 
-// the backward's schedule; VF: viewfac's (K3, K4)
+// the backward's schedule; VF: viewfac's (K3, K4), whose views input's
+// cotangent is one segment
 template <bool VF>
 struct BwdSchedT {
-  static constexpr int N = VF ? SEGS_VF_HOST.n : NSEG;
+  static constexpr int N = VF ? NSEG - NVC + 1 : NSEG;
+  static constexpr int NMAP = NMAP_BWD;
   static constexpr int NSTAGE = ::NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) {
-    return VF ? SEGS_VF.s[i] : SEGS.s[i];
+  __host__ __device__ __forceinline__ static constexpr MapSpec map(int k) {
+    return BwdPack<VF>::map(k);
   }
+  __host__ __device__ __forceinline__ static constexpr Seg seg(int i) {
+    return bwd_seg<VF>(i);
+  }
+  __device__ __forceinline__ static Seg at(int i);
 };
 typedef BwdSchedT<false> BwdSched;
+
+// the schedules' tables (ring.cuh seg_table)
+constexpr int NSEG_VF = BwdSchedT<true>::N;
+__constant__ Segs<in_const(NSEG)> SEGS_C =
+    seg_table<BwdSchedT<false>, in_const(NSEG)>();
+__constant__ Segs<in_const(NSEG_VF)> SEGS_VF_C =
+    seg_table<BwdSchedT<true>, in_const(NSEG_VF)>();
+__device__ Segs<in_global(NSEG)> SEGS_G =
+    seg_table<BwdSchedT<false>, in_global(NSEG)>();
+__device__ Segs<in_global(NSEG_VF)> SEGS_VF_G =
+    seg_table<BwdSchedT<true>, in_global(NSEG_VF)>();
+
+template <bool VF>
+__device__ __forceinline__ Seg BwdSchedT<VF>::at(int i) {
+  if constexpr (VF)
+    return NSEG_VF <= SEG_CACHE ? SEGS_VF_C.s[i] : SEGS_VF_G.s[i];
+  else
+    return NSEG <= SEG_CACHE ? SEGS_C.s[i] : SEGS_G.s[i];
+}
+
+// The segments of each pack are blocks of it, pairwise disjoint: the
+// recompute reads every matrix of the forward pack once; the backward
+// every matrix of the backward pack but the heads' vectors (alpha's and
+// rgb's, read directly); viewfac's backward skips the views input's rows
+// but the codes'
+static_assert(covers<BwdSchedT<false>>(0, WSZ, OFF_A, 0, 0, OFF_A) &&
+                  covers<BwdSchedT<true>>(0, WSZ, OFF_A, 0, 0, OFF_A),
+              "the recompute must cover the forward pack once");
+static_assert(covers<BwdSchedT<false>>(1, WGSZ, G_R, G_A, G_F,
+                                       G_A + (G_R - G_F)),
+              "the backward must cover the backward pack once");
+static_assert(covers<BwdSchedT<true>>(
+                  1, WGSZ, G_R, G_A, G_F,
+                  G_A + (G_R - G_F) - (size_t)(DXV - NCODE) * HV),
+              "viewfac's backward must cover the backward pack but xv's rows");
 
 // Every stage's source as a TMA descriptor (a kernel parameter): each
 // net's packs through the schedule's maps (MAXMAP a net), and each net's
@@ -337,10 +358,12 @@ cudaError_t make_maps(Maps<NN>& mp, const bf16* wf, const bf16* wb,
   const cudaError_t err = tensor_map_encoder(&enc);
   if (err != cudaSuccess) return err;
   mp = Maps<NN>{};
-  const SegTable& t = VF ? SEGS_VF_HOST : SEGS_HOST;
+  MapSpec spec[NMAP_BWD];
+  for (int k = 0; k < NMAP_BWD; ++k) spec[k] = BwdPack<VF>::map(k);
   for (int net = 0; net < NN; ++net) {
-    if (!encode_maps(enc, mp.seg[net], t.m, t.nmap, wf + (size_t)net * WSZ,
-                     WSZ, wb + (size_t)net * WGSZ, WGSZ))
+    if (!encode_maps(enc, mp.seg[net], spec, NMAP_BWD,
+                     wf + (size_t)net * WSZ, WSZ, wb + (size_t)net * WGSZ,
+                     WGSZ))
       return cudaErrorInvalidValue;
     if (!encode_2d(enc, &mp.xv[net], wk.xv[net], DXV, np, T))
       return cudaErrorInvalidValue;

@@ -7,16 +7,18 @@
 // computed outside the kernel.  The encodings arrive as separate bf16
 // part arrays, never concatenated in device memory: the trunk parts (the
 // kp and bone encodings, 360 + 72 for the flagship's) must sum to DX,
-// the width the library is built for (nvcc -DANERF_DX=..., 1 to 2048,
+// the width the library is built for (nvcc -DANERF_DX=..., 1 to 4096,
 // 432 by default; the TPU kernel compiles per shape too), the views
 // parts (view encoding 648, 216 or 72, the subject channel 1 of a
 // multi-subject model, framecodes 16) to at most DXV, the views width
 // it is built for (nvcc -DANERF_DXV=..., 672 by default; past 672 the
-// parts' sum + 8 rounded up to 16, up to 1664: 1512 view columns at
-// multires_views 10, a subject channel, 128 framecodes).  It is built for
-// one net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH a multiple of 256,
-// -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads other nets'
-// weights with zeros): 1-64 layers, a layer of W outputs as W / 256
+// parts' sum + 8 rounded up to 16, up to 4096: 1656 view columns at
+// multires_views 11 and 128 framecodes take 1792).  It is built for one
+// net as well (nvcc -DANERF_DEPTH, -DANERF_WIDTH a multiple of 256 up
+// to 4096, -DANERF_SKIP; 8 x 256 by default; ops/fused_mlp.py pads other
+// nets' weights with zeros): 1-128 layers, depth x width up to 262,144,
+// the schedule's segments computed from their index at any depth
+// (mlp_fwd_common.cuh fwd_seg), a layer of W outputs as W / 256
 // blocks of 256 columns over the same A operand, at 512 the ring cut
 // to 3 stages to fit the two (64, 520) activation buffers.  Past 512
 // (WIDE: 768, 1024, ...) the activations do not fit shared memory:

@@ -46,104 +46,47 @@ namespace {
 // views-input part and its feat part.  Every layer of W outputs runs as
 // NBLK blocks of 256 output rows, each block's parts in a row.  With
 // viewfac (K1, K2), each views-input part streams only its last k-slice:
-// the codes (mlp_fwd_tile's note).
+// the codes (mlp_fwd_tile's note).  fwd_seg computes segment i from its
+// index, on the forward pack's five maps (ring.cuh fwd_pack_map).
 constexpr int VB = 128;                           // WIDE: views block rows
 constexpr int NVB = HV / VB;
 static_assert(!WIDE || VB == VF_MC, "viewfac's staging a views block's M");
-constexpr int NFSEG = (WIDE ? 2 * NVB : 2) +
-                      NBLK * (DEPTH + (HAS_SKIP ? 1 : 0) + 1);
+constexpr int NFSEG = (WIDE ? 2 * NVB : 2) + NBLK * 2 + NTRUNK;
 
-struct FSegTable {
-  Seg s[NFSEG];
-  MapSpec m[MAXMAP];
-  int nmap;
+// map k of a net's forward pack, segment i of its schedule; VF:
+// viewfac's (K1, K2)
+struct FwdPack {
+  __host__ __device__ __forceinline__ static constexpr MapSpec map(int k) {
+    return fwd_pack_map(k, WIDE ? VB : HV, WIDE ? VB : HV);
+  }
 };
 
-__host__ __device__ constexpr void fput(FSegTable& t, int& i, size_t off,
-                                       int rows, int K) {
-  t.s[i].pack = 0;
-  t.s[i].off = (int)off;
-  t.s[i].rows = rows;
-  t.s[i].K = K;
-  t.s[i].stream_a = 0;
-  t.s[i].kb = 0;
-  ++i;
-}
-
-__host__ __device__ constexpr FSegTable fwd_segs(bool viewfac) {
-  FSegTable t{};
-  int i = 0;
-  if (!WIDE) fput(t, i, OFF_VX, HV, DXV);           // views-input part
-  for (int b = 0; b < NBLK; ++b)                    // layer 0
-    fput(t, i, (size_t)b * WB * DXP, WB, DXP);
-  for (int l = 1; l < DEPTH; ++l)                   // layers 1 ..
-    for (int b = 0; b < NBLK; ++b) {
-      fput(t, i, off_h(l) + (size_t)b * WB * W, WB, W);
-      if (HAS_SKIP && l == SKIP + 1)                //   skip: x part
-        fput(t, i, OFF_SKIPX + (size_t)b * WB * DXP, WB, DXP);
-    }
-  for (int b = 0; b < NBLK; ++b)                    // feat
-    fput(t, i, OFF_F + (size_t)b * WB * W, WB, W);
+template <bool VF>
+__host__ __device__ __forceinline__ constexpr Seg fwd_seg(int i) {
+  typedef FwdPack P;
+  constexpr int kb = VF ? VF_KB : 0;
   if (!WIDE) {
-    fput(t, i, OFF_VF, HV, W);                      // views: feat part
-  } else {
-    for (int v = 0; v < NVB; ++v) {                 // views, by blocks
-      fput(t, i, OFF_VX + (size_t)v * VB * DXV, VB, DXV);
-      fput(t, i, OFF_VF + (size_t)v * VB * W, VB, W);
-    }
+    if (i == 0) return seg_on(P::map(M_VX), M_VX, OFF_VX, kb);  // views-input
+    --i;                                                        // part
   }
-  t.nmap = assign_maps(t.s, NFSEG, t.m);
-  // viewfac: each views-input part streams the codes' slice alone (up
-  // to 512 wide the first segment, WIDE each views block's first)
-  for (int v = 0; viewfac && v < (WIDE ? NVB : 1); ++v)
-    t.s[WIDE ? NFSEG - 2 * (NVB - v) : 0].kb = VF_KB;
-  return t;
+  if (i < NBLK)                                               // layer 0
+    return seg_on(P::map(M_X), M_X, (size_t)i * WB * DXP);
+  i -= NBLK;
+  if (i < NTRUNK) return trunk_seg<P>(i);                     // layers 1 ..
+  i -= NTRUNK;
+  if (i < NBLK)                                               // feat
+    return seg_on(P::map(M_H), M_H, OFF_F + (size_t)i * WB * W);
+  i -= NBLK;
+  if (!WIDE) return seg_on(P::map(M_VF), M_VF, OFF_VF);       // views: feat
+  const size_t v = (size_t)(i / 2);                           // views, by
+  return i % 2 == 0                                           // blocks
+             ? seg_on(P::map(M_VX), M_VX, OFF_VX + v * VB * DXV, kb)
+             : seg_on(P::map(M_VF), M_VF, OFF_VF + v * VB * W);
 }
-__constant__ FSegTable FSEGS = fwd_segs(false);
-__constant__ FSegTable FSEGS_VF = fwd_segs(true);
-constexpr FSegTable FSEGS_HOST = fwd_segs(false);
-static_assert(FSEGS_HOST.nmap > 0, "the forward's blocks on MAXMAP maps");
+static_assert(WSZ <= MAX_PACK, "a pack's offsets are ints");
 static_assert(VF_KB + 8 == DE && DXV - VF_KB >= VF_CW,
               "viewfac's codes slice holds the codes and no view rows but "
               "the 8 it masks");
-
-// The schedule covers the forward pack's matrices (everything before
-// the head vectors at OFF_A) exactly once: weight blocks of the forward
-// pack, inside [0, OFF_A), pairwise disjoint, summing to OFF_A.
-constexpr bool covers_forward_pack(const Seg* s, int n) {
-  size_t total = 0;
-  for (int i = 0; i < n; ++i) {
-    const size_t lo = (size_t)s[i].off, hi = lo + (size_t)s[i].rows * s[i].K;
-    if (s[i].pack != 0 || s[i].stream_a || s[i].off < 0 || hi > OFF_A)
-      return false;
-    for (int j = 0; j < n; ++j) {
-      const size_t lj = (size_t)s[j].off, hj = lj + (size_t)s[j].rows * s[j].K;
-      if (j != i && lo < hj && lj < hi) return false;
-    }
-    total += hi - lo;
-  }
-  return total == OFF_A;
-}
-static_assert(covers_forward_pack(FSEGS_HOST.s, NFSEG),
-              "the forward schedule must cover the forward pack once");
-
-// each net's pack maps (a kernel parameter, MAXMAP a net)
-struct FwdMaps {
-  CUtensorMap seg[2][MAXMAP];
-};
-
-// The descriptors of `nnet` nets' forward packs wf (WSZ each).
-cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
-  EncodeTiled enc;
-  const cudaError_t err = tensor_map_encoder(&enc);
-  if (err != cudaSuccess) return err;
-  mp = FwdMaps{};
-  for (int net = 0; net < nnet; ++net)
-    if (!encode_maps(enc, mp.seg[net], FSEGS_HOST.m, FSEGS_HOST.nmap,
-                     wf + (size_t)net * WSZ, WSZ, nullptr, 0))
-      return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
 
 // ---- shared memory --------------------------------------------------------
 // the ring (1024-byte aligned for the swizzle), its barriers, X, then up
@@ -196,12 +139,66 @@ static_assert(2 * FWD_NSTAGE <= 16, "the barriers' room");
 template <bool VF>
 struct FwdSchedT {
   static constexpr int N = NFSEG;
+  static constexpr int NMAP = NMAP_FWD;
   static constexpr int NSTAGE = FWD_NSTAGE;
-  __device__ __forceinline__ static Seg at(int i) {
-    return VF ? FSEGS_VF.s[i] : FSEGS.s[i];
+  __host__ __device__ __forceinline__ static constexpr MapSpec map(int k) {
+    return FwdPack::map(k);
   }
+  __host__ __device__ __forceinline__ static constexpr Seg seg(int i) {
+    return fwd_seg<VF>(i);
+  }
+  __device__ __forceinline__ static Seg at(int i);
 };
 typedef FwdSchedT<false> FwdSched;
+
+// the schedules' tables (ring.cuh seg_table)
+__constant__ Segs<in_const(NFSEG)> FSEGS_C =
+    seg_table<FwdSchedT<false>, in_const(NFSEG)>();
+__constant__ Segs<in_const(NFSEG)> FSEGS_VF_C =
+    seg_table<FwdSchedT<true>, in_const(NFSEG)>();
+__device__ Segs<in_global(NFSEG)> FSEGS_G =
+    seg_table<FwdSchedT<false>, in_global(NFSEG)>();
+__device__ Segs<in_global(NFSEG)> FSEGS_VF_G =
+    seg_table<FwdSchedT<true>, in_global(NFSEG)>();
+
+template <bool VF>
+__device__ __forceinline__ Seg FwdSchedT<VF>::at(int i) {
+  if constexpr (NFSEG <= SEG_CACHE)
+    return VF ? FSEGS_VF_C.s[i] : FSEGS_C.s[i];
+  else
+    return VF ? FSEGS_VF_G.s[i] : FSEGS_G.s[i];
+}
+
+// The schedule covers the forward pack's matrices (everything before
+// the head vectors at OFF_A) exactly once: weight blocks of the forward
+// pack, inside [0, OFF_A), pairwise disjoint, summing to OFF_A.
+static_assert(covers<FwdSchedT<false>>(0, WSZ, OFF_A, 0, 0, OFF_A),
+              "the forward schedule must cover the forward pack once");
+static_assert(fwd_seg<true>(0).kb == (WIDE ? 0 : VF_KB) &&
+                  fwd_seg<true>(NFSEG - 2).kb == (WIDE ? VF_KB : 0),
+              "viewfac's views-input parts stream the codes' slice");
+
+// each net's pack maps (a kernel parameter, MAXMAP a net)
+struct FwdMaps {
+  CUtensorMap seg[2][MAXMAP];
+};
+
+// The descriptors of `nnet` nets' forward packs wf (WSZ each).
+cudaError_t make_fwd_maps(FwdMaps& mp, const bf16* wf, int nnet) {
+  EncodeTiled enc;
+  const cudaError_t err = tensor_map_encoder(&enc);
+  if (err != cudaSuccess) return err;
+  mp = FwdMaps{};
+  MapSpec spec[NMAP_FWD];
+  for (int k = 0; k < NMAP_FWD; ++k) spec[k] = FwdPack::map(k);
+  for (int net = 0; net < nnet; ++net)
+    if (!encode_maps(enc, mp.seg[net], spec, NMAP_FWD,
+                     wf + (size_t)net * WSZ, WSZ, nullptr, 0))
+      return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+
 typedef Ring<FwdSched> FwdRing;
 
 struct FwdSmem {

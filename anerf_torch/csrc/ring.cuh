@@ -20,8 +20,12 @@
 // every block of a pack with the same depth K and row count lies on the
 // row grid of one (rows, K) view of the pack from some base (the trunk's
 // W x W layers, whatever the depth, on one map), so a segment is a map
-// and a row coordinate (assign_maps), and the maps a kernel takes as a
-// parameter stay a handful at any depth.
+// and a row coordinate, and the maps a kernel takes as a parameter stay
+// a handful at any depth.  A schedule computes each segment from its
+// index (mlp_fwd_common.cuh fwd_seg, mlp_bwd_common.cuh bwd_seg) at
+// compile time, into one table a kernel reads (seg_table: constant
+// memory where it fits, global memory past SEG_CACHE segments), and
+// compile-time checks sort the segments once (covers).
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums (encoded through the runtime)
 
@@ -38,7 +42,7 @@ constexpr int STAGE = WB * KS;       // bf16 a stage: up to 256 rows
 // slice of a part whose first columns a mode skips) to K; with stream_a,
 // the tile's views input (T rows of depth K) rides in each stage after
 // the weight rows as the product's A operand.  map and row: the tensor
-// map the copies read it through and its first row there (assign_maps).
+// map the copies read it through and its first row there.
 struct Seg {
   int pack, off, rows, K, stream_a, kb, map, row;
 };
@@ -48,41 +52,169 @@ struct Seg {
 struct MapSpec {
   int pack, base, K, box;
 };
-constexpr int MAXMAP = 12;   // a net's maps, whatever its depth
+constexpr int MAXMAP = 9;    // a net's maps, whatever its depth
 
-// Each segment's map and row: segments of one pack, depth and row count
-// whose offsets differ by a multiple of K share a map, based at the
-// lowest of them.  Returns the maps' count, or -1 where they exceed
-// MAXMAP or a base is not 16-byte aligned.
-__host__ __device__ constexpr int assign_maps(Seg* s, int n, MapSpec* m) {
-  int nmap = 0;
-  for (int i = 0; i < n; ++i) {
-    int k = 0;
-    for (; k < nmap; ++k)
-      if (m[k].pack == s[i].pack && m[k].K == s[i].K &&
-          m[k].box == s[i].rows && (s[i].off - m[k].base) % s[i].K == 0)
-        break;
-    if (k == nmap) {
-      if (nmap == MAXMAP) return -1;
-      m[k].pack = s[i].pack;
-      m[k].base = s[i].off;
-      m[k].K = s[i].K;
-      m[k].box = s[i].rows;
-      ++nmap;
-    }
-    if (s[i].off < m[k].base) m[k].base = s[i].off;
-    s[i].map = k;
-  }
-  for (int k = 0; k < nmap; ++k)
-    if (m[k].base % 8 != 0) return -1;
-  for (int i = 0; i < n; ++i)
-    s[i].row = (s[i].off - m[s[i].map].base) / s[i].K;
-  return nmap;
+// The segment at element `off` of map m (number `map`): box rows of
+// depth K, at row (off - base) / K of the map.
+__host__ __device__ __forceinline__ constexpr Seg seg_on(
+    const MapSpec& m, int map, size_t off, int kb = 0, int stream_a = 0) {
+  Seg s{};
+  s.pack = m.pack;
+  s.off = (int)off;
+  s.rows = m.box;
+  s.K = m.K;
+  s.stream_a = stream_a;
+  s.kb = kb;
+  s.map = map;
+  s.row = (s.off - m.base) / m.K;   // offsets are ints (MAX_PACK)
+  return s;
 }
 
-// A schedule S provides S::N segments a net (S::at(i) reads its
-// __constant__ table) and the ring's stage count S::NSTAGE; the ring
-// reads MAXMAP maps a net.
+// A pack's offsets are ints (Seg::off, MapSpec::base)
+constexpr size_t MAX_PACK = 0x7fffffff;
+
+// Maps a TMA copy can read: 16-byte aligned bases and rows, boxes of 1
+// to 256 rows
+__host__ __device__ constexpr bool map_ok(const MapSpec& m) {
+  return m.base >= 0 && m.base % 8 == 0 && m.K % 8 == 0 && m.box >= 1 &&
+         m.box <= 256;
+}
+
+// Heap sort of the n spans lo[i] .. hi[i] by lo (a compile-time check's
+// helper: O(n log n) steps, so it holds at any depth)
+constexpr void sort_spans(size_t* lo, size_t* hi, int n) {
+  auto sift = [&](int i, int end) {
+    for (;;) {
+      int c = 2 * i + 1;
+      if (c >= end) return;
+      if (c + 1 < end && lo[c + 1] > lo[c]) ++c;
+      if (lo[c] <= lo[i]) return;
+      const size_t tl = lo[c], th = hi[c];
+      lo[c] = lo[i];
+      hi[c] = hi[i];
+      lo[i] = tl;
+      hi[i] = th;
+      i = c;
+    }
+  };
+  for (int i = n / 2 - 1; i >= 0; --i) sift(i, n);
+  for (int end = n - 1; end > 0; --end) {
+    const size_t tl = lo[0], th = hi[0];
+    lo[0] = lo[end];
+    hi[0] = hi[end];
+    lo[end] = tl;
+    hi[end] = th;
+    sift(0, end);
+  }
+}
+
+// A schedule's segments, computed at compile time into a table
+// (seg_table) that a consumer warp reads with one load per segment,
+// where decoding each from its index costs K5 at 8 x 256 about a tenth
+// of its time in branches (PERF.md §6).  A table of at most SEG_CACHE
+// segments lies in constant memory: two a kernel (with viewfac and
+// without) stay within its 64 KB.  A longer one (the deepest and widest
+// nets: 1,088 forward and 2,135 backward segments at 64 x 4096) lies in
+// global memory.
+constexpr int SEG_CACHE = 768;
+
+template <int M>
+struct Segs {
+  Seg s[M];
+};
+
+// the size of a table of n segments in constant and in global memory
+// (one unused entry in the space it does not take)
+constexpr int in_const(int n) { return n <= SEG_CACHE ? n : 1; }
+constexpr int in_global(int n) { return n <= SEG_CACHE ? 1 : n; }
+
+// Schedule S's table where it has M entries (else one empty entry)
+template <class S, int M>
+constexpr Segs<M> seg_table() {
+  Segs<M> t{};
+  for (int i = 0; M == S::N && i < M; ++i) t.s[i] = S::seg(i);
+  return t;
+}
+
+// The segments S::seg(0 .. S::N - 1) of schedule S that lie in pack
+// `pack` are blocks of it on their maps (S::map(k), each map_ok; every
+// row of a segment inside its map's view of a pack of `size` elements),
+// pairwise disjoint, inside [0, end) and outside [gap_lo, gap_hi), and
+// sum to `total`.
+template <class S>
+constexpr bool covers(int pack, size_t size, size_t end, size_t gap_lo,
+                      size_t gap_hi, size_t total) {
+  size_t lo[S::N] = {}, hi[S::N] = {};
+  int n = 0;
+  size_t sum = 0;
+  for (int i = 0; i < S::N; ++i) {
+    const Seg s = S::seg(i);
+    if (s.map < 0 || s.map >= S::NMAP) return false;
+    const MapSpec m = S::map(s.map);
+    if (!map_ok(m) || m.pack != s.pack || m.K != s.K || m.box != s.rows ||
+        s.kb < 0 || s.kb >= s.K)
+      return false;
+    const size_t l = (size_t)s.off, h = l + (size_t)s.rows * s.K;
+    if (l < (size_t)m.base || (l - m.base) % m.K != 0 ||
+        (size_t)s.row != (l - m.base) / m.K ||
+        (size_t)s.row + s.rows > (size - m.base) / m.K)
+      return false;
+    if (s.pack != pack) continue;
+    if (h > end || (l < gap_hi && gap_lo < h)) return false;
+    lo[n] = l;
+    hi[n] = h;
+    ++n;
+    sum += h - l;
+  }
+  sort_spans(lo, hi, n);
+  for (int i = 1; i < n; ++i)
+    if (lo[i] < hi[i - 1]) return false;
+  return sum == total;
+}
+
+// the trunk's segments after layer 0: layers 1 .. DEPTH-1, the skip
+// layer's x part beside its h part
+constexpr int NTRUNK = NBLK * (DEPTH - 1 + (HAS_SKIP ? 1 : 0));
+
+// Map k of a net's forward pack (pack 0), whose views layer's feat
+// part and views-input part a schedule reads in blocks of vf_rows and
+// vx_rows rows: layer 0's blocks (DXP deep); every W-deep block of 256
+// rows (the trunk's layers and the feature layer, on one map from the
+// pack's start, whatever the depth); the skip layer's x part; the views
+// layer's two parts.  Every block of a map has its box's rows.
+enum { M_X, M_H, M_SKIPX, M_VF, M_VX, NMAP_FWD };
+
+__host__ __device__ __forceinline__ constexpr MapSpec fwd_pack_map(
+    int k, int vf_rows, int vx_rows) {
+  return k == M_X       ? MapSpec{0, 0, DXP, WB}
+         : k == M_H     ? MapSpec{0, 0, W, WB}
+         : k == M_SKIPX ? MapSpec{0, HAS_SKIP ? (int)OFF_SKIPX : 0, DXP, WB}
+         : k == M_VF    ? MapSpec{0, (int)OFF_VF, W, vf_rows}
+                        : MapSpec{0, (int)OFF_VX, DXV, vx_rows};
+}
+
+// segment j of the trunk after layer 0 (j < NTRUNK) on the maps P::map
+template <class P>
+__host__ __device__ __forceinline__ constexpr Seg trunk_seg(int j) {
+  if (HAS_SKIP) {
+    constexpr int a = SKIP * NBLK;  // layers 1 .. SKIP
+    if (j >= a && j < a + 2 * NBLK) {  // the skip layer: h, x by blocks
+      const size_t b = (size_t)((j - a) / 2);
+      return (j - a) % 2 == 0
+                 ? seg_on(P::map(M_H), M_H, off_h(SKIP + 1) + b * WB * W)
+                 : seg_on(P::map(M_SKIPX), M_SKIPX,
+                          OFF_SKIPX + b * WB * DXP);
+    }
+    if (j >= a + 2 * NBLK) j -= NBLK;
+  }
+  return seg_on(P::map(M_H), M_H,
+                off_h(1 + j / NBLK) + (size_t)(j % NBLK) * WB * W);
+}
+
+// A schedule S provides S::N segments a net (S::seg(i) computes segment
+// i, S::at(i) reads it on the device: from its cache or computed), its
+// S::NMAP maps (S::map(k)) and the ring's stage count S::NSTAGE; the
+// ring reads MAXMAP maps a net.
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,

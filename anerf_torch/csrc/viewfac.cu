@@ -96,6 +96,8 @@
 
 namespace {
 
+// the nets of K1-K4 (encmlp_common.cuh ENC_KERNEL)
+static_assert(W <= 2048, "nets a multiple of 256 wide, up to 2048");
 static_assert(HV % 128 == 0 && HV <= 1024,
               "viewfac's kernels take a views layer of 128-column blocks");
 

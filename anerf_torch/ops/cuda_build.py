@@ -43,6 +43,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -315,17 +316,30 @@ def build_kernels(verbose: bool = False,
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[key] = (so, tmp, proc)
+    # each nvcc's output and seconds, read by a thread of its own (a
+    # library's ptxas report may outgrow the pipe before its turn)
+    done = {}
+
+    def wait(key, proc):
+        out, _ = proc.communicate()
+        done[key] = (out, time.perf_counter() - t0)
+    threads = [threading.Thread(target=wait, args=(key, proc))
+               for key, (_, _, proc) in jobs.items() if proc is not None]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     errors = []
     for key, (so, tmp, proc) in jobs.items():
         if proc is None:
             continue
-        out, _ = proc.communicate()
+        out, secs = done[key]
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f'nvcc {key} failed ({proc.returncode}):\n{out}')
             continue
         if verbose:
-            print(f'nvcc {_tag(key)}:\n{out}')
+            print(f'nvcc {_tag(key)}: {secs:.1f} s\n{out}')
         os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))

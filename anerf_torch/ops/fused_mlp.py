@@ -414,10 +414,9 @@ def _mlp_bwd_tile(st: MLPStatic, xs, xvs, flat, g: torch.Tensor):
 # K5/K6's views input [parts | 0 ...]: 672 columns (42 x 16) for any
 # views parts up to it, as every build before views widths of their own
 # had it; past that the parts' sum + 8 rounded up to 16, a build per
-# width (cuda_build ``-DANERF_DXV``), up to 1664 (multires_views 10's
-# 1512 view columns, a subject channel and 128 framecodes: 1641)
+# width (cuda_build ``-DANERF_DXV``), up to 4096
 _XV_PAD = cuda_build.FLAGSHIP_XV
-_MAX_XV_PAD = 1664
+_MAX_XV_PAD = 4096
 
 
 def views_pad(xv: int) -> int:
@@ -630,15 +629,16 @@ K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 
 # the nets the kernels are built for (csrc/encmlp_common.cuh, a library
-# per shape, ops/cuda_build.py): 1-64 layers up to 2048 wide (run at the
+# per shape, ops/cuda_build.py): 1-128 layers up to 4096 wide (run at the
 # next multiple of 256, ``kernel_static``), depth x that width up to
-# 65,536, the views branch half as wide, the skip after layer 4 as
-# factory.py sets it; trunk parts summing to 1-2048 columns and views
-# parts to a views width (``views_pad``) of at most 1664, at most 4
-# parts of each
-_MAX_DEPTH, _MAX_WIDTH, _SKIPS = 64, 2048, (cuda_build.SKIP,)
-_MAX_LAYER_COLS = 65536
-_MAX_DX, _MAX_PARTS = 2048, 4
+# 262,144 (past it K6's workspace for the train step's 131,072 points,
+# 4 bytes a layer's column a point, outgrows the card's 80 GB), the
+# views branch half as wide, the skip after layer 4 as factory.py sets
+# it; trunk parts summing to 1-4096 columns and views parts to a views
+# width (``views_pad``) of at most 4096, at most 4 parts of each
+_MAX_DEPTH, _MAX_WIDTH, _SKIPS = 128, 4096, (cuda_build.SKIP,)
+_MAX_LAYER_COLS = 262144
+_MAX_DX, _MAX_PARTS = 4096, 4
 
 
 def reset_launch_counts() -> None:
@@ -668,29 +668,37 @@ def mlp_bwd_plain(st: MLPStatic, xs, xvs, flat, g):
     return b16(g_x), b16(g_xv), grads
 
 
-def _check_kernel_shape(st: MLPStatic) -> None:
+def kernel_refusal(st: MLPStatic) -> Optional[str]:
+    """Why K5/K6 do not take ``st`` (the cap it passes, ROADMAP.md
+    C.16), or None where they do: the gate the wrappers ask before a
+    launch, asked without one."""
     width = kernel_static(st).width if st.width >= 1 else st.width
     if (st.width > _MAX_WIDTH or st.depth > _MAX_DEPTH
             or st.depth * width > _MAX_LAYER_COLS):
-        why = (f'a net of {st.depth} layers {st.width} wide: they take at '
-               f'most {_MAX_DEPTH} layers, {_MAX_WIDTH} columns and depth x '
-               f'width (rounded up to 256) {_MAX_LAYER_COLS}, the sizes their '
-               f'schedules\' compile-time tables are checked at '
-               f'(ROADMAP.md C.9)')
-    elif (not 1 <= st.depth <= _MAX_DEPTH or st.width < 1
-          or st.half != st.width // 2 or tuple(st.skips) != _SKIPS):
-        why = (f'depth {st.depth}, width {st.width}, half {st.half}, skips '
-               f'{tuple(st.skips)}: they take 1-{_MAX_DEPTH} layers, half = '
-               f'width // 2 and skips {_SKIPS} (ROADMAP.md)')
-    elif (not 1 <= st.dnet <= _MAX_DX or views_pad(st.xv) > _MAX_XV_PAD
-          or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
-        why = (f'parts {st.dparts} / {st.vparts}: they take trunk parts '
-               f'summing to at most {_MAX_DX} and views parts to at most '
-               f'{_MAX_XV_PAD - 8} (a views width of {_MAX_XV_PAD}), '
-               f'{_MAX_PARTS} of each (ROADMAP.md)')
-    else:
-        return
-    raise NotImplementedError(f'the split-MLP CUDA kernels do not take {why}')
+        return (f'a net of {st.depth} layers {st.width} wide: they take at '
+                f'most {_MAX_DEPTH} layers, {_MAX_WIDTH} columns and depth '
+                f'x width (rounded up to 256) {_MAX_LAYER_COLS}, past which '
+                f'K6\'s workspace for 131,072 points outgrows the card '
+                f'(ROADMAP.md C.16)')
+    if (not 1 <= st.depth <= _MAX_DEPTH or st.width < 1
+            or st.half != st.width // 2 or tuple(st.skips) != _SKIPS):
+        return (f'depth {st.depth}, width {st.width}, half {st.half}, skips '
+                f'{tuple(st.skips)}: they take 1-{_MAX_DEPTH} layers, half '
+                f'= width // 2 and skips {_SKIPS} (ROADMAP.md)')
+    if (not 1 <= st.dnet <= _MAX_DX or views_pad(st.xv) > _MAX_XV_PAD
+            or max(len(st.dparts), len(st.vparts)) > _MAX_PARTS):
+        return (f'parts {st.dparts} / {st.vparts}: they take trunk parts '
+                f'summing to at most {_MAX_DX} and views parts to at most '
+                f'{_MAX_XV_PAD - 8} (a views width of {_MAX_XV_PAD}), '
+                f'{_MAX_PARTS} of each (ROADMAP.md C.16)')
+    return None
+
+
+def _check_kernel_shape(st: MLPStatic) -> None:
+    why = kernel_refusal(st)
+    if why is not None:
+        raise NotImplementedError(
+            f'the split-MLP CUDA kernels do not take {why}')
 
 
 def _check_parts(st: MLPStatic, xs, xvs) -> int:

@@ -2516,7 +2516,7 @@ ENC_SHAPES = {
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
-SHAPE_WINDOWS = 3       # the shapes' timing windows (medians)
+SHAPE_WINDOWS = 2       # the shapes' timing windows (medians)
 # shapes checked at fewer rays than ENC_SHAPE_R: the 2048-wide net, whose
 # twins (f32, and f64 where a check takes the f64 chain) would not fit the
 # card's memory beside K4's workspace (20.4 GB at R = 2048)
@@ -2701,7 +2701,7 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
             # the device's ms from CUDA graph replays of the wrapper (its
             # weight packing included): a call's host work outlasts K1's
             # ~0.4 ms at S = 16, which back-to-back calls would read;
-            # those calls' ms beside it as 'wrapper_ms' (3 windows each,
+            # those calls' ms beside it as 'wrapper_ms' (2 windows each,
             # SHAPE_WINDOWS, to keep the phase's time)
             row = _timed_row(
                 kname, 'encmlp_bwd.cu' if bw else 'encmlp_fwd.cu', tpu,
@@ -3227,6 +3227,281 @@ def net_shapes_phase(FE, FM, T, peaks, device, gpu_line):
         if not torch.isfinite(losses).all():
             raise AssertionError(f'{key}: non-finite losses {losses}')
         del setup, state, batch, step
+    return rows, counts
+
+
+# c16_shapes phase (ROADMAP C.16): K5/K6 past the caps they had before
+# that repair, name -> (depth, width, trunk parts, views parts, points): nets
+# 2304 and 4096 wide, 65 and 128 layers, depth x width past the old
+# 65,536 (40 x 2048) and at the new ceiling (64 x 4096), a 41-band
+# reldist trunk (2064 columns) and the widest trunk, 23 view rows with
+# framecodes of 128 (views width 1792) and the widest views input.  The
+# parts are drawn on the card (uniform in [-1, 1), as encodings lie),
+# the weights with the model's init (``nerf_mlp._linear_init``) from the
+# first of NET_SEEDS whose composited cotangent reaches a quarter of
+# the points.  The points: the train step's coarse samples, fewer where
+# a net's workspace and twins would crowd the card.
+C16_SHAPES = {
+    'w2304': (8, 2304, (360, 72), (648, 16), 131072),
+    'w4096': (8, 4096, (360, 72), (648, 16), 32768),
+    'd65': (65, 256, (360, 72), (648, 16), 131072),
+    'd128': (128, 256, (360, 72), (648, 16), 131072),
+    'd40w2048': (40, 2048, (360, 72), (648, 16), 16384),
+    'd64w4096': (64, 4096, (360, 72), (648, 16), 4096),
+    'dx2064': (8, 256, (1992, 72), (648, 16), 131072),
+    'dx4096': (8, 256, (4024, 72), (648, 16), 131072),
+    'xv1792': (8, 256, (360, 72), (1656, 128), 131072),
+    'xv4096': (8, 256, (360, 72), (3960, 128), 131072),
+}
+# the twins' points a call: every layer's f64 activations and
+# cotangents of a chunk take up to 8 GiB, beside K6's workspace
+C16_TWIN_BYTES = 2 ** 33
+# the two trains through build_flagship: one subject at 2304 wide (K1-K4
+# refuse it, so the split route runs), two subjects at 23 view rows with
+# framecodes (views parts 1656 + 1 + 16, a views width of 1696)
+# (subjects, config overrides, the net's width and view PE columns)
+C16_TRAINS = {'w2304_train': (1, dict(netwidth=2304, netwidth_fine=2304),
+                              (2304, 648)),
+              'ms_views23_train': (2, dict(multires_views=11), (256, 1656))}
+
+
+def c16_builds(FM):
+    """(trunk width, depth, compiled width, views width) of every K5/K6
+    library the c16_shapes phase runs (its trains' builds among them)."""
+    return [(sum(dp), d, FM.kernel_static(FM.MLPStatic(
+        d, w, dp, vp, w // 2, (4,))).width, FM.views_pad(sum(vp)))
+        for d, w, dp, vp, _ in C16_SHAPES.values()] + [
+        # the two-subject train: 23 view rows' 1656 columns, the subject
+        # channel and 16 framecodes
+        (432, 8, 256, FM.views_pad(1656 + 1 + 16))]
+
+
+def _c16_net(FM, device, depth, width, dparts, vparts, seed):
+    """The ``flatten_params`` operands of a random net of the model's
+    init (``nerf_mlp._linear_init``, drawn on ``device``)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def lin(fan_in, fan_out):
+        bound = fan_in ** -0.5
+        u = lambda *shape: (torch.rand(shape, generator=gen, device=device)
+                            * 2. - 1.) * bound
+        return {'w': u(fan_in, fan_out), 'b': u(fan_out)}
+    dnet = sum(dparts)
+    pts = [lin(dnet if i == 0 else width + (dnet if i - 1 == 4 else 0),
+               width) for i in range(depth)]
+    net = {'pts_linears': pts, 'alpha_linear': lin(width, 1),
+           'feature_linear': lin(width, width),
+           'views_linear': lin(width + sum(vparts), width // 2),
+           'rgb_linear': lin(width // 2, 3)}
+    st = FM.MLPStatic(depth, width, tuple(dparts), tuple(vparts), width // 2,
+                      (4,))
+    return st, FM.flatten_params(net, st)
+
+
+def _c16_inputs(FM, device, name, S=64):
+    """(st, xs, xvs, flat, g) of C16_SHAPES' ``name``: parts drawn on the
+    card, the weights of the first of NET_SEEDS whose composited
+    cotangent (rays of S samples) reaches a quarter of the points (tried
+    on the first 8192)."""
+    import torch
+    depth, width, dparts, vparts, n = C16_SHAPES[name]
+    gen = torch.Generator(device=device).manual_seed(0)
+    draw = lambda w: (torch.rand((n, w), generator=gen, device=device) * 2.
+                      - 1.).to(torch.bfloat16)
+    xs, xvs = [draw(w) for w in dparts], [draw(w) for w in vparts]
+    probe = min(n, 8192)
+    for seed in NET_SEEDS:
+        st, flat = _c16_net(FM, device, depth, width, dparts, vparts, seed)
+        g = _split_cotangent(FM, st, [x[:probe] for x in xs],
+                             [x[:probe] for x in xvs], flat, S, device)
+        share = (g.abs().sum(-1) > 0).float().mean().item()
+        if share >= 0.25:
+            print(f'c16 {name}: weights from seed {seed}, cotangent on '
+                  f'{share:.1%} of the first {probe} points')
+            raw = _c16_twin_fwd(FM, st, xs, xvs, flat)[0]
+            g = _composite_grad([raw], S, device)[0].T.contiguous()
+            return st, xs, xvs, flat, g
+        del flat
+    raise AssertionError(f'c16 {name}: no seed of {NET_SEEDS} gives a '
+                         'cotangent on a quarter of the points')
+
+
+def _c16_chunks(st, n):
+    """The twins' point chunks [(a, b)], whole rays of 64 samples, each
+    within C16_TWIN_BYTES of f64 activations and cotangents."""
+    per = 8 * 3 * (st.depth * st.width + st.dnet + st.xv)
+    step = max(64, C16_TWIN_BYTES // per // 64 * 64)
+    return [(a, min(n, a + step)) for a in range(0, n, step)]
+
+
+def _ms_once(fn):
+    """(fn(), its device ms): CUDA events around one call (a twin's,
+    whose seconds dwarf a warm-up's savings)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _c16_twin_fwd(FM, st, xs, xvs, flat, f64=False):
+    """K5's twin (raw (4, n)) over point chunks; ``f64``: its chain in
+    float64 (``_f64_chain``)."""
+    import torch
+    n, outs = xs[0].shape[0], []
+    for a, b in _c16_chunks(st, n):
+        run = lambda: FM.mlp_fwd_plain(st, [x[a:b] for x in xs],
+                                       [x[a:b] for x in xvs], flat)
+        outs.append(_f64_chain(FM, run) if f64 else run())
+    return [torch.cat(outs).T]
+
+
+def _c16_twin_bwd(FM, st, xs, xvs, flat, g, f64=False):
+    """K6's twin over point chunks as named outputs: the part cotangents
+    (bf16, as K6 writes them; ``f64``: the chain's f64 values) and every
+    gradient, the chunks' sums added in f64 (f32 for the twin)."""
+    import torch
+    from scripts.check_k6_f64 import _named
+    n, dx, dxv, grads = xs[0].shape[0], [], [], None
+    for a, b in _c16_chunks(st, n):
+        args = (st, [x[a:b] for x in xs], [x[a:b] for x in xvs], flat,
+                g[a:b])
+        if f64:
+            out = _f64_chain(FM, lambda: FM._mlp_bwd_tile(*args))
+        else:
+            out = FM.mlp_bwd_plain(*args)
+        dx.append(out[0])
+        dxv.append(out[1])
+        gr = [x.double() for x in out[2]]
+        grads = gr if grads is None else [u + v for u, v in zip(grads, gr)]
+        del out
+    cat = lambda parts: [torch.cat(p) for p in zip(*parts)]
+    return _named(cat(dx), cat(dxv),
+                  [x if f64 else x.float() for x in grads])
+
+
+def c16_shapes_phase(FE, FM, T, peaks, device, gpu_line):
+    """K5 and K6 at each shape of C16_SHAPES, which they refused before
+    this phase's PR (ROADMAP C.16), against their twins at the
+    flagship's bars (K5's rows, K6's cotangents and gradients on a
+    composited cotangent; the twins over point chunks), or, past
+    DEEP_NET_LAYERS and at WIDE where the twin's bars miss, against the
+    f64 chain (``_check_close_f64``, ``_check_bwd_f64``); two calls
+    bit-identical, launches counted exactly, both timed beside the twin
+    and the bound (``kernel_cost``; K6's passes, the dW pass's bound from
+    ``dw_cost``; each twin timed on its checking call), K6's workspace
+    and the phase's peak device memory printed.  Then the C16_TRAINS, NET_STEPS
+    train steps each through ``build_flagship``: K5 and K6 three times a
+    step, K1-K4 never, finite losses.  Returns ({name: (K5 row, K6
+    row)}, {name: launch counts})."""
+    import torch
+    rows, counts = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, (depth, width, dparts, vparts, n) in C16_SHAPES.items():
+        st, xs, xvs, flat, g = _c16_inputs(FM, device, name)
+        wide, deep = width > 512, depth > DEEP_NET_LAYERS
+        shape = (f'{name}: {depth}x{width} trunk {st.dparts} views '
+                 f'{st.vparts} n={n}')
+        ws = FM._library('mlp_bwd', st).mlp_bwd_workspace_bytes(n)
+        print(f'mlp_fwd, mlp_bwd {shape} (built {FM.kernel_static(st).width}'
+              f' wide, views width {st.xv_pad}; K6 workspace '
+              f'{ws / 2**30:.2f} GiB):')
+        t0 = time.perf_counter()
+        FE.reset_launch_counts()
+        run, _ = _split_calls(FM, st, xs, xvs, flat)
+        got = run()
+        _check_deterministic('mlp_fwd', _named(got), _named(run()))
+        twin, twin_ms = _ms_once(lambda: _c16_twin_fwd(FM, st, xs, xvs,
+                                                       flat))
+        try:
+            if deep:
+                raise AssertionError('past DEEP_NET_LAYERS')
+            max_abs = _check_close('mlp_fwd', twin, got)
+        except AssertionError as e:
+            if not (deep or wide):
+                raise
+            print(f'  mlp_fwd: {e}; against the f64 chain')
+            max_abs = _check_close_f64(
+                'mlp_fwd', _c16_twin_fwd(FM, st, xs, xvs, flat, f64=True),
+                got, twin)
+        del got, twin
+        fwd = _timed_row('mlp_fwd', 'mlp_fwd.cu', 267, FM.kernel_cost(st, n),
+                         _time_ms(run, 1, 3), twin_ms, max_abs, peaks, shape,
+                         tpu_file='pallas_mlp.py')
+        run, _ = _split_calls(FM, st, xs, xvs, flat, g)
+        got = run()
+        _check_deterministic('mlp_bwd', got, run())
+        twin, twin_ms = _ms_once(lambda: _c16_twin_bwd(FM, st, xs, xvs, flat,
+                                                       g))
+        try:
+            if deep:
+                raise AssertionError('past DEEP_NET_LAYERS')
+            max_abs = _check_bwd('mlp_bwd', twin, got)
+        except AssertionError as e:
+            if not (deep or wide):
+                raise
+            print(f'  mlp_bwd: {e}; against the f64 chain')
+            max_abs = _check_bwd_f64(
+                'mlp_bwd', _c16_twin_bwd(FM, st, xs, xvs, flat, g, f64=True),
+                got, twin)
+        del got, twin
+        bwd = _timed_row(
+            'mlp_bwd', 'mlp_bwd.cu', 276, FM.kernel_cost(st, n, backward=True),
+            _time_ms(run, 1, 1), twin_ms, max_abs, peaks, shape,
+            tpu_file='pallas_mlp.py')
+        bwd['passes_ms'] = pass_times('mlp_bwd', run, shape,
+                                      FM.dw_cost(st, n), peaks)
+        for row in (fwd, bwd):
+            row.update(shape=shape, points=n, workspace_bytes=ws)
+        torch.cuda.synchronize()
+        counts[name] = FE.launch_counts()
+        # K5: the two checked calls, the timing's warm-up and 3 windows;
+        # K6: the two checked calls, the timing's warm-up and window, the
+        # profiled passes' warm-up and call
+        expect = {k: 0 for k in counts[name]}
+        expect.update(mlp_fwd=2 + 1 + 3, mlp_bwd=2 + 1 + 1 + 2)
+        if counts[name] != expect:
+            raise AssertionError(f'c16 {name}: launch counts {counts[name]},'
+                                 f' expected {expect}')
+        rows[name] = (fwd, bwd)
+        print(f'  c16 {name}: {time.perf_counter() - t0:.1f} s')
+        del st, xs, xvs, flat, g, run
+        torch.cuda.empty_cache()
+    for name, (ns, over, widths) in C16_TRAINS.items():
+        setup, state, batch, step = T.build_flagship(
+            2048, n_subjects=ns, device=device, compute_dtype='bfloat16',
+            mlp_backend='pallas', **over)
+        rc = setup.rc
+        if (rc.mlp_backend != 'fused' or FE.kernel_shape_ok(rc)
+                or (rc.nerf.width, rc.view_embed.out_dim) != widths):
+            raise AssertionError(f'{name}: not the fused backend on the '
+                                 f'split route at {widths}')
+        gen = torch.Generator(device=device).manual_seed(0)
+        FE.reset_launch_counts()
+        losses = []
+        for _ in range(NET_STEPS):
+            state, stats = step(state, batch, gen)
+            losses.append(stats['total_loss'])
+        torch.cuda.synchronize()
+        counts[name] = FE.launch_counts()
+        losses = torch.stack(losses).cpu()
+        print(f'c16 {name}: {NET_STEPS} steps, launches {counts[name]}, '
+              f'total_loss {losses.tolist()} ({gpu_line})')
+        expect = {k: 0 for k in counts[name]}
+        expect.update(mlp_fwd=3 * NET_STEPS, mlp_bwd=3 * NET_STEPS)
+        if counts[name] != expect:
+            raise AssertionError(f'{name}: launch counts {counts[name]}, '
+                                 f'expected {expect}')
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f'{name}: non-finite losses {losses}')
+        del setup, state, batch, step, rc
+        torch.cuda.empty_cache()
+    print(f'c16_shapes: peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({gpu_line})')
     return rows, counts
 
 
@@ -5277,6 +5552,8 @@ def main() -> int:
                     FM.views_pad(int(k.split('_')[0])))
                    for k, (_, over) in VIEWS_WIDTHS.items()]
     net_builds.append((432, 8, 256, FM.views_pad(1640)))
+    # K5/K6 past their former caps (ROADMAP C.16)
+    net_builds += c16_builds(FM)
     # K1-K4 and K-vf1/K-vf2 at the encode shapes past the flagship's, and
     # at cli_views' (mixamo at 11 view rows and framecodes of 32)
     enc_builds = [enc_shape_key(FE, T, over)
@@ -5412,6 +5689,11 @@ def main() -> int:
     for key, counts in net_counts.items():
         paths[f'net_{key}'] = counts
     clock.mark('net_shapes')
+    c16_rows, c16_counts = c16_shapes_phase(FE, FM, T, peaks, device,
+                                            gpu_line)
+    for key, counts in c16_counts.items():
+        paths[f'c16_{key}'] = counts
+    clock.mark('c16_shapes')
     import shutil
     shutil.rmtree(WORK, ignore_errors=True)
     try:
@@ -5481,6 +5763,16 @@ def main() -> int:
                     launches=paths[f'net_{key}'][name],
                     launches_path=f'net_{key}')
                 for key, r in net_rows.items()}
+            # K5/K6 past their former caps (C.16): each
+            # shape's times, the launches of its counted checks
+            row['c16_shapes'] = {
+                key: dict({f: r[k][f] for f in (
+                    'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_abs_err',
+                    'passes_ms', 'shape', 'points', 'workspace_bytes')
+                    if f in r[k]},
+                    launches=paths[f'c16_{key}'][name],
+                    launches_path=f'c16_shapes {key}')
+                for key, r in c16_rows.items()}
             # K5/K6 at the views widths past 672 (C.15): the times at the
             # train step's coarse samples, the launches of the two-subject
             # steps at 11 view rows for 809 columns, else of the phase's

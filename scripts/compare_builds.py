@@ -36,6 +36,8 @@ K1-K4 on the dense views input and on points, which every build takes.
 
     python3 scripts/compare_builds.py BASE_CSRC_DIR --shapes nb1 nb5 ...
 
+(``--shapes all`` takes every one.)
+
 With ``--nets`` (``chip_smoke.NET_SHAPES`` keys such as ``8x1024``) and
 ``--views`` (``chip_smoke.VIEWS_WIDTHS`` names such as ``1641_w1024``),
 K5/K6 are built at those nets and views widths too, and run as
@@ -45,6 +47,9 @@ their seed rule) with the base's libraries and with the tree's, every
 output bit for bit; ``--nets all`` / ``--views all`` take every one.
 
     python3 scripts/compare_builds.py BASE_CSRC_DIR --nets all --views all
+
+With ``--time`` every call is also timed with each build in turns (base,
+tree, tree, base: ``chip_smoke._time_ms``, 3 windows of 3 calls).
 """
 import argparse
 import ctypes
@@ -269,13 +274,16 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('base_csrc')
     ap.add_argument('--shapes', nargs='*', default=[],
-                    help='chip_smoke.ENC_SHAPES names to compare K1-K4 at')
+                    help='chip_smoke.ENC_SHAPES names to compare K1-K4 at, '
+                    'or all')
     ap.add_argument('--nets', nargs='*', default=[],
                     help='chip_smoke.NET_SHAPES keys (DxW) to compare K5/K6 '
                     'at, or all')
     ap.add_argument('--views', nargs='*', default=[],
                     help='chip_smoke.VIEWS_WIDTHS names to compare K5/K6 '
                     'at, or all')
+    ap.add_argument('--time', action='store_true',
+                    help='also time every call with each build, in turns')
     args = ap.parse_args(argv)
     import torch
     sys.path.insert(0, ROOT)
@@ -294,8 +302,9 @@ def main(argv) -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = list(C.ENC_SHAPES) if args.shapes == ['all'] else args.shapes
     enc = {name: C.enc_shape_key(FE, T, C.ENC_SHAPES[name][0])
-           for name in args.shapes}
+           for name in shapes}
     nets = (list(C.NET_SHAPES) if args.nets == ['all'] else
             [tuple(int(x) for x in k.split('x')) for k in args.nets])
     views = (list(C.VIEWS_WIDTHS) if args.views == ['all'] else args.views)
@@ -397,6 +406,13 @@ def main(argv) -> int:
             print(f'{name}: {len(got)} outputs bit-identical to the base '
                   'build', flush=True)
         differ += bool(bad)
+        if args.time:   # device ms a call, base, tree, tree, base
+            t = []
+            for libs in (base, tree, tree, base):
+                cuda_build._LIBS.update(libs)
+                t.append(C._time_ms(run, 3, 3))
+            print(f'{name}: in turns base {t[0]:.3f} ms, tree {t[1]:.3f}, '
+                  f'tree {t[2]:.3f}, base {t[3]:.3f}', flush=True)
     return 1 if differ or failed else 0
 
 

@@ -25,6 +25,8 @@ from anerf_torch import testing_utils as T
 from anerf_torch.interop import tree_map, train_state_from_jax
 from anerf_torch.training import checkpoint as TC
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 N_FRAMES = 4
 
 

@@ -18,6 +18,8 @@ import torch
 from anerf_torch.data.writer import make_synthetic_store
 from anerf_torch.utils.config import config_from_cli, load_config
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 CONFIG = os.path.join(os.path.dirname(__file__), '..', 'configs',
                       'synthetic_tiny.txt')
 

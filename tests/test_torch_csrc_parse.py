@@ -18,6 +18,8 @@ import sys
 
 import pytest
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, 'anerf_torch', 'csrc')
 
@@ -33,16 +35,20 @@ EXPORTS = {
     'mlp_bwd.cu': ('mlp_bwd', 'mlp_bwd_workspace_bytes', 'mlp_trunk_width'),
 }
 # the trunk widths K5/K6 are built for (nvcc -DANERF_DX=...): resident
-# in shared memory (117, 432) and read in column chunks (1152, 1197),
-# odd widths padded to the k-step (117, 1197)
-TRUNK_WIDTHS = (117, 432, 1152, 1197)
+# in shared memory (117, 432) and read in column chunks (1152, 1197;
+# 2064, a 41-band reldist trunk, and 4096, the ceiling), odd widths
+# padded to the k-step (117, 1197)
+TRUNK_WIDTHS = (117, 432, 1152, 1197, 2064, 4096)
 # the views widths K5/K6 are built for past 672 (nvcc -DANERF_DXV=...,
 # fused_mlp.views_pad): resident in K5's shared memory (688, 832) and
-# read in column chunks (1664, the ceiling), at the flagship's net, at
-# 8 x 512 and WIDE (8 x 1024) and beside a chunked trunk input (1152)
+# read in column chunks (1664, the former ceiling; 1792, 23 view rows with
+# framecodes of 128; 4096, the ceiling), at the flagship's net, at 8 x
+# 512 and WIDE (8 x 1024) and beside a chunked trunk input (1152, 4096)
 VIEWS_WIDTHS = ((688, 432, 8, 256), (832, 432, 8, 256),
                 (1664, 432, 8, 256), (1664, 432, 8, 512),
-                (1664, 1152, 8, 512), (1664, 432, 8, 1024))
+                (1664, 1152, 8, 512), (1664, 432, 8, 1024),
+                (1792, 432, 8, 256), (4096, 432, 8, 256),
+                (4096, 4096, 8, 1024))
 
 CUDA_RUNTIME_H = r'''
 #pragma once
@@ -211,20 +217,26 @@ def test_split_mlp_sources_parse_at_every_views_width(source, dxv, dx, depth,
                         [f'ANERF_DX={dx}', f'ANERF_DXV={dxv}', *net])
     assert not _errors(cindex, tu), '\n'.join(_errors(cindex, tu))
     cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
-                        [f'ANERF_DX={dx}', 'ANERF_DXV=1680', *net])
-    assert any('at most 1664 columns' in e for e in _errors(cindex, tu))
+                        [f'ANERF_DX={dx}', 'ANERF_DXV=4112', *net])
+    assert any('at most 4096 columns' in e for e in _errors(cindex, tu))
 
 
 # the nets K5/K6 are built for (nvcc -DANERF_DEPTH, -DANERF_WIDTH,
 # -DANERF_SKIP): no skip layer (2, 4), the skip layer (6, 8, 10, 24, 32),
 # 512 wide (its ring, activations and masks budgeted apart), WIDE past
 # 512 (768 with a views layer of three 128-column blocks, 1024: the
-# activations in device memory), at a resident trunk (432) and the
-# widest chunked one (2048)
+# activations in device memory), at a resident trunk (432) and a wide
+# chunked one (2048); then past the former caps (ROADMAP C.16): 65 and 128
+# layers, 2304 and 4096 wide, 40 x 2048 and the ceilings 128 x 2048 and
+# 64 x 4096 (at the widest trunk), whose schedules' segments and
+# coverage checks no longer grow into tables
 NET_SHAPES = ((432, 2, 256), (432, 4, 256), (432, 6, 256), (432, 10, 256),
               (432, 24, 256), (117, 6, 512), (432, 8, 512), (1152, 8, 512),
               (2048, 24, 512), (432, 8, 1024), (432, 6, 768),
-              (432, 32, 256), (2048, 32, 1024))
+              (432, 32, 256), (2048, 32, 1024),
+              (432, 65, 256), (432, 128, 256), (432, 8, 2304),
+              (432, 8, 4096), (432, 40, 2048), (432, 128, 2048),
+              (4096, 64, 4096))
 
 
 @pytest.mark.parametrize('dx,depth,width', NET_SHAPES)
@@ -241,6 +253,32 @@ def test_split_mlp_sources_parse_at_every_net_shape(source, dx, depth, width,
     errors = [str(d) for d in tu.diagnostics
               if d.severity >= cindex.Diagnostic.Error]
     assert not errors, '\n'.join(errors)
+
+
+# the first value past each of K5/K6's ceilings (ROADMAP C.16), the
+# static_assert it fails: trunk and views widths, depth, width, depth x
+# width
+SPLIT_REFUSED = [
+    (['ANERF_DX=4097'], 'trunk inputs of 1 to 4096 columns'),
+    (['ANERF_DXV=4112'], 'at most 4096 columns'),
+    (['ANERF_DEPTH=129'], '1 to 128 trunk layers'),
+    (['ANERF_DEPTH=8', 'ANERF_WIDTH=4352'],
+     'nets a multiple of 256 wide, up to 4096'),
+    (['ANERF_DEPTH=65', 'ANERF_WIDTH=4096'],
+     'at most depth x width = 262,144')]
+
+
+@pytest.mark.parametrize('defines,message', SPLIT_REFUSED,
+                         ids=[d[-1] for d, _ in SPLIT_REFUSED])
+@pytest.mark.parametrize('source', ['mlp_fwd.cu', 'mlp_bwd.cu'])
+def test_split_mlp_sources_refuse_past_the_ceilings(source, defines,
+                                                    message, mock_include):
+    """K5/K6 past each ceiling fail the shared header's static_assert,
+    where ``fused_mlp.kernel_refusal`` stops them before a build."""
+    cindex, tu = _parse(os.path.join(CSRC, source), mock_include,
+                        [*defines, 'ANERF_SKIP=4'])
+    failed = [e for e in _errors(cindex, tu) if 'static assertion' in e]
+    assert any(message in e for e in failed), failed
 
 
 # K1-K4 (encmlp_fwd.cu, encmlp_bwd.cu) and K-vf1/K-vf2 (viewfac.cu) per
@@ -283,8 +321,9 @@ ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
                  dict(nf=10, depth=16, width=2048)])
 # the first value each axis refuses, the source that refuses it and the
 # message of the static_assert it fails (ROADMAP B.1.4): 23 view rows
-# (the headers' cap; viewfac's four k-steps a joint), 2304 wide (the
-# headers' cap, which K5/K6 share), framecodes of 144 (the headers' cap,
+# (the headers' cap; viewfac's four k-steps a joint), 2304 wide (K1-K4's
+# own cap in the shared header under ANERF_ENC_KERNEL, and viewfac.cu's:
+# K5/K6 take 4096 since C.16), framecodes of 144 (the headers' cap,
 # past 128)
 ENC_REFUSED = [
     (dict(nb=23), 'encmlp_fwd.cu', 'at most 21 view PE rows'),

@@ -26,6 +26,8 @@ from anerf_torch.data import pipeline as TPL
 from anerf_torch.data.store import h5_to_store, open_store, store_keys
 from anerf_torch.data.writer import make_synthetic_store
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 H = W = 24
 
 

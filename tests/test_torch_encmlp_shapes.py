@@ -50,6 +50,7 @@ from anerf_torch.models.factory import build_raycast_config as t_build
 from anerf_torch.ops import fused_encmlp as FE
 
 from test_torch_fused_encmlp import _assert_raw_close, _pts_cm
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # name: (config overrides, the build key (kp bands, view rows, bone
 # window, depth, width, framecode columns))

@@ -46,6 +46,7 @@ from test_torch_encmlp_shapes import (B12_SHAPES, BWD_CASES, SHAPES,
                                       shape_scene)
 from test_torch_fused_bwd import (COS_TOL, RATIO_TOL, _leaf, _operands,
                                   assert_grad_close)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # the shapes whose bars come from the f64 chain, and the share of the two
 # evaluations' distances from it that they may take from each other

@@ -11,6 +11,7 @@ import pytest
 
 from test_torch_encmlp_shapes import B12_SHAPES, BWD_CASES
 from test_torch_encmlp_shapes_bwd import check_bwd_case
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B12_CASES = [(n, S) for n, S in BWD_CASES if n in B12_SHAPES]
 

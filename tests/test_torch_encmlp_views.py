@@ -50,6 +50,7 @@ from anerf_torch.ops import fused_encmlp as FE
 
 from test_torch_fused_bwd import _leaf, _operands, assert_grad_close
 from test_torch_fused_encmlp import _assert_raw_close, _pts_cm
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 J = 24
 # name: (config overrides, the build key)

@@ -68,6 +68,7 @@ from anerf_torch.utils.config import load_config
 from test_torch_encmlp_views import _scaled_close, _vf_arrays, _vf_est
 from test_torch_fused_bwd import _leaf, _operands, assert_grad_close
 from test_torch_fused_encmlp import _assert_raw_close, _pts_cm
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 J = 24
 WIDE_MEAN_TOL = 3e-4

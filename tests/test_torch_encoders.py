@@ -35,6 +35,7 @@ from anerf_torch.ops import embedding as TE
 from anerf_torch.ops import encoders as TX
 
 from test_torch_ops import _close
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 t = torch.as_tensor
 R, S = 6, 5

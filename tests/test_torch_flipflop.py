@@ -16,6 +16,8 @@ import torch
 from anerf_tpu.training import flipflop as JF
 from anerf_torch.training import flipflop as TF
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 GRID = [dict(opt_pose_interval=iv, opt_pose_step=st, opt_pose_warmup=wu,
              opt_pose_stop=sp, opt_pose_joint=jt, testopt=to,
              opt_pose_reset=rs)

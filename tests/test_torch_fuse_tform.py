@@ -64,6 +64,8 @@ from anerf_torch.ops import encoders as TX
 from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.utils.config import Config, config_from_cli
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 J = 24
 ROWS_TOL = 1e-6     # tform_rows, _apply_tform: f32 einsum noise
 PULL_TOL = 1e-5     # _tform_pullback: f32 sums over S in another order

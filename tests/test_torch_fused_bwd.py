@@ -45,6 +45,8 @@ from anerf_torch.models.factory import build_raycast_config as t_build
 from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.ops import fused_mlp as FM
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 J = 24
 COS_TOL = 1e-4
 RATIO_TOL = 5e-3

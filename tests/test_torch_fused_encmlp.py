@@ -40,6 +40,8 @@ from anerf_torch.models.factory import build_raycast_config as t_build
 from anerf_torch.models.factory import init_raycaster_params as t_init
 from anerf_torch.ops import fused_encmlp as FE
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 J = 24
 
 

@@ -40,6 +40,7 @@ from anerf_torch.ops import fused_mlp as FM
 from anerf_torch.training.trainer import tree_leaves
 
 from test_torch_fused_bwd import assert_grad_close
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 N = 200
 PARTS = [((360, 72), (649, 16)), ((360, 72), (648, 1, 16)),
@@ -187,11 +188,12 @@ def test_split_weight_layouts_round_trip(dparts, vparts):
 
 def test_kernel_cost_and_shape_gate():
     """864,000 MACs a point at the multi-subject widths, 3x the FLOPs
-    backward; any trunk width of 1-2048 columns and any net of 1-64
-    layers up to 2048 wide (depth x width up to 65,536: 8 x 1024 among
-    them) passes the gate, and shapes the kernels are not built for (a
-    net wider than 2048, views inputs past 1656 columns (a views width
-    past 1664), a trunk past 2048) raise naming ROADMAP.md."""
+    backward; any trunk width of 1-4096 columns and any net of 1-128
+    layers up to 4096 wide (depth x width up to 262,144: 8 x 1024 and 8
+    x 4096 among them) passes the gate, and shapes the kernels are not
+    built for (a net wider than 4096, views inputs past 4088 columns (a
+    views width past 4096), a trunk past 4096) raise naming
+    ROADMAP.md."""
     st = FM.MLPStatic(8, 256, (360, 72), (649, 16), 128, (4,))
     fwd, bwd = FM.kernel_cost(st, 1000), FM.kernel_cost(st, 1000, True)
     assert fwd['bf16_flops'] == 2 * 864000 * 1000
@@ -199,15 +201,18 @@ def test_kernel_cost_and_shape_gate():
     assert fwd['bytes'] > 1000 * (432 + 665) * 2 and bwd['bytes'] > \
         2 * fwd['bytes'] - 1000 * 16
     FM._check_kernel_shape(st)
-    for dparts in ((1,), (45, 72), (360,), (1080, 72), (1125, 72), (2048,)):
+    for dparts in ((1,), (45, 72), (360,), (1080, 72), (1125, 72), (2048,),
+                   (1977, 72), (4096,)):
         FM._check_kernel_shape(
             FM.MLPStatic(8, 256, dparts, (649, 16), 128, (4,)))
     for good in (FM.MLPStatic(8, 128, (360, 72), (649, 16), 64, (4,)),
                  FM.MLPStatic(6, 256, (360, 72), (649, 16), 128, (4,)),
-                 FM.MLPStatic(8, 1024, (360, 72), (649, 16), 512, (4,))):
+                 FM.MLPStatic(8, 1024, (360, 72), (649, 16), 512, (4,)),
+                 FM.MLPStatic(8, 4096, (360, 72), (649, 16), 2048, (4,)),
+                 FM.MLPStatic(8, 256, (360, 72), (1512, 1, 144), 128, (4,))):
         FM._check_kernel_shape(good)
-    for bad in (FM.MLPStatic(8, 4096, (360, 72), (649, 16), 2048, (4,)),
-                FM.MLPStatic(8, 256, (1977, 72), (649, 16), 128, (4,)),
-                FM.MLPStatic(8, 256, (360, 72), (1512, 1, 144), 128, (4,))):
+    for bad in (FM.MLPStatic(8, 4352, (360, 72), (649, 16), 2176, (4,)),
+                FM.MLPStatic(8, 256, (4025, 72), (649, 16), 128, (4,)),
+                FM.MLPStatic(8, 256, (360, 72), (3944, 1, 144), 128, (4,))):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             FM._check_kernel_shape(bad)

@@ -57,6 +57,7 @@ from anerf_torch.training import trainer as TT
 from test_torch_ops import _close
 from test_torch_train import (_flat, _jax_numpy_state, _run,
                               train_state_to_numpy)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 R, N_FRAMES = 8, 4
 LR = 5e-4

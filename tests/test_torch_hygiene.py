@@ -16,6 +16,8 @@ import os
 import pytest
 import torch
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'anerf_tpu')
 

@@ -44,6 +44,7 @@ from anerf_torch.training import trainer as TT
 from test_torch_render import MAPS, _close
 from test_torch_train import (N_FRAMES, R, _cfg, _compare_states,
                               _jax_numpy_state, _run, train_state_to_numpy)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 POSE_KEYS = ('kps', 'skts', 'bones', 'cyls')
 
@@ -159,7 +160,7 @@ def test_step_fused_twins_match_pallas_interpret():
                                                 'bfloat16')
     ts = train_state_from_jax(j_state)
     before = (_jax_numpy_state(j_state), train_state_to_numpy(ts))
-    js, ts = _run(JT.make_train_step(j_setup), j_state, jb,
+    js, ts = _run(jax.jit(JT.make_train_step(j_setup)), j_state, jb,
                   TT.make_train_step(t_setup), ts, tb, 1, loss_rtol=1e-4)
     _compare_states(js, ts, pose_atol=1e-6, mom_cos=5e-4, mom_ratio=2e-2,
                     upd_from=before, upd_cos=1e-2)

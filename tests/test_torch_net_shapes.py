@@ -1,6 +1,8 @@
 """K5/K6 at every net shape that anerf_tpu's split-operand kernel runs:
-any depth and width (ROADMAP C.9), up to the sizes the kernels' tables
-are checked at (64 layers, 2048 wide, depth x width 65,536).
+any depth and width (ROADMAP C.9), up to the sizes past which K6's
+workspace outgrows the card (128 layers, 4096 wide, depth x width
+262,144; the shapes past the former caps, ROADMAP C.16, in
+``test_torch_split_caps.py``).
 
 The kernels are built per (trunk width, depth, width) and run a net at
 its width rounded up to a multiple of 256, the packs padding every
@@ -26,6 +28,8 @@ activations live in device memory.  Here, on the CPU:
   slices of the point axis, the partials' size) pinned at the flagship,
   multi-subject and trunk-1152 shapes.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -44,6 +48,8 @@ from anerf_torch.ops import fused_mlp as FM
 from anerf_torch.training.trainer import tree_leaves
 
 from test_torch_fused_bwd import assert_grad_close
+from test_torch_threads import one_torch_thread  # noqa: F401
+from test_torch_threads import torch_threads_as_before  # noqa: F401
 
 SHAPES = [(2, 64), (4, 128), (6, 256), (8, 200), (10, 256), (8, 384),
           (8, 512), (8, 1024), (6, 768), (32, 256)]
@@ -57,17 +63,25 @@ def _static(depth, width, dparts=DPARTS, vparts=VPARTS):
     return FM.MLPStatic(depth, width, dparts, vparts, width // 2, (4,))
 
 
-def _net(depth, width, dparts=DPARTS, vparts=VPARTS):
-    """(JAX params, port params, JAX config, port config) of one net of
-    ``depth`` x ``width`` on the parts, framecodes the last views part."""
+@functools.lru_cache(maxsize=None)
+def _j_net(depth, width, dparts, vparts):
+    """anerf_tpu's config and parameters (numpy) of a net, drawn once
+    for the file's tests."""
     kw = dict(depth=depth, width=width, input_ch=dparts[0],
               input_ch_bones=dparts[1], input_ch_views=vparts[0],
               use_framecode=True, framecode_ch=vparts[-1])
     j_cfg = JNeRFConfig(compute_dtype=jnp.bfloat16, **kw)
     params = j_init(jax.random.PRNGKey(depth * 1000 + width), j_cfg)
     params.pop('framecodes', None)      # the codes arrive as a part
-    t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
-    return params, t_params, j_cfg, NeRFConfig(**kw)
+    return j_cfg, kw, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _net(depth, width, dparts=DPARTS, vparts=VPARTS):
+    """(JAX params, port params, JAX config, port config) of one net of
+    ``depth`` x ``width`` on the parts, framecodes the last views part."""
+    j_cfg, kw, params = _j_net(depth, width, tuple(dparts), tuple(vparts))
+    return (jax.tree_util.tree_map(jnp.asarray, params),
+            params_from_numpy(params), j_cfg, NeRFConfig(**kw))
 
 
 def _inputs(seed, dparts=DPARTS, vparts=VPARTS, n=N):
@@ -103,9 +117,13 @@ def test_twins_match_anerf_tpu(depth, width):
     xs, xvs = _inputs(depth)
     g = np.random.RandomState(width).normal(size=(N, 4)).astype(np.float32)
     fn = _jax_fn(j_cfg, (depth, width))
-    ref, vjp = jax.vjp(fn, j_params, [jnp.asarray(x) for x in xs],
-                       [jnp.asarray(x) for x in xvs])
-    dparams, dxs, dxvs = vjp(jnp.asarray(g))
+
+    def fwd_bwd(p, xs, xvs, g):
+        out, vjp = jax.vjp(fn, p, xs, xvs)
+        return out, vjp(g)
+    ref, (dparams, dxs, dxvs) = jax.jit(fwd_bwd)(
+        j_params, [jnp.asarray(x) for x in xs],
+        [jnp.asarray(x) for x in xvs], jnp.asarray(g))
     refs = list(dxs) + list(dxvs) + jax.tree_util.tree_leaves(dparams)
 
     txs = [torch.tensor(x, requires_grad=True) for x in xs]
@@ -134,6 +152,7 @@ def _to_layout(grads, stk):
     return dw, db
 
 
+@pytest.mark.usefixtures('torch_threads_as_before')
 @pytest.mark.parametrize('depth,width', SHAPES, ids=IDS)
 def test_padded_pack_runs_as_the_net(depth, width):
     """The packs at the padded shape hold the net's weights and zeros;

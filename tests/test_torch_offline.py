@@ -35,6 +35,8 @@ from anerf_torch.data import spin as TS
 from anerf_torch.eval import metrics as TE
 from anerf_torch.skeleton import SMPL_REST_POSE
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 ROT_TOL = 1e-5
 
 

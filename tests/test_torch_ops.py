@@ -28,6 +28,8 @@ from anerf_torch.ops import encoders as TX
 from anerf_torch.ops import rays as TR
 from anerf_torch import testing_utils as T
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 t = torch.as_tensor
 
 

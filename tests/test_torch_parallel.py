@@ -70,6 +70,7 @@ import _torch_parallel_worker as W
 from test_torch_train import LR, _cos, _flat, _jax_numpy_state, \
     train_state_to_numpy
 from test_trainer import make_setup_and_batch, tiny_config
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN = dict(opt_pose=True, opt_pose_step=1, opt_pose_coef=0.1, perturb=0.,
              raw_noise_std=0.)

@@ -22,6 +22,8 @@ import torch
 import _torch_parallel_worker as W
 from anerf_torch.data.writer import make_synthetic_store
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 CONFIG = os.path.join(os.path.dirname(__file__), '..', 'configs',
                       'synthetic_tiny.txt')
 

@@ -27,6 +27,8 @@ from anerf_torch.skeleton import SMPLSkeleton
 from anerf_torch.training import losses as TL
 from anerf_torch.training import pose_opt as TP
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _check(jfn, tfn, args, val_rtol=1e-5, grad_rtol=1e-4, seed=0):
     """Values and VJPs of ``jfn`` (jax) and ``tfn`` (torch) on the same

@@ -32,6 +32,8 @@ from anerf_tpu.data import preprocess as JP
 from anerf_torch.data import preprocess as TP
 from anerf_torch.data.store import open_store
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 S = 32          # image side
 ROT_TOL = 1e-5
 # the keys whose floats come through ops/rotations

@@ -32,6 +32,8 @@ from anerf_torch.models.factory import build_raycast_config as t_build
 from anerf_torch.models.factory import embed_state as t_embed_state
 from anerf_torch.render.renderer import ImageRenderer
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 MAPS = ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0')
 
 

@@ -41,6 +41,8 @@ from anerf_torch.render import catalog as t_catalog
 from anerf_torch.render import mesh as t_mesh
 from anerf_torch.render import poses as t_poses
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, 'configs', 'synthetic_tiny.txt')
 TOL = 1e-5

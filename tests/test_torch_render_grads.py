@@ -25,6 +25,8 @@ from anerf_torch import testing_utils as T
 from anerf_torch.models import raycaster as trc
 from anerf_torch.models.factory import embed_state as t_embed_state
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _render_loss_j(rc, params, batch, est, pose, skts, fixed):
     p2 = dict(pose, skts=skts)

@@ -40,6 +40,7 @@ from anerf_torch.training.trainer import tree_leaves
 from anerf_torch.utils.config import load_config
 
 from test_torch_render import MAPS, _close
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'configs')

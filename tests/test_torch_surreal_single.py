@@ -43,6 +43,7 @@ from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.utils.config import parse_config_txt
 
 from test_torch_render import MAPS, _close
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'configs', 'surreal_single.txt')

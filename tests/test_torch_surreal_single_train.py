@@ -32,6 +32,7 @@ from anerf_torch.training import trainer as TT
 from test_torch_surreal_single import N_FRAMES, _cfg
 from test_torch_train import (_compare_states, _jax_numpy_state, _run,
                               train_state_to_numpy)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_train_step_matches_anerf_tpu_route():
@@ -58,7 +59,7 @@ def test_train_step_matches_anerf_tpu_route():
     assert FE.kernel_shape_ok(t_setup.rc)
     ts = train_state_from_jax(j_state)
     before = (_jax_numpy_state(j_state), train_state_to_numpy(ts))
-    js, ts = _run(JT.make_train_step(j_setup), j_state,
+    js, ts = _run(jax.jit(JT.make_train_step(j_setup)), j_state,
                   {k: jnp.asarray(v) for k, v in batch.items()},
                   TT.make_train_step(t_setup), ts, T.to_device(batch, 'cpu'),
                   1, loss_rtol=1e-4)

@@ -44,6 +44,8 @@ from anerf_torch.training import losses as L
 from anerf_torch.training import pose_opt as P
 from anerf_torch.training import trainer as TT
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 R, N_FRAMES = 8, 4
 
 

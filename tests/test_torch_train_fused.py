@@ -13,6 +13,8 @@ about +-lr per element, in direction: cosine > 0.99, since one flipped
 sign among the 256 entries of a bias moves it by 2/256 (measured
 1 - 1.1e-3).
 """
+import jax
+
 from test_torch_train import (_compare_states, _jax_numpy_state, _run,
                               _setups, train_state_to_numpy)
 
@@ -20,6 +22,8 @@ from anerf_tpu.training import trainer as JT
 
 from anerf_torch.interop import train_state_from_jax
 from anerf_torch.training import trainer as TT
+
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_step_fused_twins_match_pallas_interpret():
@@ -30,7 +34,7 @@ def test_step_fused_twins_match_pallas_interpret():
     assert t_setup.rc.mlp_backend == 'fused'
     ts = train_state_from_jax(j_state)
     before = (_jax_numpy_state(j_state), train_state_to_numpy(ts))
-    js, ts = _run(JT.make_train_step(j_setup), j_state, jb,
+    js, ts = _run(jax.jit(JT.make_train_step(j_setup)), j_state, jb,
                   TT.make_train_step(t_setup), ts, tb, 1, loss_rtol=1e-4)
     _compare_states(js, ts, pose_atol=1e-6, mom_cos=5e-4, mom_ratio=2e-2,
                     upd_from=before, upd_cos=1e-2)

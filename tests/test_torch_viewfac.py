@@ -62,6 +62,8 @@ from anerf_torch.models.factory import embed_state as t_embed_state
 from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.ops import fused_mlp as FM
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 J, NBJ, HALF = 24, 648, 128
 # the views layer's widths K-vf1/K-vf2 are built for: 128 (nets 256 wide)
 # and 256 (512 wide)

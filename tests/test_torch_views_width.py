@@ -6,13 +6,14 @@ columns: on the card the port raised at the first step of any model
 whose views input is wider (``surreal.txt`` at ``multires_views = 5``,
 ``framecode_size = 32``, any multi-subject model at ``multires_views``
 5 or more), which anerf_tpu's split kernel trains and renders.  Now a
-build per views width takes them, up to 1664 columns
+build per views width takes them, up to 4096 columns since C.16
 (``fused_mlp.views_pad``: 672 for any parts up to it, else the parts'
 sum + 8 rounded up to 16).
 
 * ``_check_kernel_shape`` admits views parts (648, 32), (792, 1, 16),
-  (1512, 1, 128) and the ceiling (1656 columns, a views width of 1664),
-  and refuses the next column;
+  (1512, 1, 128), the former ceiling (1656 columns, a views width of 1664)
+  and the columns past it, up to the ceiling (4088 columns, a views
+  width of 4096), and refuses the next column;
 * the kernels' packs and gradient layout at those widths: the views
   weight zero-padded to the views width, the dW pass's tiles over it;
 * one two-subject train step at ``multires_views = 5`` (views parts
@@ -48,11 +49,14 @@ from anerf_torch.training import trainer as TT
 
 from test_torch_train import (N_FRAMES, R, _cfg, _compare_states,
                               _jax_numpy_state, _run, train_state_to_numpy)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRUNK = (360, 72)
 # views parts: (the parts, the views width K5/K6 are built for)
 ADMITTED = [((648, 16), 672), ((648, 1, 16), 672), ((648, 32), 688),
-            ((792, 1, 16), 832), ((1512, 1, 128), 1664), ((1656,), 1664)]
+            ((792, 1, 16), 832), ((1512, 1, 128), 1664), ((1656,), 1664),
+            ((1657,), 1680), ((1512, 1, 144), 1680), ((1656, 1, 16), 1696),
+            ((4088,), 4096)]
 
 
 def _st(vparts, depth=8, width=256):
@@ -74,7 +78,7 @@ def test_views_widths_are_admitted(vparts, xv_pad):
 def test_views_width_past_the_ceiling_is_refused():
     """One column past the ceiling raises, naming ROADMAP.md, before any
     launch; so does a fifth part."""
-    for vparts in ((1657,), (1512, 1, 144), (648, 1, 16, 1000)):
+    for vparts in ((4089,), (3944, 1, 144), (648, 1, 16, 3424)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             FM._check_kernel_shape(_st(vparts))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
