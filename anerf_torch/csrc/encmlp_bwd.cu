@@ -229,12 +229,8 @@ __global__ void pullback_kernel(const float* __restrict__ p,
   float bandsum = 0.f;
 #pragma unroll
   for (int k = 0; k < NF; ++k) {
-    if (k > 0) {
-      const float s2 = 2.f * s * c;
-      c = 1.f - 2.f * s * s;
-      s = s2;
-    }
-    const float f = (float)(1 << k);
+    if (k > 0) double_angle(s, c);
+    const float f = ldexpf(1.f, k);   // 2^k, exact
     const float gs = gx((1 + 2 * k) * J + j), gc = gx((2 + 2 * k) * J + j);
     g_w += gs * s;
     g_w += gc * c;

@@ -17,7 +17,7 @@ typedef __nv_bfloat16 bf16;
 // The encode's shape (K1-K4, K-vf1/K-vf2): J joints, NF kp bands 2^0 ..
 // 2^(NF-1), NB view PE rows (1 + 2 multires_views), the bone directions
 // windowed (--cutoff_bones) or not.  The flagship's by default; a build
-// per shape takes NF 1-10 and NB 1-21 (nvcc -DANERF_NF=... -DANERF_NB=...
+// per shape takes NF 1-13 and NB 1-21 (nvcc -DANERF_NF=... -DANERF_NB=...
 // -DANERF_BONE_WIN=0|1, with -DANERF_DX the trunk width DV + C3,
 // -DANERF_DEPTH, -DANERF_WIDTH and -DANERF_NCODE; ops/cuda_build.py,
 // fused_encmlp.kernel_shape); the headers' and the sources'
@@ -36,6 +36,14 @@ constexpr int NF = ANERF_NF;           // kp bands: 7 (2^0 .. 2^6)
 constexpr int NB = ANERF_NB;           // view PE rows: 9 (1 + 2 x 4)
 constexpr bool BONE_WIN = ANERF_BONE_WIN != 0;  // r = p / d x window
 static_assert(NF >= 1 && NB >= 1 && NB % 2 == 1, "kp bands and view rows");
+// The bands come from anerf_tpu's double-angle recurrence (encode_points),
+// which doubles its f32 rounding with each band: past F_MAX bands it no
+// longer holds to the model, and the plain encode's exact sines take the
+// shape (fused_encmlp.F_MAX, ROADMAP C.17).
+constexpr int F_MAX = 13;
+static_assert(NF <= F_MAX,
+              "at most 13 kp bands: past them anerf_tpu's band recurrence "
+              "no longer holds to the model");
 static_assert(NB <= 21, "at most 21 view PE rows (multires_views 10)");
 constexpr int C3 = 3 * J;              // 72
 constexpr int DV = (2 * NF + 1) * J;   // 360 kp encoding
@@ -232,12 +240,26 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
   return r;
 }
 
-// x^2 + y^2 + z^2 with its roundings spelled out (y^2, then x^2 and z^2
-// fused in): every kernel that takes a point's distance (the forward's
-// encode, the backward's recompute and its pullback) gets the same bits,
-// whatever ptxas would fuse in its own context.
+// (x^2 + y^2) + z^2, each operation rounded on its own (no fused
+// multiply-add), as the plain twin's PyTorch operations round it: every
+// kernel that takes a point's distance (the forward's encode, the
+// backward's recompute and its pullback) gets the twin's bits, whatever
+// ptxas would fuse in its own context.
 __device__ __forceinline__ float dist2(float x, float y, float z) {
-  return __fmaf_rn(z, z, __fmaf_rn(x, x, __fmul_rn(y, y)));
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// One step of the bands' double-angle recurrence, sin 2a = (2 sin a) cos a
+// and cos 2a = 1 - (2 sin a) sin a, each operation rounded on its own in
+// the twin's order (fused_encmlp._encode_fwd_res).  Each band doubles the
+// last one's rounding, so a contracted 1 - 2 s^2 (nvcc's default) parts
+// from the twin by whole bf16 steps a few bands past 10.
+__device__ __forceinline__ void double_angle(float& s, float& c) {
+  const float s2 = __fmul_rn(2.f, s);
+  const float c2 = __fsub_rn(1.f, __fmul_rn(s2, s));
+  s = __fmul_rn(s2, c);
+  c = c2;
 }
 
 // The skeleton-relative coordinates (x, y, z) of point gp at joint j.
@@ -299,9 +321,7 @@ __device__ __forceinline__ void encode_points(const float* __restrict__ p,
     xr[2 * J + j] = __float2bfloat16_rn(c * w);
 #pragma unroll
     for (int k = 1; k < NF; ++k) {
-      const float s2 = 2.f * s * c;
-      c = 1.f - 2.f * s * s;
-      s = s2;
+      double_angle(s, c);
       xr[(1 + 2 * k) * J + j] = __float2bfloat16_rn(s * w);
       xr[(2 + 2 * k) * J + j] = __float2bfloat16_rn(c * w);
     }

@@ -8,7 +8,7 @@
 // 2^0..2^6 (360 channels), bone directions (72), view PE rows 9 x 72
 // (648), framecodes (16), an 8 x 256 trunk with the input re-entering
 // after layer 4, a 128-wide views branch.  A build per static shape
-// takes 1-10 kp bands, 1-21 view rows, framecodes of 16-128 columns, the
+// takes 1-13 kp bands, 1-21 view rows, framecodes of 16-128 columns, the
 // windowed bone directions and 1-16 layers of any width that is a
 // multiple of 256 up to 2048 (encmlp_common.cuh;
 // fused_encmlp.kernel_shape).
@@ -30,7 +30,7 @@
 // cores and lands as bf16 in shared memory, where the trunk input stays
 // resident beside the ring and the kernel's windows (FWD_X_RESIDENT,
 // SMEM_ENC below: the flagship's and every shape of 256 up to 9 kp
-// bands); else (512 wide, 10 kp bands) in the tile's rows of a device-
+// bands); else (512 wide, 10-13 kp bands) in the tile's rows of a device-
 // memory workspace (n rounded up to 64, DXP columns: 113 MB at the
 // train step's coarse n = 131,072), which each product that reads X
 // (layer 0, the skip layer; K2: of both nets) brings back 256 columns

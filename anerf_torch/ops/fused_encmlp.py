@@ -22,14 +22,14 @@ train step:
 K1/K2 are in ``csrc/encmlp_fwd.cu``, K3/K4 in ``csrc/encmlp_bwd.cu``
 (their source notes give the designs and bounds).  Each is built per
 static shape, as anerf_tpu's kernels are (``_build_call`` per shape):
-1-10 kp bands, 1-21 view PE rows, the windowed bone directions
+1-13 kp bands (``KERNEL_NF``), 1-21 view PE rows, the windowed bone directions
 (``--cutoff_bones``), nets of 1-16 layers of any width that is a
 multiple of 256 up to 2048 and framecodes of at most 128
 (``kernel_shape``: the encode shape a build is keyed by in
 ``cuda_build``); a shape outside that set takes the plain encode and
 K5/K6 (``kernel_shape_ok``), and one inside it launches its build or
 raises.  Where the trunk input does not stay resident in a block's
-shared memory (512 wide and WIDE, 10 kp bands), K1/K2 write it to a
+shared memory (512 wide and WIDE, 10-13 kp bands), K1/K2 write it to a
 workspace of ``encmlp_fwd_workspace_bytes(n)`` that the wrapper
 allocates a call, which WIDE nets (768-2048 wide) extend by each
 block's activations; where the views input does not (15 view rows and
@@ -75,7 +75,14 @@ come from the graph's memory pool and its TMA maps pass by value.
 The PE bands use the double-angle recurrence from one sin and one
 cos-as-shifted-sin per joint, as the TPU kernels do (pallas_encmlp.py
 ``SIN_RECURRENCE``), in the twins and the kernels alike; the backward
-recomputes them instead of reading the TPU's stash.
+recomputes them instead of reading the TPU's stash.  Every operation of
+the encode is rounded on its own, in the order the twin's PyTorch
+operations take ((x^2 + y^2) + z^2, (2 s) c, 1 - (2 s) s), in the
+kernels too (no multiply-add contraction): each band doubles the last
+one's rounding, so two orders part by whole bf16 steps within a few
+bands past 10.  Past ``F_MAX`` bands the recurrence itself leaves the
+unit circle (inf from the 23rd band in f32) and the gate sends the
+shape to the plain encode's exact sines (ROADMAP C.17).
 
 The in-kernel rigid transform (``fuse_tform``, off by default as in
 anerf_tpu; ``rc.fuse_tform`` without ray noise): the sample points lie
@@ -217,7 +224,9 @@ def _encode_fwd_res(est: EncStatic, p: torch.Tensor, enc_ray: torch.Tensor,
     """
     J = est.J
     x, y, z = p[:, :J], p[:, J:2 * J], p[:, 2 * J:]
-    dists = torch.sqrt(x * x + y * y + z * z)                 # (n, J)
+    # each operation rounded on its own, in this order: the kernels'
+    # dist2 and band recurrence round the same way (encmlp_common.cuh)
+    dists = torch.sqrt((x * x + y * y) + z * z)               # (n, J)
     w = 1. - torch.sigmoid(tau * (dists - cutoff))            # (n, J)
     F = len(est.kp_freqs)
     if not _doubling_freqs(est.kp_freqs):
@@ -442,7 +451,7 @@ K4_TF_LAUNCHES = 0
 
 # the static shapes K1-K4 (and K-vf1/K-vf2 under viewfac) are built
 # for, a library per shape (csrc/encmlp_common.cuh, ops/cuda_build.py):
-# SMPL's 24 joints, 1-10 kp bands on the 2^k grid (nerf-pytorch's
+# SMPL's 24 joints, 1-F_MAX kp bands on the 2^k grid (nerf-pytorch's
 # default multires is 10), 1-21 view PE rows (multires_views 0-10), the
 # bone directions windowed or not, 1-16 trunk
 # layers of any width that is a multiple of 256 up to 2048 (past 512,
@@ -458,8 +467,18 @@ K4_TF_LAUNCHES = 0
 # where they fit, else the trunk input in device memory and the views
 # input built again a column block at a time (the kernels decide,
 # csrc/encmlp_fwd.cu, encmlp_bwd.cu).  The rest is ROADMAP B.1.4.
+# F_MAX: the most kp bands at which anerf_tpu's double-angle recurrence
+# still holds to the model.  Over 20 seeds of 32 rays the twins'
+# gradients meet anerf_tpu's Pallas kernels' at the backward bar
+# (cosine 0.9999) at every band count up to 13 (the worst 0.999937);
+# at 14 one seed misses (0.999851), at 15 one by far (0.995981), and
+# from 22 anerf_tpu's fused render parts from its own XLA path
+# (scripts/kp_band_cap.py, ROADMAP C.17).  Past F_MAX a shape takes the
+# plain encode's exact sines and K5/K6.  csrc/encmlp_common.cuh holds
+# the same cap.
+F_MAX = 13
 KERNEL_J = 24
-KERNEL_NF = range(1, 11)
+KERNEL_NF = range(1, F_MAX + 1)
 KERNEL_NB = tuple(range(1, 22, 2))
 KERNEL_DEPTH = range(1, 17)
 KERNEL_WIDTH = tuple(range(256, 2049, 256))
@@ -504,32 +523,43 @@ def launch_counts() -> Dict[str, int]:
 
 def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
     """None where K1-K4 (and K-vf1/K-vf2, which take every NB they do)
-    are built for this static shape, else what they do not take."""
+    are built for this static shape, else the refusal: what they do not
+    take, and why."""
     F, nb = len(est.kp_freqs), est.view_nb
     codes = st.vparts[1] if est.has_codes and len(st.vparts) > 1 else 0
+
+    def unported(why):
+        return (f'the fused CUDA kernels K1-K4 do not take {why}; such '
+                'shapes are not ported yet (ROADMAP.md B.1.4)')
     if est.J != KERNEL_J:
-        return f'{est.J} joints (they take SMPL\'s {KERNEL_J})'
-    if not _doubling_freqs(est.kp_freqs) or F not in KERNEL_NF:
-        return (f'the kp bands {est.kp_freqs} (they take 1-10 bands on '
-                'the 2^k grid)')
+        return unported(f'{est.J} joints (they take SMPL\'s {KERNEL_J})')
+    if not _doubling_freqs(est.kp_freqs):
+        return unported(f'the kp bands {est.kp_freqs} (they take bands on '
+                        'the 2^k grid)')
+    if F not in KERNEL_NF:
+        return (f'the fused CUDA kernels K1-K4 do not take {F} kp bands: '
+                f'past {KERNEL_NF[-1]} bands anerf_tpu\'s band recurrence '
+                'no longer holds to the model (ROADMAP.md C.17)')
     if nb not in KERNEL_NB:
-        return (f'{nb} view PE rows (they take 1-21, odd: '
-                'multires_views 0-10)')
+        return unported(f'{nb} view PE rows (they take 1-21, odd: '
+                        'multires_views 0-10)')
     if st.width not in KERNEL_WIDTH or st.half != st.width // 2:
-        return (f'a net {st.width} wide with a views layer of {st.half} '
-                '(they take a multiple of 256 up to 2048, the views layer '
-                'half as wide)')
+        return unported(f'a net {st.width} wide with a views layer of '
+                        f'{st.half} (they take a multiple of 256 up to '
+                        '2048, the views layer half as wide)')
     depths = KERNEL_DEPTH if st.width <= 512 else KERNEL_WIDE_DEPTH
     if tuple(st.skips) != KERNEL_SKIPS or st.depth not in depths:
-        return (f'{st.depth} layers {st.width} wide with skips '
-                f'{tuple(st.skips)} (they take {depths[0]}-{depths[-1]} '
-                'layers, the skip after layer 4)')
+        return unported(f'{st.depth} layers {st.width} wide with skips '
+                        f'{tuple(st.skips)} (they take {depths[0]}-'
+                        f'{depths[-1]} layers, the skip after layer 4)')
     if codes > KERNEL_CODES:
-        return f'framecodes of {codes} (they take at most {KERNEL_CODES})'
+        return unported(f'framecodes of {codes} (they take at most '
+                        f'{KERNEL_CODES})')
     if (st.dparts != ((2 * F + 1) * est.J, 3 * est.J)
             or st.vparts[0] != nb * 3 * est.J
             or len(st.vparts) != 1 + est.has_codes):
-        return f'the parts {st.dparts} / {st.vparts} of another encoding'
+        return unported(f'the parts {st.dparts} / {st.vparts} of another '
+                        'encoding')
     return None
 
 
@@ -540,12 +570,11 @@ def kernel_shape(st: MLPStatic, est: EncStatic) -> Tuple[int, int, bool,
     columns NCODE), the key ``cuda_build.library(..., enc=...)`` takes
     (K-vf1/K-vf2's build is its (NB, width / 2)).  Raises
     NotImplementedError for a shape they are not built for
-    (``_shape_refusal``), which ROADMAP B.1.4 queues."""
+    (``_shape_refusal``: ROADMAP B.1.4 queues it, or C.17 keeps it on
+    the split route)."""
     why = _shape_refusal(st, est)
     if why is not None:
-        raise NotImplementedError(
-            f'the fused CUDA kernels K1-K4 do not take {why}; such shapes '
-            'are not ported yet (ROADMAP.md B.1.4)')
+        raise NotImplementedError(why)
     return (len(est.kp_freqs), est.view_nb, bool(est.bone_windowed),
             st.depth, st.width, _ncode(st, est))
 

@@ -102,7 +102,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    21 view rows and framecodes of 128 (the views input rebuilt in each
    views block) and two 8x2048 nets (at R=1024, ``ENC_SHAPE_RS``), each
    held to its twin at the flagship's bars or, where K3/K4's RN-added
-   sums miss them, to the f64 chain by the deep nets' rule;
+   sums miss them, to the f64 chain by the deep nets' rule; then
+   (ROADMAP B.1.4's kp-band row) the cap F_MAX, 13 kp bands, at two
+   8x256 and two 8x512 nets, held to the twin at the flagship's bars
+   (the encode rounds as the twin's, bit for bit);
 2e. vf_widths phase (``vf_widths_phase``): K-vf1/K-vf2 at 11 view rows
    and a 256-wide views layer, and at 9 rows and views layers of 384,
    512 and 1024 and 21 rows at 512 (the WIDE nets'), each launched once
@@ -121,8 +124,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    maps within MAP_TOL of the plain path and of the split route, which
    the port took before, forced), 2 train steps (K1 and K3 twice a
    step, K-vf1 twice, K-vf2 once, K5/K6 never, finite losses), one
-   step's NeRF gradients with viewfac off against the split route's at
-   the backward bars and with viewfac on against off at viewfac's;
+   step's NeRF gradients with viewfac off and the split route's, each
+   against the step on the twins in f64 by the deep nets' rule and
+   against each other at the bars those imply, and with viewfac on
+   against off at viewfac's (``_check_routes``);
    then ``single_bundled`` (``bundled_phase`` on the recipe, K1/K3 and
    the viewfac kernels its counts a step) and ``single_timing`` (the
    train step eager and bundled and a 4096-ray eval chunk, the fused
@@ -133,8 +138,9 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    MAP_TOL of the plain path), 5 eager steps (``FLAGSHIP_STEP`` a step,
    K5/K6 never), one step's NeRF gradients of the fused route and of
    the split route it replaces (forced, ``_split_route``), each against
-   an f64 evaluation of the step's chain by the deep nets' rule
-   (``_check_bwd_f64``), viewfac against dense at viewfac's bars, and
+   an f64 evaluation of the step's chain by the deep nets' rule and
+   against each other at the bars those imply (``_check_routes``),
+   viewfac against dense at viewfac's bars, and
    both routes timed in turns (the step eager and bundled, the eval
    chunk); then ``wide_bundled``
    (``bundled_phase`` at the same nets);
@@ -152,6 +158,13 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    WIDE body (K-vf1/K-vf2 at a 512-wide views layer), the split route it
    replaces K5/K6 at 8x1024; then ``flagship1024_bundled``
    (``bundle_once``);
+8e. kp_cap phase (``kp_cap_phase``, ROADMAP B.1.4's kp-band row): the
+   flagship recipe at ``multires`` = F_MAX (13 kp bands): one chunk of
+   KP_CAP_CHUNK rays at the eval variant (K2 and K1 once each; maps
+   finite and within MAP_TOL of the same chunk on their twins, disp_map
+   on the rays lit on both sides; against the plain path at most
+   KP_CAP_PLAIN_RAYS rays past MAP_TOL a map) and one train step
+   (``FLAGSHIP_STEP``, K5/K6 never; a finite loss), launches counted;
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -312,6 +325,7 @@ launches of each of the encmlp_shapes phase's shapes, and K1, K3,
 K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
 K1-K4's and K-vf1/K-vf2's ``wide_flagship_times`` the wide_flagship
 phase's (the 8x512 step and eval chunk, both routes),
+``launches_by_path`` also ``kp_cap_render`` and ``kp_cap_train``,
 ``views_flagship_times`` the views_flagship phase's and
 ``flagship1024_times`` the flagship1024 phase's; K5's and K6's
 ``views_widths`` the views_kernel phase's numbers at each views width
@@ -329,6 +343,7 @@ it fails the same way.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -415,14 +430,6 @@ SINGLE_CHUNK = 4096     # surreal_single's eval chunk (its config's)
 # at the 128-point tile the loop ends at; not at S = 48)
 SINGLE_STEP = {'encmlp_fwd': 2, 'encmlp_bwd': 2, 'vf_operand': 2,
                'vf_fold': 1}
-# one surreal_single step's NeRF gradients, the fused route's dense form
-# against the split route on the same state, batch and draws: the same
-# bf16 chain but for the encode's rounding (the in-kernel double-angle
-# bands against the plain encoders' sines), held at the backward
-# kernels' bars against their twins (measured on the CPU's twins at 128
-# rays: cosine 1 - 1.6e-6); viewfac against dense at VF_COS_MIN
-SINGLE_GRAD_COS_MIN = BWD_COS_MIN
-SINGLE_GRAD_RATIO_TOL = BWD_RATIO_TOL
 CLI_STEPS = 40          # cli_train: anerf_torch.run_train.train steps
 FF_STEPS = 12           # cli_flipflop steps
 CLI_MS_STEPS = 4        # cli_multisubject steps
@@ -1909,6 +1916,97 @@ def _split_route(FE):
     return _Wrapped(FE, kernel_shape_ok=lambda _: (lambda rc: False))
 
 
+def _step_grads(FE, setup, state, batch, device):
+    """One train step's NeRF gradients on the same state, batch and
+    draws, by route: {route: [(leaf name, gradient)]}.  'dense': K1-K4
+    with viewfac off, 'twins': their twins, 'f64': the twins' chain in
+    f64 (``_f64_twins``), 'split': the plain encode and K5/K6
+    (``_split_route``), 'split_twins': the same on K5/K6's twins,
+    'viewfac': K1-K4 with viewfac on."""
+    import torch
+    from anerf_torch.training import trainer as TT
+    FM = FE.fused_mlp
+    grads = {}
+    for route in ('dense', 'twins', 'f64', 'split', 'split_twins',
+                  'viewfac'):
+        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
+            setup.rc, viewfac=route == 'viewfac'))
+        with contextlib.ExitStack() as routing:
+            if route.startswith('split'):
+                routing.enter_context(_split_route(FE))
+            if route == 'split_twins':
+                routing.enter_context(_Wrapped(
+                    FM, mlp_fwd=lambda _: FM.mlp_fwd_plain,
+                    mlp_bwd=lambda _: FM.mlp_bwd_plain))
+            if route == 'f64':
+                routing.enter_context(_f64_twins(FE))
+            if route in ('twins', 'f64'):
+                routing.enter_context(_kernel_twins(FE, backward=True))
+            _, g, _ = TT.loss_and_grads(
+                s2, state, batch,
+                torch.Generator(device=device).manual_seed(3))
+        grads[route] = list(zip(_leaf_names(state['params']), g))
+    return grads
+
+
+def _check_routes(what, grads):
+    """``_step_grads``'s routes held: the fused route's dense form and
+    the split route it replaces each against the f64 step by the deep
+    nets' rule (``_check_bwd_f64``), each with its own twins (K1-K4's,
+    K5/K6's); the two against each other at the bars those imply, leaf
+    by leaf: within the sum of the two routes' angles to the f64 step,
+    and a norm ratio within their two ratio bars.  A direct bar at the
+    backward kernels' cosine (0.9999) cannot bind the two routes: they
+    differ in the encode (the double-angle bands against the plain
+    encoders' sines), whose bf16 rounding alone moves a step's gradients
+    by ~1e-4 of cosine (surreal_single on an H100: 0.9999370 while nvcc
+    contracted the kernels' encode, 0.9998551 with it rounded as the
+    twins', on coarse.pts_linears.3.b; K1-K4's twins themselves read
+    0.9998764 against the f64 step on coarse.pts_linears.0.b).  Then
+    viewfac against dense at anerf_tpu's bars between those two chains
+    (VF_COS_MIN, VF_RATIO_TOL)."""
+    bars = {}
+    for route, twin in (('dense', 'twins'), ('split', 'split_twins')):
+        print(f'{what}: one step\'s NeRF gradients, the {route} route '
+              'against the f64 chain:')
+        bars[route] = {}
+        _check_bwd_f64(f'{what} {route}', grads['f64'], grads[route],
+                       grads[twin], bars[route])
+    rows = []
+    for (k, a), (_, b) in zip(grads['split'], grads['dense']):
+        cos, ratio = _cmp(a.float(), b.float())[:2]
+        (cd, td), (cs, ts) = bars['dense'][k], bars['split'][k]
+        cos_bar = math.cos(math.acos(cd) + math.acos(cs))
+        lo, hi = (1. - td) / (1. + ts), (1. + td) / (1. - ts)
+        rows.append((cos - cos_bar, k, cos, cos_bar, ratio, lo, hi))
+    rows.sort()
+    worst = min(rows, key=lambda x: x[2])
+    print(f'{what}: one step\'s NeRF gradients, the dense route against '
+          f'the split route, {len(rows)} leaves, closest to the bar: '
+          + ', '.join(f'{k} cos {c:.7f} (bar {cb:.7f}) ratio {r:.5f} '
+                      f'({lo:.5f}-{hi:.5f})'
+                      for _, k, c, cb, r, lo, hi in rows[:4])
+          + f'; the worst cosine {worst[1]} {worst[2]:.7f} (bar '
+          f'{worst[3]:.7f})')
+    bad = [r[1:] for r in rows if r[0] < 0 or not r[5] <= r[4] <= r[6]]
+    if bad:
+        raise AssertionError(f'{what}: the dense gradients disagree with '
+                             f'the split route: {bad}')
+    worst = sorted((_cmp(a.float(), b.float())[:2] + (k,))
+                   for (k, a), (_, b) in zip(grads['dense'],
+                                             grads['viewfac']))
+    print(f'{what}: one step\'s NeRF gradients, the viewfac route against '
+          f'the dense route, {len(worst)} leaves, worst: '
+          + ', '.join(f'{k} cos {c:.7f} ratio {r:.5f}'
+                      for c, r, k in worst[:4])
+          + f' (bars {VF_COS_MIN}, {VF_RATIO_TOL})')
+    bad = [(k, c, r) for c, r, k in worst
+           if c < VF_COS_MIN or abs(r - 1) > VF_RATIO_TOL]
+    if bad:
+        raise AssertionError(f'{what}: the viewfac gradients disagree '
+                             f'with the dense route: {bad}')
+
+
 def single_net_phase(FE, T, device, gpu_line):
     """``configs/surreal_single.txt`` on the card: its settings over
     ``build_flagship``'s recipe (which adds framecodes and pose
@@ -1921,14 +2019,14 @@ def single_net_phase(FE, T, device, gpu_line):
     and of the split route), then ``SINGLE_STEPS`` train steps (K1 and K3
     twice a step, K-vf1 twice, K-vf2 once, K5/K6 never; finite losses),
     then one step's NeRF gradients on the same state, batch and draws:
-    the fused route with viewfac off against the split route (forced,
-    ``_split_route``) at the backward bars, and with viewfac on against
-    it off at anerf_tpu's bars between those two chains.  Returns the
-    launch counts of the train steps."""
+    the fused route with viewfac off and the split route (forced,
+    ``_split_route``) each against the step on K1-K4's twins in f64 and
+    against each other, and with viewfac on against it off
+    (``_check_routes``).  Returns the launch counts of the train
+    steps."""
     import torch
     from anerf_torch.models import raycaster
     from anerf_torch.models.factory import embed_state
-    from anerf_torch.training import trainer as TT
     n_rays, over = _single_over()
     # weights from seed 1, whose random density is positive inside the
     # subject's cylinder (seed 0's renders empty maps)
@@ -1995,39 +2093,8 @@ def single_net_phase(FE, T, device, gpu_line):
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
-    # one step's NeRF gradients: the fused route's dense form against the
-    # split route (the same chain but for the encode's rounding) at the
-    # backward bars, and the fused route as shipped (viewfac on the
-    # coarse pass) against its dense form at anerf_tpu's bars between
-    # the two chains
-    grads = {}
-    for route, vf in (('split', False), ('dense', False), ('viewfac', True)):
-        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
-            rc, viewfac=vf))
-        with (_split_route(FE) if route == 'split'
-              else contextlib.nullcontext()):
-            _, grads[route], _ = TT.loss_and_grads(
-                s2, state, batch,
-                torch.Generator(device=device).manual_seed(3))
-    for ref, got, cos_min, ratio_tol in (
-            ('split', 'dense', SINGLE_GRAD_COS_MIN, SINGLE_GRAD_RATIO_TOL),
-            ('dense', 'viewfac', VF_COS_MIN, VF_RATIO_TOL)):
-        worst = []
-        for k, a, b in zip(_leaf_names(state['params']), grads[ref],
-                           grads[got]):
-            cos, ratio, _, _ = _cmp(a.float(), b.float())
-            worst.append((cos, k, ratio))
-        worst.sort()
-        print(f'{what}: one step\'s NeRF gradients, the fused route '
-              f'({got}) against the {ref} route, {len(worst)} leaves, '
-              'worst: ' + ', '.join(f'{k} cos {c:.7f} ratio {r:.5f}'
-                                    for c, k, r in worst[:4])
-              + f' (bars {cos_min}, {ratio_tol})')
-        bad = [(k, c, r) for c, k, r in worst
-               if c < cos_min or abs(r - 1) > ratio_tol]
-        if bad:
-            raise AssertionError(f'{what}: the {got} gradients disagree '
-                                 f'with the {ref} route: {bad}')
+    # one step's NeRF gradients by route (``_check_routes``)
+    _check_routes(what, _step_grads(FE, setup, state, batch, device))
     return counts
 
 
@@ -2114,9 +2181,9 @@ def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
     steps (``FLAGSHIP_STEP`` a step, K5/K6 never; finite losses), one
     step's NeRF gradients on the same state, batch and draws (the fused
     route's dense form and the split route it replaces, ``_split_route``,
-    each against the step on K1-K4's twins in f64 (``_f64_twins``) by
-    ``_check_bwd_f64``, the two against each other printed; viewfac
-    against dense at anerf_tpu's bars between the two chains), and both
+    each against the step on K1-K4's twins in f64 (``_f64_twins``), the
+    two against each other, viewfac against dense: ``_check_routes``),
+    and both
     routes timed in turns: the step eager and
     bundled (``flagship_timing``), and the eval chunk (device ms: split,
     fused, fused, split).  Returns (the eager steps' launch counts, the
@@ -2124,7 +2191,6 @@ def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
     import torch
     from anerf_torch.models import raycaster
     from anerf_torch.models.factory import embed_state
-    from anerf_torch.training import trainer as TT
     for seed in NET_SEEDS:
         setup, state, batch, step = T.build_flagship(
             2048, device=device, compute_dtype='bfloat16', seed=seed, **over)
@@ -2207,55 +2273,7 @@ def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
         raise AssertionError(f'non-finite losses {losses.tolist()}')
-    grads = {}
-    for route, vf in (('split', False), ('dense', False), ('twins', False),
-                      ('f64', False), ('viewfac', True)):
-        s2 = dataclasses.replace(setup, rc=dataclasses.replace(
-            rc, viewfac=vf))
-        with contextlib.ExitStack() as routing:
-            if route == 'split':
-                routing.enter_context(_split_route(FE))
-            if route == 'f64':
-                routing.enter_context(_f64_twins(FE))
-            if route in ('twins', 'f64'):
-                routing.enter_context(_kernel_twins(FE, backward=True))
-            _, g, _ = TT.loss_and_grads(
-                s2, state, batch,
-                torch.Generator(device=device).manual_seed(3))
-        grads[route] = list(zip(_leaf_names(state['params']), g))
-
-    def leaves(ref_r, got_r):
-        worst = []
-        for (k, a), (_, g) in zip(grads[ref_r], grads[got_r]):
-            cos, ratio = _cmp(a.float(), g.float())[:2]
-            worst.append((cos, k, ratio))
-        return sorted(worst)
-    # each route against the step on K1-K4's twins in f64 by the deep
-    # nets' rule (_check_bwd_f64): K4's twin at 8 x 512 reads cosine
-    # 0.99988 against the f64 chain (the kp bands' recurrence,
-    # DEEP_ENC_LAYERS' note), the split route's plain encode (sin and cos
-    # of each band) rounds less, and the two routes meet at about the sum
-    # of their distances (printed)
-    for route in ('dense', 'split'):
-        print(f'{what}: one step\'s NeRF gradients, the {route} route '
-              'against the f64 chain:')
-        _check_bwd_f64(f'{what} {route}', grads['f64'], grads[route],
-                       grads['twins'])
-    for ref_r, got_r, bars in (('dense', 'viewfac', (VF_COS_MIN,
-                                                      VF_RATIO_TOL)),
-                               ('split', 'dense', None)):
-        worst = leaves(ref_r, got_r)
-        print(f'{what}: one step\'s NeRF gradients, the {got_r} route '
-              f'against the {ref_r} route, {len(worst)} leaves, worst: '
-              + ', '.join(f'{k} cos {c:.7f} ratio {r:.5f}'
-                          for c, k, r in worst[:4])
-              + (f' (bars {bars[0]}, {bars[1]})' if bars else ''))
-        bad = [(k, c, r) for c, k, r in worst
-               if bars and (c < bars[0] or abs(r - 1) > bars[1])]
-        if bad:
-            raise AssertionError(f'{what}: the {got_r} gradients disagree '
-                                 f'with the {ref_r} route: {bad}')
-    del grads
+    _check_routes(what, _step_grads(FE, setup, state, batch, device))
     train_counts = counts
     t = [_time_ms(chunk(r), 3) for r in ('split', 'fused', 'fused', 'split')]
     ms = {'split': statistics.median([t[0], t[3]]),
@@ -2275,6 +2293,151 @@ def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
         {'fused': dict(seed=seed, **over), 'split': dict(seed=seed, **over)},
         title=title, route={'split': lambda: _split_route(FE)})
     return train_counts, seed, times
+
+
+# the kp_cap phase (ROADMAP B.1.4's kp-band row): the flagship recipe at
+# the kp band cap F_MAX through the entry points: an eval chunk of
+# KP_CAP_CHUNK rays and one train step.  disp_map (compositing's
+# 1 / (depth / acc)) is held to the twins on the rays whose unclamped
+# acc reaches KP_CAP_ACC_MIN on both sides.  Below it disp is the mean
+# of 1 / z over weights that are a few quanta each (alpha = 1 - exp(-x)
+# comes in steps of 2^-24), so the MLP's last-bit differences move it
+# by whole percents, and where acc is 1e-8 or less on one side only,
+# compositing's guard (``isclose(acc, 0)``) zeroes that side's disp
+# alone: the worst such ray is printed, its acc, disp and depth on both
+# sides.  Against the plain path (each band's exact sine) at most
+# KP_CAP_PLAIN_RAYS rays may pass MAP_TOL on any map (disp_map on the
+# rays lit on both sides), twice the most the twins part from it by on
+# the CPU at 4096 rays on a scene that renders the subject: 11 rays of
+# rgb0 and acc0 (whole flips of opacity) at 13 bands, 2 at 14, 3 at 15,
+# 0 at 7 and 10, and lit rays' disp never (scripts/kp_band_cap.py
+# --render --rays 4096)
+KP_CAP_CHUNK = 4096
+KP_CAP_ACC_MIN = 1e-3
+KP_CAP_PLAIN_RAYS = 22
+
+
+def kp_cap_phase(FE, T, device, gpu_line):
+    """``build_flagship(2048, multires=F_MAX)`` on the card, its weights
+    from the first of NET_SEEDS whose eval chunk renders the subject
+    (acc_map above 0.5 somewhere): one chunk of KP_CAP_CHUNK rays at the
+    eval variant (K2 and K1 once each, K-vf1 where the eval gate takes
+    viewfac, nothing else; maps finite and within ``MAP_TOL`` of the
+    same chunk on K1/K2's twins, whose encode the kernels' matches bit
+    for bit, disp_map on the rays lit on both sides; against the plain
+    path at most KP_CAP_PLAIN_RAYS rays past MAP_TOL on each map), then
+    one eager train step (``FLAGSHIP_STEP``, K5/K6 never; a finite
+    loss).  Returns (the chunk's launch counts, the step's)."""
+    import torch
+    from anerf_torch.models import raycaster
+    from anerf_torch.models.factory import embed_state
+    over = dict(multires=FE.F_MAX)
+    for seed in NET_SEEDS:
+        setup, state, batch, step = T.build_flagship(
+            2048, device=device, compute_dtype='bfloat16', seed=seed, **over)
+        rc = setup.rc
+        shape = FE.kernel_shape(*FE._statics(rc, rc.n_joints, 64,
+                                             FE.DEFAULT_TILE, True))
+        if rc.mlp_backend != 'fused' or shape[0] != FE.F_MAX:
+            raise AssertionError(f'kp_cap: not the fused route at {over}')
+        _, bones, _, kps, skts, cyls = T.synthetic_pose(
+            9, ext_scale=setup.cfg.ext_scale)
+        b = T.to_device(T.synthetic_batch(KP_CAP_CHUNK, 9, kps, skts, bones,
+                                          cyls, seed=1), device)
+        pose = {k: b[k] for k in ('kps', 'skts', 'bones', 'cyls')}
+        est = embed_state(setup.cfg, rc, 10000)
+
+        def chunk(backend, twins=False):
+            with torch.inference_mode(), (
+                    _kernel_twins(FE) if twins
+                    else contextlib.nullcontext()):
+                return raycaster.render_rays(
+                    dataclasses.replace(rc.eval_variant(),
+                                        mlp_backend=backend),
+                    state['params'], b['rays_o'], b['rays_d'], setup.near,
+                    setup.far, pose, est, cam_idxs=b['cam_idxs'])
+        FE.reset_launch_counts()
+        got = chunk('fused')
+        torch.cuda.synchronize()
+        render_counts = FE.launch_counts()
+        if got['acc_map'].max() >= 0.5:
+            break
+    else:
+        raise AssertionError(f'kp_cap: no seed of {NET_SEEDS} renders the '
+                             'subject')
+    print(f'kp_cap eval chunk: {KP_CAP_CHUNK} rays at {FE.F_MAX} kp bands '
+          f'(build {shape}), weights from seed {seed}, launches '
+          f'{render_counts}')
+    expect = {k: 0 for k in render_counts}
+    expect.update(encmlp_fwd=1, encmlp_dual_fwd=1,
+                  vf_operand=_eval_viewfac(FE, rc))
+    if render_counts != expect:
+        raise AssertionError(f'launch counts {render_counts}, expected '
+                             f'{expect}')
+    ref, plain = chunk('fused', twins=True), chunk('plain')
+    # each side's unclamped acc, and the rays lit on both sides of each
+    # comparison with the kernels
+    for r in (got, ref, plain):
+        r['acc_raw'] = r['weights'].sum(-1)
+    lit = {who: (r['acc_raw'] >= KP_CAP_ACC_MIN)
+           & (got['acc_raw'] >= KP_CAP_ACC_MIN)
+           for who, r in (('twins', ref), ('plain', plain))}
+    for k in ('rgb_map', 'acc_map', 'disp_map', 'rgb0', 'acc0'):
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f'kp_cap: non-finite {k}')
+        errs = {}
+        for who, r in (('twins', ref), ('plain', plain)):
+            scale = r[k].abs().max().item() + 1e-6
+            d = (r[k] - got[k]).abs().reshape(KP_CAP_CHUNK, -1).amax(1) / scale
+            held = (lit[who] if k == 'disp_map'
+                    else torch.ones_like(d, dtype=torch.bool))
+            errs[who] = (d[held].max().item(), int((d[held] > MAP_TOL).sum()),
+                         int(held.sum()), d.max().item())
+        print(f'  kp_cap {k}: max|d|/scale %.3e against the twins on %d '
+              f'rays (%.3e on all {KP_CAP_CHUNK}); %.3e against the plain '
+              'path (exact sines) on %d rays, %d of them past MAP_TOL (%.3e '
+              'on all)' % (errs['twins'][0], errs['twins'][2],
+                           errs['twins'][3], errs['plain'][0],
+                           errs['plain'][2], errs['plain'][1],
+                           errs['plain'][3]))
+        if errs['twins'][0] > MAP_TOL:
+            raise AssertionError(f'kp_cap: the kernels disagree with their '
+                                 f'twins on {k}')
+        if errs['plain'][1] > KP_CAP_PLAIN_RAYS:
+            raise AssertionError(f'kp_cap: {errs["plain"][1]} rays of {k} '
+                                 'past MAP_TOL against the plain path, more '
+                                 f'than {KP_CAP_PLAIN_RAYS}')
+    # the worst disp_map ray against the twins, with what compositing made
+    # it from: depth = acc / disp where the guard left disp standing
+    d = (ref['disp_map'] - got['disp_map']).abs()
+    scale = ref['disp_map'].abs().max().item() + 1e-6
+    i = int(d.argmax())
+    sides = []
+    for who, r in (('kernels', got), ('twins', ref)):
+        a_i, disp_i = r['acc_raw'][i].item(), r['disp_map'][i].item()
+        sides.append(f'{who} acc {a_i:.3e} disp {disp_i:.5f} depth '
+                     + (f'{a_i / disp_i:.5f}' if disp_i > 0
+                        else 'not kept (the guard zeroed disp)'))
+    dark = ~lit['twins']
+    print(f'  kp_cap disp_map, the worst ray against the twins ({i}, '
+          f'{d[i].item() / scale:.3e} of the scale): ' + '; '.join(sides)
+          + f'; {int(dark.sum())} rays below KP_CAP_ACC_MIN on a side, '
+          f'{int((d[dark] > MAP_TOL * scale).sum())} of them past MAP_TOL')
+    del got, ref, plain
+    FE.reset_launch_counts()
+    state, stats = step(state, batch,
+                        torch.Generator(device=device).manual_seed(0))
+    loss = stats['total_loss'].item()
+    counts = FE.launch_counts()
+    print(f'kp_cap train: 1 step, launches {counts}, total_loss {loss} '
+          f'({gpu_line})')
+    expect = {k: 0 for k in counts}
+    expect.update(FLAGSHIP_STEP)
+    if counts != expect:
+        raise AssertionError(f'launch counts {counts}, expected {expect}')
+    if not math.isfinite(loss):
+        raise AssertionError(f'kp_cap: non-finite loss {loss}')
+    return render_counts, counts
 
 
 # views inputs past the flagship's (ROADMAP B.1.3, C.15): the views
@@ -2484,7 +2647,12 @@ def ms_views_phase(FE, T, device, gpu_line):
 # k-slice over two ring stages under viewfac), and the corner, 21 view
 # rows with framecodes of 128 (the views input out of K1/K2's shared
 # memory, rebuilt 256 columns at a time), also at two 8 x 512 nets
-# (K-vf1/K-vf2 at HV = 256)
+# (K-vf1/K-vf2 at HV = 256); then the WIDE nets of B.1.4's first part;
+# then its kp-band row: the cap F_MAX (fused_encmlp.F_MAX, 13 bands) at
+# two 8 x 256 and two 8 x 512 nets, held to the twin at the flagship's
+# bars like every shape of eight layers (not the f64 rule: with the
+# encode rounded as the twin's, bit for bit, a rule from the f64 chain
+# would only widen with the recurrence's f32 noise)
 ENC_SHAPES = {
     'nb5': (dict(multires_views=2), False, None),
     'nb7': (dict(multires_views=3), False, None),
@@ -2513,6 +2681,8 @@ ENC_SHAPES = {
     'w1024': (W1024, False, None),
     'w1024_nb21_codes128': (dict(VIEWS10, **W1024), False, None),
     'w2048': (dict(netwidth=2048, netwidth_fine=2048), False, None),
+    'nf13': (dict(multires=13), False, None),
+    'nf13_w512': (dict(W512, multires=13), False, None),
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
@@ -2551,12 +2721,12 @@ def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512,
 # inputs, the encode too) by ``_check_close_f64`` and ``_check_bwd_f64``,
 # as net_shapes holds K6 past DEEP_NET_LAYERS.  There no two f32
 # evaluations meet the flagship's bars: the kp bands' double-angle
-# recurrence (anerf_tpu's) doubles its f32 rounding with each band, the
-# kernels and the twins round it differently (nvcc fuses the
-# recurrence's multiply-adds), and a longer chain carries that further:
-# at 16 layers of 512 at ten bands K4 and the twin read cosine 0.99816
-# and 0.99782 against the f64 chain, 0.99858 against each other
-# (scripts/check_k6_f64.py --enc).  A WIDE net (past 512) is held to the
+# recurrence (anerf_tpu's) doubles its f32 rounding with each band, and
+# a longer chain carries the kernels' and the twins' other summation
+# orders further: at 16 layers of 512 at ten bands K4 and the twin read
+# cosine 0.99816 and 0.99782 against the f64 chain, 0.99858 against each
+# other (scripts/check_k6_f64.py --enc, before the kernels' encode
+# rounded as the twins', bit for bit).  A WIDE net (past 512) is held to the
 # twin at the flagship's bars first, and, where it misses them, to the
 # f64 chain by the same rule: its backward adds each mma's sum with
 # rounding (K6's WIDE chain), so it reads further from the twin, whose
@@ -2634,6 +2804,53 @@ def _held(name, check, deep, ref_f64, run_plain, got):
     return f64(name, ref, got, run_plain())
 
 
+# the kp-band cap's shapes, whose K1 trunk input (the encode's bf16
+# output, in its workspace at these shapes) must equal the twin's bit
+# for bit (``trunk_input_bits``): the kernels round every operation of
+# the encode as the twin's PyTorch operations do (csrc/encmlp_common.cuh)
+KP_CAP_SHAPES = ('nf13', 'nf13_w512')
+
+
+def trunk_input_bits(FE, ins):
+    """K1's bf16 trunk input on the operands ``ins`` (``kernel_inputs``:
+    the fine net) against the twin's encode: {column group: share of
+    entries whose bits differ}, or None where the build keeps the trunk
+    input in shared memory.  Launches the build itself, beside the
+    wrapper (uncounted), so that it can read the workspace back."""
+    import torch
+    st, est, p, enc, codes, cutoff, tau, flats = ins[:8]
+    J, F = est.J, len(est.kp_freqs)
+    R, n = enc.shape[0], p.shape[0]
+    lib = FE.cuda_build.library('fwd', enc=FE.kernel_shape(st, est))
+    nx = int(lib.encmlp_fwd_workspace_bytes(n))
+    dx = (2 * F + 1) * J + 3 * J
+    if nx < n * dx * 2:
+        return None
+    xwork = torch.zeros(nx, dtype=torch.uint8, device=p.device)
+    wbuf, bbuf = FE._packs(st, [flats[1]])
+    out = torch.empty((4, n), dtype=torch.float32, device=p.device)
+    code = FE._codes_operand([codes[1]], st, est, R, p.device)
+    vf_m = FE._vf_m(st, est, enc, [flats[1]])
+    with torch.cuda.device(p.device):
+        err = lib.encmlp_fwd(
+            p.data_ptr(), enc.data_ptr(), code.data_ptr(), cutoff.data_ptr(),
+            tau.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(), FE._ptr(vf_m),
+            None, xwork.data_ptr(), out.data_ptr(), n, est.S, R,
+            FE.cuda_build.stream(p.device))
+    if err != 0:
+        raise RuntimeError(f'encmlp_fwd launch failed: cudaError {err}')
+    torch.cuda.synchronize()
+    xk = xwork[:n * dx * 2].view(torch.int16).view(n, dx)
+    v, r, _ = FE._encode_plain(est, p, enc, cutoff, tau)
+    xt = torch.cat([v, r], 1).to(torch.bfloat16).view(torch.int16)
+    diff = (xk != xt).float()
+    groups = {'all': diff, 'distance': diff[:, :J],
+              'bones': diff[:, (2 * F + 1) * J:]}
+    groups.update({f'band{k + 1}': diff[:, (1 + 2 * k) * J:(3 + 2 * k) * J]
+                   for k in range(F)})
+    return {k: g.mean().item() for k, g in groups.items()}
+
+
 def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
     """K1-K4 at one shape on the card, at R = ENC_SHAPE_R (or the
     shape's ENC_SHAPE_RS) and the train
@@ -2683,6 +2900,14 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
                         got)
         _check_deterministic(fname, _named(got), _named(fwd()))
         del got
+        if name in KP_CAP_SHAPES and nnet == 1:
+            bits = trunk_input_bits(FE, ins)
+            if bits is None or any(bits.values()):
+                raise AssertionError(f'{name}: K1\'s trunk input is not the '
+                                     f'twin\'s bit for bit: {bits}')
+            print(f'  {name}: K1\'s trunk input equals the twin\'s bit for '
+                  f'bit ({len(bits) - 3} bands, the distances and the bone '
+                  'columns)')
         print(f'{bname} {label}:')
         got = _counted(FE, bwd, {bname: 1, 'vf_operand': int(vf),
                                  'vf_fold': int(vf)}, bname)
@@ -2742,6 +2967,9 @@ def encmlp_shapes_phase(FE, T, peaks, device, gpu_line):
     over the phase, {shape name: its launches})."""
     rows, vf_rows, by_shape = {}, {}, {}
     total = {k: 0 for k in FE.launch_counts()}
+    if any(ENC_SHAPES[k][0]['multires'] != FE.F_MAX for k in KP_CAP_SHAPES):
+        raise AssertionError(f'{KP_CAP_SHAPES} are not at the kp band cap '
+                             f'{FE.F_MAX}')
     for name, (over, tf, samples) in ENC_SHAPES.items():
         t0 = time.perf_counter()
         rows[name], vf, counts = enc_shape_check(FE, T, name, over, tf,
@@ -3071,27 +3299,39 @@ def _f64_chain(FM, fn):
         return fn()
 
 
-def _check_bwd_f64(name, ref, got, twin):
+def _check_bwd_f64(name, ref, got, twin, bars=None):
     """A deep net's backward outputs ``got`` against ``ref``, an f64
     evaluation of the twin's chain (``_f64_chain``): each at 1 - cosine
     within max(1 - BWD_COS_MIN, DEEP_F64_RATIO x the twin's own 1 -
-    cosine to it).  Returns max |d| against the twin."""
+    cosine to it).  ``bars``: a dict that takes each output's (cosine
+    bar, ratio bar), and then each norm ratio is held too, within
+    max(BWD_RATIO_TOL, DEEP_F64_RATIO x the twin's own |ratio - 1|)
+    (``_check_routes``; not the deep shapes', whose cosine bar can be as
+    wide as the twin's 0.97 on a leaf where K6's norm reads 0.97 and its
+    twin's 1.0015).  Returns max |d| against the twin."""
     import torch
     rows, max_abs = [], 0.
     for (k, r), (_, a), (_, t) in zip(ref, got, twin):
         if not torch.isfinite(a).all():
             raise AssertionError(f'{name}: non-finite {k}')
-        ck, ct = _cmp(r, a)[0], _cmp(r, t)[0]
+        (ck, rk), (ct, rt) = _cmp(r, a)[:2], _cmp(r, t)[:2]
         max_abs = max(max_abs, _cmp(t, a)[3])
         bar = 1. - max(1. - BWD_COS_MIN, DEEP_F64_RATIO * (1. - ct))
-        rows.append((ck - bar, k, ck, ct))
-        if ck < bar:
-            raise AssertionError(f'{name} {k}: cos {ck:.7f} against the '
-                                 f'f64 chain, the twin {ct:.7f}')
+        ratio_tol = max(BWD_RATIO_TOL, DEEP_F64_RATIO * abs(rt - 1.))
+        if bars is not None:
+            bars[k] = (bar, ratio_tol)
+        rows.append((ck - bar, k, ck, ct, rk, rt))
+        if ck < bar or (bars is not None and abs(rk - 1.) > ratio_tol):
+            raise AssertionError(f'{name} {k}: cos {ck:.7f} ratio {rk:.5f} '
+                                 f'against the f64 chain, the twin '
+                                 f'{ct:.7f} and {rt:.5f}')
     rows.sort()
+    worst = max(rows, key=lambda x: abs(x[4] - 1.))
     print(f'  {name} against the f64 chain, closest to the bar: '
           + ', '.join(f'{k} kernel {ck:.7f} twin {ct:.7f}'
-                      for _, k, ck, ct in rows[:4]))
+                      for _, k, ck, ct, _, _ in rows[:4])
+          + f'; worst norm ratio {worst[1]} kernel {worst[4]:.5f} twin '
+          f'{worst[5]:.5f}')
     return max_abs
 
 
@@ -3119,16 +3359,19 @@ def _check_close_f64(name, ref, got, twin):
     return max((t - g).abs().max().item() for t, g in zip(twin, got))
 
 
-def _f64_twins(FE):
+def _f64_twins(FE, f32_encode=False):
     """K1-K4's twins (``FE.encmlp_*_plain``) as the f64 chain for the
     ``with`` block: every f32 tensor argument in f64 (the encode runs in
     f64 too) and ``fused_mlp``'s products in f64 on the same bf16-rounded
-    operands (``_f64_chain``), the outputs back in f32."""
+    operands (``_f64_chain``), the outputs back in f32.  ``f32_encode``:
+    the arguments stay f32, so the chain starts from the encode's own f32
+    bands (the kernels' bits) and only the products and what follows
+    them run in f64 (scripts/check_k6_f64.py --f32-encode)."""
     import torch
 
     def up(a):
         return (a.double() if torch.is_tensor(a) and a.dtype == torch.float32
-                else a)
+                and not f32_encode else a)
 
     def down(a):
         if isinstance(a, (list, tuple)):
@@ -5675,6 +5918,9 @@ def main() -> int:
         {k: n for k, (_, n) in BUNDLE_K1_K4.items()}, seed=f1024_seed,
         **W1024)
     clock.mark('flagship1024_bundled')
+    paths['kp_cap_render'], paths['kp_cap_train'] = kp_cap_phase(
+        FE, T, device, gpu_line)
+    clock.mark('kp_cap')
     paths['vf_widths'] = vfw_counts
     paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(

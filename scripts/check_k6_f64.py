@@ -39,6 +39,18 @@ because they miss that bar) is measured with the gate's cap lifted for
 the run (``fused_encmlp.KERNEL_WIDE_DEPTH``); each shape at its
 ``chip_smoke.ENC_SHAPE_RS`` rays (``--rays R``: every shape at R).
 
+    python3 scripts/check_k6_f64.py --enc SHAPE ... --f32-encode
+
+takes the f64 chain from the encode's own f32 bands instead (the twins'
+encode, which the kernels' matches bit for bit): only the products, and
+what follows them, in f64 (``chip_smoke._f64_twins(f32_encode=True)``).
+There the twin's distance from the chain is its products' rounding alone,
+not the recurrence's, which the f64 encode puts into both the twin's and
+the kernel's distance and so into the rule's bar.  Besides
+``chip_smoke.ENC_SHAPES`` it takes the depth row's shapes past the gate
+(``DEPTH_ROW``: 20 and 24 layers of 512, 24 of 256, WIDE 1024 at 9-16
+layers), measured with the gate's depth caps lifted for the run.
+
     python3 scripts/check_k6_f64.py --enc w1024_depth16_nf10 --acc comp
 
 also measures K3/K4 built from a copy of the sources whose WIDE
@@ -68,6 +80,22 @@ WIDE_DEEP = {
                            False, None),
 }
 WIDE_DEEP_RAYS = {'w2048_depth16_nf10': 512}
+# ROADMAP B.1.4's depth row past the gate: 20 and 24 layers of 512 (10
+# and 7 kp bands), 24 layers of 256 at 10 bands, and WIDE 1024 at 9-16
+# layers at 10 bands (16 is WIDE_DEEP's)
+DEPTH_ROW = {
+    'w512_depth20_nf10': (dict(netwidth=512, netwidth_fine=512,
+                               netdepth=20, netdepth_fine=20, multires=10),
+                          False, None),
+    'w512_depth24': (dict(netwidth=512, netwidth_fine=512, netdepth=24,
+                          netdepth_fine=24), False, None),
+    'depth24_nf10': (dict(netdepth=24, netdepth_fine=24, multires=10),
+                     False, None),
+    **{f'w1024_depth{d}_nf10': (dict(netwidth=1024, netwidth_fine=1024,
+                                     netdepth=d, netdepth_fine=d,
+                                     multires=10), False, None)
+       for d in range(9, 16)},
+}
 
 
 @contextlib.contextmanager
@@ -98,6 +126,9 @@ def main(argv) -> int:
     ap.add_argument('--enc', nargs='*', default=None, metavar='SHAPE')
     ap.add_argument('--acc', choices=('comp',), default=None,
                     help='also K3/K4 with the WIDE per-tile pass compensated')
+    ap.add_argument('--f32-encode', action='store_true',
+                    help='--enc: the f64 chain from the encode\'s own f32 '
+                    'bands, the products in f64')
     ap.add_argument('--rays', type=int, default=None,
                     help='--enc at this many rays (default the shape\'s '
                     'chip_smoke.ENC_SHAPE_RS, else ENC_SHAPE_R)')
@@ -112,13 +143,14 @@ def main(argv) -> int:
     shapes = args.enc or [n for n, (over, _, _) in C.ENC_SHAPES.items()
                           if over.get('netdepth', 8) > C.DEEP_ENC_LAYERS
                           or n == 'w512']
-    table = dict(C.ENC_SHAPES, **WIDE_DEEP)
+    table = dict(C.ENC_SHAPES, **WIDE_DEEP, **DEPTH_ROW)
     C.ENC_SHAPE_RS.update(WIDE_DEEP_RAYS)
     if args.rays:
         C.ENC_SHAPE_RS.update({n: args.rays for n in shapes})
-    if any(n in WIDE_DEEP for n in shapes):
-        # measured where the gate refuses them: its cap lifted for the run
-        FE.KERNEL_WIDE_DEPTH = FE.KERNEL_DEPTH
+    if any(n in WIDE_DEEP or n in DEPTH_ROW for n in shapes):
+        # measured where the gate refuses them: its caps lifted for the
+        # run (the headers take 64 layers)
+        FE.KERNEL_DEPTH = FE.KERNEL_WIDE_DEPTH = range(1, 65)
     if device.type == 'cuda':
         if not torch.cuda.is_available():
             print('no CUDA device', file=sys.stderr)
@@ -134,7 +166,8 @@ def main(argv) -> int:
             cuda_build.build_kernels(trunk_widths=args.width)
     if args.enc is not None:
         for name in shapes:
-            check_enc(C, T, FE, device, name, table)
+            check_enc(C, T, FE, device, name, table,
+                      f32_encode=args.f32_encode)
             if args.acc and device.type == 'cuda':
                 acc_variant(C, T, FE, device, name, table)
         return 0
@@ -201,10 +234,12 @@ def acc_variant(C, T, FE, device, name, table):
     cuda_build._LIBS[key] = tree
 
 
-def check_enc(C, T, FE, device, name, table=None, bwd_only=False):
+def check_enc(C, T, FE, device, name, table=None, bwd_only=False,
+              f32_encode=False):
     """K1-K4 and their twins at encode shape ``name`` against the f64
-    chain, the encode in f64 too (``chip_smoke._f64_twins``; ``--enc``),
-    at the shape's ``chip_smoke.ENC_SHAPE_RS`` rays."""
+    chain, the encode in f64 too (``chip_smoke._f64_twins``; ``--enc``;
+    ``f32_encode``: the chain from the encode's own f32 bands), at the
+    shape's ``chip_smoke.ENC_SHAPE_RS`` rays."""
     import torch
     over, tf, samples = (table or C.ENC_SHAPES)[name]
     cfg, rc, params, plan = C.enc_shape_model(FE, T, name, over, samples,
@@ -217,7 +252,7 @@ def check_enc(C, T, FE, device, name, table=None, bwd_only=False):
             fwd, bwd = fplain, bplain
         if not bwd_only:
             k, t = fwd(), fplain()
-            with C._f64_twins(FE):
+            with C._f64_twins(FE, f32_encode):
                 d = fplain()
             for net in range(nnet):
                 for who, x in (('kernel', k[net]), ('twin', t[net])):
@@ -227,7 +262,7 @@ def check_enc(C, T, FE, device, name, table=None, bwd_only=False):
                                           d[net].float(), x.float()))))
             del k, t, d
         kb, tb = bwd(), bplain()
-        with C._f64_twins(FE):
+        with C._f64_twins(FE, f32_encode):
             db = bplain()
         rows = []
         for (k, a), (_, b), (_, r) in zip(kb, tb, db):

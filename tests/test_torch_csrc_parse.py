@@ -92,7 +92,9 @@ __device__ float expf(float);
 __device__ float sinf(float);
 __device__ float fmaxf(float, float);
 __device__ float __fadd_rn(float, float);
+__device__ float __fsub_rn(float, float);
 __device__ float __fmul_rn(float, float);
+__device__ float ldexpf(float, int);
 __device__ float __fmaf_rn(float, float, float);
 __host__ __device__ int min(int, int);
 __host__ __device__ int max(int, int);
@@ -301,7 +303,9 @@ def test_split_mlp_sources_refuse_past_the_ceilings(source, defines,
 # views input rebuilt in each views block), and the deep corners, 16
 # layers at 10 kp bands 1024 and 2048 wide, which the gate caps at 8
 # layers (their K3/K4 miss the f64 chain's rule) and
-# scripts/check_k6_f64.py --enc builds and measures
+# scripts/check_k6_f64.py --enc builds and measures; then the kp bands
+# past 10 up to the cap F_MAX (ROADMAP B.1.4's kp-band row, C.17): 11
+# and 13 bands at 256 and at 512 wide
 ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(nb=b) for b in (1, 3, 5, 7)]
               + [dict(depth=d) for d in range(1, 8)]
@@ -318,13 +322,16 @@ ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
                  dict(width=2048), dict(width=768, depth=1),
                  dict(nb=21, ncode=128, width=1024),
                  dict(nf=10, depth=16, width=1024),
-                 dict(nf=10, depth=16, width=2048)])
+                 dict(nf=10, depth=16, width=2048)]
+              + [dict(nf=11), dict(nf=13), dict(nf=11, width=512),
+                 dict(nf=13, width=512)])
 # the first value each axis refuses, the source that refuses it and the
 # message of the static_assert it fails (ROADMAP B.1.4): 23 view rows
 # (the headers' cap; viewfac's four k-steps a joint), 2304 wide (K1-K4's
 # own cap in the shared header under ANERF_ENC_KERNEL, and viewfac.cu's:
 # K5/K6 take 4096 since C.16), framecodes of 144 (the headers' cap,
-# past 128)
+# past 128), 14 kp bands (one past the headers' F_MAX, past which anerf_tpu's band
+# recurrence no longer holds to the model: ROADMAP C.17)
 ENC_REFUSED = [
     (dict(nb=23), 'encmlp_fwd.cu', 'at most 21 view PE rows'),
     (dict(nb=23), 'viewfac.cu', 'whole joint groups'),
@@ -335,7 +342,9 @@ ENC_REFUSED = [
     (dict(width=2304), 'viewfac.cu',
      'nets a multiple of 256 wide, up to 2048'),
     (dict(ncode=144), 'encmlp_fwd.cu', 'framecodes of 16 to 128 columns'),
-    (dict(ncode=144), 'encmlp_bwd.cu', 'framecodes of 16 to 128 columns')]
+    (dict(ncode=144), 'encmlp_bwd.cu', 'framecodes of 16 to 128 columns'),
+    (dict(nf=14), 'encmlp_fwd.cu', 'at most 13 kp bands'),
+    (dict(nf=14), 'encmlp_bwd.cu', 'at most 13 kp bands')]
 
 
 def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256, ncode=16):

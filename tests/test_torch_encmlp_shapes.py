@@ -7,7 +7,10 @@ five and seven; four kp bands with six layers; four layers (no skip
 layer); the windowed bone directions (``--cutoff_bones``); and those
 whose trunk input does not stay in a block's shared memory in some of
 K1-K4 (ROADMAP B.1.2): two 8 x 512 nets, nine layers, eight kp bands,
-and the corner of the gate, 16 layers of 512 at ten kp bands.  Each is
+and the corner of the gate, 16 layers of 512 at ten kp bands; and the
+kp bands past ten (ROADMAP B.1.4's kp-band row): eleven, and the cap
+``fused_encmlp.F_MAX`` (13), past which anerf_tpu's band recurrence no
+longer holds to the model (C.17).  Each is
 built from the same seed-made parameters in both packages (the JAX tree
 converted with ``params_from_numpy``), at R=8 rays and full width, with
 the viewfac form off on both sides (its chain:
@@ -69,6 +72,9 @@ SHAPES = {
     'w512_depth16_nf10': (dict(netwidth=512, netwidth_fine=512,
                                netdepth=16, netdepth_fine=16, multires=10),
                           (10, 9, False, 16, 512, 16)),
+    'nf11': (dict(multires=11), (11, 9, False, 8, 256, 16)),
+    f'nf{FE.F_MAX}': (dict(multires=FE.F_MAX),
+                      (FE.F_MAX, 9, False, 8, 256, 16)),
 }
 # the samples each shape's twins are held at: K2 (and K4) at 64, K1
 # (and K3) at 16
@@ -84,31 +90,37 @@ BWD_CASES[BWD_CASES.index(('nf8', 64))] = ('nf8', 16)
 # (ROADMAP B.1.2), whose backward cases test_torch_encmlp_shapes_bwd_b12.py
 # holds apart (one file of them all would run past a minute alone)
 B12_SHAPES = ('w512', 'depth9', 'nf8', 'w512_depth16_nf10')
+# the kp bands past ten, whose backward cases (K3's twin at S=16, K4's
+# at S=64) test_torch_encmlp_shapes_bwd.py holds in a test of their own
+BAND_SHAPES = ('nf11', f'nf{FE.F_MAX}')
+BAND_CASES = [(name, S) for name in BAND_SHAPES for S in (64, 16)]
 _SCENES = {}
 
 
-def shape_scene(name):
+def shape_scene(name, seed=0, rays=8):
     """The scene of shape ``name`` (built once a process): both
-    packages' configs and parameters (JAX seed 0), the batch and the
-    rays' joint-local directions."""
-    if name not in _SCENES:
-        cfg = T.surreal_config(N_rand=8, compute_dtype='bfloat16',
+    packages' configs and parameters (JAX seed ``seed``), the batch of
+    ``rays`` rays and poses (numpy seed ``seed``) and the rays'
+    joint-local directions."""
+    key = (name, seed, rays)
+    if key not in _SCENES:
+        cfg = T.surreal_config(N_rand=rays, compute_dtype='bfloat16',
                                **SHAPES[name][0])
-        _, bones, _, kps, skts, cyls = T.synthetic_pose(4)
-        batch = T.synthetic_batch(8, 4, kps, skts, bones, cyls)
+        _, bones, _, kps, skts, cyls = T.synthetic_pose(4, seed=seed)
+        batch = T.synthetic_batch(rays, 4, kps, skts, bones, cyls, seed=seed)
         j_rc = dataclasses.replace(j_build(cfg, n_framecodes=4),
                                    viewfac=False)
-        j_params = j_init(jax.random.PRNGKey(0), j_rc, cfg)
+        j_params = j_init(jax.random.PRNGKey(seed), j_rc, cfg)
         t_rc = dataclasses.replace(t_build(cfg, n_framecodes=4),
                                    viewfac=False)
         t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                             j_params))
         rays_t = JX.transform_batch_rays(
             jnp.asarray(batch['rays_d'])[:, None], jnp.asarray(batch['skts']))
-        _SCENES[name] = dict(
+        _SCENES[key] = dict(
             cfg=cfg, batch=batch, j_rc=j_rc, j_params=j_params, t_rc=t_rc,
             t_params=t_params, rays_t_norm=np.asarray(JX.vec_norm(rays_t)[:, 0]))
-    return _SCENES[name]
+    return _SCENES[key]
 
 
 @pytest.mark.parametrize('name', sorted(SHAPES))

@@ -3,9 +3,11 @@ for beyond the flagship's (ROADMAP B.1), against anerf_tpu's Pallas
 custom_vjps on the CPU: the shapes, scenes and samples of
 ``test_torch_encmlp_shapes.py`` (one, five and seven view PE rows, four
 kp bands with six layers, four layers, the windowed bone directions,
-8 x 512, nine layers, eight kp bands, 16 x 512 at ten bands), the
+8 x 512, nine layers, eight kp bands, 16 x 512 at ten bands, eleven
+kp bands and the cap F_MAX), the
 samples anerf_tpu tiles (K4 at S=64, K3 at S=16), the dense views input
-on both sides.  This file holds the resident shapes' cases,
+on both sides.  This file holds the resident shapes' cases and those of
+the kp bands past ten (both samples each),
 ``test_torch_encmlp_shapes_bwd_b12.py`` the other four shapes'.
 
 The port's autograd Functions around K1/K2 reach the twins on CPU
@@ -42,8 +44,8 @@ from anerf_tpu.ops import pallas_encmlp as PE
 from anerf_torch.ops import fused_encmlp as FE
 from anerf_torch.ops import fused_mlp as FM
 
-from test_torch_encmlp_shapes import (B12_SHAPES, BWD_CASES, SHAPES,
-                                      shape_scene)
+from test_torch_encmlp_shapes import (B12_SHAPES, BAND_CASES, BAND_SHAPES,
+                                      BWD_CASES, SHAPES, shape_scene)
 from test_torch_fused_bwd import (COS_TOL, RATIO_TOL, _leaf, _operands,
                                   assert_grad_close)
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -88,7 +90,8 @@ def _f64_grads(st, est, p, enc, codes, cut, tau, flat, g):
 
 # the resident shapes; test_torch_encmlp_shapes_bwd_b12.py holds
 # B12_SHAPES' cases through check_bwd_case
-RESIDENT_CASES = [(n, S) for n, S in BWD_CASES if n not in B12_SHAPES]
+RESIDENT_CASES = [(n, S) for n, S in BWD_CASES
+                  if n not in B12_SHAPES + BAND_SHAPES]
 
 
 @pytest.mark.parametrize('name,S', RESIDENT_CASES,
@@ -96,6 +99,15 @@ RESIDENT_CASES = [(n, S) for n, S in BWD_CASES if n not in B12_SHAPES]
 def test_bwd_twins_match_pallas_vjp(name, S):
     """K4's twin at S=64 (both nets on the coarse samples) and K3's at
     S=16 (the fine net on the importance samples)."""
+    check_bwd_case(name, S)
+
+
+@pytest.mark.parametrize('name,S', BAND_CASES,
+                         ids=[f'{n}-{S}' for n, S in BAND_CASES])
+def test_bwd_twins_match_pallas_vjp_kp_bands(name, S):
+    """K4's and K3's twins at eleven kp bands and at the cap F_MAX,
+    where each band doubles the recurrence's f32 rounding: the band
+    pullback's terms (2^k cos, 2^k sin) reach 2^12 at F_MAX."""
     check_bwd_case(name, S)
 
 

@@ -295,11 +295,14 @@ def test_wrappers_take_twins_on_cpu(scene):
 # of 8 are built for (ROADMAP B.1), so are 512-wide nets (with their
 # 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2), 11
 # and 21 view rows and framecodes of 32 and 128 (B.1.3), and WIDE nets,
-# 768 wide with a 384-wide views layer (B.1.4's first part); a net 512
+# 768 wide with a 384-wide views layer (B.1.4's first part), and 11 kp
+# bands up to the cap F_MAX (B.1.4's kp-band row); a net 512
 # wide with a 128-wide views layer, another skip, 2304 wide (the
-# headers' cap), 17 layers, 11 kp bands, 23 view rows and framecodes of
-# 144 are not (B.1.4)
+# headers' cap), 17 layers, 23 view rows and framecodes of
+# 144 are not (B.1.4), nor is F_MAX + 1 kp bands (past which anerf_tpu's
+# band recurrence no longer holds to the model: C.17)
 KP10 = tuple(2. ** k for k in range(10))
+KP_MAX = tuple(2. ** k for k in range(FE.F_MAX))
 GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(skips=(3,)), False), (dict(vparts=(648, 8)), True),
               (dict(depth=9), True), (dict(vparts=(648, 32)), True),
@@ -308,22 +311,28 @@ GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(width=768, half=384), True), (dict(depth=17), False),
               (dict(width=2304, half=1152), False),
               (dict(kp_freqs=KP10 + (1024.,), dparts=(23 * J, 3 * J)),
-               False),
+               True),
               (dict(view_nb=11, vparts=(11 * 3 * J, 16)), True),
               (dict(width=512, half=256, vparts=(648, 32)), True),
               (dict(view_nb=21, vparts=(21 * 3 * J, 128)), True),
               (dict(vparts=(648, 144)), False),
-              (dict(view_nb=23, vparts=(23 * 3 * J, 16)), False)]
+              (dict(view_nb=23, vparts=(23 * 3 * J, 16)), False),
+              (dict(kp_freqs=KP_MAX, dparts=((2 * FE.F_MAX + 1) * J,
+                                             3 * J)), True),
+              (dict(kp_freqs=KP_MAX + (2. ** FE.F_MAX,),
+                    dparts=((2 * FE.F_MAX + 3) * J, 3 * J)), False)]
 
 
 @pytest.mark.parametrize('change,admitted', GATE_CASES)
 def test_kernel_shape_gate(scene, change, admitted):
     """The CUDA kernels are compiled per static shape for every shape
-    of the gate (a multiple of 256 up to 2048 wide, 1-16 layers, 1-10 kp
-    bands, 1-21 view rows, codes of at most 128); any other static must
-    be refused before
-    a launch, never run wrong.  A change to ``kp_freqs`` or ``view_nb``
-    changes the encode's statics, the rest the net's."""
+    of the gate (a multiple of 256 up to 2048 wide, 1-16 layers, 1 to
+    F_MAX kp bands, 1-21 view rows, codes of at most 128); any other
+    static must be refused before
+    a launch, never run wrong: a shape still to port names ROADMAP
+    B.1.4, the kp bands past F_MAX the convention C.17.  A change to
+    ``kp_freqs`` or ``view_nb`` changes the encode's statics, the rest
+    the net's."""
     pts = torch.as_tensor(_pts_cm(scene['batch'], 16))
     st, est = FE._build_call(scene['t_rc'], pts,
                              torch.as_tensor(scene['rays_t_norm']),
@@ -341,5 +350,8 @@ def test_kernel_shape_gate(scene, change, admitted):
             len(est_c.kp_freqs), est_c.view_nb, False, changed.depth,
             changed.width, FE.kernel_codes(changed.vparts[1]))
     else:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md B.1.4'):
+        cap = len(est_c.kp_freqs) > FE.F_MAX
+        with pytest.raises(NotImplementedError, match=(
+                'recurrence no longer holds.*C.17' if cap
+                else 'not ported yet.*ROADMAP.md B.1.4')):
             FE.kernel_shape(changed, est_c)

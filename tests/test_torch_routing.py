@@ -2,12 +2,12 @@
 the CPU, where the route is the one the card takes.
 
 The fused encode kernels K1-K4 are compiled per static shape, for nets
-256 or 512 wide of 1-16 layers at 1-10 kp bands and 1-9 view rows
-(``fused_encmlp.kernel_shape``).  ``fused_encmlp.kernel_shape_ok``
-decides from the raycast config alone whether they take it; a
-one-subject config on the fused backend that they do not take runs the
-plain encode and the split-operand kernels K5/K6
-(``fused_mlp.nerf_mlp_fused``), as anerf_tpu falls back when its fused
+256 or 512 wide of 1-16 layers at 1-13 kp bands (``fused_encmlp.F_MAX``)
+and 1-9 view rows (``fused_encmlp.kernel_shape``).
+``fused_encmlp.kernel_shape_ok`` decides from the raycast config alone
+whether they take it; a one-subject config on the fused backend that
+they do not take runs the plain encode and the split-operand kernels
+K5/K6 (``fused_mlp.nerf_mlp_fused``), as anerf_tpu falls back when its fused
 kernel returns None (anerf_tpu/models/raycaster.py:344-352).  Every
 shipped config builds with the port's encoders; the route is observed
 by counting calls of the kernels' wrappers.  So is that of each encoder
@@ -64,7 +64,9 @@ ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
 # at two 8 x 1024 nets, the 8 x 1024 flagship; surreal at
 # 21 view rows with framecodes of 128, which they take since B.1.3, and
 # with two subjects at 11 view rows, which runs the split route, whose
-# K5/K6 take its views parts 792 + 1 + 16 since C.15
+# K5/K6 take its views parts 792 + 1 + 16 since C.15; surreal at the kp
+# band cap F_MAX (fused, B.1.4's kp-band row) and one band past it (split:
+# the plain encode's exact sines, ROADMAP C.17)
 VARIANTS = {'surreal_single.txt:netwidth512': (
     'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'fused'),
     'surreal_single.txt:netwidth768': (
@@ -75,7 +77,11 @@ VARIANTS = {'surreal_single.txt:netwidth512': (
     'surreal.txt', dict(multires_views=10, framecode_size=128,
                         opt_framecode=True), 'fused'),
     'surreal.txt:two_subjects_views5': (
-    'surreal.txt', dict(multires_views=5, n_subjects=2), 'split')}
+    'surreal.txt', dict(multires_views=5, n_subjects=2), 'split'),
+    f'surreal.txt:multires{FE.F_MAX}': (
+    'surreal.txt', dict(multires=FE.F_MAX), 'fused'),
+    f'surreal.txt:multires{FE.F_MAX + 1}': (
+    'surreal.txt', dict(multires=FE.F_MAX + 1), 'split')}
 
 
 def test_every_shipped_config_is_listed():
@@ -217,6 +223,50 @@ def test_surreal_single_fused_matches_jax():
                                mlp_backend='xla')
     t_rc = t_build(t_cfg, n_framecodes=N_FRAMES)
     assert t_rc.mlp_backend == 'fused' and FE.kernel_shape_ok(t_rc)
+    j_params = j_init(jax.random.PRNGKey(0), j_rc, j_cfg)
+    t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                        j_params))
+    rng = np.random.RandomState(7)
+    S, I = j_rc.N_samples, j_rc.N_importance
+    fixed = {'coarse_u': rng.uniform(size=(R, S)).astype(np.float32),
+             'fine_u': rng.uniform(size=(R, I)).astype(np.float32),
+             'coarse_noise': rng.normal(size=(R, S)).astype(np.float32),
+             'fine_noise': rng.normal(size=(R, S + I)).astype(np.float32)}
+    ref = jrc.render_rays(
+        j_rc, j_params, jnp.asarray(b['rays_o']), jnp.asarray(b['rays_d']),
+        0.0, 1.0, {k: jnp.asarray(b[k]) for k in POSE_KEYS},
+        j_embed_state(j_cfg, j_rc, 500), cam_idxs=jnp.asarray(b['cam_idxs']),
+        fixed={k: jnp.asarray(v) for k, v in fixed.items()})
+    tb = T.to_device(b, 'cpu')
+    with torch.inference_mode():
+        got = trc.render_rays(
+            t_rc, t_params, tb['rays_o'], tb['rays_d'], 0.0, 1.0,
+            {k: tb[k] for k in POSE_KEYS}, t_embed_state(t_cfg, t_rc, 500),
+            cam_idxs=tb['cam_idxs'],
+            fixed={k: torch.as_tensor(v) for k, v in fixed.items()})
+    for k in MAPS:
+        _close(ref[k], got[k])
+
+
+@pytest.mark.parametrize('bands', [FE.F_MAX, FE.F_MAX + 1])
+def test_kp_band_cap_matches_jax(bands):
+    """surreal.txt at the kp band cap F_MAX, which the fused backend runs
+    on K1/K2's twins (the double-angle band recurrence), and one band
+    past it, which it runs on the plain encode (exact sines) and K5's
+    twin, against anerf_tpu's XLA path (exact sines) on the same
+    parameters and pinned samples, at the render tests' bar (1e-3 x the
+    reference map's max)."""
+    path = os.path.join(CONFIGS, 'surreal.txt')
+    R = 8
+    j_cfg = j_load_config(path, multires=bands)
+    t_cfg = load_config(path, multires=bands)
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(N_FRAMES)
+    b = T.synthetic_batch(R, N_FRAMES, kps, skts, bones, cyls)
+    j_rc = dataclasses.replace(j_build(j_cfg, n_framecodes=N_FRAMES),
+                               mlp_backend='xla')
+    t_rc = t_build(t_cfg, n_framecodes=N_FRAMES)
+    assert t_rc.mlp_backend == 'fused'
+    assert FE.kernel_shape_ok(t_rc) == (bands <= FE.F_MAX)
     j_params = j_init(jax.random.PRNGKey(0), j_rc, j_cfg)
     t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                         j_params))
