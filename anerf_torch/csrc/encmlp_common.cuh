@@ -139,10 +139,21 @@ constexpr size_t SMEM_ADD = sizeof(float) * T * J + sizeof(int) * T;
 constexpr bool ENC_KERNEL = false;
 constexpr size_t SMEM_ADD = 0;
 #endif
-// K1-K4 keep the nets they were built for before K5/K6's went past them
+// K1-K4 keep the nets they were built for before K5/K6's went past them,
+// and stop at the depths where their deep builds' per-tile sums were
+// held to the f64 rule (fused_encmlp.KERNEL_DEPTH, KERNEL_WIDE_DEPTH)
 static_assert(!ENC_KERNEL || W <= 2048,
               "nets a multiple of 256 wide, up to 2048");
-static_assert(!ENC_KERNEL || DEPTH <= 64, "1 to 64 trunk layers");
+static_assert(!ENC_KERNEL || DEPTH <= (W == 256 ? 32 : W == 512 ? 24 : 16),
+              "1 to 32 trunk layers at 256 wide, 1 to 24 at 512, 1 to 16 "
+              "wider");
+// K1-K4's deep builds, more than 8 trunk layers: their products' sums
+// reach the accumulators rounded to nearest (mlp_fwd_common.cuh FWD_RN,
+// mlp_bwd_common.cuh ACC_REC), which holds them to an f64 evaluation of
+// the chain from the encode's own f32 bands (chip_smoke._check_close_f64,
+// _check_bwd_f64) where the chain's sums miss it (16 x 512 already);
+// every other build, K5/K6's all, keeps the sums and the bits it had.
+constexpr bool ENC_DEEP = ENC_KERNEL && DEPTH > 8;
 
 // shared-memory row strides in bf16 elements: rows stay 16-byte
 // aligned and the +8 spreads the fragment loads over all 32 banks

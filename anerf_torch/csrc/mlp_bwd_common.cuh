@@ -478,7 +478,26 @@ __device__ __forceinline__ void mma_slices(Ring<SC>& r, float (&acc)[4][NT][4],
 // at least (ring_mma_g).
 constexpr int DEEP_NET = 24;
 constexpr int ACC_NET = DEPTH > DEEP_NET ? ACC_COMP : ACC_CHAIN;
-constexpr int ACC_NET_G = ACC_NET > ACC_RN ? ACC_NET : ACC_RN;
+__host__ __device__ constexpr int acc_g(int acc) {
+  return acc > ACC_RN ? acc : ACC_RN;
+}
+constexpr int ACC_NET_G = acc_g(ACC_NET);
+
+// The per-tile pass's accumulation by product group: the forward
+// recompute's trunk and feat products (ACC_REC), the views layer's
+// recompute (ACC_VW) and the cotangent products (ACC_COT: g_feat, g_xv,
+// the trunk's in reverse, g_x).  ACC_NET in each but K1-K4's deep builds
+// (ENC_DEEP, encmlp_common.cuh), whose recompute is RN and the rest the
+// chain: from 16 layers of 512 on the recompute's chain sums put the
+// later layers' weight gradients outside the f64 rule (chip_smoke.
+// _check_bwd_f64, from the encode's own f32 bands) and RN brings them
+// back; the cotangents' and the views layer's sums do not move them
+// (scripts/check_k6_f64.py --acc-group, PERF.md).  A WIDE group's
+// products read back from the workspace are RN at least (acc_g).
+// --acc-group builds a source copy with one of these lines replaced.
+constexpr int ACC_REC = ENC_DEEP ? ACC_RN : ACC_NET;
+constexpr int ACC_VW = ENC_DEEP ? ACC_CHAIN : ACC_NET;
+constexpr int ACC_COT = ENC_DEEP ? ACC_CHAIN : ACC_NET;
 
 // acc += A[0:64, kb:K] @ Wseg[n0 : n0 + 8 NT, kb:K]^T over the next
 // segment of the schedule (mma_slices), A's column 0 at its first
@@ -717,7 +736,7 @@ __device__ __forceinline__ void store_f32(const float (&acc)[4][4][4],
 // the schedule's next ceil(N / 256) segments (out's row stride ldo);
 // A in shared memory (stride LDH), or, given sm, in device memory (row
 // stride lda, ring_mma_g)
-template <bool ADD, class SC>
+template <bool ADD, int ACC = ACC_NET, class SC>
 __device__ __forceinline__ void ring_to_global(Ring<SC>& rg, const bf16* A,
                                                float* __restrict__ out,
                                                int N, int nw, int ldo,
@@ -727,9 +746,9 @@ __device__ __forceinline__ void ring_to_global(Ring<SC>& rg, const bf16* A,
     float acc[4][4][4];
     zero_acc<4>(acc);
     if (sm)
-      ring_mma_g<4>(rg, acc, *sm, A, lda, nw);
+      ring_mma_g<4, acc_g(ACC)>(rg, acc, *sm, A, lda, nw);
     else
-      ring_mma<4>(rg, acc, A, LDH, nw);
+      ring_mma<4, ACC>(rg, acc, A, LDH, nw);
     store_f32<ADD>(acc, out + c0, ldo, nw, N - c0);
   }
 }
@@ -779,7 +798,7 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma_x<4>(rg, acc, sm, xg, nw);
+    ring_mma_x<4, ACC_REC>(rg, acc, sm, xg, nw);
     store_relu_mask(acc, Bn + b * WB, sm.H0 + b * WB, mask(0, b), nw);
   }
   sync_tile();
@@ -791,8 +810,9 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
     for (int b = 0; b < NBLK; ++b) {
       zero_acc<4>(acc);
-      ring_mma<4>(rg, acc, hin, LDH, nw);
-      if (HAS_SKIP && i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
+      ring_mma<4, ACC_REC>(rg, acc, hin, LDH, nw);
+      if (HAS_SKIP && i == SKIP + 1)
+        ring_mma_x<4, ACC_REC>(rg, acc, sm, xg, nw);
       store_relu_mask(acc, Bn + i * W + b * WB, hout + b * WB, mask(i, b),
                       nw);
     }
@@ -805,7 +825,7 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, hin, LDH, nw);
+    ring_mma<4, ACC_REC>(rg, acc, hin, LDH, nw);
     store_act<4, false>(acc, Bn + OB_F + b * WB, hout + b * WB, LDH,
                         nw);  // feat
   }
@@ -821,10 +841,10 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
     float accv[4][NTV][4];
     const int nv = warp * 8 * NTV;
     zero_acc<NTV>(accv);
-    ring_mma<NTV>(rg, accv, hout, LDH, nv);
+    ring_mma<NTV, ACC_VW>(rg, accv, hout, LDH, nv);
 #pragma unroll 1
     for (int v = 0; v < NVXS; ++v)  // the views input, streamed
-      ring_mma<NTV>(rg, accv, nullptr, 0, nv - v * VXR);
+      ring_mma<NTV, ACC_VW>(rg, accv, nullptr, 0, nv - v * VXR);
     if constexpr (VF) {
 #pragma unroll
       for (int m = 0; m < 4; ++m) vf_xw_m<NTV>(accv[m], hin, 16 * m, nv);
@@ -890,18 +910,18 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, HVB, LDH, nw);
+    ring_mma<4, ACC_COT>(rg, acc, HVB, LDH, nw);
     colsum_store<4>(acc, bpart + OB_F + b * WB, nw);
     emit_bf16<4>(acc, FB + b * WB, nw);
   }
   sync_tile();
   copy_rows(wk.gf[net] + (size_t)t0 * W, W, FB, LDH, W);
   if constexpr (VF)  // the codes' cotangent alone
-    ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV + DE, NCODE,
-                          nw, DXV);
+    ring_to_global<false, ACC_COT>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV + DE,
+                                   NCODE, nw, DXV);
   else
-    ring_to_global<false>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
-                          DXV);
+    ring_to_global<false, ACC_COT>(rg, HVB, wk.gxv[net] + (size_t)t0 * DXV, DXV,
+                                   nw, DXV);
 
   // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
   bf16* gin_b = HVB;   // the current layer's bf16 cotangent
@@ -909,7 +929,7 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma<4>(rg, acc, FB, LDH, nw);
+    ring_mma<4, ACC_COT>(rg, acc, FB, LDH, nw);
     if (b == 0) sync_tile();  // every warp is past the g_xv products'
                               // reads of HVB
     const int lane = tid & 31, g = lane >> 2, q = lane & 3;
@@ -938,11 +958,11 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
     if (HAS_SKIP && i == SKIP + 1)
-      ring_to_global<false>(rg, gin_b, gx, DXP, nw, DXP);
+      ring_to_global<false, ACC_COT>(rg, gin_b, gx, DXP, nw, DXP);
 #pragma unroll 1
     for (int b = 0; b < NBLK; ++b) {
       zero_acc<4>(acc);
-      ring_mma<4>(rg, acc, gin_b, LDH, nw);
+      ring_mma<4, ACC_COT>(rg, acc, gin_b, LDH, nw);
       mask_emit(acc, mask(i - 1, b), bpart + (i - 1) * W + b * WB,
                 gout_b + b * WB, nw);
     }
@@ -953,7 +973,7 @@ __device__ __forceinline__ void mlp_bwd_tile(Ring<BwdSchedT<VF>>& rg,
     gout_b = tmp;
   }
   // layer 0's part: added to the skip layer's, where there is one
-  ring_to_global<HAS_SKIP>(rg, gin_b, gx, DXP, nw, DXP);
+  ring_to_global<HAS_SKIP, ACC_COT>(rg, gin_b, gx, DXP, nw, DXP);
   sync_tile();  // the next net may take every buffer
 }
 
@@ -1002,7 +1022,7 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma_x<4>(rg, acc, sm, xg, nw);
+    ring_mma_x<4, ACC_REC>(rg, acc, sm, xg, nw);
     store_relu_mask(acc, Bn + b * WB, act + b * WB, mask(0, b), nw, LA);
   }
 #pragma unroll 1
@@ -1010,8 +1030,9 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
 #pragma unroll 1
     for (int b = 0; b < NBLK; ++b) {
       zero_acc<4>(acc);
-      ring_mma_g<4>(rg, acc, sm, act + (i - 1) * W, LA, nw);
-      if (HAS_SKIP && i == SKIP + 1) ring_mma_x<4>(rg, acc, sm, xg, nw);
+      ring_mma_g<4, acc_g(ACC_REC)>(rg, acc, sm, act + (i - 1) * W, LA, nw);
+      if (HAS_SKIP && i == SKIP + 1)
+        ring_mma_x<4, ACC_REC>(rg, acc, sm, xg, nw);
       store_relu_mask(acc, Bn + i * W + b * WB, act + i * W + b * WB,
                       mask(i, b), nw, LA);
     }
@@ -1019,7 +1040,7 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma_g<4>(rg, acc, sm, act + (DEPTH - 1) * W, LA, nw);
+    ring_mma_g<4, acc_g(ACC_REC)>(rg, acc, sm, act + (DEPTH - 1) * W, LA, nw);
     store_act<4, false>(acc, Bn + OB_F + b * WB, feat + b * WB, W, nw);
   }
 #pragma unroll 1
@@ -1027,13 +1048,13 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
     float accv[4][2][4];
     const int nv = warp * 16;
     zero_acc<2>(accv);
-    ring_mma_g<2>(rg, accv, sm, feat, W, nv);
+    ring_mma_g<2, acc_g(ACC_VW)>(rg, accv, sm, feat, W, nv);
     if constexpr (VF) {
       sync_tile();  // every warp is past its reads of C
       vf_stage(sm.C, *vf, v * VXR);
       sync_tile();
     }
-    ring_mma<2>(rg, accv, nullptr, 0, nv);  // the views input, streamed
+    ring_mma<2, ACC_VW>(rg, accv, nullptr, 0, nv);  // the views input, streamed
     if constexpr (VF) {
 #pragma unroll
       for (int m = 0; m < 4; ++m) vf_xw_m<2>(accv[m], sm.C, 16 * m, nv);
@@ -1086,22 +1107,22 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma_g<4>(rg, acc, sm, ghv, HV, nw);
+    ring_mma_g<4, acc_g(ACC_COT)>(rg, acc, sm, ghv, HV, nw);
     colsum_store<4>(acc, bpart + OB_F + b * WB, nw);
     emit_bf16<4>(acc, gf + b * WB, nw, W);
   }
   if constexpr (VF)  // the codes' cotangent alone
-    ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV + DE,
-                          NCODE, nw, DXV, &sm, HV);
+    ring_to_global<false, ACC_COT>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV + DE,
+                                   NCODE, nw, DXV, &sm, HV);
   else
-    ring_to_global<false>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV, DXV, nw,
-                          DXV, &sm, HV);
+    ring_to_global<false, ACC_COT>(rg, ghv, wk.gxv[net] + (size_t)t0 * DXV, DXV,
+                                   nw, DXV, &sm, HV);
 
   // ---- g_a = g_feat_b @ wf^T + bf16(g_alpha) wa; layer D-1's cotangent
 #pragma unroll 1
   for (int b = 0; b < NBLK; ++b) {
     zero_acc<4>(acc);
-    ring_mma_g<4>(rg, acc, sm, gf, W, nw);
+    ring_mma_g<4, acc_g(ACC_COT)>(rg, acc, sm, gf, W, nw);
     const int lane = tid & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
     for (int m = 0; m < 4; ++m)
@@ -1126,17 +1147,18 @@ __device__ __forceinline__ void mlp_bwd_tile_wide(
 #pragma unroll 1
   for (int i = DEPTH - 1; i >= 1; --i) {
     if (HAS_SKIP && i == SKIP + 1)
-      ring_to_global<false>(rg, gp + i * W, gx, DXP, nw, DXP, &sm, LA);
+      ring_to_global<false, ACC_COT>(rg, gp + i * W, gx, DXP, nw, DXP, &sm,
+                                     LA);
 #pragma unroll 1
     for (int b = 0; b < NBLK; ++b) {
       zero_acc<4>(acc);
-      ring_mma_g<4>(rg, acc, sm, gp + i * W, LA, nw);
+      ring_mma_g<4, acc_g(ACC_COT)>(rg, acc, sm, gp + i * W, LA, nw);
       mask_emit(acc, mask(i - 1, b), bpart + (i - 1) * W + b * WB,
                 gp + (i - 1) * W + b * WB, nw, LA);
     }
   }
   // layer 0's part: added to the skip layer's, where there is one
-  ring_to_global<HAS_SKIP>(rg, gp, gx, DXP, nw, DXP, &sm, LA);
+  ring_to_global<HAS_SKIP, ACC_COT>(rg, gp, gx, DXP, nw, DXP, &sm, LA);
   sync_tile();  // the next net may take every buffer
 }
 #endif

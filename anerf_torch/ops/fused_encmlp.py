@@ -453,14 +453,18 @@ K4_TF_LAUNCHES = 0
 # for, a library per shape (csrc/encmlp_common.cuh, ops/cuda_build.py):
 # SMPL's 24 joints, 1-F_MAX kp bands on the 2^k grid (nerf-pytorch's
 # default multires is 10), 1-21 view PE rows (multires_views 0-10), the
-# bone directions windowed or not, 1-16 trunk
-# layers of any width that is a multiple of 256 up to 2048 (past 512,
-# WIDE, the activations in device memory) with the skip after layer 4
-# (none below 6 layers; past 16 K3/K4's tensor-core sums put the later
-# layers' weight gradients further from an f64 evaluation of the chain
-# than twice the twin's distance, chip_smoke._check_bwd_f64; WIDE nets
-# up to KERNEL_WIDE_DEPTH layers, 8: at 16 layers of 1024 and 2048 the
-# WIDE backward's sums miss that rule, ROADMAP B.1.4), the
+# bone directions windowed or not, trunk layers of any width that is a
+# multiple of 256 up to 2048 (past 512, WIDE, the activations in device
+# memory) with the skip after layer 4 (none below 6 layers), 1-32
+# layers at 256 wide, 1-24 at 512 and 1-16 WIDE (``kernel_depths``): past
+# 8 layers K1/K2's and K3/K4's recompute's sums reach their
+# accumulators rounded to nearest (csrc/encmlp_common.cuh ENC_DEEP),
+# which keeps the raw outputs and the weight gradients within twice the
+# twin's distance of an f64 evaluation of the chain from the encode's own
+# f32 bands (chip_smoke._check_close_f64, _check_bwd_f64) at every depth
+# measured up to the caps; at 32 layers of 512 K4's gradients miss it
+# with every accumulation tried (scripts/check_k6_f64.py --f32-encode
+# --acc-group, ROADMAP B.1.4), the
 # views layer half as wide, framecodes of at most 128 (zero-padded to
 # the next multiple of 16, the views input's k-step; at least 16) or
 # none.  The trunk and the views inputs stay in a block's shared memory
@@ -480,11 +484,16 @@ F_MAX = 13
 KERNEL_J = 24
 KERNEL_NF = range(1, F_MAX + 1)
 KERNEL_NB = tuple(range(1, 22, 2))
-KERNEL_DEPTH = range(1, 17)
+KERNEL_DEPTH = {256: range(1, 33), 512: range(1, 25)}
 KERNEL_WIDTH = tuple(range(256, 2049, 256))
-KERNEL_WIDE_DEPTH = range(1, 9)
+KERNEL_WIDE_DEPTH = range(1, 17)
 KERNEL_SKIPS = (4,)
 KERNEL_CODES = 128
+
+
+def kernel_depths(width: int) -> range:
+    """The trunk depths K1-K4 are built for at a net ``width`` wide."""
+    return KERNEL_DEPTH.get(width, KERNEL_WIDE_DEPTH)
 
 
 def kernel_codes(codes: int) -> int:
@@ -547,11 +556,16 @@ def _shape_refusal(st: MLPStatic, est: EncStatic) -> Optional[str]:
         return unported(f'a net {st.width} wide with a views layer of '
                         f'{st.half} (they take a multiple of 256 up to '
                         '2048, the views layer half as wide)')
-    depths = KERNEL_DEPTH if st.width <= 512 else KERNEL_WIDE_DEPTH
-    if tuple(st.skips) != KERNEL_SKIPS or st.depth not in depths:
-        return unported(f'{st.depth} layers {st.width} wide with skips '
-                        f'{tuple(st.skips)} (they take {depths[0]}-'
-                        f'{depths[-1]} layers, the skip after layer 4)')
+    if tuple(st.skips) != KERNEL_SKIPS:
+        return unported(f'the skips {tuple(st.skips)} (they take the skip '
+                        'after layer 4)')
+    depths = kernel_depths(st.width)
+    if st.depth not in depths:
+        return unported(f'{st.depth} layers {st.width} wide (they take '
+                        f'{depths[0]}-{depths[-1]}: past {depths[-1]} layers '
+                        'K3/K4\'s per-tile sums are not held to the f64 '
+                        'evaluation of the chain that holds the deep '
+                        'nets)')
     if codes > KERNEL_CODES:
         return unported(f'framecodes of {codes} (they take at most '
                         f'{KERNEL_CODES})')

@@ -105,7 +105,11 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    sums miss them, to the f64 chain by the deep nets' rule; then
    (ROADMAP B.1.4's kp-band row) the cap F_MAX, 13 kp bands, at two
    8x256 and two 8x512 nets, held to the twin at the flagship's bars
-   (the encode rounds as the twin's, bit for bit);
+   (the encode rounds as the twin's, bit for bit); then (B.1.4's depth
+   rows: K1/K2's and K3/K4's recompute's sums rounded to nearest past 16
+   layers, 8 WIDE) 20x512 at ten kp bands, 24x512 at seven, 24x256,
+   32x256, 16x1024 and 16x2048 (R=512) at ten; every shape past 8 layers
+   held to the f64 chain from the encode's own f32 bands;
 2e. vf_widths phase (``vf_widths_phase``): K-vf1/K-vf2 at 11 view rows
    and a 256-wide views layer, and at 9 rows and views layers of 384,
    512 and 1024 and 21 rows at 512 (the WIDE nets'), each launched once
@@ -165,6 +169,9 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    on the rays lit on both sides; against the plain path at most
    KP_CAP_PLAIN_RAYS rays past MAP_TOL a map) and one train step
    (``FLAGSHIP_STEP``, K5/K6 never; a finite loss), launches counted;
+8f. deep_flagship phase (``wide_flagship_phase`` with ``DEEP_FLAGSHIP``,
+   ROADMAP B.1.4's depth row): the same as 8b at two 24x512 nets with
+   one eager step, the split route it replaces K5/K6 at 24x512;
 9. cli_train phase: K1-K4 held against their twins and timed at the
    shapes ``configs/mixamo.txt``'s step gives them (R=3072; S=16 for
    K1/K3, S=64 for K2/K4); then that recipe (joint mode, 3072 rays, L1, rot6d) trained for 40 steps
@@ -267,6 +274,10 @@ Builds the hand-written kernels from ``anerf_torch/csrc`` with nvcc
    32), 4 steps, then 10 more at ``--steps_per_dispatch`` 10 (its
    counters those of the warm-up steps and the capture), then one
    bullet frame through ``run_render.main``;
+17c. cli_net_depth phase (after 17b, ``cli_net_width_phase`` with
+   ``CLI_DEPTH``): the same recipe at two 24-layer nets, 4 steps (K1-K4
+   as ``FLAGSHIP_STEP`` counts them, K5/K6 never), then one bullet
+   frame through ``run_render.main``;
 18. cli_fuse_tform phase (after 17): ``configs/mixamo.txt`` with
    ``fuse_tform = True`` through ``run_train.train`` on cli_train's
    store, 4 steps, K1-K4's fuse_tform forms once a step and their point
@@ -326,8 +337,9 @@ K-vf1 and K-vf2 ``surreal_single_times``, single_timing's numbers;
 K1-K4's and K-vf1/K-vf2's ``wide_flagship_times`` the wide_flagship
 phase's (the 8x512 step and eval chunk, both routes),
 ``launches_by_path`` also ``kp_cap_render`` and ``kp_cap_train``,
-``views_flagship_times`` the views_flagship phase's and
-``flagship1024_times`` the flagship1024 phase's; K5's and K6's
+``views_flagship_times`` the views_flagship phase's,
+``flagship1024_times`` the flagship1024 phase's and
+``deep_flagship_times`` the deep_flagship phase's; K5's and K6's
 ``views_widths`` the views_kernel phase's numbers at each views width
 with the launches of the path that runs it; K-vf1's and K-vf2's
 ``enc_shapes`` also the vf_widths phase's;
@@ -2157,6 +2169,14 @@ WIDE_CHUNK = 4096
 # recipe with two 8 x 1024 nets, on K1-K4's WIDE body (K-vf1/K-vf2 at a
 # 512-wide views layer), through the same phase
 W1024 = dict(netwidth=1024, netwidth_fine=1024)
+# the deep_flagship phase (ROADMAP B.1.4's depth row): the flagship
+# recipe with two 24 x 512 nets, one eager step on K1-K4's deep builds
+# (K3/K4's per-tile sums rounded to nearest), held with the split route
+# it replaces (K5/K6 at 24 x 512) against the f64 step, both timed
+DEEP_FLAGSHIP = dict(W512, netdepth=24, netdepth_fine=24)
+# cli_net_depth: the mixamo recipe at two 24-layer nets through
+# run_train.train and run_render.main (cli_net_width_phase)
+CLI_DEPTH = dict(netdepth=24, netdepth_fine=24)
 
 
 def _eval_viewfac(FE, rc):
@@ -2170,14 +2190,16 @@ def _eval_viewfac(FE, rc):
 
 
 def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
-                        over=W512, title='wide flagship step (8 x 512)'):
+                        over=W512, title='wide flagship step (8 x 512)',
+                        steps=WIDE_STEPS):
     """``build_flagship(2048)`` with two 8 x 512 nets on the card (or
     with the config overrides ``over``: the views flagship's 21 view
-    rows and framecodes of 128, VIEWS10), its
+    rows and framecodes of 128, VIEWS10; the deep flagship's two 24 x
+    512 nets, DEEP_FLAGSHIP), its
     weights from the first of NET_SEEDS whose eval chunk renders the
     subject (acc_map above 0.5 somewhere): one chunk of WIDE_CHUNK rays at
     the eval variant (K2 and K1 once each, nothing else; maps finite and
-    within ``MAP_TOL`` of the plain path), then WIDE_STEPS eager train
+    within ``MAP_TOL`` of the plain path), then ``steps`` eager train
     steps (``FLAGSHIP_STEP`` a step, K5/K6 never; finite losses), one
     step's NeRF gradients on the same state, batch and draws (the fused
     route's dense form and the split route it replaces, ``_split_route``,
@@ -2259,16 +2281,16 @@ def wide_flagship_phase(FE, T, device, gpu_line, what='wide_flagship',
     gen = torch.Generator(device=device).manual_seed(0)
     FE.reset_launch_counts()
     losses = []
-    for _ in range(WIDE_STEPS):
+    for _ in range(steps):
         state, stats = step(state, batch, gen)
         losses.append(stats['total_loss'])
     torch.cuda.synchronize()
     counts = FE.launch_counts()
     losses = torch.stack(losses).cpu()
-    print(f'{what} train: {WIDE_STEPS} steps, launches {counts}, '
+    print(f'{what} train: {steps} steps, launches {counts}, '
           f'total_loss {losses.tolist()} ({gpu_line})')
     expect = {k: 0 for k in counts}
-    expect.update({k: WIDE_STEPS * n for k, n in FLAGSHIP_STEP.items()})
+    expect.update({k: steps * n for k, n in FLAGSHIP_STEP.items()})
     if counts != expect:
         raise AssertionError(f'launch counts {counts}, expected {expect}')
     if not torch.isfinite(losses).all():
@@ -2652,7 +2674,13 @@ def ms_views_phase(FE, T, device, gpu_line):
 # two 8 x 256 and two 8 x 512 nets, held to the twin at the flagship's
 # bars like every shape of eight layers (not the f64 rule: with the
 # encode rounded as the twin's, bit for bit, a rule from the f64 chain
-# would only widen with the recurrence's f32 noise)
+# would only widen with the recurrence's f32 noise); then B.1.4's depth
+# rows, the nets past 16 layers at 256 and 512 wide and past 8 WIDE
+# (K1/K2's and K3/K4's recompute's sums rounded to nearest past 8
+# layers, ENC_DEEP in csrc/encmlp_common.cuh): the three shapes that
+# missed the f64 rule before (20 x 512 at ten bands, 24 x 512 at seven,
+# the cap at 512 wide, 24 x 256 at ten) and the other caps (32 x 256,
+# 16 x 1024 and 16 x 2048 at ten bands)
 ENC_SHAPES = {
     'nb5': (dict(multires_views=2), False, None),
     'nb7': (dict(multires_views=3), False, None),
@@ -2683,14 +2711,27 @@ ENC_SHAPES = {
     'w2048': (dict(netwidth=2048, netwidth_fine=2048), False, None),
     'nf13': (dict(multires=13), False, None),
     'nf13_w512': (dict(W512, multires=13), False, None),
+    'w512_depth20_nf10': (dict(W512, netdepth=20, netdepth_fine=20,
+                               multires=10), False, None),
+    'depth24_nf10': (dict(netdepth=24, netdepth_fine=24, multires=10), False,
+                     None),
+    'w512_depth24': (dict(W512, netdepth=24, netdepth_fine=24), False, None),
+    'depth32_nf10': (dict(netdepth=32, netdepth_fine=32, multires=10), False,
+                     None),
+    'w1024_depth16_nf10': (dict(W1024, netdepth=16, netdepth_fine=16,
+                                multires=10), False, None),
+    'w2048_depth16_nf10': (dict(netwidth=2048, netwidth_fine=2048,
+                                netdepth=16, netdepth_fine=16, multires=10),
+                           False, None),
 }
 ENC_SINGLE = 'nb1'
 ENC_SHAPE_R = 2048
 SHAPE_WINDOWS = 2       # the shapes' timing windows (medians)
-# shapes checked at fewer rays than ENC_SHAPE_R: the 2048-wide net, whose
+# shapes checked at fewer rays than ENC_SHAPE_R: the 2048-wide nets, whose
 # twins (f32, and f64 where a check takes the f64 chain) would not fit the
-# card's memory beside K4's workspace (20.4 GB at R = 2048)
-ENC_SHAPE_RS = {'w2048': 1024}
+# card's memory beside K4's workspace (20.4 GB at R = 2048 at 8 layers,
+# 37.6 GB at 16)
+ENC_SHAPE_RS = {'w2048': 1024, 'w2048_depth16_nf10': 512}
 
 
 def enc_shape_key(FE, T, over):
@@ -2717,20 +2758,24 @@ def _enc_shape_calls(FE, T, rc, cfg, params, S, nnet, device, tf, tile=512,
 
 
 # past the flagship's depth the encmlp_shapes phase holds K1-K4 to the
-# f64 chain (``_f64_twins``: the twins' chain in f64 from the same f32
-# inputs, the encode too) by ``_check_close_f64`` and ``_check_bwd_f64``,
-# as net_shapes holds K6 past DEEP_NET_LAYERS.  There no two f32
-# evaluations meet the flagship's bars: the kp bands' double-angle
-# recurrence (anerf_tpu's) doubles its f32 rounding with each band, and
-# a longer chain carries the kernels' and the twins' other summation
-# orders further: at 16 layers of 512 at ten bands K4 and the twin read
-# cosine 0.99816 and 0.99782 against the f64 chain, 0.99858 against each
-# other (scripts/check_k6_f64.py --enc, before the kernels' encode
-# rounded as the twins', bit for bit).  A WIDE net (past 512) is held to the
-# twin at the flagship's bars first, and, where it misses them, to the
-# f64 chain by the same rule: its backward adds each mma's sum with
-# rounding (K6's WIDE chain), so it reads further from the twin, whose
-# sums run in another order.
+# f64 chain from the encode's own f32 bands (``_f64_twins(f32_encode=
+# True)``: the twins' products, and what follows them, in f64 from the
+# same f32 inputs) by ``_check_close_f64`` and ``_check_bwd_f64``, as
+# net_shapes holds K6 past DEEP_NET_LAYERS.  There no two f32
+# evaluations meet the flagship's bars: a longer chain carries the
+# kernels' and the twins' other summation orders further (at 16 layers
+# of 512 at ten bands K4 and the twin read cosine 0.99816 and 0.99782
+# against the f64 chain, 0.99858 against each other, before the kernels'
+# encode rounded as the twins').  The encode stays f32 in the chain: it is
+# the twins' bit for bit in the kernels, so only the products are under
+# test; with the encode in f64 too, the recurrence's f32 noise (which
+# doubles with each kp band) would enter the twin's distance and widen
+# the bar (twin~f64 0.98487 at 24 x 256, ten bands; scripts/check_k6_f64.py
+# --f32-encode).  A WIDE net of at most 8 layers is held to the twin at
+# the flagship's bars first, and, where it misses them, to the f64 chain,
+# the encode in f64: its backward adds each mma's sum with rounding (K6's
+# WIDE chain), so it reads further from the twin, whose sums run in
+# another order.
 DEEP_ENC_LAYERS = 8
 
 
@@ -2879,14 +2924,15 @@ def enc_shape_check(FE, T, name, over, tf, peaks, device, samples=None):
         st, est = ins[0], ins[1]
         key = FE.kernel_shape(st, est)
         vf = est.viewfac
-        # past DEEP_ENC_LAYERS the f64 chain; a WIDE net's where it misses
-        # the twin's bars (None)
+        # past DEEP_ENC_LAYERS the f64 chain from the encode's own f32
+        # bands; a WIDE net's where it misses the twin's bars (None), with
+        # the encode in f64
         deep = (True if st.depth > DEEP_ENC_LAYERS
                 else None if st.width > 512 else False)
 
         def f64(plain):
             def ref():
-                with _f64_twins(FE):
+                with _f64_twins(FE, f32_encode=bool(deep)):
                     return plain()
             return ref
         fname = ('encmlp_fwd' if nnet == 1 else 'encmlp_dual_fwd') + suffix
@@ -5795,6 +5841,9 @@ def main() -> int:
                     FM.views_pad(int(k.split('_')[0])))
                    for k, (_, over) in VIEWS_WIDTHS.items()]
     net_builds.append((432, 8, 256, FM.views_pad(1640)))
+    # K5/K6 at the deep flagship's nets, its split route
+    net_builds.append((432, DEEP_FLAGSHIP['netdepth'],
+                       DEEP_FLAGSHIP['netwidth']))
     # K5/K6 past their former caps (ROADMAP C.16)
     net_builds += c16_builds(FM)
     # K1-K4 and K-vf1/K-vf2 at the encode shapes past the flagship's, and
@@ -5802,6 +5851,8 @@ def main() -> int:
     enc_builds = [enc_shape_key(FE, T, over)
                   for over, _, _ in ENC_SHAPES.values()]
     enc_builds.append(enc_shape_key(FE, T, CLI_VIEWS))
+    enc_builds += [enc_shape_key(FE, T, o) for o in (DEEP_FLAGSHIP,
+                                                     CLI_DEPTH)]
     build_s = FE.build_kernels(verbose=True,
                                trunk_widths=tuple(GRAMMAR_WIDTHS),
                                shapes=net_builds, enc_shapes=enc_builds,
@@ -5921,6 +5972,10 @@ def main() -> int:
     paths['kp_cap_render'], paths['kp_cap_train'] = kp_cap_phase(
         FE, T, device, gpu_line)
     clock.mark('kp_cap')
+    paths['deep_flagship_train'], _, deep_times = wide_flagship_phase(
+        FE, T, device, gpu_line, 'deep_flagship', DEEP_FLAGSHIP,
+        'deep flagship step (24 x 512)', steps=1)
+    clock.mark('deep_flagship')
     paths['vf_widths'] = vfw_counts
     paths['encmlp_shapes'] = paths_shapes
     paths['grammar_train'], paths['grammar_render'] = grammar_path_phase(
@@ -5964,6 +6019,9 @@ def main() -> int:
         paths['cli_views'] = cli_net_width_phase(
             FE, device, gpu_line, 'cli_views', CLI_VIEWS, bundled=True)
         clock.mark('cli_views')
+        paths['cli_net_depth'] = cli_net_width_phase(
+            FE, device, gpu_line, 'cli_net_depth', CLI_DEPTH)
+        clock.mark('cli_net_depth')
         paths['cli_fuse_tform'] = cli_fuse_tform_phase(FE, device, gpu_line)
         clock.mark('cli_fuse_tform')
         paths['dist_train'], paths['dist_bundled'] = dist_train_phase(
@@ -6065,6 +6123,7 @@ def main() -> int:
             row['wide_flagship_times'] = wide_times
             row['views_flagship_times'] = views_times
             row['flagship1024_times'] = f1024_times
+            row['deep_flagship_times'] = deep_times
         row['launches_by_path'] = {k: v[name] for k, v in paths.items()}
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

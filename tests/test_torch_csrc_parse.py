@@ -301,11 +301,13 @@ def test_split_mlp_sources_refuse_past_the_ceilings(source, defines,
 # time): 768 (three 128-column views blocks), 1024, 1536 and 2048 wide,
 # one layer at 768, 21 view rows with framecodes of 128 at 1024 (the
 # views input rebuilt in each views block), and the deep corners, 16
-# layers at 10 kp bands 1024 and 2048 wide, which the gate caps at 8
-# layers (their K3/K4 miss the f64 chain's rule) and
-# scripts/check_k6_f64.py --enc builds and measures; then the kp bands
+# layers at 10 kp bands 1024 and 2048 wide (admitted since B.1.4's
+# depth rows); then the kp bands
 # past 10 up to the cap F_MAX (ROADMAP B.1.4's kp-band row, C.17): 11
-# and 13 bands at 256 and at 512 wide
+# and 13 bands at 256 and at 512 wide; then the deep nets (B.1.4's depth
+# rows: the recompute's and K1/K2's sums rounded to nearest, ENC_DEEP):
+# 17, 24 and 32 layers at 256 wide, 20 and 24 at 512 (10 kp bands at 20),
+# 9, 12 and 16 layers WIDE
 ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
               + [dict(nb=b) for b in (1, 3, 5, 7)]
               + [dict(depth=d) for d in range(1, 8)]
@@ -324,14 +326,21 @@ ENC_SHAPES = ([dict(nf=f) for f in range(1, 7)]
                  dict(nf=10, depth=16, width=1024),
                  dict(nf=10, depth=16, width=2048)]
               + [dict(nf=11), dict(nf=13), dict(nf=11, width=512),
-                 dict(nf=13, width=512)])
+                 dict(nf=13, width=512)]
+              + [dict(depth=17), dict(nf=10, depth=24), dict(depth=32),
+                 dict(nf=10, depth=20, width=512), dict(depth=24, width=512),
+                 dict(depth=9, width=768),
+                 dict(nf=10, depth=12, width=1024),
+                 dict(nf=10, depth=9, width=2048),
+                 dict(nf=10, depth=16, width=1536)])
 # the first value each axis refuses, the source that refuses it and the
 # message of the static_assert it fails (ROADMAP B.1.4): 23 view rows
 # (the headers' cap; viewfac's four k-steps a joint), 2304 wide (K1-K4's
 # own cap in the shared header under ANERF_ENC_KERNEL, and viewfac.cu's:
 # K5/K6 take 4096 since C.16), framecodes of 144 (the headers' cap,
 # past 128), 14 kp bands (one past the headers' F_MAX, past which anerf_tpu's band
-# recurrence no longer holds to the model: ROADMAP C.17)
+# recurrence no longer holds to the model: ROADMAP C.17), one layer past
+# each depth cap (33 at 256 wide, 25 at 512, 17 WIDE: ROADMAP B.1.4)
 ENC_REFUSED = [
     (dict(nb=23), 'encmlp_fwd.cu', 'at most 21 view PE rows'),
     (dict(nb=23), 'viewfac.cu', 'whole joint groups'),
@@ -344,7 +353,13 @@ ENC_REFUSED = [
     (dict(ncode=144), 'encmlp_fwd.cu', 'framecodes of 16 to 128 columns'),
     (dict(ncode=144), 'encmlp_bwd.cu', 'framecodes of 16 to 128 columns'),
     (dict(nf=14), 'encmlp_fwd.cu', 'at most 13 kp bands'),
-    (dict(nf=14), 'encmlp_bwd.cu', 'at most 13 kp bands')]
+    (dict(nf=14), 'encmlp_bwd.cu', 'at most 13 kp bands'),
+    (dict(depth=33), 'encmlp_fwd.cu', '1 to 32 trunk layers at 256 wide'),
+    (dict(depth=33), 'encmlp_bwd.cu', '1 to 32 trunk layers at 256 wide'),
+    (dict(depth=25, width=512), 'encmlp_fwd.cu', '1 to 24 at 512'),
+    (dict(depth=25, width=512), 'encmlp_bwd.cu', '1 to 24 at 512'),
+    (dict(depth=17, width=1024), 'encmlp_fwd.cu', '1 to 16 wider'),
+    (dict(depth=17, width=2048), 'encmlp_bwd.cu', '1 to 16 wider')]
 
 
 def _enc_defines(nf=7, nb=9, bw=0, depth=8, width=256, ncode=16):
@@ -363,8 +378,7 @@ def _errors(cindex, tu):
     f'{k}{v}' for k, v in d.items()))
 def test_encode_sources_parse_at_every_admitted_shape(shape, mock_include):
     """K1-K4 and, at its view rows, K-vf1/K-vf2 at each encode shape the
-    gate admits (and at the deep WIDE corners that scripts/check_k6_f64.py
-    builds past the gate's cap): the shared-memory budgets, the trunk's
+    gate admits: the shared-memory budgets, the trunk's
     residency, the schedules' tables and their coverage checks are static
     asserts, so a shape they cannot take fails here."""
     for source in ('encmlp_fwd.cu', 'encmlp_bwd.cu', 'viewfac.cu'):

@@ -10,7 +10,8 @@ K1-K4 (ROADMAP B.1.2): two 8 x 512 nets, nine layers, eight kp bands,
 and the corner of the gate, 16 layers of 512 at ten kp bands; and the
 kp bands past ten (ROADMAP B.1.4's kp-band row): eleven, and the cap
 ``fused_encmlp.F_MAX`` (13), past which anerf_tpu's band recurrence no
-longer holds to the model (C.17).  Each is
+longer holds to the model (C.17); and a net deeper than 16 layers
+(B.1.4's depth row), 20 layers of 256.  Each is
 built from the same seed-made parameters in both packages (the JAX tree
 converted with ``params_from_numpy``), at R=8 rays and full width, with
 the viewfac form off on both sides (its chain:
@@ -19,9 +20,9 @@ views layer on the card).  The samples per ray are ones anerf_tpu's
 kernels tile (16 and 64): at surreal_single's 96 its ``_build_call``
 returns None and it runs its split kernels, which
 ``test_torch_surreal_single.py`` compares against.  The resident shapes
-and 8 x 512 run at both (K2 at 64, K1 at 16); nine layers, eight bands
-and the corner at one each (``SAMPLES``), to keep the interpret mode's
-seconds in check.
+and 8 x 512 run at both (K2 at 64, K1 at 16); nine layers, eight bands,
+the corner and 20 layers at one each (``SAMPLES``), to keep the
+interpret mode's seconds in check.
 
 * the gate admits each shape on both sides, with the build key the
   port's libraries are keyed by;
@@ -75,11 +76,14 @@ SHAPES = {
     'nf11': (dict(multires=11), (11, 9, False, 8, 256, 16)),
     f'nf{FE.F_MAX}': (dict(multires=FE.F_MAX),
                       (FE.F_MAX, 9, False, 8, 256, 16)),
+    'depth20': (dict(netdepth=20, netdepth_fine=20),
+                (7, 9, False, 20, 256, 16)),
 }
 # the samples each shape's twins are held at: K2 (and K4) at 64, K1
 # (and K3) at 16
 SAMPLES = {name: (64, 16) for name in SHAPES}
-SAMPLES.update(depth9=(16,), nf8=(64,), w512_depth16_nf10=(16,))
+SAMPLES.update(depth9=(16,), nf8=(64,), w512_depth16_nf10=(16,),
+               depth20=(16,))
 CASES = [(name, S) for name in sorted(SHAPES) for S in SAMPLES[name]]
 # the backwards' cases: 8 x 512 and eight kp bands at S=16 (K3's twin;
 # K4's two nets at S=64 take 12-20 s each in interpret mode alone, 55 s

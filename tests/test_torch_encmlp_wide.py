@@ -14,7 +14,7 @@ on both sides (viewfac off).
   1 and 8 layers, is admitted on both sides with its build key (kp
   bands, view rows, bone window, depth, width, framecode columns); at 16
   layers the port admits what the card's f64 check admitted
-  (``fused_encmlp.KERNEL_WIDE_DEPTH``); 2304 wide, which anerf_tpu's
+  (``fused_encmlp.kernel_depths``); 2304 wide, which anerf_tpu's
   gate takes, is refused by the port's (the kernels' headers stop at
   2048, as K5/K6's do);
 * K1's twin at S=16 and K2's at S=64 against the Pallas kernels in
@@ -125,7 +125,7 @@ def test_gate_takes_wide_nets(width):
     """``configs/surreal.txt`` at ``netwidth`` 768-2048, 1 and 8 layers,
     is admitted by both packages' fused encode, the port's with the
     build of that width (views layer W / 2); at 16 layers the port
-    admits it where ``KERNEL_WIDE_DEPTH`` does (the card's f64 check);
+    admits it where ``kernel_depths`` does (the card's f64 check);
     2304 is refused by the port alone, naming ROADMAP B.1.4."""
     for depth in (1, 8, 16):
         cfg = load_config(SURREAL, netwidth=width, netwidth_fine=width,
@@ -137,7 +137,7 @@ def test_gate_takes_wide_nets(width):
                               True)
         assert (st.width, st.half) == (width, width // 2)
         admitted = width <= 2048 and (depth <= 8
-                                      or depth in FE.KERNEL_WIDE_DEPTH)
+                                      or depth in FE.kernel_depths(width))
         assert FE.kernel_shape_ok(t_rc) == admitted, (width, depth)
         if admitted:
             assert FE.kernel_shape(st, est) == (7, 9, False, depth, width,

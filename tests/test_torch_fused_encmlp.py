@@ -296,11 +296,13 @@ def test_wrappers_take_twins_on_cpu(scene):
 # 256-wide views layer), 9 and 16 layers and 10 kp bands (B.1.2), 11
 # and 21 view rows and framecodes of 32 and 128 (B.1.3), and WIDE nets,
 # 768 wide with a 384-wide views layer (B.1.4's first part), and 11 kp
-# bands up to the cap F_MAX (B.1.4's kp-band row); a net 512
-# wide with a 128-wide views layer, another skip, 2304 wide (the
-# headers' cap), 17 layers, 23 view rows and framecodes of
-# 144 are not (B.1.4), nor is F_MAX + 1 kp bands (past which anerf_tpu's
-# band recurrence no longer holds to the model: C.17)
+# bands up to the cap F_MAX (B.1.4's kp-band row), and deep nets, 17-32
+# layers at 256 wide, 17-24 at 512 and 9-16 WIDE (B.1.4's depth rows); a
+# net 512 wide with a 128-wide views layer, another skip, 2304 wide (the
+# headers' cap), one layer past each depth cap (33 at 256 wide, 25 at
+# 512, 17 WIDE), 23 view rows and framecodes of 144 are not (B.1.4), nor
+# is F_MAX + 1 kp bands (past which anerf_tpu's band recurrence no longer
+# holds to the model: C.17)
 KP10 = tuple(2. ** k for k in range(10))
 KP_MAX = tuple(2. ** k for k in range(FE.F_MAX))
 GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
@@ -308,7 +310,8 @@ GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(depth=9), True), (dict(vparts=(648, 32)), True),
               (dict(width=512, half=256), True), (dict(depth=16), True),
               (dict(kp_freqs=KP10, dparts=(21 * J, 3 * J)), True),
-              (dict(width=768, half=384), True), (dict(depth=17), False),
+              (dict(width=768, half=384), True),
+              (dict(depth=FE.kernel_depths(256)[-1] + 1), False),
               (dict(width=2304, half=1152), False),
               (dict(kp_freqs=KP10 + (1024.,), dparts=(23 * J, 3 * J)),
                True),
@@ -320,14 +323,30 @@ GATE_CASES = [(dict(width=512), False), (dict(depth=6), True),
               (dict(kp_freqs=KP_MAX, dparts=((2 * FE.F_MAX + 1) * J,
                                              3 * J)), True),
               (dict(kp_freqs=KP_MAX + (2. ** FE.F_MAX,),
-                    dparts=((2 * FE.F_MAX + 3) * J, 3 * J)), False)]
+                    dparts=((2 * FE.F_MAX + 3) * J, 3 * J)), False),
+              (dict(depth=17), True), (dict(depth=24), True),
+              (dict(depth=FE.kernel_depths(256)[-1]), True),
+              (dict(width=512, half=256, depth=24), True),
+              (dict(width=512, half=256, depth=FE.kernel_depths(512)[-1]),
+               True),
+              (dict(width=512, half=256,
+                    depth=FE.kernel_depths(512)[-1] + 1), False),
+              (dict(width=1024, half=512, depth=9), True),
+              (dict(width=1024, half=512, depth=16), True),
+              (dict(width=1024, half=512,
+                    depth=FE.kernel_depths(1024)[-1] + 1), False),
+              (dict(width=2048, half=1024,
+                    depth=FE.kernel_depths(2048)[-1]), True),
+              (dict(width=2048, half=1024,
+                    depth=FE.kernel_depths(2048)[-1] + 1), False)]
 
 
 @pytest.mark.parametrize('change,admitted', GATE_CASES)
 def test_kernel_shape_gate(scene, change, admitted):
     """The CUDA kernels are compiled per static shape for every shape
-    of the gate (a multiple of 256 up to 2048 wide, 1-16 layers, 1 to
-    F_MAX kp bands, 1-21 view rows, codes of at most 128); any other
+    of the gate (a multiple of 256 up to 2048 wide, 1-32 layers at 256
+    wide, 1-24 at 512 and 1-16 wider, 1 to F_MAX kp bands, 1-21 view rows,
+    codes of at most 128); any other
     static must be refused before
     a launch, never run wrong: a shape still to port names ROADMAP
     B.1.4, the kp bands past F_MAX the convention C.17.  A change to
@@ -351,7 +370,9 @@ def test_kernel_shape_gate(scene, change, admitted):
             changed.width, FE.kernel_codes(changed.vparts[1]))
     else:
         cap = len(est_c.kp_freqs) > FE.F_MAX
+        deep = changed.depth > FE.kernel_depths(changed.width)[-1]
         with pytest.raises(NotImplementedError, match=(
                 'recurrence no longer holds.*C.17' if cap
-                else 'not ported yet.*ROADMAP.md B.1.4')):
+                else 'per-tile sums are not held.*ROADMAP.md B.1.4'
+                if deep else 'not ported yet.*ROADMAP.md B.1.4')):
             FE.kernel_shape(changed, est_c)

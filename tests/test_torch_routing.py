@@ -2,8 +2,9 @@
 the CPU, where the route is the one the card takes.
 
 The fused encode kernels K1-K4 are compiled per static shape, for nets
-256 or 512 wide of 1-16 layers at 1-13 kp bands (``fused_encmlp.F_MAX``)
-and 1-9 view rows (``fused_encmlp.kernel_shape``).
+256 or 512 wide of 1-32 layers (1-16 wider) at 1-13 kp bands
+(``fused_encmlp.F_MAX``) and 1-21 view rows
+(``fused_encmlp.kernel_shape``).
 ``fused_encmlp.kernel_shape_ok`` decides from the raycast config alone
 whether they take it; a one-subject config on the fused backend that
 they do not take runs the plain encode and the split-operand kernels
@@ -15,6 +16,7 @@ type of the rest of the grammar: K5/K6 at its trunk width.
 """
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import jax
@@ -39,6 +41,7 @@ from anerf_torch.ops import fused_mlp as FM
 from anerf_torch.training.trainer import tree_leaves
 from anerf_torch.utils.config import load_config
 
+from test_torch_encmlp_shapes_bwd import _assert_f64_close
 from test_torch_render import MAPS, _close
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -66,7 +69,8 @@ ROUTES = {'h36m_prot2.txt': 'fused', 'h36m_prot2_finetune.txt': 'fused',
 # with two subjects at 11 view rows, which runs the split route, whose
 # K5/K6 take its views parts 792 + 1 + 16 since C.15; surreal at the kp
 # band cap F_MAX (fused, B.1.4's kp-band row) and one band past it (split:
-# the plain encode's exact sines, ROADMAP C.17)
+# the plain encode's exact sines, ROADMAP C.17); surreal at two 24-layer
+# nets, which the fused kernels take since B.1.4's depth row
 VARIANTS = {'surreal_single.txt:netwidth512': (
     'surreal_single.txt', dict(netwidth=512, netwidth_fine=512), 'fused'),
     'surreal_single.txt:netwidth768': (
@@ -81,7 +85,9 @@ VARIANTS = {'surreal_single.txt:netwidth512': (
     f'surreal.txt:multires{FE.F_MAX}': (
     'surreal.txt', dict(multires=FE.F_MAX), 'fused'),
     f'surreal.txt:multires{FE.F_MAX + 1}': (
-    'surreal.txt', dict(multires=FE.F_MAX + 1), 'split')}
+    'surreal.txt', dict(multires=FE.F_MAX + 1), 'split'),
+    'surreal.txt:netdepth24': (
+    'surreal.txt', dict(netdepth=24, netdepth_fine=24), 'fused')}
 
 
 def test_every_shipped_config_is_listed():
@@ -290,3 +296,82 @@ def test_kp_band_cap_matches_jax(bands):
             fixed={k: torch.as_tensor(v) for k, v in fixed.items()})
     for k in MAPS:
         _close(ref[k], got[k])
+
+
+def _deep_port(t_rc, t_cfg, j_params, tb, fixed, loss):
+    """The port's maps and gradients of ``loss`` with respect to every
+    parameter (a torch copy of ``j_params``) through ``render_rays``."""
+    t_params = jax.tree_util.tree_map(
+        lambda a: torch.tensor(np.asarray(a, np.float32), requires_grad=True),
+        jax.tree_util.tree_map(np.asarray, j_params))
+    got = trc.render_rays(
+        t_rc, t_params, tb['rays_o'], tb['rays_d'], 0.0, 1.0,
+        {k: tb[k] for k in POSE_KEYS}, t_embed_state(t_cfg, t_rc, 500),
+        cam_idxs=tb['cam_idxs'],
+        fixed={k: torch.as_tensor(v) for k, v in fixed.items()})
+    leaves = jax.tree_util.tree_leaves(t_params)
+    grads = torch.autograd.grad(loss(got), leaves, allow_unused=True)
+    return got, [np.zeros(a.shape, np.float32) if g is None else g.numpy()
+                 for a, g in zip(leaves, grads)]
+
+
+def test_deep_net_fused_matches_jax():
+    """surreal.txt at two 24-layer nets (B.1.4's depth row), which the
+    fused backend runs on K1-K4's twins, against anerf_tpu's XLA path on
+    the same parameters and pinned samples: the maps at the render
+    tests' bar (1e-3 x the reference map's max), and the gradients of a
+    loss on the maps with respect to every parameter by the rule that
+    holds nets past 8 layers (``test_torch_encmlp_shapes_bwd.py``'s
+    ``_assert_f64_close``): within the backward bars of
+    ``test_torch_fused_bwd.py`` (cosine > 0.9999, norm within 5e-3) or
+    within twice the two evaluations' summed distances from the f64
+    chain (the port's twins with their products in f64 from the
+    encode's own f32 bands, ``chip_smoke._f64_twins(f32_encode=True)``),
+    whichever is wider.  There the twins read 0.99998 or closer against
+    the f64 chain, anerf_tpu's XLA path 0.99681 on the first layer's
+    bias gradient."""
+    sys.path.insert(0, os.path.dirname(CONFIGS))
+    import chip_smoke
+    path = os.path.join(CONFIGS, 'surreal.txt')
+    over = dict(netdepth=24, netdepth_fine=24)
+    R = 8
+    j_cfg, t_cfg = j_load_config(path, **over), load_config(path, **over)
+    _, bones, _, kps, skts, cyls = T.synthetic_pose(N_FRAMES)
+    b = T.synthetic_batch(R, N_FRAMES, kps, skts, bones, cyls)
+    j_rc = dataclasses.replace(j_build(j_cfg, n_framecodes=N_FRAMES),
+                               mlp_backend='xla')
+    t_rc = t_build(t_cfg, n_framecodes=N_FRAMES)
+    assert t_rc.mlp_backend == 'fused' and FE.kernel_shape_ok(t_rc)
+    assert FE.kernel_shape(*FE._statics(
+        t_rc, t_rc.n_joints, 1, FE.DEFAULT_TILE, True)) == (
+            7, 9, False, 24, 256, 16)
+    j_params = j_init(jax.random.PRNGKey(0), j_rc, j_cfg)
+    rng = np.random.RandomState(7)
+    S, I = j_rc.N_samples, j_rc.N_importance
+    fixed = {'coarse_u': rng.uniform(size=(R, S)).astype(np.float32),
+             'fine_u': rng.uniform(size=(R, I)).astype(np.float32),
+             'coarse_noise': rng.normal(size=(R, S)).astype(np.float32),
+             'fine_noise': rng.normal(size=(R, S + I)).astype(np.float32)}
+    j_est = j_embed_state(j_cfg, j_rc, 500)
+    j_pose = {k: jnp.asarray(b[k]) for k in POSE_KEYS}
+
+    def j_maps(prm):
+        return jrc.render_rays(
+            j_rc, prm, jnp.asarray(b['rays_o']), jnp.asarray(b['rays_d']),
+            0.0, 1.0, j_pose, j_est, cam_idxs=jnp.asarray(b['cam_idxs']),
+            fixed={k: jnp.asarray(v) for k, v in fixed.items()})
+
+    def loss(out):
+        return ((out['rgb_map'] ** 2).mean() + (out['rgb0'] ** 2).mean()
+                + (out['acc_map'] ** 2).mean())
+    ref = j_maps(j_params)
+    g_ref = [np.asarray(a, np.float32) for a in jax.tree_util.tree_leaves(
+        jax.grad(lambda prm: loss(j_maps(prm)))(j_params))]
+    tb = T.to_device(b, 'cpu')
+    got, grads = _deep_port(t_rc, t_cfg, j_params, tb, fixed, loss)
+    for k in MAPS:
+        _close(ref[k], got[k].detach())
+    with chip_smoke._f64_twins(FE, f32_encode=True):
+        _, f64 = _deep_port(t_rc, t_cfg, j_params, tb, fixed, loss)
+    assert len(g_ref) == len(grads) == len(f64)
+    _assert_f64_close(g_ref, grads, f64, 'netdepth24')
